@@ -1,0 +1,195 @@
+"""SigLIP-style vision tower (port of ``cogstream_tpu/models/vision_encoder.py``,
+packed serving path).
+
+27 pre-LN layers (hidden 1152, 16 heads of 72, gelu-tanh MLP 4304) over
+a flat ``[N, hidden]`` token stream of patch rows; each frame is one
+attention segment; a merge-window mean downsamples at the end.
+
+Per layer on a CUDA device: K2 LayerNorm → ONE fused QKV GEMM (weights
+concatenated once at load, ``[3*H*D, hidden]``) → K1 segment attention
+reading q/k/v straight out of that GEMM output with the 2D RoPE fused
+in → o-projection → K2 LayerNorm → MLP. The plain GEMMs are
+``torch.nn.functional.linear``. The TPU-only 128-lane per-head weight
+padding has no counterpart here.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import VisionEncoderConfig
+from ..ops.flash_attention import (flash_attention_packed_rope_fusedqkv,
+                                   vision_kv_ranges)
+from ..ops.layernorm import layernorm
+from ..ops.rope import grid_position_ids, vision_rope_angles, vision_rope_cos_sin
+
+
+def linear(din: int, dout: int, device, dtype, bias: bool = True) -> nn.Linear:
+    """An nn.Linear with uninitialized storage (weights come from the
+    bridge or ``init_cogreasoner_params``)."""
+    return nn.utils.skip_init(nn.Linear, din, dout, bias=bias,
+                              device=device or "cpu", dtype=dtype)
+
+
+class LayerNormParams(nn.Module):
+    """f32 scale/bias of a LayerNorm applied through ``ops.layernorm``."""
+
+    def __init__(self, hidden: int, device):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(hidden, device=device))
+        self.bias = nn.Parameter(torch.zeros(hidden, device=device))
+
+    def forward(self, x: torch.Tensor, eps: float) -> torch.Tensor:
+        return layernorm(x, self.scale, self.bias, eps)
+
+
+class VisionLayer(nn.Module):
+    def __init__(self, cfg: VisionEncoderConfig, device, dtype):
+        super().__init__()
+        H, I = cfg.hidden_size, cfg.intermediate_size
+        self.ln1 = LayerNormParams(H, device)
+        self.ln2 = LayerNormParams(H, device)
+        self.qkv = linear(H, 3 * H, device, dtype)   # rows: q | k | v
+        self.o = linear(H, H, device, dtype)
+        self.fc1 = linear(H, I, device, dtype)
+        self.fc2 = linear(I, H, device, dtype)
+
+
+class VisionTower(nn.Module):
+    def __init__(self, cfg: VisionEncoderConfig, device=None, dtype=None):
+        super().__init__()
+        dtype = dtype or cfg.torch_dtype
+        self.cfg = cfg
+        patch_dim = cfg.num_channels * cfg.patch_size ** 2
+        self.patch_embed = linear(patch_dim, cfg.hidden_size, device, dtype)
+        self.layers = nn.ModuleList(VisionLayer(cfg, device, dtype)
+                                    for _ in range(cfg.num_hidden_layers))
+        self.post_ln = LayerNormParams(cfg.hidden_size, device)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.patch_embed.weight.dtype
+
+
+class VisionMetadata(NamedTuple):
+    """Host-precomputed per-batch metadata for the tower."""
+
+    pos_ids: np.ndarray          # [N, 2]
+    segment_ids: np.ndarray      # [N] (-1 = pad)
+    merge_group_ids: np.ndarray  # [N] output token per input token
+    num_out_tokens: int
+    kv_lo: np.ndarray            # [ceil(N/64)] K1 key range per q tile
+    kv_hi: np.ndarray
+
+
+def build_vision_metadata(grid_sizes: np.ndarray, merge_sizes: np.ndarray,
+                          pad_to: Optional[int] = None) -> VisionMetadata:
+    """Positions, frame-segment ids and merge groups in patchify order;
+    each frame is its own attention segment."""
+    pos_list, seg_list, grp_list = [], [], []
+    seg = 0
+    out_tokens = 0
+    for (t, gh, gw), ms in zip(np.asarray(grid_sizes), np.asarray(merge_sizes)):
+        t, gh, gw, ms = int(t), int(gh), int(gw), int(ms)
+        pos_list.append(grid_position_ids(t, gh, gw, ms))
+        seg_list.append(np.repeat(np.arange(seg, seg + t, dtype=np.int32),
+                                  gh * gw))
+        seg += t
+        n_groups = t * (gh // ms) * (gw // ms)
+        grp_list.append(np.repeat(np.arange(out_tokens, out_tokens + n_groups,
+                                            dtype=np.int32), ms * ms))
+        out_tokens += n_groups
+    if pos_list:
+        pos = np.concatenate(pos_list)
+        segs = np.concatenate(seg_list)
+        grps = np.concatenate(grp_list)
+    else:
+        pos = np.zeros((0, 2), np.int32)
+        segs = np.zeros((0,), np.int32)
+        grps = np.zeros((0,), np.int32)
+    n = pos.shape[0]
+    if pad_to is not None and pad_to > n:
+        pad = pad_to - n
+        pos = np.concatenate([pos, np.zeros((pad, 2), np.int32)])
+        segs = np.concatenate([segs, np.full((pad,), -1, np.int32)])
+        grps = np.concatenate([grps, np.full((pad,), -1, np.int32)])
+    kv_lo, kv_hi = vision_kv_ranges(segs)
+    return VisionMetadata(pos, segs, grps, out_tokens, kv_lo, kv_hi)
+
+
+def vision_encoder_core(
+    tower: VisionTower,
+    pixel_values: torch.Tensor,    # [N, C*ps*ps] uint8 or float
+    pos_ids: torch.Tensor,         # [N, 2] int32
+    segment_ids: torch.Tensor,     # [N] int32, -1 = pad
+    merge_group_ids: torch.Tensor, # [N] int32
+    num_out_tokens: int,
+    kv_lo: torch.Tensor,           # [ceil(N/64)] int32
+    kv_hi: torch.Tensor,
+) -> torch.Tensor:
+    """Patch rows → merged features [num_out_tokens, hidden]."""
+    cfg = tower.cfg
+    dtype = tower.dtype
+    dev = pixel_values.device
+    H, D = cfg.num_attention_heads, cfg.head_dim
+    n = pixel_values.shape[0]
+    if pixel_values.dtype == torch.uint8:
+        # raw uint8 rows normalize on the device with the host pipeline's
+        # op order (rescale, -mean, /std, all f32)
+        mean = torch.tensor(cfg.image_mean, dtype=torch.float32,
+                            device=dev)[:, None]
+        std = torch.tensor(cfg.image_std, dtype=torch.float32,
+                           device=dev)[:, None]
+        xf = pixel_values.reshape(n, cfg.num_channels, -1).to(torch.float32)
+        xf = (xf * torch.tensor(cfg.rescale_factor, dtype=torch.float32,
+                                device=dev) - mean) / std
+        pixel_values = xf.reshape(n, -1)
+    x = tower.patch_embed(pixel_values.to(dtype))
+    cos2, sin2 = vision_rope_cos_sin(vision_rope_angles(pos_ids, D))
+    cos, sin = cos2[:, 0].contiguous(), sin2[:, 0].contiguous()
+    scale = 1.0 / math.sqrt(D)
+    eps = cfg.layer_norm_eps
+    for layer in tower.layers:
+        qkv = layer.qkv(layer.ln1(x, eps))
+        attn = flash_attention_packed_rope_fusedqkv(
+            qkv, cos, sin, segment_ids, kv_lo, kv_hi, H, scale)
+        x = x + layer.o(attn)
+        h = F.gelu(layer.fc1(layer.ln2(x, eps)), approximate="tanh")
+        x = x + layer.fc2(h)
+    x = tower.post_ln(x, eps)
+
+    # merge-window mean (exact bilinear downsample for integer factors)
+    valid = (merge_group_ids >= 0).to(torch.float32)[:, None]
+    gid = merge_group_ids.clamp(min=0).to(torch.int64)
+    sums = torch.zeros((num_out_tokens, x.shape[1]), dtype=torch.float32,
+                       device=dev).index_add_(0, gid, x.to(torch.float32) * valid)
+    counts = torch.zeros((num_out_tokens, 1), dtype=torch.float32,
+                         device=dev).index_add_(0, gid, valid)
+    return (sums / counts.clamp(min=1.0)).to(dtype)
+
+
+def vision_encoder_forward(tower: VisionTower, pixel_values,
+                           grid_sizes: np.ndarray, merge_sizes: np.ndarray,
+                           pad_to: Optional[int] = None) -> torch.Tensor:
+    """Metadata on the host, tower on ``pixel_values``' device (the
+    tower's device for host arrays). Returns [sum(t*gh*gw/ms^2), hidden]."""
+    meta = build_vision_metadata(grid_sizes, merge_sizes, pad_to=pad_to)
+    dev = tower.patch_embed.weight.device
+    pv = torch.as_tensor(pixel_values).to(dev)
+    n = meta.pos_ids.shape[0]
+    if pv.shape[0] < n:   # pad pixel rows to the bucket
+        pv = torch.cat([pv, pv.new_zeros((n - pv.shape[0], pv.shape[1]))])
+
+    def dev_i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    return vision_encoder_core(
+        tower, pv, dev_i32(meta.pos_ids), dev_i32(meta.segment_ids),
+        dev_i32(meta.merge_group_ids), meta.num_out_tokens,
+        dev_i32(meta.kv_lo), dev_i32(meta.kv_hi))

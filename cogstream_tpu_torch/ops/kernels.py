@@ -1,0 +1,164 @@
+"""Build and load the port's CUDA kernels (``cogstream_tpu_torch/csrc``).
+
+All ``csrc/*.cu`` files compile with nvcc into ONE shared library with
+a plain C interface, loaded with ``ctypes`` — seconds to build, where
+an extension that includes PyTorch's headers takes minutes. The build
+runs at first use (never at import: the CPU tests import every module
+on hosts with no nvcc) into ``build/kernels/`` at the repository root,
+under a file name keyed by a hash of the sources, so an edited source
+rebuilds and a stale library is never loaded.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises on a non-zero code, so a
+refused launch (too much shared memory, a bad grid) never passes
+silently.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of every entry point (all return cudaError_t as int)
+_SIGNATURES = {
+    # x, scale, bias, out, n, h, eps, dtype, stream
+    "cs_layernorm": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
+    # qkv, cos, sin, seg, kv_lo, kv_hi, out, n, heads, d, block_q,
+    # scale, dtype, stream
+    "cs_vision_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _F, _I, _P),
+    # q, k, v, q_pos, eff, tile_min, out, part_m, part_l, part_acc,
+    # B, S, Hq, Hkv, D, T_cache, kv_len, chunk_tiles, n_chunks, scale,
+    # dtype, stream
+    "cs_gqa_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # part_m, part_l, part_acc, out, B, S, Hq, Hkv, D, n_chunks, dtype,
+    # stream
+    "cs_gqa_combine": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+}
+# dtype codes shared with csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+last_build_seconds: Optional[float] = None   # None: loaded a cached build
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels of "
+                       "cogstream_tpu_torch build only where the CUDA "
+                       "toolkit is installed")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile ``csrc/*.cu`` into ``build/kernels/`` unless a library for
+    the current sources already exists. Returns the library path."""
+    global last_build_seconds
+    out = BUILD_DIR / f"libcogstream_kernels_{_source_hash()}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sources = sorted(str(p) for p in CSRC.glob("*.cu"))
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    if verbose:
+        cmd[1:1] = ["-Xptxas", "-v"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}\n"
+                           f"{r.stderr}")
+    if verbose:
+        print(r.stdout + r.stderr)
+    os.replace(tmp, out)   # atomic: a reader never sees a partial file
+    last_build_seconds = time.perf_counter() - t0
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(args)
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def plain_route(t: torch.Tensor) -> bool:
+    """True for a CPU tensor (the wrapper runs its plain version), False
+    for a CUDA tensor (the wrapper launches its kernel); any other
+    device raises. There is no fallback from a CUDA tensor."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"no kernel for device {t.device}")
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {code}")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
+    return DTYPE_CODES[t.dtype]
+
+
+def require(t: torch.Tensor, name: str, device: torch.device,
+            dtype=None, shape=None) -> None:
+    """Validate a kernel operand before its pointer reaches C."""
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    if dtype is not None and t.dtype != dtype:
+        raise TypeError(f"{name} is {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,164 @@
+"""LM attention over the position-tagged KV cache: the wrappers of K3
+(prefill) and K4 (decode), both in ``csrc/lm_attention.cu``, and their
+plain versions.
+
+Port of ``cogstream_tpu/ops/lm_attention.py``. All validity is folded
+into one int32 per slot (:func:`effective_kv_positions`): the stored
+position where the slot is visible, ``SENTINEL`` where it is empty or
+masked by ``kv_allowed``. A query at position p sees slot t iff
+``p >= eff[t]``; padded queries carry -1 and see nothing.
+
+K4 reads the cache in place: the port writes each decode step's K/V
+into the cache before attention (runtime/generate.py), so there is no
+side buffer and no separate fresh-K/V stream.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from . import kernels
+from .attention import causal_gqa_attention
+
+SENTINEL = 2 ** 30          # eff position of an invisible KV slot
+DECODE_MAX_S = 8            # K4 serves steps of at most this many tokens
+DECODE_CHUNK_TILES = 4      # K4 split: 4 x 64 = 256 slots per block
+_TILE = 64                  # key tile of the CUDA kernels (common.cuh BK)
+_PLAIN_Q_CHUNK = 256        # plain version: query rows per dense block
+
+
+def effective_kv_positions(pos: torch.Tensor,
+                           allowed: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """[B, T] int32: stored position where the slot is visible, SENTINEL
+    where it is empty (pos < 0) or masked by ``allowed``."""
+    ok = pos >= 0
+    if allowed is not None:
+        ok = ok & allowed
+    return torch.where(ok, pos, torch.full_like(pos, SENTINEL)).to(
+        torch.int32)
+
+
+def gqa_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        q_positions: torch.Tensor, eff_kv_pos: torch.Tensor,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of K3 and K4: dense causal GQA over the first
+    ``eff_kv_pos.shape[1]`` slots, in blocks of query rows so the
+    [S, T] logits stay bounded at long prefills."""
+    T = eff_kv_pos.shape[1]
+    k, v = k[:, :T], v[:, :T]
+    outs = []
+    for s0 in range(0, q.shape[1], _PLAIN_Q_CHUNK):
+        sl = slice(s0, s0 + _PLAIN_Q_CHUNK)
+        outs.append(causal_gqa_attention(
+            q[:, sl], k, v, q_positions[:, sl],
+            kv_positions=eff_kv_pos, scale=scale))
+    return torch.cat(outs, dim=1)
+
+
+def _check_operands(q, k, v, q_positions, eff_kv_pos):
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    dev = q.device
+    kernels.require(q, "q", dev)
+    kernels.require(k, "k", dev, q.dtype, (B, T, Hkv, D))
+    kernels.require(v, "v", dev, q.dtype, (B, T, Hkv, D))
+    kernels.require(q_positions, "q_positions", dev, torch.int32, (B, S))
+    kernels.require(eff_kv_pos, "eff_kv_pos", dev, torch.int32)
+    if eff_kv_pos.shape[0] != B or eff_kv_pos.shape[1] > T:
+        raise ValueError(f"eff_kv_pos {tuple(eff_kv_pos.shape)} does not "
+                         f"fit the cache [B={B}, T={T}]")
+    if Hq % Hkv:
+        raise ValueError(f"{Hq} query heads do not group over {Hkv}")
+
+
+def prefill_flash_attention(
+    q: torch.Tensor,            # [B, S, Hq, D]
+    k: torch.Tensor,            # [B, T, Hkv, D] cache (or new) keys
+    v: torch.Tensor,            # [B, T, Hkv, D]
+    q_positions: torch.Tensor,  # [B, S] int32, -1 = padding
+    eff_kv_pos: torch.Tensor,   # [B, T_read] int32, T_read <= T
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """K3: causal GQA flash attention over a position-tagged KV region,
+    the drop-in for ``causal_gqa_attention`` with validity pre-folded
+    into ``eff_kv_pos``. Any T; bf16 or f32 operands."""
+    B, S, Hq, D = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    if kernels.plain_route(q):
+        return gqa_attention_plain(q, k, v, q_positions, eff_kv_pos, scale)
+    _check_operands(q, k, v, q_positions, eff_kv_pos)
+    T, Hkv = k.shape[1], k.shape[2]
+    kv_len = eff_kv_pos.shape[1]
+    out = torch.empty_like(q)
+    if B * S == 0:
+        return out
+    n_tiles = -(-kv_len // _TILE)
+    tile_min = torch.empty((B, n_tiles), dtype=torch.int32, device=q.device)
+    lib = kernels.library()
+    kernels.check(lib.cs_gqa_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
+        eff_kv_pos.data_ptr(), tile_min.data_ptr(), out.data_ptr(),
+        None, None, None, B, S, Hq, Hkv, D, T, kv_len, n_tiles, 1,
+        float(scale), kernels.dtype_code(q), kernels.stream_ptr(q)),
+        "cs_gqa_attention")
+    prefill_flash_attention.launches += 1
+    return out
+
+
+def decode_attention(
+    q: torch.Tensor,            # [B, S<=8, Hq, D] this step's queries
+    k: torch.Tensor,            # [B, T, Hkv, D] cache, this step written
+    v: torch.Tensor,            # [B, T, Hkv, D]
+    q_positions: torch.Tensor,  # [B, S] int32, -1 = finished row
+    eff_kv_pos: torch.Tensor,   # [B, kv_window] int32
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """K4: cached decode attention over the first ``kv_window`` slots,
+    split over the cache (flash-decoding) and merged in a second pass."""
+    B, S, Hq, D = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    if S > DECODE_MAX_S:
+        raise ValueError(f"decode attention takes S <= {DECODE_MAX_S}")
+    if kernels.plain_route(q):
+        return gqa_attention_plain(q, k, v, q_positions, eff_kv_pos, scale)
+    _check_operands(q, k, v, q_positions, eff_kv_pos)
+    T, Hkv = k.shape[1], k.shape[2]
+    kv_len = eff_kv_pos.shape[1]
+    out = torch.empty_like(q)
+    if B * S == 0 or kv_len == 0:
+        return out.zero_()
+    R = S * (Hq // Hkv)
+    n_tiles = -(-kv_len // _TILE)
+    n_chunks = -(-n_tiles // DECODE_CHUNK_TILES)
+    dev = q.device
+    tile_min = torch.empty((B, n_tiles), dtype=torch.int32, device=dev)
+    part_m = torch.empty((B * Hkv, n_chunks, R), dtype=torch.float32,
+                         device=dev)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((B * Hkv, n_chunks, R, D), dtype=torch.float32,
+                           device=dev)
+    lib = kernels.library()
+    stream = kernels.stream_ptr(q)
+    code = kernels.dtype_code(q)
+    kernels.check(lib.cs_gqa_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
+        eff_kv_pos.data_ptr(), tile_min.data_ptr(), None,
+        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+        B, S, Hq, Hkv, D, T, kv_len, DECODE_CHUNK_TILES, n_chunks,
+        float(scale), code, stream), "cs_gqa_attention")
+    kernels.check(lib.cs_gqa_combine(
+        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+        out.data_ptr(), B, S, Hq, Hkv, D, n_chunks, code, stream),
+        "cs_gqa_combine")
+    decode_attention.launches += 1
+    return out
+
+
+prefill_flash_attention.launches = 0
+decode_attention.launches = 0
