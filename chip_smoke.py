@@ -3,27 +3,36 @@
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure exits non-zero):
+Phases (each prints one line or a few; any failure exits non-zero):
 
 1. device — the card's name and power limit from nvidia-smi;
-2. build  — nvcc builds the port's kernels (cogstream_tpu_torch/csrc);
-3. kernels — each kernel (K1 vision attention, K2 LayerNorm, K3 prefill
-   attention, K4 decode attention) against its plain PyTorch version on
-   the card, in bf16, at the shapes the 7B serving path gives it, with
-   both times;
+2. build  — nvcc builds the port's kernels (cogstream_tpu_torch/csrc), one
+   process per source, all at once;
+3. kernels — each kernel against its plain PyTorch version on the card,
+   in bf16, at the shapes the 7B serving paths give it, with both times:
+   K1 vision attention, K2 LayerNorm, K3 prefill attention, K4 decode
+   attention, and the int4 GEMVs K6 (uniform and cubic) and K7 on the
+   lm_head, K8 and K9 on stacked gate_proj / down_proj;
 4. reference — a tiny-config session (f32) runs ingest → ask(AC) →
    ingest → ask(FCC) on the card (kernels) and on the CPU (plain
-   versions); greedy tokens, selections and slot ranges must agree;
+   versions); greedy tokens, selections and slot ranges must agree. Then
+   the same with a rank-1 int4 decoder and W4A8 decode (K6-K9);
 5. main path — a 7B-width ``StreamingSession`` (cogreasoner_7b, bf16,
    random weights from a seeded generator, 16384-slot cache) ingests two
    16-frame segments (24x42 patch grids, merge 2, seeded uint8 patch
-   rows) and answers ask(AC) and ask(FCC); every kernel's launch count
-   must rise during this phase, every output must be finite and the slot
-   ranges ordered and disjoint.
+   rows) and answers ask(AC) and ask(FCC); K1-K4's launch counts must
+   rise during this phase, every output must be finite and the slot
+   ranges ordered and disjoint;
+6. int4 main path — the same model's decoder is quantized in place to
+   rank-1 uniform int4 (the bf16 weights are freed; memory before and
+   after is printed); then, with w4a8_decode off and on, a fresh session
+   ingests a 16-frame segment and answers ask(AC) and ask(FCC). Counted
+   over the sessions alone, K6 and K8 must launch with w4a8_decode off
+   (and K7, K9 not) and K7 and K9 with it on.
 
-With ``--profile`` it then runs torch.profiler over one more ingest and
-two asks on the same session and prints each phase's device busy share
-and its kernels by device time.
+With ``--profile`` it runs torch.profiler over one more ingest and two
+asks on the phase-5 session (before phase 6) and prints each phase's
+device busy share and its kernels by device time.
 
 It then prints the kernels JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``. It runs on the first visible card
@@ -58,7 +67,21 @@ KERNELS = [  # name, wrapper module, attribute, source, TPU kernel replaced
     ("K4_decode_attention", "cogstream_tpu_torch.ops.lm_attention",
      "decode_attention", "cogstream_tpu_torch/csrc/lm_attention.cu",
      "cogstream_tpu/ops/lm_attention.py:316"),
+    ("K6_int4_gemv", "cogstream_tpu_torch.ops.quant_gemv", "gemv_k6",
+     "cogstream_tpu_torch/csrc/int4_gemv.cu",
+     "cogstream_tpu/ops/quant_gemv.py:112"),
+    ("K7_int4_gemv_w4a8", "cogstream_tpu_torch.ops.quant_gemv", "gemv_k7",
+     "cogstream_tpu_torch/csrc/int4_gemv.cu",
+     "cogstream_tpu/ops/quant_gemv.py:148"),
+    ("K8_int4_gemv_idx", "cogstream_tpu_torch.ops.quant_gemv", "gemv_k8",
+     "cogstream_tpu_torch/csrc/int4_gemv.cu",
+     "cogstream_tpu/ops/quant_gemv.py:247"),
+    ("K9_int4_gemv_idx_w4a8", "cogstream_tpu_torch.ops.quant_gemv",
+     "gemv_k9", "cogstream_tpu_torch/csrc/int4_gemv.cu",
+     "cogstream_tpu/ops/quant_gemv.py:282"),
 ]
+BF16_PATH = range(0, 4)     # K1-K4: the bf16 main path (phase 5)
+INT4_PATH = range(4, 8)     # K6-K9: the int4 main path (phase 6)
 
 
 def log(msg: str) -> None:
@@ -85,6 +108,30 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, n: int, replays: int = 5) -> float:
+    """Device time of one ``fn`` call: ``n`` calls captured into one CUDA
+    graph, replayed ``replays`` times between CUDA events. Unlike
+    :func:`cuda_ms` it excludes the host's enqueue time, which exceeds
+    the device time of a small kernel."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * n)
 
 
 def row_check(got, ref, width: int):
@@ -224,6 +271,131 @@ def check_kernels(dev):
     return results
 
 
+def _int4_store(rng, dev, shape, cubic=False):
+    """Random rank-1 int4 storage [L,] din/2, dout on the card (every
+    byte value occurs; scales of the magnitude a real fit gives)."""
+    import torch
+
+    from cogstream_tpu_torch.ops.quant import CUBIC_A, CUBIC_C
+
+    *lead, half, dout = shape
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    q4 = torch.randint(-128, 128, shape, dtype=torch.int8, device=dev,
+                       generator=gen)
+    scale = torch.rand((*lead, dout), device=dev, generator=gen) * 0.03 + 0.01
+    rscale = torch.rand((*lead, 2 * half), device=dev, generator=gen) + 0.5
+    code = torch.tensor([CUBIC_A, CUBIC_C] if cubic else [1.0 / 7.0],
+                        device=dev).expand(*lead, -1).contiguous()
+    return {"q4": q4, "scale": scale, "rscale": rscale, "code": code}
+
+
+def check_int4_kernels(dev):
+    """K6 (uniform and cubic) and K7 on the 7B lm_head (3584 -> 152064,
+    m = 1); K8 and K9 on stacked gate_proj [28, 1792, 18944] at m = 1 and
+    40 and down_proj [28, 9472, 3584] at m = 1, layer 17. Each wrapper
+    against its plain version on the same card, bf16 in and out, with
+    the per-row bound of phase 3. Kernel and plain ms: device time of
+    the launcher alone (and of the plain version) on prepared operands,
+    from CUDA graphs; stacked sites cycle over all 28 layers so every
+    launch reads its weights from device memory, as a decode step does.
+    Wrapper ms: CUDA events around the whole wrapper, activation
+    preparation (rscale fold, bf16 rounding or int8 quantization) and the
+    host's enqueue time included."""
+    import torch
+
+    from cogstream_tpu_torch.ops import quant_gemv as qg
+    from cogstream_tpu_torch.ops.quant import CUBIC_A, CUBIC_C
+
+    rng = np.random.default_rng(1)
+    bf = torch.bfloat16
+
+    # 2D: the lm_head, uniform and cubic codebooks
+    head_u = _int4_store(rng, dev, (1792, 152064))
+    head_c = {**head_u, "code": torch.tensor([CUBIC_A, CUBIC_C], device=dev)}
+    x1 = torch.as_tensor(rng.standard_normal((1, 3584))).to(dev, bf)
+    lines = []
+    for key, qp, w4a8 in (("K6", head_u, False), ("K6_cubic", head_c, False),
+                          ("K7", head_u, True)):
+        got = qg.int4_rank1_gemv(x1, qp, bf, w4a8=w4a8)
+        ref = qg.int4_rank1_gemv_plain(x1, qp, bf, w4a8=w4a8)
+        err, ratio = row_check(got, ref, 152064)
+        xs = x1.float() * qp["rscale"][None]
+        sc = qp["scale"] * qp["code"][0] if key != "K6_cubic" else qp["scale"]
+        if w4a8:
+            xq, sx = qg._int8_halves(xs, 1792)
+            ms = graph_ms(lambda: qg.gemv_k7(xq, sx, qp["q4"], sc, bf), 20)
+            plain_ms = graph_ms(lambda: qg._plain_w4a8(xq, sx, qp["q4"], sc,
+                                                       bf), 3)
+        else:
+            xb = xs.to(bf)
+            code = qp["code"] if key == "K6_cubic" else torch.cat(
+                [qp["code"], qp["code"].new_zeros(1)])
+            cubic = key == "K6_cubic"
+            ms = graph_ms(lambda: qg.gemv_k6(xb, qp["q4"], sc, code, cubic,
+                                             bf), 20)
+            plain_ms = graph_ms(lambda: qg._plain_bf16(xb, qp["q4"], sc, code,
+                                                       cubic, bf), 3)
+        wrap_ms = cuda_ms(lambda: qg.int4_rank1_gemv(x1, qp, bf, w4a8=w4a8),
+                          20)
+        lines.append((key, "lm_head m=1", err, ratio, ms, plain_ms, wrap_ms))
+
+    # stacked: gate_proj (m = 1 and 40) and down_proj (m = 1), layer 17
+    for site, shape, ms_list in (("gate_proj", (28, 1792, 18944), (1, 40)),
+                                 ("down_proj", (28, 9472, 3584), (1,))):
+        qp = _int4_store(rng, dev, shape)
+        ids = torch.arange(28, dtype=torch.int32, device=dev)
+        L, half, dout = shape
+        for m in ms_list:
+            x = torch.as_tensor(rng.standard_normal((m, 2 * half))).to(dev, bf)
+            for key, w4a8 in (("K8", False), ("K9", True)):
+                lay = ids[17:18]
+                got = qg.int4_rank1_gemv_stacked(x, qp, lay, bf, w4a8=w4a8)
+                ref = qg.int4_rank1_gemv_stacked_plain(x, qp, lay, bf,
+                                                       w4a8=w4a8)
+                err, ratio = row_check(got, ref, dout)
+                r = qp["rscale"][17:18] * qp["code"][17:18, :1]
+                xs = x.float() * r
+                it = iter(range(10 ** 9))
+                if w4a8:
+                    xq, sx = qg._int8_halves(xs, half)
+                    ms = graph_ms(lambda: qg.gemv_k9(
+                        xq, sx, qp["q4"], qp["scale"],
+                        ids[next(it) % L:][:1], bf), L)
+                    plain_ms = graph_ms(lambda: qg._plain_w4a8(
+                        xq, sx, qp["q4"][17], qp["scale"][17], bf), 3)
+                else:
+                    xb = xs.to(bf)
+                    ms = graph_ms(lambda: qg.gemv_k8(
+                        xb, qp["q4"], qp["scale"], ids[next(it) % L:][:1],
+                        bf), L)
+                    plain_ms = graph_ms(lambda: qg._plain_bf16(
+                        xb, qp["q4"][17], qp["scale"][17], None, False, bf), 3)
+                wrap_ms = cuda_ms(lambda: qg.int4_rank1_gemv_stacked(
+                    x, qp, ids[next(it) % L:][:1], bf, w4a8=w4a8), L)
+                lines.append((key, f"{site} [28, {half}, {dout}] m={m}", err,
+                              ratio, ms, plain_ms, wrap_ms))
+        del qp
+    results = []
+    for key, what, err, ratio, ms, plain_ms, wrap_ms in lines:
+        log(f"kernel {key} {what}: max_abs_err={err:.6g}, worst row at "
+            f"{ratio:.3g} of its bound; kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} wrapper_ms={wrap_ms:.4f}")
+        if not ratio <= 1.0:
+            raise AssertionError(f"{key} {what} disagrees with its plain "
+                                 "version")
+    # one kernels-line entry per kernel: the worst error over its cases,
+    # the time of its first (main-path) shape
+    for idx in INT4_PATH:
+        key = KERNELS[idx][0].split("_")[0]
+        mine = [ln for ln in lines if ln[0].split("_")[0] == key]
+        results.append({"name": KERNELS[idx][0], "route": "cuda",
+                        "source": KERNELS[idx][3],
+                        "replaces": KERNELS[idx][4],
+                        "max_abs_err": max(ln[2] for ln in mine),
+                        "ms": mine[0][4], "plain_ms": mine[0][5]})
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phase 4: tiny session, kernels on the card vs plain versions on the CPU
 # ---------------------------------------------------------------------------
@@ -271,6 +443,64 @@ def check_reference(dev):
     if got != ref or got_ranges != ref_ranges or not err <= 1e-4:
         raise AssertionError("tiny session on the card disagrees with the "
                              "plain versions on the CPU")
+
+
+def tiny_int4_cfg():
+    """The tiny session config with the int4 parity test's text widths
+    (tests/test_torch_quant.py) and W4A8 decode."""
+    import dataclasses
+
+    from cogstream_tpu_torch.config import CogReasonerConfig, CompressionConfig
+
+    cfg = CogReasonerConfig.tiny()
+    return dataclasses.replace(
+        cfg, compression=CompressionConfig(frames_per_event=3,
+                                           keyframes_per_event=1,
+                                           min_events_for_compression=1,
+                                           similarity_threshold=2.0),
+        text=dataclasses.replace(cfg.text, hidden_size=256,
+                                 intermediate_size=512,
+                                 num_attention_heads=4,
+                                 num_key_value_heads=2, vocab_size=1024,
+                                 w4a8_decode=True))
+
+
+def check_reference_int4(dev):
+    """The tiny session on a rank-1 uniform int4 decoder with W4A8
+    decode: K6-K9 on the card against their plain versions on the CPU.
+    Tokens, selections and slot ranges must agree; cache K/V within 1e-2
+    of each row's max |ref| (the GEMVs round activations to bf16 / int8,
+    so an f32 summation-order difference upstream can flip one rounding;
+    tests/test_torch_quant.py)."""
+    import copy
+
+    import torch
+
+    from cogstream_tpu_torch.models.cogreasoner import init_cogreasoner_params
+    from cogstream_tpu_torch.ops.quant import quantize_text_
+
+    cfg = tiny_int4_cfg()
+    cpu_model = init_cogreasoner_params(cfg, torch.Generator().manual_seed(0))
+    quantize_text_(cpu_model.text)
+    gpu_model = copy.deepcopy(cpu_model)
+    before = [wrapper(i).launches for i in INT4_PATH]
+    ref, ref_ranges, ref_sess = run_tiny_session(cpu_model, cfg, "cpu")
+    got, got_ranges, got_sess = run_tiny_session(gpu_model, cfg, dev)
+    launched = [wrapper(i).launches - b for i, b in zip(INT4_PATH, before)]
+    wi = ref_sess.write_index
+    ratio = 0.0
+    for a, b in ((got_sess.cache.k, ref_sess.cache.k),
+                 (got_sess.cache.v, ref_sess.cache.v)):
+        a, b = a[:, :, :wi].float().cpu(), b[:, :, :wi]
+        bound = 1e-2 * b.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        ratio = max(ratio, ((a - b).abs() / bound).max().item())
+    log(f"reference int4: tiny W4A8 session tokens {got} vs cpu {ref}; "
+        f"ranges equal {got_ranges == ref_ranges}; cache K/V worst row at "
+        f"{ratio:.3g} of its bound; card launches K6-K9 {launched}")
+    if got != ref or got_ranges != ref_ranges or not ratio <= 1.0 \
+            or min(launched) == 0:
+        raise AssertionError("tiny int4 session on the card disagrees with "
+                             "the plain versions on the CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -350,7 +580,7 @@ def run_main_path(dev, stamp):
     segments = [rng.integers(0, 256, (t * gh * gw, 3 * 14 * 14),
                              dtype=np.uint8) for _ in range(2)]
 
-    for i in range(len(KERNELS)):          # count the main path only
+    for i in BF16_PATH:                    # count the main path only
         wrapper(i).launches = 0
     torch.cuda.reset_peak_memory_stats()
     t_main = time.perf_counter()
@@ -413,7 +643,7 @@ def run_main_path(dev, stamp):
             raise AssertionError(f"bad answer tokens {toks}")
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t_main
-    launches = [wrapper(i).launches for i in range(len(KERNELS))]
+    launches = [wrapper(i).launches for i in BF16_PATH]
     timer.restore()
 
     # outputs: finite cache and event reps, ordered disjoint slot ranges
@@ -427,7 +657,8 @@ def run_main_path(dev, stamp):
                and all(e <= s for e, s in zip(ends[:-1], starts[1:]))
                and all(r.start <= r.end for r in sess.ranges))
     log(f"main: {main_s:.1f}s for 2 ingests + 2 asks; launches "
-        f"{dict(zip([k[0] for k in KERNELS], launches))}; cache {wi} slots; "
+        f"{dict(zip([KERNELS[i][0] for i in BF16_PATH], launches))}; cache "
+        f"{wi} slots; "
         f"{len(sess.events)} events; finite {finite}; ranges ordered and "
         f"disjoint {ordered}; peak {torch.cuda.max_memory_allocated() / 2**30:.1f}"
         f" GiB [{stamp}]")
@@ -435,6 +666,195 @@ def run_main_path(dev, stamp):
             or len(sess.events) != 2:
         raise AssertionError("main path check failed")
     return launches, metrics, sess
+
+
+def decode_step_cost(text, label: str, stamp: str, steps: int = 10):
+    """One decode step (a 1-token cached forward plus the full-vocab
+    logits) on a 64-slot scratch cache: its kernel launches and summed
+    kernel device time from torch.profiler (its five largest kernels are
+    printed), and its host wall ms from a synchronized clock over
+    ``steps`` unprofiled steps. Returns (launches, device ms, wall ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cogstream_tpu_torch.models import qwen2
+
+    cfg = text.cfg
+    cache = qwen2.init_kv_cache(cfg, 1, 64, dtype=text.dtype,
+                                device=text.device)
+    emb = torch.zeros((1, 1, cfg.hidden_size), dtype=text.dtype,
+                      device=text.device)
+
+    def step(i):
+        pos = torch.full((1, 1), i, dtype=torch.int32, device=text.device)
+        h, _ = qwen2.qwen2_forward(text, emb, pos, cache)
+        qwen2.lm_logits(text, h, w8a8=cfg.w4a8_decode)
+
+    step(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(1)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    n = sum(e.count for e in kern)
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    t0 = time.perf_counter()
+    for i in range(steps):
+        step(2 + i)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    top = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms "
+                    f"x{e.count}" for e in sorted(
+                        kern, key=lambda e: -e.self_device_time_total)[:5])
+    log(f"decode step ({label}): {n} launches, device {dev_ms:.2f} ms, "
+        f"wall {wall_ms:.2f} ms (busy {dev_ms / wall_ms:.3f}); largest: "
+        f"{top} [{stamp}]")
+    return n, dev_ms, wall_ms
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the int4 main path
+# ---------------------------------------------------------------------------
+
+def run_int4_path(model, dev, stamp):
+    """Quantize the main path's 7B-width decoder in place (every q/k/v/o,
+    gate/up/down and the lm_head to rank-1 uniform int4; the bf16
+    weights are freed) and measure one decode step per mode; then for
+    w4a8_decode False and True: a fresh session ingests one 16-frame
+    segment, answers a short ask(AC) (the history the selector reads)
+    and then ask(FCC). Only the sessions' launches are counted: K6 and
+    K8 must launch without w4a8_decode and K7 and K9 never; K7 and K9
+    must launch with it. Outputs finite, ranges ordered."""
+    import dataclasses
+
+    import torch
+
+    from cogstream_tpu_torch import presets
+    from cogstream_tpu_torch.ops.quant import quantize_text_, quantized_bytes
+    from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
+    from cogstream_tpu_torch.runtime.session import StreamingSession
+
+    cfg0 = presets.cogreasoner_7b()
+    text = model.text
+    bf16_launches, bf16_dev_ms, bf16_step_ms = decode_step_cost(
+        text, "bf16", stamp)
+    torch.cuda.synchronize()
+    mem0, dec0 = torch.cuda.memory_allocated(), quantized_bytes(text)
+    t0 = time.perf_counter()
+    quantize_text_(text)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    mem1, dec1 = torch.cuda.memory_allocated(), quantized_bytes(text)
+    log(f"int4: decoder quantized in place in {quant_s:.1f}s; decoder "
+        f"{dec0 / 2**30:.2f} -> {dec1 / 2**30:.2f} GiB; card "
+        f"{mem0 / 2**30:.2f} -> {mem1 / 2**30:.2f} GiB allocated [{stamp}]")
+    metrics = {"int4_decoder_gib": dec1 / 2**30,
+               "bf16_decoder_gib": dec0 / 2**30,
+               "bf16_step_launches": bf16_launches,
+               "bf16_step_device_ms": bf16_dev_ms,
+               "bf16_step_ms": bf16_step_ms}
+    tok = ByteTokenizer(image_token_id=cfg0.image_token_index,
+                        vocab=cfg0.text.vocab_size)
+    rng = np.random.default_rng(2)
+    t, gh, gw, ms = 16, 24, 42, 2
+    pv = rng.integers(0, 256, (t * gh * gw, 3 * 14 * 14), dtype=np.uint8)
+
+    def set_mode(w4a8):
+        cfg = dataclasses.replace(cfg0, text=dataclasses.replace(
+            cfg0.text, w4a8_decode=w4a8))
+        text.cfg = cfg.text
+        return cfg
+
+    # the per-step cost first: its scratch steps launch K6-K9 outside the
+    # sessions, so they run before the sessions' counts start
+    for w4a8 in (False, True):
+        set_mode(w4a8)
+        mode = "w4a8" if w4a8 else "int4"
+        n, dev_ms, step_ms = decode_step_cost(text, mode, stamp)
+        metrics[f"{mode}_step_launches"] = n
+        metrics[f"{mode}_step_device_ms"] = dev_ms
+        metrics[f"{mode}_step_ms"] = step_ms
+
+    names = [KERNELS[i][0] for i in INT4_PATH]
+    launches = [0] * len(names)
+    for w4a8 in (False, True):
+        mode = "w4a8" if w4a8 else "int4"
+        cfg = set_mode(w4a8)
+        for i in INT4_PATH:                # count this session only
+            wrapper(i).launches = 0
+        timer = PhaseTimer()
+        sess = StreamingSession(model, cfg, tok, max_len=16384)
+        mark = timer.mark()
+        t0 = time.perf_counter()
+        sess.append_stream_segment(pv, (t, gh, gw), ms,
+                                   timestamps=[float(f) for f in range(t)])
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        pf = [(S, b - a) for S, a, b in timer.forwards[mark:] if S > 8]
+        sess.ask("What is happening in the video?", mode="AC",
+                 max_new_tokens=8)
+        sel_s, after_sel = [], []
+        select = sess.selector.select
+
+        def timed_select(*a, **k):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            out = select(*a, **k)
+            torch.cuda.synchronize()
+            sel_s.append(time.perf_counter() - s0)
+            after_sel.append(timer.mark())
+            return out
+
+        sess.selector.select = timed_select
+        mark = timer.mark()
+        t0 = time.perf_counter()
+        r = sess.ask("What changed since then?", mode="FCC",
+                     max_new_tokens=32)
+        torch.cuda.synchronize()
+        turn_s = time.perf_counter() - t0
+        dec = timer.decode_rate(after_sel[0] if after_sel else mark)
+        timer.restore()
+        counts = dict(zip(names, (wrapper(i).launches for i in INT4_PATH)))
+        launches = [a + b for a, b in zip(launches, counts.values())]
+        metrics.update({f"{mode}_ingest_s": ingest_s,
+                        f"{mode}_prefill_tok_per_s": pf[0][0] / pf[0][1],
+                        f"{mode}_FCC_turn_s": turn_s,
+                        f"{mode}_selector_s": sel_s[0] if sel_s else None,
+                        f"{mode}_decode_tok_per_s": dec})
+        toks = r["tokens"]
+        wi = sess.write_index
+        finite = bool(torch.isfinite(sess.cache.k[:, :, :wi]).all()
+                      and torch.isfinite(sess.cache.v[:, :, :wi]).all()
+                      and all(torch.isfinite(e.rep).all()
+                              for e in sess.events))
+        starts = [x.start for x in sess.ranges]
+        ends = [x.end for x in sess.ranges]
+        ordered = (starts == sorted(starts)
+                   and all(e <= s for e, s in zip(ends[:-1], starts[1:]))
+                   and all(x.start <= x.end for x in sess.ranges))
+        log(f"int4 path, w4a8_decode={w4a8}: ingest {ingest_s:.3f}s "
+            f"(prefill {pf[0][0]} tokens in {pf[0][1]:.3f}s); FCC turn "
+            f"{turn_s:.3f}s, selector {(sel_s[0] if sel_s else 0.0):.3f}s "
+            f"(selection "
+            f"{r['selection']!r}), {len(toks)} tokens, marginal decode "
+            f"{dec:.1f} tok/s; finite {finite}, ranges ordered {ordered}; "
+            f"launches {counts} [{stamp}]")
+        if not (toks and all(0 <= x < cfg.text.vocab_size for x in toks)) \
+                or not finite or not ordered or not sel_s:
+            raise AssertionError(f"int4 main path ({mode}) check failed")
+        # the w8 rule: bf16-dot GEMVs (K6/K8) without w4a8_decode, the
+        # W4A8 ones (K7/K9) for every decode-length forward with it
+        k6, k7, k8, k9 = counts.values()
+        if (w4a8 and min(k7, k9) == 0) or \
+                (not w4a8 and (min(k6, k8) == 0 or k7 + k9 > 0)):
+            raise AssertionError(f"int4 main path ({mode}) launched "
+                                 f"{counts}")
+        del sess
+    log(f"int4: launches {dict(zip(names, launches))} [{stamp}]")
+    if min(launches) == 0:
+        raise AssertionError("a kernel of the int4 path was never launched")
+    return launches, metrics
 
 
 def profile_phases(sess, stamp):
@@ -522,14 +942,19 @@ def main() -> int:
     log(f"build: kernels built and loaded in {time.perf_counter() - t0:.1f}s "
         f"(nvcc {kernels.last_build_seconds})")
 
-    results = check_kernels(dev)
+    results = check_kernels(dev) + check_int4_kernels(dev)
     check_reference(dev)
+    check_reference_int4(dev)
     launches, metrics, sess = run_main_path(dev, card)
-    for r, n in zip(results, launches):
-        r["launches"] = n
-    log("metrics: " + json.dumps(metrics))
     if args.profile:
         profile_phases(sess, card)
+    model = sess.model
+    del sess
+    int4_launches, int4_metrics = run_int4_path(model, dev, card)
+    for r, n in zip(results, launches + int4_launches):
+        r["launches"] = n
+    metrics.update(int4_metrics)
+    log("metrics: " + json.dumps(metrics))
     print(json.dumps({"kernels": results}))
     print(card)
     print(json.dumps({"ok": True, "device": {

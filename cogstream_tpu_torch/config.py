@@ -65,8 +65,10 @@ class Qwen2Config:
     bos_token_id: int = 151643
     eos_token_id: int = 151645
     dtype: str = "bfloat16"
-    # quantized serving modes of the JAX package; the port serves bf16
-    # weights only, so both must stay False (kept for field parity)
+    # quantized serving modes. w4a8_decode is live: decode-length
+    # forwards (S < 16) of a rank-1 int4 decoder (ops/quant.py) run int8
+    # activations through the W4A8 GEMVs (K7/K9). w8a8_prefill is not
+    # ported yet: a session built with it raises NotImplementedError
     w8a8_prefill: bool = False
     w4a8_decode: bool = False
 

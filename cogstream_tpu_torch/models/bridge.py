@@ -9,7 +9,11 @@ It imports no JAX: callers turn the JAX tree into numpy first (e.g.
 * transposes ``[in, out]`` kernels to the ``nn.Linear`` ``[out, in]``
   layout;
 * concatenates the vision tower's q/k/v kernels into one fused QKV
-  weight ``[3*H*D, hidden]`` (rows q | k | v) — once, at load.
+  weight ``[3*H*D, hidden]`` (rows q | k | v) — once, at load;
+* takes a decoder whose kernels are rank-1 int4 dicts (``quantize_tree(
+  ..., bits=4, rank1=True)``: ``q4/scale/rscale/code``, stacked layers,
+  2D ``lm_head``) byte for byte into the port's int4 storage, in the JAX
+  layout ``[L, din/2, dout]`` (NOT transposed).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 from ..config import CogReasonerConfig, Qwen2Config, VisionEncoderConfig
 from .cogreasoner import CogReasoner
 from .projector import Projector
+from ..ops import quant
 from .qwen2 import ATTN_PROJ, MLP_PROJ, Qwen2Model
 from .vision_encoder import VisionTower
 
@@ -40,14 +45,42 @@ def _load_linear(lin, p: Dict) -> None:
         _copy(lin.bias, p["bias"])
 
 
+def _int4(qp: Dict, device) -> Dict[str, torch.Tensor]:
+    """A JAX rank-1 int4 dict → torch tensors, bytes unchanged."""
+    if "rscale" not in qp:
+        raise NotImplementedError(f"group-wise int4 / NF4 is "
+                                  f"{quant.QUEUE_MSG}")
+    return {k: torch.from_numpy(np.array(qp[k], {"q4": np.int8}.get(
+        k, np.float32))).to(device) for k in ("q4", "scale", "rscale", "code")}
+
+
 def qwen2_from_params(tree: Dict, cfg: Qwen2Config, device=None,
                       dtype=None) -> Qwen2Model:
-    """Stacked JAX decoder tree → Qwen2Model."""
+    """Stacked JAX decoder tree (bf16/f32 kernels, or rank-1 int4
+    kernels) → Qwen2Model."""
     model = Qwen2Model(cfg, device=device, dtype=dtype)
     _copy(model.embed_tokens, tree["embed_tokens"])
     _copy(model.final_norm, tree["final_norm"]["scale"])
-    _load_linear(model.lm_head, tree["lm_head"])
     stacked = tree["layers"]
+    if isinstance(tree["lm_head"]["kernel"], dict):
+        for i, layer in enumerate(model.layers):
+            _copy(layer.input_norm,
+                  np.asarray(stacked["input_norm"]["scale"])[i])
+            _copy(layer.post_attn_norm,
+                  np.asarray(stacked["post_attn_norm"]["scale"])[i])
+            for group, names in (("attn", ATTN_PROJ), ("mlp", MLP_PROJ)):
+                for name in names:
+                    lin = getattr(layer, group)[name]
+                    if lin.bias is not None:
+                        _copy(lin.bias, np.asarray(
+                            stacked[group][name]["bias"])[i])
+        stores = {name: _int4(stacked[group][name]["kernel"], device)
+                  for group, names in (("attn", ATTN_PROJ), ("mlp", MLP_PROJ))
+                  for name in names}
+        quant.install_int4_(model, stores,
+                            _int4(tree["lm_head"]["kernel"], device))
+        return model.requires_grad_(False)
+    _load_linear(model.lm_head, tree["lm_head"])
     for i, layer in enumerate(model.layers):
         _copy(layer.input_norm, np.asarray(stacked["input_norm"]["scale"])[i])
         _copy(layer.post_attn_norm,

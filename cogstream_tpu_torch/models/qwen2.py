@@ -11,6 +11,14 @@ position-tagged KV cache, gated LoRA deltas, and three forward modes:
 
 The cache is updated IN PLACE (the JAX package rebinds a donated
 buffer); ``qwen2_forward`` returns the same object.
+
+A model quantized by ``ops/quant.py`` (``quantize_text_``, or the bridge
+from a quantized JAX tree) holds every projection as an ``Int4Linear``
+over per-site stacked int4 storage. ``dense`` then dispatches like the
+JAX ``dense`` (``quantized_matmul``): cached forwards hand the stacked
+weight plus a layer index to the indexed kernels (K8/K9) where they
+route, as the JAX decode scan does; the cache-free forward uses each
+layer's 2D slice (K6/K7), as the JAX cache-free scan does.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from ..config import Qwen2Config
 from ..ops.lm_attention import (DECODE_MAX_S, decode_attention,
                                 effective_kv_positions,
                                 prefill_flash_attention)
+from ..ops.quant import Int4Linear, QUEUE_MSG
 from ..ops.rope import apply_rope, rope_angles
 from .vision_encoder import linear
 
@@ -122,11 +131,14 @@ def embed(model: Qwen2Model, input_ids: torch.Tensor) -> torch.Tensor:
     return model.embed_tokens[input_ids.to(torch.int64)]
 
 
-def dense(x: torch.Tensor, lin: nn.Linear, lora=None,
-          lora_scale: float = 1.0) -> torch.Tensor:
-    """Linear layer plus gated LoRA deltas ``(x @ a) @ b * gate * scale``
-    for each (adapter, gate) in ``lora``."""
-    return _add_lora(lin(x), x, lora, lora_scale)
+def dense(x: torch.Tensor, lin: nn.Module, lora=None,
+          lora_scale: float = 1.0, w8a8: bool = False,
+          indexed: bool = False) -> torch.Tensor:
+    """Linear layer (``nn.Linear``, or ``Int4Linear`` with ``w8a8`` and
+    ``indexed`` passed on) plus gated LoRA deltas ``(x @ a) @ b * gate *
+    scale`` for each (adapter, gate) in ``lora``, on top of the base."""
+    y = lin(x, w8a8, indexed) if isinstance(lin, Int4Linear) else lin(x)
+    return _add_lora(y, x, lora, lora_scale)
 
 
 def _add_lora(y: torch.Tensor, x: torch.Tensor, lora,
@@ -170,6 +182,13 @@ def qwen2_forward(
     cfg = model.cfg
     B, S, _ = inputs_embeds.shape
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    if cfg.w8a8_prefill:
+        raise NotImplementedError(f"w8a8_prefill is {QUEUE_MSG}")
+    # the JAX rule (qwen2.py w8): decode-length programs (S < 16) run the
+    # int4 projections with int8 activations under w4a8_decode; it has no
+    # effect on bf16 weights
+    w8 = cfg.w4a8_decode and S < 16
+    indexed = cache is not None
     positions = positions.to(torch.int32)
     angles = rope_angles(positions.clamp(min=0), D, cfg.rope_theta)
     if cache is None:
@@ -195,7 +214,8 @@ def qwen2_forward(
 
         def proj(group, name, inp):
             return dense(inp, (ap if group == "attn" else mp)[name],
-                         _lora_at(adapters, li, group, name), lora_scale)
+                         _lora_at(adapters, li, group, name), lora_scale,
+                         w8a8=w8, indexed=indexed)
 
         h = rms_norm(x, layer.input_norm, cfg.rms_norm_eps)
         q = apply_rope(proj("attn", "q_proj", h).reshape(B, S, Hq, D), angles)
@@ -219,15 +239,16 @@ def qwen2_forward(
 
 
 def lm_logits(model: Qwen2Model, hidden: torch.Tensor, adapters: Adapters = None,
-              lora_scale: float = 2.0,
-              head_weight: Optional[torch.Tensor] = None,
-              head_lora: Optional[List] = None) -> torch.Tensor:
-    """Logits through ``model.lm_head`` — or through a row slice
-    ``head_weight`` [K, H] with its sliced LoRA entries (the static
-    ``logit_ids`` head of runtime/generate.py)."""
-    if head_weight is None:
-        head_weight = model.lm_head.weight
+              lora_scale: float = 2.0, w8a8: bool = False,
+              head=None, head_lora: Optional[List] = None) -> torch.Tensor:
+    """Logits through ``model.lm_head`` — or through a sliced head
+    ``head`` with its sliced LoRA entries (the static ``logit_ids`` head
+    of runtime/generate.py): a callable ``h -> h @ W_sliced``. ``w8a8``
+    mirrors dense(): decode loops pass ``cfg.w4a8_decode`` so an int4
+    head's per-step vocab read rides the W4A8 GEMV (K7)."""
+    if head is None:
         head_lora = [(t["lm_head"], g) for t, g in adapters or ()
                      if isinstance(t, dict) and t.get("lm_head") is not None]
-    return _add_lora(F.linear(hidden, head_weight), hidden, head_lora,
-                     lora_scale)
+        return dense(hidden, model.lm_head, head_lora, lora_scale,
+                     w8a8=w8a8)
+    return _add_lora(head(hidden), hidden, head_lora, lora_scale)

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``cogstream_tpu_torch/csrc``).
 
-All ``csrc/*.cu`` files compile with nvcc into ONE shared library with
-a plain C interface, loaded with ``ctypes`` — seconds to build, where
-an extension that includes PyTorch's headers takes minutes. The build
+Each ``csrc/*.cu`` file compiles with its own nvcc process, all started
+together, and the objects link into ONE shared library with a plain C
+interface, loaded with ``ctypes`` — seconds to build, where an extension
+that includes PyTorch's headers takes minutes. The build
 runs at first use (never at import: the CPU tests import every module
 on hosts with no nvcc) into ``build/kernels/`` at the repository root,
 under a file name keyed by a hash of the sources, so an edited source
@@ -32,11 +33,12 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of every entry point (all return cudaError_t as int)
 _SIGNATURES = {
     # x, scale, bias, out, n, h, eps, dtype, stream
@@ -53,6 +55,10 @@ _SIGNATURES = {
     # part_m, part_l, part_acc, out, B, S, Hq, Hkv, D, n_chunks, dtype,
     # stream
     "cs_gqa_combine": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, sx, q4, layer_stride, scale, scale_stride, layer, code, out, part,
+    # m, half, dout, rows_per_split, splits, variant, out dtype, stream
+    "cs_int4_gemv": (_P, _P, _P, _L, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                     _I, _I, _I, _P),
 }
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -84,27 +90,43 @@ def _nvcc() -> str:
 
 def build(verbose: bool = False) -> Path:
     """Compile ``csrc/*.cu`` into ``build/kernels/`` unless a library for
-    the current sources already exists. Returns the library path."""
+    the current sources already exists: one nvcc per source, all running
+    at once, then one link. Returns the library path."""
     global last_build_seconds
     out = BUILD_DIR / f"libcogstream_kernels_{_source_hash()}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = sorted(str(p) for p in CSRC.glob("*.cu"))
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}\n"
-                           f"{r.stderr}")
-    if verbose:
-        print(r.stdout + r.stderr)
-    os.replace(tmp, out)   # atomic: a reader never sees a partial file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        procs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+            if verbose:
+                cmd[1:1] = ["-Xptxas", "-v"]
+            procs.append((obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for obj, p in procs:
+            log = p.communicate()[0]
+            logs.append(log)
+            if p.returncode != 0:
+                failed.append(f"{obj} ({p.returncode}):\n{log}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib = os.path.join(tmpdir, "lib.so")
+        r = subprocess.run([nvcc, "-shared", "-o", lib,
+                            *(obj for obj, _ in procs)],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{r.stdout}\n{r.stderr}")
+        if verbose:
+            print("".join(logs))
+        os.replace(lib, out)   # atomic: a reader never sees a partial file
     last_build_seconds = time.perf_counter() - t0
     return out
 

@@ -18,9 +18,11 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..models import qwen2
 from ..models.qwen2 import KVCache, Qwen2Model
+from ..ops.quant import Int4Linear, prepare_matmul, slice_output_channels
 from .sampling import apply_repetition_penalty, sample_token
 
 PAD_BUCKETS = (128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
@@ -37,6 +39,17 @@ class GenerateResult(NamedTuple):
     tokens: torch.Tensor       # [B, max_new_tokens] int64 (eos-padded)
     num_tokens: torch.Tensor   # [B] — tokens generated incl. eos
     cache: KVCache             # the input cache, updated in place
+
+
+def _sliced_head(lm_head, lid: torch.Tensor, dtype):
+    """``h -> h @ W[:, lid]`` for the static ``logit_ids`` support, built
+    once before the decode loop. A bf16 head gathers its rows; an int4
+    head slices its output channels (``slice_output_channels``) and
+    prepares that weight once (``prepare_matmul``)."""
+    if isinstance(lm_head, Int4Linear):
+        return prepare_matmul(slice_output_channels(lm_head.qp(), lid), dtype)
+    w = lm_head.weight[lid]
+    return lambda h: F.linear(h, w)
 
 
 @torch.inference_mode()
@@ -83,21 +96,23 @@ def generate_tokens(
         if vocab_mask is not None:
             raise ValueError("pass either logit_ids or vocab_mask")
         lid = torch.as_tensor(logit_ids, dtype=torch.int64, device=dev)
-        head_weight = model.lm_head.weight[lid]
+        head = _sliced_head(model.lm_head, lid, inputs_embeds.dtype)
         head_lora = [({"a": t["lm_head"]["a"], "b": t["lm_head"]["b"][:, lid]},
                       g) for t, g in adapters or ()
                      if isinstance(t, dict) and t.get("lm_head") is not None]
 
         def _logits(h):
             return qwen2.lm_logits(model, h, lora_scale=lora_scale,
-                                   head_weight=head_weight,
-                                   head_lora=head_lora)
+                                   head=head, head_lora=head_lora)
 
         def _to_vocab(idx):
             return lid[idx]
     else:
         def _logits(h):
-            return qwen2.lm_logits(model, h, adapters, lora_scale)
+            # w4a8_decode: an int4 head's per-step vocab read rides the
+            # W4A8 GEMV (K7)
+            return qwen2.lm_logits(model, h, adapters, lora_scale,
+                                   w8a8=model.cfg.w4a8_decode)
 
         def _to_vocab(idx):
             return idx

@@ -185,6 +185,10 @@ class StreamingSession:
                  adapters: Optional[Dict[str, Dict]] = None,
                  max_len: int = 16384, rng_seed: int = 0,
                  system_prompt: str = SYSTEM_PROMPT):
+        if cfg.text.w8a8_prefill:
+            raise NotImplementedError("w8a8_prefill (the W8A8 prefill "
+                                      "branch) is not ported yet (ROADMAP "
+                                      "Queue 1 #4)")
         self.model = model
         self.cfg = cfg
         self.tok = tokenizer

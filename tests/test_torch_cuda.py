@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K4) against their plain PyTorch versions,
+"""The port's CUDA kernels (K1-K4, K6-K9) against their plain PyTorch versions,
 on the card. Marked ``cuda``: without a CUDA device every test skips.
 
 On a machine with a card (and no JAX, so the repo's conftest cannot be
@@ -122,3 +122,94 @@ def test_decode_kernel(dev, S, T, window, fill, dtype):
     ref = lma.gqa_attention_plain(q, k, v, qpos, eff).float()
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got, ref, atol=tol, rtol=tol)
+
+
+def _int4_weights(rng, dev, shape, cubic=False):
+    """Random rank-1 int4 storage of ``shape`` = [L,] din/2, dout (bytes
+    drawn over all 256 values, so every nibble occurs)."""
+    from cogstream_tpu_torch.ops.quant import CUBIC_A, CUBIC_C
+
+    *lead, half, dout = shape
+    qp = {"q4": _t(rng.integers(-128, 128, shape), dev, torch.int8),
+          "scale": _t(rng.uniform(0.5, 2.0, (*lead, dout)) / 64, dev),
+          "rscale": _t(rng.uniform(0.5, 2.0, (*lead, 2 * half)), dev)}
+    code = [CUBIC_A, CUBIC_C] if cubic else [1.0 / 7.0]
+    qp["code"] = _t(np.tile(code, (*lead, 1)), dev)
+    return qp
+
+
+def _rowwise(got, ref, rtol):
+    """Every row within ``rtol`` of its own max |ref|."""
+    g, r = got.float(), ref.float()
+    bound = rtol * r.abs().amax(-1, keepdim=True)
+    assert torch.all((g - r).abs() <= bound), \
+        ((g - r).abs() / bound).max().item()
+
+
+@pytest.mark.parametrize("half,dout", [(128, 384), (896, 512), (256, 4096)])
+@pytest.mark.parametrize("m", [1, 5, 8, 13, 40, 64])
+@pytest.mark.parametrize("variant", ["K6", "K6_cubic", "K7"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int4_gemv_2d_kernel(dev, half, dout, m, variant, dtype):
+    """K6/K7 against their plain versions: ragged m-tiles (5, 13, 40),
+    split-K shapes (dout 384 and 512: two column blocks)."""
+    from cogstream_tpu_torch.ops import quant_gemv as qg
+
+    rng = np.random.default_rng(m + dout)
+    qp = _int4_weights(rng, dev, (half, dout), cubic=variant == "K6_cubic")
+    x = _t(rng.standard_normal((m, 2 * half)), dev, dtype)
+    w4a8 = variant == "K7"
+    n0 = (qg.gemv_k7 if w4a8 else qg.gemv_k6).launches
+    got = qg.int4_rank1_gemv(x, qp, dtype, w4a8=w4a8)
+    ref = qg.int4_rank1_gemv_plain(x, qp, dtype, w4a8=w4a8)
+    assert (qg.gemv_k7 if w4a8 else qg.gemv_k6).launches == n0 + 1
+    assert got.shape == (m, dout) and got.dtype == dtype
+    if w4a8 and dtype == torch.float32:
+        # exact integer sums and the same epilogue roundings
+        torch.testing.assert_close(got, ref, atol=0, rtol=0)
+    elif dtype == torch.float32:
+        _rowwise(got, ref, 1e-5)      # f32 summation order only
+    else:
+        _rowwise(got, ref, 2 ** -7)   # + one bf16 rounding on each side
+
+
+@pytest.mark.parametrize("L,half,dout", [(3, 128, 512), (4, 1792, 256),
+                                         (2, 640, 1024)])
+@pytest.mark.parametrize("m", [1, 7, 33])
+@pytest.mark.parametrize("w4a8", [False, True])
+def test_int4_gemv_stacked_kernel(dev, L, half, dout, m, w4a8):
+    """K8/K9 read their layer from a device int32 pointer: every layer,
+    L - 1 included, against the plain version of that layer's slice."""
+    from cogstream_tpu_torch.ops import quant_gemv as qg
+
+    rng = np.random.default_rng(L * m)
+    qp = _int4_weights(rng, dev, (L, half, dout))
+    x = _t(rng.standard_normal((m, 2 * half)), dev)
+    ids = torch.arange(L, dtype=torch.int32, device=dev)
+    for layer in range(L):
+        got = qg.int4_rank1_gemv_stacked(x, qp, ids[layer:layer + 1],
+                                         torch.float32, w4a8=w4a8)
+        ref = qg.int4_rank1_gemv_stacked_plain(x, qp, ids[layer:layer + 1],
+                                               torch.float32, w4a8=w4a8)
+        if w4a8:
+            torch.testing.assert_close(got, ref, atol=0, rtol=0)
+        else:
+            _rowwise(got, ref, 1e-5)
+        if layer == L - 1:   # the last layer differs from its neighbour
+            other = qg.int4_rank1_gemv_stacked_plain(
+                x, qp, ids[layer - 1:layer], torch.float32, w4a8=w4a8)
+            assert not torch.allclose(got, other)
+
+
+def test_int4_gemv_cuda_never_falls_back(dev):
+    """A CUDA tensor launches its kernel or raises: an unsupported shape
+    (dout not a multiple of 8 reaches the launcher only when called
+    directly) raises instead of running the plain version."""
+    from cogstream_tpu_torch.ops import quant_gemv as qg
+
+    rng = np.random.default_rng(0)
+    q4 = _t(rng.integers(-128, 128, (128, 132)), dev, torch.int8)
+    x = _t(rng.standard_normal((1, 256)), dev, torch.bfloat16)
+    with pytest.raises(ValueError, match="dout % 8"):
+        qg.gemv_k6(x, q4, torch.ones(132, device=dev),
+                   torch.zeros(2, device=dev), False, torch.float32)

@@ -25,6 +25,7 @@ from cogstream_tpu_torch.models import bridge
 from cogstream_tpu_torch.models import qwen2 as tq
 from cogstream_tpu_torch.models.vision_encoder import (
     vision_encoder_forward as t_vision_forward)
+from cogstream_tpu_torch.runtime.generate import _sliced_head
 
 HID = dict(atol=1e-4, rtol=1e-4)
 
@@ -155,9 +156,9 @@ def test_lm_logits_with_logit_ids(setup):
     got = tq.lm_logits(model.text, torch.from_numpy(h), ta).numpy()
     np.testing.assert_allclose(got, ref, **HID)
     lid = (2, 17, 300, 1000, 5)
-    w = model.text.lm_head.weight[list(lid)]
+    head = _sliced_head(model.text.lm_head, torch.tensor(lid), torch.float32)
     head_lora = [({"a": t["lm_head"]["a"], "b": t["lm_head"]["b"][:, list(lid)]},
                   g) for t, g in ta]
-    sliced = tq.lm_logits(model.text, torch.from_numpy(h), head_weight=w,
+    sliced = tq.lm_logits(model.text, torch.from_numpy(h), head=head,
                           head_lora=head_lora).numpy()
     np.testing.assert_allclose(sliced, ref[..., list(lid)], **HID)
