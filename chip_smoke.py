@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving path once on one CUDA card.
+"""Run the PyTorch port's serving and training paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -9,20 +9,36 @@ Phases (each prints one line or a few; any failure exits non-zero):
 2. build  — nvcc builds the port's kernels (cogstream_tpu_torch/csrc), one
    process per source, all at once;
 3. kernels — each kernel against its plain PyTorch version on the card,
-   in bf16, at the shapes the 7B serving paths give it, with both times:
-   K1 vision attention, K2 LayerNorm, K3 prefill attention, K4 decode
-   attention, and the int4 GEMVs K6 (uniform and cubic) and K7 on the
-   lm_head, K8 and K9 on stacked gate_proj / down_proj;
+   in bf16, at the shapes the 7B paths give it, with both times, the
+   time of one PyTorch library call computing the same function where
+   one exists, and the least time the card could take (bound): K1
+   vision attention, K2 LayerNorm, K3 prefill attention, K4 decode
+   attention, K5 head-major segment attention (the training tower's),
+   and the int4 GEMVs K6 (uniform and cubic) and K7 on the lm_head, K8
+   and K9 on stacked gate_proj / down_proj;
 4. reference — a tiny-config session (f32) runs ingest → ask(AC) →
    ingest → ask(FCC) on the card (kernels) and on the CPU (plain
    versions); greedy tokens, selections and slot ranges must agree. Then
-   the same with a rank-1 int4 decoder and W4A8 decode (K6-K9);
+   the same with a rank-1 int4 decoder and W4A8 decode (K6-K9). Then
+   tiny training (f32, dropout 0, the same weights and LoRA init on
+   both): two ``train_stage1`` steps and two ``Stage2Trainer`` turns
+   (one with a pooling plan; the tower runs K5 on the card), losses and
+   updated adapters held to the CPU's;
 5. main path — a 7B-width ``StreamingSession`` (cogreasoner_7b, bf16,
    random weights from a seeded generator, 16384-slot cache) ingests two
    16-frame segments (24x42 patch grids, merge 2, seeded uint8 patch
    rows) and answers ask(AC) and ask(FCC); K1-K4's launch counts must
    rise during this phase, every output must be finite and the slot
    ranges ordered and disjoint;
+7. training main path (runs on the phase-5 model, before phase 6) — the
+   frozen ``cogreasoner_7b`` base with LoRA r=8 on all 7 projections x
+   28 layers (stage 1), plus the projector readout (stage 2): (a)
+   stage-1 steps on seeded selector samples, (b) ``Stage2Trainer``
+   turns on a packed turn of 8 frames of 24x42 patches (grad_accum 2,
+   remat on). Per step: wall time, tokens/s, peak GiB. K5 must launch
+   27 times per tower forward, every loss be finite, the LoRA b leaves
+   change, the base stay bit-identical and a held-out forward's loss
+   fall;
 6. int4 main path — the same model's decoder is quantized in place to
    rank-1 uniform int4 (the bf16 weights are freed; memory before and
    after is printed); then, with w4a8_decode off and on, a fresh session
@@ -31,8 +47,9 @@ Phases (each prints one line or a few; any failure exits non-zero):
    (and K7, K9 not) and K7 and K9 with it on.
 
 With ``--profile`` it runs torch.profiler over one more ingest and two
-asks on the phase-5 session (before phase 6) and prints each phase's
-device busy share and its kernels by device time.
+asks on the phase-5 session, and over one more step of each training
+stage in phase 7, and prints each one's device busy share and its
+kernels by device time.
 
 It then prints the kernels JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``. It runs on the first visible card
@@ -67,6 +84,10 @@ KERNELS = [  # name, wrapper module, attribute, source, TPU kernel replaced
     ("K4_decode_attention", "cogstream_tpu_torch.ops.lm_attention",
      "decode_attention", "cogstream_tpu_torch/csrc/lm_attention.cu",
      "cogstream_tpu/ops/lm_attention.py:316"),
+    ("K5_segment_attention", "cogstream_tpu_torch.ops.flash_attention",
+     "segment_flash_attention",
+     "cogstream_tpu_torch/csrc/segment_attention.cu",
+     "cogstream_tpu/ops/flash_attention.py:90"),
     ("K6_int4_gemv", "cogstream_tpu_torch.ops.quant_gemv", "gemv_k6",
      "cogstream_tpu_torch/csrc/int4_gemv.cu",
      "cogstream_tpu/ops/quant_gemv.py:112"),
@@ -81,7 +102,12 @@ KERNELS = [  # name, wrapper module, attribute, source, TPU kernel replaced
      "cogstream_tpu/ops/quant_gemv.py:282"),
 ]
 BF16_PATH = range(0, 4)     # K1-K4: the bf16 main path (phase 5)
-INT4_PATH = range(4, 8)     # K6-K9: the int4 main path (phase 6)
+TRAIN_PATH = range(4, 5)    # K5: the training main path (phase 7)
+INT4_PATH = range(5, 9)     # K6-K9: the int4 main path (phase 6)
+# one NVIDIA H100 SXM (published datasheet figures): HBM bytes/s
+# and dense peak operations/s by operand type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 def log(msg: str) -> None:
@@ -134,6 +160,51 @@ def graph_ms(fn, n: int, replays: int = 5) -> float:
     return start.elapsed_time(end) / (replays * n)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_ms(n_bytes: float, ops: float, kind: str = "bf16"):
+    """The least time the card could take for work that moves ``n_bytes``
+    (each input read once, each output written once) and does ``ops``
+    operations on ``kind`` operands: the larger of the two times, and
+    which one it is."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def segment_pairs(seg) -> int:
+    """(query, key) pairs that see each other under segment ids (-1 =
+    pad): sum over segments of L^2."""
+    s = seg[seg >= 0].long()
+    return int((s.bincount().double() ** 2).sum().item())
+
+
+def visible_pairs(qpos, eff) -> int:
+    """(query, slot) pairs with q_pos >= eff (the K3/K4 mask), per batch
+    row 0."""
+    import torch
+
+    srt = eff[0].sort().values
+    q = qpos[0]
+    return int(torch.searchsorted(srt, q[q >= 0], right=True).sum().item())
+
+
+def sdpa_ms(q, k, v, mask, iters: int) -> float:
+    """Device time of one ``F.scaled_dot_product_attention`` call
+    ([B, H, L, D] operands, boolean ``mask``: True = attend) on the
+    memory-efficient backend, the library yardstick of the attention
+    kernels; used nowhere in the port."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        return cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), iters)
+
+
 def row_check(got, ref, width: int):
     """Largest |got - ref| and the worst ratio of a row's error to its
     bound, over rows of ``width`` elements (one head of one token, or one
@@ -158,32 +229,44 @@ def row_check(got, ref, width: int):
 
 def check_kernels(dev):
     import torch
+    import torch.nn.functional as F
 
     from cogstream_tpu_torch.models.vision_encoder import build_vision_metadata
     from cogstream_tpu_torch.ops import flash_attention as fa
     from cogstream_tpu_torch.ops import layernorm as ln
     from cogstream_tpu_torch.ops import lm_attention as lma
-    from cogstream_tpu_torch.ops.rope import (vision_rope_angles,
+    from cogstream_tpu_torch.ops.rope import (apply_vision_rope_cs,
+                                              vision_rope_angles,
                                               vision_rope_cos_sin)
 
     rng = np.random.default_rng(0)
     bf = torch.bfloat16
     results = []
 
-    def record(idx, err, ratio, ms, plain_ms):
+    def record(idx, err, ratio, ms, plain_ms, bound, library_ms):
         name = KERNELS[idx][0]
+        lib = "none" if library_ms is None else f"{library_ms:.4f}"
         log(f"kernel {name}: max_abs_err={err:.6g}, worst row at {ratio:.3g}"
             f" of its bound (2 bf16 ulps of the row's max |ref|) "
-            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} "
+            f"bound_ms={bound[0]:.4f} ({bound[1]})")
         if not ratio <= 1.0:
             raise AssertionError(f"{name} disagrees with its plain version")
         results.append({"name": name, "route": "cuda",
                         "source": KERNELS[idx][3],
                         "replaces": KERNELS[idx][4], "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms})
+                        "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound[0], "bound_by": bound[1],
+                        "library_ms": library_ms})
 
     def dev_t(a, dtype=None):
         return torch.as_tensor(a).to(dev, dtype)
+
+    def heads_first(x):          # [N, H, D] -> [1, H, N, D]
+        return x.transpose(0, 1).unsqueeze(0).contiguous()
+
+    def block_diag(seg):
+        return ((seg[:, None] == seg[None, :]) & (seg[:, None] >= 0))
 
     # K1: a 16-frame 24x42 segment bucketed to 16384 rows, and a ragged
     # batch whose frames straddle query tiles
@@ -215,7 +298,19 @@ def check_kernels(dev):
                 *args, *ranges, H), 5)
             k1_plain_ms = cuda_ms(lambda: fa.flash_attention_packed_rope_plain(
                 *args, H, 1 / math.sqrt(D)), 2)
-    record(0, max(k1_err), max(k1_ratio), k1_ms, k1_plain_ms)
+            seg = args[3]
+            k1_bound = bound_ms(nbytes(*args, *ranges, got),
+                                4 * H * D * segment_pairs(seg))
+            # library yardstick: SDPA on the already-rotated q/k (no
+            # PyTorch call fuses the rotation)
+            q, k, v = qkv.reshape(N, 3, H, D).unbind(1)
+            q = apply_vision_rope_cs(q, c2, s2)
+            k = apply_vision_rope_cs(k, c2, s2)
+            k1_lib = sdpa_ms(heads_first(q), heads_first(k), heads_first(v),
+                             block_diag(seg), 5)
+            del q, k, v
+    record(0, max(k1_err), max(k1_ratio), k1_ms, k1_plain_ms, k1_bound,
+           k1_lib)
 
     # K2: the tower's LayerNorm at the encode bucket
     x = dev_t(rng.standard_normal((16384, 1152)) * 2 + 0.5, bf)
@@ -223,9 +318,12 @@ def check_kernels(dev):
     b = dev_t(rng.standard_normal(1152), torch.float32)
     got = ln.layernorm(x, sc, b, 1e-6)
     ref = ln.layernorm_plain(x, sc, b, 1e-6)
+    scb, bb = sc.to(bf), b.to(bf)
     record(1, *row_check(got, ref, 1152),
            cuda_ms(lambda: ln.layernorm(x, sc, b, 1e-6), 20),
-           cuda_ms(lambda: ln.layernorm_plain(x, sc, b, 1e-6), 5))
+           cuda_ms(lambda: ln.layernorm_plain(x, sc, b, 1e-6), 5),
+           bound_ms(nbytes(x, sc, b, got), 8 * x.numel(), "f32"),
+           cuda_ms(lambda: F.layer_norm(x, (1152,), scb, bb, 1e-6), 20))
 
     # K3: the second ingest's prefill — 4384 tokens (positions 4607..)
     # into a 16384-slot cache holding 4607 history slots — with position
@@ -249,9 +347,26 @@ def check_kernels(dev):
     # bound scales with each row's own max |ref|, not a fixed atol
     got = lma.prefill_flash_attention(q, k, v, qp, eff)
     ref = lma.gqa_attention_plain(q, k, v, qp, eff)
+    # bytes: the K/V rows visible to some query (the rest are never read)
+    seen = int((eff[0] < lma.SENTINEL).sum().item())
+    kv_row = Hkv * Dl * 2
+    k3_bound = bound_ms(nbytes(q, qp, eff, got) + 2 * seen * kv_row,
+                        4 * Hq * Dl * visible_pairs(qp, eff))
+
+    def sdpa_operands(qq, kk, vv, qpos_t, eff_t):
+        g = Hq // Hkv
+        mask = (qpos_t[0][:, None] >= eff_t[0][None, :])
+        return (qq[0].transpose(0, 1).unsqueeze(0).contiguous(),
+                kk[0, :eff_t.shape[1]].repeat_interleave(g, 1).transpose(
+                    0, 1).unsqueeze(0).contiguous(),
+                vv[0, :eff_t.shape[1]].repeat_interleave(g, 1).transpose(
+                    0, 1).unsqueeze(0).contiguous(), mask)
+
+    k3_lib = sdpa_ms(*sdpa_operands(q, k, v, qp, eff), 3)
     record(2, *row_check(got, ref, Dl),
            cuda_ms(lambda: lma.prefill_flash_attention(q, k, v, qp, eff), 3),
-           cuda_ms(lambda: lma.gqa_attention_plain(q, k, v, qp, eff), 1))
+           cuda_ms(lambda: lma.gqa_attention_plain(q, k, v, qp, eff), 1),
+           k3_bound, k3_lib)
 
     # K4: one decode step over a 9216-slot window holding 9000 slots
     W, fill = 9216, 9000
@@ -265,9 +380,54 @@ def check_kernels(dev):
     qp = dev_t([[fill]], torch.int32)
     got = lma.decode_attention(q1, k, v, qp, eff)
     ref = lma.gqa_attention_plain(q1, k, v, qp, eff)
+    seen = int((eff[0] < lma.SENTINEL).sum().item())
+    k4_bound = bound_ms(nbytes(q1, qp, eff, got) + 2 * seen * kv_row,
+                        4 * Hq * Dl * visible_pairs(qp, eff))
+    k4_lib = sdpa_ms(*sdpa_operands(q1, k, v, qp, eff), 50)
     record(3, *row_check(got, ref, Dl),
            cuda_ms(lambda: lma.decode_attention(q1, k, v, qp, eff), 50),
-           cuda_ms(lambda: lma.gqa_attention_plain(q1, k, v, qp, eff), 5))
+           cuda_ms(lambda: lma.gqa_attention_plain(q1, k, v, qp, eff), 5),
+           k4_bound, k4_lib)
+    del k, v, q, q1, got, ref
+
+    # K5: the training tower's head-major attention — 16 aligned frames
+    # of 1008 tokens (8 frames of 24x42 patches merge 2 is the stage-2
+    # turn; 16 the tower's segment bucket), and a ragged batch with a
+    # padded tail; bf16 [16128, 16, 72]
+    k5_err, k5_ratio = [], []
+    for lengths, pad in (([1008] * 16, 0), ([1008, 700, 333, 1008, 64], 111)):
+        seg = dev_t(np.concatenate([np.full(L, i, np.int32) for i, L in
+                                    enumerate(lengths)]
+                                   + [np.full(pad, -1, np.int32)]))
+        N = seg.shape[0]
+        q, k, v = (dev_t(rng.standard_normal((N, H, D)), bf)
+                   for _ in range(3))
+        ranges = tuple(dev_t(r) for r in fa.vision_kv_ranges(
+            seg.cpu().numpy()))
+        with torch.no_grad():
+            got = fa.segment_flash_attention(q, k, v, seg, ranges)
+        ref = fa.segment_flash_attention_plain(q, k, v, seg, 1 / math.sqrt(D))
+        err, ratio = row_check(got, ref, D)
+        k5_err.append(err)
+        k5_ratio.append(ratio)
+        log(f"kernel K5 case lengths={lengths} pad={pad}: N={N} "
+            f"max_abs_err={err:.6g}, max |ref|="
+            f"{ref.float().abs().max().item():.4g}, worst row at "
+            f"{ratio:.3g} of its bound; pad rows zero "
+            f"{bool((got[N - pad:] == 0).all())}")
+        if pad and not bool((got[N - pad:] == 0).all()):
+            raise AssertionError("K5 pad rows are not zero")
+        if len(k5_err) == 1:   # time the aligned 16-frame case
+            k5_ms = cuda_ms(lambda: fa.segment_flash_attention(
+                q, k, v, seg, ranges), 5)
+            k5_plain_ms = cuda_ms(lambda: fa.segment_flash_attention_plain(
+                q, k, v, seg, 1 / math.sqrt(D)), 2)
+            k5_bound = bound_ms(nbytes(q, k, v, seg, *ranges, got),
+                                4 * H * D * segment_pairs(seg))
+            k5_lib = sdpa_ms(heads_first(q), heads_first(k), heads_first(v),
+                             block_diag(seg), 5)
+    record(4, max(k5_err), max(k5_ratio), k5_ms, k5_plain_ms, k5_bound,
+           k5_lib)
     return results
 
 
@@ -337,7 +497,13 @@ def check_int4_kernels(dev):
                                                        cubic, bf), 3)
         wrap_ms = cuda_ms(lambda: qg.int4_rank1_gemv(x1, qp, bf, w4a8=w4a8),
                           20)
-        lines.append((key, "lm_head m=1", err, ratio, ms, plain_ms, wrap_ms))
+        # the launcher's operands: activations (bf16, or int8 + two f32
+        # scales), packed nibbles, column scales, codebook; bf16 out
+        act = x1.numel() * (1 if w4a8 else 2) + (8 if w4a8 else 0)
+        bnd = bound_ms(act + nbytes(qp["q4"], qp["scale"], qp["code"], got),
+                       2 * 3584 * 152064, "int8" if w4a8 else "bf16")
+        lines.append((key, "lm_head m=1", err, ratio, ms, plain_ms, wrap_ms,
+                      bnd))
 
     # stacked: gate_proj (m = 1 and 40) and down_proj (m = 1), layer 17
     for site, shape, ms_list in (("gate_proj", (28, 1792, 18944), (1, 40)),
@@ -372,19 +538,31 @@ def check_int4_kernels(dev):
                         xb, qp["q4"][17], qp["scale"][17], None, False, bf), 3)
                 wrap_ms = cuda_ms(lambda: qg.int4_rank1_gemv_stacked(
                     x, qp, ids[next(it) % L:][:1], bf, w4a8=w4a8), L)
+                # one layer's weights, as each launch reads
+                act = x.numel() * (1 if w4a8 else 2) + (8 * m if w4a8 else 0)
+                bnd = bound_ms(act + nbytes(qp["q4"][17], qp["scale"][17],
+                                            got),
+                               2 * m * 2 * half * dout,
+                               "int8" if w4a8 else "bf16")
                 lines.append((key, f"{site} [28, {half}, {dout}] m={m}", err,
-                              ratio, ms, plain_ms, wrap_ms))
+                              ratio, ms, plain_ms, wrap_ms, bnd))
         del qp
     results = []
-    for key, what, err, ratio, ms, plain_ms, wrap_ms in lines:
+    for key, what, err, ratio, ms, plain_ms, wrap_ms, bnd in lines:
         log(f"kernel {key} {what}: max_abs_err={err:.6g}, worst row at "
             f"{ratio:.3g} of its bound; kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} wrapper_ms={wrap_ms:.4f}")
+            f"plain_ms={plain_ms:.4f} wrapper_ms={wrap_ms:.4f} "
+            f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
         if not ratio <= 1.0:
             raise AssertionError(f"{key} {what} disagrees with its plain "
                                  "version")
     # one kernels-line entry per kernel: the worst error over its cases,
-    # the time of its first (main-path) shape
+    # the time and bound of its first (main-path) shape. library_ms is
+    # null: no PyTorch call computes a GEMV on this rank-1 int4 nibble
+    # layout with its codebook (torch's int4 matmuls take other packings
+    # and group scales)
+    log("kernel K6-K9: library_ms none (no PyTorch call computes the same "
+        "rank-1 int4 GEMV)")
     for idx in INT4_PATH:
         key = KERNELS[idx][0].split("_")[0]
         mine = [ln for ln in lines if ln[0].split("_")[0] == key]
@@ -392,7 +570,9 @@ def check_int4_kernels(dev):
                         "source": KERNELS[idx][3],
                         "replaces": KERNELS[idx][4],
                         "max_abs_err": max(ln[2] for ln in mine),
-                        "ms": mine[0][4], "plain_ms": mine[0][5]})
+                        "ms": mine[0][4], "plain_ms": mine[0][5],
+                        "bound_ms": mine[0][7][0],
+                        "bound_by": mine[0][7][1], "library_ms": None})
     return results
 
 
@@ -433,7 +613,8 @@ def check_reference(dev):
                                       keyframes_per_event=1,
                                       min_events_for_compression=1,
                                       similarity_threshold=2.0))
-    cpu_model = init_cogreasoner_params(cfg, torch.Generator().manual_seed(0))
+    cpu_model = init_cogreasoner_params(cfg, torch.Generator().manual_seed(0),
+                                        device="cpu")
     gpu_model = copy.deepcopy(cpu_model)
     ref, ref_ranges, ref_sess = run_tiny_session(cpu_model, cfg, "cpu")
     got, got_ranges, got_sess = run_tiny_session(gpu_model, cfg, dev)
@@ -480,7 +661,8 @@ def check_reference_int4(dev):
     from cogstream_tpu_torch.ops.quant import quantize_text_
 
     cfg = tiny_int4_cfg()
-    cpu_model = init_cogreasoner_params(cfg, torch.Generator().manual_seed(0))
+    cpu_model = init_cogreasoner_params(cfg, torch.Generator().manual_seed(0),
+                                        device="cpu")
     quantize_text_(cpu_model.text)
     gpu_model = copy.deepcopy(cpu_model)
     before = [wrapper(i).launches for i in INT4_PATH]
@@ -501,6 +683,158 @@ def check_reference_int4(dev):
             or min(launched) == 0:
         raise AssertionError("tiny int4 session on the card disagrees with "
                              "the plain versions on the CPU")
+
+
+TRAIN_DIR = os.path.join(REPO, "build", "chip_smoke_train")
+
+
+def _fresh_dir(name: str) -> str:
+    import shutil
+
+    path = os.path.join(TRAIN_DIR, name)
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
+def _selector_samples(rng, n: int, words: int = 6):
+    """Seeded selector samples: random-word questions with 2-4 history
+    QAs, relevance and visual flags (the stage-1 data layout)."""
+    from cogstream_tpu_torch.train.data import SelectorSample
+
+    vocab = ["red", "cup", "falls", "table", "why", "when", "person", "door",
+             "opens", "car", "street", "left", "right", "light", "dog"]
+
+    def text():
+        return " ".join(rng.choice(vocab, words)) + "?"
+
+    out = []
+    for _ in range(n):
+        h = int(rng.integers(2, 5))
+        rel = sorted(int(i) for i in rng.choice(h, int(rng.integers(0, h)),
+                                                replace=False))
+        out.append(SelectorSample(text(), [text() for _ in range(h)],
+                                  [text() for _ in range(h)], rel,
+                                  bool(rng.integers(0, 2))))
+    return out
+
+
+def _stage2_turn(rng, tok, cfg, t: int, gh: int, gw: int, ms: int,
+                 max_seq_len: int, pool: bool = False):
+    """A packed stage-2 turn: ``t`` frames of gh x gw patches (seeded
+    normalized pixel rows), one ``<image>`` per merged token, a question
+    and an answer; with ``pool`` the second frame is minor (only its
+    first token kept, the frame mean-pooled into it)."""
+    import types
+
+    from cogstream_tpu_torch.train.stage2 import pack_turn_batch
+
+    merged = (gh // ms) * (gw // ms)
+    images = types.SimpleNamespace(
+        pixel_values=rng.standard_normal(
+            (t * gh * gw, 3 * 14 * 14)).astype(np.float32),
+        grid_sizes=np.array([[t, gh, gw]]), merge_sizes=np.array([ms]))
+    frames = "".join(f"Time {f:.1f}s:" + "<image>" * merged
+                     for f in range(t))
+    prompt = ("<|im_start|>user\n<|stream_start|>" + frames +
+              "<|stream_end|>What happens in the clip?<|im_end|>\n"
+              "<|im_start|>assistant\n")
+    keep = minor = None
+    if pool:
+        keep = np.ones((t * merged,), bool)
+        keep[merged + 1:2 * merged] = False
+        minor = np.zeros(t, bool)
+        minor[1] = True
+    return pack_turn_batch(tok, cfg, prompt, "A person opens the door.",
+                           images, keep, max_seq_len, minor_frames=minor)
+
+
+def _adapters_vs(got_tree, ref_tree, lr: float):
+    """Updated adapters in units of lr (tests/test_torch_train.py): the
+    worst element and the share of elements beyond 1e-3 lr."""
+    from cogstream_tpu_torch.models.lora import iter_leaves
+
+    d = np.concatenate([
+        (a.detach().cpu().float() - b.detach().cpu().float()).abs().reshape(-1)
+        .numpy() for (_, a), (_, b) in zip(iter_leaves(got_tree),
+                                           iter_leaves(ref_tree))])
+    return float(d.max() / lr), float(np.mean(d > 1e-3 * lr))
+
+
+def check_training_reference(dev):
+    """Tiny training (f32, dropout 0) on the card against the CPU: the
+    same init_cogreasoner_params weights and the same LoRA init on both.
+    Two train_stage1 steps (logged losses within the log's 4 decimals)
+    and two Stage2Trainer turns (one with a pooling plan, one text-only;
+    losses rtol 1e-5); updated adapters within 2.01 lr everywhere and
+    1e-3 lr on at least 99% of the elements (tests/test_torch_train.py's
+    bounds). K5 runs in the card's stage-2 tower."""
+    import copy
+
+    import torch
+
+    from cogstream_tpu_torch.config import CogReasonerConfig, LoRAConfig
+    from cogstream_tpu_torch.models.cogreasoner import init_cogreasoner_params
+    from cogstream_tpu_torch.models.lora import (init_cogreasoner_lora,
+                                                 map_leaves)
+    from cogstream_tpu_torch.ops import flash_attention as fa
+    from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
+    from cogstream_tpu_torch.train import stage1, stage2
+
+    cfg = CogReasonerConfig.tiny()
+    tok = ByteTokenizer(image_token_id=cfg.image_token_index)
+    lc = LoRAConfig(dropout=0.0, include_projector=True)
+    cpu_model = init_cogreasoner_params(cfg, torch.Generator().manual_seed(0),
+                                        device="cpu")
+    lora0 = init_cogreasoner_lora(torch.Generator().manual_seed(1), cfg, lc,
+                                  device="cpu")
+
+    def lora_on(device):
+        return map_leaves(
+            lambda t: t.detach().clone().to(device).requires_grad_(True),
+            lora0)
+
+    samples = _selector_samples(np.random.default_rng(0), 3)
+    scfg = stage1.Stage1Config(epochs=2, batch_size=3, max_len=2048,
+                               grad_accum=1, warmup_steps=1, save_every=1000,
+                               log_every=1, shuffle_copies=1,
+                               include_demo=False, learning_rate=1e-3)
+    s2cfg = stage2.Stage2Config(max_seq_len=2048, grad_accum=1,
+                                save_every=10_000, learning_rate=1e-3)
+    rng = np.random.default_rng(1)
+    turns = [_stage2_turn(rng, tok, cfg, 2, 4, 4, 2, 2048, pool=True),
+             stage2.pack_turn_batch(tok, cfg, "<|im_start|>user\nhi?"
+                                    "<|im_end|>\n", "yes", None, None, 2048)]
+    out = {}
+    for name, model in (("cpu", cpu_model),
+                        ("card", copy.deepcopy(cpu_model).to(dev))):
+        k5 = fa.segment_flash_attention.launches
+        logs = []
+        st1 = stage1.train_stage1(
+            model.text, cfg, tok, samples, _fresh_dir(f"s1_{name}"), scfg,
+            resume=False, log=logs.append, lora_cfg=lc,
+            lora=lora_on(model.text.device)["text"])
+        losses1 = [float(m.split(" loss ")[1].split()[0]) for m in logs
+                   if " loss " in m]
+        trainer = stage2.Stage2Trainer(
+            model, cfg, tok, s2cfg, _fresh_dir(f"s2_{name}"), total_steps=20,
+            log=lambda *a: None, lora_cfg=lc, lora=lora_on(model.text.device))
+        losses2 = [trainer.train_turn(dict(b)) for b in turns]
+        out[name] = (losses1, st1.lora, losses2, trainer.state.lora)
+        k5 = fa.segment_flash_attention.launches - k5   # the card's run
+    (l1c, a1c, l2c, a2c), (l1g, a1g, l2g, a2g) = out["cpu"], out["card"]
+    d1 = _adapters_vs(a1g, a1c, 1e-3)
+    d2 = _adapters_vs(a2g, a2c, 1e-3)
+    ok1 = len(l1g) == len(l1c) == 2 and all(
+        abs(a - b) <= 1.1e-4 for a, b in zip(l1g, l1c))
+    ok2 = all(abs(a - b) <= 1e-5 * abs(b) + 1e-6 for a, b in zip(l2g, l2c))
+    log(f"reference training: stage-1 losses card {l1g} cpu {l1c}; stage-2 "
+        f"losses card {[f'{x:.7g}' for x in l2g]} cpu "
+        f"{[f'{x:.7g}' for x in l2c]}; adapters (worst / lr, share beyond "
+        f"1e-3 lr) stage 1 {d1}, stage 2 {d2}; K5 launches {k5}")
+    if not (ok1 and ok2 and d1[0] <= 2.01 and d1[1] < 0.01 and d2[0] <= 2.01
+            and d2[1] < 0.01 and k5 == 2 * cfg.vision.num_hidden_layers):
+        raise AssertionError("tiny training on the card disagrees with the "
+                             "CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -857,15 +1191,207 @@ def run_int4_path(model, dev, stamp):
     return launches, metrics
 
 
+# ---------------------------------------------------------------------------
+# phase 7: training at full width
+# ---------------------------------------------------------------------------
+
+def base_checksum(model):
+    """Two integer sums over the raw bits of every base tensor (values
+    and squares of their 16/32-bit words): any changed bit changes them."""
+    import torch
+
+    total = [0, 0]
+    with torch.no_grad():
+        for t in list(model.parameters()) + list(model.buffers()):
+            w = t.detach().reshape(-1)
+            w = w.view(torch.int16 if w.element_size() == 2 else
+                       torch.int32 if w.element_size() == 4 else torch.int8)
+            for c in w.split(1 << 26):
+                c = c.to(torch.int64)
+                total[0] += int(c.sum().item())
+                total[1] += int((c * c).sum().item())
+    return tuple(total)
+
+
+def run_training(model, dev, stamp, profile: bool = False):
+    """The 7B-width training path on the phase-5 bf16 model (frozen,
+    seeded random weights). (a) Stage 1: ``train_stage1``'s step (the
+    constrained selector CE, remat, LoRA dropout 0.1, AdamW) on one batch
+    of 8 seeded selector samples at 2048 byte tokens (no demo block);
+    (b) stage 2:
+    ``Stage2Trainer.train_turn`` on one packed turn of 8 frames of 24x42
+    patches (8064 patch rows, 2016 merged tokens) in the 4096-token
+    bucket, grad_accum 2 over 4 micro-steps. Before and after each, a
+    dropout-free held-out forward on the same batch; its loss must fall.
+    Checks K5's launches (27 per tower forward), finite losses, changed
+    LoRA b leaves, and a bit-identical frozen base. With ``profile``, one
+    more step of each stage runs under torch.profiler after the checks
+    (:func:`profiled`)."""
+    import torch
+
+    from cogstream_tpu_torch import presets
+    from cogstream_tpu_torch.config import LoRAConfig
+    from cogstream_tpu_torch.models.lora import (init_cogreasoner_lora,
+                                                 iter_leaves)
+    from cogstream_tpu_torch.ops import flash_attention as fa
+    from cogstream_tpu_torch.processor.tokenizer import (
+        ByteTokenizer, constrained_selector_token_ids)
+    from cogstream_tpu_torch.runtime.sampling import build_vocab_mask
+    from cogstream_tpu_torch.train import stage2, trainer as tr
+    from cogstream_tpu_torch.train.data import encode_selector_sample
+    from cogstream_tpu_torch.train.multimodal import multimodal_loss_fn
+    from cogstream_tpu_torch.train.stage1 import Stage1Config
+
+    cfg = presets.cogreasoner_7b()
+    tok = ByteTokenizer(image_token_id=cfg.image_token_index,
+                        vocab=cfg.text.vocab_size)
+    lc = LoRAConfig(include_projector=True)          # r=8, alpha 16, 0.1
+    n_layers = cfg.vision.num_hidden_layers
+    checksum0 = base_checksum(model)
+    metrics, ok = {}, True
+    for i in TRAIN_PATH:                   # count the training path only
+        wrapper(i).launches = 0
+    lora = init_cogreasoner_lora(torch.Generator(device=dev).manual_seed(0),
+                                 cfg, lc, device=dev)
+    n_lora = sum(t.numel() for _, t in iter_leaves(lora))
+    log(f"train: LoRA r={lc.rank} on {len(lora['text']['layers'])} layers x "
+        f"7 projections + projector readout: {n_lora / 1e6:.2f}M params "
+        f"[{stamp}]")
+
+    def step_line(tag, i, loss, dt, tokens):
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"train {tag} step {i}: loss {loss:.5f}, {dt:.3f}s, "
+            f"{tokens / dt:.0f} tok/s, peak {peak:.2f} GiB [{stamp}]")
+        return peak
+
+    # (a) stage 1: the Stage1Config batch of 8; 2048 byte tokens hold a
+    # selector prompt (without the few-shot demo block) that a subword
+    # tokenizer fits in Stage1Config's 1024
+    s1 = Stage1Config()
+    rng = np.random.default_rng(7)
+    rows = []
+    for smp in _selector_samples(rng, 64):
+        enc = encode_selector_sample(tok, smp, 2 * s1.max_len,
+                                     include_demo=False)
+        if enc is not None:
+            rows.append(enc)
+        if len(rows) == s1.batch_size:
+            break
+    batch = tr.to_device({k: np.stack([r[k] for r in rows])
+                          for k in rows[0]}, dev)
+    B, S = batch["input_ids"].shape
+    real = int((batch["input_ids"] != 0).sum().item())
+    vm = build_vocab_mask(cfg.text.vocab_size,
+                          constrained_selector_token_ids(tok), dev)
+    text_lora = lora["text"]
+    # warmup 0 and one update per step: the reference's 50-step warmup
+    # and grad_accum 4 would leave 4 steps at a learning rate near 0
+    tx = tr.make_optimizer(s1.learning_rate, total_steps=1000,
+                           warmup_steps=0, grad_accum=1)
+    step = tr.make_train_step(tx, tr.bind_text_loss(lc, vm, remat=True),
+                              dropout_seed=s1.seed ^ 0x5EED)
+    state = tr.init_train_state(tx, text_lora)
+
+    def eval1():
+        with torch.no_grad():
+            return tr.text_loss_fn(model.text, text_lora, batch, lc.scale,
+                                   vm, remat=False).item()
+
+    before = eval1()
+    b0 = [t.detach().clone() for k, t in iter_leaves(text_lora)
+          if k.endswith(".b")]
+    losses, peaks, times = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(model.text, state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        losses.append(loss.item())
+        times.append(dt)
+        peaks.append(step_line("stage1", i, losses[-1], dt, B * S))
+    after = eval1()
+    moved = all(not torch.equal(a, t) for a, (k, t) in zip(
+        b0, ((k, t) for k, t in iter_leaves(text_lora) if k.endswith(".b"))))
+    log(f"train stage1: batch {B}x{S} ({real} non-pad tokens); held-out "
+        f"loss {before:.5f} -> {after:.5f}; b leaves changed {moved} "
+        f"[{stamp}]")
+    ok &= all(math.isfinite(x) for x in losses) and moved and after < before
+    if profile:
+        profiled("train_stage1_step", lambda: step(model.text, state, batch),
+                 stamp)
+    metrics.update({"stage1_step_s": times, "stage1_tok_per_s":
+                    [B * S / t for t in times], "stage1_peak_gib": max(peaks),
+                    "stage1_loss": losses, "stage1_heldout_loss":
+                    [before, after]})
+
+    # (b) stage 2: one packed turn, 8 frames of 24x42 patches, merge 2
+    s2cfg = stage2.Stage2Config(grad_accum=2)
+    turn = _stage2_turn(np.random.default_rng(8), tok, cfg, 8, 24, 42, 2,
+                        s2cfg.max_seq_len)
+    S2 = turn["input_ids"].shape[1]
+    n_vis = int(turn["num_vis_tokens"])
+    lora = init_cogreasoner_lora(torch.Generator(device=dev).manual_seed(1),
+                                 cfg, lc, device=dev)
+    trainer = stage2.Stage2Trainer(model, cfg, tok, s2cfg,
+                                   _fresh_dir("stage2_7b"), total_steps=4,
+                                   log=lambda *a: None, lora_cfg=lc,
+                                   lora=lora)
+    dev_turn = tr.to_device({k: v for k, v in turn.items()
+                             if k != "num_vis_tokens"}, dev)
+
+    def eval2():
+        with torch.no_grad():
+            return multimodal_loss_fn(model, lora, dev_turn, lc.scale,
+                                      n_vis, remat=False).item()
+
+    k5_0 = fa.segment_flash_attention.launches
+    before2 = eval2()
+    b0 = [t.detach().clone() for k, t in iter_leaves(lora)
+          if k.endswith(".b")]
+    losses2, peaks2, times2 = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses2.append(trainer.train_turn(dict(turn)))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        times2.append(dt)
+        peaks2.append(step_line("stage2", i, losses2[-1], dt, S2))
+    after2 = eval2()
+    k5 = fa.segment_flash_attention.launches - k5_0
+    moved2 = all(not torch.equal(a, t) for a, (k, t) in zip(
+        b0, ((k, t) for k, t in iter_leaves(lora) if k.endswith(".b"))))
+    log(f"train stage2: turn of {turn['pixel_values'].shape[0]} patch rows, "
+        f"{n_vis} merged tokens, {S2}-token bucket; held-out loss "
+        f"{before2:.5f} -> {after2:.5f}; b leaves changed {moved2} "
+        f"(projector included); K5 launches {k5} over 6 tower forwards "
+        f"[{stamp}]")
+    ok &= all(math.isfinite(x) for x in losses2) and moved2 \
+        and after2 < before2 and k5 == 6 * n_layers \
+        and turn["pixel_values"].shape[0] == 8064 and n_vis == 2016
+    checksum1 = base_checksum(model)
+    log(f"train: base checksum {checksum0} -> {checksum1}, identical "
+        f"{checksum0 == checksum1} [{stamp}]")
+    ok &= checksum0 == checksum1
+    if profile:
+        profiled("train_stage2_micro_step",
+                 lambda: trainer.train_turn(dict(turn)), stamp)
+    metrics.update({"stage2_step_s": times2, "stage2_tok_per_s":
+                    [S2 / t for t in times2],
+                    "stage2_peak_gib": max(peaks2), "stage2_loss": losses2,
+                    "stage2_heldout_loss": [before2, after2]})
+    launches = [wrapper(i).launches for i in TRAIN_PATH]
+    if not ok or min(launches) == 0:
+        raise AssertionError("training main path check failed")
+    return launches, metrics
+
+
 def profile_phases(sess, stamp):
     """``--profile``: torch.profiler over one more ingest, an FCC ask and
-    an AC ask on the main path's session. Prints each phase's wall time,
-    its summed device kernel time and busy share (one stream, so kernels
-    never overlap), and its kernels by device time. The profiler adds
-    host time, so these walls exceed the unprofiled ones."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    an AC ask on the main path's session (:func:`profiled` each)."""
     t, gh, gw = 16, 24, 42
     pv = np.random.default_rng(1).integers(0, 256, (t * gh * gw, 3 * 14 * 14),
                                            dtype=np.uint8)
@@ -878,21 +1404,32 @@ def profile_phases(sess, stamp):
                                     max_new_tokens=32)),
     ]
     for name, fn in phases:
+        profiled(name, fn, stamp)
+
+
+def profiled(name, fn, stamp):
+    """torch.profiler around one ``fn()``: its wall time, summed device
+    kernel time and busy share (one stream, so kernels never overlap),
+    and its ten largest kernels by device time. The profiler adds host
+    time, so the wall exceeds an unprofiled one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kern = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
-        log(f"profile {name}: wall {wall_ms:.1f} ms, device kernel time "
-            f"{dev_ms:.1f} ms, busy {dev_ms / wall_ms:.3f} [{stamp}]")
-        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
-            log(f"profile {name}:   {e.self_device_time_total / 1e3:9.2f} ms "
-                f"{e.count:6d}x {e.key[:80]}")
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    log(f"profile {name}: wall {wall_ms:.1f} ms, device kernel time "
+        f"{dev_ms:.1f} ms, busy {dev_ms / wall_ms:.3f} [{stamp}]")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"profile {name}:   {e.self_device_time_total / 1e3:9.2f} ms "
+            f"{e.count:6d}x {e.key[:80]}")
 
 
 def main() -> int:
@@ -901,7 +1438,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="after the main path, profile one more ingest and "
-                         "two asks with torch.profiler")
+                         "two asks, and one more step of each training "
+                         "stage, with torch.profiler")
     args = ap.parse_args()
     # the smoke uses one card: show it only the first visible one, so the
     # device count it reports is the number of cards it ran on
@@ -945,14 +1483,18 @@ def main() -> int:
     results = check_kernels(dev) + check_int4_kernels(dev)
     check_reference(dev)
     check_reference_int4(dev)
+    check_training_reference(dev)
     launches, metrics, sess = run_main_path(dev, card)
     if args.profile:
         profile_phases(sess, card)
     model = sess.model
     del sess
+    train_launches, train_metrics = run_training(model, dev, card,
+                                                 args.profile)
     int4_launches, int4_metrics = run_int4_path(model, dev, card)
-    for r, n in zip(results, launches + int4_launches):
+    for r, n in zip(results, launches + train_launches + int4_launches):
         r["launches"] = n
+    metrics.update(train_metrics)
     metrics.update(int4_metrics)
     log("metrics: " + json.dumps(metrics))
     print(json.dumps({"kernels": results}))

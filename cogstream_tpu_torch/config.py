@@ -120,6 +120,24 @@ class ProcessorConfig:
 
 
 @dataclass(frozen=True)
+class LoRAConfig:
+    """LoRA adapter config (reference: first_stage_training.py:458-465)."""
+
+    rank: int = 8
+    alpha: float = 16.0
+    dropout: float = 0.1
+    # module name suffixes to adapt
+    target_modules: Tuple[str, ...] = (
+        "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj",
+    )
+    include_projector: bool = False  # stage-2 also adapts mm_projector (2nd stage ref :252-255)
+
+    @property
+    def scale(self) -> float:
+        return self.alpha / self.rank
+
+
+@dataclass(frozen=True)
 class CogReasonerConfig:
     """Top-level model config combining decoder + vision tower + modules."""
 

@@ -28,7 +28,7 @@ from .cogreasoner import CogReasoner
 from .projector import Projector
 from ..ops import quant
 from .qwen2 import ATTN_PROJ, MLP_PROJ, Qwen2Model
-from .vision_encoder import VisionTower
+from .vision_encoder import VisionTower, default_device
 
 
 def _copy(param: torch.Tensor, value) -> None:
@@ -58,6 +58,7 @@ def qwen2_from_params(tree: Dict, cfg: Qwen2Config, device=None,
                       dtype=None) -> Qwen2Model:
     """Stacked JAX decoder tree (bf16/f32 kernels, or rank-1 int4
     kernels) → Qwen2Model."""
+    device = default_device(device)
     model = Qwen2Model(cfg, device=device, dtype=dtype)
     _copy(model.embed_tokens, tree["embed_tokens"])
     _copy(model.final_norm, tree["final_norm"]["scale"])
@@ -137,13 +138,18 @@ def cogreasoner_from_params(tree: Dict, cfg: CogReasonerConfig,
             cfg.mm_projector_type, device, cfg.text.torch_dtype))
 
 
-def adapter_from_params(tree: Dict, device=None) -> Dict:
+def adapter_from_params(tree: Dict, device=None,
+                        requires_grad: bool = False) -> Dict:
     """Stacked JAX LoRA tree ({"layers": {group: {name: {"a": [L, din,
     r], "b": [L, r, dout]}}}, optional "lm_head") → the port's adapter
     tree: per-layer entries, a/b kept in the [din, r] / [r, dout]
-    layout (f32)."""
+    layout (f32). ``requires_grad`` makes every entry a trainable leaf
+    (models/lora.py)."""
+    device = default_device(device)
+
     def t(a):
-        return torch.from_numpy(np.array(a, np.float32)).to(device)
+        out = torch.from_numpy(np.array(a, np.float32)).to(device)
+        return out.requires_grad_(True) if requires_grad else out
 
     stacked = tree.get("layers", {})
     leaves = [np.asarray(ab["a"]) for g in stacked.values()
@@ -157,4 +163,53 @@ def adapter_from_params(tree: Dict, device=None) -> Dict:
     if tree.get("lm_head") is not None:
         out["lm_head"] = {"a": t(tree["lm_head"]["a"]),
                           "b": t(tree["lm_head"]["b"])}
+    return out
+
+
+def lora_from_params(tree: Dict, device=None) -> Dict:
+    """A JAX LoRA tree (numpy leaves) → the port's trainable tree: a
+    decoder tree (``init_qwen2_lora``) or a whole one with ``"text"`` and
+    optional ``"projector"`` (``init_cogreasoner_lora``). Every leaf is
+    an f32 tensor with ``requires_grad``."""
+    if "text" not in tree:
+        return adapter_from_params(tree, device, requires_grad=True)
+    device = default_device(device)
+    out = {"text": adapter_from_params(tree["text"], device,
+                                       requires_grad=True)}
+    if tree.get("projector") is not None:
+        out["projector"] = {"layers": [
+            {k: torch.from_numpy(np.array(ab[k], np.float32)).to(
+                device).requires_grad_(True) for k in ("a", "b")}
+            for ab in tree["projector"]["layers"]]}
+    return out
+
+
+def lora_to_params(tree: Dict) -> Dict:
+    """The port's LoRA tree → the JAX layout as numpy f32: decoder
+    entries stacked ``[L, ...]`` per projection, the projector's list
+    kept. The inverse of :func:`lora_from_params`."""
+    def n(t):
+        return t.detach().float().cpu().numpy()
+
+    def decoder(d):
+        layers = d.get("layers", [])
+        stacked = {}
+        if layers:
+            for group, names in layers[0].items():
+                stacked[group] = {
+                    name: {k: np.stack([n(layer[group][name][k])
+                                        for layer in layers])
+                           for k in ("a", "b")}
+                    for name in names}
+        out = {"layers": stacked}
+        if d.get("lm_head") is not None:
+            out["lm_head"] = {k: n(d["lm_head"][k]) for k in ("a", "b")}
+        return out
+
+    if "text" not in tree:
+        return decoder(tree)
+    out = {"text": decoder(tree["text"])}
+    if tree.get("projector") is not None:
+        out["projector"] = {"layers": [{k: n(ab[k]) for k in ("a", "b")}
+                                       for ab in tree["projector"]["layers"]]}
     return out

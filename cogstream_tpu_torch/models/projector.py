@@ -1,18 +1,22 @@
 """Vision→LM projector (port of ``cogstream_tpu/models/projector.py``).
 
 ``mlp2x_gelu``: Linear(vision_hidden → lm_hidden) → GELU (exact) →
-Linear(lm_hidden → lm_hidden).
+Linear(lm_hidden → lm_hidden). :func:`projector_forward_lora` is the
+stage-2 training readout with a LoRA delta on each linear (the JAX
+package writes it inline in ``train/multimodal.py``).
 """
 
 from __future__ import annotations
 
 import re
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .vision_encoder import linear
+from .qwen2 import adapter_in
+from .vision_encoder import default_device, linear
 
 
 def projector_depth(projector_type: str) -> int:
@@ -30,6 +34,7 @@ class Projector(nn.Module):
                  dtype=torch.bfloat16):
         super().__init__()
         depth = projector_depth(projector_type)
+        device = default_device(device)
         dims = [vision_hidden] + [lm_hidden] * depth
         self.layers = nn.ModuleList(linear(dims[i], dims[i + 1], device, dtype)
                                     for i in range(depth))
@@ -40,3 +45,22 @@ class Projector(nn.Module):
                 x = F.gelu(x)          # exact erf gelu
             x = layer(x)
         return x
+
+
+def projector_forward_lora(proj: Projector, x: torch.Tensor,
+                           lora_layers: Sequence[Dict], lora_scale: float,
+                           dropout_rate: float = 0.0,
+                           generators: Optional[Sequence] = None
+                           ) -> torch.Tensor:
+    """The readout with a low-rank delta on each linear, applied to the
+    input that linear saw: ``layer(x) + (x_a @ a) @ b * scale``, where
+    ``x_a`` is ``x`` with LoRA dropout (one generator per linear, or
+    none)."""
+    for i, (layer, ab) in enumerate(zip(proj.layers, lora_layers)):
+        if i > 0:
+            x = F.gelu(x)          # exact erf gelu
+        xa = adapter_in(x, dropout_rate,
+                        generators[i] if generators else None)
+        x = layer(x) + (xa @ ab["a"].to(x.dtype)) @ ab["b"].to(x.dtype) \
+            * lora_scale
+    return x

@@ -9,6 +9,12 @@ position-tagged KV cache, gated LoRA deltas, and three forward modes:
 * cached decode (S <= 8): the step's K/V written in place, attention
   over the cache's first ``kv_window`` slots (K4).
 
+Those three run under ``torch.inference_mode``. Training has its own
+grad-enabled cache-free forward, :func:`qwen2_forward_train`: attention
+is the plain ``causal_gqa_attention`` (as in the JAX cache-free scan; K3
+has no backward in either package), with per-layer recomputation
+(``remat``) and LoRA dropout on the adapter input only.
+
 The cache is updated IN PLACE (the JAX package rebinds a donated
 buffer); ``qwen2_forward`` returns the same object.
 
@@ -26,17 +32,20 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..config import Qwen2Config
+from ..ops.attention import causal_gqa_attention
 from ..ops.lm_attention import (DECODE_MAX_S, decode_attention,
                                 effective_kv_positions,
                                 prefill_flash_attention)
 from ..ops.quant import Int4Linear, QUEUE_MSG
 from ..ops.rope import apply_rope, rope_angles
-from .vision_encoder import linear
+from .vision_encoder import default_device, linear
 
 # (adapter tree, gate) pairs. An adapter tree is {"layers": [per-layer
 # {"attn": {"q_proj": {"a": [din, r], "b": [r, dout]}, ...}, "mlp":
@@ -70,6 +79,7 @@ class Qwen2Model(nn.Module):
     def __init__(self, cfg: Qwen2Config, device=None, dtype=None):
         super().__init__()
         dtype = dtype or cfg.torch_dtype
+        device = default_device(device)
         self.cfg = cfg
         H = cfg.hidden_size
         self.embed_tokens = nn.Parameter(torch.empty(
@@ -107,6 +117,7 @@ class KVCache:
 def init_kv_cache(cfg: Qwen2Config, batch: int, max_len: int, dtype=None,
                   device=None) -> KVCache:
     dtype = dtype or cfg.torch_dtype
+    device = default_device(device)
     shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads,
              cfg.head_dim)
     return KVCache(
@@ -236,6 +247,102 @@ def qwen2_forward(
     if cache is not None:
         cache.write_index = wi + S
     return x, cache
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+def site_generator(seed: int, *ids: int, device=None) -> torch.Generator:
+    """A generator for one dropout site, seeded from the step's seed and
+    the site's ids (layer, projection): the same ids give the same mask,
+    so a recomputed layer (``remat``) redraws exactly its forward's."""
+    words = np.random.SeedSequence([int(seed), *map(int, ids)]).generate_state(
+        2, np.uint32)
+    g = torch.Generator(device=device)
+    g.manual_seed((int(words[0]) << 31) ^ int(words[1]))
+    return g
+
+
+def adapter_in(x: torch.Tensor, rate: float,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Adapter-branch input with inverted dropout (PEFT lora_dropout: the
+    frozen dense path never drops). Identity without a generator or at
+    rate 0."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < (1.0 - rate)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x)).to(
+        x.dtype)
+
+
+# dropout site ids, in the JAX scan's order (q, k, v, o, gate, up, down)
+_SITES = tuple(("attn", n) for n in ATTN_PROJ) + tuple(
+    ("mlp", n) for n in MLP_PROJ)
+
+
+def qwen2_forward_train(
+    model: Qwen2Model,
+    inputs_embeds: torch.Tensor,   # [B, S, H]
+    positions: torch.Tensor,       # [B, S] int32; -1 marks padding
+    adapters: Adapters = None,
+    lora_scale: float = 2.0,
+    remat: bool = False,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
+) -> torch.Tensor:
+    """Grad-enabled cache-free decoder forward; returns hidden [B, S, H].
+
+    Causal attention by absolute positions over the S tokens (padding -1
+    sees and is seen by nothing), through the plain
+    ``causal_gqa_attention``. ``remat`` recomputes each layer in the
+    backward pass (``torch.utils.checkpoint``; the JAX scan's
+    ``jax.checkpoint``). With ``dropout_seed`` the adapters' inputs drop
+    at ``dropout_rate``, one generator per (layer, projection) derived
+    from the seed (:func:`site_generator`); without it the forward is
+    deterministic."""
+    cfg = model.cfg
+    B, S, _ = inputs_embeds.shape
+    Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    if any(isinstance(m, Int4Linear) for m in model.modules()):
+        raise NotImplementedError(f"training on a quantized base (QLoRA) "
+                                  f"is {QUEUE_MSG}")
+    positions = positions.to(torch.int32)
+    angles = rope_angles(positions.clamp(min=0), D, cfg.rope_theta)
+    kv_valid = positions >= 0
+    drop = dropout_seed is not None and dropout_rate > 0.0
+
+    def layer_fn(li: int, x: torch.Tensor) -> torch.Tensor:
+        layer = model.layers[li]
+        mods = {"attn": layer.attn, "mlp": layer.mlp}
+
+        def proj(site: int, inp: torch.Tensor) -> torch.Tensor:
+            group, name = _SITES[site]
+            gen = (site_generator(dropout_seed, li, site, device=inp.device)
+                   if drop else None)
+            y = mods[group][name](inp)
+            return _add_lora(y, adapter_in(inp, dropout_rate, gen),
+                             _lora_at(adapters, li, group, name), lora_scale)
+
+        h = rms_norm(x, layer.input_norm, cfg.rms_norm_eps)
+        q = apply_rope(proj(0, h).reshape(B, S, Hq, D), angles)
+        k = apply_rope(proj(1, h).reshape(B, S, Hkv, D), angles)
+        v = proj(2, h).reshape(B, S, Hkv, D)
+        attn = causal_gqa_attention(q, k, v, q_positions=positions,
+                                    kv_valid=kv_valid, kv_positions=positions)
+        x = x + proj(3, attn.reshape(B, S, Hq * D))
+        h = rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
+        return x + proj(6, F.silu(proj(4, h)) * proj(5, h))
+
+    x = inputs_embeds
+    for li in range(len(model.layers)):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                layer_fn, li, x, use_reentrant=False)
+        else:
+            x = layer_fn(li, x)
+    return rms_norm(x, model.final_norm, cfg.rms_norm_eps)
 
 
 def lm_logits(model: Qwen2Model, hidden: torch.Tensor, adapters: Adapters = None,

@@ -1,5 +1,4 @@
-"""SigLIP-style vision tower (port of ``cogstream_tpu/models/vision_encoder.py``,
-packed serving path).
+"""SigLIP-style vision tower (port of ``cogstream_tpu/models/vision_encoder.py``).
 
 27 pre-LN layers (hidden 1152, 16 heads of 72, gelu-tanh MLP 4304) over
 a flat ``[N, hidden]`` token stream of patch rows; each frame is one
@@ -11,6 +10,13 @@ reading q/k/v straight out of that GEMM output with the 2D RoPE fused
 in → o-projection → K2 LayerNorm → MLP. The plain GEMMs are
 ``torch.nn.functional.linear``. The TPU-only 128-lane per-head weight
 padding has no counterpart here.
+
+``vision_encoder_core`` keeps the JAX branch structure: with the packed
+ranges (``kv_lo``/``kv_hi``) it runs the serving path above; without
+them ``use_pallas=True`` runs the head-major branch (q/k/v sliced from
+the fused QKV output, 2D RoPE as its own pass, then K5 on a CUDA device)
+— the branch the training path's frozen tower takes — and
+``use_pallas=False`` the plain ``segment_attention`` (CPU and tests).
 """
 
 from __future__ import annotations
@@ -24,24 +30,35 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import VisionEncoderConfig
+from ..ops.attention import segment_attention
 from ..ops.flash_attention import (flash_attention_packed_rope_fusedqkv,
-                                   vision_kv_ranges)
+                                   segment_flash_attention, vision_kv_ranges)
 from ..ops.layernorm import layernorm
-from ..ops.rope import grid_position_ids, vision_rope_angles, vision_rope_cos_sin
+from ..ops.rope import (apply_vision_rope_cs, grid_position_ids,
+                        vision_rope_angles, vision_rope_cos_sin)
 
 
 def linear(din: int, dout: int, device, dtype, bias: bool = True) -> nn.Linear:
     """An nn.Linear with uninitialized storage (weights come from the
-    bridge or ``init_cogreasoner_params``)."""
+    bridge or ``init_cogreasoner_params``) on ``device``: the card unless
+    the caller names another."""
     return nn.utils.skip_init(nn.Linear, din, dout, bias=bias,
-                              device=device or "cpu", dtype=dtype)
+                              device=default_device(device), dtype=dtype)
+
+
+def default_device(device=None) -> torch.device:
+    """The device a model constructor allocates on: ``device`` if given, else the
+    CUDA card. There is no CPU fallback: without a card the allocation
+    fails, and CPU callers pass ``device="cpu"``."""
+    return torch.device("cuda" if device is None else device)
 
 
 class LayerNormParams(nn.Module):
     """f32 scale/bias of a LayerNorm applied through ``ops.layernorm``."""
 
-    def __init__(self, hidden: int, device):
+    def __init__(self, hidden: int, device=None):
         super().__init__()
+        device = default_device(device)
         self.scale = nn.Parameter(torch.ones(hidden, device=device))
         self.bias = nn.Parameter(torch.zeros(hidden, device=device))
 
@@ -65,6 +82,7 @@ class VisionTower(nn.Module):
     def __init__(self, cfg: VisionEncoderConfig, device=None, dtype=None):
         super().__init__()
         dtype = dtype or cfg.torch_dtype
+        device = default_device(device)
         self.cfg = cfg
         patch_dim = cfg.num_channels * cfg.patch_size ** 2
         self.patch_embed = linear(patch_dim, cfg.hidden_size, device, dtype)
@@ -123,6 +141,23 @@ def build_vision_metadata(grid_sizes: np.ndarray, merge_sizes: np.ndarray,
     return VisionMetadata(pos, segs, grps, out_tokens, kv_lo, kv_hi)
 
 
+def _attn_head_major(layer: VisionLayer, h: torch.Tensor, cos2, sin2,
+                     segment_ids: torch.Tensor, ranges, H: int, D: int,
+                     scale: float, use_pallas: bool) -> torch.Tensor:
+    """The JAX ``_attn_block``: q/k/v projections (slices of the fused QKV
+    output), 2D RoPE on q and k, attention, o-projection."""
+    N = h.shape[0]
+    q, k, v = layer.qkv(h).reshape(N, 3, H, D).unbind(1)
+    q = apply_vision_rope_cs(q, cos2, sin2)
+    k = apply_vision_rope_cs(k, cos2, sin2)
+    v = v.contiguous()
+    if use_pallas:
+        out = segment_flash_attention(q, k, v, segment_ids, ranges, scale)
+    else:
+        out = segment_attention(q, k, v, segment_ids, scale)
+    return layer.o(out.reshape(N, H * D))
+
+
 def vision_encoder_core(
     tower: VisionTower,
     pixel_values: torch.Tensor,    # [N, C*ps*ps] uint8 or float
@@ -130,10 +165,16 @@ def vision_encoder_core(
     segment_ids: torch.Tensor,     # [N] int32, -1 = pad
     merge_group_ids: torch.Tensor, # [N] int32
     num_out_tokens: int,
-    kv_lo: torch.Tensor,           # [ceil(N/64)] int32
-    kv_hi: torch.Tensor,
+    kv_lo: Optional[torch.Tensor] = None,   # [ceil(N/64)] int32
+    kv_hi: Optional[torch.Tensor] = None,
+    use_pallas: bool = True,
 ) -> torch.Tensor:
-    """Patch rows → merged features [num_out_tokens, hidden]."""
+    """Patch rows → merged features [num_out_tokens, hidden].
+
+    With ``kv_lo``/``kv_hi`` (the packed ranges) the serving path runs
+    (K1, fused RoPE); without them the head-major branch: K5 where
+    ``use_pallas`` (its plain version on the CPU), else the plain
+    ``segment_attention``."""
     cfg = tower.cfg
     dtype = tower.dtype
     dev = pixel_values.device
@@ -152,14 +193,26 @@ def vision_encoder_core(
         pixel_values = xf.reshape(n, -1)
     x = tower.patch_embed(pixel_values.to(dtype))
     cos2, sin2 = vision_rope_cos_sin(vision_rope_angles(pos_ids, D))
-    cos, sin = cos2[:, 0].contiguous(), sin2[:, 0].contiguous()
     scale = 1.0 / math.sqrt(D)
     eps = cfg.layer_norm_eps
+    packed = kv_lo is not None
+    if packed:
+        cos, sin = cos2[:, 0].contiguous(), sin2[:, 0].contiguous()
+    elif use_pallas:
+        # K5's per-tile key ranges, once per forward (host metadata)
+        ranges = tuple(torch.from_numpy(r).to(dev) for r in
+                       vision_kv_ranges(segment_ids.cpu().numpy()))
+    else:
+        ranges = None
     for layer in tower.layers:
-        qkv = layer.qkv(layer.ln1(x, eps))
-        attn = flash_attention_packed_rope_fusedqkv(
-            qkv, cos, sin, segment_ids, kv_lo, kv_hi, H, scale)
-        x = x + layer.o(attn)
+        h = layer.ln1(x, eps)
+        if packed:
+            attn = layer.o(flash_attention_packed_rope_fusedqkv(
+                layer.qkv(h), cos, sin, segment_ids, kv_lo, kv_hi, H, scale))
+        else:
+            attn = _attn_head_major(layer, h, cos2, sin2, segment_ids,
+                                    ranges, H, D, scale, use_pallas)
+        x = x + attn
         h = F.gelu(layer.fc1(layer.ln2(x, eps)), approximate="tanh")
         x = x + layer.fc2(h)
     x = tower.post_ln(x, eps)

@@ -47,6 +47,10 @@ _SIGNATURES = {
     # scale, dtype, stream
     "cs_vision_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _F, _I, _P),
+    # q, k, v, seg, kv_lo, kv_hi, out, n, heads, d, block_q, scale, dtype,
+    # stream
+    "cs_segment_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _F, _I, _P),
     # q, k, v, q_pos, eff, tile_min, out, part_m, part_l, part_acc,
     # B, S, Hq, Hkv, D, T_cache, kv_len, chunk_tiles, n_chunks, scale,
     # dtype, stream

@@ -1,0 +1,139 @@
+"""Stage-1 training loop: the historic-dialogue-retrieval selector (port
+of ``cogstream_tpu/train/stage1.py``).
+
+LoRA r=8 on all attention/MLP projections, constrained-vocab CE on the
+bracketed selection target, shuffle-augmented history, cosine LR, grad
+accumulation, remat — on one GPU. The data, tensor and pipeline
+parallel options raise (ROADMAP Queue 1 #9); the command-line ``main``
+waits for the HF checkpoint and tokenizer loaders.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, Optional
+
+import torch
+
+from ..config import CogReasonerConfig, LoRAConfig
+from ..models.lora import init_qwen2_lora
+from ..processor.tokenizer import constrained_selector_token_ids
+from ..runtime.sampling import build_vocab_mask
+from . import checkpoint as ckpt
+from .data import selector_batches, selection_exact_match
+from .trainer import (PARALLEL_MSG, bind_text_loss, init_train_state,
+                      make_optimizer, make_train_step, to_device)
+
+
+@dataclasses.dataclass
+class Stage1Config:
+    epochs: int = 8                  # ref :481-500
+    batch_size: int = 8
+    max_len: int = 1024
+    learning_rate: float = 1e-4
+    grad_accum: int = 4
+    warmup_steps: int = 50
+    shuffle_copies: int = 2
+    save_every: int = 200
+    log_every: int = 20
+    data_parallel: Optional[int] = None
+    model_parallel: Optional[int] = None
+    # >1: GPipe pipeline parallelism in the JAX package; not ported
+    pipeline_stages: int = 1
+    pipeline_microbatches: int = 0
+    # few-shot demo block in the serialized selector prompt — must
+    # match the flag used at serving (Selector.select include_demo)
+    include_demo: bool = True
+    seed: int = 0
+
+
+def train_stage1(
+    model,                      # models.qwen2.Qwen2Model (frozen base)
+    cfg: CogReasonerConfig,
+    tokenizer,
+    samples,
+    out_dir: str,
+    tcfg: Stage1Config = Stage1Config(),
+    resume: bool = True,
+    log=print,
+    stop_flag=None,
+    lora_cfg: Optional[LoRAConfig] = None,
+    lora: Optional[Dict] = None,
+):
+    """Train the selector LoRA on ``model``'s device; returns the final
+    TrainState.
+
+    ``lora_cfg`` defaults to the reference recipe (``LoRAConfig()``:
+    r=8, alpha 16, dropout 0.1); ``lora`` is the initial adapter tree
+    (default: ``init_qwen2_lora`` from ``tcfg.seed``). ``stop_flag`` is
+    an optional ``Callable[[], bool]`` polled at every step boundary
+    (trainer.PreemptionGuard wires it to SIGTERM): when it turns true the
+    train state is saved and the function returns early — a relaunch
+    resumes from that step.
+    """
+    if tcfg.pipeline_stages > 1 or (tcfg.data_parallel or 1) > 1 or \
+            (tcfg.model_parallel or 1) > 1:
+        raise NotImplementedError(PARALLEL_MSG)
+    dev = model.device
+    lora_cfg = lora_cfg or LoRAConfig()
+    if lora is None:
+        lora = init_qwen2_lora(torch.Generator(device=dev).manual_seed(
+            tcfg.seed), cfg.text, lora_cfg, device=dev)
+
+    steps_per_epoch = max(1, (len(samples) * tcfg.shuffle_copies)
+                          // tcfg.batch_size)
+    total = steps_per_epoch * tcfg.epochs
+    tx = make_optimizer(tcfg.learning_rate, total_steps=total,
+                        warmup_steps=tcfg.warmup_steps,
+                        grad_accum=tcfg.grad_accum)
+    vm = build_vocab_mask(cfg.text.vocab_size,
+                          constrained_selector_token_ids(tokenizer), dev)
+    loss_fn = bind_text_loss(lora_cfg, vocab_mask=vm, remat=True)
+    # reference recipe: LoRA dropout 0.1 during training
+    # (first_stage_training.py:458-465); seeded → reproducible
+    drop_seed = tcfg.seed ^ 0x5EED if lora_cfg.dropout > 0 else None
+    step_fn = make_train_step(tx, loss_fn, dropout_seed=drop_seed)
+
+    state = init_train_state(tx, lora)
+    if resume:
+        restored = ckpt.restore_train_state(out_dir, state)
+        if restored is not None:
+            state = restored
+            log(f"resumed from step {state.step}")
+
+    t0 = time.time()
+    for epoch in range(tcfg.epochs):
+        for batch in selector_batches(
+                tokenizer, samples, tcfg.batch_size, tcfg.max_len,
+                seed=tcfg.seed + epoch,
+                shuffle_copies=tcfg.shuffle_copies,
+                include_demo=tcfg.include_demo):
+            state, loss = step_fn(model, state, to_device(batch, dev))
+            s = state.step
+            if s % tcfg.log_every == 0:
+                log(f"epoch {epoch} step {s} loss {float(loss):.4f} "
+                    f"({s / (time.time() - t0 + 1e-9):.2f} it/s)")
+            if s % tcfg.save_every == 0:
+                ckpt.save_train_state(out_dir, state)
+            if stop_flag is not None and stop_flag():
+                ckpt.save_train_state(out_dir, state)
+                log(f"preempted at step {s}: train state saved — "
+                    "rerun to resume")
+                return state
+        ckpt.save_train_state(out_dir, state)
+        log(f"epoch {epoch} done")
+    ckpt.save_lora_adapter(out_dir, state.lora, name="language_module")
+    return state
+
+
+def evaluate_selector(engine_selector, samples, limit: int = 100) -> Dict:
+    """Exact-match digit metrics (compute_metrics, ref :397-420) of a
+    ``runtime.retrieval.Selector``."""
+    hits = 0
+    n = 0
+    for s in samples[:limit]:
+        pred = engine_selector.select(s.question, s.hist_qs, s.hist_as)
+        hits += selection_exact_match(pred, s.target)
+        n += 1
+    return {"exact_match": hits / max(n, 1), "n": n}

@@ -1,0 +1,379 @@
+"""Training core: losses, optimizer, train step (port of
+``cogstream_tpu/train/trainer.py``).
+
+One step is: forward (remat'd decoder layers) → masked CE → gradients
+with respect to the LoRA leaves only (the base is frozen: its tensors
+never require grad) → AdamW. The optimizer reproduces the JAX
+package's optax chain exactly — ``optax.adamw`` (b1, b2, eps 1e-8,
+decoupled weight decay) under ``optax.warmup_cosine_decay_schedule``,
+and ``optax.MultiSteps`` gradient accumulation (a running mean of the
+micro-step gradients, one inner update every ``grad_accum`` micro-steps,
+the schedule counting inner updates) — over trees of torch tensors. The
+LoRA leaves and the optimizer moments update IN PLACE (the JAX package
+returns new arrays), so a step allocates no second copy of either.
+
+Multi-GPU data, tensor, pipeline and sequence parallelism is not ported
+(``shard_batch``, ``batch_specs`` and ``pipeline=`` raise).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import LoRAConfig
+from ..models import qwen2
+from ..models.lora import iter_leaves
+
+IGNORE_INDEX = -100
+PARALLEL_MSG = ("multi-GPU data, tensor, pipeline and sequence parallelism "
+                "is not ported yet (ROADMAP Queue 1 #9)")
+
+
+class PreemptionGuard:
+    """SIGTERM-aware stop flag for preemption-safe training.
+
+    The signal handler only sets a flag; the train loop checks it at the
+    next step boundary, saves the train state and exits cleanly — the
+    relaunch resumes from that exact step via ``restore_train_state``.
+
+    Usage::
+
+        with PreemptionGuard() as guard:
+            train_stage1(..., stop_flag=guard)
+
+    The guard is callable (returns ``triggered``) so loops can take
+    any ``stop_flag: Callable[[], bool]``. Outside the main thread
+    (where CPython forbids signal handlers) it degrades to a plain
+    never-triggered flag.
+    """
+
+    def __init__(self, signals: Tuple[int, ...] = None):
+        import signal as _signal
+
+        self._signal = _signal
+        self._signals = signals if signals is not None \
+            else (_signal.SIGTERM,)
+        self._prev: Dict[int, Any] = {}
+        self.triggered = False
+
+    def _handle(self, signum, frame):
+        self.triggered = True
+
+    def __enter__(self) -> "PreemptionGuard":
+        for s in self._signals:
+            try:
+                self._prev[s] = self._signal.signal(s, self._handle)
+            except ValueError:      # not the main thread
+                pass
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        for s, prev in self._prev.items():
+            self._signal.signal(s, prev)
+        self._prev.clear()
+        return False
+
+    def __call__(self) -> bool:
+        return self.triggered
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def masked_cross_entropy(
+    logits: torch.Tensor,       # [B, S, V]
+    labels: torch.Tensor,       # [B, S] int, IGNORE_INDEX outside the target
+    vocab_mask: Optional[torch.Tensor] = None,   # [V] bool — constrained loss
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Next-token CE over the shifted sequence, in f32. Returns (loss,
+    n_targets). With ``vocab_mask`` the distribution is renormalized over
+    the allowed tokens first (the stage-1 constrained objective)."""
+    logits = logits[:, :-1].to(torch.float32)
+    targets = labels[:, 1:].to(torch.int64)
+    valid = targets != IGNORE_INDEX
+    if vocab_mask is not None:
+        logits = logits.masked_fill(~vocab_mask[None, None, :], -1e30)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, targets.clamp(min=0)[..., None])[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    n = valid.sum()
+    return nll.sum() / n.clamp(min=1), n
+
+
+def positions_from_ids(input_ids: torch.Tensor, pad_id: int = 0
+                       ) -> torch.Tensor:
+    """[B, S] absolute positions; padding slots get -1."""
+    valid = input_ids != pad_id
+    pos = torch.cumsum(valid.to(torch.int32), dim=1, dtype=torch.int32) - 1
+    return torch.where(valid, pos, torch.full_like(pos, -1))
+
+
+# ---------------------------------------------------------------------------
+# schedule and optimizer (optax's semantics over torch tensors)
+# ---------------------------------------------------------------------------
+
+def make_lr_schedule(
+    learning_rate: float,
+    total_steps: int,
+    warmup_steps: int,
+    grad_accum: int = 1,
+    schedule: str = "cosine",
+):
+    """Warmup-cosine over the run horizon in optimizer UPDATES (the
+    accumulation advances the schedule once per accumulated update):
+    ``optax.warmup_cosine_decay_schedule(0, lr, warmup, max(updates,
+    warmup + 1))`` as a function of the update count. Any other
+    ``schedule`` is the constant ``learning_rate``."""
+    if schedule != "cosine":
+        return learning_rate
+    updates = max(1, total_steps // max(grad_accum, 1))
+    decay_steps = max(updates, warmup_steps + 1)
+
+    def lr(count: int) -> float:
+        if warmup_steps > 0 and count < warmup_steps:
+            # optax.linear_schedule(0, peak, warmup): (init - end) * frac + end
+            frac = 1.0 - count / warmup_steps
+            return (0.0 - learning_rate) * frac + learning_rate
+        t = min(count - warmup_steps, decay_steps - warmup_steps)
+        return learning_rate * 0.5 * (
+            1.0 + math.cos(math.pi * t / (decay_steps - warmup_steps)))
+
+    return lr
+
+
+class AdamW:
+    """``optax.adamw(lr, b1, b2, eps=1e-8, weight_decay)``: Adam moments
+    with bias correction, ``m̂ / (sqrt(v̂) + eps)``, plus ``wd * param``,
+    times ``-lr(count)``. State: ``{"count", "mu", "nu"}`` (lists aligned
+    with the parameter leaves)."""
+
+    def __init__(self, learning_rate, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, weight_decay: float = 0.0):
+        self.lr = learning_rate if callable(learning_rate) \
+            else (lambda count, v=float(learning_rate): v)
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+
+    def init(self, params: List[torch.Tensor]) -> Dict:
+        return {"count": 0,
+                "mu": [torch.zeros_like(p, dtype=torch.float32)
+                       for p in params],
+                "nu": [torch.zeros_like(p, dtype=torch.float32)
+                       for p in params]}
+
+    @torch.no_grad()
+    def update(self, grads: List[torch.Tensor], state: Dict,
+               params: List[torch.Tensor]) -> Tuple[List[torch.Tensor], Dict]:
+        lr = self.lr(state["count"])     # optax's schedule counts from 0
+        count = state["count"] + 1
+        c1 = 1.0 - self.b1 ** count
+        c2 = 1.0 - self.b2 ** count
+        updates = []
+        for g, m, v, p in zip(grads, state["mu"], state["nu"], params):
+            g = g.to(torch.float32)
+            m.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
+            v.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
+            u = (m / c1) / ((v / c2).sqrt() + self.eps)
+            if self.weight_decay:
+                u = u + self.weight_decay * p.to(torch.float32)
+            updates.append(u * -lr)
+        state["count"] = count
+        return updates, state
+
+
+class MultiSteps:
+    """``optax.MultiSteps(inner, every_k_schedule=k)``: the running mean
+    of ``k`` micro-step gradients feeds one inner update; the micro-steps
+    in between return no update (``None``: the parameters stay)."""
+
+    def __init__(self, inner, every_k: int):
+        self.inner = inner
+        self.k = int(every_k)
+
+    def init(self, params: List[torch.Tensor]) -> Dict:
+        return {"mini_step": 0, "gradient_step": 0,
+                "inner": self.inner.init(params),
+                "acc": [torch.zeros_like(p, dtype=torch.float32)
+                        for p in params]}
+
+    @torch.no_grad()
+    def update(self, grads, state: Dict, params):
+        n = state["mini_step"]
+        for a, g in zip(state["acc"], grads):
+            a.add_((g.to(torch.float32) - a) / (n + 1))
+        state["mini_step"] = (n + 1) % self.k
+        if n != self.k - 1:
+            return None, state
+        updates, state["inner"] = self.inner.update(state["acc"],
+                                                    state["inner"], params)
+        for a in state["acc"]:
+            a.zero_()
+        state["gradient_step"] += 1
+        return updates, state
+
+
+def make_optimizer(
+    learning_rate: float = 1e-4,
+    total_steps: int = 10_000,
+    warmup_steps: int = 100,
+    weight_decay: float = 0.0,
+    grad_accum: int = 1,
+    schedule: str = "cosine",
+    b1: float = 0.9,
+    b2: float = 0.999,
+):
+    """AdamW + warmup-cosine (the reference's cosine LR,
+    first_stage_training.py:488, second_stage_training.py:310), with
+    gradient accumulation over ``grad_accum`` micro-steps."""
+    sched = make_lr_schedule(learning_rate, total_steps, warmup_steps,
+                             grad_accum, schedule)
+    tx = AdamW(sched, b1=b1, b2=b2, weight_decay=weight_decay)
+    if grad_accum > 1:
+        tx = MultiSteps(tx, grad_accum)
+    return tx
+
+
+# ---------------------------------------------------------------------------
+# train state and step
+# ---------------------------------------------------------------------------
+
+class TrainState(NamedTuple):
+    lora: Any                # trainable adapter tree (leaves require grad)
+    opt_state: Any
+    step: int                # micro-steps taken
+
+
+def init_train_state(tx, lora: Any) -> TrainState:
+    return TrainState(lora, tx.init([t for _, t in iter_leaves(lora)]), 0)
+
+
+def step_seed(base_seed: int, step: int) -> int:
+    """The dropout seed of one step (``jax.random.fold_in(key, step)``'s
+    role): stochastic across steps, reproducible from the base seed."""
+    w = np.random.SeedSequence([int(base_seed), int(step)]).generate_state(
+        2, np.uint32)
+    return (int(w[0]) << 31) ^ int(w[1])
+
+
+def make_train_step(tx, loss_fn: Callable,
+                    dropout_seed: Optional[int] = None) -> Callable:
+    """The (base frozen, LoRA trainable) train step ``step(params, state,
+    batch) -> (state, loss)``. With ``dropout_seed`` the loss is called
+    with a per-step seed derived from the step counter (train-mode LoRA
+    dropout, reproducible); without it with no seed (deterministic)."""
+
+    def step(params, state: TrainState, batch):
+        leaves = [t for _, t in iter_leaves(state.lora)]
+        if dropout_seed is not None:
+            loss = loss_fn(params, state.lora, batch,
+                           step_seed(dropout_seed, state.step))
+        else:
+            loss = loss_fn(params, state.lora, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, leaves)]
+        updates, opt_state = tx.update(grads, state.opt_state, leaves)
+        if updates is not None:
+            with torch.no_grad():
+                for p, u in zip(leaves, updates):
+                    p.add_(u.to(p.dtype))
+        return TrainState(state.lora, opt_state, state.step + 1), \
+            loss.detach()
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# losses bound to a model
+# ---------------------------------------------------------------------------
+
+def text_loss_fn(
+    model,                      # models.qwen2.Qwen2Model (frozen)
+    lora: Dict,
+    batch: Dict[str, torch.Tensor],
+    lora_scale: float,
+    vocab_mask: Optional[torch.Tensor] = None,
+    remat: bool = True,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
+    pipeline: Optional[Tuple[Any, int]] = None,
+) -> torch.Tensor:
+    """Stage-1 objective: text-only selector training."""
+    if pipeline is not None:
+        raise NotImplementedError(PARALLEL_MSG)
+    ids = batch["input_ids"]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = positions_from_ids(ids)
+    adapters = [(lora, 1.0)]
+    hidden = qwen2.qwen2_forward_train(
+        model, qwen2.embed(model, ids), positions, adapters, lora_scale,
+        remat=remat, dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+    logits = qwen2.lm_logits(model, hidden, adapters, lora_scale)
+    loss, _ = masked_cross_entropy(logits, batch["labels"], vocab_mask)
+    return loss
+
+
+def embeds_loss_fn(
+    model,
+    lora: Dict,
+    batch: Dict[str, torch.Tensor],
+    lora_scale: float,
+    remat: bool = True,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
+) -> torch.Tensor:
+    """Stage-2 / baseline objective over pre-spliced embeddings: the
+    batch carries ``inputs_embeds``, ``positions`` and shifted labels."""
+    adapters = [(lora.get("text", lora), 1.0)]
+    hidden = qwen2.qwen2_forward_train(
+        model, batch["inputs_embeds"], batch["positions"], adapters,
+        lora_scale, remat=remat, dropout_rate=dropout_rate,
+        dropout_seed=dropout_seed)
+    logits = qwen2.lm_logits(model, hidden, adapters, lora_scale)
+    loss, _ = masked_cross_entropy(logits, batch["labels"])
+    return loss
+
+
+def bind_text_loss(lora_cfg: Optional[LoRAConfig] = None,
+                   vocab_mask: Optional[torch.Tensor] = None,
+                   remat: bool = True,
+                   pipeline: Optional[Tuple[Any, int]] = None) -> Callable:
+    if pipeline is not None:
+        raise NotImplementedError(PARALLEL_MSG)
+    lc = lora_cfg or LoRAConfig()
+
+    def loss(model, lora, batch, seed=None):
+        return text_loss_fn(model, lora, batch, lc.scale,
+                            vocab_mask=vocab_mask, remat=remat,
+                            dropout_rate=lc.dropout, dropout_seed=seed)
+    return loss
+
+
+def bind_embeds_loss(lora_cfg: Optional[LoRAConfig] = None,
+                     remat: bool = True) -> Callable:
+    lc = lora_cfg or LoRAConfig()
+
+    def loss(model, lora, batch, seed=None):
+        return embeds_loss_fn(model, lora, batch, lc.scale, remat=remat,
+                              dropout_rate=lc.dropout, dropout_seed=seed)
+    return loss
+
+
+def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """Host batch → tensors on ``device`` (ints stay int, floats f32)."""
+    return {k: torch.as_tensor(np.asarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def batch_specs(batch_example: Dict[str, Any]):
+    raise NotImplementedError(PARALLEL_MSG)
+
+
+def shard_batch(batch: Dict[str, np.ndarray], mesh):
+    raise NotImplementedError(PARALLEL_MSG)

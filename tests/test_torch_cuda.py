@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K4, K6-K9) against their plain PyTorch versions,
+"""The port's CUDA kernels (K1-K9) against their plain PyTorch versions,
 on the card. Marked ``cuda``: without a CUDA device every test skips.
 
 On a machine with a card (and no JAX, so the repo's conftest cannot be
@@ -72,6 +72,46 @@ def test_vision_attention_kernel(dev, lengths, pad, dtype):
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got, ref, atol=tol, rtol=tol)
     assert torch.all(got[N - pad:] == 0)
+
+
+@pytest.mark.parametrize("lengths,pad", [((64, 64), 0), ((50, 77, 13), 20),
+                                         ((1008, 1008, 1008), 0),
+                                         ((130,), 60)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_attention_kernel(dev, lengths, pad, dtype):
+    """K5 against its plain version: valid rows within f32 summation
+    order (f32) or one bf16 rounding of each side (bf16); pad rows 0."""
+    from cogstream_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(4)
+    H, D = 3, 72
+    seg = np.concatenate([np.full(L, i, np.int32)
+                          for i, L in enumerate(lengths)]
+                         + [np.full(pad, -1, np.int32)])
+    N = seg.shape[0]
+    q, k, v = (_t(rng.standard_normal((N, H, D)), dev, dtype)
+               for _ in range(3))
+    segt = _t(seg, dev, torch.int32)
+    n0 = fa.segment_flash_attention.launches
+    with torch.no_grad():
+        got = fa.segment_flash_attention(q, k, v, segt).float()
+    assert fa.segment_flash_attention.launches == n0 + 1
+    ref = fa.segment_flash_attention_plain(q, k, v, segt,
+                                           1 / np.sqrt(D)).float()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got, ref, atol=tol, rtol=tol)
+    assert torch.all(got[N - pad:] == 0)
+
+
+def test_segment_attention_never_falls_back(dev):
+    """A CUDA tensor launches K5 or raises: a head dim the kernel does not
+    take raises instead of running the plain version."""
+    from cogstream_tpu_torch.ops import flash_attention as fa
+
+    q = torch.zeros((64, 2, 130), device=dev)
+    seg = torch.zeros(64, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="cs_segment_attention"):
+        fa.segment_flash_attention(q, q, q, seg)
 
 
 def _lm_case(rng, dev, dtype, B, S, T, Hq, Hkv, fill, D=128):

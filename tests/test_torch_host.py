@@ -54,7 +54,7 @@ def _one_thread():
 
 @pytest.mark.parametrize("name", ["VisionEncoderConfig", "Qwen2Config",
                                   "CompressionConfig", "ProcessorConfig",
-                                  "CogReasonerConfig"])
+                                  "CogReasonerConfig", "LoRAConfig"])
 def test_config_fields_and_defaults(name):
     def spec(cls):
         return [(f.name, f.default if f.default is not dataclasses.MISSING

@@ -43,7 +43,7 @@ def setup():
     jcfg, tcfg = JConfig.tiny(), TConfig.tiny()
     params = init_cogreasoner_params(jax.random.PRNGKey(0), jcfg)
     host = jax.tree.map(np.asarray, params)
-    model = bridge.cogreasoner_from_params(host, tcfg)
+    model = bridge.cogreasoner_from_params(host, tcfg, device="cpu")
     return jcfg, tcfg, params, model
 
 
@@ -62,7 +62,7 @@ def _lora(cfg, seed, with_head=False):
             "b": rng.standard_normal((4, cfg.text.vocab_size)).astype(
                 np.float32) * 0.05}
     j = [(jax.tree.map(jnp.asarray, tree), jnp.float32(1.0))]
-    t = [(bridge.adapter_from_params(tree), 1.0)]
+    t = [(bridge.adapter_from_params(tree, device="cpu"), 1.0)]
     return j, t
 
 
@@ -121,7 +121,7 @@ def test_qwen2_prefill_and_decode(setup, lora):
     H, T = jcfg.text.hidden_size, 96
     ja, ta = _lora(jcfg, 5) if lora else (None, None)
     jc = jq.init_kv_cache(jcfg.text, 1, T)
-    tc = tq.init_kv_cache(model.text.cfg, 1, T)
+    tc = tq.init_kv_cache(model.text.cfg, 1, T, device="cpu")
     allowed = rng.random((1, T)) > 0.3
     allowed[:, 32:] = True
     steps = [  # (S, positions, kv_allowed)

@@ -152,6 +152,52 @@ def test_vision_attention_plain_vs_pallas(lengths, pad):
 
 
 # ---------------------------------------------------------------------------
+# K5 head-major segment attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lengths,total", [
+    ([64, 64], 128),                       # block-aligned
+    ([100, 57, 200, 43], 428),             # ragged, straddling blocks
+    ([300], 300),
+    ([136] * 16, None),                    # aligned whole-frame blocks
+    ([136] * 6, 1024),                     # padded tail
+])
+def test_segment_attention_plain_vs_pallas(lengths, total):
+    """K5's plain version against the JAX ``segment_flash_attention``
+    (Pallas ``_flash_kernel``, interpret mode) on the valid rows; pad
+    rows output 0 (the kernel's masked rows), where the JAX oracle
+    ``segment_attention`` would average V uniformly."""
+    rng = np.random.default_rng(7)
+    seg = np.concatenate([np.full(L, i, np.int32)
+                          for i, L in enumerate(lengths)])
+    real = seg.shape[0]
+    if total is not None and total > real:
+        seg = np.concatenate([seg, np.full(total - real, -1, np.int32)])
+    N, H, D = seg.shape[0], 2, 24
+    q, k, v = (rng.standard_normal((N, H, D)).astype(np.float32)
+               for _ in range(3))
+    ref = np.asarray(jfa.segment_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), seg, interpret=True))
+    got = tfa.segment_flash_attention(_t(q), _t(k), _t(v), _t(seg)).numpy()
+    np.testing.assert_allclose(got[:real], ref[:real], **TOL)
+    assert np.all(got[real:] == 0)
+    oracle = np.asarray(jatt.segment_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(seg)))
+    np.testing.assert_allclose(got[:real], oracle[:real], **TOL)
+
+
+def test_segment_attention_has_no_backward():
+    """K5 is forward-only in both packages: it raises on inputs that
+    require grad under grad mode, and runs under no_grad."""
+    seg = torch.zeros(8, dtype=torch.int32)
+    q = torch.randn(8, 2, 16, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tfa.segment_flash_attention(q, q, q, seg)
+    with torch.no_grad():
+        assert tfa.segment_flash_attention(q, q, q, seg).shape == q.shape
+
+
+# ---------------------------------------------------------------------------
 # K3 prefill
 # ---------------------------------------------------------------------------
 

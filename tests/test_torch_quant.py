@@ -272,10 +272,11 @@ def int4_text():
     rng = np.random.default_rng(7)
     tree = jax.tree.map(lambda v: np.asarray(
         rng.standard_normal(v.shape) * 0.05, np.float32), lora)
-    model = bridge.qwen2_from_params(_np(qparams), TQwen2Config(**TEXT))
+    model = bridge.qwen2_from_params(_np(qparams), TQwen2Config(**TEXT),
+                                     device="cpu")
     return (cfg, params, qparams, model,
             [(jax.tree.map(jnp.asarray, tree), jnp.float32(1.0))],
-            [(bridge.adapter_from_params(tree), 1.0)])
+            [(bridge.adapter_from_params(tree, device="cpu"), 1.0)])
 
 
 def test_bridge_matches_port_quantizer(int4_text):
@@ -284,7 +285,8 @@ def test_bridge_matches_port_quantizer(int4_text):
     layout [L, din/2, dout]."""
     cfg, params, qparams, model, _, _ = int4_text
     own = tquant.quantize_text_(
-        bridge.qwen2_from_params(_np(params), TQwen2Config(**TEXT)))
+        bridge.qwen2_from_params(_np(params), TQwen2Config(**TEXT),
+                                 device="cpu"))
     for grp, name in tquant.GEMV_SITES:
         ref = model.int4[name]
         assert ref.q4.shape == (2, cfg.hidden_size // 2
@@ -352,7 +354,7 @@ def _forward_ratios(int4_text, monkeypatch, cached, jax_w4a8, port_w4a8):
     if cached:
         hist = rng.standard_normal((1, 8, 256)).astype(np.float32)
         jc = jq.init_kv_cache(jcfg, 1, 16)
-        tc = tq.init_kv_cache(model.cfg, 1, 16)
+        tc = tq.init_kv_cache(model.cfg, 1, 16, device="cpu")
         hp = np.arange(8, dtype=np.int32)[None]
         _, jc = jq.qwen2_forward(qparams, jnp.asarray(hist), jnp.asarray(hp),
                                  jcfg, cache=jc, adapters=ja)
@@ -429,7 +431,7 @@ def test_int4_session_w4a8(monkeypatch):
     params = init_cogreasoner_params(jax.random.PRNGKey(0), jcfg)
     params = {**params, "text": jquant.quantize_tree(
         params["text"], bits=4, rank1=True, nf4=False)}
-    model = bridge.cogreasoner_from_params(_np(params), tcfg)
+    model = bridge.cogreasoner_from_params(_np(params), tcfg, device="cpu")
     assert isinstance(model.text.lm_head, tquant.Int4Linear)
     monkeypatch.setattr(jquant, "_gemv_route_ok", lambda: True)
 
@@ -476,7 +478,8 @@ def test_w8a8_prefill_raises_at_session_construction():
         cfg.text, w8a8_prefill=True))
     from cogstream_tpu_torch.models.cogreasoner import \
         init_cogreasoner_params as t_init
-    model = t_init(TConfig.tiny(), torch.Generator().manual_seed(0))
+    model = t_init(TConfig.tiny(), torch.Generator().manual_seed(0),
+                   device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 #4"):
         TSession(model, cfg, TTok(image_token_id=cfg.image_token_index),
                  max_len=256)

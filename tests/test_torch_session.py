@@ -52,7 +52,7 @@ def setup():
     jcfg, tcfg = JConfig.tiny(), TConfig.tiny()
     params = init_cogreasoner_params(jax.random.PRNGKey(0), jcfg)
     model = bridge.cogreasoner_from_params(jax.tree.map(np.asarray, params),
-                                           tcfg)
+                                           tcfg, device="cpu")
     return jcfg, tcfg, params, model
 
 
@@ -72,7 +72,7 @@ def test_generate_tokens(setup, mode):
     rng = np.random.default_rng(0)
     H, T = jcfg.text.hidden_size, 2048
     jc = jq.init_kv_cache(jcfg.text, 1, T)
-    tc = tq.init_kv_cache(model.text.cfg, 1, T)
+    tc = tq.init_kv_cache(model.text.cfg, 1, T, device="cpu")
     hist = rng.standard_normal((1, 64, H)).astype(np.float32)
     hp = np.arange(64, dtype=np.int32)[None]
     _, jc = jq.qwen2_forward(params["text"], jnp.asarray(hist),
@@ -124,7 +124,7 @@ def _lora(cfg, seed):
     tree = jax.tree.map(lambda x: np.asarray(
         rng.standard_normal(x.shape) * 0.05, np.float32), lora)
     return ([(jax.tree.map(jnp.asarray, tree), jnp.float32(1.0))],
-            [(bridge.adapter_from_params(tree), 1.0)])
+            [(bridge.adapter_from_params(tree, device="cpu"), 1.0)])
 
 
 def test_selector_select(setup):
