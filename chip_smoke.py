@@ -7,7 +7,8 @@ Phases (each prints one line or a few; any failure exits non-zero):
 
 1. device — the card's name and power limit from nvidia-smi;
 2. build  — nvcc builds the port's kernels (cogstream_tpu_torch/csrc), one
-   process per source, all at once;
+   process per source, all at once, and prints the registers and spills
+   ptxas gave the tensor-core tiles of K1 and K3;
 3. kernels — each kernel against its plain PyTorch version on the card,
    in bf16, at the shapes the 7B paths give it, with both times, the
    time of one PyTorch library call computing the same function where
@@ -15,7 +16,12 @@ Phases (each prints one line or a few; any failure exits non-zero):
    vision attention, K2 LayerNorm, K3 prefill attention, K4 decode
    attention, K5 head-major segment attention (the training tower's),
    and the int4 GEMVs K6 (uniform and cubic) and K7 on the lm_head, K8
-   and K9 on stacked gate_proj / down_proj;
+   and K9 on stacked gate_proj / down_proj. K1 and K3 run their bf16
+   tensor-core tiles, timed beside their f32 route (the CUDA-core f32
+   tile) on the same values; K3 also at a question prefill (a few dozen
+   tokens over a ~9k-slot window), where it must beat the f32 route,
+   and at the ingest shape it must beat the library call. Pad rows and
+   fully masked rows must be exactly 0;
 4. reference — a tiny-config session (f32) runs ingest → ask(AC) →
    ingest → ask(FCC) on the card (kernels) and on the CPU (plain
    versions); greedy tokens, selections and slot ranges must agree. Then
@@ -27,9 +33,9 @@ Phases (each prints one line or a few; any failure exits non-zero):
 5. main path — a 7B-width ``StreamingSession`` (cogreasoner_7b, bf16,
    random weights from a seeded generator, 16384-slot cache) ingests two
    16-frame segments (24x42 patch grids, merge 2, seeded uint8 patch
-   rows) and answers ask(AC) and ask(FCC); K1-K4's launch counts must
-   rise during this phase, every output must be finite and the slot
-   ranges ordered and disjoint;
+   rows) and answers ask(AC) and ask(FCC); K1-K4's launch counts, and
+   K1's and K3's tensor-core launch counts, must rise during this phase,
+   every output must be finite and the slot ranges ordered and disjoint;
 7. training main path (runs on the phase-5 model, before phase 6) — the
    frozen ``cogreasoner_7b`` base with LoRA r=8 on all 7 projections x
    28 layers (stage 1), plus the projector readout (stage 2): (a)
@@ -102,6 +108,7 @@ KERNELS = [  # name, wrapper module, attribute, source, TPU kernel replaced
      "cogstream_tpu/ops/quant_gemv.py:282"),
 ]
 BF16_PATH = range(0, 4)     # K1-K4: the bf16 main path (phase 5)
+TC_PATH = (0, 2)            # K1, K3: bf16 on their tensor-core tiles
 TRAIN_PATH = range(4, 5)    # K5: the training main path (phase 7)
 INT4_PATH = range(5, 9)     # K6-K9: the int4 main path (phase 6)
 # one NVIDIA H100 SXM (published datasheet figures): HBM bytes/s
@@ -223,6 +230,32 @@ def row_check(got, ref, width: int):
     return err.max().item(), (err / bound).max().item()
 
 
+# the tensor-core tiles by the (mangled) names of their instantiations on
+# the main path: K3 at D = 128 with 2 and 1 m-tiles per warp, K1 at D = 72
+TC_KERNELS = {"K3 tc <D=128, 2 m-tiles>": "gqa_prefill_tc_kernelILi128ELi2E",
+              "K3 tc <D=128, 1 m-tile>": "gqa_prefill_tc_kernelILi128ELi1E",
+              "K1 tc <D=72>": "vision_attention_tc_kernelILi72E"}
+
+
+def ptxas_usage(log: str, names: dict) -> dict:
+    """Registers and spill bytes (stores, loads) that ``ptxas -v``
+    reported in ``log`` for each kernel of ``names`` (label -> a part of
+    its mangled name)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            cur = next((k for k, n in names.items() if n in fn), None)
+        elif cur and "spill stores" in line:
+            out.setdefault(cur, {})["spill_bytes"] = [
+                int(line.split(f"bytes spill {w}")[0].split(",")[-1])
+                for w in ("stores", "loads")]
+        elif cur and "Used" in line and "registers" in line:
+            out.setdefault(cur, {})["registers"] = int(
+                line.split("Used")[1].split("registers")[0])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: each kernel against its plain version at the main path's shapes
 # ---------------------------------------------------------------------------
@@ -290,14 +323,25 @@ def check_kernels(dev):
         err, ratio = row_check(got, ref, D)
         k1_err.append(err)
         k1_ratio.append(ratio)
+        pad_zero = bool((got[args[3] < 0] == 0).all())
         log(f"kernel K1 case grids={grids}: N={N} max_abs_err={err:.6g}, "
             f"max |ref|={ref.float().abs().max().item():.4g}, worst row at "
-            f"{ratio:.3g} of its bound")
+            f"{ratio:.3g} of its bound; {int((args[3] < 0).sum())} pad "
+            f"rows zero {pad_zero}")
+        if not pad_zero:
+            raise AssertionError("K1 pad rows are not zero")
         if len(k1_err) == 1:   # time the main path's 16x24x42 segment
             k1_ms = cuda_ms(lambda: fa.flash_attention_packed_rope_fusedqkv(
-                *args, *ranges, H), 5)
+                *args, *ranges, H), 20)
             k1_plain_ms = cuda_ms(lambda: fa.flash_attention_packed_rope_plain(
                 *args, H, 1 / math.sqrt(D)), 2)
+            qkv32 = qkv.float()
+            k1_f32_ms = cuda_ms(lambda: fa.flash_attention_packed_rope_fusedqkv(
+                qkv32, *args[1:], *ranges, H), 3)
+            log(f"kernel K1 routes at N={N}: tensor-core tile (bf16) "
+                f"{k1_ms:.4f} ms, CUDA-core tile (f32, same values) "
+                f"{k1_f32_ms:.4f} ms")
+            del qkv32
             seg = args[3]
             k1_bound = bound_ms(nbytes(*args, *ranges, got),
                                 4 * H * D * segment_pairs(seg))
@@ -307,7 +351,7 @@ def check_kernels(dev):
             q = apply_vision_rope_cs(q, c2, s2)
             k = apply_vision_rope_cs(k, c2, s2)
             k1_lib = sdpa_ms(heads_first(q), heads_first(k), heads_first(v),
-                             block_diag(seg), 5)
+                             block_diag(seg), 10)
             del q, k, v
     record(0, max(k1_err), max(k1_ratio), k1_ms, k1_plain_ms, k1_bound,
            k1_lib)
@@ -362,11 +406,53 @@ def check_kernels(dev):
                 vv[0, :eff_t.shape[1]].repeat_interleave(g, 1).transpose(
                     0, 1).unsqueeze(0).contiguous(), mask)
 
-    k3_lib = sdpa_ms(*sdpa_operands(q, k, v, qp, eff), 3)
-    record(2, *row_check(got, ref, Dl),
-           cuda_ms(lambda: lma.prefill_flash_attention(q, k, v, qp, eff), 3),
+    k3_lib = sdpa_ms(*sdpa_operands(q, k, v, qp, eff), 10)
+    k3_ms = cuda_ms(lambda: lma.prefill_flash_attention(q, k, v, qp, eff), 10)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    k3_f32_ms = cuda_ms(lambda: lma.prefill_flash_attention(
+        q32, k32, v32, qp, eff), 2)
+    pad_zero = bool((got[0, S - 20:] == 0).all())
+    log(f"kernel K3 routes at S={S}: tensor-core tile (bf16) {k3_ms:.4f} ms,"
+        f" CUDA-core tile (f32, same values) {k3_f32_ms:.4f} ms, library "
+        f"{k3_lib:.4f} ms; 20 padded query rows zero {pad_zero}")
+    if not pad_zero:
+        raise AssertionError("K3 padded query rows are not zero")
+    record(2, *row_check(got, ref, Dl), k3_ms,
            cuda_ms(lambda: lma.gqa_attention_plain(q, k, v, qp, eff), 1),
            k3_bound, k3_lib)
+    if not k3_ms < k3_lib:
+        raise AssertionError(f"K3 ({k3_ms:.4f} ms) is not faster than the "
+                             f"library call ({k3_lib:.4f} ms)")
+
+    # K3 at a question prefill: 32 tokens over a 9216-slot window holding
+    # 9000 history slots — a grid of 8-16 blocks, fewer than the SMs
+    Sq, Wq, fill = 32, 9216, 9000
+    qq = dev_t(rng.standard_normal((1, Sq, Hq, Dl)), bf)
+    pos = np.full((1, T), -1, np.int32)
+    pos[0, :fill + Sq] = np.arange(fill + Sq)
+    pos[0, rng.choice(fill, 300, replace=False)] = -1
+    effq = lma.effective_kv_positions(
+        dev_t(pos, torch.int32), dev_t(allowed, torch.bool))[:, :Wq]
+    effq = effq.contiguous()
+    qpq = dev_t(np.arange(fill, fill + Sq, dtype=np.int32)[None])
+    gotq = lma.prefill_flash_attention(qq, k, v, qpq, effq)
+    errq, ratioq = row_check(gotq, lma.gqa_attention_plain(qq, k, v, qpq,
+                                                           effq), Dl)
+    qq32 = qq.float()
+    q_ms = cuda_ms(lambda: lma.prefill_flash_attention(qq, k, v, qpq, effq),
+                   20)
+    q_f32_ms = cuda_ms(lambda: lma.prefill_flash_attention(
+        qq32, k32, v32, qpq, effq), 10)
+    q_lib = sdpa_ms(*sdpa_operands(qq, k, v, qpq, effq), 20)
+    log(f"kernel K3 question prefill S={Sq} over a {Wq}-slot window ({fill}"
+        f" history slots): max_abs_err={errq:.6g}, worst row at "
+        f"{ratioq:.3g} of its bound; tensor-core tile (bf16) {q_ms:.4f} ms, "
+        f"CUDA-core tile (f32, same values) {q_f32_ms:.4f} ms, library "
+        f"{q_lib:.4f} ms")
+    if not ratioq <= 1.0 or not q_ms < q_f32_ms:
+        raise AssertionError("K3 at the question prefill disagrees with its "
+                             "plain version or is slower than the f32 route")
+    del q32, k32, v32, qq32
 
     # K4: one decode step over a 9216-slot window holding 9000 slots
     W, fill = 9216, 9000
@@ -916,6 +1002,8 @@ def run_main_path(dev, stamp):
 
     for i in BF16_PATH:                    # count the main path only
         wrapper(i).launches = 0
+    for i in TC_PATH:
+        wrapper(i).tc_launches = 0
     torch.cuda.reset_peak_memory_stats()
     t_main = time.perf_counter()
     sess = StreamingSession(model, cfg, tok, max_len=16384)
@@ -978,6 +1066,7 @@ def run_main_path(dev, stamp):
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t_main
     launches = [wrapper(i).launches for i in BF16_PATH]
+    tc_launches = {KERNELS[i][0]: wrapper(i).tc_launches for i in TC_PATH}
     timer.restore()
 
     # outputs: finite cache and event reps, ordered disjoint slot ranges
@@ -991,13 +1080,14 @@ def run_main_path(dev, stamp):
                and all(e <= s for e, s in zip(ends[:-1], starts[1:]))
                and all(r.start <= r.end for r in sess.ranges))
     log(f"main: {main_s:.1f}s for 2 ingests + 2 asks; launches "
-        f"{dict(zip([KERNELS[i][0] for i in BF16_PATH], launches))}; cache "
+        f"{dict(zip([KERNELS[i][0] for i in BF16_PATH], launches))}, on "
+        f"the tensor-core tiles {tc_launches}; cache "
         f"{wi} slots; "
         f"{len(sess.events)} events; finite {finite}; ranges ordered and "
         f"disjoint {ordered}; peak {torch.cuda.max_memory_allocated() / 2**30:.1f}"
         f" GiB [{stamp}]")
     if not finite or not ordered or min(launches) == 0 \
-            or len(sess.events) != 2:
+            or min(tc_launches.values()) == 0 or len(sess.events) != 2:
         raise AssertionError("main path check failed")
     return launches, metrics, sess
 
@@ -1479,6 +1569,8 @@ def main() -> int:
     kernels.library()
     log(f"build: kernels built and loaded in {time.perf_counter() - t0:.1f}s "
         f"(nvcc {kernels.last_build_seconds})")
+    for name, use in ptxas_usage(kernels.last_build_log, TC_KERNELS).items():
+        log(f"build: ptxas {name}: {use}")
 
     results = check_kernels(dev) + check_int4_kernels(dev)
     check_reference(dev)

@@ -9,27 +9,47 @@
 // query rows (row r = s * G + g of kv head h reads query head h*G + g);
 // a fully masked row outputs 0.
 //
-// One kernel serves both. A 256-thread block owns (query-row tile, batch
-// x kv head, key chunk) and walks the 64-slot key tiles of its chunk
-// with an f32 online softmax (common.cuh attend_tile).
-// * K3 (prefill, many rows): one chunk spans the whole cache; the block
-//   writes normalized rows. A pre-pass stores each 64-slot tile's
-//   smallest eff position, and a block skips every tile whose smallest
-//   position exceeds its largest query position — the causal tail and
-//   the empty cache beyond the write index cost one integer compare.
-//   Bound on the H100: arithmetic; the CUDA-core f32 tile is the simple
-//   first form (tensor-core tiles come later).
-// * K4 (decode, S <= 8 rows per kv head): one block per kv head would
-//   fill 4 of 132 SMs, so the cache splits into chunks of `chunk_tiles`
-//   tiles (flash-decoding): each block writes its partial (m, l, acc)
-//   and cs_gqa_combine merges the chunks. Bound on the H100: reading the
-//   cache's K/V bytes; the split puts every SM on that read.
+// A pre-pass stores each 64-slot key tile's smallest eff position, and a
+// block skips every tile whose smallest position exceeds its largest
+// query position: the causal tail and the empty cache beyond the write
+// index cost one integer compare and are never loaded. K3's tensor-core
+// pre-pass also stores each tile's largest position: a warp whose rows
+// have all reached it runs the tile without the per-score compare.
+//
+// * K3 in bf16 (cs_gqa_prefill_tc): the tensor-core tile of tc_tile.cuh.
+//   Bound on the H100: arithmetic (4 D FLOP per visible (row, slot)
+//   pair; the 7B ingest prefill is ~4e11 FLOP over ~50 MB). A block of
+//   4 warps owns 64 * MT folded rows of one (batch, kv head), so each
+//   K/V tile is read once for all G query heads of the rows; K/V tiles
+//   stream through a cp.async double buffer with each tile's eff
+//   positions, and the score / softmax / P.V work runs on bf16 tensor
+//   cores with f32 accumulators. The pre-pass also bounds the block's
+//   last tile, so the skipped tail is not even scanned. Row tiles are
+//   launched last-first (the last rows see the most slots). MT = 2 (128
+//   rows, 32 per warp) halves the shared-memory reads per (row, slot)
+//   pair and the K/V traffic from L2; a grid that would not fill the SMs
+//   at 128 rows (a question prefill of a few dozen tokens) takes MT = 1.
+//   Two blocks share an SM, so one block's softmax overlaps the other's
+//   MMAs.
+// * K3 in f32 and K4 (cs_gqa_attention): the CUDA-core f32 tile of
+//   common.cuh (attend_tile), one 256-thread block per (64-row tile,
+//   batch x kv head, key chunk).
+//   - K3 f32: one chunk spans the whole cache; the block writes
+//     normalized rows. f32 keeps exact f32 products (the tiny f32
+//     sessions hold card-vs-CPU greedy tokens through it).
+//   - K4 (decode, S <= 8 rows per kv head): one block per kv head would
+//     fill 4 of 132 SMs, so the cache splits into chunks of
+//     `chunk_tiles` tiles (flash-decoding): each block writes its
+//     partial (m, l, acc) and cs_gqa_combine merges the chunks. Bound on
+//     the H100: reading the cache's K/V bytes; the split puts every SM
+//     on that read.
 //
 // The port writes each decode step's K/V IN PLACE into the cache before
 // attention (runtime/generate.py), so K4 needs no side buffer or fresh
 // K/V stream: the TPU kernel's main (+) side (+) fresh folding becomes
 // one cache range.
 #include "common.cuh"
+#include "tc_tile.cuh"
 
 namespace {
 
@@ -44,6 +64,28 @@ __global__ void tile_min_kernel(const int* __restrict__ eff,
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   if (threadIdx.x == 0) tile_min[(size_t)b * n_tiles + tile] = min(red[0], red[1]);
+}
+
+// K3's tensor-core pre-pass: each 64-slot tile's smallest and largest eff
+// position (SENTINEL past kv_len) into tile_mm[0][b][tile] and
+// tile_mm[1][b][tile]
+__global__ void tile_minmax_kernel(const int* __restrict__ eff,
+                                   int* __restrict__ tile_mm, int B,
+                                   int kv_len, int n_tiles) {
+  const int b = blockIdx.y, tile = blockIdx.x, t = tile * cs::BK + threadIdx.x;
+  const int v = t < kv_len ? eff[(size_t)b * kv_len + t] : cs::SENTINEL;
+  const int lo = cs::warp_min_i(v), hi = cs::warp_max_i(v);
+  __shared__ int red[2][cs::BK / 32];
+  if ((threadIdx.x & 31) == 0) {
+    red[0][threadIdx.x >> 5] = lo;
+    red[1][threadIdx.x >> 5] = hi;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const size_t i = (size_t)b * n_tiles + tile;
+    tile_mm[i] = min(red[0][0], red[0][1]);
+    tile_mm[(size_t)B * n_tiles + i] = max(red[1][0], red[1][1]);
+  }
 }
 
 template <typename T>
@@ -191,10 +233,210 @@ int launch_gqa(const void* q, const void* k, const void* v, const void* qpos,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3 in bf16: the tensor-core prefill tile (see the header), 4 warps of
+// MT m-tiles
+constexpr int TC_WARPS = 4;
+
+template <int D, int MT>
+__global__ void __launch_bounds__(TC_WARPS * 32, 2)
+gqa_prefill_tc_kernel(const tc::bf16* __restrict__ q,
+                      const tc::bf16* __restrict__ k,
+                      const tc::bf16* __restrict__ v,
+                      const int* __restrict__ qpos,
+                      const int* __restrict__ eff,
+                      const int* __restrict__ tile_mm,
+                      tc::bf16* __restrict__ out, int B, int S, int Hq,
+                      int Hkv, int T_cache, int kv_len, float scale2) {
+  constexpr int NW = TC_WARPS, WR = 16 * MT, BR = NW * WR, NT = 32 * NW;
+  constexpr int BK = tc::BK;
+  constexpr int KS = tc::stride(D), CH = D / 8;  // 16-byte chunks per row
+  const int n_tiles = (kv_len + BK - 1) / BK;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  tc::bf16* Qs = reinterpret_cast<tc::bf16*>(smem_raw);
+  tc::bf16* Ks = Qs + BR * KS;                    // 2 stages
+  tc::bf16* Vs = Ks + 2 * BK * KS;                // 2 stages
+  int* cpos = reinterpret_cast<int*>(Vs + 2 * BK * KS);  // 2 stages
+  int* rpos = cpos + 2 * BK;
+  int* red = rpos + BR;
+  int* tmin = red + NW;
+  int* tmax = tmin + n_tiles;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int G = Hq / Hkv, R = S * G;
+  const int b = blockIdx.y / Hkv, h = blockIdx.y % Hkv;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * BR;  // last rows first
+  const size_t tok = (size_t)Hkv * D;             // K/V token stride
+  const tc::bf16* kb = k + (size_t)b * T_cache * tok + (size_t)h * D;
+  const tc::bf16* vb = v + (size_t)b * T_cache * tok + (size_t)h * D;
+  const int* effb = eff + (size_t)b * kv_len;
+
+  for (int i = tid; i < BR * CH; i += NT) {
+    const int rr = i / CH, c = i % CH, r = r0 + rr;
+    const tc::bf16* src = q;
+    if (r < R)
+      src = q + (((size_t)b * S + r / G) * Hq + h * G + r % G) * D + c * 8;
+    tc::cp_async16(Qs + rr * KS + c * 8, src, r < R);
+  }
+  tc::cp_async_commit();
+  int my = -1;
+  if (tid < BR) {
+    const int r = r0 + tid;
+    my = r < R ? qpos[(size_t)b * S + r / G] : -1;
+    rpos[tid] = my;
+  }
+  my = cs::warp_max_i(my);
+  if (lane == 0) red[warp] = my;
+  for (int i = tid; i < n_tiles; i += NT) {
+    tmin[i] = tile_mm[(size_t)b * n_tiles + i];
+    tmax[i] = tile_mm[((size_t)B + b) * n_tiles + i];
+  }
+  __syncthreads();
+  int qmax = red[0];
+  for (int w = 1; w < NW; ++w) qmax = max(qmax, red[w]);
+  int last = -1;  // the last tile any row of the block can see
+  for (int i = tid; i < n_tiles; i += NT)
+    if (tmin[i] <= qmax) last = i;
+  last = cs::warp_max_i(last);
+  __syncthreads();  // every thread has read qmax out of red
+  if (lane == 0) red[warp] = last;
+  __syncthreads();
+  last = red[0];
+  for (int w = 1; w < NW; ++w) last = max(last, red[w]);
+  const int end = last + 1;
+
+  auto next = [&](int t) {  // uniform across the block
+    while (t < end && tmin[t] > qmax) ++t;
+    return t;
+  };
+  auto load = [&](int t, int stage) {
+    const int k0 = t * BK;
+    tc::bf16* kd = Ks + stage * BK * KS;
+    tc::bf16* vd = Vs + stage * BK * KS;
+    for (int i = tid; i < BK * CH; i += NT) {
+      const int c = i / CH, ch = i % CH;
+      const bool ok = k0 + c < kv_len;  // ragged last tile: zero rows
+      const size_t off = ok ? (size_t)(k0 + c) * tok + ch * 8 : 0;
+      tc::cp_async16(kd + c * KS + ch * 8, kb + off, ok);
+      tc::cp_async16(vd + c * KS + ch * 8, vb + off, ok);
+    }
+    for (int c = tid; c < BK; c += NT) {
+      int* dst = cpos + stage * BK + c;
+      if (k0 + c < kv_len)
+        tc::cp_async4(dst, effb + k0 + c);
+      else
+        *dst = cs::SENTINEL;
+    }
+    tc::cp_async_commit();
+  };
+
+  tc::State<D, MT> st;
+  st.init();
+  int t = next(0), stage = 0;
+  if (t < end) load(t, 0);
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  const tc::bf16* Qw = Qs + warp * WR * KS;  // this warp's rows
+  int rp[MT][2], wmin = cs::SENTINEL;  // wmin: the warp's smallest row
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rp[m][i] = rpos[warp * WR + m * 16 + i * 8 + (lane >> 2)];
+      wmin = min(wmin, rp[m][i]);
+    }
+  wmin = cs::warp_min_i(wmin);
+  while (t < end) {
+    const int tn = next(t + 1);
+    if (tn < end) {  // the next tile's copy overlaps this tile's math
+      load(tn, stage ^ 1);
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int* cp = cpos + stage * BK;
+    // a tile whose largest position every row of the warp has reached
+    // (a padded row, -1, has reached none) needs no compare
+    tc::attend<D, MT>(Qw, Ks + stage * BK * KS, Vs + stage * BK * KS, scale2,
+                      tmax[t] <= wmin,
+                      [=](int m, int i, int c) { return rp[m][i] >= cp[c]; },
+                      st);
+    __syncthreads();  // this stage consumed before it is refilled
+    t = tn;
+    stage ^= 1;
+  }
+  tc::finish(st);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + warp * WR + m * 16 + i * 8 + (lane >> 2);
+      if (r < R)
+        tc::store_row(
+            st, m, i,
+            out + (((size_t)b * S + r / G) * Hq + h * G + r % G) * D);
+    }
+}
+
+constexpr int MAX_SMEM = 232448;  // 227 KB: a block's dynamic shared memory
+
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v;
+  }();
+  return n;
+}
+
+template <int D, int MT>
+int launch_prefill_tc(const void* q, const void* k, const void* v,
+                      const void* qpos, const void* eff, const void* tile_mm,
+                      void* out, int B, int S, int Hq, int Hkv, int T_cache,
+                      int kv_len, float scale2, cudaStream_t st) {
+  constexpr int NW = TC_WARPS, BR = NW * 16 * MT;
+  auto kern = gqa_prefill_tc_kernel<D, MT>;
+  // once per instantiation, not per launch
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int n_tiles = (kv_len + tc::BK - 1) / tc::BK;
+  const size_t bytes =
+      (size_t)(BR + 4 * tc::BK) * tc::stride(D) * sizeof(tc::bf16) +
+      (size_t)(2 * tc::BK + BR + NW + 2 * n_tiles) * sizeof(int);
+  if (bytes > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  const int R = S * (Hq / Hkv);
+  const dim3 grid((R + BR - 1) / BR, B * Hkv);
+  kern<<<grid, NW * 32, bytes, st>>>(
+      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
+      static_cast<const tc::bf16*>(v), static_cast<const int*>(qpos),
+      static_cast<const int*>(eff), static_cast<const int*>(tile_mm),
+      static_cast<tc::bf16*>(out), B, S, Hq, Hkv, T_cache, kv_len, scale2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int dispatch_prefill_tc(const void* q, const void* k, const void* v,
+                        const void* qpos, const void* eff,
+                        const void* tile_mm, void* out, int B, int S, int Hq,
+                        int Hkv, int T_cache, int kv_len, float scale2,
+                        cudaStream_t st) {
+  const int R = S * (Hq / Hkv);
+  // 128-row blocks (2 m-tiles per warp) unless they would leave SMs idle
+  if ((R + 127) / 128 * B * Hkv >= sm_count())
+    return launch_prefill_tc<D, 2>(q, k, v, qpos, eff, tile_mm, out, B, S,
+                                   Hq, Hkv, T_cache, kv_len, scale2, st);
+  return launch_prefill_tc<D, 1>(q, k, v, qpos, eff, tile_mm, out, B, S, Hq,
+                                 Hkv, T_cache, kv_len, scale2, st);
+}
+
 }  // namespace
 
-// part_m == nullptr: K3 (one chunk, normalized output). Otherwise K4's
-// first pass (partials per chunk; finish with cs_gqa_combine).
+// part_m == nullptr: K3 on the CUDA-core tile (one chunk, normalized
+// output; the wrapper sends only f32 here, bf16 goes to
+// cs_gqa_prefill_tc). Otherwise K4's first pass (partials per chunk;
+// finish with cs_gqa_combine).
 extern "C" int cs_gqa_attention(const void* q, const void* k, const void* v,
                                 const void* qpos, const void* eff,
                                 void* tile_min, void* out, void* part_m,
@@ -233,4 +475,28 @@ extern "C" int cs_gqa_combine(const void* part_m, const void* part_l,
         static_cast<const float*>(part_acc), static_cast<float*>(out), S, Hq,
         Hkv, D, n_chunks);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K3 in bf16 (head dim 64 or 128): the tile min / max pre-pass into
+// tile_mm ([2, B, n_tiles] int32), then the tensor-core prefill tile.
+// Normalized output [B, S, Hq, D].
+extern "C" int cs_gqa_prefill_tc(const void* q, const void* k, const void* v,
+                                 const void* qpos, const void* eff,
+                                 void* tile_mm, void* out, int B, int S,
+                                 int Hq, int Hkv, int D, int T_cache,
+                                 int kv_len, float scale, void* stream) {
+  if ((D != 64 && D != 128) || Hq % Hkv != 0 || kv_len > T_cache)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_tiles = (kv_len + cs::BK - 1) / cs::BK;
+  if (n_tiles > 0)
+    tile_minmax_kernel<<<dim3(n_tiles, B), cs::BK, 0, st>>>(
+        static_cast<const int*>(eff), static_cast<int*>(tile_mm), B, kv_len,
+        n_tiles);
+  const float scale2 = scale * tc::LOG2E;
+  if (D == 128)
+    return dispatch_prefill_tc<128>(q, k, v, qpos, eff, tile_mm, out, B, S,
+                                    Hq, Hkv, T_cache, kv_len, scale2, st);
+  return dispatch_prefill_tc<64>(q, k, v, qpos, eff, tile_mm, out, B, S, Hq,
+                                 Hkv, T_cache, kv_len, scale2, st);
 }

@@ -1,0 +1,279 @@
+// bf16 tensor-core attention tile for Hopper, shared by the redesigned K1
+// (vision_attention.cu) and K3 (lm_attention.cu).
+//
+// A warp owns MT m-tiles of 16 query rows; a block of warps (4 in K3,
+// 8 in K1) walks 64-key tiles that a cp.async double buffer
+// streams into shared memory (the copy of tile j + 1 is in flight while
+// tile j is computed). Per tile and warp:
+//   S = Q K^T   mma.sync m16n8k16 bf16 -> f32; Q's A fragments and K's B
+//               fragments come from ldmatrix on [row][dim] rows, and
+//               each K fragment serves all MT m-tiles;
+//   mask        one predicate per S element, on the accumulator fragment
+//               (thread holds rows lane/4 and lane/4 + 8, columns
+//               8j + 2 (lane % 4) + {0, 1});
+//   softmax     online, f32, in the log2 domain; row max over the 4
+//               lanes of a quad (row sums stay per lane until finish());
+//               a row with nothing visible keeps m = -inf and p = 0 (it
+//               outputs exactly 0);
+//   O += P V    P rounded to bf16 in registers is the A operand (the S
+//               accumulator layout of two n-tiles is the A layout of one
+//               k-step), V's B fragments come from ldmatrix.trans.
+// When a warp owns only 16 rows, each warp reads the whole K and V tile
+// from shared memory and those reads weigh as much as the MMAs: MT = 2
+// halves them per (row, key) pair (K3 went from 2.4 to 1.8 ms on the
+// H100 with it).
+// Rows are padded in shared memory to KS = KD + 8 bf16 (KD: the head dim
+// rounded up to the MMA depth 16): 16-byte row chunks then fall on odd
+// multiples of 16 bytes, so the 8 rows of one ldmatrix hit 8 disjoint
+// bank groups.
+//
+// This is the mma.sync (FA2-style) form of the tile, not wgmma: a wgmma
+// form of the Q.K^T stage, issued and awaited per tile, measured slower
+// on the H100 than this one (PERF.md, findings); wgmma pays off with
+// P.V from registers and the next tile's Q.K^T in flight during this
+// tile's softmax.
+#pragma once
+
+#include "common.cuh"
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BK = 64;         // keys per tile
+constexpr int NS = BK / 8;     // S n-tiles of 8 keys per warp
+constexpr float LOG2E = 1.4426950408889634f;
+
+__host__ __device__ constexpr int depth(int D) { return (D + 15) / 16 * 16; }
+__host__ __device__ constexpr int stride(int D) { return depth(D) + 8; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; pred false writes 16 zero bytes (src not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p)));
+}
+
+// c += a * b for one m16n8k16 bf16 product with an f32 accumulator
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 -> one bf16x2 register, lo in the low half
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Online-softmax state of a warp's MT m-tiles of 16 rows: m, l per
+// thread row (the thread's rows of m-tile t are 16t + lane/4 and
+// 16t + lane/4 + 8 of the warp's rows), O as D/8 n-tile fragments.
+template <int D, int MT>
+struct State {
+  float m[MT][2], l[MT][2];
+  float o[MT][D / 8][4];
+  __device__ void init() {
+#pragma unroll
+    for (int t = 0; t < MT; ++t) {
+      m[t][0] = m[t][1] = -INFINITY;
+      l[t][0] = l[t][1] = 0.f;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        o[t][n][0] = o[t][n][1] = o[t][n][2] = o[t][n][3] = 0.f;
+    }
+  }
+};
+
+// One 64-key tile for the warp's 16 * MT query rows, whose first row is
+// Qw in shared memory; Ks / Vs are [BK][KS] bf16 rows. Each K and V
+// fragment a warp loads serves its MT m-tiles, so shared-memory reads
+// per (row, key) pair fall as 1 / MT. visible(t, i, c): may the thread's
+// row i (0: lane/4, 1: lane/4 + 8) of m-tile t see key column c? It is
+// not asked when `all_visible` (warp-uniform) says every row of the
+// warp sees every column. scale2 = softmax scale * log2(e).
+//
+// Per score the softmax costs one FFMA and one EX2 (the scale folds into
+// the exponent, the running max stays in raw units), plus the mask's
+// compare and select where a tile is not wholly visible: on the H100
+// this ALU work weighs as much as the MMAs of a D <= 128 tile.
+template <int D, int MT, class Visible>
+__device__ __forceinline__ void attend(const bf16* Qw, const bf16* Ks,
+                                       const bf16* Vs, float scale2,
+                                       bool all_visible, Visible visible,
+                                       State<D, MT>& st) {
+  constexpr int KS = stride(D);
+  const int lane = threadIdx.x & 31;
+  float s[MT][NS][4];
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[t][j][0] = s[t][j][1] = s[t][j][2] =
+        s[t][j][3] = 0.f;
+  // S = Q K^T: Q's A fragments per k-step; one ldmatrix.x4 gives the B
+  // fragments of 2 key n-tiles
+  const bf16* qrow = Qw + ((lane & 7) + ((lane >> 3) & 1) * 8) * KS +
+                     (lane >> 4) * 8;
+  const bf16* krow = Ks + ((lane & 7) + (lane >> 4) * 8) * KS +
+                     ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < depth(D) / 16; ++kk) {
+    uint32_t qa[MT][4];
+#pragma unroll
+    for (int t = 0; t < MT; ++t) ldsm_x4(qa[t], qrow + t * 16 * KS + kk * 16);
+#pragma unroll
+    for (int j = 0; j < NS; j += 2) {
+      uint32_t b[4];
+      ldsm_x4(b, krow + j * 8 * KS + kk * 16);
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        mma(s[t][j], qa[t], b[0], b[1]);
+        mma(s[t][j + 1], qa[t], b[2], b[3]);
+      }
+    }
+  }
+  // mask on the fragment (masked scores -inf, so exp2 gives 0)
+  const int c0 = (lane & 3) * 2;
+  if (!all_visible) {
+#pragma unroll
+    for (int t = 0; t < MT; ++t)
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!visible(t, e >> 1, j * 8 + c0 + (e & 1)))
+            s[t][j][e] = -INFINITY;
+  }
+  // row max over the quad; P in bf16 as the A fragments of 4 k-steps
+  uint32_t pa[MT][NS / 2][4];
+#pragma unroll
+  for (int t = 0; t < MT; ++t) {
+    float mx[2] = {st.m[t][0], st.m[t][1]};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[t][j][0], s[t][j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[t][j][2], s[t][j][3]));
+    }
+    float off[2], alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = cs::quad_max(mx[i]);
+      // a row that has seen nothing keeps max -inf: offset 0 keeps its
+      // exp2(-inf) = 0 instead of NaN
+      off[i] = mx[i] == -INFINITY ? 0.f : mx[i] * scale2;
+      alpha[i] = exp2f(st.m[t][i] * scale2 - off[i]);
+      st.m[t][i] = mx[i];
+    }
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = exp2f(fmaf(s[t][j][e], scale2, -off[e >> 1]));
+        ps[e >> 1] += p[e];
+      }
+      pa[t][j >> 1][(j & 1) * 2 + 0] = pack(p[0], p[1]);
+      pa[t][j >> 1][(j & 1) * 2 + 1] = pack(p[2], p[3]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) st.l[t][i] = st.l[t][i] * alpha[i] + ps[i];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      st.o[t][n][0] *= alpha[0];
+      st.o[t][n][1] *= alpha[0];
+      st.o[t][n][2] *= alpha[1];
+      st.o[t][n][3] *= alpha[1];
+    }
+  }
+  // O += P V: one ldmatrix.x4.trans gives the B fragments of 2 head-dim
+  // n-tiles (x2 for an odd last one)
+  const bf16* vrow = Vs + ((lane & 7) + ((lane >> 3) & 1) * 8) * KS +
+                     (lane >> 4) * 8;
+#pragma unroll
+  for (int k = 0; k < NS / 2; ++k) {
+#pragma unroll
+    for (int n = 0; n < D / 8; n += 2) {
+      if (n + 1 < D / 8) {
+        uint32_t b[4];
+        ldsm_x4_t(b, vrow + k * 16 * KS + n * 8);
+#pragma unroll
+        for (int t = 0; t < MT; ++t) {
+          mma(st.o[t][n], pa[t][k], b[0], b[1]);
+          mma(st.o[t][n + 1], pa[t][k], b[2], b[3]);
+        }
+      } else {
+        uint32_t b[2];
+        ldsm_x2_t(b, vrow + k * 16 * KS + n * 8);
+#pragma unroll
+        for (int t = 0; t < MT; ++t) mma(st.o[t][n], pa[t][k], b[0], b[1]);
+      }
+    }
+  }
+}
+
+// Row sums over the quad: call with every lane of the warp, after the
+// last tile and before store_row.
+template <int D, int MT>
+__device__ __forceinline__ void finish(State<D, MT>& st) {
+#pragma unroll
+  for (int t = 0; t < MT; ++t) {
+    st.l[t][0] = cs::quad_sum(st.l[t][0]);
+    st.l[t][1] = cs::quad_sum(st.l[t][1]);
+  }
+}
+
+// Normalized output of the thread's row i of m-tile t (0 for a row that
+// saw nothing) into dst[0, D): bf16 pairs at columns 8n + 2 (lane % 4).
+template <int D, int MT>
+__device__ __forceinline__ void store_row(const State<D, MT>& st, int t,
+                                          int i, bf16* dst) {
+  const float inv = st.l[t][i] > 0.f ? 1.f / st.l[t][i] : 0.f;
+  const int c0 = (threadIdx.x & 3) * 2;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    *reinterpret_cast<uint32_t*>(dst + n * 8 + c0) =
+        pack(st.o[t][n][2 * i] * inv, st.o[t][n][2 * i + 1] * inv);
+}
+
+}  // namespace tc

@@ -12,6 +12,13 @@ tile. Segments are contiguous runs (one frame each), so that range is
 exactly the keys the tile can see; ragged tiles that straddle frames
 mask per token inside the kernel.
 
+K1 takes two routes on the card, by operand type: bf16 runs the
+tensor-core tile (``cs_vision_attention_tc``, head dim a multiple of 8 up
+to 128, counted in ``flash_attention_packed_rope_fusedqkv.tc_launches``
+as well as ``.launches``), f32 the CUDA-core f32 tile
+(``cs_vision_attention``). A bf16 head dim the tile does not take
+raises; nothing falls back.
+
 K5 is the port of ``segment_flash_attention`` (``_flash_kernel``), the
 head-major ``[N, H, D]`` form without RoPE that the tower's head-major
 branch runs (the training path's frozen tower). It takes the same
@@ -33,6 +40,7 @@ from .attention import segment_attention
 from .rope import apply_vision_rope_cs
 
 BLOCK_Q = 64   # query tile of the CUDA kernels (csrc/common.cuh BR)
+TC_MAX_D = 128  # K1's tensor-core tile: head dim % 8 == 0 and <= 128
 
 
 def _round_up(x: int, m: int) -> int:
@@ -246,6 +254,11 @@ def flash_attention_packed_rope_fusedqkv(
                                                  scale)
     if qkv.shape[1] != 3 * heads * D:
         raise ValueError(f"qkv width {qkv.shape[1]} is not 3*{heads}*D")
+    code = kernels.dtype_code(qkv)
+    tc = qkv.dtype == torch.bfloat16
+    if tc and (D % 8 or D > TC_MAX_D):
+        raise ValueError(f"cs_vision_attention_tc takes bf16 head dims that "
+                         f"are multiples of 8 up to {TC_MAX_D}, got {D}")
     dev = qkv.device
     nq = -(-N // BLOCK_Q)
     kernels.require(qkv, "qkv", dev)
@@ -257,16 +270,23 @@ def flash_attention_packed_rope_fusedqkv(
     out = torch.empty((N, heads * D), dtype=qkv.dtype, device=dev)
     if N:
         lib = kernels.library()
-        kernels.check(lib.cs_vision_attention(
-            qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), seg.data_ptr(),
-            kv_lo.data_ptr(), kv_hi.data_ptr(), out.data_ptr(), N, heads, D,
-            BLOCK_Q, float(scale), kernels.dtype_code(qkv),
-            kernels.stream_ptr(qkv)), "cs_vision_attention")
+        args = (qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                seg.data_ptr(), kv_lo.data_ptr(), kv_hi.data_ptr(),
+                out.data_ptr(), N, heads, D, BLOCK_Q, float(scale))
+        if tc:
+            kernels.require_aligned(qkv, cos, sin)
+            kernels.check(lib.cs_vision_attention_tc(
+                *args, kernels.stream_ptr(qkv)), "cs_vision_attention_tc")
+            flash_attention_packed_rope_fusedqkv.tc_launches += 1
+        else:
+            kernels.check(lib.cs_vision_attention(
+                *args, code, kernels.stream_ptr(qkv)), "cs_vision_attention")
         flash_attention_packed_rope_fusedqkv.launches += 1
     return out
 
 
-flash_attention_packed_rope_fusedqkv.launches = 0
+flash_attention_packed_rope_fusedqkv.launches = 0     # every K1 launch
+flash_attention_packed_rope_fusedqkv.tc_launches = 0  # tensor-core tile
 
 
 # ---------------------------------------------------------------------------

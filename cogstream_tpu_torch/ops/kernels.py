@@ -47,6 +47,10 @@ _SIGNATURES = {
     # scale, dtype, stream
     "cs_vision_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _F, _I, _P),
+    # qkv, cos, sin, seg, kv_lo, kv_hi, out, n, heads, d, block_q, scale,
+    # stream (bf16)
+    "cs_vision_attention_tc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _F, _P),
     # q, k, v, seg, kv_lo, kv_hi, out, n, heads, d, block_q, scale, dtype,
     # stream
     "cs_segment_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -59,6 +63,10 @@ _SIGNATURES = {
     # part_m, part_l, part_acc, out, B, S, Hq, Hkv, D, n_chunks, dtype,
     # stream
     "cs_gqa_combine": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, q_pos, eff, tile_min, out, B, S, Hq, Hkv, D, T_cache,
+    # kv_len, scale, stream (bf16)
+    "cs_gqa_prefill_tc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _F, _P),
     # x, sx, q4, layer_stride, scale, scale_stride, layer, code, out, part,
     # m, half, dout, rows_per_split, splits, variant, out dtype, stream
     "cs_int4_gemv": (_P, _P, _P, _L, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -70,6 +78,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 last_build_seconds: Optional[float] = None   # None: loaded a cached build
+last_build_log: str = ""   # nvcc/ptxas output of the last build (-Xptxas -v)
 
 
 def _source_hash() -> str:
@@ -95,10 +104,16 @@ def _nvcc() -> str:
 def build(verbose: bool = False) -> Path:
     """Compile ``csrc/*.cu`` into ``build/kernels/`` unless a library for
     the current sources already exists: one nvcc per source, all running
-    at once, then one link. Returns the library path."""
-    global last_build_seconds
+    at once, then one link. ptxas reports each kernel's registers and
+    spills (``-Xptxas -v``) into :data:`last_build_log` (kept beside the
+    library and read back with a cached build), printed with ``verbose``.
+    Returns the library path."""
+    global last_build_seconds, last_build_log
     out = BUILD_DIR / f"libcogstream_kernels_{_source_hash()}.so"
+    report = out.with_suffix(".ptxas.txt")
     if out.exists():
+        if report.exists():
+            last_build_log = report.read_text()
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -107,9 +122,8 @@ def build(verbose: bool = False) -> Path:
         procs = []
         for src in sorted(CSRC.glob("*.cu")):
             obj = os.path.join(tmpdir, src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
-            if verbose:
-                cmd[1:1] = ["-Xptxas", "-v"]
+            cmd = [nvcc, "-Xptxas", "-v", *NVCC_FLAGS, "-c", str(src),
+                   "-o", obj]
             procs.append((obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -128,8 +142,10 @@ def build(verbose: bool = False) -> Path:
         if r.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
                                f"{r.stdout}\n{r.stderr}")
+        last_build_log = "".join(logs)
         if verbose:
-            print("".join(logs))
+            print(last_build_log)
+        report.write_text(last_build_log)
         os.replace(lib, out)   # atomic: a reader never sees a partial file
     last_build_seconds = time.perf_counter() - t0
     return out
@@ -188,3 +204,13 @@ def require(t: torch.Tensor, name: str, device: torch.device,
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def require_aligned(*tensors: torch.Tensor) -> None:
+    """The tensor-core tiles copy rows in 16-byte chunks: each operand must
+    start on a 16-byte boundary (a fresh allocation does; a view with an
+    odd offset may not)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"operand of shape {tuple(t.shape)} is not "
+                             "16-byte aligned")

@@ -2,6 +2,12 @@
 (prefill) and K4 (decode), both in ``csrc/lm_attention.cu``, and their
 plain versions.
 
+K3 takes two routes on the card, by operand type: bf16 runs the
+tensor-core tile (``cs_gqa_prefill_tc``, head dim 64 or 128, counted in
+``prefill_flash_attention.tc_launches`` as well as ``.launches``), f32
+the CUDA-core f32 tile it shares with K4 (``cs_gqa_attention``). A bf16
+head dim the tile does not take raises; nothing falls back.
+
 Port of ``cogstream_tpu/ops/lm_attention.py``. All validity is folded
 into one int32 per slot (:func:`effective_kv_positions`): the stored
 position where the slot is visible, ``SENTINEL`` where it is empty or
@@ -27,6 +33,7 @@ SENTINEL = 2 ** 30          # eff position of an invisible KV slot
 DECODE_MAX_S = 8            # K4 serves steps of at most this many tokens
 DECODE_CHUNK_TILES = 4      # K4 split: 4 x 64 = 256 slots per block
 _TILE = 64                  # key tile of the CUDA kernels (common.cuh BK)
+TC_HEAD_DIMS = (64, 128)    # head dims of K3's tensor-core tile
 _PLAIN_Q_CHUNK = 256        # plain version: query rows per dense block
 
 
@@ -85,27 +92,42 @@ def prefill_flash_attention(
 ) -> torch.Tensor:
     """K3: causal GQA flash attention over a position-tagged KV region,
     the drop-in for ``causal_gqa_attention`` with validity pre-folded
-    into ``eff_kv_pos``. Any T; bf16 or f32 operands."""
+    into ``eff_kv_pos``. Any T; bf16 (tensor-core tile, head dim 64 or
+    128) or f32 operands."""
     B, S, Hq, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     if kernels.plain_route(q):
         return gqa_attention_plain(q, k, v, q_positions, eff_kv_pos, scale)
     _check_operands(q, k, v, q_positions, eff_kv_pos)
+    code = kernels.dtype_code(q)
+    tc = q.dtype == torch.bfloat16
+    if tc and D not in TC_HEAD_DIMS:
+        raise ValueError(f"cs_gqa_prefill_tc takes bf16 head dims "
+                         f"{TC_HEAD_DIMS}, got {D}")
     T, Hkv = k.shape[1], k.shape[2]
     kv_len = eff_kv_pos.shape[1]
     out = torch.empty_like(q)
     if B * S == 0:
         return out
     n_tiles = -(-kv_len // _TILE)
-    tile_min = torch.empty((B, n_tiles), dtype=torch.int32, device=q.device)
+    # per key tile its smallest eff position, and for the tensor-core tile
+    # also its largest ([2, B, n_tiles])
+    tile_pos = torch.empty(((2, B, n_tiles) if tc else (B, n_tiles)),
+                           dtype=torch.int32, device=q.device)
     lib = kernels.library()
-    kernels.check(lib.cs_gqa_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
-        eff_kv_pos.data_ptr(), tile_min.data_ptr(), out.data_ptr(),
-        None, None, None, B, S, Hq, Hkv, D, T, kv_len, n_tiles, 1,
-        float(scale), kernels.dtype_code(q), kernels.stream_ptr(q)),
-        "cs_gqa_attention")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
+            eff_kv_pos.data_ptr(), tile_pos.data_ptr(), out.data_ptr())
+    if tc:
+        kernels.require_aligned(q, k, v)
+        kernels.check(lib.cs_gqa_prefill_tc(
+            *ptrs, B, S, Hq, Hkv, D, T, kv_len, float(scale),
+            kernels.stream_ptr(q)), "cs_gqa_prefill_tc")
+        prefill_flash_attention.tc_launches += 1
+    else:
+        kernels.check(lib.cs_gqa_attention(
+            *ptrs, None, None, None, B, S, Hq, Hkv, D, T, kv_len, n_tiles, 1,
+            float(scale), code, kernels.stream_ptr(q)), "cs_gqa_attention")
     prefill_flash_attention.launches += 1
     return out
 
@@ -160,5 +182,6 @@ def decode_attention(
     return out
 
 
-prefill_flash_attention.launches = 0
+prefill_flash_attention.launches = 0      # every K3 launch
+prefill_flash_attention.tc_launches = 0   # those on the tensor-core tile
 decode_attention.launches = 0

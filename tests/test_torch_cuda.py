@@ -46,14 +46,19 @@ def test_layernorm_kernel(dev, N, H, dtype):
     torch.testing.assert_close(got, ref, atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("lengths,pad", [((64, 64), 0), ((50, 77, 13), 20),
-                                         ((130,), 0)])
+@pytest.mark.parametrize("lengths,pad,D", [
+    ((64, 64), 0, 72), ((50, 77, 13), 20, 72), ((130,), 0, 72),
+    ((1008, 1008, 1008), 60, 72), ((300, 200), 12, 40),
+    ((300, 200), 12, 64), ((300, 200), 12, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_vision_attention_kernel(dev, lengths, pad, dtype):
+def test_vision_attention_kernel(dev, lengths, pad, D, dtype):
+    """K1 against its plain version: bf16 on the tensor-core tile (frames
+    of 1008 straddle its 256-row blocks; D = 72 and 40 pad the Q.K^T
+    depth to 80 and 48), f32 on the CUDA-core tile; pad rows exactly 0."""
     from cogstream_tpu_torch.ops import flash_attention as fa
 
     rng = np.random.default_rng(1)
-    H, D = 3, 72
+    H = 3
     seg = np.concatenate([np.full(L, i, np.int32)
                           for i, L in enumerate(lengths)]
                          + [np.full(pad, -1, np.int32)])
@@ -64,9 +69,12 @@ def test_vision_attention_kernel(dev, lengths, pad, dtype):
     sin = _t(np.sin(np.concatenate([ang, ang], 1)), dev)
     lo, hi = fa.vision_kv_ranges(seg)
     segt = _t(seg, dev, torch.int32)
-    got = fa.flash_attention_packed_rope_fusedqkv(
-        qkv, cos, sin, segt, _t(lo, dev, torch.int32),
-        _t(hi, dev, torch.int32), H).float()
+    wrap = fa.flash_attention_packed_rope_fusedqkv
+    n0, t0 = wrap.launches, wrap.tc_launches
+    got = wrap(qkv, cos, sin, segt, _t(lo, dev, torch.int32),
+               _t(hi, dev, torch.int32), H).float()
+    assert wrap.launches == n0 + 1
+    assert wrap.tc_launches == t0 + (dtype == torch.bfloat16)
     ref = fa.flash_attention_packed_rope_plain(
         qkv, cos, sin, segt, H, 1 / np.sqrt(D)).float()
     tol = 2e-5 if dtype == torch.float32 else 2e-2
@@ -114,7 +122,42 @@ def test_segment_attention_never_falls_back(dev):
         fa.segment_flash_attention(q, q, q, seg)
 
 
-def _lm_case(rng, dev, dtype, B, S, T, Hq, Hkv, fill, D=128):
+@pytest.mark.parametrize("kernel", ["K3", "K1"])
+def test_tensor_core_tiles_never_fall_back(dev, kernel):
+    """bf16 CUDA operands run the tensor-core tile or raise: a head dim
+    the tile does not take (96 for K3, 76 for K1) raises, naming the C
+    entry point, instead of running the CUDA-core tile."""
+    from cogstream_tpu_torch.ops import flash_attention as fa
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    bf = torch.bfloat16
+    if kernel == "K3":
+        q = torch.zeros((1, 64, 4, 96), device=dev, dtype=bf)
+        k = torch.zeros((1, 128, 2, 96), device=dev, dtype=bf)
+        pos = torch.zeros((1, 64), dtype=torch.int32, device=dev)
+        eff = torch.zeros((1, 128), dtype=torch.int32, device=dev)
+        n0 = lma.prefill_flash_attention.launches
+        with pytest.raises(ValueError, match="cs_gqa_prefill_tc"):
+            lma.prefill_flash_attention(q, k, k, pos, eff)
+        assert lma.prefill_flash_attention.launches == n0
+    else:
+        D = 76
+        qkv = torch.zeros((64, 3 * 2 * D), device=dev, dtype=bf)
+        cs = torch.zeros((64, D), device=dev)
+        seg = torch.zeros(64, dtype=torch.int32, device=dev)
+        r = torch.zeros(1, dtype=torch.int32, device=dev)
+        n0 = fa.flash_attention_packed_rope_fusedqkv.launches
+        with pytest.raises(ValueError, match="cs_vision_attention_tc"):
+            fa.flash_attention_packed_rope_fusedqkv(qkv, cs, cs, seg, r, r, 2)
+        assert fa.flash_attention_packed_rope_fusedqkv.launches == n0
+
+
+def _lm_case(rng, dev, dtype, B, S, T, Hq, Hkv, fill, D=128,
+             dead_row=False):
+    """Random q/k/v and a cache filled to ``fill`` + S slots with one
+    position hole, a random 70% kv_allowed, the last query padded; with
+    ``dead_row`` query 0 sits at position 0, whose slot is disallowed,
+    so it sees nothing."""
     from cogstream_tpu_torch.ops.lm_attention import effective_kv_positions
 
     k = _t(rng.standard_normal((B, T, Hkv, D)), dev, dtype)
@@ -127,25 +170,47 @@ def _lm_case(rng, dev, dtype, B, S, T, Hq, Hkv, fill, D=128):
         pos[b, fill // 3] = -1
         qpos[b, :S - 1] = fill + np.arange(S - 1)   # last query padded
     allowed = rng.random((B, T)) > 0.3
+    if dead_row:
+        qpos[:, 0] = 0
+        allowed[pos == 0] = False
     eff = effective_kv_positions(_t(pos, dev, torch.int32),
                                  _t(allowed, dev, torch.bool))
     return q, k, v, _t(qpos, dev, torch.int32), eff
 
 
-@pytest.mark.parametrize("B,S,T,Hq,Hkv,fill", [
-    (1, 100, 300, 28, 4, 150), (2, 70, 1000, 4, 2, 0),
-    (1, 9, 4100, 7, 1, 3000)])
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,fill,window,D", [
+    (1, 100, 300, 28, 4, 150, None, 128),
+    (2, 70, 1000, 4, 2, 0, None, 128),
+    (1, 9, 4100, 7, 1, 3000, None, 128),
+    (1, 1000, 2100, 28, 4, 1000, None, 128),
+    (2, 100, 2048, 28, 4, 1000, 1130, 128),
+    (1, 9, 700, 28, 4, 500, 515, 128),
+    (1, 300, 1500, 28, 4, 700, 1100, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_prefill_kernel(dev, B, S, T, Hq, Hkv, fill, dtype):
+def test_prefill_kernel(dev, B, S, T, Hq, Hkv, fill, window, D, dtype):
+    """K3 against its plain version: bf16 on the tensor-core tile (head
+    dim 128 and 64), f32 on the CUDA-core tile. G = 7 with S = 9, 100, 300
+    and 1000 (64- and 128-row tiles straddle tokens), B = 2, a read
+    window shorter than the cache and not a multiple of the key tile
+    (1130, 515, 1100), position holes; the padded query and the query
+    that sees nothing output exactly 0."""
     from cogstream_tpu_torch.ops import lm_attention as lma
 
     rng = np.random.default_rng(2)
-    q, k, v, qpos, eff = _lm_case(rng, dev, dtype, B, S, T, Hq, Hkv, fill)
-    got = lma.prefill_flash_attention(q, k, v, qpos, eff).float()
+    q, k, v, qpos, eff = _lm_case(rng, dev, dtype, B, S, T, Hq, Hkv, fill,
+                                  D=D, dead_row=True)
+    if window is not None:
+        eff = eff[:, :window].contiguous()
+    wrap = lma.prefill_flash_attention
+    n0, t0 = wrap.launches, wrap.tc_launches
+    got = wrap(q, k, v, qpos, eff).float()
+    assert wrap.launches == n0 + 1
+    assert wrap.tc_launches == t0 + (dtype == torch.bfloat16)
     ref = lma.gqa_attention_plain(q, k, v, qpos, eff).float()
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got, ref, atol=tol, rtol=tol)
     assert torch.all(got[:, -1] == 0)        # padded query row → 0
+    assert torch.all(got[:, 0] == 0)         # nothing visible → 0
 
 
 @pytest.mark.parametrize("S,T,window,fill", [(1, 2048, 1024, 700),
