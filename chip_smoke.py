@@ -8,7 +8,7 @@ Phases (each prints one line or a few; any failure exits non-zero):
 1. device — the card's name and power limit from nvidia-smi;
 2. build  — nvcc builds the port's kernels (cogstream_tpu_torch/csrc), one
    process per source, all at once, and prints the registers and spills
-   ptxas gave the tensor-core tiles of K1 and K3;
+   ptxas gave the tensor-core kernels of K1, K3, K4 and K5;
 3. kernels — each kernel against its plain PyTorch version on the card,
    in bf16, at the shapes the 7B paths give it, with both times, the
    time of one PyTorch library call computing the same function where
@@ -16,12 +16,15 @@ Phases (each prints one line or a few; any failure exits non-zero):
    vision attention, K2 LayerNorm, K3 prefill attention, K4 decode
    attention, K5 head-major segment attention (the training tower's),
    and the int4 GEMVs K6 (uniform and cubic) and K7 on the lm_head, K8
-   and K9 on stacked gate_proj / down_proj. K1 and K3 run their bf16
-   tensor-core tiles, timed beside their f32 route (the CUDA-core f32
-   tile) on the same values; K3 also at a question prefill (a few dozen
-   tokens over a ~9k-slot window), where it must beat the f32 route,
-   and at the ingest shape it must beat the library call. Pad rows and
-   fully masked rows must be exactly 0;
+   and K9 on stacked gate_proj / down_proj. K1, K3, K4 and K5 run their
+   bf16 tensor-core kernels, timed beside their f32 route (the CUDA-core
+   f32 tile) on the same values; K3 also at a question prefill (a few
+   dozen tokens over a ~9k-slot window), where it must beat the f32
+   route; K3, K4 and K5 must beat the library call. K4 and K5 are timed
+   from CUDA graphs; K4's two calls must be bit-identical and one call
+   captured in a graph, replayed after its q / eff were rewritten, must
+   equal the eager call; K4 also runs a verify step (S = 8). Pad rows
+   and fully masked rows must be exactly 0;
 4. reference — a tiny-config session (f32) runs ingest → ask(AC) →
    ingest → ask(FCC) on the card (kernels) and on the CPU (plain
    versions); greedy tokens, selections and slot ranges must agree. Then
@@ -33,8 +36,9 @@ Phases (each prints one line or a few; any failure exits non-zero):
 5. main path — a 7B-width ``StreamingSession`` (cogreasoner_7b, bf16,
    random weights from a seeded generator, 16384-slot cache) ingests two
    16-frame segments (24x42 patch grids, merge 2, seeded uint8 patch
-   rows) and answers ask(AC) and ask(FCC); K1-K4's launch counts, and
-   K1's and K3's tensor-core launch counts, must rise during this phase,
+   rows) and answers ask(AC) and ask(FCC); K1-K4's launch counts must
+   rise during this phase, every one of K1's, K3's and K4's launches on
+   its tensor-core kernel (K4: one launch per call, no combine pass),
    every output must be finite and the slot ranges ordered and disjoint;
 7. training main path (runs on the phase-5 model, before phase 6) — the
    frozen ``cogreasoner_7b`` base with LoRA r=8 on all 7 projections x
@@ -42,7 +46,8 @@ Phases (each prints one line or a few; any failure exits non-zero):
    stage-1 steps on seeded selector samples, (b) ``Stage2Trainer``
    turns on a packed turn of 8 frames of 24x42 patches (grad_accum 2,
    remat on). Per step: wall time, tokens/s, peak GiB. K5 must launch
-   27 times per tower forward, every loss be finite, the LoRA b leaves
+   27 times per tower forward, all on its tensor-core tile, every loss
+   be finite, the LoRA b leaves
    change, the base stay bit-identical and a held-out forward's loss
    fall;
 6. int4 main path — the same model's decoder is quantized in place to
@@ -108,7 +113,7 @@ KERNELS = [  # name, wrapper module, attribute, source, TPU kernel replaced
      "cogstream_tpu/ops/quant_gemv.py:282"),
 ]
 BF16_PATH = range(0, 4)     # K1-K4: the bf16 main path (phase 5)
-TC_PATH = (0, 2)            # K1, K3: bf16 on their tensor-core tiles
+TC_PATH = (0, 2, 3)         # K1, K3, K4: bf16 on their tensor-core kernels
 TRAIN_PATH = range(4, 5)    # K5: the training main path (phase 7)
 INT4_PATH = range(5, 9)     # K6-K9: the int4 main path (phase 6)
 # one NVIDIA H100 SXM (published datasheet figures): HBM bytes/s
@@ -230,11 +235,18 @@ def row_check(got, ref, width: int):
     return err.max().item(), (err / bound).max().item()
 
 
-# the tensor-core tiles by the (mangled) names of their instantiations on
-# the main path: K3 at D = 128 with 2 and 1 m-tiles per warp, K1 at D = 72
+# the tensor-core kernels by the (mangled) names of their instantiations
+# on the main paths: K3 at D = 128 with 2 and 1 m-tiles per warp, K1 and
+# K5 at D = 72 (one body, with and without the rotation), K4 at D = 128
+# (1 m-tile for S <= 2, 2 for longer steps) and D = 64
 TC_KERNELS = {"K3 tc <D=128, 2 m-tiles>": "gqa_prefill_tc_kernelILi128ELi2E",
               "K3 tc <D=128, 1 m-tile>": "gqa_prefill_tc_kernelILi128ELi1E",
-              "K1 tc <D=72>": "vision_attention_tc_kernelILi72E"}
+              "K1 tc <D=72, rope>": "segment_tc_kernelILi72ELb1E",
+              "K5 tc <D=72>": "segment_tc_kernelILi72ELb0E",
+              "K4 tc <D=128, 1 m-tile>": "gqa_decode_tc_kernelILi128ELi1E",
+              "K4 tc <D=128, 2 m-tiles>": "gqa_decode_tc_kernelILi128ELi2E",
+              "K4 tc <D=64, 1 m-tile>": "gqa_decode_tc_kernelILi64ELi1E",
+              "K4 tc <D=64, 2 m-tiles>": "gqa_decode_tc_kernelILi64ELi2E"}
 
 
 def ptxas_usage(log: str, names: dict) -> dict:
@@ -454,7 +466,9 @@ def check_kernels(dev):
                              "plain version or is slower than the f32 route")
     del q32, k32, v32, qq32
 
-    # K4: one decode step over a 9216-slot window holding 9000 slots
+    # K4: one decode step over a 9216-slot window holding 9000 slots, on
+    # the tensor-core kernel (one launch); times from CUDA graphs, since
+    # the host's enqueue exceeds the kernel's device time
     W, fill = 9216, 9000
     q1 = dev_t(rng.standard_normal((1, 1, Hq, Dl)), bf)
     pos = np.full((1, T), -1, np.int32)
@@ -464,17 +478,65 @@ def check_kernels(dev):
                                      dev_t(allowed, torch.bool))[:, :W]
     eff = eff.contiguous()
     qp = dev_t([[fill]], torch.int32)
+    t0 = lma.decode_attention.tc_launches
     got = lma.decode_attention(q1, k, v, qp, eff)
+    if lma.decode_attention.tc_launches != t0 + 1:
+        raise AssertionError("K4 bf16 did not run the tensor-core kernel")
     ref = lma.gqa_attention_plain(q1, k, v, qp, eff)
     seen = int((eff[0] < lma.SENTINEL).sum().item())
     k4_bound = bound_ms(nbytes(q1, qp, eff, got) + 2 * seen * kv_row,
                         4 * Hq * Dl * visible_pairs(qp, eff))
     k4_lib = sdpa_ms(*sdpa_operands(q1, k, v, qp, eff), 50)
-    record(3, *row_check(got, ref, Dl),
-           cuda_ms(lambda: lma.decode_attention(q1, k, v, qp, eff), 50),
+    k4_ms = graph_ms(lambda: lma.decode_attention(q1, k, v, qp, eff), 50)
+    q1_32, k32, v32 = q1.float(), k.float(), v.float()
+    k4_f32_ms = graph_ms(lambda: lma.decode_attention(q1_32, k32, v32, qp,
+                                                      eff), 20)
+    del k32, v32
+    # capture: one call in a graph, replayed after q and eff are rewritten
+    # in place, against the eager call on the new values
+    qr, effr = q1.clone(), eff.clone()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out_g = lma.decode_attention(qr, k, v, qp, effr)
+    qr.copy_(dev_t(rng.standard_normal((1, 1, Hq, Dl)), bf))
+    effr[0, rng.choice(fill, 500, replace=False)] = lma.SENTINEL
+    g.replay()
+    torch.cuda.synchronize()
+    replay_equal = bool(torch.equal(out_g, lma.decode_attention(
+        qr, k, v, qp, effr)))
+    repeat_equal = bool(torch.equal(got, lma.decode_attention(
+        q1, k, v, qp, eff)))
+    log(f"kernel K4 routes over a {W}-slot window: tensor-core kernel "
+        f"(bf16, one launch) {k4_ms:.4f} ms, CUDA-core tile + combine (f32,"
+        f" same values) {k4_f32_ms:.4f} ms, library {k4_lib:.4f} ms (graph "
+        f"ms for both routes); two calls bit-identical {repeat_equal}; "
+        f"graph replay after q / eff rewritten equals the eager call "
+        f"{replay_equal}")
+    record(3, *row_check(got, ref, Dl), k4_ms,
            cuda_ms(lambda: lma.gqa_attention_plain(q1, k, v, qp, eff), 5),
            k4_bound, k4_lib)
-    del k, v, q, q1, got, ref
+    if not (replay_equal and repeat_equal):
+        raise AssertionError("K4 is not deterministic or its graph replay "
+                             "differs from the eager call")
+    if not k4_ms < k4_lib:
+        raise AssertionError(f"K4 ({k4_ms:.4f} ms) is not faster than the "
+                             f"library call ({k4_lib:.4f} ms)")
+    # K4 at a verify step (S = 8: 56 folded rows, 2 m-tiles per warp in 2
+    # row groups) with a padded query, against its plain version
+    q8 = dev_t(rng.standard_normal((1, 8, Hq, Dl)), bf)
+    qp8 = dev_t([[fill - 7 + i for i in range(7)] + [-1]], torch.int32)
+    got8 = lma.decode_attention(q8, k, v, qp8, eff)
+    err8, ratio8 = row_check(got8, lma.gqa_attention_plain(q8, k, v, qp8,
+                                                           eff), Dl)
+    k4_8_ms = graph_ms(lambda: lma.decode_attention(q8, k, v, qp8, eff), 20)
+    pad8 = bool((got8[0, 7] == 0).all())
+    log(f"kernel K4 verify step S=8: max_abs_err={err8:.6g}, worst row at "
+        f"{ratio8:.3g} of its bound; padded query zero {pad8}; "
+        f"{k4_8_ms:.4f} ms")
+    if not ratio8 <= 1.0 or not pad8:
+        raise AssertionError("K4 at S=8 disagrees with its plain version")
+    del k, v, q, q1, q8, got, ref
 
     # K5: the training tower's head-major attention — 16 aligned frames
     # of 1008 tokens (8 frames of 24x42 patches merge 2 is the stage-2
@@ -504,16 +566,27 @@ def check_kernels(dev):
         if pad and not bool((got[N - pad:] == 0).all()):
             raise AssertionError("K5 pad rows are not zero")
         if len(k5_err) == 1:   # time the aligned 16-frame case
-            k5_ms = cuda_ms(lambda: fa.segment_flash_attention(
-                q, k, v, seg, ranges), 5)
+            wrap = fa.segment_flash_attention
+            with torch.no_grad():
+                k5_ms = graph_ms(lambda: wrap(q, k, v, seg, ranges), 5)
+                q32, k32, v32 = q.float(), k.float(), v.float()
+                k5_f32_ms = cuda_ms(lambda: wrap(q32, k32, v32, seg, ranges),
+                                    3)
+                del q32, k32, v32
             k5_plain_ms = cuda_ms(lambda: fa.segment_flash_attention_plain(
                 q, k, v, seg, 1 / math.sqrt(D)), 2)
             k5_bound = bound_ms(nbytes(q, k, v, seg, *ranges, got),
                                 4 * H * D * segment_pairs(seg))
             k5_lib = sdpa_ms(heads_first(q), heads_first(k), heads_first(v),
                              block_diag(seg), 5)
+            log(f"kernel K5 routes at N={N}: tensor-core tile (bf16, graph "
+                f"ms) {k5_ms:.4f} ms, CUDA-core tile (f32, same values) "
+                f"{k5_f32_ms:.4f} ms, library {k5_lib:.4f} ms")
     record(4, max(k5_err), max(k5_ratio), k5_ms, k5_plain_ms, k5_bound,
            k5_lib)
+    if not k5_ms < k5_lib:
+        raise AssertionError(f"K5 ({k5_ms:.4f} ms) is not faster than the "
+                             f"library call ({k5_lib:.4f} ms)")
     return results
 
 
@@ -1079,15 +1152,19 @@ def run_main_path(dev, stamp):
     ordered = (starts == sorted(starts)
                and all(e <= s for e, s in zip(ends[:-1], starts[1:]))
                and all(r.start <= r.end for r in sess.ranges))
+    # bf16 runs only the tensor-core kernels: K4 one launch per call, and
+    # never the f32 route's cs_gqa_combine
+    all_tc = all(tc_launches[KERNELS[i][0]] == launches[i] for i in TC_PATH)
     log(f"main: {main_s:.1f}s for 2 ingests + 2 asks; launches "
         f"{dict(zip([KERNELS[i][0] for i in BF16_PATH], launches))}, on "
-        f"the tensor-core tiles {tc_launches}; cache "
+        f"the tensor-core kernels {tc_launches} (all {all_tc}); cache "
         f"{wi} slots; "
         f"{len(sess.events)} events; finite {finite}; ranges ordered and "
         f"disjoint {ordered}; peak {torch.cuda.max_memory_allocated() / 2**30:.1f}"
         f" GiB [{stamp}]")
     if not finite or not ordered or min(launches) == 0 \
-            or min(tc_launches.values()) == 0 or len(sess.events) != 2:
+            or min(tc_launches.values()) == 0 or not all_tc \
+            or len(sess.events) != 2:
         raise AssertionError("main path check failed")
     return launches, metrics, sess
 
@@ -1341,6 +1418,7 @@ def run_training(model, dev, stamp, profile: bool = False):
     metrics, ok = {}, True
     for i in TRAIN_PATH:                   # count the training path only
         wrapper(i).launches = 0
+        wrapper(i).tc_launches = 0
     lora = init_cogreasoner_lora(torch.Generator(device=dev).manual_seed(0),
                                  cfg, lc, device=dev)
     n_lora = sum(t.numel() for _, t in iter_leaves(lora))
@@ -1437,6 +1515,7 @@ def run_training(model, dev, stamp, profile: bool = False):
                                       n_vis, remat=False).item()
 
     k5_0 = fa.segment_flash_attention.launches
+    k5_tc0 = fa.segment_flash_attention.tc_launches
     before2 = eval2()
     b0 = [t.detach().clone() for k, t in iter_leaves(lora)
           if k.endswith(".b")]
@@ -1452,15 +1531,16 @@ def run_training(model, dev, stamp, profile: bool = False):
         peaks2.append(step_line("stage2", i, losses2[-1], dt, S2))
     after2 = eval2()
     k5 = fa.segment_flash_attention.launches - k5_0
+    k5_tc = fa.segment_flash_attention.tc_launches - k5_tc0
     moved2 = all(not torch.equal(a, t) for a, (k, t) in zip(
         b0, ((k, t) for k, t in iter_leaves(lora) if k.endswith(".b"))))
     log(f"train stage2: turn of {turn['pixel_values'].shape[0]} patch rows, "
         f"{n_vis} merged tokens, {S2}-token bucket; held-out loss "
         f"{before2:.5f} -> {after2:.5f}; b leaves changed {moved2} "
-        f"(projector included); K5 launches {k5} over 6 tower forwards "
-        f"[{stamp}]")
+        f"(projector included); K5 launches {k5} over 6 tower forwards, "
+        f"{k5_tc} on the tensor-core tile [{stamp}]")
     ok &= all(math.isfinite(x) for x in losses2) and moved2 \
-        and after2 < before2 and k5 == 6 * n_layers \
+        and after2 < before2 and k5 == k5_tc == 6 * n_layers \
         and turn["pixel_values"].shape[0] == 8064 and n_vis == 2016
     checksum1 = base_checksum(model)
     log(f"train: base checksum {checksum0} -> {checksum1}, identical "

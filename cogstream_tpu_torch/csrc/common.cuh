@@ -1,6 +1,7 @@
 // Shared helpers for the cogstream_tpu_torch kernels: dtype conversion,
-// warp reductions, and the f32 online-softmax attention tile that the
-// vision (K1), prefill (K3) and decode (K4) kernels all run.
+// warp reductions, and the f32 online-softmax attention tile that the f32
+// routes of the vision (K1), prefill (K3), decode (K4) and segment (K5)
+// kernels run.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -9,40 +9,56 @@
 // query rows (row r = s * G + g of kv head h reads query head h*G + g);
 // a fully masked row outputs 0.
 //
-// A pre-pass stores each 64-slot key tile's smallest eff position, and a
-// block skips every tile whose smallest position exceeds its largest
-// query position: the causal tail and the empty cache beyond the write
-// index cost one integer compare and are never loaded. K3's tensor-core
-// pre-pass also stores each tile's largest position: a warp whose rows
-// have all reached it runs the tile without the per-score compare.
-//
 // * K3 in bf16 (cs_gqa_prefill_tc): the tensor-core tile of tc_tile.cuh.
 //   Bound on the H100: arithmetic (4 D FLOP per visible (row, slot)
-//   pair; the 7B ingest prefill is ~4e11 FLOP over ~50 MB). A block of
-//   4 warps owns 64 * MT folded rows of one (batch, kv head), so each
-//   K/V tile is read once for all G query heads of the rows; K/V tiles
-//   stream through a cp.async double buffer with each tile's eff
-//   positions, and the score / softmax / P.V work runs on bf16 tensor
-//   cores with f32 accumulators. The pre-pass also bounds the block's
-//   last tile, so the skipped tail is not even scanned. Row tiles are
-//   launched last-first (the last rows see the most slots). MT = 2 (128
-//   rows, 32 per warp) halves the shared-memory reads per (row, slot)
-//   pair and the K/V traffic from L2; a grid that would not fill the SMs
-//   at 128 rows (a question prefill of a few dozen tokens) takes MT = 1.
-//   Two blocks share an SM, so one block's softmax overlaps the other's
-//   MMAs.
-// * K3 in f32 and K4 (cs_gqa_attention): the CUDA-core f32 tile of
+//   pair; the 7B ingest prefill is ~4e11 FLOP over ~50 MB). A pre-pass
+//   stores each 64-slot key tile's smallest and largest eff position: a
+//   block skips every tile whose smallest position exceeds its largest
+//   query position (the causal tail and the empty cache beyond the write
+//   index cost one integer compare and are never loaded), and a warp
+//   whose rows have all reached a tile's largest position runs it
+//   without the per-score compare. A block of 4 warps owns 64 * MT
+//   folded rows of one (batch, kv head), so each K/V tile is read once
+//   for all G query heads of the rows; K/V tiles stream through a
+//   cp.async double buffer with each tile's eff positions, and the score
+//   / softmax / P.V work runs on bf16 tensor cores with f32
+//   accumulators. The pre-pass also bounds the block's last tile, so the
+//   skipped tail is not even scanned. Row tiles are launched last-first
+//   (the last rows see the most slots). MT = 2 (128 rows, 32 per warp)
+//   halves the shared-memory reads per (row, slot) pair and the K/V
+//   traffic from L2; a grid that would not fill the SMs at 128 rows (a
+//   question prefill of a few dozen tokens) takes MT = 1. Two blocks
+//   share an SM, so one block's softmax overlaps the other's MMAs.
+// * K4 in bf16 (cs_gqa_decode_tc): a decode-shaped tensor-core kernel,
+//   ONE launch per call with no pre-pass and no second pass, so a decode
+//   step can be captured in a CUDA graph. Bound on the H100: reading the
+//   visible K/V bytes of the cache (S <= 8 rows per kv head do ~4 D FLOP
+//   per 4 D bytes). Its R = S * G folded rows take ceil(R / 16) m16
+//   tiles (1 at S = 1, G = 7: 7 real rows in 16), up to MT per block;
+//   the cache splits into runs of `tiles_per_split` 64-slot tiles
+//   (flash-decoding, the split count chosen by the wrapper from kv_len
+//   and the SM count), one block per (split, batch x kv head, row group).
+//   The 4 warps of a block share its rows and take its tiles in turn,
+//   each with its own online softmax (tc::scores / tc::accumulate) and
+//   its own K and V buffers, copied as two cp.async groups so the scores
+//   run while V lands and the next tile's K lands during P.V. Before a
+//   tile is copied the warp reads its 64 eff positions (while the
+//   previous tile's scores run) and a warp vote skips a tile no row can
+//   see and the compare of a tile every row sees wholly. The warps merge
+//   in shared memory in warp order; with one split the block writes the
+//   output, otherwise its partial (m, l, acc) goes to the caller's
+//   workspace and the last block of the (batch x kv head, row group),
+//   found by an atomic ticket it resets, merges the partials in split
+//   order: two calls give the same bits.
+// * f32, K3 and K4 (cs_gqa_attention): the CUDA-core f32 tile of
 //   common.cuh (attend_tile), one 256-thread block per (64-row tile,
-//   batch x kv head, key chunk).
+//   batch x kv head, key chunk), after the tile_min pre-pass. f32 keeps
+//   exact f32 products (the tiny f32 sessions hold card-vs-CPU greedy
+//   tokens through it).
 //   - K3 f32: one chunk spans the whole cache; the block writes
-//     normalized rows. f32 keeps exact f32 products (the tiny f32
-//     sessions hold card-vs-CPU greedy tokens through it).
-//   - K4 (decode, S <= 8 rows per kv head): one block per kv head would
-//     fill 4 of 132 SMs, so the cache splits into chunks of
-//     `chunk_tiles` tiles (flash-decoding): each block writes its
-//     partial (m, l, acc) and cs_gqa_combine merges the chunks. Bound on
-//     the H100: reading the cache's K/V bytes; the split puts every SM
-//     on that read.
+//     normalized rows.
+//   - K4 f32: chunks of `chunk_tiles` tiles; each block writes its
+//     partial (m, l, acc) and cs_gqa_combine merges the chunks.
 //
 // The port writes each decode step's K/V IN PLACE into the cache before
 // attention (runtime/generate.py), so K4 needs no side buffer or fresh
@@ -52,6 +68,8 @@
 #include "tc_tile.cuh"
 
 namespace {
+
+constexpr int MAX_SMEM = 232448;  // 227 KB: a block's dynamic shared memory
 
 // smallest eff position of each 64-slot key tile: tile_min[b, tile]
 __global__ void tile_min_kernel(const int* __restrict__ eff,
@@ -220,8 +238,11 @@ int launch_gqa(const void* q, const void* k, const void* v, const void* qpos,
   const size_t bytes = cs::tile_smem_floats(D) * sizeof(float) +
                        (2 * cs::BR + cs::NT / 32 + chunk_tiles) * sizeof(int);
   auto kern = gqa_attention_kernel<T>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)bytes);
+  // once per instantiation, not per launch
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (bytes > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((R + cs::BR - 1) / cs::BR, B * Hkv, n_chunks);
   kern<<<grid, cs::NT, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -378,8 +399,6 @@ gqa_prefill_tc_kernel(const tc::bf16* __restrict__ q,
     }
 }
 
-constexpr int MAX_SMEM = 232448;  // 227 KB: a block's dynamic shared memory
-
 int sm_count() {
   static const int n = [] {
     int dev = 0, v = 132;
@@ -431,12 +450,293 @@ int dispatch_prefill_tc(const void* q, const void* k, const void* v,
                                  Hkv, T_cache, kv_len, scale2, st);
 }
 
+// K4 in bf16: the decode-shaped tensor-core kernel (see the header). A
+// block of 4 warps owns the RB = 16 * MT folded rows r0 + [0, RB) of one
+// (batch, kv head) and the key tiles [t_begin, t_end) of one split; warp
+// w takes tiles t_begin + w, + 4, ... each with its own online softmax.
+constexpr int DEC_WARPS = 4;
+
+template <int D, int MT>
+__global__ void __launch_bounds__(DEC_WARPS * 32)
+gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
+                     const tc::bf16* __restrict__ k,
+                     const tc::bf16* __restrict__ v,
+                     const int* __restrict__ qpos,
+                     const int* __restrict__ eff, float* __restrict__ part_ml,
+                     float* __restrict__ part_acc, int* __restrict__ tickets,
+                     tc::bf16* __restrict__ out, int S, int Hq, int Hkv,
+                     int T_cache, int kv_len, int tiles_per_split,
+                     float scale2) {
+  constexpr int NW = DEC_WARPS, NT = 32 * NW, RB = 16 * MT, BK = tc::BK;
+  constexpr int KS = tc::stride(D), CH = D / 8, D4 = D / 4;
+  constexpr int WS = RB * (D + 2);  // merge floats per warp: m, l, O rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  tc::bf16* Qs = reinterpret_cast<tc::bf16*>(smem_raw);
+  tc::bf16* KV = Qs + RB * KS;  // per warp: one K tile, one V tile
+  int* cpos_all = reinterpret_cast<int*>(KV + NW * 2 * BK * KS);
+  int* last = cpos_all + NW * BK;
+  float* mrg = reinterpret_cast<float*>(KV);  // after the tiles: NW x WS
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int split = blockIdx.x, n_splits = gridDim.x, bh = blockIdx.y;
+  const int b = bh / Hkv, h = bh % Hkv;
+  const int G = Hq / Hkv, R = S * G, r0 = blockIdx.z * RB;
+  const int RL = min(RB, R - r0);  // this block's real rows
+  const int n_tiles = (kv_len + BK - 1) / BK;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(t_begin + tiles_per_split, n_tiles);
+  const size_t tok = (size_t)Hkv * D;  // K/V token stride
+  const tc::bf16* kb = k + (size_t)b * T_cache * tok + (size_t)h * D;
+  const tc::bf16* vb = v + (size_t)b * T_cache * tok + (size_t)h * D;
+  const int* effb = eff + (size_t)b * kv_len;
+  auto out_row = [&](int r) {  // folded row r of the block -> out
+    const int rr = r0 + r;
+    return out + (((size_t)b * S + rr / G) * Hq + h * G + rr % G) * D;
+  };
+
+  for (int i = tid; i < RB * CH; i += NT) {  // Q rows, zero past R
+    const int rr = i / CH, c = i % CH, r = r0 + rr;
+    const tc::bf16* src = q;
+    if (r < R)
+      src = q + (((size_t)b * S + r / G) * Hq + h * G + r % G) * D + c * 8;
+    tc::cp_async16(Qs + rr * KS + c * 8, src, r < R);
+  }
+  tc::cp_async_commit();
+  // the thread's row positions (-1 past R); every warp holds all RB rows,
+  // so warp reductions give the block's largest position (qmax) and the
+  // smallest over its real rows (rmin: a padded query, -1, makes it -1)
+  int rp[MT][2], qmax = -1, rmin = cs::SENTINEL;
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 16 * t + 8 * i + (lane >> 2);
+      rp[t][i] = r < R ? qpos[(size_t)b * S + r / G] : -1;
+      qmax = max(qmax, rp[t][i]);
+      if (r < R) rmin = min(rmin, rp[t][i]);
+    }
+  qmax = cs::warp_max_i(qmax);
+  rmin = cs::warp_min_i(rmin);
+
+  tc::bf16* Kw = KV + warp * 2 * BK * KS;
+  tc::bf16* Vw = Kw + BK * KS;
+  int* cpos = cpos_all + warp * BK;
+  auto load = [&](tc::bf16* dst, const tc::bf16* src, int t) {
+    const int k0 = t * BK;
+    for (int i = lane; i < BK * CH; i += 32) {
+      const int c = i / CH, ch = i % CH;
+      const bool ok = k0 + c < kv_len;  // ragged last tile: zero rows
+      const size_t off = ok ? (size_t)(k0 + c) * tok + ch * 8 : 0;
+      tc::cp_async16(dst + c * KS + ch * 8, src + off, ok);
+    }
+    tc::cp_async_commit();
+  };
+  // the lane's two eff positions of tile t (SENTINEL past kv_len)
+  auto fetch = [&](int t, int& e0, int& e1) {
+    const int s0 = t * BK + lane;
+    e0 = s0 < kv_len ? effb[s0] : cs::SENTINEL;
+    e1 = s0 + 32 < kv_len ? effb[s0 + 32] : cs::SENTINEL;
+  };
+  // from tile t (its positions in e0, e1), the warp's first tile that a
+  // row of the block can see; its largest position into emax. A tile no
+  // row sees (the empty cache past the write index, a causal tail) is
+  // never copied. t_end if none.
+  auto settle = [&](int t, int& e0, int& e1, int& emax) {
+    while (t < t_end) {
+      if (cs::warp_min_i(min(e0, e1)) <= qmax) {
+        emax = cs::warp_max_i(max(e0, e1));
+        return t;
+      }
+      t += NW;
+      if (t < t_end) fetch(t, e0, e1);
+    }
+    return t_end;
+  };
+
+  tc::State<D, MT> st;
+  st.init();
+  int e0 = cs::SENTINEL, e1 = cs::SENTINEL, emax = cs::SENTINEL;
+  int t = t_begin + warp;
+  if (t < t_end) fetch(t, e0, e1);
+  t = settle(t, e0, e1, emax);
+  if (t < t_end) {
+    cpos[lane] = e0;
+    cpos[lane + 32] = e1;
+    load(Kw, kb, t);
+    load(Vw, vb, t);
+    tc::cp_async_wait<1>();  // Q and K landed, V may be in flight
+  } else {
+    tc::cp_async_wait<0>();
+  }
+  __syncthreads();  // Q rows of every thread
+  // per tile: K and V are two copy groups, so the scores run while V
+  // lands, the next K lands during P.V and the next V during its scores
+  while (t < t_end) {
+    int n0 = cs::SENTINEL, n1 = cs::SENTINEL, nmax = cs::SENTINEL;
+    if (t + NW < t_end) fetch(t + NW, n0, n1);  // read during the scores
+    __syncwarp();                                // K(t), cpos visible
+    const int* cp = cpos;
+    tc::PFrag<MT> pa;
+    // a tile whose largest position every real row has reached needs no
+    // compare (pad rows past R see everything then, and are not stored)
+    tc::scores<D, MT>(Qs, Kw, scale2, emax <= rmin,
+                      [=](int m, int i, int c) { return rp[m][i] >= cp[c]; },
+                      st, pa);
+    const int tn = settle(t + NW, n0, n1, nmax);
+    __syncwarp();  // K(t) and cpos consumed
+    if (tn < t_end) {
+      cpos[lane] = n0;
+      cpos[lane + 32] = n1;
+      load(Kw, kb, tn);
+      tc::cp_async_wait<1>();  // V(t)
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncwarp();  // V(t) visible
+    tc::accumulate<D, MT>(Vw, pa, st);
+    __syncwarp();  // V(t) consumed
+    if (tn < t_end) {
+      load(Vw, vb, tn);
+      tc::cp_async_wait<1>();  // K(tn)
+    }
+    t = tn;
+    emax = nmax;
+  }
+  tc::finish(st);
+
+  // merge the warps' states in warp order (mrg overlays the K/V tiles)
+  __syncthreads();
+  float* mw = mrg + warp * WS;
+  const int c0 = (lane & 3) * 2;
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 16 * t + 8 * i + (lane >> 2);
+      if ((lane & 3) == 0) {
+        mw[r] = st.m[t][i];
+        mw[RB + r] = st.l[t][i];
+      }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(mw + 2 * RB + r * D + n * 8 + c0) =
+            make_float2(st.o[t][n][2 * i], st.o[t][n][2 * i + 1]);
+    }
+  __syncthreads();
+  // out: 4 normalized values of row r (0 for a row that saw nothing)
+  auto store4 = [&](int r, int g, float4 a, float l) {
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+    *reinterpret_cast<uint2*>(out_row(r) + 4 * g) =
+        make_uint2(tc::pack(a.x * inv, a.y * inv),
+                   tc::pack(a.z * inv, a.w * inv));
+  };
+  // weight of a state with max m against the merged max M
+  auto weight = [&](float m, float M) {
+    return m == -INFINITY ? 0.f : exp2f((m - M) * scale2);
+  };
+  const size_t slot0 = ((size_t)bh * gridDim.z + blockIdx.z) * n_splits;
+  for (int idx = tid; idx < RL * D4; idx += NT) {
+    const int r = idx / D4, g = idx % D4;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) M = fmaxf(M, mrg[w * WS + r]);
+    float L = 0.f;
+    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float* base = mrg + w * WS;
+      const float wt = weight(base[r], M);
+      const float4 o =
+          *reinterpret_cast<const float4*>(base + 2 * RB + r * D + 4 * g);
+      L += wt * base[RB + r];
+      A.x += wt * o.x;
+      A.y += wt * o.y;
+      A.z += wt * o.z;
+      A.w += wt * o.w;
+    }
+    if (n_splits == 1) {
+      store4(r, g, A, L);
+    } else {
+      const size_t p = (slot0 + split) * RB + r;
+      if (g == 0) reinterpret_cast<float2*>(part_ml)[p] = make_float2(M, L);
+      reinterpret_cast<float4*>(part_acc + p * D)[g] = A;
+    }
+  }
+  if (n_splits == 1) return;
+
+  // the last block of this (batch x kv head, row group) to finish merges
+  // every split's partial, in split order (deterministic)
+  __threadfence();  // this block's partials reach L2 before its ticket
+  __syncthreads();
+  int* ticket = tickets + (size_t)bh * gridDim.z + blockIdx.z;
+  if (tid == 0) *last = atomicAdd(ticket, 1) == n_splits - 1;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  const float2* ml = reinterpret_cast<const float2*>(part_ml);
+  for (int idx = tid; idx < RL * D4; idx += NT) {
+    const int r = idx / D4, g = idx % D4;
+    float M = -INFINITY;
+    for (int sp = 0; sp < n_splits; ++sp)
+      M = fmaxf(M, __ldcg(ml + (slot0 + sp) * RB + r).x);
+    float L = 0.f;
+    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int sp = 0; sp < n_splits; ++sp) {
+      const size_t p = (slot0 + sp) * RB + r;
+      const float2 s2 = __ldcg(ml + p);
+      const float wt = weight(s2.x, M);
+      const float4 o = __ldcg(reinterpret_cast<const float4*>(part_acc +
+                                                               p * D) + g);
+      L += wt * s2.y;
+      A.x += wt * o.x;
+      A.y += wt * o.y;
+      A.z += wt * o.z;
+      A.w += wt * o.w;
+    }
+    store4(r, g, A, L);
+  }
+  __syncthreads();  // every partial read
+  if (tid == 0) *ticket = 0;  // ready for the next launch
+}
+
+template <int D, int MT>
+int launch_decode_tc(const void* q, const void* k, const void* v,
+                     const void* qpos, const void* eff, void* part_ml,
+                     void* part_acc, void* tickets, void* out, int B, int S,
+                     int Hq, int Hkv, int T_cache, int kv_len,
+                     int tiles_per_split, int n_splits, float scale2,
+                     cudaStream_t st) {
+  constexpr int RB = 16 * MT;
+  auto kern = gqa_decode_tc_kernel<D, MT>;
+  // once per instantiation, not per launch
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const size_t bytes =
+      (size_t)(RB + DEC_WARPS * 2 * tc::BK) * tc::stride(D) *
+          sizeof(tc::bf16) +
+      (size_t)(DEC_WARPS * tc::BK + 4) * sizeof(int);
+  static_assert(DEC_WARPS * RB * (D + 2) * sizeof(float) <=
+                    DEC_WARPS * 2 * tc::BK * tc::stride(D) * sizeof(tc::bf16),
+                "the warps' merge area must fit in their K/V tiles");
+  const int R = S * (Hq / Hkv);
+  const dim3 grid(n_splits, B * Hkv, (R + RB - 1) / RB);
+  kern<<<grid, DEC_WARPS * 32, bytes, st>>>(
+      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
+      static_cast<const tc::bf16*>(v), static_cast<const int*>(qpos),
+      static_cast<const int*>(eff), static_cast<float*>(part_ml),
+      static_cast<float*>(part_acc), static_cast<int*>(tickets),
+      static_cast<tc::bf16*>(out), S, Hq, Hkv, T_cache, kv_len,
+      tiles_per_split, scale2);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// f32 operands only (bf16 goes to cs_gqa_prefill_tc / cs_gqa_decode_tc).
 // part_m == nullptr: K3 on the CUDA-core tile (one chunk, normalized
-// output; the wrapper sends only f32 here, bf16 goes to
-// cs_gqa_prefill_tc). Otherwise K4's first pass (partials per chunk;
-// finish with cs_gqa_combine).
+// output). Otherwise K4's first pass (partials per chunk; finish with
+// cs_gqa_combine).
 extern "C" int cs_gqa_attention(const void* q, const void* k, const void* v,
                                 const void* qpos, const void* eff,
                                 void* tile_min, void* out, void* part_m,
@@ -444,36 +744,28 @@ extern "C" int cs_gqa_attention(const void* q, const void* k, const void* v,
                                 int Hq, int Hkv, int D, int T_cache,
                                 int kv_len, int chunk_tiles, int n_chunks,
                                 float scale, int dtype, void* stream) {
-  if (D % 4 != 0 || D > 4 * cs::MAX_D4 || Hq % Hkv != 0 || kv_len > T_cache ||
+  if (dtype != cs::F32 || D % 4 != 0 || D > 4 * cs::MAX_D4 ||
+      Hq % Hkv != 0 || kv_len > T_cache ||
       (part_m == nullptr && n_chunks != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == cs::BF16)
-    return launch_gqa<__nv_bfloat16>(q, k, v, qpos, eff, tile_min, out,
-                                     part_m, part_l, part_acc, B, S, Hq, Hkv,
-                                     D, T_cache, kv_len, chunk_tiles,
-                                     n_chunks, scale, st);
   return launch_gqa<float>(q, k, v, qpos, eff, tile_min, out, part_m, part_l,
                            part_acc, B, S, Hq, Hkv, D, T_cache, kv_len,
-                           chunk_tiles, n_chunks, scale, st);
+                           chunk_tiles, n_chunks, scale,
+                           static_cast<cudaStream_t>(stream));
 }
 
+// K4 f32's second pass: merge the chunks' partials
 extern "C" int cs_gqa_combine(const void* part_m, const void* part_l,
                               const void* part_acc, void* out, int B, int S,
                               int Hq, int Hkv, int D, int n_chunks, int dtype,
                               void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype != cs::F32) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(B * Hkv, S * (Hq / Hkv));
-  if (dtype == cs::BF16)
-    gqa_combine_kernel<__nv_bfloat16><<<grid, D, 0, st>>>(
-        static_cast<const float*>(part_m), static_cast<const float*>(part_l),
-        static_cast<const float*>(part_acc), static_cast<__nv_bfloat16*>(out),
-        S, Hq, Hkv, D, n_chunks);
-  else
-    gqa_combine_kernel<float><<<grid, D, 0, st>>>(
-        static_cast<const float*>(part_m), static_cast<const float*>(part_l),
-        static_cast<const float*>(part_acc), static_cast<float*>(out), S, Hq,
-        Hkv, D, n_chunks);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  gqa_combine_kernel<float><<<grid, D, 0, st>>>(
+      static_cast<const float*>(part_m), static_cast<const float*>(part_l),
+      static_cast<const float*>(part_acc), static_cast<float*>(out), S, Hq,
+      Hkv, D, n_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -499,4 +791,37 @@ extern "C" int cs_gqa_prefill_tc(const void* q, const void* k, const void* v,
                                     Hq, Hkv, T_cache, kv_len, scale2, st);
   return dispatch_prefill_tc<64>(q, k, v, qpos, eff, tile_mm, out, B, S, Hq,
                                  Hkv, T_cache, kv_len, scale2, st);
+}
+
+// K4 in bf16 (head dim 64 or 128, mt in {1, 2}: m-tiles per warp, so
+// 16 * mt folded rows per block): one launch per
+// decode attention call.
+// part_ml ([slots, 16 mt] float2), part_acc ([slots, 16 mt, D] f32) and
+// tickets ([B * Hkv * row groups] int32, zero between launches) are the
+// caller's workspace, slots = B * Hkv * row groups * n_splits; they are
+// not touched when n_splits == 1. Normalized output [B, S, Hq, D].
+extern "C" int cs_gqa_decode_tc(const void* q, const void* k, const void* v,
+                                const void* qpos, const void* eff,
+                                void* part_ml, void* part_acc, void* tickets,
+                                void* out, int B, int S, int Hq, int Hkv,
+                                int D, int T_cache, int kv_len, int mt,
+                                int tiles_per_split, int n_splits,
+                                float scale, void* stream) {
+  const int n_tiles = (kv_len + cs::BK - 1) / cs::BK;
+  if ((D != 64 && D != 128) || Hq % Hkv != 0 || kv_len > T_cache ||
+      kv_len <= 0 || S <= 0 || B <= 0 || tiles_per_split <= 0 ||
+      n_splits <= 0 || (long long)n_splits * tiles_per_split < n_tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float scale2 = scale * tc::LOG2E;
+#define CS_DECODE_TC(DD, MM)                                               \
+  if (D == DD && mt == MM)                                                 \
+    return launch_decode_tc<DD, MM>(q, k, v, qpos, eff, part_ml, part_acc, \
+                                    tickets, out, B, S, Hq, Hkv, T_cache,  \
+                                    kv_len, tiles_per_split, n_splits,     \
+                                    scale2, st);
+  CS_DECODE_TC(128, 1) CS_DECODE_TC(128, 2)
+  CS_DECODE_TC(64, 1) CS_DECODE_TC(64, 2)
+#undef CS_DECODE_TC
+  return static_cast<int>(cudaErrorInvalidValue);
 }

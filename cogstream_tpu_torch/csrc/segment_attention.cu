@@ -18,11 +18,18 @@
 //
 // Bound on the H100: arithmetic. Block-diagonal attention over 16 frames
 // of 1008 tokens, 16 heads of 72, is 4*H*sum(L^2)*D ~ 7.5e10 FLOP per
-// layer against ~149 MB of q, k, v and out. This first kernel is K1's
-// simple tile (csrc/common.cuh attend_tile): one 256-thread block per
-// (query tile, head), f32 CUDA-core dot products from shared memory, no
-// tensor cores; mma.sync / wgmma tiles are later work.
+// layer against ~149 MB of q, k, v and out.
+// * bf16 (cs_segment_attention_tc): K1's tensor-core kernel
+//   (segment_tc.cuh) with the rotation compiled out: 8 warps x 2 m-tiles
+//   = 256 query rows of one head per block, 64-key tiles through the
+//   cp.async double buffer straight from the [N, H, D] rows (row stride
+//   H * D, column h * D), mma.sync bf16 with f32 softmax, the Q.K^T depth
+//   padded to 80 at D = 72.
+// * f32 (cs_segment_attention): the CUDA-core f32 tile of common.cuh
+//   (attend_tile), one 256-thread block per (64-row tile, head): exact f32
+//   products, which the f32 training checks rely on.
 #include "common.cuh"
+#include "segment_tc.cuh"
 
 namespace {
 
@@ -85,8 +92,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    void* out, int n, int heads, int d, float scale,
                    size_t bytes, cudaStream_t st) {
   auto kern = segment_attention_kernel<T>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)bytes);
+  // once per instantiation, not per launch: room for the largest head dim
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(cs::tile_smem_floats(4 * cs::MAX_D4) * sizeof(float) +
+            2 * cs::BR * sizeof(int)));
+  if (attr != cudaSuccess) return attr;
   const dim3 grid((n + cs::BR - 1) / cs::BR, heads), block(cs::NT);
   kern<<<grid, block, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -98,23 +109,46 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// the CUDA-core tile (the wrapper sends only f32 here; bf16 goes to
+// cs_segment_attention_tc)
 extern "C" int cs_segment_attention(const void* q, const void* k,
                                     const void* v, const void* seg,
                                     const void* kv_lo, const void* kv_hi,
                                     void* out, int n, int heads, int d,
                                     int block_q, float scale, int dtype,
                                     void* stream) {
-  if (block_q != cs::BR || d % 4 != 0 || d > 4 * cs::MAX_D4 || n <= 0 ||
-      heads <= 0)
+  if (dtype != cs::F32 || block_q != cs::BR || d % 4 != 0 ||
+      d > 4 * cs::MAX_D4 || n <= 0 || heads <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes =
       cs::tile_smem_floats(d) * sizeof(float) + 2 * cs::BR * sizeof(int);
+  return static_cast<int>(launch<float>(q, k, v, seg, kv_lo, kv_hi, out, n,
+                                        heads, d, scale, bytes,
+                                        static_cast<cudaStream_t>(stream)));
+}
+
+// bf16 operands [N, H, D], head dim D % 8 == 0 and D <= 128: the
+// tensor-core kernel of segment_tc.cuh without the rotation
+extern "C" int cs_segment_attention_tc(const void* q, const void* k,
+                                       const void* v, const void* seg,
+                                       const void* kv_lo, const void* kv_hi,
+                                       void* out, int n, int heads, int d,
+                                       int block_q, float scale,
+                                       void* stream) {
+  if (block_q != cs::BR || n <= 0 || heads <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == cs::BF16
-          ? launch<__nv_bfloat16>(q, k, v, seg, kv_lo, kv_hi, out, n, heads,
-                                  d, scale, bytes, st)
-          : launch<float>(q, k, v, seg, kv_lo, kv_hi, out, n, heads, d,
-                          scale, bytes, st);
-  return static_cast<int>(err);
+  const float scale2 = scale * tc::LOG2E;
+  const long long row_stride = (long long)heads * d;
+  switch (d) {
+#define CS_SEGMENT_TC(D)                                                 \
+  case D:                                                                \
+    return launch_segment_tc<D, false>(q, k, v, row_stride, nullptr,    \
+                                       nullptr, seg, kv_lo, kv_hi, out, \
+                                       n, heads, scale2, st);
+    CS_SEGMENT_TC_DIMS(CS_SEGMENT_TC)
+#undef CS_SEGMENT_TC
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

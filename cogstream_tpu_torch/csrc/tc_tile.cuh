@@ -1,10 +1,12 @@
 // bf16 tensor-core attention tile for Hopper, shared by the redesigned K1
-// (vision_attention.cu) and K3 (lm_attention.cu).
+// and K5 (segment_tc.cuh: vision_attention.cu, segment_attention.cu), K3
+// and K4 (lm_attention.cu).
 //
 // A warp owns MT m-tiles of 16 query rows; a block of warps (4 in K3,
-// 8 in K1) walks 64-key tiles that a cp.async double buffer
+// 8 in K1 / K5) walks 64-key tiles that a cp.async double buffer
 // streams into shared memory (the copy of tile j + 1 is in flight while
-// tile j is computed). Per tile and warp:
+// tile j is computed); K4's warps each walk their own tiles. Per tile and
+// warp:
 //   S = Q K^T   mma.sync m16n8k16 bf16 -> f32; Q's A fragments and K's B
 //               fragments come from ldmatrix on [row][dim] rows, and
 //               each K fragment serves all MT m-tiles;
@@ -18,6 +20,8 @@
 //   O += P V    P rounded to bf16 in registers is the A operand (the S
 //               accumulator layout of two n-tiles is the A layout of one
 //               k-step), V's B fragments come from ldmatrix.trans.
+// attend() runs both stages; scores() and accumulate() run them apart,
+// so that a caller can wait for a tile's V after its scores (K4).
 // When a warp owns only 16 rows, each warp reads the whole K and V tile
 // from shared memory and those reads weigh as much as the MMAs: MT = 2
 // halves them per (row, key) pair (K3 went from 2.4 to 1.8 ms on the
@@ -137,11 +141,17 @@ struct State {
 // the exponent, the running max stays in raw units), plus the mask's
 // compare and select where a tile is not wholly visible: on the H100
 // this ALU work weighs as much as the MMAs of a D <= 128 tile.
+//
+// scores(): S = Q K^T, the mask and the online-softmax update of st (m, l,
+// O rescaled); P in bf16 A fragments into pa. accumulate(): O += P V.
+template <int MT>
+using PFrag = uint32_t[MT][NS / 2][4];
+
 template <int D, int MT, class Visible>
-__device__ __forceinline__ void attend(const bf16* Qw, const bf16* Ks,
-                                       const bf16* Vs, float scale2,
-                                       bool all_visible, Visible visible,
-                                       State<D, MT>& st) {
+__device__ __forceinline__ void scores(const bf16* Qw, const bf16* Ks,
+                                       float scale2, bool all_visible,
+                                       Visible visible, State<D, MT>& st,
+                                       PFrag<MT>& pa) {
   constexpr int KS = stride(D);
   const int lane = threadIdx.x & 31;
   float s[MT][NS][4];
@@ -185,7 +195,6 @@ __device__ __forceinline__ void attend(const bf16* Qw, const bf16* Ks,
             s[t][j][e] = -INFINITY;
   }
   // row max over the quad; P in bf16 as the A fragments of 4 k-steps
-  uint32_t pa[MT][NS / 2][4];
 #pragma unroll
   for (int t = 0; t < MT; ++t) {
     float mx[2] = {st.m[t][0], st.m[t][1]};
@@ -226,6 +235,14 @@ __device__ __forceinline__ void attend(const bf16* Qw, const bf16* Ks,
       st.o[t][n][3] *= alpha[1];
     }
   }
+}
+
+template <int D, int MT>
+__device__ __forceinline__ void accumulate(const bf16* Vs,
+                                           const PFrag<MT>& pa,
+                                           State<D, MT>& st) {
+  constexpr int KS = stride(D);
+  const int lane = threadIdx.x & 31;
   // O += P V: one ldmatrix.x4.trans gives the B fragments of 2 head-dim
   // n-tiles (x2 for an odd last one)
   const bf16* vrow = Vs + ((lane & 7) + ((lane >> 3) & 1) * 8) * KS +
@@ -250,6 +267,16 @@ __device__ __forceinline__ void attend(const bf16* Qw, const bf16* Ks,
       }
     }
   }
+}
+
+template <int D, int MT, class Visible>
+__device__ __forceinline__ void attend(const bf16* Qw, const bf16* Ks,
+                                       const bf16* Vs, float scale2,
+                                       bool all_visible, Visible visible,
+                                       State<D, MT>& st) {
+  PFrag<MT> pa;
+  scores<D, MT>(Qw, Ks, scale2, all_visible, visible, st, pa);
+  accumulate<D, MT>(Vs, pa, st);
 }
 
 // Row sums over the quad: call with every lane of the warp, after the

@@ -22,7 +22,11 @@ raises; nothing falls back.
 K5 is the port of ``segment_flash_attention`` (``_flash_kernel``), the
 head-major ``[N, H, D]`` form without RoPE that the tower's head-major
 branch runs (the training path's frozen tower). It takes the same
-per-tile token ranges as K1. ``kv_block_ranges`` and ``FlashRanges``
+per-tile token ranges as K1 and the same two routes: bf16 runs K1's
+tensor-core kernel with the rotation compiled out
+(``cs_segment_attention_tc``, same head dims, counted in
+``segment_flash_attention.tc_launches``), f32 the CUDA-core f32 tile
+(``cs_segment_attention``). ``kv_block_ranges`` and ``FlashRanges``
 are byte-for-byte copies of the JAX host metadata (tests pin them);
 the CUDA kernel does not read them.
 """
@@ -40,7 +44,7 @@ from .attention import segment_attention
 from .rope import apply_vision_rope_cs
 
 BLOCK_Q = 64   # query tile of the CUDA kernels (csrc/common.cuh BR)
-TC_MAX_D = 128  # K1's tensor-core tile: head dim % 8 == 0 and <= 128
+TC_MAX_D = 128  # K1's / K5's tensor-core tile: head dim % 8 == 0, <= 128
 
 
 def _round_up(x: int, m: int) -> int:
@@ -330,6 +334,10 @@ def segment_flash_attention(
                            "it under torch.no_grad()")
     if kernels.plain_route(q):
         return segment_flash_attention_plain(q, k, v, segment_ids, scale)
+    tc = q.dtype == torch.bfloat16
+    if tc and (D % 8 or D > TC_MAX_D):
+        raise ValueError(f"cs_segment_attention_tc takes bf16 head dims "
+                         f"that are multiples of 8 up to {TC_MAX_D}, got {D}")
     dev = q.device
     nq = -(-N // BLOCK_Q)
     if ranges is None:
@@ -342,16 +350,24 @@ def segment_flash_attention(
     kernels.require(segment_ids, "segment_ids", dev, torch.int32, (N,))
     kernels.require(kv_lo, "kv_lo", dev, torch.int32, (nq,))
     kernels.require(kv_hi, "kv_hi", dev, torch.int32, (nq,))
+    code = kernels.dtype_code(q)
     out = torch.empty_like(q)
     if N:
         lib = kernels.library()
-        kernels.check(lib.cs_segment_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(),
-            kv_lo.data_ptr(), kv_hi.data_ptr(), out.data_ptr(), N, H, D,
-            BLOCK_Q, float(scale), kernels.dtype_code(q),
-            kernels.stream_ptr(q)), "cs_segment_attention")
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                segment_ids.data_ptr(), kv_lo.data_ptr(), kv_hi.data_ptr(),
+                out.data_ptr(), N, H, D, BLOCK_Q, float(scale))
+        if tc:
+            kernels.require_aligned(q, k, v)
+            kernels.check(lib.cs_segment_attention_tc(
+                *args, kernels.stream_ptr(q)), "cs_segment_attention_tc")
+            segment_flash_attention.tc_launches += 1
+        else:
+            kernels.check(lib.cs_segment_attention(
+                *args, code, kernels.stream_ptr(q)), "cs_segment_attention")
         segment_flash_attention.launches += 1
     return out
 
 
-segment_flash_attention.launches = 0
+segment_flash_attention.launches = 0      # every K5 launch
+segment_flash_attention.tc_launches = 0   # those on the tensor-core tile

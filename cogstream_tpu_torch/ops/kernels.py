@@ -52,17 +52,26 @@ _SIGNATURES = {
     "cs_vision_attention_tc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _F, _P),
     # q, k, v, seg, kv_lo, kv_hi, out, n, heads, d, block_q, scale, dtype,
-    # stream
+    # stream (f32)
     "cs_segment_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _F, _I, _P),
+    # q, k, v, seg, kv_lo, kv_hi, out, n, heads, d, block_q, scale, stream
+    # (bf16)
+    "cs_segment_attention_tc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _F, _P),
     # q, k, v, q_pos, eff, tile_min, out, part_m, part_l, part_acc,
     # B, S, Hq, Hkv, D, T_cache, kv_len, chunk_tiles, n_chunks, scale,
-    # dtype, stream
+    # dtype, stream (f32)
     "cs_gqa_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     # part_m, part_l, part_acc, out, B, S, Hq, Hkv, D, n_chunks, dtype,
-    # stream
+    # stream (f32)
     "cs_gqa_combine": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, q_pos, eff, part_ml, part_acc, tickets, out, B, S, Hq, Hkv,
+    # D, T_cache, kv_len, mt, tiles_per_split, n_splits, scale, stream
+    # (bf16)
+    "cs_gqa_decode_tc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # q, k, v, q_pos, eff, tile_min, out, B, S, Hq, Hkv, D, T_cache,
     # kv_len, scale, stream (bf16)
     "cs_gqa_prefill_tc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -184,6 +193,19 @@ def check(code: int, name: str) -> None:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_sm_counts: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached: read once)."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
 
 
 def dtype_code(t: torch.Tensor) -> int:

@@ -2,11 +2,20 @@
 (prefill) and K4 (decode), both in ``csrc/lm_attention.cu``, and their
 plain versions.
 
-K3 takes two routes on the card, by operand type: bf16 runs the
-tensor-core tile (``cs_gqa_prefill_tc``, head dim 64 or 128, counted in
-``prefill_flash_attention.tc_launches`` as well as ``.launches``), f32
-the CUDA-core f32 tile it shares with K4 (``cs_gqa_attention``). A bf16
-head dim the tile does not take raises; nothing falls back.
+Both take two routes on the card, by operand type. bf16 runs the
+tensor-core kernels, head dim 64 or 128: K3 ``cs_gqa_prefill_tc``
+(counted in ``prefill_flash_attention.tc_launches`` as well as
+``.launches``), K4 ``cs_gqa_decode_tc`` (``decode_attention.tc_launches``).
+f32 runs the CUDA-core f32 tile (``cs_gqa_attention``; K4 then merges its
+chunks with ``cs_gqa_combine``). A bf16 head dim the tensor-core kernels
+do not take raises; nothing falls back.
+
+K4's bf16 route is one kernel launch per call: no pre-pass (the kernel
+reads each key tile's positions itself), no second pass (the last block
+merges the splits), no host sync, and no allocation beyond its output —
+its split partials and tickets live in a per-device workspace
+(:func:`_decode_workspace`) — so a decode step can be captured in a CUDA
+graph.
 
 Port of ``cogstream_tpu/ops/lm_attention.py``. All validity is folded
 into one int32 per slot (:func:`effective_kv_positions`): the stored
@@ -22,7 +31,7 @@ side buffer and no separate fresh-K/V stream.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,9 +40,13 @@ from .attention import causal_gqa_attention
 
 SENTINEL = 2 ** 30          # eff position of an invisible KV slot
 DECODE_MAX_S = 8            # K4 serves steps of at most this many tokens
-DECODE_CHUNK_TILES = 4      # K4 split: 4 x 64 = 256 slots per block
+DECODE_CHUNK_TILES = 4      # K4 f32 split: 4 x 64 = 256 slots per block
 _TILE = 64                  # key tile of the CUDA kernels (common.cuh BK)
-TC_HEAD_DIMS = (64, 128)    # head dims of K3's tensor-core tile
+TC_HEAD_DIMS = (64, 128)    # head dims of K3's and K4's tensor-core kernels
+# K4 tensor-core kernel: m-tiles of 16 folded rows per warp, at most
+# (ptxas on sm_90a: <128, 2> 253 registers and <64, 2> 169 without spills;
+# <64, 4> spills ~1 KB)
+DECODE_TC_MAX_MT = {64: 2, 128: 2}
 _PLAIN_Q_CHUNK = 256        # plain version: query rows per dense block
 
 
@@ -132,6 +145,46 @@ def prefill_flash_attention(
     return out
 
 
+def decode_plan(B: int, Hkv: int, R: int, D: int, kv_len: int,
+                sms: int) -> Tuple[int, int, int, int]:
+    """Launch plan of K4's tensor-core kernel for R = S * G folded rows
+    per kv head: (m-tiles per warp, row groups, key tiles per split,
+    splits). The rows take the fewest m16 tiles (at most
+    ``DECODE_TC_MAX_MT[D]`` per block; more rows take more row groups);
+    the cache splits so that the blocks about fill the ``sms`` SMs."""
+    mt = 1
+    while mt < DECODE_TC_MAX_MT[D] and 16 * mt < R:
+        mt *= 2
+    groups = -(-R // (16 * mt))
+    n_tiles = -(-kv_len // _TILE)
+    per_split = max(1, -(-n_tiles * B * Hkv * groups // sms))
+    return mt, groups, per_split, -(-n_tiles // per_split)
+
+
+_decode_ws: dict = {}     # device -> (f32 partials, int32 tickets)
+_retired_ws: list = []    # outgrown workspaces, kept for captured graphs
+
+
+def _decode_workspace(dev: torch.device, n_floats: int,
+                      n_tickets: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's split partials and tickets on ``dev``: made at first use with
+    the tickets zeroed (the kernel leaves them zero after every launch),
+    grown when a larger shape arrives, and otherwise the same tensors on
+    every call. An outgrown workspace is kept alive, since a CUDA graph
+    captured earlier still launches on its pointers. Calls on one device
+    share it, so they must be ordered on one stream."""
+    ws = _decode_ws.get(dev)
+    if ws is None or ws[0].numel() < n_floats or ws[1].numel() < n_tickets:
+        if ws is not None:
+            _retired_ws.append(ws)
+            n_floats = max(n_floats, ws[0].numel())
+            n_tickets = max(n_tickets, ws[1].numel())
+        ws = (torch.empty(n_floats, dtype=torch.float32, device=dev),
+              torch.zeros(n_tickets, dtype=torch.int32, device=dev))
+        _decode_ws[dev] = ws
+    return ws
+
+
 def decode_attention(
     q: torch.Tensor,            # [B, S<=8, Hq, D] this step's queries
     k: torch.Tensor,            # [B, T, Hkv, D] cache, this step written
@@ -141,7 +194,9 @@ def decode_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """K4: cached decode attention over the first ``kv_window`` slots,
-    split over the cache (flash-decoding) and merged in a second pass."""
+    split over the cache (flash-decoding). bf16 (head dim 64 or 128): one
+    launch of the tensor-core kernel, which merges the splits itself; f32:
+    the CUDA-core tile, then ``cs_gqa_combine``."""
     B, S, Hq, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
@@ -150,38 +205,58 @@ def decode_attention(
     if kernels.plain_route(q):
         return gqa_attention_plain(q, k, v, q_positions, eff_kv_pos, scale)
     _check_operands(q, k, v, q_positions, eff_kv_pos)
+    code = kernels.dtype_code(q)
+    tc = q.dtype == torch.bfloat16
+    if tc and D not in TC_HEAD_DIMS:
+        raise ValueError(f"cs_gqa_decode_tc takes bf16 head dims "
+                         f"{TC_HEAD_DIMS}, got {D}")
     T, Hkv = k.shape[1], k.shape[2]
     kv_len = eff_kv_pos.shape[1]
     out = torch.empty_like(q)
     if B * S == 0 or kv_len == 0:
         return out.zero_()
     R = S * (Hq // Hkv)
-    n_tiles = -(-kv_len // _TILE)
-    n_chunks = -(-n_tiles // DECODE_CHUNK_TILES)
     dev = q.device
-    tile_min = torch.empty((B, n_tiles), dtype=torch.int32, device=dev)
-    part_m = torch.empty((B * Hkv, n_chunks, R), dtype=torch.float32,
-                         device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B * Hkv, n_chunks, R, D), dtype=torch.float32,
-                           device=dev)
     lib = kernels.library()
     stream = kernels.stream_ptr(q)
-    code = kernels.dtype_code(q)
-    kernels.check(lib.cs_gqa_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
-        eff_kv_pos.data_ptr(), tile_min.data_ptr(), None,
-        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        B, S, Hq, Hkv, D, T, kv_len, DECODE_CHUNK_TILES, n_chunks,
-        float(scale), code, stream), "cs_gqa_attention")
-    kernels.check(lib.cs_gqa_combine(
-        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        out.data_ptr(), B, S, Hq, Hkv, D, n_chunks, code, stream),
-        "cs_gqa_combine")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
+            eff_kv_pos.data_ptr())
+    if tc:
+        kernels.require_aligned(q, k, v)
+        mt, groups, per_split, n_splits = decode_plan(
+            B, Hkv, R, D, kv_len, kernels.sm_count(dev))
+        rows = B * Hkv * groups * n_splits * 16 * mt   # partial rows
+        part, tickets = _decode_workspace(dev, rows * (2 + D),
+                                          B * Hkv * groups)
+        ml = part.data_ptr()          # [rows] (m, l), then [rows, D] acc
+        kernels.check(lib.cs_gqa_decode_tc(
+            *ptrs, ml, ml + rows * 2 * 4, tickets.data_ptr(), out.data_ptr(),
+            B, S, Hq, Hkv, D, T, kv_len, mt, per_split, n_splits,
+            float(scale), stream), "cs_gqa_decode_tc")
+        decode_attention.tc_launches += 1
+    else:
+        n_tiles = -(-kv_len // _TILE)
+        n_chunks = -(-n_tiles // DECODE_CHUNK_TILES)
+        tile_min = torch.empty((B, n_tiles), dtype=torch.int32, device=dev)
+        part_m = torch.empty((B * Hkv, n_chunks, R), dtype=torch.float32,
+                             device=dev)
+        part_l = torch.empty_like(part_m)
+        part_acc = torch.empty((B * Hkv, n_chunks, R, D), dtype=torch.float32,
+                               device=dev)
+        kernels.check(lib.cs_gqa_attention(
+            *ptrs, tile_min.data_ptr(), None, part_m.data_ptr(),
+            part_l.data_ptr(), part_acc.data_ptr(), B, S, Hq, Hkv, D, T,
+            kv_len, DECODE_CHUNK_TILES, n_chunks, float(scale), code, stream),
+            "cs_gqa_attention")
+        kernels.check(lib.cs_gqa_combine(
+            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+            out.data_ptr(), B, S, Hq, Hkv, D, n_chunks, code, stream),
+            "cs_gqa_combine")
     decode_attention.launches += 1
     return out
 
 
 prefill_flash_attention.launches = 0      # every K3 launch
 prefill_flash_attention.tc_launches = 0   # those on the tensor-core tile
-decode_attention.launches = 0
+decode_attention.launches = 0             # every K4 call
+decode_attention.tc_launches = 0          # those on the tensor-core kernel

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1-K9) against their plain PyTorch versions,
-on the card. Marked ``cuda``: without a CUDA device every test skips.
+on the card: the bf16 tensor-core kernels of K1, K3, K4 and K5 and the
+f32 CUDA-core tiles beside them. Marked ``cuda``: without a CUDA device every test skips.
 
 On a machine with a card (and no JAX, so the repo's conftest cannot be
 imported there):
@@ -85,14 +86,17 @@ def test_vision_attention_kernel(dev, lengths, pad, D, dtype):
 @pytest.mark.parametrize("lengths,pad", [((64, 64), 0), ((50, 77, 13), 20),
                                          ((1008, 1008, 1008), 0),
                                          ((130,), 60)])
+@pytest.mark.parametrize("D", [72, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_segment_attention_kernel(dev, lengths, pad, dtype):
-    """K5 against its plain version: valid rows within f32 summation
+def test_segment_attention_kernel(dev, lengths, pad, D, dtype):
+    """K5 against its plain version: bf16 on the tensor-core tile (D = 72
+    pads the Q.K^T depth to 80; frames of 1008 straddle its 256-row
+    blocks), f32 on the CUDA-core tile; valid rows within f32 summation
     order (f32) or one bf16 rounding of each side (bf16); pad rows 0."""
     from cogstream_tpu_torch.ops import flash_attention as fa
 
     rng = np.random.default_rng(4)
-    H, D = 3, 72
+    H = 3
     seg = np.concatenate([np.full(L, i, np.int32)
                           for i, L in enumerate(lengths)]
                          + [np.full(pad, -1, np.int32)])
@@ -100,10 +104,12 @@ def test_segment_attention_kernel(dev, lengths, pad, dtype):
     q, k, v = (_t(rng.standard_normal((N, H, D)), dev, dtype)
                for _ in range(3))
     segt = _t(seg, dev, torch.int32)
-    n0 = fa.segment_flash_attention.launches
+    wrap = fa.segment_flash_attention
+    n0, t0 = wrap.launches, wrap.tc_launches
     with torch.no_grad():
-        got = fa.segment_flash_attention(q, k, v, segt).float()
-    assert fa.segment_flash_attention.launches == n0 + 1
+        got = wrap(q, k, v, segt).float()
+    assert wrap.launches == n0 + 1
+    assert wrap.tc_launches == t0 + (dtype == torch.bfloat16)
     ref = fa.segment_flash_attention_plain(q, k, v, segt,
                                            1 / np.sqrt(D)).float()
     tol = 2e-5 if dtype == torch.float32 else 2e-2
@@ -122,16 +128,32 @@ def test_segment_attention_never_falls_back(dev):
         fa.segment_flash_attention(q, q, q, seg)
 
 
-@pytest.mark.parametrize("kernel", ["K3", "K1"])
+@pytest.mark.parametrize("kernel", ["K3", "K1", "K4", "K5"])
 def test_tensor_core_tiles_never_fall_back(dev, kernel):
-    """bf16 CUDA operands run the tensor-core tile or raise: a head dim
-    the tile does not take (96 for K3, 76 for K1) raises, naming the C
-    entry point, instead of running the CUDA-core tile."""
+    """bf16 CUDA operands run the tensor-core kernel or raise: a head dim
+    it does not take (96 for K3 and K4, 76 for K1 and K5) raises, naming
+    the C entry point, instead of running the CUDA-core tile."""
     from cogstream_tpu_torch.ops import flash_attention as fa
     from cogstream_tpu_torch.ops import lm_attention as lma
 
     bf = torch.bfloat16
-    if kernel == "K3":
+    if kernel == "K4":
+        q = torch.zeros((1, 1, 4, 96), device=dev, dtype=bf)
+        k = torch.zeros((1, 128, 2, 96), device=dev, dtype=bf)
+        pos = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+        eff = torch.zeros((1, 128), dtype=torch.int32, device=dev)
+        n0 = lma.decode_attention.launches
+        with pytest.raises(ValueError, match="cs_gqa_decode_tc"):
+            lma.decode_attention(q, k, k, pos, eff)
+        assert lma.decode_attention.launches == n0
+    elif kernel == "K5":
+        q = torch.zeros((64, 2, 76), device=dev, dtype=bf)
+        seg = torch.zeros(64, dtype=torch.int32, device=dev)
+        n0 = fa.segment_flash_attention.launches
+        with pytest.raises(ValueError, match="cs_segment_attention_tc"):
+            fa.segment_flash_attention(q, q, q, seg)
+        assert fa.segment_flash_attention.launches == n0
+    elif kernel == "K3":
         q = torch.zeros((1, 64, 4, 96), device=dev, dtype=bf)
         k = torch.zeros((1, 128, 2, 96), device=dev, dtype=bf)
         pos = torch.zeros((1, 64), dtype=torch.int32, device=dev)
@@ -227,6 +249,103 @@ def test_decode_kernel(dev, S, T, window, fill, dtype):
     ref = lma.gqa_attention_plain(q, k, v, qpos, eff).float()
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got, ref, atol=tol, rtol=tol)
+
+
+def _decode_case(rng, dev, B, S, G, D, T, window, fill):
+    """A bf16 decode step over a ``window``-slot read of a T-slot cache
+    holding ``fill`` history slots plus the step's S: position holes, a
+    random 70% kv_allowed, the slots 64..127 all disallowed (a wholly
+    masked key tile); with S >= 2 the last query is padded (-1), with
+    S >= 3 query 0 sits at position 0, whose slot is disallowed, so it
+    sees nothing."""
+    from cogstream_tpu_torch.ops.lm_attention import effective_kv_positions
+
+    Hkv = 2
+    bf = torch.bfloat16
+    k = _t(rng.standard_normal((B, T, Hkv, D)), dev, bf)
+    v = _t(rng.standard_normal((B, T, Hkv, D)), dev, bf)
+    q = _t(rng.standard_normal((B, S, Hkv * G, D)), dev, bf)
+    pos = np.full((B, T), -1, np.int32)
+    qpos = np.zeros((B, S), np.int32)
+    for b in range(B):
+        pos[b, :fill + S] = np.arange(fill + S)
+        pos[b, rng.choice(fill, 5, replace=False)] = -1
+        qpos[b] = fill + np.arange(S)
+    allowed = rng.random((B, T)) > 0.3
+    allowed[:, 64:128] = False
+    if S >= 2:
+        qpos[:, -1] = -1
+    if S >= 3:
+        qpos[:, 0] = 0
+        allowed[pos == 0] = False
+    eff = effective_kv_positions(_t(pos, dev, torch.int32),
+                                 _t(allowed, dev, torch.bool))
+    return q, k, v, _t(qpos, dev, torch.int32), eff[:, :window].contiguous()
+
+
+def _two_ulps(got, ref):
+    """Every output row (one head of one query) within 2 bf16 ulps of its
+    own max |ref|; rows that are 0 in ref must be exactly 0."""
+    g = got.float().reshape(-1, got.shape[-1])
+    r = ref.float().reshape(-1, ref.shape[-1])
+    row_max = r.abs().amax(1, keepdim=True)
+    bound = 2 * torch.exp2(torch.floor(torch.log2(row_max.clamp_min(1e-30)))
+                           - 7)
+    assert torch.all((g - r).abs() <= bound), \
+        ((g - r).abs() / bound).max().item()
+    assert torch.all(g[row_max[:, 0] == 0] == 0)
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 8])
+@pytest.mark.parametrize("G", [7, 2])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("B", [1, 2])
+def test_decode_tensor_core_kernel(dev, S, G, D, B):
+    """K4's bf16 tensor-core kernel against its plain version: a 1000-slot
+    read window (a ragged last tile) of a 1100-slot cache holding 900
+    history slots, kv_allowed holes, a wholly masked tile, the padded
+    query and the query that sees nothing exactly 0; every row within 2
+    bf16 ulps of its max |ref|. Two calls give the same bits."""
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    rng = np.random.default_rng(S * 100 + G * 10 + D + B)
+    q, k, v, qpos, eff = _decode_case(rng, dev, B, S, G, D, 1100, 1000, 900)
+    wrap = lma.decode_attention
+    n0, t0 = wrap.launches, wrap.tc_launches
+    got = wrap(q, k, v, qpos, eff)
+    assert (wrap.launches, wrap.tc_launches) == (n0 + 1, t0 + 1)
+    ref = lma.gqa_attention_plain(q, k, v, qpos, eff)
+    _two_ulps(got, ref)
+    if S >= 2:
+        assert torch.all(got[:, -1] == 0)        # padded query row → 0
+    if S >= 3:
+        assert torch.all(got[:, 0] == 0)         # nothing visible → 0
+    assert torch.equal(wrap(q, k, v, qpos, eff), got)
+
+
+@pytest.mark.parametrize("S,window", [(1, 9216), (4, 3000)])
+def test_decode_tensor_core_kernel_replays_in_a_graph(dev, S, window):
+    """One K4 call captured in a CUDA graph, then replayed after q and
+    eff were rewritten in place, equals the eager call on the new values
+    bit for bit (no host sync, no workspace allocation in the call)."""
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    rng = np.random.default_rng(window)
+    q, k, v, qpos, eff = _decode_case(rng, dev, 1, S, 7, 128, 16384, window,
+                                      window - 300)
+    q2, _, _, _, eff2 = _decode_case(rng, dev, 1, S, 7, 128, 16384, window,
+                                     window - 200)
+    lma.decode_attention(q, k, v, qpos, eff)      # workspace made here
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = lma.decode_attention(q, k, v, qpos, eff)
+    q.copy_(q2)
+    eff.copy_(eff2)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, lma.decode_attention(q, k, v, qpos, eff))
+    _two_ulps(out, lma.gqa_attention_plain(q, k, v, qpos, eff))
 
 
 def _int4_weights(rng, dev, shape, cubic=False):

@@ -1,15 +1,16 @@
 """Which C entry point each attention wrapper reaches, checked on the CPU.
 
-The wrappers of K1, K3 and K4 pick their kernel by operand type: bf16
-goes to the tensor-core tiles (``cs_vision_attention_tc``,
-``cs_gqa_prefill_tc``), f32 to the CUDA-core f32 tiles
-(``cs_vision_attention``, ``cs_gqa_attention``), and decode to
-``cs_gqa_attention`` then ``cs_gqa_combine`` whatever the type. Here the
-kernel library, the stream and the device route are stubbed, so no card
-is needed: each test records the calls a wrapper makes and checks the
-entry points, the arguments they get (against the ctypes signatures in
-``ops/kernels.py``) and the launch counters. The kernels' results are
-checked on the card (``tests/test_torch_cuda.py``).
+The wrappers of K1, K3, K4 and K5 pick their kernel by operand type: bf16
+goes to the tensor-core kernels (``cs_vision_attention_tc``,
+``cs_gqa_prefill_tc``, ``cs_gqa_decode_tc``, ``cs_segment_attention_tc``),
+f32 to the CUDA-core f32 tiles (``cs_vision_attention``,
+``cs_gqa_attention``, decode then ``cs_gqa_combine``,
+``cs_segment_attention``). Here the kernel library, the stream, the SM
+count and the device route are stubbed, so no card is needed: each test
+records the calls a wrapper makes and checks the entry points, the
+arguments they get (against the ctypes signatures in ``ops/kernels.py``)
+and the launch counters. The kernels' results are checked on the card
+(``tests/test_torch_cuda.py``).
 """
 
 import ctypes
@@ -60,6 +61,7 @@ def lib(monkeypatch):
     monkeypatch.setattr(kernels, "library", lambda: stub)
     monkeypatch.setattr(kernels, "stream_ptr", lambda t: 0)
     monkeypatch.setattr(kernels, "plain_route", lambda t: False)
+    monkeypatch.setattr(kernels, "sm_count", lambda dev: 132)
     return stub
 
 
@@ -70,6 +72,15 @@ def _lm(dtype, B=1, S=20, T=256, D=128, window=None, Hq=28, Hkv=4):
     qpos = torch.arange(S, dtype=torch.int32).repeat(B, 1)
     eff = torch.arange(window or T, dtype=torch.int32).repeat(B, 1)
     return q, k, k.clone(), qpos, eff
+
+
+def _segment(dtype, N=100, H=2, D=72):
+    rng = np.random.default_rng(5)
+    seg = np.repeat(np.arange(2, dtype=np.int32), N // 2)
+    q, k, v = (torch.tensor(rng.standard_normal((N, H, D)), dtype=dtype)
+               for _ in range(3))
+    ranges = tuple(torch.from_numpy(r) for r in fa.vision_kv_ranges(seg))
+    return q, k, v, torch.from_numpy(seg), ranges
 
 
 def _vision(dtype, N=100, H=2, D=72):
@@ -114,11 +125,13 @@ def test_prefill_f32_reaches_cuda_core_tile(lib, B, window):
     assert (wrap.launches, wrap.tc_launches) == (n0 + 1, t0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32])
 def test_decode_reaches_gqa_attention_and_combine(lib, dtype):
+    """f32 decode: the CUDA-core tile's partials, then the combine pass."""
     q, k, v, qpos, eff = _lm(dtype, S=3, T=600, window=520)
     n0 = lma.decode_attention.launches
     t0 = lma.prefill_flash_attention.tc_launches
+    d0 = lma.decode_attention.tc_launches
     lma.decode_attention(q, k, v, qpos, eff)
     assert lib.names() == ["cs_gqa_attention", "cs_gqa_combine"]
     args = lib.calls[0][1]
@@ -130,7 +143,130 @@ def test_decode_reaches_gqa_attention_and_combine(lib, dtype):
     assert args[20] == kernels.DTYPE_CODES[dtype]
     assert lib.calls[1][1][4:10] == (1, 3, 28, 4, 128, n_chunks)
     assert lma.decode_attention.launches == n0 + 1
+    assert lma.decode_attention.tc_launches == d0
     assert lma.prefill_flash_attention.tc_launches == t0
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("B,S,T,window", [(1, 1, 600, 520), (1, 3, 600, 520),
+                                          (2, 8, 300, 300)])
+def test_decode_bf16_reaches_tensor_core_kernel(lib, D, B, S, T, window):
+    """bf16 decode: one call of cs_gqa_decode_tc and nothing else (no
+    pre-pass, no combine), with the launch plan of ``decode_plan`` and
+    the workspace's partials and tickets."""
+    q, k, v, qpos, eff = _lm(torch.bfloat16, B=B, S=S, T=T, D=D,
+                             window=window)
+    n0, d0 = lma.decode_attention.launches, lma.decode_attention.tc_launches
+    t0 = lma.prefill_flash_attention.tc_launches
+    out = lma.decode_attention(q, k, v, qpos, eff)
+    assert lib.names() == ["cs_gqa_decode_tc"]
+    args = lib.calls[0][1]
+    assert args[:5] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        qpos.data_ptr(), eff.data_ptr())
+    assert args[8] == out.data_ptr()
+    assert args[9:16] == (B, S, 28, 4, D, T, window)
+    mt, groups, per_split, n_splits = lma.decode_plan(B, 4, S * 7, D,
+                                                      window, 132)
+    assert args[16:19] == (mt, per_split, n_splits)
+    assert args[19] == pytest.approx(1 / math.sqrt(D))
+    # the workspace holds every split's partial rows: (m, l), then acc
+    part, tickets = lma._decode_ws[q.device]
+    rows = B * 4 * groups * n_splits * 16 * mt
+    assert args[5] == part.data_ptr()
+    assert args[6] == part.data_ptr() + rows * 2 * 4
+    assert part.numel() >= rows * (2 + D)
+    assert args[7] == tickets.data_ptr()
+    assert tickets.numel() >= B * 4 * groups
+    assert (lma.decode_attention.launches,
+            lma.decode_attention.tc_launches) == (n0 + 1, d0 + 1)
+    assert lma.prefill_flash_attention.tc_launches == t0
+
+
+def test_decode_workspace_is_reused(lib, monkeypatch):
+    """Two consecutive bf16 decode calls pass the same workspace pointers
+    (nothing allocated per call); its tickets start at zero; a larger
+    shape grows it and keeps the outgrown one alive."""
+    monkeypatch.setattr(lma, "_decode_ws", {})
+    monkeypatch.setattr(lma, "_retired_ws", [])
+    small = _lm(torch.bfloat16, S=1, T=600, window=520)
+    lma.decode_attention(*small)
+    lma.decode_attention(*small)
+    (_, a), (_, b) = lib.calls
+    assert a[5:8] == b[5:8]
+    part, tickets = lma._decode_ws[small[0].device]
+    assert torch.all(tickets == 0)
+    lma.decode_attention(*_lm(torch.bfloat16, B=2, S=8, T=600))
+    assert lib.calls[2][1][5:8] != a[5:8]
+    assert lma._retired_ws == [(part, tickets)]
+
+
+@pytest.mark.parametrize("B,Hkv,R,D,kv_len", [
+    (1, 4, 7, 128, 9216), (1, 4, 56, 128, 9216), (1, 4, 56, 64, 9216),
+    (2, 4, 21, 64, 520), (1, 1, 7, 128, 64), (1, 4, 14, 128, 16384),
+    (4, 8, 8, 128, 100)])
+def test_decode_plan_covers_rows_and_tiles(B, Hkv, R, D, kv_len):
+    """Every folded row sits in one row group, every key tile in one
+    split, no split is empty, and the blocks about fill 132 SMs."""
+    mt, groups, per_split, n_splits = lma.decode_plan(B, Hkv, R, D, kv_len,
+                                                      132)
+    assert mt in (1, 2, 4) and mt <= lma.DECODE_TC_MAX_MT[D]
+    assert 16 * mt * groups >= R > 16 * mt * (groups - 1)
+    n_tiles = -(-kv_len // 64)
+    assert n_splits * per_split >= n_tiles > (n_splits - 1) * per_split
+    blocks = B * Hkv * groups * n_splits
+    assert blocks <= 132 + B * Hkv * groups
+    assert per_split == 1 or blocks > 132 // 2
+
+
+def test_cached_decode_forward_launches_k4_once_per_layer(lib):
+    """One bf16 cached decode step of an L-layer decoder (head dim 64)
+    makes exactly L K4 calls and no other kernel call: no per-layer
+    pre-pass, and no per-forward metadata launch either."""
+    from cogstream_tpu_torch.config import Qwen2Config
+    from cogstream_tpu_torch.models import qwen2
+
+    L = 3
+    cfg = Qwen2Config(vocab_size=64, hidden_size=256, intermediate_size=64,
+                      num_hidden_layers=L, num_attention_heads=4,
+                      num_key_value_heads=2, dtype="bfloat16")
+    assert cfg.head_dim == 64
+    model = qwen2.Qwen2Model(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    cache = qwen2.init_kv_cache(cfg, 1, 128, device="cpu")
+    cache.write_index = 40
+    cache.pos[:, :40] = torch.arange(40, dtype=torch.int32)
+    n0, d0 = lma.decode_attention.launches, lma.decode_attention.tc_launches
+    emb = torch.zeros((1, 1, 256), dtype=torch.bfloat16)
+    qwen2.qwen2_forward(model, emb, torch.full((1, 1), 40), cache)
+    assert lib.names() == ["cs_gqa_decode_tc"] * L
+    assert all(c[1][9:16] == (1, 1, 4, 2, 64, 128, 128) for c in lib.calls)
+    assert (lma.decode_attention.launches,
+            lma.decode_attention.tc_launches) == (n0 + L, d0 + L)
+
+
+@pytest.mark.parametrize("dtype,entry", [
+    (torch.bfloat16, "cs_segment_attention_tc"),
+    (torch.float32, "cs_segment_attention")])
+def test_segment_reaches_its_tile(lib, dtype, entry):
+    q, k, v, seg, ranges = _segment(dtype)
+    wrap = fa.segment_flash_attention
+    n0, t0 = wrap.launches, wrap.tc_launches
+    with torch.no_grad():
+        out = wrap(q, k, v, seg, ranges)
+    assert lib.names() == [entry]
+    got = lib.calls[0][1]
+    assert got[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert got[6] == out.data_ptr()
+    # n, heads, d, block_q, scale
+    assert got[7:11] == (100, 2, 72, fa.BLOCK_Q)
+    assert got[11] == pytest.approx(1 / math.sqrt(72))
+    if dtype == torch.float32:
+        assert got[12] == kernels.DTYPE_CODES[torch.float32]
+    tc = int(dtype == torch.bfloat16)
+    assert (wrap.launches, wrap.tc_launches) == (n0 + 1, t0 + tc)
 
 
 @pytest.mark.parametrize("dtype,entry", [
@@ -153,30 +289,39 @@ def test_vision_reaches_its_tile(lib, dtype, entry):
     assert (wrap.launches, wrap.tc_launches) == (n0 + 1, t0 + tc)
 
 
-@pytest.mark.parametrize("kernel,D", [("K3", 96), ("K3", 32), ("K1", 76),
-                                      ("K1", 136)])
-def test_unsupported_bf16_head_dim_raises_before_any_call(lib, kernel, D):
+def _wrapper_case(kernel, dtype, D=None):
+    """(wrapper, its arguments) of one kernel at a small shape."""
+    dims = {} if D is None else {"D": D}
     if kernel == "K3":
-        wrap, entry = lma.prefill_flash_attention, "cs_gqa_prefill_tc"
-        args = _lm(torch.bfloat16, D=D)
-    else:
-        wrap, entry = (fa.flash_attention_packed_rope_fusedqkv,
-                       "cs_vision_attention_tc")
-        args = _vision(torch.bfloat16, D=D)
+        return lma.prefill_flash_attention, _lm(dtype, **dims)
+    if kernel == "K4":
+        return lma.decode_attention, _lm(dtype, S=3, **dims)
+    if kernel == "K5":
+        q, k, v, seg, ranges = _segment(dtype, **dims)
+        return fa.segment_flash_attention, (q, k, v, seg, ranges)
+    return fa.flash_attention_packed_rope_fusedqkv, _vision(dtype, **dims)
+
+
+@pytest.mark.parametrize("kernel,D", [("K3", 96), ("K3", 32), ("K1", 76),
+                                      ("K1", 136), ("K4", 96), ("K4", 32),
+                                      ("K5", 76), ("K5", 136)])
+def test_unsupported_bf16_head_dim_raises_before_any_call(lib, kernel, D):
+    entry = {"K3": "cs_gqa_prefill_tc", "K4": "cs_gqa_decode_tc",
+             "K5": "cs_segment_attention_tc",
+             "K1": "cs_vision_attention_tc"}[kernel]
+    wrap, args = _wrapper_case(kernel, torch.bfloat16, D)
     n0, t0 = wrap.launches, wrap.tc_launches
     with pytest.raises(ValueError, match=entry):
-        wrap(*args)
+        with torch.no_grad():
+            wrap(*args)
     assert lib.calls == []
     assert (wrap.launches, wrap.tc_launches) == (n0, t0)
 
 
-@pytest.mark.parametrize("kernel", ["K3", "K1"])
+@pytest.mark.parametrize("kernel", ["K3", "K1", "K4", "K5"])
 def test_other_dtypes_raise_before_any_call(lib, kernel):
-    if kernel == "K3":
-        wrap, args = lma.prefill_flash_attention, _lm(torch.float16)
-    else:
-        wrap, args = (fa.flash_attention_packed_rope_fusedqkv,
-                      _vision(torch.float16))
+    wrap, args = _wrapper_case(kernel, torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        wrap(*args)
+        with torch.no_grad():
+            wrap(*args)
     assert lib.calls == []
