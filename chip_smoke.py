@@ -8,7 +8,7 @@ Phases (each prints one line or a few; any failure exits non-zero):
 1. device — the card's name and power limit from nvidia-smi;
 2. build  — nvcc builds the port's kernels (cogstream_tpu_torch/csrc), one
    process per source, all at once, and prints the registers and spills
-   ptxas gave the tensor-core kernels of K1, K3, K4 and K5;
+   ptxas gave the tensor-core kernels of K1, K3, K4, K5, K8 and K9;
 3. kernels — each kernel against its plain PyTorch version on the card,
    in bf16, at the shapes the 7B paths give it, with both times, the
    time of one PyTorch library call computing the same function where
@@ -16,7 +16,9 @@ Phases (each prints one line or a few; any failure exits non-zero):
    vision attention, K2 LayerNorm, K3 prefill attention, K4 decode
    attention, K5 head-major segment attention (the training tower's),
    and the int4 GEMVs K6 (uniform and cubic) and K7 on the lm_head, K8
-   and K9 on stacked gate_proj / down_proj. K1, K3, K4 and K5 run their
+   and K9 on stacked gate_proj (m = 1, 40, 64) / down_proj (m = 1), on
+   their tensor-core kernel, timed beside the CUDA-core kernel K6 / K7
+   keep, two calls bit-identical. K1, K3, K4 and K5 run their
    bf16 tensor-core kernels, timed beside their f32 route (the CUDA-core
    f32 tile) on the same values; K3 also at a question prefill (a few
    dozen tokens over a ~9k-slot window), where it must beat the f32
@@ -55,7 +57,9 @@ Phases (each prints one line or a few; any failure exits non-zero):
    after is printed); then, with w4a8_decode off and on, a fresh session
    ingests a 16-frame segment and answers ask(AC) and ask(FCC). Counted
    over the sessions alone, K6 and K8 must launch with w4a8_decode off
-   (and K7, K9 not) and K7 and K9 with it on.
+   (and K7, K9 not) and K7 and K9 with it on; K8 / K9 launches are also
+   split into m = 1 (decode) and 1 < m <= 64 (question prefills), whose
+   wall times are printed with the asks'.
 
 With ``--profile`` it runs torch.profiler over one more ingest and two
 asks on the phase-5 session, and over one more step of each training
@@ -106,16 +110,17 @@ KERNELS = [  # name, wrapper module, attribute, source, TPU kernel replaced
      "cogstream_tpu_torch/csrc/int4_gemv.cu",
      "cogstream_tpu/ops/quant_gemv.py:148"),
     ("K8_int4_gemv_idx", "cogstream_tpu_torch.ops.quant_gemv", "gemv_k8",
-     "cogstream_tpu_torch/csrc/int4_gemv.cu",
+     "cogstream_tpu_torch/csrc/int4_gemv_tc.cu",
      "cogstream_tpu/ops/quant_gemv.py:247"),
     ("K9_int4_gemv_idx_w4a8", "cogstream_tpu_torch.ops.quant_gemv",
-     "gemv_k9", "cogstream_tpu_torch/csrc/int4_gemv.cu",
+     "gemv_k9", "cogstream_tpu_torch/csrc/int4_gemv_tc.cu",
      "cogstream_tpu/ops/quant_gemv.py:282"),
 ]
 BF16_PATH = range(0, 4)     # K1-K4: the bf16 main path (phase 5)
 TC_PATH = (0, 2, 3)         # K1, K3, K4: bf16 on their tensor-core kernels
 TRAIN_PATH = range(4, 5)    # K5: the training main path (phase 7)
 INT4_PATH = range(5, 9)     # K6-K9: the int4 main path (phase 6)
+STACKED = (7, 8)            # K8, K9: counted by m regime too
 # one NVIDIA H100 SXM (published datasheet figures): HBM bytes/s
 # and dense peak operations/s by operand type
 HBM_BYTES_PER_S = 3.35e12
@@ -238,7 +243,8 @@ def row_check(got, ref, width: int):
 # the tensor-core kernels by the (mangled) names of their instantiations
 # on the main paths: K3 at D = 128 with 2 and 1 m-tiles per warp, K1 and
 # K5 at D = 72 (one body, with and without the rotation), K4 at D = 128
-# (1 m-tile for S <= 2, 2 for longer steps) and D = 64
+# (1 m-tile for S <= 2, 2 for longer steps) and D = 64, K8 and K9 by their
+# largest count of n8 row tiles (m <= 8, 16, 32, 64)
 TC_KERNELS = {"K3 tc <D=128, 2 m-tiles>": "gqa_prefill_tc_kernelILi128ELi2E",
               "K3 tc <D=128, 1 m-tile>": "gqa_prefill_tc_kernelILi128ELi1E",
               "K1 tc <D=72, rope>": "segment_tc_kernelILi72ELb1E",
@@ -246,7 +252,15 @@ TC_KERNELS = {"K3 tc <D=128, 2 m-tiles>": "gqa_prefill_tc_kernelILi128ELi2E",
               "K4 tc <D=128, 1 m-tile>": "gqa_decode_tc_kernelILi128ELi1E",
               "K4 tc <D=128, 2 m-tiles>": "gqa_decode_tc_kernelILi128ELi2E",
               "K4 tc <D=64, 1 m-tile>": "gqa_decode_tc_kernelILi64ELi1E",
-              "K4 tc <D=64, 2 m-tiles>": "gqa_decode_tc_kernelILi64ELi2E"}
+              "K4 tc <D=64, 2 m-tiles>": "gqa_decode_tc_kernelILi64ELi2E",
+              "K8 tc <1 n-tile>": "int4_gemv_tc_kernelILi0ELi1E",
+              "K8 tc <2 n-tiles>": "int4_gemv_tc_kernelILi0ELi2E",
+              "K8 tc <4 n-tiles>": "int4_gemv_tc_kernelILi0ELi4E",
+              "K8 tc <8 n-tiles>": "int4_gemv_tc_kernelILi0ELi8E",
+              "K9 tc <1 n-tile>": "int4_gemv_tc_kernelILi2ELi1E",
+              "K9 tc <2 n-tiles>": "int4_gemv_tc_kernelILi2ELi2E",
+              "K9 tc <4 n-tiles>": "int4_gemv_tc_kernelILi2ELi4E",
+              "K9 tc <8 n-tiles>": "int4_gemv_tc_kernelILi2ELi8E"}
 
 
 def ptxas_usage(log: str, names: dict) -> dict:
@@ -608,10 +622,42 @@ def _int4_store(rng, dev, shape, cubic=False):
     return {"q4": q4, "scale": scale, "rscale": rscale, "code": code}
 
 
+def _cuda_core_stacked(variant, x, sx, qp, layer):
+    """One stacked call on the CUDA-core kernel (``cs_int4_gemv``, K6 /
+    K7's, which K8 / K9 ran before the tensor-core kernel), bf16 out: the
+    yardstick beside the tensor-core kernel; used nowhere in the port."""
+    import torch
+
+    from cogstream_tpu_torch.ops import kernels
+    from cogstream_tpu_torch.ops import quant_gemv as qg
+
+    L, half, dout = qp["q4"].shape
+    m = x.shape[0]
+    mt = 1 if m == 1 else 4 if variant == qg.W4A8 else 8
+    rows, splits = qg._splits(x.device, -(-m // mt) * -(-dout // qg._BN),
+                              half)
+    part = None
+    if splits > 1:
+        part = torch.empty((splits * (2 if variant == qg.W4A8 else 1), m,
+                            dout), dtype=torch.int32 if variant == qg.W4A8
+                           else torch.float32, device=x.device)
+    out = torch.empty((m, dout), dtype=torch.bfloat16, device=x.device)
+    kernels.check(kernels.library().cs_int4_gemv(
+        x.data_ptr(), None if sx is None else sx.data_ptr(),
+        qp["q4"].data_ptr(), half * dout, qp["scale"].data_ptr(), dout,
+        layer.data_ptr(), None, out.data_ptr(),
+        None if part is None else part.data_ptr(), m, half, dout, rows,
+        splits, variant, kernels.dtype_code(out), kernels.stream_ptr(x)),
+        "cs_int4_gemv")
+    return out
+
+
 def check_int4_kernels(dev):
     """K6 (uniform and cubic) and K7 on the 7B lm_head (3584 -> 152064,
-    m = 1); K8 and K9 on stacked gate_proj [28, 1792, 18944] at m = 1 and
-    40 and down_proj [28, 9472, 3584] at m = 1, layer 17. Each wrapper
+    m = 1); K8 and K9 on stacked gate_proj [28, 1792, 18944] at m = 1, 40
+    and 64 and down_proj [28, 9472, 3584] at m = 1, layer 17, each also
+    timed on the CUDA-core kernel and called twice (bit-identical). Each
+    wrapper
     against its plain version on the same card, bf16 in and out, with
     the per-row bound of phase 3. Kernel and plain ms: device time of
     the launcher alone (and of the plain version) on prepared operands,
@@ -664,8 +710,12 @@ def check_int4_kernels(dev):
         lines.append((key, "lm_head m=1", err, ratio, ms, plain_ms, wrap_ms,
                       bnd))
 
-    # stacked: gate_proj (m = 1 and 40) and down_proj (m = 1), layer 17
-    for site, shape, ms_list in (("gate_proj", (28, 1792, 18944), (1, 40)),
+    # stacked: gate_proj (m = 1, 40 and 64) and down_proj (m = 1), layer
+    # 17, on the tensor-core kernel; beside each, the CUDA-core kernel that
+    # K6 / K7 keep (csrc/int4_gemv.cu, which K8 / K9 ran before) on the
+    # same operands
+    for site, shape, ms_list in (("gate_proj", (28, 1792, 18944),
+                                  (1, 40, 64)),
                                  ("down_proj", (28, 9472, 3584), (1,))):
         qp = _int4_store(rng, dev, shape)
         ids = torch.arange(28, dtype=torch.int32, device=dev)
@@ -678,6 +728,10 @@ def check_int4_kernels(dev):
                 ref = qg.int4_rank1_gemv_stacked_plain(x, qp, lay, bf,
                                                        w4a8=w4a8)
                 err, ratio = row_check(got, ref, dout)
+                same = bool(torch.equal(got, qg.int4_rank1_gemv_stacked(
+                    x, qp, lay, bf, w4a8=w4a8)))
+                if not same:
+                    raise AssertionError(f"{key} m={m}: two calls differ")
                 r = qp["rscale"][17:18] * qp["code"][17:18, :1]
                 xs = x.float() * r
                 it = iter(range(10 ** 9))
@@ -686,6 +740,8 @@ def check_int4_kernels(dev):
                     ms = graph_ms(lambda: qg.gemv_k9(
                         xq, sx, qp["q4"], qp["scale"],
                         ids[next(it) % L:][:1], bf), L)
+                    core_ms = graph_ms(lambda: _cuda_core_stacked(
+                        qg.W4A8, xq, sx, qp, ids[next(it) % L:][:1]), L)
                     plain_ms = graph_ms(lambda: qg._plain_w4a8(
                         xq, sx, qp["q4"][17], qp["scale"][17], bf), 3)
                 else:
@@ -693,6 +749,8 @@ def check_int4_kernels(dev):
                     ms = graph_ms(lambda: qg.gemv_k8(
                         xb, qp["q4"], qp["scale"], ids[next(it) % L:][:1],
                         bf), L)
+                    core_ms = graph_ms(lambda: _cuda_core_stacked(
+                        qg.UNIFORM, xb, None, qp, ids[next(it) % L:][:1]), L)
                     plain_ms = graph_ms(lambda: qg._plain_bf16(
                         xb, qp["q4"][17], qp["scale"][17], None, False, bf), 3)
                 wrap_ms = cuda_ms(lambda: qg.int4_rank1_gemv_stacked(
@@ -703,8 +761,14 @@ def check_int4_kernels(dev):
                                             got),
                                2 * m * 2 * half * dout,
                                "int8" if w4a8 else "bf16")
-                lines.append((key, f"{site} [28, {half}, {dout}] m={m}", err,
-                              ratio, ms, plain_ms, wrap_ms, bnd))
+                rows, splits = qg.stacked_plan(m, half, dout, w4a8,
+                                               torch.cuda.get_device_properties(
+                                                   dev).multi_processor_count)
+                lines.append((key, f"{site} [28, {half}, {dout}] m={m} "
+                              f"({splits} K splits of {rows} rows; "
+                              f"CUDA-core kernel {core_ms:.4f} ms; two calls "
+                              f"bit-identical {same})", err, ratio, ms,
+                              plain_ms, wrap_ms, bnd))
         del qp
     results = []
     for key, what, err, ratio, ms, plain_ms, wrap_ms, bnd in lines:
@@ -1169,27 +1233,31 @@ def run_main_path(dev, stamp):
     return launches, metrics, sess
 
 
-def decode_step_cost(text, label: str, stamp: str, steps: int = 10):
-    """One decode step (a 1-token cached forward plus the full-vocab
-    logits) on a 64-slot scratch cache: its kernel launches and summed
-    kernel device time from torch.profiler (its five largest kernels are
-    printed), and its host wall ms from a synchronized clock over
-    ``steps`` unprofiled steps. Returns (launches, device ms, wall ms)."""
+def decode_step_cost(text, label: str, stamp: str, steps: int = 10,
+                     tokens: int = 1):
+    """One decode step (a ``tokens``-token cached forward plus the
+    full-vocab logits; 1 token, or a question prefill's few dozen) on a
+    small scratch cache: its kernel launches and summed kernel device
+    time from torch.profiler (its five largest kernels are printed, and
+    the int4 GEMVs' share), and its host wall ms from a synchronized clock
+    over ``steps`` unprofiled steps. Returns (launches, device ms, wall
+    ms, int4 GEMV device ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from cogstream_tpu_torch.models import qwen2
 
     cfg = text.cfg
-    cache = qwen2.init_kv_cache(cfg, 1, 64, dtype=text.dtype,
-                                device=text.device)
-    emb = torch.zeros((1, 1, cfg.hidden_size), dtype=text.dtype,
+    cache = qwen2.init_kv_cache(cfg, 1, max(64, tokens * (steps + 2)),
+                                dtype=text.dtype, device=text.device)
+    emb = torch.zeros((1, tokens, cfg.hidden_size), dtype=text.dtype,
                       device=text.device)
 
     def step(i):
-        pos = torch.full((1, 1), i, dtype=torch.int32, device=text.device)
+        pos = torch.arange(i * tokens, (i + 1) * tokens, dtype=torch.int32,
+                           device=text.device)[None]
         h, _ = qwen2.qwen2_forward(text, emb, pos, cache)
-        qwen2.lm_logits(text, h, w8a8=cfg.w4a8_decode)
+        qwen2.lm_logits(text, h[:, -1:], w8a8=cfg.w4a8_decode)
 
     step(0)
     torch.cuda.synchronize()
@@ -1200,6 +1268,8 @@ def decode_step_cost(text, label: str, stamp: str, steps: int = 10):
             if e.device_type == torch.autograd.DeviceType.CUDA]
     n = sum(e.count for e in kern)
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    gemv_ms = sum(e.self_device_time_total for e in kern
+                  if "int4_gemv" in e.key) / 1e3
     t0 = time.perf_counter()
     for i in range(steps):
         step(2 + i)
@@ -1208,10 +1278,11 @@ def decode_step_cost(text, label: str, stamp: str, steps: int = 10):
     top = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms "
                     f"x{e.count}" for e in sorted(
                         kern, key=lambda e: -e.self_device_time_total)[:5])
-    log(f"decode step ({label}): {n} launches, device {dev_ms:.2f} ms, "
-        f"wall {wall_ms:.2f} ms (busy {dev_ms / wall_ms:.3f}); largest: "
-        f"{top} [{stamp}]")
-    return n, dev_ms, wall_ms
+    log(f"{'decode step' if tokens == 1 else f'{tokens}-token prefill'} "
+        f"({label}): {n} launches, device {dev_ms:.2f} ms (int4 GEMVs "
+        f"{gemv_ms:.2f}), wall {wall_ms:.2f} ms (busy "
+        f"{dev_ms / wall_ms:.3f}); largest: {top} [{stamp}]")
+    return n, dev_ms, wall_ms, gemv_ms
 
 
 # ---------------------------------------------------------------------------
@@ -1238,7 +1309,7 @@ def run_int4_path(model, dev, stamp):
 
     cfg0 = presets.cogreasoner_7b()
     text = model.text
-    bf16_launches, bf16_dev_ms, bf16_step_ms = decode_step_cost(
+    bf16_launches, bf16_dev_ms, bf16_step_ms, _ = decode_step_cost(
         text, "bf16", stamp)
     torch.cuda.synchronize()
     mem0, dec0 = torch.cuda.memory_allocated(), quantized_bytes(text)
@@ -1267,15 +1338,22 @@ def run_int4_path(model, dev, stamp):
         text.cfg = cfg.text
         return cfg
 
-    # the per-step cost first: its scratch steps launch K6-K9 outside the
-    # sessions, so they run before the sessions' counts start
+    # the per-step cost first, and that of a 64-token question prefill
+    # (the GEMV route at m = 64): their scratch steps launch K6-K9 outside
+    # the sessions, so they run before the sessions' counts start
     for w4a8 in (False, True):
         set_mode(w4a8)
         mode = "w4a8" if w4a8 else "int4"
-        n, dev_ms, step_ms = decode_step_cost(text, mode, stamp)
+        n, dev_ms, step_ms, gemv_ms = decode_step_cost(text, mode, stamp)
         metrics[f"{mode}_step_launches"] = n
         metrics[f"{mode}_step_device_ms"] = dev_ms
         metrics[f"{mode}_step_ms"] = step_ms
+        metrics[f"{mode}_step_gemv_device_ms"] = gemv_ms
+        n, dev_ms, step_ms, gemv_ms = decode_step_cost(text, mode, stamp,
+                                                       steps=4, tokens=64)
+        metrics[f"{mode}_prefill64_device_ms"] = dev_ms
+        metrics[f"{mode}_prefill64_ms"] = step_ms
+        metrics[f"{mode}_prefill64_gemv_device_ms"] = gemv_ms
 
     names = [KERNELS[i][0] for i in INT4_PATH]
     launches = [0] * len(names)
@@ -1284,6 +1362,8 @@ def run_int4_path(model, dev, stamp):
         cfg = set_mode(w4a8)
         for i in INT4_PATH:                # count this session only
             wrapper(i).launches = 0
+        for i in STACKED:
+            wrapper(i).multirow_launches = 0
         timer = PhaseTimer()
         sess = StreamingSession(model, cfg, tok, max_len=16384)
         mark = timer.mark()
@@ -1293,8 +1373,16 @@ def run_int4_path(model, dev, stamp):
         torch.cuda.synchronize()
         ingest_s = time.perf_counter() - t0
         pf = [(S, b - a) for S, a, b in timer.forwards[mark:] if S > 8]
+        mark = timer.mark()
+        t0 = time.perf_counter()
         sess.ask("What is happening in the video?", mode="AC",
                  max_new_tokens=8)
+        torch.cuda.synchronize()
+        ac_s = time.perf_counter() - t0
+        # the question prefills: the asks' forwards of 1 < S <= 64 tokens,
+        # which take the GEMV route at m = S
+        qpf = [(S, b - a) for S, a, b in timer.forwards[mark:]
+               if 1 < S <= 64]
         sel_s, after_sel = [], []
         select = sess.selector.select
 
@@ -1315,11 +1403,22 @@ def run_int4_path(model, dev, stamp):
         torch.cuda.synchronize()
         turn_s = time.perf_counter() - t0
         dec = timer.decode_rate(after_sel[0] if after_sel else mark)
+        qpf += [(S, b - a) for S, a, b in timer.forwards[mark:]
+                if 1 < S <= 64]
         timer.restore()
         counts = dict(zip(names, (wrapper(i).launches for i in INT4_PATH)))
+        multirow = {KERNELS[i][0]: wrapper(i).multirow_launches
+                    for i in STACKED}
+        by_m = {k: {"m=1": counts[k] - n, "1<m<=64": n}
+                for k, n in multirow.items()}
         launches = [a + b for a, b in zip(launches, counts.values())]
         metrics.update({f"{mode}_ingest_s": ingest_s,
                         f"{mode}_prefill_tok_per_s": pf[0][0] / pf[0][1],
+                        f"{mode}_AC_turn_s": ac_s,
+                        f"{mode}_question_prefill_s": [b for _, b in qpf],
+                        f"{mode}_question_prefill_tokens":
+                            [a for a, _ in qpf],
+                        f"{mode}_stacked_launches_by_m": by_m,
                         f"{mode}_FCC_turn_s": turn_s,
                         f"{mode}_selector_s": sel_s[0] if sel_s else None,
                         f"{mode}_decode_tok_per_s": dec})
@@ -1339,8 +1438,10 @@ def run_int4_path(model, dev, stamp):
             f"{turn_s:.3f}s, selector {(sel_s[0] if sel_s else 0.0):.3f}s "
             f"(selection "
             f"{r['selection']!r}), {len(toks)} tokens, marginal decode "
-            f"{dec:.1f} tok/s; finite {finite}, ranges ordered {ordered}; "
-            f"launches {counts} [{stamp}]")
+            f"{dec:.1f} tok/s; AC turn {ac_s:.3f}s; question prefills "
+            f"{[(a, round(b, 4)) for a, b in qpf]} (tokens, s); finite "
+            f"{finite}, ranges ordered {ordered}; launches {counts}, K8 / K9 "
+            f"by m {by_m} [{stamp}]")
         if not (toks and all(0 <= x < cfg.text.vocab_size for x in toks)) \
                 or not finite or not ordered or not sel_s:
             raise AssertionError(f"int4 main path ({mode}) check failed")

@@ -80,6 +80,11 @@ _SIGNATURES = {
     # m, half, dout, rows_per_split, splits, variant, out dtype, stream
     "cs_int4_gemv": (_P, _P, _P, _L, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                      _I, _I, _I, _P),
+    # x, sx, q4, layer_stride, scale, scale_stride, layer, out, part,
+    # tickets, m, half, dout, rows_per_split, splits, variant, out dtype,
+    # stream
+    "cs_int4_gemv_tc": (_P, _P, _P, _L, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _I, _I, _P),
 }
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -1,6 +1,9 @@
 """Fused-unpack 4-bit GEMV for the rank-1 serving scheme: the wrappers of
-K6-K9 (``csrc/int4_gemv.cu``) and their plain versions. Port of
-``cogstream_tpu/ops/quant_gemv.py``.
+K6/K7 (``csrc/int4_gemv.cu``, CUDA cores) and K8/K9 (``csrc/
+int4_gemv_tc.cu``, tensor cores, one launch per call with its K splits
+summed through a per-device workspace, so a call allocates only its
+output and can be captured in a CUDA graph) and their plain versions.
+Port of ``cogstream_tpu/ops/quant_gemv.py``.
 
 A rank-1 int4 weight (ops/quant.py ``quantize_int4_rank1``) is
 ``w[p, o] = code(nib[p, o]) * rscale[p] * scale[o]`` with the nibbles
@@ -43,7 +46,7 @@ differently, so the port must take the kernel exactly where JAX does.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -165,26 +168,19 @@ def _plain_w4a8(xq, sx, q4, scale, out_dtype):
 # kernel launch
 # ---------------------------------------------------------------------------
 
-_sm_count: Dict[int, int] = {}
-
-
 def _splits(dev: torch.device, n_blocks: int, half: int):
-    """(rows per split, splits): split K until the grid holds about two
-    blocks per SM (k_proj/v_proj's 512 columns give two column blocks)."""
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _sm_count:
-        _sm_count[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    want = -(-2 * _sm_count[idx] // n_blocks)
+    """K6/K7 (rows per split, splits): split K until the grid holds about
+    two blocks per SM (few column blocks leave SMs idle otherwise)."""
+    want = -(-2 * kernels.sm_count(dev) // n_blocks)
     want = max(1, min(want, half // _MIN_SPLIT_ROWS))
     rows = -(-half // want)
     return rows, -(-half // rows)
 
 
-def _launch(variant: int, x, sx, q4, scale, layer, code, out_dtype):
-    """One K6-K9 launch: ``x`` [m, din] (bf16, or int8 for W4A8), ``q4``
-    [half, dout] or stacked [L, half, dout] with ``layer`` an int32 [1]
-    on the device, ``scale`` [dout] or [L, dout] f32."""
+def _check_operands(variant: int, x, sx, q4, scale, layer, code):
+    """Validate one launch's operands: ``x`` [m, din] (bf16, or int8 for
+    W4A8), ``q4`` [half, dout] or stacked [L, half, dout] with ``layer``
+    an int32 [1] on the device, ``scale`` [dout] or [L, dout] f32."""
     dev = x.device
     stacked = q4.ndim == 3
     half, dout = q4.shape[-2:]
@@ -204,6 +200,14 @@ def _launch(variant: int, x, sx, q4, scale, layer, code, out_dtype):
         raise ValueError(f"int4 GEMV needs dout % 8 == 0, got {dout}")
     if m > 64:
         raise ValueError(f"int4 GEMV serves m <= 64, got {m}")
+
+
+def _launch(variant: int, x, sx, q4, scale, code, out_dtype):
+    """One K6/K7 launch (``csrc/int4_gemv.cu``) on a 2D weight."""
+    _check_operands(variant, x, sx, q4, scale, None, code)
+    dev = x.device
+    half, dout = q4.shape
+    m = x.shape[0]
     out = torch.empty((m, dout), dtype=out_dtype, device=dev)
     if m == 0:
         return out
@@ -218,12 +222,126 @@ def _launch(variant: int, x, sx, q4, scale, layer, code, out_dtype):
     lib = kernels.library()
     kernels.check(lib.cs_int4_gemv(
         x.data_ptr(), sx.data_ptr() if variant == W4A8 else None,
-        q4.data_ptr(), half * dout if stacked else 0, scale.data_ptr(),
-        dout if stacked else 0, layer.data_ptr() if stacked else None,
+        q4.data_ptr(), 0, scale.data_ptr(), 0, None,
         code.data_ptr() if variant == CUBIC else None, out.data_ptr(),
         None if part is None else part.data_ptr(), m, half, dout, rows,
         splits, variant, kernels.dtype_code(out), kernels.stream_ptr(x)),
         "cs_int4_gemv")
+    return out
+
+
+# csrc/int4_gemv_tc.cu (K8/K9): 256 threads and 128 output columns per
+# block, a 4-stage ring of 128 packed rows x 128 columns, the block's
+# activations staged
+_TC_BN = 128
+_TC_KT = 128
+_TC_RING = 4 * _TC_KT * _TC_BN
+_TC_X_BUDGET = 96 * 1024      # staged activation bytes a block may hold
+_TC_SMEM_TWO = 113 * 1024     # shared memory that leaves two blocks per SM
+_HBM_BYTES_PER_US = 3.35e6    # one H100's device-memory rate
+_L2_ROUND_US = 0.5            # one round of dependent L2 loads, loaded
+_BLOCK_US = 2.0               # a block's fixed time: first loads, epilogue
+
+
+def _tc_x_stride(rows: int, w4a8: bool) -> int:
+    """csrc/int4_gemv_tc.cu ``x_stride``: bytes per staged activation row."""
+    return -(-rows * (1 if w4a8 else 2) // 128) * 128 + 32
+
+
+@functools.lru_cache(maxsize=None)
+def stacked_plan(m: int, half: int, dout: int, w4a8: bool,
+                 sms: int) -> Tuple[int, int]:
+    """(packed rows per split, splits) of one K8/K9 launch: the grid is
+    (dout / 128 column tiles) x splits, each block streaming its split's
+    rows in 128-row stages. A model of the call's time picks the split:
+    waves of blocks over the SMs (two per SM where the registers and the
+    shared memory allow: m <= 16), each wave paying a block's fixed time
+    and streaming its blocks' weights at the card's device-memory rate
+    (plus a third of that for their staged activations, read from L2);
+    with splits, the partials written and read back through
+    L2 (at about twice that rate) and the last blocks' rounds of
+    dependent L2 loads (8 splits x 4 rows a round). So every SM streams
+    about the same bytes and no wave is left mostly empty. Ties take fewer
+    splits. Cached: a decode step asks it for the same few shapes 196
+    times."""
+    nh, es = (2, 1) if w4a8 else (1, 2)
+    xrows = -(-m // 8) * 8
+    tiles = dout // _TC_BN
+    n_stages = half // _TC_KT
+    best = None
+    for per in range(1, n_stages + 1):
+        splits = -(-n_stages // per)
+        if -(-n_stages // splits) != per:
+            continue                   # the same grid as a smaller per
+        rows = per * _TC_KT
+        x_bytes = 2 * xrows * _tc_x_stride(rows, w4a8)
+        if x_bytes > _TC_X_BUDGET and per > 1:
+            continue
+        two = xrows <= 16 and _TC_RING + x_bytes <= _TC_SMEM_TWO
+        slots = sms * (2 if two else 1)
+        waves = -(-tiles * splits // slots)
+        us = waves * (_BLOCK_US + slots * (rows * _TC_BN + 2 * m * rows * es
+                                           / 3) / _HBM_BYTES_PER_US)
+        if splits > 1:
+            us += splits * nh * m * dout * 4 / _HBM_BYTES_PER_US
+            us += -(-splits // 8) * -(-m // 4) * _L2_ROUND_US
+        if best is None or (us, splits) < best[0]:
+            best = ((us, splits), rows, splits)
+    return best[1], best[2]
+
+
+_tc_ws: dict = {}       # device -> (int32 partials, int32 tickets)
+_retired_tc_ws: list = []   # outgrown workspaces, kept for captured graphs
+
+
+def _tc_workspace(dev: torch.device, n_words: int,
+                  n_tickets: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8/K9's split partials (4-byte words: f32 for K8, int32 for K9) and
+    column-tile tickets on ``dev``: made at first use with the tickets
+    zeroed (the kernel leaves them zero after every launch), grown when a
+    larger call arrives, and otherwise the same tensors on every call, so
+    a call allocates nothing but its output. An outgrown workspace is
+    kept alive, since a CUDA graph captured earlier still launches on its
+    pointers. Calls on one device share it, so they must be ordered on
+    one stream."""
+    ws = _tc_ws.get(dev)
+    if ws is None or ws[0].numel() < n_words or ws[1].numel() < n_tickets:
+        if ws is not None:
+            _retired_tc_ws.append(ws)
+            n_words = max(n_words, ws[0].numel())
+            n_tickets = max(n_tickets, ws[1].numel())
+        ws = (torch.empty(n_words, dtype=torch.int32, device=dev),
+              torch.zeros(n_tickets, dtype=torch.int32, device=dev))
+        _tc_ws[dev] = ws
+    return ws
+
+
+def _launch_stacked(variant: int, x, sx, q4, scale, layer, out_dtype):
+    """One K8/K9 launch (``cs_int4_gemv_tc``): one kernel, which sums its
+    K splits itself through the workspace."""
+    _check_operands(variant, x, sx, q4, scale, layer, None)
+    dev = x.device
+    half, dout = q4.shape[1:]
+    m = x.shape[0]
+    if half % _TC_KT or dout % _TC_BN:
+        raise ValueError(f"cs_int4_gemv_tc needs half and dout multiples of "
+                         f"{_TC_KT}, got {(half, dout)}")
+    out = torch.empty((m, dout), dtype=out_dtype, device=dev)
+    if m == 0:
+        return out
+    w4a8 = variant == W4A8
+    rows, splits = stacked_plan(m, half, dout, w4a8, kernels.sm_count(dev))
+    part = tickets = None
+    if splits > 1:
+        part, tickets = _tc_workspace(dev, splits * (2 if w4a8 else 1) * m
+                                      * dout, dout // _TC_BN)
+    kernels.check(kernels.library().cs_int4_gemv_tc(
+        x.data_ptr(), sx.data_ptr() if w4a8 else None, q4.data_ptr(),
+        half * dout, scale.data_ptr(), dout, layer.data_ptr(),
+        out.data_ptr(), None if part is None else part.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), m, half, dout,
+        rows, splits, variant, kernels.dtype_code(out),
+        kernels.stream_ptr(x)), "cs_int4_gemv_tc")
     return out
 
 
@@ -232,8 +350,8 @@ def gemv_k6(xb, q4, scale, code, cubic: bool, out_dtype):
     ``scale``; cubic: the codebook from ``code = [A, C]``)."""
     if kernels.plain_route(xb):
         return _plain_bf16(xb, q4, scale, code, cubic, out_dtype)
-    out = _launch(CUBIC if cubic else UNIFORM, xb, None, q4, scale, None,
-                  code, out_dtype)
+    out = _launch(CUBIC if cubic else UNIFORM, xb, None, q4, scale, code,
+                  out_dtype)
     gemv_k6.launches += 1
     return out
 
@@ -242,7 +360,7 @@ def gemv_k7(xq, sx, q4, scale, out_dtype):
     """K7: 2D W4A8 GEMV."""
     if kernels.plain_route(xq):
         return _plain_w4a8(xq, sx, q4, scale, out_dtype)
-    out = _launch(W4A8, xq, sx, q4, scale, None, None, out_dtype)
+    out = _launch(W4A8, xq, sx, q4, scale, None, out_dtype)
     gemv_k7.launches += 1
     return out
 
@@ -256,8 +374,9 @@ def gemv_k8(xb, q4, scale, layer, out_dtype):
     if kernels.plain_route(xb):
         return _plain_bf16(xb, *_layer_slice(q4, scale, layer), None, False,
                            out_dtype)
-    out = _launch(UNIFORM, xb, None, q4, scale, layer, None, out_dtype)
+    out = _launch_stacked(UNIFORM, xb, None, q4, scale, layer, out_dtype)
     gemv_k8.launches += 1
+    gemv_k8.multirow_launches += xb.shape[0] > 1
     return out
 
 
@@ -265,13 +384,16 @@ def gemv_k9(xq, sx, q4, scale, layer, out_dtype):
     """K9: stacked W4A8 GEMV over layer ``layer``."""
     if kernels.plain_route(xq):
         return _plain_w4a8(xq, sx, *_layer_slice(q4, scale, layer), out_dtype)
-    out = _launch(W4A8, xq, sx, q4, scale, layer, None, out_dtype)
+    out = _launch_stacked(W4A8, xq, sx, q4, scale, layer, out_dtype)
     gemv_k9.launches += 1
+    gemv_k9.multirow_launches += xq.shape[0] > 1
     return out
 
 
 for _fn in (gemv_k6, gemv_k7, gemv_k8, gemv_k9):
-    _fn.launches = 0
+    _fn.launches = 0              # every launch
+for _fn in (gemv_k8, gemv_k9):
+    _fn.multirow_launches = 0     # those at 1 < m <= 64 (prefills)
 
 
 # ---------------------------------------------------------------------------

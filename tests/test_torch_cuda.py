@@ -399,30 +399,100 @@ def test_int4_gemv_2d_kernel(dev, half, dout, m, variant, dtype):
 
 @pytest.mark.parametrize("L,half,dout", [(3, 128, 512), (4, 1792, 256),
                                          (2, 640, 1024)])
-@pytest.mark.parametrize("m", [1, 7, 33])
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 16, 17, 40, 64])
 @pytest.mark.parametrize("w4a8", [False, True])
-def test_int4_gemv_stacked_kernel(dev, L, half, dout, m, w4a8):
-    """K8/K9 read their layer from a device int32 pointer: every layer,
-    L - 1 included, against the plain version of that layer's slice."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int4_gemv_stacked_kernel(dev, L, half, dout, m, w4a8, dtype):
+    """K8/K9 (the tensor-core kernel) read their layer from a device int32
+    pointer: every layer, L - 1 included, against the plain version of
+    that layer's slice, one launch per call. m covers one to eight n8
+    tiles, ragged ones included; half = 128 runs one K split, the others
+    several (stacked_plan). K9 at f32 out is exact (integer sums, the
+    same epilogue roundings); K8 within 1e-5 of each row's max |ref| (f32
+    sums in another order), and bf16 out within 2^-7 (one rounding on
+    each side)."""
     from cogstream_tpu_torch.ops import quant_gemv as qg
 
-    rng = np.random.default_rng(L * m)
+    rng = np.random.default_rng(L * m + dout)
     qp = _int4_weights(rng, dev, (L, half, dout))
     x = _t(rng.standard_normal((m, 2 * half)), dev)
     ids = torch.arange(L, dtype=torch.int32, device=dev)
+    wrap = qg.gemv_k9 if w4a8 else qg.gemv_k8
     for layer in range(L):
-        got = qg.int4_rank1_gemv_stacked(x, qp, ids[layer:layer + 1],
-                                         torch.float32, w4a8=w4a8)
+        n0 = wrap.launches
+        got = qg.int4_rank1_gemv_stacked(x, qp, ids[layer:layer + 1], dtype,
+                                         w4a8=w4a8)
+        assert wrap.launches == n0 + 1
+        assert got.shape == (m, dout) and got.dtype == dtype
         ref = qg.int4_rank1_gemv_stacked_plain(x, qp, ids[layer:layer + 1],
-                                               torch.float32, w4a8=w4a8)
-        if w4a8:
+                                               dtype, w4a8=w4a8)
+        if w4a8 and dtype == torch.float32:
             torch.testing.assert_close(got, ref, atol=0, rtol=0)
         else:
-            _rowwise(got, ref, 1e-5)
+            _rowwise(got, ref, 1e-5 if dtype == torch.float32 else 2 ** -7)
         if layer == L - 1:   # the last layer differs from its neighbour
             other = qg.int4_rank1_gemv_stacked_plain(
-                x, qp, ids[layer - 1:layer], torch.float32, w4a8=w4a8)
+                x, qp, ids[layer - 1:layer], dtype, w4a8=w4a8)
             assert not torch.allclose(got, other)
+
+
+def _stacked_call(qg, dev, rng, m, w4a8, L=4, half=1792, dout=2048):
+    """A K8/K9 call on prepared operands (gate_proj-like, split K)."""
+    qp = _int4_weights(rng, dev, (L, half, dout))
+    xs = _t(rng.standard_normal((m, 2 * half)), dev)
+    layer = torch.tensor([1], dtype=torch.int32, device=dev)
+    if w4a8:
+        xq, sx = qg._int8_halves(xs, half)
+        return (lambda: qg.gemv_k9(xq, sx, qp["q4"], qp["scale"], layer,
+                                   torch.float32)), (xq, sx, layer, qp)
+    xb = xs.to(torch.bfloat16)
+    return (lambda: qg.gemv_k8(xb, qp["q4"], qp["scale"], layer,
+                               torch.float32)), (xb, None, layer, qp)
+
+
+@pytest.mark.parametrize("m", [1, 40])
+@pytest.mark.parametrize("w4a8", [False, True])
+def test_int4_gemv_stacked_repeats_and_replays(dev, m, w4a8):
+    """K8/K9 split K through the workspace: two calls give the same bits;
+    once the workspace exists a call allocates its output alone; one call
+    captured in a CUDA graph, replayed after x (and sx) and the layer
+    index were rewritten in place, equals the eager call on the new
+    values bit for bit."""
+    from cogstream_tpu_torch.ops import quant_gemv as qg
+
+    rng = np.random.default_rng(m + 10 * w4a8)
+    call, (x, sx, layer, qp) = _stacked_call(qg, dev, rng, m, w4a8)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert qg.stacked_plan(m, 1792, 2048, w4a8, sms)[1] > 1
+    first = call()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    again = call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    grown = torch.cuda.memory_allocated(dev) - before
+    assert grown == -(-again.numel() * 4 // 512) * 512   # the output only
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = call()
+    x2 = rng.standard_normal(tuple(x.shape))
+    if w4a8:
+        xq2, sx2 = qg._int8_halves(_t(x2, dev), 1792)
+        x.copy_(xq2)
+        sx.copy_(sx2)
+    else:
+        x.copy_(_t(x2, dev, torch.bfloat16))
+    layer.fill_(3)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, call())
+    ref = (qg._plain_w4a8(x, sx, qp["q4"][3], qp["scale"][3], torch.float32)
+           if w4a8 else qg._plain_bf16(x, qp["q4"][3], qp["scale"][3], None,
+                                       False, torch.float32))
+    if w4a8:
+        torch.testing.assert_close(out, ref, atol=0, rtol=0)
+    else:
+        _rowwise(out, ref, 1e-5)
 
 
 def test_int4_gemv_cuda_never_falls_back(dev):

@@ -1,11 +1,14 @@
-"""Which C entry point each attention wrapper reaches, checked on the CPU.
+"""Which C entry point each kernel wrapper reaches, checked on the CPU.
 
 The wrappers of K1, K3, K4 and K5 pick their kernel by operand type: bf16
 goes to the tensor-core kernels (``cs_vision_attention_tc``,
 ``cs_gqa_prefill_tc``, ``cs_gqa_decode_tc``, ``cs_segment_attention_tc``),
 f32 to the CUDA-core f32 tiles (``cs_vision_attention``,
 ``cs_gqa_attention``, decode then ``cs_gqa_combine``,
-``cs_segment_attention``). Here the kernel library, the stream, the SM
+``cs_segment_attention``). The stacked int4 GEMVs K8/K9 reach one
+``cs_int4_gemv_tc`` call with the split of ``stacked_plan`` and the
+per-device workspace; K6/K7 stay on ``cs_int4_gemv``. Here the kernel
+library, the stream, the SM
 count and the device route are stubbed, so no card is needed: each test
 records the calls a wrapper makes and checks the entry points, the
 arguments they get (against the ctypes signatures in ``ops/kernels.py``)
@@ -23,6 +26,7 @@ import torch
 from cogstream_tpu_torch.ops import flash_attention as fa
 from cogstream_tpu_torch.ops import kernels
 from cogstream_tpu_torch.ops import lm_attention as lma
+from cogstream_tpu_torch.ops import quant_gemv as qg
 
 
 class _Lib:
@@ -325,3 +329,113 @@ def test_other_dtypes_raise_before_any_call(lib, kernel):
         with torch.no_grad():
             wrap(*args)
     assert lib.calls == []
+
+
+# ---------------------------------------------------------------------------
+# int4 GEMVs: K8/K9 on the tensor-core kernel, K6/K7 on the CUDA-core one
+# ---------------------------------------------------------------------------
+
+def _stacked(m, L=3, half=1792, dout=512, w4a8=False):
+    rng = np.random.default_rng(m)
+    q4 = torch.tensor(rng.integers(-128, 128, (L, half, dout)),
+                      dtype=torch.int8)
+    scale = torch.ones((L, dout))
+    layer = torch.tensor([L - 1], dtype=torch.int32)
+    if w4a8:
+        x = torch.tensor(rng.integers(-127, 128, (m, 2 * half)),
+                         dtype=torch.int8)
+        return qg.gemv_k9, (x, torch.ones((m, 2)), q4, scale, layer)
+    x = torch.tensor(rng.standard_normal((m, 2 * half)), dtype=torch.bfloat16)
+    return qg.gemv_k8, (x, q4, scale, layer)
+
+
+@pytest.mark.parametrize("m", [1, 9, 40, 64])
+@pytest.mark.parametrize("w4a8", [False, True])
+@pytest.mark.parametrize("half,dout", [(1792, 512), (9472, 3584), (256, 128)])
+def test_stacked_gemv_is_one_tensor_core_launch(lib, monkeypatch, m, w4a8,
+                                                half, dout):
+    """K8/K9: one ``cs_int4_gemv_tc`` call per wrapper call (no combine
+    pass), with the split of :func:`stacked_plan`; split calls get the
+    per-device workspace, sized for their partials, and one ticket per
+    128-column tile; a single split gets none."""
+    monkeypatch.setattr(qg, "_tc_ws", {})
+    wrap, args = _stacked(m, half=half, dout=dout, w4a8=w4a8)
+    n0 = wrap.launches
+    out = wrap(*args, torch.bfloat16)
+    assert lib.names() == ["cs_int4_gemv_tc"]
+    a = lib.calls[0][1]
+    rows, splits = qg.stacked_plan(m, half, dout, w4a8, 132)
+    assert a[3] == half * dout and a[5] == dout and a[7] == out.data_ptr()
+    assert a[10:17] == (m, half, dout, rows, splits, 2 if w4a8 else 0,
+                        kernels.DTYPE_CODES[torch.bfloat16])
+    if splits > 1:
+        part, tickets = qg._tc_ws[out.device]
+        assert (a[8], a[9]) == (part.data_ptr(), tickets.data_ptr())
+        assert part.numel() >= splits * (2 if w4a8 else 1) * m * dout
+        assert tickets.numel() >= dout // 128 and not tickets.any()
+    else:
+        assert (a[8], a[9]) == (None, None)
+    assert wrap.launches == n0 + 1 and out.shape == (m, dout)
+
+
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 16, 17, 40, 64])
+@pytest.mark.parametrize("half,dout", [(1792, 18944), (9472, 3584),
+                                       (1792, 512), (128, 128)])
+@pytest.mark.parametrize("w4a8", [False, True])
+def test_stacked_plan_covers_the_rows(m, half, dout, w4a8):
+    """Every split is a whole number of 128-row stages, the splits cover
+    the packed rows exactly once (the last may be shorter), and a block's
+    staged activations stay inside its shared-memory budget."""
+    rows, splits = qg.stacked_plan(m, half, dout, w4a8, 132)
+    assert rows % 128 == 0 and rows <= half
+    assert splits * rows >= half > (splits - 1) * rows
+    xrows = -(-m // 8) * 8
+    x_bytes = 2 * xrows * qg._tc_x_stride(rows, w4a8)
+    assert rows == 128 or x_bytes <= qg._TC_X_BUDGET
+
+
+def test_stacked_gemv_workspace_is_reused(lib, monkeypatch):
+    """Calls reuse one workspace (no allocation beyond the output); a
+    larger call grows it and keeps the outgrown one alive for graphs."""
+    monkeypatch.setattr(qg, "_tc_ws", {})
+    monkeypatch.setattr(qg, "_retired_tc_ws", [])
+    wrap, small = _stacked(1)
+    wrap(*small, torch.float32)
+    wrap(*small, torch.float32)
+    assert lib.calls[0][1][8:10] == lib.calls[1][1][8:10]
+    first = qg._tc_ws[small[0].device]
+    _, big = _stacked(40)
+    wrap(*big, torch.float32)
+    assert qg._retired_tc_ws == [first]
+    assert lib.calls[2][1][8] != lib.calls[0][1][8]
+
+
+def test_stacked_gemv_raises_before_any_call(lib):
+    """Operands the tensor-core kernel does not take raise before any
+    launch: m > 64, a dout off the 128-column tile, a float layer."""
+    wrap, (x, q4, scale, layer) = _stacked(65)
+    with pytest.raises(ValueError, match="m <= 64"):
+        wrap(x, q4, scale, layer, torch.float32)
+    wrap, (x, q4, scale, layer) = _stacked(1, dout=136)
+    with pytest.raises(ValueError, match="cs_int4_gemv_tc"):
+        wrap(x, q4, scale, layer, torch.float32)
+    wrap, (x, q4, scale, layer) = _stacked(1)
+    with pytest.raises(TypeError, match="layer"):
+        wrap(x, q4, scale, layer.float(), torch.float32)
+    assert lib.calls == []
+
+
+@pytest.mark.parametrize("w4a8", [False, True])
+def test_2d_gemv_keeps_the_cuda_core_kernel(lib, w4a8):
+    """K6/K7 (the lm_head's 2D weight) stay on ``cs_int4_gemv``."""
+    rng = np.random.default_rng(0)
+    q4 = torch.tensor(rng.integers(-128, 128, (256, 1024)), dtype=torch.int8)
+    scale = torch.ones(1024)
+    if w4a8:
+        x = torch.tensor(rng.integers(-127, 128, (1, 512)), dtype=torch.int8)
+        qg.gemv_k7(x, torch.ones((1, 2)), q4, scale, torch.float32)
+    else:
+        x = torch.tensor(rng.standard_normal((1, 512)), dtype=torch.bfloat16)
+        qg.gemv_k6(x, q4, scale, torch.tensor([1.0, 0.0]), False,
+                   torch.float32)
+    assert lib.names() == ["cs_int4_gemv"]

@@ -4,7 +4,8 @@ On the CPU every kernel wrapper of the port runs its plain PyTorch
 version; here each plain version is held to the JAX Pallas kernel it
 replaces, run in interpret mode exactly as the JAX package's own tests
 run it, and to the JAX reference oracle. Inputs are seeded numpy draws
-fed to both sides. f32 throughout; tolerance atol = rtol = 1e-5.
+fed to both sides. f32 at atol = rtol = 1e-5, but for the bf16 cases of
+``causal_gqa_attention``, whose bound is stated with them.
 """
 
 import math
@@ -20,6 +21,7 @@ from cogstream_tpu.ops import flash_attention as jfa
 from cogstream_tpu.ops import layernorm as jln
 from cogstream_tpu.ops import lm_attention as jlma
 from cogstream_tpu.ops import rope as jrope
+from cogstream_tpu_torch.ops import attention as tatt
 from cogstream_tpu_torch.ops import flash_attention as tfa
 from cogstream_tpu_torch.ops import layernorm as tln
 from cogstream_tpu_torch.ops import lm_attention as tlma
@@ -288,6 +290,102 @@ def test_decode_plain_vs_pallas(S, Hq, Hkv, done):
     np.testing.assert_allclose(got, np.asarray(ref), **TOL)
     if done:
         assert np.all(got == 0)
+
+
+# ---------------------------------------------------------------------------
+# causal_gqa_attention in bf16: JAX's gemm_dtype rule, dense and chunked
+# ---------------------------------------------------------------------------
+
+def _gqa_case(rng, B, S, Hq, Hkv, D, pad=3):
+    """Training-forward operands (S == T, kv positions = q positions):
+    seeded q/k/v in f32 and positions with the last ``pad`` queries of
+    each row padded (-1)."""
+    q = rng.standard_normal((B, S, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    pos = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    pos[:, S - pad:] = -1
+    return q, k, v, pos
+
+
+def _gqa_both(q, k, v, pos, dtype, **kw):
+    """JAX's and the port's causal_gqa_attention on the same operands in
+    ``dtype`` (both round the f32 draws to nearest even), as f32 numpy."""
+    jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    ref = jatt.causal_gqa_attention(
+        *(jnp.asarray(a, jd) for a in (q, k, v)), jnp.asarray(pos),
+        kv_valid=jnp.asarray(pos >= 0), kv_positions=jnp.asarray(pos), **kw)
+    got = tatt.causal_gqa_attention(
+        *(_t(a).to(dtype) for a in (q, k, v)), _t(pos),
+        kv_valid=_t(pos >= 0), kv_positions=_t(pos), **kw)
+    return got.float().numpy(), np.asarray(ref.astype(jnp.float32))
+
+
+def _all_f32_form(q, k, v, pos):
+    """The port's form before the gemm_dtype rule: q, k, v and the
+    probabilities in f32 for every input dtype (the control)."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.float().reshape(B, S, Hkv, Hq // Hkv, D)
+    logits = torch.einsum("bshgd,bthd->bhgst", qg, k.float()) / math.sqrt(D)
+    mask = (pos[:, :, None] >= pos[:, None, :]) & (pos[:, None, :] >= 0)
+    logits = torch.where(mask[:, None, None], logits,
+                         torch.full_like(logits, tatt.NEG_INF))
+    probs = torch.softmax(logits, dim=-1) * mask[:, None, None]
+    out = torch.einsum("bhgst,bthd->bshgd", probs, v.float())
+    return out.reshape(B, S, Hq, D).to(q.dtype)
+
+
+def _bf16_agreement(got, ref):
+    """(share of equal elements, worst |got - ref| in bf16 ulps of its
+    row's max |ref|, a row being one head of one query)."""
+    D = got.shape[-1]
+    g, r = got.reshape(-1, D), ref.reshape(-1, D)
+    row_max = np.abs(r).max(1, keepdims=True)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(row_max, 1e-30))) - 7)
+    return float(np.mean(g == r)), float((np.abs(g - r) / ulp).max())
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", [(2, 64, 4, 2, 32),
+                                          (1, 256, 8, 2, 64)])
+def test_causal_gqa_bf16_dense_matches_jax(B, S, Hq, Hkv, D):
+    """bf16 dense branch: bf16 GEMM operands, f32 logits and softmax,
+    probabilities rounded to bf16 before P.V, as JAX's gemm_dtype rule.
+    The port equals JAX in >= 99.9% of the elements and is everywhere
+    within 2 bf16 ulps of its row's max |ref| (f32 sums in another order
+    can flip one output rounding); padded queries are exactly 0. The
+    control: the all-f32 form misses the 99.9% (~30% of the elements
+    differ)."""
+    rng = np.random.default_rng(B * S + D)
+    q, k, v, pos = _gqa_case(rng, B, S, Hq, Hkv, D)
+    got, ref = _gqa_both(q, k, v, pos, torch.bfloat16)
+    same, ulps = _bf16_agreement(got, ref)
+    assert same >= 0.999 and ulps <= 2, (same, ulps)
+    assert np.all(got[:, -3:] == 0) and np.all(ref[:, -3:] == 0)
+    old = _all_f32_form(*(_t(a).to(torch.bfloat16) for a in (q, k, v)),
+                        _t(pos)).float().numpy()
+    assert _bf16_agreement(old, ref)[0] < 0.99
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_causal_gqa_chunked_matches_jax(dtype):
+    """The chunked online-softmax branch (kv_chunk 1024, reached through
+    ``chunk_threshold`` at one kv head: S = T = 1300, two chunks) against
+    JAX's chunked branch: bf16 to the dense bound (>= 99.9% equal, 2
+    ulps of the row max), f32 within 1e-5; padded queries exactly 0."""
+    rng = np.random.default_rng(11)
+    q, k, v, pos = _gqa_case(rng, 1, 1300, 2, 1, 16, pad=5)
+    got, ref = _gqa_both(q, k, v, pos, dtype, chunk_threshold=1 << 16)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, ref, **TOL)
+        dense = tatt.causal_gqa_attention(
+            _t(q), _t(k), _t(v), _t(pos), kv_valid=_t(pos >= 0),
+            kv_positions=_t(pos)).numpy()
+        np.testing.assert_allclose(got, dense, **TOL)
+    else:
+        same, ulps = _bf16_agreement(got, ref)
+        assert same >= 0.999 and ulps <= 2, (same, ulps)
+    assert np.all(got[:, -5:] == 0) and np.all(ref[:, -5:] == 0)
 
 
 # ---------------------------------------------------------------------------
