@@ -42,6 +42,23 @@ Phases (each prints one line or a few; any failure exits non-zero):
    rise during this phase, every one of K1's, K3's and K4's launches on
    its tensor-core kernel (K4: one launch per call, no combine pass),
    every output must be finite and the slot ranges ordered and disjoint;
+8. engine (runs on the phase-5 model, before phases 7 and 6) — the
+   evaluation entry point at full width and depth: the host decoders
+   are probed (Pillow, OpenCV, ffmpeg), a seeded 150-frame video of ten
+   static scenes with a moving block (224x364, 1 fps; an mp4v clip where
+   OpenCV writes one, else a directory of .npy frames) and a spec of
+   three 50-frame stream segments with one QA each go through
+   ``answer_generate.run_eval`` and ``CogReasonerEngine`` in NC, AC, FCC
+   and gt (32 greedy tokens a turn). Per turn: wall, encode,
+   compression, visual tokens before and after, events, minor frames,
+   prefill tokens and ms, marginal decode tok/s. K1-K4 must launch, all
+   K1/K3/K4 launches on the tensor-core kernels; the last turn (150
+   frames) must run k-means at K = 10, pool minor frames and drop static
+   tokens; outputs finite, the FCC selection parses. Then the checkpoint
+   round trip at full width, depth cut to 2 decoder and 2 tower layers:
+   ``save_cogreasoner_to_hf`` → ``load_cogreasoner_from_hf`` bit-identical,
+   the int4 load identical to ``quantize_text_``, and that int4 model's
+   FCC turns launch K6 and K8 (write / load seconds, host peak RSS);
 7. training main path (runs on the phase-5 model, before phase 6) — the
    frozen ``cogreasoner_7b`` base with LoRA r=8 on all 7 projections x
    28 layers (stage 1), plus the projector readout (stage 2): (a)
@@ -1286,6 +1303,484 @@ def decode_step_cost(text, label: str, stamp: str, steps: int = 10,
 
 
 # ---------------------------------------------------------------------------
+# phase 8 (engine): the evaluation path, answer-generate
+# ---------------------------------------------------------------------------
+
+ENGINE_DIR = os.path.join(REPO, "build", "chip_smoke_engine")
+ENGINE_MODES = ("NC", "AC", "FCC", "gt")
+# 150 frames at 1 fps in three stream segments of 50 (answer_generate's
+# default layout), 224x364: the processor's own smart-resize target for
+# 150 frames under the 16384-token budget (8x13 merged tokens a frame)
+ENGINE_T, ENGINE_HW, ENGINE_SCENES = 150, (224, 364), 10
+ENGINE_QAS = (("What is on screen at the start?", []),
+              ("Which block moved in the second part?", [1]),
+              ("What changed over the whole stream?", [1, 0]))
+
+
+def _engine_dir(*parts) -> str:
+    """An empty directory under ENGINE_DIR (build/, ignored by git)."""
+    import shutil
+
+    path = os.path.join(ENGINE_DIR, *parts)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def probe_host_decoders() -> dict:
+    """Pillow and OpenCV versions (None when absent), whether OpenCV
+    writes and reads back an mp4v clip, and the ffmpeg binary."""
+    import importlib
+    import shutil
+
+    found = {}
+    for mod in ("PIL", "cv2"):
+        try:
+            found[mod] = importlib.import_module(mod).__version__
+        except ImportError:
+            found[mod] = None
+    found["cv2_mp4v"] = False
+    if found["cv2"]:
+        import cv2
+
+        path = os.path.join(_engine_dir("probe"), "p.mp4")
+        w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 1,
+                            (64, 48))
+        for _ in range(3):
+            w.write(np.zeros((48, 64, 3), np.uint8))
+        w.release()
+        cap = cv2.VideoCapture(path)
+        found["cv2_mp4v"] = bool(cap.isOpened() and cap.read()[0])
+        cap.release()
+    found["ffmpeg"] = shutil.which("ffmpeg")
+    return found
+
+
+def engine_frames():
+    """ENGINE_T seeded uint8 frames (HWC) in ENGINE_SCENES scenes: each
+    scene a static background of flat colored rectangles (it compresses
+    losslessly enough that static patches stay static through mp4v) with
+    one 28x28 block moving 14 px a frame."""
+    rng = np.random.default_rng(7)
+    h, w = ENGINE_HW
+    per = ENGINE_T // ENGINE_SCENES
+    frames = []
+    for _ in range(ENGINE_SCENES):
+        bg = np.empty((h, w, 3), np.uint8)
+        bg[:] = rng.integers(0, 256, 3)
+        for _ in range(8):
+            y, x = rng.integers(0, h - 56), rng.integers(0, w - 84)
+            bg[y:y + 56, x:x + 84] = rng.integers(0, 256, 3)
+        color = rng.integers(0, 256, 3)
+        for f in range(per):
+            fr = bg.copy()
+            fr[84:112, 14 * f:14 * f + 28] = color
+            frames.append(fr)
+    return frames
+
+
+def write_engine_inputs(route: str):
+    """The evaluation inputs under ENGINE_DIR: one video (an mp4v clip at
+    1 fps with OpenCV, else a directory of .npy frames, which the video
+    loader reads with numpy alone) and its spec of three segments with
+    one QA each. Returns (video_dir, query_dir)."""
+    video_dir, query_dir = _engine_dir("videos"), _engine_dir("queries")
+    frames = engine_frames()
+    if route == "cv2":
+        import cv2
+
+        name = "stream.mp4"
+        h, w = ENGINE_HW
+        wr = cv2.VideoWriter(os.path.join(video_dir, name),
+                             cv2.VideoWriter_fourcc(*"mp4v"), 1, (w, h))
+        for f in frames:
+            wr.write(f)
+        wr.release()
+    else:
+        name = "stream"
+        os.makedirs(os.path.join(video_dir, name))
+        for i, f in enumerate(frames):
+            np.save(os.path.join(video_dir, name, f"{i:04d}.npy"), f)
+    seg = ENGINE_T // 3
+    bounds = [0.0, seg - 0.5, 2 * seg - 0.5, float(ENGINE_T)]
+    spec = {"video": name, "segments": [
+        {"timestamp": [bounds[i], bounds[i + 1]], "QAs": [
+            {"QA_pairs": [{"Q": q, "A": "-"}], "relevance": rel,
+             "is_visual": True, "label": "Streaming"}]}
+        for i, (q, rel) in enumerate(ENGINE_QAS)]}
+    with open(os.path.join(query_dir, "stream.json"), "w") as f:
+        json.dump(spec, f)
+    return video_dir, query_dir
+
+
+class EngineProbe:
+    """Per-turn instrumentation of ``CogReasonerEngine.chat`` (this
+    script only): synchronized wall clocks around the chat, the host
+    processor (video decode, resize, patchify, tokenize), the selector,
+    the tower + projector, the compression (k-means, event relevance,
+    pooling, mask) and every decoder forward; the compression result;
+    the k-means K; the prefill's real token count."""
+
+    def __init__(self, engine):
+        import torch
+
+        from cogstream_tpu_torch.models import cogreasoner, qwen2
+        from cogstream_tpu_torch.ops import kmeans
+        from cogstream_tpu_torch.runtime import engine as eng_mod
+
+        self.turns = []
+        self.kmeans_k = []
+        sync = torch.cuda.synchronize
+        self._undo = []
+
+        def patch(mod, name, make):
+            orig = getattr(mod, name)
+            setattr(mod, name, make(orig))
+            self._undo.append((mod, name, orig))
+
+        def timed(key):
+            def make(orig):
+                def run(*a, **k):
+                    sync()
+                    t0 = time.perf_counter()
+                    out = orig(*a, **k)
+                    sync()
+                    self.cur[key] = self.cur.get(key, 0.0) + \
+                        (time.perf_counter() - t0) * 1e3
+                    if key == "compress_ms":
+                        self.cur["comp"] = out
+                    return out
+                return run
+            return make
+
+        def forward(orig):
+            def run(model, embeds, *a, **k):
+                sync()
+                t0 = time.perf_counter()
+                out = orig(model, embeds, *a, **k)
+                sync()
+                self.cur["forwards"].append(
+                    (embeds.shape[1], t0, time.perf_counter()))
+                return out
+            return run
+
+        def gen(orig):
+            def run(model, embeds, positions, *a, **k):
+                self.cur["gen_mark"] = len(self.cur["forwards"])
+                self.cur["prefill_tokens"] = int((positions >= 0).sum())
+                return orig(model, embeds, positions, *a, **k)
+            return run
+
+        def km(orig):
+            def run(features, timestamps, num_clusters, *a, **k):
+                self.kmeans_k.append(num_clusters)
+                return orig(features, timestamps, num_clusters, *a, **k)
+            return run
+
+        def chat(orig):
+            def run(*a, **k):
+                self.cur = {"forwards": []}
+                sync()
+                t0 = time.perf_counter()
+                out = orig(*a, **k)
+                sync()
+                self.cur["wall_ms"] = (time.perf_counter() - t0) * 1e3
+                self.cur["result"] = out
+                self.turns.append(self.cur)
+                return out
+            return run
+
+        patch(cogreasoner, "encode_images", timed("encode_ms"))
+        patch(cogreasoner, "run_visual_compression", timed("compress_ms"))
+        patch(engine, "processor", timed("process_ms"))
+        patch(engine.selector, "select", timed("select_ms"))
+        patch(qwen2, "qwen2_forward", forward)
+        patch(eng_mod, "generate_tokens", gen)
+        patch(kmeans, "kmeans_with_time", km)
+        patch(engine, "chat", chat)
+
+    def restore(self):
+        for mod, name, orig in reversed(self._undo):
+            setattr(mod, name, orig)
+
+    @staticmethod
+    def summary(turn) -> dict:
+        fw = turn["forwards"][turn["gen_mark"]:]
+        S, a, b = fw[0]
+        starts = [t0 for s, t0, _ in fw[1:] if s == 1]
+        comp = turn.get("comp")
+        out = {"wall_ms": turn["wall_ms"],
+               "process_ms": turn.get("process_ms", 0.0),
+               "select_ms": turn.get("select_ms", 0.0),
+               "encode_ms": turn.get("encode_ms", 0.0),
+               "compress_ms": turn.get("compress_ms", 0.0),
+               "prefill_tokens": turn["prefill_tokens"], "prefill_bucket": S,
+               "prefill_ms": (b - a) * 1e3,
+               "decode_tok_per_s": ((len(starts) - 1)
+                                    / (starts[-1] - starts[0])
+                                    if len(starts) > 1 else float("nan")),
+               "new_tokens": turn["result"].num_tokens,
+               "selection": turn["result"].selection,
+               "events": 0, "minor_frames": 0, "visual_tokens": 0,
+               "visual_kept": 0, "similarities": [], "finite": True}
+        if comp is not None:
+            keep = comp.keep_visual
+            out.update(visual_tokens=int(keep.numel()),
+                       visual_kept=int(keep.sum()),
+                       finite=bool(comp.mm_features.isfinite().all()) and (
+                           comp.similarities is None
+                           or bool(comp.similarities.isfinite().all())))
+            if comp.similarities is not None:
+                out.update(events=int(comp.similarities.numel()),
+                           minor_frames=int(comp.minor_frames.sum()),
+                           similarities=[round(float(s), 4) for s in
+                                         comp.similarities])
+        return out
+
+
+def run_engine_path(model, dev, stamp):
+    """Phase 8 (engine), on the phase-5 bf16 7B model: (a)
+    :func:`engine_turns`, (b) :func:`run_checkpoint_round_trip`, in an
+    ENGINE_DIR made empty first and removed at the end (``run_eval``
+    skips a video whose result file exists, so files of a run that
+    stopped would leave this one with no turns)."""
+    import shutil
+
+    shutil.rmtree(ENGINE_DIR, ignore_errors=True)
+    try:
+        metrics, video_dir, query_dir = engine_turns(model, dev, stamp)
+        metrics.update(run_checkpoint_round_trip(dev, stamp, video_dir,
+                                                 query_dir))
+        return metrics
+    finally:
+        shutil.rmtree(ENGINE_DIR, ignore_errors=True)
+
+
+def engine_turns(model, dev, stamp):
+    """Phase 8 (a), on the phase-5 bf16 7B model (28 decoder layers,
+    seeded weights): ``answer_generate.run_eval`` over one video of 150
+    frames (three stream segments of 50, one QA each, so the last turn
+    has two answered turns of history) in each of NC, AC, FCC and gt, 32
+    greedy new tokens a turn, through ``CogReasonerEngine`` on the card.
+    Checks: K1-K4 launch in the phase, every K1/K3/K4 launch on its
+    tensor-core kernel; the last turns run k-means at K = 10 and pool at
+    least one minor frame; the turns without events (50 and 100 frames,
+    under the 10-event minimum), where only the pixel-diff mask can drop
+    tokens, keep fewer visual tokens than they have; every answer is
+    written, finite selections parse. Returns (metrics, video_dir,
+    query_dir)."""
+    import torch
+
+    from cogstream_tpu_torch import presets
+    from cogstream_tpu_torch.evaluate.answer_generate import run_eval
+    from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
+    from cogstream_tpu_torch.runtime.engine import CogReasonerEngine
+    from cogstream_tpu_torch.runtime.history import parse_selection
+
+    cfg = presets.cogreasoner_7b()
+    found = probe_host_decoders()
+    route = "cv2" if found["cv2_mp4v"] else "npy"
+    log(f"engine: host decoders {found}; input route {route} [{stamp}]")
+    video_dir, query_dir = write_engine_inputs(route)
+    tok = ByteTokenizer(image_token_id=cfg.image_token_index,
+                        vocab=cfg.text.vocab_size)
+    engine = CogReasonerEngine(model, cfg, tok)
+    probe = EngineProbe(engine)
+    for i in BF16_PATH:
+        wrapper(i).launches = 0
+    for i in TC_PATH:
+        wrapper(i).tc_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    results, metrics = {}, {}
+    try:
+        for mode in ENGINE_MODES:
+            save = os.path.join(ENGINE_DIR, "preds", mode)
+            n0 = len(probe.turns)
+            run_eval(engine, engine.processor, video_dir, query_dir, save,
+                     mode=mode, process_index=0, process_count=1,
+                     max_new_tokens=32, log=lambda m: log(f"engine: {m}"))
+            with open(os.path.join(save, "stream.json")) as f:
+                results[mode] = json.load(f)
+            for j, turn in enumerate(probe.turns[n0:]):
+                s = EngineProbe.summary(turn)
+                metrics[f"engine_{mode}_turn{j}"] = s
+                log(f"engine: {mode} turn {j}: wall {s['wall_ms']:.1f} ms; "
+                    f"processor {s['process_ms']:.1f} ms; selector "
+                    f"{s['select_ms']:.1f} ms; "
+                    f"encode {s['encode_ms']:.1f} ms; compression "
+                    f"{s['compress_ms']:.1f} ms; visual tokens "
+                    f"{s['visual_tokens']} -> {s['visual_kept']}; events "
+                    f"{s['events']}, minor frames {s['minor_frames']}, sims "
+                    f"{s['similarities']}; prefill {s['prefill_tokens']} "
+                    f"tokens (bucket {s['prefill_bucket']}) in "
+                    f"{s['prefill_ms']:.1f} ms; {s['new_tokens']} new "
+                    f"tokens, marginal decode {s['decode_tok_per_s']:.1f} "
+                    f"tok/s; selection {s['selection']!r} [{stamp}]")
+    finally:
+        probe.restore()
+    torch.cuda.synchronize()
+    phase_s = time.perf_counter() - t_phase
+    launches = {KERNELS[i][0]: wrapper(i).launches for i in BF16_PATH}
+    tc = {KERNELS[i][0]: wrapper(i).tc_launches for i in TC_PATH}
+    all_tc = all(tc[KERNELS[i][0]] == launches[KERNELS[i][0]]
+                 for i in TC_PATH)
+    last = [metrics[f"engine_{m}_turn2"] for m in ENGINE_MODES]
+    n_qas = [len(r["QAs"]) for r in results.values()]
+    turns = [metrics[f"engine_{m}_turn{j}"] for m in ENGINE_MODES
+             for j in range(3)]
+    finite = all(t["finite"] for t in turns) and all(
+        isinstance(q["prediction"], str) for r in results.values()
+        for q in r["QAs"])
+    events_ok = (probe.kmeans_k and set(probe.kmeans_k) == {10}
+                 and all(s["events"] == 10 for s in last
+                         if s["visual_tokens"]))
+    pooled = any(s["minor_frames"] > 0 for s in last)
+    mask_only = [t for t in turns if t["visual_tokens"] and not t["events"]]
+    dropped = bool(mask_only) and all(
+        t["visual_kept"] < t["visual_tokens"] for t in mask_only)
+    fcc = metrics["engine_FCC_turn2"]["selection"]
+    fcc_ok = fcc.startswith("[") and fcc.endswith("]") and \
+        parse_selection(fcc) == (results["FCC"]["QAs"][2]["pred_visual"],
+                                 results["FCC"]["QAs"][2]["pred_coi"])
+    log(f"engine: {phase_s:.1f}s for {sum(n_qas)} turns in 4 modes; "
+        f"launches {launches}, on the tensor-core kernels {tc} (all "
+        f"{all_tc}); k-means K {sorted(set(probe.kmeans_k))} over "
+        f"{len(probe.kmeans_k)} turns; pooled minor frames {pooled}; "
+        f"pixel-diff drops in the {len(mask_only)} turns without events "
+        f"{dropped}; finite {finite}; FCC selection "
+        f"{fcc!r} parses {fcc_ok}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{stamp}]")
+    if (n_qas != [3] * 4 or min(launches.values()) == 0 or not all_tc
+            or not events_ok or not pooled or not dropped or not fcc_ok
+            or not finite):
+        raise AssertionError("engine path check failed")
+    metrics["engine_launches"] = launches
+    return metrics, video_dir, query_dir
+
+
+class RssPeak:
+    """Peak resident set size of this process (VmRSS, sampled every
+    2 ms on a thread) between ``start`` and ``stop``."""
+
+    def __init__(self):
+        import threading
+
+        self.peak = self.base = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    def _run(self):
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, self._rss())
+
+    def stop(self) -> int:
+        self._stop.set()
+        self._thread.join(timeout=5)
+        return max(self.peak, self._rss())
+
+
+def run_checkpoint_round_trip(dev, stamp, video_dir, query_dir):
+    """Phase 8 (b): the checkpoint round trip at full width, depth cut
+    to 2 decoder and 2 tower layers (a ``cogreasoner_7b`` model, ~3.2 GB
+    in bf16, mostly the two 152064 x 3584 tables; seeded weights).
+    ``save_cogreasoner_to_hf`` writes it under build/; the bf16 load must
+    give every tensor bit-identical to the source; a load with
+    ``quantize_text_bits=4`` must give the int4 stores ``quantize_text_``
+    makes of the same weights, and that model answers phase 8 (a)'s
+    three turns in FCC mode with K6 and K8 launching. Prints write and
+    load seconds and the host's peak RSS during each load."""
+    import dataclasses
+
+    import torch
+
+    from cogstream_tpu_torch import presets
+    from cogstream_tpu_torch.evaluate.answer_generate import run_eval
+    from cogstream_tpu_torch.models.checkpoint import (
+        load_cogreasoner_from_hf, save_cogreasoner_to_hf)
+    from cogstream_tpu_torch.models.cogreasoner import init_cogreasoner_params
+    from cogstream_tpu_torch.ops.quant import quantize_text_
+    from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
+    from cogstream_tpu_torch.runtime.engine import CogReasonerEngine
+
+    cfg7 = presets.cogreasoner_7b()
+    cfg = dataclasses.replace(
+        cfg7, text=dataclasses.replace(cfg7.text, num_hidden_layers=2),
+        vision=dataclasses.replace(cfg7.vision, num_hidden_layers=2))
+    src = init_cogreasoner_params(
+        cfg, torch.Generator(device=dev).manual_seed(3), device=dev)
+    out_dir = os.path.join(ENGINE_DIR, "hf")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_cogreasoner_to_hf(src, cfg, out_dir)
+    write_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(out_dir, f))
+               for f in os.listdir(out_dir))
+
+    def load(**kw):
+        rss = RssPeak()
+        t0 = time.perf_counter()
+        model = load_cogreasoner_from_hf(out_dir, cfg, device=dev, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = rss.stop()
+        return model, secs, peak - rss.base, peak
+
+    bf16, load_s, rss_d, rss_peak = load()
+    a, b = bf16.state_dict(), src.state_dict()
+    same = list(a) == list(b) and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+    del bf16, a
+    q4, load4_s, rss4_d, rss4_peak = load(quantize_text_bits=4)
+    quantize_text_(src.text)
+    a, b = q4.text.state_dict(), src.text.state_dict()
+    same4 = list(a) == list(b) and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+    del src, a, b
+    log(f"checkpoint: 2+2-layer 7B-width model written in {write_s:.1f}s "
+        f"({size / 2**30:.2f} GiB); bf16 load {load_s:.1f}s, every tensor "
+        f"bit-identical {same}, host RSS +{rss_d / 2**30:.2f} GiB (peak "
+        f"{rss_peak / 2**30:.2f} GiB); int4 load {load4_s:.1f}s, stores "
+        f"bit-identical to quantize_text_ {same4}, host RSS "
+        f"+{rss4_d / 2**30:.2f} GiB (peak {rss4_peak / 2**30:.2f} GiB) "
+        f"[{stamp}]")
+
+    before = [wrapper(i).launches for i in INT4_PATH]
+    tok = ByteTokenizer(image_token_id=cfg.image_token_index,
+                        vocab=cfg.text.vocab_size)
+    save = os.path.join(ENGINE_DIR, "preds", "int4_FCC")
+    t0 = time.perf_counter()
+    run_eval(CogReasonerEngine(q4, cfg, tok), None, video_dir, query_dir,
+             save, mode="FCC", process_index=0, process_count=1,
+             max_new_tokens=32, log=lambda m: log(f"checkpoint: {m}"))
+    torch.cuda.synchronize()
+    int4_s = time.perf_counter() - t0
+    launched = {KERNELS[i][0]: wrapper(i).launches - n
+                for i, n in zip(INT4_PATH, before)}
+    with open(os.path.join(save, "stream.json")) as f:
+        n_turns = len(json.load(f)["QAs"])
+    log(f"checkpoint: int4 model answered {n_turns} FCC turns in "
+        f"{int4_s:.1f}s; int4 launches {launched} [{stamp}]")
+    del q4
+    if not same or not same4 or n_turns != 3 \
+            or launched["K6_int4_gemv"] == 0 \
+            or launched["K8_int4_gemv_idx"] == 0:
+        raise AssertionError("checkpoint round trip check failed")
+    return {"ckpt_write_s": write_s, "ckpt_bytes": size,
+            "ckpt_load_s": load_s, "ckpt_load_rss_delta": rss_d,
+            "ckpt_int4_load_s": load4_s, "ckpt_int4_load_rss_delta": rss4_d}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the int4 main path
 # ---------------------------------------------------------------------------
 
@@ -1762,6 +2257,7 @@ def main() -> int:
         profile_phases(sess, card)
     model = sess.model
     del sess
+    metrics.update(run_engine_path(model, dev, card))
     train_launches, train_metrics = run_training(model, dev, card,
                                                  args.profile)
     int4_launches, int4_metrics = run_int4_path(model, dev, card)

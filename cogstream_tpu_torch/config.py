@@ -4,11 +4,16 @@ The JAX package's config module imports ``jax.numpy`` for its dtype
 map, so the port cannot import it on a machine without JAX. The
 dataclasses below are field-for-field copies (tests/test_torch_host.py
 pins every field and default to the JAX original); ``torch_dtype``
-replaces ``jnp_dtype``.
+replaces ``jnp_dtype``. The HF checkpoint's config files (config.json,
+generation_config.json, the two processor JSONs) are read and written
+by copies of the JAX package's functions (tests/test_torch_checkpoint.py
+holds them to the originals).
 """
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -176,3 +181,158 @@ class CogReasonerConfig:
             ),
             image_token_index=1000,
         )
+
+
+@dataclass(frozen=True)
+class GenerationConfig:
+    """Decode-sampling defaults (the reference checkpoint ships
+    generation_config.json: do_sample, temperature 0.7, top_k 20, top_p
+    0.8, repetition_penalty 1.05)."""
+
+    do_sample: bool = True
+    temperature: float = 0.7
+    top_k: int = 20
+    top_p: float = 0.8
+    repetition_penalty: float = 1.05
+    eos_token_ids: tuple = (151645, 151643)
+
+    @property
+    def sampling_kwargs(self) -> dict:
+        """kwargs for ``CogReasonerEngine.chat`` / ``StreamingSession.ask``.
+
+        HF applies the repetition-penalty logits processor to greedy
+        search too (only the top-k/top-p warpers are sampling-gated) and
+        stops at every id in ``eos_token_id``, so both carry over
+        whatever ``do_sample`` says."""
+        kw = ({"temperature": self.temperature, "top_p": self.top_p,
+               "top_k": self.top_k} if self.do_sample
+              else {"temperature": 0.0})
+        if self.repetition_penalty != 1.0:
+            kw["repetition_penalty"] = self.repetition_penalty
+        if self.eos_token_ids:
+            kw["extra_eos_ids"] = tuple(self.eos_token_ids)
+        return kw
+
+
+def load_generation_config(model_dir: str) -> GenerationConfig:
+    """generation_config.json → GenerationConfig (the defaults above
+    when the file is absent)."""
+    path = os.path.join(model_dir, "generation_config.json")
+    if not os.path.exists(path):
+        return GenerationConfig()
+    with open(path) as f:
+        d = json.load(f)
+    eos = d.get("eos_token_id", [151645, 151643])
+    if isinstance(eos, int):
+        eos = [eos]
+    return GenerationConfig(
+        do_sample=bool(d.get("do_sample", True)),
+        temperature=float(d.get("temperature", 1.0)),
+        top_k=int(d.get("top_k", 0) or 0),
+        top_p=float(d.get("top_p", 1.0)),
+        repetition_penalty=float(d.get("repetition_penalty", 1.0)),
+        eos_token_ids=tuple(eos),
+    )
+
+
+def load_processor_config(model_dir: str) -> ProcessorConfig:
+    """Merge preprocessor_config.json + processor_config.json of an HF
+    checkpoint directory into a ProcessorConfig."""
+    knobs: dict = {}
+    pre = os.path.join(model_dir, "preprocessor_config.json")
+    if os.path.exists(pre):
+        with open(pre) as f:
+            d = json.load(f)
+        mean = d.get("image_mean")
+        std = d.get("image_std")
+        knobs.update({k: v for k, v in {
+            "patch_size": d.get("patch_size"),
+            "min_tokens": d.get("min_tokens"),
+            "max_tokens": d.get("max_tokens"),
+            "image_mean": tuple(mean) if mean else None,
+            "image_std": tuple(std) if std else None,
+            "rescale_factor": d.get("rescale_factor"),
+        }.items() if v is not None})
+    proc = os.path.join(model_dir, "processor_config.json")
+    if os.path.exists(proc):
+        with open(proc) as f:
+            d = json.load(f)
+        knobs.update({k: v for k, v in {
+            "fps": d.get("fps"),
+            "max_frames": d.get("max_frames"),
+            "image_merge_size": d.get("image_merge_size"),
+            "video_merge_size": d.get("video_merge_size"),
+        }.items() if v is not None})
+    return ProcessorConfig(**knobs)
+
+
+def save_hf_config(cfg: CogReasonerConfig, path: str) -> None:
+    """Inverse of :func:`load_hf_config`: a reference-layout config.json,
+    so exported checkpoints describe themselves."""
+    from .utils.io import atomic_write_json
+
+    t, v = cfg.text, cfg.vision
+    atomic_write_json(path, {
+        "architectures": ["Videollama3Qwen2ForCausalLM"],
+        "model_type": "videollama3_qwen2",
+        "torch_dtype": t.dtype,
+        "vocab_size": t.vocab_size,
+        "hidden_size": t.hidden_size,
+        "intermediate_size": t.intermediate_size,
+        "num_hidden_layers": t.num_hidden_layers,
+        "num_attention_heads": t.num_attention_heads,
+        "num_key_value_heads": t.num_key_value_heads,
+        "max_position_embeddings": t.max_position_embeddings,
+        "rms_norm_eps": t.rms_norm_eps,
+        "rope_theta": t.rope_theta,
+        "tie_word_embeddings": t.tie_word_embeddings,
+        "bos_token_id": t.bos_token_id,
+        "eos_token_id": t.eos_token_id,
+        "vision_encoder_config": {
+            "hidden_size": v.hidden_size,
+            "intermediate_size": v.intermediate_size,
+            "num_hidden_layers": v.num_hidden_layers,
+            "num_attention_heads": v.num_attention_heads,
+            "patch_size": v.patch_size,
+        },
+        "mm_projector_type": cfg.mm_projector_type,
+        "image_token_index": cfg.image_token_index,
+        "use_token_compression": cfg.use_token_compression,
+    })
+
+
+def load_hf_config(path: str) -> CogReasonerConfig:
+    """A CogReasonerConfig from an HF-style config.json (the reference
+    checkpoint's layout)."""
+    with open(path) as f:
+        d = json.load(f)
+    v = d.get("vision_encoder_config") or {}
+    dtype = d.get("torch_dtype", "bfloat16")
+    return CogReasonerConfig(
+        text=Qwen2Config(
+            dtype=dtype,
+            vocab_size=d["vocab_size"],
+            hidden_size=d["hidden_size"],
+            intermediate_size=d["intermediate_size"],
+            num_hidden_layers=d["num_hidden_layers"],
+            num_attention_heads=d["num_attention_heads"],
+            num_key_value_heads=d["num_key_value_heads"],
+            max_position_embeddings=d.get("max_position_embeddings", 32768),
+            rms_norm_eps=d.get("rms_norm_eps", 1e-6),
+            rope_theta=d.get("rope_theta", 1e6),
+            tie_word_embeddings=d.get("tie_word_embeddings", False),
+            bos_token_id=d.get("bos_token_id", 151643),
+            eos_token_id=d.get("eos_token_id", 151645),
+        ),
+        vision=VisionEncoderConfig(
+            dtype=dtype,
+            hidden_size=v.get("hidden_size", 1152),
+            intermediate_size=v.get("intermediate_size", 4304),
+            num_hidden_layers=v.get("num_hidden_layers", 27),
+            num_attention_heads=v.get("num_attention_heads", 16),
+            patch_size=v.get("patch_size", 14),
+        ),
+        mm_projector_type=d.get("mm_projector_type", "mlp2x_gelu"),
+        image_token_index=d.get("image_token_index", 151665),
+        use_token_compression=d.get("use_token_compression", True),
+    )

@@ -1,0 +1,329 @@
+"""HF checkpoint I/O — port of ``cogstream_tpu/models/checkpoint.py``.
+
+The reference ships one flat safetensors checkpoint
+(``model.safetensors.index.json``: the Qwen2 LM, ``model.vision_encoder.*``
+and ``model.mm_projector.readout.{0,2}``). This module maps those names
+onto the port's modules, both ways, through the port's own safetensors
+reader and writer (models/safetensors_io.py).
+
+Loading streams tensor by tensor: the model is built on the ``meta``
+device (no storage), and each parameter is mapped from its shard,
+copied to the target device and cast there, before the next one is
+mapped. Host memory therefore peaks at one checkpoint tensor's mapped
+pages. The layouts need
+no transposes: an HF ``[out, in]`` weight is ``nn.Linear``'s layout, the
+patch-embedding conv ``[hidden, C, ps, ps]`` flattens to the port's
+``[hidden, C*ps*ps]`` linear weight (the (c, ph, pw) order the image
+processor serializes patch rows in), and the vision q/k/v weights
+concatenate into the port's fused QKV weight.
+
+``quantize_text_bits=4`` quantizes each decoder projection on the device
+as it arrives, with ``ops/quant.quantize_int4_rank1(nf4=False)`` (the
+arithmetic of ``quantize_text_``), into the stacked stores K6-K9 serve;
+neither host nor device ever holds the bf16 decoder. Other bit widths
+are not ported (ROADMAP Queue 1 #4), nor is a ``mesh`` (Queue 1 #9).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Mapping, Optional
+
+import torch
+from torch import nn
+
+from ..config import CogReasonerConfig, Qwen2Config, VisionEncoderConfig
+from ..ops import quant
+from .cogreasoner import CogReasoner
+from .projector import Projector
+from .qwen2 import ATTN_PROJ, MLP_PROJ, Qwen2Model
+from .safetensors_io import CheckpointReader, save_file
+from .vision_encoder import VisionTower, default_device
+
+SHARD = "model.safetensors"
+
+
+def _checked(value: torch.Tensor, like: torch.Tensor, name: str,
+             device) -> torch.Tensor:
+    """A copy of ``value`` on ``device`` after checking it has ``like``'s
+    shape (a copy also on the CPU: the model owns its storage, not the
+    reader's mapped file pages)."""
+    if tuple(like.shape) != tuple(value.shape):
+        raise ValueError(f"{name}: checkpoint shape {tuple(value.shape)} "
+                         f"!= model shape {tuple(like.shape)}")
+    return value.to(device, copy=True)
+
+
+def _fill(module: nn.Module, name: str, value: torch.Tensor,
+          device) -> None:
+    """Give ``module.<name>`` (a meta-device parameter) its storage:
+    ``value`` moved to ``device`` and cast there to the parameter's
+    dtype."""
+    old = getattr(module, name)
+    module._parameters[name] = nn.Parameter(
+        _checked(value, old, name, device).to(old.dtype),
+        requires_grad=False)
+
+
+def _check_loaded(model: nn.Module) -> None:
+    missing = [n for n, p in model.named_parameters() if p.is_meta]
+    missing += [n for n, b in model.named_buffers() if b.is_meta]
+    if missing:
+        raise ValueError(f"checkpoint left {len(missing)} tensors "
+                         f"unloaded, e.g. {missing[:3]}")
+
+
+def qwen2_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: Qwen2Config,
+                          prefix: str = "model.", dtype=None, device=None,
+                          quantize_text_bits: Optional[int] = None
+                          ) -> Qwen2Model:
+    """HF Qwen2 tensors → ``Qwen2Model`` on ``device``: projections and
+    embeddings at ``dtype`` (the config's by default), norm scales f32.
+    With ``quantize_text_bits=4`` every projection and the lm_head become
+    rank-1 uniform int4 stores, quantized from the stored values."""
+    if quantize_text_bits == 8:
+        raise NotImplementedError(f"int8 weight-only serving is "
+                                  f"{quant.QUEUE_MSG}")
+    if quantize_text_bits not in (None, 4):
+        raise ValueError("load-time quantization supports bits 4 or 8 "
+                         f"(got bits={quantize_text_bits})")
+    device = default_device(device)
+    model = Qwen2Model(cfg, device="meta", dtype=dtype)
+    _fill(model, "embed_tokens", sd[f"{prefix}embed_tokens.weight"], device)
+    _fill(model, "final_norm", sd[f"{prefix}norm.weight"], device)
+    for i, layer in enumerate(model.layers):
+        lp = f"{prefix}layers.{i}."
+        _fill(layer, "input_norm", sd[lp + "input_layernorm.weight"], device)
+        _fill(layer, "post_attn_norm",
+              sd[lp + "post_attention_layernorm.weight"], device)
+        for name in ATTN_PROJ:
+            lin = layer.attn[name]
+            if lin.bias is not None:
+                _fill(lin, "bias", sd[lp + f"self_attn.{name}.bias"], device)
+    if quantize_text_bits is None:
+        _fill(model.lm_head, "weight", sd["lm_head.weight"], device)
+        for i, layer in enumerate(model.layers):
+            lp = f"{prefix}layers.{i}."
+            for grp, name in quant.GEMV_SITES:
+                hf = "self_attn" if grp == "attn" else "mlp"
+                _fill(getattr(layer, grp)[name], "weight",
+                      sd[lp + f"{hf}.{name}.weight"], device)
+        _check_loaded(model)
+        return model.requires_grad_(False)
+
+    # int4: one stacked store per projection site, filled a layer at a
+    # time from the stored tensor (JAX's _lazy_quant4u quantizes the
+    # stored values too, not a copy already cast to the model dtype)
+    L = cfg.num_hidden_layers
+    stores = {}
+    for grp, name in quant.GEMV_SITES:
+        hf = "self_attn" if grp == "attn" else "mlp"
+        stack = None
+        for i in range(L):
+            key = f"{prefix}layers.{i}.{hf}.{name}.weight"
+            w = _checked(sd[key], getattr(model.layers[i], grp)[name].weight,
+                         key, device)
+            qp = quant.quantize_int4_rank1(w.t(), nf4=False)
+            del w
+            if stack is None:
+                stack = {k: torch.empty((L,) + tuple(v.shape), dtype=v.dtype,
+                                        device=device)
+                         for k, v in qp.items()}
+            for k in stack:
+                stack[k][i] = qp[k]
+            del qp
+        stores[name] = stack
+    head = quant.quantize_int4_rank1(_checked(
+        sd["lm_head.weight"], model.lm_head.weight, "lm_head.weight",
+        device).t(), nf4=False)
+    quant.install_int4_(model, stores, head)
+    _check_loaded(model)
+    return model.requires_grad_(False)
+
+
+def vision_from_state_dict(sd: Mapping[str, torch.Tensor],
+                           cfg: VisionEncoderConfig,
+                           prefix: str = "model.vision_encoder.", dtype=None,
+                           device=None) -> VisionTower:
+    """Reference vision-tower tensors → ``VisionTower``: the conv patch
+    embedding flattened to the linear weight, q/k/v fused (rows q | k |
+    v), LayerNorm parameters f32."""
+    device = default_device(device)
+    tower = VisionTower(cfg, device="meta", dtype=dtype)
+    w = sd[prefix + "embeddings.patch_embedding.weight"]
+    _fill(tower.patch_embed, "weight", w.reshape(w.shape[0], -1), device)
+    _fill(tower.patch_embed, "bias",
+          sd[prefix + "embeddings.patch_embedding.bias"], device)
+    _fill(tower.post_ln, "scale", sd[prefix + "post_layernorm.weight"], device)
+    _fill(tower.post_ln, "bias", sd[prefix + "post_layernorm.bias"], device)
+    for i, layer in enumerate(tower.layers):
+        lp = f"{prefix}encoder.layers.{i}."
+        for ln in ("1", "2"):
+            mod = getattr(layer, f"ln{ln}")
+            _fill(mod, "scale", sd[lp + f"layer_norm{ln}.weight"], device)
+            _fill(mod, "bias", sd[lp + f"layer_norm{ln}.bias"], device)
+        for part in ("weight", "bias"):
+            _fill(layer.qkv, part, torch.cat(
+                [sd[lp + f"self_attn.{n}_proj.{part}"] for n in "qkv"]),
+                device)
+        for ours, theirs in (("o", "self_attn.out_proj"),
+                             ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            for part in ("weight", "bias"):
+                _fill(getattr(layer, ours), part,
+                      sd[lp + f"{theirs}.{part}"], device)
+    _check_loaded(tower)
+    return tower.requires_grad_(False)
+
+
+def projector_from_state_dict(sd: Mapping[str, torch.Tensor],
+                              vision_hidden: int, lm_hidden: int,
+                              projector_type: str = "mlp2x_gelu",
+                              prefix: str = "model.mm_projector.readout.",
+                              dtype=torch.bfloat16, device=None) -> Projector:
+    """``readout.{0,2,...}`` linears (a GELU between them has no
+    parameters) → ``Projector``."""
+    device = default_device(device)
+    proj = Projector(vision_hidden, lm_hidden, projector_type, "meta", dtype)
+    if f"{prefix}{2 * len(proj.layers)}.weight" in sd:
+        raise ValueError(f"checkpoint has more projector layers than "
+                         f"{projector_type}")
+    for j, lin in enumerate(proj.layers):
+        for part in ("weight", "bias"):
+            _fill(lin, part, sd[f"{prefix}{2 * j}.{part}"], device)
+    return proj.requires_grad_(False)
+
+
+def load_cogreasoner_from_hf(model_dir: str, cfg: CogReasonerConfig,
+                             dtype=None,
+                             quantize_text_bits: Optional[int] = None,
+                             device=None) -> CogReasoner:
+    """The whole CogReasoner from an HF checkpoint directory
+    (``model.safetensors`` with or without its index, or sharded
+    ``model-*.safetensors`` behind the index), on ``device`` — the card
+    unless the caller names another. ``dtype`` overrides the config's
+    dtypes (norm scales stay f32); ``quantize_text_bits=4`` loads the
+    decoder as rank-1 uniform int4 (see the module docstring)."""
+    sd = CheckpointReader(model_dir)
+    return CogReasoner(
+        text=qwen2_from_state_dict(sd, cfg.text, dtype=dtype, device=device,
+                                   quantize_text_bits=quantize_text_bits),
+        vision=vision_from_state_dict(sd, cfg.vision, dtype=dtype,
+                                      device=device),
+        projector=projector_from_state_dict(
+            sd, cfg.vision.hidden_size, cfg.text.hidden_size,
+            cfg.mm_projector_type, dtype=dtype or cfg.text.torch_dtype,
+            device=device))
+
+
+@torch.no_grad()
+def merge_lora(model: CogReasoner, lora: Dict,
+               lora_scale: float = 2.0) -> CogReasoner:
+    """Fold LoRA deltas into the base weights IN PLACE: W' = W + (a @
+    b)^T * lora_scale, summed in f32 and rounded once to W's dtype — the
+    PEFT ``merge_and_unload`` equivalent. ``lora`` is the port's tree
+    (``{"text": {"layers": [...], "lm_head"?}, "projector"?}``, or a bare
+    decoder tree); projections without an adapter are untouched. A
+    quantized decoder cannot take a dense delta."""
+    if "text" not in lora:
+        lora = {"text": lora}
+
+    def fold(lin: nn.Module, ab: Dict) -> None:
+        if isinstance(lin, quant.Int4Linear):
+            raise NotImplementedError("merging LoRA into an int4 decoder; "
+                                      "merge before quantizing")
+        w = lin.weight
+        a = ab["a"].detach().to(w.device, torch.float32)
+        b = ab["b"].detach().to(w.device, torch.float32)
+        delta = (a @ b) * lora_scale              # [din, dout]
+        w.copy_((w.to(torch.float32) + delta.t()).to(w.dtype))
+
+    text = lora.get("text") or {}
+    for layer, entry in zip(model.text.layers, text.get("layers", [])):
+        for grp, names in entry.items():
+            for name, ab in names.items():
+                fold(getattr(layer, grp)[name], ab)
+    if text.get("lm_head") is not None:
+        fold(model.text.lm_head, text["lm_head"])
+    proj = lora.get("projector") or {}
+    for lin, ab in zip(model.projector.layers, proj.get("layers", [])):
+        fold(lin, ab)
+    return model
+
+
+def cogreasoner_state_dict(model: CogReasoner, cfg: CogReasonerConfig,
+                           dtype=None) -> Dict[str, torch.Tensor]:
+    """The model's tensors under the reference checkpoint's names, at
+    ``dtype`` (the decoder config's by default; every tensor, norms
+    included, as the JAX exporter writes them). A tensor already at
+    ``dtype`` is the model's own storage, not a copy."""
+    dtype = dtype or cfg.text.torch_dtype
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(name: str, t: torch.Tensor) -> None:
+        sd[name] = t.detach().to(dtype)
+
+    def lin(name: str, mod: nn.Module) -> None:
+        if isinstance(mod, quant.Int4Linear):
+            raise ValueError("exporting a quantized decoder is not "
+                             "supported; export the bf16 model")
+        put(name + ".weight", mod.weight)
+        if mod.bias is not None:
+            put(name + ".bias", mod.bias)
+
+    text = model.text
+    put("model.embed_tokens.weight", text.embed_tokens)
+    put("model.norm.weight", text.final_norm)
+    lin("lm_head", text.lm_head)
+    for i, layer in enumerate(text.layers):
+        lp = f"model.layers.{i}."
+        put(lp + "input_layernorm.weight", layer.input_norm)
+        put(lp + "post_attention_layernorm.weight", layer.post_attn_norm)
+        for name in ATTN_PROJ:
+            lin(lp + f"self_attn.{name}", layer.attn[name])
+        for name in MLP_PROJ:
+            lin(lp + f"mlp.{name}", layer.mlp[name])
+
+    vis, vp = model.vision, "model.vision_encoder."
+    C, ps = cfg.vision.num_channels, cfg.vision.patch_size
+    pe = vis.patch_embed.weight
+    put(vp + "embeddings.patch_embedding.weight", pe.reshape(-1, C, ps, ps))
+    put(vp + "embeddings.patch_embedding.bias", vis.patch_embed.bias)
+    put(vp + "post_layernorm.weight", vis.post_ln.scale)
+    put(vp + "post_layernorm.bias", vis.post_ln.bias)
+    for i, layer in enumerate(vis.layers):
+        lp = f"{vp}encoder.layers.{i}."
+        for ln in ("1", "2"):
+            put(lp + f"layer_norm{ln}.weight", getattr(layer, f"ln{ln}").scale)
+            put(lp + f"layer_norm{ln}.bias", getattr(layer, f"ln{ln}").bias)
+        qkv = {part: getattr(layer.qkv, part).chunk(3)
+               for part in ("weight", "bias")}
+        for j, n in enumerate("qkv"):
+            for part in ("weight", "bias"):
+                put(lp + f"self_attn.{n}_proj.{part}", qkv[part][j])
+        lin(lp + "self_attn.out_proj", layer.o)
+        lin(lp + "mlp.fc1", layer.fc1)
+        lin(lp + "mlp.fc2", layer.fc2)
+    for j, layer in enumerate(model.projector.layers):
+        lin(f"model.mm_projector.readout.{2 * j}", layer)
+    return sd
+
+
+def save_cogreasoner_to_hf(model: CogReasoner, cfg: CogReasonerConfig,
+                           out_dir: str, dtype=None) -> str:
+    """Write the model as a reference-layout HF checkpoint
+    (``model.safetensors`` + its index + ``config.json``) — the inverse
+    of :func:`load_cogreasoner_from_hf`, in the files the JAX package's
+    exporter writes."""
+    from ..config import save_hf_config
+    from ..utils.io import atomic_write_json
+
+    os.makedirs(out_dir, exist_ok=True)
+    sd = cogreasoner_state_dict(model, cfg, dtype)
+    save_file(sd, os.path.join(out_dir, SHARD))
+    total = sum(t.numel() * t.element_size() for t in sd.values())
+    atomic_write_json(
+        os.path.join(out_dir, "model.safetensors.index.json"),
+        {"metadata": {"total_size": total},
+         "weight_map": {name: SHARD for name in sd}})
+    save_hf_config(cfg, os.path.join(out_dir, "config.json"))
+    return out_dir

@@ -1,14 +1,18 @@
-"""Byte-level tokenizer and selector token sets.
+"""Tokenizers and selector token sets.
 
-Copies of ``ByteTokenizer``, ``constrained_selector_token_ids`` and
-``selector_stop_token_ids`` from ``cogstream_tpu/processor/tokenizer.py``
-(importing that module would import JAX through the package
-``__init__``). tests/test_torch_host.py holds them to the originals.
+Copies of ``ByteTokenizer``, ``HFTokenizer``, ``load_tokenizer``,
+``constrained_selector_token_ids`` and ``selector_stop_token_ids`` from
+``cogstream_tpu/processor/tokenizer.py`` (importing that module would
+import JAX through the package ``__init__``). tests/test_torch_host.py
+holds them to the originals. ``HFTokenizer`` imports ``transformers``
+only when it is built: a checkpoint without tokenizer files takes the
+byte-level fallback, which needs nothing.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+import os
+from typing import Dict, List, Optional, Sequence
 
 IM_START = "<|im_start|>"
 IM_END = "<|im_end|>"
@@ -92,6 +96,54 @@ class ByteTokenizer:
         if len(ids) != 1:
             raise ValueError(f"{token!r} is not a single token")
         return ids[0]
+
+
+class HFTokenizer:
+    """Wraps a HuggingFace Qwen2 tokenizer directory (vocab/merges
+    JSONs), loaded at run time from a checkpoint path."""
+
+    def __init__(self, path: str, image_token: str = IMAGE_TOKEN):
+        from transformers import AutoTokenizer
+
+        self._tok = AutoTokenizer.from_pretrained(path, use_fast=True)
+        self.eos_token_id = self._tok.eos_token_id
+        self.pad_token_id = self._tok.pad_token_id or self._tok.eos_token_id
+        self.bos_token_id = self._tok.bos_token_id
+        self.image_token_id = self._tok.convert_tokens_to_ids(image_token)
+
+    def vocab_size(self) -> int:
+        return len(self._tok)
+
+    def encode(self, text: str) -> List[int]:
+        return self._tok.encode(text, add_special_tokens=False)
+
+    def decode(self, ids: Sequence[int],
+               skip_special_tokens: bool = False) -> str:
+        return self._tok.decode(list(ids),
+                                skip_special_tokens=skip_special_tokens)
+
+    def convert_tokens_to_ids(self, token: str) -> int:
+        return self._tok.convert_tokens_to_ids(token)
+
+
+def load_tokenizer(path: str, image_token_id: Optional[int] = None,
+                   vocab_size: Optional[int] = None):
+    """The checkpoint directory's tokenizer: the HF fast tokenizer when
+    the directory ships vocab files (every real Qwen2 checkpoint does),
+    else ``ByteTokenizer`` with the config's image-token id and vocab
+    size (the small checkpoints ``save_cogreasoner_to_hf`` writes)."""
+    if any(os.path.exists(os.path.join(path, f))
+           for f in ("tokenizer.json", "vocab.json",
+                     "tokenizer_config.json")):
+        return HFTokenizer(path)
+    kwargs = {}
+    if image_token_id is not None:
+        kwargs["image_token_id"] = image_token_id
+    if vocab_size is not None:
+        kwargs["vocab"] = vocab_size
+    print(f"[cogstream] {path} ships no tokenizer files; "
+          "using the byte-level fallback tokenizer")
+    return ByteTokenizer(**kwargs)
 
 
 def constrained_selector_token_ids(tok) -> List[int]:

@@ -30,7 +30,7 @@ from ..config import CogReasonerConfig
 from ..models import qwen2
 from ..models.cogreasoner import (SUMMARY_INSTRUCTION, SUMMARY_SYSTEM,
                                   CogReasoner, encode_images,
-                                  pixel_diff_keep_mask_host)
+                                  pixel_diff_keep_mask)
 from ..models.qwen2 import KVCache, Qwen2Model, init_kv_cache
 from .generate import decode_new_tokens, generate_tokens
 from .history import parse_selection
@@ -376,19 +376,22 @@ class StreamingSession:
                     self.cfg.compression.frames_per_event:
                 self._close_event()
 
-    def ingest_keep_mask(self, pixel_values: np.ndarray,
+    def ingest_keep_mask(self, pixel_values: torch.Tensor,
                          grid_size: Tuple[int, int, int],
                          merge_size: int) -> np.ndarray:
-        """The segment's pixel-diff keep mask (pure host numpy)."""
+        """The segment's pixel-diff keep mask, computed on the rows'
+        device and brought to the host for the segment plan."""
         t, gh, gw = (int(x) for x in grid_size)
         cc = self.cfg.compression
         merged = (gh // merge_size) * (gw // merge_size)
-        return pixel_diff_keep_mask_host(
-            pixel_values, t, merged, minor=np.zeros((t,), bool),
+        return pixel_diff_keep_mask(
+            pixel_values, t, merged,
+            minor=torch.zeros((t,), dtype=torch.bool,
+                              device=pixel_values.device),
             threshold=cc.pixel_diff_threshold,
             min_tokens=cc.min_tokens_per_frame,
             image_std=tuple(self.cfg.vision.image_std),
-            rescale_factor=self.cfg.vision.rescale_factor)
+            rescale_factor=self.cfg.vision.rescale_factor).cpu().numpy()
 
     @torch.inference_mode()
     def append_stream_segment(self, pixel_values: np.ndarray,
@@ -404,9 +407,11 @@ class StreamingSession:
         merged = (gh // merge_size) * (gw // merge_size)
         rows = t * gh * gw
         pad_rows = -(-rows // 1024) * 1024   # bucket the encode shape
-        mm = encode_images(self.model, pixel_values, np.array([[t, gh, gw]]),
+        pv = self._dev(pixel_values)   # one upload serves mask and tower
+        # the mask first: its host sync then waits for no tower work
+        keep = self.ingest_keep_mask(pv, (t, gh, gw), merge_size)
+        mm = encode_images(self.model, pv, np.array([[t, gh, gw]]),
                            np.array([merge_size]), pad_to=pad_rows)
-        keep = self.ingest_keep_mask(pixel_values, (t, gh, gw), merge_size)
         plan = self._segment_plan(keep, t, merged, timestamps)
         Sp = self._bucket(plan["n"] + t)
         n_img_p = self._bucket(max(len(plan["flat_img"]), 1), 128)

@@ -507,3 +507,58 @@ def test_int4_gemv_cuda_never_falls_back(dev):
     with pytest.raises(ValueError, match="dout % 8"):
         qg.gemv_k6(x, q4, torch.ones(132, device=dev),
                    torch.zeros(2, device=dev), False, torch.float32)
+
+
+@pytest.mark.parametrize("mode", ["AC", "FCC"])
+def test_engine_turn_card_matches_cpu(dev, mode, tmp_path, monkeypatch):
+    """``CogReasonerEngine.chat`` on a tiny f32 config with the events on
+    (two static scenes per segment, so k-means finds the scenes whatever
+    its generator draws): the card (K1-K4) and the CPU (plain versions)
+    give the same selection and greedy tokens."""
+    import copy
+    import dataclasses
+
+    import cogstream_tpu_torch.runtime.engine as eng_mod
+    from cogstream_tpu_torch.config import CogReasonerConfig, CompressionConfig
+    from cogstream_tpu_torch.models.cogreasoner import init_cogreasoner_params
+    from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
+
+    cfg = dataclasses.replace(
+        CogReasonerConfig.tiny(),
+        compression=CompressionConfig(frames_per_event=2,
+                                      keyframes_per_event=1,
+                                      min_events_for_compression=2))
+    rng = np.random.default_rng(0)
+    dirs = []
+    for i in range(2):
+        d = tmp_path / f"seg{i}"
+        d.mkdir()
+        scenes = [rng.integers(0, 256, (56, 84, 3), dtype=np.uint8)
+                  for _ in range(2)]
+        for k in range(4):
+            np.save(d / f"{k:03d}.npy", scenes[k // 2])
+        dirs.append(str(d))
+
+    def video(d):
+        return {"role": "stream", "content": [{"type": "video", "video": {
+            "video_path": d, "fps": 1, "max_frames": 8}}]}
+
+    conv = [video(dirs[0]), {"role": "user", "content": "what first?"},
+            {"role": "assistant", "content": "a pattern."}, video(dirs[1]),
+            {"role": "user", "content": "and then?"}]
+    seen = []
+    orig = eng_mod.decode_new_tokens
+
+    def capture(tokens, num, tok, *a, **k):
+        seen.append(tokens[0, :int(num[0])].tolist())
+        return orig(tokens, num, tok, *a, **k)
+
+    monkeypatch.setattr(eng_mod, "decode_new_tokens", capture)
+    cpu_model = init_cogreasoner_params(cfg, torch.Generator().manual_seed(0),
+                                        device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    tok = ByteTokenizer(image_token_id=cfg.image_token_index)
+    turns = [eng_mod.CogReasonerEngine(m, cfg, tok).chat(
+        conv, mode=mode, max_new_tokens=8) for m in (cpu_model, gpu_model)]
+    assert turns[0].selection == turns[1].selection
+    assert seen[0] == seen[1] and len(seen) == 2

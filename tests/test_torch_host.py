@@ -5,8 +5,12 @@ imports JAX), so it carries small copies of the host pieces its serving
 slice needs. Each copy is pinned here to the original: config fields
 and defaults, the byte tokenizer and selector token sets, selection
 parsing, prompt strings (byte-exact), the pixel-diff keep mask
-(byte-exact) and the vision metadata. The last tests check that the
-port imports with JAX and ``cogstream_tpu`` blocked.
+(byte-exact), the vision metadata, and the evaluation path's host
+processor (chat template, image processor, video loader, the
+conversation processor and the history rewrite: byte-exact outputs on
+the same frames). The last tests check that the port imports with JAX
+and ``cogstream_tpu`` blocked, and that no port module imports PIL,
+OpenCV, ``transformers`` or ``safetensors`` when it is imported.
 """
 
 import ast
@@ -23,7 +27,11 @@ import torch
 from cogstream_tpu import config as jcfg, presets as jpresets
 from cogstream_tpu.models import cogreasoner as jcr
 from cogstream_tpu.models import vision_encoder as jve
+from cogstream_tpu.processor import chat_template as jchat
+from cogstream_tpu.processor import image_processor as jimg
+from cogstream_tpu.processor import processing as jproc
 from cogstream_tpu.processor import tokenizer as jtok
+from cogstream_tpu.processor import video_loader as jvid
 from cogstream_tpu.runtime import history as jhist
 from cogstream_tpu.runtime import retrieval as jret
 from cogstream_tpu.runtime import session as jsess
@@ -31,7 +39,11 @@ from cogstream_tpu_torch import config as tcfg, presets as tpresets
 from cogstream_tpu_torch.models import cogreasoner as tcr
 from cogstream_tpu_torch.models import vision_encoder as tve
 from cogstream_tpu_torch.ops import rope as trope
+from cogstream_tpu_torch.processor import chat_template as tchat
+from cogstream_tpu_torch.processor import image_processor as timg
+from cogstream_tpu_torch.processor import processing as tproc
 from cogstream_tpu_torch.processor import tokenizer as ttok
+from cogstream_tpu_torch.processor import video_loader as tvid
 from cogstream_tpu_torch.runtime import history as thist
 from cogstream_tpu_torch.runtime import retrieval as tret
 from cogstream_tpu_torch.runtime import session as tsess
@@ -169,7 +181,9 @@ def test_pixel_diff_keep_mask_byte_exact(dtype):
         for thr, mt in ((0.1, 1), (40.0, 2)):
             kw = dict(threshold=thr, min_tokens=mt,
                       image_std=(0.5, 0.25, 0.5), rescale_factor=1 / 255)
-            got = tcr.pixel_diff_keep_mask_host(pv, t, merged, minor, **kw)
+            got = tcr.pixel_diff_keep_mask(torch.from_numpy(pv), t, merged,
+                                           torch.from_numpy(minor),
+                                           **kw).numpy()
             ref = jcr.pixel_diff_keep_mask_host(pv, t, merged, minor, **kw)
             assert got.dtype == ref.dtype
             np.testing.assert_array_equal(got, ref)
@@ -207,6 +221,244 @@ def test_vision_kv_ranges_cover_each_tiles_segments():
 # ---------------------------------------------------------------------------
 # the port never imports JAX
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# the evaluation path's host processor
+# ---------------------------------------------------------------------------
+
+def _frames(rng, n, h, w, chw=False):
+    f = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(n)]
+    return [x.transpose(2, 0, 1).copy() for x in f] if chw else f
+
+
+@pytest.mark.parametrize("case", ["video_resize", "video_chw", "array4d",
+                                  "mixed", "raw_uint8", "exact_size"])
+def test_image_processor_byte_exact(case):
+    rng = np.random.default_rng(0)
+    kw = {}
+    if case == "video_resize":
+        items, modals = [_frames(rng, 3, 50, 70)], ["video"]
+    elif case == "video_chw":
+        items, modals = [_frames(rng, 4, 40, 90, chw=True)], ["video"]
+    elif case == "array4d":
+        items, modals = [np.stack(_frames(rng, 2, 30, 30))], ["video"]
+    elif case == "mixed":
+        items = [_frames(rng, 1, 60, 45)[0], _frames(rng, 2, 33, 57)]
+        modals = ["image", "video"]
+    elif case == "raw_uint8":
+        items, modals = [_frames(rng, 3, 50, 70)], ["video"]
+        kw = dict(raw_uint8=True)
+    else:   # frames already at the smart-resize target: no resample
+        items, modals = [_frames(rng, 2, 56, 84)], ["video"]
+    j = jimg.ImageProcessor(jcfg.ProcessorConfig())(items, modals, **kw)
+    t = timg.ImageProcessor(tcfg.ProcessorConfig())(items, modals, **kw)
+    assert t.pixel_values.dtype == j.pixel_values.dtype
+    np.testing.assert_array_equal(t.pixel_values, j.pixel_values)
+    np.testing.assert_array_equal(t.grid_sizes, j.grid_sizes)
+    np.testing.assert_array_equal(t.merge_sizes, j.merge_sizes)
+    assert t.modals == j.modals
+
+
+@pytest.mark.parametrize("hw", [(224, 364), (28, 28), (17, 45)])
+def test_resize_bicubic_identity_at_equal_size(hw):
+    """At its own size a frame comes back unchanged — byte-identical to
+    Pillow's resize (the original's path), which copies in that case —
+    and the port does not import PIL for it."""
+    frame = np.random.default_rng(1).integers(0, 256, hw + (3,),
+                                              dtype=np.uint8)
+    got = timg.resize_bicubic(frame, hw)
+    np.testing.assert_array_equal(got, jimg.resize_bicubic(frame, hw))
+    np.testing.assert_array_equal(
+        timg.resize_bicubic(frame, (hw[0] + 14, hw[1])),
+        jimg.resize_bicubic(frame, (hw[0] + 14, hw[1])))
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["PIL"] = None
+        import numpy as np
+        from cogstream_tpu_torch.processor import image_processor as ip
+        f = np.zeros({hw + (3,)!r}, np.uint8)
+        assert ip.resize_bicubic(f, {hw!r}) is f
+        if f.shape[:2] == (224, 364):   # its own smart-resize target
+            b = ip.ImageProcessor()([[f, f]], ["video"])
+            assert tuple(b.grid_sizes[0]) == (2, 16, 26)
+        print("ok")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+CONVERSATIONS = [
+    [{"role": "user", "content": "hello there"}],
+    [{"role": "system", "content": "be brief"},
+     {"role": "user", "content": [{"type": "text", "text": "q1"}]},
+     {"role": "assistant", "content": "a1"}],
+    [{"role": "stream", "content": [
+        {"type": "video", "num_frames": 2, "timestamps": [0.0, 1.25]}]},
+     {"role": "user", "content": [
+         {"type": "image", "timestamp": 3.0},
+         {"type": "text", "text": "what?"}]}],
+]
+
+
+@pytest.mark.parametrize("conv", range(len(CONVERSATIONS)))
+@pytest.mark.parametrize("sys_p,gen_p", [(False, True), (True, False)])
+def test_render_chat_byte_exact(conv, sys_p, gen_p):
+    c = CONVERSATIONS[conv]
+    assert tchat.render_chat(c, sys_p, gen_p) == \
+        jchat.render_chat(c, sys_p, gen_p)
+    assert tchat.GENERATION_PROMPT == jchat.GENERATION_PROMPT
+    assert tchat.DEFAULT_SYSTEM_PROMPT == jchat.DEFAULT_SYSTEM_PROMPT
+
+
+@pytest.fixture(scope="module")
+def frame_dirs(tmp_path_factory):
+    """Two extracted-frame directories (.npy frames: the frame-dir path
+    of the video loader, no decoder needed)."""
+    rng = np.random.default_rng(2)
+    dirs = []
+    for i, n in enumerate((4, 3)):
+        d = tmp_path_factory.mktemp(f"frames{i}")
+        for k, f in enumerate(_frames(rng, n, 42, 70)):
+            np.save(d / f"{k:03d}.npy", f)
+        dirs.append(str(d))
+    return dirs
+
+
+def _eval_conversation(dirs, role="stream"):
+    def video(d):
+        return [{"type": "video", "video": {"video_path": d, "fps": 1,
+                                            "max_frames": 8}}]
+
+    conv = [{"role": role, "content": video(dirs[0])},
+            {"role": "user", "content": "what happened first?"},
+            {"role": "assistant", "content": "a red thing moved."},
+            {"role": role, "content": video(dirs[1])},
+            {"role": "user", "content": "and then?"}]
+    if role == "user":   # the reference layout: video rides the question
+        conv = [{"role": "user", "content": video(dirs[0]) + [
+                    {"type": "text", "text": "what happened first?"}]},
+                conv[2],
+                {"role": "user", "content": video(dirs[1]) + [
+                    {"type": "text", "text": "and then?"}]}]
+    return conv
+
+
+@pytest.mark.parametrize("role", ["stream", "user"])
+@pytest.mark.parametrize("labels", [False, True])
+def test_processor_outputs_byte_exact(frame_dirs, role, labels):
+    """CogStreamProcessor: prompt text, input_ids, labels, patch rows,
+    grids, timestamps and history identical to the original's."""
+    conv = _eval_conversation(frame_dirs, role)
+    kw = dict(return_labels=labels)
+    j = jproc.CogStreamProcessor(jtok.ByteTokenizer(), jcfg.ProcessorConfig())(
+        conv, rng=np.random.default_rng(0) if labels else None, **kw)
+    t = tproc.CogStreamProcessor(ttok.ByteTokenizer(), tcfg.ProcessorConfig())(
+        conv, rng=np.random.default_rng(0) if labels else None, **kw)
+    assert t.original_text == j.original_text
+    np.testing.assert_array_equal(t.input_ids, j.input_ids)
+    if labels:
+        np.testing.assert_array_equal(t.labels, j.labels)
+    else:
+        assert t.labels is None and j.labels is None
+    np.testing.assert_array_equal(t.images.pixel_values,
+                                  j.images.pixel_values)
+    np.testing.assert_array_equal(t.images.grid_sizes, j.images.grid_sizes)
+    assert t.images.modals == j.images.modals
+    assert t.all_timestamps.dtype == j.all_timestamps.dtype
+    np.testing.assert_array_equal(t.all_timestamps, j.all_timestamps)
+    assert (t.hist_qs, t.hist_as, t.current_question, t.total_image_num) == \
+        (j.hist_qs, j.hist_as, j.current_question, j.total_image_num)
+
+
+@pytest.mark.parametrize("visual", [True, False])
+@pytest.mark.parametrize("role", ["stream", "user"])
+def test_rewrite_history_byte_exact(frame_dirs, visual, role):
+    out = jproc.CogStreamProcessor(jtok.ByteTokenizer())(
+        _eval_conversation(frame_dirs, role))
+    for kept in ([], [0]):
+        args = (out.original_text, visual, [out.hist_qs[i] for i in kept],
+                [out.hist_as[i] for i in kept], out.current_question)
+        assert thist.rewrite_history(*args) == jhist.rewrite_history(*args)
+
+
+def test_video_loader_matches_original(tmp_path):
+    """load_video (OpenCV's decoder where no ffmpeg binary is installed)
+    and the shared frame plan: identical frames, stamps and duration."""
+    cv2 = pytest.importorskip("cv2")
+    path = str(tmp_path / "clip.mp4")
+    w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 10, (64, 48))
+    rng = np.random.default_rng(3)
+    for i in range(45):
+        w.write(rng.integers(0, 255, (48, 64, 3), np.uint8))
+    w.release()
+    for kw in ({}, {"start_time": 1.0, "end_time": 3.2},
+               {"max_frames": 2, "temporal_factor": 2},
+               {"fps": 2, "trim_time": 0.5}):
+        jf, jt, jd = jvid.load_video(path, **kw)
+        tf, tt, td = tvid.load_video(path, **kw)
+        assert (tt, td) == (jt, jd) and len(tf) == len(jf)
+        for a, b in zip(tf, jf):
+            np.testing.assert_array_equal(a, b)
+    assert tvid.cv2_frame_plan(45, 10.0, 1.0, None, 1.0, 3, 0.5)[2] == \
+        jvid.cv2_frame_plan(45, 10.0, 1.0, None, 1.0, 3, 0.5)[2]
+
+
+def test_native_video_binds_the_repository_library():
+    from cogstream_tpu.processor import native_video as jnv
+    from cogstream_tpu_torch.processor import native_video as tnv
+
+    assert tnv._SO_PATH == jnv._SO_PATH
+    assert tnv._SO_PATH == os.path.join(ROOT, "native", "libvideoio.so")
+
+
+def test_load_tokenizer(tmp_path, monkeypatch):
+    """Without tokenizer files: the byte fallback with the config's ids,
+    as the original. With them: the HF wrapper, whose methods forward to
+    ``AutoTokenizer`` as the original's do (a stand-in module here: no
+    tokenizer files ship in the repository)."""
+    import types
+
+    for kw in ({}, {"image_token_id": 151665, "vocab_size": 152064}):
+        j = jtok.load_tokenizer(str(tmp_path), *kw.values())
+        t = ttok.load_tokenizer(str(tmp_path), *kw.values())
+        assert type(t).__name__ == type(j).__name__ == "ByteTokenizer"
+        assert (t.image_token_id, t.vocab_size()) == \
+            (j.image_token_id, j.vocab_size())
+
+    class Fake:
+        eos_token_id, pad_token_id, bos_token_id = 7, None, 1
+
+        @classmethod
+        def from_pretrained(cls, path, use_fast=True):
+            return cls()
+
+        def __len__(self):
+            return 99
+
+        def convert_tokens_to_ids(self, tok):
+            return {"<image>": 42}.get(tok, 3)
+
+        def encode(self, text, add_special_tokens=True):
+            return [len(text), int(add_special_tokens)]
+
+        def decode(self, ids, skip_special_tokens=False):
+            return f"{ids}|{skip_special_tokens}"
+
+    monkeypatch.setitem(sys.modules, "transformers",
+                        types.SimpleNamespace(AutoTokenizer=Fake))
+    (tmp_path / "tokenizer.json").write_text("{}")
+    j = jtok.load_tokenizer(str(tmp_path))
+    t = ttok.load_tokenizer(str(tmp_path))
+    assert isinstance(t, ttok.HFTokenizer)
+    for attr in ("eos_token_id", "pad_token_id", "bos_token_id",
+                 "image_token_id"):
+        assert getattr(t, attr) == getattr(j, attr)
+    assert (t.vocab_size(), t.encode("abc"), t.decode((1, 2), True),
+            t.convert_tokens_to_ids("x")) == \
+        (j.vocab_size(), j.encode("abc"), j.decode((1, 2), True),
+         j.convert_tokens_to_ids("x"))
+
 
 def _port_modules():
     mods = []
@@ -258,3 +510,43 @@ def test_port_sources_never_name_jax():
                 root = n.split(".")[0]
                 assert root not in ("jax", "jaxlib", "cogstream_tpu"), \
                     f"{path} imports {n}"
+
+
+HOST_LIBS = ("PIL", "cv2", "transformers", "safetensors")
+
+
+def test_port_sources_import_host_libraries_lazily():
+    """AST scan: no port file (nor chip_smoke.py) imports PIL, cv2,
+    transformers or safetensors at module level — only inside the
+    function that uses it — so a machine without them runs the port."""
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PORT):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    for path in files:
+        tree = ast.parse(open(path).read(), path)
+        for node in tree.body:
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for n in names:
+                assert n.split(".")[0] not in HOST_LIBS, \
+                    f"{path} imports {n} at module level"
+
+
+def test_port_imports_without_host_libraries():
+    """Every port module imports with PIL, cv2, transformers and
+    safetensors blocked."""
+    code = textwrap.dedent(f"""
+        import sys, importlib
+        for m in {HOST_LIBS!r}:
+            sys.modules[m] = None
+        for m in {_port_modules()!r}:
+            importlib.import_module(m)
+        print("ok")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
