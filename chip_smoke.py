@@ -26,7 +26,12 @@ Phases (each prints one line or a few; any failure exits non-zero):
    from CUDA graphs; K4's two calls must be bit-identical and one call
    captured in a graph, replayed after its q / eff were rewritten, must
    equal the eager call; K4 also runs a verify step (S = 8). Pad rows
-   and fully masked rows must be exactly 0;
+   and fully masked rows must be exactly 0. Then pooled addressing: K3
+   (the 4384-token prefill) and K4 (S = 1 and 8) read rows [2] and
+   [3, 1] of a [4, 9216, 4, 128] pool cache through ``rows``, each call
+   bit-identical to the kernel on a contiguous copy of those rows and
+   within the 2-ulp bound of the plain version, timed beside that copy's
+   call; one K4 call with rows replays in a CUDA graph;
 4. reference — a tiny-config session (f32) runs ingest → ask(AC) →
    ingest → ask(FCC) on the card (kernels) and on the CPU (plain
    versions); greedy tokens, selections and slot ranges must agree. Then
@@ -34,7 +39,9 @@ Phases (each prints one line or a few; any failure exits non-zero):
    tiny training (f32, dropout 0, the same weights and LoRA init on
    both): two ``train_stage1`` steps and two ``Stage2Trainer`` turns
    (one with a pooling plan; the tower runs K5 on the card), losses and
-   updated adapters held to the CPU's;
+   updated adapters held to the CPU's. A tiny 3-row ``SessionPool``
+   (ingest_batch, ask_batch AC then FCC, a solo ask, ask_stream) on the
+   card and the CPU: the same tokens, selections, ranges, positions;
 5. main path — a 7B-width ``StreamingSession`` (cogreasoner_7b, bf16,
    random weights from a seeded generator, 16384-slot cache) ingests two
    16-frame segments (24x42 patch grids, merge 2, seeded uint8 patch
@@ -59,6 +66,19 @@ Phases (each prints one line or a few; any failure exits non-zero):
    ``save_cogreasoner_to_hf`` → ``load_cogreasoner_from_hf`` bit-identical,
    the int4 load identical to ``quantize_text_``, and that int4 model's
    FCC turns launch K6 and K8 (write / load seconds, host peak RSS);
+9. pooled serving (runs on the phase-5 model, after phase 8, before
+   phases 7 and 6) — (a) a ``SessionPool`` of 4 rows x 16384 slots
+   (3.76 GB of cache): two ``ingest_batch`` ticks of a seeded 16-frame
+   24x42 segment per row, ``ask_batch`` AC then FCC on all rows (32
+   greedy tokens), a solo pooled ask (K3 / K4 through ``rows``, allocator
+   peak below one row's bytes: no copy of the whole row), ``ask_stream``
+   in chunks of 16, and row 3 saved, asked, closed, restored with ``open_restored``
+   and asked again with the same tokens; the rows a call does not
+   address keep their checksums; (b) ``SessionServer(pool_rows=4)``
+   over HTTP on 127.0.0.1: four clients create, ingest phase 8's clip,
+   ask FCC twice, one streams; every answer non-empty, the stream ends
+   with 0x1e and its meta, one frontend batch holds more than one row.
+   K1-K4 launch in each, all K1 / K3 / K4 on the tensor-core kernels;
 7. training main path (runs on the phase-5 model, before phase 6) — the
    frozen ``cogreasoner_7b`` base with LoRA r=8 on all 7 projections x
    28 layers (stage 1), plus the projector readout (stage 2): (a)
@@ -91,6 +111,7 @@ it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -816,6 +837,86 @@ def check_int4_kernels(dev):
     return results
 
 
+def check_rows_kernels(dev):
+    """Phase 3, pooled addressing: K3 and K4 reading a [4, 9216, 4, 128]
+    bf16 pool cache through ``rows`` ([2] and [3, 1]) — K3 at the timed
+    4384-token prefill over 4607 history slots, K4 at S = 1 and S = 8
+    over 9000 — each call bit-identical to the same kernel on a
+    contiguous copy of the addressed rows and within the 2-ulp row bound
+    of the plain version (which gathers); device ms beside the call
+    without ``rows``; one K4 call with ``rows`` captured in a CUDA graph
+    and replayed after q was rewritten equals the eager call. Returns
+    {label: (ms with rows, ms on the contiguous copy)}."""
+    import torch
+
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    rng = np.random.default_rng(9)
+    bf = torch.bfloat16
+    Bp, T, Hq, Hkv, Dl = 4, 9216, 28, 4, 128
+
+    def dev_t(a, dtype=None):
+        return torch.as_tensor(a).to(dev, dtype)
+
+    pk = dev_t(rng.standard_normal((Bp, T, Hkv, Dl)), bf)
+    pv = dev_t(rng.standard_normal((Bp, T, Hkv, Dl)), bf)
+    allowed = rng.random((1, T)) > 0.3
+    timings = {}
+    for rows in ([2], [3, 1]):
+        B = len(rows)
+        cr = lma.cache_rows(rows, dev)
+        kc, vc = pk[rows].contiguous(), pv[rows].contiguous()
+        for kind, S, hist in (("K3", 4384, 4607), ("K4", 1, 9000),
+                              ("K4", 8, 9000)):
+            pos = np.full((B, T), -1, np.int32)
+            pos[:, :hist + S] = np.arange(hist + S)
+            pos[:, rng.choice(hist, 300, replace=False)] = -1
+            al = np.repeat(allowed, B, 0)
+            al[:, hist:] = True
+            qpos = np.tile(hist + np.arange(S, dtype=np.int32), (B, 1))
+            if S > 1:
+                qpos[:, -1] = -1            # a padded query
+            eff = lma.effective_kv_positions(dev_t(pos, torch.int32),
+                                             dev_t(al, torch.bool))
+            qp = dev_t(qpos, torch.int32)
+            q = dev_t(rng.standard_normal((B, S, Hq, Dl)), bf)
+            wrap = (lma.prefill_flash_attention if kind == "K3"
+                    else lma.decode_attention)
+            n0 = wrap.rows_launches
+            got = wrap(q, pk, pv, qp, eff, rows=cr)
+            want = wrap(q, kc, vc, qp, eff)
+            same = bool(torch.equal(got, want))
+            err, ratio = row_check(got, lma.gqa_attention_plain(
+                q, pk, pv, qp, eff, rows=cr), Dl)
+            timer = (lambda f: cuda_ms(f, 5)) if kind == "K3" \
+                else (lambda f: graph_ms(f, 20))
+            ms_rows = timer(lambda: wrap(q, pk, pv, qp, eff, rows=cr))
+            ms_flat = timer(lambda: wrap(q, kc, vc, qp, eff))
+            label = f"{kind} S={S} rows={rows}"
+            timings[label] = (ms_rows, ms_flat)
+            log(f"kernel {label}: bit-identical to the contiguous copy "
+                f"{same}; max_abs_err={err:.6g}, worst row at {ratio:.3g} "
+                f"of its bound; {ms_rows:.4f} ms with rows, {ms_flat:.4f} "
+                f"ms on the contiguous copy")
+            if not same or not ratio <= 1.0 or wrap.rows_launches == n0:
+                raise AssertionError(f"{label} disagrees")
+    # capture: one K4 call with rows, replayed after q is rewritten
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out_g = lma.decode_attention(q, pk, pv, qp, eff, rows=cr)
+    q.copy_(dev_t(rng.standard_normal(tuple(q.shape)), bf))
+    g.replay()
+    torch.cuda.synchronize()
+    replay = bool(torch.equal(out_g, lma.decode_attention(q, pk, pv, qp, eff,
+                                                          rows=cr)))
+    log(f"kernel K4 rows={rows} graph replay after q rewritten equals the "
+        f"eager call {replay}")
+    if not replay:
+        raise AssertionError("K4 with rows differs under graph replay")
+    return timings
+
+
 # ---------------------------------------------------------------------------
 # phase 4: tiny session, kernels on the card vs plain versions on the CPU
 # ---------------------------------------------------------------------------
@@ -863,6 +964,64 @@ def check_reference(dev):
         f"{got_ranges == ref_ranges}; cache k max_abs_err {err:.3g}")
     if got != ref or got_ranges != ref_ranges or not err <= 1e-4:
         raise AssertionError("tiny session on the card disagrees with the "
+                             "plain versions on the CPU")
+
+
+def run_tiny_pool(model, cfg, device):
+    """A tiny 3-row SessionPool on ``device``: one ingest_batch tick,
+    ask_batch AC then FCC on every row, a solo ask on row 1, ask_stream
+    on row 2. Returns (answers, per-row slot ranges, cache positions)."""
+    from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
+    from cogstream_tpu_torch.runtime.pool import SessionPool
+
+    tok = ByteTokenizer(image_token_id=cfg.image_token_index)
+    pool = SessionPool(model.to(device), cfg, tok, n_rows=3, max_len=1024)
+    rng = np.random.default_rng(0)
+    t, gh, gw = 3, 4, 4
+    for _ in range(3):
+        pool.open()
+    pool.ingest_batch([(b, rng.integers(0, 256, (t * gh * gw, 3 * 14 * 14),
+                                        dtype=np.uint8),
+                        (t, gh, gw), 2, [0.0, 1.0, 2.0]) for b in range(3)])
+    out = [pool.ask_batch([(b, f"what is in view {b}?") for b in range(3)],
+                          mode=m, max_new_tokens=8) for m in ("AC", "FCC")]
+    out.append(pool.ask(1, "and then?", mode="FCC", max_new_tokens=8))
+    out.append(list(pool.sessions[2].ask_stream("more?", mode="AC",
+                                                max_new_tokens=8, chunk=3)))
+    ranges = [[(r.kind, r.start, r.end) for r in pool.sessions[b].ranges]
+              for b in range(3)]
+    return out, ranges, pool.cache.pos.cpu()
+
+
+def check_reference_pool(dev):
+    """Phase 4, pooled: the tiny f32 pool on the card (K1-K4, K3 / K4
+    reading the pool through ``rows``) and on the CPU; greedy tokens,
+    selections, slot ranges and cache positions must agree."""
+    import copy
+
+    import torch
+
+    from cogstream_tpu_torch.config import CogReasonerConfig
+    from cogstream_tpu_torch.models.cogreasoner import init_cogreasoner_params
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    cfg = CogReasonerConfig.tiny()
+    cpu_model = init_cogreasoner_params(cfg, torch.Generator().manual_seed(0),
+                                        device="cpu")
+    gpu_model = copy.deepcopy(cpu_model)
+    ref = run_tiny_pool(cpu_model, cfg, "cpu")
+    r0 = (lma.prefill_flash_attention.rows_launches,
+          lma.decode_attention.rows_launches)
+    got = run_tiny_pool(gpu_model, cfg, dev)
+    rows = (lma.prefill_flash_attention.rows_launches - r0[0],
+            lma.decode_attention.rows_launches - r0[1])
+    same = (got[0] == ref[0], got[1] == ref[1], torch.equal(got[2], ref[2]))
+    log(f"reference pool: tiny 3-row pool answers equal {same[0]}, ranges "
+        f"equal {same[1]}, cache positions equal {same[2]}; K3 / K4 rows "
+        f"launches on the card {rows}; last answers {got[0][2]['tokens']} "
+        f"vs cpu {ref[0][2]['tokens']}")
+    if not all(same) or min(rows) == 0:
+        raise AssertionError("tiny pool on the card disagrees with the "
                              "plain versions on the CPU")
 
 
@@ -1093,8 +1252,10 @@ class PhaseTimer:
 
         self.torch = torch
         self.forwards = []        # (S, t_start, t_end)
+        self.logits = []          # (t_start, t_end)
         self.encode_s = []
         fwd, enc = qwen2.qwen2_forward, sess_mod.encode_images
+        head = qwen2.lm_logits
 
         def timed_forward(model, embeds, *a, **k):
             torch.cuda.synchronize()
@@ -1102,6 +1263,14 @@ class PhaseTimer:
             out = fwd(model, embeds, *a, **k)
             torch.cuda.synchronize()
             self.forwards.append((embeds.shape[1], t0, time.perf_counter()))
+            return out
+
+        def timed_logits(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = head(*a, **k)
+            torch.cuda.synchronize()
+            self.logits.append((t0, time.perf_counter()))
             return out
 
         def timed_encode(*a, **k):
@@ -1113,8 +1282,10 @@ class PhaseTimer:
             return out
 
         qwen2.qwen2_forward = timed_forward
+        qwen2.lm_logits = timed_logits
         sess_mod.encode_images = timed_encode
         self.restore = lambda: (setattr(qwen2, "qwen2_forward", fwd),
+                                setattr(qwen2, "lm_logits", head),
                                 setattr(sess_mod, "encode_images", enc))
 
     def mark(self):
@@ -1127,6 +1298,24 @@ class PhaseTimer:
         if len(starts) < 2:
             return float("nan")
         return (len(starts) - 1) / (starts[-1] - starts[0])
+
+    def step_split(self, since: int) -> str:
+        """A decode step's wall, split into the forward, the lm_head
+        logits and the rest of the loop between two forwards (sampling,
+        the done check, the next embedding): means in ms over the steps
+        after ``since``."""
+        dec = [(t0, t1) for S, t0, t1 in self.forwards[since:] if S == 1]
+        if len(dec) < 2:
+            return "no decode steps"
+        fwd = lg = rest = 0.0
+        for (a0, a1), (b0, _) in zip(dec, dec[1:]):
+            head = sum(t1 - t0 for t0, t1 in self.logits
+                       if t0 >= a1 and t1 <= b0)
+            fwd, lg, rest = fwd + a1 - a0, lg + head, rest + b0 - a1 - head
+        n = len(dec) - 1
+        return (f"step {1e3 * (dec[-1][0] - dec[0][0]) / n:.2f} ms = forward "
+                f"{1e3 * fwd / n:.2f} + logits {1e3 * lg / n:.2f} + rest "
+                f"{1e3 * rest / n:.2f}")
 
 
 def run_main_path(dev, stamp):
@@ -1213,7 +1402,9 @@ def run_main_path(dev, stamp):
         log(f"main: ask {mode}: turn {turn_s:.3f}s; selector "
             f"{(sel_s[0] if sel_s else 0.0):.3f}s (selection "
             f"{r['selection']!r}); {len(r['tokens'])} tokens, marginal "
-            f"decode {dec:.1f} tok/s [{stamp}]")
+            f"decode {dec:.1f} tok/s; "
+            f"{timer.step_split(after_sel[0] if after_sel else mark)} "
+            f"[{stamp}]")
         toks = r["tokens"]
         if not (toks and all(0 <= x < cfg.text.vocab_size for x in toks)):
             raise AssertionError(f"bad answer tokens {toks}")
@@ -1781,6 +1972,479 @@ def run_checkpoint_round_trip(dev, stamp, video_dir, query_dir):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: pooled serving at full width and depth, and the HTTP server
+# ---------------------------------------------------------------------------
+
+POOL_ROWS, POOL_LEN = 4, 16384
+
+
+def row_checksums(cache, rows):
+    """Per pool row, sums of its K, V (as int16 and int32 words) and
+    positions: a change of any stored bit changes them (almost surely)."""
+    import torch
+
+    out = {}
+    for r in rows:
+        sums = []
+        for t in (cache.k[:, r], cache.v[:, r]):
+            for w in (torch.int16, torch.int32):   # one layer at a time
+                sums.append(sum(int(t[li].view(w).sum(dtype=torch.int64))
+                                for li in range(t.shape[0])))
+        sums.append(int(cache.pos[r].sum(dtype=torch.int64)))
+        out[r] = tuple(sums)
+    return out
+
+
+def peak_sites(call, top: int = 6):
+    """Runs ``call()`` under the CUDA allocator's history and itemizes
+    its peak: replays the allocations made during the call (memory
+    resident before it is not counted) and sums, at the moment the sum
+    was largest, the live bytes by the innermost frame in the port that
+    allocated them. Returns (result, peak bytes, [(bytes, site)])."""
+    import torch
+
+    hist = torch.cuda.memory
+    hist._record_memory_history(enabled="all", context="alloc",
+                                stacks="python", max_entries=1_000_000)
+    try:
+        res = call()
+        torch.cuda.synchronize()
+        trace = hist._snapshot()["device_traces"][torch.cuda.current_device()]
+    finally:
+        hist._record_memory_history(enabled=None)
+
+    def site(frames):
+        for f in frames:
+            if "cogstream_tpu_torch" in f["filename"]:
+                name = f["filename"].split("cogstream_tpu_torch/")[-1]
+                return f"{name}:{f['line']} {f['name']}"
+        return "outside the port"
+
+    live, cur, peak, at_peak = {}, 0, 0, {}
+    for e in trace:
+        if e["action"] == "alloc":
+            live[e["addr"]] = (e["size"], e.get("frames", []))
+            cur += e["size"]
+            if cur > peak:
+                peak, at_peak = cur, dict(live)
+        elif e["action"] == "free_completed" and e["addr"] in live:
+            cur -= live.pop(e["addr"])[0]
+    by_site = {}
+    for size, frames in at_peak.values():
+        key = site(frames)
+        by_site[key] = by_site.get(key, 0) + size
+    return res, peak, sorted(((b, k) for k, b in by_site.items()),
+                             reverse=True)[:top]
+
+
+def reset_counts():
+    for i in BF16_PATH:
+        wrapper(i).launches = 0
+    for i in TC_PATH:
+        wrapper(i).tc_launches = 0
+    for i in (2, 3):
+        wrapper(i).rows_launches = 0
+
+
+def read_counts():
+    launches = {KERNELS[i][0]: wrapper(i).launches for i in BF16_PATH}
+    tc = {KERNELS[i][0]: wrapper(i).tc_launches for i in TC_PATH}
+    rows = {KERNELS[i][0]: wrapper(i).rows_launches for i in (2, 3)}
+    all_tc = all(tc[KERNELS[i][0]] == launches[KERNELS[i][0]]
+                 for i in TC_PATH)
+    return launches, tc, rows, all_tc
+
+
+def pooled_step_cost(pool, stamp: str, steps: int = 10):
+    """One pooled decode step over all the pool's rows (B = 4 at their
+    fill levels, each query at its row's next position, a read window
+    over the deepest row, plus the full-vocab logits), as
+    ``decode_step_cost`` measures the solo step: launches and device ms
+    from torch.profiler, wall ms over ``steps`` unprofiled steps. Every
+    slot is dropped (the step's K/V write puts back the bytes it reads),
+    so the rows keep their contents. Returns (launches, device ms, wall
+    ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cogstream_tpu_torch.models import qwen2
+    from cogstream_tpu_torch.ops.lm_attention import cache_rows
+    from cogstream_tpu_torch.runtime.session import StreamingSession
+
+    text, cache = pool.model.text, pool.cache
+    order = sorted(pool.sessions)
+    dev = cache.pos.device
+    rows = cache_rows(order, dev)
+    fill = [pool.sessions[r].write_index for r in order]
+    window = StreamingSession.kv_window_for(max(fill) + 64, pool.max_len) \
+        or pool.max_len
+    pos = torch.tensor([[pool.sessions[r].next_pos] for r in order],
+                       dtype=torch.int32, device=dev)
+    drop = torch.full((len(order), 1), pool.max_len, dtype=torch.int64,
+                      device=dev)
+    emb = torch.zeros((len(order), 1, text.cfg.hidden_size),
+                      dtype=text.dtype, device=dev)
+    allowed = torch.ones((len(order), pool.max_len), dtype=torch.bool,
+                         device=dev)
+
+    def step():
+        h, _ = qwen2.qwen2_forward(text, emb, pos, cache, kv_allowed=allowed,
+                                   kv_window=window, write_slots=drop,
+                                   cache_rows=rows)
+        qwen2.lm_logits(text, h)
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    n = sum(e.count for e in kern)
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    top = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms "
+                    f"x{e.count}" for e in sorted(
+                        kern, key=lambda e: -e.self_device_time_total)[:6])
+    log(f"pool: decode step over {len(order)} rows (fill {fill}, window "
+        f"{window}): {n} launches, device {dev_ms:.2f} ms, wall "
+        f"{wall_ms:.2f} ms (busy {dev_ms / wall_ms:.3f}); largest: {top} "
+        f"[{stamp}]")
+    return n, dev_ms, wall_ms
+
+
+def run_pool_path(model, dev, stamp, b1_rate):
+    """Phase 9 (pool), on the phase-5 bf16 7B model: a ``SessionPool`` of
+    4 rows x 16384 slots. Two ``ingest_batch`` ticks of one seeded
+    16-frame 24x42 segment per row (each row its own seed); ``ask_batch``
+    AC, then FCC (``select_batch``) on all 4 rows, 32 greedy tokens; a
+    solo ``pool.ask`` on row 1 (K3 / K4 through ``rows``); ``ask_stream``
+    on row 2 in chunks of 16; row 3 saved, asked (FCC), closed, restored
+    with ``open_restored`` and asked again: the same tokens. Checks: rows
+    a call does not address keep their checksums; K1-K4 launch, every
+    K1 / K3 / K4 launch on its tensor-core kernel, K3 and K4 launch with
+    ``rows``; the solo ask's allocator peak stays below one row's bytes
+    (no copy of the whole row). Returns metrics."""
+    import shutil
+
+    import torch
+
+    from cogstream_tpu_torch import presets
+    from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
+    from cogstream_tpu_torch.runtime.pool import SessionPool
+
+    cfg = presets.cogreasoner_7b()
+    tok = ByteTokenizer(image_token_id=cfg.image_token_index,
+                        vocab=cfg.text.vocab_size)
+    snap_dir = os.path.join(REPO, "build", "chip_smoke_pool")
+    shutil.rmtree(snap_dir, ignore_errors=True)
+    os.makedirs(snap_dir)
+    t, gh, gw, ms = 16, 24, 42, 2
+    metrics = {}
+    timer = PhaseTimer()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    try:
+        pool = SessionPool(model, cfg, tok, n_rows=POOL_ROWS,
+                           max_len=POOL_LEN)
+        c = pool.cache
+        row_bytes = (c.k[:, 0].numel() * c.k.element_size() * 2
+                     + c.pos[0].numel() * 4)
+        log(f"pool: {POOL_ROWS} rows x {POOL_LEN} slots, pooled cache "
+            f"{nbytes(c.k, c.v, c.pos) / 1e9:.2f} GB ({row_bytes / 1e9:.3f} "
+            f"GB a row) [{stamp}]")
+        rows = [pool.open() for _ in range(POOL_ROWS)]
+        for tick in range(2):
+            segs = [np.random.default_rng(100 * tick + r).integers(
+                0, 256, (t * gh * gw, 3 * 14 * 14), dtype=np.uint8)
+                for r in rows]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pool.ingest_batch([(r, segs[r], (t, gh, gw), ms,
+                                [float(tick * t + f) for f in range(t)])
+                               for r in rows])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            metrics[f"pool_ingest_tick{tick}_s"] = wall
+            log(f"pool: ingest_batch tick {tick}: {wall:.3f}s for "
+                f"{POOL_ROWS} x {t} frames ({POOL_ROWS * t / wall:.1f} "
+                f"frames/s); fill "
+                f"{[pool.sessions[r].write_index for r in rows]} [{stamp}]")
+        sel_s, after_sel = [], []
+        select_batch = pool.sessions[0].selector.select_batch
+
+        def timed_select(*a, **k):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            out = select_batch(*a, **k)
+            torch.cuda.synchronize()
+            sel_s.append(time.perf_counter() - s0)
+            after_sel.append(timer.mark())
+            return out
+
+        pool.sessions[0].selector.select_batch = timed_select
+        for mode, q in (("AC", "What is happening in row {}?"),
+                        ("FCC", "What changed in row {}?")):
+            mark = timer.mark()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pool.ask_batch([(r, q.format(r)) for r in rows],
+                                 mode=mode, max_new_tokens=32)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rate = timer.decode_rate(after_sel[-1] if mode == "FCC"
+                                     else mark)
+            metrics[f"pool_ask_batch_{mode}_s"] = wall
+            metrics[f"pool_{mode}_decode_tok_per_s_per_row"] = rate
+            n_tok = [len(out[r]["tokens"]) for r in rows]
+            log(f"pool: ask_batch {mode}: {wall:.3f}s"
+                + (f"; selector batch {sel_s[-1]:.3f}s" if mode == "FCC"
+                   else "")
+                + f"; tokens {n_tok}; marginal decode {rate:.1f} tok/s a "
+                f"row, {POOL_ROWS * rate:.1f} tok/s over {POOL_ROWS} rows "
+                f"(phase 5, B = 1: {b1_rate:.1f}); "
+                f"{timer.step_split(after_sel[-1] if mode == 'FCC' else mark)}"
+                f"; selections "
+                f"{[out[r]['selection'] for r in rows]} [{stamp}]")
+            if min(n_tok) == 0 or not all(
+                    0 <= x < cfg.text.vocab_size for r in rows
+                    for x in out[r]["tokens"]):
+                raise AssertionError(f"pool ask_batch {mode} answers bad")
+        pool.sessions[0].selector.select_batch = select_batch
+        if sel_s:
+            metrics["pool_selector_batch_s"] = sel_s[-1]
+        before = row_checksums(pool.cache, rows)
+        (metrics["pool_step_launches"], metrics["pool_step_device_ms"],
+         metrics["pool_step_ms"]) = pooled_step_cost(pool, stamp)
+        if row_checksums(pool.cache, rows) != before:
+            raise AssertionError("the measured pooled step changed a row")
+
+        def untouched(call, row, label):
+            """``call()``'s result, wall s and allocator peak above the
+            memory resident before it (the rows' checksums allocate per
+            layer, so the peak is taken around the call alone); the other
+            rows' checksums must not change."""
+            others = [r for r in rows if r != row]
+            before = row_checksums(pool.cache, others)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            same = row_checksums(pool.cache, others) == before
+            log(f"pool: {label}: {wall:.3f}s; rows {others} unchanged "
+                f"{same} [{stamp}]")
+            if not same:
+                raise AssertionError(f"{label} changed rows it does not "
+                                     "address")
+            return res, wall, peak
+
+        r0 = (wrapper(2).rows_launches, wrapper(3).rows_launches)
+        solo, _, peak = untouched(lambda: pool.ask(
+            1, "What is on screen now?", mode="FCC", max_new_tokens=32),
+            1, "solo ask on row 1")
+        rows_used = (wrapper(2).rows_launches - r0[0],
+                     wrapper(3).rows_launches - r0[1])
+        log(f"pool: solo ask on row 1: {len(solo['tokens'])} tokens; "
+            f"allocator peak above the resident {peak / 1e9:.3f} GB (one "
+            f"row {row_bytes / 1e9:.3f} GB); K3 / K4 launches with rows "
+            f"{rows_used} [{stamp}]")
+        # the bound catches a copy of the whole row; a copy of one layer's
+        # share would fit under it: that one tests/test_torch_pool.py
+        # excludes (every pooled K3 / K4 call gets the pool's storage)
+        if not peak < row_bytes or min(rows_used) == 0:
+            raise AssertionError("the solo pooled ask copied its whole row "
+                                 "or did not read it through rows")
+        deltas, wall, _ = untouched(lambda: list(pool.sessions[2].ask_stream(
+            "Describe it step by step.", mode="AC", max_new_tokens=32,
+            chunk=16)), 2, "ask_stream on row 2 (chunks of 16)")
+        final = deltas[-1]
+        if not isinstance(final, dict) or "".join(deltas[:-1]) != \
+                final["text"]:
+            raise AssertionError("ask_stream did not end with its result")
+        metrics["pool_ask_stream_s"] = wall
+
+        path = os.path.join(snap_dir, "row3.snap.npz")
+        _, save_s, _ = untouched(lambda: pool.sessions[3].save(path), 3,
+                              "save row 3")
+        q3 = "What happened to the last block?"
+        first, _, _ = untouched(
+            lambda: pool.ask(3, q3, mode="FCC", max_new_tokens=32), 3,
+            "FCC ask on row 3")
+        pool.close(3)
+        new_row, restore_s, _ = untouched(
+            lambda: pool.open_restored(path), 3,
+            "restore row 3 (open_restored)")
+        (again, peak3, sites), _, _ = untouched(
+            lambda: peak_sites(lambda: pool.ask(
+                new_row, q3, mode="FCC", max_new_tokens=32)), 3,
+            "FCC ask on the restored row (allocations recorded)")
+        log(f"pool: the restored row's solo FCC ask peaked "
+            f"{peak3 / 1e9:.3f} GB above the resident; live at the peak, "
+            f"by allocating site: " + "; ".join(
+                f"{site} {b / 1e6:.1f} MB" for b, site in sites)
+            + f" [{stamp}]")
+        snap_bytes = os.path.getsize(path)
+        same = again["tokens"] == first["tokens"] and \
+            again["selection"] == first["selection"]
+        metrics.update(pool_snapshot_bytes=snap_bytes,
+                       pool_save_s=save_s, pool_restore_s=restore_s)
+        log(f"pool: snapshot of row 3 {snap_bytes / 1e6:.1f} MB, save "
+            f"{save_s:.3f}s, restore {restore_s:.3f}s onto row {new_row}; "
+            f"the restored row answers the same tokens {same} [{stamp}]")
+        if new_row != 3 or not same:
+            raise AssertionError("the restored row answers differently")
+    finally:
+        timer.restore()
+        shutil.rmtree(snap_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches, tc, rows_n, all_tc = read_counts()
+    finite = bool(torch.isfinite(pool.cache.k).all()
+                  and torch.isfinite(pool.cache.v).all())
+    log(f"pool: {time.perf_counter() - t_phase:.1f}s; launches {launches}, "
+        f"on the tensor-core kernels {tc} (all {all_tc}), with rows "
+        f"{rows_n}; cache finite {finite}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{stamp}]")
+    if min(launches.values()) == 0 or not all_tc or min(rows_n.values()) == 0 \
+            or not finite:
+        raise AssertionError("pool path check failed")
+    metrics["pool_launches"] = launches
+    metrics["pool_rows_launches"] = rows_n
+    del pool
+    gc.collect()     # sessions and their pool refer to each other
+    return metrics
+
+
+def run_http_path(model, dev, stamp):
+    """Phase 9 (HTTP): ``SessionServer(pool_rows=4)`` on the same model,
+    served on 127.0.0.1 at a free port from a thread. Four client threads
+    each POST /session, /ingest of phase 8's clip (written again under
+    build/: its mp4v file, or its .npy frame directory where OpenCV
+    writes none), then /ask FCC twice (after all four ingested); client 0
+    then runs /ask_stream; /stats is read. Every response must be
+    well-formed JSON with a non-empty answer, the stream must end with
+    0x1e and its meta, and the frontend must have answered a batch of
+    more than one row. Prints per-request latencies."""
+    import shutil
+    import threading
+    import urllib.request
+
+    import torch
+
+    from cogstream_tpu_torch import presets
+    from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
+    from cogstream_tpu_torch.runtime.serve import (SessionServer,
+                                                   make_http_server)
+
+    cfg = presets.cogreasoner_7b()
+    tok = ByteTokenizer(image_token_id=cfg.image_token_index,
+                        vocab=cfg.text.vocab_size)
+    shutil.rmtree(ENGINE_DIR, ignore_errors=True)
+    found = probe_host_decoders()
+    route = "cv2" if found["cv2_mp4v"] else "npy"
+    video_dir, _ = write_engine_inputs(route)
+    video = os.path.join(video_dir, os.listdir(video_dir)[0])
+    server = SessionServer(model, cfg, tok, max_len=POOL_LEN,
+                           pool_rows=POOL_ROWS)
+    httpd = make_http_server(server, "127.0.0.1", 0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    port = httpd.server_address[1]
+    lat, errors, answers = {}, [], {}
+    gate = threading.Barrier(POOL_ROWS)
+
+    def post(path, body, key):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            raw = r.read()
+        lat[key] = time.perf_counter() - t0
+        return raw
+
+    def client(i):
+        sid = f"c{i}"
+        try:
+            json.loads(post("/session", {"session_id": sid}, f"{sid} session"))
+            ing = json.loads(post("/ingest", {"session_id": sid,
+                                              "video_path": video,
+                                              "fps": 1.0}, f"{sid} ingest"))
+            answers[f"{sid} ingest"] = ing
+            gate.wait(timeout=600)
+            for j in range(2):
+                a = json.loads(post("/ask", {
+                    "session_id": sid, "mode": "FCC", "max_new_tokens": 32,
+                    "question": f"What is client {i} watching ({j})?"},
+                    f"{sid} ask{j}"))
+                answers[f"{sid} ask{j}"] = a
+                if not (isinstance(a.get("text"), str) and a.get("tokens")
+                        and a["turn"] == j):
+                    raise AssertionError(f"{sid} ask{j}: empty answer {a}")
+            if i == 0:
+                raw = post("/ask_stream", {
+                    "session_id": sid, "mode": "AC", "max_new_tokens": 32,
+                    "question": "Tell me what happens, step by step."},
+                    f"{sid} ask_stream")
+                text, sep, meta = raw.rpartition(b"\x1e")
+                meta = json.loads(meta)
+                answers[f"{sid} ask_stream"] = meta
+                if not sep or meta["text"] != text.decode() \
+                        or meta["turn"] != 2:
+                    raise AssertionError(f"bad stream {raw[-200:]!r}")
+        except Exception as e:  # noqa: BLE001
+            errors.append(f"{sid}: {type(e).__name__}: {e}")
+            gate.abort()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        clients = [threading.Thread(target=client, args=(i,))
+                   for i in range(POOL_ROWS)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=900)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
+                                    timeout=60) as r:
+            stats = json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+        shutil.rmtree(ENGINE_DIR, ignore_errors=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, tc, rows_n, all_tc = read_counts()
+    batches = (server.frontend.ask_batches, server.frontend.max_batch_rows)
+    for key in sorted(lat):
+        log(f"http: {key}: {lat[key]:.3f}s [{stamp}]")
+    ing = answers.get("c0 ingest", {})
+    log(f"http: {POOL_ROWS} clients in {wall:.1f}s; ingest of {video!r} "
+        f"({route}): {ing.get('frames')} frames, backend "
+        f"{ing.get('decode_backend')}, cache {ing.get('cache_tokens')} slots;"
+        f" ask batches (count, most rows) {batches}; stats "
+        f"{json.dumps(stats)}; launches {launches}, on the tensor-core "
+        f"kernels {tc} (all {all_tc}), with rows {rows_n}; errors {errors} "
+        f"[{stamp}]")
+    if errors or len(answers) != 3 * POOL_ROWS + 1 or batches[1] < 2 \
+            or min(launches.values()) == 0 or not all_tc:
+        raise AssertionError("http path check failed")
+    del server, httpd
+    gc.collect()     # sessions and their pool refer to each other
+    return {"http_wall_s": wall, "http_latency_s": lat,
+            "http_ask_batches": batches}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the int4 main path
 # ---------------------------------------------------------------------------
 
@@ -2249,8 +2913,10 @@ def main() -> int:
         log(f"build: ptxas {name}: {use}")
 
     results = check_kernels(dev) + check_int4_kernels(dev)
+    rows_ms = check_rows_kernels(dev)
     check_reference(dev)
     check_reference_int4(dev)
+    check_reference_pool(dev)
     check_training_reference(dev)
     launches, metrics, sess = run_main_path(dev, card)
     if args.profile:
@@ -2258,6 +2924,10 @@ def main() -> int:
     model = sess.model
     del sess
     metrics.update(run_engine_path(model, dev, card))
+    metrics.update(run_pool_path(model, dev, card,
+                                 metrics["AC_decode_tok_per_s"]))
+    metrics.update(run_http_path(model, dev, card))
+    metrics["rows_ms"] = rows_ms
     train_launches, train_metrics = run_training(model, dev, card,
                                                  args.profile)
     int4_launches, int4_metrics = run_int4_path(model, dev, card)

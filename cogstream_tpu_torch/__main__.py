@@ -4,9 +4,11 @@
                    (the reference's torchrun answer_generate.py)
   export-hf        merge LoRA adapters + write an HF-layout checkpoint
                    (PEFT merge_and_unload + save_pretrained)
+  serve            JSON-over-HTTP streaming sessions (--pool-rows N:
+                   pooled, batched serving)
 
 The other commands of ``python -m cogstream_tpu`` are not ported yet;
-each prints the ROADMAP queue item that holds it. Both commands run on
+each prints the ROADMAP queue item that holds it. The commands run on
 the CUDA card unless ``--device cpu`` is given.
 """
 
@@ -17,7 +19,6 @@ import sys
 NOT_PORTED = {
     "train-stage1": "Queue 1 #7 (the stage-1 CLI; its trainer is ported)",
     "train-stage2": "Queue 1 #7 (the stage-2 CLI; its trainer is ported)",
-    "serve": "Queue 1 #2",
     "judge": "Queue 1 #8",
     "summarize": "Queue 1 #8",
     "nlp-metrics": "Queue 1 #8",
@@ -68,6 +69,11 @@ def main(argv=None) -> int:
         return 0
     if cmd == "export-hf":
         return export_hf(rest)
+    if cmd == "serve":
+        from .runtime.serve import main as run
+
+        run(rest)
+        return 0
     if cmd in NOT_PORTED:
         print(f"{cmd} is not ported to cogstream_tpu_torch yet (ROADMAP "
               f"{NOT_PORTED[cmd]}); use python -m cogstream_tpu {cmd}")

@@ -60,6 +60,13 @@
 //   - K4 f32: chunks of `chunk_tiles` tiles; each block writes its
 //     partial (m, l, acc) and cs_gqa_combine merges the chunks.
 //
+// Row addressing (pooled serving): every route takes an optional `rows`
+// ([B] int32 on the device). With it, input row b reads cache row
+// rows[b] of a [B_pool, T_cache, Hkv, D] cache (the TPU kernel's `rows`
+// operand in its index maps): only the K/V base pointer moves, while q,
+// q_pos, eff, out and K4's split partials and tickets stay indexed by the
+// input row. A null `rows` reads cache row b, as before. No gather copy.
+//
 // The port writes each decode step's K/V IN PLACE into the cache before
 // attention (runtime/generate.py), so K4 needs no side buffer or fresh
 // K/V stream: the TPU kernel's main (+) side (+) fresh folding becomes
@@ -111,7 +118,8 @@ __global__ void __launch_bounds__(cs::NT)
 gqa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ qpos,
                      const int* __restrict__ eff,
-                     const int* __restrict__ tile_min, T* __restrict__ out,
+                     const int* __restrict__ tile_min,
+                     const int* __restrict__ rows, T* __restrict__ out,
                      float* __restrict__ part_m, float* __restrict__ part_l,
                      float* __restrict__ part_acc, int S, int Hq, int Hkv,
                      int D, int T_cache, int kv_len, int chunk_tiles,
@@ -130,6 +138,7 @@ gqa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tid = threadIdx.x;
   const int b = blockIdx.y / Hkv, h = blockIdx.y % Hkv;
+  const size_t kv_row = rows ? rows[b] : b;  // the cache row of input row b
   const int r0 = blockIdx.x * cs::BR;
   const int t_begin = blockIdx.z * chunk_tiles;
   const int t_end = min(t_begin + chunk_tiles, n_tiles);
@@ -165,7 +174,7 @@ gqa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int ncols = min(cs::BK, kv_len - k0);
     for (int i = tid; i < ncols * D; i += cs::NT) {
       const int c = i / D, d = i % D;
-      const size_t off = (((size_t)b * T_cache + k0 + c) * Hkv + h) * D + d;
+      const size_t off = ((kv_row * T_cache + k0 + c) * Hkv + h) * D + d;
       Ks[c * DS + d] = cs::to_f(k[off]);
       Vs[c * DS + d] = cs::to_f(v[off]);
     }
@@ -226,7 +235,8 @@ __global__ void gqa_combine_kernel(const float* __restrict__ part_m,
 
 template <typename T>
 int launch_gqa(const void* q, const void* k, const void* v, const void* qpos,
-               const void* eff, void* tile_min, void* out, void* part_m,
+               const void* eff, void* tile_min, const void* rows, void* out,
+               void* part_m,
                void* part_l, void* part_acc, int B, int S, int Hq, int Hkv,
                int D, int T_cache, int kv_len, int chunk_tiles, int n_chunks,
                float scale, cudaStream_t st) {
@@ -248,7 +258,8 @@ int launch_gqa(const void* q, const void* k, const void* v, const void* qpos,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(qpos),
       static_cast<const int*>(eff), static_cast<const int*>(tile_min),
-      static_cast<T*>(out), static_cast<float*>(part_m),
+      static_cast<const int*>(rows), static_cast<T*>(out),
+      static_cast<float*>(part_m),
       static_cast<float*>(part_l), static_cast<float*>(part_acc), S, Hq, Hkv,
       D, T_cache, kv_len, chunk_tiles, scale);
   return static_cast<int>(cudaGetLastError());
@@ -266,6 +277,7 @@ gqa_prefill_tc_kernel(const tc::bf16* __restrict__ q,
                       const int* __restrict__ qpos,
                       const int* __restrict__ eff,
                       const int* __restrict__ tile_mm,
+                      const int* __restrict__ rows,
                       tc::bf16* __restrict__ out, int B, int S, int Hq,
                       int Hkv, int T_cache, int kv_len, float scale2) {
   constexpr int NW = TC_WARPS, WR = 16 * MT, BR = NW * WR, NT = 32 * NW;
@@ -287,8 +299,9 @@ gqa_prefill_tc_kernel(const tc::bf16* __restrict__ q,
   const int b = blockIdx.y / Hkv, h = blockIdx.y % Hkv;
   const int r0 = (gridDim.x - 1 - blockIdx.x) * BR;  // last rows first
   const size_t tok = (size_t)Hkv * D;             // K/V token stride
-  const tc::bf16* kb = k + (size_t)b * T_cache * tok + (size_t)h * D;
-  const tc::bf16* vb = v + (size_t)b * T_cache * tok + (size_t)h * D;
+  const size_t kv_row = rows ? rows[b] : b;  // the cache row of input row b
+  const tc::bf16* kb = k + kv_row * T_cache * tok + (size_t)h * D;
+  const tc::bf16* vb = v + kv_row * T_cache * tok + (size_t)h * D;
   const int* effb = eff + (size_t)b * kv_len;
 
   for (int i = tid; i < BR * CH; i += NT) {
@@ -412,8 +425,9 @@ int sm_count() {
 template <int D, int MT>
 int launch_prefill_tc(const void* q, const void* k, const void* v,
                       const void* qpos, const void* eff, const void* tile_mm,
-                      void* out, int B, int S, int Hq, int Hkv, int T_cache,
-                      int kv_len, float scale2, cudaStream_t st) {
+                      const void* rows, void* out, int B, int S, int Hq,
+                      int Hkv, int T_cache, int kv_len, float scale2,
+                      cudaStream_t st) {
   constexpr int NW = TC_WARPS, BR = NW * 16 * MT;
   auto kern = gqa_prefill_tc_kernel<D, MT>;
   // once per instantiation, not per launch
@@ -431,23 +445,24 @@ int launch_prefill_tc(const void* q, const void* k, const void* v,
       static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
       static_cast<const tc::bf16*>(v), static_cast<const int*>(qpos),
       static_cast<const int*>(eff), static_cast<const int*>(tile_mm),
-      static_cast<tc::bf16*>(out), B, S, Hq, Hkv, T_cache, kv_len, scale2);
+      static_cast<const int*>(rows), static_cast<tc::bf16*>(out), B, S, Hq,
+      Hkv, T_cache, kv_len, scale2);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int dispatch_prefill_tc(const void* q, const void* k, const void* v,
                         const void* qpos, const void* eff,
-                        const void* tile_mm, void* out, int B, int S, int Hq,
-                        int Hkv, int T_cache, int kv_len, float scale2,
-                        cudaStream_t st) {
+                        const void* tile_mm, const void* rows, void* out,
+                        int B, int S, int Hq, int Hkv, int T_cache,
+                        int kv_len, float scale2, cudaStream_t st) {
   const int R = S * (Hq / Hkv);
   // 128-row blocks (2 m-tiles per warp) unless they would leave SMs idle
   if ((R + 127) / 128 * B * Hkv >= sm_count())
-    return launch_prefill_tc<D, 2>(q, k, v, qpos, eff, tile_mm, out, B, S,
-                                   Hq, Hkv, T_cache, kv_len, scale2, st);
-  return launch_prefill_tc<D, 1>(q, k, v, qpos, eff, tile_mm, out, B, S, Hq,
-                                 Hkv, T_cache, kv_len, scale2, st);
+    return launch_prefill_tc<D, 2>(q, k, v, qpos, eff, tile_mm, rows, out, B,
+                                   S, Hq, Hkv, T_cache, kv_len, scale2, st);
+  return launch_prefill_tc<D, 1>(q, k, v, qpos, eff, tile_mm, rows, out, B,
+                                 S, Hq, Hkv, T_cache, kv_len, scale2, st);
 }
 
 // K4 in bf16: the decode-shaped tensor-core kernel (see the header). A
@@ -462,7 +477,8 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
                      const tc::bf16* __restrict__ k,
                      const tc::bf16* __restrict__ v,
                      const int* __restrict__ qpos,
-                     const int* __restrict__ eff, float* __restrict__ part_ml,
+                     const int* __restrict__ eff,
+                     const int* __restrict__ rows, float* __restrict__ part_ml,
                      float* __restrict__ part_acc, int* __restrict__ tickets,
                      tc::bf16* __restrict__ out, int S, int Hq, int Hkv,
                      int T_cache, int kv_len, int tiles_per_split,
@@ -486,8 +502,9 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
   const int t_begin = split * tiles_per_split;
   const int t_end = min(t_begin + tiles_per_split, n_tiles);
   const size_t tok = (size_t)Hkv * D;  // K/V token stride
-  const tc::bf16* kb = k + (size_t)b * T_cache * tok + (size_t)h * D;
-  const tc::bf16* vb = v + (size_t)b * T_cache * tok + (size_t)h * D;
+  const size_t kv_row = rows ? rows[b] : b;  // the cache row of input row b
+  const tc::bf16* kb = k + kv_row * T_cache * tok + (size_t)h * D;
+  const tc::bf16* vb = v + kv_row * T_cache * tok + (size_t)h * D;
   const int* effb = eff + (size_t)b * kv_len;
   auto out_row = [&](int r) {  // folded row r of the block -> out
     const int rr = r0 + r;
@@ -701,7 +718,8 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
 
 template <int D, int MT>
 int launch_decode_tc(const void* q, const void* k, const void* v,
-                     const void* qpos, const void* eff, void* part_ml,
+                     const void* qpos, const void* eff, const void* rows,
+                     void* part_ml,
                      void* part_acc, void* tickets, void* out, int B, int S,
                      int Hq, int Hkv, int T_cache, int kv_len,
                      int tiles_per_split, int n_splits, float scale2,
@@ -724,8 +742,9 @@ int launch_decode_tc(const void* q, const void* k, const void* v,
   kern<<<grid, DEC_WARPS * 32, bytes, st>>>(
       static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
       static_cast<const tc::bf16*>(v), static_cast<const int*>(qpos),
-      static_cast<const int*>(eff), static_cast<float*>(part_ml),
-      static_cast<float*>(part_acc), static_cast<int*>(tickets),
+      static_cast<const int*>(eff), static_cast<const int*>(rows),
+      static_cast<float*>(part_ml), static_cast<float*>(part_acc),
+      static_cast<int*>(tickets),
       static_cast<tc::bf16*>(out), S, Hq, Hkv, T_cache, kv_len,
       tiles_per_split, scale2);
   return static_cast<int>(cudaGetLastError());
@@ -734,6 +753,7 @@ int launch_decode_tc(const void* q, const void* k, const void* v,
 }  // namespace
 
 // f32 operands only (bf16 goes to cs_gqa_prefill_tc / cs_gqa_decode_tc).
+// rows: null, or the [B] int32 cache row of each input row.
 // part_m == nullptr: K3 on the CUDA-core tile (one chunk, normalized
 // output). Otherwise K4's first pass (partials per chunk; finish with
 // cs_gqa_combine).
@@ -743,13 +763,14 @@ extern "C" int cs_gqa_attention(const void* q, const void* k, const void* v,
                                 void* part_l, void* part_acc, int B, int S,
                                 int Hq, int Hkv, int D, int T_cache,
                                 int kv_len, int chunk_tiles, int n_chunks,
-                                float scale, int dtype, void* stream) {
+                                float scale, int dtype, const void* rows,
+                                void* stream) {
   if (dtype != cs::F32 || D % 4 != 0 || D > 4 * cs::MAX_D4 ||
       Hq % Hkv != 0 || kv_len > T_cache ||
       (part_m == nullptr && n_chunks != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_gqa<float>(q, k, v, qpos, eff, tile_min, out, part_m, part_l,
-                           part_acc, B, S, Hq, Hkv, D, T_cache, kv_len,
+  return launch_gqa<float>(q, k, v, qpos, eff, tile_min, rows, out, part_m,
+                           part_l, part_acc, B, S, Hq, Hkv, D, T_cache, kv_len,
                            chunk_tiles, n_chunks, scale,
                            static_cast<cudaStream_t>(stream));
 }
@@ -771,12 +792,14 @@ extern "C" int cs_gqa_combine(const void* part_m, const void* part_l,
 
 // K3 in bf16 (head dim 64 or 128): the tile min / max pre-pass into
 // tile_mm ([2, B, n_tiles] int32), then the tensor-core prefill tile.
-// Normalized output [B, S, Hq, D].
+// Normalized output [B, S, Hq, D]. rows: null, or the [B] int32 cache
+// row of each input row (k, v are then [B_pool, T_cache, Hkv, D]).
 extern "C" int cs_gqa_prefill_tc(const void* q, const void* k, const void* v,
                                  const void* qpos, const void* eff,
                                  void* tile_mm, void* out, int B, int S,
                                  int Hq, int Hkv, int D, int T_cache,
-                                 int kv_len, float scale, void* stream) {
+                                 int kv_len, float scale, const void* rows,
+                                 void* stream) {
   if ((D != 64 && D != 128) || Hq % Hkv != 0 || kv_len > T_cache)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -787,10 +810,10 @@ extern "C" int cs_gqa_prefill_tc(const void* q, const void* k, const void* v,
         n_tiles);
   const float scale2 = scale * tc::LOG2E;
   if (D == 128)
-    return dispatch_prefill_tc<128>(q, k, v, qpos, eff, tile_mm, out, B, S,
-                                    Hq, Hkv, T_cache, kv_len, scale2, st);
-  return dispatch_prefill_tc<64>(q, k, v, qpos, eff, tile_mm, out, B, S, Hq,
-                                 Hkv, T_cache, kv_len, scale2, st);
+    return dispatch_prefill_tc<128>(q, k, v, qpos, eff, tile_mm, rows, out, B,
+                                    S, Hq, Hkv, T_cache, kv_len, scale2, st);
+  return dispatch_prefill_tc<64>(q, k, v, qpos, eff, tile_mm, rows, out, B,
+                                 S, Hq, Hkv, T_cache, kv_len, scale2, st);
 }
 
 // K4 in bf16 (head dim 64 or 128, mt in {1, 2}: m-tiles per warp, so
@@ -800,13 +823,15 @@ extern "C" int cs_gqa_prefill_tc(const void* q, const void* k, const void* v,
 // tickets ([B * Hkv * row groups] int32, zero between launches) are the
 // caller's workspace, slots = B * Hkv * row groups * n_splits; they are
 // not touched when n_splits == 1. Normalized output [B, S, Hq, D].
+// rows: null, or the [B] int32 cache row of each input row.
 extern "C" int cs_gqa_decode_tc(const void* q, const void* k, const void* v,
                                 const void* qpos, const void* eff,
                                 void* part_ml, void* part_acc, void* tickets,
                                 void* out, int B, int S, int Hq, int Hkv,
                                 int D, int T_cache, int kv_len, int mt,
                                 int tiles_per_split, int n_splits,
-                                float scale, void* stream) {
+                                float scale, const void* rows,
+                                void* stream) {
   const int n_tiles = (kv_len + cs::BK - 1) / cs::BK;
   if ((D != 64 && D != 128) || Hq % Hkv != 0 || kv_len > T_cache ||
       kv_len <= 0 || S <= 0 || B <= 0 || tiles_per_split <= 0 ||
@@ -816,10 +841,10 @@ extern "C" int cs_gqa_decode_tc(const void* q, const void* k, const void* v,
   const float scale2 = scale * tc::LOG2E;
 #define CS_DECODE_TC(DD, MM)                                               \
   if (D == DD && mt == MM)                                                 \
-    return launch_decode_tc<DD, MM>(q, k, v, qpos, eff, part_ml, part_acc, \
-                                    tickets, out, B, S, Hq, Hkv, T_cache,  \
-                                    kv_len, tiles_per_split, n_splits,     \
-                                    scale2, st);
+    return launch_decode_tc<DD, MM>(q, k, v, qpos, eff, rows, part_ml,   \
+                                    part_acc, tickets, out, B, S, Hq, Hkv, \
+                                    T_cache, kv_len, tiles_per_split,      \
+                                    n_splits, scale2, st);
   CS_DECODE_TC(128, 1) CS_DECODE_TC(128, 2)
   CS_DECODE_TC(64, 1) CS_DECODE_TC(64, 2)
 #undef CS_DECODE_TC

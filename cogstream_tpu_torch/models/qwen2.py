@@ -9,6 +9,12 @@ position-tagged KV cache, gated LoRA deltas, and three forward modes:
 * cached decode (S <= 8): the step's K/V written in place, attention
   over the cache's first ``kv_window`` slots (K4).
 
+Pooled serving (runtime/pool.py) shares one ``[B_pool, max_len]`` cache
+between sessions: ``write_slots`` scatters each input row's K/V and
+positions to its own slots (slots >= ``max_len`` are dropped), and
+``cache_rows`` maps the input rows onto pool rows, which K3 and K4 read
+in place through their ``rows`` operand.
+
 Those three run under ``torch.inference_mode``. Training has its own
 grad-enabled cache-free forward, :func:`qwen2_forward_train`: attention
 is the plain ``causal_gqa_attention`` (as in the JAX cache-free scan; K3
@@ -40,8 +46,8 @@ from torch import nn
 
 from ..config import Qwen2Config
 from ..ops.attention import causal_gqa_attention
-from ..ops.lm_attention import (DECODE_MAX_S, decode_attention,
-                                effective_kv_positions,
+from ..ops.lm_attention import (DECODE_MAX_S, CacheRows, as_cache_rows,
+                                decode_attention, effective_kv_positions,
                                 prefill_flash_attention)
 from ..ops.quant import Int4Linear, QUEUE_MSG
 from ..ops.rope import apply_rope, rope_angles
@@ -171,6 +177,65 @@ def _lora_at(adapters: Adapters, layer: int, group: str, name: str):
     return out
 
 
+class _SlotWriter:
+    """Pooled cache writes of one forward (``write_slots``), built once
+    and applied to each layer's [B_pool, max_len, Hkv, D] cache.
+
+    * host slots (a numpy array [B, S], every prefill): the dropped
+      (row, slot) pairs (slot >= max_len) are filtered out on the host,
+      so the scatter gets unique in-range indices and no device sync;
+    * device slots (a tensor [B, 1], a decode step): a dropped row
+      writes its slot's own old value back (its slot clamped into the
+      cache), which leaves it unchanged; rows are unique, so the
+      scatter has no duplicate index.
+    """
+
+    def __init__(self, write_slots, positions: torch.Tensor,
+                 rows: Optional[CacheRows], pos: torch.Tensor,
+                 read: int):
+        B, S = positions.shape
+        T = pos.shape[1]
+        dev = pos.device
+        self.device_slots = isinstance(write_slots, torch.Tensor)
+        if self.device_slots:
+            if tuple(write_slots.shape) != (B, 1):
+                raise ValueError("device write_slots must be [B, 1] (one "
+                                 "decode step)")
+            slot = write_slots[:, 0].to(device=dev, dtype=torch.int64)
+            self.ok = (slot < T)[:, None, None]
+            self.r = (torch.arange(B, device=dev) if rows is None
+                      else rows.dev.to(torch.int64))
+            self.t = slot.clamp(max=T - 1)
+            old = pos[self.r, self.t]
+            pos[self.r, self.t] = torch.where(self.ok[:, 0, 0],
+                                              positions[:, 0], old)
+            return
+        ws = np.asarray(write_slots, np.int64)
+        if ws.shape != (B, S):
+            raise ValueError(f"write_slots {ws.shape} != positions "
+                             f"{(B, S)}")
+        b_idx, s_idx = np.nonzero(ws < T)
+        row_of = np.arange(B) if rows is None else np.asarray(rows.host)
+        r_idx, t_idx = row_of[b_idx], ws[b_idx, s_idx]
+        if len(np.unique(r_idx * T + t_idx)) != len(t_idx):
+            raise ValueError("write_slots repeat a (row, slot) pair")
+        if t_idx.size and t_idx.max() >= read:
+            raise RuntimeError(f"cache write at slot {int(t_idx.max())} "
+                               f"beyond the read window {read}")
+        self.b, self.s, self.r, self.t = (
+            torch.from_numpy(a).to(dev) for a in (b_idx, s_idx, r_idx, t_idx))
+        pos[self.r, self.t] = positions[self.b, self.s]
+
+    def __call__(self, layer_cache: torch.Tensor, new: torch.Tensor) -> None:
+        if self.device_slots:
+            old = layer_cache[self.r, self.t]
+            layer_cache[self.r, self.t] = torch.where(
+                self.ok, new[:, 0].to(layer_cache.dtype), old)
+        else:
+            layer_cache[self.r, self.t] = new[self.b, self.s].to(
+                layer_cache.dtype)
+
+
 @torch.inference_mode()
 def qwen2_forward(
     model: Qwen2Model,
@@ -181,6 +246,8 @@ def qwen2_forward(
     lora_scale: float = 2.0,
     kv_allowed: Optional[torch.Tensor] = None,  # [B, max_len] bool
     kv_window: Optional[int] = None,            # read bound (cached modes)
+    write_slots=None,      # [B, S] per-row cache slots (pooled mode)
+    cache_rows=None,       # [B] pool row per input row (pooled mode)
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder stack. Returns (hidden [B, S, H], cache).
 
@@ -189,6 +256,16 @@ def qwen2_forward(
     ``cache.write_index`` and attention spans the cache's first
     ``kv_window`` slots (all of it by default), masked by stored
     positions AND ``kv_allowed``: K3 for S > 8, K4 for decode steps.
+
+    Pooled mode: ``write_slots`` (a host numpy array [B, S], or a device
+    tensor [B, 1] for a decode step; slots >= max_len are dropped)
+    replaces the shared write index, so each row sits at its own fill
+    level. ``cache_rows`` (a sequence or :class:`CacheRows`, with
+    ``write_slots``) maps the B input rows onto rows of a larger pool
+    cache; only the [B, window] positions are gathered, to build ``eff``,
+    and K3 / K4 read the K/V rows in place. ``kv_allowed`` stays per
+    input row. ``write_index`` stays as it was: a pooled session keeps
+    its own fill level.
     """
     cfg = model.cfg
     B, S, _ = inputs_embeds.shape
@@ -202,9 +279,23 @@ def qwen2_forward(
     indexed = cache is not None
     positions = positions.to(torch.int32)
     angles = rope_angles(positions.clamp(min=0), D, cfg.rope_theta)
+    if cache_rows is not None and write_slots is None:
+        raise ValueError("cache_rows requires write_slots")
+    rows = writer = None
     if cache is None:
         eff = effective_kv_positions(positions)
         attend = prefill_flash_attention
+    elif write_slots is not None:
+        read = cache.max_len if kv_window is None else kv_window
+        rows = as_cache_rows(cache_rows, cache.pos.device)
+        writer = _SlotWriter(write_slots, positions, rows, cache.pos, read)
+        pos = (cache.pos[:, :read] if rows is None
+               else cache.pos[rows.dev.to(torch.int64), :read])
+        eff = effective_kv_positions(
+            pos, None if kv_allowed is None else kv_allowed[:, :read]
+        ).contiguous()
+        attend = decode_attention if S <= DECODE_MAX_S \
+            else prefill_flash_attention
     else:
         wi = cache.write_index
         read = cache.max_len if kv_window is None else kv_window
@@ -234,6 +325,11 @@ def qwen2_forward(
         v = proj("attn", "v_proj", h).reshape(B, S, Hkv, D)
         if cache is None:
             attn = attend(q, k, v.contiguous(), positions, eff)
+        elif writer is not None:
+            writer(cache.k[li], k)
+            writer(cache.v[li], v)
+            attn = attend(q, cache.k[li], cache.v[li], positions, eff,
+                          rows=rows)
         else:
             cache.k[li, :, wi:wi + S] = k
             cache.v[li, :, wi:wi + S] = v
@@ -244,7 +340,7 @@ def qwen2_forward(
         up = proj("mlp", "up_proj", h)
         x = x + proj("mlp", "down_proj", F.silu(gate) * up)
     x = rms_norm(x, model.final_norm, cfg.rms_norm_eps)
-    if cache is not None:
+    if cache is not None and writer is None:
         cache.write_index = wi + S
     return x, cache
 

@@ -61,21 +61,22 @@ _SIGNATURES = {
                                 _F, _P),
     # q, k, v, q_pos, eff, tile_min, out, part_m, part_l, part_acc,
     # B, S, Hq, Hkv, D, T_cache, kv_len, chunk_tiles, n_chunks, scale,
-    # dtype, stream (f32)
+    # dtype, rows, stream (f32)
     "cs_gqa_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+                         _P),
     # part_m, part_l, part_acc, out, B, S, Hq, Hkv, D, n_chunks, dtype,
     # stream (f32)
     "cs_gqa_combine": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, q_pos, eff, part_ml, part_acc, tickets, out, B, S, Hq, Hkv,
-    # D, T_cache, kv_len, mt, tiles_per_split, n_splits, scale, stream
-    # (bf16)
+    # D, T_cache, kv_len, mt, tiles_per_split, n_splits, scale, rows,
+    # stream (bf16)
     "cs_gqa_decode_tc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                         _I, _I, _I, _I, _I, _I, _I, _F, _P),
+                         _I, _I, _I, _I, _I, _I, _I, _F, _P, _P),
     # q, k, v, q_pos, eff, tile_min, out, B, S, Hq, Hkv, D, T_cache,
-    # kv_len, scale, stream (bf16)
+    # kv_len, scale, rows, stream (bf16)
     "cs_gqa_prefill_tc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _I, _F, _P),
+                          _I, _I, _F, _P, _P),
     # x, sx, q4, layer_stride, scale, scale_stride, layer, code, out, part,
     # m, half, dout, rows_per_split, splits, variant, out dtype, stream
     "cs_int4_gemv": (_P, _P, _P, _L, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,

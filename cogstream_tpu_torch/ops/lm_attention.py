@@ -26,12 +26,18 @@ masked by ``kv_allowed``. A query at position p sees slot t iff
 K4 reads the cache in place: the port writes each decode step's K/V
 into the cache before attention (runtime/generate.py), so there is no
 side buffer and no separate fresh-K/V stream.
+
+Pooled serving (runtime/pool.py) keeps every session in one row of a
+shared ``[B_pool, T, Hkv, D]`` cache. Both wrappers take ``rows``
+(:class:`CacheRows`, the JAX kernels' ``rows`` operand): input row b then
+reads cache row ``rows[b]``. The kernels move only their K/V base
+pointer, so no row is gathered on the card; the plain version gathers.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -50,6 +56,46 @@ DECODE_TC_MAX_MT = {64: 2, 128: 2}
 _PLAIN_Q_CHUNK = 256        # plain version: query rows per dense block
 
 
+class CacheRows(NamedTuple):
+    """Input row -> cache row map of a pooled call: the indices on the
+    host (checked there, so a call never reads them back from the card)
+    and their int32 copy on the cache's device, which the kernels read.
+    Build it once per forward with :func:`cache_rows`; a CUDA graph
+    captures its device pointer."""
+    host: Tuple[int, ...]
+    dev: torch.Tensor
+
+
+def cache_rows(rows: Sequence[int], device) -> CacheRows:
+    host = tuple(int(r) for r in rows)
+    return CacheRows(host, torch.tensor(host, dtype=torch.int32,
+                                        device=device))
+
+
+RowsArg = Optional[Union[CacheRows, Sequence[int]]]
+
+
+def as_cache_rows(rows: RowsArg, device) -> Optional[CacheRows]:
+    """``rows`` as :class:`CacheRows` (a sequence is uploaded once)."""
+    if rows is None or isinstance(rows, CacheRows):
+        return rows
+    return cache_rows(rows, device)
+
+
+def _check_rows(rows: CacheRows, B: int, B_pool: int) -> None:
+    """Host check of a row map: one cache row per input row, unique (two
+    input rows never share a cache row), each within [0, B_pool)."""
+    if len(rows.host) != B:
+        raise ValueError(f"rows has {len(rows.host)} entries for {B} input "
+                         "rows")
+    if len(set(rows.host)) != B:
+        raise ValueError(f"rows {rows.host} are not unique")
+    if any(r < 0 or r >= B_pool for r in rows.host):
+        raise ValueError(f"rows {rows.host} outside the pool's {B_pool} rows")
+    if tuple(rows.dev.shape) != (B,) or rows.dev.dtype != torch.int32:
+        raise ValueError("rows.dev must be [B] int32")
+
+
 def effective_kv_positions(pos: torch.Tensor,
                            allowed: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
@@ -64,11 +110,18 @@ def effective_kv_positions(pos: torch.Tensor,
 
 def gqa_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_positions: torch.Tensor, eff_kv_pos: torch.Tensor,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        scale: Optional[float] = None,
+                        rows: RowsArg = None) -> torch.Tensor:
     """Plain version of K3 and K4: dense causal GQA over the first
     ``eff_kv_pos.shape[1]`` slots, in blocks of query rows so the
-    [S, T] logits stay bounded at long prefills."""
+    [S, T] logits stay bounded at long prefills. With ``rows`` it
+    gathers the addressed cache rows first."""
     T = eff_kv_pos.shape[1]
+    if rows is not None:
+        rows = as_cache_rows(rows, k.device)
+        _check_rows(rows, q.shape[0], k.shape[0])
+        idx = list(rows.host)
+        k, v = k[idx], v[idx]
     k, v = k[:, :T], v[:, :T]
     outs = []
     for s0 in range(0, q.shape[1], _PLAIN_Q_CHUNK):
@@ -79,13 +132,19 @@ def gqa_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1)
 
 
-def _check_operands(q, k, v, q_positions, eff_kv_pos):
+def _check_operands(q, k, v, q_positions, eff_kv_pos,
+                    rows: Optional[CacheRows] = None):
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     dev = q.device
+    Bk = B
+    if rows is not None:
+        Bk = k.shape[0]
+        _check_rows(rows, B, Bk)
+        kernels.require(rows.dev, "rows", dev, torch.int32, (B,))
     kernels.require(q, "q", dev)
-    kernels.require(k, "k", dev, q.dtype, (B, T, Hkv, D))
-    kernels.require(v, "v", dev, q.dtype, (B, T, Hkv, D))
+    kernels.require(k, "k", dev, q.dtype, (Bk, T, Hkv, D))
+    kernels.require(v, "v", dev, q.dtype, (Bk, T, Hkv, D))
     kernels.require(q_positions, "q_positions", dev, torch.int32, (B, S))
     kernels.require(eff_kv_pos, "eff_kv_pos", dev, torch.int32)
     if eff_kv_pos.shape[0] != B or eff_kv_pos.shape[1] > T:
@@ -102,17 +161,21 @@ def prefill_flash_attention(
     q_positions: torch.Tensor,  # [B, S] int32, -1 = padding
     eff_kv_pos: torch.Tensor,   # [B, T_read] int32, T_read <= T
     scale: Optional[float] = None,
+    rows: RowsArg = None,       # [B] cache row per input row (pooled)
 ) -> torch.Tensor:
     """K3: causal GQA flash attention over a position-tagged KV region,
     the drop-in for ``causal_gqa_attention`` with validity pre-folded
     into ``eff_kv_pos``. Any T; bf16 (tensor-core tile, head dim 64 or
-    128) or f32 operands."""
+    128) or f32 operands. With ``rows``, k and v are a [B_pool, T, Hkv,
+    D] pool cache and input row b reads its row ``rows[b]``."""
     B, S, Hq, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     if kernels.plain_route(q):
-        return gqa_attention_plain(q, k, v, q_positions, eff_kv_pos, scale)
-    _check_operands(q, k, v, q_positions, eff_kv_pos)
+        return gqa_attention_plain(q, k, v, q_positions, eff_kv_pos, scale,
+                                   rows)
+    rows = as_cache_rows(rows, q.device)
+    _check_operands(q, k, v, q_positions, eff_kv_pos, rows)
     code = kernels.dtype_code(q)
     tc = q.dtype == torch.bfloat16
     if tc and D not in TC_HEAD_DIMS:
@@ -131,17 +194,21 @@ def prefill_flash_attention(
     lib = kernels.library()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
             eff_kv_pos.data_ptr(), tile_pos.data_ptr(), out.data_ptr())
+    rows_ptr = None if rows is None else rows.dev.data_ptr()
     if tc:
         kernels.require_aligned(q, k, v)
         kernels.check(lib.cs_gqa_prefill_tc(
-            *ptrs, B, S, Hq, Hkv, D, T, kv_len, float(scale),
+            *ptrs, B, S, Hq, Hkv, D, T, kv_len, float(scale), rows_ptr,
             kernels.stream_ptr(q)), "cs_gqa_prefill_tc")
         prefill_flash_attention.tc_launches += 1
     else:
         kernels.check(lib.cs_gqa_attention(
             *ptrs, None, None, None, B, S, Hq, Hkv, D, T, kv_len, n_tiles, 1,
-            float(scale), code, kernels.stream_ptr(q)), "cs_gqa_attention")
+            float(scale), code, rows_ptr, kernels.stream_ptr(q)),
+            "cs_gqa_attention")
     prefill_flash_attention.launches += 1
+    if rows is not None:
+        prefill_flash_attention.rows_launches += 1
     return out
 
 
@@ -192,19 +259,24 @@ def decode_attention(
     q_positions: torch.Tensor,  # [B, S] int32, -1 = finished row
     eff_kv_pos: torch.Tensor,   # [B, kv_window] int32
     scale: Optional[float] = None,
+    rows: RowsArg = None,       # [B] cache row per input row (pooled)
 ) -> torch.Tensor:
     """K4: cached decode attention over the first ``kv_window`` slots,
     split over the cache (flash-decoding). bf16 (head dim 64 or 128): one
     launch of the tensor-core kernel, which merges the splits itself; f32:
-    the CUDA-core tile, then ``cs_gqa_combine``."""
+    the CUDA-core tile, then ``cs_gqa_combine``. ``rows`` as for
+    :func:`prefill_flash_attention`; the split partials and tickets stay
+    indexed by the input row."""
     B, S, Hq, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     if S > DECODE_MAX_S:
         raise ValueError(f"decode attention takes S <= {DECODE_MAX_S}")
     if kernels.plain_route(q):
-        return gqa_attention_plain(q, k, v, q_positions, eff_kv_pos, scale)
-    _check_operands(q, k, v, q_positions, eff_kv_pos)
+        return gqa_attention_plain(q, k, v, q_positions, eff_kv_pos, scale,
+                                   rows)
+    rows = as_cache_rows(rows, q.device)
+    _check_operands(q, k, v, q_positions, eff_kv_pos, rows)
     code = kernels.dtype_code(q)
     tc = q.dtype == torch.bfloat16
     if tc and D not in TC_HEAD_DIMS:
@@ -221,18 +293,20 @@ def decode_attention(
     stream = kernels.stream_ptr(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
             eff_kv_pos.data_ptr())
+    rows_ptr = None if rows is None else rows.dev.data_ptr()
     if tc:
         kernels.require_aligned(q, k, v)
         mt, groups, per_split, n_splits = decode_plan(
             B, Hkv, R, D, kv_len, kernels.sm_count(dev))
-        rows = B * Hkv * groups * n_splits * 16 * mt   # partial rows
-        part, tickets = _decode_workspace(dev, rows * (2 + D),
+        n_part = B * Hkv * groups * n_splits * 16 * mt   # partial rows
+        part, tickets = _decode_workspace(dev, n_part * (2 + D),
                                           B * Hkv * groups)
-        ml = part.data_ptr()          # [rows] (m, l), then [rows, D] acc
+        ml = part.data_ptr()        # [n_part] (m, l), then [n_part, D] acc
         kernels.check(lib.cs_gqa_decode_tc(
-            *ptrs, ml, ml + rows * 2 * 4, tickets.data_ptr(), out.data_ptr(),
+            *ptrs, ml, ml + n_part * 2 * 4, tickets.data_ptr(),
+            out.data_ptr(),
             B, S, Hq, Hkv, D, T, kv_len, mt, per_split, n_splits,
-            float(scale), stream), "cs_gqa_decode_tc")
+            float(scale), rows_ptr, stream), "cs_gqa_decode_tc")
         decode_attention.tc_launches += 1
     else:
         n_tiles = -(-kv_len // _TILE)
@@ -246,17 +320,21 @@ def decode_attention(
         kernels.check(lib.cs_gqa_attention(
             *ptrs, tile_min.data_ptr(), None, part_m.data_ptr(),
             part_l.data_ptr(), part_acc.data_ptr(), B, S, Hq, Hkv, D, T,
-            kv_len, DECODE_CHUNK_TILES, n_chunks, float(scale), code, stream),
-            "cs_gqa_attention")
+            kv_len, DECODE_CHUNK_TILES, n_chunks, float(scale), code,
+            rows_ptr, stream), "cs_gqa_attention")
         kernels.check(lib.cs_gqa_combine(
             part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
             out.data_ptr(), B, S, Hq, Hkv, D, n_chunks, code, stream),
             "cs_gqa_combine")
     decode_attention.launches += 1
+    if rows is not None:
+        decode_attention.rows_launches += 1
     return out
 
 
-prefill_flash_attention.launches = 0      # every K3 launch
-prefill_flash_attention.tc_launches = 0   # those on the tensor-core tile
-decode_attention.launches = 0             # every K4 call
-decode_attention.tc_launches = 0          # those on the tensor-core kernel
+prefill_flash_attention.launches = 0       # every K3 launch
+prefill_flash_attention.tc_launches = 0    # those on the tensor-core tile
+prefill_flash_attention.rows_launches = 0  # those with a pool row map
+decode_attention.launches = 0              # every K4 call
+decode_attention.tc_launches = 0           # those on the tensor-core kernel
+decode_attention.rows_launches = 0         # those with a pool row map

@@ -11,17 +11,27 @@ slots plus one slot per executed decode step, slots beyond untouched.
 
 Prompt lengths are bucketed by callers; padded prompt slots carry
 position -1 and are invisible.
+
+Pooled mode (``write_slots``, runtime/pool.py): every row is a session at
+its own fill level in a shared cache. The prompt scatters to the row's
+slots, and each decode step writes at a per-row device slot that starts
+right after the row's last real prompt slot and advances by one per
+step; a finished row writes nothing, so the cache equals the JAX side
+buffer's per-row merge. ``cache_rows`` addresses a subset of the pool's
+rows in place (K3 / K4 ``rows``).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..models import qwen2
 from ..models.qwen2 import KVCache, Qwen2Model
+from ..ops.lm_attention import as_cache_rows
 from ..ops.quant import Int4Linear, prepare_matmul, slice_output_channels
 from .sampling import apply_repetition_penalty, sample_token
 
@@ -71,6 +81,9 @@ def generate_tokens(
     adapters=None,
     lora_scale: float = 2.0,
     kv_allowed: Optional[torch.Tensor] = None,    # [B, max_len] bool
+    write_slots=None,        # [B, S] host int array: pooled prompt slots
+    active=None,             # [B] bool: rows with a real request (pooled)
+    cache_rows=None,         # [B] pool row per input row (pooled)
     kv_window: Optional[int] = None,              # read window (slots)
     stop_ids: Optional[tuple] = None,             # grammar-complete ids
     logit_ids: Optional[tuple] = None,            # static sampling support
@@ -86,9 +99,18 @@ def generate_tokens(
     static id set once (the selector's ~20 allowed tokens) so no decode
     step reads the full-vocab head; sampling over those columns equals
     sampling over the vocab-masked full logits.
+
+    Pooled mode (``write_slots``, slots >= max_len dropped): each row's
+    generated tokens follow its last real prompt slot, ``active=False``
+    rows are done from the start, and the terminal token of a row is
+    never cached (JAX's fed-token convention). ``cache_rows`` addresses
+    those rows of a larger pool cache. The cache's ``write_index`` is
+    left as it was.
     """
     B = inputs_embeds.shape[0]
     dev = inputs_embeds.device
+    pooled = write_slots is not None
+    rows = as_cache_rows(cache_rows, cache.pos.device)
 
     if logit_ids is not None:
         if repetition_penalty != 1.0:
@@ -120,10 +142,11 @@ def generate_tokens(
     # ---- prefill ----------------------------------------------------------
     hidden, cache = qwen2.qwen2_forward(
         model, inputs_embeds, positions, cache, adapters, lora_scale,
-        kv_allowed=kv_allowed, kv_window=kv_window)
-    rows = torch.arange(B, device=dev)
+        kv_allowed=kv_allowed, kv_window=kv_window, write_slots=write_slots,
+        cache_rows=rows)
+    batch = torch.arange(B, device=dev)
     last_index = last_index.to(device=dev, dtype=torch.int64)
-    logits = _logits(hidden[rows, last_index][:, None])[:, 0]
+    logits = _logits(hidden[batch, last_index][:, None])[:, 0]
     use_pen = repetition_penalty != 1.0
     V = logits.shape[-1]
     seen = None
@@ -131,7 +154,7 @@ def generate_tokens(
         seen = torch.zeros((B, V + 1), dtype=torch.bool, device=dev)
         if penalty_ids is not None:
             ids = penalty_ids.to(device=dev, dtype=torch.int64)
-            seen[rows[:, None], torch.where(ids >= 0, ids, V)] = True
+            seen[batch[:, None], torch.where(ids >= 0, ids, V)] = True
         seen = seen[:, :V]
         logits = apply_repetition_penalty(logits, seen, repetition_penalty)
 
@@ -154,34 +177,56 @@ def generate_tokens(
 
     cur = _sample(logits)
     if use_pen:
-        seen[rows, cur] = True
-    pos = positions.to(torch.int64)[rows, last_index] + 1
+        seen[batch, cur] = True
+    pos = positions.to(torch.int64)[batch, last_index] + 1
     tokens = torch.full((B, max_new_tokens), eos_id, dtype=torch.int64,
                         device=dev)
     tokens[:, 0] = cur
     done = _finished(cur)
+    if active is not None:
+        done = done | ~torch.as_tensor(active, dtype=torch.bool, device=dev)
 
+    slot = None
+    if pooled:
+        # each row's generated tokens follow its last real prompt slot
+        # (positions come from the host in every caller: a small copy)
+        ws = np.asarray(write_slots, np.int64)
+        real = positions.cpu().numpy() >= 0
+        slot0 = np.max(np.where(real, ws, -1), axis=1) + 1
+        slot = torch.from_numpy(slot0).to(dev)
     # generated tokens are always visible to later steps (the JAX side
     # buffer was never masked by kv_allowed)
     if kv_allowed is not None:
-        wi = cache.write_index
-        kv_allowed = kv_allowed.clone()
-        kv_allowed[:, wi:wi + max_new_tokens] = True
+        if pooled:
+            ar = torch.arange(kv_allowed.shape[1], device=dev)[None]
+            kv_allowed = kv_allowed | ((ar >= slot[:, None])
+                                       & (ar < slot[:, None]
+                                          + max_new_tokens))
+        else:
+            wi = cache.write_index
+            kv_allowed = kv_allowed.clone()
+            kv_allowed[:, wi:wi + max_new_tokens] = True
 
     i = 1
     while i < max_new_tokens and not bool(done.all()):
         emb = qwen2.embed(model, cur[:, None])
         step_pos = torch.where(done, torch.full_like(pos, -1), pos)[:, None]
+        step_slots = None
+        if pooled:
+            # a finished row's slot is dropped (nothing written)
+            step_slots = torch.where(done, cache.max_len, slot)[:, None]
+            slot = slot + 1
         hidden, cache = qwen2.qwen2_forward(
             model, emb, step_pos, cache, adapters, lora_scale,
-            kv_allowed=kv_allowed, kv_window=kv_window)
+            kv_allowed=kv_allowed, kv_window=kv_window,
+            write_slots=step_slots, cache_rows=rows)
         logits = _logits(hidden)[:, 0]
         if use_pen:
             logits = apply_repetition_penalty(logits, seen,
                                               repetition_penalty)
         nxt = torch.where(done, torch.full_like(cur, eos_id), _sample(logits))
         if use_pen:
-            seen[rows, nxt] = True
+            seen[batch, nxt] = True
         tokens[:, i] = nxt
         done = done | _finished(nxt)
         cur = nxt

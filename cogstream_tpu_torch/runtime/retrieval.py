@@ -252,6 +252,44 @@ class Selector:
         return padded, positions, last, cache
 
     @torch.inference_mode()
+    def select_batch(self, items, include_demo: bool = True,
+                     generator: Optional[torch.Generator] = None
+                     ) -> List[str]:
+        """Batched constrained retrieval: ``items`` is a list of
+        (current_question, hist_qs, hist_as); one prefill+decode covers
+        all of them (the pooled serving path)."""
+        windowed = [window_selector_history(
+            self.tokenizer, q, hq, ha, self.max_prompt_tokens,
+            include_demo) for q, hq, ha in items]
+        prompts = [build_selector_prompt(q, hq, ha, include_demo)
+                   for (q, _, _), (hq, ha, _) in zip(items, windowed)]
+        ids_list = [np.asarray(self.tokenizer.encode(p), np.int32)
+                    for p in prompts]
+        cap = self._cap_for([len(hq) for hq, _, _ in windowed])
+        padded, positions, last, cache = self._prep_batch(
+            ids_list, include_demo, cap)
+        dev = self.model.device
+        emb = qwen2.embed(self.model, torch.from_numpy(padded).to(dev))
+        result = generate_tokens(
+            self.model, emb, torch.from_numpy(positions).to(dev),
+            torch.from_numpy(last).to(dev), cache, generator, cap,
+            self.tokenizer.eos_token_id, temperature=0.0,
+            logit_ids=self.allowed_ids, adapters=self.adapters,
+            lora_scale=self.lora_scale, stop_ids=self.stop_ids)
+        toks = result.tokens.cpu().numpy()
+        nums = result.num_tokens.cpu().numpy()
+        outs = []
+        for b in range(len(ids_list)):
+            ids_out = toks[b, :int(nums[b])].tolist()
+            if ids_out and ids_out[-1] == self.tokenizer.eos_token_id:
+                ids_out = ids_out[:-1]
+            outs.append(_remap_selection(
+                normalize_selection(self.tokenizer.decode(
+                    ids_out, skip_special_tokens=True)),
+                windowed[b][2]))
+        return outs
+
+    @torch.inference_mode()
     def select(self, current_question: str, hist_qs: List[str],
                hist_as: List[str], include_demo: bool = True,
                generator: Optional[torch.Generator] = None) -> str:

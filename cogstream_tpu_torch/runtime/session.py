@@ -1,5 +1,5 @@
-"""Streaming session with cross-turn KV reuse — port of the solo serving
-path of ``cogstream_tpu/runtime/session.py``.
+"""Streaming session with cross-turn KV reuse — port of
+``cogstream_tpu/runtime/session.py`` (solo and pooled sessions).
 
 * **ingest** (``append_stream_segment``): the segment's frames are
   encoded (vision tower + projector), pixel-diff compressed on the host,
@@ -16,10 +16,21 @@ path of ``cogstream_tpu/runtime/session.py``.
 History never re-tokenizes: kept tokens keep their cache slots and
 absolute RoPE positions. The cache's ``write_index`` is a host int (the
 port's KVCache keeps it on the host), so no device scalar is read.
+
+A session bound to a :class:`~cogstream_tpu_torch.runtime.pool.SessionPool`
+(``pool=``, ``row=``) owns no cache: every prefill, decode and compaction
+addresses its row of the pool's shared cache in place (``cache_rows`` /
+``write_slots``; K3 and K4 read the row through their ``rows``
+operand), and its fill level is its own host int ``_wi``, which packs
+the row tightly (padding slots are dropped, never written).
+
+``save`` / ``load_state`` snapshot a session into one ``.npz`` in the JAX
+package's layout, so a JAX snapshot restores into the port.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -32,6 +43,7 @@ from ..models.cogreasoner import (SUMMARY_INSTRUCTION, SUMMARY_SYSTEM,
                                   CogReasoner, encode_images,
                                   pixel_diff_keep_mask)
 from ..models.qwen2 import KVCache, Qwen2Model, init_kv_cache
+from ..ops.lm_attention import cache_rows
 from .generate import decode_new_tokens, generate_tokens
 from .history import parse_selection
 from .retrieval import Selector
@@ -44,21 +56,27 @@ SYSTEM_PROMPT = (
 def _ingest_device_step(text: Qwen2Model, adapters, cache: KVCache,
                         mm: torch.Tensor, ids_pad, img_pad, rows_pad,
                         shadow_idx, positions, kv_allowed, frame_rows_idx,
-                        t: int, merged: int):
-    """Device half of one segment ingest: embed the template ids, splice
-    the kept visual rows (pads scatter into a scratch row), put each
-    frame's pooled SHADOW embedding at its slot, prefill the cache, and
-    return the per-frame features/rows the event machinery needs.
+                        write_slots, rows, t: int, merged: int):
+    """Device half of segment ingest for B rows (a session: B = 1; a
+    pool's ``ingest_batch``: one segment per row, one prefill): embed the
+    template ids, splice the kept visual rows (pads scatter into a
+    scratch row), put each frame's pooled SHADOW embedding at its slot,
+    prefill the cache, and return the per-frame features / rows the
+    event machinery needs. ``mm`` is the feature table of one vision
+    encode; row i's features occupy rows [i*t*merged, (i+1)*t*merged).
     ``kv_allowed`` hides earlier shadow slots from this prefill."""
-    emb = qwen2.embed(text, ids_pad)
-    emb = torch.cat([emb, emb.new_zeros((1, emb.shape[1]))])
-    emb[img_pad] = mm[rows_pad].to(emb.dtype)
-    pooled = mm[: t * merged].reshape(t, merged, -1).mean(dim=1)
-    emb[shadow_idx] = pooled.to(emb.dtype)
-    emb = emb[:-1]
-    _, cache = qwen2.qwen2_forward(text, emb[None], positions[None], cache,
-                                   adapters, kv_allowed=kv_allowed)
-    frame_rows_all = mm[frame_rows_idx.reshape(-1)].reshape(t, merged, -1)
+    B = ids_pad.shape[0]
+    emb = qwen2.embed(text, ids_pad)                             # [B,Sp,H]
+    emb = torch.cat([emb, emb.new_zeros((B, 1, emb.shape[-1]))], dim=1)
+    bi = torch.arange(B, device=emb.device)[:, None]
+    emb[bi, img_pad] = mm[rows_pad].to(emb.dtype)
+    pooled = mm[: B * t * merged].reshape(B, t, merged, -1).mean(dim=2)
+    emb[bi, shadow_idx] = pooled.to(emb.dtype)
+    emb = emb[:, :-1]
+    _, cache = qwen2.qwen2_forward(text, emb, positions, cache, adapters,
+                                   kv_allowed=kv_allowed,
+                                   write_slots=write_slots, cache_rows=rows)
+    frame_rows_all = mm[frame_rows_idx.reshape(-1)].reshape(B, t, merged, -1)
     return cache, pooled.to(torch.float32), frame_rows_all
 
 
@@ -171,10 +189,30 @@ class EventRecord:
     rep_host: Optional[np.ndarray] = None   # host mirror, filled lazily
 
 
+def _compact_row_device(cache: KVCache, gidx: torch.Tensor, n_new: int,
+                        row: int) -> None:
+    """Pooled compaction: move row ``row``'s surviving slots (``gidx``,
+    ascending) to the front of the row IN PLACE on the shared pool
+    cache; slots past ``n_new`` become empty (pos -1)."""
+    cache.k[:, row, :n_new] = cache.k[:, row].index_select(1, gidx)
+    cache.v[:, row, :n_new] = cache.v[:, row].index_select(1, gidx)
+    cache.pos[row, :n_new] = cache.pos[row].index_select(0, gidx)
+    cache.pos[row, n_new:] = -1
+
+
+def check_kv_dtype(kv_dtype, model_dtype: torch.dtype) -> None:
+    """The port's caches hold the model's dtype; an fp8 cache raises."""
+    if kv_dtype is not None and kv_dtype != model_dtype:
+        raise NotImplementedError(
+            f"a {kv_dtype} KV cache (kv_dtype) is not ported yet (ROADMAP "
+            "Queue 1 #3)")
+
+
 class StreamingSession:
     """One dialogue stream over one growing video. Batch size 1; the
     model's device (``model.text``) holds the cache and runs every
-    forward."""
+    forward. With ``pool``/``row`` the session lives in one row of the
+    pool's shared cache (runtime/pool.py)."""
 
     # No single prefill carries more tokens than this; longer sequences
     # split into chunk prefills (exact: each chunk attends back to the
@@ -184,20 +222,37 @@ class StreamingSession:
     def __init__(self, model: CogReasoner, cfg: CogReasonerConfig, tokenizer,
                  adapters: Optional[Dict[str, Dict]] = None,
                  max_len: int = 16384, rng_seed: int = 0,
-                 system_prompt: str = SYSTEM_PROMPT):
+                 system_prompt: str = SYSTEM_PROMPT,
+                 summary_forward: bool = True, kv_dtype=None,
+                 pool=None, row: Optional[int] = None):
         if cfg.text.w8a8_prefill:
             raise NotImplementedError("w8a8_prefill (the W8A8 prefill "
                                       "branch) is not ported yet (ROADMAP "
                                       "Queue 1 #4)")
+        check_kv_dtype(kv_dtype, model.text.dtype)
         self.model = model
         self.cfg = cfg
         self.tok = tokenizer
         self.adapters = adapters or {}
         self.max_len = max_len
         self.device = model.text.device
-        self.cache = init_kv_cache(cfg.text, 1, max_len,
-                                   dtype=model.text.dtype,
-                                   device=self.device)
+        # per-event summary LM forward at ingest (True: reps in hidden
+        # space; False: feature-space centroids)
+        self.summary_forward = summary_forward
+        self._pool, self._row = pool, row
+        self._rows = None
+        if pool is None:
+            self._own_cache = init_kv_cache(cfg.text, 1, max_len,
+                                            dtype=model.text.dtype,
+                                            device=self.device)
+        else:
+            if row is None or max_len != pool.max_len:
+                raise ValueError("a pooled session needs its row and the "
+                                 "pool's max_len")
+            self._rows = cache_rows([row], self.device)
+            # clear any previous tenant's slots on this row
+            pool.cache.pos[row] = -1
+        self._wi = 0               # pooled fill level (host int)
         self._gen = torch.Generator(device=self.device).manual_seed(rng_seed)
         self.ranges: List[SlotRange] = []
         self.events: List[EventRecord] = []
@@ -222,8 +277,33 @@ class StreamingSession:
     # ------------------------------------------------------------------
 
     @property
+    def cache(self) -> KVCache:
+        """Solo: the session's own 1-row cache. Pooled: the pool's shared
+        cache (one storage; assignments write it back)."""
+        return self._own_cache if self._pool is None else self._pool.cache
+
+    @cache.setter
+    def cache(self, c: KVCache) -> None:
+        if self._pool is None:
+            self._own_cache = c
+        else:
+            self._pool.cache = c
+
+    def _row_slots(self, start: int, n_real: int,
+                   n_total: int) -> Optional[np.ndarray]:
+        """Pooled write_slots of a prefill at ``start``: real tokens pack
+        tightly, padding slots drop (never written)."""
+        if self._pool is None:
+            return None
+        slots = np.full((1, n_total), self.max_len, np.int64)
+        slots[0, :n_real] = start + np.arange(n_real)
+        return slots
+
+    @property
     def write_index(self) -> int:
-        return self.cache.write_index
+        """The fill level: the solo cache's host write index, or the
+        pooled row's own ``_wi``."""
+        return self.cache.write_index if self._pool is None else self._wi
 
     def _full_adapters(self):
         full = self.adapters.get("full_module")
@@ -286,8 +366,11 @@ class StreamingSession:
         positions[0, :S] = np.arange(self.next_pos, self.next_pos + S)
         qwen2.qwen2_forward(self.model.text, embeds[None],
                             self._dev(positions), self.cache,
-                            self._full_adapters())
+                            self._full_adapters(),
+                            write_slots=self._row_slots(start, S, Sp),
+                            cache_rows=self._rows)
         self.next_pos += S
+        self._wi = start + S      # pooled rows pack tightly
 
     @torch.inference_mode()
     def _prefill_text(self, ids: np.ndarray, kind: str,
@@ -336,24 +419,26 @@ class StreamingSession:
             frame_rows_idx=frame_rows_idx, kept_counts=kept_counts,
             timestamps=[float(x) for x in timestamps])
 
-    def _pack_plan(self, plan: Dict, Sp: int, n_img_p: int) -> Dict:
+    def _pack_plan(self, plan: Dict, Sp: int, n_img_p: int,
+                   row_offset: int = 0) -> Dict:
         """Pad a plan to the buckets. Layout: [segment (n)][shadow pooled
-        tokens (t)][pad]. Pads: ids → 0, scatter targets → scratch row
-        Sp, positions → -1."""
+        tokens (t)][pad]. ``row_offset`` shifts feature-row indices into
+        a batch-global feature table. Pads: ids → 0, scatter targets →
+        scratch row Sp, positions → -1."""
         n, t = plan["n"], plan["t"]
         ids_pad = np.zeros((Sp,), np.int32)
         ids_pad[:n] = plan["seg_ids"]
         n_img = len(plan["flat_img"])
         img_pad = np.full((n_img_p,), Sp, np.int64)
         img_pad[:n_img] = plan["flat_img"]
-        rows_pad = np.zeros((n_img_p,), np.int64)
-        rows_pad[:n_img] = plan["flat_rows"]
+        rows_pad = np.full((n_img_p,), row_offset, np.int64)
+        rows_pad[:n_img] = plan["flat_rows"] + row_offset
         positions = np.concatenate([
             np.arange(self.next_pos, self.next_pos + n + t, dtype=np.int32),
             np.full((Sp - n - t,), -1, np.int32)])
         return dict(ids_pad=ids_pad, img_pad=img_pad, rows_pad=rows_pad,
                     shadow_idx=n + np.arange(t), positions=positions,
-                    frame_rows_idx=plan["frame_rows_idx"])
+                    frame_rows_idx=plan["frame_rows_idx"] + row_offset)
 
     def _commit_segment(self, plan: Dict, start: int,
                         frame_feats: np.ndarray,
@@ -362,6 +447,7 @@ class StreamingSession:
         frames, event sealing."""
         n, t = plan["n"], plan["t"]
         self.next_pos += n + t
+        self._wi = start + n + t   # pooled rows pack tightly
         r = SlotRange("stream", start, start + n)
         self.ranges.append(r)
         self.ranges.append(SlotRange("shadow", start + n, start + n + t))
@@ -397,19 +483,26 @@ class StreamingSession:
     def append_stream_segment(self, pixel_values: np.ndarray,
                               grid_size: Tuple[int, int, int],
                               merge_size: int,
-                              timestamps: Sequence[float]) -> None:
+                              timestamps: Sequence[float],
+                              pixel_values_device=None,
+                              keep_mask: Optional[np.ndarray] = None
+                              ) -> None:
         """Encode + compress + prefill one video segment (stream role),
         as ONE prefill of every frame's template ids with the kept visual
-        rows spliced in."""
+        rows spliced in. Serving's preprocess worker may pass the rows
+        already uploaded (``pixel_values_device``) and their keep mask."""
         t, gh, gw = (int(x) for x in grid_size)
         if t != len(timestamps):
             raise ValueError(f"{t} frames but {len(timestamps)} timestamps")
         merged = (gh // merge_size) * (gw // merge_size)
         rows = t * gh * gw
         pad_rows = -(-rows // 1024) * 1024   # bucket the encode shape
-        pv = self._dev(pixel_values)   # one upload serves mask and tower
+        # one upload serves mask and tower
+        pv = (self._dev(pixel_values) if pixel_values_device is None
+              else pixel_values_device)
         # the mask first: its host sync then waits for no tower work
-        keep = self.ingest_keep_mask(pv, (t, gh, gw), merge_size)
+        keep = (keep_mask if keep_mask is not None
+                else self.ingest_keep_mask(pv, (t, gh, gw), merge_size))
         mm = encode_images(self.model, pv, np.array([[t, gh, gw]]),
                            np.array([merge_size]), pad_to=pad_rows)
         plan = self._segment_plan(keep, t, merged, timestamps)
@@ -421,15 +514,15 @@ class StreamingSession:
             raise RuntimeError(
                 f"session cache overflow: {start}+{Sp} > {self.max_len}")
         packed = self._pack_plan(plan, Sp, n_img_p)
+        dev = {k: self._dev(v)[None] for k, v in packed.items()}
         self.cache, frame_feats, frame_rows_all = _ingest_device_step(
             self.model.text, self._full_adapters(), self.cache, mm,
-            self._dev(packed["ids_pad"]), self._dev(packed["img_pad"]),
-            self._dev(packed["rows_pad"]), self._dev(packed["shadow_idx"]),
-            self._dev(packed["positions"]),
-            self._dev(self._ingest_allowed())[None],
-            self._dev(packed["frame_rows_idx"]), t, merged)
-        self._commit_segment(plan, start, frame_feats.cpu().numpy(),
-                             frame_rows_all)
+            dev["ids_pad"], dev["img_pad"], dev["rows_pad"],
+            dev["shadow_idx"], dev["positions"],
+            self._dev(self._ingest_allowed())[None], dev["frame_rows_idx"],
+            self._row_slots(start, plan["n"] + t, Sp), self._rows, t, merged)
+        self._commit_segment(plan, start, frame_feats[0].cpu().numpy(),
+                             frame_rows_all[0])
         flush_event_reps([self])
 
     def _ingest_allowed(self) -> np.ndarray:
@@ -456,7 +549,13 @@ class StreamingSession:
         ev.frame_slots = [f.img_slots for f in frames]
         ev.shadow_slots = [f.shadow_slot for f in frames]
         ev.keyframe_mask = [i in kf for i in range(len(frames))]
-        self._rep_pending.append((ev, frames))
+        if self.summary_forward:
+            # rep deferred: flush_event_reps batches every event sealed
+            # by this ingest (a pool tick: the whole tick) in one forward
+            self._rep_pending.append((ev, frames))
+        else:
+            ev.rep = torch.from_numpy(center.astype(np.float32)).to(
+                self.device)
         self.events.append(ev)
 
     def _event_summary_pack(self, frames) -> Dict:
@@ -494,14 +593,19 @@ class StreamingSession:
         n_new = len(perm)
         old2new = np.full((self.max_len,), -1, np.int64)
         old2new[perm] = np.arange(n_new)
-        idx = np.zeros((self.max_len,), np.int64)
-        idx[:n_new] = perm
-        gidx = self._dev(idx)
-        c = self.cache
-        pos = c.pos.index_select(1, gidx)
-        pos[:, n_new:] = -1
-        self.cache = KVCache(c.k.index_select(2, gidx),
-                             c.v.index_select(2, gidx), pos, n_new)
+        if self._pool is not None:
+            _compact_row_device(self.cache, self._dev(perm.astype(np.int64)),
+                                n_new, self._row)
+            self._wi = n_new
+        else:
+            idx = np.zeros((self.max_len,), np.int64)
+            idx[:n_new] = perm
+            gidx = self._dev(idx)
+            c = self.cache
+            pos = c.pos.index_select(1, gidx)
+            pos[:, n_new:] = -1
+            self.cache = KVCache(c.k.index_select(2, gidx),
+                                 c.v.index_select(2, gidx), pos, n_new)
 
         new_ranges: List[SlotRange] = []
         off = 0
@@ -620,14 +724,8 @@ class StreamingSession:
                         allowed[shadow] = not is_key
         return allowed
 
-    @torch.inference_mode()
-    def ask(self, question: str, mode: str = "FCC",
-            max_new_tokens: int = 512, temperature: float = 0.0,
-            top_p: float = 1.0, top_k: int = 0,
-            repetition_penalty: float = 1.0,
-            extra_eos_ids: tuple = ()) -> Dict:
-        turn = len(self.hist_qs)
-        question_ids = np.asarray(self.tok.encode(question), np.int32)
+    def _select(self, question: str, mode: str, turn: int):
+        """(selection, if_visual, selected turns) of one ask."""
         if mode == "FCC" and self.hist_qs:
             selection = self.selector.select(question, self.hist_qs,
                                              self.hist_as,
@@ -638,23 +736,37 @@ class StreamingSession:
         else:  # AC / first turn: everything visible
             selection, if_visual = "[yes]", True
             sel_idx = list(range(turn))
+        return selection, if_visual, sel_idx
 
+    def _question_prompt(self, question: str):
         q_text = (f"<|im_start|>user\n{question}<|im_end|>\n"
                   f"<|im_start|>assistant\n")
         q_ids = np.asarray(self.tok.encode(q_text), np.int32)
         S = len(q_ids)
         Sp = self._bucket(S)
+        ids_pad = np.zeros((Sp,), np.int32)
+        ids_pad[:S] = q_ids
+        positions = np.full((1, Sp), -1, np.int32)
+        positions[0, :S] = np.arange(self.next_pos, self.next_pos + S)
+        return ids_pad, positions, S, Sp
+
+    @torch.inference_mode()
+    def ask(self, question: str, mode: str = "FCC",
+            max_new_tokens: int = 512, temperature: float = 0.0,
+            top_p: float = 1.0, top_k: int = 0,
+            repetition_penalty: float = 1.0,
+            extra_eos_ids: tuple = ()) -> Dict:
+        turn = len(self.hist_qs)
+        question_ids = np.asarray(self.tok.encode(question), np.int32)
+        selection, if_visual, sel_idx = self._select(question, mode, turn)
+        ids_pad, positions, S, Sp = self._question_prompt(question)
         # evict BEFORE building the visibility mask (compaction moves slots)
         self.evict_for(Sp + max_new_tokens)
         allowed = self._allowed_mask(if_visual, sel_idx, question_ids)
         start = self.write_index
         if start + Sp + max_new_tokens > self.max_len:
             raise RuntimeError("session cache overflow")
-        ids_pad = np.zeros((Sp,), np.int32)
-        ids_pad[:S] = q_ids
         emb = qwen2.embed(self.model.text, self._dev(ids_pad))[None]
-        positions = np.full((1, Sp), -1, np.int32)
-        positions[0, :S] = np.arange(self.next_pos, self.next_pos + S)
         penalty_ids = None
         if repetition_penalty != 1.0:
             penalty_ids = self._dev(np.where(np.arange(Sp) < S, ids_pad,
@@ -666,6 +778,8 @@ class StreamingSession:
             top_p=top_p, top_k=top_k, repetition_penalty=repetition_penalty,
             penalty_ids=penalty_ids, adapters=self._full_adapters(),
             kv_allowed=self._dev(allowed)[None],
+            write_slots=self._row_slots(start, S, Sp),
+            cache_rows=self._rows,
             kv_window=self._kv_window(start + Sp + max_new_tokens),
             extra_eos_ids=tuple(extra_eos_ids) or None)
         self.cache = result.cache
@@ -673,8 +787,10 @@ class StreamingSession:
         n_fed = max(0, int(num[0]) - 1)
         text = decode_new_tokens(tokens, num, self.tok)
         # answer slots = tokens fed back through the cache (the terminal
-        # token never re-enters): prompt bucket + fed tokens
-        ans_start = start + Sp
+        # token never re-enters): solo, prompt bucket + fed tokens; pooled,
+        # tight packing after the S real prompt tokens
+        ans_start = start + (S if self._pool is not None else Sp)
+        self._wi = ans_start + n_fed
         if self.write_index != ans_start + n_fed:
             raise RuntimeError("cache write index out of step with the "
                                "answer length")
@@ -688,3 +804,252 @@ class StreamingSession:
                 "if_visual": if_visual, "turn": turn,
                 "cache_tokens": self.write_index,
                 "tokens": tokens[0, :int(num[0])].tolist()}
+
+    def ask_stream(self, question: str, mode: str = "FCC",
+                   max_new_tokens: int = 512, chunk: int = 16,
+                   temperature: float = 0.0, extra_eos_ids: tuple = ()):
+        """Generator variant of ``ask``: yields text deltas as decode
+        chunks complete. Each chunk is one prefill+decode whose 1-token
+        "prompt" is the previous chunk's last sampled token, so the cache
+        simply continues. Ends by yielding the final result dict (as
+        ``ask``'s, without ``tokens``). Abandoning the generator commits
+        what the cache already holds."""
+        turn = len(self.hist_qs)
+        question_ids = np.asarray(self.tok.encode(question), np.int32)
+        with torch.inference_mode():
+            selection, if_visual, sel_idx = self._select(question, mode,
+                                                         turn)
+            ids_pad, positions, S, Sp = self._question_prompt(question)
+            self.evict_for(Sp + max_new_tokens)
+            allowed = self._dev(self._allowed_mask(
+                if_visual, sel_idx, question_ids))[None]
+            emb = qwen2.embed(self.model.text, self._dev(ids_pad))[None]
+        start = self.write_index
+        if start + Sp + max_new_tokens > self.max_len:
+            raise RuntimeError("session cache overflow")
+        positions = self._dev(positions)
+        last_index = self._dev(np.asarray([S - 1], np.int32))
+
+        all_ids: List[int] = []
+        emitted = ""
+        produced = 0
+        done = False
+        wrote_any = False
+        stride = S if self._pool is not None else Sp
+        wi = start + stride
+        write_slots = self._row_slots(start, S, Sp)
+        kv_window = self._kv_window(start + Sp + max_new_tokens)
+        next_pos = self.next_pos + S
+        eos = self.tok.eos_token_id
+        try:
+            while produced < max_new_tokens and not done:
+                n_chunk = min(chunk, max_new_tokens - produced)
+                result = generate_tokens(
+                    self.model.text, emb, positions, last_index, self.cache,
+                    self._gen, n_chunk, eos, temperature=temperature,
+                    adapters=self._full_adapters(), kv_allowed=allowed,
+                    write_slots=write_slots, cache_rows=self._rows,
+                    kv_window=kv_window,
+                    extra_eos_ids=tuple(extra_eos_ids) or None)
+                self.cache = result.cache
+                wrote_any = True
+                toks = result.tokens.cpu().numpy()[0]
+                num = int(result.num_tokens.cpu()[0])
+                chunk_ids = toks[:num].tolist()
+                done = (bool(chunk_ids) and chunk_ids[-1] == eos) \
+                    or num < n_chunk
+                # the continuation feeds the last sampled token as prompt
+                if chunk_ids and chunk_ids[-1] == eos:
+                    chunk_ids = chunk_ids[:-1]
+                all_ids.extend(chunk_ids)
+                produced += num
+                wi += max(0, num - 1)
+                text_so_far = self.tok.decode(all_ids,
+                                              skip_special_tokens=True)
+                delta = text_so_far[len(emitted):]
+                emitted = text_so_far
+                if delta:
+                    yield delta
+                if not done and produced < max_new_tokens:
+                    last_tok = int(toks[num - 1])
+                    with torch.inference_mode():
+                        emb = qwen2.embed(self.model.text, self._dev(
+                            np.asarray([[last_tok]], np.int32)))
+                    positions = self._dev(np.asarray(
+                        [[next_pos + produced - 1]], np.int32))
+                    last_index = self._dev(np.asarray([0], np.int32))
+                    # the continuation's 1-token prompt takes the next
+                    # slot (counted only when it runs)
+                    write_slots = self._row_slots(wi, 1, 1)
+                    wi += 1
+        finally:
+            # commit even when the consumer abandons the generator (an
+            # HTTP client gone mid-stream): the cache already holds what
+            # was generated, so the host state must say so. Nothing to
+            # commit if the first chunk never wrote.
+            if wrote_any:
+                self._wi = wi
+                self.ranges.append(SlotRange("question", start, start + S,
+                                             turn))
+                self.ranges.append(SlotRange("answer", start + stride, wi,
+                                             turn))
+                # positions advance by FED tokens only (the final sampled
+                # token never re-enters the cache, as ask's n_fed)
+                self.next_pos = next_pos + max(0, produced - 1)
+                self.hist_qs.append(question)
+                self.hist_as.append(emitted)
+        yield {"text": emitted, "selection": selection,
+               "if_visual": if_visual, "turn": turn,
+               "cache_tokens": self.write_index}
+
+    @torch.inference_mode()
+    def reset(self) -> None:
+        """Start a fresh dialogue stream on the same cache storage (the
+        positions are cleared; old K/V bytes become unreachable)."""
+        if self._pool is None:
+            self.cache.pos.fill_(-1)
+            self.cache.write_index = 0
+        else:
+            self.cache.pos[self._row] = -1
+        self._wi = 0
+        self.ranges = []
+        self.events = []
+        self.hist_qs, self.hist_as = [], []
+        self.next_pos = 0
+        self.total_frames = 0
+        self._pending_frames = []
+        self._rep_pending = []
+        ids = self.tok.encode(
+            f"<|im_start|>system\n{self._system_prompt}<|im_end|>\n")
+        self._prefill_text(np.asarray(ids, np.int32), kind="system")
+
+    # ------------------------------------------------------------------
+    # persistence — serving restarts without losing live streams
+    # ------------------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Snapshot this session (its cache row trimmed to the fill level
+        and all host bookkeeping) into one atomic ``.npz`` in the JAX
+        package's layout. The generator state goes under
+        ``torch_rng_state`` (JAX stores ``rng_key``). Weights are not
+        included."""
+        from ..utils.io import atomic_write_npz, pack_array
+
+        if self._rep_pending:
+            raise RuntimeError("ingest left unflushed event reps")
+        row = self._row if self._pool is not None else 0
+        wi = self.write_index
+        meta = {
+            "version": 1,
+            "max_len": self.max_len,
+            "wi": wi,
+            "next_pos": self.next_pos,
+            "total_frames": self.total_frames,
+            "hist_qs": self.hist_qs,
+            "hist_as": self.hist_as,
+            "system_prompt": self._system_prompt,
+            "ranges": [[r.kind, r.start, r.end, r.turn]
+                       for r in self.ranges],
+            "events": [{
+                "frame_ids": ev.frame_ids,
+                "frame_slots": [np.asarray(s).tolist()
+                                for s in ev.frame_slots],
+                "shadow_slots": list(ev.shadow_slots),
+                "keyframe_mask": list(ev.keyframe_mask),
+            } for ev in self.events],
+            "pending": [{
+                "frame_id": f.frame_id,
+                "timestamp": f.timestamp,
+                "img_slots": np.asarray(f.img_slots).tolist(),
+                "shadow_slot": int(f.shadow_slot),
+                "n_kept": int(f.n_kept),
+            } for f in self._pending_frames],
+        }
+        arrays: Dict[str, np.ndarray] = {}
+        dtypes: Dict[str, str] = {}
+
+        def put(name, a):
+            arrays[name], dtypes[name] = pack_array(a)
+
+        c = self.cache
+        put("k", c.k[:, row, :wi])
+        put("v", c.v[:, row, :wi])
+        put("pos", c.pos[row, :wi])
+        put("torch_rng_state", self._gen.get_state())
+        if self.events:
+            # one device-to-host copy for all reps
+            put("event_reps", torch.stack(
+                [ev.rep.to(self.device, torch.float32)
+                 for ev in self.events]).cpu())
+        for i, f in enumerate(self._pending_frames):
+            put(f"pend_feat_{i}", np.asarray(f.feat, np.float32))
+            put(f"pend_rows_{i}", f.frame_rows)
+        meta["dtypes"] = dtypes
+        atomic_write_npz(path, meta=np.asarray(json.dumps(meta)), **arrays)
+
+    @torch.inference_mode()
+    def load_state(self, path: str) -> None:
+        """Restore a ``save`` snapshot, the port's or the JAX package's,
+        into this session (solo or a pool row). The session must share
+        the snapshot's model, config and tokenizer; ``max_len`` must fit
+        it. A JAX snapshot carries only ``rng_key``: the generator is
+        then seeded from its two words."""
+        from ..utils.io import unpack_array
+
+        d = np.load(path)
+        meta = json.loads(str(d["meta"]))
+        wi = int(meta["wi"])
+        if wi > self.max_len:
+            raise ValueError(
+                f"snapshot needs {wi} slots, session has {self.max_len}")
+        dt = meta["dtypes"]
+
+        def get(name):
+            return unpack_array(d[name], dt[name])
+
+        def dev(a, dtype=None):
+            return torch.as_tensor(a).to(self.device, dtype)
+
+        c = self.cache
+        row = self._row if self._pool is not None else 0
+        k, v, pos = get("k"), get("v"), get("pos")
+        if tuple(k.shape) != (c.k.shape[0], wi) + tuple(c.k.shape[3:]):
+            raise ValueError(f"snapshot K/V {tuple(k.shape)} do not fit "
+                             "this model's cache")
+        c.k[:, row, :wi] = dev(k, c.k.dtype)
+        c.v[:, row, :wi] = dev(v, c.v.dtype)
+        c.pos[row] = -1
+        c.pos[row, :wi] = dev(pos, torch.int32)
+        if self._pool is None:
+            c.write_index = wi
+        self._wi = wi
+        self.next_pos = int(meta["next_pos"])
+        self.total_frames = int(meta["total_frames"])
+        self.hist_qs = list(meta["hist_qs"])
+        self.hist_as = list(meta["hist_as"])
+        self._system_prompt = meta["system_prompt"]
+        if "torch_rng_state" in dt:
+            self._gen.set_state(torch.as_tensor(get("torch_rng_state")))
+        else:
+            w = np.asarray(get("rng_key")).reshape(-1).astype(np.uint64)
+            self._gen.manual_seed(int(w[0]) << 32 | int(w[-1]))
+        self.ranges = [SlotRange(k_, s_, e_, t_)
+                       for k_, s_, e_, t_ in meta["ranges"]]
+        reps = get("event_reps") if meta["events"] else None
+        self.events = [EventRecord(
+            frame_ids=list(ev["frame_ids"]),
+            rep=dev(reps[i], torch.float32),
+            frame_slots=[np.asarray(s_, np.int64)
+                         for s_ in ev["frame_slots"]],
+            shadow_slots=list(ev["shadow_slots"]),
+            keyframe_mask=list(ev["keyframe_mask"]))
+            for i, ev in enumerate(meta["events"])]
+        self._pending_frames = [
+            PendingFrame(p["frame_id"], p["timestamp"],
+                         np.asarray(get(f"pend_feat_{i}"), np.float32),
+                         np.asarray(p["img_slots"], np.int64),
+                         p["shadow_slot"],
+                         dev(get(f"pend_rows_{i}"), self.model.text.dtype),
+                         p["n_kept"])
+            for i, p in enumerate(meta["pending"])]
+        self._rep_pending = []

@@ -294,8 +294,8 @@ def test_export_hf_cli_matches_jax(jax_ckpts, tmp_path, monkeypatch):
 def test_cli_names_the_queue_of_unported_commands(capsys):
     from cogstream_tpu_torch import __main__ as tmain
 
-    assert tmain.main(["serve"]) == 2
-    assert "Queue 1 #2" in capsys.readouterr().out
+    assert tmain.main(["judge"]) == 2
+    assert "Queue 1 #8" in capsys.readouterr().out
     assert tmain.main([]) == 0
 
 

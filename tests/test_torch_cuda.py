@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1-K9) against their plain PyTorch versions,
 on the card: the bf16 tensor-core kernels of K1, K3, K4 and K5 and the
-f32 CUDA-core tiles beside them. Marked ``cuda``: without a CUDA device every test skips.
+f32 CUDA-core tiles beside them; K3 and K4 reading a pool cache through
+``rows``; a tiny pool card against CPU. Marked ``cuda``: without a CUDA device every test skips.
 
 On a machine with a card (and no JAX, so the repo's conftest cannot be
 imported there):
@@ -346,6 +347,104 @@ def test_decode_tensor_core_kernel_replays_in_a_graph(dev, S, window):
     torch.cuda.synchronize()
     assert torch.equal(out, lma.decode_attention(q, k, v, qpos, eff))
     _two_ulps(out, lma.gqa_attention_plain(q, k, v, qpos, eff))
+
+
+@pytest.mark.parametrize("rows", [[2], [3, 1]])
+@pytest.mark.parametrize("kernel,S", [("K3", 100), ("K4", 1), ("K4", 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rows_read_the_pool_in_place(dev, rows, kernel, S, dtype):
+    """K3 and K4 with ``rows`` on a 4-row pool cache: bit-identical to
+    the same kernel on a contiguous copy of the addressed rows, counted
+    in ``.rows_launches``, and (bf16) within 2 bf16 ulps of the plain
+    version per row."""
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    rng = np.random.default_rng(len(rows) * 10 + S)
+    B, T, Hkv, G, D = len(rows), 1100, 2, 7, 128
+    k = _t(rng.standard_normal((4, T, Hkv, D)), dev, dtype)
+    v = _t(rng.standard_normal((4, T, Hkv, D)), dev, dtype)
+    q = _t(rng.standard_normal((B, S, Hkv * G, D)), dev, dtype)
+    fill = 900
+    pos = np.full((B, T), -1, np.int32)
+    pos[:, :fill + S] = np.arange(fill + S)
+    pos[:, rng.choice(fill, 5, replace=False)] = -1
+    qpos = _t(np.tile(fill + np.arange(S), (B, 1)), dev, torch.int32)
+    eff = lma.effective_kv_positions(_t(pos, dev, torch.int32))[:, :1000]
+    eff = eff.contiguous()
+    wrap = (lma.prefill_flash_attention if kernel == "K3"
+            else lma.decode_attention)
+    kc, vc = k[rows].contiguous(), v[rows].contiguous()
+    want = wrap(q, kc, vc, qpos, eff)
+    n0, r0 = wrap.launches, wrap.rows_launches
+    got = wrap(q, k, v, qpos, eff, rows=lma.cache_rows(rows, dev))
+    assert (wrap.launches, wrap.rows_launches) == (n0 + 1, r0 + 1)
+    assert torch.equal(got, want)
+    if dtype == torch.bfloat16:
+        _two_ulps(got, lma.gqa_attention_plain(q, k, v, qpos, eff,
+                                               rows=rows))
+
+
+def test_rows_decode_replays_in_a_graph(dev):
+    """One K4 call with ``rows`` captured in a CUDA graph and replayed
+    after q was rewritten equals the eager call bit for bit."""
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    rng = np.random.default_rng(11)
+    q, k, v, qpos, eff = _decode_case(rng, dev, 2, 1, 7, 128, 4096, 3000,
+                                      2700)
+    pool_k = torch.cat([k, k.flip(0)])          # 4 rows
+    pool_v = torch.cat([v, v.flip(0)])
+    rows = lma.cache_rows([3, 1], dev)
+    lma.decode_attention(q, pool_k, pool_v, qpos, eff, rows=rows)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = lma.decode_attention(q, pool_k, pool_v, qpos, eff, rows=rows)
+    q.copy_(q.flip(0))
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, lma.decode_attention(q, k, v, qpos, eff))
+
+
+def test_pool_card_matches_cpu(dev):
+    """A tiny f32 ``SessionPool`` (3 rows: ingest_batch, ask_batch AC then
+    FCC, a solo pooled ask, ask_stream) on the card (K1-K4, K3 / K4 with
+    ``rows``) and on the CPU: the same greedy tokens, selections, slot
+    ranges and cache positions."""
+    import copy
+
+    from cogstream_tpu_torch.config import CogReasonerConfig
+    from cogstream_tpu_torch.models.cogreasoner import init_cogreasoner_params
+    from cogstream_tpu_torch.ops import lm_attention as lma
+    from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
+    from cogstream_tpu_torch.runtime.pool import SessionPool
+
+    cfg = CogReasonerConfig.tiny()
+    cpu_model = init_cogreasoner_params(cfg, torch.Generator().manual_seed(0),
+                                        device="cpu")
+    tok = ByteTokenizer(image_token_id=cfg.image_token_index)
+    rng = np.random.default_rng(0)
+    pvs = [rng.normal(size=(3 * 4 * 4, 3 * 14 * 14)).astype(np.float32)
+           for _ in range(3)]
+    outs = []
+    r0 = lma.decode_attention.rows_launches
+    for model in (cpu_model, copy.deepcopy(cpu_model).to(dev)):
+        pool = SessionPool(model, cfg, tok, n_rows=3, max_len=1024)
+        for _ in range(3):
+            pool.open()
+        pool.ingest_batch([(b, pvs[b], (3, 4, 4), 2, [0.0, 1.0, 2.0])
+                           for b in range(3)])
+        res = [pool.ask_batch([(b, f"what {b}?") for b in range(3)],
+                              mode=m, max_new_tokens=8) for m in ("AC", "FCC")]
+        res.append(pool.ask(1, "and then?", mode="FCC", max_new_tokens=8))
+        res.append(list(pool.sessions[2].ask_stream(
+            "more?", mode="AC", max_new_tokens=8, chunk=3)))
+        outs.append((res, [[(r.kind, r.start, r.end) for r in s.ranges]
+                           for s in pool.sessions.values()],
+                     pool.cache.pos.cpu()))
+    assert lma.decode_attention.rows_launches > r0
+    assert outs[0][0] == outs[1][0] and outs[0][1] == outs[1][1]
+    assert torch.equal(outs[0][2], outs[1][2])
 
 
 def _int4_weights(rng, dev, shape, cubic=False):

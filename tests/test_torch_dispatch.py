@@ -186,6 +186,49 @@ def test_decode_bf16_reaches_tensor_core_kernel(lib, D, B, S, T, window):
     assert lma.prefill_flash_attention.tc_launches == t0
 
 
+@pytest.mark.parametrize("kernel,dtype,entry", [
+    ("K3", torch.bfloat16, "cs_gqa_prefill_tc"),
+    ("K3", torch.float32, "cs_gqa_attention"),
+    ("K4", torch.bfloat16, "cs_gqa_decode_tc"),
+    ("K4", torch.float32, "cs_gqa_attention")])
+def test_rows_reach_the_entry_point(lib, kernel, dtype, entry):
+    """With ``rows`` the wrapper takes a [B_pool, T] cache and passes the
+    row map's device pointer (the argument before the stream) to the same
+    entry point, counting the call in ``.rows_launches``; without rows it
+    passes null. The K4 workspace stays sized by the input rows."""
+    S = 20 if kernel == "K3" else 1
+    q, k, v, qpos, eff = _lm(dtype, B=2, S=S, T=256)
+    pool_k = torch.cat([k, k])                   # 4 pool rows
+    wrap = (lma.prefill_flash_attention if kernel == "K3"
+            else lma.decode_attention)
+    rows = lma.cache_rows([3, 1], q.device)
+    r0, n0 = wrap.rows_launches, wrap.launches
+    wrap(q, pool_k, pool_k, qpos, eff, rows=rows)
+    wrap(q, k, v, qpos, eff)
+    assert lib.names()[0] == entry and lib.names()[-1 if kernel == "K3"
+                                                   else -2] == entry
+    calls = [c for c in lib.calls if c[0] == entry]
+    assert calls[0][1][-2] == rows.dev.data_ptr()
+    assert calls[1][1][-2] is None
+    assert calls[0][1][1] == pool_k.data_ptr()
+    assert (wrap.rows_launches, wrap.launches) == (r0 + 1, n0 + 2)
+    if entry == "cs_gqa_decode_tc":
+        mt, groups, _, n_splits = lma.decode_plan(2, 4, 7, 128, 256, 132)
+        part, tickets = lma._decode_ws[q.device]
+        assert tickets.numel() >= 2 * 4 * groups
+
+
+def test_rows_are_checked_on_the_host(lib):
+    q, k, v, qpos, eff = _lm(torch.bfloat16, B=2, S=1, T=256)
+    pool = torch.cat([k, k])
+    for bad in ([1, 1], [0, 4], [2]):
+        with pytest.raises(ValueError):
+            lma.decode_attention(q, pool, pool, qpos, eff, rows=bad)
+    with pytest.raises(ValueError):               # no rows: B must match
+        lma.decode_attention(q, pool, pool, qpos, eff)
+    assert lib.calls == []
+
+
 def test_decode_workspace_is_reused(lib, monkeypatch):
     """Two consecutive bf16 decode calls pass the same workspace pointers
     (nothing allocated per call); its tickets start at zero; a larger

@@ -8,7 +8,8 @@ parsing, prompt strings (byte-exact), the pixel-diff keep mask
 (byte-exact), the vision metadata, and the evaluation path's host
 processor (chat template, image processor, video loader, the
 conversation processor and the history rewrite: byte-exact outputs on
-the same frames). The last tests check that the port imports with JAX
+the same frames), and the serving path's frame stream, snapshot codec
+and stage timer. The last tests check that the port imports with JAX
 and ``cogstream_tpu`` blocked, and that no port module imports PIL,
 OpenCV, ``transformers`` or ``safetensors`` when it is imported.
 """
@@ -404,6 +405,111 @@ def test_video_loader_matches_original(tmp_path):
         jvid.cv2_frame_plan(45, 10.0, 1.0, None, 1.0, 3, 0.5)[2]
 
 
+@pytest.mark.parametrize("kw", [dict(fps=2.0, chunk_frames=5,
+                                      max_frames=128),
+                                 dict(start=2.0, end=6.0, fps=2.0,
+                                      chunk_frames=3),
+                                 dict(fps=4.0, chunk_frames=4, max_frames=6)])
+def test_frame_stream_matches_original(tmp_path, kw):
+    """open_frame_stream (the cv2 thread where no ffmpeg binary is
+    installed): the same chunks, stamps, backend and frame-count hint as
+    the JAX package's; a frame directory returns None in both."""
+    cv2 = pytest.importorskip("cv2")
+    from cogstream_tpu.processor import frame_stream as jfs
+    from cogstream_tpu_torch.processor import frame_stream as tfs
+
+    path = str(tmp_path / "clip.mp4")
+    w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 10, (64, 48))
+    rng = np.random.default_rng(7)
+    for i in range(80):
+        frame = rng.integers(0, 255, (48, 64, 3), np.uint8)
+        frame[:8, :8] = i * 3
+        w.write(frame)
+    w.release()
+    js, ts = jfs.open_frame_stream(path, **kw), tfs.open_frame_stream(path,
+                                                                     **kw)
+    assert (ts.backend, ts.total_frames_hint, ts.chunk_frames) == \
+        (js.backend, js.total_frames_hint, js.chunk_frames)
+    with js, ts:
+        jchunks, tchunks = list(js), list(ts)
+    assert len(tchunks) == len(jchunks) > 1
+    for (tc, tt), (jc, jt) in zip(tchunks, jchunks):
+        assert tt == jt
+        np.testing.assert_array_equal(tc, jc)
+    assert ts.frames_seen == js.frames_seen
+    assert tfs.open_frame_stream(str(tmp_path)) is None
+    assert jfs.open_frame_stream(str(tmp_path)) is None
+
+
+def test_snapshot_codec_matches_original(tmp_path):
+    """pack_array: the JAX package's bytes and dtype names (numpy arrays,
+    and torch bf16 as JAX's bfloat16); unpack_array inverts both
+    packages' output without ml_dtypes; atomic_write_npz writes the same
+    archive members."""
+    import ml_dtypes
+
+    from cogstream_tpu.utils import io as jio
+    from cogstream_tpu_torch.utils import io as tio
+
+    rng = np.random.default_rng(0)
+    for a in (rng.standard_normal((2, 3, 4)).astype(np.float32),
+              np.arange(5, dtype=np.int32), np.arange(4, dtype=np.uint32),
+              rng.integers(0, 255, (3, 6), np.uint8)):
+        tb, tn = tio.pack_array(a)
+        jb, jn = jio.pack_array(a)
+        assert tn == jn and np.array_equal(tb, jb)
+        np.testing.assert_array_equal(tio.unpack_array(jb, jn), a)
+    x = torch.randn(3, 5).to(torch.bfloat16)
+    tb, tn = tio.pack_array(x)
+    jb, jn = jio.pack_array(x.float().numpy().astype(ml_dtypes.bfloat16))
+    assert tn == jn == "bfloat16" and np.array_equal(tb, jb)
+    assert torch.equal(tio.unpack_array(jb, jn), x)
+    with pytest.raises(ValueError):     # a 0-d tensor has no byte view
+        tio.pack_array(torch.tensor(1.0, dtype=torch.bfloat16))
+    tio.atomic_write_npz(str(tmp_path / "t.npz"), a=tb, b=np.arange(3))
+    jio.atomic_write_npz(str(tmp_path / "j.npz"), a=jb, b=np.arange(3))
+    with np.load(tmp_path / "t.npz") as t, np.load(tmp_path / "j.npz") as j:
+        assert sorted(t.files) == sorted(j.files)
+        for k in t.files:
+            np.testing.assert_array_equal(t[k], j[k])
+    assert sorted(os.listdir(tmp_path)) == ["j.npz", "t.npz"]
+
+
+def test_unpack_array_without_ml_dtypes():
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["ml_dtypes"] = None
+        import numpy as np, torch
+        from cogstream_tpu_torch.utils.io import pack_array, unpack_array
+        x = torch.arange(6, dtype=torch.float32).reshape(2, 3)
+        assert torch.equal(unpack_array(*pack_array(x.bfloat16())).float(), x)
+        print("ok")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_stage_timer_and_logger_match_original(monkeypatch):
+    from cogstream_tpu.utils import profiling as jprof
+    from cogstream_tpu_torch.utils import profiling as tprof
+
+    ticks = iter(np.arange(0.0, 100.0, 0.25))
+    for mod in (jprof, tprof):
+        monkeypatch.setattr(mod.time, "perf_counter", lambda: next(ticks))
+    timers = (jprof.StageTimer(), tprof.StageTimer())
+    for t in timers:
+        for _ in range(3):
+            with t.stage("ask"):
+                pass
+        t.record("ingest", 1.5)
+        t.record("ingest", 0.5)
+    assert timers[0].summary() == timers[1].summary()
+    lj, lt = jprof.get_logger("pin_j"), tprof.get_logger("pin_t")
+    assert lt.level == lj.level and len(lt.handlers) == len(lj.handlers)
+    assert lt.handlers[0].formatter._fmt == lj.handlers[0].formatter._fmt
+
+
 def test_native_video_binds_the_repository_library():
     from cogstream_tpu.processor import native_video as jnv
     from cogstream_tpu_torch.processor import native_video as tnv
@@ -475,6 +581,9 @@ def _port_modules():
 def test_port_imports_without_jax():
     """Every port module imports with ``jax`` and ``cogstream_tpu``
     blocked, and without nvcc (kernels build at first launch only)."""
+    for m in ("runtime.pool", "runtime.serve", "processor.frame_stream",
+              "utils.io", "utils.profiling"):
+        assert f"cogstream_tpu_torch.{m}" in _port_modules()
     code = textwrap.dedent(f"""
         import sys, importlib
         sys.modules["jax"] = None
