@@ -18,7 +18,14 @@ Phases (each prints one line or a few; any failure exits non-zero):
    and the int4 GEMVs K6 (uniform and cubic) and K7 on the lm_head, K8
    and K9 on stacked gate_proj (m = 1, 40, 64) / down_proj (m = 1), on
    their tensor-core kernel, timed beside the CUDA-core kernel K6 / K7
-   keep, two calls bit-identical. K1, K3, K4 and K5 run their
+   keep, two calls bit-identical; the int8 GEMV K10 (not a TPU kernel:
+   the fusion XLA does in the JAX int8 matmul) on stacked gate_proj (m =
+   1, 40, 64), down_proj (m = 1) and the 2D lm_head (m = 1), two calls
+   bit-identical and a CUDA-graph replay equal to the eager call, beside
+   ``torch._weight_int8pack_mm`` where the card's build has it; and the
+   W8A8 product of one gate_proj at a 4384-row prefill (activation
+   quantization, ``torch._int_mm`` on the held column-major weights and on
+   a row-major copy, epilogue) beside the bf16 ``F.linear``. K1, K3, K4 and K5 run their
    bf16 tensor-core kernels, timed beside their f32 route (the CUDA-core
    f32 tile) on the same values; K3 also at a question prefill (a few
    dozen tokens over a ~9k-slot window), where it must beat the f32
@@ -35,7 +42,9 @@ Phases (each prints one line or a few; any failure exits non-zero):
 4. reference — a tiny-config session (f32) runs ingest → ask(AC) →
    ingest → ask(FCC) on the card (kernels) and on the CPU (plain
    versions); greedy tokens, selections and slot ranges must agree. Then
-   the same with a rank-1 int4 decoder and W4A8 decode (K6-K9). Then
+   the same with a rank-1 int4 decoder and W4A8 decode (K6-K9), and
+   with an int8 decoder, w8a8_prefill and the W8A8 tower (K10's f32
+   route and ``torch._int_mm`` on the card). Then
    tiny training (f32, dropout 0, the same weights and LoRA init on
    both): two ``train_stage1`` steps and two ``Stage2Trainer`` turns
    (one with a pooling plan; the tower runs K5 on the card), losses and
@@ -64,8 +73,9 @@ Phases (each prints one line or a few; any failure exits non-zero):
    tokens; outputs finite, the FCC selection parses. Then the checkpoint
    round trip at full width, depth cut to 2 decoder and 2 tower layers:
    ``save_cogreasoner_to_hf`` → ``load_cogreasoner_from_hf`` bit-identical,
-   the int4 load identical to ``quantize_text_``, and that int4 model's
-   FCC turns launch K6 and K8 (write / load seconds, host peak RSS);
+   the int4 and int8 loads identical to ``quantize_text_``, and the int4
+   model's FCC turns launch K6 and K8 (write / load seconds, host peak
+   RSS);
 9. pooled serving (runs on the phase-5 model, after phase 8, before
    phases 7 and 6) — (a) a ``SessionPool`` of 4 rows x 16384 slots
    (3.76 GB of cache): two ``ingest_batch`` ticks of a seeded 16-frame
@@ -89,6 +99,19 @@ Phases (each prints one line or a few; any failure exits non-zero):
    be finite, the LoRA b leaves
    change, the base stay bit-identical and a held-out forward's loss
    fall;
+10. int8 main path (runs on the phase-5 model, after phase 7, before
+   phase 6) — (a) an int8 copy of the decoder beside the bf16 one and a
+   decode step of each (launches, device and wall ms); (b) for
+   (w8a8_prefill, encoder_int8) = (off, off), (on, off), (on, on) a fresh
+   session ingests a 16-frame 24x42 segment and answers AC (8 tokens)
+   and FCC (32 tokens): K10 launches in every mode, ``torch._int_mm`` in
+   the decoder only under w8a8_prefill and in the tower only under
+   encoder_int8, no decode step dequantizes an int8 weight, every K1 /
+   K3 / K4 launch on its tensor-core kernel; (c) evaluate/quant_quality
+   at full width and depth, bf16 the truth: int8, int8 + W8A8, int4u,
+   int4c and nf4 by logit MAE, KL, top-1 agreement over 128 probe tokens
+   and greedy prefix agreement over 32 tokens, one scheme resident at a
+   time; int8's KL below each 4-bit scheme's;
 6. int4 main path — the same model's decoder is quantized in place to
    rank-1 uniform int4 (the bf16 weights are freed; memory before and
    after is printed); then, with w4a8_decode off and on, a fresh session
@@ -96,7 +119,9 @@ Phases (each prints one line or a few; any failure exits non-zero):
    over the sessions alone, K6 and K8 must launch with w4a8_decode off
    (and K7, K9 not) and K7 and K9 with it on; K8 / K9 launches are also
    split into m = 1 (decode) and 1 < m <= 64 (question prefills), whose
-   wall times are printed with the asks'.
+   wall times are printed with the asks'. A third session runs
+   w8a8_prefill: its segment prefill must take the W4A8 prefill branch
+   (``torch._int_mm`` on the nibbles) and its question prefills K9.
 
 With ``--profile`` it runs torch.profiler over one more ingest and two
 asks on the phase-5 session, and over one more step of each training
@@ -153,11 +178,17 @@ KERNELS = [  # name, wrapper module, attribute, source, TPU kernel replaced
     ("K9_int4_gemv_idx_w4a8", "cogstream_tpu_torch.ops.quant_gemv",
      "gemv_k9", "cogstream_tpu_torch/csrc/int4_gemv_tc.cu",
      "cogstream_tpu/ops/quant_gemv.py:282"),
+    # not a TPU kernel: the Hopper counterpart of the dequant XLA fuses
+    # into the JAX package's int8 matmul
+    ("K10_int8_gemv", "cogstream_tpu_torch.ops.int8_gemv", "gemv_k10",
+     "cogstream_tpu_torch/csrc/int8_gemv.cu",
+     "none (XLA fusion, cogstream_tpu/ops/quant.py:575)"),
 ]
 BF16_PATH = range(0, 4)     # K1-K4: the bf16 main path (phase 5)
 TC_PATH = (0, 2, 3)         # K1, K3, K4: bf16 on their tensor-core kernels
 TRAIN_PATH = range(4, 5)    # K5: the training main path (phase 7)
 INT4_PATH = range(5, 9)     # K6-K9: the int4 main path (phase 6)
+INT8_PATH = range(9, 10)    # K10: the int8 main path (phase 10)
 STACKED = (7, 8)            # K8, K9: counted by m regime too
 # one NVIDIA H100 SXM (published datasheet figures): HBM bytes/s
 # and dense peak operations/s by operand type
@@ -282,7 +313,7 @@ def row_check(got, ref, width: int):
 # on the main paths: K3 at D = 128 with 2 and 1 m-tiles per warp, K1 and
 # K5 at D = 72 (one body, with and without the rotation), K4 at D = 128
 # (1 m-tile for S <= 2, 2 for longer steps) and D = 64, K8 and K9 by their
-# largest count of n8 row tiles (m <= 8, 16, 32, 64)
+# largest count of n8 row tiles (m <= 8, 16, 32, 64), as is K10
 TC_KERNELS = {"K3 tc <D=128, 2 m-tiles>": "gqa_prefill_tc_kernelILi128ELi2E",
               "K3 tc <D=128, 1 m-tile>": "gqa_prefill_tc_kernelILi128ELi1E",
               "K1 tc <D=72, rope>": "segment_tc_kernelILi72ELb1E",
@@ -298,7 +329,11 @@ TC_KERNELS = {"K3 tc <D=128, 2 m-tiles>": "gqa_prefill_tc_kernelILi128ELi2E",
               "K9 tc <1 n-tile>": "int4_gemv_tc_kernelILi2ELi1E",
               "K9 tc <2 n-tiles>": "int4_gemv_tc_kernelILi2ELi2E",
               "K9 tc <4 n-tiles>": "int4_gemv_tc_kernelILi2ELi4E",
-              "K9 tc <8 n-tiles>": "int4_gemv_tc_kernelILi2ELi8E"}
+              "K9 tc <8 n-tiles>": "int4_gemv_tc_kernelILi2ELi8E",
+              "K10 tc <1 n-tile>": "int8_gemv_tc_kernelILi1E",
+              "K10 tc <2 n-tiles>": "int8_gemv_tc_kernelILi2E",
+              "K10 tc <4 n-tiles>": "int8_gemv_tc_kernelILi4E",
+              "K10 tc <8 n-tiles>": "int8_gemv_tc_kernelILi8E"}
 
 
 def ptxas_usage(log: str, names: dict) -> dict:
@@ -837,6 +872,161 @@ def check_int4_kernels(dev):
     return results
 
 
+def _int8_store(dev, shape, seed: int):
+    """Random int8 storage [L,] din, dout on the card, column-major as the
+    port holds it (every byte value but -128 occurs), with per-column
+    scales of the magnitude a real fit gives."""
+    import torch
+
+    from cogstream_tpu_torch.ops.quant import column_major
+
+    *lead, din, dout = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = column_major(torch.randint(-127, 128, tuple(shape), dtype=torch.int8,
+                                   device=dev, generator=gen))
+    scale = torch.rand((*lead, dout), device=dev, generator=gen) * 4e-3 + 1e-3
+    return {"q": q, "scale": scale}
+
+
+def _int8pack_ms(x, q, scale, n: int):
+    """Device ms of ``torch._weight_int8pack_mm`` (x @ (q * scale), the
+    scale applied after the product) on the same operands, the library
+    yardstick of K10 (used nowhere in the port), or (None, why) where
+    the card's build has no such kernel."""
+    import torch
+
+    def call():
+        return torch._weight_int8pack_mm(x, q.t(), scale)
+
+    try:
+        call()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        return None, str(e).splitlines()[0][:120]
+    return graph_ms(call, n), None
+
+
+def check_int8_kernels(dev):
+    """K10 on stacked gate_proj [28, 3584, 18944] (column-major layers) at
+    m = 1, 40 and 64, down_proj [28, 18944, 3584] at m = 1 (layer 17) and
+    the 2D lm_head [3584, 152064] at m = 1, against its plain version on
+    the same card (bf16 in and out) within the per-row bound of phase 3;
+    two calls bit-identical; one call captured in a CUDA graph, replayed
+    after x (and the layer index) were rewritten in place, equal to the
+    eager call on the new values. Kernel and plain ms from CUDA graphs
+    (stacked sites cycle over the 28 layers, so every launch reads its
+    weights from device memory). Then the W8A8 product of one gate_proj
+    at a 4384-row prefill: ``quantize_int8_act`` + ``torch._int_mm`` +
+    the epilogue, each part timed, ``_int_mm`` also on a row-major copy of
+    the weights (the JAX layout), beside the bf16 ``F.linear`` the bf16
+    model runs. Returns (kernels-line entry, W8A8 metrics)."""
+    import torch
+    import torch.nn.functional as F
+
+    from cogstream_tpu_torch.ops import int8_gemv as ig
+    from cogstream_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(4)
+    bf = torch.bfloat16
+    lines = []
+    for site, shape, ms_list in (("gate_proj", (28, 3584, 18944), (1, 40, 64)),
+                                 ("down_proj", (28, 18944, 3584), (1,)),
+                                 ("lm_head", (3584, 152064), (1,))):
+        qp = _int8_store(dev, shape, int(rng.integers(1 << 30)))
+        stacked = len(shape) == 3
+        L = shape[0] if stacked else 1
+        din, dout = shape[-2:]
+        ids = torch.arange(L, dtype=torch.int32, device=dev)
+        q17 = qp["q"][17] if stacked else qp["q"]
+        s17 = qp["scale"][17] if stacked else qp["scale"]
+        for m in ms_list:
+            x = torch.as_tensor(rng.standard_normal((m, din))).to(dev, bf)
+            w = {**qp, "layer": ids[17:18]} if stacked else qp
+            got = ig.int8_gemv(x, w, bf)
+            err, ratio = row_check(got, ig.int8_gemv_plain(x, w, bf), dout)
+            same = bool(torch.equal(got, ig.int8_gemv(x, w, bf)))
+            xg = x.clone()
+            lg = ids[17:18].clone()
+            wg = {**qp, "layer": lg} if stacked else qp
+            torch.cuda.synchronize()
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                out_g = ig.int8_gemv(xg, wg, bf)
+            xg.copy_(torch.as_tensor(rng.standard_normal((m, din))).to(dev, bf))
+            lg.fill_(3)
+            g.replay()
+            torch.cuda.synchronize()
+            replay = bool(torch.equal(out_g, ig.int8_gemv(xg, wg, bf)))
+            if not same or not replay:
+                raise AssertionError(f"K10 {site} m={m}: two calls equal "
+                                     f"{same}, graph replay equal {replay}")
+            it = iter(range(10 ** 9))
+            if stacked:
+                ms = graph_ms(lambda: ig.gemv_k10(
+                    x, qp["q"], qp["scale"], ids[next(it) % L:][:1], bf), L)
+            else:
+                ms = graph_ms(lambda: ig.gemv_k10(x, qp["q"], qp["scale"],
+                                                  None, bf), 10)
+            plain_ms = graph_ms(lambda: ig._plain(x, q17, s17, None, bf), 3)
+            lib_ms, why = _int8pack_ms(x, q17, s17, 10)
+            bnd = bound_ms(nbytes(x, q17, s17, got), 2 * m * din * dout)
+            rows, splits = quant_gemv_plan(m, din, dout, dev)
+            lines.append((f"{site} [{'28, ' if stacked else ''}{din}, {dout}] "
+                          f"m={m} ({splits} K splits of {rows} rows; two "
+                          f"calls bit-identical {same}, graph replay equal "
+                          f"{replay})", err, ratio, ms, plain_ms, lib_ms, why,
+                          bnd))
+        if site == "gate_proj":
+            # the W8A8 product of one layer at a 4384-row prefill
+            xp = torch.as_tensor(rng.standard_normal((4384, din))).to(dev, bf)
+            wlin = quant.dequantize_int8({"q": q17, "scale": s17},
+                                         bf).t().contiguous()
+            xq, sx = quant.quantize_int8_act(xp)
+            yi = torch._int_mm(xq, q17)
+            q_row = q17.contiguous()
+            w8a8 = {
+                "act_quant_ms": cuda_ms(lambda: quant.quantize_int8_act(xp),
+                                        10),
+                "int_mm_ms": cuda_ms(lambda: torch._int_mm(xq, q17), 10),
+                "int_mm_row_major_ms": cuda_ms(
+                    lambda: torch._int_mm(xq, q_row), 5),
+                "epilogue_ms": cuda_ms(lambda: (yi.to(torch.float32) * sx
+                                                * s17[None, :]).to(bf), 10),
+                "w8a8_total_ms": cuda_ms(lambda: quant.int8_act_matmul(
+                    *quant.quantize_int8_act(xp), q17, s17, bf), 10),
+                "bf16_linear_ms": cuda_ms(lambda: F.linear(xp, wlin), 10)}
+            del xp, wlin, xq, yi, q_row
+        del qp, q17, s17
+    for what, err, ratio, ms, plain_ms, lib_ms, why, bnd in lines:
+        log(f"kernel K10 {what}: max_abs_err={err:.6g}, worst row at "
+            f"{ratio:.3g} of its bound; kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms="
+            f"{'none (' + why + ')' if lib_ms is None else f'{lib_ms:.4f}'}"
+            f" bound_ms={bnd[0]:.4f} ({bnd[1]})")
+        if not ratio <= 1.0:
+            raise AssertionError(f"K10 {what} disagrees with its plain "
+                                 "version")
+    log("kernel W8A8 gate_proj [3584, 18944] at 4384 rows (one layer): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in w8a8.items()))
+    first = lines[0]
+    return {"name": KERNELS[9][0], "route": "cuda", "source": KERNELS[9][3],
+            "replaces": KERNELS[9][4],
+            "max_abs_err": max(ln[1] for ln in lines), "ms": first[3],
+            "plain_ms": first[4], "bound_ms": first[7][0],
+            "bound_by": first[7][1], "library_ms": first[5]}, w8a8
+
+
+def quant_gemv_plan(m: int, din: int, dout: int, dev):
+    """K10's (rows per split, splits) on ``dev`` (ops/int8_gemv.py)."""
+    import torch
+
+    from cogstream_tpu_torch.ops import quant_gemv as qg
+
+    return qg.stacked_plan(m, din, dout, False, torch.cuda.
+                           get_device_properties(dev).multi_processor_count,
+                           x_halves=1)
+
+
 def check_rows_kernels(dev):
     """Phase 3, pooled addressing: K3 and K4 reading a [4, 9216, 4, 128]
     bf16 pool cache through ``rows`` ([2] and [3, 1]) — K3 at the timed
@@ -921,12 +1111,12 @@ def check_rows_kernels(dev):
 # phase 4: tiny session, kernels on the card vs plain versions on the CPU
 # ---------------------------------------------------------------------------
 
-def run_tiny_session(model, cfg, device):
+def run_tiny_session(model, cfg, device, **kw):
     from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
     from cogstream_tpu_torch.runtime.session import StreamingSession
 
     tok = ByteTokenizer(image_token_id=cfg.image_token_index)
-    sess = StreamingSession(model.to(device), cfg, tok, max_len=2048)
+    sess = StreamingSession(model.to(device), cfg, tok, max_len=2048, **kw)
     rng = np.random.default_rng(0)
     t, gh, gw = 3, 4, 4
     pv = rng.integers(0, 256, (t * gh * gw, 3 * 14 * 14), dtype=np.uint8)
@@ -1081,6 +1271,54 @@ def check_reference_int4(dev):
     if got != ref or got_ranges != ref_ranges or not ratio <= 1.0 \
             or min(launched) == 0:
         raise AssertionError("tiny int4 session on the card disagrees with "
+                             "the plain versions on the CPU")
+
+
+def check_reference_int8(dev):
+    """The tiny session (f32, the int4 check's text widths) on a
+    per-channel int8 decoder with w8a8_prefill and the W8A8 tower
+    (encoder_int8): K10 (its f32 route) and ``torch._int_mm`` on the card
+    against the plain versions on the CPU. Tokens, selections and slot
+    ranges must agree and K10 must launch; the cache K/V within 5e-2 of
+    each row's max |ref| (int8 activations turn an f32 summation-order
+    difference upstream into whole rounding steps;
+    tests/test_torch_quant_modes.py measured 2.5e-2 against JAX)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from cogstream_tpu_torch.models.cogreasoner import init_cogreasoner_params
+    from cogstream_tpu_torch.ops import quant
+
+    cfg = tiny_int4_cfg()
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, w4a8_decode=False, w8a8_prefill=True))
+    cpu_model = init_cogreasoner_params(cfg, torch.Generator().manual_seed(0),
+                                        device="cpu")
+    quant.quantize_text_(cpu_model.text, bits=8)
+    gpu_model = copy.deepcopy(cpu_model)
+    ref, ref_ranges, ref_sess = run_tiny_session(cpu_model, cfg, "cpu",
+                                                 encoder_int8=True)
+    n0, mm0 = wrapper(9).launches, dict(quant.int8_mm.calls)
+    got, got_ranges, got_sess = run_tiny_session(gpu_model, cfg, dev,
+                                                 encoder_int8=True)
+    k10 = wrapper(9).launches - n0
+    mm = {k: v - mm0.get(k, 0) for k, v in quant.int8_mm.calls.items()}
+    wi = ref_sess.write_index
+    ratio = 0.0
+    for a, b in ((got_sess.cache.k, ref_sess.cache.k),
+                 (got_sess.cache.v, ref_sess.cache.v)):
+        a, b = a[:, :, :wi].float().cpu(), b[:, :, :wi]
+        bound = 5e-2 * b.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        ratio = max(ratio, ((a - b).abs() / bound).max().item())
+    log(f"reference int8: tiny W8A8 session (encoder_int8) tokens {got} vs "
+        f"cpu {ref}; ranges equal {got_ranges == ref_ranges}; cache K/V "
+        f"worst row at {ratio:.3g} of its bound; card K10 launches {k10}, "
+        f"_int_mm calls {mm}")
+    if got != ref or got_ranges != ref_ranges or not ratio <= 1.0 \
+            or k10 == 0 or min(mm.get("decoder", 0), mm.get("tower", 0)) == 0:
+        raise AssertionError("tiny int8 session on the card disagrees with "
                              "the plain versions on the CPU")
 
 
@@ -1447,9 +1685,9 @@ def decode_step_cost(text, label: str, stamp: str, steps: int = 10,
     full-vocab logits; 1 token, or a question prefill's few dozen) on a
     small scratch cache: its kernel launches and summed kernel device
     time from torch.profiler (its five largest kernels are printed, and
-    the int4 GEMVs' share), and its host wall ms from a synchronized clock
-    over ``steps`` unprofiled steps. Returns (launches, device ms, wall
-    ms, int4 GEMV device ms)."""
+    the GEMVs' share: int4 K6-K9, int8 K10), and its host wall ms from a
+    synchronized clock over ``steps`` unprofiled steps. Returns
+    (launches, device ms, wall ms, GEMV device ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1477,7 +1715,7 @@ def decode_step_cost(text, label: str, stamp: str, steps: int = 10,
     n = sum(e.count for e in kern)
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
     gemv_ms = sum(e.self_device_time_total for e in kern
-                  if "int4_gemv" in e.key) / 1e3
+                  if "int4_gemv" in e.key or "int8_gemv" in e.key) / 1e3
     t0 = time.perf_counter()
     for i in range(steps):
         step(2 + i)
@@ -1487,7 +1725,7 @@ def decode_step_cost(text, label: str, stamp: str, steps: int = 10,
                     f"x{e.count}" for e in sorted(
                         kern, key=lambda e: -e.self_device_time_total)[:5])
     log(f"{'decode step' if tokens == 1 else f'{tokens}-token prefill'} "
-        f"({label}): {n} launches, device {dev_ms:.2f} ms (int4 GEMVs "
+        f"({label}): {n} launches, device {dev_ms:.2f} ms (GEMVs "
         f"{gemv_ms:.2f}), wall {wall_ms:.2f} ms (busy "
         f"{dev_ms / wall_ms:.3f}); largest: {top} [{stamp}]")
     return n, dev_ms, wall_ms, gemv_ms
@@ -1887,7 +2125,9 @@ def run_checkpoint_round_trip(dev, stamp, video_dir, query_dir):
     ``save_cogreasoner_to_hf`` writes it under build/; the bf16 load must
     give every tensor bit-identical to the source; a load with
     ``quantize_text_bits=4`` must give the int4 stores ``quantize_text_``
-    makes of the same weights, and that model answers phase 8 (a)'s
+    makes of the same weights (and one with ``quantize_text_bits=8`` the
+    stores of ``quantize_text_(bits=8)``), and the int4 model answers
+    phase 8 (a)'s
     three turns in FCC mode with K6 and K8 launching. Prints write and
     load seconds and the host's peak RSS during each load."""
     import dataclasses
@@ -1931,6 +2171,14 @@ def run_checkpoint_round_trip(dev, stamp, video_dir, query_dir):
     same = list(a) == list(b) and all(
         a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
     del bf16, a
+    q8, load8_s, _, _ = load(quantize_text_bits=8)
+    src8 = init_cogreasoner_params(
+        cfg, torch.Generator(device=dev).manual_seed(3), device=dev)
+    quantize_text_(src8.text, bits=8)
+    a, b = q8.text.state_dict(), src8.text.state_dict()
+    same8 = list(a) == list(b) and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+    del q8, src8, a, b
     q4, load4_s, rss4_d, rss4_peak = load(quantize_text_bits=4)
     quantize_text_(src.text)
     a, b = q4.text.state_dict(), src.text.state_dict()
@@ -1942,8 +2190,9 @@ def run_checkpoint_round_trip(dev, stamp, video_dir, query_dir):
         f"bit-identical {same}, host RSS +{rss_d / 2**30:.2f} GiB (peak "
         f"{rss_peak / 2**30:.2f} GiB); int4 load {load4_s:.1f}s, stores "
         f"bit-identical to quantize_text_ {same4}, host RSS "
-        f"+{rss4_d / 2**30:.2f} GiB (peak {rss4_peak / 2**30:.2f} GiB) "
-        f"[{stamp}]")
+        f"+{rss4_d / 2**30:.2f} GiB (peak {rss4_peak / 2**30:.2f} GiB); "
+        f"int8 load {load8_s:.1f}s, stores bit-identical to "
+        f"quantize_text_(bits=8) {same8} [{stamp}]")
 
     before = [wrapper(i).launches for i in INT4_PATH]
     tok = ByteTokenizer(image_token_id=cfg.image_token_index,
@@ -1962,13 +2211,14 @@ def run_checkpoint_round_trip(dev, stamp, video_dir, query_dir):
     log(f"checkpoint: int4 model answered {n_turns} FCC turns in "
         f"{int4_s:.1f}s; int4 launches {launched} [{stamp}]")
     del q4
-    if not same or not same4 or n_turns != 3 \
+    if not same or not same4 or not same8 or n_turns != 3 \
             or launched["K6_int4_gemv"] == 0 \
             or launched["K8_int4_gemv_idx"] == 0:
         raise AssertionError("checkpoint round trip check failed")
     return {"ckpt_write_s": write_s, "ckpt_bytes": size,
             "ckpt_load_s": load_s, "ckpt_load_rss_delta": rss_d,
-            "ckpt_int4_load_s": load4_s, "ckpt_int4_load_rss_delta": rss4_d}
+            "ckpt_int4_load_s": load4_s, "ckpt_int4_load_rss_delta": rss4_d,
+            "ckpt_int8_load_s": load8_s}
 
 
 # ---------------------------------------------------------------------------
@@ -2445,6 +2695,249 @@ def run_http_path(model, dev, stamp):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the int8 main path, W8A8 prefill, the W8A8 tower, quant quality
+# ---------------------------------------------------------------------------
+
+def int8_text_copy(text):
+    """An int8 copy of the bf16 decoder ``text``: every projection and the
+    lm_head per-channel int8 (``quantize_text_(bits=8)``'s arithmetic, the
+    same stores), the embeddings, norms and biases shared, ``text``'s
+    bf16 weights left in place."""
+    from cogstream_tpu_torch.models.qwen2 import Qwen2Model
+    from cogstream_tpu_torch.ops import quant
+
+    out = Qwen2Model(text.cfg, device="meta", dtype=text.dtype)
+    out.embed_tokens, out.final_norm = text.embed_tokens, text.final_norm
+    L, stores = len(text.layers), {}
+    for li, (mine, src) in enumerate(zip(out.layers, text.layers)):
+        mine.input_norm, mine.post_attn_norm = (src.input_norm,
+                                                src.post_attn_norm)
+        for grp, name in quant.GEMV_SITES:
+            lin = getattr(src, grp)[name]
+            getattr(mine, grp)[name].bias = lin.bias
+            qp = quant.quantize_int8(lin.weight.t())
+            if name not in stores:
+                stores[name] = quant.empty_stack(L, qp)
+            for k, v in qp.items():
+                stores[name][k][li] = v
+    return quant.install_quantized_(
+        out, stores, quant.quantize_int8(text.lm_head.weight.t()))
+
+
+class DequantSpy:
+    """Counts int8 dequantizations on the card (``quant.dequantize_int8``
+    and K10's plain form) made inside a decode-length forward or logits
+    call (at most 8 rows), where K10 must run instead (instrumentation of
+    this script only)."""
+
+    def __init__(self):
+        from cogstream_tpu_torch.models import qwen2
+        from cogstream_tpu_torch.ops import int8_gemv, quant
+
+        self.calls = 0
+        rows = []
+        deq, plain = quant.dequantize_int8, int8_gemv._plain
+        fwd, head = qwen2.qwen2_forward, qwen2.lm_logits
+
+        def count(t):
+            if rows and rows[-1] <= 8 and t.is_cuda:
+                self.calls += 1
+
+        def spy_deq(qp, *a, **k):
+            count(qp["q"])
+            return deq(qp, *a, **k)
+
+        def spy_plain(x, *a, **k):
+            count(x)
+            return plain(x, *a, **k)
+
+        def scoped(fn):
+            def run(model, h, *a, **k):
+                rows.append(h.shape[1])
+                try:
+                    return fn(model, h, *a, **k)
+                finally:
+                    rows.pop()
+            return run
+
+        quant.dequantize_int8, int8_gemv._plain = spy_deq, spy_plain
+        qwen2.qwen2_forward, qwen2.lm_logits = scoped(fwd), scoped(head)
+        self.restore = lambda: (
+            setattr(quant, "dequantize_int8", deq),
+            setattr(int8_gemv, "_plain", plain),
+            setattr(qwen2, "qwen2_forward", fwd),
+            setattr(qwen2, "lm_logits", head))
+
+
+def run_int8_path(model, dev, stamp):
+    """Phase 10, on the phase-5 bf16 7B model: (a) an int8 copy of the
+    decoder beside the bf16 one, one decode step of each (launches,
+    device ms, wall ms); (b) for (w8a8_prefill, encoder_int8) = (off,
+    off), (on, off), (on, on) a fresh session on the int8 decoder ingests
+    a 16-frame 24x42 segment and answers AC (8 tokens) then FCC (32).
+    K10 must launch in every mode, ``torch._int_mm`` in the decoder only
+    under w8a8_prefill and in the tower only under encoder_int8, no
+    decode step may dequantize an int8 weight, every K1 / K3 / K4 launch
+    is on its tensor-core kernel; (c) the quantization-quality ladder at
+    full width and depth. Returns (K10's launches in (b), metrics)."""
+    import dataclasses
+
+    import torch
+
+    from cogstream_tpu_torch import presets
+    from cogstream_tpu_torch.models.cogreasoner import CogReasoner
+    from cogstream_tpu_torch.ops import quant
+    from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
+    from cogstream_tpu_torch.runtime.session import StreamingSession
+
+    cfg0 = presets.cogreasoner_7b()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text8 = int8_text_copy(model.text)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    gib = (quant.quantized_bytes(text8.int8)
+           + quant.quantized_bytes(text8.lm_head)) / 2**30
+    log(f"int8: decoder copied to int8 in {quant_s:.1f}s: {gib:.2f} GiB of "
+        f"int8 weights and scales beside the bf16 ones; card "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated [{stamp}]")
+    metrics = {"int8_weights_gib": gib}
+    spy = DequantSpy()
+    try:
+        for label, text in (("bf16", model.text), ("int8", text8)):
+            n, dev_ms, wall_ms, gemv_ms = decode_step_cost(text, label, stamp)
+            metrics.update({f"p10_{label}_step_launches": n,
+                            f"p10_{label}_step_device_ms": dev_ms,
+                            f"p10_{label}_step_ms": wall_ms,
+                            f"p10_{label}_step_gemv_device_ms": gemv_ms})
+        step_deq = spy.calls
+        tok = ByteTokenizer(image_token_id=cfg0.image_token_index,
+                            vocab=cfg0.text.vocab_size)
+        rng = np.random.default_rng(5)
+        t, gh, gw, ms = 16, 24, 42, 2
+        pv = rng.integers(0, 256, (t * gh * gw, 3 * 14 * 14), dtype=np.uint8)
+        k10 = 0
+        for w8, enc in ((False, False), (True, False), (True, True)):
+            mode = (f"w8a8_prefill={'on' if w8 else 'off'}, "
+                    f"encoder_int8={'on' if enc else 'off'}")
+            cfg = dataclasses.replace(cfg0, text=dataclasses.replace(
+                cfg0.text, w8a8_prefill=w8))
+            reset_counts()
+            wrapper(9).launches = 0
+            mm0 = dict(quant.int8_mm.calls)
+            spy.calls = 0
+            timer = PhaseTimer()
+            sess = StreamingSession(CogReasoner(text8, model.vision,
+                                                model.projector), cfg, tok,
+                                    max_len=16384, encoder_int8=enc)
+            mark = timer.mark()
+            t0 = time.perf_counter()
+            sess.append_stream_segment(pv, (t, gh, gw), ms,
+                                       timestamps=[float(f) for f in range(t)])
+            torch.cuda.synchronize()
+            ingest_s = time.perf_counter() - t0
+            pf = [(S, b - a) for S, a, b in timer.forwards[mark:] if S > 8]
+            sess.ask("What is happening in the video?", mode="AC",
+                     max_new_tokens=8)
+            mark = timer.mark()
+            t0 = time.perf_counter()
+            r = sess.ask("What changed since then?", mode="FCC",
+                         max_new_tokens=32)
+            torch.cuda.synchronize()
+            turn_s = time.perf_counter() - t0
+            dec = timer.decode_rate(mark)
+            timer.restore()
+            launches, tc, _, all_tc = read_counts()
+            n10 = wrapper(9).launches
+            k10 += n10
+            mm = {k: v - mm0.get(k, 0) for k, v in quant.int8_mm.calls.items()}
+            wi = sess.write_index
+            finite = bool(torch.isfinite(sess.cache.k[:, :, :wi]).all()
+                          and torch.isfinite(sess.cache.v[:, :, :wi]).all())
+            key = ("w8a8_" if w8 else "") + ("enc8_" if enc else "")
+            metrics.update({f"int8_{key}ingest_s": ingest_s,
+                            f"int8_{key}prefill_tok_per_s":
+                                pf[0][0] / pf[0][1],
+                            f"int8_{key}FCC_turn_s": turn_s,
+                            f"int8_{key}decode_tok_per_s": dec})
+            log(f"int8 path, {mode}: ingest {ingest_s:.3f}s (prefill "
+                f"{pf[0][0]} tokens in {pf[0][1]:.3f}s, "
+                f"{pf[0][0] / pf[0][1]:.0f} tok/s); FCC turn {turn_s:.3f}s, "
+                f"{len(r['tokens'])} tokens, marginal decode {dec:.1f} tok/s; "
+                f"K10 launches {n10}; _int_mm calls {mm}; int8 dequantized "
+                f"in decode steps {spy.calls}; K1-K4 launches {launches}, "
+                f"all K1/K3/K4 on tensor cores {all_tc}; finite {finite} "
+                f"[{stamp}]")
+            toks = r["tokens"]
+            ok = (n10 > 0 and (mm.get("decoder", 0) > 0) == w8
+                  and (mm.get("tower", 0) > 0) == enc and spy.calls == 0
+                  and all_tc and finite and toks
+                  and all(0 <= x < cfg.text.vocab_size for x in toks))
+            if not ok:
+                raise AssertionError(f"int8 main path ({mode}) check failed")
+            del sess
+    finally:
+        spy.restore()
+    if step_deq:
+        raise AssertionError(f"an int8 decode step dequantized {step_deq} "
+                             "weights")
+    del text8
+    torch.cuda.empty_cache()
+    metrics.update(run_quant_quality(cfg0.text, dev, stamp))
+    return [k10], metrics
+
+
+def run_quant_quality(tcfg, dev, stamp):
+    """Phase 10 (c): ``evaluate/quant_quality`` at full 7B width and depth,
+    one scheme resident at a time, each built from the same seeded floats:
+    bf16 (the truth), int8, int8 with W8A8 prefill, int4u, int4c, nf4.
+    Teacher-forced logits over 128 probe tokens (logit MAE, KL, top-1
+    agreement) and greedy prefix agreement over 32 tokens, each against
+    bf16. int8's KL must be below each 4-bit scheme's."""
+    import dataclasses
+
+    import torch
+
+    from cogstream_tpu_torch.evaluate import quant_quality as qq
+
+    ids = qq.probe_ids(tcfg, n=128, device=dev)
+    w8cfg = dataclasses.replace(tcfg, w8a8_prefill=True)
+    out, truth, model = {}, None, None
+    for scheme in ("bf16", "int8", "int8+w8a8", "int4u", "int4c", "nf4"):
+        t0 = time.perf_counter()
+        if scheme != "int8+w8a8":        # W8A8 reuses the int8 build
+            model = None
+            torch.cuda.empty_cache()
+            model = qq.build_text_params(tcfg, scheme, seed=0, device=dev)
+        cfg = w8cfg if scheme == "int8+w8a8" else tcfg
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        logits = qq.tf_logits(model, ids, cfg)
+        greedy = qq.greedy_continuation(model, cfg, ids, n=32, max_len=512)
+        torch.cuda.synchronize()
+        if truth is None:
+            truth = (logits, greedy)
+            log(f"quality: bf16 truth built in {build_s:.1f}s; "
+                f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated "
+                f"[{stamp}]")
+            continue
+        key = scheme.replace("+", "_")
+        row = qq.compare_logits(truth[0], logits, key)
+        row[f"{key}_prefix_agree"] = qq.prefix_agreement(truth[1], greedy)
+        out.update(row)
+        log(f"quality: {scheme} vs bf16 (built in {build_s:.1f}s): "
+            + ", ".join(f"{k[len(key) + 1:]} {v}" for k, v in row.items())
+            + f" [{stamp}]")
+    del model
+    torch.cuda.empty_cache()
+    worse = [s for s in ("int4u", "int4c", "nf4")
+             if not out["int8_kl"] < out[f"{s}_kl"]]
+    if worse:
+        raise AssertionError(f"int8's KL is not below {worse}'s")
+    return {"quality": out}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the int4 main path
 # ---------------------------------------------------------------------------
 
@@ -2454,15 +2947,20 @@ def run_int4_path(model, dev, stamp):
     weights are freed) and measure one decode step per mode; then for
     w4a8_decode False and True: a fresh session ingests one 16-frame
     segment, answers a short ask(AC) (the history the selector reads)
-    and then ask(FCC). Only the sessions' launches are counted: K6 and
+    and then ask(FCC); then a third session with w8a8_prefill (and
+    w4a8_decode off). Only the sessions' launches are counted: K6 and
     K8 must launch without w4a8_decode and K7 and K9 never; K7 and K9
-    must launch with it. Outputs finite, ranges ordered."""
+    must launch with it; under w8a8_prefill the segment prefill (m > 64)
+    takes the W4A8 prefill branch (``torch._int_mm`` on the nibbles) and
+    the question prefills (16 <= S <= 64) K9, while decode steps stay on
+    K6 / K8. Outputs finite, ranges ordered."""
     import dataclasses
 
     import torch
 
     from cogstream_tpu_torch import presets
-    from cogstream_tpu_torch.ops.quant import quantize_text_, quantized_bytes
+    from cogstream_tpu_torch.ops.quant import (int8_mm, quantize_text_,
+                                               quantized_bytes)
     from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
     from cogstream_tpu_torch.runtime.session import StreamingSession
 
@@ -2491,9 +2989,9 @@ def run_int4_path(model, dev, stamp):
     t, gh, gw, ms = 16, 24, 42, 2
     pv = rng.integers(0, 256, (t * gh * gw, 3 * 14 * 14), dtype=np.uint8)
 
-    def set_mode(w4a8):
+    def set_mode(w4a8, w8=False):
         cfg = dataclasses.replace(cfg0, text=dataclasses.replace(
-            cfg0.text, w4a8_decode=w4a8))
+            cfg0.text, w4a8_decode=w4a8, w8a8_prefill=w8))
         text.cfg = cfg.text
         return cfg
 
@@ -2516,13 +3014,14 @@ def run_int4_path(model, dev, stamp):
 
     names = [KERNELS[i][0] for i in INT4_PATH]
     launches = [0] * len(names)
-    for w4a8 in (False, True):
-        mode = "w4a8" if w4a8 else "int4"
-        cfg = set_mode(w4a8)
+    for w4a8, w8 in ((False, False), (True, False), (False, True)):
+        mode = "w4a8" if w4a8 else "w8a8p" if w8 else "int4"
+        cfg = set_mode(w4a8, w8)
         for i in INT4_PATH:                # count this session only
             wrapper(i).launches = 0
         for i in STACKED:
             wrapper(i).multirow_launches = 0
+        mm0 = int8_mm.calls.get("decoder", 0)
         timer = PhaseTimer()
         sess = StreamingSession(model, cfg, tok, max_len=16384)
         mark = timer.mark()
@@ -2571,7 +3070,9 @@ def run_int4_path(model, dev, stamp):
         by_m = {k: {"m=1": counts[k] - n, "1<m<=64": n}
                 for k, n in multirow.items()}
         launches = [a + b for a, b in zip(launches, counts.values())]
+        prefill_mm = int8_mm.calls.get("decoder", 0) - mm0
         metrics.update({f"{mode}_ingest_s": ingest_s,
+                        f"{mode}_prefill_int_mm_calls": prefill_mm,
                         f"{mode}_prefill_tok_per_s": pf[0][0] / pf[0][1],
                         f"{mode}_AC_turn_s": ac_s,
                         f"{mode}_question_prefill_s": [b for _, b in qpf],
@@ -2592,7 +3093,8 @@ def run_int4_path(model, dev, stamp):
         ordered = (starts == sorted(starts)
                    and all(e <= s for e, s in zip(ends[:-1], starts[1:]))
                    and all(x.start <= x.end for x in sess.ranges))
-        log(f"int4 path, w4a8_decode={w4a8}: ingest {ingest_s:.3f}s "
+        log(f"int4 path, w4a8_decode={w4a8}, w8a8_prefill={w8}: ingest "
+            f"{ingest_s:.3f}s "
             f"(prefill {pf[0][0]} tokens in {pf[0][1]:.3f}s); FCC turn "
             f"{turn_s:.3f}s, selector {(sel_s[0] if sel_s else 0.0):.3f}s "
             f"(selection "
@@ -2600,15 +3102,21 @@ def run_int4_path(model, dev, stamp):
             f"{dec:.1f} tok/s; AC turn {ac_s:.3f}s; question prefills "
             f"{[(a, round(b, 4)) for a, b in qpf]} (tokens, s); finite "
             f"{finite}, ranges ordered {ordered}; launches {counts}, K8 / K9 "
-            f"by m {by_m} [{stamp}]")
+            f"by m {by_m}; W4A8 prefill branch _int_mm calls {prefill_mm} "
+            f"[{stamp}]")
         if not (toks and all(0 <= x < cfg.text.vocab_size for x in toks)) \
                 or not finite or not ordered or not sel_s:
             raise AssertionError(f"int4 main path ({mode}) check failed")
         # the w8 rule: bf16-dot GEMVs (K6/K8) without w4a8_decode, the
-        # W4A8 ones (K7/K9) for every decode-length forward with it
+        # W4A8 ones (K7/K9) for every decode-length forward with it; under
+        # w8a8_prefill the prefills at m > 64 on the W4A8 prefill branch
+        # and the question prefills on K9 (m > 1), decode on K6 / K8
         k6, k7, k8, k9 = counts.values()
         if (w4a8 and min(k7, k9) == 0) or \
-                (not w4a8 and (min(k6, k8) == 0 or k7 + k9 > 0)):
+                (not w4a8 and not w8 and (min(k6, k8) == 0 or k7 + k9 > 0
+                                          or prefill_mm)) or \
+                (w8 and (min(k6, k8, prefill_mm) == 0 or k7 > 0
+                         or multirow["K9_int4_gemv_idx_w4a8"] == 0)):
             raise AssertionError(f"int4 main path ({mode}) launched "
                                  f"{counts}")
         del sess
@@ -2913,9 +3421,12 @@ def main() -> int:
         log(f"build: ptxas {name}: {use}")
 
     results = check_kernels(dev) + check_int4_kernels(dev)
+    k10, w8a8_ms = check_int8_kernels(dev)
+    results.append(k10)
     rows_ms = check_rows_kernels(dev)
     check_reference(dev)
     check_reference_int4(dev)
+    check_reference_int8(dev)
     check_reference_pool(dev)
     check_training_reference(dev)
     launches, metrics, sess = run_main_path(dev, card)
@@ -2930,10 +3441,14 @@ def main() -> int:
     metrics["rows_ms"] = rows_ms
     train_launches, train_metrics = run_training(model, dev, card,
                                                  args.profile)
+    int8_launches, int8_metrics = run_int8_path(model, dev, card)
     int4_launches, int4_metrics = run_int4_path(model, dev, card)
-    for r, n in zip(results, launches + train_launches + int4_launches):
+    for r, n in zip(results, launches + train_launches + int4_launches
+                    + int8_launches):
         r["launches"] = n
+    metrics["w8a8_gate_proj_4384_ms"] = w8a8_ms
     metrics.update(train_metrics)
+    metrics.update(int8_metrics)
     metrics.update(int4_metrics)
     log("metrics: " + json.dumps(metrics))
     print(json.dumps({"kernels": results}))

@@ -70,10 +70,11 @@ class Qwen2Config:
     bos_token_id: int = 151643
     eos_token_id: int = 151645
     dtype: str = "bfloat16"
-    # quantized serving modes. w4a8_decode is live: decode-length
-    # forwards (S < 16) of a rank-1 int4 decoder (ops/quant.py) run int8
-    # activations through the W4A8 GEMVs (K7/K9). w8a8_prefill is not
-    # ported yet: a session built with it raises NotImplementedError
+    # quantized serving modes (models/qwen2.py, JAX's gate per call):
+    # prefill-length forwards (S >= 16) of a quantized decoder run int8
+    # activations under w8a8_prefill (int8 weights: the W8A8 product;
+    # uniform rank-1 int4: the W4A8 GEMVs or prefill branch), and
+    # decode-length ones (S < 16) under w4a8_decode
     w8a8_prefill: bool = False
     w4a8_decode: bool = False
 

@@ -378,52 +378,43 @@ def main(argv=None):
                     help="prompt-lookup speculative decoding (not ported "
                          "yet: ROADMAP Queue 1 #5)")
     ap.add_argument("--quantize-weights", choices=("int8", "int4"),
-                    help="quantize decoder kernels at load: int4 rank-1 "
-                         "uniform (K6-K9 decode); int8 is not ported yet "
-                         "(ROADMAP Queue 1 #4)")
+                    help="quantize decoder kernels at load: int8 per "
+                         "channel (K10 decode), int4 rank-1 uniform (K6-K9)")
     ap.add_argument("--w8a8-prefill", action="store_true",
-                    help="int8-activation prefill GEMMs (not ported yet: "
-                         "ROADMAP Queue 1 #4)")
+                    help="int8-activation prefill GEMMs (requires "
+                         "--quantize-weights)")
     ap.add_argument("--w4a8-decode", action="store_true",
                     help="int8-activation decode GEMVs (requires "
                          "--quantize-weights int4)")
     ap.add_argument("--encoder-int8", action="store_true",
-                    help="W8A8 vision tower (not ported yet: ROADMAP "
-                         "Queue 1 #4)")
+                    help="W8A8 vision tower")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
-    queue4 = "is not ported yet (ROADMAP Queue 1 #4)"
-    if args.quantize_weights == "int8":
-        raise SystemExit(f"--quantize-weights int8 {queue4}")
-    if args.w8a8_prefill:
-        raise SystemExit(f"--w8a8-prefill {queue4}")
-    if args.encoder_int8:
-        raise SystemExit(f"--encoder-int8 {queue4}")
     if args.lookahead_k > 0:
         raise SystemExit("--lookahead-k is not ported yet (ROADMAP "
                          "Queue 1 #5)")
-    if args.w4a8_decode and args.quantize_weights != "int4":
-        raise SystemExit("--w4a8-decode requires --quantize-weights int4")
+    from ..runtime.serve import quant_flags, with_text_flags
 
-    import dataclasses
-
+    flags = quant_flags(args)
     from ..config import load_generation_config, load_hf_config
     from ..models.checkpoint import load_cogreasoner_from_hf
     from ..processor.processing import CogStreamProcessor
     from ..processor.tokenizer import load_tokenizer
+    from ..models.cogreasoner import with_int8_tower
     from ..runtime.engine import CogReasonerEngine
     from ..train.checkpoint import load_lora_adapter
 
-    cfg = load_hf_config(os.path.join(args.model_dir, "config.json"))
-    if args.w4a8_decode:
-        cfg = dataclasses.replace(
-            cfg, text=dataclasses.replace(cfg.text, w4a8_decode=True))
+    cfg = with_text_flags(
+        load_hf_config(os.path.join(args.model_dir, "config.json")), flags)
     model = load_cogreasoner_from_hf(
         args.model_dir, cfg,
-        quantize_text_bits=4 if args.quantize_weights == "int4" else None,
+        quantize_text_bits={"int8": 8, "int4": 4}.get(args.quantize_weights),
         device=args.device)
+    if args.encoder_int8:
+        # one W8A8 copy of the tower for the engine and its sessions
+        model = with_int8_tower(model)
     tok = load_tokenizer(args.model_dir, cfg.image_token_index,
                          cfg.text.vocab_size)
     adapters = {}

@@ -10,10 +10,13 @@ It imports no JAX: callers turn the JAX tree into numpy first (e.g.
   layout;
 * concatenates the vision tower's q/k/v kernels into one fused QKV
   weight ``[3*H*D, hidden]`` (rows q | k | v) — once, at load;
-* takes a decoder whose kernels are rank-1 int4 dicts (``quantize_tree(
-  ..., bits=4, rank1=True)``: ``q4/scale/rscale/code``, stacked layers,
-  2D ``lm_head``) byte for byte into the port's int4 storage, in the JAX
-  layout ``[L, din/2, dout]`` (NOT transposed).
+* takes a decoder whose kernels are quantized dicts (``quantize_tree``:
+  int8 ``q/scale``, rank-1 int4 ``q4/scale/rscale/code``, group-wise int4
+  / NF4 ``q4/scale``; stacked layers, 2D ``lm_head``) byte for byte into
+  the port's quantized storage, in the JAX layout (``[L, din, dout]``,
+  ``[L, din/2, dout]``; NOT transposed), and a W8A8 vision tower
+  (``quantize_vision_w8a8``) into int8 GEMMs, its q/k/v concatenated
+  into the fused QKV store.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from .cogreasoner import CogReasoner
 from .projector import Projector
 from ..ops import quant
 from .qwen2 import ATTN_PROJ, MLP_PROJ, Qwen2Model
-from .vision_encoder import VisionTower, default_device
+from .vision_encoder import VisionTower, default_device, int8_linear
 
 
 def _copy(param: torch.Tensor, value) -> None:
@@ -45,19 +48,22 @@ def _load_linear(lin, p: Dict) -> None:
         _copy(lin.bias, p["bias"])
 
 
-def _int4(qp: Dict, device) -> Dict[str, torch.Tensor]:
-    """A JAX rank-1 int4 dict → torch tensors, bytes unchanged."""
-    if "rscale" not in qp:
-        raise NotImplementedError(f"group-wise int4 / NF4 is "
-                                  f"{quant.QUEUE_MSG}")
-    return {k: torch.from_numpy(np.array(qp[k], {"q4": np.int8}.get(
-        k, np.float32))).to(device) for k in ("q4", "scale", "rscale", "code")}
+def _quant(qp: Dict, device) -> Dict[str, torch.Tensor]:
+    """A JAX quantized dict → torch tensors, bytes and dtypes unchanged."""
+    return {k: torch.from_numpy(np.array(v)).to(device)
+            for k, v in qp.items()}
+
+
+def _bias(value, lin) -> torch.Tensor:
+    """``value`` as ``lin``'s bias (its dtype and device)."""
+    _copy(lin.bias, value)
+    return lin.bias
 
 
 def qwen2_from_params(tree: Dict, cfg: Qwen2Config, device=None,
                       dtype=None) -> Qwen2Model:
-    """Stacked JAX decoder tree (bf16/f32 kernels, or rank-1 int4
-    kernels) → Qwen2Model."""
+    """Stacked JAX decoder tree (bf16/f32 kernels, or quantized kernels)
+    → Qwen2Model."""
     device = default_device(device)
     model = Qwen2Model(cfg, device=device, dtype=dtype)
     _copy(model.embed_tokens, tree["embed_tokens"])
@@ -75,11 +81,11 @@ def qwen2_from_params(tree: Dict, cfg: Qwen2Config, device=None,
                     if lin.bias is not None:
                         _copy(lin.bias, np.asarray(
                             stacked[group][name]["bias"])[i])
-        stores = {name: _int4(stacked[group][name]["kernel"], device)
+        stores = {name: _quant(stacked[group][name]["kernel"], device)
                   for group, names in (("attn", ATTN_PROJ), ("mlp", MLP_PROJ))
                   for name in names}
-        quant.install_int4_(model, stores,
-                            _int4(tree["lm_head"]["kernel"], device))
+        quant.install_quantized_(model, stores,
+                                 _quant(tree["lm_head"]["kernel"], device))
         return model.requires_grad_(False)
     _load_linear(model.lm_head, tree["lm_head"])
     for i, layer in enumerate(model.layers):
@@ -96,8 +102,10 @@ def qwen2_from_params(tree: Dict, cfg: Qwen2Config, device=None,
 
 def vision_from_params(tree: Dict, cfg: VisionEncoderConfig, device=None,
                        dtype=None) -> VisionTower:
-    """Per-layer JAX vision tree → VisionTower (q/k/v fused)."""
+    """Per-layer JAX vision tree → VisionTower (q/k/v fused); a W8A8
+    tree (``quantize_vision_w8a8``) gives int8 GEMMs."""
     tower = VisionTower(cfg, device=device, dtype=dtype)
+    device = tower.patch_embed.weight.device
     _load_linear(tower.patch_embed, tree["patch_embed"])
     _copy(tower.post_ln.scale, tree["post_ln"]["scale"])
     _copy(tower.post_ln.bias, tree["post_ln"]["bias"])
@@ -106,6 +114,18 @@ def vision_from_params(tree: Dict, cfg: VisionEncoderConfig, device=None,
             _copy(getattr(layer, ln).scale, p[ln]["scale"])
             _copy(getattr(layer, ln).bias, p[ln]["bias"])
         a = p["attn"]
+        if isinstance(a["q"]["kernel"], dict):
+            qkv = [_quant(a[n]["kernel"], device) for n in ("q", "k", "v")]
+            layer.qkv = int8_linear(
+                {k: torch.cat([d[k] for d in qkv], -1) for k in ("q", "scale")},
+                _bias(np.concatenate([np.asarray(a[n]["bias"], np.float32)
+                                      for n in ("q", "k", "v")]), layer.qkv))
+            for ours, p_lin in (("o", a["o"]), ("fc1", p["mlp"]["fc1"]),
+                                ("fc2", p["mlp"]["fc2"])):
+                setattr(layer, ours, int8_linear(
+                    _quant(p_lin["kernel"], device),
+                    _bias(p_lin["bias"], getattr(layer, ours))))
+            continue
         _load_linear(layer.qkv, {
             "kernel": np.concatenate([np.asarray(a[n]["kernel"], np.float32)
                                       for n in ("q", "k", "v")], axis=1),

@@ -17,11 +17,12 @@ patch-embedding conv ``[hidden, C, ps, ps]`` flattens to the port's
 processor serializes patch rows in), and the vision q/k/v weights
 concatenate into the port's fused QKV weight.
 
-``quantize_text_bits=4`` quantizes each decoder projection on the device
-as it arrives, with ``ops/quant.quantize_int4_rank1(nf4=False)`` (the
-arithmetic of ``quantize_text_``), into the stacked stores K6-K9 serve;
-neither host nor device ever holds the bf16 decoder. Other bit widths
-are not ported (ROADMAP Queue 1 #4), nor is a ``mesh`` (Queue 1 #9).
+``quantize_text_bits`` quantizes each decoder projection on the device
+as it arrives, with the arithmetic of ``quantize_text_``: 4 with
+``ops/quant.quantize_int4_rank1(nf4=False)`` into the stacked stores
+K6-K9 serve, 8 with ``ops/quant.quantize_int8`` (JAX's ``_lazy_quant8``)
+into the stores K10 serves; neither host nor device ever holds the bf16
+decoder. A ``mesh`` is not ported (ROADMAP Queue 1 #9).
 """
 
 from __future__ import annotations
@@ -79,12 +80,10 @@ def qwen2_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: Qwen2Config,
                           ) -> Qwen2Model:
     """HF Qwen2 tensors → ``Qwen2Model`` on ``device``: projections and
     embeddings at ``dtype`` (the config's by default), norm scales f32.
-    With ``quantize_text_bits=4`` every projection and the lm_head become
-    rank-1 uniform int4 stores, quantized from the stored values."""
-    if quantize_text_bits == 8:
-        raise NotImplementedError(f"int8 weight-only serving is "
-                                  f"{quant.QUEUE_MSG}")
-    if quantize_text_bits not in (None, 4):
+    With ``quantize_text_bits`` 4 (8) every projection and the lm_head
+    become rank-1 uniform int4 (per-channel int8) stores, quantized from
+    the stored values."""
+    if quantize_text_bits not in (None, 4, 8):
         raise ValueError("load-time quantization supports bits 4 or 8 "
                          f"(got bits={quantize_text_bits})")
     device = default_device(device)
@@ -111,9 +110,13 @@ def qwen2_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: Qwen2Config,
         _check_loaded(model)
         return model.requires_grad_(False)
 
-    # int4: one stacked store per projection site, filled a layer at a
-    # time from the stored tensor (JAX's _lazy_quant4u quantizes the
-    # stored values too, not a copy already cast to the model dtype)
+    # one stacked store per projection site, filled a layer at a time
+    # from the stored tensor (JAX's _lazy_quant8 / _lazy_quant4u quantize
+    # the stored values too, not a copy already cast to the model dtype)
+    def quantize(w):
+        return (quant.quantize_int8(w) if quantize_text_bits == 8
+                else quant.quantize_int4_rank1(w, nf4=False))
+
     L = cfg.num_hidden_layers
     stores = {}
     for grp, name in quant.GEMV_SITES:
@@ -123,20 +126,17 @@ def qwen2_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: Qwen2Config,
             key = f"{prefix}layers.{i}.{hf}.{name}.weight"
             w = _checked(sd[key], getattr(model.layers[i], grp)[name].weight,
                          key, device)
-            qp = quant.quantize_int4_rank1(w.t(), nf4=False)
+            qp = quantize(w.t())
             del w
             if stack is None:
-                stack = {k: torch.empty((L,) + tuple(v.shape), dtype=v.dtype,
-                                        device=device)
-                         for k, v in qp.items()}
+                stack = quant.empty_stack(L, qp)
             for k in stack:
                 stack[k][i] = qp[k]
             del qp
         stores[name] = stack
-    head = quant.quantize_int4_rank1(_checked(
-        sd["lm_head.weight"], model.lm_head.weight, "lm_head.weight",
-        device).t(), nf4=False)
-    quant.install_int4_(model, stores, head)
+    head = quantize(_checked(sd["lm_head.weight"], model.lm_head.weight,
+                             "lm_head.weight", device).t())
+    quant.install_quantized_(model, stores, head)
     _check_loaded(model)
     return model.requires_grad_(False)
 
@@ -201,8 +201,9 @@ def load_cogreasoner_from_hf(model_dir: str, cfg: CogReasonerConfig,
     (``model.safetensors`` with or without its index, or sharded
     ``model-*.safetensors`` behind the index), on ``device`` — the card
     unless the caller names another. ``dtype`` overrides the config's
-    dtypes (norm scales stay f32); ``quantize_text_bits=4`` loads the
-    decoder as rank-1 uniform int4 (see the module docstring)."""
+    dtypes (norm scales stay f32); ``quantize_text_bits`` 4 or 8 loads the
+    decoder as rank-1 uniform int4 or per-channel int8 (see the module
+    docstring)."""
     sd = CheckpointReader(model_dir)
     return CogReasoner(
         text=qwen2_from_state_dict(sd, cfg.text, dtype=dtype, device=device,
@@ -229,8 +230,8 @@ def merge_lora(model: CogReasoner, lora: Dict,
 
     def fold(lin: nn.Module, ab: Dict) -> None:
         if isinstance(lin, quant.Int4Linear):
-            raise NotImplementedError("merging LoRA into an int4 decoder; "
-                                      "merge before quantizing")
+            raise NotImplementedError("merging LoRA into a quantized "
+                                      "decoder; merge before quantizing")
         w = lin.weight
         a = ab["a"].detach().to(w.device, torch.float32)
         b = ab["b"].detach().to(w.device, torch.float32)

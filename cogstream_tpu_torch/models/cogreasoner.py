@@ -25,6 +25,8 @@ JAX package, the event batch is not padded to a power of two (see
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Sequence, Tuple
@@ -37,7 +39,8 @@ from ..config import CogReasonerConfig
 from . import qwen2
 from .projector import Projector
 from .qwen2 import Qwen2Model
-from .vision_encoder import VisionTower, vision_encoder_forward
+from .vision_encoder import (VisionTower, quantize_vision_w8a8,
+                             vision_encoder_forward)
 
 SUMMARY_SYSTEM = (
     "You are a helpful assistant specializing in summarizing events from "
@@ -61,6 +64,37 @@ class CogReasoner(nn.Module):
         self.text = text
         self.vision = vision
         self.projector = projector
+
+
+SERVING_FLAGS = ("w8a8_prefill", "w4a8_decode")
+
+
+def with_serving_flags(model: CogReasoner,
+                       cfg: CogReasonerConfig) -> CogReasoner:
+    """``model`` with its decoder under ``cfg.text``'s serving flags
+    (``w8a8_prefill``, ``w4a8_decode``). The port's forward reads them from
+    ``model.text.cfg``, the JAX session from the config it is given: where
+    the two differ, this returns a new CogReasoner over a shallow copy of
+    the decoder (the same parameters and buffers) whose config carries
+    ``cfg``'s flags; the caller's model is left as it is."""
+    want = {k: getattr(cfg.text, k) for k in SERVING_FLAGS}
+    if all(getattr(model.text.cfg, k) == v for k, v in want.items()):
+        return model
+    text = copy.copy(model.text)
+    text.cfg = dataclasses.replace(model.text.cfg, **want)
+    return CogReasoner(text, model.vision, model.projector)
+
+
+def with_int8_tower(model: CogReasoner) -> CogReasoner:
+    """``model`` with a W8A8 copy of its vision tower (the serving
+    ``encoder_int8`` mode, ``quantize_vision_w8a8``): a new CogReasoner
+    that shares the decoder and the projector, as the JAX package builds
+    a new tree; the model's own tower is left as it is. A model whose
+    tower is int8 already comes back as it is."""
+    if model.vision.int8:
+        return model
+    return CogReasoner(model.text, quantize_vision_w8a8(model.vision),
+                       model.projector)
 
 
 @torch.no_grad()

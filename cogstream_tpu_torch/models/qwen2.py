@@ -24,13 +24,16 @@ has no backward in either package), with per-layer recomputation
 The cache is updated IN PLACE (the JAX package rebinds a donated
 buffer); ``qwen2_forward`` returns the same object.
 
-A model quantized by ``ops/quant.py`` (``quantize_text_``, or the bridge
-from a quantized JAX tree) holds every projection as an ``Int4Linear``
-over per-site stacked int4 storage. ``dense`` then dispatches like the
-JAX ``dense`` (``quantized_matmul``): cached forwards hand the stacked
-weight plus a layer index to the indexed kernels (K8/K9) where they
-route, as the JAX decode scan does; the cache-free forward uses each
-layer's 2D slice (K6/K7), as the JAX cache-free scan does.
+A model quantized by ``ops/quant.py`` (``quantize_text_``, the bridge
+from a quantized JAX tree, or a quantized checkpoint load) holds every
+projection as a ``QuantLinear`` over per-site stacked storage (int8,
+rank-1 int4, or group-wise int4 / NF4). ``dense`` then dispatches like
+the JAX ``dense`` (``quantized_matmul``): cached forwards hand the
+stacked weight plus a layer index to the indexed kernels (K8/K9 for
+int4, K10 for int8) where they route, as the JAX decode scan does; the
+cache-free forward uses each layer's 2D slice, as the JAX cache-free scan
+does. The W8A8 / W4A8 switch is JAX's, per call on S: ``w8 =
+(w8a8_prefill and S >= 16) or (w4a8_decode and S < 16)``.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ from ..ops.attention import causal_gqa_attention
 from ..ops.lm_attention import (DECODE_MAX_S, CacheRows, as_cache_rows,
                                 decode_attention, effective_kv_positions,
                                 prefill_flash_attention)
-from ..ops.quant import Int4Linear, QUEUE_MSG
+from ..ops.quant import QuantLinear
 from ..ops.rope import apply_rope, rope_angles
 from .vision_encoder import default_device, linear
 
@@ -151,10 +154,10 @@ def embed(model: Qwen2Model, input_ids: torch.Tensor) -> torch.Tensor:
 def dense(x: torch.Tensor, lin: nn.Module, lora=None,
           lora_scale: float = 1.0, w8a8: bool = False,
           indexed: bool = False) -> torch.Tensor:
-    """Linear layer (``nn.Linear``, or ``Int4Linear`` with ``w8a8`` and
+    """Linear layer (``nn.Linear``, or ``QuantLinear`` with ``w8a8`` and
     ``indexed`` passed on) plus gated LoRA deltas ``(x @ a) @ b * gate *
     scale`` for each (adapter, gate) in ``lora``, on top of the base."""
-    y = lin(x, w8a8, indexed) if isinstance(lin, Int4Linear) else lin(x)
+    y = lin(x, w8a8, indexed) if isinstance(lin, QuantLinear) else lin(x)
     return _add_lora(y, x, lora, lora_scale)
 
 
@@ -270,12 +273,10 @@ def qwen2_forward(
     cfg = model.cfg
     B, S, _ = inputs_embeds.shape
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    if cfg.w8a8_prefill:
-        raise NotImplementedError(f"w8a8_prefill is {QUEUE_MSG}")
-    # the JAX rule (qwen2.py w8): decode-length programs (S < 16) run the
-    # int4 projections with int8 activations under w4a8_decode; it has no
-    # effect on bf16 weights
-    w8 = cfg.w4a8_decode and S < 16
+    # the JAX rule (qwen2.py w8): prefill-length programs (S >= 16) run the
+    # quantized projections with int8 activations under w8a8_prefill,
+    # decode-length ones (S < 16) under w4a8_decode; bf16 weights ignore it
+    w8 = (cfg.w8a8_prefill and S >= 16) or (cfg.w4a8_decode and S < 16)
     indexed = cache is not None
     positions = positions.to(torch.int32)
     angles = rope_angles(positions.clamp(min=0), D, cfg.rope_theta)
@@ -401,9 +402,9 @@ def qwen2_forward_train(
     cfg = model.cfg
     B, S, _ = inputs_embeds.shape
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    if any(isinstance(m, Int4Linear) for m in model.modules()):
-        raise NotImplementedError(f"training on a quantized base (QLoRA) "
-                                  f"is {QUEUE_MSG}")
+    if any(isinstance(m, QuantLinear) for m in model.modules()):
+        raise NotImplementedError("training on a quantized base (QLoRA) "
+                                  "is not ported yet (ROADMAP Queue 1 #7)")
     positions = positions.to(torch.int32)
     angles = rope_angles(positions.clamp(min=0), D, cfg.rope_theta)
     kv_valid = positions >= 0
@@ -448,7 +449,8 @@ def lm_logits(model: Qwen2Model, hidden: torch.Tensor, adapters: Adapters = None
     ``head`` with its sliced LoRA entries (the static ``logit_ids`` head
     of runtime/generate.py): a callable ``h -> h @ W_sliced``. ``w8a8``
     mirrors dense(): decode loops pass ``cfg.w4a8_decode`` so an int4
-    head's per-step vocab read rides the W4A8 GEMV (K7)."""
+    head's per-step vocab read rides the W4A8 GEMV (K7) and an int8 head
+    the W8A8 product, as in JAX."""
     if head is None:
         head_lora = [(t["lm_head"], g) for t, g in adapters or ()
                      if isinstance(t, dict) and t.get("lm_head") is not None]

@@ -17,6 +17,17 @@ them ``use_pallas=True`` runs the head-major branch (q/k/v sliced from
 the fused QKV output, 2D RoPE as its own pass, then K5 on a CUDA device)
 — the branch the training path's frozen tower takes — and
 ``use_pallas=False`` the plain ``segment_attention`` (CPU and tests).
+
+The W8A8 tower (``quantize_vision_w8a8``, the serving ``encoder_int8``
+mode) holds every GEMM but the patch embedding as int8 ``QuantLinear``s.
+The packed path runs the fused-QKV and o GEMMs W8A8 (per-row int8
+activations, ``torch._int_mm``, bias added in f32 before the cast) only
+when all four attention weights are int8, and the MLP only when fc1 and
+fc2 both are (``is_w8``); the head-major branch keeps weight-only
+attention and a W8A8 MLP, as JAX's does. JAX pads each head of the packed
+path to 128 lanes with zero weights and unit scales, which leaves every
+per-column scale and per-row activation absmax as it is unpadded: the
+port quantizes the unpadded GEMMs and gets the same numbers.
 """
 
 from __future__ import annotations
@@ -34,6 +45,8 @@ from ..ops.attention import segment_attention
 from ..ops.flash_attention import (flash_attention_packed_rope_fusedqkv,
                                    segment_flash_attention, vision_kv_ranges)
 from ..ops.layernorm import layernorm
+from ..ops.quant import (QuantLinear, QuantWeight, int8_act_matmul,
+                         quantize_int8, quantize_int8_act)
 from ..ops.rope import (apply_vision_rope_cs, grid_position_ids,
                         vision_rope_angles, vision_rope_cos_sin)
 
@@ -94,6 +107,11 @@ class VisionTower(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.patch_embed.weight.dtype
 
+    @property
+    def int8(self) -> bool:
+        """The W8A8 serving copy (``quantize_vision_w8a8``)."""
+        return is_w8(self.layers[0].qkv) if len(self.layers) else False
+
 
 class VisionMetadata(NamedTuple):
     """Host-precomputed per-batch metadata for the tower."""
@@ -139,6 +157,53 @@ def build_vision_metadata(grid_sizes: np.ndarray, merge_sizes: np.ndarray,
         grps = np.concatenate([grps, np.full((pad,), -1, np.int32)])
     kv_lo, kv_hi = vision_kv_ranges(segs)
     return VisionMetadata(pos, segs, grps, out_tokens, kv_lo, kv_hi)
+
+
+def int8_linear(qp, bias: Optional[torch.Tensor]) -> QuantLinear:
+    """A 2D int8 GEMM (``q`` [din, dout], ``scale`` [dout]) with its bias."""
+    return QuantLinear(QuantWeight(qp), bias=bias)
+
+
+def is_w8(lin: nn.Module) -> bool:
+    """An int8 GEMM (the W8A8 serving form); int4 weights are not."""
+    return isinstance(lin, QuantLinear) and lin.store.scheme == "int8"
+
+
+def _w8a8(x: torch.Tensor, lin: QuantLinear, out_dtype=None) -> torch.Tensor:
+    """``x @ W + b`` with per-row int8 activations: the int32 product's
+    epilogue and the bias in f32, one cast at the end (JAX
+    ``_attn_block_packed`` / ``_mlp_block``)."""
+    xq, sx = quantize_int8_act(x)
+    y = int8_act_matmul(xq, sx, lin.store.q, lin.store.scale, torch.float32,
+                        site="tower") + lin.bias.to(torch.float32)
+    return y.to(out_dtype or x.dtype)
+
+
+def _mlp(layer: "VisionLayer", h: torch.Tensor) -> torch.Tensor:
+    """fc1 → gelu-tanh → fc2; W8A8 when fc1 and fc2 are both int8."""
+    if is_w8(layer.fc1) and is_w8(layer.fc2):
+        a = F.gelu(_w8a8(h, layer.fc1, torch.float32), approximate="tanh")
+        return _w8a8(a.to(h.dtype), layer.fc2)
+    return layer.fc2(F.gelu(layer.fc1(h), approximate="tanh"))
+
+
+@torch.no_grad()
+def quantize_vision_w8a8(tower: VisionTower) -> VisionTower:
+    """An int8 copy of ``tower`` for W8A8 serving: every GEMM but the
+    patch embedding becomes per-output-channel int8 (the JAX
+    ``quantize_tree(bits=8, predicate=name != "patch_embed")``; the fused
+    QKV quantizes per column, which is the q / k / v quantizations side by
+    side). Norms, the patch embedding and the biases are shared with
+    ``tower``, which is left as it is."""
+    out = VisionTower(tower.cfg, device="meta", dtype=tower.dtype)
+    out.patch_embed, out.post_ln = tower.patch_embed, tower.post_ln
+    for mine, src in zip(out.layers, tower.layers):
+        mine.ln1, mine.ln2 = src.ln1, src.ln2
+        for name in ("qkv", "o", "fc1", "fc2"):
+            lin = getattr(src, name)
+            setattr(mine, name, int8_linear(quantize_int8(lin.weight.t()),
+                                            lin.bias))
+    return out
 
 
 def _attn_head_major(layer: VisionLayer, h: torch.Tensor, cos2, sin2,
@@ -207,14 +272,16 @@ def vision_encoder_core(
     for layer in tower.layers:
         h = layer.ln1(x, eps)
         if packed:
-            attn = layer.o(flash_attention_packed_rope_fusedqkv(
-                layer.qkv(h), cos, sin, segment_ids, kv_lo, kv_hi, H, scale))
+            w8 = all(is_w8(getattr(layer, n)) for n in ("qkv", "o"))
+            qkv = _w8a8(h, layer.qkv) if w8 else layer.qkv(h)
+            out = flash_attention_packed_rope_fusedqkv(
+                qkv, cos, sin, segment_ids, kv_lo, kv_hi, H, scale)
+            attn = _w8a8(out, layer.o) if w8 else layer.o(out)
         else:
             attn = _attn_head_major(layer, h, cos2, sin2, segment_ids,
                                     ranges, H, D, scale, use_pallas)
         x = x + attn
-        h = F.gelu(layer.fc1(layer.ln2(x, eps)), approximate="tanh")
-        x = x + layer.fc2(h)
+        x = x + _mlp(layer, layer.ln2(x, eps))
     x = tower.post_ln(x, eps)
 
     # merge-window mean (exact bilinear downsample for integer factors)

@@ -86,6 +86,10 @@ _SIGNATURES = {
     # stream
     "cs_int4_gemv_tc": (_P, _P, _P, _L, _P, _I, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _I, _I, _P),
+    # x, q, layer_stride, scale, scale_stride, layer, out, part, tickets,
+    # m, din, dout, rows_per_split, splits, x dtype, out dtype, stream
+    "cs_int8_gemv": (_P, _P, _L, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _I, _I, _P),
 }
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -1,46 +1,83 @@
-"""Weight quantization for serving — port of the rank-1 int4 serving
-subset of ``cogstream_tpu/ops/quant.py``.
+"""Weight quantization — port of ``cogstream_tpu/ops/quant.py``.
 
-The serving scheme is rank-1 int4 (``quantize_int4_rank1``): a weight
-``w[p, o]`` (JAX layout ``[din, dout]``) is stored as
+Quantized weights are plain dicts of tensors in the JAX layout ``[...,
+din, dout]`` (never transposed to ``nn.Linear``'s ``[out, in]``); the
+packed dtype and the keys tag the scheme, as in the JAX package:
 
-* ``q4``: int8 ``[..., din/2, dout]``, two signed nibbles per byte in the
-  SPLIT-HALVES layout — the low nibble of packed row ``p`` holds row
-  ``p``, the high nibble row ``p + din/2``;
-* ``scale`` f32 ``[..., dout]`` (column) and ``rscale`` f32 ``[..., din]``
-  (row) scales, fit by alternating absmax normalization;
-* ``code`` f32 ``[..., 1]`` (uniform: value = s/7) or ``[..., 2]`` (cubic
-  codebook value = s·(A + C·s²)). The length of its last axis is the
-  scheme tag the dispatch keys on.
+* **int8** (``quantize_int8``): ``q`` int8 ``[..., din, dout]`` and a
+  per-column ``scale`` f32 ``[..., dout]`` (``max|w| / 127``);
+* **rank-1 int4**, the serving scheme (``quantize_int4_rank1``): ``q4``
+  int8 ``[..., din/2, dout]``, two signed nibbles per byte in the
+  SPLIT-HALVES layout (the low nibble of packed row ``p`` holds row ``p``,
+  the high nibble row ``p + din/2``), column ``scale`` ``[..., dout]``, row
+  ``rscale`` ``[..., din]`` and ``code`` ``[..., 1]`` (uniform, value =
+  s/7) or ``[..., 2]`` (cubic codebook, value = s·(A + C·s²));
+  ``w ≈ code(nib) · rscale[p] · scale[o]``;
+* **group-wise int4 / NF4** (``quantize_int4``): ``q4`` split-halves with
+  one ``scale`` per ``group_size`` rows (``[..., din/G, dout]``); int8
+  bytes hold uniform nibbles in [-7, 7], uint8 bytes NF4 codebook indices
+  0..15 whose values are the degree-7 polynomial ``POLY_NF4_CODE``.
 
-``w ≈ code(nib) · rscale[p] · scale[o]``. Quantized weights are plain
-dicts of tensors, as in the JAX package; :class:`Int4Weight` keeps one
-on a module (stacked ``[L, ...]`` per projection site, or 2D for the
-head) and :class:`Int4Linear` is one layer's projection over it.
+:class:`QuantWeight` keeps one such dict on a module (stacked ``[L,
+...]`` per decoder projection site, or 2D for the head and the vision
+tower's GEMMs) and :class:`QuantLinear` (alias ``Int4Linear``) is one
+projection over it.
 
-``int4_matmul`` routes exactly where the JAX package routes: uniform
-rank-1 weights at decode-sized M (``m <= 64``) with 128-divisible shapes
-go to the fused-unpack GEMV (ops/quant_gemv.py: K6/K7 for 2D weights,
-K8/K9 for stacked weights with a layer index); everything else takes the
-materializing form below, which on the card is ``torch.matmul`` as the
-JAX package leaves it to XLA. The two forms round differently (the
-kernel rounds ``x·rscale`` to bf16 and keeps the nibbles exact; the
-materializing form rounds ``nibble·slope·scale`` to bf16), so the route
-decision is part of the numerics.
+``quantized_matmul`` dispatches as the JAX function does; on the card
+the routes are:
 
-Not in this port yet (ROADMAP Queue 1 #4): group-wise int4 / NF4, the
-W8A8 prefill branch, the W8A8 straight-through estimator and the vision
-tower's ``encoder_int8``; asking for one raises ``NotImplementedError``.
+* rank-1 uniform int4 at decode-sized M (``m <= 64``, 128-divisible
+  shapes): the fused-unpack GEMVs (ops/quant_gemv.py, K6-K9); with
+  ``w8a8`` the W4A8 ones; at larger M with ``w8a8`` the W4A8 prefill
+  branch (int8 activations against the unpacked nibbles in
+  ``torch._int_mm``);
+* int8 at the same M: K10 (ops/int8_gemv.py), the fused dequant XLA does
+  inside the JAX function; with ``w8a8`` (at any M) the W8A8 product:
+  per-row int8 activations, ``torch._int_mm``, the rank-1 epilogue, and a
+  straight-through gradient (``_W8A8STE``);
+* everything else the materializing form, ``x @ dequantize(...)``, which
+  on the card is ``torch.matmul`` as the JAX package leaves it to XLA.
+
+Each kernel route rounds differently from the materializing form, so the
+route decision is part of the numerics and copies the JAX package's.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
-QUEUE_MSG = "not ported yet (ROADMAP Queue 1 #4)"
+# QLoRA's NF4 codebook: the 16 quantiles of N(0,1) scaled to [-1, 1]
+NF4_CODE = (
+    -1.0, -0.6961928009986877, -0.5250730514526367,
+    -0.39491748809814453, -0.28444138169288635, -0.18477343022823334,
+    -0.09105003625154495, 0.0, 0.07958029955625534,
+    0.16093020141124725, 0.24611230194568634, 0.33791524171829224,
+    0.44070982933044434, 0.5626170039176941, 0.7229568362236023, 1.0)
+
+
+def _fit_nf4_poly():
+    """Degree-7 fit of NF4_CODE over the nibble index u ∈ [0, 15], held to
+    ±1 at the endpoints (line(u) + u(u-15)·q(u), q least squares), in
+    float64: the JAX package's fit, so the codebook is bit-equal."""
+    import numpy.polynomial.polynomial as npp
+
+    u = np.arange(16, dtype=np.float64)
+    nf4 = np.asarray(NF4_CODE, np.float64)
+    line = -1.0 + (2.0 / 15.0) * u
+    w = u * (u - 15.0)
+    basis = np.stack([w * u ** k for k in range(6)], axis=1)
+    coef, *_ = np.linalg.lstsq(basis, nf4 - line, rcond=None)
+    full = npp.polyadd(np.array([-1.0, 2.0 / 15.0]),
+                       npp.polymul(np.array([0.0, -15.0, 1.0]), coef))
+    return full[::-1]                       # descending, for Horner
+
+
+_NF4_POLY = _fit_nf4_poly()
+POLY_NF4_CODE = tuple(np.polyval(_NF4_POLY, np.arange(16)).tolist())
 
 # rank-1 cubic codebook: value(s) = s·(A + C·s²), value(±7) = ±1
 CUBIC_A = 0.065
@@ -53,7 +90,10 @@ GEMV_SITES = (("attn", "q_proj"), ("attn", "k_proj"), ("attn", "v_proj"),
               ("attn", "o_proj"), ("mlp", "gate_proj"), ("mlp", "up_proj"),
               ("mlp", "down_proj"))
 
-_CUBIC_ROWS = 64      # rows of the cubic codebook search held at once
+# rows of a codebook search held at once: the [rows, dout, levels]
+# distance tensor is the memory peak (at 7B width an unblocked NF4 search
+# of one [3584, 18944] weight would hold 4.3 GB)
+_CODE_ROWS = 64
 
 
 # ---------------------------------------------------------------------------
@@ -69,28 +109,94 @@ def quantize_int8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {"q": q, "scale": scale.squeeze(-2)}
 
 
+def column_major(q: torch.Tensor) -> torch.Tensor:
+    """``q`` [..., din, dout] with each matrix stored column-major (a
+    transposed view of a contiguous [..., dout, din]; no copy if it is
+    already): the layout of a held int8 weight, which ``torch._int_mm``
+    takes on its fast path on the card (PERF.md) and K10 streams."""
+    return q.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
+def empty_stack(L: int, qp: Dict[str, torch.Tensor]) -> Dict:
+    """Uninitialized ``[L, ...]`` storage for ``L`` layers of weights like
+    ``qp`` (an int8 ``q`` column-major), filled a layer at a time."""
+    return {k: column_major(torch.empty(
+        (L,) + tuple(v.shape[:-2]) + (v.shape[-1], v.shape[-2]),
+        dtype=v.dtype, device=v.device).transpose(-1, -2)) if k == "q"
+        else torch.empty((L,) + tuple(v.shape), dtype=v.dtype,
+                         device=v.device) for k, v in qp.items()}
+
+
 def dequantize_int8(qp: Dict[str, torch.Tensor],
                     dtype=torch.bfloat16) -> torch.Tensor:
     return (qp["q"].to(torch.float32)
             * qp["scale"][..., None, :]).to(dtype)
 
 
-def _pack_split(vals: torch.Tensor) -> torch.Tensor:
+def _pack_split(vals: torch.Tensor, dtype=torch.int8) -> torch.Tensor:
     """[..., din, dout] 4-bit values (low 4 bits significant) → [...,
-    din/2, dout] bytes in the split-halves layout (int8 storage)."""
+    din/2, dout] bytes in the split-halves layout, stored as ``dtype``
+    (int8: uniform nibbles; uint8: NF4 indices)."""
     din = vals.shape[-2]
     lo = vals[..., : din // 2, :].to(torch.uint8) & 0xF
     hi = vals[..., din // 2:, :].to(torch.uint8) & 0xF
-    return (lo | (hi << 4)).view(torch.int8)
+    return (lo | (hi << 4)).view(dtype)
 
 
 def _unpack_halves(packed: torch.Tensor):
-    """int8 packed bytes → (lo_half, hi_half) sign-extended nibbles in
-    [-8, 7], each [..., din/2, dout] int8."""
-    if packed.dtype != torch.int8:
-        raise NotImplementedError(f"{packed.dtype} nibbles (NF4 codebook "
-                                  f"indices) are {QUEUE_MSG}")
+    """Packed bytes → (lo_half, hi_half), each [..., din/2, dout]: int8
+    bytes give sign-extended nibbles in [-8, 7], uint8 bytes NF4 indices
+    in [0, 15] (logical shifts)."""
+    if packed.dtype == torch.uint8:
+        return packed & 0xF, packed >> 4
     return (packed << 4) >> 4, packed >> 4
+
+
+def _nf4_poly_eval(u: torch.Tensor) -> torch.Tensor:
+    """Horner evaluation of the polynomial codebook at u ∈ [0, 15] (f32)."""
+    acc = torch.full(u.shape, float(np.float32(_NF4_POLY[0])),
+                     dtype=torch.float32, device=u.device)
+    for c in _NF4_POLY[1:]:
+        acc = acc * u + float(np.float32(c))
+    return acc
+
+
+def _nearest_code(norm: torch.Tensor, code) -> torch.Tensor:
+    """Index of the nearest codebook entry (first on ties, as
+    ``jnp.argmin``) of each element of ``norm`` [..., din, dout], a block
+    of din rows at a time."""
+    levels = torch.tensor(code, dtype=torch.float32, device=norm.device)
+    idx = torch.empty(norm.shape, dtype=torch.uint8, device=norm.device)
+    for p0 in range(0, norm.shape[-2], _CODE_ROWS):
+        blk = norm[..., p0:p0 + _CODE_ROWS, :]
+        idx[..., p0:p0 + _CODE_ROWS, :] = torch.argmin(
+            (blk[..., None] - levels).abs(), dim=-1).to(torch.uint8)
+    return idx
+
+
+def quantize_int4(w: torch.Tensor, group_size: int = 64,
+                  nf4: bool = True) -> Dict[str, torch.Tensor]:
+    """Group-wise 4-bit quantization over the din axis: each ``group_size``
+    rows share an absmax scale. ``nf4=True`` snaps each normalized weight
+    to the nearest polynomial NF4 level (uint8 indices); ``nf4=False`` is
+    uniform int4 in [-7, 7] (int8 nibbles). Same f32 operations as the JAX
+    function, so the bytes agree."""
+    wf = w.to(torch.float32)
+    *lead, din, dout = wf.shape
+    if din % group_size or din % 2:
+        raise ValueError(
+            f"group_size={group_size} and 2 must divide din={din}")
+    g = wf.reshape(*lead, din // group_size, group_size, dout)
+    absmax = torch.clamp(g.abs().amax(dim=-2, keepdim=True), min=1e-8)
+    if nf4:
+        norm = (g / absmax).reshape(wf.shape)       # [-1, 1]
+        idx = _nearest_code(norm, POLY_NF4_CODE)
+        return {"q4": _pack_split(idx, torch.uint8),
+                "scale": absmax.squeeze(-2)}
+    scale = absmax / 7.0
+    q = torch.clamp(torch.round(g / scale), -7, 7).to(torch.int8)
+    return {"q4": _pack_split(q.reshape(wf.shape)),
+            "scale": scale.squeeze(-2)}
 
 
 def quantize_int4_rank1(w: torch.Tensor, nf4: bool = True,
@@ -113,15 +219,8 @@ def quantize_int4_rank1(w: torch.Tensor, nf4: bool = True,
     del aw
     norm = wf / (r * c)                             # ⊆ [-1, 1]
     if nf4:
-        code = torch.tensor(CUBIC_CODE, dtype=torch.float32,
-                            device=wf.device)
-        q = torch.empty(norm.shape, dtype=torch.int8, device=wf.device)
-        # argmin over the 15 levels, a block of rows at a time (the
-        # [rows, dout, 15] distance tensor is the memory peak)
-        for p0 in range(0, din, _CUBIC_ROWS):
-            blk = norm[..., p0:p0 + _CUBIC_ROWS, :]
-            idx = torch.argmin((blk[..., None] - code).abs(), dim=-1)
-            q[..., p0:p0 + _CUBIC_ROWS, :] = (idx - 7).to(torch.int8)
+        q = (_nearest_code(norm, CUBIC_CODE).to(torch.int16) - 7).to(
+            torch.int8)
         coefs = (CUBIC_A, CUBIC_C)
     else:
         q = torch.clamp(torch.round(norm * 7.0), -7, 7).to(torch.int8)
@@ -133,22 +232,60 @@ def quantize_int4_rank1(w: torch.Tensor, nf4: bool = True,
             "rscale": r.squeeze(-1), "code": code_arr.contiguous()}
 
 
+def _decode_half(nib: torch.Tensor, scale_half: torch.Tensor,
+                 dtype) -> torch.Tensor:
+    """One unpacked half [din/2, dout] of a group-wise weight and its
+    group scales [n/2, dout] → dequantized [din/2, dout] in ``dtype``."""
+    half, dout = nib.shape
+    n2 = scale_half.shape[0]
+    vals = (_nf4_poly_eval(nib.to(torch.float32)) if nib.dtype == torch.uint8
+            else nib.to(torch.float32))
+    vals = vals.reshape(n2, half // n2, dout) * scale_half[:, None, :]
+    return vals.to(dtype).reshape(half, dout)
+
+
 def dequantize_int4(qp: Dict[str, torch.Tensor],
                     dtype=torch.bfloat16) -> torch.Tensor:
-    """Materializing unpack + rescale of a rank-1 weight (the rank-1
-    branch of the JAX function)."""
-    if "rscale" not in qp:
-        raise NotImplementedError(f"group-wise int4 / NF4 is {QUEUE_MSG}")
+    """Materializing unpack + rescale of any 4-bit weight (rank-1 or
+    group-wise; groups need not align with the packed halves)."""
     lo, hi = _unpack_halves(qp["q4"])
-    s = torch.cat([lo, hi], dim=-2).to(torch.float32)
-    a = qp["code"][..., 0:1, None]
-    if qp["code"].shape[-1] == 1:                   # uniform (scheme tag)
-        vals = s * a
-    else:
-        cc = qp["code"][..., 1:2, None]
-        vals = s * (a + cc * (s * s))
-    w = vals * qp["rscale"][..., :, None] * qp["scale"][..., None, :]
-    return w.to(dtype)
+    nib = torch.cat([lo, hi], dim=-2)
+    scale = qp["scale"]
+    if "rscale" in qp:                              # rank-1 scheme
+        s = nib.to(torch.float32)
+        a = qp["code"][..., 0:1, None]
+        if qp["code"].shape[-1] == 1:               # uniform (scheme tag)
+            vals = s * a
+        else:
+            cc = qp["code"][..., 1:2, None]
+            vals = s * (a + cc * (s * s))
+        w = vals * qp["rscale"][..., :, None] * scale[..., None, :]
+        return w.to(dtype)
+    vals = (_nf4_poly_eval(nib.to(torch.float32)) if nib.dtype == torch.uint8
+            else nib.to(torch.float32))
+    *lead, din, dout = vals.shape
+    n = scale.shape[-2]
+    g = vals.reshape(*lead, n, din // n, dout) * scale[..., :, None, :]
+    return g.reshape(*lead, din, dout).to(dtype)
+
+
+def dequantize(qp: Dict[str, torch.Tensor], dtype=torch.bfloat16):
+    """Dispatch on the stored scheme."""
+    if "q4" in qp:
+        return dequantize_int4(qp, dtype)
+    return dequantize_int8(qp, dtype)
+
+
+def is_quantized(p: Any) -> bool:
+    return isinstance(p, dict) and ("q" in p or "q4" in p) and "scale" in p
+
+
+def materialize_kernel(kern: Any, dtype) -> torch.Tensor:
+    """A weight leaf as a dense ``dtype`` tensor, stored plain or
+    quantized."""
+    if isinstance(kern, dict):
+        return dequantize(kern, dtype)
+    return kern.to(dtype)
 
 
 def quantize_int8_act(x: torch.Tensor):
@@ -163,14 +300,116 @@ def quantize_int8_act(x: torch.Tensor):
     return q, ax * (1.0 / 127.0)
 
 
+def quantize_tree(params: Any, predicate=None, bits: int = 8,
+                  group_size: int = 64, nf4: bool = True,
+                  rank1: bool = False) -> Any:
+    """Replace every ``kernel`` leaf of a plain dict / list tree of
+    tensors with its quantized form (``bits`` 8, or 4: group-wise /
+    NF4, or rank-1 with ``rank1``); ``predicate(parent_key)`` may veto a
+    kernel. A 4-bit kernel whose din the scheme cannot take (not
+    divisible by the group, or odd) falls back to int8, as in JAX."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+
+    def quant(w):
+        if bits == 8:
+            return quantize_int8(w)
+        try:
+            if rank1:
+                return quantize_int4_rank1(w, nf4=nf4)
+            return quantize_int4(w, group_size=group_size, nf4=nf4)
+        except ValueError:
+            return quantize_int8(w)
+
+    def walk(node, name=""):
+        if isinstance(node, dict):
+            return {k: (quant(v) if k == "kernel" and (
+                predicate is None or predicate(name)) else walk(v, k))
+                for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, name) for v in node]
+        return node
+    return walk(params)
+
+
+# ---------------------------------------------------------------------------
+# int8 x int8 products
+# ---------------------------------------------------------------------------
+
+# rows below which torch._int_mm refuses a CUDA call: such a call pads
+# its activations with zero rows (they quantize to 0) and slices them off
+_INT_MM_MIN_ROWS = 17
+
+
+def int8_mm(xq: torch.Tensor, w: torch.Tensor,
+            site: str = "decoder") -> torch.Tensor:
+    """``xq @ w`` with int8 operands and exact int32 sums
+    (``torch._int_mm``, the GEMM the JAX package leaves to XLA as
+    ``dot_general(..., preferred_element_type=int32)``). Counted per
+    ``site`` in ``int8_mm.calls``."""
+    m = xq.shape[0]
+    if xq.is_cuda and m < _INT_MM_MIN_ROWS:
+        pad = xq.new_zeros((_INT_MM_MIN_ROWS - m, xq.shape[1]))
+        y = torch._int_mm(torch.cat([xq, pad]), w)[:m]
+    else:
+        y = torch._int_mm(xq, w)
+    int8_mm.calls[site] = int8_mm.calls.get(site, 0) + 1
+    return y
+
+
+int8_mm.calls = {}
+
+
+def int8_act_matmul(xq: torch.Tensor, sx: torch.Tensor, q: torch.Tensor,
+                    scale: torch.Tensor, out_dtype=torch.bfloat16,
+                    site: str = "decoder") -> torch.Tensor:
+    """``(xq·sx) @ (q·scale)`` with both operands int8: exact int32 sums,
+    then the rank-1 epilogue in the JAX order, ``y·sx·scale``."""
+    y = int8_mm(xq, q, site)
+    return (y.to(torch.float32) * sx * scale[None, :]).to(out_dtype)
+
+
+class _W8A8STE(torch.autograd.Function):
+    """W8A8 matmul with a straight-through activation gradient (the JAX
+    ``_w8a8_matmul_ste``): the primal is the serving W8A8 path bit for
+    bit; the backward treats the activation round as identity, ``dx = g
+    @ W_deq^T`` with ``W_deq = (q·scale)`` in g's dtype; the frozen int8
+    weights get no gradient. ``x`` is 2D."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale):
+        ctx.save_for_backward(q, scale)
+        ctx.x_dtype = x.dtype
+        xq, sx = quantize_int8_act(x)
+        return int8_act_matmul(xq, sx, q, scale, x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, scale = ctx.saved_tensors
+        w = (q.to(torch.float32) * scale[..., None, :]).to(g.dtype)
+        return (g @ w.t()).to(ctx.x_dtype), None, None
+
+
 # ---------------------------------------------------------------------------
 # matmuls
 # ---------------------------------------------------------------------------
 
+def _layer_of(qp: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A stacked weight's layer ``qp["layer"]`` as a 2D weight dict, as the
+    JAX decode scan hands such weights to ``dense`` (an int8 ``q`` stays
+    column-major)."""
+    layer = qp["layer"]
+    out = {k: v.index_select(0, layer)[0] for k, v in qp.items()
+           if k not in ("layer", "q")}
+    if "q" in qp:
+        out["q"] = qp["q"].transpose(-1, -2).index_select(0, layer)[0].t()
+    return out
+
+
 def materialize_split(qp: Dict[str, torch.Tensor], dtype) -> Dict:
-    """The weight half of the materializing 2D form: each packed half
-    decoded to ``nibble·code·scale`` rounded to ``dtype``. Kept apart so
-    a weight used at every step (the sliced selector head) decodes
+    """The weight half of the materializing 2D rank-1 form: each packed
+    half decoded to ``nibble·code·scale`` rounded to ``dtype``. Kept apart
+    so a weight used at every step (the sliced selector head) decodes
     once."""
     uniform = qp["code"].shape[-1] == 1
     a = qp["code"][0]
@@ -200,63 +439,136 @@ def split_matmul(x: torch.Tensor, prep: Dict) -> torch.Tensor:
     return (xl @ wl + xh @ wh).reshape(*bx, dout)
 
 
+def _w4a8_prefill(x: torch.Tensor, qp: Dict[str, torch.Tensor],
+                  dtype) -> torch.Tensor:
+    """The W4A8 prefill branch (uniform rank-1, off the GEMV route): the
+    unpacked nibbles ARE int8 values in [-7, 7], so each half's
+    rscale-folded activations quantize per row and meet them in the int8
+    GEMM; the uniform slope folds into the column scale."""
+    packed, scale = qp["q4"], qp["scale"]
+    half, dout = packed.shape
+    r = qp["rscale"]
+    *bx, din = x.shape
+    x2 = x.reshape(-1, din).to(torch.float32)
+
+    def half_mm(xs, nib):
+        xq, sx = quantize_int8_act(xs)
+        return int8_mm(xq, nib).to(torch.float32) * sx
+
+    # the nibbles unpacked column-major, the int8 GEMM's fast layout
+    lo, hi = (h.t() for h in _unpack_halves(packed.t().contiguous()))
+    yl = half_mm(x2[:, :half] * r[None, :half], lo)
+    yh = half_mm(x2[:, half:] * r[None, half:], hi)
+    y = (yl + yh) * (scale[None, :] * qp["code"][0])
+    return y.to(dtype).reshape(*bx, dout)
+
+
+def _group_matmul(x: torch.Tensor, qp: Dict[str, torch.Tensor],
+                  dtype) -> torch.Tensor:
+    """The group-wise 2D form (halves holding whole groups): each half
+    decodes to ``dtype`` by its own group scales and meets its half of
+    the activations."""
+    packed, scale = qp["q4"], qp["scale"]
+    half, dout = packed.shape
+    n2 = scale.shape[0] // 2
+    lo, hi = _unpack_halves(packed)
+    wl = _decode_half(lo, scale[:n2], dtype)
+    wh = _decode_half(hi, scale[n2:], dtype)
+    *bx, din = x.shape
+    x2 = x.reshape(-1, din)
+    return (x2[:, :half] @ wl + x2[:, half:] @ wh).reshape(*bx, dout)
+
+
 def int4_matmul(x: torch.Tensor, qp: Dict[str, torch.Tensor],
                 out_dtype=None, act_int8: bool = False) -> torch.Tensor:
-    """``x @ W`` for a rank-1 int4 weight: the fused GEMV where the JAX
-    package routes it (see the module docstring), else the materializing
-    form. ``qp`` is 2D, or stacked ``[L, ...]`` with a ``"layer"`` entry
-    (int32 ``[1]`` on W's device) for the indexed form. A stacked weight
-    off the indexed route takes its layer's 2D slice, as the JAX decode
-    scan hands such weights to ``dense`` (``qwen2._split_stacked_gemv``),
-    so it rounds exactly as the 2D route does."""
+    """``x @ W`` for a 4-bit weight, routed as the JAX function routes.
+    ``qp`` is 2D, or stacked ``[L, ...]`` with a ``"layer"`` entry (int32
+    ``[1]`` on W's device) for the indexed form; a stacked weight off the
+    indexed route takes its layer's 2D slice, as the JAX decode scan hands
+    such weights to ``dense``, so it rounds exactly as the 2D route does.
+
+    Rank-1: the fused GEMV (K6-K9) where it routes; with ``act_int8`` on
+    uniform weights off that route, the W4A8 prefill branch; else the
+    materializing split form. Group-wise / NF4: the split form when the
+    halves hold whole groups, else ``x @ dequantize_int4``."""
     from .quant_gemv import (gemv_viable, gemv_viable_stacked,
                              int4_rank1_gemv, int4_rank1_gemv_stacked)
 
-    if "rscale" not in qp:
-        raise NotImplementedError(f"group-wise int4 / NF4 is {QUEUE_MSG}")
     dtype = out_dtype or x.dtype
     m = x.numel() // x.shape[-1]
-    uniform = qp["code"].shape[-1] == 1
+    rank1 = "rscale" in qp
+    uniform = rank1 and qp["code"].shape[-1] == 1
     if qp["q4"].ndim == 3 and "layer" in qp:
-        layer = qp["layer"]
         if uniform and gemv_viable_stacked(qp, m):
-            return int4_rank1_gemv_stacked(x, qp, layer, dtype,
+            return int4_rank1_gemv_stacked(x, qp, qp["layer"], dtype,
                                            w4a8=act_int8)
-        qp = {k: v.index_select(0, layer)[0] for k, v in qp.items()
-              if k != "layer"}
+        qp = _layer_of(qp)
     if qp["q4"].ndim != 2:
         return x @ dequantize_int4(qp, dtype)
-    if uniform and gemv_viable(qp, m):
-        return int4_rank1_gemv(x, qp, dtype, w4a8=act_int8)
-    if act_int8 and uniform:
-        raise NotImplementedError(f"the W4A8 prefill branch is {QUEUE_MSG}")
-    return split_matmul(x, materialize_split(qp, dtype))
+    if rank1:
+        if uniform and gemv_viable(qp, m):
+            return int4_rank1_gemv(x, qp, dtype, w4a8=act_int8)
+        if act_int8 and uniform:
+            return _w4a8_prefill(x, qp, dtype)
+        return split_matmul(x, materialize_split(qp, dtype))
+    half = qp["q4"].shape[0]
+    n = qp["scale"].shape[0]
+    if n % 2 or half % (2 * half // n):
+        return x @ dequantize_int4(qp, dtype)
+    return _group_matmul(x, qp, dtype)
 
 
-def prepare_matmul(qp: Dict[str, torch.Tensor], dtype):
-    """``x -> x @ W`` for a 2D rank-1 weight used at every decode step
-    (the sliced selector head). A weight the GEMV can take routes per
-    call through :func:`int4_matmul`; any other (the ~20-column sliced
-    head, K < 128, as in JAX) always takes the materializing form, so its
-    halves decode once here and no step unpacks them."""
-    from .quant_gemv import gemv_viable
+def int8_matmul(x: torch.Tensor, qp: Dict[str, torch.Tensor],
+                out_dtype=None, w8a8: bool = False) -> torch.Tensor:
+    """``x @ W`` for an int8 weight (2D, or stacked with ``"layer"``):
+    with ``w8a8`` the W8A8 product at any M (straight-through under
+    autograd), else K10 where it routes (``m <= 64``), else the
+    materializing form."""
+    from .int8_gemv import gemv_viable, int8_gemv
 
-    if qp["code"].shape[-1] == 1 and gemv_viable(qp, 1):
-        return lambda x: int4_matmul(x, qp, dtype)
-    prep = materialize_split(qp, dtype)
-    return lambda x: split_matmul(x, prep)
+    dtype = out_dtype or x.dtype
+    m = x.numel() // x.shape[-1]
+    if not w8a8 and gemv_viable(qp, m):
+        return int8_gemv(x, qp, dtype)
+    if qp["q"].ndim == 3 and "layer" in qp:
+        qp = _layer_of(qp)
+    if w8a8:
+        lead = x.shape[:-1]
+        y = _W8A8STE.apply(x.reshape(-1, x.shape[-1]).to(dtype), qp["q"],
+                           qp["scale"])
+        return y.reshape(*lead, y.shape[-1])
+    return x @ dequantize_int8(qp, dtype)
 
 
 def quantized_matmul(x: torch.Tensor, qp: Dict[str, torch.Tensor],
                      out_dtype=None, w8a8: bool = False) -> torch.Tensor:
-    """``x @ W`` for any quantized weight dict. ``w8a8`` reaches the
-    int4 GEMV route only (the W4A8 kernels K7/K9)."""
+    """``x @ W`` for any quantized weight dict. ``w8a8`` reaches the int4
+    GEMV route (W4A8, K7/K9) and the W4A8 prefill branch on uniform
+    rank-1 weights, and the W8A8 product on int8 weights."""
     dtype = out_dtype or x.dtype
     if "q4" in qp:
         return int4_matmul(x, qp, dtype, act_int8=w8a8)
-    if w8a8:
-        raise NotImplementedError(f"W8A8 int8 matmuls are {QUEUE_MSG}")
-    return x @ dequantize_int8(qp, dtype)
+    return int8_matmul(x, qp, dtype, w8a8=w8a8)
+
+
+def prepare_matmul(qp: Dict[str, torch.Tensor], dtype):
+    """``x -> x @ W`` for a 2D weight used at every decode step (the
+    sliced selector head). A weight the GEMVs can take routes per call
+    through :func:`quantized_matmul`; any other (the ~20-column sliced
+    head, as in JAX) always takes the materializing form, so it decodes
+    once here and no step dequantizes it."""
+    from . import int8_gemv
+    from .quant_gemv import gemv_viable
+
+    if "q" in qp:
+        if int8_gemv.gemv_viable(qp, 1):
+            return lambda x: int8_matmul(x, qp, dtype)
+        w = dequantize_int8(qp, dtype)
+        return lambda x: x @ w
+    if qp["code"].shape[-1] == 1 and gemv_viable(qp, 1):
+        return lambda x: int4_matmul(x, qp, dtype)
+    prep = materialize_split(qp, dtype)
+    return lambda x: split_matmul(x, prep)
 
 
 def slice_output_channels(p, ids: torch.Tensor):
@@ -283,34 +595,42 @@ def quantized_bytes(module: nn.Module) -> int:
 # modules
 # ---------------------------------------------------------------------------
 
-class Int4Weight(nn.Module):
-    """A rank-1 int4 weight kept as buffers: 2D (``q4 [din/2, dout]``,
-    the head) or stacked over layers (``q4 [L, din/2, dout]``, one per
-    decoder projection site, the JAX tree's layout — never transposed to
-    ``nn.Linear``'s ``[out, in]``). A stacked weight also holds
-    ``layer_ids = arange(L)`` on its device: the indexed kernels K8/K9
-    read their layer through a pointer into it, so selecting a layer
-    needs no host sync and no copy."""
+_KEYS = ("q", "q4", "scale", "rscale", "code")
+
+
+class QuantWeight(nn.Module):
+    """A quantized weight dict kept as buffers: 2D (the head, a vision
+    GEMM) or stacked over layers (one per decoder projection site, the
+    JAX tree's layout; an int8 ``q`` held column-major, :func:`column_major`). A stacked weight also holds ``layer_ids =
+    arange(L)`` on its device: the indexed kernels (K8/K9, K10) read their
+    layer through a pointer into it, so selecting a layer needs no host
+    sync and no copy."""
 
     def __init__(self, qp: Dict[str, torch.Tensor]):
         super().__init__()
-        for k in ("q4", "scale", "rscale", "code"):
-            self.register_buffer(k, qp[k].contiguous())
-        if self.q4.ndim == 3:
+        self.fields = tuple(k for k in _KEYS if k in qp)
+        for k in self.fields:
+            self.register_buffer(k, column_major(qp[k]) if k == "q"
+                                 else qp[k].contiguous())
+        packed = qp["q4"] if "q4" in qp else qp["q"]
+        if packed.ndim == 3:
             self.register_buffer("layer_ids", torch.arange(
-                self.q4.shape[0], dtype=torch.int32, device=self.q4.device))
+                packed.shape[0], dtype=torch.int32, device=packed.device))
+
+    @property
+    def scheme(self) -> str:
+        return "int8" if "q" in self.fields else "int4"
 
     def qp(self) -> Dict[str, torch.Tensor]:
-        return {"q4": self.q4, "scale": self.scale, "rscale": self.rscale,
-                "code": self.code}
+        return {k: getattr(self, k) for k in self.fields}
 
 
-class Int4Linear(nn.Module):
-    """One projection over an :class:`Int4Weight` — layer ``layer`` of a
-    stacked store, or the whole of a 2D one — plus its bias (kept in the
-    model's dtype)."""
+class QuantLinear(nn.Module):
+    """One projection over a :class:`QuantWeight` — layer ``layer`` of a
+    stacked store, or the whole of a 2D one — plus its bias (kept in its
+    dtype)."""
 
-    def __init__(self, store: Int4Weight, layer: Optional[int] = None,
+    def __init__(self, store: QuantWeight, layer: Optional[int] = None,
                  bias: Optional[torch.Tensor] = None):
         super().__init__()
         self.store = store
@@ -321,8 +641,8 @@ class Int4Linear(nn.Module):
     def qp(self, indexed: bool = False) -> Dict:
         """The weight dict: the stacked store plus this layer's index for
         the indexed form (cached forwards, as the JAX decode scan's
-        ``_split_stacked_gemv``; ``int4_matmul`` routes it), else this
-        layer's 2D slice (views, no copy)."""
+        ``_split_stacked_gemv``), else this layer's 2D slice (views, no
+        copy)."""
         qp = self.store.qp()
         if self.layer is None:
             return qp
@@ -339,53 +659,60 @@ class Int4Linear(nn.Module):
         return y
 
 
-def install_int4_(model, stores: Dict[str, Dict[str, torch.Tensor]],
-                  head: Dict[str, torch.Tensor]):
-    """Put rank-1 int4 weights into a port ``Qwen2Model`` IN PLACE:
+# the name of the rank-1 int4 mode's projection, which came first
+Int4Linear = QuantLinear
+
+
+def install_quantized_(model, stores: Dict[str, Dict[str, torch.Tensor]],
+                       head: Dict[str, torch.Tensor]):
+    """Put quantized weights into a port ``Qwen2Model`` IN PLACE:
     ``stores`` maps each projection name (q_proj ... down_proj) to its
-    stacked weight dict, ``head`` is the lm_head's 2D dict. Each new
-    projection keeps the replaced module's bias; the replaced
+    stacked weight dict, ``head`` is the lm_head's 2D dict. The stores
+    live in ``model.int4`` or ``model.int8`` (by the head's scheme); each
+    new projection keeps the replaced module's bias; the replaced
     ``nn.Linear``s are dropped, so their weights are freed."""
-    model.int4 = nn.ModuleDict({n: Int4Weight(qp) for n, qp in stores.items()})
+    table = nn.ModuleDict({n: QuantWeight(qp) for n, qp in stores.items()})
+    setattr(model, "int8" if "q" in head else "int4", table)
     for grp, name in GEMV_SITES:
         for li, layer in enumerate(model.layers):
             mods = getattr(layer, grp)
-            mods[name] = Int4Linear(model.int4[name], li,
-                                    getattr(mods[name], "bias", None))
-    model.lm_head = Int4Linear(Int4Weight(head))
+            mods[name] = QuantLinear(table[name], li,
+                                     getattr(mods[name], "bias", None))
+    model.lm_head = QuantLinear(QuantWeight(head))
     return model
 
 
 @torch.no_grad()
 def quantize_text_(model, bits: int = 4):
-    """Quantize a port ``Qwen2Model`` IN PLACE: every decoder projection
-    and the lm_head become rank-1 uniform int4 (the scheme the GEMV
-    kernels route), the counterpart of ``quantize_tree(params["text"],
-    bits=4, rank1=True, nf4=False)`` in the JAX serve path.
-    Embeddings, norms and biases stay as they are. Each bf16 weight is
-    freed once quantized, so the peak is the bf16 model plus one
-    weight's f32 temporaries. Returns ``model``."""
-    if bits != 4:
-        raise NotImplementedError(f"int{bits} weight-only serving is {QUEUE_MSG}")
+    """Quantize a port ``Qwen2Model`` IN PLACE, every decoder projection
+    and the lm_head: ``bits=4`` rank-1 uniform int4 (the scheme K6-K9
+    route; the JAX serve path's ``quantize_tree(params["text"], bits=4,
+    rank1=True, nf4=False)``), ``bits=8`` per-channel int8 (K10;
+    ``quantize_tree(params["text"], bits=8)``). Embeddings, norms and
+    biases stay as they are. Each bf16 weight is freed once quantized, so
+    the peak is the bf16 model plus one weight's f32 temporaries. Returns
+    ``model``."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+
+    def quant(w):
+        return quantize_int8(w) if bits == 8 else \
+            quantize_int4_rank1(w, nf4=False)
+
     L = len(model.layers)
     stores = {}
     for grp, name in GEMV_SITES:
-        lin0 = getattr(model.layers[0], grp)[name]
-        dout, din = lin0.weight.shape
-        dev = lin0.weight.device
-        stack = {"q4": torch.empty((L, din // 2, dout), dtype=torch.int8,
-                                   device=dev),
-                 "scale": torch.empty((L, dout), device=dev),
-                 "rscale": torch.empty((L, din), device=dev),
-                 "code": torch.empty((L, 1), device=dev)}
+        stack = None
         for li, layer in enumerate(model.layers):
             lin = getattr(layer, grp)[name]
-            qp = quantize_int4_rank1(lin.weight.t(), nf4=False)
+            qp = quant(lin.weight.t())
+            if stack is None:
+                stack = empty_stack(L, qp)
             for key in stack:
                 stack[key][li] = qp[key]
             lin.weight = None            # frees the bf16 weight now
             del lin, qp
         stores[name] = stack
-    head = quantize_int4_rank1(model.lm_head.weight.t(), nf4=False)
+    head = quant(model.lm_head.weight.t())
     model.lm_head.weight = None
-    return install_int4_(model, stores, head)
+    return install_quantized_(model, stores, head)

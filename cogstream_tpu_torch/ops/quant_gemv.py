@@ -250,7 +250,7 @@ def _tc_x_stride(rows: int, w4a8: bool) -> int:
 
 @functools.lru_cache(maxsize=None)
 def stacked_plan(m: int, half: int, dout: int, w4a8: bool,
-                 sms: int) -> Tuple[int, int]:
+                 sms: int, x_halves: int = 2) -> Tuple[int, int]:
     """(packed rows per split, splits) of one K8/K9 launch: the grid is
     (dout / 128 column tiles) x splits, each block streaming its split's
     rows in 128-row stages. A model of the call's time picks the split:
@@ -263,7 +263,9 @@ def stacked_plan(m: int, half: int, dout: int, w4a8: bool,
     dependent L2 loads (8 splits x 4 rows a round). So every SM streams
     about the same bytes and no wave is left mostly empty. Ties take fewer
     splits. Cached: a decode step asks it for the same few shapes 196
-    times."""
+    times. K10 (ops/int8_gemv.py), whose ring stages hold 128 int8 rows
+    where K8's hold 128 packed rows, plans with it too: ``half`` is then
+    its din and ``x_halves`` 1 (one activation row per weight row)."""
     nh, es = (2, 1) if w4a8 else (1, 2)
     xrows = -(-m // 8) * 8
     tiles = dout // _TC_BN
@@ -274,14 +276,15 @@ def stacked_plan(m: int, half: int, dout: int, w4a8: bool,
         if -(-n_stages // splits) != per:
             continue                   # the same grid as a smaller per
         rows = per * _TC_KT
-        x_bytes = 2 * xrows * _tc_x_stride(rows, w4a8)
+        x_bytes = x_halves * xrows * _tc_x_stride(rows, w4a8)
         if x_bytes > _TC_X_BUDGET and per > 1:
             continue
         two = xrows <= 16 and _TC_RING + x_bytes <= _TC_SMEM_TWO
         slots = sms * (2 if two else 1)
         waves = -(-tiles * splits // slots)
-        us = waves * (_BLOCK_US + slots * (rows * _TC_BN + 2 * m * rows * es
-                                           / 3) / _HBM_BYTES_PER_US)
+        us = waves * (_BLOCK_US + slots * (rows * _TC_BN + x_halves * m
+                                           * rows * es / 3)
+                      / _HBM_BYTES_PER_US)
         if splits > 1:
             us += splits * nh * m * dout * 4 / _HBM_BYTES_PER_US
             us += -(-splits // 8) * -(-m // 4) * _L2_ROUND_US

@@ -23,7 +23,8 @@ import torch
 
 from ..config import CogReasonerConfig
 from ..models import cogreasoner
-from ..models.cogreasoner import CogReasoner
+from ..models.cogreasoner import (CogReasoner, with_int8_tower,
+                                  with_serving_flags)
 from ..models.qwen2 import init_kv_cache
 from ..processor.processing import CogStreamProcessor, ProcessorOutput
 from .generate import bucket_length, decode_new_tokens, generate_tokens
@@ -63,13 +64,11 @@ class CogReasonerEngine:
         if mesh is not None:
             raise NotImplementedError("tensor-parallel serving (mesh) is not "
                                       "ported yet (ROADMAP Queue 1 #9)")
+        # cfg's serving flags; encoder_int8: the engine's own W8A8 copy of
+        # the vision tower
+        model = with_serving_flags(model, cfg)
         if encoder_int8:
-            raise NotImplementedError("encoder_int8 (the W8A8 vision tower) "
-                                      "is not ported yet (ROADMAP Queue 1 #4)")
-        if cfg.text.w8a8_prefill:
-            raise NotImplementedError("w8a8_prefill (the W8A8 prefill "
-                                      "branch) is not ported yet (ROADMAP "
-                                      "Queue 1 #4)")
+            model = with_int8_tower(model)
         self.model = model
         self.cfg = cfg
         self.tokenizer = tokenizer

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from ..models import qwen2
 from ..models.qwen2 import KVCache, Qwen2Model
 from ..ops.lm_attention import as_cache_rows
-from ..ops.quant import Int4Linear, prepare_matmul, slice_output_channels
+from ..ops.quant import QuantLinear, prepare_matmul, slice_output_channels
 from .sampling import apply_repetition_penalty, sample_token
 
 PAD_BUCKETS = (128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
@@ -53,10 +53,12 @@ class GenerateResult(NamedTuple):
 
 def _sliced_head(lm_head, lid: torch.Tensor, dtype):
     """``h -> h @ W[:, lid]`` for the static ``logit_ids`` support, built
-    once before the decode loop. A bf16 head gathers its rows; an int4
-    head slices its output channels (``slice_output_channels``) and
-    prepares that weight once (``prepare_matmul``)."""
-    if isinstance(lm_head, Int4Linear):
+    once before the decode loop. A bf16 head gathers its rows; a quantized
+    (int4 or int8) head slices its output channels
+    (``slice_output_channels``) and prepares that weight once
+    (``prepare_matmul``: a ~20-column slice takes the plain form, decoded
+    once, as no GEMV routes it)."""
+    if isinstance(lm_head, QuantLinear):
         return prepare_matmul(slice_output_channels(lm_head.qp(), lid), dtype)
     w = lm_head.weight[lid]
     return lambda h: F.linear(h, w)

@@ -24,7 +24,8 @@ import torch
 from ..config import CogReasonerConfig
 from ..models import qwen2
 from ..models.cogreasoner import (CogReasoner, encode_images,
-                                  pixel_diff_keep_mask)
+                                  pixel_diff_keep_mask, with_int8_tower,
+                                  with_serving_flags)
 from ..models.qwen2 import init_kv_cache
 from .generate import generate_tokens
 from .history import parse_selection
@@ -37,8 +38,13 @@ class SessionPool:
                  tokenizer, n_rows: int = 4, max_len: int = 8192,
                  adapters: Optional[Dict] = None,
                  summary_forward: bool = True, kv_dtype=None,
-                 seed: int = 0):
+                 seed: int = 0, encoder_int8: bool = False):
         check_kv_dtype(kv_dtype, model.text.dtype)
+        # cfg's serving flags; encoder_int8: the pool (and every session
+        # on it) ingests through its own W8A8 copy of the tower
+        model = with_serving_flags(model, cfg)
+        if encoder_int8:
+            model = with_int8_tower(model)
         self.model = model
         self.cfg = cfg
         self.tok = tokenizer

@@ -29,6 +29,11 @@ workspace is shared per device (``ops/lm_attention._decode_workspace``).
 /ingest and /ask, and a starting server restores every snapshot it finds
 there. The JAX package's supervisor (``--supervise``) waits for a
 CUDA-side fatal-error predicate (ROADMAP Queue 1 #2).
+
+The quantized modes load as in JAX: ``--quantize-weights int8|int4``
+(K10 / K6-K9 decode), ``--w8a8-prefill`` (int8 activations in prefill
+GEMMs; needs ``--quantize-weights``), ``--w4a8-decode`` (int4 only) and
+``--encoder-int8`` (the W8A8 vision tower, one copy for the server).
 """
 
 from __future__ import annotations
@@ -203,15 +208,18 @@ class SessionServer:
                  ingest_chunk_frames: int = 16, lookahead_k: int = 0,
                  extra_eos_ids: tuple = (), encoder_int8: bool = False,
                  auto_snapshot_dir: Optional[str] = None, mesh=None):
+        from ..models.cogreasoner import with_int8_tower
         from ..utils.profiling import StageTimer
         from .session import StreamingSession
 
-        if encoder_int8:
-            raise _not_ported("encoder_int8 (the W8A8 vision tower)", 4)
         if lookahead_k > 0:
             raise _not_ported("lookahead_k (lookahead decode)", 5)
         if mesh is not None:
             raise _not_ported("mesh (tensor-parallel serving)", 9)
+        # encoder_int8: ONE W8A8 copy of the tower, shared by the solo
+        # sessions and the pool (each finds its model's tower int8 already)
+        if encoder_int8:
+            model = with_int8_tower(model)
         # the checkpoint's full terminator set (generation_config
         # eos_token_id list), applied to every decode as HF does
         self.extra_eos_ids = tuple(extra_eos_ids)
@@ -612,6 +620,30 @@ def serve(server: SessionServer, port: int = 8787, host: str = "0.0.0.0"):
     make_http_server(server, host, port).serve_forever()
 
 
+def quant_flags(args) -> dict:
+    """The decoder flags of ``--w8a8-prefill`` and ``--w4a8-decode``,
+    checked as the JAX CLIs check them (exits on a flag its
+    ``--quantize-weights`` does not allow)."""
+    flags = {}
+    if args.w8a8_prefill:
+        if not args.quantize_weights:
+            raise SystemExit("--w8a8-prefill requires --quantize-weights")
+        flags["w8a8_prefill"] = True
+    if args.w4a8_decode:
+        if args.quantize_weights != "int4":
+            raise SystemExit("--w4a8-decode requires --quantize-weights int4")
+        flags["w4a8_decode"] = True
+    return flags
+
+
+def with_text_flags(cfg, flags: dict):
+    """``cfg`` with ``flags`` set on its decoder config."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, text=dataclasses.replace(cfg.text,
+                                                             **flags))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="cogstream_tpu_torch serve")
     ap.add_argument("--model-dir", required=True)
@@ -621,15 +653,16 @@ def main(argv=None):
     ap.add_argument("--pool-rows", type=int, default=0,
                     help=">0 enables pooled batched serving")
     ap.add_argument("--quantize-weights", choices=("int8", "int4"),
-                    help="quantize the decoder at load: int4 = rank-1 "
-                         "uniform (K6-K9); int8 is not ported yet")
+                    help="quantize the decoder at load: int8 per channel "
+                         "(K10 decode), int4 rank-1 uniform (K6-K9)")
     ap.add_argument("--w4a8-decode", action="store_true",
                     help="int8-activation decode steps on int4 weights "
                          "(requires --quantize-weights int4)")
     ap.add_argument("--w8a8-prefill", action="store_true",
-                    help="not ported yet (ROADMAP Queue 1 #4)")
+                    help="int8-activation prefill GEMMs on the quantized "
+                         "decoder (requires --quantize-weights)")
     ap.add_argument("--encoder-int8", action="store_true",
-                    help="not ported yet (ROADMAP Queue 1 #4)")
+                    help="W8A8 vision tower for ingest")
     ap.add_argument("--supervise", action="store_true",
                     help="not ported yet (ROADMAP Queue 1 #2: needs a "
                          "CUDA-side fatal-error predicate)")
@@ -640,32 +673,19 @@ def main(argv=None):
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
-    queue4 = "is not ported yet (ROADMAP Queue 1 #4)"
-    if args.quantize_weights == "int8":
-        raise SystemExit(f"--quantize-weights int8 {queue4}")
-    if args.w8a8_prefill:
-        raise SystemExit(f"--w8a8-prefill {queue4}")
-    if args.encoder_int8:
-        raise SystemExit(f"--encoder-int8 {queue4}")
     if args.supervise:
         raise SystemExit("--supervise is not ported yet (ROADMAP Queue 1 "
                          "#2: it needs a CUDA-side fatal-error predicate)")
-    if args.w4a8_decode and args.quantize_weights != "int4":
-        raise SystemExit("--w4a8-decode requires --quantize-weights int4")
-
-    import dataclasses
-
+    flags = quant_flags(args)
     from ..config import load_generation_config, load_hf_config
     from ..models.checkpoint import load_cogreasoner_from_hf
     from ..processor.tokenizer import load_tokenizer
 
-    cfg = load_hf_config(os.path.join(args.model_dir, "config.json"))
-    if args.w4a8_decode:
-        cfg = dataclasses.replace(
-            cfg, text=dataclasses.replace(cfg.text, w4a8_decode=True))
+    cfg = with_text_flags(
+        load_hf_config(os.path.join(args.model_dir, "config.json")), flags)
     model = load_cogreasoner_from_hf(
         args.model_dir, cfg,
-        quantize_text_bits=4 if args.quantize_weights == "int4" else None,
+        quantize_text_bits={"int8": 8, "int4": 4}.get(args.quantize_weights),
         device=args.device)
     tok = load_tokenizer(args.model_dir, cfg.image_token_index,
                          cfg.text.vocab_size)
@@ -676,6 +696,7 @@ def main(argv=None):
     serve(SessionServer(model, cfg, tok, max_len=args.max_len,
                         pool_rows=args.pool_rows,
                         extra_eos_ids=tuple(eos or ()),
+                        encoder_int8=args.encoder_int8,
                         auto_snapshot_dir=args.auto_snapshot_dir),
           args.port, args.host)
 

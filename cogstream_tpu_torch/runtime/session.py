@@ -41,7 +41,8 @@ from ..config import CogReasonerConfig
 from ..models import qwen2
 from ..models.cogreasoner import (SUMMARY_INSTRUCTION, SUMMARY_SYSTEM,
                                   CogReasoner, encode_images,
-                                  pixel_diff_keep_mask)
+                                  pixel_diff_keep_mask, with_int8_tower,
+                                  with_serving_flags)
 from ..models.qwen2 import KVCache, Qwen2Model, init_kv_cache
 from ..ops.lm_attention import cache_rows
 from .generate import decode_new_tokens, generate_tokens
@@ -224,12 +225,15 @@ class StreamingSession:
                  max_len: int = 16384, rng_seed: int = 0,
                  system_prompt: str = SYSTEM_PROMPT,
                  summary_forward: bool = True, kv_dtype=None,
-                 pool=None, row: Optional[int] = None):
-        if cfg.text.w8a8_prefill:
-            raise NotImplementedError("w8a8_prefill (the W8A8 prefill "
-                                      "branch) is not ported yet (ROADMAP "
-                                      "Queue 1 #4)")
+                 pool=None, row: Optional[int] = None,
+                 encoder_int8: bool = False):
         check_kv_dtype(kv_dtype, model.text.dtype)
+        # the decoder runs under cfg's serving flags, as the JAX session's
+        # does; encoder_int8: the W8A8 vision tower for ingest, the
+        # session's own int8 copy (the model's tower is left as it is)
+        model = with_serving_flags(model, cfg)
+        if encoder_int8:
+            model = with_int8_tower(model)
         self.model = model
         self.cfg = cfg
         self.tok = tokenizer

@@ -9,8 +9,8 @@
   for bit, through models/bridge.py), in f32 and bf16;
 * one written by the port is byte-identical to JAX's export of the same
   weights, and JAX loads it back equal;
-* ``quantize_text_bits=4`` on load equals JAX's host int4 tree and the
-  port's ``quantize_text_``; bits=8 raises naming its queue item;
+* ``quantize_text_bits=4`` and ``8`` on load equal JAX's host int4 /
+  int8 trees and the port's ``quantize_text_``;
 * ``merge_lora`` against JAX's (f32, within 1e-6);
 * the config readers and writer against the originals on the same files.
 """
@@ -223,9 +223,23 @@ def test_int4_on_load(jax_ckpts, stored, dtype):
 
 
 def test_unported_load_modes_raise(jax_ckpts):
-    with pytest.raises(NotImplementedError, match="Queue 1 #4"):
-        tck.load_cogreasoner_from_hf(jax_ckpts["float32"], TConfig.tiny(),
-                                     quantize_text_bits=8, device="cpu")
+    """quantize_text_bits=8 (once refused) loads the int8 decoder JAX's
+    host quantizer (_lazy_quant8) loads, byte for byte, and equals the
+    port's quantize_text_(bits=8) of the loaded model; other widths and
+    wrong shapes still raise."""
+    jcfg, tcfg = _cfgs("float32")
+    ref_tree = jck.load_cogreasoner_from_hf(jax_ckpts["float32"], jcfg,
+                                            quantize_text_bits=8)
+    ref = bridge.qwen2_from_params(jax.tree.map(np.asarray,
+                                                ref_tree["text"]),
+                                   tcfg.text, device="cpu")
+    got = tck.load_cogreasoner_from_hf(jax_ckpts["float32"], tcfg,
+                                       quantize_text_bits=8, device="cpu")
+    _assert_same_model(got.text, ref)
+    dense = tck.load_cogreasoner_from_hf(jax_ckpts["float32"], tcfg,
+                                         device="cpu")
+    _assert_same_model(got.text, quant.quantize_text_(dense.text, bits=8))
+    assert got.text.int8["q_proj"].q.dtype == torch.int8
     with pytest.raises(ValueError):
         tck.load_cogreasoner_from_hf(jax_ckpts["float32"], TConfig.tiny(),
                                      quantize_text_bits=3, device="cpu")

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels (K1-K9) against their plain PyTorch versions,
+"""The port's CUDA kernels (K1-K10) against their plain PyTorch versions,
 on the card: the bf16 tensor-core kernels of K1, K3, K4 and K5 and the
 f32 CUDA-core tiles beside them; K3 and K4 reading a pool cache through
-``rows``; a tiny pool card against CPU. Marked ``cuda``: without a CUDA device every test skips.
+``rows``; a tiny pool card against CPU; the int4 GEMVs K6-K9, the int8
+GEMV K10 and the W8A8 product's ``torch._int_mm`` at few rows. Marked ``cuda``: without a CUDA device every test skips.
 
 On a machine with a card (and no JAX, so the repo's conftest cannot be
 imported there):
@@ -12,6 +13,8 @@ Inputs are seeded numpy draws; each comparison is in float32 for the f32
 kernels and in bf16 for the bf16 ones, with the tolerance stated where
 it is asserted.
 """
+
+import gc
 
 import numpy as np
 import pytest
@@ -564,6 +567,8 @@ def test_int4_gemv_stacked_repeats_and_replays(dev, m, w4a8):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert qg.stacked_plan(m, 1792, 2048, w4a8, sms)[1] > 1
     first = call()
+    # garbage of earlier tests, collected mid-call, would free memory
+    gc.collect()
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated(dev)
     again = call()
@@ -661,3 +666,126 @@ def test_engine_turn_card_matches_cpu(dev, mode, tmp_path, monkeypatch):
         conv, mode=mode, max_new_tokens=8) for m in (cpu_model, gpu_model)]
     assert turns[0].selection == turns[1].selection
     assert seen[0] == seen[1] and len(seen) == 2
+
+
+def _int8_weights(rng, dev, shape):
+    """Random int8 storage of ``shape`` = [L,] din, dout, column-major as
+    the port holds it (every byte value but -128 occurs), with scales of
+    the magnitude a real fit gives."""
+    from cogstream_tpu_torch.ops.quant import column_major
+
+    *lead, din, dout = shape
+    return {"q": column_major(_t(rng.integers(-127, 128, shape), dev,
+                                 torch.int8)),
+            "scale": _t(rng.uniform(0.5, 2.0, (*lead, dout)) / 512, dev)}
+
+
+@pytest.mark.parametrize("L,din,dout", [(3, 256, 384), (4, 1792, 256),
+                                        (2, 640, 1024), (0, 3584, 512)])
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 16, 17, 40, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_gemv_kernel(dev, L, din, dout, m, dtype):
+    """K10 against its plain version, ``x @ (q * scale)`` rounded to x's
+    dtype: stacked weights read their layer from a device int32 pointer
+    (every layer, against that layer's slice; the last one differs from
+    its neighbour), L = 0 is the 2D form (the lm_head's). m covers one to
+    eight n8 tiles, ragged ones included; din = 256 runs one K split, the
+    others several. bf16 (the tensor-core kernel): every row within 2
+    bf16 ulps of its max |ref| (2^-7: the same bf16 weights, f32 sums in
+    another order, one rounding of the output on each side); f32 (the
+    CUDA-core kernel, no weight rounding): 1e-5."""
+    from cogstream_tpu_torch.ops import int8_gemv as ig
+
+    rng = np.random.default_rng(m + din + dout)
+    qp = _int8_weights(rng, dev, (L, din, dout) if L else (din, dout))
+    x = _t(rng.standard_normal((m, din)), dev, dtype)
+    ids = torch.arange(max(L, 1), dtype=torch.int32, device=dev)
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    for layer in range(max(L, 1)):
+        w = {**qp, "layer": ids[layer:layer + 1]} if L else qp
+        n0, t0 = ig.gemv_k10.launches, ig.gemv_k10.tc_launches
+        got = ig.int8_gemv(x, w, dtype)
+        assert ig.gemv_k10.launches == n0 + 1
+        assert ig.gemv_k10.tc_launches == t0 + (dtype == torch.bfloat16)
+        assert got.shape == (m, dout) and got.dtype == dtype
+        _rowwise(got, ig.int8_gemv_plain(x, w, dtype), tol)
+        if L and layer == L - 1:
+            other = ig.int8_gemv_plain(
+                x, {**qp, "layer": ids[layer - 1:layer]}, dtype)
+            assert not torch.allclose(got, other)
+
+
+@pytest.mark.parametrize("m", [1, 40])
+def test_int8_gemv_repeats_and_replays(dev, m):
+    """K10 splits K through the shared workspace: two calls give the same
+    bits; one call captured in a CUDA graph, replayed after x and the
+    layer index were rewritten in place, equals the eager call on the new
+    values bit for bit."""
+    from cogstream_tpu_torch.ops import int8_gemv as ig
+    from cogstream_tpu_torch.ops import quant_gemv as qg
+
+    rng = np.random.default_rng(m)
+    L, din, dout = 4, 3584, 2048
+    qp = _int8_weights(rng, dev, (L, din, dout))
+    x = _t(rng.standard_normal((m, din)), dev, torch.bfloat16)
+    layer = torch.tensor([1], dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert qg.stacked_plan(m, din, dout, False, sms, x_halves=1)[1] > 1
+
+    def call():
+        return ig.gemv_k10(x, qp["q"], qp["scale"], layer, torch.bfloat16)
+
+    first = call()
+    assert torch.equal(first, call())
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = call()
+    x.copy_(_t(rng.standard_normal((m, din)), dev, torch.bfloat16))
+    layer.fill_(3)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, call())
+    _rowwise(out, ig.int8_gemv_plain(x, {**qp, "layer": layer},
+                                     torch.bfloat16), 2 ** -7)
+
+
+def test_int8_gemv_cuda_never_falls_back(dev):
+    """A CUDA tensor launches K10 or raises: a bf16 call on a shape the
+    tensor-core kernel cannot tile (reachable only by calling the wrapper
+    directly; the route never sends it) raises."""
+    from cogstream_tpu_torch.ops import int8_gemv as ig
+
+    rng = np.random.default_rng(0)
+    qp = _int8_weights(rng, dev, (192, 256))
+    x = _t(rng.standard_normal((1, 192)), dev, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        ig.gemv_k10(x, qp["q"], qp["scale"], None, torch.bfloat16)
+    # a row-major weight (not the layout the port holds) raises too
+    with pytest.raises(ValueError, match="column-major"):
+        ig.gemv_k10(_t(rng.standard_normal((1, 256)), dev, torch.bfloat16),
+                    _t(rng.integers(-127, 128, (256, 128)), dev, torch.int8),
+                    qp["scale"][:128].contiguous(), None, torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 64])
+def test_int_mm_small_rows(dev, m):
+    """The W8A8 product's int8 GEMM (``torch._int_mm``) at the row counts
+    the card's build refuses (16 and fewer: the activations are padded
+    with zero rows, which quantize to 0, and sliced off) and above:
+    exact against the integer product, and the int8 W8A8 product equals
+    the same formula on the CPU bit for bit."""
+    from cogstream_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(m)
+    x = rng.standard_normal((m, 256)).astype(np.float32)
+    qp = quant.quantize_int8(torch.as_tensor(
+        rng.standard_normal((256, 384)), dtype=torch.float32))
+    xq, sx = quant.quantize_int8_act(torch.as_tensor(x))
+    ref = xq.long() @ qp["q"].long()
+    got = quant.int8_mm(xq.to(dev), qp["q"].to(dev))
+    assert got.dtype == torch.int32 and torch.equal(got.cpu().long(), ref)
+    cpu = quant.quantized_matmul(torch.as_tensor(x), qp, w8a8=True)
+    card = quant.quantized_matmul(torch.as_tensor(x).to(dev),
+                                  {k: v.to(dev) for k, v in qp.items()},
+                                  w8a8=True)
+    assert torch.equal(card.cpu(), cpu)

@@ -482,3 +482,152 @@ def test_2d_gemv_keeps_the_cuda_core_kernel(lib, w4a8):
         qg.gemv_k6(x, q4, scale, torch.tensor([1.0, 0.0]), False,
                    torch.float32)
     assert lib.names() == ["cs_int4_gemv"]
+
+
+def _int8(m, L=3, din=1792, dout=512, dtype=torch.bfloat16, stacked=True):
+    from cogstream_tpu_torch.ops.quant import column_major
+
+    rng = np.random.default_rng(m)
+    shape = (L, din, dout) if stacked else (din, dout)
+    q = column_major(torch.tensor(rng.integers(-127, 128, shape),
+                                  dtype=torch.int8))
+    scale = torch.ones(shape[:-2] + (dout,))
+    layer = torch.tensor([L - 1], dtype=torch.int32) if stacked else None
+    x = torch.tensor(rng.standard_normal((m, din)), dtype=dtype)
+    return x, q, scale, layer
+
+
+@pytest.mark.parametrize("m", [1, 9, 40, 64])
+@pytest.mark.parametrize("din,dout", [(1792, 512), (18944, 3584),
+                                      (256, 128)])
+@pytest.mark.parametrize("stacked", [True, False])
+def test_int8_gemv_is_one_tensor_core_launch(lib, monkeypatch, m, din, dout,
+                                            stacked):
+    """K10 in bf16: one ``cs_int8_gemv`` call per wrapper call, with K8's
+    split model (``stacked_plan`` at one activation row per weight row)
+    and the shared per-device workspace; the stacked form passes its
+    layer pointer and strides, the 2D form (the lm_head) neither."""
+    from cogstream_tpu_torch.ops import int8_gemv as ig
+
+    monkeypatch.setattr(qg, "_tc_ws", {})
+    x, q, scale, layer = _int8(m, din=din, dout=dout, stacked=stacked)
+    n0, t0 = ig.gemv_k10.launches, ig.gemv_k10.tc_launches
+    out = ig.gemv_k10(x, q, scale, layer, torch.bfloat16)
+    assert lib.names() == ["cs_int8_gemv"]
+    a = lib.calls[0][1]
+    rows, splits = qg.stacked_plan(m, din, dout, False, 132, x_halves=1)
+    assert a[1] == q.data_ptr() and a[6] == out.data_ptr()
+    assert (a[2], a[4]) == ((din * dout, dout) if stacked else (0, 0))
+    assert (a[5] is None) == (not stacked)
+    assert a[9:16] == (m, din, dout, rows, splits,
+                       kernels.DTYPE_CODES[torch.bfloat16],
+                       kernels.DTYPE_CODES[torch.bfloat16])
+    if splits > 1:
+        part, tickets = qg._tc_ws[out.device]
+        assert (a[7], a[8]) == (part.data_ptr(), tickets.data_ptr())
+        assert part.numel() >= splits * m * dout
+    else:
+        assert (a[7], a[8]) == (None, None)
+    assert (ig.gemv_k10.launches, ig.gemv_k10.tc_launches) == (n0 + 1, t0 + 1)
+
+
+def test_int8_gemv_f32_takes_the_cuda_core_route(lib):
+    """f32 activations reach the same entry with the f32 code, no split
+    and no workspace (the CUDA-core kernel); any din and dout."""
+    from cogstream_tpu_torch.ops import int8_gemv as ig
+
+    x, q, scale, layer = _int8(5, din=200, dout=72, dtype=torch.float32)
+    t0 = ig.gemv_k10.tc_launches
+    ig.gemv_k10(x, q, scale, layer, torch.float32)
+    a = lib.calls[0][1]
+    assert lib.names() == ["cs_int8_gemv"] and a[7:9] == (None, None)
+    assert a[12:16] == (1, 1, 0, 0) and ig.gemv_k10.tc_launches == t0
+
+
+def test_int8_gemv_raises_before_any_call(lib):
+    """Operands K10 does not take raise before any launch: m > 64, a
+    bf16 dout off the 128-column tile, a row-major weight, a float layer."""
+    from cogstream_tpu_torch.ops import int8_gemv as ig
+
+    x, q, scale, layer = _int8(65)
+    with pytest.raises(ValueError, match="m <= 64"):
+        ig.gemv_k10(x, q, scale, layer, torch.float32)
+    x, q, scale, layer = _int8(1, dout=136)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        ig.gemv_k10(x, q, scale, layer, torch.float32)
+    x, q, scale, layer = _int8(1)
+    with pytest.raises(ValueError, match="column-major"):
+        ig.gemv_k10(x, q.contiguous(), scale, layer, torch.float32)
+    with pytest.raises(TypeError, match="layer"):
+        ig.gemv_k10(x, q, scale, layer.float(), torch.float32)
+    assert lib.calls == []
+
+
+def test_int8_route_is_k8s():
+    """K10 routes exactly where K8 routes: m <= 64 and shapes that block
+    into 128-multiples (``quant_gemv._pick_blocks``); a stacked weight only
+    with its layer index."""
+    from cogstream_tpu_torch.ops import int8_gemv as ig
+
+    for din in (128, 200, 256, 3584, 18944):
+        for dout in (20, 128, 136, 3584, 152064):
+            qp = {"q": torch.zeros((din, dout), dtype=torch.int8),
+                  "scale": torch.ones(dout)}
+            for m in (1, 64, 65):
+                want = m <= 64 and din % 128 == 0 and dout % 128 == 0
+                assert ig.gemv_viable(qp, m) == want, (din, dout, m)
+    st = {"q": torch.zeros((2, 256, 128), dtype=torch.int8),
+          "scale": torch.ones((2, 128))}
+    assert not ig.gemv_viable(st, 1)
+    assert ig.gemv_viable({**st, "layer": torch.zeros(1, dtype=torch.int32)},
+                          1)
+
+
+def _int8_decoder(L=2):
+    from cogstream_tpu_torch.config import Qwen2Config
+    from cogstream_tpu_torch.models import qwen2
+    from cogstream_tpu_torch.ops.quant import quantize_text_
+
+    cfg = Qwen2Config(vocab_size=256, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=L, num_attention_heads=4,
+                      num_key_value_heads=2, dtype="bfloat16")
+    model = qwen2.Qwen2Model(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    return cfg, quantize_text_(model, bits=8)
+
+
+@pytest.mark.parametrize("S,w8a8_prefill,k10", [
+    (1, False, True), (1, True, True), (20, False, True), (20, True, False),
+    (70, False, False)])
+def test_int8_decoder_routes_k10(lib, monkeypatch, S, w8a8_prefill, k10):
+    """A cached forward of an int8 decoder: K10 takes all 7 projections of
+    every layer (the stacked store + layer index) where m <= 64, unless
+    the JAX gate sends the step to the W8A8 product (w8a8_prefill at
+    S >= 16: ``_int_mm``, counted in ``quant.int8_mm.calls``); at m > 64
+    the plain form. The lm_head takes K10 at one row."""
+    import dataclasses
+
+    from cogstream_tpu_torch.models import qwen2
+    from cogstream_tpu_torch.ops import int8_gemv as ig
+    from cogstream_tpu_torch.ops import quant
+
+    L = 2
+    cfg, model = _int8_decoder(L)
+    monkeypatch.setattr(model, "cfg", dataclasses.replace(
+        cfg, w8a8_prefill=w8a8_prefill))
+    cache = qwen2.init_kv_cache(cfg, 1, 128, device="cpu")
+    n0 = ig.gemv_k10.launches
+    mm0 = quant.int8_mm.calls.get("decoder", 0)
+    emb = torch.zeros((1, S, 256), dtype=torch.bfloat16)
+    pos = torch.arange(S, dtype=torch.int32)[None]
+    h, _ = qwen2.qwen2_forward(model, emb, pos, cache)
+    assert lib.names().count("cs_int8_gemv") == (7 * L if k10 else 0)
+    assert ig.gemv_k10.launches - n0 == (7 * L if k10 else 0)
+    w8 = w8a8_prefill and S >= 16
+    assert quant.int8_mm.calls.get("decoder", 0) - mm0 == (7 * L if w8 else 0)
+    lib.calls.clear()
+    qwen2.lm_logits(model, h[:, -1:])
+    assert lib.names() == ["cs_int8_gemv"]

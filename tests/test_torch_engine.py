@@ -445,22 +445,38 @@ def test_run_eval_matches_jax(engines, scene_clip, tmp_path, mode):
     assert got == ref
 
 
-def test_process_rank_and_cli_refusals(tmp_path):
+def test_process_rank_and_cli_refusals(tmp_path, monkeypatch):
     """Without a process group the shard is (0, 1); the flags the port
-    cannot serve exit naming their ROADMAP queue item."""
+    cannot serve exit naming their ROADMAP queue item; the quantized
+    modes load as JAX's CLI loads them (``--w8a8-prefill`` needs
+    ``--quantize-weights``; int8 + w8a8_prefill + a W8A8 tower reach the
+    engine and the streaming sessions)."""
     from cogstream_tpu_torch.evaluate import answer_generate as tag
+    from cogstream_tpu_torch.models.checkpoint import save_cogreasoner_to_hf
+    from cogstream_tpu_torch.models.cogreasoner import init_cogreasoner_params
 
     assert tag.process_rank() == (0, 1)
     base = ["--model-dir", str(tmp_path), "--video-dir", str(tmp_path),
             "--query-dir", str(tmp_path), "--save-dir", str(tmp_path)]
-    for extra, queue in ((["--quantize-weights", "int8"], "#4"),
-                         (["--w8a8-prefill"], "#4"),
-                         (["--encoder-int8"], "#4"),
-                         (["--lookahead-k", "3"], "#5")):
-        with pytest.raises(SystemExit, match=queue):
-            tag.main(base + extra)
+    with pytest.raises(SystemExit, match="#5"):
+        tag.main(base + ["--lookahead-k", "3"])
     with pytest.raises(SystemExit, match="requires --quantize-weights int4"):
         tag.main(base + ["--w4a8-decode"])
+    with pytest.raises(SystemExit, match="requires --quantize-weights$"):
+        tag.main(base + ["--w8a8-prefill"])
+    cfg = TConfig.tiny()
+    save_cogreasoner_to_hf(init_cogreasoner_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu"), cfg,
+        str(tmp_path))
+    ran = []
+    monkeypatch.setattr(tag, "run_eval", lambda engine, *a, **k: ran.append(
+        (engine, k["session_factory"])))
+    tag.main(base + ["--quantize-weights", "int8", "--w8a8-prefill",
+                     "--encoder-int8", "--streaming", "--device", "cpu"])
+    engine, factory = ran[0]
+    for model in (engine.model, factory().model):
+        assert model.text.cfg.w8a8_prefill and model.vision.int8
+        assert model.text.int8["down_proj"].q.dtype == torch.int8
 
 
 def test_engine_refuses_unported_options(setup):
@@ -468,8 +484,9 @@ def test_engine_refuses_unported_options(setup):
     tok = TTok(image_token_id=1000)
     with pytest.raises(NotImplementedError, match="#9"):
         TEngine(model, tcfg, tok, mesh=object())
-    with pytest.raises(NotImplementedError, match="#4"):
-        TEngine(model, tcfg, tok, encoder_int8=True)
+    # encoder_int8 (once refused): the engine's own W8A8 tower
+    assert TEngine(model, tcfg, tok, encoder_int8=True).model.vision.int8
+    assert not model.vision.int8
     eng = TEngine(model, tcfg, tok)
     out = eng.processor([{"role": "user", "content": "hi"}])
     sel = eng.qa_selection(out, mode="AC")

@@ -240,17 +240,29 @@ def test_route_decision_matches_jax():
 
 
 def test_unported_schemes_raise():
-    w = torch.randn(128, 256)
-    group = {"q4": torch.zeros(64, 256, dtype=torch.int8),
-             "scale": torch.ones(2, 256)}
-    with pytest.raises(NotImplementedError, match="Queue 1 #4"):
-        tquant.int4_matmul(torch.randn(1, 128), group)
-    qp = tquant.quantize_int4_rank1(w, nf4=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 #4"):
-        tquant.int4_matmul(torch.randn(65, 128), qp, act_int8=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 #4"):
-        tquant.quantized_matmul(torch.randn(2, 128),
-                                tquant.quantize_int8(w), w8a8=True)
+    """The three products this test once held to NotImplementedError now
+    compute what the JAX package computes on the same operands: the
+    group-wise int4 matmul (its split-halves form), the W4A8 prefill
+    branch (uniform rank-1 at m > 64: int8 activations against the
+    unpacked nibbles) and the W8A8 int8 product. f32 rounding apart
+    (summation order; the W4A8 epilogue may fuse a multiply-add in XLA),
+    within 1e-5 of each row's max |ref|."""
+    rng = np.random.default_rng(11)
+    w = rng.standard_normal((128, 256)).astype(np.float32)
+    cases = [
+        (jquant.quantize_int4(jnp.asarray(w), group_size=32, nf4=False),
+         rng.standard_normal((1, 128)), False),
+        (jquant.quantize_int4_rank1(jnp.asarray(w), nf4=False),
+         rng.standard_normal((65, 128)), True),
+        (jquant.quantize_int8(jnp.asarray(w)), rng.standard_normal((2, 128)),
+         True)]
+    for qp, x, w8a8 in cases:
+        x = x.astype(np.float32)
+        ref = jquant.quantized_matmul(jnp.asarray(x), qp, jnp.float32,
+                                      w8a8=w8a8)
+        got = tquant.quantized_matmul(torch.from_numpy(x), _t(_np(qp)),
+                                      torch.float32, w8a8=w8a8)
+        _row_close(got.numpy(), ref, 1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -473,13 +485,25 @@ def test_int4_session_w4a8(monkeypatch):
 
 
 def test_w8a8_prefill_raises_at_session_construction():
-    cfg = TConfig.tiny()
-    cfg = dataclasses.replace(cfg, text=dataclasses.replace(
-        cfg.text, w8a8_prefill=True))
+    """A session built with w8a8_prefill, which once raised, now runs; on
+    a model whose decoder holds no quantized weights the flag changes
+    nothing (JAX's rule: it reaches quantized projections only), so its
+    answers equal the session's without the flag."""
     from cogstream_tpu_torch.models.cogreasoner import \
         init_cogreasoner_params as t_init
-    model = t_init(TConfig.tiny(), torch.Generator().manual_seed(0),
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #4"):
-        TSession(model, cfg, TTok(image_token_id=cfg.image_token_index),
-                 max_len=256)
+
+    base = TConfig.tiny()
+    flagged = dataclasses.replace(base, text=dataclasses.replace(
+        base.text, w8a8_prefill=True))
+    model = t_init(base, torch.Generator().manual_seed(0), device="cpu")
+    pv = np.random.default_rng(2).integers(0, 256, (3 * 4 * 4, 3 * 14 * 14),
+                                           dtype=np.uint8)
+    answers = []
+    for cfg in (base, flagged):
+        sess = TSession(model, cfg, TTok(image_token_id=cfg.image_token_index),
+                        max_len=512)
+        sess.append_stream_segment(pv, (3, 4, 4), 2,
+                                   timestamps=[0.0, 1.0, 2.0])
+        answers.append(sess.ask("what?", mode="AC", max_new_tokens=4))
+    assert answers[0]["tokens"] == answers[1]["tokens"]
+    assert answers[0]["text"] == answers[1]["text"]

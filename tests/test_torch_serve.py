@@ -306,8 +306,15 @@ def test_ingest_frame_dir_and_worker_error(setup, clip, tmp_path,
 
 
 def test_server_refuses_unported_options(setup):
-    with pytest.raises(NotImplementedError, match="#4"):
-        _server(setup, encoder_int8=True)
+    """Options of other queue items still raise naming their item;
+    ``encoder_int8`` (once refused) builds ONE W8A8 copy of the tower that
+    the solo sessions and the pool share, and leaves the model's own."""
+    _, _, _, model = setup
+    server = _server(setup, encoder_int8=True, pool_rows=2, max_len=512)
+    sess = server._mk()
+    assert sess.model.vision.int8 and server.pool.model.vision is \
+        sess.model.vision
+    assert not model.vision.int8
     with pytest.raises(NotImplementedError, match="#5"):
         _server(setup, lookahead_k=2)
     with pytest.raises(NotImplementedError, match="#9"):
@@ -319,10 +326,17 @@ def test_server_refuses_unported_options(setup):
                     kv_dtype=torch.float8_e4m3fn)
 
 
-def test_serve_cli(tmp_path, capsys):
+def test_serve_cli(tmp_path, capsys, monkeypatch):
     """``serve`` left the unported list: ``--help`` prints its options,
-    and the flags the port cannot serve exit naming their queue item."""
+    the flags the port cannot serve exit naming their queue item, and the
+    quantized modes load as JAX's CLI loads them: ``--w8a8-prefill``
+    needs ``--quantize-weights``; ``--quantize-weights int8 --w8a8-prefill
+    --encoder-int8`` serves an int8 decoder under w8a8_prefill with a
+    W8A8 tower."""
     from cogstream_tpu_torch import __main__ as tmain
+    from cogstream_tpu_torch.models.checkpoint import save_cogreasoner_to_hf
+    from cogstream_tpu_torch.models.cogreasoner import init_cogreasoner_params
+    from cogstream_tpu_torch.runtime import serve as serve_mod
 
     assert "serve" not in tmain.NOT_PORTED
     with pytest.raises(SystemExit) as e:
@@ -331,11 +345,22 @@ def test_serve_cli(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "--pool-rows" in out and "--auto-snapshot-dir" in out
     base = ["serve", "--model-dir", str(tmp_path)]
-    for extra, item in ((["--quantize-weights", "int8"], "#4"),
-                        (["--w8a8-prefill"], "#4"),
-                        (["--encoder-int8"], "#4"),
-                        (["--supervise"], "#2")):
-        with pytest.raises(SystemExit, match=item):
-            tmain.main(base + extra)
+    with pytest.raises(SystemExit, match="#2"):
+        tmain.main(base + ["--supervise"])
     with pytest.raises(SystemExit, match="requires --quantize-weights int4"):
         tmain.main(base + ["--w4a8-decode"])
+    with pytest.raises(SystemExit, match="requires --quantize-weights$"):
+        tmain.main(base + ["--w8a8-prefill"])
+    cfg = TConfig.tiny()
+    save_cogreasoner_to_hf(init_cogreasoner_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu"), cfg,
+        str(tmp_path))
+    served = []
+    monkeypatch.setattr(serve_mod, "serve",
+                        lambda server, *a, **k: served.append(server))
+    tmain.main(base + ["--quantize-weights", "int8", "--w8a8-prefill",
+                       "--encoder-int8", "--device", "cpu"])
+    sess = served[0]._mk()
+    assert sess.model.text.cfg.w8a8_prefill
+    assert sess.model.text.int8["gate_proj"].q.dtype == torch.int8
+    assert sess.model.vision.int8
