@@ -33,7 +33,10 @@ Phases (each prints one line or a few; any failure exits non-zero):
    from CUDA graphs; K4's two calls must be bit-identical and one call
    captured in a graph, replayed after its q / eff were rewritten, must
    equal the eager call; K4 also runs a verify step (S = 8). Pad rows
-   and fully masked rows must be exactly 0. Then pooled addressing: K3
+   and fully masked rows must be exactly 0. Lookahead's verify steps (S
+   = k+1 queries at consecutive positions, their own slots live): K4 at
+   S = 5 and 8, K3 at S = 9, each within the per-row bound and timed
+   beside its bytes bound and S = 1's. Then pooled addressing: K3
    (the 4384-token prefill) and K4 (S = 1 and 8) read rows [2] and
    [3, 1] of a [4, 9216, 4, 128] pool cache through ``rows``, each call
    bit-identical to the kernel on a contiguous copy of those rows and
@@ -50,14 +53,27 @@ Phases (each prints one line or a few; any failure exits non-zero):
    (one with a pooling plan; the tower runs K5 on the card), losses and
    updated adapters held to the CPU's. A tiny 3-row ``SessionPool``
    (ingest_batch, ask_batch AC then FCC, a solo ask, ask_stream) on the
-   card and the CPU: the same tokens, selections, ranges, positions;
+   card and the CPU: the same tokens, selections, ranges, positions. The
+   tiny f32 dialogue with lookahead_k = 2 (K4 verifies) and 8 (K3
+   verifies) on the card and the CPU: the same tokens and verify steps;
+   on the card the vanilla dialogue's tokens, and its cache wherever
+   pos >= 0;
 5. main path — a 7B-width ``StreamingSession`` (cogreasoner_7b, bf16,
    random weights from a seeded generator, 16384-slot cache) ingests two
    16-frame segments (24x42 patch grids, merge 2, seeded uint8 patch
    rows) and answers ask(AC) and ask(FCC); K1-K4's launch counts must
    rise during this phase, every one of K1's, K3's and K4's launches on
    its tensor-core kernel (K4: one launch per call, no combine pass),
-   every output must be finite and the slot ranges ordered and disjoint;
+   every output must be finite and the slot ranges ordered and disjoint.
+   Lookahead: (a) the session is saved after its FCC turn and asks a
+   third question four times from that state, in turns: vanilla,
+   lookahead_k=4 twice, vanilla (lookahead tokens equal up to the first
+   step whose vanilla top-1 / top-2 logit gap is within 2 bf16 ulps;
+   steps, accepted-draft rate, decode tok/s and the step split);
+   (b) on a 512-token prompt, the vanilla loop's 71 greedy tokens are the
+   teacher of ``generate_tokens_lookahead`` with fixed_accept 0, 2, 4 at
+   k = 4 and 7 at k = 7 (steps, wall, tok/s under the same rule), and a
+   verify step's cost (S = 5, 8) beside a decode step's;
 8. engine (runs on the phase-5 model, before phases 7 and 6) — the
    evaluation entry point at full width and depth: the host decoders
    are probed (Pillow, OpenCV, ffmpeg), a seeded 150-frame video of ten
@@ -107,7 +123,9 @@ Phases (each prints one line or a few; any failure exits non-zero):
    and FCC (32 tokens): K10 launches in every mode, ``torch._int_mm`` in
    the decoder only under w8a8_prefill and in the tower only under
    encoder_int8, no decode step dequantizes an int8 weight, every K1 /
-   K3 / K4 launch on its tensor-core kernel; (c) evaluate/quant_quality
+   K3 / K4 launch on its tensor-core kernel; the off/off session asks
+   once more with lookahead_k=4 (K10 launches at m = 5, steps, tok/s, no
+   dequantization); (c) evaluate/quant_quality
    at full width and depth, bf16 the truth: int8, int8 + W8A8, int4u,
    int4c and nf4 by logit MAE, KL, top-1 agreement over 128 probe tokens
    and greedy prefix agreement over 32 tokens, one scheme resident at a
@@ -121,12 +139,14 @@ Phases (each prints one line or a few; any failure exits non-zero):
    split into m = 1 (decode) and 1 < m <= 64 (question prefills), whose
    wall times are printed with the asks'. A third session runs
    w8a8_prefill: its segment prefill must take the W4A8 prefill branch
-   (``torch._int_mm`` on the nibbles) and its question prefills K9.
+   (``torch._int_mm`` on the nibbles) and its question prefills K9. The
+   w4a8_decode session asks once more with lookahead_k=4 (K8 / K9
+   launches at m = 5, steps, tok/s).
 
-With ``--profile`` it runs torch.profiler over one more ingest and two
-asks on the phase-5 session, and over one more step of each training
-stage in phase 7, and prints each one's device busy share and its
-kernels by device time.
+With ``--profile`` it runs torch.profiler over one more ingest and three
+asks (the last with lookahead_k=4) on the phase-5 session, and over one
+more step of each training stage in phase 7, and prints each one's
+device busy share and its kernels by device time.
 
 It then prints the kernels JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``. It runs on the first visible card
@@ -623,6 +643,47 @@ def check_kernels(dev):
         f"{k4_8_ms:.4f} ms")
     if not ratio8 <= 1.0 or not pad8:
         raise AssertionError("K4 at S=8 disagrees with its plain version")
+    # lookahead verify steps: S = k+1 queries at consecutive positions
+    # after the 9000 history slots, their own slots live (each sees the
+    # step's slots up to its own): K4 at S = 5 and 8 (k = 4, 7), K3 at S =
+    # 9 (k = 8, past DECODE_MAX_S), beside the S = 1 step above
+    verify = {"S=1": {"kernel": "K4", "ms": k4_ms, "bound_ms": k4_bound[0],
+                      "bound_by": k4_bound[1]}}
+    for Sv in (5, 8, 9):
+        pos = np.full((1, T), -1, np.int32)
+        pos[0, :fill + Sv] = np.arange(fill + Sv)
+        pos[0, rng.choice(fill, 300, replace=False)] = -1
+        effv = lma.effective_kv_positions(dev_t(pos, torch.int32),
+                                          dev_t(allowed, torch.bool))
+        effv = effv[:, :W].contiguous()
+        qv = dev_t(rng.standard_normal((1, Sv, Hq, Dl)), bf)
+        qpv = dev_t(np.arange(fill, fill + Sv)[None], torch.int32)
+        k4_route = Sv <= lma.DECODE_MAX_S
+        fn = lma.decode_attention if k4_route else lma.prefill_flash_attention
+        t0 = fn.tc_launches
+        gotv = fn(qv, k, v, qpv, effv)
+        on_tc = fn.tc_launches == t0 + 1
+        errv, ratiov = row_check(gotv, lma.gqa_attention_plain(
+            qv, k, v, qpv, effv), Dl)
+        # K4 from a CUDA graph (capture-safe); K3 allocates its tile
+        # metadata per call, so it is event-timed (host enqueue included)
+        msv = (graph_ms(lambda: fn(qv, k, v, qpv, effv), 20) if k4_route
+               else cuda_ms(lambda: fn(qv, k, v, qpv, effv), 20))
+        seen = int((effv[0] < lma.SENTINEL).sum().item())
+        bv = bound_ms(nbytes(qv, qpv, effv, gotv) + 2 * seen * kv_row,
+                      4 * Hq * Dl * visible_pairs(qpv, effv))
+        name = "K4" if k4_route else "K3"
+        verify[f"S={Sv}"] = {"kernel": name, "ms": msv, "bound_ms": bv[0],
+                             "bound_by": bv[1], "max_abs_err": errv}
+        log(f"kernel {name} verify step S={Sv} (lookahead k={Sv - 1}) over "
+            f"a {W}-slot window: max_abs_err={errv:.6g}, worst row at "
+            f"{ratiov:.3g} of its bound; tensor-core kernel {on_tc}; "
+            f"{msv:.4f} ms ({'graph' if k4_route else 'event'} ms), bound "
+            f"{bv[0]:.4f} ms ({bv[1]}); S=1: {k4_ms:.4f} ms, bound "
+            f"{k4_bound[0]:.4f} ms")
+        if not ratiov <= 1.0 or not on_tc:
+            raise AssertionError(f"{name} at the verify step S={Sv} "
+                                 "disagrees with its plain version")
     del k, v, q, q1, q8, got, ref
 
     # K5: the training tower's head-major attention — 16 aligned frames
@@ -674,7 +735,7 @@ def check_kernels(dev):
     if not k5_ms < k5_lib:
         raise AssertionError(f"K5 ({k5_ms:.4f} ms) is not faster than the "
                              f"library call ({k5_lib:.4f} ms)")
-    return results
+    return results, verify
 
 
 def _int4_store(rng, dev, shape, cubic=False):
@@ -1157,6 +1218,107 @@ def check_reference(dev):
                              "plain versions on the CPU")
 
 
+def run_tiny_lookahead(model, cfg, device, k: int):
+    """The tiny two-turn dialogue (AC, FCC; 16 greedy tokens a turn) with
+    ``lookahead_k=k`` on ``device`` (k = 0: the vanilla decoder). Returns
+    ([(tokens, verify steps)] per turn, the session, the forwards' token
+    counts on ``device``)."""
+    from cogstream_tpu_torch.models import qwen2
+    from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
+    from cogstream_tpu_torch.runtime import session as sess_mod
+
+    tok = ByteTokenizer(image_token_id=cfg.image_token_index)
+    sess = sess_mod.StreamingSession(model.to(device), cfg, tok,
+                                     max_len=2048)
+    rng = np.random.default_rng(0)
+    t, gh, gw = 3, 4, 4
+    pv = rng.integers(0, 256, (t * gh * gw, 3 * 14 * 14), dtype=np.uint8)
+    fwd, la, sizes, inside = (qwen2.qwen2_forward,
+                              sess_mod.generate_tokens_lookahead, [], [])
+
+    def counted(text, embeds, *a, **kw):
+        if inside:        # the lookahead decoder's forwards only
+            sizes.append(embeds.shape[1])
+        return fwd(text, embeds, *a, **kw)
+
+    def lookahead(*a, **kw):
+        inside.append(1)
+        try:
+            return la(*a, **kw)
+        finally:
+            inside.pop()
+
+    qwen2.qwen2_forward = counted
+    sess_mod.generate_tokens_lookahead = lookahead
+    out = []
+    try:
+        for stamps, q, mode in (([0.0, 1.0, 2.0], "what is happening?",
+                                 "AC"),
+                                ([3.0, 4.0, 5.0], "and now?", "FCC")):
+            sess.append_stream_segment(pv, (t, gh, gw), 2, timestamps=stamps)
+            r = sess.ask(q, mode=mode, max_new_tokens=16, lookahead_k=k)
+            out.append((r["tokens"], sess.last_lookahead_steps if k else 0))
+    finally:
+        qwen2.qwen2_forward = fwd
+        sess_mod.generate_tokens_lookahead = la
+    return out, sess, sizes
+
+
+def check_reference_lookahead(dev):
+    """Phase 4, lookahead: the tiny f32 dialogue with lookahead_k = 2 (K4
+    verifies, S = 3) and 8 (K3 verifies, S = 9) on the card and on the
+    CPU: the same tokens and verify steps each turn; on the card the
+    tokens equal the same dialogue's vanilla greedy ones, and the cache
+    equals the vanilla cache wherever pos >= 0 (positions and write index
+    exact, K/V within 1e-4: f32, another summation order)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from cogstream_tpu_torch.config import CogReasonerConfig, CompressionConfig
+    from cogstream_tpu_torch.models.cogreasoner import init_cogreasoner_params
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    cfg = dataclasses.replace(
+        CogReasonerConfig.tiny(),
+        compression=CompressionConfig(frames_per_event=3,
+                                      keyframes_per_event=1))
+    cpu_model = init_cogreasoner_params(cfg, torch.Generator().manual_seed(0),
+                                        device="cpu")
+    gpu_model = copy.deepcopy(cpu_model)
+    van, van_sess, _ = run_tiny_lookahead(gpu_model, cfg, dev, 0)
+    L = cfg.text.num_hidden_layers
+    for k in (2, 8):
+        ref, _, _ = run_tiny_lookahead(cpu_model, cfg, "cpu", k)
+        n0 = (lma.decode_attention.launches,
+              lma.prefill_flash_attention.launches)
+        got, sess, sizes = run_tiny_lookahead(gpu_model, cfg, dev, k)
+        k4 = lma.decode_attention.launches - n0[0]
+        k3 = lma.prefill_flash_attention.launches - n0[1]
+        steps = sum(n for _, n in got)
+        verifies = sizes.count(k + 1)
+        live = sess.cache.pos[0] >= 0
+        same_pos = bool(torch.equal(sess.cache.pos, van_sess.cache.pos)) \
+            and sess.write_index == van_sess.write_index
+        err = max((a[:, :, live] - b[:, :, live]).abs().max().item()
+                  for a, b in ((sess.cache.k, van_sess.cache.k),
+                               (sess.cache.v, van_sess.cache.v)))
+        tokens_vanilla = [t for t, _ in got] == [t for t, _ in van]
+        log(f"reference lookahead k={k}: tiny dialogue (tokens, steps) "
+            f"{got} vs cpu {ref}; tokens equal the vanilla dialogue's "
+            f"{tokens_vanilla}; cache positions and write index equal "
+            f"{same_pos}, live K/V max_abs_err {err:.3g}; {verifies} verify "
+            f"forwards (S={k + 1}); card launches K3 {k3}, K4 {k4}")
+        verify_launches = k4 if k + 1 <= lma.DECODE_MAX_S else k3
+        if got != ref or not tokens_vanilla or not same_pos \
+                or not err <= 1e-4 or verifies != steps or steps == 0 \
+                or verify_launches < L * verifies:
+            raise AssertionError(f"tiny lookahead dialogue (k={k}) on the "
+                                 "card disagrees with the CPU or with the "
+                                 "vanilla decoder")
+
+
 def run_tiny_pool(model, cfg, device):
     """A tiny 3-row SessionPool on ``device``: one ingest_batch tick,
     ask_batch AC then FCC on every row, a solo ask on row 1, ask_stream
@@ -1537,12 +1699,23 @@ class PhaseTimer:
             return float("nan")
         return (len(starts) - 1) / (starts[-1] - starts[0])
 
-    def step_split(self, since: int) -> str:
-        """A decode step's wall, split into the forward, the lm_head
-        logits and the rest of the loop between two forwards (sampling,
-        the done check, the next embedding): means in ms over the steps
-        after ``since``."""
-        dec = [(t0, t1) for S, t0, t1 in self.forwards[since:] if S == 1]
+    def gen_rate(self, since: int, S_step: int, tokens: int,
+                 t_end: float) -> float:
+        """Decode tok/s: ``tokens`` (those after the first) over the wall
+        from the start of the first ``S_step``-token forward after
+        ``since`` (1: vanilla steps; k+1: lookahead verifies) to
+        ``t_end``."""
+        starts = [t0 for S, t0, _ in self.forwards[since:] if S == S_step]
+        return tokens / (t_end - starts[0]) if starts else float("nan")
+
+    def step_split(self, since: int, S_step: int = 1) -> str:
+        """A decode step's wall (or a lookahead verify's, ``S_step`` =
+        k+1), split into the forward, the lm_head logits and the rest of
+        the loop between two forwards (sampling or the host's draft and
+        accept, the done check, the next embedding): means in ms over the
+        steps after ``since``."""
+        dec = [(t0, t1) for S, t0, t1 in self.forwards[since:]
+               if S == S_step]
         if len(dec) < 2:
             return "no decode steps"
         fwd = lg = rest = 0.0
@@ -1554,6 +1727,233 @@ class PhaseTimer:
         return (f"step {1e3 * (dec[-1][0] - dec[0][0]) / n:.2f} ms = forward "
                 f"{1e3 * fwd / n:.2f} + logits {1e3 * lg / n:.2f} + rest "
                 f"{1e3 * rest / n:.2f}")
+
+
+class LogitGaps:
+    """The top-1 logit and its gap to the top-2 of the last row of every
+    ``lm_logits`` call while installed, kept on the device and fetched
+    once by ``read`` (instrumentation of this script only)."""
+
+    def __init__(self):
+        import torch
+
+        from cogstream_tpu_torch.models import qwen2
+
+        self.tops = []
+        head = qwen2.lm_logits
+
+        def spy(*a, **k):
+            out = head(*a, **k)
+            self.tops.append(torch.topk(out[0, -1].float(), 2).values)
+            return out
+
+        qwen2.lm_logits = spy
+        self.restore = lambda: setattr(qwen2, "lm_logits", head)
+
+    def read(self):
+        import torch
+
+        return [(a, a - b) for a, b in torch.stack(self.tops).cpu().tolist()]
+
+
+def gap_rule(ref, got, tops):
+    """Greedy tokens ``got`` held to ``ref`` (bf16 GEMMs at m = k+1 and at
+    m = 1 may round differently): equal up to the first step whose top-1 /
+    top-2 logit gap in the run that made ``ref`` (``tops``, LogitGaps) is
+    within 2 bf16 ulps of its top-1 logit; from there they may part.
+    Returns (ok, that step or None, its gap, the leading agreement)."""
+    close = next((i for i, (top, gap) in enumerate(tops[:len(ref)])
+                  if gap <= 2 * 2.0 ** (math.floor(math.log2(
+                      max(abs(top), 1e-30))) - 7)), None)
+    agree = next((i for i, (a, b) in enumerate(zip(ref, got)) if a != b),
+                 min(len(ref), len(got)))
+    ok = ref == got if close is None else agree >= close
+    return ok, close, None if close is None else tops[close][1], agree
+
+
+def parting_gap(tops, agree: int, n: int) -> str:
+    """The reference run's top-1 / top-2 logit gap and top-1 at the step
+    where two greedy sequences of ``n`` tokens first differ (or 'none')."""
+    if agree >= min(n, len(tops)):
+        return "none"
+    top, gap = tops[agree]
+    return f"gap {gap:.6g} at top-1 {top:.6g}"
+
+
+LA_QUESTION = "Describe the last frame in detail."
+
+
+def session_lookahead(sess, timer, stamp):
+    """Phase 5 (a): the session after its FCC turn is saved, then asks a
+    third question (AC, 32 tokens) four times from that state, restored
+    before each: vanilla, lookahead_k=4, lookahead_k=4, vanilla (in turns,
+    so each side has a neighbour from the same minute of the shared
+    host). The lookahead tokens are held to the first vanilla ask's under
+    :func:`gap_rule`, the second vanilla ask to the first exactly; prints
+    the agreement, verify steps, the accepted-draft rate (random weights
+    decide it), each ask's decode tok/s and its step split."""
+    import torch
+
+    snap = os.path.join(REPO, "build", "chip_smoke_lookahead.npz")
+    os.makedirs(os.path.dirname(snap), exist_ok=True)
+    k, n_new = 4, 32
+    runs = []
+    try:
+        sess.save(snap)
+        for i, la_k in enumerate((0, k, k, 0)):
+            if i:
+                sess.load_state(snap)
+            gaps = LogitGaps() if i == 0 else None
+            mark = timer.mark()
+            t0 = time.perf_counter()
+            try:
+                r = sess.ask(LA_QUESTION, mode="AC", max_new_tokens=n_new,
+                             lookahead_k=la_k)
+                torch.cuda.synchronize()
+            finally:
+                if gaps is not None:
+                    gaps.restore()
+            t1 = time.perf_counter()
+            S_step = la_k + 1
+            runs.append({
+                "k": la_k, "tokens": r["tokens"], "turn_s": t1 - t0,
+                "tok_per_s": timer.gen_rate(mark, S_step,
+                                            len(r["tokens"]) - 1, t1),
+                "split": timer.step_split(mark, S_step),
+                "steps": sess.last_lookahead_steps if la_k else None})
+            if i == 0:
+                tops = gaps.read()
+    finally:
+        if os.path.exists(snap):
+            os.remove(snap)
+    van = runs[0]["tokens"]
+    ok = runs[3]["tokens"] == van
+    for r in runs:
+        kind = f"lookahead k={r['k']}" if r["k"] else "vanilla"
+        log(f"main: third ask ({kind}): turn {r['turn_s']:.3f}s, decode "
+            f"{r['tok_per_s']:.1f} tok/s; {r['split']} [{stamp}]")
+    for r in runs[1:3]:
+        n, steps = len(r["tokens"]), r["steps"]
+        accepted = n - 1 - steps
+        good, close, gap, agree = gap_rule(van, r["tokens"], tops)
+        ok = ok and good and steps >= 1
+        log(f"main: lookahead ask (AC, k={k}, restored): {n} tokens in "
+            f"{steps} verify steps, {accepted} drafts accepted of "
+            f"{steps * k} ({accepted / (steps * k):.3f}, random weights); "
+            f"tokens agree with the vanilla ask's for {agree} of {len(van)}"
+            f" (where they part: "
+            f"{parting_gap(tops, agree, min(n, len(van)))}), first step "
+            f"with a top-1/top-2 gap within 2 bf16 ulps: {close} (gap "
+            f"{gap}) [{stamp}]")
+    if not ok:
+        raise AssertionError("the lookahead ask departs from the vanilla "
+                             "greedy tokens before a close logit gap, or "
+                             "the vanilla ask is not reproducible")
+    la = runs[1]
+    return {"la_steps": la["steps"], "la_tokens": len(la["tokens"]),
+            "la_accept_rate": (len(la["tokens"]) - 1 - la["steps"])
+            / (la["steps"] * k),
+            "la_decode_tok_per_s": [r["tok_per_s"] for r in runs[1:3]],
+            "la_vanilla_decode_tok_per_s": [runs[0]["tok_per_s"],
+                                            runs[3]["tok_per_s"]],
+            "la_turn_s": [r["turn_s"] for r in runs[1:3]],
+            "la_vanilla_turn_s": [runs[0]["turn_s"], runs[3]["turn_s"]]}
+
+
+def run_lookahead_schedule(text, dev, stamp):
+    """Phase 5 (b): a fixed acceptance schedule on the 7B-width decoder. A
+    seeded 512-token prompt in a fresh 1024-slot cache; its vanilla greedy
+    71 tokens (eos_id=-1) are the teacher. ``generate_tokens_lookahead``
+    with ``fixed_draft`` = teacher and ``fixed_accept`` 0, 2, 4 at k = 4
+    and 7 at k = 7 emits 64 tokens, held to the teacher under
+    :func:`gap_rule`: steps, wall s and decode tok/s beside the vanilla
+    loop's, in two rounds taken in turns; then one verify step's cost (S
+    = 5, 8) beside a decode step's on the same cache."""
+    import torch
+
+    from cogstream_tpu_torch.models import qwen2
+    from cogstream_tpu_torch.runtime.generate import (
+        generate_tokens, generate_tokens_lookahead)
+
+    cfg = text.cfg
+    rng = np.random.default_rng(11)
+    S, n_new, slots = 512, 64, 1024
+    ids = rng.integers(0, cfg.vocab_size, (1, S))
+    emb = qwen2.embed(text, torch.as_tensor(ids, device=dev))
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    last = torch.tensor([S - 1], device=dev)
+
+    def cache():
+        return qwen2.init_kv_cache(cfg, 1, slots, dtype=text.dtype,
+                                   device=dev)
+
+    def vanilla():
+        mark = timer.mark()
+        t0 = time.perf_counter()
+        base = generate_tokens(text, emb, pos, last, cache(), None,
+                               n_new + 7, -1)
+        teacher = base.tokens[0].cpu()
+        t1 = time.perf_counter()
+        return teacher, t1 - t0, timer.gen_rate(mark, 1, n_new + 6, t1)
+
+    timer = PhaseTimer()
+    metrics = {}
+    try:
+        gaps = LogitGaps()
+        try:
+            teacher, _, _ = vanilla()     # the teacher and its logit gaps
+        finally:
+            gaps.restore()
+        tops = gaps.read()
+        ref = teacher[:n_new].tolist()
+        # two rounds in turns (vanilla, then each schedule), so each rate
+        # has a neighbour from the same minute of the shared host
+        for rnd in (1, 2):
+            again, wall, van_rate = vanilla()
+            log(f"lookahead schedule, round {rnd}: vanilla loop {n_new + 7} "
+                f"tokens after a {S}-token prompt in {wall:.3f}s, decode "
+                f"{van_rate:.1f} tok/s; same tokens as the teacher "
+                f"{bool(torch.equal(again, teacher))} [{stamp}]")
+            metrics.setdefault("la_sched_vanilla_tok_per_s", []).append(
+                van_rate)
+            for k, acc in ((4, 0), (4, 2), (4, 4), (7, 7)):
+                mark = timer.mark()
+                t0 = time.perf_counter()
+                r = generate_tokens_lookahead(
+                    text, emb, pos, last, cache(), ids, n_new, -1,
+                    lookahead_k=k, fixed_draft=teacher, fixed_accept=acc)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                rate = timer.gen_rate(mark, k + 1, n_new - 1, t1)
+                ok, close, gap, agree = gap_rule(ref, r.tokens[0].tolist(),
+                                                 tops)
+                want = -(-(n_new - 1) // (acc + 1))
+                log(f"lookahead schedule, round {rnd}, k={k} fixed_accept="
+                    f"{acc}: {r.steps} verify steps (schedule {want}), "
+                    f"{t1 - t0:.3f}s, decode {rate:.1f} tok/s vs vanilla "
+                    f"{van_rate:.1f} ({rate / van_rate:.2f}x); tokens agree "
+                    f"with the teacher for {agree} of {n_new} (where they "
+                    f"part: {parting_gap(tops, agree, n_new)}), first "
+                    f"close gap "
+                    f"step {close} (gap {gap}) [{stamp}]")
+                m = metrics.setdefault(f"la_sched_k{k}_a{acc}", {
+                    "steps": [], "wall_s": [], "tok_per_s": []})
+                for key, val in (("steps", r.steps), ("wall_s", t1 - t0),
+                                 ("tok_per_s", rate)):
+                    m[key].append(val)
+                if not ok:
+                    raise AssertionError("fixed-schedule lookahead departs "
+                                         "from the teacher before a close "
+                                         "logit gap")
+    finally:
+        timer.restore()
+    for tokens in (1, 5, 8):
+        n, dev_ms, wall_ms, _ = decode_step_cost(
+            text, "bf16", stamp, tokens=tokens, head_rows=tokens,
+            slots=slots, fill=S + n_new)
+        metrics[f"la_step_S{tokens}"] = {"launches": n, "device_ms": dev_ms,
+                                         "wall_ms": wall_ms}
+    return metrics
 
 
 def run_main_path(dev, stamp):
@@ -1648,6 +2048,7 @@ def run_main_path(dev, stamp):
             raise AssertionError(f"bad answer tokens {toks}")
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t_main
+    metrics.update(session_lookahead(sess, timer, stamp))
     launches = [wrapper(i).launches for i in BF16_PATH]
     tc_launches = {KERNELS[i][0]: wrapper(i).tc_launches for i in TC_PATH}
     timer.restore()
@@ -1680,30 +2081,36 @@ def run_main_path(dev, stamp):
 
 
 def decode_step_cost(text, label: str, stamp: str, steps: int = 10,
-                     tokens: int = 1):
+                     tokens: int = 1, head_rows: int = 1, slots: int = 64,
+                     fill: int = 0):
     """One decode step (a ``tokens``-token cached forward plus the
-    full-vocab logits; 1 token, or a question prefill's few dozen) on a
-    small scratch cache: its kernel launches and summed kernel device
-    time from torch.profiler (its five largest kernels are printed, and
-    the GEMVs' share: int4 K6-K9, int8 K10), and its host wall ms from a
-    synchronized clock over ``steps`` unprofiled steps. Returns
-    (launches, device ms, wall ms, GEMV device ms)."""
+    full-vocab logits of its last ``head_rows`` rows; 1 token, a
+    lookahead verify's k+1 with all k+1 rows, or a question prefill's few
+    dozen) on a scratch cache of at least ``slots`` slots whose first
+    ``fill`` hold history positions (zero K/V): its kernel launches and
+    summed kernel device time from torch.profiler (its five largest
+    kernels are printed, and the GEMVs' share: int4 K6-K9, int8 K10), and
+    its host wall ms from a synchronized clock over ``steps`` unprofiled
+    steps. Returns (launches, device ms, wall ms, GEMV device ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from cogstream_tpu_torch.models import qwen2
 
     cfg = text.cfg
-    cache = qwen2.init_kv_cache(cfg, 1, max(64, tokens * (steps + 2)),
-                                dtype=text.dtype, device=text.device)
+    cache = qwen2.init_kv_cache(
+        cfg, 1, max(slots, fill + tokens * (steps + 2)), dtype=text.dtype,
+        device=text.device)
+    cache.pos[:, :fill] = torch.arange(fill, dtype=torch.int32)
+    cache.write_index = fill
     emb = torch.zeros((1, tokens, cfg.hidden_size), dtype=text.dtype,
                       device=text.device)
 
     def step(i):
-        pos = torch.arange(i * tokens, (i + 1) * tokens, dtype=torch.int32,
-                           device=text.device)[None]
+        pos = torch.arange(fill + i * tokens, fill + (i + 1) * tokens,
+                           dtype=torch.int32, device=text.device)[None]
         h, _ = qwen2.qwen2_forward(text, emb, pos, cache)
-        qwen2.lm_logits(text, h[:, -1:], w8a8=cfg.w4a8_decode)
+        qwen2.lm_logits(text, h[:, -head_rows:], w8a8=cfg.w4a8_decode)
 
     step(0)
     torch.cuda.synchronize()
@@ -1724,10 +2131,12 @@ def decode_step_cost(text, label: str, stamp: str, steps: int = 10,
     top = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms "
                     f"x{e.count}" for e in sorted(
                         kern, key=lambda e: -e.self_device_time_total)[:5])
-    log(f"{'decode step' if tokens == 1 else f'{tokens}-token prefill'} "
-        f"({label}): {n} launches, device {dev_ms:.2f} ms (GEMVs "
-        f"{gemv_ms:.2f}), wall {wall_ms:.2f} ms (busy "
-        f"{dev_ms / wall_ms:.3f}); largest: {top} [{stamp}]")
+    what = ("decode step" if tokens == 1 else f"verify step S={tokens}"
+            if head_rows == tokens else f"{tokens}-token prefill")
+    log(f"{what} ({label}, {cache.max_len}-slot cache, {fill} filled): {n}"
+        f" launches, device {dev_ms:.2f} ms (GEMVs {gemv_ms:.2f}), wall "
+        f"{wall_ms:.2f} ms (busy {dev_ms / wall_ms:.3f}); largest: {top} "
+        f"[{stamp}]")
     return n, dev_ms, wall_ms, gemv_ms
 
 
@@ -2769,6 +3178,69 @@ class DequantSpy:
             setattr(qwen2, "lm_logits", head))
 
 
+class GemvRows:
+    """Launches of K8, K9 and K10 by the rows m of each call, while
+    installed (instrumentation of this script only). Each spy shares its
+    wrapper's attribute dict, so the wrapper's own counts, which it bumps
+    through its module-level name, stay whole."""
+
+    def __init__(self):
+        from cogstream_tpu_torch.ops import int8_gemv, quant_gemv
+
+        self.by_m = {}
+        self._undo = []
+        for mod, name in ((quant_gemv, "gemv_k8"), (quant_gemv, "gemv_k9"),
+                          (int8_gemv, "gemv_k10")):
+            fn = getattr(mod, name)
+
+            def spy(x, *a, _fn=fn, _name=name[5:].upper(), **k):
+                n0 = _fn.launches
+                out = _fn(x, *a, **k)
+                if _fn.launches > n0:
+                    key = f"{_name} m={x.shape[0]}"
+                    self.by_m[key] = self.by_m.get(key, 0) + 1
+                return out
+
+            spy.__dict__ = fn.__dict__
+            setattr(mod, name, spy)
+            self._undo.append((mod, name, fn))
+
+    def restore(self):
+        for mod, name, fn in self._undo:
+            setattr(mod, name, fn)
+
+
+def quantized_lookahead_ask(sess, label: str, stamp: str, k: int = 4):
+    """Phases 6 and 10: one AC ask (32 tokens) with ``lookahead_k=k`` on a
+    quantized session: the verify steps' GEMV launches at m = k+1, the
+    steps and the decode tok/s."""
+    import torch
+
+    timer = PhaseTimer()
+    rows = GemvRows()
+    try:
+        mark = timer.mark()
+        r = sess.ask(LA_QUESTION, mode="AC", max_new_tokens=32,
+                     lookahead_k=k)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    finally:
+        rows.restore()
+        timer.restore()
+    n, steps = len(r["tokens"]), sess.last_lookahead_steps
+    rate = timer.gen_rate(mark, k + 1, n - 1, t_end)
+    at_m = {key: c for key, c in rows.by_m.items()
+            if key.endswith(f"m={k + 1}")}
+    log(f"{label} lookahead ask (AC, k={k}): {n} tokens in {steps} verify "
+        f"steps ({(n - 1 - steps) / (steps * k):.3f} of drafts accepted, "
+        f"random weights), decode {rate:.1f} tok/s; GEMV launches at m = "
+        f"{k + 1}: {at_m}; all by m {rows.by_m} [{stamp}]")
+    if not steps or not at_m:
+        raise AssertionError(f"{label} lookahead ask ran no verify GEMV")
+    return {"steps": steps, "tokens": n, "decode_tok_per_s": rate,
+            "launches_at_m": at_m}
+
+
 def run_int8_path(model, dev, stamp):
     """Phase 10, on the phase-5 bf16 7B model: (a) an int8 copy of the
     decoder beside the bf16 one, one decode step of each (launches,
@@ -2875,6 +3347,13 @@ def run_int8_path(model, dev, stamp):
                   and all(0 <= x < cfg.text.vocab_size for x in toks))
             if not ok:
                 raise AssertionError(f"int8 main path ({mode}) check failed")
+            if not (w8 or enc):
+                deq0 = spy.calls
+                metrics["int8_lookahead"] = quantized_lookahead_ask(
+                    sess, "int8 path", stamp)
+                if spy.calls != deq0:
+                    raise AssertionError("an int8 verify step dequantized "
+                                         f"{spy.calls - deq0} weights")
             del sess
     finally:
         spy.restore()
@@ -3119,6 +3598,9 @@ def run_int4_path(model, dev, stamp):
                          or multirow["K9_int4_gemv_idx_w4a8"] == 0)):
             raise AssertionError(f"int4 main path ({mode}) launched "
                                  f"{counts}")
+        if w4a8:
+            metrics["w4a8_lookahead"] = quantized_lookahead_ask(
+                sess, "int4 path, w4a8_decode=True,", stamp)
         del sess
     log(f"int4: launches {dict(zip(names, launches))} [{stamp}]")
     if min(launches) == 0:
@@ -3340,6 +3822,9 @@ def profile_phases(sess, stamp):
                                      max_new_tokens=32)),
         ("ask_AC", lambda: sess.ask("And now?", mode="AC",
                                     max_new_tokens=32)),
+        ("ask_AC_lookahead4", lambda: sess.ask("And then?", mode="AC",
+                                               max_new_tokens=32,
+                                               lookahead_k=4)),
     ]
     for name, fn in phases:
         profiled(name, fn, stamp)
@@ -3420,7 +3905,8 @@ def main() -> int:
     for name, use in ptxas_usage(kernels.last_build_log, TC_KERNELS).items():
         log(f"build: ptxas {name}: {use}")
 
-    results = check_kernels(dev) + check_int4_kernels(dev)
+    results, verify_ms = check_kernels(dev)
+    results += check_int4_kernels(dev)
     k10, w8a8_ms = check_int8_kernels(dev)
     results.append(k10)
     rows_ms = check_rows_kernels(dev)
@@ -3428,11 +3914,14 @@ def main() -> int:
     check_reference_int4(dev)
     check_reference_int8(dev)
     check_reference_pool(dev)
+    check_reference_lookahead(dev)
     check_training_reference(dev)
     launches, metrics, sess = run_main_path(dev, card)
     if args.profile:
         profile_phases(sess, card)
     model = sess.model
+    metrics["verify_attention_ms"] = verify_ms
+    metrics.update(run_lookahead_schedule(model.text, dev, card))
     del sess
     metrics.update(run_engine_path(model, dev, card))
     metrics.update(run_pool_path(model, dev, card,

@@ -375,8 +375,11 @@ def main(argv=None):
                          "deterministic")
     ap.add_argument("--max-new-tokens", type=int, default=512)
     ap.add_argument("--lookahead-k", type=int, default=0,
-                    help="prompt-lookup speculative decoding (not ported "
-                         "yet: ROADMAP Queue 1 #5)")
+                    help="prompt-lookup speculative decoding draft "
+                         "length (exact greedy output, fewer decode "
+                         "forwards); only takes effect with --sampling "
+                         "greedy: sampled / penalized decodes fall back "
+                         "to the vanilla decoder")
     ap.add_argument("--quantize-weights", choices=("int8", "int4"),
                     help="quantize decoder kernels at load: int8 per "
                          "channel (K10 decode), int4 rank-1 uniform (K6-K9)")
@@ -392,9 +395,6 @@ def main(argv=None):
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
-    if args.lookahead_k > 0:
-        raise SystemExit("--lookahead-k is not ported yet (ROADMAP "
-                         "Queue 1 #5)")
     from ..runtime.serve import quant_flags, with_text_flags
 
     flags = quant_flags(args)
@@ -442,6 +442,10 @@ def main(argv=None):
         # not do_sample is on
         sampling = ({"extra_eos_ids": tuple(gen.eos_token_ids)}
                     if gen.eos_token_ids else None)
+    if args.lookahead_k > 0:
+        # merged into the per-turn kwargs; the decoders ignore it whenever
+        # sampling params make speculative decode unsound
+        sampling = {**(sampling or {}), "lookahead_k": args.lookahead_k}
     run_eval(engine, processor, args.video_dir, args.query_dir,
              args.save_dir, mode=args.mode,
              session_factory=session_factory, processor_cfg=cfg.processor,

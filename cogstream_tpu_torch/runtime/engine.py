@@ -27,7 +27,8 @@ from ..models.cogreasoner import (CogReasoner, with_int8_tower,
                                   with_serving_flags)
 from ..models.qwen2 import init_kv_cache
 from ..processor.processing import CogStreamProcessor, ProcessorOutput
-from .generate import bucket_length, decode_new_tokens, generate_tokens
+from .generate import (bucket_length, decode_new_tokens, generate_tokens,
+                       generate_tokens_lookahead)
 from .history import parse_selection, rewrite_history, selection_string
 from .retrieval import Selector
 
@@ -180,15 +181,36 @@ class CogReasonerEngine:
         lookahead_k: int = 0,
         extra_eos_ids: tuple = (),
     ) -> TurnResult:
-        if lookahead_k > 0:
-            raise NotImplementedError("prompt-lookup speculative decoding "
-                                      "(lookahead_k > 0) is not ported yet "
-                                      "(ROADMAP Queue 1 #5)")
         embeds, positions, last_index = self.prepare_multimodal(
             out, sel.input_ids, sel.if_visual)
+        xeos = tuple(extra_eos_ids) or None
 
         full = self.adapters.get("full_module")
         adapters = [(full.get("text", full), 1.0)] if full else None
+
+        # prompt-lookup speculative decode: exact greedy output, fewer
+        # forwards; only for greedy decodes without a repetition penalty
+        # (the reference's default 1.05 falls back to the vanilla loop).
+        # The match corpus is the rewritten conversation's text ids,
+        # -1-padded to their own bucket (media runs never match).
+        if (lookahead_k > 0 and temperature == 0.0
+                and repetition_penalty == 1.0):
+            n_ids = len(sel.input_ids)
+            pids = np.full((1, bucket_length(n_ids)), -1, np.int32)
+            pids[0, :n_ids] = sel.input_ids
+            cache = init_kv_cache(
+                self.cfg.text, 1,
+                embeds.shape[1] + max_new_tokens + lookahead_k + 1,
+                dtype=self.model.text.dtype, device=self.device)
+            result = generate_tokens_lookahead(
+                self.model.text, embeds, positions, last_index, cache, pids,
+                max_new_tokens, self.tokenizer.eos_token_id,
+                lookahead_k=lookahead_k, adapters=adapters,
+                corpus_last=[n_ids - 1], extra_eos_ids=xeos)
+            text = decode_new_tokens(result.tokens, result.num_tokens,
+                                     self.tokenizer)
+            return TurnResult(text, sel.selection, sel.if_visual,
+                              int(result.num_tokens[0]))
 
         # repetition-penalty context = the full (rewritten) conversation
         # ids, exactly HF generate's input_ids
@@ -205,7 +227,7 @@ class CogReasonerEngine:
             self.generator, max_new_tokens, self.tokenizer.eos_token_id,
             temperature=temperature, top_p=top_p, top_k=top_k,
             repetition_penalty=repetition_penalty, penalty_ids=pen_ids,
-            adapters=adapters, extra_eos_ids=tuple(extra_eos_ids) or None)
+            adapters=adapters, extra_eos_ids=xeos)
         tokens, num = result.tokens.cpu(), result.num_tokens.cpu()
         text = decode_new_tokens(tokens, num, self.tokenizer)
         return TurnResult(text, sel.selection, sel.if_visual, int(num[0]))

@@ -19,6 +19,10 @@ right after the row's last real prompt slot and advances by one per
 step; a finished row writes nothing, so the cache equals the JAX side
 buffer's per-row merge. ``cache_rows`` addresses a subset of the pool's
 rows in place (K3 / K4 ``rows``).
+
+Lookahead (``generate_tokens_lookahead``): prompt-lookup drafts verified
+k+1 tokens a forward; the draft and the accept count are worked out on
+the host from each verify's argmaxes, one device-to-host copy a step.
 """
 
 from __future__ import annotations
@@ -239,6 +243,174 @@ def generate_tokens(
                     == 0, dim=1) + 1
     num = torch.clamp(num, max=max_new_tokens)
     return GenerateResult(tokens, num, cache)
+
+
+class LookaheadResult(NamedTuple):
+    tokens: torch.Tensor       # [1, max_new_tokens] int64 (eos-padded), host
+    num_tokens: torch.Tensor   # [1], host
+    cache: KVCache             # the input cache, updated in place
+    steps: int                 # verify forwards run
+
+
+def _lookup_draft(hist: np.ndarray, hlen: int, prev: int, cur: int,
+                  k: int) -> np.ndarray:
+    """The k ids that followed the most recent earlier ``(prev, cur)``
+    bigram of the id history, or ``cur`` k times without one. ``hist`` is
+    the whole history buffer, stale entries past ``hlen`` included (they
+    can be copied, as in JAX); gathers clip to its end and -1 reads 0."""
+    L = hist.shape[0]
+    idx = np.arange(L - 1)
+    m = ((hist[:-1] == prev) & (hist[1:] == cur) & (idx + 1 < hlen)
+         & (idx != hlen - 2) & (prev >= 0))
+    if not m.any():
+        return np.full(k, cur, np.int64)
+    j = int(idx[m][-1])
+    return np.maximum(hist[np.clip(j + 2 + np.arange(k), 0, L - 1)], 0)
+
+
+@torch.inference_mode()
+def generate_tokens_lookahead(
+    model: Qwen2Model,
+    inputs_embeds: torch.Tensor,   # [1, S, H] prompt embeddings (padded)
+    positions: torch.Tensor,       # [1, S] int32, -1 on padding
+    last_index: torch.Tensor,      # [1] index of the final real prompt token
+    cache: KVCache,
+    prompt_ids,                    # [1, C] ids (-1 pad / media slots)
+    max_new_tokens: int,
+    eos_id: int,
+    lookahead_k: int = 4,
+    stop_ids: Optional[tuple] = None,
+    adapters=None,
+    lora_scale: float = 2.0,
+    kv_allowed: Optional[torch.Tensor] = None,    # [1, max_len] bool
+    kv_window: Optional[int] = None,              # read window (slots)
+    corpus_last=None,              # [1] last real index of prompt_ids
+    extra_eos_ids: Optional[tuple] = None,        # secondary terminators
+    fixed_draft=None,              # [>= max_new_tokens + k] teacher ids
+    fixed_accept: Optional[int] = None,           # exact draft hits a step
+) -> LookaheadResult:
+    """Greedy decode with prompt-lookup speculative drafting (port of
+    ``cogstream_tpu/runtime/generate.py::generate_tokens_lookahead``).
+
+    Each step drafts ``lookahead_k`` ids by matching the last bigram of
+    the running id history against its earlier occurrences, then verifies
+    ``[cur] + draft`` with one (k+1)-token cached forward (K4 for k+1 <= 8,
+    else K3). The k+1 argmaxes come to the host once a step, where the
+    accepted count and the next draft are worked out in numpy; the output
+    is exactly the vanilla greedy sequence. ``prompt_ids`` is the match
+    corpus (``corpus_last`` its last real index, ``last_index`` by
+    default); the history buffer mirrors JAX's, stale eos entries past
+    its fill level included, so drafts and ``steps`` equal JAX's.
+
+    Rejected slots are reclaimed by rewinding ``cache.write_index``: the
+    next verify rewrites every stale slot's position before any layer
+    reads it. On exit the cache is left as the vanilla decoder leaves it:
+    ``write_index`` after the last fed emission, every position at or
+    after it within the read window blanked. ``fixed_draft`` /
+    ``fixed_accept`` replace the draft with the teacher's ids, the first
+    ``fixed_accept`` of them kept and the rest bit-flipped, so every step
+    accepts exactly that many. B = 1, greedy, no repetition penalty;
+    ``min(max_len, kv_window)`` must hold S + max_new_tokens + k + 1.
+    ``kv_allowed`` goes to every verify unchanged (callers open the
+    future slots). Tokens and counts are host tensors.
+    """
+    B, S, _ = inputs_embeds.shape
+    if B != 1:
+        raise ValueError("lookahead decode is single-row (B=1)")
+    k = int(lookahead_k)
+    if k < 1:
+        raise ValueError("lookahead_k must be >= 1")
+    read = min(cache.max_len, kv_window or cache.max_len)
+    need = S + max_new_tokens + k + 1
+    if read < need:
+        raise ValueError(f"cache window {read} < {need} needed for lookahead"
+                         f" (prompt {S} + new {max_new_tokens} + k+1)")
+    dev = inputs_embeds.device
+    terminals = np.asarray((eos_id,) + tuple(stop_ids or ()), np.int64)
+
+    def _map_eos(t):
+        return np.where(np.isin(t, extra_eos_ids or ()), eos_id, t)
+
+    # ---- prefill ----------------------------------------------------------
+    hidden, cache = qwen2.qwen2_forward(
+        model, inputs_embeds, positions, cache, adapters, lora_scale,
+        kv_allowed=kv_allowed, kv_window=kv_window)
+    wi_prefill = cache.write_index
+    li = int(torch.as_tensor(last_index).reshape(-1)[0])
+    logits = qwen2.lm_logits(model, hidden[:, li:li + 1], adapters,
+                             lora_scale, w8a8=model.cfg.w4a8_decode)
+    first_tok = int(_map_eos(int(torch.argmax(logits[0, 0]))))
+
+    ids = np.asarray(torch.as_tensor(prompt_ids).cpu(), np.int64)[0]
+    C = ids.shape[0]
+    cl = li if corpus_last is None else int(
+        torch.as_tensor(corpus_last).reshape(-1)[0])
+    L = C + max_new_tokens + k + 1         # id-history buffer
+    hist = np.full(L, -1, np.int64)
+    hist[:C] = ids
+    hist[cl + 1] = first_tok
+    buf = max_new_tokens + k + 1           # verify writes may overhang
+    tokens = np.full(buf, eos_id, np.int64)
+    tokens[0] = first_tok
+    teacher = None
+    if fixed_draft is not None:
+        teacher = np.asarray(torch.as_tensor(fixed_draft).cpu(),
+                             np.int64).reshape(-1)
+
+    out_idx, hlen = 1, cl + 2
+    prev, cur = int(ids[cl]), first_tok
+    pos = int(torch.as_tensor(positions)[0, li]) + 1
+    done = first_tok in terminals
+    steps = 0
+    span = np.arange(k + 1)
+    while out_idx < max_new_tokens and not done:
+        draft = _lookup_draft(hist, hlen, prev, cur, k)
+        if teacher is not None:
+            # the teacher's ids (clamped like a dynamic_slice); positions
+            # past fixed_accept flip the low bit so verification stops there
+            o = min(out_idx, teacher.shape[0] - k)
+            tj = teacher[o:o + k]
+            draft = np.where(np.arange(k) < int(fixed_accept), tj, tj ^ 1)
+        fed = np.concatenate([[cur], draft])
+        wi = cache.write_index
+        fed_t = torch.from_numpy(fed[None]).to(dev)
+        fed_pos = torch.arange(pos, pos + k + 1, dtype=torch.int32,
+                               device=dev)[None]
+        hidden, cache = qwen2.qwen2_forward(
+            model, qwen2.embed(model, fed_t), fed_pos, cache, adapters,
+            lora_scale, kv_allowed=kv_allowed, kv_window=kv_window)
+        lg = qwen2.lm_logits(model, hidden, adapters, lora_scale,
+                             w8a8=model.cfg.w4a8_decode)[0]
+        g = _map_eos(torch.argmax(lg, dim=-1).cpu().numpy())  # the sync
+
+        a = int(np.cumprod(fed[1:] == g[:-1]).sum())
+        fin = np.isin(g, terminals)
+        prior_fin = (np.cumsum(fin) - fin) > 0
+        valid = (span <= a) & ~prior_fin
+        n_emit = int(valid.sum())
+        emit = np.where(valid, g, eos_id)
+        tokens[out_idx:out_idx + k + 1] = emit
+        hist[hlen:hlen + k + 1] = emit
+        done = bool((fin & valid).any())
+        # the next write starts right after the 1 + a accepted tokens
+        cache.write_index = wi + 1 + a
+        out_idx += n_emit
+        hlen += n_emit
+        prev, cur = int(fed[a]), int(g[a])
+        pos += a + 1
+        steps += 1
+
+    # exit normalization: prompt + the emissions before the first terminal
+    # stay live, as after the vanilla loop (which never feeds a terminal)
+    out = tokens[:max_new_tokens]
+    num = min(int((np.cumsum(out == eos_id) == 0).sum()) + 1, max_new_tokens)
+    fin_out = np.isin(out, terminals)
+    wi_final = wi_prefill + (int(np.argmax(fin_out)) if fin_out.any()
+                             else num - 1)
+    cache.pos[:, wi_final:read] = -1
+    cache.write_index = wi_final
+    return LookaheadResult(torch.from_numpy(out[None].copy()),
+                           torch.tensor([num]), cache, steps)
 
 
 def decode_new_tokens(tokens, num_tokens, tokenizer, batch_index: int = 0,

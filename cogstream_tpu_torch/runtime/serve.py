@@ -212,14 +212,16 @@ class SessionServer:
         from ..utils.profiling import StageTimer
         from .session import StreamingSession
 
-        if lookahead_k > 0:
-            raise _not_ported("lookahead_k (lookahead decode)", 5)
         if mesh is not None:
             raise _not_ported("mesh (tensor-parallel serving)", 9)
         # encoder_int8: ONE W8A8 copy of the tower, shared by the solo
         # sessions and the pool (each finds its model's tower int8 already)
         if encoder_int8:
             model = with_int8_tower(model)
+        # lookahead_k: the server's default for speculative greedy decodes
+        # on solo sessions (a request's "lookahead_k" overrides it; the
+        # pooled batch decode ignores both)
+        self.lookahead_k = lookahead_k
         # the checkpoint's full terminator set (generation_config
         # eos_token_id list), applied to every decode as HF does
         self.extra_eos_ids = tuple(extra_eos_ids)
@@ -400,14 +402,13 @@ class SessionServer:
     def ask(self, session_id: str, question: str, mode: str = "FCC",
             max_new_tokens: int = 512,
             lookahead_k: Optional[int] = None) -> Dict:
-        if lookahead_k:
-            raise _not_ported("lookahead_k (lookahead decode)", 5)
         if self.frontend is not None:
             with self.lock:
                 self._get(session_id)
                 row = self._row_of[session_id]
             # block WITHOUT the lock: the collector thread takes it to run
-            # the pooled decode, so concurrent asks batch together
+            # the pooled decode, so concurrent asks batch together (the
+            # batched decode has no speculative path)
             with self.timer.stage("ask"):
                 out = self.frontend.ask(row, question, mode=mode,
                                         max_new_tokens=max_new_tokens)
@@ -417,6 +418,9 @@ class SessionServer:
                 with self.timer.stage("ask"):
                     out = sess.ask(question, mode=mode,
                                    max_new_tokens=max_new_tokens,
+                                   lookahead_k=(self.lookahead_k
+                                                if lookahead_k is None
+                                                else lookahead_k),
                                    extra_eos_ids=self.extra_eos_ids)
         self._auto_snapshot(session_id)
         return out

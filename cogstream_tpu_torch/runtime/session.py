@@ -45,7 +45,8 @@ from ..models.cogreasoner import (SUMMARY_INSTRUCTION, SUMMARY_SYSTEM,
                                   with_serving_flags)
 from ..models.qwen2 import KVCache, Qwen2Model, init_kv_cache
 from ..ops.lm_attention import cache_rows
-from .generate import decode_new_tokens, generate_tokens
+from .generate import (decode_new_tokens, generate_tokens,
+                       generate_tokens_lookahead)
 from .history import parse_selection
 from .retrieval import Selector
 
@@ -258,6 +259,8 @@ class StreamingSession:
             pool.cache.pos[row] = -1
         self._wi = 0               # pooled fill level (host int)
         self._gen = torch.Generator(device=self.device).manual_seed(rng_seed)
+        # verify forwards of the last lookahead ask (a host int)
+        self.last_lookahead_steps: Optional[int] = None
         self.ranges: List[SlotRange] = []
         self.events: List[EventRecord] = []
         self.hist_qs: List[str] = []
@@ -758,34 +761,53 @@ class StreamingSession:
     def ask(self, question: str, mode: str = "FCC",
             max_new_tokens: int = 512, temperature: float = 0.0,
             top_p: float = 1.0, top_k: int = 0,
-            repetition_penalty: float = 1.0,
+            repetition_penalty: float = 1.0, lookahead_k: int = 0,
             extra_eos_ids: tuple = ()) -> Dict:
+        # prompt-lookup speculative decode (generate_tokens_lookahead) on
+        # greedy solo turns only: sampling params or a pooled row take the
+        # vanilla decoder silently, so callers may leave lookahead_k on.
+        # Greedy draws nothing from the generator on either decoder.
+        use_la = (lookahead_k > 0 and temperature == 0.0 and top_p == 1.0
+                  and top_k == 0 and repetition_penalty == 1.0
+                  and self._pool is None)
+        la_pad = lookahead_k + 1 if use_la else 0
         turn = len(self.hist_qs)
         question_ids = np.asarray(self.tok.encode(question), np.int32)
         selection, if_visual, sel_idx = self._select(question, mode, turn)
         ids_pad, positions, S, Sp = self._question_prompt(question)
         # evict BEFORE building the visibility mask (compaction moves slots)
-        self.evict_for(Sp + max_new_tokens)
+        self.evict_for(Sp + max_new_tokens + la_pad)
         allowed = self._allowed_mask(if_visual, sel_idx, question_ids)
         start = self.write_index
-        if start + Sp + max_new_tokens > self.max_len:
+        if start + Sp + max_new_tokens + la_pad > self.max_len:
             raise RuntimeError("session cache overflow")
         emb = qwen2.embed(self.model.text, self._dev(ids_pad))[None]
-        penalty_ids = None
-        if repetition_penalty != 1.0:
-            penalty_ids = self._dev(np.where(np.arange(Sp) < S, ids_pad,
-                                             -1)[None])
-        result = generate_tokens(
-            self.model.text, emb, self._dev(positions),
-            self._dev(np.asarray([S - 1], np.int32)), self.cache, self._gen,
-            max_new_tokens, self.tok.eos_token_id, temperature=temperature,
-            top_p=top_p, top_k=top_k, repetition_penalty=repetition_penalty,
-            penalty_ids=penalty_ids, adapters=self._full_adapters(),
-            kv_allowed=self._dev(allowed)[None],
-            write_slots=self._row_slots(start, S, Sp),
-            cache_rows=self._rows,
-            kv_window=self._kv_window(start + Sp + max_new_tokens),
-            extra_eos_ids=tuple(extra_eos_ids) or None)
+        kv_window = self._kv_window(start + Sp + max_new_tokens + la_pad)
+        if use_la:
+            result = generate_tokens_lookahead(
+                self.model.text, emb, self._dev(positions),
+                self._dev(np.asarray([S - 1], np.int32)), self.cache,
+                ids_pad[None], max_new_tokens, self.tok.eos_token_id,
+                lookahead_k=lookahead_k, adapters=self._full_adapters(),
+                kv_allowed=self._dev(allowed)[None], kv_window=kv_window,
+                extra_eos_ids=tuple(extra_eos_ids) or None)
+            self.last_lookahead_steps = result.steps
+        else:
+            penalty_ids = None
+            if repetition_penalty != 1.0:
+                penalty_ids = self._dev(np.where(np.arange(Sp) < S, ids_pad,
+                                                 -1)[None])
+            result = generate_tokens(
+                self.model.text, emb, self._dev(positions),
+                self._dev(np.asarray([S - 1], np.int32)), self.cache,
+                self._gen, max_new_tokens, self.tok.eos_token_id,
+                temperature=temperature, top_p=top_p, top_k=top_k,
+                repetition_penalty=repetition_penalty,
+                penalty_ids=penalty_ids, adapters=self._full_adapters(),
+                kv_allowed=self._dev(allowed)[None],
+                write_slots=self._row_slots(start, S, Sp),
+                cache_rows=self._rows, kv_window=kv_window,
+                extra_eos_ids=tuple(extra_eos_ids) or None)
         self.cache = result.cache
         tokens, num = result.tokens.cpu(), result.num_tokens.cpu()
         n_fed = max(0, int(num[0]) - 1)

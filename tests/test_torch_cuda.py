@@ -327,6 +327,89 @@ def test_decode_tensor_core_kernel(dev, S, G, D, B):
     assert torch.equal(wrap(q, k, v, qpos, eff), got)
 
 
+@pytest.mark.parametrize("S", [5, 8, 9])
+def test_verify_step_attention(dev, S):
+    """A lookahead verify step at the 7B attention shapes (28 / 4 heads of
+    128, bf16): S = k+1 queries at consecutive positions whose K/V sit in
+    the cache's next S slots, over a 9216-slot window holding 9000 history
+    slots with holes and a 70% kv_allowed. S <= 8 (k <= 7) takes K4's
+    tensor-core kernel, S = 9 (k = 8) K3's, as ``qwen2_forward`` routes
+    them; every row within 2 bf16 ulps of the plain version's max |ref|,
+    and query i sees the step's slots up to its own."""
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    rng = np.random.default_rng(S)
+    T, W, fill, Hq, Hkv, D = 9216 + 64, 9216, 9000, 28, 4, 128
+    bf = torch.bfloat16
+    k = _t(rng.standard_normal((1, T, Hkv, D)), dev, bf)
+    v = _t(rng.standard_normal((1, T, Hkv, D)), dev, bf)
+    q = _t(rng.standard_normal((1, S, Hq, D)), dev, bf)
+    pos = np.full((1, T), -1, np.int32)
+    pos[0, :fill + S] = np.arange(fill + S)
+    pos[0, rng.choice(fill, 300, replace=False)] = -1
+    allowed = rng.random((1, T)) > 0.3
+    allowed[0, fill:] = True
+    eff = lma.effective_kv_positions(_t(pos, dev, torch.int32),
+                                     _t(allowed, dev, torch.bool))
+    eff = eff[:, :W].contiguous()
+    qpos = _t(np.arange(fill, fill + S)[None], dev, torch.int32)
+    wrap = (lma.decode_attention if S <= lma.DECODE_MAX_S
+            else lma.prefill_flash_attention)
+    n0, t0 = wrap.launches, wrap.tc_launches
+    got = wrap(q, k, v, qpos, eff)
+    assert (wrap.launches, wrap.tc_launches) == (n0 + 1, t0 + 1)
+    ref = lma.gqa_attention_plain(q, k, v, qpos, eff)
+    _two_ulps(got, ref)
+    # causality inside the step: dropping the last query's slot changes
+    # only the last query's rows
+    eff2 = eff.clone()
+    eff2[0, fill + S - 1] = lma.SENTINEL
+    got2 = wrap(q, k, v, qpos, eff2)
+    assert torch.equal(got2[:, :S - 1], got[:, :S - 1])
+    assert not torch.equal(got2[:, S - 1], got[:, S - 1])
+
+
+@pytest.mark.parametrize("k", [2, 8])
+def test_lookahead_card_matches_cpu(dev, k):
+    """``generate_tokens_lookahead`` on a tiny f32 decoder on the card (K4
+    verifies at k = 2, K3 at k = 8) and on the CPU: the same tokens and
+    verify steps, the same positions and write index, K/V within 1e-4."""
+    import copy
+
+    from cogstream_tpu_torch.config import CogReasonerConfig
+    from cogstream_tpu_torch.models import qwen2
+    from cogstream_tpu_torch.models.cogreasoner import init_cogreasoner_params
+    from cogstream_tpu_torch.ops import lm_attention as lma
+    from cogstream_tpu_torch.runtime.generate import generate_tokens_lookahead
+
+    cfg = CogReasonerConfig.tiny()
+    cpu = init_cogreasoner_params(cfg, torch.Generator().manual_seed(0),
+                                  device="cpu").text
+    cfg = cfg.text
+    ids = np.random.default_rng(k).integers(3, 200, (1, 20))
+    out = []
+    for model in (cpu, copy.deepcopy(cpu).to(dev)):
+        d = model.embed_tokens.device
+        cache = qwen2.init_kv_cache(cfg, 1, 128, device=d)
+        wrap = (lma.decode_attention if k + 1 <= lma.DECODE_MAX_S
+                else lma.prefill_flash_attention)
+        n0 = wrap.launches
+        r = generate_tokens_lookahead(
+            model, qwen2.embed(model, torch.as_tensor(ids, device=d)),
+            torch.arange(20, dtype=torch.int32, device=d)[None],
+            torch.tensor([19], device=d), cache, ids, 32, 2, lookahead_k=k)
+        out.append((r, wrap.launches - n0))
+    (ref, _), (got, launched) = out
+    assert launched >= got.steps > 0
+    assert torch.equal(got.tokens, ref.tokens) and got.steps == ref.steps
+    assert got.cache.write_index == ref.cache.write_index
+    assert torch.equal(got.cache.pos.cpu(), ref.cache.pos)
+    live = ref.cache.pos[0] >= 0
+    for a, b in ((got.cache.k, ref.cache.k), (got.cache.v, ref.cache.v)):
+        torch.testing.assert_close(a.cpu()[:, :, live], b[:, :, live],
+                                   atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.parametrize("S,window", [(1, 9216), (4, 3000)])
 def test_decode_tensor_core_kernel_replays_in_a_graph(dev, S, window):
     """One K4 call captured in a CUDA graph, then replayed after q and

@@ -450,7 +450,12 @@ def test_process_rank_and_cli_refusals(tmp_path, monkeypatch):
     cannot serve exit naming their ROADMAP queue item; the quantized
     modes load as JAX's CLI loads them (``--w8a8-prefill`` needs
     ``--quantize-weights``; int8 + w8a8_prefill + a W8A8 tower reach the
-    engine and the streaming sessions)."""
+    engine and the streaming sessions); ``--lookahead-k 3`` (once
+    refused) reaches every turn's kwargs, and its engine's greedy tokens
+    equal the JAX engine's on the same checkpoint."""
+    from cogstream_tpu.config import load_hf_config as j_load_hf_config
+    from cogstream_tpu.models.checkpoint import (
+        load_cogreasoner_from_hf as j_load)
     from cogstream_tpu_torch.evaluate import answer_generate as tag
     from cogstream_tpu_torch.models.checkpoint import save_cogreasoner_to_hf
     from cogstream_tpu_torch.models.cogreasoner import init_cogreasoner_params
@@ -458,8 +463,6 @@ def test_process_rank_and_cli_refusals(tmp_path, monkeypatch):
     assert tag.process_rank() == (0, 1)
     base = ["--model-dir", str(tmp_path), "--video-dir", str(tmp_path),
             "--query-dir", str(tmp_path), "--save-dir", str(tmp_path)]
-    with pytest.raises(SystemExit, match="#5"):
-        tag.main(base + ["--lookahead-k", "3"])
     with pytest.raises(SystemExit, match="requires --quantize-weights int4"):
         tag.main(base + ["--w4a8-decode"])
     with pytest.raises(SystemExit, match="requires --quantize-weights$"):
@@ -470,16 +473,33 @@ def test_process_rank_and_cli_refusals(tmp_path, monkeypatch):
         str(tmp_path))
     ran = []
     monkeypatch.setattr(tag, "run_eval", lambda engine, *a, **k: ran.append(
-        (engine, k["session_factory"])))
+        (engine, k["session_factory"], k["sampling"])))
     tag.main(base + ["--quantize-weights", "int8", "--w8a8-prefill",
                      "--encoder-int8", "--streaming", "--device", "cpu"])
-    engine, factory = ran[0]
+    engine, factory, _ = ran[0]
     for model in (engine.model, factory().model):
         assert model.text.cfg.w8a8_prefill and model.vision.int8
         assert model.text.int8["down_proj"].q.dtype == torch.int8
 
+    tag.main(base + ["--lookahead-k", "3", "--device", "cpu"])
+    engine, _, sampling = ran[1]
+    assert sampling["lookahead_k"] == 3
+    jcfg = j_load_hf_config(str(tmp_path / "config.json"))
+    jeng = JEngine(j_load(str(tmp_path), jcfg), jcfg,
+                   JTok(image_token_id=jcfg.image_token_index))
+    jtoks = _capture_tokens(monkeypatch, jeng_mod)
+    ttoks = _capture_tokens(monkeypatch, teng_mod)
+    conv = [{"role": "user", "content": "what is the first scene?"}]
+    ref = jeng.chat(conv, mode="AC", max_new_tokens=8, **sampling)
+    got = engine.chat(conv, mode="AC", max_new_tokens=8, **sampling)
+    assert (got.text, got.num_tokens) == (ref.text, ref.num_tokens)
+    assert ttoks == jtoks and len(ttoks) == 1
 
-def test_engine_refuses_unported_options(setup):
+
+def test_engine_refuses_unported_options(setup, engines, monkeypatch):
+    """``mesh`` still raises naming its item; ``encoder_int8`` and
+    ``generate(lookahead_k=2)`` (once refused) run, the latter with the
+    JAX engine's tokens."""
     jcfg, tcfg, params, model = setup
     tok = TTok(image_token_id=1000)
     with pytest.raises(NotImplementedError, match="#9"):
@@ -488,10 +508,18 @@ def test_engine_refuses_unported_options(setup):
     assert TEngine(model, tcfg, tok, encoder_int8=True).model.vision.int8
     assert not model.vision.int8
     eng = TEngine(model, tcfg, tok)
-    out = eng.processor([{"role": "user", "content": "hi"}])
+    jeng = engines[0]
+    jtoks = _capture_tokens(monkeypatch, jeng_mod)
+    ttoks = _capture_tokens(monkeypatch, teng_mod)
+    conv = [{"role": "user", "content": "hi"}]
+    out = eng.processor(conv)
     sel = eng.qa_selection(out, mode="AC")
-    with pytest.raises(NotImplementedError, match="#5"):
-        eng.generate(out, sel, lookahead_k=2)
+    got = eng.generate(out, sel, max_new_tokens=16, lookahead_k=2)
+    out_j = jeng.processor(conv)
+    ref = jeng.generate(out_j, jeng.qa_selection(out_j, mode="AC"),
+                        max_new_tokens=16, lookahead_k=2)
+    assert dataclasses.astuple(got) == dataclasses.astuple(ref)
+    assert ttoks == jtoks and len(ttoks) == 1
 
 
 @pytest.mark.parametrize("streaming", [False, True])

@@ -160,7 +160,7 @@ def test_http_endpoints_match_the_jax_server(setup, http, clip, tmp_path):
     assert stats["ask"]["n"] == 5 and stats["ingest"]["n"] == 1
 
 
-def test_http_error_codes(http):
+def test_http_error_codes(setup, http):
     _, port = http
     _post(port, "/session", {"session_id": "e"})
     cases = [("/ask", {"session_id": "e"}, 400),            # missing field
@@ -168,9 +168,7 @@ def test_http_error_codes(http):
              ("/ask_stream", {"session_id": "nope", "question": "x"}, 404),
              ("/nowhere", {}, 404),
              ("/restore", {"session_id": "e",
-                           "path": "/nonexistent/snapshot.npz"}, 500),
-             ("/ask", {"session_id": "e", "question": "x",
-                       "lookahead_k": 2}, 500)]       # not ported (#5)
+                           "path": "/nonexistent/snapshot.npz"}, 500)]
     for path, body, code in cases:
         with pytest.raises(urllib.error.HTTPError) as e:
             _post(port, path, body)
@@ -178,6 +176,14 @@ def test_http_error_codes(http):
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(port, "/ask", b"{not json", raw=True)
     assert e.value.code == 400
+    # a request's lookahead_k (once a 500) answers 200, with the greedy
+    # tokens of a vanilla session
+    _, tcfg, _, model = setup
+    got = _post(port, "/ask", {"session_id": "e", "question": "x",
+                               "lookahead_k": 2, "max_new_tokens": 8})
+    ref = StreamingSession(model, tcfg, TTok(image_token_id=1000),
+                           max_len=2048).ask("x", max_new_tokens=8)
+    assert got["tokens"] == ref["tokens"] and got["text"] == ref["text"]
     with pytest.raises(urllib.error.HTTPError) as e:
         _get(port, "/nowhere")
     assert e.value.code == 404
@@ -305,21 +311,37 @@ def test_ingest_frame_dir_and_worker_error(setup, clip, tmp_path,
     assert server.ingest("x", clip, 0.0, 2.0, 1.0)["frames"] >= 2
 
 
-def test_server_refuses_unported_options(setup):
+def test_server_refuses_unported_options(setup, monkeypatch):
     """Options of other queue items still raise naming their item;
     ``encoder_int8`` (once refused) builds ONE W8A8 copy of the tower that
-    the solo sessions and the pool share, and leaves the model's own."""
-    _, _, _, model = setup
+    the solo sessions and the pool share, and leaves the model's own;
+    ``lookahead_k`` (once refused) is the server's default for solo asks,
+    a request's value overriding it, with a vanilla session's answers."""
+    import cogstream_tpu_torch.runtime.session as tsess_mod
+
+    _, tcfg, _, model = setup
     server = _server(setup, encoder_int8=True, pool_rows=2, max_len=512)
     sess = server._mk()
     assert sess.model.vision.int8 and server.pool.model.vision is \
         sess.model.vision
     assert not model.vision.int8
-    with pytest.raises(NotImplementedError, match="#5"):
-        _server(setup, lookahead_k=2)
+    used = []
+    real = tsess_mod.generate_tokens_lookahead
+    monkeypatch.setattr(tsess_mod, "generate_tokens_lookahead",
+                        lambda *a, **kw: used.append(kw["lookahead_k"])
+                        or real(*a, **kw))
+    la = _server(setup, lookahead_k=2, max_len=512)
+    la.create("s")
+    ref = StreamingSession(model, tcfg, TTok(image_token_id=1000),
+                           max_len=512)
+    for q, k in (("what?", None), ("and then?", 0), ("more?", 3)):
+        got = la.ask("s", q, mode="AC", max_new_tokens=8, lookahead_k=k)
+        want = ref.ask(q, mode="AC", max_new_tokens=8)
+        assert (got["tokens"], got["cache_tokens"]) == \
+            (want["tokens"], want["cache_tokens"])
+    assert used == [2, 3]
     with pytest.raises(NotImplementedError, match="#9"):
         _server(setup, mesh=object())
-    _, tcfg, _, model = setup
     from cogstream_tpu_torch.runtime.pool import SessionPool
     with pytest.raises(NotImplementedError, match="#3"):
         SessionPool(model, tcfg, TTok(image_token_id=tcfg.image_token_index),
