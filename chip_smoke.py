@@ -41,7 +41,15 @@ Phases (each prints one line or a few; any failure exits non-zero):
    [3, 1] of a [4, 9216, 4, 128] pool cache through ``rows``, each call
    bit-identical to the kernel on a contiguous copy of those rows and
    within the 2-ulp bound of the plain version, timed beside that copy's
-   call; one K4 call with rows replays in a CUDA graph;
+   call; one K4 call with rows replays in a CUDA graph. The fp8 KV cache:
+   torch's CUDA cast to e4m3 equals its CPU cast on all 65536 bf16 bit
+   patterns and on f32 draws, and the port's cache cast saturates past
+   464; K3 (the 4384-token prefill) and K4 (S = 1, 5, 8) over an e4m3
+   cache, held to their plain versions by the 2-ulp row rule, timed
+   beside the bf16 route on the same values and beside their bound, K4's
+   graph replay bit-identical, and both again through ``rows`` on a [4,
+   9216, 4, 128] e4m3 pool; ptxas registers, shared memory and blocks per
+   SM of the bf16 and e4m3 instantiations;
 4. reference — a tiny-config session (f32) runs ingest → ask(AC) →
    ingest → ask(FCC) on the card (kernels) and on the CPU (plain
    versions); greedy tokens, selections and slot ranges must agree. Then
@@ -57,7 +65,8 @@ Phases (each prints one line or a few; any failure exits non-zero):
    tiny f32 dialogue with lookahead_k = 2 (K4 verifies) and 8 (K3
    verifies) on the card and the CPU: the same tokens and verify steps;
    on the card the vanilla dialogue's tokens, and its cache wherever
-   pos >= 0;
+   pos >= 0. The tiny f32 session over an e4m3 cache, card vs CPU: the
+   same tokens, selections and ranges, cache bytes within one e4m3 step;
 5. main path — a 7B-width ``StreamingSession`` (cogreasoner_7b, bf16,
    random weights from a seeded generator, 16384-slot cache) ingests two
    16-frame segments (24x42 patch grids, merge 2, seeded uint8 patch
@@ -73,7 +82,13 @@ Phases (each prints one line or a few; any failure exits non-zero):
    (b) on a 512-token prompt, the vanilla loop's 71 greedy tokens are the
    teacher of ``generate_tokens_lookahead`` with fixed_accept 0, 2, 4 at
    k = 4 and 7 at k = 7 (steps, wall, tok/s under the same rule), and a
-   verify step's cost (S = 5, 8) beside a decode step's;
+   verify step's cost (S = 5, 8) beside a decode step's; (c) a second
+   session with an e4m3 cache (kv_dtype) ingests the same segments and
+   asks the same questions: ingest s, turns, decode tok/s, the cache's
+   bytes beside bf16's, the greedy-prefix agreement with the bf16
+   answers (reported), the largest |K| / |V| and saturated elements; K3
+   and K4 (counted from zero) must run over the e4m3 cache; then a decode
+   step's cost over 9000 history slots in a bf16 and an e4m3 cache;
 8. engine (runs on the phase-5 model, before phases 7 and 6) — the
    evaluation entry point at full width and depth: the host decoders
    are probed (Pillow, OpenCV, ffmpeg), a seeded 150-frame video of ten
@@ -105,6 +120,9 @@ Phases (each prints one line or a few; any failure exits non-zero):
    ask FCC twice, one streams; every answer non-empty, the stream ends
    with 0x1e and its meta, one frontend batch holds more than one row.
    K1-K4 launch in each, all K1 / K3 / K4 on the tensor-core kernels;
+   (c) a 4 x 16384 pool with an e4m3 cache (its bytes beside the bf16
+   pool's 3.76 GB), one ingest_batch tick and ask_batch AC, K3 / K4 over
+   the e4m3 pool through rows;
 7. training main path (runs on the phase-5 model, before phase 6) — the
    frozen ``cogreasoner_7b`` base with LoRA r=8 on all 7 projections x
    28 layers (stage 1), plus the projector readout (stage 2): (a)
@@ -129,7 +147,9 @@ Phases (each prints one line or a few; any failure exits non-zero):
    at full width and depth, bf16 the truth: int8, int8 + W8A8, int4u,
    int4c and nf4 by logit MAE, KL, top-1 agreement over 128 probe tokens
    and greedy prefix agreement over 32 tokens, one scheme resident at a
-   time; int8's KL below each 4-bit scheme's;
+   time; int8's KL below each 4-bit scheme's; and the fp8kv row: the bf16
+   build's cached logits and greedy continuation over an e4m3 cache
+   against a bf16 cache;
 6. int4 main path — the same model's decoder is quantized in place to
    rank-1 uniform int4 (the bf16 weights are freed; memory before and
    after is printed); then, with w4a8_decode off and on, a fresh session
@@ -332,16 +352,25 @@ def row_check(got, ref, width: int):
 # the tensor-core kernels by the (mangled) names of their instantiations
 # on the main paths: K3 at D = 128 with 2 and 1 m-tiles per warp, K1 and
 # K5 at D = 72 (one body, with and without the rotation), K4 at D = 128
-# (1 m-tile for S <= 2, 2 for longer steps) and D = 64, K8 and K9 by their
+# (1 m-tile for S <= 2, 2 for longer steps) and D = 64, each K3 / K4 over a
+# bf16 and over an e4m3 cache (the template flag F8), K8 and K9 by their
 # largest count of n8 row tiles (m <= 8, 16, 32, 64), as is K10
-TC_KERNELS = {"K3 tc <D=128, 2 m-tiles>": "gqa_prefill_tc_kernelILi128ELi2E",
-              "K3 tc <D=128, 1 m-tile>": "gqa_prefill_tc_kernelILi128ELi1E",
+TC_KERNELS = {"K3 tc <D=128, 2 m-tiles>": "gqa_prefill_tc_kernelILi128ELi2ELb0E",
+              "K3 tc <D=128, 1 m-tile>": "gqa_prefill_tc_kernelILi128ELi1ELb0E",
+              "K3 tc e4m3 <D=128, 2 m-tiles>":
+                  "gqa_prefill_tc_kernelILi128ELi2ELb1E",
+              "K3 tc e4m3 <D=128, 1 m-tile>":
+                  "gqa_prefill_tc_kernelILi128ELi1ELb1E",
               "K1 tc <D=72, rope>": "segment_tc_kernelILi72ELb1E",
               "K5 tc <D=72>": "segment_tc_kernelILi72ELb0E",
-              "K4 tc <D=128, 1 m-tile>": "gqa_decode_tc_kernelILi128ELi1E",
-              "K4 tc <D=128, 2 m-tiles>": "gqa_decode_tc_kernelILi128ELi2E",
-              "K4 tc <D=64, 1 m-tile>": "gqa_decode_tc_kernelILi64ELi1E",
-              "K4 tc <D=64, 2 m-tiles>": "gqa_decode_tc_kernelILi64ELi2E",
+              "K4 tc <D=128, 1 m-tile>": "gqa_decode_tc_kernelILi128ELi1ELb0E",
+              "K4 tc <D=128, 2 m-tiles>": "gqa_decode_tc_kernelILi128ELi2ELb0E",
+              "K4 tc <D=64, 1 m-tile>": "gqa_decode_tc_kernelILi64ELi1ELb0E",
+              "K4 tc <D=64, 2 m-tiles>": "gqa_decode_tc_kernelILi64ELi2ELb0E",
+              "K4 tc e4m3 <D=128, 1 m-tile>":
+                  "gqa_decode_tc_kernelILi128ELi1ELb1E",
+              "K4 tc e4m3 <D=128, 2 m-tiles>":
+                  "gqa_decode_tc_kernelILi128ELi2ELb1E",
               "K8 tc <1 n-tile>": "int4_gemv_tc_kernelILi0ELi1E",
               "K8 tc <2 n-tiles>": "int4_gemv_tc_kernelILi0ELi2E",
               "K8 tc <4 n-tiles>": "int4_gemv_tc_kernelILi0ELi4E",
@@ -354,6 +383,37 @@ TC_KERNELS = {"K3 tc <D=128, 2 m-tiles>": "gqa_prefill_tc_kernelILi128ELi2E",
               "K10 tc <2 n-tiles>": "int8_gemv_tc_kernelILi2E",
               "K10 tc <4 n-tiles>": "int8_gemv_tc_kernelILi4E",
               "K10 tc <8 n-tiles>": "int8_gemv_tc_kernelILi8E"}
+
+
+def lm_attention_smem(kv_len: int = 16384) -> dict:
+    """Dynamic shared memory of K3's and K4's tensor-core blocks at D =
+    128 as ``launch_prefill_tc`` / ``launch_decode_tc`` size it, bf16 and
+    e4m3 caches (csrc/lm_attention.cu), by TC_KERNELS label."""
+    KS, BK, D = 136, 64, 128
+    out = {}
+    for f8 in (False, True):
+        tag = " e4m3" if f8 else ""
+        for mt in (2, 1):
+            br = 64 * mt
+            out[f"K3 tc{tag} <D=128, {mt} m-tile{'s' if mt > 1 else ''}>"] = (
+                (br + (2 if f8 else 4) * BK) * KS * 2 + (4 * BK * D if f8
+                                                         else 0)
+                + (2 * BK + br + 4 + 2 * -(-kv_len // BK)) * 4)
+            warp = BK * KS * 2 + 2 * BK * D if f8 else 2 * BK * KS * 2
+            out[f"K4 tc{tag} <D=128, {mt} m-tile{'s' if mt > 1 else ''}>"] = (
+                16 * mt * KS * 2 + 4 * warp + (4 * BK + 4) * 4)
+    return out
+
+
+def blocks_per_sm(regs, smem: int, threads: int = 128):
+    """Resident 128-thread blocks per H100 SM allowed by registers
+    (allocated per warp in units of 256) and shared memory (228 KB an SM,
+    1 KB reserved a block); None without a register count."""
+    if regs is None:
+        return None
+    per_warp = -(-regs * 32 // 256) * 256
+    by_regs = 65536 // (per_warp * threads // 32)
+    return min(by_regs, 233472 // (smem + 1024), 2048 // threads)
 
 
 def ptxas_usage(log: str, names: dict) -> dict:
@@ -1168,6 +1228,249 @@ def check_rows_kernels(dev):
     return timings
 
 
+def check_fp8_cast(dev):
+    """Phase 3, the fp8 cache's cast: torch's CUDA cast to e4m3 against its
+    CPU cast, byte for byte, over all 65536 bf16 bit patterns and 2^20 f32
+    draws over e4m3's range, its subnormals and past 448 (the tiny f32
+    decoder writes f32 keys); then the port's cache cast
+    (``qwen2.to_cache``) on the card against the CPU: the same bytes for
+    every non-NaN input, NaN kept, and past 464 saturated to +-448 (torch's own cast there depends
+    on its version; JAX's gives NaN: ROADMAP Queue 3)."""
+    import torch
+
+    from cogstream_tpu_torch.models.qwen2 import to_cache
+
+    f8 = torch.float8_e4m3fn
+    bits = torch.from_numpy(np.arange(1 << 16, dtype=np.uint16).view(
+        np.int16)).view(torch.bfloat16)
+    rng = np.random.default_rng(0)
+    f32 = torch.from_numpy((rng.standard_normal(1 << 20) * 10.0 ** rng.uniform(
+        -4, 3, 1 << 20)).astype(np.float32))
+    for name, x in (("bf16 bit patterns", bits), ("f32 draws", f32)):
+        raw = bool(torch.equal(x.to(dev).to(f8).cpu().view(torch.uint8),
+                               x.to(f8).view(torch.uint8)))
+        nan = torch.isnan(x)
+        big = ~nan & (x.float().abs() > 464)
+        raw_big = x[big].to(dev).to(f8).float().cpu()
+        card = to_cache(x.to(dev), f8).cpu()
+        # NaN inputs give NaN on both (the clamp may flip a NaN's sign bit)
+        same = bool(torch.equal(card.view(torch.uint8)[~nan],
+                                to_cache(x, f8).view(torch.uint8)[~nan]))
+        nan_ok = bool(torch.isnan(card[nan].float()).all())
+        sat = bool(torch.equal(card[big].float(),
+                               x[big].float().sign() * 448))
+        log(f"fp8 cast: {name} ({x.numel()}): torch's card cast equals its "
+            f"CPU cast byte for byte {raw} (torch {torch.__version__}: "
+            f"{int(big.sum())} values past 464 give NaN "
+            f"{int(torch.isnan(raw_big).sum())}, +-448 "
+            f"{int((raw_big.abs() == 448).sum())}); the port's to_cache on "
+            f"the card equals the CPU's {same}, NaN kept {nan_ok}, past 464 "
+            f"saturated to +-448 {sat}")
+        if not (raw and same and nan_ok and sat):
+            raise AssertionError("the e4m3 cast on the card differs from the"
+                                 " CPU's or does not saturate")
+
+
+def check_fp8_kernels(dev):
+    """Phase 3, the fp8 KV cache: K3 and K4 over e4m3 K/V on their
+    tensor-core kernels, each held to its plain version on the same bytes
+    by the 2-ulp row rule, timed beside the bf16 route on the same values
+    (the bytes widened) and beside its bound (the e4m3 K/V bytes read,
+    half the bf16 route's): K3 at the 4384-token prefill over 4607
+    history slots of a 16384-slot cache, K4 at S = 1, 5 and 8 over a
+    9216-slot window holding 9000; K4's two calls bit-identical and one
+    call replayed in a CUDA graph after q / eff were rewritten equal to the
+    eager call; then K3 (the same prefill) and K4 (S = 1, 8) reading rows
+    [2] and [3, 1] of a [4, 9216, 4, 128] e4m3 pool through ``rows``,
+    bit-identical to the same kernel on a contiguous copy and within the
+    row rule of the plain version. No PyTorch call takes e4m3 K/V, so
+    ``library_ms`` is null. Returns (two kernel records, {label: ms})."""
+    import torch
+
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    rng = np.random.default_rng(8)
+    bf, f8 = torch.bfloat16, torch.float8_e4m3fn
+    T, Hq, Hkv, Dl = 16384, 28, 4, 128
+    kv_row8 = Hkv * Dl            # e4m3 bytes of one slot's K (or V)
+
+    def dev_t(a, dtype=None):
+        return torch.as_tensor(a).to(dev, dtype)
+
+    def case(S, hist, W=None):
+        pos = np.full((1, T), -1, np.int32)
+        pos[0, :hist + S] = np.arange(hist + S)
+        pos[0, rng.choice(hist, 300, replace=False)] = -1
+        allowed = rng.random((1, T)) > 0.3
+        allowed[0, hist:] = True
+        eff = lma.effective_kv_positions(dev_t(pos, torch.int32),
+                                         dev_t(allowed, torch.bool))
+        if W is not None:
+            eff = eff[:, :W].contiguous()
+        q = dev_t(rng.standard_normal((1, S, Hq, Dl)), bf)
+        return q, eff
+
+    k8 = dev_t(rng.standard_normal((1, T, Hkv, Dl)), bf).to(f8)
+    v8 = dev_t(rng.standard_normal((1, T, Hkv, Dl)), bf).to(f8)
+    k16, v16 = k8.to(bf), v8.to(bf)        # the same values, widened
+    timings, records = {}, []
+
+    def bounds(q, qp, eff, out):
+        seen = int((eff[0] < lma.SENTINEL).sum().item())
+        ops = 4 * Hq * Dl * visible_pairs(qp, eff)
+        small = nbytes(q, qp, eff, out)
+        return (bound_ms(small + 2 * seen * kv_row8, ops),
+                bound_ms(small + 2 * seen * kv_row8 * 2, ops))
+
+    # K3: the second ingest's prefill
+    S, hist = 4384, 4607
+    q, eff = case(S, hist)
+    qpos = np.full((1, S), -1, np.int32)
+    qpos[0, :S - 20] = hist + np.arange(S - 20)
+    qp = dev_t(qpos, torch.int32)
+    wrap = lma.prefill_flash_attention
+    t0, f0 = wrap.tc_launches, wrap.fp8_launches
+    got = wrap(q, k8, v8, qp, eff)
+    on_tc = (wrap.tc_launches, wrap.fp8_launches) == (t0 + 1, f0 + 1)
+    err, ratio = row_check(got, lma.gqa_attention_plain(q, k8, v8, qp, eff),
+                           Dl)
+    ms = cuda_ms(lambda: wrap(q, k8, v8, qp, eff), 10)
+    ms16 = cuda_ms(lambda: wrap(q, k16, v16, qp, eff), 10)
+    plain = cuda_ms(lambda: lma.gqa_attention_plain(q, k8, v8, qp, eff), 1)
+    b8, b16 = bounds(q, qp, eff, got)
+    pad_zero = bool((got[0, S - 20:] == 0).all())
+    log(f"kernel K3 fp8 cache S={S} over {hist} history slots: max_abs_err="
+        f"{err:.6g}, worst row at {ratio:.3g} of its bound; tensor-core "
+        f"kernel with the e4m3 code {on_tc}; e4m3 {ms:.4f} ms, bf16 (same "
+        f"values) {ms16:.4f} ms, plain {plain:.4f} ms; bound e4m3 "
+        f"{b8[0]:.4f} ms ({b8[1]}), bf16 {b16[0]:.4f} ms ({b16[1]}); 20 "
+        f"padded query rows zero {pad_zero}")
+    if not (ratio <= 1.0 and on_tc and pad_zero):
+        raise AssertionError("K3 over the fp8 cache disagrees with its plain"
+                             " version")
+    timings["K3 S=4384"] = {"fp8_ms": ms, "bf16_ms": ms16,
+                            "fp8_bound_ms": b8[0], "bf16_bound_ms": b16[0]}
+    records.append({"name": "K3_prefill_attention_fp8kv", "route": "cuda",
+                    "source": KERNELS[2][3], "replaces": KERNELS[2][4],
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                    "bound_ms": b8[0], "bound_by": b8[1],
+                    "library_ms": None})
+
+    # K4: decode and verify steps over a 9216-slot window holding 9000
+    W, fill = 9216, 9000
+    wrap = lma.decode_attention
+    k4 = {}
+    for Sv in (1, 5, 8):
+        qv, effv = case(Sv, fill, W)
+        qpv = dev_t(np.arange(fill, fill + Sv)[None], torch.int32)
+        t0, f0 = wrap.tc_launches, wrap.fp8_launches
+        gotv = wrap(qv, k8, v8, qpv, effv)
+        on_tc = (wrap.tc_launches, wrap.fp8_launches) == (t0 + 1, f0 + 1)
+        errv, ratiov = row_check(gotv, lma.gqa_attention_plain(
+            qv, k8, v8, qpv, effv), Dl)
+        msv = graph_ms(lambda: wrap(qv, k8, v8, qpv, effv), 50)
+        ms16v = graph_ms(lambda: wrap(qv, k16, v16, qpv, effv), 50)
+        b8, b16 = bounds(qv, qpv, effv, gotv)
+        repeat = bool(torch.equal(gotv, wrap(qv, k8, v8, qpv, effv)))
+        log(f"kernel K4 fp8 cache S={Sv} over a {W}-slot window ({fill} "
+            f"history slots): max_abs_err={errv:.6g}, worst row at "
+            f"{ratiov:.3g} of its bound; tensor-core kernel with the e4m3 "
+            f"code {on_tc}; two calls bit-identical {repeat}; e4m3 "
+            f"{msv:.4f} ms, bf16 (same values) {ms16v:.4f} ms (graph ms); "
+            f"bound e4m3 {b8[0]:.4f} ms ({b8[1]}), bf16 {b16[0]:.4f} ms "
+            f"({b16[1]})")
+        if not (ratiov <= 1.0 and on_tc and repeat):
+            raise AssertionError(f"K4 over the fp8 cache at S={Sv} disagrees"
+                                 " with its plain version")
+        timings[f"K4 S={Sv}"] = {"fp8_ms": msv, "bf16_ms": ms16v,
+                                 "fp8_bound_ms": b8[0],
+                                 "bf16_bound_ms": b16[0]}
+        k4[Sv] = (qv, qpv, effv, gotv, errv, msv, b8)
+    qv, qpv, effv, gotv, _, msv, b8 = k4[1]
+    plain = cuda_ms(lambda: lma.gqa_attention_plain(qv, k8, v8, qpv, effv), 5)
+    # capture: one call in a graph, replayed after q and eff are rewritten
+    qr, effr = qv.clone(), effv.clone()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out_g = wrap(qr, k8, v8, qpv, effr)
+    qr.copy_(dev_t(rng.standard_normal((1, 1, Hq, Dl)), bf))
+    effr[0, rng.choice(fill, 500, replace=False)] = lma.SENTINEL
+    g.replay()
+    torch.cuda.synchronize()
+    replay = bool(torch.equal(out_g, wrap(qr, k8, v8, qpv, effr)))
+    log(f"kernel K4 fp8 cache: graph replay after q / eff rewritten equals "
+        f"the eager call {replay}")
+    if not replay:
+        raise AssertionError("K4 over the fp8 cache differs under graph "
+                             "replay")
+    records.append({"name": "K4_decode_attention_fp8kv", "route": "cuda",
+                    "source": KERNELS[3][3], "replaces": KERNELS[3][4],
+                    "max_abs_err": max(v[4] for v in k4.values()),
+                    "ms": msv, "plain_ms": plain, "bound_ms": b8[0],
+                    "bound_by": b8[1], "library_ms": None})
+    del k8, v8, k16, v16, k4, q, got
+
+    # exact widening: all 256 byte values (NaN included) as the V of the one
+    # visible slot, q = 0, so each output head is its kv head's V row
+    vb = torch.zeros((1, 256, 2, Dl), dtype=torch.uint8, device=dev)
+    vb[0, 0] = torch.arange(256, device=dev).to(torch.uint8).reshape(2, Dl)
+    v8, k8 = vb.view(f8), torch.zeros_like(vb).view(f8)
+    eff = torch.full((1, 256), lma.SENTINEL, dtype=torch.int32, device=dev)
+    eff[0, 0] = 0
+    want = v8[0, 0].to(bf).float().repeat_interleave(7, 0)
+    for wrap, S in ((lma.prefill_flash_attention, 16),
+                    (lma.decode_attention, 1)):
+        out = wrap(torch.zeros((1, S, 14, Dl), dtype=bf, device=dev), k8, v8,
+                   dev_t(np.arange(S, dtype=np.int32)[None]), eff).float()
+        exact = bool(torch.equal(torch.nan_to_num(out, 1e9),
+                                 torch.nan_to_num(want.expand_as(out), 1e9)))
+        log(f"kernel {'K3' if S > 1 else 'K4'} fp8: all 256 e4m3 byte values "
+            f"widen exactly (NaN to NaN) {exact}")
+        if not exact:
+            raise AssertionError("an e4m3 byte does not widen exactly")
+
+    # pooled addressing on an e4m3 pool
+    Bp, Tp = 4, 9216
+    pk = dev_t(rng.standard_normal((Bp, Tp, Hkv, Dl)), bf).to(f8)
+    pv = dev_t(rng.standard_normal((Bp, Tp, Hkv, Dl)), bf).to(f8)
+    for rows in ([2], [3, 1]):
+        B = len(rows)
+        cr = lma.cache_rows(rows, dev)
+        kc, vc = pk[rows].contiguous(), pv[rows].contiguous()
+        for kind, S, hist in (("K3", 4384, 4607), ("K4", 1, 9000),
+                              ("K4", 8, 9000)):
+            pos = np.full((B, Tp), -1, np.int32)
+            pos[:, :hist + S] = np.arange(hist + S)
+            pos[:, rng.choice(hist, 300, replace=False)] = -1
+            qpos = np.tile(hist + np.arange(S, dtype=np.int32), (B, 1))
+            if S > 1:
+                qpos[:, -1] = -1            # a padded query
+            eff = lma.effective_kv_positions(dev_t(pos, torch.int32))
+            qp = dev_t(qpos, torch.int32)
+            q = dev_t(rng.standard_normal((B, S, Hq, Dl)), bf)
+            wrap = (lma.prefill_flash_attention if kind == "K3"
+                    else lma.decode_attention)
+            n0, f0 = wrap.rows_launches, wrap.fp8_launches
+            got = wrap(q, pk, pv, qp, eff, rows=cr)
+            counted = (wrap.rows_launches, wrap.fp8_launches) == (n0 + 1,
+                                                                  f0 + 1)
+            same = bool(torch.equal(got, wrap(q, kc, vc, qp, eff)))
+            err, ratio = row_check(got, lma.gqa_attention_plain(
+                q, pk, pv, qp, eff, rows=cr), Dl)
+            timer = (lambda f: cuda_ms(f, 5)) if kind == "K3" \
+                else (lambda f: graph_ms(f, 20))
+            ms_rows = timer(lambda: wrap(q, pk, pv, qp, eff, rows=cr))
+            label = f"{kind} fp8 S={S} rows={rows}"
+            timings[label] = ms_rows
+            log(f"kernel {label}: bit-identical to the contiguous copy "
+                f"{same}; max_abs_err={err:.6g}, worst row at {ratio:.3g} of "
+                f"its bound; {ms_rows:.4f} ms")
+            if not (same and ratio <= 1.0 and counted):
+                raise AssertionError(f"{label} disagrees")
+    return records, timings
+
+
 # ---------------------------------------------------------------------------
 # phase 4: tiny session, kernels on the card vs plain versions on the CPU
 # ---------------------------------------------------------------------------
@@ -1343,6 +1646,68 @@ def run_tiny_pool(model, cfg, device):
     ranges = [[(r.kind, r.start, r.end) for r in pool.sessions[b].ranges]
               for b in range(3)]
     return out, ranges, pool.cache.pos.cpu()
+
+
+def e4m3_ordinal(u8):
+    """e4m3 bytes (a uint8 tensor) as signed ordinals: neighbouring values
+    differ by one."""
+    import torch
+
+    x = u8.int()
+    return torch.where(x >= 128, 128 - x, x)
+
+
+def check_reference_fp8(dev):
+    """Phase 4, the fp8 cache: the tiny f32 session (check_reference's)
+    with ``kv_dtype=torch.float8_e4m3fn`` on the card (K3 / K4's f32 tile
+    reading e4m3) and on the CPU (the plain versions): the same greedy
+    tokens, selections and slot ranges; the cache bytes where pos >= 0
+    equal in at least 99.5% of elements, the rest one e4m3 step apart (a
+    ~1e-6 difference of the f32 keys flips a rounding only next to a tie,
+    and a flip moves later layers' keys by ~1e-3 of the row, which flips a
+    few more: tests/test_torch_fp8kv.py found 99.84% in a pool)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from cogstream_tpu_torch.config import CogReasonerConfig, CompressionConfig
+    from cogstream_tpu_torch.models.cogreasoner import init_cogreasoner_params
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    cfg = dataclasses.replace(
+        CogReasonerConfig.tiny(),
+        compression=CompressionConfig(frames_per_event=3,
+                                      keyframes_per_event=1,
+                                      min_events_for_compression=1,
+                                      similarity_threshold=2.0))
+    cpu_model = init_cogreasoner_params(cfg, torch.Generator().manual_seed(0),
+                                        device="cpu")
+    gpu_model = copy.deepcopy(cpu_model)
+    f8 = torch.float8_e4m3fn
+    ref, ref_ranges, ref_sess = run_tiny_session(cpu_model, cfg, "cpu",
+                                                 kv_dtype=f8)
+    f0 = (lma.prefill_flash_attention.fp8_launches,
+          lma.decode_attention.fp8_launches)
+    got, got_ranges, got_sess = run_tiny_session(gpu_model, cfg, dev,
+                                                 kv_dtype=f8)
+    used = (lma.prefill_flash_attention.fp8_launches - f0[0],
+            lma.decode_attention.fp8_launches - f0[1])
+    live = ref_sess.cache.pos[0] >= 0
+    shares, steps = [], []
+    for name in ("k", "v"):
+        a = getattr(got_sess.cache, name).cpu()[:, 0, live].view(torch.uint8)
+        b = getattr(ref_sess.cache, name)[:, 0, live].view(torch.uint8)
+        shares.append((a == b).float().mean().item())
+        steps.append(int((e4m3_ordinal(a) - e4m3_ordinal(b)).abs().max()))
+    log(f"reference: tiny f32 session over an e4m3 cache, tokens {got} vs "
+        f"cpu {ref}; ranges equal {got_ranges == ref_ranges}; K / V bytes "
+        f"equal where pos >= 0 in {shares} of elements, the rest within "
+        f"{steps} e4m3 steps; fp8 launches (K3, K4) {used}")
+    if got != ref or got_ranges != ref_ranges or min(shares) < 0.995 \
+            or max(steps) > 1 or min(used) == 0:
+        raise AssertionError("the tiny fp8 session on the card disagrees "
+                             "with the plain versions on the CPU")
 
 
 def check_reference_pool(dev):
@@ -1956,6 +2321,18 @@ def run_lookahead_schedule(text, dev, stamp):
     return metrics
 
 
+MAIN_ANSWERS = {}   # phase 5's bf16 answer tokens by mode (AC, FCC)
+MAIN_SEGMENTS = (16, 24, 42, 2)   # frames, grid h, grid w, merge
+
+
+def main_segments():
+    """Phase 5's two seeded 16-frame 24x42 segments of uint8 patch rows."""
+    t, gh, gw, _ = MAIN_SEGMENTS
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, 256, (t * gh * gw, 3 * 14 * 14), dtype=np.uint8)
+            for _ in range(2)]
+
+
 def run_main_path(dev, stamp):
     import torch
 
@@ -1976,10 +2353,8 @@ def run_main_path(dev, stamp):
     tok = ByteTokenizer(image_token_id=cfg.image_token_index,
                         vocab=cfg.text.vocab_size)
     timer = PhaseTimer()
-    rng = np.random.default_rng(0)
-    t, gh, gw, ms = 16, 24, 42, 2
-    segments = [rng.integers(0, 256, (t * gh * gw, 3 * 14 * 14),
-                             dtype=np.uint8) for _ in range(2)]
+    t, gh, gw, ms = MAIN_SEGMENTS
+    segments = main_segments()
 
     for i in BF16_PATH:                    # count the main path only
         wrapper(i).launches = 0
@@ -2044,6 +2419,7 @@ def run_main_path(dev, stamp):
             f"{timer.step_split(after_sel[0] if after_sel else mark)} "
             f"[{stamp}]")
         toks = r["tokens"]
+        MAIN_ANSWERS[mode] = toks
         if not (toks and all(0 <= x < cfg.text.vocab_size for x in toks)):
             raise AssertionError(f"bad answer tokens {toks}")
     torch.cuda.synchronize()
@@ -2080,14 +2456,134 @@ def run_main_path(dev, stamp):
     return launches, metrics, sess
 
 
+def run_fp8_session(sess16, dev, stamp):
+    """Phase 5 (c), the fp8 KV cache at 7B width: a second
+    ``StreamingSession`` on the phase-5 model with
+    ``kv_dtype=torch.float8_e4m3fn`` ingests phase 5's two segments and
+    asks its AC and FCC questions (32 greedy tokens). K3 / K4 counts are
+    reset just before and read just after: every launch on its
+    tensor-core kernel, and K3 and K4 each launched over the e4m3 cache
+    (the selector's and the event summaries' forwards keep bf16 caches of
+    their own). Prints ingest seconds, turns and decode tok/s; the cache's
+    bytes beside the bf16 session's; the greedy-prefix agreement with
+    phase 5's bf16 answers (reported, not asserted: fp8 is lossy); the
+    largest |K| and |V| the bf16 session holds, how many of its elements
+    pass 448 (e4m3's largest value, where the cast saturates) and how many
+    of the fp8 cache's elements sit at +-448; and ``decode_step_cost`` over
+    a 9216-slot cache holding 9000 slots, bf16 then e4m3. Returns ([K3,
+    K4 launches over the e4m3 cache], metrics)."""
+    import torch
+
+    from cogstream_tpu_torch.evaluate.quant_quality import prefix_agreement
+    from cogstream_tpu_torch.ops import lm_attention as lma
+    from cogstream_tpu_torch.runtime.session import StreamingSession
+
+    f8 = torch.float8_e4m3fn
+    model, cfg, tok = sess16.model, sess16.cfg, sess16.tok
+    t, gh, gw, ms = MAIN_SEGMENTS
+    k3, k4 = lma.prefill_flash_attention, lma.decode_attention
+    timer = PhaseTimer()
+    metrics = {}
+    for w in (k3, k4):
+        w.launches = w.tc_launches = w.fp8_launches = 0
+    try:
+        sess = StreamingSession(model, cfg, tok, max_len=16384, kv_dtype=f8)
+        asks = [("What is happening in the video?", "AC"),
+                ("What changed since then?", "FCC")]
+        for seg_i, (pv, (question, mode)) in enumerate(
+                zip(main_segments(), asks)):
+            mark = timer.mark()
+            t0 = time.perf_counter()
+            sess.append_stream_segment(pv, (t, gh, gw), ms,
+                                       timestamps=[float(seg_i * t + f)
+                                                   for f in range(t)])
+            torch.cuda.synchronize()
+            ingest_s = time.perf_counter() - t0
+            pf = [(S, b - a) for S, a, b in timer.forwards[mark:] if S > 8]
+            metrics[f"fp8_ingest{seg_i}_s"] = ingest_s
+            metrics[f"fp8_ingest{seg_i}_prefill_tok_per_s"] = \
+                pf[0][0] / pf[0][1]
+            after_sel = []
+            select = sess.selector.select
+
+            def marked_select(*a, **k):
+                out = select(*a, **k)
+                after_sel.append(timer.mark())
+                return out
+
+            sess.selector.select = marked_select
+            mark = timer.mark()
+            t0 = time.perf_counter()
+            r = sess.ask(question, mode=mode, max_new_tokens=32)
+            torch.cuda.synchronize()
+            turn_s = time.perf_counter() - t0
+            sess.selector.select = select
+            since = after_sel[0] if after_sel else mark
+            dec = timer.decode_rate(since)
+            agree = prefix_agreement(np.asarray(MAIN_ANSWERS[mode]),
+                                     np.asarray(r["tokens"]))
+            metrics.update({f"fp8_{mode}_turn_s": turn_s,
+                            f"fp8_{mode}_decode_tok_per_s": dec,
+                            f"fp8_{mode}_prefix_agree_vs_bf16": agree})
+            log(f"main fp8 cache: ingest {seg_i} {ingest_s:.3f}s (prefill "
+                f"{pf[0][0]} tokens, {pf[0][0] / pf[0][1]:.0f} tok/s); ask "
+                f"{mode}: turn {turn_s:.3f}s, {len(r['tokens'])} tokens, "
+                f"marginal decode {dec:.1f} tok/s; {timer.step_split(since)};"
+                f" greedy prefix agreement with the bf16 session {agree:.3f}"
+                f" (selection {r['selection']!r}) [{stamp}]")
+            if not all(0 <= x < cfg.text.vocab_size for x in r["tokens"]):
+                raise AssertionError(f"bad fp8 answer tokens {r['tokens']}")
+    finally:
+        timer.restore()
+    torch.cuda.synchronize()
+    counts = {n: (w.launches, w.tc_launches, w.fp8_launches)
+              for n, w in (("K3", k3), ("K4", k4))}
+    c8, c16 = sess.cache, sess16.cache
+    wi = sess.write_index
+    u8 = [x[:, :, :wi].view(torch.uint8) & 0x7F for x in (c8.k, c8.v)]
+    nan = sum(int((u == 0x7F).sum()) for u in u8)
+    at448 = [int((u == 0x7E).sum()) for u in u8]
+    live16 = c16.pos[0] >= 0
+    big = []
+    for x in (c16.k, c16.v):
+        a = x[:, 0, live16].abs()
+        big.append((float(a.amax()), int((a > 448).sum())))
+        del a
+    b8, b16 = nbytes(c8.k, c8.v, c8.pos), nbytes(c16.k, c16.v, c16.pos)
+    metrics.update(fp8_cache_bytes=b8, bf16_cache_bytes=b16,
+                   fp8_max_abs_kv_bf16_session=[m for m, _ in big],
+                   fp8_over_448_bf16_session=[n for _, n in big],
+                   fp8_at_448=at448)
+    log(f"main fp8 cache: {wi} slots; cache {b8 / 1e9:.3f} GB against the "
+        f"bf16 session's {b16 / 1e9:.3f} GB; the bf16 session's largest |K|"
+        f" {big[0][0]:.4g}, |V| {big[1][0]:.4g}, elements past 448 (K, V) "
+        f"{[n for _, n in big]}; fp8 elements at +-448 (K, V) {at448}, NaN "
+        f"{nan}; K3 / K4 (launches, tensor-core, over e4m3) {counts} "
+        f"[{stamp}]")
+    if nan or any(c[0] != c[1] or c[2] == 0 for c in counts.values()):
+        raise AssertionError("the fp8 session did not run K3 / K4 over its "
+                             "e4m3 cache on the tensor-core kernels")
+    launches = [counts["K3"][2], counts["K4"][2]]
+    del sess
+    gc.collect()
+    for label, kv in (("bf16 cache", None), ("e4m3 cache", f8)):
+        n, dev_ms, wall_ms, _ = decode_step_cost(
+            model.text, label, stamp, slots=9216, fill=9000, kv_dtype=kv)
+        key = "bf16" if kv is None else "fp8"
+        metrics[f"{key}_step_9000_device_ms"] = dev_ms
+        metrics[f"{key}_step_9000_wall_ms"] = wall_ms
+    return launches, metrics
+
+
 def decode_step_cost(text, label: str, stamp: str, steps: int = 10,
                      tokens: int = 1, head_rows: int = 1, slots: int = 64,
-                     fill: int = 0):
+                     fill: int = 0, kv_dtype=None):
     """One decode step (a ``tokens``-token cached forward plus the
     full-vocab logits of its last ``head_rows`` rows; 1 token, a
     lookahead verify's k+1 with all k+1 rows, or a question prefill's few
     dozen) on a scratch cache of at least ``slots`` slots whose first
-    ``fill`` hold history positions (zero K/V): its kernel launches and
+    ``fill`` hold history positions (zero K/V; the cache in ``kv_dtype``,
+    the model's by default): its kernel launches and
     summed kernel device time from torch.profiler (its five largest
     kernels are printed, and the GEMVs' share: int4 K6-K9, int8 K10), and
     its host wall ms from a synchronized clock over ``steps`` unprofiled
@@ -2099,8 +2595,8 @@ def decode_step_cost(text, label: str, stamp: str, steps: int = 10,
 
     cfg = text.cfg
     cache = qwen2.init_kv_cache(
-        cfg, 1, max(slots, fill + tokens * (steps + 2)), dtype=text.dtype,
-        device=text.device)
+        cfg, 1, max(slots, fill + tokens * (steps + 2)),
+        dtype=kv_dtype or text.dtype, device=text.device)
     cache.pos[:, :fill] = torch.arange(fill, dtype=torch.int32)
     cache.write_index = fill
     emb = torch.zeros((1, tokens, cfg.hidden_size), dtype=text.dtype,
@@ -2133,7 +2629,8 @@ def decode_step_cost(text, label: str, stamp: str, steps: int = 10,
                         kern, key=lambda e: -e.self_device_time_total)[:5])
     what = ("decode step" if tokens == 1 else f"verify step S={tokens}"
             if head_rows == tokens else f"{tokens}-token prefill")
-    log(f"{what} ({label}, {cache.max_len}-slot cache, {fill} filled): {n}"
+    log(f"{what} ({label}, {cache.max_len}-slot {str(cache.k.dtype)[6:]} "
+        f"cache, {fill} filled): {n}"
         f" launches, device {dev_ms:.2f} ms (GEMVs {gemv_ms:.2f}), wall "
         f"{wall_ms:.2f} ms (busy {dev_ms / wall_ms:.3f}); largest: {top} "
         f"[{stamp}]")
@@ -2982,6 +3479,85 @@ def run_pool_path(model, dev, stamp, b1_rate):
     return metrics
 
 
+def run_fp8_pool(model, dev, stamp):
+    """Phase 9 (c), the fp8 pool: a ``SessionPool`` of 4 rows x 16384
+    slots with ``kv_dtype=torch.float8_e4m3fn`` on the phase-5 model, its
+    allocated bytes beside the bf16 pool's 3.76 GB; one ``ingest_batch``
+    tick of phase 9's seeded segments and ``ask_batch`` AC on all rows
+    (32 greedy tokens), its decode tok/s. K3 and K4 must launch over the
+    e4m3 pool through ``rows``, every launch on its tensor-core kernel.
+    Returns metrics."""
+    import torch
+
+    from cogstream_tpu_torch import presets
+    from cogstream_tpu_torch.ops import lm_attention as lma
+    from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
+    from cogstream_tpu_torch.runtime.pool import SessionPool
+
+    cfg = presets.cogreasoner_7b()
+    tok = ByteTokenizer(image_token_id=cfg.image_token_index,
+                        vocab=cfg.text.vocab_size)
+    t, gh, gw, ms = 16, 24, 42, 2
+    k3, k4 = lma.prefill_flash_attention, lma.decode_attention
+    for w in (k3, k4):
+        w.launches = w.tc_launches = w.fp8_launches = w.rows_launches = 0
+    timer = PhaseTimer()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    try:
+        pool = SessionPool(model, cfg, tok, n_rows=POOL_ROWS,
+                           max_len=POOL_LEN, kv_dtype=torch.float8_e4m3fn)
+        torch.cuda.synchronize()
+        alloc = torch.cuda.memory_allocated() - base
+        c = pool.cache
+        bf16_bytes = (c.k.numel() + c.v.numel()) * 2 + c.pos.numel() * 4
+        log(f"pool fp8: {POOL_ROWS} rows x {POOL_LEN} slots, e4m3 cache "
+            f"{nbytes(c.k, c.v, c.pos) / 1e9:.3f} GB (allocated "
+            f"{alloc / 1e9:.3f} GB) against the bf16 pool's "
+            f"{bf16_bytes / 1e9:.3f} GB [{stamp}]")
+        rows = [pool.open() for _ in range(POOL_ROWS)]
+        segs = [np.random.default_rng(r).integers(
+            0, 256, (t * gh * gw, 3 * 14 * 14), dtype=np.uint8) for r in rows]
+        t0 = time.perf_counter()
+        pool.ingest_batch([(r, segs[r], (t, gh, gw), ms,
+                            [float(f) for f in range(t)]) for r in rows])
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        mark = timer.mark()
+        t0 = time.perf_counter()
+        out = pool.ask_batch([(r, f"What is happening in row {r}?")
+                              for r in rows], mode="AC", max_new_tokens=32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rate = timer.decode_rate(mark)
+        n_tok = [len(out[r]["tokens"]) for r in rows]
+        u8 = c.k.view(torch.uint8)
+        nan = int(((u8 & 0x7F) == 0x7F).sum())
+        counts = {n: (w.launches, w.tc_launches, w.fp8_launches,
+                      w.rows_launches) for n, w in (("K3", k3), ("K4", k4))}
+        log(f"pool fp8: ingest_batch {ingest_s:.3f}s for {POOL_ROWS} x {t} "
+            f"frames; ask_batch AC {wall:.3f}s, tokens {n_tok}, marginal "
+            f"decode {rate:.1f} tok/s a row, {POOL_ROWS * rate:.1f} tok/s "
+            f"over {POOL_ROWS} rows; {timer.step_split(mark)}; K NaN bytes "
+            f"{nan}; K3 / K4 (launches, tensor-core, over e4m3, with rows) "
+            f"{counts} [{stamp}]")
+        if nan or min(n_tok) == 0 or any(
+                c_[0] != c_[1] or c_[2] == 0 or c_[3] == 0
+                for c_ in counts.values()):
+            raise AssertionError("fp8 pool path check failed")
+    finally:
+        timer.restore()
+    metrics = {"pool_fp8_cache_bytes": nbytes(c.k, c.v, c.pos),
+               "pool_fp8_allocated_bytes": alloc,
+               "pool_bf16_cache_bytes": bf16_bytes,
+               "pool_fp8_ingest_s": ingest_s,
+               "pool_fp8_AC_decode_tok_per_s_per_row": rate}
+    del pool, c, u8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return metrics
+
+
 def run_http_path(model, dev, stamp):
     """Phase 9 (HTTP): ``SessionServer(pool_rows=4)`` on the same model,
     served on 127.0.0.1 at a free port from a thread. Four client threads
@@ -3366,13 +3942,45 @@ def run_int8_path(model, dev, stamp):
     return [k10], metrics
 
 
+def fp8kv_quality(model, cfg, ids, greedy, stamp):
+    """The fp8kv row of the quality ladder on the bf16 build: logit MAE,
+    KL and top-1 agreement of ``cached_logits`` over an e4m3 cache
+    against a bf16 cache, and the greedy prefix agreement of the e4m3
+    cache's continuation with the bf16 one's; K3 and K4 must launch over
+    the e4m3 cache."""
+    import torch
+
+    from cogstream_tpu_torch.evaluate import quant_quality as qq
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    f8 = torch.float8_e4m3fn
+    f0 = (lma.prefill_flash_attention.fp8_launches,
+          lma.decode_attention.fp8_launches)
+    row = qq.compare_logits(qq.cached_logits(model, ids, cfg, 512),
+                            qq.cached_logits(model, ids, cfg, 512,
+                                             kv_dtype=f8), "fp8kv")
+    row["fp8kv_prefix_agree"] = qq.prefix_agreement(
+        greedy, qq.greedy_continuation(model, cfg, ids, n=32, max_len=512,
+                                       kv_dtype=f8))
+    used = (lma.prefill_flash_attention.fp8_launches - f0[0],
+            lma.decode_attention.fp8_launches - f0[1])
+    log("quality: fp8kv (e4m3 cache vs bf16 cache, cached logits): "
+        + ", ".join(f"{k[6:]} {v}" for k, v in row.items())
+        + f"; K3 / K4 launches over e4m3 {used} [{stamp}]")
+    if min(used) == 0:
+        raise AssertionError("the fp8kv probe did not read an e4m3 cache")
+    return row
+
+
 def run_quant_quality(tcfg, dev, stamp):
     """Phase 10 (c): ``evaluate/quant_quality`` at full 7B width and depth,
     one scheme resident at a time, each built from the same seeded floats:
     bf16 (the truth), int8, int8 with W8A8 prefill, int4u, int4c, nf4.
     Teacher-forced logits over 128 probe tokens (logit MAE, KL, top-1
     agreement) and greedy prefix agreement over 32 tokens, each against
-    bf16. int8's KL must be below each 4-bit scheme's."""
+    bf16. int8's KL must be below each 4-bit scheme's. On the bf16 build,
+    the fp8kv row: the cached logits (K3) and the greedy continuation (K4)
+    over an e4m3 cache against a bf16 cache."""
     import dataclasses
 
     import torch
@@ -3399,6 +4007,7 @@ def run_quant_quality(tcfg, dev, stamp):
             log(f"quality: bf16 truth built in {build_s:.1f}s; "
                 f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated "
                 f"[{stamp}]")
+            out.update(fp8kv_quality(model, cfg, ids, greedy, stamp))
             continue
         key = scheme.replace("+", "_")
         row = qq.compare_logits(truth[0], logits, key)
@@ -3902,21 +4511,33 @@ def main() -> int:
     kernels.library()
     log(f"build: kernels built and loaded in {time.perf_counter() - t0:.1f}s "
         f"(nvcc {kernels.last_build_seconds})")
-    for name, use in ptxas_usage(kernels.last_build_log, TC_KERNELS).items():
+    usage = ptxas_usage(kernels.last_build_log, TC_KERNELS)
+    for name, use in usage.items():
         log(f"build: ptxas {name}: {use}")
+    for name, smem in lm_attention_smem().items():
+        regs = usage.get(name, {}).get("registers")
+        log(f"build: {name}: {smem} bytes of shared memory a block (16384"
+            f"-slot read), {blocks_per_sm(regs, smem)} blocks per SM "
+            f"(registers {regs})")
 
     results, verify_ms = check_kernels(dev)
     results += check_int4_kernels(dev)
     k10, w8a8_ms = check_int8_kernels(dev)
     results.append(k10)
     rows_ms = check_rows_kernels(dev)
+    check_fp8_cast(dev)
+    fp8_results, fp8_ms = check_fp8_kernels(dev)
     check_reference(dev)
     check_reference_int4(dev)
     check_reference_int8(dev)
     check_reference_pool(dev)
     check_reference_lookahead(dev)
+    check_reference_fp8(dev)
     check_training_reference(dev)
     launches, metrics, sess = run_main_path(dev, card)
+    fp8_launches, fp8_metrics = run_fp8_session(sess, dev, card)
+    metrics.update(fp8_metrics)
+    metrics["fp8_attention_ms"] = fp8_ms
     if args.profile:
         profile_phases(sess, card)
     model = sess.model
@@ -3926,15 +4547,18 @@ def main() -> int:
     metrics.update(run_engine_path(model, dev, card))
     metrics.update(run_pool_path(model, dev, card,
                                  metrics["AC_decode_tok_per_s"]))
+    metrics.update(run_fp8_pool(model, dev, card))
     metrics.update(run_http_path(model, dev, card))
     metrics["rows_ms"] = rows_ms
     train_launches, train_metrics = run_training(model, dev, card,
                                                  args.profile)
     int8_launches, int8_metrics = run_int8_path(model, dev, card)
     int4_launches, int4_metrics = run_int4_path(model, dev, card)
-    for r, n in zip(results, launches + train_launches + int4_launches
-                    + int8_launches):
+    for r, n in zip(results + fp8_results,
+                    launches + train_launches + int4_launches
+                    + int8_launches + fp8_launches):
         r["launches"] = n
+    results += fp8_results
     metrics["w8a8_gate_proj_4384_ms"] = w8a8_ms
     metrics.update(train_metrics)
     metrics.update(int8_metrics)

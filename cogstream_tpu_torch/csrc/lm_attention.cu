@@ -60,6 +60,21 @@
 //   - K4 f32: chunks of `chunk_tiles` tiles; each block writes its
 //     partial (m, l, acc) and cs_gqa_combine merges the chunks.
 //
+// An e4m3 K/V cache (the fp8 KV cache, kv_dtype code E4M3): each route
+// reads the cache's own bytes and converts them on chip, as the TPU
+// kernels do (`k_ref[0].astype(q.dtype)`), so the K/V traffic from HBM
+// halves against bf16 and no bf16 copy of the cache is ever made.
+//   - K3 / K4 tensor-core kernels (template flag F8): cp.async copies the
+//     tile's e4m3 rows (16 elements per 16-byte chunk) into a byte stage
+//     in shared memory; tc::e4m3_tile widens them into the bf16 tile that
+//     the unchanged ldmatrix / mma.sync body reads (exact: every e4m3 value
+//     is a bf16 value). K3 keeps two byte stages (the next tile's copy
+//     overlaps this tile's math) and one bf16 K and V tile; a K4 warp
+//     keeps its K and V bytes and one bf16 tile, widening K before its
+//     scores and V after them. Shared memory stays about the bf16 route's.
+//   - f32 route: gqa_attention_kernel<float, __nv_fp8_e4m3> widens each
+//     element as it fills the f32 tile.
+//
 // Row addressing (pooled serving): every route takes an optional `rows`
 // ([B] int32 on the device). With it, input row b reads cache row
 // rows[b] of a [B_pool, T_cache, Hkv, D] cache (the TPU kernel's `rows`
@@ -71,6 +86,8 @@
 // attention (runtime/generate.py), so K4 needs no side buffer or fresh
 // K/V stream: the TPU kernel's main (+) side (+) fresh folding becomes
 // one cache range.
+#include <type_traits>
+
 #include "common.cuh"
 #include "tc_tile.cuh"
 
@@ -113,10 +130,10 @@ __global__ void tile_minmax_kernel(const int* __restrict__ eff,
   }
 }
 
-template <typename T>
+template <typename T, typename KV>
 __global__ void __launch_bounds__(cs::NT)
-gqa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int* __restrict__ qpos,
+gqa_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                     const KV* __restrict__ v, const int* __restrict__ qpos,
                      const int* __restrict__ eff,
                      const int* __restrict__ tile_min,
                      const int* __restrict__ rows, T* __restrict__ out,
@@ -233,7 +250,7 @@ __global__ void gqa_combine_kernel(const float* __restrict__ part_m,
       cs::from_f<T>(A / (L > 0.f ? L : 1.f));
 }
 
-template <typename T>
+template <typename T, typename KV>
 int launch_gqa(const void* q, const void* k, const void* v, const void* qpos,
                const void* eff, void* tile_min, const void* rows, void* out,
                void* part_m,
@@ -247,7 +264,7 @@ int launch_gqa(const void* q, const void* k, const void* v, const void* qpos,
   const int R = S * (Hq / Hkv);
   const size_t bytes = cs::tile_smem_floats(D) * sizeof(float) +
                        (2 * cs::BR + cs::NT / 32 + chunk_tiles) * sizeof(int);
-  auto kern = gqa_attention_kernel<T>;
+  auto kern = gqa_attention_kernel<T, KV>;
   // once per instantiation, not per launch
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
@@ -255,8 +272,8 @@ int launch_gqa(const void* q, const void* k, const void* v, const void* qpos,
   if (bytes > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((R + cs::BR - 1) / cs::BR, B * Hkv, n_chunks);
   kern<<<grid, cs::NT, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(qpos),
+      static_cast<const T*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), static_cast<const int*>(qpos),
       static_cast<const int*>(eff), static_cast<const int*>(tile_min),
       static_cast<const int*>(rows), static_cast<T*>(out),
       static_cast<float*>(part_m),
@@ -266,14 +283,19 @@ int launch_gqa(const void* q, const void* k, const void* v, const void* qpos,
 }
 
 // K3 in bf16: the tensor-core prefill tile (see the header), 4 warps of
-// MT m-tiles
+// MT m-tiles. F8: k and v are e4m3 bytes, staged in shared memory in two
+// stages and widened into one bf16 K and V tile before each tile's math.
 constexpr int TC_WARPS = 4;
 
-template <int D, int MT>
+// K/V element type of a tensor-core kernel: e4m3 bytes or bf16
+template <bool F8>
+using KVT = typename std::conditional<F8, uint8_t, tc::bf16>::type;
+
+template <int D, int MT, bool F8>
 __global__ void __launch_bounds__(TC_WARPS * 32, 2)
 gqa_prefill_tc_kernel(const tc::bf16* __restrict__ q,
-                      const tc::bf16* __restrict__ k,
-                      const tc::bf16* __restrict__ v,
+                      const KVT<F8>* __restrict__ k,
+                      const KVT<F8>* __restrict__ v,
                       const int* __restrict__ qpos,
                       const int* __restrict__ eff,
                       const int* __restrict__ tile_mm,
@@ -282,13 +304,20 @@ gqa_prefill_tc_kernel(const tc::bf16* __restrict__ q,
                       int Hkv, int T_cache, int kv_len, float scale2) {
   constexpr int NW = TC_WARPS, WR = 16 * MT, BR = NW * WR, NT = 32 * NW;
   constexpr int BK = tc::BK;
-  constexpr int KS = tc::stride(D), CH = D / 8;  // 16-byte chunks per row
+  constexpr int KS = tc::stride(D), CH = D / 8;  // 16-byte Q chunks per row
+  // K/V: 16-byte chunks of a global row, elements per chunk, bf16 tile
+  // stages (F8: one, refilled from the staged bytes)
+  constexpr int CHK = D * sizeof(KVT<F8>) / 16;
+  constexpr int EPC = 16 / sizeof(KVT<F8>);
+  constexpr int NSB = F8 ? 1 : 2;
   const int n_tiles = (kv_len + BK - 1) / BK;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   tc::bf16* Qs = reinterpret_cast<tc::bf16*>(smem_raw);
-  tc::bf16* Ks = Qs + BR * KS;                    // 2 stages
-  tc::bf16* Vs = Ks + 2 * BK * KS;                // 2 stages
-  int* cpos = reinterpret_cast<int*>(Vs + 2 * BK * KS);  // 2 stages
+  tc::bf16* Ks = Qs + BR * KS;                    // NSB stages
+  tc::bf16* Vs = Ks + NSB * BK * KS;              // NSB stages
+  uint8_t* K8 = reinterpret_cast<uint8_t*>(Vs + NSB * BK * KS);  // F8: 2
+  uint8_t* V8 = K8 + (F8 ? 2 * BK * D : 0);       // stages of e4m3 rows
+  int* cpos = reinterpret_cast<int*>(V8 + (F8 ? 2 * BK * D : 0));  // 2 stages
   int* rpos = cpos + 2 * BK;
   int* red = rpos + BR;
   int* tmin = red + NW;
@@ -300,8 +329,8 @@ gqa_prefill_tc_kernel(const tc::bf16* __restrict__ q,
   const int r0 = (gridDim.x - 1 - blockIdx.x) * BR;  // last rows first
   const size_t tok = (size_t)Hkv * D;             // K/V token stride
   const size_t kv_row = rows ? rows[b] : b;  // the cache row of input row b
-  const tc::bf16* kb = k + kv_row * T_cache * tok + (size_t)h * D;
-  const tc::bf16* vb = v + kv_row * T_cache * tok + (size_t)h * D;
+  const KVT<F8>* kb = k + kv_row * T_cache * tok + (size_t)h * D;
+  const KVT<F8>* vb = v + kv_row * T_cache * tok + (size_t)h * D;
   const int* effb = eff + (size_t)b * kv_len;
 
   for (int i = tid; i < BR * CH; i += NT) {
@@ -344,14 +373,18 @@ gqa_prefill_tc_kernel(const tc::bf16* __restrict__ q,
   };
   auto load = [&](int t, int stage) {
     const int k0 = t * BK;
-    tc::bf16* kd = Ks + stage * BK * KS;
-    tc::bf16* vd = Vs + stage * BK * KS;
-    for (int i = tid; i < BK * CH; i += NT) {
-      const int c = i / CH, ch = i % CH;
+    // destination rows: the bf16 tile's (stride KS), or F8's byte stage
+    unsigned char* kd = F8 ? K8 + stage * BK * D
+        : reinterpret_cast<unsigned char*>(Ks + stage * BK * KS);
+    unsigned char* vd = F8 ? V8 + stage * BK * D
+        : reinterpret_cast<unsigned char*>(Vs + stage * BK * KS);
+    constexpr int DST = F8 ? D : KS * 2;  // destination row bytes
+    for (int i = tid; i < BK * CHK; i += NT) {
+      const int c = i / CHK, ch = i % CHK;
       const bool ok = k0 + c < kv_len;  // ragged last tile: zero rows
-      const size_t off = ok ? (size_t)(k0 + c) * tok + ch * 8 : 0;
-      tc::cp_async16(kd + c * KS + ch * 8, kb + off, ok);
-      tc::cp_async16(vd + c * KS + ch * 8, vb + off, ok);
+      const size_t off = ok ? (size_t)(k0 + c) * tok + ch * EPC : 0;
+      tc::cp_async16(kd + c * DST + ch * 16, kb + off, ok);
+      tc::cp_async16(vd + c * DST + ch * 16, vb + off, ok);
     }
     for (int c = tid; c < BK; c += NT) {
       int* dst = cpos + stage * BK + c;
@@ -389,9 +422,15 @@ gqa_prefill_tc_kernel(const tc::bf16* __restrict__ q,
     }
     __syncthreads();
     const int* cp = cpos + stage * BK;
+    const int sb = F8 ? 0 : stage;  // the bf16 tile's stage
+    if constexpr (F8) {  // widen this stage's bytes into the bf16 tile
+      tc::e4m3_tile<D>(Ks, K8 + stage * BK * D, tid, NT);
+      tc::e4m3_tile<D>(Vs, V8 + stage * BK * D, tid, NT);
+      __syncthreads();
+    }
     // a tile whose largest position every row of the warp has reached
     // (a padded row, -1, has reached none) needs no compare
-    tc::attend<D, MT>(Qw, Ks + stage * BK * KS, Vs + stage * BK * KS, scale2,
+    tc::attend<D, MT>(Qw, Ks + sb * BK * KS, Vs + sb * BK * KS, scale2,
                       tmax[t] <= wmin,
                       [=](int m, int i, int c) { return rp[m][i] >= cp[c]; },
                       st);
@@ -422,35 +461,39 @@ int sm_count() {
   return n;
 }
 
-template <int D, int MT>
+template <int D, int MT, bool F8>
 int launch_prefill_tc(const void* q, const void* k, const void* v,
                       const void* qpos, const void* eff, const void* tile_mm,
                       const void* rows, void* out, int B, int S, int Hq,
                       int Hkv, int T_cache, int kv_len, float scale2,
                       cudaStream_t st) {
   constexpr int NW = TC_WARPS, BR = NW * 16 * MT;
-  auto kern = gqa_prefill_tc_kernel<D, MT>;
+  auto kern = gqa_prefill_tc_kernel<D, MT, F8>;
   // once per instantiation, not per launch
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int n_tiles = (kv_len + tc::BK - 1) / tc::BK;
+  // Q, the bf16 K/V stages (F8: one, plus two stages of e4m3 rows), then
+  // the positions
   const size_t bytes =
-      (size_t)(BR + 4 * tc::BK) * tc::stride(D) * sizeof(tc::bf16) +
+      (size_t)(BR + (F8 ? 2 : 4) * tc::BK) * tc::stride(D) *
+          sizeof(tc::bf16) +
+      (F8 ? (size_t)4 * tc::BK * D : 0) +
       (size_t)(2 * tc::BK + BR + NW + 2 * n_tiles) * sizeof(int);
   if (bytes > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   const int R = S * (Hq / Hkv);
   const dim3 grid((R + BR - 1) / BR, B * Hkv);
   kern<<<grid, NW * 32, bytes, st>>>(
-      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
-      static_cast<const tc::bf16*>(v), static_cast<const int*>(qpos),
+      static_cast<const tc::bf16*>(q), static_cast<const KVT<F8>*>(k),
+      static_cast<const KVT<F8>*>(v), static_cast<const int*>(qpos),
       static_cast<const int*>(eff), static_cast<const int*>(tile_mm),
       static_cast<const int*>(rows), static_cast<tc::bf16*>(out), B, S, Hq,
       Hkv, T_cache, kv_len, scale2);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool F8>
 int dispatch_prefill_tc(const void* q, const void* k, const void* v,
                         const void* qpos, const void* eff,
                         const void* tile_mm, const void* rows, void* out,
@@ -459,23 +502,35 @@ int dispatch_prefill_tc(const void* q, const void* k, const void* v,
   const int R = S * (Hq / Hkv);
   // 128-row blocks (2 m-tiles per warp) unless they would leave SMs idle
   if ((R + 127) / 128 * B * Hkv >= sm_count())
-    return launch_prefill_tc<D, 2>(q, k, v, qpos, eff, tile_mm, rows, out, B,
-                                   S, Hq, Hkv, T_cache, kv_len, scale2, st);
-  return launch_prefill_tc<D, 1>(q, k, v, qpos, eff, tile_mm, rows, out, B,
-                                 S, Hq, Hkv, T_cache, kv_len, scale2, st);
+    return launch_prefill_tc<D, 2, F8>(q, k, v, qpos, eff, tile_mm, rows,
+                                       out, B, S, Hq, Hkv, T_cache, kv_len,
+                                       scale2, st);
+  return launch_prefill_tc<D, 1, F8>(q, k, v, qpos, eff, tile_mm, rows, out,
+                                     B, S, Hq, Hkv, T_cache, kv_len, scale2,
+                                     st);
 }
 
 // K4 in bf16: the decode-shaped tensor-core kernel (see the header). A
 // block of 4 warps owns the RB = 16 * MT folded rows r0 + [0, RB) of one
 // (batch, kv head) and the key tiles [t_begin, t_end) of one split; warp
 // w takes tiles t_begin + w, + 4, ... each with its own online softmax.
+// F8: k and v are e4m3 bytes; a warp stages its K and V tiles' bytes and
+// widens each into its one bf16 tile (K before the scores, V after them).
 constexpr int DEC_WARPS = 4;
 
-template <int D, int MT>
+// shared-memory bytes of one K4 warp's tiles: a bf16 K and V tile, or
+// F8's one bf16 tile and the K and V tiles' e4m3 bytes
+template <int D, bool F8>
+__host__ __device__ constexpr int dec_warp_bytes() {
+  return F8 ? tc::BK * tc::stride(D) * 2 + 2 * tc::BK * D
+            : 2 * tc::BK * tc::stride(D) * 2;
+}
+
+template <int D, int MT, bool F8>
 __global__ void __launch_bounds__(DEC_WARPS * 32)
 gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
-                     const tc::bf16* __restrict__ k,
-                     const tc::bf16* __restrict__ v,
+                     const KVT<F8>* __restrict__ k,
+                     const KVT<F8>* __restrict__ v,
                      const int* __restrict__ qpos,
                      const int* __restrict__ eff,
                      const int* __restrict__ rows, float* __restrict__ part_ml,
@@ -485,11 +540,16 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
                      float scale2) {
   constexpr int NW = DEC_WARPS, NT = 32 * NW, RB = 16 * MT, BK = tc::BK;
   constexpr int KS = tc::stride(D), CH = D / 8, D4 = D / 4;
+  // K/V: 16-byte chunks of a global row, elements per chunk
+  constexpr int CHK = D * sizeof(KVT<F8>) / 16;
+  constexpr int EPC = 16 / sizeof(KVT<F8>);
+  constexpr int WB = dec_warp_bytes<D, F8>();
   constexpr int WS = RB * (D + 2);  // merge floats per warp: m, l, O rows
   extern __shared__ __align__(16) unsigned char smem_raw[];
   tc::bf16* Qs = reinterpret_cast<tc::bf16*>(smem_raw);
-  tc::bf16* KV = Qs + RB * KS;  // per warp: one K tile, one V tile
-  int* cpos_all = reinterpret_cast<int*>(KV + NW * 2 * BK * KS);
+  // per warp WB bytes of tiles
+  unsigned char* KV = reinterpret_cast<unsigned char*>(Qs + RB * KS);
+  int* cpos_all = reinterpret_cast<int*>(KV + NW * WB);
   int* last = cpos_all + NW * BK;
   float* mrg = reinterpret_cast<float*>(KV);  // after the tiles: NW x WS
 
@@ -503,8 +563,8 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
   const int t_end = min(t_begin + tiles_per_split, n_tiles);
   const size_t tok = (size_t)Hkv * D;  // K/V token stride
   const size_t kv_row = rows ? rows[b] : b;  // the cache row of input row b
-  const tc::bf16* kb = k + kv_row * T_cache * tok + (size_t)h * D;
-  const tc::bf16* vb = v + kv_row * T_cache * tok + (size_t)h * D;
+  const KVT<F8>* kb = k + kv_row * T_cache * tok + (size_t)h * D;
+  const KVT<F8>* vb = v + kv_row * T_cache * tok + (size_t)h * D;
   const int* effb = eff + (size_t)b * kv_len;
   auto out_row = [&](int r) {  // folded row r of the block -> out
     const int rr = r0 + r;
@@ -535,16 +595,22 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
   qmax = cs::warp_max_i(qmax);
   rmin = cs::warp_min_i(rmin);
 
-  tc::bf16* Kw = KV + warp * 2 * BK * KS;
-  tc::bf16* Vw = Kw + BK * KS;
+  // the warp's bf16 tiles (F8: Kw == Vw) and copy destinations (F8: the
+  // e4m3 rows)
+  tc::bf16* Kw = reinterpret_cast<tc::bf16*>(KV + warp * WB);
+  tc::bf16* Vw = F8 ? Kw : Kw + BK * KS;
+  unsigned char* Kd = F8 ? reinterpret_cast<unsigned char*>(Kw + BK * KS)
+                         : reinterpret_cast<unsigned char*>(Kw);
+  unsigned char* Vd = F8 ? Kd + BK * D : reinterpret_cast<unsigned char*>(Vw);
+  constexpr int DST = F8 ? D : KS * 2;  // destination row bytes
   int* cpos = cpos_all + warp * BK;
-  auto load = [&](tc::bf16* dst, const tc::bf16* src, int t) {
+  auto load = [&](unsigned char* dst, const KVT<F8>* src, int t) {
     const int k0 = t * BK;
-    for (int i = lane; i < BK * CH; i += 32) {
-      const int c = i / CH, ch = i % CH;
+    for (int i = lane; i < BK * CHK; i += 32) {
+      const int c = i / CHK, ch = i % CHK;
       const bool ok = k0 + c < kv_len;  // ragged last tile: zero rows
-      const size_t off = ok ? (size_t)(k0 + c) * tok + ch * 8 : 0;
-      tc::cp_async16(dst + c * KS + ch * 8, src + off, ok);
+      const size_t off = ok ? (size_t)(k0 + c) * tok + ch * EPC : 0;
+      tc::cp_async16(dst + c * DST + ch * 16, src + off, ok);
     }
     tc::cp_async_commit();
   };
@@ -579,8 +645,8 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
   if (t < t_end) {
     cpos[lane] = e0;
     cpos[lane + 32] = e1;
-    load(Kw, kb, t);
-    load(Vw, vb, t);
+    load(Kd, kb, t);
+    load(Vd, vb, t);
     tc::cp_async_wait<1>();  // Q and K landed, V may be in flight
   } else {
     tc::cp_async_wait<0>();
@@ -592,6 +658,10 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
     int n0 = cs::SENTINEL, n1 = cs::SENTINEL, nmax = cs::SENTINEL;
     if (t + NW < t_end) fetch(t + NW, n0, n1);  // read during the scores
     __syncwarp();                                // K(t), cpos visible
+    if constexpr (F8) {
+      tc::e4m3_tile<D>(Kw, Kd, lane, 32);
+      __syncwarp();
+    }
     const int* cp = cpos;
     tc::PFrag<MT> pa;
     // a tile whose largest position every real row has reached needs no
@@ -604,16 +674,20 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
     if (tn < t_end) {
       cpos[lane] = n0;
       cpos[lane + 32] = n1;
-      load(Kw, kb, tn);
+      load(Kd, kb, tn);
       tc::cp_async_wait<1>();  // V(t)
     } else {
       tc::cp_async_wait<0>();
     }
     __syncwarp();  // V(t) visible
+    if constexpr (F8) {  // into the tile the scores have finished with
+      tc::e4m3_tile<D>(Vw, Vd, lane, 32);
+      __syncwarp();
+    }
     tc::accumulate<D, MT>(Vw, pa, st);
     __syncwarp();  // V(t) consumed
     if (tn < t_end) {
-      load(Vw, vb, tn);
+      load(Vd, vb, tn);
       tc::cp_async_wait<1>();  // K(tn)
     }
     t = tn;
@@ -621,7 +695,7 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
   }
   tc::finish(st);
 
-  // merge the warps' states in warp order (mrg overlays the K/V tiles)
+  // merge the warps' states in warp order (mrg overlays the warps' tiles)
   __syncthreads();
   float* mw = mrg + warp * WS;
   const int c0 = (lane & 3) * 2;
@@ -716,7 +790,7 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
   if (tid == 0) *ticket = 0;  // ready for the next launch
 }
 
-template <int D, int MT>
+template <int D, int MT, bool F8>
 int launch_decode_tc(const void* q, const void* k, const void* v,
                      const void* qpos, const void* eff, const void* rows,
                      void* part_ml,
@@ -725,23 +799,23 @@ int launch_decode_tc(const void* q, const void* k, const void* v,
                      int tiles_per_split, int n_splits, float scale2,
                      cudaStream_t st) {
   constexpr int RB = 16 * MT;
-  auto kern = gqa_decode_tc_kernel<D, MT>;
+  auto kern = gqa_decode_tc_kernel<D, MT, F8>;
   // once per instantiation, not per launch
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const size_t bytes =
-      (size_t)(RB + DEC_WARPS * 2 * tc::BK) * tc::stride(D) *
-          sizeof(tc::bf16) +
+      (size_t)RB * tc::stride(D) * sizeof(tc::bf16) +
+      (size_t)DEC_WARPS * dec_warp_bytes<D, F8>() +
       (size_t)(DEC_WARPS * tc::BK + 4) * sizeof(int);
   static_assert(DEC_WARPS * RB * (D + 2) * sizeof(float) <=
-                    DEC_WARPS * 2 * tc::BK * tc::stride(D) * sizeof(tc::bf16),
+                    DEC_WARPS * dec_warp_bytes<D, F8>(),
                 "the warps' merge area must fit in their K/V tiles");
   const int R = S * (Hq / Hkv);
   const dim3 grid(n_splits, B * Hkv, (R + RB - 1) / RB);
   kern<<<grid, DEC_WARPS * 32, bytes, st>>>(
-      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
-      static_cast<const tc::bf16*>(v), static_cast<const int*>(qpos),
+      static_cast<const tc::bf16*>(q), static_cast<const KVT<F8>*>(k),
+      static_cast<const KVT<F8>*>(v), static_cast<const int*>(qpos),
       static_cast<const int*>(eff), static_cast<const int*>(rows),
       static_cast<float*>(part_ml), static_cast<float*>(part_acc),
       static_cast<int*>(tickets),
@@ -752,27 +826,32 @@ int launch_decode_tc(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// f32 operands only (bf16 goes to cs_gqa_prefill_tc / cs_gqa_decode_tc).
-// rows: null, or the [B] int32 cache row of each input row.
-// part_m == nullptr: K3 on the CUDA-core tile (one chunk, normalized
-// output). Otherwise K4's first pass (partials per chunk; finish with
-// cs_gqa_combine).
+// f32 queries only (bf16 goes to cs_gqa_prefill_tc / cs_gqa_decode_tc);
+// k and v f32 or e4m3 (kv_dtype). rows: null, or the [B] int32 cache row
+// of each input row. part_m == nullptr: K3 on the CUDA-core tile (one
+// chunk, normalized output). Otherwise K4's first pass (partials per
+// chunk; finish with cs_gqa_combine).
 extern "C" int cs_gqa_attention(const void* q, const void* k, const void* v,
                                 const void* qpos, const void* eff,
                                 void* tile_min, void* out, void* part_m,
                                 void* part_l, void* part_acc, int B, int S,
                                 int Hq, int Hkv, int D, int T_cache,
                                 int kv_len, int chunk_tiles, int n_chunks,
-                                float scale, int dtype, const void* rows,
-                                void* stream) {
-  if (dtype != cs::F32 || D % 4 != 0 || D > 4 * cs::MAX_D4 ||
-      Hq % Hkv != 0 || kv_len > T_cache ||
-      (part_m == nullptr && n_chunks != 1))
+                                float scale, int dtype, int kv_dtype,
+                                const void* rows, void* stream) {
+  if (dtype != cs::F32 || (kv_dtype != cs::F32 && kv_dtype != cs::E4M3) ||
+      D % 4 != 0 || D > 4 * cs::MAX_D4 || Hq % Hkv != 0 ||
+      kv_len > T_cache || (part_m == nullptr && n_chunks != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_gqa<float>(q, k, v, qpos, eff, tile_min, rows, out, part_m,
-                           part_l, part_acc, B, S, Hq, Hkv, D, T_cache, kv_len,
-                           chunk_tiles, n_chunks, scale,
-                           static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kv_dtype == cs::E4M3)
+    return launch_gqa<float, __nv_fp8_e4m3>(
+        q, k, v, qpos, eff, tile_min, rows, out, part_m, part_l, part_acc, B,
+        S, Hq, Hkv, D, T_cache, kv_len, chunk_tiles, n_chunks, scale, st);
+  return launch_gqa<float, float>(q, k, v, qpos, eff, tile_min, rows, out,
+                                  part_m, part_l, part_acc, B, S, Hq, Hkv, D,
+                                  T_cache, kv_len, chunk_tiles, n_chunks,
+                                  scale, st);
 }
 
 // K4 f32's second pass: merge the chunks' partials
@@ -792,15 +871,17 @@ extern "C" int cs_gqa_combine(const void* part_m, const void* part_l,
 
 // K3 in bf16 (head dim 64 or 128): the tile min / max pre-pass into
 // tile_mm ([2, B, n_tiles] int32), then the tensor-core prefill tile.
-// Normalized output [B, S, Hq, D]. rows: null, or the [B] int32 cache
-// row of each input row (k, v are then [B_pool, T_cache, Hkv, D]).
+// k and v bf16 or e4m3 (kv_dtype). Normalized output [B, S, Hq, D].
+// rows: null, or the [B] int32 cache row of each input row (k, v are then
+// [B_pool, T_cache, Hkv, D]).
 extern "C" int cs_gqa_prefill_tc(const void* q, const void* k, const void* v,
                                  const void* qpos, const void* eff,
                                  void* tile_mm, void* out, int B, int S,
                                  int Hq, int Hkv, int D, int T_cache,
-                                 int kv_len, float scale, const void* rows,
-                                 void* stream) {
-  if ((D != 64 && D != 128) || Hq % Hkv != 0 || kv_len > T_cache)
+                                 int kv_len, float scale, int kv_dtype,
+                                 const void* rows, void* stream) {
+  if ((D != 64 && D != 128) || Hq % Hkv != 0 || kv_len > T_cache ||
+      (kv_dtype != cs::BF16 && kv_dtype != cs::E4M3))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_tiles = (kv_len + cs::BK - 1) / cs::BK;
@@ -809,16 +890,20 @@ extern "C" int cs_gqa_prefill_tc(const void* q, const void* k, const void* v,
         static_cast<const int*>(eff), static_cast<int*>(tile_mm), B, kv_len,
         n_tiles);
   const float scale2 = scale * tc::LOG2E;
-  if (D == 128)
-    return dispatch_prefill_tc<128>(q, k, v, qpos, eff, tile_mm, rows, out, B,
-                                    S, Hq, Hkv, T_cache, kv_len, scale2, st);
-  return dispatch_prefill_tc<64>(q, k, v, qpos, eff, tile_mm, rows, out, B,
-                                 S, Hq, Hkv, T_cache, kv_len, scale2, st);
+#define CS_PREFILL_TC(DD, F8)                                              \
+  if (D == DD && (kv_dtype == cs::E4M3) == F8)                             \
+    return dispatch_prefill_tc<DD, F8>(q, k, v, qpos, eff, tile_mm, rows,  \
+                                       out, B, S, Hq, Hkv, T_cache, kv_len, \
+                                       scale2, st);
+  CS_PREFILL_TC(128, false) CS_PREFILL_TC(128, true)
+  CS_PREFILL_TC(64, false) CS_PREFILL_TC(64, true)
+#undef CS_PREFILL_TC
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K4 in bf16 (head dim 64 or 128, mt in {1, 2}: m-tiles per warp, so
-// 16 * mt folded rows per block): one launch per
-// decode attention call.
+// 16 * mt folded rows per block; k and v bf16 or e4m3, kv_dtype): one
+// launch per decode attention call.
 // part_ml ([slots, 16 mt] float2), part_acc ([slots, 16 mt, D] f32) and
 // tickets ([B * Hkv * row groups] int32, zero between launches) are the
 // caller's workspace, slots = B * Hkv * row groups * n_splits; they are
@@ -830,23 +915,26 @@ extern "C" int cs_gqa_decode_tc(const void* q, const void* k, const void* v,
                                 void* out, int B, int S, int Hq, int Hkv,
                                 int D, int T_cache, int kv_len, int mt,
                                 int tiles_per_split, int n_splits,
-                                float scale, const void* rows,
+                                float scale, int kv_dtype, const void* rows,
                                 void* stream) {
   const int n_tiles = (kv_len + cs::BK - 1) / cs::BK;
   if ((D != 64 && D != 128) || Hq % Hkv != 0 || kv_len > T_cache ||
       kv_len <= 0 || S <= 0 || B <= 0 || tiles_per_split <= 0 ||
-      n_splits <= 0 || (long long)n_splits * tiles_per_split < n_tiles)
+      n_splits <= 0 || (long long)n_splits * tiles_per_split < n_tiles ||
+      (kv_dtype != cs::BF16 && kv_dtype != cs::E4M3))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale2 = scale * tc::LOG2E;
-#define CS_DECODE_TC(DD, MM)                                               \
-  if (D == DD && mt == MM)                                                 \
-    return launch_decode_tc<DD, MM>(q, k, v, qpos, eff, rows, part_ml,   \
-                                    part_acc, tickets, out, B, S, Hq, Hkv, \
-                                    T_cache, kv_len, tiles_per_split,      \
-                                    n_splits, scale2, st);
-  CS_DECODE_TC(128, 1) CS_DECODE_TC(128, 2)
-  CS_DECODE_TC(64, 1) CS_DECODE_TC(64, 2)
+  const bool f8 = kv_dtype == cs::E4M3;
+#define CS_DECODE_TC(DD, MM, F8)                                           \
+  if (D == DD && mt == MM && f8 == F8)                                     \
+    return launch_decode_tc<DD, MM, F8>(                                   \
+        q, k, v, qpos, eff, rows, part_ml, part_acc, tickets, out, B, S,   \
+        Hq, Hkv, T_cache, kv_len, tiles_per_split, n_splits, scale2, st);
+  CS_DECODE_TC(128, 1, false) CS_DECODE_TC(128, 2, false)
+  CS_DECODE_TC(64, 1, false) CS_DECODE_TC(64, 2, false)
+  CS_DECODE_TC(128, 1, true) CS_DECODE_TC(128, 2, true)
+  CS_DECODE_TC(64, 1, true) CS_DECODE_TC(64, 2, true)
 #undef CS_DECODE_TC
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -26,6 +26,8 @@
 // from shared memory and those reads weigh as much as the MMAs: MT = 2
 // halves them per (row, key) pair (K3 went from 2.4 to 1.8 ms on the
 // H100 with it).
+// K3 and K4 over an e4m3 cache stage each K/V tile's bytes in shared
+// memory and widen them with e4m3_tile() into the same bf16 tile.
 // Rows are padded in shared memory to KS = KD + 8 bf16 (KD: the head dim
 // rounded up to the MMA depth 16): 16-byte row chunks then fall on odd
 // multiples of 16 bytes, so the 8 rows of one ldmatrix hit 8 disjoint
@@ -37,6 +39,8 @@
 // P.V from registers and the next tile's Q.K^T in flight during this
 // tile's softmax.
 #pragma once
+
+#include <cuda_fp16.h>
 
 #include "common.cuh"
 
@@ -108,6 +112,40 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// An e4m3 K/V tile (the fp8 cache of K3 and K4) into the bf16 tile the
+// MMAs read: BK rows of D bytes (row stride D) -> BK rows of D bf16 (row
+// stride KS), 16 bytes in and 32 out per step, steps tid, tid + nt, ...
+// cvt.rn.f16x2.e4m3x2 then f16 -> f32 -> bf16 is exact: every e4m3 value
+// is an f16 and a bf16 value (zero rows of a ragged tile stay zero). A
+// form without the conversion units (the byte's bits moved into a bf16's
+// places, then one multiply by 2^120) measured slower on the H100
+// (PERF.md, findings).
+__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t two) {
+  const __half2 h(__nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(two), __NV_E4M3));
+  const float2 f = __half22float2(h);
+  return pack(f.x, f.y);
+}
+
+template <int D>
+__device__ __forceinline__ void e4m3_tile(bf16* dst, const uint8_t* src,
+                                          int tid, int nt) {
+  constexpr int KS = stride(D), CH = D / 16;  // 16-byte chunks per row
+  for (int i = tid; i < BK * CH; i += nt) {
+    const int c = i / CH, ch = i % CH;
+    const uint4 w = *reinterpret_cast<const uint4*>(src + c * D + ch * 16);
+    uint4* o = reinterpret_cast<uint4*>(dst + c * KS + ch * 16);
+    o[0] = make_uint4(e4m3x2_to_bf16x2(w.x & 0xffffu),
+                      e4m3x2_to_bf16x2(w.x >> 16),
+                      e4m3x2_to_bf16x2(w.y & 0xffffu),
+                      e4m3x2_to_bf16x2(w.y >> 16));
+    o[1] = make_uint4(e4m3x2_to_bf16x2(w.z & 0xffffu),
+                      e4m3x2_to_bf16x2(w.z >> 16),
+                      e4m3x2_to_bf16x2(w.w & 0xffffu),
+                      e4m3x2_to_bf16x2(w.w >> 16));
+  }
 }
 
 // Online-softmax state of a warp's MT m-tiles of 16 rows: m, l per

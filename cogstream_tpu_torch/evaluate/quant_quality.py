@@ -162,13 +162,14 @@ def tf_logits(model: Qwen2Model, ids: torch.Tensor,
 
 def cached_logits(model: Qwen2Model, ids: torch.Tensor, cfg: Qwen2Config,
                   max_len: int, kv_dtype=None) -> torch.Tensor:
-    """The prefill THROUGH a KV cache (the serving path) → [S, V] f32. An
-    fp8 cache (``kv_dtype``) is not ported (ROADMAP Queue 1 #3)."""
+    """The prefill THROUGH a KV cache (the serving path) → [S, V] f32.
+    ``kv_dtype=torch.float8_e4m3fn`` runs it over the fp8 cache, where
+    the cache's rounding changes the numbers."""
     from ..runtime.session import check_kv_dtype
 
-    check_kv_dtype(kv_dtype, model.dtype)
+    kv_dtype = check_kv_dtype(kv_dtype, model.dtype)
     with _config(model, cfg), torch.inference_mode():
-        cache = qwen2.init_kv_cache(cfg, 1, max_len, dtype=model.dtype,
+        cache = qwen2.init_kv_cache(cfg, 1, max_len, dtype=kv_dtype,
                                     device=ids.device)
         pos = torch.arange(ids.shape[1], dtype=torch.int32,
                            device=ids.device)[None]
@@ -194,13 +195,14 @@ def greedy_continuation(model: Qwen2Model, cfg: Qwen2Config,
                         kv_dtype=None) -> np.ndarray:
     """Greedy token ids (host ints) after a cached prefill: the
     generation-path probe (decode steps at S < 16, so ``w4a8_decode`` and
-    the decode kernels take part)."""
+    the decode kernels take part); ``kv_dtype`` as in
+    :func:`cached_logits`."""
     from ..runtime.generate import generate_tokens
     from ..runtime.session import check_kv_dtype
 
-    check_kv_dtype(kv_dtype, model.dtype)
+    kv_dtype = check_kv_dtype(kv_dtype, model.dtype)
     with _config(model, cfg):
-        cache = qwen2.init_kv_cache(cfg, 1, max_len, dtype=model.dtype,
+        cache = qwen2.init_kv_cache(cfg, 1, max_len, dtype=kv_dtype,
                                     device=ids.device)
         S = ids.shape[1]
         pos = torch.arange(S, dtype=torch.int32, device=ids.device)[None]

@@ -125,6 +125,9 @@ class KVCache:
 
 def init_kv_cache(cfg: Qwen2Config, batch: int, max_len: int, dtype=None,
                   device=None) -> KVCache:
+    """An empty cache; ``dtype`` defaults to the model's, and
+    ``torch.float8_e4m3fn`` gives the fp8 KV cache (writes cast into it,
+    K3 / K4 read its bytes)."""
     dtype = dtype or cfg.torch_dtype
     device = default_device(device)
     shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads,
@@ -135,6 +138,35 @@ def init_kv_cache(cfg: Qwen2Config, batch: int, max_len: int, dtype=None,
         pos=torch.full((batch, max_len), -1, dtype=torch.int32,
                        device=device),
         write_index=0)
+
+
+E4M3_MAX = 448.0   # e4m3's largest finite value
+
+
+def saturate(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` ready to be cast into a cache of ``dtype``: clamped to +-448
+    for an e4m3 cache (a cast of it then saturates instead of giving NaN),
+    itself otherwise. Torch's own cast past 464 differs between versions
+    (NaN in 2.11, as JAX's ``astype``; +-448 in 2.13), so the port clamps
+    first and writes +-448 on every version (ROADMAP Queue 3, deliberate
+    departures: JAX's NaN would poison every later attention over the
+    slot). Below that the bytes are the plain cast's, which JAX's equal."""
+    if dtype == torch.float8_e4m3fn and x.dtype != dtype:
+        return x.clamp(-E4M3_MAX, E4M3_MAX)
+    return x
+
+
+def to_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` cast into a cache of ``dtype`` (:func:`saturate`, then the
+    cast)."""
+    return saturate(x, dtype).to(dtype)
+
+
+def kv_bytes(t: torch.Tensor) -> torch.Tensor:
+    """An fp8 cache tensor as a ``uint8`` view of the same storage, any
+    other as itself: index copies of an e4m3 cache move its bytes (not
+    every torch op has a Float8 kernel on CUDA), never a widened copy."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
 
 
 # ---------------------------------------------------------------------------
@@ -230,13 +262,17 @@ class _SlotWriter:
         pos[self.r, self.t] = positions[self.b, self.s]
 
     def __call__(self, layer_cache: torch.Tensor, new: torch.Tensor) -> None:
+        # the cast into the cache's dtype first (an fp8 cache rounds here),
+        # then the index ops on its bytes (kv_bytes)
+        dst = kv_bytes(layer_cache)
         if self.device_slots:
-            old = layer_cache[self.r, self.t]
-            layer_cache[self.r, self.t] = torch.where(
-                self.ok, new[:, 0].to(layer_cache.dtype), old)
+            old = dst[self.r, self.t]
+            dst[self.r, self.t] = torch.where(
+                self.ok, kv_bytes(to_cache(new[:, 0], layer_cache.dtype)),
+                old)
         else:
-            layer_cache[self.r, self.t] = new[self.b, self.s].to(
-                layer_cache.dtype)
+            dst[self.r, self.t] = kv_bytes(to_cache(new[self.b, self.s],
+                                                    layer_cache.dtype))
 
 
 @torch.inference_mode()
@@ -332,8 +368,9 @@ def qwen2_forward(
             attn = attend(q, cache.k[li], cache.v[li], positions, eff,
                           rows=rows)
         else:
-            cache.k[li, :, wi:wi + S] = k
-            cache.v[li, :, wi:wi + S] = v
+            # the slice's copy casts (one kernel after the clamp)
+            cache.k[li, :, wi:wi + S] = saturate(k, cache.k.dtype)
+            cache.v[li, :, wi:wi + S] = saturate(v, cache.v.dtype)
             attn = attend(q, cache.k[li], cache.v[li], positions, eff)
         x = x + proj("attn", "o_proj", attn.reshape(B, S, Hq * D))
         h = rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)

@@ -61,22 +61,22 @@ _SIGNATURES = {
                                 _F, _P),
     # q, k, v, q_pos, eff, tile_min, out, part_m, part_l, part_acc,
     # B, S, Hq, Hkv, D, T_cache, kv_len, chunk_tiles, n_chunks, scale,
-    # dtype, rows, stream (f32)
+    # dtype, kv dtype, rows, stream (f32)
     "cs_gqa_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
-                         _P),
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                         _P, _P),
     # part_m, part_l, part_acc, out, B, S, Hq, Hkv, D, n_chunks, dtype,
     # stream (f32)
     "cs_gqa_combine": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, q_pos, eff, part_ml, part_acc, tickets, out, B, S, Hq, Hkv,
-    # D, T_cache, kv_len, mt, tiles_per_split, n_splits, scale, rows,
-    # stream (bf16)
+    # D, T_cache, kv_len, mt, tiles_per_split, n_splits, scale, kv dtype,
+    # rows, stream (bf16)
     "cs_gqa_decode_tc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                         _I, _I, _I, _I, _I, _I, _I, _F, _P, _P),
+                         _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P),
     # q, k, v, q_pos, eff, tile_min, out, B, S, Hq, Hkv, D, T_cache,
-    # kv_len, scale, rows, stream (bf16)
+    # kv_len, scale, kv dtype, rows, stream (bf16)
     "cs_gqa_prefill_tc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _I, _F, _P, _P),
+                          _I, _I, _F, _I, _P, _P),
     # x, sx, q4, layer_stride, scale, scale_stride, layer, code, out, part,
     # m, half, dout, rows_per_split, splits, variant, out dtype, stream
     "cs_int4_gemv": (_P, _P, _P, _L, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -93,6 +93,8 @@ _SIGNATURES = {
 }
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# K/V cache dtype codes of K3 and K4 (the fp8 cache is e4m3 only)
+KV_DTYPE_CODES = {**DTYPE_CODES, torch.float8_e4m3fn: 2}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -222,6 +224,14 @@ def dtype_code(t: torch.Tensor) -> int:
     if t.dtype not in DTYPE_CODES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
     return DTYPE_CODES[t.dtype]
+
+
+def kv_dtype_code(t: torch.Tensor) -> int:
+    """Code of a K/V cache operand of K3 / K4: f32, bf16 or e4m3."""
+    if t.dtype not in KV_DTYPE_CODES:
+        raise TypeError(f"K/V cache takes float32, bfloat16 or "
+                        f"float8_e4m3fn, got {t.dtype}")
+    return KV_DTYPE_CODES[t.dtype]
 
 
 def require(t: torch.Tensor, name: str, device: torch.device,

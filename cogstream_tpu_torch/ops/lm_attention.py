@@ -10,6 +10,14 @@ f32 runs the CUDA-core f32 tile (``cs_gqa_attention``; K4 then merges its
 chunks with ``cs_gqa_combine``). A bf16 head dim the tensor-core kernels
 do not take raises; nothing falls back.
 
+The K/V cache may also be ``torch.float8_e4m3fn`` (the fp8 KV cache,
+``kv_dtype``), under either query dtype: every route then reads the
+cache's own e4m3 bytes and widens each tile on chip (the TPU kernels'
+``k_ref[0].astype(q.dtype)``), so the K/V bytes read halve against bf16
+and no bf16 copy of the cache is made. Those calls are counted in
+``.fp8_launches`` as well. The plain version upcasts only the read
+window it gathers, as the JAX package's XLA branch does.
+
 K4's bf16 route is one kernel launch per call: no pre-pass (the kernel
 reads each key tile's positions itself), no second pass (the last block
 merges the splits), no host sync, and no allocation beyond its output —
@@ -122,7 +130,8 @@ def gqa_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_rows(rows, q.shape[0], k.shape[0])
         idx = list(rows.host)
         k, v = k[idx], v[idx]
-    k, v = k[:, :T], v[:, :T]
+    # an fp8 cache: only the gathered read window is widened
+    k, v = k[:, :T].to(q.dtype), v[:, :T].to(q.dtype)
     outs = []
     for s0 in range(0, q.shape[1], _PLAIN_Q_CHUNK):
         sl = slice(s0, s0 + _PLAIN_Q_CHUNK)
@@ -143,8 +152,11 @@ def _check_operands(q, k, v, q_positions, eff_kv_pos,
         _check_rows(rows, B, Bk)
         kernels.require(rows.dev, "rows", dev, torch.int32, (B,))
     kernels.require(q, "q", dev)
-    kernels.require(k, "k", dev, q.dtype, (Bk, T, Hkv, D))
-    kernels.require(v, "v", dev, q.dtype, (Bk, T, Hkv, D))
+    if k.dtype not in (q.dtype, torch.float8_e4m3fn):
+        raise TypeError(f"k is {k.dtype}: K3 / K4 take a K/V cache in q's "
+                        f"dtype ({q.dtype}) or float8_e4m3fn")
+    kernels.require(k, "k", dev, k.dtype, (Bk, T, Hkv, D))
+    kernels.require(v, "v", dev, k.dtype, (Bk, T, Hkv, D))
     kernels.require(q_positions, "q_positions", dev, torch.int32, (B, S))
     kernels.require(eff_kv_pos, "eff_kv_pos", dev, torch.int32)
     if eff_kv_pos.shape[0] != B or eff_kv_pos.shape[1] > T:
@@ -166,8 +178,9 @@ def prefill_flash_attention(
     """K3: causal GQA flash attention over a position-tagged KV region,
     the drop-in for ``causal_gqa_attention`` with validity pre-folded
     into ``eff_kv_pos``. Any T; bf16 (tensor-core tile, head dim 64 or
-    128) or f32 operands. With ``rows``, k and v are a [B_pool, T, Hkv,
-    D] pool cache and input row b reads its row ``rows[b]``."""
+    128) or f32 operands, k and v in q's dtype or e4m3. With ``rows``, k
+    and v are a [B_pool, T, Hkv, D] pool cache and input row b reads its
+    row ``rows[b]``."""
     B, S, Hq, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
@@ -176,7 +189,7 @@ def prefill_flash_attention(
                                    rows)
     rows = as_cache_rows(rows, q.device)
     _check_operands(q, k, v, q_positions, eff_kv_pos, rows)
-    code = kernels.dtype_code(q)
+    code, kv_code = kernels.dtype_code(q), kernels.kv_dtype_code(k)
     tc = q.dtype == torch.bfloat16
     if tc and D not in TC_HEAD_DIMS:
         raise ValueError(f"cs_gqa_prefill_tc takes bf16 head dims "
@@ -198,17 +211,19 @@ def prefill_flash_attention(
     if tc:
         kernels.require_aligned(q, k, v)
         kernels.check(lib.cs_gqa_prefill_tc(
-            *ptrs, B, S, Hq, Hkv, D, T, kv_len, float(scale), rows_ptr,
-            kernels.stream_ptr(q)), "cs_gqa_prefill_tc")
+            *ptrs, B, S, Hq, Hkv, D, T, kv_len, float(scale), kv_code,
+            rows_ptr, kernels.stream_ptr(q)), "cs_gqa_prefill_tc")
         prefill_flash_attention.tc_launches += 1
     else:
         kernels.check(lib.cs_gqa_attention(
             *ptrs, None, None, None, B, S, Hq, Hkv, D, T, kv_len, n_tiles, 1,
-            float(scale), code, rows_ptr, kernels.stream_ptr(q)),
+            float(scale), code, kv_code, rows_ptr, kernels.stream_ptr(q)),
             "cs_gqa_attention")
     prefill_flash_attention.launches += 1
     if rows is not None:
         prefill_flash_attention.rows_launches += 1
+    if k.dtype == torch.float8_e4m3fn:
+        prefill_flash_attention.fp8_launches += 1
     return out
 
 
@@ -264,9 +279,9 @@ def decode_attention(
     """K4: cached decode attention over the first ``kv_window`` slots,
     split over the cache (flash-decoding). bf16 (head dim 64 or 128): one
     launch of the tensor-core kernel, which merges the splits itself; f32:
-    the CUDA-core tile, then ``cs_gqa_combine``. ``rows`` as for
-    :func:`prefill_flash_attention`; the split partials and tickets stay
-    indexed by the input row."""
+    the CUDA-core tile, then ``cs_gqa_combine``. k and v in q's dtype or
+    e4m3. ``rows`` as for :func:`prefill_flash_attention`; the split
+    partials and tickets stay indexed by the input row."""
     B, S, Hq, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
@@ -277,7 +292,7 @@ def decode_attention(
                                    rows)
     rows = as_cache_rows(rows, q.device)
     _check_operands(q, k, v, q_positions, eff_kv_pos, rows)
-    code = kernels.dtype_code(q)
+    code, kv_code = kernels.dtype_code(q), kernels.kv_dtype_code(k)
     tc = q.dtype == torch.bfloat16
     if tc and D not in TC_HEAD_DIMS:
         raise ValueError(f"cs_gqa_decode_tc takes bf16 head dims "
@@ -306,7 +321,7 @@ def decode_attention(
             *ptrs, ml, ml + n_part * 2 * 4, tickets.data_ptr(),
             out.data_ptr(),
             B, S, Hq, Hkv, D, T, kv_len, mt, per_split, n_splits,
-            float(scale), rows_ptr, stream), "cs_gqa_decode_tc")
+            float(scale), kv_code, rows_ptr, stream), "cs_gqa_decode_tc")
         decode_attention.tc_launches += 1
     else:
         n_tiles = -(-kv_len // _TILE)
@@ -321,7 +336,7 @@ def decode_attention(
             *ptrs, tile_min.data_ptr(), None, part_m.data_ptr(),
             part_l.data_ptr(), part_acc.data_ptr(), B, S, Hq, Hkv, D, T,
             kv_len, DECODE_CHUNK_TILES, n_chunks, float(scale), code,
-            rows_ptr, stream), "cs_gqa_attention")
+            kv_code, rows_ptr, stream), "cs_gqa_attention")
         kernels.check(lib.cs_gqa_combine(
             part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
             out.data_ptr(), B, S, Hq, Hkv, D, n_chunks, code, stream),
@@ -329,12 +344,16 @@ def decode_attention(
     decode_attention.launches += 1
     if rows is not None:
         decode_attention.rows_launches += 1
+    if k.dtype == torch.float8_e4m3fn:
+        decode_attention.fp8_launches += 1
     return out
 
 
 prefill_flash_attention.launches = 0       # every K3 launch
 prefill_flash_attention.tc_launches = 0    # those on the tensor-core tile
 prefill_flash_attention.rows_launches = 0  # those with a pool row map
+prefill_flash_attention.fp8_launches = 0   # those over an e4m3 cache
 decode_attention.launches = 0              # every K4 call
 decode_attention.tc_launches = 0           # those on the tensor-core kernel
 decode_attention.rows_launches = 0         # those with a pool row map
+decode_attention.fp8_launches = 0          # those over an e4m3 cache

@@ -39,7 +39,8 @@ class SessionPool:
                  adapters: Optional[Dict] = None,
                  summary_forward: bool = True, kv_dtype=None,
                  seed: int = 0, encoder_int8: bool = False):
-        check_kv_dtype(kv_dtype, model.text.dtype)
+        # the shared cache's dtype: the model's, or e4m3 (the fp8 cache)
+        kv_dtype = check_kv_dtype(kv_dtype, model.text.dtype)
         # cfg's serving flags; encoder_int8: the pool (and every session
         # on it) ingests through its own W8A8 copy of the tower
         model = with_serving_flags(model, cfg)
@@ -56,7 +57,7 @@ class SessionPool:
         # decodes are reproducible given the seed
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.cache = init_kv_cache(cfg.text, n_rows, max_len,
-                                   dtype=model.text.dtype, device=self.device)
+                                   dtype=kv_dtype, device=self.device)
         self.sessions: Dict[int, StreamingSession] = {}
         # per-row seed: rows sharing one seed would sample identical
         # streams; folding in the row keeps runs reproducible per (seed,

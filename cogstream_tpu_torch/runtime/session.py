@@ -43,7 +43,8 @@ from ..models.cogreasoner import (SUMMARY_INSTRUCTION, SUMMARY_SYSTEM,
                                   CogReasoner, encode_images,
                                   pixel_diff_keep_mask, with_int8_tower,
                                   with_serving_flags)
-from ..models.qwen2 import KVCache, Qwen2Model, init_kv_cache
+from ..models.qwen2 import (KVCache, Qwen2Model, init_kv_cache, kv_bytes,
+                            to_cache)
 from ..ops.lm_attention import cache_rows
 from .generate import (decode_new_tokens, generate_tokens,
                        generate_tokens_lookahead)
@@ -195,19 +196,26 @@ def _compact_row_device(cache: KVCache, gidx: torch.Tensor, n_new: int,
                         row: int) -> None:
     """Pooled compaction: move row ``row``'s surviving slots (``gidx``,
     ascending) to the front of the row IN PLACE on the shared pool
-    cache; slots past ``n_new`` become empty (pos -1)."""
-    cache.k[:, row, :n_new] = cache.k[:, row].index_select(1, gidx)
-    cache.v[:, row, :n_new] = cache.v[:, row].index_select(1, gidx)
+    cache (an fp8 cache as its bytes); slots past ``n_new`` become empty
+    (pos -1)."""
+    for c in (kv_bytes(cache.k), kv_bytes(cache.v)):
+        c[:, row, :n_new] = c[:, row].index_select(1, gidx)
     cache.pos[row, :n_new] = cache.pos[row].index_select(0, gidx)
     cache.pos[row, n_new:] = -1
 
 
-def check_kv_dtype(kv_dtype, model_dtype: torch.dtype) -> None:
-    """The port's caches hold the model's dtype; an fp8 cache raises."""
-    if kv_dtype is not None and kv_dtype != model_dtype:
-        raise NotImplementedError(
-            f"a {kv_dtype} KV cache (kv_dtype) is not ported yet (ROADMAP "
-            "Queue 1 #3)")
+def check_kv_dtype(kv_dtype, model_dtype: torch.dtype) -> torch.dtype:
+    """The dtype of a session's or pool's KV cache: the model's (``None``
+    or the model's dtype) or ``torch.float8_e4m3fn`` (the fp8 cache, read
+    by K3 / K4 as e4m3 bytes). Any other cache dtype raises."""
+    if kv_dtype is None or kv_dtype == model_dtype:
+        return model_dtype
+    if kv_dtype == torch.float8_e4m3fn:
+        return kv_dtype
+    raise NotImplementedError(
+        f"a {kv_dtype} KV cache under a {model_dtype} model is not ported "
+        "yet (ROADMAP Queue 1 #12): kv_dtype takes the model's dtype or "
+        "torch.float8_e4m3fn")
 
 
 class StreamingSession:
@@ -228,7 +236,7 @@ class StreamingSession:
                  summary_forward: bool = True, kv_dtype=None,
                  pool=None, row: Optional[int] = None,
                  encoder_int8: bool = False):
-        check_kv_dtype(kv_dtype, model.text.dtype)
+        kv_dtype = check_kv_dtype(kv_dtype, model.text.dtype)
         # the decoder runs under cfg's serving flags, as the JAX session's
         # does; encoder_int8: the W8A8 vision tower for ingest, the
         # session's own int8 copy (the model's tower is left as it is)
@@ -248,7 +256,7 @@ class StreamingSession:
         self._rows = None
         if pool is None:
             self._own_cache = init_kv_cache(cfg.text, 1, max_len,
-                                            dtype=model.text.dtype,
+                                            dtype=kv_dtype,
                                             device=self.device)
         else:
             if row is None or max_len != pool.max_len:
@@ -611,8 +619,10 @@ class StreamingSession:
             c = self.cache
             pos = c.pos.index_select(1, gidx)
             pos[:, n_new:] = -1
-            self.cache = KVCache(c.k.index_select(2, gidx),
-                                 c.v.index_select(2, gidx), pos, n_new)
+            # an fp8 cache moves as its bytes (kv_bytes)
+            k, v = (kv_bytes(t).index_select(2, gidx).view(t.dtype)
+                    for t in (c.k, c.v))
+            self.cache = KVCache(k, v, pos, n_new)
 
         new_ranges: List[SlotRange] = []
         off = 0
@@ -957,8 +967,13 @@ class StreamingSession:
         """Snapshot this session (its cache row trimmed to the fill level
         and all host bookkeeping) into one atomic ``.npz`` in the JAX
         package's layout. The generator state goes under
-        ``torch_rng_state`` (JAX stores ``rng_key``). Weights are not
+        ``torch_rng_state``, and two words hashed from it under JAX's
+        ``rng_key``, so a JAX session restores the snapshot too (the two
+        packages' sampling streams differ anyway). The K/V keep the
+        cache's dtype: an fp8 cache stores its e4m3 bytes. Weights are not
         included."""
+        import hashlib
+
         from ..utils.io import atomic_write_npz, pack_array
 
         if self._rep_pending:
@@ -1001,7 +1016,10 @@ class StreamingSession:
         put("k", c.k[:, row, :wi])
         put("v", c.v[:, row, :wi])
         put("pos", c.pos[row, :wi])
-        put("torch_rng_state", self._gen.get_state())
+        state = self._gen.get_state()
+        put("torch_rng_state", state)
+        put("rng_key", np.frombuffer(hashlib.sha256(
+            state.numpy().tobytes()).digest()[:8], np.uint32).copy())
         if self.events:
             # one device-to-host copy for all reps
             put("event_reps", torch.stack(
@@ -1042,8 +1060,11 @@ class StreamingSession:
         if tuple(k.shape) != (c.k.shape[0], wi) + tuple(c.k.shape[3:]):
             raise ValueError(f"snapshot K/V {tuple(k.shape)} do not fit "
                              "this model's cache")
-        c.k[:, row, :wi] = dev(k, c.k.dtype)
-        c.v[:, row, :wi] = dev(v, c.v.dtype)
+        # cast into the session's cache dtype, as JAX does: a bf16 snapshot
+        # loads into an fp8 session (saturating at +-448 where JAX's cast
+        # gives NaN, ROADMAP Queue 3)
+        c.k[:, row, :wi] = to_cache(dev(k), c.k.dtype)
+        c.v[:, row, :wi] = to_cache(dev(v), c.v.dtype)
         c.pos[row] = -1
         c.pos[row, :wi] = dev(pos, torch.int32)
         if self._pool is None:

@@ -872,3 +872,179 @@ def test_int_mm_small_rows(dev, m):
                                   {k: v.to(dev) for k, v in qp.items()},
                                   w8a8=True)
     assert torch.equal(card.cpu(), cpu)
+
+
+# ---------------------------------------------------------------------------
+# the fp8 KV cache: the cast, K3 / K4 over e4m3 K/V, a tiny fp8 session
+# ---------------------------------------------------------------------------
+
+def test_e4m3_cast_on_the_card_equals_the_cpu(dev):
+    """torch's CUDA cast to e4m3 writes the CPU cast's byte for every one
+    of the 65536 bf16 bit patterns and for f32 draws over e4m3's range,
+    its subnormals and past 448 (the tiny f32 decoder writes f32 keys);
+    the port's cache cast (``qwen2.to_cache``) on the card equals it on the
+    CPU (NaN inputs: NaN on both) and saturates past 464 to +-448,
+    whatever torch's own cast does there."""
+    from cogstream_tpu_torch.models.qwen2 import to_cache
+
+    f8 = torch.float8_e4m3fn
+    bits = torch.from_numpy(np.arange(1 << 16, dtype=np.uint16).view(
+        np.int16)).view(torch.bfloat16)
+    rng = np.random.default_rng(0)
+    f32 = torch.from_numpy((rng.standard_normal(1 << 20) * 10.0 ** rng.uniform(
+        -4, 3, 1 << 20)).astype(np.float32))
+    for x in (bits, f32):
+        assert torch.equal(x.to(dev).to(f8).cpu().view(torch.uint8),
+                           x.to(f8).view(torch.uint8))
+        card = to_cache(x.to(dev), f8).cpu()
+        nan = torch.isnan(x)
+        # NaN stays NaN (the clamp may flip its sign bit)
+        assert torch.equal(card.view(torch.uint8)[~nan],
+                           to_cache(x, f8).view(torch.uint8)[~nan])
+        assert torch.isnan(card[nan].float()).all()
+        big = ~nan & (x.float().abs() > 464)
+        assert torch.equal(card[big].float(), x[big].float().sign() * 448)
+
+
+@pytest.mark.parametrize("rows", [None, [3, 1]])
+@pytest.mark.parametrize("kernel,S", [("K3", 100), ("K4", 1), ("K4", 5),
+                                      ("K4", 8)])
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128),
+                                     (torch.bfloat16, 64),
+                                     (torch.float32, 128)])
+def test_fp8_cache_kernels(dev, rows, kernel, S, dtype, D):
+    """K3 and K4 over an e4m3 cache against their plain versions on the
+    same bytes: bf16 queries on the tensor-core kernels (each row within 2
+    bf16 ulps of its max |ref|), f32 on the CUDA-core tile (f32 summation
+    order, 2e-5); with ``rows`` reading a 4-row e4m3 pool, bit-identical
+    to a contiguous copy of the addressed rows. Counted in
+    ``.fp8_launches``; the padded query outputs 0."""
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    rng = np.random.default_rng(S * 10 + D + len(rows or ()))
+    B = 1 if rows is None else len(rows)
+    q, k, v, qpos, eff = _decode_case(rng, dev, B, S, 7, D, 1100, 1000, 900)
+    q = q.to(dtype)
+    f8 = torch.float8_e4m3fn
+    k8, v8 = k.to(f8), v.to(f8)
+    wrap = (lma.prefill_flash_attention if kernel == "K3"
+            else lma.decode_attention)
+    kw = {}
+    if rows is not None:
+        k8 = torch.cat([k8, k8.flip(0)]).contiguous()     # 4 pool rows
+        v8 = torch.cat([v8, v8.flip(0)]).contiguous()
+        kw = dict(rows=lma.cache_rows(rows, dev))
+    n0, f0 = wrap.launches, wrap.fp8_launches
+    got = wrap(q, k8, v8, qpos, eff, **kw)
+    assert (wrap.launches, wrap.fp8_launches) == (n0 + 1, f0 + 1)
+    ref = lma.gqa_attention_plain(q, k8, v8, qpos, eff, rows=rows)
+    if dtype == torch.bfloat16:
+        _two_ulps(got, ref)
+    else:
+        torch.testing.assert_close(got, ref, atol=2e-5, rtol=2e-5)
+    if S >= 2:
+        assert torch.all(got[:, -1] == 0)
+    if rows is not None:
+        assert torch.equal(got, wrap(q, k8[rows].contiguous(),
+                                     v8[rows].contiguous(), qpos, eff))
+
+
+def test_fp8_decode_replays_in_a_graph(dev):
+    """One K4 call over an e4m3 cache captured in a CUDA graph, replayed
+    after q and eff were rewritten in place, equals the eager call bit for
+    bit; two eager calls give the same bits."""
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    rng = np.random.default_rng(12)
+    q, k, v, qpos, eff = _decode_case(rng, dev, 1, 1, 7, 128, 16384, 9216,
+                                      8900)
+    q2, _, _, _, eff2 = _decode_case(rng, dev, 1, 1, 7, 128, 16384, 9216,
+                                     9000)
+    k8, v8 = k.to(torch.float8_e4m3fn), v.to(torch.float8_e4m3fn)
+    first = lma.decode_attention(q, k8, v8, qpos, eff)
+    assert torch.equal(first, lma.decode_attention(q, k8, v8, qpos, eff))
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = lma.decode_attention(q, k8, v8, qpos, eff)
+    q.copy_(q2)
+    eff.copy_(eff2)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, lma.decode_attention(q, k8, v8, qpos, eff))
+    _two_ulps(out, lma.gqa_attention_plain(q, k8, v8, qpos, eff))
+
+
+def test_fp8_session_card_matches_cpu(dev):
+    """The tiny f32 session over an e4m3 cache (ingest, AC, ingest, FCC) on
+    the card (K3 / K4's f32 tile reading e4m3) and on the CPU: the same
+    greedy tokens, selections, slot ranges and positions; the cache bytes
+    where pos >= 0 equal in at least 99.5% of elements, the rest one e4m3
+    step apart (a ~1e-6 difference of the f32 keys flips a rounding only
+    next to a tie, and a flip moves later layers' keys by ~1e-3 of the
+    row, which flips a few more: tests/test_torch_fp8kv.py's pool)."""
+    import copy
+
+    from cogstream_tpu_torch.config import CogReasonerConfig
+    from cogstream_tpu_torch.models.cogreasoner import init_cogreasoner_params
+    from cogstream_tpu_torch.ops import lm_attention as lma
+    from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
+    from cogstream_tpu_torch.runtime.session import StreamingSession
+
+    cfg = CogReasonerConfig.tiny()
+    cpu_model = init_cogreasoner_params(cfg, torch.Generator().manual_seed(0),
+                                        device="cpu")
+    tok = ByteTokenizer(image_token_id=cfg.image_token_index)
+    pv = np.random.default_rng(0).normal(size=(48, 588)).astype(np.float32)
+    outs = []
+    f0 = lma.decode_attention.fp8_launches + \
+        lma.prefill_flash_attention.fp8_launches
+    for model in (cpu_model, copy.deepcopy(cpu_model).to(dev)):
+        sess = StreamingSession(model, cfg, tok, max_len=1024,
+                                kv_dtype=torch.float8_e4m3fn)
+        res = []
+        for stamps, q, mode in (([0.0, 1.0, 2.0], "what is it?", "AC"),
+                                ([3.0, 4.0, 5.0], "and now?", "FCC")):
+            sess.append_stream_segment(pv, (3, 4, 4), 2, timestamps=stamps)
+            r = sess.ask(q, mode=mode, max_new_tokens=8)
+            res.append((r["tokens"], r["selection"]))
+        c = sess.cache
+        outs.append((res, [(r.kind, r.start, r.end) for r in sess.ranges],
+                     c.pos.cpu(), c.k.cpu().view(torch.uint8),
+                     c.v.cpu().view(torch.uint8)))
+    assert lma.decode_attention.fp8_launches + \
+        lma.prefill_flash_attention.fp8_launches > f0
+    (ref, ref_r, pos, rk, rv), (got, got_r, gpos, gk, gv) = outs
+    assert got == ref and got_r == ref_r and torch.equal(gpos, pos)
+    live = pos[0] >= 0
+    for a, b in ((gk, rk), (gv, rv)):
+        a, b = a[:, 0, live].int(), b[:, 0, live].int()
+        assert (a == b).float().mean().item() >= 0.995
+        ordinal = [torch.where(x >= 128, 128 - x, x) for x in (a, b)]
+        assert (ordinal[0] - ordinal[1]).abs().max().item() <= 1
+
+
+@pytest.mark.parametrize("kernel,S", [("K3", 16), ("K4", 1), ("K4", 8)])
+def test_e4m3_widening_is_exact(dev, kernel, S):
+    """All 256 e4m3 byte values (NaN included) as the V of the one visible
+    slot, q = 0: every output head equals its kv head's V row widened by
+    torch, bit for bit (NaN where the byte is NaN): the tensor-core
+    kernels' widening, its bit path and its NaN path."""
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    _, T, Hkv, G, D = 1, 200, 2, 7, 128
+    f8 = torch.float8_e4m3fn
+    vb = torch.zeros((1, T, Hkv, D), dtype=torch.uint8)
+    vb[0, 0] = torch.arange(256, dtype=torch.uint8).reshape(Hkv, D)
+    v8 = vb.to(dev).view(f8)
+    k8 = torch.zeros_like(vb).to(dev).view(f8)
+    q = torch.zeros((1, S, Hkv * G, D), dtype=torch.bfloat16, device=dev)
+    eff = torch.full((1, T), lma.SENTINEL, dtype=torch.int32, device=dev)
+    eff[0, 0] = 0
+    qpos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    wrap = (lma.prefill_flash_attention if kernel == "K3"
+            else lma.decode_attention)
+    out = wrap(q, k8, v8, qpos, eff).float().cpu()
+    want = v8[0, 0].to(torch.bfloat16).float().cpu()       # [Hkv, D]
+    want = want.repeat_interleave(G, 0)[None, None].expand(1, S, -1, -1)
+    torch.testing.assert_close(out, want, rtol=0, atol=0, equal_nan=True)

@@ -218,6 +218,76 @@ def test_rows_reach_the_entry_point(lib, kernel, dtype, entry):
         assert tickets.numel() >= 2 * 4 * groups
 
 
+@pytest.mark.parametrize("rows", [None, [3, 1]])
+@pytest.mark.parametrize("kernel,dtype,entry,kv_arg", [
+    ("K3", torch.bfloat16, "cs_gqa_prefill_tc", 15),
+    ("K3", torch.float32, "cs_gqa_attention", 21),
+    ("K4", torch.bfloat16, "cs_gqa_decode_tc", 20),
+    ("K4", torch.float32, "cs_gqa_attention", 21)])
+def test_fp8_cache_reaches_the_entry_point(lib, kernel, dtype, entry, kv_arg,
+                                           rows):
+    """An e4m3 cache under a bf16 or f32 query reaches the same entry point
+    as the query's own dtype, with the e4m3 K/V code and the cache's own
+    K/V pointers (no widened copy), counted in ``.fp8_launches``; a bf16
+    cache passes the bf16 code and is not counted there."""
+    S = 20 if kernel == "K3" else 1
+    B = 2
+    q, k, _, qpos, eff = _lm(dtype, B=B, S=S, T=256)
+    k8, v8 = k.to(torch.float8_e4m3fn), (-k).to(torch.float8_e4m3fn)
+    if rows is not None:
+        k8, v8 = torch.cat([k8, k8]), torch.cat([v8, v8])   # 4 pool rows
+    wrap = (lma.prefill_flash_attention if kernel == "K3"
+            else lma.decode_attention)
+    f0, n0 = wrap.fp8_launches, wrap.launches
+    wrap(q, k8, v8, qpos, eff, rows=rows)
+    call = lib.calls[0]
+    assert call[0] == entry
+    assert call[1][1:3] == (k8.data_ptr(), v8.data_ptr())
+    assert call[1][kv_arg] == kernels.KV_DTYPE_CODES[torch.float8_e4m3fn]
+    if entry == "cs_gqa_attention":
+        assert call[1][20] == kernels.DTYPE_CODES[torch.float32]
+    assert (wrap.fp8_launches, wrap.launches) == (f0 + 1, n0 + 1)
+    lib.calls.clear()
+    kk = k if rows is None else torch.cat([k, k])
+    wrap(q, kk, kk, qpos, eff, rows=rows)
+    assert lib.calls[0][1][kv_arg] == kernels.KV_DTYPE_CODES[dtype]
+    assert wrap.fp8_launches == f0 + 1
+
+
+def test_fp8_cached_decode_forward_passes_the_cache_itself(lib):
+    """A bf16 decoder over an e4m3 cache: one decode step's K4 calls get
+    each layer's cache slice itself (its data pointer), with the e4m3
+    code, and the step's K/V land in the e4m3 cache (layer 0's: the stubbed
+    kernels leave the attention output unwritten)."""
+    from cogstream_tpu_torch.config import Qwen2Config
+    from cogstream_tpu_torch.models import qwen2
+
+    L = 2
+    cfg = Qwen2Config(vocab_size=64, hidden_size=256, intermediate_size=64,
+                      num_hidden_layers=L, num_attention_heads=4,
+                      num_key_value_heads=2, dtype="bfloat16")
+    model = qwen2.Qwen2Model(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    cache = qwen2.init_kv_cache(cfg, 1, 128, dtype=torch.float8_e4m3fn,
+                                device="cpu")
+    cache.write_index = 40
+    cache.pos[:, :40] = torch.arange(40, dtype=torch.int32)
+    emb = torch.randn((1, 1, 256), generator=gen).to(torch.bfloat16)
+    qwen2.qwen2_forward(model, emb, torch.full((1, 1), 40), cache)
+    assert lib.names() == ["cs_gqa_decode_tc"] * L
+    for li, (_, args) in enumerate(lib.calls):
+        assert args[1:3] == (cache.k[li].data_ptr(), cache.v[li].data_ptr())
+        assert args[20] == kernels.KV_DTYPE_CODES[torch.float8_e4m3fn]
+    assert cache.k.dtype == torch.float8_e4m3fn
+    assert cache.write_index == 41
+    # layer 0's K (written before any stubbed attention output is read)
+    written = cache.k[0, 0, 40].float()
+    assert torch.isfinite(written).all() and written.abs().sum() > 0
+
+
 def test_rows_are_checked_on_the_host(lib):
     q, k, v, qpos, eff = _lm(torch.bfloat16, B=2, S=1, T=256)
     pool = torch.cat([k, k])
@@ -365,10 +435,24 @@ def test_unsupported_bf16_head_dim_raises_before_any_call(lib, kernel, D):
     assert (wrap.launches, wrap.tc_launches) == (n0, t0)
 
 
-@pytest.mark.parametrize("kernel", ["K3", "K1", "K4", "K5"])
-def test_other_dtypes_raise_before_any_call(lib, kernel):
-    wrap, args = _wrapper_case(kernel, torch.float16)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
+@pytest.mark.parametrize("kernel,q_dtype,k_dtype,v_dtype,match", [
+    pytest.param(k, torch.float16, None, None, "float32 or bfloat16", id=k)
+    for k in ("K3", "K1", "K4", "K5")] + [
+    # K/V caches K3 / K4 do not take: e5m2, and k / v of mixed dtypes
+    pytest.param(k, torch.bfloat16, kd, vd, m, id=f"{k}-{i}")
+    for k in ("K3", "K4")
+    for i, (kd, vd, m) in enumerate((
+        (torch.float8_e5m2, torch.float8_e5m2, "float8_e4m3fn"),
+        (torch.float8_e4m3fn, torch.bfloat16, "v is"),
+        (torch.bfloat16, torch.float8_e4m3fn, "v is"),
+        (torch.float32, torch.float32, "float8_e4m3fn")))])
+def test_other_dtypes_raise_before_any_call(lib, kernel, q_dtype, k_dtype,
+                                            v_dtype, match):
+    wrap, args = _wrapper_case(kernel, q_dtype)
+    if k_dtype is not None:
+        q, k, v, qpos, eff = args
+        args = (q, k.to(k_dtype), v.to(v_dtype), qpos, eff)
+    with pytest.raises(TypeError, match=match):
         with torch.no_grad():
             wrap(*args)
     assert lib.calls == []

@@ -1,0 +1,523 @@
+"""The fp8 KV cache (``torch.float8_e4m3fn``) of the port against the JAX
+package (``jnp.float8_e4m3fn``), on the CPU: the cast itself, K3's and
+K4's plain versions over e4m3 K/V against the JAX kernels in interpret
+mode, tiny sessions (f32 and bf16 decoders) with an fp8 cache, the pool,
+snapshots both ways, and ``quant_quality``.
+
+The fp8 operands of the kernel tests are made once, as e4m3 bytes, and
+handed to both packages as the same bytes through a ``uint8`` view.
+
+Tolerances:
+
+* **The cast.** torch and JAX write the same byte for every bf16 value
+  with |x| <= 464 (all 65536 bit patterns are cast). Above that JAX writes
+  NaN, and torch's own cast depends on its version (NaN in 2.11, +-448 in
+  2.13). The port's cache writes (``qwen2.to_cache``) clamp first and
+  saturate to +-448 on every version (ROADMAP Queue 3, deliberate
+  departures); the test pins that and the bytes below 464.
+* **K3 / K4.** Each output row (one head of one token) within 2 bf16 ulps
+  of its own max |ref|: both sides widen the same e4m3 bytes exactly to
+  bf16, sum in f32 and round once to bf16 (JAX's kernel also rounds P to
+  bf16 before P.V).
+* **Sessions, f32 decoder.** Greedy tokens, selections, slot ranges and
+  positions identical; the cache bytes where pos >= 0 equal in at least
+  99.9% of elements (the share found is 100%), the rest within one e4m3
+  step. The two packages' f32 keys differ by ~1e-6 of the row (their
+  model-dtype caches agree to that), which flips an e4m3 rounding only
+  where a key lies that close to a tie; a flip in one layer moves the
+  later layers' keys by ~1e-3 of the row, which flips a few more.
+* **The pool, f32 decoder.** The same, except the byte-equal share is held
+  to 99.5%: row 0 takes its second segment in a 3-row batched prefill,
+  where the f32 sums differ the most, and one flipped rounding there
+  spreads as above (the share found is 99.84%).
+* **Sessions, bf16 decoder.** Greedy tokens, selections, ranges and
+  positions identical. The two packages' bf16 forwards round at other
+  places (their bf16 caches agree bit for bit in about 60% of elements,
+  the rest within 0.75% of the cache's max), so the fp8 bytes agree in
+  about 90% of elements: each element is held within one e4m3 step of
+  its (token, kv head) row's max |ref|, the quantization step at the
+  row's scale, and the byte-equal share must stay above 0.85.
+* **quant_quality.** fp8 cached logits within 1e-4 of each row's max
+  (the int8 probes' bound); the fp8kv metrics of ``compare_logits`` equal
+  JAX's on the same logits.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import cogstream_tpu.runtime.session as jsess_mod
+from cogstream_tpu.config import (CogReasonerConfig as JConfig,
+                                  CompressionConfig as JCompression,
+                                  Qwen2Config as JQwen2Config)
+from cogstream_tpu.evaluate import quant_quality as jqq
+from cogstream_tpu.models.cogreasoner import init_cogreasoner_params
+from cogstream_tpu.ops import lm_attention as jlma
+from cogstream_tpu.processor.tokenizer import ByteTokenizer as JTok
+from cogstream_tpu.runtime.pool import SessionPool as JPool
+from cogstream_tpu_torch.config import (CogReasonerConfig as TConfig,
+                                        CompressionConfig as TCompression,
+                                        Qwen2Config as TQwen2Config)
+from cogstream_tpu_torch.evaluate import quant_quality as tqq
+from cogstream_tpu_torch.models import bridge
+from cogstream_tpu_torch.models import qwen2 as tq
+from cogstream_tpu_torch.ops import lm_attention as tlma
+from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer as TTok
+from cogstream_tpu_torch.runtime.pool import SessionPool as TPool
+from cogstream_tpu_torch.runtime.session import StreamingSession as TSession
+from cogstream_tpu_torch.runtime.session import check_kv_dtype
+
+F8 = torch.float8_e4m3fn
+JF8 = jnp.float8_e4m3fn
+COMP = dict(frames_per_event=3, keyframes_per_event=1)
+SEG = (3, 4, 4)      # frames, grid h, grid w (merge 2: 4 tokens a frame)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _e4m3_bytes(rng, shape, scale=1.0):
+    """Seeded e4m3 bytes (numpy uint8): normal draws cast by torch."""
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                         * scale)
+    return x.to(F8).view(torch.uint8).numpy()
+
+
+def _t8(b):
+    return torch.from_numpy(b).view(F8)
+
+
+def _j8(b):
+    return jax.lax.bitcast_convert_type(jnp.asarray(b), JF8)
+
+
+def _bytes(x):
+    """e4m3 bytes (uint8 numpy) of a torch or JAX fp8 array."""
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.uint8).numpy()
+    return np.asarray(jax.lax.bitcast_convert_type(x, jnp.uint8))
+
+
+def _row_rule(got, ref, width):
+    """Worst ratio of a row's max |got - ref| to 2 bf16 ulps of the row's
+    own max |ref| (rows of ``width`` elements)."""
+    g = np.asarray(got, np.float32).reshape(-1, width)
+    r = np.asarray(ref, np.float32).reshape(-1, width)
+    err = np.abs(g - r).max(1)
+    row_max = np.maximum(np.abs(r).max(1), 1e-30)
+    bound = 2 * np.exp2(np.floor(np.log2(row_max)) - 7)
+    return float((err / bound).max())
+
+
+# ---------------------------------------------------------------------------
+# the cast
+# ---------------------------------------------------------------------------
+
+def test_cast_matches_jax_up_to_464_and_saturates_above():
+    """All 65536 bf16 bit patterns through the port's cache cast
+    (``to_cache``), torch's plain cast and JAX's: the same byte for every
+    |x| <= 464 (NaN to NaN); above that (finite or inf) the port
+    saturates to +-448 where JAX writes NaN. f32 draws (the tiny f32
+    decoder writes f32 keys) likewise."""
+    bits = np.arange(1 << 16, dtype=np.uint16)
+    xt = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+    xj = jax.lax.bitcast_convert_type(jnp.asarray(bits), jnp.bfloat16)
+    bp = _bytes(tq.to_cache(xt, F8))
+    bj = _bytes(xj.astype(JF8))
+    x = xt.float().numpy()
+    small = np.abs(x) <= 464
+    nan = np.isnan(x)
+    assert small.sum() + nan.sum() + (np.abs(x) >= 466).sum() == 1 << 16
+    np.testing.assert_array_equal(bp[small], bj[small])
+    np.testing.assert_array_equal(_bytes(xt.to(F8))[small], bj[small])
+    assert np.isnan(tq.to_cache(xt[nan], F8).float().numpy()).all()
+    assert np.isnan(np.asarray(xj[nan].astype(JF8), np.float32)).all()
+    big = ~small & ~nan
+    assert big.sum() == 30510 + 2      # the finite ones, and +-inf
+    sat = tq.to_cache(xt[big], F8).float().numpy()
+    np.testing.assert_array_equal(sat, np.sign(x[big]) * 448.0)
+    assert np.isnan(np.asarray(xj[big].astype(JF8), np.float32)).all()
+    rng = np.random.default_rng(0)
+    f = (rng.standard_normal(1 << 16) * 10.0 ** rng.uniform(
+        -4, 3, 1 << 16)).astype(np.float32)
+    fs = np.abs(f) <= 464
+    ft = _bytes(tq.to_cache(torch.from_numpy(f), F8))
+    np.testing.assert_array_equal(ft[fs],
+                                  _bytes(jnp.asarray(f).astype(JF8))[fs])
+    np.testing.assert_array_equal(
+        _t8(np.ascontiguousarray(ft[~fs])).float().numpy(),
+        np.sign(f[~fs]) * 448.0)
+    # an fp8 tensor passes through unchanged
+    assert tq.to_cache(xt[small].to(F8), F8).dtype == F8
+
+
+# ---------------------------------------------------------------------------
+# K3 and K4, plain versions over e4m3 K/V
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows", [None, [2]])
+def test_prefill_plain_fp8_matches_jax(rows):
+    """K3's plain version on e4m3 k / v against JAX's
+    ``prefill_flash_attention`` (interpret mode) on the same bytes, at
+    tests/test_lm_attention.py's fp8 shapes; with ``rows`` the port reads
+    row 2 of a 3-row pool holding those bytes."""
+    rng = np.random.default_rng(2)
+    B, S, T, Hq, Hkv, D, fill = 1, 128, 1024, 4, 2, 128, 256
+    kb = _e4m3_bytes(rng, (B, T, Hkv, D))
+    vb = _e4m3_bytes(rng, (B, T, Hkv, D))
+    q = rng.standard_normal((B, S, Hq, D)).astype(np.float32)
+    pos = np.full((B, T), -1, np.int32)
+    pos[0, :fill] = np.arange(fill)
+    pos[0, fill // 3] = pos[0, fill // 2] = -1
+    qpos = (fill + np.arange(S, dtype=np.int32))[None]
+    pos[0, fill:fill + S] = qpos[0]
+    qj = jnp.asarray(q, jnp.bfloat16)
+    eff_j = jlma.effective_kv_positions(jnp.asarray(pos))
+    ref = jlma.prefill_flash_attention(qj, _j8(kb), _j8(vb),
+                                       jnp.asarray(qpos), eff_j,
+                                       interpret=True)
+    qt = torch.from_numpy(q).to(torch.bfloat16)
+    eff_t = tlma.effective_kv_positions(torch.from_numpy(pos))
+    kt, vt = _t8(kb), _t8(vb)
+    if rows is not None:
+        kt = _t8(np.concatenate([_e4m3_bytes(rng, (2, T, Hkv, D)), kb]))
+        vt = _t8(np.concatenate([_e4m3_bytes(rng, (2, T, Hkv, D)), vb]))
+    out = tlma.prefill_flash_attention(qt, kt, vt, torch.from_numpy(qpos),
+                                       eff_t, rows=rows)
+    assert out.dtype == torch.bfloat16
+    assert _row_rule(out.float().numpy(), np.asarray(ref, np.float32),
+                     D) <= 1.0
+
+
+@pytest.mark.parametrize("S", [1, 5])
+def test_decode_plain_fp8_matches_jax(S):
+    """K4's plain version on an e4m3 cache against JAX's
+    ``decode_splash_attention`` (interpret mode), following
+    tests/test_lm_attention.py's fp8 decode case: the JAX kernel reads the
+    e4m3 main cache, the e4m3 side buffer and the step's fresh K/V (bf16
+    values that e4m3 holds exactly), the port one e4m3 cache holding main
+    (+) side (+) fresh, the same bytes."""
+    rng = np.random.default_rng(5)
+    L, T, Ts, Hq, Hkv, D, fill, side_fill = 2, 2048, 32, 4, 2, 128, 1500, 4
+    mk, mv = (_e4m3_bytes(rng, (L, 1, T, Hkv, D)) for _ in range(2))
+    sk, sv = (_e4m3_bytes(rng, (L, 1, Ts, Hkv, D)) for _ in range(2))
+    kn, vn = (_e4m3_bytes(rng, (1, S, Hkv, D)) for _ in range(2))
+    mpos = np.full((1, T), -1, np.int32)
+    mpos[0, :fill] = np.arange(fill)
+    mpos[0, fill // 2] = -1
+    spos = np.full((1, Ts), -1, np.int32)
+    spos[0, :side_fill] = fill + np.arange(side_fill)
+    step_pos = (fill + side_fill + np.arange(S, dtype=np.int32))[None]
+    q = rng.standard_normal((1, S, Hq, D)).astype(np.float32)
+    qj = jnp.asarray(q, jnp.bfloat16)
+    eff_m = jnp.repeat(jlma.effective_kv_positions(jnp.asarray(mpos)), Hkv,
+                       axis=1)
+    eff_s = jnp.repeat(jlma.effective_kv_positions(jnp.asarray(spos)), Hkv,
+                       axis=1)
+    Tc = T + Ts + S
+    ppos = np.concatenate([mpos, spos, step_pos], axis=1)
+    eff = tlma.effective_kv_positions(torch.from_numpy(ppos))
+    for li in range(L):
+        ref = jlma.decode_splash_attention(
+            qj, _j8(kn).astype(jnp.bfloat16), _j8(vn).astype(jnp.bfloat16),
+            _j8(mk), _j8(mv), _j8(sk), _j8(sv), jnp.int32(li),
+            jnp.asarray(step_pos), eff_m, eff_s, interpret=True)
+        pk = np.concatenate([mk[li], sk[li], kn], axis=1)
+        pv = np.concatenate([mv[li], sv[li], vn], axis=1)
+        assert pk.shape == (1, Tc, Hkv, D)
+        out = tlma.decode_attention(
+            torch.from_numpy(q).to(torch.bfloat16), _t8(pk), _t8(pv),
+            torch.from_numpy(step_pos), eff)
+        assert _row_rule(out.float().numpy(), np.asarray(ref, np.float32),
+                         D) <= 1.0, f"layer {li}"
+
+
+# ---------------------------------------------------------------------------
+# sessions
+# ---------------------------------------------------------------------------
+
+def _cfgs(dtype):
+    jcfg = dataclasses.replace(JConfig.tiny(),
+                               compression=JCompression(**COMP))
+    tcfg = dataclasses.replace(TConfig.tiny(),
+                               compression=TCompression(**COMP))
+    return (dataclasses.replace(jcfg, text=dataclasses.replace(
+                jcfg.text, dtype=dtype)),
+            dataclasses.replace(tcfg, text=dataclasses.replace(
+                tcfg.text, dtype=dtype)))
+
+
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def setup(request):
+    jcfg, tcfg = _cfgs(request.param)
+    params = init_cogreasoner_params(jax.random.PRNGKey(0), jcfg)
+    model = bridge.cogreasoner_from_params(jax.tree.map(np.asarray, params),
+                                           tcfg, device="cpu")
+    jtok = JTok(image_token_id=jcfg.image_token_index)
+    ttok = TTok(image_token_id=tcfg.image_token_index)
+    return request.param, jcfg, tcfg, params, model, jtok, ttok
+
+
+@pytest.fixture(scope="module")
+def f32_setup():
+    jcfg, tcfg = _cfgs("float32")
+    params = init_cogreasoner_params(jax.random.PRNGKey(0), jcfg)
+    model = bridge.cogreasoner_from_params(jax.tree.map(np.asarray, params),
+                                           tcfg, device="cpu")
+    return ("float32", jcfg, tcfg, params, model,
+            JTok(image_token_id=jcfg.image_token_index),
+            TTok(image_token_id=tcfg.image_token_index))
+
+
+def _segment(seed, n=None):
+    t, gh, gw = SEG
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(t * gh * gw, 3 * 14 * 14)).astype(np.float32)
+    return x if n is None else x[:n]
+
+
+def _same_answer(rt, rj):
+    for key in ("text", "selection", "if_visual", "turn", "cache_tokens"):
+        assert rt[key] == rj[key], key
+
+
+def _ordinal(b):
+    """e4m3 bytes as signed ordinals: adjacent values differ by one."""
+    b = b.astype(np.int32)
+    return np.where(b & 0x80, -(b & 0x7F), b & 0x7F)
+
+
+def _assert_fp8_rows(tk, jk, tpos, jpos, dtype, min_share):
+    """The fp8 caches ([L, T, Hkv, D] bytes of one row) where pos >= 0,
+    by the module docstring's rule for ``dtype`` (an f32 decoder's bytes
+    equal in at least ``min_share`` of elements). Returns the byte-equal
+    share."""
+    np.testing.assert_array_equal(tpos, jpos)
+    live = jpos >= 0
+    t, j = tk[:, live], jk[:, live]
+    share = float((t == j).mean())
+    if dtype == "float32":
+        assert share >= min_share, share
+        assert np.abs(_ordinal(t) - _ordinal(j)).max() <= 1
+    else:
+        tv = _t8(np.ascontiguousarray(t)).float().numpy()
+        jv = _t8(np.ascontiguousarray(j)).float().numpy()
+        row_max = np.abs(jv).max(-1, keepdims=True)
+        # one e4m3 step at the row's scale: 2^(floor(log2 max) - 3)
+        step = np.exp2(np.floor(np.log2(np.maximum(row_max, 2.0 ** -9)))
+                       - 3)
+        assert (np.abs(tv - jv) <= step).all()
+        assert share > 0.85, share
+    return share
+
+
+def _assert_cache_bytes(ts, js, dtype, trow=0, jrow=0, min_share=0.999):
+    tc, jc = ts.cache, js.cache
+    assert tc.k.dtype == F8 and jc.k.dtype == JF8
+    jpos = np.asarray(jc.pos)[jrow]
+    tpos = tc.pos[trow].numpy()
+    return [_assert_fp8_rows(_bytes(getattr(tc, n))[:, trow],
+                             _bytes(getattr(jc, n))[:, jrow], tpos, jpos,
+                             dtype, min_share) for n in ("k", "v")]
+
+
+def test_fp8_session_matches_jax(setup):
+    """A tiny session with an e4m3 cache in both packages: ingest → ask
+    AC → ingest → ask FCC → one ask with lookahead_k=2; answers and
+    bookkeeping identical, the cache bytes by the module's rule."""
+    dtype, jcfg, tcfg, params, model, jtok, ttok = setup
+    js = jsess_mod.StreamingSession(params, jcfg, jtok, max_len=1024,
+                                    kv_dtype=JF8)
+    ts = TSession(model, tcfg, ttok, max_len=1024, kv_dtype=F8)
+    turns = [([0.0, 1.0, 2.0], "what is happening?", "AC"),
+             ([3.0, 4.0, 5.0], "and now?", "FCC")]
+    for i, (stamps, question, mode) in enumerate(turns):
+        for s in (js, ts):
+            s.append_stream_segment(_segment(i), SEG, 2, timestamps=stamps)
+        rj = js.ask(question, mode=mode, max_new_tokens=8)
+        rt = ts.ask(question, mode=mode, max_new_tokens=8)
+        _same_answer(rt, rj)
+    rj = js.ask("what next?", mode="AC", max_new_tokens=8, lookahead_k=2)
+    rt = ts.ask("what next?", mode="AC", max_new_tokens=8, lookahead_k=2)
+    _same_answer(rt, rj)
+    assert ts.last_lookahead_steps is not None
+    assert [dataclasses.astuple(r) for r in ts.ranges] == \
+        [dataclasses.astuple(r) for r in js.ranges]
+    assert (ts.write_index, ts.next_pos) == (js.write_index, js.next_pos)
+    _assert_cache_bytes(ts, js, dtype)
+
+
+def test_fp8_pool_matches_jax(f32_setup):
+    """``SessionPool(kv_dtype=e4m3)`` (tests/test_pool.py's fp8 pool):
+    ingest, ingest_batch and ask_batch AC / FCC against JAX's pool; the
+    shared cache is e4m3 and its bytes follow the module's rule."""
+    dtype, jcfg, tcfg, params, model, jtok, ttok = f32_setup
+    jp = JPool(params, jcfg, jtok, n_rows=3, max_len=1024, kv_dtype=JF8,
+               summary_forward=False)
+    tp = TPool(model, tcfg, ttok, n_rows=3, max_len=1024, kv_dtype=F8,
+               summary_forward=False)
+    assert tp.cache.k.dtype == tp.cache.v.dtype == F8
+    for p in (jp, tp):
+        assert [p.open() for _ in range(3)] == [0, 1, 2]
+        p.ingest(0, _segment(0), SEG, 2, [0.0, 1.0, 2.0])
+        p.ingest_batch([(b, _segment(10 + b), SEG, 2, [3.0, 4.0, 5.0])
+                        for b in (2, 0, 1)])
+    for reqs, mode in (([(0, "what is happening?"), (1, "who is there?"),
+                         (2, "where is it?")], "AC"),
+                       ([(0, "and now?"), (2, "is it moving?")], "FCC")):
+        oj = jp.ask_batch(reqs, mode=mode, max_new_tokens=8)
+        ot = tp.ask_batch(reqs, mode=mode, max_new_tokens=8)
+        assert sorted(ot) == sorted(oj)
+        for b in oj:
+            _same_answer(ot[b], oj[b])
+    for b in range(3):
+        _assert_cache_bytes(tp.sessions[b], jp.sessions[b], dtype, b, b,
+                            min_share=0.995)
+
+
+def test_jax_fp8_snapshot_restores_into_the_port(f32_setup, tmp_path):
+    """A JAX fp8 session's snapshot loads into a port fp8 session with
+    byte-equal K/V, and the continued asks agree."""
+    _, jcfg, tcfg, params, model, jtok, ttok = f32_setup
+    js = jsess_mod.StreamingSession(params, jcfg, jtok, max_len=1024,
+                                    kv_dtype=JF8)
+    js.append_stream_segment(_segment(0), SEG, 2, [0.0, 1.0, 2.0])
+    js.ask("what is happening?", mode="AC", max_new_tokens=6)
+    path = str(tmp_path / "j.snap.npz")
+    js.save(path)
+    ts = TSession(model, tcfg, ttok, max_len=1024, kv_dtype=F8)
+    ts.load_state(path)
+    wi = js.write_index
+    assert ts.write_index == wi
+    for n in ("k", "v"):
+        np.testing.assert_array_equal(
+            _bytes(getattr(ts.cache, n))[:, 0, :wi],
+            _bytes(getattr(js.cache, n))[:, 0, :wi])
+    _same_answer(ts.ask("and now?", mode="FCC", max_new_tokens=8),
+                 js.ask("and now?", mode="FCC", max_new_tokens=8))
+
+
+def test_port_fp8_snapshot_restores_into_jax(f32_setup, tmp_path):
+    """The port's fp8 snapshot stores the e4m3 bytes under JAX's dtype
+    name and loads into a JAX fp8 session byte for byte; both then answer
+    alike."""
+    _, jcfg, tcfg, params, model, jtok, ttok = f32_setup
+    ts = TSession(model, tcfg, ttok, max_len=1024, kv_dtype=F8)
+    ts.append_stream_segment(_segment(1), SEG, 2, [0.0, 1.0, 2.0])
+    ts.ask("what is happening?", mode="AC", max_new_tokens=6)
+    path = str(tmp_path / "t.snap.npz")
+    ts.save(path)
+    js = jsess_mod.StreamingSession(params, jcfg, jtok, max_len=1024,
+                                    kv_dtype=JF8)
+    js.load_state(path)
+    wi = ts.write_index
+    assert js.write_index == wi
+    for n in ("k", "v"):
+        np.testing.assert_array_equal(
+            _bytes(getattr(js.cache, n))[:, 0, :wi],
+            _bytes(getattr(ts.cache, n))[:, 0, :wi])
+    _same_answer(ts.ask("and now?", mode="AC", max_new_tokens=8),
+                 js.ask("and now?", mode="AC", max_new_tokens=8))
+
+
+def test_bf16_snapshot_loads_into_an_fp8_session(f32_setup, tmp_path):
+    """A snapshot with a bf16 cache (a JAX session with kv_dtype bf16)
+    loads into an fp8 session of either package, cast on load: the same
+    e4m3 bytes in both, and the same continued ask."""
+    _, jcfg, tcfg, params, model, jtok, ttok = f32_setup
+    src = jsess_mod.StreamingSession(params, jcfg, jtok, max_len=1024,
+                                     kv_dtype=jnp.bfloat16)
+    src.append_stream_segment(_segment(2), SEG, 2, [0.0, 1.0, 2.0])
+    path = str(tmp_path / "bf16.snap.npz")
+    src.save(path)
+    js = jsess_mod.StreamingSession(params, jcfg, jtok, max_len=1024,
+                                    kv_dtype=JF8)
+    js.load_state(path)
+    ts = TSession(model, tcfg, ttok, max_len=1024, kv_dtype=F8)
+    ts.load_state(path)
+    wi = src.write_index
+    for n in ("k", "v"):
+        want = _bytes(getattr(src.cache, n)[:, 0, :wi].astype(JF8))
+        np.testing.assert_array_equal(
+            _bytes(getattr(ts.cache, n))[:, 0, :wi], want)
+        np.testing.assert_array_equal(
+            _bytes(getattr(js.cache, n))[:, 0, :wi], want)
+    _same_answer(ts.ask("what is it?", mode="AC", max_new_tokens=8),
+                 js.ask("what is it?", mode="AC", max_new_tokens=8))
+
+
+# ---------------------------------------------------------------------------
+# quant_quality and the refusal
+# ---------------------------------------------------------------------------
+
+QQ = dict(vocab_size=256, hidden_size=256, intermediate_size=384,
+          num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=2,
+          dtype="bfloat16")
+
+
+def test_quant_quality_fp8_cache_matches_jax():
+    """``cached_logits(kv_dtype=e4m3)`` on JAX's bf16 quality build
+    (embeddings in f32, so both forwards run f32) within 1e-4 of each
+    row's max of JAX's; the fp8kv row of ``compare_logits`` (bf16 cache
+    against fp8 cache) equal to JAX's on the same logits; the fp8 cache
+    moves the logits (the probe measures something)."""
+    jcfg = dataclasses.replace(JQwen2Config(**QQ), dtype="float32")
+    tcfg = TQwen2Config(**{**QQ, "dtype": "float32"})
+    tree = jax.tree.map(np.asarray,
+                        jqq.build_text_params(JQwen2Config(**QQ), "bf16",
+                                              seed=3))
+    tree["embed_tokens"] = tree["embed_tokens"].astype(np.float32)
+    jtree = jax.tree.map(jnp.asarray, tree)
+    model = bridge.qwen2_from_params(tree, tcfg, device="cpu")
+    jids = jqq.probe_ids(jcfg, n=40)
+    ids = tqq.probe_ids(tcfg, n=40, device="cpu")
+    lj = np.asarray(jqq.cached_logits(jtree, jids, jcfg, 64, kv_dtype=JF8))
+    lt = tqq.cached_logits(model, ids, tcfg, 64, kv_dtype=F8)
+    err = np.abs(lt.numpy() - lj).max(-1)
+    assert (err <= 1e-4 * np.abs(lj).max(-1)).all(), err.max()
+    base_j = jqq.cached_logits(jtree, jids, jcfg, 64)
+    ref = jqq.compare_logits(base_j, jnp.asarray(lj), "fp8kv")
+    got = tqq.compare_logits(torch.from_numpy(np.array(base_j)),
+                             torch.from_numpy(lj), "fp8kv")
+    assert got.keys() == ref.keys()
+    for k in ref:
+        assert got[k] == pytest.approx(ref[k], rel=1e-5, abs=1e-6), k
+    assert got["fp8kv_logit_mae"] > 0.0
+    a = jqq.greedy_continuation(jtree, jcfg, jids, n=8, max_len=64,
+                                kv_dtype=JF8)
+    b = tqq.greedy_continuation(model, tcfg, ids, n=8, max_len=64,
+                                kv_dtype=F8)
+    np.testing.assert_array_equal(b, a)
+
+
+@pytest.mark.parametrize("model_dtype,kv_dtype,ok", [
+    (torch.bfloat16, None, True), (torch.bfloat16, torch.bfloat16, True),
+    (torch.bfloat16, F8, True), (torch.float32, F8, True),
+    (torch.bfloat16, torch.float8_e5m2, False),
+    (torch.float32, torch.bfloat16, False),
+    (torch.bfloat16, torch.float32, False)])
+def test_check_kv_dtype(model_dtype, kv_dtype, ok):
+    """The cache takes the model's dtype or e4m3; e5m2 and a cache in
+    another float dtype still raise, naming their queue item."""
+    if ok:
+        assert check_kv_dtype(kv_dtype, model_dtype) == (
+            kv_dtype or model_dtype)
+    else:
+        with pytest.raises(NotImplementedError, match="Queue 1 #12"):
+            check_kv_dtype(kv_dtype, model_dtype)
+
+
+def test_session_refuses_e5m2(f32_setup):
+    _, _, tcfg, _, model, _, ttok = f32_setup
+    with pytest.raises(NotImplementedError, match="#12"):
+        TSession(model, tcfg, ttok, max_len=256,
+                 kv_dtype=torch.float8_e5m2)

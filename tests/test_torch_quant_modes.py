@@ -660,7 +660,8 @@ def test_quality_probes_match_jax():
     by as much as JAX's does (its MAE against weight-only within 20%: the
     forward is chaotic here, module docstring); divergence,
     compare_logits and prefix_agreement equal JAX's on the same logits;
-    an fp8 cache raises, naming its queue item."""
+    the cached logits over an e4m3 cache (kv_dtype) within the same
+    bound of JAX's."""
     jcfg = dataclasses.replace(JQwen2Config(**QQ), dtype="float32")
     tcfg = TQwen2Config(**{**QQ, "dtype": "float32"})
     tree = _np(jqq.build_text_params(JQwen2Config(**QQ), "int8", seed=3))
@@ -692,8 +693,10 @@ def test_quality_probes_match_jax():
     for x, y in (([1, 2, 3, 4], [1, 2, 9, 4]), ([5], [5]), ([], [])):
         assert tqq.prefix_agreement(np.asarray(x), np.asarray(y)) == \
             jqq.prefix_agreement(np.asarray(x), np.asarray(y))
-    with pytest.raises(NotImplementedError, match="Queue 1 #3"):
-        tqq.cached_logits(model, ids, tcfg, 64, kv_dtype=torch.float8_e4m3fn)
+    _row_close(tqq.cached_logits(model, ids, tcfg, 64,
+                                 kv_dtype=torch.float8_e4m3fn).numpy(),
+               jqq.cached_logits(jtree, jids, jcfg, 64,
+                                 kv_dtype=jnp.float8_e4m3fn), FWD)
 
 
 @pytest.fixture(scope="module")

@@ -316,7 +316,9 @@ def test_server_refuses_unported_options(setup, monkeypatch):
     ``encoder_int8`` (once refused) builds ONE W8A8 copy of the tower that
     the solo sessions and the pool share, and leaves the model's own;
     ``lookahead_k`` (once refused) is the server's default for solo asks,
-    a request's value overriding it, with a vanilla session's answers."""
+    a request's value overriding it, with a vanilla session's answers; a
+    pool with an fp8 cache (``kv_dtype``, once refused) answers as JAX's
+    fp8 pool does."""
     import cogstream_tpu_torch.runtime.session as tsess_mod
 
     _, tcfg, _, model = setup
@@ -342,10 +344,23 @@ def test_server_refuses_unported_options(setup, monkeypatch):
     assert used == [2, 3]
     with pytest.raises(NotImplementedError, match="#9"):
         _server(setup, mesh=object())
+    # an fp8 pool (once refused) builds an e4m3 cache and answers as JAX's
+    from cogstream_tpu.runtime.pool import SessionPool as JPool
     from cogstream_tpu_torch.runtime.pool import SessionPool
-    with pytest.raises(NotImplementedError, match="#3"):
-        SessionPool(model, tcfg, TTok(image_token_id=tcfg.image_token_index),
-                    kv_dtype=torch.float8_e4m3fn)
+    jcfg, _, params, _ = setup
+    tp = SessionPool(model, tcfg, TTok(image_token_id=tcfg.image_token_index),
+                     n_rows=2, max_len=512, kv_dtype=torch.float8_e4m3fn)
+    jp = JPool(params, jcfg, JTok(image_token_id=jcfg.image_token_index),
+               n_rows=2, max_len=512, kv_dtype=jax.numpy.float8_e4m3fn)
+    assert tp.cache.k.dtype == tp.cache.v.dtype == torch.float8_e4m3fn
+    pix = np.random.default_rng(3).normal(size=(48, 588)).astype(np.float32)
+    for p in (tp, jp):
+        p.open()
+        p.ingest(0, pix, (3, 4, 4), 2, [0.0, 1.0, 2.0])
+    got = tp.ask_batch([(0, "what?")], mode="AC", max_new_tokens=8)[0]
+    want = jp.ask_batch([(0, "what?")], mode="AC", max_new_tokens=8)[0]
+    assert (got["text"], got["cache_tokens"]) == \
+        (want["text"], want["cache_tokens"])
 
 
 def test_serve_cli(tmp_path, capsys, monkeypatch):
