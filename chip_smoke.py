@@ -66,7 +66,13 @@ Phases (each prints one line or a few; any failure exits non-zero):
    verifies) on the card and the CPU: the same tokens and verify steps;
    on the card the vanilla dialogue's tokens, and its cache wherever
    pos >= 0. The tiny f32 session over an e4m3 cache, card vs CPU: the
-   same tokens, selections and ranges, cache bytes within one e4m3 step;
+   same tokens, selections and ranges, cache bytes within one e4m3 step.
+   QLoRA: the backward of each GEMV wrapper (K6-K10 at 7B gate_proj
+   shapes, m = 64) against the f32 product of g and the weights it
+   dequantizes (2-ulp rule), each forward launching its kernel; tiny
+   ``Stage2Trainer`` turns on a base quantized whole (NF4, then int8 with
+   w8a8_prefill) card vs CPU, losses and adapters held to the CPU's, K10
+   launching in the int8 run's 64-token turn;
 5. main path — a 7B-width ``StreamingSession`` (cogreasoner_7b, bf16,
    random weights from a seeded generator, 16384-slot cache) ingests two
    16-frame segments (24x42 patch grids, merge 2, seeded uint8 patch
@@ -106,7 +112,10 @@ Phases (each prints one line or a few; any failure exits non-zero):
    ``save_cogreasoner_to_hf`` → ``load_cogreasoner_from_hf`` bit-identical,
    the int4 and int8 loads identical to ``quantize_text_``, and the int4
    model's FCC turns launch K6 and K8 (write / load seconds, host peak
-   RSS);
+   RSS); (c) the training commands as subprocesses on that checkpoint,
+   ``train-stage1`` on seeded selector chains and ``train-stage2
+   --quantize-base nf4`` on the clip under a seeded three-segment spec:
+   each exits 0, trains at least one step and writes its adapter;
 9. pooled serving (runs on the phase-5 model, after phase 8, before
    phases 7 and 6) — (a) a ``SessionPool`` of 4 rows x 16384 slots
    (3.76 GB of cache): two ``ingest_batch`` ticks of a seeded 16-frame
@@ -132,7 +141,13 @@ Phases (each prints one line or a few; any failure exits non-zero):
    27 times per tower forward, all on its tensor-core tile, every loss
    be finite, the LoRA b leaves
    change, the base stay bit-identical and a held-out forward's loss
-   fall;
+   fall. Then QLoRA: a copy of the model quantized whole
+   (``quantize_cogreasoner_``; NF4, then int8 with w8a8_prefill, one
+   resident at a time beside the bf16 weights) trains 2 stage-2
+   micro-steps on the same turn: wall, tokens/s, peak GiB (raw and less
+   the resident bf16 weights) and model GiB beside bf16's; K5 27 times
+   per tower forward on its tensor-core tile, finite losses, changed b
+   leaves, the quantized base's checksum unchanged;
 10. int8 main path (runs on the phase-5 model, after phase 7, before
    phase 6) — (a) an int8 copy of the decoder beside the bf16 one and a
    decode step of each (launches, device and wall ms); (b) for
@@ -165,7 +180,8 @@ Phases (each prints one line or a few; any failure exits non-zero):
 
 With ``--profile`` it runs torch.profiler over one more ingest and three
 asks (the last with lookahead_k=4) on the phase-5 session, and over one
-more step of each training stage in phase 7, and prints each one's
+more step of each training stage and QLoRA scheme in phase 7, and
+prints each one's
 device busy share and its kernels by device time.
 
 It then prints the kernels JSON line, the card line, and last
@@ -2001,6 +2017,159 @@ def check_training_reference(dev):
                              "CPU")
 
 
+def check_gemv_backward(dev):
+    """The backward each GEMV wrapper carries (a LoRA turn on a frozen
+    quantized base reaches them at m <= 64): K6 and K7 on a 2D rank-1
+    gate_proj (3584 -> 18944), K8 and K9 on two stacked such layers
+    (layer 1), K10 on the int8 gate_proj, 2D and stacked; 64 bf16 rows.
+    Each forward must launch its kernel, and ``dx`` must equal the f32
+    product of ``g`` and the weights the backward dequantizes (JAX's
+    transpose of the XLA form: ``g @ W_deq^T``, rank-1 per packed half
+    with the row scales after) within the 2-ulp row rule; the frozen
+    weights require no gradient."""
+    import torch
+
+    from cogstream_tpu_torch.ops import int8_gemv, quant, quant_gemv
+
+    rng = np.random.default_rng(11)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    din, dout, m = 3584, 18944, 64
+    r1 = _int4_store(rng, dev, (2, din // 2, dout))
+    i8 = _int8_store(dev, (2, din, dout), 12)
+    layer = torch.tensor([1], dtype=torch.int32, device=dev)
+
+    def two_d(qp):
+        return {k: v[1] for k, v in qp.items()}
+
+    def rank1_ref(g, qp):
+        prep = quant.materialize_split(qp, torch.bfloat16)
+        half = din // 2
+        return torch.cat([(g.float() @ prep[w].float().t())
+                          * prep["rscale"][sl] for w, sl in
+                          (("wl", slice(0, half)), ("wh", slice(half, din)))],
+                         dim=-1)
+
+    def int8_ref(g, qp):
+        w = (qp["q"].float() * qp["scale"][None, :]).bfloat16().float()
+        return g.float() @ w.t()
+
+    cases = [
+        ("K6", 5, lambda x: quant_gemv.int4_rank1_gemv(x, two_d(r1)),
+         lambda g: rank1_ref(g, two_d(r1))),
+        ("K7", 6, lambda x: quant_gemv.int4_rank1_gemv(x, two_d(r1),
+                                                       w4a8=True),
+         lambda g: rank1_ref(g, two_d(r1))),
+        ("K8", 7, lambda x: quant_gemv.int4_rank1_gemv_stacked(x, r1, layer),
+         lambda g: rank1_ref(g, two_d(r1))),
+        ("K9", 8, lambda x: quant_gemv.int4_rank1_gemv_stacked(
+            x, r1, layer, w4a8=True), lambda g: rank1_ref(g, two_d(r1))),
+        ("K10", 9, lambda x: int8_gemv.int8_gemv(x, two_d(i8)),
+         lambda g: int8_ref(g, two_d(i8))),
+        ("K10 stacked", 9, lambda x: int8_gemv.int8_gemv(
+            x, {**i8, "layer": layer}), lambda g: int8_ref(g, two_d(i8))),
+    ]
+    worst, ok = {}, True
+    for name, idx, fwd, ref in cases:
+        x = torch.randn((m, din), generator=gen, device=dev,
+                        dtype=torch.bfloat16).requires_grad_(True)
+        g = torch.randn((m, dout), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        n0 = wrapper(idx).launches
+        y = fwd(x)
+        launched = wrapper(idx).launches - n0
+        y.backward(g)
+        _, ratio = row_check(x.grad, ref(g), din)
+        worst[name] = (launched, round(ratio, 3))
+        ok &= launched == 1 and ratio <= 1.0 and x.grad.dtype == x.dtype
+    ok &= not any(t.requires_grad for qp in (r1, i8) for t in qp.values())
+    log(f"reference GEMV backward: (forward launches, dx worst row / its "
+        f"2-ulp bound) {worst}")
+    if not ok:
+        raise AssertionError("a GEMV kernel's backward disagrees with the "
+                             "dequantized product")
+
+
+def check_qlora_reference(dev):
+    """Tiny QLoRA (f32, dropout 0) on the card against the CPU: the tiny
+    config with the int4 check's 128-multiple text widths, the same
+    ``init_cogreasoner_params`` weights quantized whole by
+    ``quantize_cogreasoner_`` (NF4, then int8 with ``w8a8_prefill``, the
+    stage-2 ``--w8a8-forward``) and the same LoRA init on both. Two
+    ``Stage2Trainer`` turns each (a packed visual turn with a pooling plan,
+    128 tokens, and a text-only turn of 64, where the int8 lm_head runs K10
+    under autograd). NF4: losses rtol 1e-5, adapters within 2.01 lr and
+    1e-3 lr on 99% of the elements (tests/test_torch_train.py's bounds);
+    int8 + W8A8: losses within 1e-3 relative, adapters within 2.01 lr (the
+    card's f32 GEMMs differ from the CPU's upstream, and such a difference
+    can flip an int8 activation rounding: 5.2e-5 relative measured on an
+    H100, where the CPU packages agree to 6.6e-8). K5 must run in the
+    card's tower and K10 in the int8 run."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from cogstream_tpu_torch.config import LoRAConfig
+    from cogstream_tpu_torch.models.cogreasoner import init_cogreasoner_params
+    from cogstream_tpu_torch.models.lora import (init_cogreasoner_lora,
+                                                 map_leaves)
+    from cogstream_tpu_torch.ops import flash_attention as fa
+    from cogstream_tpu_torch.ops.quant import quantize_cogreasoner_
+    from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
+    from cogstream_tpu_torch.train import stage2
+
+    base = tiny_int4_cfg()
+    base = dataclasses.replace(base, text=dataclasses.replace(
+        base.text, w4a8_decode=False))
+    tok = ByteTokenizer(image_token_id=base.image_token_index)
+    lc = LoRAConfig(dropout=0.0, include_projector=True)
+    lora0 = init_cogreasoner_lora(torch.Generator().manual_seed(1), base, lc,
+                                  device="cpu")
+    s2cfg = stage2.Stage2Config(max_seq_len=2048, grad_accum=1,
+                                save_every=10_000, learning_rate=1e-3)
+    rng = np.random.default_rng(1)
+    turns = [_stage2_turn(rng, tok, base, 2, 4, 4, 2, 2048, pool=True),
+             stage2.pack_turn_batch(tok, base, "<|im_start|>user\nhi?"
+                                    "<|im_end|>\n", "yes", None, None, 2048)]
+    assert turns[1]["input_ids"].shape == (1, 64)     # K10's m <= 64
+    ok = True
+    for scheme, bits, w8 in (("nf4", 4, False), ("int8+w8a8", 8, True)):
+        cfg = dataclasses.replace(base, text=dataclasses.replace(
+            base.text, w8a8_prefill=w8))
+        cpu_model = init_cogreasoner_params(
+            base, torch.Generator().manual_seed(0), device="cpu")
+        quantize_cogreasoner_(cpu_model, bits)
+        out = {}
+        for name, model in (("cpu", cpu_model),
+                            ("card", copy.deepcopy(cpu_model).to(dev))):
+            k5, k10 = (fa.segment_flash_attention.launches,
+                       wrapper(9).launches)
+            trainer = stage2.Stage2Trainer(
+                model, cfg, tok, s2cfg, _fresh_dir(f"q_{scheme}_{name}"),
+                total_steps=20, log=lambda *a: None, lora_cfg=lc,
+                lora=map_leaves(lambda t: t.detach().clone().to(
+                    model.text.device).requires_grad_(True), lora0))
+            losses = [trainer.train_turn(dict(b)) for b in turns]
+            out[name] = (losses, trainer.state.lora)
+            k5 = fa.segment_flash_attention.launches - k5  # the card's run
+            k10 = wrapper(9).launches - k10
+        (lc_, ac), (lg, ag) = out["cpu"], out["card"]
+        d = _adapters_vs(ag, ac, 1e-3)
+        rtol = 1e-3 if w8 else 1e-5
+        ok_s = all(abs(a - b) <= rtol * abs(b) + 1e-6 for a, b in
+                   zip(lg, lc_)) and d[0] <= 2.01 \
+            and (w8 or d[1] < 0.01) \
+            and k5 == 2 * base.vision.num_hidden_layers \
+            and (bits == 4 or k10 > 0)
+        log(f"reference QLoRA {scheme}: stage-2 losses card "
+            f"{[f'{x:.7g}' for x in lg]} cpu {[f'{x:.7g}' for x in lc_]}; "
+            f"adapters (worst / lr, share beyond 1e-3 lr) {d}; card K5 "
+            f"launches {k5}, K10 launches {k10}")
+        ok &= ok_s
+    if not ok:
+        raise AssertionError("tiny QLoRA on the card disagrees with the CPU")
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the 7B-width main path
 # ---------------------------------------------------------------------------
@@ -3121,10 +3290,83 @@ def run_checkpoint_round_trip(dev, stamp, video_dir, query_dir):
             or launched["K6_int4_gemv"] == 0 \
             or launched["K8_int4_gemv_idx"] == 0:
         raise AssertionError("checkpoint round trip check failed")
+    gc.collect()
+    torch.cuda.empty_cache()
     return {"ckpt_write_s": write_s, "ckpt_bytes": size,
             "ckpt_load_s": load_s, "ckpt_load_rss_delta": rss_d,
             "ckpt_int4_load_s": load4_s, "ckpt_int4_load_rss_delta": rss4_d,
-            "ckpt_int8_load_s": load8_s}
+            "ckpt_int8_load_s": load8_s,
+            **run_training_clis(stamp, out_dir, video_dir)}
+
+
+def run_training_clis(stamp, ckpt_dir, video_dir):
+    """Phase 8 (c): the two training commands as subprocesses on phase 8
+    (b)'s 2+2-layer 7B-width checkpoint (byte tokenizer): ``train-stage1``
+    on the selector samples of 4 seeded chains (``--max-len 4096``: byte
+    tokens, prompts with the demo block), one epoch at batch 2; ``train-stage2
+    --quantize-base nf4`` on phase 8's clip under a seeded spec of three
+    10-frame segments, one QA each (relevance and visual flags from the
+    seed). Each must exit 0, print its steps / turns (at least one) and
+    write its adapter. Prints each one's wall."""
+    import subprocess as sp
+
+    rng = np.random.default_rng(21)
+    root = _engine_dir("train_cli")
+    qa = {}
+    for v, smp in enumerate(_selector_samples(rng, 4)):
+        qas = [{"QA_pairs": [{"Q": q, "A": a}], "relevance": [],
+                "is_visual": True} for q, a in zip(smp.hist_qs, smp.hist_as)]
+        qas.append({"QA_pairs": [{"Q": smp.question, "A": "-"}],
+                    "relevance": [int(i in smp.relevance)
+                                  for i in range(len(qas))],
+                    "is_visual": smp.if_visual})
+        qa[f"vid{v}"] = {"QAs": qas}
+    qa_json = os.path.join(root, "qa.json")
+    with open(qa_json, "w") as f:
+        json.dump(qa, f)
+    names = [n for n in os.listdir(video_dir) if not n.startswith(".")]
+    words = ["what", "moves", "where", "color", "block", "now", "left"]
+    segs = []
+    for i in range(3):
+        q = " ".join(rng.choice(words, 5)) + "?"
+        segs.append({"timestamp": [10.0 * i, 10.0 * i + 9.5], "QAs": [
+            {"QA_pairs": [{"Q": q, "A": "a block moves."}],
+             "relevance": [int(x) for x in rng.integers(0, 2, i)],
+             "is_visual": bool(i != 1)}]})
+    qdir = os.path.join(root, "queries")
+    os.makedirs(qdir)
+    with open(os.path.join(qdir, "clip.json"), "w") as f:
+        json.dump({"video": names[0], "segments": segs}, f)
+    runs = {
+        "train-stage1": (["--qa-json", qa_json, "--epochs", "1",
+                          "--batch-size", "2", "--max-len", "4096"],
+                         "language_module.npz", "stage1: "),
+        "train-stage2": (["--video-dir", video_dir, "--query-dir", qdir,
+                          "--quantize-base", "nf4"],
+                         "full_module.npz", "clip.json: "),
+    }
+    ok, out = True, {}
+    for cmd, (args, adapter, mark) in runs.items():
+        out_dir = os.path.join(root, cmd)
+        t0 = time.perf_counter()
+        r = sp.run([sys.executable, "-m", "cogstream_tpu_torch", cmd,
+                    "--model-dir", ckpt_dir, "--out", out_dir] + args,
+                   cwd=REPO, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        said = [ln for ln in r.stdout.splitlines() if ln.startswith(mark)]
+        first = said[-1][len(mark):].split()[0] if said else ""
+        n = int(first) if first.isdigit() else 0
+        wrote = os.path.exists(os.path.join(out_dir, adapter))
+        log(f"train CLI {cmd}: exit {r.returncode} in {wall:.1f}s; "
+            f"{said[-1] if said else 'no summary line'}; wrote {adapter} "
+            f"{wrote} [{stamp}]")
+        if r.returncode != 0:
+            log(r.stdout[-2000:] + r.stderr[-4000:])
+        ok &= r.returncode == 0 and wrote and n >= 1
+        out[f"cli_{cmd.replace('-', '_')}_s"] = wall
+    if not ok:
+        raise AssertionError("a training command failed")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3683,30 +3925,16 @@ def run_http_path(model, dev, stamp):
 # phase 10: the int8 main path, W8A8 prefill, the W8A8 tower, quant quality
 # ---------------------------------------------------------------------------
 
-def int8_text_copy(text):
-    """An int8 copy of the bf16 decoder ``text``: every projection and the
-    lm_head per-channel int8 (``quantize_text_(bits=8)``'s arithmetic, the
-    same stores), the embeddings, norms and biases shared, ``text``'s
-    bf16 weights left in place."""
-    from cogstream_tpu_torch.models.qwen2 import Qwen2Model
-    from cogstream_tpu_torch.ops import quant
+def shared_copy(module):
+    """A copy of ``module`` with new submodules over its own tensors (a
+    deep copy whose memo maps every parameter and buffer to itself):
+    quantizing the copy in place replaces the copy's linears only, so
+    ``module``'s bf16 weights stay where they are and its embeddings, norms
+    and biases are shared."""
+    import copy
 
-    out = Qwen2Model(text.cfg, device="meta", dtype=text.dtype)
-    out.embed_tokens, out.final_norm = text.embed_tokens, text.final_norm
-    L, stores = len(text.layers), {}
-    for li, (mine, src) in enumerate(zip(out.layers, text.layers)):
-        mine.input_norm, mine.post_attn_norm = (src.input_norm,
-                                                src.post_attn_norm)
-        for grp, name in quant.GEMV_SITES:
-            lin = getattr(src, grp)[name]
-            getattr(mine, grp)[name].bias = lin.bias
-            qp = quant.quantize_int8(lin.weight.t())
-            if name not in stores:
-                stores[name] = quant.empty_stack(L, qp)
-            for k, v in qp.items():
-                stores[name][k][li] = v
-    return quant.install_quantized_(
-        out, stores, quant.quantize_int8(text.lm_head.weight.t()))
+    shared = list(module.parameters()) + list(module.buffers())
+    return copy.deepcopy(module, memo={id(t): t for t in shared})
 
 
 class DequantSpy:
@@ -3841,7 +4069,7 @@ def run_int8_path(model, dev, stamp):
     cfg0 = presets.cogreasoner_7b()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    text8 = int8_text_copy(model.text)
+    text8 = quant.quantize_text_(shared_copy(model.text), bits=8)
     torch.cuda.synchronize()
     quant_s = time.perf_counter() - t0
     gib = (quant.quantized_bytes(text8.int8)
@@ -4418,6 +4646,119 @@ def run_training(model, dev, stamp, profile: bool = False):
     return launches, metrics
 
 
+def run_qlora(model, dev, stamp, bf16: dict, profile: bool = False):
+    """The 7B QLoRA path (after phase 7, before 10 and 6): for NF4 and
+    then int8 with ``w8a8_prefill`` (the stage-2 ``--w8a8-forward``), a
+    copy of the phase-5 model quantized whole (``quantize_cogreasoner_``
+    on a :func:`shared_copy`: one scheme resident at a time beside the
+    bf16 weights, which phases 10 and 6 need) trains 2 ``Stage2Trainer``
+    micro-steps (grad_accum 1, remat, LoRA r=8 with dropout 0.1 on the 7
+    projections and the projector) on phase 7's 8-frame turn. Per step: wall s, tokens/s, the allocator's
+    peak, and that peak less the bf16 weights the copy does not share
+    (the footing of phase 7's bf16 peak, where the model trained is the
+    one resident); the model GiB of each. Checks: K5 launches 27 times per
+    tower forward, all on its tensor-core tile; every loss finite; the
+    LoRA b leaves change; the quantized base's checksum unchanged. With
+    ``profile``, one more micro-step of each runs under torch.profiler
+    after the checks (:func:`profiled`)."""
+    import dataclasses
+
+    import torch
+
+    from cogstream_tpu_torch import presets
+    from cogstream_tpu_torch.config import LoRAConfig
+    from cogstream_tpu_torch.models.lora import (init_cogreasoner_lora,
+                                                 iter_leaves)
+    from cogstream_tpu_torch.ops import flash_attention as fa
+    from cogstream_tpu_torch.ops.quant import (quantize_cogreasoner_,
+                                               quantized_bytes)
+    from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
+    from cogstream_tpu_torch.train import stage2
+
+    cfg7 = presets.cogreasoner_7b()
+    tok = ByteTokenizer(image_token_id=cfg7.image_token_index,
+                        vocab=cfg7.text.vocab_size)
+    lc = LoRAConfig(include_projector=True)
+    turn = _stage2_turn(np.random.default_rng(8), tok, cfg7, 8, 24, 42, 2,
+                        stage2.Stage2Config().max_seq_len)
+    S2 = turn["input_ids"].shape[1]
+    n_layers = cfg7.vision.num_hidden_layers
+    bf16_gib = quantized_bytes(model) / 2 ** 30
+    ids = {id(t) for t in list(model.parameters()) + list(model.buffers())}
+    metrics, ok = {}, True
+    for scheme, bits, w8 in (("nf4", 4, False), ("int8_w8a8", 8, True)):
+        cfg = dataclasses.replace(cfg7, text=dataclasses.replace(
+            cfg7.text, w8a8_prefill=w8))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qmodel = quantize_cogreasoner_(shared_copy(model), bits)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        tensors = list(qmodel.parameters()) + list(qmodel.buffers())
+        shared = sum(t.numel() * t.element_size() for t in tensors
+                     if id(t) in ids)
+        q_gib = quantized_bytes(qmodel) / 2 ** 30
+        not_shared = bf16_gib - shared / 2 ** 30
+        lora = init_cogreasoner_lora(
+            torch.Generator(device=dev).manual_seed(1), cfg, lc, device=dev)
+        trainer = stage2.Stage2Trainer(
+            qmodel, cfg, tok, stage2.Stage2Config(grad_accum=1),
+            _fresh_dir(f"qlora_{scheme}"), total_steps=2,
+            log=lambda *a: None, lora_cfg=lc, lora=lora)
+        checksum0 = base_checksum(qmodel)
+        b0 = [t.detach().clone() for k, t in iter_leaves(lora)
+              if k.endswith(".b")]
+        k5, k5_tc = (fa.segment_flash_attention.launches,
+                     fa.segment_flash_attention.tc_launches)
+        losses, times, peaks = [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(trainer.train_turn(dict(turn)))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            log(f"qlora {scheme} step {i}: loss {losses[-1]:.5f}, "
+                f"{times[-1]:.3f}s, {S2 / times[-1]:.0f} tok/s, peak "
+                f"{peaks[-1]:.2f} GiB allocated, {peaks[-1] - not_shared:.2f}"
+                f" GiB less the resident bf16 weights (bf16 step "
+                f"{min(bf16['stage2_step_s']):.3f}s, peak "
+                f"{bf16['stage2_peak_gib']:.2f} GiB) [{stamp}]")
+        k5 = fa.segment_flash_attention.launches - k5
+        k5_tc = fa.segment_flash_attention.tc_launches - k5_tc
+        moved = all(not torch.equal(a, t) for a, (k, t) in zip(
+            b0, ((k, t) for k, t in iter_leaves(lora) if k.endswith(".b"))))
+        checksum1 = base_checksum(qmodel)
+        log(f"qlora {scheme}: quantized copy in {quant_s:.1f}s, model "
+            f"{q_gib:.2f} GiB (bf16 {bf16_gib:.2f} GiB, {shared / 2**30:.2f}"
+            f" GiB of it shared); K5 launches {k5} over 2 tower forwards, "
+            f"{k5_tc} on the tensor-core tile; b leaves changed {moved}; "
+            f"base checksum identical {checksum0 == checksum1} [{stamp}]")
+        ok &= all(math.isfinite(x) for x in losses) and moved \
+            and checksum0 == checksum1 and k5 == k5_tc == 2 * n_layers
+        if profile:
+            profiled(f"qlora_{scheme}_micro_step",
+                     lambda: trainer.train_turn(dict(turn)), stamp)
+        metrics.update({f"qlora_{scheme}_step_s": times,
+                        f"qlora_{scheme}_tok_per_s": [S2 / t for t in times],
+                        f"qlora_{scheme}_peak_gib": max(peaks),
+                        f"qlora_{scheme}_peak_less_bf16_gib":
+                            max(peaks) - not_shared,
+                        f"qlora_{scheme}_model_gib": q_gib,
+                        f"qlora_{scheme}_quantize_s": quant_s,
+                        f"qlora_{scheme}_loss": losses})
+        del trainer, qmodel, lora, tensors, b0
+    metrics["bf16_model_gib"] = bf16_gib
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("7B QLoRA path check failed")
+    return metrics
+
+
 def profile_phases(sess, stamp):
     """``--profile``: torch.profiler over one more ingest, an FCC ask and
     an AC ask on the main path's session (:func:`profiled` each)."""
@@ -4471,7 +4812,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="after the main path, profile one more ingest and "
                          "two asks, and one more step of each training "
-                         "stage, with torch.profiler")
+                         "stage and QLoRA scheme, with torch.profiler")
     args = ap.parse_args()
     # the smoke uses one card: show it only the first visible one, so the
     # device count it reports is the number of cards it ran on
@@ -4534,6 +4875,8 @@ def main() -> int:
     check_reference_lookahead(dev)
     check_reference_fp8(dev)
     check_training_reference(dev)
+    check_gemv_backward(dev)
+    check_qlora_reference(dev)
     launches, metrics, sess = run_main_path(dev, card)
     fp8_launches, fp8_metrics = run_fp8_session(sess, dev, card)
     metrics.update(fp8_metrics)
@@ -4552,6 +4895,8 @@ def main() -> int:
     metrics["rows_ms"] = rows_ms
     train_launches, train_metrics = run_training(model, dev, card,
                                                  args.profile)
+    train_metrics.update(run_qlora(model, dev, card, train_metrics,
+                                   args.profile))
     int8_launches, int8_metrics = run_int8_path(model, dev, card)
     int4_launches, int4_metrics = run_int4_path(model, dev, card)
     for r, n in zip(results + fp8_results,

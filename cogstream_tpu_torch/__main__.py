@@ -6,6 +6,12 @@
                    (PEFT merge_and_unload + save_pretrained)
   serve            JSON-over-HTTP streaming sessions (--pool-rows N:
                    pooled, batched serving)
+  train-stage1     LoRA training of the history selector
+                   (first_stage_training.py; writes language_module.npz)
+  train-stage2     the video-text curriculum (second_stage_training.py;
+                   writes full_module.npz); --quantize-base
+                   {int8,nf4,int4} trains LoRA over a frozen quantized
+                   base (QLoRA), --w8a8-forward runs an int8 base W8A8
 
 The other commands of ``python -m cogstream_tpu`` are not ported yet;
 each prints the ROADMAP queue item that holds it. The commands run on
@@ -17,8 +23,6 @@ from __future__ import annotations
 import sys
 
 NOT_PORTED = {
-    "train-stage1": "Queue 1 #7 (the stage-1 CLI; its trainer is ported)",
-    "train-stage2": "Queue 1 #7 (the stage-2 CLI; its trainer is ported)",
     "judge": "Queue 1 #8",
     "summarize": "Queue 1 #8",
     "nlp-metrics": "Queue 1 #8",
@@ -71,6 +75,16 @@ def main(argv=None) -> int:
         return export_hf(rest)
     if cmd == "serve":
         from .runtime.serve import main as run
+
+        run(rest)
+        return 0
+    if cmd == "train-stage1":
+        from .train.stage1 import main as run
+
+        run(rest)
+        return 0
+    if cmd == "train-stage2":
+        from .train.stage2 import main as run
 
         run(rest)
         return 0

@@ -14,9 +14,12 @@ It imports no JAX: callers turn the JAX tree into numpy first (e.g.
   int8 ``q/scale``, rank-1 int4 ``q4/scale/rscale/code``, group-wise int4
   / NF4 ``q4/scale``; stacked layers, 2D ``lm_head``) byte for byte into
   the port's quantized storage, in the JAX layout (``[L, din, dout]``,
-  ``[L, din/2, dout]``; NOT transposed), and a W8A8 vision tower
-  (``quantize_vision_w8a8``) into int8 GEMMs, its q/k/v concatenated
-  into the fused QKV store.
+  ``[L, din/2, dout]``; NOT transposed), and a quantized vision tower
+  and projector (``quantize_vision_w8a8``'s int8 GEMMs, or a whole tree
+  from ``quantize_tree(params, bits=4|8)``, the QLoRA base: group-wise
+  NF4 / int4 GEMMs with int8 where the group does not divide din, the
+  patch embedding included) into ``QuantLinear``s, the tower's q / k / v
+  dicts concatenated along dout into the fused QKV store.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from .cogreasoner import CogReasoner
 from .projector import Projector
 from ..ops import quant
 from .qwen2 import ATTN_PROJ, MLP_PROJ, Qwen2Model
-from .vision_encoder import VisionTower, default_device, int8_linear
+from .vision_encoder import VisionTower, default_device
 
 
 def _copy(param: torch.Tensor, value) -> None:
@@ -58,6 +61,17 @@ def _bias(value, lin) -> torch.Tensor:
     """``value`` as ``lin``'s bias (its dtype and device)."""
     _copy(lin.bias, value)
     return lin.bias
+
+
+def _linear_from(lin, p: Dict, device):
+    """A JAX dense ``{"kernel", "bias"}`` as ``lin``'s replacement: ``lin``
+    loaded with a plain kernel, a ``QuantLinear`` (bias in ``lin``'s
+    dtype) for a quantized one."""
+    if isinstance(p["kernel"], dict):
+        return quant.QuantLinear(quant.QuantWeight(_quant(p["kernel"], device)),
+                                 bias=_bias(p["bias"], lin))
+    _load_linear(lin, p)
+    return lin
 
 
 def qwen2_from_params(tree: Dict, cfg: Qwen2Config, device=None,
@@ -102,11 +116,13 @@ def qwen2_from_params(tree: Dict, cfg: Qwen2Config, device=None,
 
 def vision_from_params(tree: Dict, cfg: VisionEncoderConfig, device=None,
                        dtype=None) -> VisionTower:
-    """Per-layer JAX vision tree → VisionTower (q/k/v fused); a W8A8
-    tree (``quantize_vision_w8a8``) gives int8 GEMMs."""
+    """Per-layer JAX vision tree → VisionTower (q/k/v fused); quantized
+    kernels (``quantize_vision_w8a8``, ``quantize_tree``) give
+    ``QuantLinear``s of their scheme."""
     tower = VisionTower(cfg, device=device, dtype=dtype)
     device = tower.patch_embed.weight.device
-    _load_linear(tower.patch_embed, tree["patch_embed"])
+    tower.patch_embed = _linear_from(tower.patch_embed, tree["patch_embed"],
+                                     device)
     _copy(tower.post_ln.scale, tree["post_ln"]["scale"])
     _copy(tower.post_ln.bias, tree["post_ln"]["bias"])
     for layer, p in zip(tower.layers, tree["layers"]):
@@ -114,26 +130,23 @@ def vision_from_params(tree: Dict, cfg: VisionEncoderConfig, device=None,
             _copy(getattr(layer, ln).scale, p[ln]["scale"])
             _copy(getattr(layer, ln).bias, p[ln]["bias"])
         a = p["attn"]
+        bias = np.concatenate([np.asarray(a[n]["bias"], np.float32)
+                               for n in ("q", "k", "v")])
         if isinstance(a["q"]["kernel"], dict):
-            qkv = [_quant(a[n]["kernel"], device) for n in ("q", "k", "v")]
-            layer.qkv = int8_linear(
-                {k: torch.cat([d[k] for d in qkv], -1) for k in ("q", "scale")},
-                _bias(np.concatenate([np.asarray(a[n]["bias"], np.float32)
-                                      for n in ("q", "k", "v")]), layer.qkv))
-            for ours, p_lin in (("o", a["o"]), ("fc1", p["mlp"]["fc1"]),
-                                ("fc2", p["mlp"]["fc2"])):
-                setattr(layer, ours, int8_linear(
-                    _quant(p_lin["kernel"], device),
-                    _bias(p_lin["bias"], getattr(layer, ours))))
-            continue
-        _load_linear(layer.qkv, {
-            "kernel": np.concatenate([np.asarray(a[n]["kernel"], np.float32)
-                                      for n in ("q", "k", "v")], axis=1),
-            "bias": np.concatenate([np.asarray(a[n]["bias"], np.float32)
-                                    for n in ("q", "k", "v")])})
-        _load_linear(layer.o, a["o"])
-        _load_linear(layer.fc1, p["mlp"]["fc1"])
-        _load_linear(layer.fc2, p["mlp"]["fc2"])
+            # every scale is per output column: the three dicts side by
+            # side along dout are the fused weight's quantization
+            kern = {k: np.concatenate([np.asarray(a[n]["kernel"][k])
+                                       for n in ("q", "k", "v")], -1)
+                    for k in a["q"]["kernel"]}
+        else:
+            kern = np.concatenate([np.asarray(a[n]["kernel"], np.float32)
+                                   for n in ("q", "k", "v")], axis=1)
+        layer.qkv = _linear_from(layer.qkv, {"kernel": kern, "bias": bias},
+                                 device)
+        for ours, p_lin in (("o", a["o"]), ("fc1", p["mlp"]["fc1"]),
+                            ("fc2", p["mlp"]["fc2"])):
+            setattr(layer, ours, _linear_from(getattr(layer, ours), p_lin,
+                                              device))
     return tower.requires_grad_(False)
 
 
@@ -141,8 +154,9 @@ def projector_from_params(tree: Dict, vision_hidden: int, lm_hidden: int,
                           projector_type: str = "mlp2x_gelu", device=None,
                           dtype=torch.bfloat16) -> Projector:
     proj = Projector(vision_hidden, lm_hidden, projector_type, device, dtype)
-    for lin, p in zip(proj.layers, tree["layers"]):
-        _load_linear(lin, p)
+    for i, p in enumerate(tree["layers"]):
+        proj.layers[i] = _linear_from(proj.layers[i], p,
+                                      proj.layers[i].weight.device)
     return proj.requires_grad_(False)
 
 

@@ -3,7 +3,10 @@
 ``mlp2x_gelu``: Linear(vision_hidden → lm_hidden) → GELU (exact) →
 Linear(lm_hidden → lm_hidden). :func:`projector_forward_lora` is the
 stage-2 training readout with a LoRA delta on each linear (the JAX
-package writes it inline in ``train/multimodal.py``).
+package writes it inline in ``train/multimodal.py``). A linear may be a
+``QuantLinear`` of any scheme (the QLoRA base,
+``ops/quant.quantize_cogreasoner_``): both forwards then dequantize its
+weight in the activations' dtype, as JAX's ``materialize_kernel`` does.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.quant import materialized_linear
 from .qwen2 import adapter_in
 from .vision_encoder import default_device, linear
 
@@ -43,7 +47,7 @@ class Projector(nn.Module):
         for i, layer in enumerate(self.layers):
             if i > 0:
                 x = F.gelu(x)          # exact erf gelu
-            x = layer(x)
+            x = materialized_linear(layer, x)
         return x
 
 
@@ -61,6 +65,6 @@ def projector_forward_lora(proj: Projector, x: torch.Tensor,
             x = F.gelu(x)          # exact erf gelu
         xa = adapter_in(x, dropout_rate,
                         generators[i] if generators else None)
-        x = layer(x) + (xa @ ab["a"].to(x.dtype)) @ ab["b"].to(x.dtype) \
-            * lora_scale
+        x = materialized_linear(layer, x) + (xa @ ab["a"].to(x.dtype)) \
+            @ ab["b"].to(x.dtype) * lora_scale
     return x

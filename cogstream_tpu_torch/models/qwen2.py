@@ -19,7 +19,10 @@ Those three run under ``torch.inference_mode``. Training has its own
 grad-enabled cache-free forward, :func:`qwen2_forward_train`: attention
 is the plain ``causal_gqa_attention`` (as in the JAX cache-free scan; K3
 has no backward in either package), with per-layer recomputation
-(``remat``) and LoRA dropout on the adapter input only.
+(``remat``) and LoRA dropout on the adapter input only. On a quantized
+base (QLoRA) its projections and the lm_head run through ``QuantLinear``
+under autograd (each GEMV kernel carries JAX's transpose rule as its
+backward), with the LoRA deltas added after them.
 
 The cache is updated IN PLACE (the JAX package rebinds a donated
 buffer); ``qwen2_forward`` returns the same object.
@@ -425,6 +428,7 @@ def qwen2_forward_train(
     remat: bool = False,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
+    cfg: Optional[Qwen2Config] = None,
 ) -> torch.Tensor:
     """Grad-enabled cache-free decoder forward; returns hidden [B, S, H].
 
@@ -435,13 +439,17 @@ def qwen2_forward_train(
     ``jax.checkpoint``). With ``dropout_seed`` the adapters' inputs drop
     at ``dropout_rate``, one generator per (layer, projection) derived
     from the seed (:func:`site_generator`); without it the forward is
-    deterministic."""
-    cfg = model.cfg
+    deterministic.
+
+    ``cfg`` is the config the caller trains under (default
+    ``model.cfg``): its flags pick the quantized base's activation mode by
+    JAX's rule, ``w8 = (w8a8_prefill and S >= 16) or (w4a8_decode and S <
+    16)`` (stage-2 ``--w8a8-forward`` sets ``w8a8_prefill``: int8 weights
+    then run W8A8 with a straight-through gradient)."""
+    cfg = cfg or model.cfg
     B, S, _ = inputs_embeds.shape
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    if any(isinstance(m, QuantLinear) for m in model.modules()):
-        raise NotImplementedError("training on a quantized base (QLoRA) "
-                                  "is not ported yet (ROADMAP Queue 1 #7)")
+    w8 = (cfg.w8a8_prefill and S >= 16) or (cfg.w4a8_decode and S < 16)
     positions = positions.to(torch.int32)
     angles = rope_angles(positions.clamp(min=0), D, cfg.rope_theta)
     kv_valid = positions >= 0
@@ -455,7 +463,8 @@ def qwen2_forward_train(
             group, name = _SITES[site]
             gen = (site_generator(dropout_seed, li, site, device=inp.device)
                    if drop else None)
-            y = mods[group][name](inp)
+            lin = mods[group][name]
+            y = lin(inp, w8) if isinstance(lin, QuantLinear) else lin(inp)
             return _add_lora(y, adapter_in(inp, dropout_rate, gen),
                              _lora_at(adapters, li, group, name), lora_scale)
 

@@ -28,6 +28,16 @@ attention and a W8A8 MLP, as JAX's does. JAX pads each head of the packed
 path to 128 lanes with zero weights and unit scales, which leaves every
 per-column scale and per-row activation absmax as it is unpadded: the
 port quantizes the unpadded GEMMs and gets the same numbers.
+
+A tower quantized whole (``ops/quant.quantize_cogreasoner_``, the QLoRA
+base) holds every GEMM, the patch embedding included, as a ``QuantLinear``
+of its scheme (group-wise NF4 / int4, with int8 where the group does not
+divide din, or all int8). Every GEMM that does not take the W8A8 rule
+above runs weight-only as JAX's ``_dense`` does, ``x @ materialize_kernel(W)
++ b`` (``quant.materialized_linear``). The rule keys on the weights as
+JAX's ``_is_w8`` does, so an all-int8 base (``--quantize-base int8``) runs
+its attention (packed path) and MLP W8A8 here as it does there; an NF4
+base, whose fc2 alone falls back to int8, stays weight-only.
 """
 
 from __future__ import annotations
@@ -46,7 +56,8 @@ from ..ops.flash_attention import (flash_attention_packed_rope_fusedqkv,
                                    segment_flash_attention, vision_kv_ranges)
 from ..ops.layernorm import layernorm
 from ..ops.quant import (QuantLinear, QuantWeight, int8_act_matmul,
-                         quantize_int8, quantize_int8_act)
+                         materialized_linear, quantize_int8,
+                         quantize_int8_act)
 from ..ops.rope import (apply_vision_rope_cs, grid_position_ids,
                         vision_rope_angles, vision_rope_cos_sin)
 
@@ -105,7 +116,9 @@ class VisionTower(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.patch_embed.weight.dtype
+        lin = self.patch_embed     # a QuantLinear keeps its bias's dtype
+        return lin.weight.dtype if isinstance(lin, nn.Linear) \
+            else lin.bias.dtype
 
     @property
     def int8(self) -> bool:
@@ -180,11 +193,13 @@ def _w8a8(x: torch.Tensor, lin: QuantLinear, out_dtype=None) -> torch.Tensor:
 
 
 def _mlp(layer: "VisionLayer", h: torch.Tensor) -> torch.Tensor:
-    """fc1 → gelu-tanh → fc2; W8A8 when fc1 and fc2 are both int8."""
+    """fc1 → gelu-tanh → fc2; W8A8 when fc1 and fc2 are both int8, else
+    weight-only (JAX ``_mlp_block``)."""
     if is_w8(layer.fc1) and is_w8(layer.fc2):
         a = F.gelu(_w8a8(h, layer.fc1, torch.float32), approximate="tanh")
         return _w8a8(a.to(h.dtype), layer.fc2)
-    return layer.fc2(F.gelu(layer.fc1(h), approximate="tanh"))
+    a = F.gelu(materialized_linear(layer.fc1, h), approximate="tanh")
+    return materialized_linear(layer.fc2, a)
 
 
 @torch.no_grad()
@@ -212,7 +227,7 @@ def _attn_head_major(layer: VisionLayer, h: torch.Tensor, cos2, sin2,
     """The JAX ``_attn_block``: q/k/v projections (slices of the fused QKV
     output), 2D RoPE on q and k, attention, o-projection."""
     N = h.shape[0]
-    q, k, v = layer.qkv(h).reshape(N, 3, H, D).unbind(1)
+    q, k, v = materialized_linear(layer.qkv, h).reshape(N, 3, H, D).unbind(1)
     q = apply_vision_rope_cs(q, cos2, sin2)
     k = apply_vision_rope_cs(k, cos2, sin2)
     v = v.contiguous()
@@ -220,7 +235,7 @@ def _attn_head_major(layer: VisionLayer, h: torch.Tensor, cos2, sin2,
         out = segment_flash_attention(q, k, v, segment_ids, ranges, scale)
     else:
         out = segment_attention(q, k, v, segment_ids, scale)
-    return layer.o(out.reshape(N, H * D))
+    return materialized_linear(layer.o, out.reshape(N, H * D))
 
 
 def vision_encoder_core(
@@ -256,7 +271,7 @@ def vision_encoder_core(
         xf = (xf * torch.tensor(cfg.rescale_factor, dtype=torch.float32,
                                 device=dev) - mean) / std
         pixel_values = xf.reshape(n, -1)
-    x = tower.patch_embed(pixel_values.to(dtype))
+    x = materialized_linear(tower.patch_embed, pixel_values.to(dtype))
     cos2, sin2 = vision_rope_cos_sin(vision_rope_angles(pos_ids, D))
     scale = 1.0 / math.sqrt(D)
     eps = cfg.layer_norm_eps
@@ -273,10 +288,12 @@ def vision_encoder_core(
         h = layer.ln1(x, eps)
         if packed:
             w8 = all(is_w8(getattr(layer, n)) for n in ("qkv", "o"))
-            qkv = _w8a8(h, layer.qkv) if w8 else layer.qkv(h)
+            qkv = _w8a8(h, layer.qkv) if w8 else \
+                materialized_linear(layer.qkv, h)
             out = flash_attention_packed_rope_fusedqkv(
                 qkv, cos, sin, segment_ids, kv_lo, kv_hi, H, scale)
-            attn = _w8a8(out, layer.o) if w8 else layer.o(out)
+            attn = _w8a8(out, layer.o) if w8 else \
+                materialized_linear(layer.o, out)
         else:
             attn = _attn_head_major(layer, h, cos2, sin2, segment_ids,
                                     ranges, H, D, scale, use_pallas)
@@ -300,7 +317,7 @@ def vision_encoder_forward(tower: VisionTower, pixel_values,
     """Metadata on the host, tower on ``pixel_values``' device (the
     tower's device for host arrays). Returns [sum(t*gh*gw/ms^2), hidden]."""
     meta = build_vision_metadata(grid_sizes, merge_sizes, pad_to=pad_to)
-    dev = tower.patch_embed.weight.device
+    dev = tower.post_ln.scale.device
     pv = torch.as_tensor(pixel_values).to(dev)
     n = meta.pos_ids.shape[0]
     if pv.shape[0] < n:   # pad pixel rows to the bucket

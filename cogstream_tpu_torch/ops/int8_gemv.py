@@ -12,6 +12,8 @@ reads one byte per weight. K10 is that fusion on the card: each weight is
 rounded as XLA rounds it, ``bf16(f32(q) * scale[o])``, and dotted with the
 activations in f32 sums. Its plain version is the materializing form,
 ``x @ dequantize_int8(qp, x.dtype)``, which is also the CPU route.
+Under autograd (a LoRA turn on a frozen int8 base, m <= 64) the wrapper's
+backward is the transpose of that form, ``dx = g @ W_deq^T``.
 
 The route is K8's (``ops/quant_gemv.py`` ``gemv_viable``): decode-sized
 ``m <= 64`` with shapes that block into 128-multiples. bf16 activations
@@ -29,6 +31,7 @@ from typing import Dict, Optional
 import torch
 
 from . import kernels
+from .quant import frozen_product
 from .quant_gemv import _pick_blocks, _tc_workspace, stacked_plan
 
 
@@ -134,8 +137,19 @@ def int8_gemv(x: torch.Tensor, qp: Dict[str, torch.Tensor],
               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``x @ W`` through K10 for an int8 weight dict: 2D, or stacked
     ``[L, din, dout]`` with ``"layer"`` (an int32 [1] view of the
-    decoder's ``layer_ids``, read by the kernel itself)."""
-    return _gemv(x, qp, out_dtype, plain=False)
+    decoder's ``layer_ids``, read by the kernel itself). Under autograd
+    the backward is JAX's transpose of its dequant matmul, ``dx = g @
+    W_deq^T`` with ``W_deq = q * scale`` rounded to g's dtype; the frozen
+    weights get no gradient."""
+    q, scale = qp["q"], qp["scale"]
+    layer = qp.get("layer") if q.ndim == 3 else None
+
+    def vjp(g):
+        ql, sl = _layer_slice(q, scale, layer)
+        return g @ (ql.to(torch.float32) * sl[None, :]).to(g.dtype).t()
+
+    return frozen_product(x, lambda t: _gemv(t, qp, out_dtype, plain=False),
+                          vjp)
 
 
 def int8_gemv_plain(x: torch.Tensor, qp: Dict[str, torch.Tensor],

@@ -300,6 +300,22 @@ def quantize_int8_act(x: torch.Tensor):
     return q, ax * (1.0 / 127.0)
 
 
+def quantize_kernel(w: torch.Tensor, bits: int, group_size: int = 64,
+                    nf4: bool = True, rank1: bool = False) -> Dict:
+    """One ``[..., din, dout]`` weight in ``quantize_tree``'s scheme:
+    ``bits=8`` per-channel int8; ``bits=4`` group-wise NF4 / int4, or
+    rank-1 with ``rank1``, falling back to int8 where the 4-bit scheme
+    cannot take din (not divisible by the group, or odd), as in JAX."""
+    if bits == 8:
+        return quantize_int8(w)
+    try:
+        if rank1:
+            return quantize_int4_rank1(w, nf4=nf4)
+        return quantize_int4(w, group_size=group_size, nf4=nf4)
+    except ValueError:
+        return quantize_int8(w)
+
+
 def quantize_tree(params: Any, predicate=None, bits: int = 8,
                   group_size: int = 64, nf4: bool = True,
                   rank1: bool = False) -> Any:
@@ -312,14 +328,7 @@ def quantize_tree(params: Any, predicate=None, bits: int = 8,
         raise ValueError(f"bits must be 4 or 8, got {bits}")
 
     def quant(w):
-        if bits == 8:
-            return quantize_int8(w)
-        try:
-            if rank1:
-                return quantize_int4_rank1(w, nf4=nf4)
-            return quantize_int4(w, group_size=group_size, nf4=nf4)
-        except ValueError:
-            return quantize_int8(w)
+        return quantize_kernel(w, bits, group_size, nf4, rank1)
 
     def walk(node, name=""):
         if isinstance(node, dict):
@@ -437,6 +446,42 @@ def split_matmul(x: torch.Tensor, prep: Dict) -> torch.Tensor:
     xl = (x2[:, :half] * r[None, :half]).to(dtype)
     xh = (x2[:, half:] * r[None, half:]).to(dtype)
     return (xl @ wl + xh @ wh).reshape(*bx, dout)
+
+
+def split_matmul_vjp(g: torch.Tensor, prep: Dict,
+                     x_dtype: torch.dtype) -> torch.Tensor:
+    """The transpose of :func:`split_matmul` (JAX's rule for its 2D rank-1
+    XLA form): each half's ``g @ w_half^T`` in the weights' dtype, times
+    that half's ``rscale`` in f32, then cast to the activations' dtype."""
+    wl, wh, r = prep["wl"], prep["wh"], prep["rscale"]
+    half = wl.shape[0]
+    g = g.to(wl.dtype)
+    dl = (g @ wl.t()).to(torch.float32) * r[:half]
+    dh = (g @ wh.t()).to(torch.float32) * r[half:]
+    return torch.cat([dl, dh], dim=-1).to(x_dtype)
+
+
+class _FrozenProduct(torch.autograd.Function):
+    """``forward(x)`` (a GEMV kernel's launch over frozen quantized
+    weights) with ``vjp(g)`` as its backward: the weights get no gradient,
+    ``x`` gets ``vjp(g)`` in its own dtype."""
+
+    @staticmethod
+    def forward(ctx, x, forward, vjp):
+        ctx.vjp, ctx.x_dtype = vjp, x.dtype
+        return forward(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.vjp(g).to(ctx.x_dtype), None, None
+
+
+def frozen_product(x: torch.Tensor, forward, vjp) -> torch.Tensor:
+    """``forward(x)`` under autograd with the backward ``vjp``: how each
+    GEMV kernel (K6-K10) gets a gradient. The forward is the kernel
+    itself, on every route; the backward is the transpose rule JAX applies
+    to the XLA form the kernel stands for, ``dx = g @ W_deq^T``."""
+    return _FrozenProduct.apply(x, forward, vjp)
 
 
 def _w4a8_prefill(x: torch.Tensor, qp: Dict[str, torch.Tensor],
@@ -663,6 +708,18 @@ class QuantLinear(nn.Module):
 Int4Linear = QuantLinear
 
 
+def materialized_linear(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``x @ W + b`` as the JAX vision tower and projector compute a dense
+    layer (``x @ materialize_kernel(kernel, x.dtype) + bias``): a
+    ``QuantLinear``'s weight, any scheme, dequantizes in ``x``'s dtype and
+    meets ``x`` in one matmul (never the split or GEMV forms the decoder
+    routes through); an ``nn.Linear`` is itself."""
+    if not isinstance(lin, QuantLinear):
+        return lin(x)
+    y = x @ materialize_kernel(lin.qp(), x.dtype)
+    return y if lin.bias is None else y + lin.bias.to(x.dtype)
+
+
 def install_quantized_(model, stores: Dict[str, Dict[str, torch.Tensor]],
                        head: Dict[str, torch.Tensor]):
     """Put quantized weights into a port ``Qwen2Model`` IN PLACE:
@@ -682,23 +739,12 @@ def install_quantized_(model, stores: Dict[str, Dict[str, torch.Tensor]],
     return model
 
 
-@torch.no_grad()
-def quantize_text_(model, bits: int = 4):
-    """Quantize a port ``Qwen2Model`` IN PLACE, every decoder projection
-    and the lm_head: ``bits=4`` rank-1 uniform int4 (the scheme K6-K9
-    route; the JAX serve path's ``quantize_tree(params["text"], bits=4,
-    rank1=True, nf4=False)``), ``bits=8`` per-channel int8 (K10;
-    ``quantize_tree(params["text"], bits=8)``). Embeddings, norms and
-    biases stay as they are. Each bf16 weight is freed once quantized, so
-    the peak is the bf16 model plus one weight's f32 temporaries. Returns
-    ``model``."""
-    if bits not in (4, 8):
-        raise ValueError(f"bits must be 4 or 8, got {bits}")
-
-    def quant(w):
-        return quantize_int8(w) if bits == 8 else \
-            quantize_int4_rank1(w, nf4=False)
-
+def _quantize_decoder_(model, quant):
+    """Every decoder projection of a port ``Qwen2Model`` and its lm_head
+    through ``quant`` (a bf16 ``[din, dout]`` weight -> a quantized dict),
+    IN PLACE, one weight at a time: each bf16 weight is freed once it is
+    quantized, so the peak is the bf16 model plus one weight's f32
+    temporaries."""
     L = len(model.layers)
     stores = {}
     for grp, name in GEMV_SITES:
@@ -716,3 +762,57 @@ def quantize_text_(model, bits: int = 4):
     head = quant(model.lm_head.weight.t())
     model.lm_head.weight = None
     return install_quantized_(model, stores, head)
+
+
+@torch.no_grad()
+def quantize_text_(model, bits: int = 4):
+    """Quantize a port ``Qwen2Model`` IN PLACE, every decoder projection
+    and the lm_head: ``bits=4`` rank-1 uniform int4 (the scheme K6-K9
+    route; the JAX serve path's ``quantize_tree(params["text"], bits=4,
+    rank1=True, nf4=False)``), ``bits=8`` per-channel int8 (K10;
+    ``quantize_tree(params["text"], bits=8)``). Embeddings, norms and
+    biases stay as they are. Each bf16 weight is freed once quantized, so
+    the peak is the bf16 model plus one weight's f32 temporaries. Returns
+    ``model``."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    return _quantize_decoder_(model, lambda w: quantize_kernel(
+        w, bits, nf4=False, rank1=True))
+
+
+@torch.no_grad()
+def quantize_cogreasoner_(model, bits: int, nf4: bool = True,
+                          group_size: int = 64):
+    """Quantize a whole port ``CogReasoner`` IN PLACE, as the JAX
+    ``quantize_tree(params, bits=bits, nf4=nf4)`` quantizes the whole tree
+    (the QLoRA base of stage-2 ``--quantize-base``): the 7 decoder
+    projections and the lm_head, every vision-tower GEMM (the patch
+    embedding included) and the projector's linears. ``bits=4`` is
+    group-wise (``group_size`` rows of din to a scale) NF4, or uniform
+    int4 with ``nf4=False``; ``bits=8`` per-channel int8; a weight whose
+    din the group does not divide falls back to int8 (at 7B the patch
+    embedding, din 588, and every tower fc2, din 4304). Each scale is per
+    output column, so the fused vision QKV quantizes exactly as JAX's q /
+    k / v dicts concatenated along dout. Embeddings, norms and biases stay
+    as they are; each bf16 weight is freed once it is quantized. Returns
+    ``model``."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+
+    def quant(w):
+        return quantize_kernel(w, bits, group_size, nf4)
+
+    def swap(owner, name: str):
+        lin = getattr(owner, name)
+        setattr(owner, name, QuantLinear(QuantWeight(quant(lin.weight.t())),
+                                         bias=lin.bias))
+        lin.weight = None
+
+    _quantize_decoder_(model.text, quant)
+    swap(model.vision, "patch_embed")
+    for layer in model.vision.layers:
+        for name in ("qkv", "o", "fc1", "fc2"):
+            swap(layer, name)
+    for i in range(len(model.projector.layers)):
+        swap(model.projector.layers, str(i))    # ModuleList entries by name
+    return model

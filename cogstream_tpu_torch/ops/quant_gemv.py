@@ -38,6 +38,11 @@ run the plain version on any device (the card checks compare against
 them). The plain W4A8 form sums in f32, which is exact here: |x| <= 127,
 |w| <= 7 and din/2 <= 9472 keep every sum below 2^24 (TF32 must be off).
 
+Under autograd each wrapper keeps its kernel as the forward and takes the
+transpose of the 2D XLA form as its backward (``dx = g @ W_deq^T`` per
+packed half, ``quant.split_matmul_vjp``): the gradient a LoRA adapter
+below a frozen int4 layer needs; the weights get none.
+
 The route decision (``gemv_viable``/``gemv_viable_stacked``) is the JAX
 package's, copied: the kernel path and the materializing path round
 differently, so the port must take the kernel exactly where JAX does.
@@ -433,11 +438,28 @@ def _gemv_2d(x, qp, out_dtype, w4a8, plain: bool):
     return y.reshape(*lead, dout)
 
 
+def _rank1_vjp(qp: Dict[str, torch.Tensor], x_dtype):
+    """The backward of every rank-1 GEMV: the transpose of the 2D XLA
+    form JAX differentiates (``quant.split_matmul`` over the layer's
+    weight); W4A8's activation rounding passes straight through."""
+    from .quant import _layer_of, materialize_split, split_matmul_vjp
+
+    def vjp(g):
+        w = _layer_of(qp) if "layer" in qp else qp
+        return split_matmul_vjp(g, materialize_split(w, g.dtype), x_dtype)
+    return vjp
+
+
 def int4_rank1_gemv(x: torch.Tensor, qp: Dict[str, torch.Tensor],
                     out_dtype=None, *, w4a8: bool = False) -> torch.Tensor:
     """``x @ W`` for a 2D rank-1 int4 weight: K6 (uniform or cubic, by
-    the scheme tag), or K7 with ``w4a8``."""
-    return _gemv_2d(x, qp, out_dtype, w4a8, plain=False)
+    the scheme tag), or K7 with ``w4a8``. Under autograd the backward is
+    the transpose of the 2D XLA form (:func:`_rank1_vjp`)."""
+    from .quant import frozen_product
+
+    return frozen_product(
+        x, lambda t: _gemv_2d(t, qp, out_dtype, w4a8, plain=False),
+        _rank1_vjp(qp, x.dtype))
 
 
 def int4_rank1_gemv_plain(x: torch.Tensor, qp: Dict[str, torch.Tensor],
@@ -480,8 +502,15 @@ def int4_rank1_gemv_stacked(x: torch.Tensor, qp: Dict[str, torch.Tensor],
                             w4a8: bool = False) -> torch.Tensor:
     """``x @ W[layer]`` for stacked rank-1 UNIFORM weights: K8, or K9 with
     ``w4a8``. ``layer`` is an int32 [1] tensor on the weights' device (a
-    view into the decoder's ``arange(L)``), read by the kernel itself."""
-    return _gemv_stacked(x, qp, layer, out_dtype, w4a8, plain=False)
+    view into the decoder's ``arange(L)``), read by the kernel itself.
+    Under autograd the backward is that of the layer's 2D form
+    (:func:`_rank1_vjp`)."""
+    from .quant import frozen_product
+
+    return frozen_product(
+        x, lambda t: _gemv_stacked(t, qp, layer, out_dtype, w4a8,
+                                   plain=False),
+        _rank1_vjp({**qp, "layer": layer}, x.dtype))
 
 
 def int4_rank1_gemv_stacked_plain(x: torch.Tensor, qp: Dict[str, torch.Tensor],

@@ -5,7 +5,11 @@ One differentiable function from patch rows to masked CE: the frozen
 vision tower (under ``torch.no_grad``: its output is a constant of the
 step, so nothing is kept for a backward) → projector (+ LoRA on the
 readout) → exact minor-frame pooling → splice into the token embeddings
-→ grad-enabled decoder → masked CE. The tower takes its head-major
+→ grad-enabled decoder → masked CE. On a quantized base (QLoRA) the
+tower, the projector and the decoder hold ``QuantLinear``s: the tower and
+the projector dequantize each weight into its GEMM as JAX's
+``materialize_kernel`` does, the decoder routes as JAX's ``dense``. The
+tower takes its head-major
 branch with ``use_pallas=True``: on a CUDA device that is K5
 (``csrc/segment_attention.cu``), whose per-tile ranges are built on the
 host from the batch's segment ids (the JAX package cannot under jit and
@@ -31,6 +35,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..config import Qwen2Config
 from ..models import qwen2
 from ..models.projector import projector_forward_lora
 from ..models.qwen2 import adapter_in as _adapter_in  # noqa: F401 (JAX name)
@@ -72,9 +77,13 @@ def multimodal_loss_fn(
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
     sp: Optional[Any] = None,
+    text_cfg: Optional[Qwen2Config] = None,
 ) -> torch.Tensor:
-    """Stage-2 loss of one packed turn. ``sp`` (ring sequence
-    parallelism) is not ported."""
+    """Stage-2 loss of one packed turn. ``text_cfg`` is the decoder
+    config the caller trains under (its ``w8a8_prefill`` runs an int8
+    base's projections W8A8, ``qwen2_forward_train``; default
+    ``model.text.cfg``). ``sp`` (ring sequence parallelism) is not
+    ported."""
     if sp is not None:
         raise NotImplementedError(PARALLEL_MSG)
     text = model.text
@@ -109,7 +118,8 @@ def multimodal_loss_fn(
     adapters = [(text_lora, 1.0)]
     hidden = qwen2.qwen2_forward_train(
         text, spliced, batch["positions"], adapters, lora_scale,
-        remat=remat, dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+        remat=remat, dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+        cfg=text_cfg)
     logits = qwen2.lm_logits(text, hidden, adapters, lora_scale)
     loss, _ = masked_cross_entropy(logits, batch["labels"])
     return loss

@@ -3,14 +3,18 @@ of ``cogstream_tpu/train/stage1.py``).
 
 LoRA r=8 on all attention/MLP projections, constrained-vocab CE on the
 bracketed selection target, shuffle-augmented history, cosine LR, grad
-accumulation, remat — on one GPU. The data, tensor and pipeline
-parallel options raise (ROADMAP Queue 1 #9); the command-line ``main``
-waits for the HF checkpoint and tokenizer loaders.
+accumulation, remat — on one GPU. :func:`main` is the ``train-stage1``
+command: an HF checkpoint directory, its tokenizer (the byte tokenizer
+where it ships none), and ``--qa-json`` (a dataset file, or a directory
+of published query chains). The data, tensor and pipeline parallel
+options raise (ROADMAP Queue 1 #9).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import os
 import time
 from typing import Dict, Optional
 
@@ -21,7 +25,8 @@ from ..models.lora import init_qwen2_lora
 from ..processor.tokenizer import constrained_selector_token_ids
 from ..runtime.sampling import build_vocab_mask
 from . import checkpoint as ckpt
-from .data import selector_batches, selection_exact_match
+from .data import (load_selector_dataset, load_selector_dir,
+                   selection_exact_match, selector_batches)
 from .trainer import (PARALLEL_MSG, bind_text_loss, init_train_state,
                       make_optimizer, make_train_step, to_device)
 
@@ -89,7 +94,8 @@ def train_stage1(
                         grad_accum=tcfg.grad_accum)
     vm = build_vocab_mask(cfg.text.vocab_size,
                           constrained_selector_token_ids(tokenizer), dev)
-    loss_fn = bind_text_loss(lora_cfg, vocab_mask=vm, remat=True)
+    loss_fn = bind_text_loss(lora_cfg, vocab_mask=vm, remat=True,
+                             text_cfg=cfg.text)
     # reference recipe: LoRA dropout 0.1 during training
     # (first_stage_training.py:458-465); seeded → reproducible
     drop_seed = tcfg.seed ^ 0x5EED if lora_cfg.dropout > 0 else None
@@ -137,3 +143,56 @@ def evaluate_selector(engine_selector, samples, limit: int = 100) -> Dict:
         hits += selection_exact_match(pred, s.target)
         n += 1
     return {"exact_match": hits / max(n, 1), "n": n}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="cogstream_tpu_torch train-stage1")
+    ap.add_argument("--qa-json", required=True,
+                    help="dataset JSON, or a directory of per-video "
+                         "query-chain JSONs (the published layout)")
+    ap.add_argument("--model-dir", required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--epochs", type=int, default=8)
+    ap.add_argument("--batch-size", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=1e-4)
+    ap.add_argument("--max-len", type=int, default=Stage1Config.max_len,
+                    help="token budget of one selector prompt; longer "
+                         "samples are dropped (a checkpoint without "
+                         "tokenizer files trains on byte tokens: a prompt "
+                         "with the demo block runs to 2-4 thousand)")
+    ap.add_argument("--pipeline-stages", type=int, default=1,
+                    help=">1: pipeline parallelism (not ported: raises)")
+    ap.add_argument("--pipeline-microbatches", type=int, default=0)
+    ap.add_argument("--data-parallel", type=int, default=None,
+                    help="data parallelism (not ported: >1 raises)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    args = ap.parse_args(argv)
+
+    from ..config import load_hf_config
+    from ..models.checkpoint import load_cogreasoner_from_hf
+    from ..processor.tokenizer import load_tokenizer
+    from .trainer import PreemptionGuard
+
+    tcfg = Stage1Config(epochs=args.epochs, batch_size=args.batch_size,
+                        max_len=args.max_len, learning_rate=args.lr,
+                        data_parallel=args.data_parallel,
+                        pipeline_stages=args.pipeline_stages,
+                        pipeline_microbatches=args.pipeline_microbatches)
+    if tcfg.pipeline_stages > 1 or (tcfg.data_parallel or 1) > 1:
+        raise NotImplementedError(PARALLEL_MSG)
+    cfg = load_hf_config(os.path.join(args.model_dir, "config.json"))
+    model = load_cogreasoner_from_hf(args.model_dir, cfg, device=args.device)
+    tokenizer = load_tokenizer(args.model_dir, cfg.image_token_index,
+                               cfg.text.vocab_size)
+    samples = (load_selector_dir(args.qa_json) if os.path.isdir(args.qa_json)
+               else load_selector_dataset(args.qa_json))
+    print(f"{len(samples)} selector samples")
+    with PreemptionGuard() as guard:    # SIGTERM → save + clean exit
+        state = train_stage1(model.text, cfg, tokenizer, samples, args.out,
+                             tcfg, stop_flag=guard)
+    print(f"stage1: {state.step} steps")
+
+
+if __name__ == "__main__":
+    main()

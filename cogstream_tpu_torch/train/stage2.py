@@ -7,27 +7,36 @@ visual stream is compressed, and CE lands on the answer span only. The
 host assembles the static-shape batch (:func:`pack_turn_batch`, with the
 exact pooling plan of :func:`build_pool_arrays`); the device runs
 ``train/multimodal.py``'s loss and the LoRA update
-(:class:`Stage2Trainer`).
-
-Not ported yet: ``train_stage2_video``, ``count_dataset_turns`` and
-``main`` wait for the video processor and the visual compression pass
-(ROADMAP Queue 1 #1 and #7); sequence and tensor parallelism raise
-(Queue 1 #9).
+(:class:`Stage2Trainer`). :func:`train_stage2_video` runs one video's
+curriculum (both segment layouts; the GT-selection rewrite; the frozen
+model's compression pass on visual turns), :func:`count_dataset_turns`
+gives the cosine schedule's horizon, and :func:`main` is the
+``train-stage2`` command. Its ``--quantize-base {int8,nf4,int4}`` freezes
+the whole base quantized while LoRA trains in f32 (QLoRA, the reference
+recipe's NF4 base; ``ops/quant.quantize_cogreasoner_``), and
+``--w8a8-forward`` runs an int8 base's decoder GEMMs W8A8 with a
+straight-through gradient. Sequence and tensor parallelism raise (ROADMAP
+Queue 1 #9).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
 import math
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config import CogReasonerConfig, LoRAConfig
+from ..models import cogreasoner
 from ..models.lora import init_cogreasoner_lora
 from ..models.vision_encoder import build_vision_metadata
-from ..runtime.history import selection_string
+from ..runtime.history import parse_selection, rewrite_history, \
+    selection_string
 from . import checkpoint as ckpt
 from .multimodal import multimodal_loss_fn
 from .trainer import (IGNORE_INDEX, PARALLEL_MSG, init_train_state,
@@ -214,7 +223,7 @@ class Stage2Trainer:
             return multimodal_loss_fn(m, lo, b, scale,
                                       num_vis_tokens=self._num_vis,
                                       remat=True, dropout_rate=rate,
-                                      dropout_seed=seed)
+                                      dropout_seed=seed, text_cfg=cfg.text)
 
         self._step = make_train_step(
             self.tx, loss,
@@ -255,3 +264,213 @@ class Stage2Trainer:
         ckpt.save_train_state(self.out_dir, self.state)
         ckpt.save_lora_adapter(self.out_dir, self.state.lora,
                                name="full_module")
+
+
+def train_stage2_video(
+    trainer: Stage2Trainer,
+    processor,
+    video_path: str,
+    segments: Sequence[dict],
+    log=print,
+) -> List[float]:
+    """One video's curriculum: grow the conversation segment by segment,
+    teacher-forcing each QA (the loop at second_stage_training.py:104-218).
+
+    ``segments``: [{"timestamp": [s, e], "QAs": [{"QA_pairs": [{"Q","A"}],
+    "relevance": [...], "is_visual": bool}]}], or the published layout's
+    ``{"segment_file": ...}`` (a file under the per-video directory
+    ``video_path``). Visual turns run the frozen model's compression pass
+    (``encode_images`` and ``run_visual_compression``, under no grad,
+    under the trainer's config's serving flags) with a k-means generator
+    seeded 0 on every turn, as JAX passes ``PRNGKey(0)``.
+    """
+    cfg, tok, tcfg = trainer.cfg, trainer.tok, trainer.tcfg
+    model = cogreasoner.with_serving_flags(trainer.model, cfg)
+    dev = trainer.device
+    conversation: List[dict] = []
+    hist_qs: List[str] = []
+    hist_as: List[str] = []
+    losses: List[float] = []
+
+    for seg in segments:
+        if "segment_file" in seg:
+            # published layout: each segment is its own file under the
+            # per-video directory (second_stage_training.py:143-152)
+            video_args = {
+                "video_path": os.path.join(video_path,
+                                           seg["segment_file"]),
+                "fps": tcfg.fps, "max_frames": tcfg.max_frames}
+        else:
+            s, e = seg.get("timestamp", [None, None])[:2]
+            video_args = {"video_path": video_path, "fps": tcfg.fps,
+                          "max_frames": tcfg.max_frames}
+            if s is not None:
+                video_args["start_time"] = s
+            if e is not None:
+                video_args["end_time"] = e
+        conversation.append({
+            "role": "stream",
+            "content": [{"type": "video", "video": video_args}],
+        })
+        for qa in seg.get("QAs", []):
+            pair = qa["QA_pairs"][0] if isinstance(qa.get("QA_pairs"), list) \
+                else qa.get("QA_pairs", qa)
+            q, a = pair.get("Q", ""), pair.get("A", "")
+            conversation.append({"role": "user", "content": q})
+            out = processor(conversation, add_generation_prompt=True)
+
+            if tcfg.baseline:
+                prompt_text = out.original_text
+                keep = minor = None
+            else:
+                gt = build_gt_selection(qa.get("relevance", []),
+                                        len(hist_qs),
+                                        bool(qa.get("is_visual", True)))
+                vis, idx = parse_selection(gt)
+                kept_q = [hist_qs[i] for i in idx if i < len(hist_qs)]
+                kept_a = [hist_as[i] for i in idx if i < len(hist_qs)]
+                prompt_text = rewrite_history(
+                    out.original_text, vis, kept_q, kept_a, q)
+                keep = minor = None
+                if vis and out.images is not None and \
+                        out.images.pixel_values.shape[0] > 0:
+                    images = out.images
+                    with torch.no_grad():
+                        pv = torch.from_numpy(images.pixel_values).to(dev)
+                        comp = cogreasoner.run_visual_compression(
+                            model, cfg, tok,
+                            cogreasoner.encode_images(
+                                model, pv, images.grid_sizes,
+                                images.merge_sizes),
+                            pv, images.grid_sizes, images.merge_sizes,
+                            images.modals, out.all_timestamps,
+                            np.asarray(tok.encode(q), np.int32),
+                            torch.Generator(device=dev).manual_seed(0))
+                    keep = comp.keep_visual.cpu().numpy()
+                    if comp.minor_frames is not None:
+                        minor = comp.minor_frames.cpu().numpy()
+
+            batch = pack_turn_batch(tok, cfg, prompt_text, a, out.images,
+                                    keep, tcfg.max_seq_len,
+                                    minor_frames=minor)
+            if batch is not None:
+                losses.append(trainer.train_turn(batch))
+            conversation.append({"role": "assistant", "content": a})
+            hist_qs.append(q)
+            hist_as.append(a)
+            if trainer.preempted():
+                return losses
+    return losses
+
+
+def count_dataset_turns(query_dir: str) -> int:
+    """Total QA turns across the query dir — one optimizer micro-step is
+    taken per turn, so turns × epochs is the cosine schedule horizon.
+    Reads both the internal spec and the published query-chain layout."""
+    n = 0
+    for fname in sorted(os.listdir(query_dir)):
+        if not fname.endswith(".json"):
+            continue
+        try:
+            with open(os.path.join(query_dir, fname)) as f:
+                spec = json.load(f)
+        except (OSError, ValueError):
+            continue
+        if isinstance(spec, dict) and "segments" in spec:
+            n += sum(len(seg.get("QAs", []))
+                     for seg in spec.get("segments", []))
+        else:                       # published chains: chain 0 trains
+            if isinstance(spec, dict):
+                spec = spec.get("query_chains", [])
+            if isinstance(spec, list) and spec:
+                chain = spec[0] if isinstance(spec[0], list) else spec
+                n += sum(1 for qa in chain if isinstance(qa, dict))
+    return max(n, 1)
+
+
+QUANTIZE_BASE = {"int8": (8, True), "nf4": (4, True), "int4": (4, False)}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="cogstream_tpu_torch train-stage2")
+    ap.add_argument("--model-dir", required=True)
+    ap.add_argument("--video-dir", required=True)
+    ap.add_argument("--query-dir", required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--num-epochs", type=int, default=1)
+    ap.add_argument("--baseline", action="store_true",
+                    help="C14 VideoLLaMA3-style finetune (no modules)")
+    ap.add_argument("--quantize-base", choices=["none", "int8", "nf4",
+                                                "int4"], default="none",
+                    help="freeze the whole base quantized while LoRA "
+                         "trains full precision (QLoRA; nf4 is the "
+                         "reference recipe's scheme, group 64)")
+    ap.add_argument("--sequence-parallel", type=int, default=1,
+                    help=">1: ring sequence parallelism (not ported: "
+                         "raises)")
+    ap.add_argument("--w8a8-forward", action="store_true",
+                    help="run the frozen int8 base's decoder GEMMs W8A8 "
+                         "(requires --quantize-base int8); activation "
+                         "gradients pass straight through the rounding")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    args = ap.parse_args(argv)
+    if args.w8a8_forward and args.quantize_base != "int8":
+        ap.error("--w8a8-forward requires --quantize-base int8")
+    if args.sequence_parallel > 1:
+        raise NotImplementedError(PARALLEL_MSG)
+
+    from ..config import load_hf_config
+    from ..evaluate.answer_generate import load_eval_spec
+    from ..models.checkpoint import load_cogreasoner_from_hf
+    from ..ops.quant import quantize_cogreasoner_
+    from ..processor.processing import CogStreamProcessor
+    from ..processor.tokenizer import load_tokenizer
+    from .trainer import PreemptionGuard
+
+    cfg = load_hf_config(os.path.join(args.model_dir, "config.json"))
+    if args.w8a8_forward:
+        cfg = dataclasses.replace(
+            cfg, text=dataclasses.replace(cfg.text, w8a8_prefill=True))
+    model = load_cogreasoner_from_hf(args.model_dir, cfg, device=args.device)
+    if args.quantize_base != "none":
+        bits, nf4 = QUANTIZE_BASE[args.quantize_base]
+        quantize_cogreasoner_(model, bits, nf4=nf4)
+    tok = load_tokenizer(args.model_dir, cfg.image_token_index,
+                         cfg.text.vocab_size)
+    processor = CogStreamProcessor(tok, cfg.processor)
+    tcfg = Stage2Config(num_epochs=args.num_epochs, baseline=args.baseline,
+                        sequence_parallel=args.sequence_parallel)
+
+    with PreemptionGuard() as guard:    # SIGTERM → save + clean exit
+        trainer = Stage2Trainer(
+            model, cfg, tok, tcfg, args.out,
+            total_steps=(count_dataset_turns(args.query_dir)
+                         * tcfg.num_epochs),
+            stop_flag=guard)
+        for epoch in range(tcfg.num_epochs):
+            for fname in sorted(os.listdir(args.query_dir)):
+                if not fname.endswith(".json"):
+                    continue
+                # both layouts: internal specs pass through; published
+                # query chains map to per-segment files of the video dir
+                spec = load_eval_spec(
+                    os.path.join(args.query_dir, fname), args.video_dir)
+                video = os.path.join(
+                    args.video_dir, spec.get("video", fname[:-5] + ".mp4"))
+                try:
+                    losses = train_stage2_video(
+                        trainer, processor, video, spec.get("segments", []))
+                    print(f"{fname}: {len(losses)} turns, "
+                          f"mean loss {np.mean(losses or [0]):.4f}")
+                except Exception as e:  # per-video resilience (ref :161-164)
+                    print(f"{fname}: skipped ({type(e).__name__}: {e})")
+                if guard():
+                    break
+            if guard():
+                break
+        trainer.finish()
+
+
+if __name__ == "__main__":
+    main()

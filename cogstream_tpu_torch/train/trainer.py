@@ -24,7 +24,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import LoRAConfig
+from ..config import LoRAConfig, Qwen2Config
 from ..models import qwen2
 from ..models.lora import iter_leaves
 
@@ -302,8 +302,12 @@ def text_loss_fn(
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
     pipeline: Optional[Tuple[Any, int]] = None,
+    text_cfg: Optional[Qwen2Config] = None,
 ) -> torch.Tensor:
-    """Stage-1 objective: text-only selector training."""
+    """Stage-1 objective: text-only selector training. ``text_cfg`` is
+    the decoder config the caller trains under (its serving flags pick a
+    quantized base's activation mode, ``qwen2_forward_train``; default
+    ``model.cfg``)."""
     if pipeline is not None:
         raise NotImplementedError(PARALLEL_MSG)
     ids = batch["input_ids"]
@@ -313,7 +317,8 @@ def text_loss_fn(
     adapters = [(lora, 1.0)]
     hidden = qwen2.qwen2_forward_train(
         model, qwen2.embed(model, ids), positions, adapters, lora_scale,
-        remat=remat, dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+        remat=remat, dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+        cfg=text_cfg)
     logits = qwen2.lm_logits(model, hidden, adapters, lora_scale)
     loss, _ = masked_cross_entropy(logits, batch["labels"], vocab_mask)
     return loss
@@ -327,14 +332,16 @@ def embeds_loss_fn(
     remat: bool = True,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
+    text_cfg: Optional[Qwen2Config] = None,
 ) -> torch.Tensor:
     """Stage-2 / baseline objective over pre-spliced embeddings: the
-    batch carries ``inputs_embeds``, ``positions`` and shifted labels."""
+    batch carries ``inputs_embeds``, ``positions`` and shifted labels
+    (``text_cfg`` as in :func:`text_loss_fn`)."""
     adapters = [(lora.get("text", lora), 1.0)]
     hidden = qwen2.qwen2_forward_train(
         model, batch["inputs_embeds"], batch["positions"], adapters,
         lora_scale, remat=remat, dropout_rate=dropout_rate,
-        dropout_seed=dropout_seed)
+        dropout_seed=dropout_seed, cfg=text_cfg)
     logits = qwen2.lm_logits(model, hidden, adapters, lora_scale)
     loss, _ = masked_cross_entropy(logits, batch["labels"])
     return loss
@@ -343,7 +350,8 @@ def embeds_loss_fn(
 def bind_text_loss(lora_cfg: Optional[LoRAConfig] = None,
                    vocab_mask: Optional[torch.Tensor] = None,
                    remat: bool = True,
-                   pipeline: Optional[Tuple[Any, int]] = None) -> Callable:
+                   pipeline: Optional[Tuple[Any, int]] = None,
+                   text_cfg: Optional[Qwen2Config] = None) -> Callable:
     if pipeline is not None:
         raise NotImplementedError(PARALLEL_MSG)
     lc = lora_cfg or LoRAConfig()
@@ -351,17 +359,20 @@ def bind_text_loss(lora_cfg: Optional[LoRAConfig] = None,
     def loss(model, lora, batch, seed=None):
         return text_loss_fn(model, lora, batch, lc.scale,
                             vocab_mask=vocab_mask, remat=remat,
-                            dropout_rate=lc.dropout, dropout_seed=seed)
+                            dropout_rate=lc.dropout, dropout_seed=seed,
+                            text_cfg=text_cfg)
     return loss
 
 
 def bind_embeds_loss(lora_cfg: Optional[LoRAConfig] = None,
-                     remat: bool = True) -> Callable:
+                     remat: bool = True,
+                     text_cfg: Optional[Qwen2Config] = None) -> Callable:
     lc = lora_cfg or LoRAConfig()
 
     def loss(model, lora, batch, seed=None):
         return embeds_loss_fn(model, lora, batch, lc.scale, remat=remat,
-                              dropout_rate=lc.dropout, dropout_seed=seed)
+                              dropout_rate=lc.dropout, dropout_seed=seed,
+                              text_cfg=text_cfg)
     return loss
 
 

@@ -754,6 +754,10 @@ def test_parallel_options_raise(setup):
         ttr.shard_batch({}, None)
     with pytest.raises(NotImplementedError, match="Queue 1 #9"):
         tmm.multimodal_loss_fn(model, {}, {}, 2.0, 1, sp=("mesh", "sp"))
+    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
+        tstage2.main(["--model-dir", "/nonexistent", "--video-dir", "v",
+                      "--query-dir", "q", "--out", "o",
+                      "--sequence-parallel", "2"])
 
 
 # ---------------------------------------------------------------------------
