@@ -115,7 +115,22 @@ Phases (each prints one line or a few; any failure exits non-zero):
    RSS); (c) the training commands as subprocesses on that checkpoint,
    ``train-stage1`` on seeded selector chains and ``train-stage2
    --quantize-base nf4`` on the clip under a seeded three-segment spec:
-   each exits 0, trains at least one step and writes its adapter;
+   each exits 0, trains at least one step and writes its adapter; (d)
+   the reference's published workflow through the port's command line on
+   that checkpoint and the clip, each stage a subprocess: segment-videos
+   (cuts at 50 and 100 s) -> datagen --model fake -> train-stage1 ->
+   train-stage2 -> answer-generate (FCC, both adapters) -> judge x5 ->
+   summarize -> nlp-metrics; every stage exits 0, the query chains are
+   non-empty with sorted event times, one prediction per QA of the first
+   chain, all five scores on every judged QA; each stage's wall. Phase 9
+   (d) runs here too, while the checkpoint exists: ``serve --supervise``
+   on it, solo and with ``--pool-rows 2``, beside an unfaulted control
+   ``serve``; the second ingest's second chunk hits a real device-side
+   assert (COGSTREAM_FAULT_INGEST_DISPATCH=3: an index past a tensor's
+   end); the client must get a 503 naming it, the child exit 17, the
+   supervisor (which must hold no /dev/nvidia file) start a new child
+   that restores the session, and the next ask answer turn 1 with the
+   control's tokens; fault -> 503 ms, child exit -> ready s, restore s;
 9. pooled serving (runs on the phase-5 model, after phase 8, before
    phases 7 and 6) — (a) a ``SessionPool`` of 4 rows x 16384 slots
    (3.76 GB of cache): two ``ingest_batch`` ticks of a seeded 16-frame
@@ -3296,7 +3311,9 @@ def run_checkpoint_round_trip(dev, stamp, video_dir, query_dir):
             "ckpt_load_s": load_s, "ckpt_load_rss_delta": rss_d,
             "ckpt_int4_load_s": load4_s, "ckpt_int4_load_rss_delta": rss4_d,
             "ckpt_int8_load_s": load8_s,
-            **run_training_clis(stamp, out_dir, video_dir)}
+            **run_training_clis(stamp, out_dir, video_dir),
+            **run_workflow(stamp, out_dir, video_dir),
+            **run_supervised_serve(stamp, out_dir, video_dir)}
 
 
 def run_training_clis(stamp, ckpt_dir, video_dir):
@@ -3308,8 +3325,6 @@ def run_training_clis(stamp, ckpt_dir, video_dir):
     10-frame segments, one QA each (relevance and visual flags from the
     seed). Each must exit 0, print its steps / turns (at least one) and
     write its adapter. Prints each one's wall."""
-    import subprocess as sp
-
     rng = np.random.default_rng(21)
     root = _engine_dir("train_cli")
     qa = {}
@@ -3348,25 +3363,334 @@ def run_training_clis(stamp, ckpt_dir, video_dir):
     ok, out = True, {}
     for cmd, (args, adapter, mark) in runs.items():
         out_dir = os.path.join(root, cmd)
-        t0 = time.perf_counter()
-        r = sp.run([sys.executable, "-m", "cogstream_tpu_torch", cmd,
-                    "--model-dir", ckpt_dir, "--out", out_dir] + args,
-                   cwd=REPO, capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        said = [ln for ln in r.stdout.splitlines() if ln.startswith(mark)]
+        stdout, wall = run_cli(f"train CLI {cmd}", [
+            cmd, "--model-dir", ckpt_dir, "--out", out_dir] + args, stamp,
+            timeout=600)
+        said = [ln for ln in stdout.splitlines() if ln.startswith(mark)]
         first = said[-1][len(mark):].split()[0] if said else ""
         n = int(first) if first.isdigit() else 0
         wrote = os.path.exists(os.path.join(out_dir, adapter))
-        log(f"train CLI {cmd}: exit {r.returncode} in {wall:.1f}s; "
-            f"{said[-1] if said else 'no summary line'}; wrote {adapter} "
-            f"{wrote} [{stamp}]")
-        if r.returncode != 0:
-            log(r.stdout[-2000:] + r.stderr[-4000:])
-        ok &= r.returncode == 0 and wrote and n >= 1
+        log(f"train CLI {cmd}: {said[-1] if said else 'no summary line'}; "
+            f"wrote {adapter} {wrote} [{stamp}]")
+        ok &= wrote and n >= 1
         out[f"cli_{cmd.replace('-', '_')}_s"] = wall
     if not ok:
         raise AssertionError("a training command failed")
     return out
+
+
+def _clip_file(video_dir) -> str:
+    """Phase 8's mp4v clip (the cv2 route; the .npy route has no file)."""
+    names = [n for n in os.listdir(video_dir) if n.endswith(".mp4")]
+    if not names:
+        raise AssertionError("phases 8 (d) and 9 (d) need phase 8's mp4v "
+                             "clip (OpenCV wrote none)")
+    return os.path.join(video_dir, names[0])
+
+
+def run_cli(label: str, args, stamp: str, timeout: int = 900):
+    """``python -m cogstream_tpu_torch ARGS`` as a subprocess: logs its
+    exit code, wall and last output line, fails on a non-zero exit;
+    returns its standard output and wall."""
+    import subprocess as sp
+
+    t0 = time.perf_counter()
+    r = sp.run([sys.executable, "-m", "cogstream_tpu_torch", *args],
+               cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    last = (r.stdout.strip().splitlines() or [""])[-1]
+    log(f"{label}: exit {r.returncode} in {wall:.2f}s; {last[:240]} "
+        f"[{stamp}]")
+    if r.returncode != 0:
+        log(r.stdout[-2000:] + r.stderr[-4000:])
+        raise AssertionError(f"{label} failed")
+    return r.stdout, wall
+
+
+def run_workflow(stamp, ckpt_dir, video_dir):
+    """Phase 8 (d): the reference's published workflow through the port's
+    command line, each stage a subprocess, on phase 8 (b)'s 2+2-layer
+    7B-width checkpoint and phase 8's 150-frame clip: segment-videos
+    (cuts at 50 and 100 s) -> datagen --model fake -> train-stage1 (byte
+    tokens, --max-len 4096) -> train-stage2 -> answer-generate (FCC, both
+    adapters, 32 tokens) -> judge x5 (FakeJudge) -> summarize ->
+    nlp-metrics. Every stage must exit 0; the spec has 3 segments with
+    keyframes; the query chains are non-empty with Event_Time sorted;
+    there is one prediction per QA of the first chain; every judged QA
+    carries all five scores. Prints each stage's wall, and the wall of a
+    bare interpreter importing the package (every command's start-up:
+    the package's config imports torch)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", "import cogstream_tpu_torch"],
+                   cwd=REPO, check=True, timeout=300)
+    import_s = time.perf_counter() - t0
+    clip = _clip_file(video_dir)
+    name = os.path.splitext(os.path.basename(clip))[0]
+    root = _engine_dir("workflow")
+    seg, dg = os.path.join(root, "segmented"), os.path.join(root, "datagen")
+    dataset = os.path.join(dg, "dataset")
+    chains_dir = os.path.join(dataset, "query_chains")
+    evdir = os.path.join(root, "eval_videos")
+    s1, s2 = os.path.join(root, "stage1"), os.path.join(root, "stage2")
+    preds, judged = os.path.join(root, "preds"), os.path.join(root, "judged")
+    walls = {}
+
+    def stage(key, *args):
+        out, walls[key] = run_cli(f"workflow {key}", args, stamp)
+        return out
+
+    stage("segment-videos", "segment-videos", "--video", clip,
+          "--timestamps", "50,100", "--out-root", seg)
+    with open(os.path.join(seg, f"{name}.json")) as f:
+        spec = json.load(f)
+    stage("datagen", "datagen", "--segments-dir", seg, "--out-root", dg,
+          "--model", "fake")
+    with open(os.path.join(chains_dir, f"{name}.json")) as f:
+        chains = json.load(f)["query_chains"]
+    times = [[q["info"]["Event_Time"] for q in c] for c in chains]
+    out = stage("train-stage1", "train-stage1", "--qa-json", dataset,
+                "--model-dir", ckpt_dir, "--out", s1, "--epochs", "1",
+                "--batch-size", "2", "--max-len", "4096")
+    steps = [ln for ln in out.splitlines() if ln.startswith("stage1: ")]
+    os.makedirs(os.path.join(evdir, name))
+    for sg in spec["segments"]:
+        shutil.copy(sg["path"], os.path.join(evdir, name))
+    stage("train-stage2", "train-stage2", "--model-dir", ckpt_dir,
+          "--video-dir", evdir, "--query-dir", chains_dir, "--out", s2)
+    lang = os.path.join(s1, "language_module.npz")
+    full = os.path.join(s2, "full_module.npz")
+    stage("answer-generate", "answer-generate", "--model-dir", ckpt_dir,
+          "--lora-adapter-1", lang, "--lora-adapter-2", full,
+          "--video-dir", evdir, "--query-dir", chains_dir, "--save-dir",
+          preds, "--mode", "FCC", "--max-new-tokens", "32")
+    with open(os.path.join(preds, f"{name}.json")) as f:
+        qas = json.load(f)["QAs"]
+    for metric in ("IA", "DC", "CA", "TP", "LC"):
+        stage(f"judge {metric}", "judge", "--metric", metric, "--pred-dir",
+              preds, "--out-dir", judged, "--model", "fake")
+    report_path = os.path.join(root, "report.json")
+    stage("summarize", "summarize", "--judged-dir", judged, "--out",
+          report_path)
+    metrics = json.loads(stage("nlp-metrics", "nlp-metrics", "--pred-dir",
+                               preds).strip().splitlines()[-1])
+    with open(os.path.join(judged, f"{name}.json")) as f:
+        scores = [set(q.get("scores", {})) for q in json.load(f)["QAs"]]
+    with open(report_path) as f:
+        report = json.load(f)
+    five = {"IA", "DC", "CA", "TP", "LC"}
+    log(f"workflow: {len(spec['segments'])} segments, {len(chains)} chains "
+        f"of {[len(c) for c in chains]} QAs, {steps[-1] if steps else 'no'}"
+        f" stage-1 line, {len(qas)} predictions, average score "
+        f"{report['scores']['average']}, nlp {json.dumps(metrics)}; total "
+        f"{sum(walls.values()):.1f}s; an interpreter importing the package "
+        f"{import_s:.2f}s [{stamp}]")
+    if len(spec["segments"]) != 3 \
+            or not all(sg["keyframes"] for sg in spec["segments"]) \
+            or not chains or not all(chains) \
+            or any(t != sorted(t) for t in times) \
+            or not os.path.exists(lang) or not os.path.exists(full) \
+            or len(qas) != len(chains[0]) \
+            or not all("prediction" in q for q in qas) \
+            or not scores or any(s != five for s in scores) \
+            or report["scores"]["average"] is None:
+        raise AssertionError("workflow check failed")
+    return {"workflow_s": walls, "package_import_s": import_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 9 (d): serve --supervise, a real device-side assert, restore
+# ---------------------------------------------------------------------------
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _http(port: int, path: str, body=None, timeout: float = 600):
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _wait_serving(port: int, proc, deadline_s: float = 300) -> float:
+    """Poll /stats until the server answers; returns the time it did."""
+    import urllib.error
+
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < deadline_s:
+        if proc.poll() is not None:
+            raise AssertionError(f"server exited rc={proc.returncode}")
+        try:
+            _http(port, "/stats", timeout=5)
+            return time.time()
+        except (urllib.error.URLError, ConnectionError, OSError):
+            time.sleep(0.02)
+    raise AssertionError("server did not come up")
+
+
+def _children(pid: int):
+    try:
+        with open(f"/proc/{pid}/task/{pid}/children") as f:
+            return [int(x) for x in f.read().split()]
+    except OSError:
+        return []
+
+
+def _holds_card(pid: int) -> bool:
+    """Whether a process has a /dev/nvidia* device file open (a CUDA
+    context opens them)."""
+    fd_dir = f"/proc/{pid}/fd"
+    for fd in os.listdir(fd_dir):
+        try:
+            if os.readlink(os.path.join(fd_dir, fd)).startswith(
+                    "/dev/nvidia"):
+                return True
+        except OSError:
+            pass
+    return False
+
+
+def supervised_case(stamp, ckpt_dir, clip, pool_rows: int):
+    """One phase 9 (d) case: ``serve --supervise`` (fault injection on the
+    third ingest dispatch) beside an unfaulted control ``serve``, both
+    subprocesses on the checkpoint. Session s1 ingests 0-16 s of the clip
+    (one 16-frame chunk) and asks AC on both; the second ingest (16-48 s,
+    two chunks) faults in the middle on a real device-side assert; the
+    client must get 503 naming it, the child exit 17, the supervisor
+    start a new child that restores s1, and the next ask answer turn 1
+    with the control's tokens. The supervisor must hold no /dev/nvidia
+    file. Returns fault -> 503 ms, child exit -> ready s, restore s."""
+    import re
+    import signal
+    import subprocess as sp
+    import urllib.error
+
+    from cogstream_tpu_torch.runtime.serve import FAULT_ENV
+
+    label = f"pool_rows={pool_rows}" if pool_rows else "solo"
+    root = _engine_dir(f"supervise_{pool_rows}")
+    snapdir = os.path.join(root, "snaps")
+    common = ["-m", "cogstream_tpu_torch", "serve", "--model-dir", ckpt_dir,
+              "--host", "127.0.0.1"]
+    if pool_rows:
+        common += ["--pool-rows", str(pool_rows)]
+    port, cport = _free_port(), _free_port()
+    env = {k: v for k, v in os.environ.items() if k != FAULT_ENV}
+    env["PYTHONUNBUFFERED"] = "1"
+    logs = {k: open(os.path.join(root, f"{k}.log"), "w+")
+            for k in ("sup", "ctl")}
+    procs = {
+        "sup": sp.Popen([sys.executable, *common, "--port", str(port),
+                         "--supervise", "--auto-snapshot-dir", snapdir,
+                         "--restart-cooldown", "0.5"], cwd=REPO,
+                        env={**env, FAULT_ENV: "3"}, stdout=logs["sup"],
+                        stderr=sp.STDOUT, start_new_session=True),
+        "ctl": sp.Popen([sys.executable, *common, "--port", str(cport)],
+                        cwd=REPO, env=env, stdout=logs["ctl"],
+                        stderr=sp.STDOUT, start_new_session=True)}
+
+    def sup_log() -> str:
+        logs["sup"].seek(0)
+        return logs["sup"].read()
+
+    ask = {"session_id": "s1", "mode": "AC", "max_new_tokens": 16}
+    try:
+        t0 = time.time()
+        up = _wait_serving(port, procs["sup"])
+        _wait_serving(cport, procs["ctl"])
+        start_s = up - t0
+        child = _children(procs["sup"].pid)
+        sup_card = _holds_card(procs["sup"].pid)
+        child_card = bool(child) and _holds_card(child[0])
+        first = []
+        for p in (port, cport):
+            _http(p, "/session", {"session_id": "s1"})
+            ing = _http(p, "/ingest", {"session_id": "s1",
+                                       "video_path": clip, "start": 0.0,
+                                       "end": 16.0, "fps": 1.0})
+            first.append((ing, _http(p, "/ask", {**ask, "question":
+                                                 "What is on screen?"})))
+        t_req = time.time()
+        try:
+            _http(port, "/ingest", {"session_id": "s1", "video_path": clip,
+                                    "start": 16.0, "end": 48.0, "fps": 1.0})
+            code, body = 200, {}
+        except urllib.error.HTTPError as e:
+            code, body = e.code, json.loads(e.read())
+        t_503 = time.time()
+        while child and os.path.exists(f"/proc/{child[0]}"):
+            time.sleep(0.005)
+        t_exit = time.time()
+        ready = _wait_serving(port, procs["sup"])
+        got = _http(port, "/ask", {**ask, "question": "And now?"})
+        want = _http(cport, "/ask", {**ask, "question": "And now?"})
+        text = sup_log()
+    finally:
+        for proc in procs.values():
+            try:
+                os.killpg(os.getpgid(proc.pid), signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait(timeout=60)
+        for f in logs.values():
+            f.close()
+    fault = re.search(r"sticky CUDA error at ([0-9.]+): (.*)", text)
+    restore = re.search(r"restored 1 session\(s\) from .* in ([0-9.]+) s",
+                        text)
+    out = {"start_s": start_s,
+           "faulting_request_ms": (t_503 - t_req) * 1e3,
+           "fault_to_503_ms": ((t_503 - float(fault.group(1))) * 1e3
+                               if fault else None),
+           "exit_to_ready_s": ready - t_exit,
+           "restore_s": float(restore.group(1)) if restore else None}
+    ok = (code == 503 and body.get("backend_fatal") is True
+          and body.get("recovering") is True
+          and "device-side assert triggered" in body.get("error", "")
+          and "serve child died rc=17" in text and fault and restore
+          and first[0][1]["tokens"] == first[1][1]["tokens"]
+          and got["turn"] == want["turn"] == 1
+          and got["tokens"] == want["tokens"]
+          and got["cache_tokens"] == want["cache_tokens"]
+          and not sup_card and child_card)
+    log(f"supervise {label}: served in {start_s:.2f}s; ingest "
+        f"{first[0][0]['frames']} frames ({first[0][0]['decode_backend']}), "
+        f"ask tokens equal to the control's "
+        f"{first[0][1]['tokens'] == first[1][1]['tokens']}; faulting ingest "
+        f"-> {code} in {out['faulting_request_ms']:.1f} ms (fault -> 503 "
+        f"{out['fault_to_503_ms'] or float('nan'):.3f} ms), error "
+        f"{body.get('error', '')[:80]!r}, backend_fatal "
+        f"{body.get('backend_fatal')}, recovering {body.get('recovering')}; "
+        f"{fault.group(2)[:80] if fault else 'no fault line'}; child exit "
+        f"17 {'serve child died rc=17' in text}; exit -> ready "
+        f"{out['exit_to_ready_s']:.2f}s, restore {out['restore_s']} s; "
+        f"restored ask turn {got['turn']}, tokens equal to the control's "
+        f"{got['tokens'] == want['tokens']} ({len(got['tokens'])} tokens); "
+        f"supervisor holds the card {sup_card}, child {child_card} "
+        f"[{stamp}]")
+    if not ok:
+        log(text[-4000:])
+        raise AssertionError(f"supervised serving ({label}) check failed")
+    return out
+
+
+def run_supervised_serve(stamp, ckpt_dir, video_dir):
+    """Phase 9 (d) (in phase 8's directory, while its checkpoint exists):
+    :func:`supervised_case` solo and then with ``--pool-rows 2``."""
+    clip = _clip_file(video_dir)
+    return {"supervise": {label: supervised_case(stamp, ckpt_dir, clip, n)
+                          for label, n in (("solo", 0), ("pooled", 2))}}
 
 
 # ---------------------------------------------------------------------------

@@ -197,10 +197,20 @@ def plain_route(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {t.device}")
 
 
+class KernelError(RuntimeError):
+    """A port kernel's entry point returned a CUDA error; ``code`` is the
+    ``cudaError_t`` value (a sticky one from an earlier fault on the card
+    shows up here too: ``runtime.serve._backend_fatal`` reads it)."""
+
+    def __init__(self, name: str, code: int):
+        super().__init__(f"CUDA kernel {name} failed to launch: "
+                         f"cudaError {code}")
+        self.code = code
+
+
 def check(code: int, name: str) -> None:
     if code != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
-                           f"cudaError {code}")
+        raise KernelError(name, code)
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -27,8 +27,16 @@ workspace is shared per device (``ops/lm_attention._decode_workspace``).
 
 ``--auto-snapshot-dir`` snapshots each session after every successful
 /ingest and /ask, and a starting server restores every snapshot it finds
-there. The JAX package's supervisor (``--supervise``) waits for a
-CUDA-side fatal-error predicate (ROADMAP Queue 1 #2).
+there.
+
+Crash recovery (``--supervise``): a sticky CUDA error (an illegal
+address, a device-side assert, ...) leaves the process's CUDA context
+unusable; no in-process retry recovers. The serving process therefore
+runs under a supervisor that never touches CUDA itself: the request that
+met the error gets a 503 ``{"backend_fatal": true, "recovering": true}``,
+the child exits (rc 17), the supervisor starts a new one, and that
+process restores every session from its auto-snapshot. Clients retry a
+503 after the restart and keep their streams.
 
 The quantized modes load as in JAX: ``--quantize-weights int8|int4``
 (K10 / K6-K9 decode), ``--w8a8-prefill`` (int8 activations in prefill
@@ -42,8 +50,10 @@ import argparse
 import json
 import os
 import queue
+import subprocess
 import sys
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional
 
@@ -53,6 +63,74 @@ import torch
 
 class UnknownSession(Exception):
     pass
+
+
+# cudaError_t values after which the CUDA context of the process is
+# unusable (CUDA 12.8 driver_types.h: "the process must be terminated and
+# relaunched"), with uncorrectable ECC
+STICKY_CUDA_ERRORS = frozenset({
+    214,    # cudaErrorECCUncorrectable
+    226,    # cudaErrorContained
+    700,    # cudaErrorIllegalAddress
+    702,    # cudaErrorLaunchTimeout
+    710,    # cudaErrorAssert (device-side assert)
+    714,    # cudaErrorHardwareStackError
+    715,    # cudaErrorIllegalInstruction
+    716,    # cudaErrorMisalignedAddress
+    717,    # cudaErrorInvalidAddressSpace
+    718,    # cudaErrorInvalidPc
+    719,    # cudaErrorLaunchFailure
+    721,    # cudaErrorTensorMemoryLeak
+    810,    # cudaErrorMpsClientTerminated
+    911,    # cudaErrorExternalDevice
+})
+
+
+def _backend_fatal(e: BaseException) -> bool:
+    """True for errors after which the process's CUDA context is unusable:
+    the process must be replaced, not retried.
+
+    Both the TYPE and the status must match: ``torch.AcceleratorError``
+    (torch's CUDA error, carrying ``error_code``) or the port's own
+    ``KernelError`` (carrying ``code``), with a sticky code. An
+    out-of-memory error is recoverable in the process, and an error of
+    another type whose message merely contains "CUDA error" (an
+    upstream error string surfaced through ingest) must not take down
+    the serving process and its sessions."""
+    from ..ops.kernels import KernelError
+
+    if isinstance(e, KernelError):
+        code = e.code
+    elif isinstance(e, torch.AcceleratorError):
+        code = getattr(e, "error_code", None)
+    else:
+        return False
+    return code in STICKY_CUDA_ERRORS
+
+
+# Fault injection for recovery tests: when set to N, the N-th ingest
+# dispatch (and every later one) of the process faults: a real device-side
+# assert on a CUDA model, its torch error on a CPU one.
+FAULT_ENV = "COGSTREAM_FAULT_INGEST_DISPATCH"
+SUPERVISED_ENV = "COGSTREAM_SERVE_SUPERVISED"
+FATAL_EXIT = 17     # a supervised child's exit after a sticky error
+
+
+def inject_fault(device: torch.device) -> None:
+    """Raise the error a sticky CUDA fault raises. On the card: an index
+    past the end of a tensor trips the indexing kernel's device-side
+    assert (cudaErrorAssert, which poisons the context), and the
+    synchronize raises it here. On the CPU: ``torch.AcceleratorError``
+    with the text and ``error_code`` torch gives the card's error."""
+    if device.type == "cuda":
+        x = torch.zeros(4, device=device)
+        x[torch.tensor([1 << 20], device=device)]
+        torch.cuda.synchronize(device)
+        raise AssertionError("the out-of-range index raised no error")
+    e = torch.AcceleratorError(f"CUDA error: device-side assert triggered "
+                               f"(injected by {FAULT_ENV})")
+    e.error_code = 710
+    raise e
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -240,6 +318,12 @@ class SessionServer:
         self.auto_snapshot_dir = auto_snapshot_dir
         if auto_snapshot_dir:
             os.makedirs(auto_snapshot_dir, exist_ok=True)
+        # a supervised child (run_supervised sets the variable) exits
+        # after a sticky CUDA error so that the supervisor replaces it
+        self.supervised = os.environ.get(SUPERVISED_ENV) == "1"
+        self.exit_code = 0
+        self._fault_at = int(os.environ.get(FAULT_ENV) or 0)
+        self._dispatches = 0
         self.pool = None
         self.frontend = None
         self._row_of: Dict[str, int] = {}
@@ -283,6 +367,11 @@ class SessionServer:
         """Dispatch one preprocessed chunk's ingest: batched frontend,
         pool, or bare session (with the rows and keep mask the
         preprocess worker may have made ahead)."""
+        if self._fault_at:
+            self._dispatches += 1
+            if self._dispatches >= self._fault_at:
+                with self.lock:
+                    inject_fault(sess.device)
         t, gh, gw = (int(x) for x in batch.grid_sizes[0])
         ms = int(batch.merge_sizes[0])
         if self.frontend is not None:
@@ -471,6 +560,21 @@ class SessionServer:
         if self.frontend is not None:
             self.frontend.close()
 
+    def request_shutdown(self, code: int = FATAL_EXIT) -> None:
+        """After a sticky CUDA error: in a supervised child, exit shortly
+        (letting the 503 flush) so the supervisor replaces the process.
+        Outside supervision this only records the code (tests and
+        embedded servers must not be killed)."""
+        self.exit_code = code
+        if not self.supervised:
+            return
+
+        def _die():
+            time.sleep(0.5)
+            os._exit(code)
+
+        threading.Thread(target=_die, daemon=True).start()
+
     def stats(self) -> Dict:
         out = self.timer.summary()
         if self.frontend is not None:
@@ -601,6 +705,19 @@ def make_handler(server: SessionServer):
             except KeyError as e:
                 return self._json(400, {"error": f"missing field {e}"})
             except Exception as e:  # noqa: BLE001
+                if _backend_fatal(e):
+                    # the CUDA context is lost: tell the client to retry
+                    # after the restart, then (supervised) exit so that
+                    # the supervisor replaces the process
+                    print(f"sticky CUDA error at {time.time():.6f}: "
+                          f"{type(e).__name__}: "
+                          f"{str(e).splitlines()[0]}",
+                          file=sys.stderr, flush=True)
+                    self._json(503, {"error": f"{type(e).__name__}: {e}",
+                                     "backend_fatal": True,
+                                     "recovering": server.supervised})
+                    server.request_shutdown(FATAL_EXIT)
+                    return None
                 return self._json(500, {"error": f"{type(e).__name__}: {e}"})
 
         def log_message(self, *a):   # quiet
@@ -617,11 +734,45 @@ def make_http_server(server: SessionServer, host: str = "0.0.0.0",
 
 
 def serve(server: SessionServer, port: int = 8787, host: str = "0.0.0.0"):
+    t0 = time.perf_counter()
     restored = server.restore_all()
     if restored:
         print(f"restored {len(restored)} session(s) from "
-              f"{server.auto_snapshot_dir}: {restored}", flush=True)
+              f"{server.auto_snapshot_dir} in "
+              f"{time.perf_counter() - t0:.3f} s: {restored}", flush=True)
     make_http_server(server, host, port).serve_forever()
+
+
+def run_supervised(child_argv: List[str], max_restarts: int = 20,
+                   cooldown_s: float = 2.0) -> int:
+    """Supervisor loop: run the serving child and start a new one when it
+    dies (rc != 0; rc 17 is the exit after a sticky CUDA error). The
+    child sees COGSTREAM_SERVE_SUPERVISED=1, which arms request_shutdown.
+    This process only starts processes: it never initializes CUDA, so
+    no child inherits a context."""
+    env = dict(os.environ)
+    env[SUPERVISED_ENV] = "1"
+    restarts = 0
+    while True:
+        rc = subprocess.run(child_argv, env=env).returncode
+        if rc == 0:
+            return 0
+        restarts += 1
+        if restarts > max_restarts:
+            print(f"serve child died rc={rc}; restart budget "
+                  f"({max_restarts}) exhausted", file=sys.stderr)
+            return rc
+        print(f"serve child died rc={rc}; restarting "
+              f"({restarts}/{max_restarts}) after {cooldown_s:g}s",
+              file=sys.stderr, flush=True)
+        time.sleep(cooldown_s)
+
+
+def child_argv(argv: List[str]) -> List[str]:
+    """The command line of a supervised serving child: this module with
+    ``argv`` less ``--supervise``."""
+    return [sys.executable, "-m", "cogstream_tpu_torch.runtime.serve"] + [
+        a for a in argv if a != "--supervise"]
 
 
 def quant_flags(args) -> dict:
@@ -668,18 +819,25 @@ def main(argv=None):
     ap.add_argument("--encoder-int8", action="store_true",
                     help="W8A8 vision tower for ingest")
     ap.add_argument("--supervise", action="store_true",
-                    help="not ported yet (ROADMAP Queue 1 #2: needs a "
-                         "CUDA-side fatal-error predicate)")
+                    help="run under a supervisor: after a sticky CUDA "
+                         "error the serving process exits and a new one "
+                         "starts; sessions restore from "
+                         "--auto-snapshot-dir")
     ap.add_argument("--auto-snapshot-dir",
                     help="snapshot each session after every successful "
-                         "/ingest and /ask; start-up restores them all")
+                         "/ingest and /ask; start-up restores them all "
+                         "(required for --supervise recovery to keep "
+                         "streams)")
+    ap.add_argument("--restart-cooldown", type=float, default=2.0,
+                    help="seconds between supervisor relaunches")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
 
     if args.supervise:
-        raise SystemExit("--supervise is not ported yet (ROADMAP Queue 1 "
-                         "#2: it needs a CUDA-side fatal-error predicate)")
+        raise SystemExit(run_supervised(child_argv(argv),
+                                        cooldown_s=args.restart_cooldown))
     flags = quant_flags(args)
     from ..config import load_generation_config, load_hf_config
     from ..models.checkpoint import load_cogreasoner_from_hf

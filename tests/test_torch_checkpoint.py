@@ -306,11 +306,26 @@ def test_export_hf_cli_matches_jax(jax_ckpts, tmp_path, monkeypatch):
 
 
 def test_cli_names_the_queue_of_unported_commands(capsys):
+    """Every command of the JAX package's CLI is a command of the port's:
+    its help lists each one, none is left in NOT_PORTED, and an unknown
+    command still returns 2."""
+    import re
+
+    from cogstream_tpu import __main__ as jmain_mod
     from cogstream_tpu_torch import __main__ as tmain
 
-    assert tmain.main(["judge"]) == 2
-    assert "Queue 1 #8" in capsys.readouterr().out
+    jax_cmds = set(re.findall(r"^  ([a-z0-9-]+) ", jmain_mod.__doc__, re.M))
+    port_cmds = set(re.findall(r"^  ([a-z0-9-]+) ", tmain.__doc__, re.M))
+    assert len(jax_cmds) == 10 and jax_cmds <= port_cmds
+    assert tmain.NOT_PORTED == {}
     assert tmain.main([]) == 0
+    out = capsys.readouterr().out
+    assert all(c in out for c in jax_cmds)
+    for cmd in sorted(jax_cmds):
+        with pytest.raises(SystemExit) as e:
+            tmain.main([cmd, "--help"])
+        assert e.value.code == 0, cmd
+    assert tmain.main(["bogus"]) == 2
 
 
 # ---------------------------------------------------------------------------

@@ -8,10 +8,12 @@ parsing, prompt strings (byte-exact), the pixel-diff keep mask
 (byte-exact), the vision metadata, and the evaluation path's host
 processor (chat template, image processor, video loader, the
 conversation processor and the history rewrite: byte-exact outputs on
-the same frames), and the serving path's frame stream, snapshot codec
-and stage timer. The last tests check that the port imports with JAX
-and ``cogstream_tpu`` blocked, and that no port module imports PIL,
-OpenCV, ``transformers`` or ``safetensors`` when it is imported.
+the same frames), the serving path's frame stream, snapshot codec
+and stage timer, and the code of the evaluation harness and dataset
+generation (copied whole, docstrings aside). The last tests check that
+the port imports with JAX and ``cogstream_tpu`` blocked, and that no
+port module imports PIL, OpenCV, ``transformers``, ``safetensors``,
+nltk or openai when it is imported.
 """
 
 import ast
@@ -566,6 +568,39 @@ def test_load_tokenizer(tmp_path, monkeypatch):
          j.convert_tokens_to_ids("x"))
 
 
+# host-only modules the port carries as copies of the JAX package's
+COPIED_MODULES = [
+    "evaluate/synonyms_data", "evaluate/nlp_metrics", "evaluate/aggregate",
+    "datagen/client", "evaluate/judges", "datagen/prompts",
+    "datagen/segmentation", "datagen/generation", "datagen/reformatting",
+    "datagen/scoring", "datagen/dialogue_path", "datagen/formatting",
+    "datagen/__init__",
+]
+
+
+def _code(path: str) -> str:
+    """The AST of a source file with every docstring removed."""
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body \
+                and isinstance(node.body[0], ast.Expr) \
+                and isinstance(node.body[0].value, ast.Constant) \
+                and isinstance(node.body[0].value.value, str):
+            node.body = node.body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("mod", COPIED_MODULES)
+def test_copied_host_module_code_equals_the_original(mod):
+    """The evaluation harness and dataset generation are copies: the
+    code (docstrings aside) equals the JAX package's, so the CLI's host
+    stages give the same outputs."""
+    got = _code(os.path.join(PORT, f"{mod}.py"))
+    want = _code(os.path.join(ROOT, "cogstream_tpu", f"{mod}.py"))
+    assert got == want
+
+
 def _port_modules():
     mods = []
     for dirpath, _, files in os.walk(PORT):
@@ -582,8 +617,11 @@ def test_port_imports_without_jax():
     """Every port module imports with ``jax`` and ``cogstream_tpu``
     blocked, and without nvcc (kernels build at first launch only)."""
     for m in ("runtime.pool", "runtime.serve", "processor.frame_stream",
-              "utils.io", "utils.profiling"):
+              "utils.io", "utils.profiling", "datagen", "evaluate.judges"):
         assert f"cogstream_tpu_torch.{m}" in _port_modules()
+    for mod in COPIED_MODULES:
+        name = "cogstream_tpu_torch." + mod.replace("/", ".")
+        assert name.removesuffix(".__init__") in _port_modules()
     code = textwrap.dedent(f"""
         import sys, importlib
         sys.modules["jax"] = None
@@ -621,12 +659,12 @@ def test_port_sources_never_name_jax():
                     f"{path} imports {n}"
 
 
-HOST_LIBS = ("PIL", "cv2", "transformers", "safetensors")
+HOST_LIBS = ("PIL", "cv2", "transformers", "safetensors", "nltk", "openai")
 
 
 def test_port_sources_import_host_libraries_lazily():
     """AST scan: no port file (nor chip_smoke.py) imports PIL, cv2,
-    transformers or safetensors at module level — only inside the
+    transformers, safetensors, nltk or openai at module level — only inside the
     function that uses it — so a machine without them runs the port."""
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(PORT):
@@ -646,8 +684,8 @@ def test_port_sources_import_host_libraries_lazily():
 
 
 def test_port_imports_without_host_libraries():
-    """Every port module imports with PIL, cv2, transformers and
-    safetensors blocked."""
+    """Every port module imports with PIL, cv2, transformers,
+    safetensors, nltk and openai blocked."""
     code = textwrap.dedent(f"""
         import sys, importlib
         for m in {HOST_LIBS!r}:

@@ -11,6 +11,7 @@ Weights come from the JAX initializer through models/bridge.py (f32).
 import dataclasses
 import json
 import os
+import sys
 import threading
 import urllib.error
 import urllib.request
@@ -365,7 +366,7 @@ def test_server_refuses_unported_options(setup, monkeypatch):
 
 def test_serve_cli(tmp_path, capsys, monkeypatch):
     """``serve`` left the unported list: ``--help`` prints its options,
-    the flags the port cannot serve exit naming their queue item, and the
+    ``--supervise`` hands the supervisor the child's command line, and the
     quantized modes load as JAX's CLI loads them: ``--w8a8-prefill``
     needs ``--quantize-weights``; ``--quantize-weights int8 --w8a8-prefill
     --encoder-int8`` serves an int8 decoder under w8a8_prefill with a
@@ -382,8 +383,19 @@ def test_serve_cli(tmp_path, capsys, monkeypatch):
     out = capsys.readouterr().out
     assert "--pool-rows" in out and "--auto-snapshot-dir" in out
     base = ["serve", "--model-dir", str(tmp_path)]
-    with pytest.raises(SystemExit, match="#2"):
-        tmain.main(base + ["--supervise"])
+    # --supervise runs the supervisor loop over a child command line
+    # without the flag, and touches no CUDA state itself
+    runs = []
+    monkeypatch.setattr(serve_mod, "run_supervised",
+                        lambda argv, cooldown_s: runs.append(
+                            (argv, cooldown_s)) or 0)
+    with pytest.raises(SystemExit) as e:
+        tmain.main(base + ["--supervise", "--restart-cooldown", "0.5"])
+    assert e.value.code == 0
+    assert runs == [([sys.executable, "-m", "cogstream_tpu_torch.runtime.serve",
+                      "--model-dir", str(tmp_path), "--restart-cooldown",
+                      "0.5"], 0.5)]
+    assert not torch.cuda.is_initialized()
     with pytest.raises(SystemExit, match="requires --quantize-weights int4"):
         tmain.main(base + ["--w4a8-decode"])
     with pytest.raises(SystemExit, match="requires --quantize-weights$"):
