@@ -22,7 +22,11 @@ Phases (each prints one line or a few; any failure exits non-zero):
    the fusion XLA does in the JAX int8 matmul) on stacked gate_proj (m =
    1, 40, 64), down_proj (m = 1) and the 2D lm_head (m = 1), two calls
    bit-identical and a CUDA-graph replay equal to the eager call, beside
-   ``torch._weight_int8pack_mm`` where the card's build has it; and the
+   ``torch._weight_int8pack_mm`` where the card's build has it; K6
+   (uniform) on the lm_head and K8 on gate_proj (m = 1) beside
+   ``torch._weight_int4pack_mm`` on the same values (repacked, the
+   rscale folded into the activations; its time reported only where its
+   output agrees); and the
    W8A8 product of one gate_proj at a 4384-row prefill (activation
    quantization, ``torch._int_mm`` on the held column-major weights and on
    a row-major copy, epilogue) beside the bf16 ``F.linear``. K1, K3, K4 and K5 run their
@@ -180,6 +184,34 @@ Phases (each prints one line or a few; any failure exits non-zero):
    time; int8's KL below each 4-bit scheme's; and the fp8kv row: the bf16
    build's cached logits and greedy continuation over an e4m3 cache
    against a bf16 cache;
+11. tensor-parallel serving (runs on the phase-5 model, after phase 9,
+   before phases 7, 10 and 6) — tp = 2 over a gloo group of two
+   subprocesses of this script (``--tp-rank``), both on this card (NCCL
+   refuses two ranks on one device; the kernels' library, built here,
+   only loads there). The parent first runs the solo references: phase
+   5's two ingests and asks replayed on the phase-5 model (untimed), and
+   replayed again with every row-parallel GEMM's sums split in two f32
+   halves as two ranks split them (the witness of what that sum order
+   alone does to the logits); an int8 (``w8a8_prefill``) and an int4 copy
+   of the phase-5 decoder each ingest a 16-frame segment and ask AC (4
+   tokens); and rewrites phase 8 (b)'s 2+2-layer checkpoint. Each rank: (a) a tiny f32 session (ingest,
+   AC, ingest, FCC, a lookahead_k=4 ask) with ``mesh=``, its tokens equal
+   to the same session run solo on the card (rank 0 runs it first), K1-K4
+   launched on each rank; (b) the phase-5 model at full width and depth,
+   each rank drawing the same seeded tensors one at a time and keeping
+   its shard (``init_cogreasoner_sharded``), phase 5's two segments and
+   asks: each rank's first-step logits (its vocab slice) within 1e-2 of
+   the row max of the solo replay's, or 1.5 times the witness's gap where
+   that is larger, its AC and FCC selections equal to the replay's, the
+   greedy-prefix agreement, K1-K4 launches, shard
+   GiB beside the whole model's, collectives per decode step, walls (two
+   ranks sharing one card over gloo: not a TP speed); (c) int8 +
+   ``w8a8_prefill`` and int4 copies of the sharded decoder
+   (``quantize_text_`` on the shards, absmaxes over both ranks): the
+   first token equal to the solo reference's, K10 / K6 + K8 launched on
+   each rank; (d) ``load_cogreasoner_from_hf(mesh=)`` of the checkpoint
+   (bf16, int8 and int4 at load): every tensor equal to the rank's slice
+   of the whole load. A rank that fails fails the phase;
 6. int4 main path — the same model's decoder is quantized in place to
    rank-1 uniform int4 (the bf16 weights are freed; memory before and
    after is printed); then, with w4a8_decode off and on, a fresh session
@@ -829,6 +861,9 @@ def check_kernels(dev):
     return results, verify
 
 
+LIB_INT4 = {}   # K6 / K8: torch._weight_int4pack_mm (ms, note)
+
+
 def _int4_store(rng, dev, shape, cubic=False):
     """Random rank-1 int4 storage [L,] din/2, dout on the card (every
     byte value occurs; scales of the magnitude a real fit gives)."""
@@ -875,6 +910,60 @@ def _cuda_core_stacked(variant, x, sx, qp, layer):
         splits, variant, kernels.dtype_code(out), kernels.stream_ptr(x)),
         "cs_int4_gemv")
     return out
+
+
+def _int4pack(q4, sc, group: int = 128):
+    """A rank-1 uniform int4 store's nibbles (one layer, split halves
+    ``[din/2, dout]``) and its column scales folded with the codebook
+    (``sc = scale / 7``) in ``torch._weight_int4pack_mm``'s form: unsigned
+    nibbles ``s + 8`` packed by ``torch._convert_weight_to_int4pack``, one
+    (scale, zero = 0) pair a column for every group of ``group`` rows.
+    Its dequantization ``(q - 8) * scale + zero`` is the store's ``s *
+    sc``, so with the rscale folded into the activations (as the K6 / K8
+    launchers fold it) the call computes the same function, its scales
+    rounded to bf16."""
+    import torch
+
+    from cogstream_tpu_torch.ops.quant import _unpack_halves
+
+    lo, hi = _unpack_halves(q4)
+    w = (torch.cat([lo, hi]) + 8).to(torch.uint8).t().contiguous()
+    packed = ((w[:, ::2] << 4) | w[:, 1::2]).contiguous()
+    wp = torch._convert_weight_to_int4pack(packed, 8)
+    din, dout = w.shape[1], w.shape[0]
+    sz = torch.zeros((din // group, dout, 2), dtype=torch.bfloat16,
+                     device=q4.device)
+    sz[..., 0] = sc.to(torch.bfloat16)[None]
+    return wp, sz, group
+
+
+def _int4pack_ms(xb, packs, n: int, ref, ref_layer: int = 0):
+    """Device ms of ``torch._weight_int4pack_mm`` on the same values (the
+    library yardstick of K6 / K8, used nowhere in the port), cycling over
+    ``packs`` (one (weight, scales, group) per layer) as the stacked
+    kernel cycles over its layers; and its worst row error against the
+    kernel's output ``ref`` on layer ``ref_layer`` (of that row's max).
+    (None, why) where the card's build has no such kernel."""
+    import torch
+
+    it = iter(range(10 ** 9))
+
+    def call():
+        wp, sz, g = packs[next(it) % len(packs)]
+        return torch._weight_int4pack_mm(xb, wp, g, sz)
+
+    try:
+        wp, sz, g = packs[ref_layer]
+        y = torch._weight_int4pack_mm(xb, wp, g, sz).float()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        return None, str(e).splitlines()[0][:120]
+    r = ref.float()
+    err = float(((y - r).abs().amax(-1)
+                 / r.abs().amax(-1).clamp(min=1e-30)).max())
+    if not err <= 2e-2:       # bf16 scales round by 2^-9: a far miss is
+        return None, f"a different function (worst row error {err:.3g})"
+    return graph_ms(call, n), f"worst row error {err:.3g} of its max"
 
 
 def check_int4_kernels(dev):
@@ -927,6 +1016,12 @@ def check_int4_kernels(dev):
                                                        cubic, bf), 3)
         wrap_ms = cuda_ms(lambda: qg.int4_rank1_gemv(x1, qp, bf, w4a8=w4a8),
                           20)
+        if key == "K6":
+            lib = _int4pack_ms(xs.to(bf), [_int4pack(qp["q4"], sc)], 20,
+                               got)
+            LIB_INT4[key] = lib
+            log(f"kernel K6 lm_head m=1: torch._weight_int4pack_mm "
+                f"{lib[0]} ms ({lib[1]})")
         # the launcher's operands: activations (bf16, or int8 + two f32
         # scales), packed nibbles, column scales, codebook; bf16 out
         act = x1.numel() * (1 if w4a8 else 2) + (8 if w4a8 else 0)
@@ -978,6 +1073,17 @@ def check_int4_kernels(dev):
                         qg.UNIFORM, xb, None, qp, ids[next(it) % L:][:1]), L)
                     plain_ms = graph_ms(lambda: qg._plain_bf16(
                         xb, qp["q4"][17], qp["scale"][17], None, False, bf), 3)
+                    if site == "gate_proj" and m == 1:
+                        # the library call on the same values, one packed
+                        # weight per layer (layer 17's activations)
+                        packs = [_int4pack(qp["q4"][i], qp["scale"][i])
+                                 for i in range(L)]
+                        lib = _int4pack_ms(xb, packs, L, got, 17)
+                        del packs
+                        LIB_INT4[key] = lib
+                        log(f"kernel K8 gate_proj m=1: "
+                            f"torch._weight_int4pack_mm {lib[0]} ms "
+                            f"({lib[1]})")
                 wrap_ms = cuda_ms(lambda: qg.int4_rank1_gemv_stacked(
                     x, qp, ids[next(it) % L:][:1], bf, w4a8=w4a8), L)
                 # one layer's weights, as each launch reads
@@ -1005,12 +1111,13 @@ def check_int4_kernels(dev):
             raise AssertionError(f"{key} {what} disagrees with its plain "
                                  "version")
     # one kernels-line entry per kernel: the worst error over its cases,
-    # the time and bound of its first (main-path) shape. library_ms is
-    # null: no PyTorch call computes a GEMV on this rank-1 int4 nibble
-    # layout with its codebook (torch's int4 matmuls take other packings
-    # and group scales)
-    log("kernel K6-K9: library_ms none (no PyTorch call computes the same "
-        "rank-1 int4 GEMV)")
+    # the time and bound of its first (main-path) shape. library_ms: K6
+    # (uniform) and K8 beside torch._weight_int4pack_mm on the same values
+    # (repacked, the rscale folded into the activations as the launchers
+    # fold it); K7 / K9 have none (no PyTorch call takes int8 activations
+    # against int4 weights)
+    log("kernel K7, K9: library_ms none (no PyTorch call computes the W4A8 "
+        "GEMV)")
     for idx in INT4_PATH:
         key = KERNELS[idx][0].split("_")[0]
         mine = [ln for ln in lines if ln[0].split("_")[0] == key]
@@ -1020,7 +1127,8 @@ def check_int4_kernels(dev):
                         "max_abs_err": max(ln[2] for ln in mine),
                         "ms": mine[0][4], "plain_ms": mine[0][5],
                         "bound_ms": mine[0][7][0],
-                        "bound_by": mine[0][7][1], "library_ms": None})
+                        "bound_by": mine[0][7][1],
+                        "library_ms": LIB_INT4.get(key, (None,))[0]})
     return results
 
 
@@ -5129,6 +5237,600 @@ def profiled(name, fn, stamp):
             f"{e.count:6d}x {e.key[:80]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: tensor-parallel serving, two ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+TP_DIR = os.path.join(REPO, "build", "chip_smoke_tp")
+TP_WORLD = 2
+# (b)'s bound on the first-step logits, of each row's max |ref|: 1e-2, or
+# TP_WITNESS_FACTOR times the gap that the tensor-parallel sum order alone
+# opens in one process (SplitSums) where that gap is larger
+TP_LOGIT_TOL = 1e-2
+TP_WITNESS_FACTOR = 1.5
+MAIN_ASKS = [("What is happening in the video?", "AC"),
+             ("What changed since then?", "FCC")]
+
+
+class FirstLogits:
+    """Records the whole-vocab logits of each decode loop's first step (the
+    first ``lm_logits`` call without a sliced head after each ``arm``) and
+    the collectives issued between the full-vocab calls of one decode
+    loop (instrumentation of this script only)."""
+
+    def __init__(self):
+        from cogstream_tpu_torch.models import qwen2
+        from cogstream_tpu_torch.parallel.mesh import COLLECTIVES
+
+        self.qwen2, self.counts = qwen2, COLLECTIVES
+        self.head = qwen2.lm_logits
+        self.first = None
+        self.steps = []           # collectives per decode step
+        self._last = None
+
+        def tapped(*a, **k):
+            out = self.head(*a, **k)
+            if k.get("head") is None:
+                now = sum(self.counts.values())
+                if self.first is None:
+                    self.first = out.reshape(-1, out.shape[-1])[-1].float()\
+                        .cpu().numpy()
+                elif self._last is not None:
+                    self.steps.append(now - self._last)
+                self._last = now
+            return out
+
+        qwen2.lm_logits = tapped
+
+    def arm(self):
+        self.first, self._last = None, None
+
+    def restore(self):
+        self.qwen2.lm_logits = self.head
+
+
+class SplitSums:
+    """Two ranks' row-parallel arithmetic in one process (phase 11 (b)'s
+    witness). While installed, each row-parallel site of the whole model
+    (the decoder's o_proj and down_proj, the tower's o and fc2, the
+    projector's second linear) computes as two halves of its input
+    channels, each product's sums kept in f32, then added, biased and
+    rounded once: what ``row_parallel_linear`` and
+    ``materialized_linear(reduce=)`` compute on two ranks, the all-reduce
+    of two f32 partials being one addition. Every other op runs as it
+    does."""
+
+    def __init__(self, model):
+        from cogstream_tpu_torch.models import projector, qwen2, vision_encoder
+        from cogstream_tpu_torch.ops.quant import _add_bias, _mm_wide
+
+        sites = ([layer.attn["o_proj"] for layer in model.text.layers]
+                 + [layer.mlp["down_proj"] for layer in model.text.layers]
+                 + [layer.o for layer in model.vision.layers]
+                 + [layer.fc2 for layer in model.vision.layers]
+                 + [model.projector.layers[1]])
+        ids = {id(m) for m in sites}
+        self.calls = 0
+        self.mods = (qwen2, vision_encoder, projector)
+        dense, linear = qwen2.dense, vision_encoder.materialized_linear
+        self.saved = (dense, linear)
+
+        def split(lin, x):
+            self.calls += 1
+            h, w = x.shape[-1] // 2, lin.weight
+            y = (_mm_wide(x[..., :h].contiguous(), w[:, :h].contiguous())
+                 + _mm_wide(x[..., h:].contiguous(), w[:, h:].contiguous()))
+            return _add_bias(y, lin).to(x.dtype)
+
+        def dense_split(x, lin, *a, **k):
+            return split(lin, x) if id(lin) in ids else dense(x, lin, *a, **k)
+
+        def linear_split(lin, x, reduce=None):
+            return split(lin, x) if id(lin) in ids else linear(lin, x, reduce)
+
+        qwen2.dense = dense_split
+        vision_encoder.materialized_linear = linear_split
+        projector.materialized_linear = linear_split
+
+    def restore(self):
+        qwen2, vision_encoder, projector = self.mods
+        qwen2.dense = self.saved[0]
+        vision_encoder.materialized_linear = self.saved[1]
+        projector.materialized_linear = self.saved[1]
+
+
+def tp_solo_turns(model, cfg, tok):
+    """Phase 5's two ingests and asks in a fresh solo session on
+    ``model``, untimed: per mode the first-step logits (host f32), the
+    answer tokens and the selection."""
+    from cogstream_tpu_torch.runtime.session import StreamingSession
+
+    t, gh, gw, ms = MAIN_SEGMENTS
+    tap = FirstLogits()
+    out = {}
+    try:
+        sess = StreamingSession(model, cfg, tok, max_len=16384)
+        for seg_i, (pv, (question, mode)) in enumerate(zip(main_segments(),
+                                                           MAIN_ASKS)):
+            sess.append_stream_segment(pv, (t, gh, gw), ms,
+                                       timestamps=[float(seg_i * t + f)
+                                                   for f in range(t)])
+            tap.arm()
+            r = sess.ask(question, mode=mode, max_new_tokens=32)
+            out[mode] = {"logits": tap.first, "tokens": r["tokens"],
+                         "selection": r["selection"]}
+    finally:
+        tap.restore()
+    return out
+
+
+def tp_slice_err(got, ref, lo_hi):
+    """One rank's vocab slice ``got`` of the first-step logits against the
+    whole row ``ref``: (max |got - ref| over the row's max |ref|, the same
+    in bf16 ulps of that max; the ulp of a value in [2^e, 2^(e+1)) is
+    2^(e-7))."""
+    top = max(float(np.abs(ref).max()), 1e-30)
+    d = float(np.abs(np.asarray(got, np.float64)
+                     - ref[slice(*lo_hi)]).max())
+    return d / top, d / 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def tp_prefix(a, b) -> int:
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def cut_config():
+    """Phase 8 (b)'s checkpoint config: 7B width, 2 decoder and 2 tower
+    layers."""
+    import dataclasses
+
+    from cogstream_tpu_torch import presets
+
+    cfg7 = presets.cogreasoner_7b()
+    return dataclasses.replace(
+        cfg7, text=dataclasses.replace(cfg7.text, num_hidden_layers=2),
+        vision=dataclasses.replace(cfg7.vision, num_hidden_layers=2))
+
+
+def tp_whole_gib(cfg):
+    """(model, decoder) GiB of the whole ``cfg`` model (sized on meta)."""
+    from cogstream_tpu_torch.models.cogreasoner import CogReasoner
+    from cogstream_tpu_torch.models.projector import Projector
+    from cogstream_tpu_torch.models.qwen2 import Qwen2Model
+    from cogstream_tpu_torch.models.vision_encoder import VisionTower
+
+    m = CogReasoner(Qwen2Model(cfg.text, device="meta"),
+                    VisionTower(cfg.vision, device="meta"),
+                    Projector(cfg.vision.hidden_size, cfg.text.hidden_size,
+                              cfg.mm_projector_type, "meta",
+                              cfg.text.torch_dtype))
+    return _gib(m), _gib(m.text)
+
+
+def write_cut_checkpoint(dev, out_dir):
+    """Phase 8 (b)'s 2+2-layer 7B-width checkpoint (seed 3), written to
+    ``out_dir``; returns its config."""
+    import torch
+
+    from cogstream_tpu_torch.models.checkpoint import save_cogreasoner_to_hf
+    from cogstream_tpu_torch.models.cogreasoner import init_cogreasoner_params
+
+    cfg = cut_config()
+    src = init_cogreasoner_params(
+        cfg, torch.Generator(device=dev).manual_seed(3), device=dev)
+    save_cogreasoner_to_hf(src, cfg, out_dir)
+    del src
+    torch.cuda.empty_cache()
+    return cfg
+
+
+def tp_quant_session(model, cfg, tok, first_tap, **kw):
+    """Phase 11 (c)'s quantized turn: one 16-frame segment, ask(AC) for 4
+    tokens; (tokens, first-step logits)."""
+    from cogstream_tpu_torch.runtime.session import StreamingSession
+
+    t, gh, gw, ms = MAIN_SEGMENTS
+    sess = StreamingSession(model, cfg, tok, max_len=16384, **kw)
+    sess.append_stream_segment(main_segments()[0], (t, gh, gw), ms,
+                               timestamps=[float(f) for f in range(t)])
+    first_tap.arm()
+    r = sess.ask("What is happening in the video?", mode="AC",
+                 max_new_tokens=4)
+    return r["tokens"], first_tap.first
+
+
+def run_tp_path(model, dev, stamp):
+    """Phase 11: tensor-parallel serving at tp = 2, both ranks on this card
+    (subprocesses of this script, ``--tp-rank``), their process group on
+    gloo: NCCL refuses two ranks on one device, and the smoke has one card.
+    The parent writes the references first: phase 5's asks replayed solo
+    (untimed) and again under :class:`SplitSums` (the witness: the solo
+    model with two ranks' row-parallel sum order), the solo card sessions
+    of (c) on ``shared_copy``s of the phase-5 decoder quantized to int8 /
+    int4, and (d)'s checkpoint. The ranks' results are held here: (a) the
+    tiny f32 tokens equal to the solo card session's (which rank 0 runs),
+    K1-K4 launched on each rank; (b) each rank's first-step logits (its
+    vocab slice) within ``TP_LOGIT_TOL`` of the row max of the solo
+    replay's, or ``TP_WITNESS_FACTOR`` times the witness's gap to the solo
+    replay where that is larger (28 layers of bf16 roundings carry a
+    changed sum order that far; the error against the witness and the
+    1e-2 verdict are printed beside), each rank's AC and FCC selections
+    equal to the solo replay's, K1-K4 on each rank, per rank shard GiB
+    beside the whole model's, collectives per decode step, walls (two
+    ranks sharing one card over gloo: not a TP speed); (c) the first
+    token equal to the solo card session's, K10 / K6 + K8 launched on each
+    rank; (d) every tensor of the sharded load equal to that rank's slice
+    of the whole load."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from cogstream_tpu_torch import presets
+    from cogstream_tpu_torch.models.cogreasoner import CogReasoner
+    from cogstream_tpu_torch.ops.quant import quantize_text_
+    from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
+
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    os.makedirs(TP_DIR)
+    try:
+        cfg = presets.cogreasoner_7b()
+        tok = ByteTokenizer(image_token_id=cfg.image_token_index,
+                            vocab=cfg.text.vocab_size)
+        # (b)'s references: phase 5's asks replayed solo, and again with
+        # the row-parallel sums split as two ranks split them
+        solo = tp_solo_turns(model, cfg, tok)
+        witness = SplitSums(model)
+        try:
+            emu = tp_solo_turns(model, cfg, tok)
+        finally:
+            witness.restore()
+        emu_calls = witness.calls
+        gc.collect()
+        torch.cuda.empty_cache()
+        refs = {}
+        tap = FirstLogits()
+        try:
+            for bits, flags in ((8, {"w8a8_prefill": True}), (4, {})):
+                text = quantize_text_(shared_copy(model.text), bits)
+                qcfg = dataclasses.replace(
+                    cfg, text=dataclasses.replace(cfg.text, **flags))
+                refs[bits] = tp_quant_session(
+                    CogReasoner(text, model.vision, model.projector), qcfg,
+                    tok, tap)
+                del text
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            tap.restore()
+        t0 = time.perf_counter()
+        write_cut_checkpoint(dev, os.path.join(TP_DIR, "hf"))
+        log(f"tp: references: solo int8 / int4 card sessions, tokens "
+            f"{refs[8][0]} / {refs[4][0]}; checkpoint written in "
+            f"{time.perf_counter() - t0:.1f}s [{stamp}]")
+
+        t0 = time.perf_counter()
+        rcs = run_tp_ranks()
+        wall = time.perf_counter() - t0
+        for r in range(TP_WORLD):
+            with open(os.path.join(TP_DIR, f"rank{r}.log")) as f:
+                for line in f.read().splitlines():
+                    log(f"tp: rank {r}: {line}")
+        if rcs != [0] * TP_WORLD:
+            raise AssertionError(f"tensor-parallel ranks exited {rcs}")
+        res = []
+        for r in range(TP_WORLD):
+            with open(os.path.join(TP_DIR, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+        return tp_verdict(res, refs, solo, emu, emu_calls, wall, stamp)
+    finally:
+        shutil.rmtree(TP_DIR, ignore_errors=True)
+
+
+def run_tp_ranks(timeout_s: float = 900):
+    """Start the ranks (this script with ``--tp-rank``), each logging to
+    TP_DIR, and wait for them; their exit codes. A rank that outlives
+    ``timeout_s`` is killed, with every other."""
+    port = _free_port()
+    procs = []
+    for r in range(TP_WORLD):
+        out = open(os.path.join(TP_DIR, f"rank{r}.log"), "w")
+        procs.append((out, subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+             "--tp-rank", str(r), "--tp-port", str(port)],
+            stdout=out, stderr=subprocess.STDOUT)))
+    rcs = []
+    deadline = time.perf_counter() + timeout_s
+    for out, p in procs:
+        try:
+            rcs.append(p.wait(timeout=max(1.0, deadline - time.perf_counter())))
+        except subprocess.TimeoutExpired:
+            for _, q in procs:
+                q.kill()
+                q.wait()
+            rcs.append("timeout")
+        out.close()
+    return rcs
+
+
+def tp_verdict(res, refs, solo, emu, emu_calls, wall, stamp):
+    """Phase 11's checks on the ranks' results (see run_tp_path)."""
+    ok = True
+    a = [r["a"] for r in res]
+    solo_a = a[0]["solo"]
+    a_ok = all(x["tokens"] == solo_a for x in a) and all(
+        min(x["launches"].values()) > 0 for x in a)
+    ok &= a_ok
+    log(f"tp: (a) tiny f32 session at tp = 2 (AC, FCC, lookahead_k=4): "
+        f"tokens equal to the solo card session on every rank {a_ok}; "
+        f"launches per rank {[x['launches'] for x in a]} [{stamp}]")
+
+    b = [r["b"] for r in res]
+    whole = (0, len(solo["AC"]["logits"]))
+    gap, gap_ulps, bound, errs, ulps, to_emu, agree = ({} for _ in range(7))
+    for _, mode in MAIN_ASKS:
+        ref = solo[mode]["logits"]
+        gap[mode], gap_ulps[mode] = tp_slice_err(emu[mode]["logits"], ref,
+                                                 whole)
+        bound[mode] = max(TP_LOGIT_TOL, TP_WITNESS_FACTOR * gap[mode])
+        got = [np.load(os.path.join(TP_DIR, f"rank{i}_{mode}.npy"))
+               for i in range(TP_WORLD)]
+        pairs = [tp_slice_err(g, ref, x["vocab"]) for g, x in zip(got, b)]
+        errs[mode] = [e for e, _ in pairs]
+        ulps[mode] = [u for _, u in pairs]
+        to_emu[mode] = [tp_slice_err(g, emu[mode]["logits"], x["vocab"])[0]
+                        for g, x in zip(got, b)]
+        agree[mode] = {
+            "tp": tp_prefix(b[0]["tokens"][mode], solo[mode]["tokens"]),
+            "witness": tp_prefix(emu[mode]["tokens"], solo[mode]["tokens"]),
+            "replay_vs_phase5": tp_prefix(solo[mode]["tokens"],
+                                          MAIN_ANSWERS[mode])}
+    sel = {mode: [x["selections"][mode] for x in b] for _, mode in MAIN_ASKS}
+    sel_ok = all(s == [solo[m]["selection"]] * TP_WORLD
+                 for m, s in sel.items())
+    logits_ok = all(max(errs[m]) <= bound[m] for m in errs)
+    b_ok = (logits_ok and sel_ok and emu_calls > 0
+            and all(min(x["launches"].values()) > 0 for x in b)
+            and all(x["tokens"] == b[0]["tokens"] for x in b))
+    ok &= b_ok
+    log(f"tp: (b) 7B width, full depth, tp = 2, against phase 5's asks "
+        f"replayed solo: witness (the same solo model with its "
+        f"row-parallel sums split in two halves in f32, {emu_calls} split "
+        f"GEMMs) vs solo {gap} of the row max ({gap_ulps} bf16 ulps); "
+        f"each rank's first-step logit slice vs solo {errs} of the row "
+        f"max ({ulps} ulps), within max({TP_LOGIT_TOL:g}, "
+        f"{TP_WITNESS_FACTOR:g} x witness) = {bound} {logits_ok}, within "
+        f"{TP_LOGIT_TOL:g} {max(max(e) for e in errs.values()) <= TP_LOGIT_TOL}"
+        f"; vs the witness {to_emu}; selections per rank {sel} equal to "
+        f"the solo replay's "
+        f"{ {m: solo[m]['selection'] for m in sel} } {sel_ok} (witness "
+        f"{ {m: emu[m]['selection'] for m in sel} }); greedy-prefix "
+        f"agreement of 32 with the solo replay {agree}; launches per rank "
+        f"{[x['launches'] for x in b]}; shard GiB per "
+        f"rank {[round(x['gib'], 3) for x in b]} (decoder "
+        f"{[round(x['decoder_gib'], 3) for x in b]}) beside the whole "
+        f"model's {b[0]['whole_gib']:.3f} (decoder "
+        f"{b[0]['whole_decoder_gib']:.3f}); collectives per decode step "
+        f"per rank {[x['collectives_per_step'] for x in b]}; walls (two "
+        f"ranks sharing one card over gloo, not a TP speed): init "
+        f"{[round(x['init_s'], 1) for x in b]} s, ingests "
+        f"{[x['ingest_s'] for x in b]} s, turns {[x['turn_s'] for x in b]}"
+        f" s; peak {[round(x['peak_gib'], 1) for x in b]} GiB; (b) "
+        f"{b_ok} [{stamp}]")
+
+    c = [r["c"] for r in res]
+    c_ok = True
+    for bits, key, kern in ((8, "int8", ("K10_int8_gemv",)),
+                            (4, "int4", ("K6_int4_gemv",
+                                         "K8_int4_gemv_idx"))):
+        first = [x[key]["tokens"][0] for x in c]
+        launched = [{k: x[key]["launches"][k] for k in kern} for x in c]
+        good = (first == [refs[bits][0][0]] * TP_WORLD
+                and all(min(n.values()) > 0 for n in launched))
+        c_ok &= good
+        log(f"tp: (c) {key} decoder at tp = 2"
+            f"{' with w8a8_prefill' if bits == 8 else ' (weight-only)'}: "
+            f"tokens {[x[key]['tokens'] for x in c]} vs solo card "
+            f"{refs[bits][0]}; first token equal {good}; first-step logit "
+            f"error of the row max "
+            f"{[tp_slice_err(np.load(os.path.join(TP_DIR, f'rank{i}_{key}.npy')), refs[bits][1], x['vocab'])[0] for i, x in enumerate(c)]}"
+            f"; launches per rank {launched} [{stamp}]")
+    ok &= c_ok
+
+    d = [r["d"] for r in res]
+    d_ok = all(all(v["equal"] for v in x.values()) for x in d)
+    ok &= d_ok
+    log(f"tp: (d) load_cogreasoner_from_hf(mesh=) of the 2+2-layer "
+        f"checkpoint: every tensor equal to the rank's slice of the whole "
+        f"load (bf16, int8, int4 at load) {d_ok}; per rank "
+        f"{[{k: (v['equal'], round(v['gib'], 3)) for k, v in x.items()} for x in d]}"
+        f" (GiB) [{stamp}]")
+    log(f"tp: phase 11 in {wall:.1f}s; collectives on gloo with CUDA "
+        f"tensors: {sorted(res[0]['collective_kinds'])} [{stamp}]")
+    if not ok:
+        raise AssertionError("tensor-parallel phase failed")
+    return {"tp_logit_err": errs, "tp_logit_ulps": ulps,
+            "tp_witness_gap": gap, "tp_logit_err_vs_witness": to_emu,
+            "tp_prefix_agree": agree,
+            "tp_gib": [x["gib"] for x in b], "tp_whole_gib": b[0]["whole_gib"],
+            "tp_collectives_per_step": b[0]["collectives_per_step"],
+            "tp_ingest_s": [x["ingest_s"] for x in b],
+            "tp_turn_s": [x["turn_s"] for x in b], "tp_wall_s": wall}
+
+
+def _gib(module) -> float:
+    seen = {}
+    for t in list(module.parameters()) + list(module.buffers()):
+        seen[id(t)] = t.numel() * t.element_size()
+    return sum(seen.values()) / 2**30
+
+
+def tp_rank_main(rank: int, port: int, dev=None) -> int:
+    """One rank of phase 11 (``chip_smoke.py --tp-rank R --tp-port P``):
+    joins the gloo group on this card, runs (a)-(d) and writes
+    ``rank<R>.json`` (and its logit slices) under TP_DIR."""
+    import dataclasses
+
+    import torch
+
+    from cogstream_tpu_torch import presets
+    from cogstream_tpu_torch.config import CogReasonerConfig, CompressionConfig
+    from cogstream_tpu_torch.models.checkpoint import load_cogreasoner_from_hf
+    from cogstream_tpu_torch.models.cogreasoner import (
+        CogReasoner, init_cogreasoner_params)
+    from cogstream_tpu_torch.ops import kernels
+    from cogstream_tpu_torch.ops.quant import quantize_text_
+    from cogstream_tpu_torch.parallel.distributed import initialize_if_needed
+    from cogstream_tpu_torch.parallel.mesh import COLLECTIVES, make_mesh
+    from cogstream_tpu_torch.parallel.sharding import (
+        init_cogreasoner_sharded, shard_cogreasoner)
+    from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
+    from cogstream_tpu_torch.runtime.session import StreamingSession
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dev or torch.device("cuda", 0)
+    kernels.library()                      # built by the parent: loads
+    initialize_if_needed(f"tcp://127.0.0.1:{port}", TP_WORLD, rank,
+                         backend="gloo", timeout_s=900)
+    mesh = make_mesh(data_parallel=1, model_parallel=TP_WORLD)
+    out = {}
+
+    def counts(idx):
+        return {KERNELS[i][0]: wrapper(i).launches for i in idx}
+
+    def zero(idx):
+        for i in idx:
+            wrapper(i).launches = 0
+
+    # (a) tiny f32, rank 0 first runs the same session solo on the card
+    cfg = dataclasses.replace(
+        CogReasonerConfig.tiny(),
+        compression=CompressionConfig(frames_per_event=3,
+                                      keyframes_per_event=1,
+                                      min_events_for_compression=1,
+                                      similarity_threshold=2.0))
+    tiny = init_cogreasoner_params(cfg, torch.Generator().manual_seed(0),
+                                   device="cpu").to(dev)
+
+    def tiny_turns(**kw):
+        turns, _, sess = run_tiny_session(tiny, cfg, dev, **kw)
+        la = sess.ask("and after that?", mode="AC", max_new_tokens=8,
+                      lookahead_k=4)
+        return [t for t, _ in turns] + [la["tokens"]]
+
+    solo = tiny_turns() if rank == 0 else None
+    zero(BF16_PATH)
+    out["a"] = {"tokens": tiny_turns(mesh=mesh), "solo": solo,
+                "launches": counts(BF16_PATH)}
+    del tiny
+    log(f"(a) tiny tokens {out['a']['tokens']}")
+
+    # (b) phase 5's model at tp = 2, each rank building only its shard
+    cfg = presets.cogreasoner_7b()
+    tok = ByteTokenizer(image_token_id=cfg.image_token_index,
+                        vocab=cfg.text.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_cogreasoner_sharded(
+        cfg, torch.Generator(device=dev).manual_seed(0), mesh, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    whole_gib, whole_dec = tp_whole_gib(cfg)
+    t, gh, gw, ms = MAIN_SEGMENTS
+    zero(BF16_PATH)
+    COLLECTIVES.clear()
+    tap = FirstLogits()
+    sess = StreamingSession(model, cfg, tok, max_len=16384, mesh=mesh)
+    ingest_s, turn_s, tokens, selections = [], [], {}, {}
+    steps = []
+    for seg_i, (pv, (question, mode)) in enumerate(zip(main_segments(),
+                                                       MAIN_ASKS)):
+        t0 = time.perf_counter()
+        sess.append_stream_segment(pv, (t, gh, gw), ms,
+                                   timestamps=[float(seg_i * t + f)
+                                               for f in range(t)])
+        torch.cuda.synchronize()
+        ingest_s.append(round(time.perf_counter() - t0, 3))
+        tap.arm()
+        tap.steps = []
+        t0 = time.perf_counter()
+        r = sess.ask(question, mode=mode, max_new_tokens=32)
+        torch.cuda.synchronize()
+        turn_s.append(round(time.perf_counter() - t0, 3))
+        tokens[mode] = r["tokens"]
+        steps += tap.steps
+        selections[mode] = r["selection"]
+        np.save(os.path.join(TP_DIR, f"rank{rank}_{mode}.npy"), tap.first)
+    tap.restore()
+    lo_hi = list(model.text.tp.vocab)
+    out["b"] = {
+        "tokens": tokens, "selections": selections, "vocab": lo_hi,
+        "launches": counts(BF16_PATH), "gib": _gib(model),
+        "decoder_gib": _gib(model.text), "whole_gib": whole_gib,
+        "whole_decoder_gib": whole_dec, "init_s": init_s,
+        "ingest_s": ingest_s, "turn_s": turn_s,
+        "collectives_per_step": (sorted(set(steps)) if steps else []),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del sess
+    log(f"(b) tokens {tokens}; selections {selections}")
+
+    # (c) quantized copies of the sharded decoder, one at a time
+    out["c"] = {"vocab": lo_hi}
+    tap = FirstLogits()
+    for bits, key, flags, idx in ((8, "int8", {"w8a8_prefill": True},
+                                   INT8_PATH),
+                                  (4, "int4", {}, (5, 7))):
+        text = quantize_text_(shared_copy(model.text), bits)
+        qcfg = dataclasses.replace(
+            cfg, text=dataclasses.replace(cfg.text, **flags))
+        zero(idx)
+        toks, first = tp_quant_session(
+            CogReasoner(text, model.vision, model.projector), qcfg, tok,
+            tap, mesh=mesh)
+        np.save(os.path.join(TP_DIR, f"rank{rank}_{key}.npy"), first)
+        out["c"][key] = {"tokens": toks, "launches": counts(idx)}
+        del text
+        gc.collect()
+        torch.cuda.empty_cache()
+    tap.restore()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the sharded load against this rank's slice of the whole load
+    ckpt = os.path.join(TP_DIR, "hf")
+    ccfg = cut_config()
+    out["d"] = {}
+    for bits in (None, 8, 4):
+        whole_m = load_cogreasoner_from_hf(ckpt, ccfg, device=dev,
+                                           quantize_text_bits=bits)
+        want = shard_cogreasoner(whole_m, ccfg, mesh)
+        del whole_m
+        got = load_cogreasoner_from_hf(ckpt, ccfg, device=dev,
+                                       quantize_text_bits=bits, mesh=mesh)
+        w = dict(want.named_parameters())
+        w.update(dict(want.named_buffers()))
+        g = dict(got.named_parameters())
+        g.update(dict(got.named_buffers()))
+        equal = sorted(w) == sorted(g) and all(
+            w[n].dtype == g[n].dtype and w[n].shape == g[n].shape
+            and torch.equal(w[n], g[n]) for n in w)
+        out["d"][str(bits or "bf16")] = {"equal": bool(equal),
+                                         "gib": _gib(got)}
+        del want, got, w, g
+        torch.cuda.empty_cache()
+    out["collective_kinds"] = sorted(COLLECTIVES)
+    with open(os.path.join(TP_DIR, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     import argparse
 
@@ -5137,6 +5839,10 @@ def main() -> int:
                     help="after the main path, profile one more ingest and "
                          "two asks, and one more step of each training "
                          "stage and QLoRA scheme, with torch.profiler")
+    ap.add_argument("--tp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)   # phase 11's rank processes
+    ap.add_argument("--tp-port", type=int, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     # the smoke uses one card: show it only the first visible one, so the
     # device count it reports is the number of cards it ran on
@@ -5162,6 +5868,8 @@ def main() -> int:
         print(f"chip_smoke: {torch.cuda.device_count()} cards visible, "
               "expected 1", file=sys.stderr)
         return 1
+    if args.tp_rank is not None:
+        return tp_rank_main(args.tp_rank, args.tp_port)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -5216,6 +5924,7 @@ def main() -> int:
                                  metrics["AC_decode_tok_per_s"]))
     metrics.update(run_fp8_pool(model, dev, card))
     metrics.update(run_http_path(model, dev, card))
+    metrics.update(run_tp_path(model, dev, card))
     metrics["rows_ms"] = rows_ms
     train_launches, train_metrics = run_training(model, dev, card,
                                                  args.profile)

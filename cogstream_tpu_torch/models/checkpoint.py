@@ -22,7 +22,14 @@ as it arrives, with the arithmetic of ``quantize_text_``: 4 with
 ``ops/quant.quantize_int4_rank1(nf4=False)`` into the stacked stores
 K6-K9 serve, 8 with ``ops/quant.quantize_int8`` (JAX's ``_lazy_quant8``)
 into the stores K10 serves; neither host nor device ever holds the bf16
-decoder. A ``mesh`` is not ported (ROADMAP Queue 1 #9).
+decoder.
+
+With ``mesh`` (parallel/mesh.Mesh) each rank maps a tensor, cuts its slice
+under the serving plan (parallel/sharding.py) from the mapped pages and
+copies only that slice to its device, so no rank ever holds the whole
+decoder; load-time quantization then quantizes the slice with its
+absmaxes taken over every rank's part, which gives the slice of the whole
+weight's quantization.
 """
 
 from __future__ import annotations
@@ -35,6 +42,9 @@ from torch import nn
 
 from ..config import CogReasonerConfig, Qwen2Config, VisionEncoderConfig
 from ..ops import quant
+from ..parallel.sharding import (adapt_specs_to_quantized, attach_shards,
+                                 cogreasoner_param_specs, slice_leaf,
+                                 text_shard)
 from .cogreasoner import CogReasoner
 from .projector import Projector
 from .qwen2 import ATTN_PROJ, MLP_PROJ, Qwen2Model
@@ -56,14 +66,29 @@ def _checked(value: torch.Tensor, like: torch.Tensor, name: str,
 
 
 def _fill(module: nn.Module, name: str, value: torch.Tensor,
-          device) -> None:
+          device, leaf=None) -> None:
     """Give ``module.<name>`` (a meta-device parameter) its storage:
     ``value`` moved to ``device`` and cast there to the parameter's
-    dtype."""
+    dtype. ``leaf`` (a ``parallel/sharding.LeafSpec``): only this rank's
+    slice of ``value`` is copied."""
     old = getattr(module, name)
+    if leaf is not None:
+        old, value = slice_leaf(old, leaf), slice_leaf(value, leaf)
     module._parameters[name] = nn.Parameter(
         _checked(value, old, name, device).to(old.dtype),
         requires_grad=False)
+
+
+def _sub(leaves, prefix: str):
+    """The leaf specs under ``prefix``, keyed without it (None: whole)."""
+    if leaves is None:
+        return None
+    return {k[len(prefix):]: v for k, v in leaves.items()
+            if k.startswith(prefix)}
+
+
+def _at(leaves, key: str):
+    return None if leaves is None else leaves[key]
 
 
 def _check_loaded(model: nn.Module) -> None:
@@ -76,46 +101,66 @@ def _check_loaded(model: nn.Module) -> None:
 
 def qwen2_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: Qwen2Config,
                           prefix: str = "model.", dtype=None, device=None,
-                          quantize_text_bits: Optional[int] = None
-                          ) -> Qwen2Model:
+                          quantize_text_bits: Optional[int] = None,
+                          mesh=None, leaves=None) -> Qwen2Model:
     """HF Qwen2 tensors → ``Qwen2Model`` on ``device``: projections and
     embeddings at ``dtype`` (the config's by default), norm scales f32.
     With ``quantize_text_bits`` 4 (8) every projection and the lm_head
     become rank-1 uniform int4 (per-channel int8) stores, quantized from
-    the stored values."""
+    the stored values. ``mesh`` with ``leaves`` (the decoder's leaf specs,
+    see ``load_cogreasoner_from_hf``): this rank's shard."""
     if quantize_text_bits not in (None, 4, 8):
         raise ValueError("load-time quantization supports bits 4 or 8 "
                          f"(got bits={quantize_text_bits})")
     device = default_device(device)
     model = Qwen2Model(cfg, device="meta", dtype=dtype)
-    _fill(model, "embed_tokens", sd[f"{prefix}embed_tokens.weight"], device)
-    _fill(model, "final_norm", sd[f"{prefix}norm.weight"], device)
+    if mesh is not None:
+        model.tp = text_shard(cfg, mesh)
+
+    def fill(mod, name, key, path):
+        _fill(mod, name, sd[key], device, _at(leaves, path))
+
+    fill(model, "embed_tokens", f"{prefix}embed_tokens.weight",
+         "embed_tokens")
+    fill(model, "final_norm", f"{prefix}norm.weight", "final_norm")
     for i, layer in enumerate(model.layers):
         lp = f"{prefix}layers.{i}."
-        _fill(layer, "input_norm", sd[lp + "input_layernorm.weight"], device)
-        _fill(layer, "post_attn_norm",
-              sd[lp + "post_attention_layernorm.weight"], device)
+        fill(layer, "input_norm", lp + "input_layernorm.weight",
+             f"layers.{i}.input_norm")
+        fill(layer, "post_attn_norm", lp + "post_attention_layernorm.weight",
+             f"layers.{i}.post_attn_norm")
         for name in ATTN_PROJ:
             lin = layer.attn[name]
             if lin.bias is not None:
-                _fill(lin, "bias", sd[lp + f"self_attn.{name}.bias"], device)
+                fill(lin, "bias", lp + f"self_attn.{name}.bias",
+                     f"layers.{i}.attn.{name}.bias")
     if quantize_text_bits is None:
-        _fill(model.lm_head, "weight", sd["lm_head.weight"], device)
+        fill(model.lm_head, "weight", "lm_head.weight", "lm_head.weight")
         for i, layer in enumerate(model.layers):
             lp = f"{prefix}layers.{i}."
             for grp, name in quant.GEMV_SITES:
                 hf = "self_attn" if grp == "attn" else "mlp"
-                _fill(getattr(layer, grp)[name], "weight",
-                      sd[lp + f"{hf}.{name}.weight"], device)
+                fill(getattr(layer, grp)[name], "weight",
+                     lp + f"{hf}.{name}.weight",
+                     f"layers.{i}.{grp}.{name}.weight")
         _check_loaded(model)
         return model.requires_grad_(False)
 
     # one stacked store per projection site, filled a layer at a time
     # from the stored tensor (JAX's _lazy_quant8 / _lazy_quant4u quantize
-    # the stored values too, not a copy already cast to the model dtype)
-    def quantize(w):
-        return (quant.quantize_int8(w) if quantize_text_bits == 8
-                else quant.quantize_int4_rank1(w, nf4=False))
+    # the stored values too, not a copy already cast to the model dtype);
+    # a shard quantizes as its slice of the whole weight
+    def quantize(w, site):
+        rg, cg = quant.site_groups(model, site)
+        return (quant.quantize_int8(w, rg) if quantize_text_bits == 8
+                else quant.quantize_int4_rank1(w, nf4=False, row_group=rg,
+                                               col_group=cg))
+
+    def local(key, like, path):
+        value, leaf = sd[key], _at(leaves, path)
+        if leaf is not None:
+            like, value = slice_leaf(like, leaf), slice_leaf(value, leaf)
+        return _checked(value, like, key, device)
 
     L = cfg.num_hidden_layers
     stores = {}
@@ -124,9 +169,9 @@ def qwen2_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: Qwen2Config,
         stack = None
         for i in range(L):
             key = f"{prefix}layers.{i}.{hf}.{name}.weight"
-            w = _checked(sd[key], getattr(model.layers[i], grp)[name].weight,
-                         key, device)
-            qp = quantize(w.t())
+            w = local(key, getattr(model.layers[i], grp)[name].weight,
+                      f"layers.{i}.{grp}.{name}.weight")
+            qp = quantize(w.t(), name)
             del w
             if stack is None:
                 stack = quant.empty_stack(L, qp)
@@ -134,8 +179,8 @@ def qwen2_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: Qwen2Config,
                 stack[k][i] = qp[k]
             del qp
         stores[name] = stack
-    head = quantize(_checked(sd["lm_head.weight"], model.lm_head.weight,
-                             "lm_head.weight", device).t())
+    head = quantize(local("lm_head.weight", model.lm_head.weight,
+                          "lm_head.weight").t(), "lm_head")
     quant.install_quantized_(model, stores, head)
     _check_loaded(model)
     return model.requires_grad_(False)
@@ -144,33 +189,42 @@ def qwen2_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: Qwen2Config,
 def vision_from_state_dict(sd: Mapping[str, torch.Tensor],
                            cfg: VisionEncoderConfig,
                            prefix: str = "model.vision_encoder.", dtype=None,
-                           device=None) -> VisionTower:
+                           device=None, leaves=None) -> VisionTower:
     """Reference vision-tower tensors → ``VisionTower``: the conv patch
     embedding flattened to the linear weight, q/k/v fused (rows q | k |
-    v), LayerNorm parameters f32."""
+    v), LayerNorm parameters f32. ``leaves``: this rank's shard."""
     device = default_device(device)
     tower = VisionTower(cfg, device="meta", dtype=dtype)
+
+    def fill(mod, name, value, path):
+        _fill(mod, name, value, device, _at(leaves, path))
+
     w = sd[prefix + "embeddings.patch_embedding.weight"]
-    _fill(tower.patch_embed, "weight", w.reshape(w.shape[0], -1), device)
-    _fill(tower.patch_embed, "bias",
-          sd[prefix + "embeddings.patch_embedding.bias"], device)
-    _fill(tower.post_ln, "scale", sd[prefix + "post_layernorm.weight"], device)
-    _fill(tower.post_ln, "bias", sd[prefix + "post_layernorm.bias"], device)
+    fill(tower.patch_embed, "weight", w.reshape(w.shape[0], -1),
+         "patch_embed.weight")
+    fill(tower.patch_embed, "bias",
+         sd[prefix + "embeddings.patch_embedding.bias"], "patch_embed.bias")
+    fill(tower.post_ln, "scale", sd[prefix + "post_layernorm.weight"],
+         "post_ln.scale")
+    fill(tower.post_ln, "bias", sd[prefix + "post_layernorm.bias"],
+         "post_ln.bias")
     for i, layer in enumerate(tower.layers):
         lp = f"{prefix}encoder.layers.{i}."
         for ln in ("1", "2"):
             mod = getattr(layer, f"ln{ln}")
-            _fill(mod, "scale", sd[lp + f"layer_norm{ln}.weight"], device)
-            _fill(mod, "bias", sd[lp + f"layer_norm{ln}.bias"], device)
+            fill(mod, "scale", sd[lp + f"layer_norm{ln}.weight"],
+                 f"layers.{i}.ln{ln}.scale")
+            fill(mod, "bias", sd[lp + f"layer_norm{ln}.bias"],
+                 f"layers.{i}.ln{ln}.bias")
         for part in ("weight", "bias"):
-            _fill(layer.qkv, part, torch.cat(
+            fill(layer.qkv, part, torch.cat(
                 [sd[lp + f"self_attn.{n}_proj.{part}"] for n in "qkv"]),
-                device)
+                f"layers.{i}.qkv.{part}")
         for ours, theirs in (("o", "self_attn.out_proj"),
                              ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
             for part in ("weight", "bias"):
-                _fill(getattr(layer, ours), part,
-                      sd[lp + f"{theirs}.{part}"], device)
+                fill(getattr(layer, ours), part,
+                     sd[lp + f"{theirs}.{part}"], f"layers.{i}.{ours}.{part}")
     _check_loaded(tower)
     return tower.requires_grad_(False)
 
@@ -179,9 +233,10 @@ def projector_from_state_dict(sd: Mapping[str, torch.Tensor],
                               vision_hidden: int, lm_hidden: int,
                               projector_type: str = "mlp2x_gelu",
                               prefix: str = "model.mm_projector.readout.",
-                              dtype=torch.bfloat16, device=None) -> Projector:
+                              dtype=torch.bfloat16, device=None,
+                              leaves=None) -> Projector:
     """``readout.{0,2,...}`` linears (a GELU between them has no
-    parameters) → ``Projector``."""
+    parameters) → ``Projector``. ``leaves``: this rank's shard."""
     device = default_device(device)
     proj = Projector(vision_hidden, lm_hidden, projector_type, "meta", dtype)
     if f"{prefix}{2 * len(proj.layers)}.weight" in sd:
@@ -189,31 +244,46 @@ def projector_from_state_dict(sd: Mapping[str, torch.Tensor],
                          f"{projector_type}")
     for j, lin in enumerate(proj.layers):
         for part in ("weight", "bias"):
-            _fill(lin, part, sd[f"{prefix}{2 * j}.{part}"], device)
+            _fill(lin, part, sd[f"{prefix}{2 * j}.{part}"], device,
+                  _at(leaves, f"layers.{j}.{part}"))
     return proj.requires_grad_(False)
 
 
 def load_cogreasoner_from_hf(model_dir: str, cfg: CogReasonerConfig,
                              dtype=None,
                              quantize_text_bits: Optional[int] = None,
-                             device=None) -> CogReasoner:
+                             device=None, mesh=None) -> CogReasoner:
     """The whole CogReasoner from an HF checkpoint directory
     (``model.safetensors`` with or without its index, or sharded
     ``model-*.safetensors`` behind the index), on ``device`` — the card
     unless the caller names another. ``dtype`` overrides the config's
     dtypes (norm scales stay f32); ``quantize_text_bits`` 4 or 8 loads the
     decoder as rank-1 uniform int4 or per-channel int8 (see the module
-    docstring)."""
+    docstring). ``mesh``: this rank's shard under the serving plan, every
+    rank of the mesh loading together (see the module docstring)."""
     sd = CheckpointReader(model_dir)
-    return CogReasoner(
+    leaves = None
+    if mesh is not None:
+        whole = CogReasoner(
+            Qwen2Model(cfg.text, device="meta", dtype=dtype),
+            VisionTower(cfg.vision, device="meta", dtype=dtype),
+            Projector(cfg.vision.hidden_size, cfg.text.hidden_size,
+                      cfg.mm_projector_type, "meta",
+                      dtype or cfg.text.torch_dtype))
+        leaves = adapt_specs_to_quantized(
+            whole, cogreasoner_param_specs(cfg, mesh))
+    model = CogReasoner(
         text=qwen2_from_state_dict(sd, cfg.text, dtype=dtype, device=device,
-                                   quantize_text_bits=quantize_text_bits),
+                                   quantize_text_bits=quantize_text_bits,
+                                   mesh=mesh, leaves=_sub(leaves, "text.")),
         vision=vision_from_state_dict(sd, cfg.vision, dtype=dtype,
-                                      device=device),
+                                      device=device,
+                                      leaves=_sub(leaves, "vision.")),
         projector=projector_from_state_dict(
             sd, cfg.vision.hidden_size, cfg.text.hidden_size,
             cfg.mm_projector_type, dtype=dtype or cfg.text.torch_dtype,
-            device=device))
+            device=device, leaves=_sub(leaves, "projector.")))
+    return model if mesh is None else attach_shards(model, cfg, mesh)
 
 
 @torch.no_grad()

@@ -7,6 +7,10 @@ package writes it inline in ``train/multimodal.py``). A linear may be a
 ``QuantLinear`` of any scheme (the QLoRA base,
 ``ops/quant.quantize_cogreasoner_``): both forwards then dequantize its
 weight in the activations' dtype, as JAX's ``materialize_kernel`` does.
+
+Sharded for a mesh (``proj.tp``, parallel/sharding.py), the mlp2x_gelu
+readout runs its first linear column-parallel and its second row-parallel
+(all-reduced, then the bias).
 """
 
 from __future__ import annotations
@@ -42,12 +46,16 @@ class Projector(nn.Module):
         dims = [vision_hidden] + [lm_hidden] * depth
         self.layers = nn.ModuleList(linear(dims[i], dims[i + 1], device, dtype)
                                     for i in range(depth))
+        # the tensor-parallel plan (parallel/sharding.ProjectorShard)
+        self.tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        split = self.tp is not None and self.tp.hidden is not None
         for i, layer in enumerate(self.layers):
             if i > 0:
                 x = F.gelu(x)          # exact erf gelu
-            x = materialized_linear(layer, x)
+            x = materialized_linear(
+                layer, x, self.tp.group if split and i == 1 else None)
         return x
 
 

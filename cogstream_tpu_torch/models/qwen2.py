@@ -27,6 +27,16 @@ backward), with the LoRA deltas added after them.
 The cache is updated IN PLACE (the JAX package rebinds a donated
 buffer); ``qwen2_forward`` returns the same object.
 
+Tensor parallelism (parallel/sharding.py): a decoder sharded for a mesh
+carries its plan in ``model.tp`` and holds only its rank's q / kv heads,
+intermediate channels and vocab slice. ``qwen2_forward`` then runs the
+local heads (K3 / K4 on the local cache) and all-reduces after o_proj and
+after down_proj; ``embed`` looks up the local vocab rows and all-reduces;
+``lm_logits`` returns the local vocab slice (runtime/sampling.py combines
+the slices). An int4 decoder under a mesh decodes weight-only, as the JAX
+package's mesh session does (its Pallas GEMV and hence W4A8 are
+single-chip only).
+
 A model quantized by ``ops/quant.py`` (``quantize_text_``, the bridge
 from a quantized JAX tree, or a quantized checkpoint load) holds every
 projection as a ``QuantLinear`` over per-site stacked storage (int8,
@@ -55,8 +65,10 @@ from ..ops.attention import causal_gqa_attention
 from ..ops.lm_attention import (DECODE_MAX_S, CacheRows, as_cache_rows,
                                 decode_attention, effective_kv_positions,
                                 prefill_flash_attention)
-from ..ops.quant import QuantLinear
+from ..ops.quant import QuantLinear, row_parallel_linear
 from ..ops.rope import apply_rope, rope_angles
+from ..parallel.mesh import all_reduce
+from ..parallel.sharding import INT4_ACT_MSG
 from .vision_encoder import default_device, linear
 
 # (adapter tree, gate) pairs. An adapter tree is {"layers": [per-layer
@@ -100,6 +112,9 @@ class Qwen2Model(nn.Module):
                                     for _ in range(cfg.num_hidden_layers))
         self.final_norm = nn.Parameter(torch.ones(H, device=device))
         self.lm_head = linear(H, cfg.vocab_size, device, dtype, bias=False)
+        # the tensor-parallel plan of a sharded decoder
+        # (parallel/sharding.TextShard), None for the whole model
+        self.tp = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -127,14 +142,15 @@ class KVCache:
 
 
 def init_kv_cache(cfg: Qwen2Config, batch: int, max_len: int, dtype=None,
-                  device=None) -> KVCache:
+                  device=None, kv_heads: Optional[int] = None) -> KVCache:
     """An empty cache; ``dtype`` defaults to the model's, and
     ``torch.float8_e4m3fn`` gives the fp8 KV cache (writes cast into it,
-    K3 / K4 read its bytes)."""
+    K3 / K4 read its bytes). ``kv_heads`` is a sharded decoder's local kv
+    head count (:func:`local_kv_heads`), the config's by default."""
     dtype = dtype or cfg.torch_dtype
     device = default_device(device)
-    shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads,
-             cfg.head_dim)
+    shape = (cfg.num_hidden_layers, batch, max_len,
+             kv_heads or cfg.num_key_value_heads, cfg.head_dim)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
@@ -182,16 +198,51 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
+def local_kv_heads(model: Qwen2Model) -> int:
+    """The kv heads a decoder's cache holds on this rank."""
+    tp = getattr(model, "tp", None)
+    return model.cfg.num_key_value_heads if tp is None else len(tp.kv_heads)
+
+
 def embed(model: Qwen2Model, input_ids: torch.Tensor) -> torch.Tensor:
-    return model.embed_tokens[input_ids.to(torch.int64)]
+    """Token embeddings. A vocab-sharded decoder looks up the ids its rows
+    hold (zeros elsewhere) and all-reduces: one rank contributes each
+    row, so the sum is exact."""
+    ids = input_ids.to(torch.int64)
+    tp = getattr(model, "tp", None)
+    if tp is None or tp.vocab is None:
+        return model.embed_tokens[ids]
+    lo, hi = tp.vocab
+    mine = (ids >= lo) & (ids < hi)
+    rows = model.embed_tokens[torch.where(mine, ids - lo, 0)]
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return all_reduce(rows, tp.group)
+
+
+def mesh_w8(model: Qwen2Model, w8: bool) -> bool:
+    """The activation mode a decoder runs: ``w8`` as asked, except that
+    int8 activations on an int4 decoder under a mesh raise
+    (``parallel/sharding.check_mesh_int4_act``)."""
+    if w8 and getattr(model, "tp", None) is not None \
+            and hasattr(model, "int4"):
+        raise NotImplementedError(INT4_ACT_MSG)
+    return w8
 
 
 def dense(x: torch.Tensor, lin: nn.Module, lora=None,
           lora_scale: float = 1.0, w8a8: bool = False,
-          indexed: bool = False) -> torch.Tensor:
+          indexed: bool = False, reduce=None) -> torch.Tensor:
     """Linear layer (``nn.Linear``, or ``QuantLinear`` with ``w8a8`` and
     ``indexed`` passed on) plus gated LoRA deltas ``(x @ a) @ b * gate *
-    scale`` for each (adapter, gate) in ``lora``, on top of the base."""
+    scale`` for each (adapter, gate) in ``lora``, on top of the base.
+    ``reduce`` (a process group) makes it row-parallel: ``x`` and the
+    weight hold this rank's input channels, and the output is all-reduced
+    (``ops/quant.row_parallel_linear``)."""
+    if reduce is not None:
+        if lora:
+            raise NotImplementedError("LoRA adapters on a sharded decoder "
+                                      "are not ported yet")
+        return row_parallel_linear(lin, x, reduce, w8a8, indexed)
     y = lin(x, w8a8, indexed) if isinstance(lin, QuantLinear) else lin(x)
     return _add_lora(y, x, lora, lora_scale)
 
@@ -312,10 +363,17 @@ def qwen2_forward(
     cfg = model.cfg
     B, S, _ = inputs_embeds.shape
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    tp = model.tp
+    red_attn = red_mlp = None
+    if tp is not None:
+        Hq, Hkv = len(tp.q_heads), len(tp.kv_heads)
+        red_attn = tp.group if tp.attn_split else None
+        red_mlp = tp.group if tp.mlp is not None else None
     # the JAX rule (qwen2.py w8): prefill-length programs (S >= 16) run the
     # quantized projections with int8 activations under w8a8_prefill,
     # decode-length ones (S < 16) under w4a8_decode; bf16 weights ignore it
-    w8 = (cfg.w8a8_prefill and S >= 16) or (cfg.w4a8_decode and S < 16)
+    w8 = mesh_w8(model, (cfg.w8a8_prefill and S >= 16)
+                 or (cfg.w4a8_decode and S < 16))
     indexed = cache is not None
     positions = positions.to(torch.int32)
     angles = rope_angles(positions.clamp(min=0), D, cfg.rope_theta)
@@ -354,10 +412,10 @@ def qwen2_forward(
     for li, layer in enumerate(model.layers):
         ap, mp = layer.attn, layer.mlp
 
-        def proj(group, name, inp):
+        def proj(group, name, inp, reduce=None):
             return dense(inp, (ap if group == "attn" else mp)[name],
                          _lora_at(adapters, li, group, name), lora_scale,
-                         w8a8=w8, indexed=indexed)
+                         w8a8=w8, indexed=indexed, reduce=reduce)
 
         h = rms_norm(x, layer.input_norm, cfg.rms_norm_eps)
         q = apply_rope(proj("attn", "q_proj", h).reshape(B, S, Hq, D), angles)
@@ -375,11 +433,12 @@ def qwen2_forward(
             cache.k[li, :, wi:wi + S] = saturate(k, cache.k.dtype)
             cache.v[li, :, wi:wi + S] = saturate(v, cache.v.dtype)
             attn = attend(q, cache.k[li], cache.v[li], positions, eff)
-        x = x + proj("attn", "o_proj", attn.reshape(B, S, Hq * D))
+        x = x + proj("attn", "o_proj", attn.reshape(B, S, Hq * D),
+                     red_attn)
         h = rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
         gate = proj("mlp", "gate_proj", h)
         up = proj("mlp", "up_proj", h)
-        x = x + proj("mlp", "down_proj", F.silu(gate) * up)
+        x = x + proj("mlp", "down_proj", F.silu(gate) * up, red_mlp)
     x = rms_norm(x, model.final_norm, cfg.rms_norm_eps)
     if cache is not None and writer is None:
         cache.write_index = wi + S
@@ -496,7 +555,9 @@ def lm_logits(model: Qwen2Model, hidden: torch.Tensor, adapters: Adapters = None
     of runtime/generate.py): a callable ``h -> h @ W_sliced``. ``w8a8``
     mirrors dense(): decode loops pass ``cfg.w4a8_decode`` so an int4
     head's per-step vocab read rides the W4A8 GEMV (K7) and an int8 head
-    the W8A8 product, as in JAX."""
+    the W8A8 product, as in JAX. A vocab-sharded decoder returns its
+    vocab slice (``model.tp.vocab``)."""
+    w8a8 = mesh_w8(model, w8a8)
     if head is None:
         head_lora = [(t["lm_head"], g) for t, g in adapters or ()
                      if isinstance(t, dict) and t.get("lm_head") is not None]

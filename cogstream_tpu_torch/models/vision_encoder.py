@@ -38,6 +38,13 @@ above runs weight-only as JAX's ``_dense`` does, ``x @ materialize_kernel(W)
 JAX's ``_is_w8`` does, so an all-int8 base (``--quantize-base int8``) runs
 its attention (packed path) and MLP W8A8 here as it does there; an NF4
 base, whose fc2 alone falls back to int8, stays weight-only.
+
+A tower sharded for a mesh (parallel/sharding.py; its plan in ``tower.tp``)
+holds its rank's heads, each of q, k and v sliced per head in the fused QKV
+weight, so K1 reads its local heads out of the one local GEMM output; the o
+and fc2 GEMMs are row-parallel (all-reduced, then the bias). A W8A8
+row-parallel GEMM takes the activation absmax of the whole row and
+all-reduces its int32 sums before the epilogue.
 """
 
 from __future__ import annotations
@@ -113,6 +120,9 @@ class VisionTower(nn.Module):
         self.layers = nn.ModuleList(VisionLayer(cfg, device, dtype)
                                     for _ in range(cfg.num_hidden_layers))
         self.post_ln = LayerNormParams(cfg.hidden_size, device)
+        # the tensor-parallel plan of a sharded tower
+        # (parallel/sharding.TowerShard), None for the whole tower
+        self.tp = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -182,24 +192,37 @@ def is_w8(lin: nn.Module) -> bool:
     return isinstance(lin, QuantLinear) and lin.store.scheme == "int8"
 
 
-def _w8a8(x: torch.Tensor, lin: QuantLinear, out_dtype=None) -> torch.Tensor:
+def _w8a8(x: torch.Tensor, lin: QuantLinear, out_dtype=None,
+          reduce=None) -> torch.Tensor:
     """``x @ W + b`` with per-row int8 activations: the int32 product's
     epilogue and the bias in f32, one cast at the end (JAX
-    ``_attn_block_packed`` / ``_mlp_block``)."""
-    xq, sx = quantize_int8_act(x)
+    ``_attn_block_packed`` / ``_mlp_block``). ``reduce``: row-parallel
+    (whole-row absmax, int32 sums all-reduced before the epilogue)."""
+    xq, sx = quantize_int8_act(x, reduce)
     y = int8_act_matmul(xq, sx, lin.store.q, lin.store.scale, torch.float32,
-                        site="tower") + lin.bias.to(torch.float32)
+                        site="tower", reduce=reduce) \
+        + lin.bias.to(torch.float32)
     return y.to(out_dtype or x.dtype)
 
 
-def _mlp(layer: "VisionLayer", h: torch.Tensor) -> torch.Tensor:
+def _row_reduce(tower: "VisionTower", part: str):
+    """The group a row-parallel GEMM of a sharded tower reduces over
+    (``part`` "attn" for o, "mlp" for fc2), or None."""
+    tp = tower.tp
+    if tp is None:
+        return None
+    split = tp.attn_split if part == "attn" else tp.mlp is not None
+    return tp.group if split else None
+
+
+def _mlp(layer: "VisionLayer", h: torch.Tensor, reduce=None) -> torch.Tensor:
     """fc1 → gelu-tanh → fc2; W8A8 when fc1 and fc2 are both int8, else
     weight-only (JAX ``_mlp_block``)."""
     if is_w8(layer.fc1) and is_w8(layer.fc2):
         a = F.gelu(_w8a8(h, layer.fc1, torch.float32), approximate="tanh")
-        return _w8a8(a.to(h.dtype), layer.fc2)
+        return _w8a8(a.to(h.dtype), layer.fc2, reduce=reduce)
     a = F.gelu(materialized_linear(layer.fc1, h), approximate="tanh")
-    return materialized_linear(layer.fc2, a)
+    return materialized_linear(layer.fc2, a, reduce)
 
 
 @torch.no_grad()
@@ -209,21 +232,25 @@ def quantize_vision_w8a8(tower: VisionTower) -> VisionTower:
     ``quantize_tree(bits=8, predicate=name != "patch_embed")``; the fused
     QKV quantizes per column, which is the q / k / v quantizations side by
     side). Norms, the patch embedding and the biases are shared with
-    ``tower``, which is left as it is."""
+    ``tower``, which is left as it is. A sharded tower's copy keeps its
+    plan, its row-parallel GEMMs scaled over every rank's rows."""
     out = VisionTower(tower.cfg, device="meta", dtype=tower.dtype)
     out.patch_embed, out.post_ln = tower.patch_embed, tower.post_ln
+    out.tp = tower.tp
+    rows = {"o": _row_reduce(tower, "attn"), "fc2": _row_reduce(tower, "mlp")}
     for mine, src in zip(out.layers, tower.layers):
         mine.ln1, mine.ln2 = src.ln1, src.ln2
         for name in ("qkv", "o", "fc1", "fc2"):
             lin = getattr(src, name)
-            setattr(mine, name, int8_linear(quantize_int8(lin.weight.t()),
-                                            lin.bias))
+            setattr(mine, name, int8_linear(
+                quantize_int8(lin.weight.t(), rows.get(name)), lin.bias))
     return out
 
 
 def _attn_head_major(layer: VisionLayer, h: torch.Tensor, cos2, sin2,
                      segment_ids: torch.Tensor, ranges, H: int, D: int,
-                     scale: float, use_pallas: bool) -> torch.Tensor:
+                     scale: float, use_pallas: bool,
+                     reduce=None) -> torch.Tensor:
     """The JAX ``_attn_block``: q/k/v projections (slices of the fused QKV
     output), 2D RoPE on q and k, attention, o-projection."""
     N = h.shape[0]
@@ -235,7 +262,7 @@ def _attn_head_major(layer: VisionLayer, h: torch.Tensor, cos2, sin2,
         out = segment_flash_attention(q, k, v, segment_ids, ranges, scale)
     else:
         out = segment_attention(q, k, v, segment_ids, scale)
-    return materialized_linear(layer.o, out.reshape(N, H * D))
+    return materialized_linear(layer.o, out.reshape(N, H * D), reduce)
 
 
 def vision_encoder_core(
@@ -259,6 +286,9 @@ def vision_encoder_core(
     dtype = tower.dtype
     dev = pixel_values.device
     H, D = cfg.num_attention_heads, cfg.head_dim
+    if tower.tp is not None:
+        H = len(tower.tp.heads)
+    red_attn, red_mlp = _row_reduce(tower, "attn"), _row_reduce(tower, "mlp")
     n = pixel_values.shape[0]
     if pixel_values.dtype == torch.uint8:
         # raw uint8 rows normalize on the device with the host pipeline's
@@ -292,13 +322,14 @@ def vision_encoder_core(
                 materialized_linear(layer.qkv, h)
             out = flash_attention_packed_rope_fusedqkv(
                 qkv, cos, sin, segment_ids, kv_lo, kv_hi, H, scale)
-            attn = _w8a8(out, layer.o) if w8 else \
-                materialized_linear(layer.o, out)
+            attn = _w8a8(out, layer.o, reduce=red_attn) if w8 else \
+                materialized_linear(layer.o, out, red_attn)
         else:
             attn = _attn_head_major(layer, h, cos2, sin2, segment_ids,
-                                    ranges, H, D, scale, use_pallas)
+                                    ranges, H, D, scale, use_pallas,
+                                    red_attn)
         x = x + attn
-        x = x + _mlp(layer, layer.ln2(x, eps))
+        x = x + _mlp(layer, layer.ln2(x, eps), red_mlp)
     x = tower.post_ln(x, eps)
 
     # merge-window mean (exact bilinear downsample for integer factors)

@@ -40,6 +40,15 @@ the routes are:
 
 Each kernel route rounds differently from the materializing form, so the
 route decision is part of the numerics and copies the JAX package's.
+
+Row-parallel products (a tensor-parallel shard of o_proj, down_proj, the
+tower's o / fc2 or the projector's second linear; parallel/sharding.py)
+take ``reduce``, the model axis's process group: the local product is
+all-reduced before the bias. The W8A8 form takes the activation absmax over
+the WHOLE row (a MAX all-reduce of the local ones) and all-reduces the
+int32 sums before the rank-1 epilogue, so the arithmetic is the unsharded
+one. The quantizers take the same groups, so a shard quantizes to the
+slice of the whole weight's quantization.
 """
 
 from __future__ import annotations
@@ -48,7 +57,10 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.mesh import all_reduce
 
 # QLoRA's NF4 codebook: the 16 quantiles of N(0,1) scaled to [-1, 1]
 NF4_CODE = (
@@ -100,10 +112,13 @@ _CODE_ROWS = 64
 # quantizers
 # ---------------------------------------------------------------------------
 
-def quantize_int8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Per-output-channel symmetric int8 over the last axis."""
+def quantize_int8(w: torch.Tensor, row_group=None) -> Dict[str, torch.Tensor]:
+    """Per-output-channel symmetric int8 over the last axis. ``row_group``:
+    ``w`` holds this rank's rows of a row-parallel weight, and the column
+    absmax is taken over every rank's rows."""
     wf = w.to(torch.float32)
-    scale = wf.abs().amax(dim=-2, keepdim=True) / 127.0
+    scale = all_reduce(wf.abs().amax(dim=-2, keepdim=True), row_group,
+                       "max") / 127.0
     scale = torch.clamp(scale, min=1e-8)
     q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return {"q": q, "scale": scale.squeeze(-2)}
@@ -200,22 +215,33 @@ def quantize_int4(w: torch.Tensor, group_size: int = 64,
 
 
 def quantize_int4_rank1(w: torch.Tensor, nf4: bool = True,
-                        iters: int = 8) -> Dict[str, torch.Tensor]:
+                        iters: int = 8, row_group=None,
+                        col_group=None) -> Dict[str, torch.Tensor]:
     """4-bit with rank-1 (row ⊗ column) scales, over ``w`` in the JAX
     layout ``[..., din, dout]``. ``nf4=True`` snaps to the cubic
     codebook (``code = [A, C]``), ``nf4=False`` is uniform (``code =
     [1/7]``). Same f32 operations in the same order as the JAX function,
-    so the bytes agree."""
+    so the bytes agree. On a tensor-parallel shard, ``row_group`` (rows
+    split) or ``col_group`` (columns split) takes each absmax over every
+    rank's part, so the shard packs the slice of the whole weight's
+    quantization (a row shard in its own split-halves pairing)."""
     wf = w.to(torch.float32)
     *lead, din, dout = wf.shape
     if din % 2:
         raise ValueError(f"din={din} must be even")
     aw = wf.abs()
-    r = torch.clamp(aw.amax(dim=-1, keepdim=True), min=1e-8)
+
+    def row_max(a):          # over dout, per row
+        return all_reduce(a.amax(dim=-1, keepdim=True), col_group, "max")
+
+    def col_max(a):          # over din, per column
+        return all_reduce(a.amax(dim=-2, keepdim=True), row_group, "max")
+
+    r = torch.clamp(row_max(aw), min=1e-8)
     c = None
     for _ in range(iters):
-        c = torch.clamp((aw / r).amax(dim=-2, keepdim=True), min=1e-8)
-        r = torch.clamp((aw / c).amax(dim=-1, keepdim=True), min=1e-8)
+        c = torch.clamp(col_max(aw / r), min=1e-8)
+        r = torch.clamp(row_max(aw / c), min=1e-8)
     del aw
     norm = wf / (r * c)                             # ⊆ [-1, 1]
     if nf4:
@@ -288,12 +314,14 @@ def materialize_kernel(kern: Any, dtype) -> torch.Tensor:
     return kern.to(dtype)
 
 
-def quantize_int8_act(x: torch.Tensor):
+def quantize_int8_act(x: torch.Tensor, reduce=None):
     """Dynamic per-row symmetric int8 activations: ``(q, scale)`` with
     ``x ≈ q * scale``, scale ``[..., 1]`` f32. Rounds half to even, like
-    ``jnp.round``."""
+    ``jnp.round``. ``reduce``: ``x`` holds this rank's channels of each
+    row, and the absmax is the whole row's."""
     xf = x.to(torch.float32)
-    ax = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-6)
+    ax = torch.clamp(all_reduce(xf.abs().amax(dim=-1, keepdim=True), reduce,
+                                "max"), min=1e-6)
     # a true division (``127.0 / ax`` on a tensor is reciprocal * 127)
     q = torch.clamp(torch.round(xf * (ax.new_tensor(127.0) / ax)),
                     -127, 127).to(torch.int8)
@@ -301,19 +329,27 @@ def quantize_int8_act(x: torch.Tensor):
 
 
 def quantize_kernel(w: torch.Tensor, bits: int, group_size: int = 64,
-                    nf4: bool = True, rank1: bool = False) -> Dict:
+                    nf4: bool = True, rank1: bool = False, row_group=None,
+                    col_group=None) -> Dict:
     """One ``[..., din, dout]`` weight in ``quantize_tree``'s scheme:
     ``bits=8`` per-channel int8; ``bits=4`` group-wise NF4 / int4, or
     rank-1 with ``rank1``, falling back to int8 where the 4-bit scheme
-    cannot take din (not divisible by the group, or odd), as in JAX."""
+    cannot take din (not divisible by the group, or odd), as in JAX.
+    ``row_group`` / ``col_group``: ``w`` is a tensor-parallel shard (rows
+    or columns split), quantized as its slice of the whole weight (int8
+    and rank-1 int4)."""
     if bits == 8:
-        return quantize_int8(w)
+        return quantize_int8(w, row_group)
     try:
         if rank1:
-            return quantize_int4_rank1(w, nf4=nf4)
+            return quantize_int4_rank1(w, nf4=nf4, row_group=row_group,
+                                       col_group=col_group)
+        if row_group is not None or col_group is not None:
+            raise NotImplementedError("group-wise int4 of a sharded "
+                                      "weight is not ported")
         return quantize_int4(w, group_size=group_size, nf4=nf4)
     except ValueError:
-        return quantize_int8(w)
+        return quantize_int8(w, row_group)
 
 
 def quantize_tree(params: Any, predicate=None, bits: int = 8,
@@ -371,10 +407,12 @@ int8_mm.calls = {}
 
 def int8_act_matmul(xq: torch.Tensor, sx: torch.Tensor, q: torch.Tensor,
                     scale: torch.Tensor, out_dtype=torch.bfloat16,
-                    site: str = "decoder") -> torch.Tensor:
+                    site: str = "decoder", reduce=None) -> torch.Tensor:
     """``(xq·sx) @ (q·scale)`` with both operands int8: exact int32 sums,
-    then the rank-1 epilogue in the JAX order, ``y·sx·scale``."""
-    y = int8_mm(xq, q, site)
+    then the rank-1 epilogue in the JAX order, ``y·sx·scale``. ``reduce``:
+    a row-parallel shard's int32 partial sums are all-reduced before the
+    epilogue."""
+    y = all_reduce(int8_mm(xq, q, site), reduce)
     return (y.to(torch.float32) * sx * scale[None, :]).to(out_dtype)
 
 
@@ -386,17 +424,17 @@ class _W8A8STE(torch.autograd.Function):
     weights get no gradient. ``x`` is 2D."""
 
     @staticmethod
-    def forward(ctx, x, q, scale):
+    def forward(ctx, x, q, scale, reduce=None):
         ctx.save_for_backward(q, scale)
         ctx.x_dtype = x.dtype
-        xq, sx = quantize_int8_act(x)
-        return int8_act_matmul(xq, sx, q, scale, x.dtype)
+        xq, sx = quantize_int8_act(x, reduce)
+        return int8_act_matmul(xq, sx, q, scale, x.dtype, reduce=reduce)
 
     @staticmethod
     def backward(ctx, g):
         q, scale = ctx.saved_tensors
         w = (q.to(torch.float32) * scale[..., None, :]).to(g.dtype)
-        return (g @ w.t()).to(ctx.x_dtype), None, None
+        return (g @ w.t()).to(ctx.x_dtype), None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -564,36 +602,40 @@ def int4_matmul(x: torch.Tensor, qp: Dict[str, torch.Tensor],
 
 
 def int8_matmul(x: torch.Tensor, qp: Dict[str, torch.Tensor],
-                out_dtype=None, w8a8: bool = False) -> torch.Tensor:
+                out_dtype=None, w8a8: bool = False,
+                reduce=None) -> torch.Tensor:
     """``x @ W`` for an int8 weight (2D, or stacked with ``"layer"``):
     with ``w8a8`` the W8A8 product at any M (straight-through under
     autograd), else K10 where it routes (``m <= 64``), else the
-    materializing form."""
+    materializing form. ``reduce``: a row-parallel shard, all-reduced
+    (the W8A8 form inside, before its epilogue)."""
     from .int8_gemv import gemv_viable, int8_gemv
 
     dtype = out_dtype or x.dtype
     m = x.numel() // x.shape[-1]
     if not w8a8 and gemv_viable(qp, m):
-        return int8_gemv(x, qp, dtype)
+        return all_reduce(int8_gemv(x, qp, dtype), reduce)
     if qp["q"].ndim == 3 and "layer" in qp:
         qp = _layer_of(qp)
     if w8a8:
         lead = x.shape[:-1]
         y = _W8A8STE.apply(x.reshape(-1, x.shape[-1]).to(dtype), qp["q"],
-                           qp["scale"])
+                           qp["scale"], reduce)
         return y.reshape(*lead, y.shape[-1])
-    return x @ dequantize_int8(qp, dtype)
+    return all_reduce(x @ dequantize_int8(qp, dtype), reduce)
 
 
 def quantized_matmul(x: torch.Tensor, qp: Dict[str, torch.Tensor],
-                     out_dtype=None, w8a8: bool = False) -> torch.Tensor:
+                     out_dtype=None, w8a8: bool = False,
+                     reduce=None) -> torch.Tensor:
     """``x @ W`` for any quantized weight dict. ``w8a8`` reaches the int4
     GEMV route (W4A8, K7/K9) and the W4A8 prefill branch on uniform
-    rank-1 weights, and the W8A8 product on int8 weights."""
+    rank-1 weights, and the W8A8 product on int8 weights. ``reduce``: a
+    row-parallel shard's product, all-reduced over that group."""
     dtype = out_dtype or x.dtype
     if "q4" in qp:
-        return int4_matmul(x, qp, dtype, act_int8=w8a8)
-    return int8_matmul(x, qp, dtype, w8a8=w8a8)
+        return all_reduce(int4_matmul(x, qp, dtype, act_int8=w8a8), reduce)
+    return int8_matmul(x, qp, dtype, w8a8=w8a8, reduce=reduce)
 
 
 def prepare_matmul(qp: Dict[str, torch.Tensor], dtype):
@@ -708,16 +750,61 @@ class QuantLinear(nn.Module):
 Int4Linear = QuantLinear
 
 
-def materialized_linear(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def materialized_linear(lin: nn.Module, x: torch.Tensor,
+                        reduce=None) -> torch.Tensor:
     """``x @ W + b`` as the JAX vision tower and projector compute a dense
     layer (``x @ materialize_kernel(kernel, x.dtype) + bias``): a
     ``QuantLinear``'s weight, any scheme, dequantizes in ``x``'s dtype and
     meets ``x`` in one matmul (never the split or GEMV forms the decoder
-    routes through); an ``nn.Linear`` is itself."""
+    routes through); an ``nn.Linear`` is itself. ``reduce``: row-parallel,
+    the product all-reduced before the bias."""
+    if reduce is not None:
+        if isinstance(lin, QuantLinear):
+            y = x @ materialize_kernel(lin.qp(), x.dtype)
+            return _add_bias(all_reduce(y, reduce), lin)
+        return _reduce_wide(_mm_wide(x, lin.weight), lin, reduce, x.dtype)
     if not isinstance(lin, QuantLinear):
         return lin(x)
     y = x @ materialize_kernel(lin.qp(), x.dtype)
     return y if lin.bias is None else y + lin.bias.to(x.dtype)
+
+
+def _add_bias(y: torch.Tensor, lin: nn.Module) -> torch.Tensor:
+    return y if lin.bias is None else y + lin.bias.to(y.dtype)
+
+
+def _mm_wide(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T`` (``w`` an ``nn.Linear`` weight) with a bf16 / f16
+    product's f32 sums kept in f32 (``torch.mm(out_dtype=)`` on the card,
+    the exact upcast on the CPU): a row-parallel partial sum, rounded only
+    after the reduce, as the whole GEMM rounds once."""
+    if x.dtype not in (torch.bfloat16, torch.float16) or w.dtype != x.dtype:
+        return F.linear(x, w)
+    x2 = x.reshape(-1, x.shape[-1])
+    y = (torch.mm(x2, w.t(), out_dtype=torch.float32) if x.is_cuda
+         else x2.float() @ w.t().float())
+    return y.reshape(*x.shape[:-1], w.shape[0])
+
+
+def _reduce_wide(y: torch.Tensor, lin: nn.Module, reduce,
+                 dtype) -> torch.Tensor:
+    """The partial sums ``y`` all-reduced, the bias added, then one
+    rounding to ``dtype``."""
+    return _add_bias(all_reduce(y, reduce), lin).to(dtype)
+
+
+def row_parallel_linear(lin: nn.Module, x: torch.Tensor, reduce,
+                        w8a8: bool = False,
+                        indexed: bool = False) -> torch.Tensor:
+    """A row-parallel shard of a decoder projection: ``x`` holds this
+    rank's input channels and ``lin`` the matching rows of the weight.
+    The local product (the routes of ``QuantLinear``; a bf16 GEMM's f32
+    sums kept in f32, :func:`_mm_wide`) is all-reduced, then the bias is
+    added once."""
+    if isinstance(lin, QuantLinear):
+        return _add_bias(quantized_matmul(x, lin.qp(indexed), x.dtype,
+                                          w8a8=w8a8, reduce=reduce), lin)
+    return _reduce_wide(_mm_wide(x, lin.weight), lin, reduce, x.dtype)
 
 
 def install_quantized_(model, stores: Dict[str, Dict[str, torch.Tensor]],
@@ -739,10 +826,26 @@ def install_quantized_(model, stores: Dict[str, Dict[str, torch.Tensor]],
     return model
 
 
+def site_groups(model, name: str):
+    """(row_group, col_group) of a decoder projection site (or "lm_head")
+    of a sharded ``Qwen2Model``: the model-axis group on the dim its plan
+    splits, (None, None) for a whole decoder or a replicated site."""
+    tp = getattr(model, "tp", None)
+    if tp is None:
+        return None, None
+    if name == "lm_head":
+        return None, tp.vocab_group
+    split = tp.attn_split if name.endswith(("q_proj", "k_proj", "v_proj",
+                                            "o_proj")) else tp.mlp is not None
+    g = tp.group if split else None
+    return (g, None) if name in ("o_proj", "down_proj") else (None, g)
+
+
 def _quantize_decoder_(model, quant):
     """Every decoder projection of a port ``Qwen2Model`` and its lm_head
-    through ``quant`` (a bf16 ``[din, dout]`` weight -> a quantized dict),
-    IN PLACE, one weight at a time: each bf16 weight is freed once it is
+    through ``quant`` (a bf16 ``[din, dout]`` weight and the site's
+    (row_group, col_group), :func:`site_groups` -> a quantized dict), IN
+    PLACE, one weight at a time: each bf16 weight is freed once it is
     quantized, so the peak is the bf16 model plus one weight's f32
     temporaries."""
     L = len(model.layers)
@@ -751,7 +854,7 @@ def _quantize_decoder_(model, quant):
         stack = None
         for li, layer in enumerate(model.layers):
             lin = getattr(layer, grp)[name]
-            qp = quant(lin.weight.t())
+            qp = quant(lin.weight.t(), *site_groups(model, name))
             if stack is None:
                 stack = empty_stack(L, qp)
             for key in stack:
@@ -759,7 +862,7 @@ def _quantize_decoder_(model, quant):
             lin.weight = None            # frees the bf16 weight now
             del lin, qp
         stores[name] = stack
-    head = quant(model.lm_head.weight.t())
+    head = quant(model.lm_head.weight.t(), *site_groups(model, "lm_head"))
     model.lm_head.weight = None
     return install_quantized_(model, stores, head)
 
@@ -776,8 +879,8 @@ def quantize_text_(model, bits: int = 4):
     ``model``."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
-    return _quantize_decoder_(model, lambda w: quantize_kernel(
-        w, bits, nf4=False, rank1=True))
+    return _quantize_decoder_(model, lambda w, rg, cg: quantize_kernel(
+        w, bits, nf4=False, rank1=True, row_group=rg, col_group=cg))
 
 
 @torch.no_grad()
@@ -799,8 +902,9 @@ def quantize_cogreasoner_(model, bits: int, nf4: bool = True,
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
 
-    def quant(w):
-        return quantize_kernel(w, bits, group_size, nf4)
+    def quant(w, row_group=None, col_group=None):
+        return quantize_kernel(w, bits, group_size, nf4, row_group=row_group,
+                               col_group=col_group)
 
     def swap(owner, name: str):
         lin = getattr(owner, name)

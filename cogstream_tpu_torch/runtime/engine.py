@@ -11,6 +11,11 @@ One difference from the JAX engine: the prefill runs over the bucket of
 the compacted prompt (``bucket_length`` of its real length), not over
 the bucket of the uncompressed one, whose tail after compaction is only
 padding. Padding carries position -1 and is invisible either way.
+
+``mesh=`` (parallel/mesh.Mesh) serves tensor-parallel: every rank builds
+the engine with the same arguments and runs the same turns; the model is
+sharded once (``parallel/sharding.ensure_cogreasoner_sharded``) and each
+turn's caches hold the rank's kv heads.
 """
 
 from __future__ import annotations
@@ -25,7 +30,9 @@ from ..config import CogReasonerConfig
 from ..models import cogreasoner
 from ..models.cogreasoner import (CogReasoner, with_int8_tower,
                                   with_serving_flags)
-from ..models.qwen2 import init_kv_cache
+from ..models.qwen2 import init_kv_cache, local_kv_heads
+from ..parallel.sharding import (check_mesh_adapters,
+                                 ensure_cogreasoner_sharded)
 from ..processor.processing import CogStreamProcessor, ProcessorOutput
 from .generate import (bucket_length, decode_new_tokens, generate_tokens,
                        generate_tokens_lookahead)
@@ -62,11 +69,11 @@ class CogReasonerEngine:
         mesh=None,
         encoder_int8: bool = False,
     ):
-        if mesh is not None:
-            raise NotImplementedError("tensor-parallel serving (mesh) is not "
-                                      "ported yet (ROADMAP Queue 1 #9)")
-        # cfg's serving flags; encoder_int8: the engine's own W8A8 copy of
-        # the vision tower
+        # mesh: this rank's shard of the model (idempotent); cfg's serving
+        # flags; encoder_int8: the engine's own W8A8 copy of the vision tower
+        check_mesh_adapters(mesh, adapters)
+        model = ensure_cogreasoner_sharded(model, cfg, mesh)
+        self.mesh = mesh
         model = with_serving_flags(model, cfg)
         if encoder_int8:
             model = with_int8_tower(model)
@@ -201,7 +208,8 @@ class CogReasonerEngine:
             cache = init_kv_cache(
                 self.cfg.text, 1,
                 embeds.shape[1] + max_new_tokens + lookahead_k + 1,
-                dtype=self.model.text.dtype, device=self.device)
+                dtype=self.model.text.dtype, device=self.device,
+                kv_heads=local_kv_heads(self.model.text))
             result = generate_tokens_lookahead(
                 self.model.text, embeds, positions, last_index, cache, pids,
                 max_new_tokens, self.tokenizer.eos_token_id,
@@ -221,7 +229,8 @@ class CogReasonerEngine:
 
         cache = init_kv_cache(self.cfg.text, 1,
                               embeds.shape[1] + max_new_tokens,
-                              dtype=self.model.text.dtype, device=self.device)
+                              dtype=self.model.text.dtype, device=self.device,
+                              kv_heads=local_kv_heads(self.model.text))
         result = generate_tokens(
             self.model.text, embeds, positions, last_index, cache,
             self.generator, max_new_tokens, self.tokenizer.eos_token_id,

@@ -23,6 +23,11 @@ rows in place (K3 / K4 ``rows``).
 Lookahead (``generate_tokens_lookahead``): prompt-lookup drafts verified
 k+1 tokens a forward; the draft and the accept count are worked out on
 the host from each verify's argmaxes, one device-to-host copy a step.
+
+On a sharded decoder (``model.tp``) both loops run unchanged on every
+rank: the logits are each rank's vocab slice, the greedy token is the
+combined global argmax (runtime/sampling.py), so every host decision (the
+stop test, lookahead acceptance) reads the same values on every rank.
 """
 
 from __future__ import annotations
@@ -37,7 +42,9 @@ from ..models import qwen2
 from ..models.qwen2 import KVCache, Qwen2Model
 from ..ops.lm_attention import as_cache_rows
 from ..ops.quant import QuantLinear, prepare_matmul, slice_output_channels
-from .sampling import apply_repetition_penalty, sample_token
+from ..parallel.mesh import all_reduce
+from .sampling import (apply_repetition_penalty, gather_vocab, sample_token,
+                       vocab_argmax)
 
 PAD_BUCKETS = (128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
 
@@ -66,6 +73,27 @@ def _sliced_head(lm_head, lid: torch.Tensor, dtype):
         return prepare_matmul(slice_output_channels(lm_head.qp(), lid), dtype)
     w = lm_head.weight[lid]
     return lambda h: F.linear(h, w)
+
+
+def _model_sliced_head(model: Qwen2Model, lid: torch.Tensor, dtype):
+    """:func:`_sliced_head` of ``model``'s head. A vocab-sharded head
+    gathers the columns from the ranks that hold them: each rank fills its
+    own ids and zeros elsewhere, and an all-reduce (exact: one term per
+    column) gives every rank the whole slice."""
+    tp = model.tp
+    if tp is None or tp.vocab is None:
+        return _sliced_head(model.lm_head, lid, dtype)
+    lo, hi = tp.vocab
+    cols = torch.nonzero((lid >= lo) & (lid < hi))[:, 0]
+    local = (_sliced_head(model.lm_head, lid[cols] - lo, dtype)
+             if cols.numel() else None)
+
+    def head(h):
+        out = h.new_zeros(h.shape[:-1] + (lid.numel(),))
+        if local is not None:
+            out[..., cols] = local(h)
+        return all_reduce(out, tp.group)
+    return head
 
 
 @torch.inference_mode()
@@ -117,6 +145,9 @@ def generate_tokens(
     dev = inputs_embeds.device
     pooled = write_slots is not None
     rows = as_cache_rows(cache_rows, cache.pos.device)
+    use_pen = repetition_penalty != 1.0
+    # the logits' vocab shard (None: whole logits on every rank)
+    vocab = model.tp if logit_ids is None and not use_pen else None
 
     if logit_ids is not None:
         if repetition_penalty != 1.0:
@@ -124,7 +155,7 @@ def generate_tokens(
         if vocab_mask is not None:
             raise ValueError("pass either logit_ids or vocab_mask")
         lid = torch.as_tensor(logit_ids, dtype=torch.int64, device=dev)
-        head = _sliced_head(model.lm_head, lid, inputs_embeds.dtype)
+        head = _model_sliced_head(model, lid, inputs_embeds.dtype)
         head_lora = [({"a": t["lm_head"]["a"], "b": t["lm_head"]["b"][:, lid]},
                       g) for t, g in adapters or ()
                      if isinstance(t, dict) and t.get("lm_head") is not None]
@@ -138,9 +169,10 @@ def generate_tokens(
     else:
         def _logits(h):
             # w4a8_decode: an int4 head's per-step vocab read rides the
-            # W4A8 GEMV (K7)
-            return qwen2.lm_logits(model, h, adapters, lora_scale,
-                                   w8a8=model.cfg.w4a8_decode)
+            # W4A8 GEMV (K7); the penalty needs every rank's vocab
+            lg = qwen2.lm_logits(model, h, adapters, lora_scale,
+                                 w8a8=model.cfg.w4a8_decode)
+            return gather_vocab(lg, model.tp) if use_pen else lg
 
         def _to_vocab(idx):
             return idx
@@ -153,7 +185,6 @@ def generate_tokens(
     batch = torch.arange(B, device=dev)
     last_index = last_index.to(device=dev, dtype=torch.int64)
     logits = _logits(hidden[batch, last_index][:, None])[:, 0]
-    use_pen = repetition_penalty != 1.0
     V = logits.shape[-1]
     seen = None
     if use_pen:
@@ -179,7 +210,8 @@ def generate_tokens(
 
     def _sample(lg):
         return _map_eos(_to_vocab(sample_token(
-            lg, generator, temperature, top_p, vocab_mask, top_k=top_k)))
+            lg, generator, temperature, top_p, vocab_mask, top_k=top_k,
+            vocab=vocab)))
 
     cur = _sample(logits)
     if use_pen:
@@ -339,7 +371,7 @@ def generate_tokens_lookahead(
     li = int(torch.as_tensor(last_index).reshape(-1)[0])
     logits = qwen2.lm_logits(model, hidden[:, li:li + 1], adapters,
                              lora_scale, w8a8=model.cfg.w4a8_decode)
-    first_tok = int(_map_eos(int(torch.argmax(logits[0, 0]))))
+    first_tok = int(_map_eos(int(vocab_argmax(logits[0, 0], model.tp))))
 
     ids = np.asarray(torch.as_tensor(prompt_ids).cpu(), np.int64)[0]
     C = ids.shape[0]
@@ -381,7 +413,7 @@ def generate_tokens_lookahead(
             lora_scale, kv_allowed=kv_allowed, kv_window=kv_window)
         lg = qwen2.lm_logits(model, hidden, adapters, lora_scale,
                              w8a8=model.cfg.w4a8_decode)[0]
-        g = _map_eos(torch.argmax(lg, dim=-1).cpu().numpy())  # the sync
+        g = _map_eos(vocab_argmax(lg, model.tp).cpu().numpy())  # the sync
 
         a = int(np.cumprod(fed[1:] == g[:-1]).sum())
         fin = np.isin(g, terminals)

@@ -12,6 +12,13 @@ Single storage: sessions bound to the pool own no cache. Every
 per-session op (ingest prefill, compaction, solo ask) addresses its row
 of the shared tensor through ``cache_rows``, which K3 and K4 read in
 place (their ``rows`` operand), so no row is copied.
+
+``mesh=`` (parallel/mesh.Mesh): the model is sharded on the ``model`` axis
+and the rows split across the ``data`` groups when ``n_rows`` divides:
+group ``d`` holds rows ``[d * n_rows / data, (d + 1) * n_rows / data)`` in
+its cache and sessions, and runs only those rows of an ``ingest_batch`` /
+``ask_batch``; the answers are then exchanged, so every rank returns every
+row's result. Rows that do not divide are held by every group.
 """
 
 from __future__ import annotations
@@ -26,7 +33,10 @@ from ..models import qwen2
 from ..models.cogreasoner import (CogReasoner, encode_images,
                                   pixel_diff_keep_mask, with_int8_tower,
                                   with_serving_flags)
-from ..models.qwen2 import init_kv_cache
+from ..models.qwen2 import init_kv_cache, local_kv_heads
+from ..parallel.mesh import DATA_AXIS, all_gather_objects
+from ..parallel.sharding import (check_mesh_adapters,
+                                 ensure_cogreasoner_sharded)
 from .generate import generate_tokens
 from .history import parse_selection
 from .session import (SlotRange, StreamingSession, _ingest_device_step,
@@ -38,11 +48,14 @@ class SessionPool:
                  tokenizer, n_rows: int = 4, max_len: int = 8192,
                  adapters: Optional[Dict] = None,
                  summary_forward: bool = True, kv_dtype=None,
-                 seed: int = 0, encoder_int8: bool = False):
+                 seed: int = 0, encoder_int8: bool = False, mesh=None):
         # the shared cache's dtype: the model's, or e4m3 (the fp8 cache)
         kv_dtype = check_kv_dtype(kv_dtype, model.text.dtype)
-        # cfg's serving flags; encoder_int8: the pool (and every session
-        # on it) ingests through its own W8A8 copy of the tower
+        # mesh: this rank's shard of the model; cfg's serving flags;
+        # encoder_int8: the pool (and every session on it) ingests through
+        # its own W8A8 copy of the tower
+        check_mesh_adapters(mesh, adapters)
+        model = ensure_cogreasoner_sharded(model, cfg, mesh)
         model = with_serving_flags(model, cfg)
         if encoder_int8:
             model = with_int8_tower(model)
@@ -56,34 +69,63 @@ class SessionPool:
         # the pool's own generator for batched sampling: sampled batch
         # decodes are reproducible given the seed
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.cache = init_kv_cache(cfg.text, n_rows, max_len,
-                                   dtype=kv_dtype, device=self.device)
+        # the rows this rank's data group holds: [_row_lo, _row_lo + n)
+        self.mesh = mesh
+        d = 1 if mesh is None else mesh.shape[DATA_AXIS]
+        self._split = d > 1 and n_rows % d == 0
+        held = n_rows // d if self._split else n_rows
+        self._row_lo = mesh.data_index * held if self._split else 0
+        self._row_hi = self._row_lo + held
+        self.cache = init_kv_cache(cfg.text, held, max_len,
+                                   dtype=kv_dtype, device=self.device,
+                                   kv_heads=local_kv_heads(model.text))
+        # the open rows (all groups'), and the sessions of the held ones
+        self._open: set = set()
         self.sessions: Dict[int, StreamingSession] = {}
         # per-row seed: rows sharing one seed would sample identical
         # streams; folding in the row keeps runs reproducible per (seed,
         # row) and independent across rows
         self._mk = lambda row: StreamingSession(
             model, cfg, tokenizer, adapters=adapters, max_len=max_len,
-            summary_forward=summary_forward, pool=self, row=row,
-            rng_seed=(seed << 16) ^ (row + 1))
+            summary_forward=summary_forward, pool=self,
+            row=row - self._row_lo, rng_seed=(seed << 16) ^ (row + 1))
 
     # -- row plumbing --------------------------------------------------------
 
     def _free_row(self) -> int:
         for b in range(self.n_rows):
-            if b not in self.sessions:
+            if b not in self._open:
                 return b
         raise RuntimeError("session pool full")
+
+    def holds(self, row: int) -> bool:
+        """Whether this rank's data group holds ``row``."""
+        return self._row_lo <= row < self._row_hi
+
+    def _local_rows(self, rows):
+        return [b - self._row_lo for b in rows]
+
+    def _share(self, out: Dict[int, Dict]) -> Dict[int, Dict]:
+        """Every group's row results, on every rank (split rows only)."""
+        if not self._split:
+            return out
+        merged: Dict[int, Dict] = {}
+        for part in all_gather_objects(out, self.mesh.host_group):
+            merged.update(part)
+        return merged
 
     def open(self) -> int:
         """Create a session on a free row and return the row id. The
         session clears the row's previous tenant and prefills its system
-        prompt straight into it."""
+        prompt straight into it (on the group that holds the row)."""
         b = self._free_row()
-        self.sessions[b] = self._mk(b)
+        self._open.add(b)
+        if self.holds(b):
+            self.sessions[b] = self._mk(b)
         return b
 
     def close(self, row: int) -> None:
+        self._open.discard(row)
         self.sessions.pop(row, None)
 
     def open_restored(self, path: str) -> int:
@@ -100,7 +142,8 @@ class SessionPool:
     # -- per-session ops (write the shared rows directly) --------------------
 
     def ingest(self, row: int, *args, **kwargs) -> None:
-        self.sessions[row].append_stream_segment(*args, **kwargs)
+        if self.holds(row):
+            self.sessions[row].append_stream_segment(*args, **kwargs)
 
     @torch.inference_mode()
     def ingest_batch(
@@ -117,7 +160,7 @@ class SessionPool:
         rows_req = [int(r[0]) for r in requests]
         if len(set(rows_req)) != len(rows_req):
             raise ValueError("duplicate rows")
-        if any(b not in self.sessions for b in rows_req):
+        if any(b not in self._open for b in rows_req):
             raise ValueError("unknown row")
         t, gh, gw = (int(x) for x in requests[0][2])
         ms = int(requests[0][3])
@@ -129,6 +172,11 @@ class SessionPool:
                     "mixed shapes must go through ingest()")
             if t != len(r[4]):
                 raise ValueError(f"{t} frames but {len(r[4])} timestamps")
+        # this group's rows only
+        requests = [r for r in requests if self.holds(int(r[0]))]
+        if not requests:
+            return
+        rows_req = [int(r[0]) for r in requests]
         B = len(requests)
         merged = (gh // ms) * (gw // ms)
         cc = self.cfg.compression
@@ -191,7 +239,8 @@ class SessionPool:
             stack("ids_pad"), stack("img_pad"), stack("rows_pad"),
             stack("shadow_idx"), stack("positions"),
             torch.from_numpy(allowed).to(self.device),
-            stack("frame_rows_idx"), slots, rows_req, t, merged)
+            stack("frame_rows_idx"), slots, self._local_rows(rows_req), t,
+            merged)
         frame_feats = frame_feats.cpu().numpy()
         for i, (b, start, plan) in enumerate(zip(rows_req, starts, plans)):
             self.sessions[b]._commit_segment(plan, start, frame_feats[i],
@@ -200,8 +249,11 @@ class SessionPool:
         flush_event_reps([self.sessions[b] for b in rows_req])
 
     def ask(self, row: int, question: str, **kwargs) -> Dict:
-        """Solo ask (unbatched): the session's pooled path."""
-        return self.sessions[row].ask(question, **kwargs)
+        """Solo ask (unbatched): the session's pooled path, on the group
+        that holds the row; every rank returns the answer."""
+        out = ({row: self.sessions[row].ask(question, **kwargs)}
+               if self.holds(row) else {})
+        return self._share(out)[row]
 
     # -- the batched path ----------------------------------------------------
 
@@ -221,8 +273,12 @@ class SessionPool:
         reqs = dict(requests)
         if not reqs:
             return {}
-        if any(r not in self.sessions for r in reqs):
+        if any(r not in self._open for r in reqs):
             raise ValueError("unknown row")
+        # this group's rows; the others' answers come from _share
+        reqs = {b: q for b, q in reqs.items() if self.holds(b)}
+        if not reqs:
+            return self._share({})
         order = sorted(reqs)
 
         # batched FCC selection: one constrained decode for every row
@@ -296,7 +352,7 @@ class SessionPool:
             torch.from_numpy(last_index).to(dev), self.cache, self._gen,
             max_new_tokens, self.tok.eos_token_id, temperature=temperature,
             adapters=adapters, kv_allowed=torch.from_numpy(allowed).to(dev),
-            write_slots=slots, cache_rows=order,
+            write_slots=slots, cache_rows=self._local_rows(order),
             kv_window=StreamingSession.kv_window_for(needed, self.max_len),
             extra_eos_ids=tuple(extra_eos_ids) or None)
         self.cache = result.cache
@@ -327,4 +383,4 @@ class SessionPool:
                       "if_visual": m["if_visual"], "turn": turn,
                       "cache_tokens": end,
                       "tokens": toks[i, :int(nums[i])].tolist()}
-        return out
+        return self._share(out)

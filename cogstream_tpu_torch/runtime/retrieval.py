@@ -151,7 +151,8 @@ def _prefix_kv_device(model: Qwen2Model, ids: torch.Tensor, adapters,
     emb = qwen2.embed(model, ids)[None]
     positions = torch.arange(P, dtype=torch.int32, device=ids.device)[None]
     cache = init_kv_cache(model.cfg, 1, P, dtype=model.dtype,
-                          device=ids.device)
+                          device=ids.device,
+                          kv_heads=qwen2.local_kv_heads(model))
     _, cache = qwen2.qwen2_forward(model, emb, positions, cache, adapters,
                                    lora_scale)
     return cache
@@ -248,7 +249,8 @@ class Selector:
             last[b] = len(ids) - 1
         cache = init_kv_cache(self.model.cfg, B, S + cap,
                               dtype=self.model.dtype,
-                              device=self.model.device)
+                              device=self.model.device,
+                              kv_heads=qwen2.local_kv_heads(self.model))
         return padded, positions, last, cache
 
     @torch.inference_mode()

@@ -42,11 +42,27 @@ The quantized modes load as in JAX: ``--quantize-weights int8|int4``
 (K10 / K6-K9 decode), ``--w8a8-prefill`` (int8 activations in prefill
 GEMMs; needs ``--quantize-weights``), ``--w4a8-decode`` (int4 only) and
 ``--encoder-int8`` (the W8A8 vision tower, one copy for the server).
+
+Tensor-parallel serving (``SessionServer(mesh=)``; the CLI under
+``torchrun --nproc-per-node N``): every rank builds the same server over
+its shard of the model. Rank 0 alone binds HTTP; each device call it makes
+(a session's creation, ingest or ask, or a pool call its
+:class:`BatchingFrontend` decided on rank 0's clock) is first broadcast
+(method and arguments) to the other ranks, whose :meth:`SessionServer.
+follow` loop runs the same calls in the same order (:class:`MeshLink`);
+/ask_stream streams rank 0's tokens as they come. A failure inside a call
+on any rank ends the server: its client gets a 503 ``{"mesh_fatal":
+true}`` naming the failing rank's error, and every rank exits with rc 17
+within a second, none left waiting in a collective. Requests rank 0
+refuses before any device call (an unknown session, a missing field) keep
+their 404 / 400 and the server serving. Snapshots, ``--supervise`` and a
+mesh with a ``data`` axis are not ported for a sharded server.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import queue
@@ -133,14 +149,215 @@ def inject_fault(device: torch.device) -> None:
     raise e
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                               f"#{item})")
-
-
 # the collector thread waits this long after the first queued request, so
 # concurrent requests join one batch
 FLUSH_S = 0.015
+
+
+class MeshFault(RuntimeError):
+    """A rank of a sharded server failed inside a device call: the server
+    ends (see :class:`MeshLink`)."""
+
+
+MESH_POLL_S = 0.1    # how often a rank looks for another rank's failure
+MESH_GRACE_S = 0.5   # rank 0's error reply flushes, then it exits
+_LINK_IDS = itertools.count()
+
+
+class MeshLink:
+    """Rank 0's device calls, replayed on every rank of a mesh.
+
+    ``call`` / ``call_stream`` (rank 0) broadcast ``(method, args, kwargs,
+    stream)`` over the mesh's host group and run ``target.<method>``;
+    ``follow`` (the other ranks) receives and runs the same calls until the
+    shutdown record (None). A call returns once every rank has finished it
+    (a barrier); a stream's items reach rank 0's caller as they come.
+
+    A failure inside a call ends the server on every rank: another rank
+    may be waiting in a collective of that call, which no rank can leave.
+    The failing rank posts its error under the link's key in the process
+    group's store; each rank watches that key, so a rank blocked in a
+    collective exits too (``FATAL_EXIT``). Rank 0 runs each call in a
+    worker thread, so its caller gets the first failing rank's error (a
+    :class:`MeshFault`) whatever the worker is blocked in, and exits
+    ``MESH_GRACE_S`` later."""
+
+    def __init__(self, mesh, target):
+        import torch.distributed as dist
+
+        self.mesh, self.target = mesh, target
+        self.leader = mesh.rank == 0
+        self.store = dist.distributed_c10d._get_default_store()
+        # every rank builds its links in one order: one key per link
+        self.key = f"cogstream/mesh_fault/{next(_LINK_IDS)}"
+        self.fault: Optional[str] = None
+        self._stop = threading.Event()
+        self._watcher = threading.Thread(target=self._watch, daemon=True)
+        self._watcher.start()
+
+    # ---- the failure path ----------------------------------------------
+
+    def _watch(self) -> None:
+        while not self._stop.wait(MESH_POLL_S):
+            try:
+                if not self.store.check([self.key]):
+                    continue
+                msg = self.store.get(self.key).decode()
+            except Exception as e:  # noqa: BLE001 — the store's host left
+                if self._stop.is_set():
+                    return
+                msg = f"rank {self.mesh.rank}: store unreachable: {e!r}"
+            self._end(msg)
+            return
+
+    def _fail(self, msg: str) -> MeshFault:
+        """This rank's failure: posted for the others unless another
+        rank's came first (that one is the cause); then the end."""
+        try:
+            msg = self.store.compare_set(self.key, "", msg).decode()
+        except Exception:  # noqa: BLE001 — the others see the group break
+            pass
+        self._end(msg)
+        return MeshFault(msg)
+
+    def _end(self, msg: str) -> None:
+        if self.fault is not None:
+            return
+        self.fault = msg
+        print(f"rank {self.mesh.rank}: sharded server ends: {msg}",
+              file=sys.stderr, flush=True)
+        if not self.leader:
+            os._exit(FATAL_EXIT)
+
+        def _die():
+            time.sleep(MESH_GRACE_S)
+            os._exit(FATAL_EXIT)
+
+        threading.Thread(target=_die, daemon=True).start()
+
+    def _stop_watching(self) -> None:
+        self._stop.set()
+        self._watcher.join()
+
+    # ---- calls ---------------------------------------------------------
+
+    def _broadcast(self, record):
+        from ..parallel.mesh import broadcast_object
+
+        return broadcast_object(record, self.mesh.host_group)
+
+    def _run(self, record):
+        """One call on this rank: its items (one for a plain call), then
+        the barrier every rank reaches only when every rank succeeded."""
+        import torch.distributed as dist
+
+        method, args, kwargs, stream = record
+        try:
+            out = getattr(self.target, method)(*args, **kwargs)
+            if stream:
+                yield from out
+            else:
+                yield out
+            dist.barrier(group=self.mesh.host_group)
+        except Exception as e:  # noqa: BLE001 — ends the server
+            raise self._fail(f"rank {self.mesh.rank}: {method} failed: "
+                             f"{type(e).__name__}: {e}") from e
+
+    def _call(self, record):
+        """Rank 0: broadcast ``record`` and run it in a worker thread,
+        yielding its items; drains the call if the caller stops early
+        (every rank runs each call to its end)."""
+        if self.fault is not None:
+            raise MeshFault(self.fault)
+        items: "queue.Queue" = queue.Queue()
+
+        def work():
+            try:
+                self._broadcast(record)
+                for item in self._run(record):
+                    items.put((True, item))
+                items.put((False, None))
+            except MeshFault as e:
+                items.put((False, e))
+            except Exception as e:  # noqa: BLE001 — the broadcast broke
+                items.put((False, self._fail(
+                    f"rank 0: {record[0]} failed: {type(e).__name__}: "
+                    f"{e}")))
+
+        threading.Thread(target=work, daemon=True).start()
+        finished = False
+        try:
+            while True:
+                try:
+                    ok, item = items.get(timeout=MESH_POLL_S)
+                except queue.Empty:
+                    if self.fault is not None:
+                        finished = True
+                        raise MeshFault(self.fault)
+                    continue
+                if ok:
+                    yield item
+                    continue
+                finished = True
+                if item is None:
+                    return
+                raise item
+        finally:
+            while not finished and self.fault is None:
+                try:
+                    finished = not items.get(timeout=MESH_POLL_S)[0]
+                except queue.Empty:
+                    pass
+
+    def call(self, method: str, *args, **kwargs):
+        return list(self._call((method, args, kwargs, False)))[0]
+
+    def call_stream(self, method: str, *args, **kwargs):
+        """A generator call, streamed to rank 0's caller."""
+        return self._call((method, args, kwargs, True))
+
+    def follow(self) -> None:
+        import torch.distributed as dist
+
+        while True:
+            try:
+                record = self._broadcast(None)
+            except Exception as e:  # noqa: BLE001 — rank 0 is gone
+                raise self._fail(f"rank {self.mesh.rank}: lost rank 0: "
+                                 f"{type(e).__name__}: {e}") from e
+            if record is None:
+                self._stop_watching()
+                dist.barrier(group=self.mesh.host_group)
+                return
+            for _ in self._run(record):
+                pass
+
+    def shutdown(self) -> None:
+        """Rank 0: end the followers' loops (after a failure every rank
+        is already on its way out)."""
+        import torch.distributed as dist
+
+        if self.fault is None:
+            self._broadcast(None)
+            dist.barrier(group=self.mesh.host_group)
+        self._stop_watching()
+
+
+class _LinkedPool:
+    """The pool calls a :class:`BatchingFrontend` makes, through a
+    :class:`MeshLink` (rank 0 of a sharded server)."""
+
+    def __init__(self, link: MeshLink):
+        self.link = link
+
+    def ingest(self, *args):
+        return self.link.call("_pool_call", "ingest", *args)
+
+    def ingest_batch(self, *args):
+        return self.link.call("_pool_call", "ingest_batch", *args)
+
+    def ask_batch(self, *args, **kwargs):
+        return self.link.call("_pool_call", "ask_batch", *args, **kwargs)
 
 
 class BatchingFrontend:
@@ -287,13 +504,27 @@ class SessionServer:
                  extra_eos_ids: tuple = (), encoder_int8: bool = False,
                  auto_snapshot_dir: Optional[str] = None, mesh=None):
         from ..models.cogreasoner import with_int8_tower
+        from ..parallel.mesh import DATA_AXIS
+        from ..parallel.sharding import (check_mesh_adapters,
+                                         ensure_cogreasoner_sharded)
         from ..utils.profiling import StageTimer
         from .session import StreamingSession
 
-        if mesh is not None:
-            raise _not_ported("mesh (tensor-parallel serving)", 9)
+        # mesh: ONE shard of the model for the server, sessions and pool;
         # encoder_int8: ONE W8A8 copy of the tower, shared by the solo
         # sessions and the pool (each finds its model's tower int8 already)
+        check_mesh_adapters(mesh, adapters)
+        model = ensure_cogreasoner_sharded(model, cfg, mesh)
+        if mesh is not None:
+            if mesh.shape[DATA_AXIS] > 1:
+                raise NotImplementedError("a server on a mesh with a data "
+                                          "axis is not ported yet")
+            if auto_snapshot_dir:
+                raise NotImplementedError("snapshots of a sharded server "
+                                          "are not ported yet")
+        self.mesh = mesh
+        self.link = (MeshLink(mesh, self)
+                     if mesh is not None and mesh.size > 1 else None)
         if encoder_int8:
             model = with_int8_tower(model)
         # lookahead_k: the server's default for speculative greedy decodes
@@ -332,10 +563,55 @@ class SessionServer:
             from .pool import SessionPool
 
             self.pool = SessionPool(model, cfg, tokenizer, n_rows=pool_rows,
-                                    max_len=max_len, adapters=adapters)
-            self.frontend = BatchingFrontend(
-                self.pool, lock=self.lock,
-                extra_eos_ids=tuple(extra_eos_ids))
+                                    max_len=max_len, adapters=adapters,
+                                    mesh=mesh)
+            if self.link is None or self.link.leader:
+                self.frontend = BatchingFrontend(
+                    self.pool if self.link is None
+                    else _LinkedPool(self.link), lock=self.lock,
+                    extra_eos_ids=tuple(extra_eos_ids))
+
+    # ---- device calls (replayed on every rank of a mesh) ---------------
+
+    def _device(self, method: str, *args, **kwargs):
+        """Run ``self.<method>``: through the mesh link on a sharded
+        server (every rank runs it), else directly."""
+        if self.link is None:
+            return getattr(self, method)(*args, **kwargs)
+        return self.link.call(method, *args, **kwargs)
+
+    def _pool_call(self, method: str, *args, **kwargs):
+        return getattr(self.pool, method)(*args, **kwargs)
+
+    def _op_create(self, session_id: str) -> None:
+        if self.pool is not None:
+            old = self._row_of.pop(session_id, None)
+            if old is not None:
+                self.pool.close(old)
+            row = self.pool.open()
+            self._row_of[session_id] = row
+            self.sessions[session_id] = self.pool.sessions[row]
+        else:
+            self.sessions[session_id] = self._mk()
+
+    def _op_ingest(self, session_id: str, pixel_values, grid, ms,
+                   timestamps) -> None:
+        # a sharded pooled server ingests through its frontend's pool calls
+        self._get(session_id).append_stream_segment(pixel_values, grid, ms,
+                                                    timestamps)
+
+    def _op_ask(self, session_id: str, question: str, **kwargs) -> Dict:
+        return self._get(session_id).ask(question, **kwargs)
+
+    def _op_ask_stream(self, session_id: str, question: str, **kwargs):
+        return self._get(session_id).ask_stream(question, **kwargs)
+
+    def follow(self) -> None:
+        """The loop of ranks > 0 of a sharded server: run rank 0's device
+        calls until it shuts down."""
+        if self.link is None or self.link.leader:
+            raise RuntimeError("follow() runs on ranks > 0 of a mesh")
+        self.link.follow()
 
     def _get(self, session_id: str):
         if session_id not in self.sessions:
@@ -350,15 +626,7 @@ class SessionServer:
             if session_id is None:
                 session_id = f"s{self._next_sid}"
                 self._next_sid += 1
-            if self.pool is not None:
-                old = self._row_of.pop(session_id, None)
-                if old is not None:
-                    self.pool.close(old)
-                row = self.pool.open()
-                self._row_of[session_id] = row
-                self.sessions[session_id] = self.pool.sessions[row]
-            else:
-                self.sessions[session_id] = self._mk()
+            self._device("_op_create", session_id)
         return {"session_id": session_id}
 
     def _dispatch_batch(self, session_id: str, sess, batch,
@@ -374,7 +642,12 @@ class SessionServer:
                     inject_fault(sess.device)
         t, gh, gw = (int(x) for x in batch.grid_sizes[0])
         ms = int(batch.merge_sizes[0])
-        if self.frontend is not None:
+        if self.link is not None and self.frontend is None:
+            with self.lock:
+                self.link.call("_op_ingest", session_id,
+                               batch.pixel_values, (t, gh, gw), ms,
+                               list(timestamps))
+        elif self.frontend is not None:
             # concurrent streams' segments coalesce into one batched ingest
             self.frontend.ingest(self._row_of[session_id],
                                  batch.pixel_values, (t, gh, gw), ms,
@@ -428,7 +701,9 @@ class SessionServer:
                 # keeps all its tokens: the keep mask restarts per chunk).
                 pq: "queue.Queue" = queue.Queue(maxsize=2)
                 perr: list = []
-                solo = self.frontend is None and self.pool is None
+                # a sharded server sends every rank the host rows instead
+                solo = (self.frontend is None and self.pool is None
+                        and self.link is None)
                 state = {"target": None}
 
                 def _prep(chunk):
@@ -503,14 +778,14 @@ class SessionServer:
                                         max_new_tokens=max_new_tokens)
         else:
             with self.lock:
-                sess = self._get(session_id)
+                self._get(session_id)
                 with self.timer.stage("ask"):
-                    out = sess.ask(question, mode=mode,
-                                   max_new_tokens=max_new_tokens,
-                                   lookahead_k=(self.lookahead_k
-                                                if lookahead_k is None
-                                                else lookahead_k),
-                                   extra_eos_ids=self.extra_eos_ids)
+                    out = self._device(
+                        "_op_ask", session_id, question, mode=mode,
+                        max_new_tokens=max_new_tokens,
+                        lookahead_k=(self.lookahead_k if lookahead_k is None
+                                     else lookahead_k),
+                        extra_eos_ids=self.extra_eos_ids)
         self._auto_snapshot(session_id)
         return out
 
@@ -522,12 +797,22 @@ class SessionServer:
         with self.lock:
             sess = self._get(session_id)
             with self.timer.stage("ask"):
+                if self.link is not None:
+                    # every rank runs the stream; rank 0's items come here
+                    yield from self.link.call_stream(
+                        "_op_ask_stream", session_id, question, mode=mode,
+                        max_new_tokens=max_new_tokens,
+                        extra_eos_ids=self.extra_eos_ids)
+                    return
                 yield from sess.ask_stream(
                     question, mode=mode, max_new_tokens=max_new_tokens,
                     extra_eos_ids=self.extra_eos_ids)
 
     def save_session(self, session_id: str, path: str) -> Dict:
         """Snapshot a live session to disk (atomic npz)."""
+        if self.mesh is not None:
+            raise NotImplementedError("snapshots of a sharded server are "
+                                      "not ported yet")
         with self.lock:
             sess = self._get(session_id)
             sess.save(path)
@@ -539,6 +824,9 @@ class SessionServer:
         id. Transactional: the snapshot loads onto a fresh row first;
         only then is the old row released, so a failed restore leaves
         the old session usable and leaks nothing."""
+        if self.mesh is not None:
+            raise NotImplementedError("snapshots of a sharded server are "
+                                      "not ported yet")
         with self.lock:
             if self.pool is not None:
                 row = self.pool.open_restored(path)   # raises: no change
@@ -556,9 +844,13 @@ class SessionServer:
                 "turns": len(self.sessions[session_id].hist_qs)}
 
     def close(self) -> None:
-        """Stop the batching frontend's thread (pooled servers)."""
+        """Stop the batching frontend's thread (pooled servers); rank 0 of
+        a sharded server then ends the other ranks' follow loops."""
         if self.frontend is not None:
             self.frontend.close()
+        if self.link is not None and self.link.leader:
+            with self.lock:
+                self.link.shutdown()
 
     def request_shutdown(self, code: int = FATAL_EXIT) -> None:
         """After a sticky CUDA error: in a supervised child, exit shortly
@@ -702,6 +994,10 @@ def make_handler(server: SessionServer):
                 return self._json(404, {"error": "unknown path"})
             except UnknownSession as e:
                 return self._json(404, {"error": str(e)})
+            except MeshFault as e:
+                # a rank of a sharded server failed: every rank exits
+                return self._json(503, {"error": str(e),
+                                        "mesh_fatal": True})
             except KeyError as e:
                 return self._json(400, {"error": f"missing field {e}"})
             except Exception as e:  # noqa: BLE001
@@ -713,10 +1009,12 @@ def make_handler(server: SessionServer):
                           f"{type(e).__name__}: "
                           f"{str(e).splitlines()[0]}",
                           file=sys.stderr, flush=True)
+                    # the exit is recorded (supervised: scheduled) before
+                    # the reply, so a client that got the 503 sees it
+                    server.request_shutdown(FATAL_EXIT)
                     self._json(503, {"error": f"{type(e).__name__}: {e}",
                                      "backend_fatal": True,
                                      "recovering": server.supervised})
-                    server.request_shutdown(FATAL_EXIT)
                     return None
                 return self._json(500, {"error": f"{type(e).__name__}: {e}"})
 
@@ -831,7 +1129,8 @@ def main(argv=None):
     ap.add_argument("--restart-cooldown", type=float, default=2.0,
                     help="seconds between supervisor relaunches")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the CUDA card)")
+                    help="torch device (default: the CUDA card; under "
+                         "torchrun the card LOCAL_RANK)")
     argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
 
@@ -839,6 +1138,20 @@ def main(argv=None):
         raise SystemExit(run_supervised(child_argv(argv),
                                         cooldown_s=args.restart_cooldown))
     flags = quant_flags(args)
+    # under torchrun (WORLD_SIZE > 1): tensor-parallel over every rank,
+    # each on its card over NCCL, or with --device cpu over gloo
+    from ..parallel.distributed import initialize_if_needed, local_rank
+    from ..parallel.mesh import make_mesh
+
+    mesh = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        if args.device is None:
+            args.device = f"cuda:{local_rank()}"
+        on_card = torch.device(args.device).type == "cuda"
+        if on_card:
+            torch.cuda.set_device(args.device)
+        initialize_if_needed(backend="nccl" if on_card else "gloo")
+        mesh = make_mesh(data_parallel=1)
     from ..config import load_generation_config, load_hf_config
     from ..models.checkpoint import load_cogreasoner_from_hf
     from ..processor.tokenizer import load_tokenizer
@@ -848,19 +1161,25 @@ def main(argv=None):
     model = load_cogreasoner_from_hf(
         args.model_dir, cfg,
         quantize_text_bits={"int8": 8, "int4": 4}.get(args.quantize_weights),
-        device=args.device)
+        device=args.device, mesh=mesh)
     tok = load_tokenizer(args.model_dir, cfg.image_token_index,
                          cfg.text.vocab_size)
     eos = load_generation_config(args.model_dir).eos_token_ids
+    server = SessionServer(model, cfg, tok, max_len=args.max_len,
+                           pool_rows=args.pool_rows,
+                           extra_eos_ids=tuple(eos or ()),
+                           encoder_int8=args.encoder_int8,
+                           auto_snapshot_dir=args.auto_snapshot_dir,
+                           mesh=mesh)
+    if mesh is not None and mesh.rank > 0:
+        server.follow()          # until rank 0 shuts down
+        return
     print(f"serving on {args.host}:{args.port}"
-          + (f" (pooled x{args.pool_rows})" if args.pool_rows else ""),
+          + (f" (pooled x{args.pool_rows})" if args.pool_rows else "")
+          + (f" (tensor-parallel x{mesh.size})" if mesh is not None
+             else ""),
           flush=True)
-    serve(SessionServer(model, cfg, tok, max_len=args.max_len,
-                        pool_rows=args.pool_rows,
-                        extra_eos_ids=tuple(eos or ()),
-                        encoder_int8=args.encoder_int8,
-                        auto_snapshot_dir=args.auto_snapshot_dir),
-          args.port, args.host)
+    serve(server, args.port, args.host)
 
 
 if __name__ == "__main__":

@@ -26,6 +26,13 @@ the row tightly (padding slots are dropped, never written).
 
 ``save`` / ``load_state`` snapshot a session into one ``.npz`` in the JAX
 package's layout, so a JAX snapshot restores into the port.
+
+``mesh=`` (parallel/mesh.Mesh) serves tensor-parallel: every rank builds
+the session with the same arguments and makes the same calls; the model is
+sharded once (``parallel/sharding.ensure_cogreasoner_sharded``), the
+cache holds the rank's kv heads, and every host decision reads values that
+are the same on every rank. Snapshots of a sharded session are not ported
+yet (they raise).
 """
 
 from __future__ import annotations
@@ -44,7 +51,9 @@ from ..models.cogreasoner import (SUMMARY_INSTRUCTION, SUMMARY_SYSTEM,
                                   pixel_diff_keep_mask, with_int8_tower,
                                   with_serving_flags)
 from ..models.qwen2 import (KVCache, Qwen2Model, init_kv_cache, kv_bytes,
-                            to_cache)
+                            local_kv_heads, to_cache)
+from ..parallel.sharding import (check_mesh_adapters,
+                                 ensure_cogreasoner_sharded, sharded_mesh)
 from ..ops.lm_attention import cache_rows
 from .generate import (decode_new_tokens, generate_tokens,
                        generate_tokens_lookahead)
@@ -235,11 +244,14 @@ class StreamingSession:
                  system_prompt: str = SYSTEM_PROMPT,
                  summary_forward: bool = True, kv_dtype=None,
                  pool=None, row: Optional[int] = None,
-                 encoder_int8: bool = False):
+                 encoder_int8: bool = False, mesh=None):
         kv_dtype = check_kv_dtype(kv_dtype, model.text.dtype)
-        # the decoder runs under cfg's serving flags, as the JAX session's
-        # does; encoder_int8: the W8A8 vision tower for ingest, the
-        # session's own int8 copy (the model's tower is left as it is)
+        # mesh: this rank's shard of the model (idempotent); the decoder
+        # runs under cfg's serving flags, as the JAX session's does;
+        # encoder_int8: the W8A8 vision tower for ingest, the session's own
+        # int8 copy (the model's tower is left as it is)
+        check_mesh_adapters(mesh, adapters)
+        model = ensure_cogreasoner_sharded(model, cfg, mesh)
         model = with_serving_flags(model, cfg)
         if encoder_int8:
             model = with_int8_tower(model)
@@ -255,9 +267,9 @@ class StreamingSession:
         self._pool, self._row = pool, row
         self._rows = None
         if pool is None:
-            self._own_cache = init_kv_cache(cfg.text, 1, max_len,
-                                            dtype=kv_dtype,
-                                            device=self.device)
+            self._own_cache = init_kv_cache(
+                cfg.text, 1, max_len, dtype=kv_dtype, device=self.device,
+                kv_heads=local_kv_heads(model.text))
         else:
             if row is None or max_len != pool.max_len:
                 raise ValueError("a pooled session needs its row and the "
@@ -976,6 +988,8 @@ class StreamingSession:
 
         from ..utils.io import atomic_write_npz, pack_array
 
+        self._check_unsharded("save")
+
         if self._rep_pending:
             raise RuntimeError("ingest left unflushed event reps")
         row = self._row if self._pool is not None else 0
@@ -1031,6 +1045,11 @@ class StreamingSession:
         meta["dtypes"] = dtypes
         atomic_write_npz(path, meta=np.asarray(json.dumps(meta)), **arrays)
 
+    def _check_unsharded(self, what: str) -> None:
+        if sharded_mesh(self.model) is not None:
+            raise NotImplementedError(f"{what} of a session on a mesh is "
+                                      "not ported yet")
+
     @torch.inference_mode()
     def load_state(self, path: str) -> None:
         """Restore a ``save`` snapshot, the port's or the JAX package's,
@@ -1040,6 +1059,7 @@ class StreamingSession:
         then seeded from its two words."""
         from ..utils.io import unpack_array
 
+        self._check_unsharded("load_state")
         d = np.load(path)
         meta = json.loads(str(d["meta"]))
         wi = int(meta["wi"])

@@ -497,12 +497,12 @@ def test_process_rank_and_cli_refusals(tmp_path, monkeypatch):
 
 
 def test_engine_refuses_unported_options(setup, engines, monkeypatch):
-    """``mesh`` still raises naming its item; ``encoder_int8`` and
-    ``generate(lookahead_k=2)`` (once refused) run, the latter with the
-    JAX engine's tokens."""
+    """``mesh`` (once refused naming its item) takes only a
+    ``parallel.mesh.Mesh``; ``encoder_int8`` and ``generate(lookahead_k=2)``
+    (once refused) run, the latter with the JAX engine's tokens."""
     jcfg, tcfg, params, model = setup
     tok = TTok(image_token_id=1000)
-    with pytest.raises(NotImplementedError, match="#9"):
+    with pytest.raises(TypeError, match="Mesh"):
         TEngine(model, tcfg, tok, mesh=object())
     # encoder_int8 (once refused): the engine's own W8A8 tower
     assert TEngine(model, tcfg, tok, encoder_int8=True).model.vision.int8
@@ -553,3 +553,21 @@ def test_answer_generate_cli_on_cpu(scene_clip, tmp_path, streaming):
     out = json.loads((tmp_path / "out" / "v.json").read_text())
     assert len(out["QAs"]) == 2 and out.get("streaming", False) == streaming
     assert all(isinstance(q["prediction"], str) for q in out["QAs"])
+
+
+def test_engine_on_a_one_rank_mesh(setup, engines):
+    """``mesh=`` a 1 x 1 mesh: the engine serves its own shard (the whole
+    model, the plan attached, the caller's model left whole) and answers
+    the text turn, vanilla and lookahead, as the JAX engine does."""
+    from cogstream_tpu_torch.parallel.mesh import single_device_mesh
+    from cogstream_tpu_torch.parallel.sharding import sharded_mesh
+
+    jcfg, tcfg, params, model = setup
+    mesh = single_device_mesh()
+    eng = TEngine(model, tcfg, TTok(image_token_id=1000), mesh=mesh)
+    assert sharded_mesh(eng.model) is mesh and sharded_mesh(model) is None
+    conv = [{"role": "user", "content": "hello, what now?"}]
+    want = engines[0].chat(conv, mode="AC", max_new_tokens=8)
+    for k in (0, 4):
+        got = eng.chat(conv, mode="AC", max_new_tokens=8, lookahead_k=k)
+        assert (got.text, got.num_tokens) == (want.text, want.num_tokens)

@@ -1,0 +1,593 @@
+"""The port's tensor-parallel serving against the JAX package's mesh
+serving, on the CPU.
+
+The JAX side runs in this process on conftest's 8 virtual CPU devices
+(``make_mesh(devices=...)``). The port's side runs as gloo worlds of 2 and
+4 ranks (tests/torch_parallel_child.py, one process per rank, importing
+only the port), fed the JAX package's seeded weights through
+models/bridge.py and numpy inputs; the two worlds start before the JAX
+references are computed and run beside them.
+
+What is held, in f32 at the tiny size (4 q / 2 kv heads, tower 2 heads: at
+tp = 4 the decoder's kv heads and the tower's attention take the
+fallbacks of parallel/sharding.py):
+
+* ``generate_tokens`` at tp = 4: tokens equal to the JAX mesh's
+  (tests/test_sharding.py::test_tp_sharded_generate_matches_unsharded);
+* a cache-free forward at tp = 2 and 4: hidden states, and each rank's
+  logits against JAX's logits at that rank's vocab slice, within 1e-5 of
+  the row max;
+* the session AC ask plus a lookahead ask at tp = 2 and 4: texts, fill
+  levels and lookahead steps equal to the JAX mesh session's, each rank's
+  cache equal to JAX's at that rank's kv heads within 1e-5 of the row max;
+* ``encoder_int8`` at tp = 2, an int8 decoder under ``w8a8_prefill`` +
+  ``encoder_int8``, and a weight-only rank-1 int4 decoder, against JAX
+  mesh sessions of the same trees and flags; int8 activations on a
+  sharded int4 decoder (``w4a8_decode``, ``w8a8_prefill``) raise, since
+  the JAX mesh session runs them through its XLA W4A8 branch, which the
+  port's shards do not have yet (ROADMAP Queue 3);
+* the engine's text turn (vanilla and lookahead) at tp = 2;
+* ``SessionPool`` on a (data = 2, model = 2) mesh (tests/test_pool.py::
+  test_pool_on_tp_mesh_matches_unsharded);
+* ``load_cogreasoner_from_hf(mesh=)`` byte for byte against the slice of
+  the whole load (plain, int8 and int4 at load);
+* the plans: every parameter and quantized buffer has a spec, and
+  ``ensure_cogreasoner_sharded`` is idempotent;
+* ``SessionServer(mesh=)`` over HTTP at tp = 2 (solo and pooled) answering
+  as the solo server; and, in two more worlds, a server whose rank 1
+  fails in an ask (before any collective, and mid-forward): the client
+  gets a 503 naming that error and both ranks exit within seconds;
+* every rank's tokens, texts and replicated hidden states bit-equal to
+  rank 0's.
+"""
+
+import dataclasses
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+import types
+import urllib.error
+import urllib.request
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cogstream_tpu.config import (CogReasonerConfig as JConfig,
+                                  CompressionConfig as JCompression)
+from cogstream_tpu.models import qwen2 as jq
+from cogstream_tpu.models.checkpoint import save_cogreasoner_to_hf
+from cogstream_tpu.models.cogreasoner import init_cogreasoner_params
+from cogstream_tpu.ops.quant import quantize_tree
+from cogstream_tpu.parallel.mesh import make_mesh as j_make_mesh
+from cogstream_tpu.parallel.sharding import (qwen2_param_specs,
+                                             shard_params)
+from cogstream_tpu.processor.tokenizer import ByteTokenizer as JTok
+from cogstream_tpu.runtime.engine import CogReasonerEngine as JEngine
+from cogstream_tpu.runtime.generate import generate_tokens as j_generate
+from cogstream_tpu.runtime.pool import SessionPool as JPool
+from cogstream_tpu.runtime.session import StreamingSession as JSession
+from cogstream_tpu_torch.config import (CogReasonerConfig as TConfig,
+                                        CompressionConfig as TCompression)
+from cogstream_tpu_torch.models import bridge
+from cogstream_tpu_torch.ops import quant as tquant
+from cogstream_tpu_torch.parallel import sharding as tsh
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CHILD = os.path.join(HERE, "torch_parallel_child.py")
+COMP = dict(frames_per_event=2, keyframes_per_event=1)
+SEG = (2, 4, 4)
+QUESTION = "what is this?"
+CONVERSATION = [{"role": "user", "content": "hello, what now?"}]
+WORLD_TIMEOUT_S = 240
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    items = (tree.items() if isinstance(tree, dict)
+             else enumerate(tree))
+    for k, v in items:
+        key = f"{prefix}{k}"
+        if isinstance(v, (dict, list)):
+            out.update(_flat(v, key + "/"))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _jcfg(**text):
+    cfg = dataclasses.replace(JConfig.tiny(),
+                              compression=JCompression(**COMP))
+    if text:
+        cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text,
+                                                                **text))
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def data(tmp_path_factory):
+    """Inputs on disk, then both port worlds started (they run while the
+    JAX references compute)."""
+    d = str(tmp_path_factory.mktemp("tp"))
+    cfg = _jcfg()
+    params = init_cogreasoner_params(jax.random.PRNGKey(0), cfg)
+    trees = {
+        "params": params,
+        "params_int8": {**params, "text": quantize_tree(params["text"],
+                                                        bits=8)},
+        "params_int4": {**params, "text": quantize_tree(
+            params["text"], bits=4, rank1=True, nf4=False)}}
+    for name, tree in trees.items():
+        np.savez(os.path.join(d, f"{name}.npz"), **_flat(tree))
+    rng = np.random.default_rng(0)
+    pv = rng.normal(size=(2 * 4 * 4, 3 * 14 * 14)).astype(np.float32)
+    np.save(os.path.join(d, "pv.npy"), pv)
+    ids = np.random.default_rng(0).integers(3, 200, (1, 16)).astype(
+        np.int32)
+    np.save(os.path.join(d, "ids.npy"), ids)
+    os.makedirs(os.path.join(d, "frames"))
+    frng = np.random.default_rng(1)
+    for i in range(3):
+        np.save(os.path.join(d, "frames", f"{i:03d}.npy"),
+                frng.integers(0, 255, (48, 64, 3), np.uint8))
+    save_cogreasoner_to_hf(params, cfg, os.path.join(d, "hf"),
+                           dtype=jnp.float32)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("RANK", "WORLD_SIZE", "MASTER_"))}
+    procs, faults = [], {}
+    for world, fault in ((2, None), (4, None), (2, "early"), (2, "mid")):
+        port = _free_port()
+        for r in range(world):
+            name = f"w{world}_r{r}" if fault is None else f"{fault}_r{r}"
+            log = open(os.path.join(d, f"{name}.log"), "w")
+            p = subprocess.Popen(
+                [sys.executable, CHILD, "--world", str(world), "--rank",
+                 str(r), "--port", str(port), "--dir", d]
+                + ([] if fault is None else ["--fault", fault]),
+                stdout=log, stderr=subprocess.STDOUT, env=env)
+            procs.append((world, r, log, p))
+            if fault is not None:
+                faults.setdefault(fault, []).append(p)
+    yield d, cfg, trees, pv, ids, faults
+    for *_, log, p in procs:
+        if p.poll() is None:
+            p.kill()
+        log.close()
+
+
+@pytest.fixture(scope="module")
+def jref(data):
+    """The JAX package's mesh results for every case."""
+    _, cfg, trees, pv, ids, _ = data
+    params = trees["params"]
+    tok = JTok(image_token_id=cfg.image_token_index)
+    devs = jax.devices()
+    mesh = {2: j_make_mesh(1, 2, devices=devs[:2]),
+            4: j_make_mesh(1, 4, devices=devs[:4])}
+    out = {}
+
+    def session(tag, tp, tree, c=cfg, lookahead=True, **kw):
+        sess = JSession(tree, c, tok, max_len=1024, summary_forward=False,
+                        mesh=mesh[tp], **kw)
+        sess.append_stream_segment(pv, SEG, 2, [0.0, 1.0])
+        a = sess.ask(QUESTION, mode="AC", max_new_tokens=6)
+        res = {"text": a["text"], "cache_tokens": a["cache_tokens"]}
+        if lookahead:
+            la = sess.ask(QUESTION, mode="AC", max_new_tokens=6,
+                          lookahead_k=4)
+            res.update(la_text=la["text"], la_steps=sess.last_lookahead_steps,
+                       la_cache_tokens=la["cache_tokens"])
+        res.update(k=np.asarray(sess.cache.k), v=np.asarray(sess.cache.v),
+                   pos=np.asarray(sess.cache.pos))
+        out[tag] = res
+
+    session("session2", 2, params)
+    session("session4", 4, params)
+    session("enc8", 2, params, lookahead=False, encoder_int8=True)
+    session("int8", 2, trees["params_int8"], _jcfg(w8a8_prefill=True),
+            encoder_int8=True)
+    # weight-only: the port's mesh int4 decode with w4a8_decode asked
+    session("int4", 2, trees["params_int4"])
+
+    S, new = ids.shape[1], 8
+    emb = jq.embed(params["text"], jnp.asarray(ids))
+    positions = jnp.asarray(np.arange(S, dtype=np.int32)[None])
+    sp = shard_params(params["text"], qwen2_param_specs(cfg.text, mesh[4]),
+                      mesh[4])
+    with mesh[4]:
+        gen = j_generate(sp, emb, positions, jnp.asarray([S - 1], jnp.int32),
+                         jq.init_kv_cache(cfg.text, 1, S + new),
+                         jax.random.PRNGKey(0), cfg.text, new, eos_id=-1,
+                         temperature=0.0)
+    out["generate"] = np.asarray(gen.tokens)[0].tolist()
+    h, _ = jq.qwen2_forward(params["text"], emb, positions, cfg.text)
+    out["hidden"] = np.asarray(h)
+    out["logits"] = np.asarray(jq.lm_logits(params["text"], h))
+
+    eng = JEngine(params, cfg, tok, mesh=mesh[2])
+    got = eng.chat(CONVERSATION, mode="AC", max_new_tokens=8)
+    la = eng.chat(CONVERSATION, mode="AC", max_new_tokens=8, lookahead_k=4)
+    out["engine"] = {"text": got.text, "la_text": la.text,
+                     "num": got.num_tokens}
+
+    pool = JPool(params, cfg, tok, n_rows=2, max_len=1024,
+                 summary_forward=False,
+                 mesh=j_make_mesh(2, 2, devices=devs[:4]))
+    for r in (pool.open(), pool.open()):
+        pool.ingest(r, pv, SEG, 2, [0.0, 1.0])
+    ans = pool.ask_batch([(0, "what is happening?"), (1, "who is there?")],
+                         mode="AC", max_new_tokens=8)
+    out["pool"] = {b: a["text"] for b, a in ans.items()}
+    return out
+
+
+@pytest.fixture(scope="module")
+def worlds(data, jref):
+    """Each rank's outputs: {world: [(json, npz) per rank]}."""
+    d = data[0]
+    deadline = time.time() + WORLD_TIMEOUT_S
+    out = {}
+    for world in (2, 4):
+        ranks = []
+        for r in range(world):
+            stem = os.path.join(d, f"w{world}_r{r}")
+            while not os.path.exists(stem + ".json"):
+                if time.time() > deadline:
+                    with open(stem + ".log") as f:
+                        pytest.fail(f"world {world} rank {r} timed out:\n"
+                                    + f.read()[-3000:])
+                time.sleep(0.2)
+            time.sleep(0.1)
+            with open(stem + ".json") as f:
+                res = json.load(f)
+            if "error" in res:
+                pytest.fail(f"world {world} rank {r}:\n{res['error']}")
+            ranks.append((res, dict(np.load(stem + ".npz"))))
+        out[world] = ranks
+    return out
+
+
+def _close(got, want, tol=1e-5):
+    """Each row within ``tol`` of that row's max |want|."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    scale = np.maximum(np.abs(want).max(axis=-1, keepdims=True), 1e-30)
+    err = np.abs(got - want) / scale
+    assert err.max() <= tol, err.max()
+
+
+def _cache_matches(res, arrays, tag, ref, tol=1e-5):
+    heads = res[tag]["kv_heads"]
+    pos = arrays[f"{tag}_pos"]
+    np.testing.assert_array_equal(pos, ref["pos"])
+    live = pos[0] >= 0
+    for name in ("k", "v"):
+        got = arrays[f"{tag}_{name}"][:, 0][:, live]
+        want = ref[name][:, 0][:, live][:, :, heads]
+        _close(got, want, tol)
+
+
+# ---------------------------------------------------------------------------
+# plans (this process: a rank's place in a layout, without process groups)
+# ---------------------------------------------------------------------------
+
+def _layout(data, model, rank):
+    """What the plans read of a Mesh, for ``rank`` of a ``data x model``
+    layout (row-major, as ``parallel.mesh.axis_ranks``)."""
+    d, m = divmod(rank, model)
+    return types.SimpleNamespace(shape={"data": data, "model": model},
+                                 data_index=d, model_index=m,
+                                 model_group=None, data_group=None)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_plans_cover_every_parameter(data, tp):
+    """Every parameter of the port's model has a spec, and every
+    parameter and buffer of its int8 and int4 forms an adapted one
+    (tests/test_sharding.py::test_qwen2_specs_cover_tree)."""
+    cfg = dataclasses.replace(TConfig.tiny(),
+                              compression=TCompression(**COMP))
+    model = bridge.cogreasoner_from_params(
+        jax.tree.map(np.asarray, data[2]["params"]), cfg, device="cpu")
+    for rank in range(tp):
+        mesh = _layout(1, tp, rank)
+        specs = tsh.cogreasoner_param_specs(cfg, mesh)
+        assert set(specs) == {n for n, _ in model.named_parameters()}
+        leaves = tsh.adapt_specs_to_quantized(model, specs)
+        assert set(leaves) == set(specs)
+    for bits in (8, 4):
+        qm = bridge.cogreasoner_from_params(
+            jax.tree.map(np.asarray, data[2]["params"]), cfg, device="cpu")
+        tquant.quantize_text_(qm.text, bits)
+        leaves = tsh.adapt_specs_to_quantized(
+            qm, tsh.cogreasoner_param_specs(cfg, _layout(1, tp, 0)))
+        names = {n for n, _ in qm.named_parameters()} | {
+            n for n, _ in qm.named_buffers()}
+        assert set(leaves) == names
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_plan_slices_partition_the_model(data, tp):
+    """The ranks' slices of every split weight tile it: q heads, the MLP,
+    the vocab and the tower heads each once; kv heads at least once, and
+    each rank holds exactly the kv heads its q heads read."""
+    cfg = TConfig.tiny()
+    G = cfg.text.num_attention_heads // cfg.text.num_key_value_heads
+    shards = [tsh.text_shard(cfg.text, _layout(1, tp, r))
+              for r in range(tp)]
+    assert sorted(h for s in shards for h in s.q_heads) == list(
+        range(cfg.text.num_attention_heads))
+    for s in shards:
+        assert list(s.kv_heads) == sorted({h // G for h in s.q_heads})
+    assert sorted({h for s in shards for h in s.kv_heads}) == list(
+        range(cfg.text.num_key_value_heads))
+    assert sorted(i for s in shards for i in range(*s.vocab)) == list(
+        range(cfg.text.vocab_size))
+    towers = [tsh.tower_shard(cfg.vision, _layout(1, tp, r))
+              for r in range(tp)]
+    # 2 tower heads: split at tp = 2, replicated at tp = 4
+    assert all(t.attn_split == (tp == 2) for t in towers)
+
+
+@pytest.mark.parametrize("data,model", [(1, 4), (2, 2)])
+def test_kv_cache_specs_place_heads_and_rows(data, model):
+    """A whole cache's local slice: the plan's kv heads, and rows split
+    on the data axis when they divide (replicated when they do not), as
+    JAX's ``place_kv_cache``."""
+    from cogstream_tpu_torch.models import qwen2 as tq
+
+    cfg = TConfig.tiny().text
+    full = tq.init_kv_cache(cfg, 4, 8, device="cpu")
+    full.k.copy_(torch.arange(full.k.numel(), dtype=torch.float32)
+                 .reshape(full.k.shape))
+    for rank in range(data * model):
+        mesh = _layout(data, model, rank)
+        heads, rows = tsh.kv_cache_specs(cfg, mesh, 4)
+        assert heads == tsh.text_shard(cfg, mesh).kv_heads
+        assert rows == (None if data == 1 else
+                        (mesh.data_index * 2, mesh.data_index * 2 + 2))
+        local = tsh.place_kv_cache(full, cfg, mesh)
+        r = slice(None) if rows is None else slice(*rows)
+        assert torch.equal(local.k, full.k[:, r][:, :, :, list(heads)])
+        assert tsh.kv_cache_specs(cfg, mesh, 3)[1] is None
+
+
+def test_mesh_layouts_and_one_process_bring_up():
+    """``make_mesh`` in a process without a group is the 1 x 1 mesh and
+    refuses other products; ``initialize_if_needed`` is a no-op there;
+    ``axis_ranks`` lays ranks out row-major, as JAX's reshape;
+    ``with_retries`` retries and then raises the last error."""
+    from cogstream_tpu_torch.parallel import distributed as tdist
+    from cogstream_tpu_torch.parallel import mesh as tmesh
+
+    assert tdist.initialize_if_needed() == (0, 1)
+    m = tmesh.make_mesh()
+    assert m.shape == {"data": 1, "model": 1} and m.model_group is None
+    assert tmesh.single_device_mesh().size == 1
+    with pytest.raises(ValueError, match="2x1"):
+        tmesh.make_mesh(data_parallel=2, model_parallel=1)
+    rows, cols = tmesh.axis_ranks(2, 4)
+    assert rows == [[0, 1, 2, 3], [4, 5, 6, 7]]
+    assert cols == [[0, 4], [1, 5], [2, 6], [3, 7]]
+    lay = _layout(2, 4, 6)
+    assert 6 in rows[lay.data_index] and 6 in cols[lay.model_index]
+    assert tmesh.divisible(8, lay) and not tmesh.divisible(6, lay)
+    calls = []
+
+    def flaky():
+        calls.append(1)
+        if len(calls) < 3:
+            raise RuntimeError(f"try {len(calls)}")
+        return "ok"
+
+    assert tdist.with_retries(flaky, backoff_s=0.0) == "ok"
+    calls.clear()
+    with pytest.raises(RuntimeError, match="try 2"):
+        tdist.with_retries(flaky, max_attempts=2, backoff_s=0.0)
+
+
+def test_int4_row_shard_repacks_to_its_own_pairing():
+    """A row-parallel rank-1 int4 shard dequantizes to the rows of the
+    whole weight's dequantization (the split-halves pairing repacked)."""
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn(64, 24, generator=g)
+    qp = tquant.quantize_int4_rank1(w, nf4=False)
+    whole = tquant.dequantize_int4(qp, torch.float32)
+    spec = tsh.Spec(inn=(16, 32))
+    local = {k: tsh.slice_leaf(v, tsh.LeafSpec(spec, kind, 64)) for k, v, kind
+             in (("q4", qp["q4"], "q4"), ("scale", qp["scale"], "s"),
+                 ("rscale", qp["rscale"], "r"), ("code", qp["code"], "rep"))}
+    torch.testing.assert_close(tquant.dequantize_int4(local, torch.float32),
+                               whole[16:32], rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the worlds against JAX
+# ---------------------------------------------------------------------------
+
+def test_generate_tokens_tp4(jref, worlds):
+    for res, _ in worlds[4]:
+        assert res["generate"]["tokens"] == jref["generate"]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_forward_hidden_and_logit_slices(jref, worlds, world):
+    ranks = worlds[world]
+    for r, (res, arrays) in enumerate(ranks):
+        h = arrays[f"forward{world}_hidden"]
+        _close(h[0], jref["hidden"][0])
+        assert np.array_equal(h, ranks[0][1][f"forward{world}_hidden"])
+        lo, hi = res[f"forward{world}"]["vocab"]
+        assert hi - lo == jref["logits"].shape[-1] // world
+        _close(arrays[f"forward{world}_logits"][0],
+               jref["logits"][0][:, lo:hi])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_session_ac_and_lookahead(jref, worlds, world):
+    tag = f"session{world}"
+    ref = jref[tag]
+    for res, arrays in worlds[world]:
+        got = res[tag]
+        assert got["text"] == ref["text"]
+        assert got["la_text"] == ref["la_text"] == ref["text"]
+        assert got["la_steps"] == ref["la_steps"]
+        assert (got["cache_tokens"], got["la_cache_tokens"]) == \
+            (ref["cache_tokens"], ref["la_cache_tokens"])
+        assert got["tokens"] == worlds[world][0][0][tag]["tokens"]
+        _cache_matches(res, arrays, tag, ref)
+
+
+# the cache bound of a session with the W8A8 tower: the JAX mesh session
+# runs its head-major tower branch (the port's packed one; both are JAX's),
+# and W8A8 forwards round chaotically (tests/test_torch_quant_modes.py
+# SESSION holds the solo session to the same bound)
+W8A8_SESSION = 5e-2
+
+
+@pytest.mark.parametrize("tag,tol", [("enc8", W8A8_SESSION),
+                                     ("int8", W8A8_SESSION),
+                                     ("int4", 1e-5)])
+def test_quantized_sessions(jref, worlds, tag, tol):
+    """encoder_int8; an int8 decoder under w8a8_prefill + encoder_int8;
+    a rank-1 int4 decoder, weight-only: each against the JAX mesh session
+    of the same tree and flags."""
+    ref = jref[tag]
+    for res, arrays in worlds[2]:
+        got = res[tag]
+        assert got["text"] == ref["text"]
+        assert got["cache_tokens"] == ref["cache_tokens"]
+        if "la_text" in ref:
+            assert got["la_text"] == ref["la_text"]
+        assert got["tokens"] == worlds[2][0][0][tag]["tokens"]
+        _cache_matches(res, arrays, tag, ref, tol)
+
+
+def test_int4_activations_on_a_mesh_raise(worlds):
+    """w4a8_decode or w8a8_prefill on a sharded int4 decoder raises (at
+    the session, and in a forward), never runs weight-only unasked."""
+    for res, _ in worlds[2]:
+        got = res["int4_act"]
+        assert set(got) == {"w4a8_decode", "w8a8_prefill", "forward"}
+        assert all(m == tsh.INT4_ACT_MSG for m in got.values()), got
+
+
+def test_engine_text_turn(jref, worlds):
+    for res, _ in worlds[2]:
+        assert res["engine"] == jref["engine"]
+
+
+def test_pool_on_data_and_model_axes(jref, worlds):
+    """Rows split over the data axis (one held per group, a 1-row cache);
+    every rank returns both rows' answers, equal to JAX's."""
+    for r, (res, _) in enumerate(worlds[4]):
+        got = res["pool"]
+        assert got["rows_held"] == [r // 2] and got["cache_rows"] == 1
+        assert {int(b): a["text"] for b, a in got["answers"].items()} == \
+            jref["pool"]
+        assert got["answers"] == worlds[4][0][0]["pool"]["answers"]
+
+
+@pytest.mark.parametrize("bits", ["None", "8", "4"])
+def test_sharded_load_equals_slices(worlds, bits):
+    """load_cogreasoner_from_hf(mesh=) gives each rank the slice of the
+    whole load, byte for byte, and less than the whole; at load-time
+    int8 / int4 the slice of the whole quantization (the absmaxes taken
+    over every rank's part)."""
+    for res, _ in worlds[2]:
+        got = res["loader"][bits]
+        assert got["names_equal"] and got["unequal"] == []
+        assert got["bytes"] < got["whole_bytes"]
+
+
+def test_ensure_sharded_is_idempotent(worlds):
+    for res, _ in worlds[2]:
+        assert res["plans"] == {"idempotent": True, "none": True,
+                                "original_whole": True, "mesh": True}
+
+
+@pytest.mark.parametrize("kind", ["solo", "pooled"])
+def test_server_on_mesh_answers_as_solo(worlds, kind):
+    got = worlds[2][0][0]["server"][kind]
+    assert got["got"] == got["want"]
+    assert len(got["got"]) == 9
+
+
+def _post(port, path, payload, timeout=60):
+    """(status, JSON body) of a POST to the fault world's rank 0."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+# the fault worlds' process-group timeout (tests/torch_parallel_child.py)
+FAULT_GROUP_TIMEOUT_S = 10
+FATAL_EXIT = 17
+
+
+@pytest.mark.parametrize("case", ["early", "mid"])
+def test_server_rank_failure_ends_every_rank(data, case):
+    """A sharded server at tp = 2 whose rank 1 fails in an ask (before
+    any collective of it, or mid-forward): rank 0's client gets a 503
+    naming rank 1's error, and both ranks exit with rc 17 within a few
+    seconds, well before the group's timeout (no rank is left waiting in
+    a collective). Before that, rank 1 idles past the group timeout
+    between requests and the first ask is answered."""
+    d, faults = data[0], data[5]
+    procs = faults[case]
+    path = os.path.join(d, f"{case}.port")
+    deadline = time.time() + WORLD_TIMEOUT_S
+    while not os.path.exists(path):
+        if time.time() > deadline or any(p.poll() is not None
+                                         for p in procs):
+            with open(os.path.join(d, f"{case}_r1.log")) as f:
+                pytest.fail(f"fault world {case} did not serve:\n"
+                            + f.read()[-3000:])
+        time.sleep(0.2)
+    # the followers wait for the first request past the group timeout
+    time.sleep(max(0.0, os.path.getmtime(path) + FAULT_GROUP_TIMEOUT_S + 2
+                   - time.time()))
+    with open(path) as f:
+        port = int(f.read())
+    assert _post(port, "/session", {"session_id": "a"})[0] == 200
+    assert _post(port, "/ingest", {"session_id": "a",
+                                   "video_path": os.path.join(d, "frames"),
+                                   "start": None, "end": None,
+                                   "fps": 1.0})[0] == 200
+    ok = _post(port, "/ask", {"session_id": "a", "question": QUESTION,
+                              "mode": "AC", "max_new_tokens": 4})
+    assert ok[0] == 200 and ok[1]["tokens"], ok
+    t0 = time.time()
+    status, body = _post(port, "/ask", {"session_id": "a",
+                                        "question": QUESTION, "mode": "AC",
+                                        "max_new_tokens": 4})
+    rcs = [p.wait(timeout=60) for p in procs]
+    ended = time.time() - t0
+    assert status == 503 and body["mesh_fatal"] is True, body
+    assert body["error"].startswith("rank 1: _op_ask failed"), body
+    assert "injected fault" in body["error"], body
+    assert rcs == [FATAL_EXIT, FATAL_EXIT]
+    assert ended < FAULT_GROUP_TIMEOUT_S / 2, ended
+
+
+def test_non_mesh_argument_raises():
+    cfg = TConfig.tiny()
+    with pytest.raises(TypeError, match="Mesh"):
+        tsh.ensure_cogreasoner_sharded(object(), cfg, object())

@@ -313,8 +313,9 @@ def test_ingest_frame_dir_and_worker_error(setup, clip, tmp_path,
 
 
 def test_server_refuses_unported_options(setup, monkeypatch):
-    """Options of other queue items still raise naming their item;
-    ``encoder_int8`` (once refused) builds ONE W8A8 copy of the tower that
+    """``mesh`` (once refused naming its item) takes only a
+    ``parallel.mesh.Mesh``; ``encoder_int8`` (once refused) builds ONE
+    W8A8 copy of the tower that
     the solo sessions and the pool share, and leaves the model's own;
     ``lookahead_k`` (once refused) is the server's default for solo asks,
     a request's value overriding it, with a vanilla session's answers; a
@@ -343,7 +344,7 @@ def test_server_refuses_unported_options(setup, monkeypatch):
         assert (got["tokens"], got["cache_tokens"]) == \
             (want["tokens"], want["cache_tokens"])
     assert used == [2, 3]
-    with pytest.raises(NotImplementedError, match="#9"):
+    with pytest.raises(TypeError, match="Mesh"):
         _server(setup, mesh=object())
     # an fp8 pool (once refused) builds an e4m3 cache and answers as JAX's
     from cogstream_tpu.runtime.pool import SessionPool as JPool
@@ -362,6 +363,29 @@ def test_server_refuses_unported_options(setup, monkeypatch):
     want = jp.ask_batch([(0, "what?")], mode="AC", max_new_tokens=8)[0]
     assert (got["text"], got["cache_tokens"]) == \
         (want["text"], want["cache_tokens"])
+
+
+def test_server_on_a_one_rank_mesh(setup, tmp_path):
+    """``mesh=`` a 1 x 1 mesh (once refused): ONE shard of the model for
+    the server's sessions and pool, answers equal to the server without a
+    mesh, solo and pooled; snapshots of a sharded server raise."""
+    from cogstream_tpu_torch.parallel.mesh import single_device_mesh
+    from cogstream_tpu_torch.parallel.sharding import sharded_mesh
+
+    mesh = single_device_mesh()
+    for kw in ({}, {"pool_rows": 2}):
+        got, want = (_server(setup, max_len=512, mesh=m, **kw)
+                     for m in (mesh, None))
+        for srv in (got, want):
+            srv.create("a")
+        assert sharded_mesh(got.sessions["a"].model) is mesh
+        for q in ("what?", "and then?"):
+            assert got.ask("a", q, mode="AC", max_new_tokens=6) == \
+                want.ask("a", q, mode="AC", max_new_tokens=6)
+        with pytest.raises(NotImplementedError, match="snapshots"):
+            got.save_session("a", str(tmp_path / "a.snap.npz"))
+        got.close()
+        want.close()
 
 
 def test_serve_cli(tmp_path, capsys, monkeypatch):

@@ -1,0 +1,415 @@
+"""One rank of a tensor-parallel world for tests/test_torch_parallel.py.
+
+Imports only the port. The parent test writes the inputs (the JAX
+package's seeded weights as flat ``.npz`` trees, a frame directory and an
+HF checkpoint) into ``--dir``; every rank of a gloo world on the CPU
+(``--world`` 2 or 4) builds the same objects, runs the same cases on its
+shard, and writes what it saw to ``--dir/w<world>_r<rank>.{json,npz}``,
+which the parent holds to the JAX package's mesh results.
+
+    python tests/torch_parallel_child.py --world 2 --rank R --port P --dir D
+    python tests/torch_parallel_child.py --world 2 --rank R --port P --dir D \
+        --fault early|mid
+"""
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import threading
+import traceback
+import urllib.request
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+COMP = dict(frames_per_event=2, keyframes_per_event=1)
+SEG = (2, 4, 4)
+QUESTION = "what is this?"
+CONVERSATION = [{"role": "user", "content": "hello, what now?"}]
+# the fault worlds' process-group timeout: their followers idle past it
+# between requests, and their failures end both ranks well before it
+FAULT_GROUP_TIMEOUT_S = 10
+
+
+def unflatten(path: str):
+    """A ``/``-keyed flat npz back into the nested tree (integer keys are
+    list indices)."""
+    tree: dict = {}
+    with np.load(path) as d:
+        for key in d.files:
+            node = tree
+            parts = key.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = d[key]
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+    return lists(tree)
+
+
+class Rank:
+    def __init__(self, args):
+        from cogstream_tpu_torch.config import (CogReasonerConfig,
+                                                CompressionConfig)
+        from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
+
+        self.args = args
+        self.dir = args.dir
+        self.cfg = dataclasses.replace(
+            CogReasonerConfig.tiny(), compression=CompressionConfig(**COMP))
+        self.tok = ByteTokenizer(image_token_id=self.cfg.image_token_index)
+        self.out: dict = {}
+        self.arrays: dict = {}
+        self.pv = np.load(os.path.join(self.dir, "pv.npy"))
+
+    def model(self, name: str = "params"):
+        from cogstream_tpu_torch.models import bridge
+
+        return bridge.cogreasoner_from_params(
+            unflatten(os.path.join(self.dir, f"{name}.npz")), self.cfg,
+            device="cpu")
+
+    def flags(self, **kw):
+        return dataclasses.replace(
+            self.cfg, text=dataclasses.replace(self.cfg.text, **kw))
+
+    # -- cases ------------------------------------------------------------
+
+    def session(self, tag, mesh, model, cfg=None, lookahead=True, **kw):
+        from cogstream_tpu_torch.runtime.session import StreamingSession
+
+        sess = StreamingSession(model, cfg or self.cfg, self.tok,
+                                max_len=1024, summary_forward=False,
+                                mesh=mesh, **kw)
+        sess.append_stream_segment(self.pv, SEG, 2, [0.0, 1.0])
+        a = sess.ask(QUESTION, mode="AC", max_new_tokens=6)
+        res = {"text": a["text"], "tokens": a["tokens"],
+               "cache_tokens": a["cache_tokens"]}
+        if lookahead:
+            la = sess.ask(QUESTION, mode="AC", max_new_tokens=6,
+                          lookahead_k=4)
+            res.update(la_text=la["text"], la_tokens=la["tokens"],
+                       la_steps=sess.last_lookahead_steps,
+                       la_cache_tokens=la["cache_tokens"])
+        c = sess.cache
+        self.arrays[f"{tag}_k"] = c.k.numpy()
+        self.arrays[f"{tag}_v"] = c.v.numpy()
+        self.arrays[f"{tag}_pos"] = c.pos.numpy()
+        res["kv_heads"] = list(sess.model.text.tp.kv_heads)
+        self.out[tag] = res
+
+    def forward(self, tag, model, mesh):
+        """Hidden states and this rank's logits slice of one prompt."""
+        from cogstream_tpu_torch.models import qwen2
+        from cogstream_tpu_torch.parallel.sharding import shard_cogreasoner
+
+        text = shard_cogreasoner(model, self.cfg, mesh).text
+        ids = torch.from_numpy(np.load(os.path.join(self.dir, "ids.npy")))
+        pos = torch.arange(ids.shape[1], dtype=torch.int32)[None]
+        h, _ = qwen2.qwen2_forward(text, qwen2.embed(text, ids), pos)
+        self.arrays[f"{tag}_hidden"] = h.numpy()
+        self.arrays[f"{tag}_logits"] = qwen2.lm_logits(text, h).numpy()
+        self.out[tag] = {"vocab": list(text.tp.vocab or (0, 0))}
+
+    def generate(self, model, mesh):
+        from cogstream_tpu_torch.models import qwen2
+        from cogstream_tpu_torch.parallel.sharding import shard_cogreasoner
+        from cogstream_tpu_torch.runtime.generate import generate_tokens
+
+        text = shard_cogreasoner(model, self.cfg, mesh).text
+        ids = torch.from_numpy(np.load(os.path.join(self.dir, "ids.npy")))
+        S, new = ids.shape[1], 8
+        cache = qwen2.init_kv_cache(self.cfg.text, 1, S + new, device="cpu",
+                                    kv_heads=qwen2.local_kv_heads(text))
+        res = generate_tokens(
+            text, qwen2.embed(text, ids),
+            torch.arange(S, dtype=torch.int32)[None],
+            torch.tensor([S - 1]), cache, None, new, eos_id=-1)
+        self.out["generate"] = {"tokens": res.tokens[0].tolist()}
+
+    def int4_activations_refused(self, model, mesh):
+        """int8 activations on a sharded int4 decoder raise at the
+        session, and in a forward of the sharded decoder."""
+        from cogstream_tpu_torch.models import qwen2
+        from cogstream_tpu_torch.parallel.sharding import shard_cogreasoner
+        from cogstream_tpu_torch.runtime.session import StreamingSession
+
+        res = {}
+        for flag in ("w4a8_decode", "w8a8_prefill"):
+            try:
+                StreamingSession(model, self.flags(**{flag: True}), self.tok,
+                                 max_len=1024, mesh=mesh)
+                res[flag] = None
+            except NotImplementedError as e:
+                res[flag] = str(e)
+        text = shard_cogreasoner(model, self.cfg, mesh).text
+        try:
+            qwen2.lm_logits(text, torch.zeros(1, 1, self.cfg.text.hidden_size),
+                            w8a8=True)
+            res["forward"] = None
+        except NotImplementedError as e:
+            res["forward"] = str(e)
+        self.out["int4_act"] = res
+
+    def engine(self, model, mesh):
+        from cogstream_tpu_torch.runtime.engine import CogReasonerEngine
+
+        eng = CogReasonerEngine(model, self.cfg, self.tok, mesh=mesh)
+        got = eng.chat(CONVERSATION, mode="AC", max_new_tokens=8)
+        la = eng.chat(CONVERSATION, mode="AC", max_new_tokens=8,
+                      lookahead_k=4)
+        self.out["engine"] = {"text": got.text, "la_text": la.text,
+                              "num": got.num_tokens}
+
+    def pool(self, model, mesh):
+        from cogstream_tpu_torch.runtime.pool import SessionPool
+
+        pool = SessionPool(model, self.cfg, self.tok, n_rows=2, max_len=1024,
+                           summary_forward=False, mesh=mesh)
+        for r in (pool.open(), pool.open()):
+            pool.ingest(r, self.pv, SEG, 2, [0.0, 1.0])
+        out = pool.ask_batch([(0, "what is happening?"),
+                              (1, "who is there?")], mode="AC",
+                             max_new_tokens=8)
+        self.out["pool"] = {
+            "rows_held": sorted(pool.sessions),
+            "cache_rows": int(pool.cache.k.shape[1]),
+            "answers": {str(b): {"text": o["text"], "tokens": o["tokens"]}
+                        for b, o in out.items()}}
+
+    def loader(self, mesh):
+        """The sharded load against the slice of the whole load, byte for
+        byte (bf16 as stored, and quantized at load to int8 and int4)."""
+        from cogstream_tpu_torch.models.checkpoint import (
+            load_cogreasoner_from_hf)
+        from cogstream_tpu_torch.parallel.sharding import shard_cogreasoner
+
+        ckpt = os.path.join(self.dir, "hf")
+        res = {}
+        for bits in (None, 8, 4):
+            whole = load_cogreasoner_from_hf(ckpt, self.cfg,
+                                             dtype=torch.float32,
+                                             quantize_text_bits=bits,
+                                             device="cpu")
+            want = shard_cogreasoner(whole, self.cfg, mesh)
+            got = load_cogreasoner_from_hf(ckpt, self.cfg,
+                                           dtype=torch.float32,
+                                           quantize_text_bits=bits,
+                                           device="cpu", mesh=mesh)
+            w = dict(want.named_parameters())
+            w.update(dict(want.named_buffers()))
+            g = dict(got.named_parameters())
+            g.update(dict(got.named_buffers()))
+            res[str(bits)] = {
+                "names_equal": sorted(w) == sorted(g),
+                "unequal": [n for n in w if n in g and not (
+                    w[n].shape == g[n].shape and w[n].dtype == g[n].dtype
+                    and torch.equal(w[n], g[n]))],
+                "bytes": sum(t.numel() * t.element_size()
+                             for t in g.values()),
+                "whole_bytes": sum(t.numel() * t.element_size() for t in
+                                   list(whole.parameters())
+                                   + list(whole.buffers()))}
+        self.out["loader"] = res
+
+    def plans(self, model, mesh):
+        from cogstream_tpu_torch.parallel.sharding import (
+            ensure_cogreasoner_sharded, sharded_mesh)
+
+        sharded = ensure_cogreasoner_sharded(model, self.cfg, mesh)
+        self.out["plans"] = {
+            "idempotent": ensure_cogreasoner_sharded(
+                sharded, self.cfg, mesh) is sharded,
+            "none": ensure_cogreasoner_sharded(model, self.cfg,
+                                               None) is model,
+            "original_whole": sharded_mesh(model) is None,
+            "mesh": sharded_mesh(sharded) is mesh}
+
+    def server(self, model, mesh):
+        """SessionServer(mesh=) over HTTP (rank 0) against the solo server
+        on the whole model, solo sessions and a 2-row pool."""
+        from cogstream_tpu_torch.runtime.serve import (SessionServer,
+                                                       make_http_server)
+
+        frames = os.path.join(self.dir, "frames")
+        res = {}
+        for kind, kw in (("solo", {}), ("pooled", {"pool_rows": 2})):
+            srv = SessionServer(model, self.cfg, self.tok, max_len=2048,
+                                mesh=mesh, **kw)
+            if mesh.rank > 0:
+                srv.follow()
+                continue
+            ref = SessionServer(model, self.cfg, self.tok, max_len=2048,
+                                **kw)
+            httpd = make_http_server(srv, "127.0.0.1", 0)
+            th = threading.Thread(target=httpd.serve_forever, daemon=True)
+            th.start()
+            port = httpd.server_address[1]
+            try:
+                res[kind] = self._http_turns(port, ref, frames)
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                srv.close()
+                ref.close()
+        self.out["server"] = res
+
+    @staticmethod
+    def _http_turns(port, ref, frames):
+        def post(path, payload):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}{path}",
+                data=json.dumps(payload).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req) as r:
+                return r.read()
+
+        got, want = [], []
+        for sid in ("a", "b"):
+            got.append(json.loads(post("/session", {"session_id": sid})))
+            want.append(ref.create(sid))
+            r = json.loads(post("/ingest", {"session_id": sid,
+                                            "video_path": frames,
+                                            "start": None, "end": None,
+                                            "fps": 1.0}))
+            got.append({k: r[k] for k in ("frames", "cache_tokens")})
+            rj = ref.ingest(sid, frames, None, None, 1.0)
+            want.append({k: rj[k] for k in ("frames", "cache_tokens")})
+        for q, mode in (("what is happening?", "AC"), ("and now?", "FCC")):
+            for sid in ("a", "b"):
+                got.append(json.loads(post("/ask", {
+                    "session_id": sid, "question": q, "mode": mode,
+                    "max_new_tokens": 6})))
+                want.append(ref.ask(sid, q, mode=mode, max_new_tokens=6))
+        raw = post("/ask_stream", {"session_id": "a", "question": "more?",
+                                   "mode": "AC", "max_new_tokens": 6})
+        text, meta = raw.rsplit(b"\x1e", 1)
+        items = list(ref.ask_stream("a", "more?", mode="AC",
+                                    max_new_tokens=6))
+        got.append({"text": text.decode(), "meta": json.loads(meta)})
+        want.append({"text": "".join(items[:-1]), "meta": items[-1]})
+        return {"got": got, "want": json.loads(json.dumps(want))}
+
+    def fault(self, case):
+        """A sharded server (tp = 2, solo sessions) whose rank 1 fails in
+        its second ask: ``early`` as the ask starts, before any collective
+        of it; ``mid`` in its prefill, at the third row-parallel reduce.
+        Rank 0 serves HTTP and writes its port to ``--dir/<case>.port``;
+        the parent test is the client. Neither rank returns: the server's
+        fault path ends both."""
+        from cogstream_tpu_torch.models import qwen2
+        from cogstream_tpu_torch.parallel.mesh import make_mesh
+        from cogstream_tpu_torch.runtime.serve import (SessionServer,
+                                                       make_http_server)
+
+        mesh = make_mesh(data_parallel=1, model_parallel=2)
+        srv = SessionServer(self.model(), self.cfg, self.tok, max_len=2048,
+                            mesh=mesh)
+        if mesh.rank == 0:
+            httpd = make_http_server(srv, "127.0.0.1", 0)
+            path = os.path.join(self.dir, f"{case}.port")
+            with open(path + ".tmp", "w") as f:
+                f.write(str(httpd.server_address[1]))
+            os.replace(path + ".tmp", path)
+            httpd.serve_forever()
+            return
+        asks, reduces = [], []
+        op_ask, dense = srv._op_ask, qwen2.dense
+
+        def faulty_ask(*a, **k):
+            asks.append(1)
+            if len(asks) == 2 and case == "early":
+                raise RuntimeError("injected fault before any collective")
+            return op_ask(*a, **k)
+
+        def faulty_dense(*a, **k):
+            if len(asks) == 2 and k.get("reduce") is not None:
+                reduces.append(1)
+                if len(reduces) == 3:
+                    raise RuntimeError("injected fault mid-forward")
+            return dense(*a, **k)
+
+        srv._op_ask = faulty_ask
+        qwen2.dense = faulty_dense
+        srv.follow()
+
+    # -- worlds -----------------------------------------------------------
+
+    def world2(self):
+        from cogstream_tpu_torch.parallel.mesh import make_mesh
+
+        tp = make_mesh(data_parallel=1, model_parallel=2)
+        model = self.model()
+        self.plans(model, tp)
+        self.forward("forward2", model, tp)
+        self.session("session2", tp, model)
+        self.session("enc8", tp, model, lookahead=False, encoder_int8=True)
+        self.session("int8", tp, self.model("params_int8"),
+                     cfg=self.flags(w8a8_prefill=True), encoder_int8=True)
+        int4 = self.model("params_int4")
+        self.session("int4", tp, int4)
+        self.int4_activations_refused(int4, tp)
+        self.engine(model, tp)
+        self.loader(tp)
+        self.server(model, tp)
+
+    def world4(self):
+        from cogstream_tpu_torch.parallel.mesh import make_mesh
+
+        tp = make_mesh(data_parallel=1, model_parallel=4)
+        dp = make_mesh(data_parallel=2, model_parallel=2)
+        model = self.model()
+        self.forward("forward4", model, tp)
+        self.generate(model, tp)
+        self.session("session4", tp, model)
+        self.pool(model, dp)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--rank", type=int, required=True)
+    ap.add_argument("--port", type=int, required=True)
+    ap.add_argument("--dir", required=True)
+    ap.add_argument("--fault", choices=("early", "mid"),
+                    help="run Rank.fault(case) instead of the world's cases")
+    args = ap.parse_args()
+    torch.set_num_threads(1)
+    from cogstream_tpu_torch.parallel.distributed import initialize_if_needed
+
+    initialize_if_needed(f"tcp://127.0.0.1:{args.port}", args.world,
+                         args.rank, backend="gloo",
+                         timeout_s=FAULT_GROUP_TIMEOUT_S if args.fault
+                         else 300)
+    rank = Rank(args)
+    if args.fault:
+        rank.fault(args.fault)
+        return 1
+    stem = os.path.join(args.dir, f"w{args.world}_r{args.rank}")
+    try:
+        getattr(rank, f"world{args.world}")()
+    except Exception:  # noqa: BLE001 — recorded for the parent, then rc 1
+        rank.out["error"] = traceback.format_exc()
+        with open(stem + ".json", "w") as f:
+            json.dump(rank.out, f)
+        return 1
+    np.savez(stem + ".npz", **rank.arrays)
+    with open(stem + ".json", "w") as f:
+        json.dump(rank.out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
