@@ -270,7 +270,7 @@ KERNELS = [  # name, wrapper module, attribute, source, TPU kernel replaced
      "cogstream_tpu_torch/csrc/segment_attention.cu",
      "cogstream_tpu/ops/flash_attention.py:90"),
     ("K6_int4_gemv", "cogstream_tpu_torch.ops.quant_gemv", "gemv_k6",
-     "cogstream_tpu_torch/csrc/int4_gemv.cu",
+     "cogstream_tpu_torch/csrc/quant_gemv_sm90.cu",
      "cogstream_tpu/ops/quant_gemv.py:112"),
     ("K7_int4_gemv_w4a8", "cogstream_tpu_torch.ops.quant_gemv", "gemv_k7",
      "cogstream_tpu_torch/csrc/int4_gemv.cu",
@@ -284,7 +284,7 @@ KERNELS = [  # name, wrapper module, attribute, source, TPU kernel replaced
     # not a TPU kernel: the Hopper counterpart of the dequant XLA fuses
     # into the JAX package's int8 matmul
     ("K10_int8_gemv", "cogstream_tpu_torch.ops.int8_gemv", "gemv_k10",
-     "cogstream_tpu_torch/csrc/int8_gemv.cu",
+     "cogstream_tpu_torch/csrc/quant_gemv_sm90.cu",
      "none (XLA fusion, cogstream_tpu/ops/quant.py:575)"),
 ]
 BF16_PATH = range(0, 4)     # K1-K4: the bf16 main path (phase 5)
@@ -417,7 +417,9 @@ def row_check(got, ref, width: int):
 # K5 at D = 72 (one body, with and without the rotation), K4 at D = 128
 # (1 m-tile for S <= 2, 2 for longer steps) and D = 64, each K3 / K4 over a
 # bf16 and over an e4m3 cache (the template flag F8), K8 and K9 by their
-# largest count of n8 row tiles (m <= 8, 16, 32, 64), as is K10
+# largest count of n8 row tiles (m <= 8, 16, 32, 64), as is the K10 kernel
+# before PR 16 (phase 3's yardstick); K6 and K10 on their warpgroup-MMA
+# kernel by variant and MMA width N
 TC_KERNELS = {"K3 tc <D=128, 2 m-tiles>": "gqa_prefill_tc_kernelILi128ELi2ELb0E",
               "K3 tc <D=128, 1 m-tile>": "gqa_prefill_tc_kernelILi128ELi1ELb0E",
               "K3 tc e4m3 <D=128, 2 m-tiles>":
@@ -442,10 +444,14 @@ TC_KERNELS = {"K3 tc <D=128, 2 m-tiles>": "gqa_prefill_tc_kernelILi128ELi2ELb0E"
               "K9 tc <2 n-tiles>": "int4_gemv_tc_kernelILi2ELi2E",
               "K9 tc <4 n-tiles>": "int4_gemv_tc_kernelILi2ELi4E",
               "K9 tc <8 n-tiles>": "int4_gemv_tc_kernelILi2ELi8E",
-              "K10 tc <1 n-tile>": "int8_gemv_tc_kernelILi1E",
-              "K10 tc <2 n-tiles>": "int8_gemv_tc_kernelILi2E",
-              "K10 tc <4 n-tiles>": "int8_gemv_tc_kernelILi4E",
-              "K10 tc <8 n-tiles>": "int8_gemv_tc_kernelILi8E"}
+              "K10 before PR 16 <1 n-tile>": "int8_gemv_tc_kernelILi1E",
+              "K10 before PR 16 <8 n-tiles>": "int8_gemv_tc_kernelILi8E",
+              "K6 sm90 <uniform, N=8>": "quant_gemv_sm90_kernelILi0ELi8E",
+              "K6 sm90 <cubic, N=8>": "quant_gemv_sm90_kernelILi1ELi8E",
+              "K6 sm90 <uniform, N=64>": "quant_gemv_sm90_kernelILi0ELi64E",
+              "K10 sm90 <N=8>": "quant_gemv_sm90_kernelILi3ELi8E",
+              "K10 sm90 <N=40>": "quant_gemv_sm90_kernelILi3ELi40E",
+              "K10 sm90 <N=64>": "quant_gemv_sm90_kernelILi3ELi64E"}
 
 
 def lm_attention_smem(kv_len: int = 16384) -> dict:
@@ -966,9 +972,75 @@ def _int4pack_ms(xb, packs, n: int, ref, ref_layer: int = 0):
     return graph_ms(call, n), f"worst row error {err:.3g} of its max"
 
 
+def sass_conversions() -> dict:
+    """Int-to-float conversions (I2F, I2FP) and byte permutes in the SASS
+    of the int4 GEMV kernels of the built library, by kernel: the CUDA-core
+    kernel K6 ran before PR 16 (``int4_gemv_kernel``, uniform and cubic at
+    one row) and its replacement (``quant_gemv_sm90_kernel``, N = 8).
+    ``cuobjdump`` comes with the CUDA toolkit; without it, {}."""
+    import re
+
+    from cogstream_tpu_torch.ops import kernels
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(kernels.build())],
+                          capture_output=True, text=True).stdout
+    names = {"K6 before PR 16, uniform": "int4_gemv_kernelILi0ELi1E",
+             "K6 before PR 16, cubic": "int4_gemv_kernelILi1ELi1E",
+             "K6 sm90, uniform": "quant_gemv_sm90_kernelILi0ELi8E",
+             "K6 sm90, cubic": "quant_gemv_sm90_kernelILi1ELi8E"}
+    out, cur = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            cur = next((k for k, n in names.items() if n in fn.group(1)
+                        and k not in out), None)
+            if cur:
+                out[cur] = {"I2F": 0, "PRMT": 0, "HFMA2": 0, "LOP3": 0}
+            continue
+        if cur:
+            for op in re.findall(r"\b(I2FP?|PRMT|HFMA2|LOP3)\b", line):
+                out[cur]["I2F" if op.startswith("I2F") else op] += 1
+    return out
+
+
+def _k6_before(cubic, xb, q4, sc, code):
+    """One 2D call on the CUDA-core kernel K6 ran before PR 16
+    (``cs_int4_gemv``, now K7's), bf16 out: phase 3's yardstick of the new
+    K6 on the same operands; used nowhere in the port."""
+    from cogstream_tpu_torch.ops import quant_gemv as qg
+
+    return qg._launch(qg.CUBIC if cubic else qg.UNIFORM, xb, None, q4, sc,
+                      code, xb.dtype)
+
+
+def _graph_replay_equal(call, x, fresh):
+    """One ``call()`` captured in a CUDA graph, replayed after ``x`` was
+    rewritten in place with ``fresh``: equal bit for bit to the eager call
+    on the new values."""
+    import torch
+
+    call()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = call()
+    x.copy_(fresh)
+    g.replay()
+    torch.cuda.synchronize()
+    return bool(torch.equal(out, call()))
+
+
 def check_int4_kernels(dev):
     """K6 (uniform and cubic) and K7 on the 7B lm_head (3584 -> 152064,
-    m = 1); K8 and K9 on stacked gate_proj [28, 1792, 18944] at m = 1, 40
+    m = 1; K6 also at m = 5, the lookahead verify, and on a vocab shard
+    [1792, 76032]), K6 beside the CUDA-core kernel it ran before PR 16 and
+    ``torch._weight_int4pack_mm``, called twice (bit-identical) and
+    replayed from a CUDA graph (equal to the eager call); K8 and K9 on
+    stacked gate_proj [28, 1792, 18944] at m = 1, 40
     and 64 and down_proj [28, 9472, 3584] at m = 1, layer 17, each also
     timed on the CUDA-core kernel and called twice (bit-identical). Each
     wrapper
@@ -993,13 +1065,19 @@ def check_int4_kernels(dev):
     head_c = {**head_u, "code": torch.tensor([CUBIC_A, CUBIC_C], device=dev)}
     x1 = torch.as_tensor(rng.standard_normal((1, 3584))).to(dev, bf)
     lines = []
-    for key, qp, w4a8 in (("K6", head_u, False), ("K6_cubic", head_c, False),
-                          ("K7", head_u, True)):
+    for conv, found in sass_conversions().items():
+        log(f"kernel K6 SASS, {conv} (per kernel body): {found}")
+    cases = [("K6", head_u, False, 1), ("K6_cubic", head_c, False, 1),
+             ("K7", head_u, True, 1), ("K6", head_u, False, 5),
+             ("K6_cubic", head_c, False, 5)]
+    for key, qp, w4a8, m in cases:
+        x1 = torch.as_tensor(rng.standard_normal((m, 3584))).to(dev, bf)
         got = qg.int4_rank1_gemv(x1, qp, bf, w4a8=w4a8)
         ref = qg.int4_rank1_gemv_plain(x1, qp, bf, w4a8=w4a8)
         err, ratio = row_check(got, ref, 152064)
         xs = x1.float() * qp["rscale"][None]
         sc = qp["scale"] * qp["code"][0] if key != "K6_cubic" else qp["scale"]
+        extra = ""
         if w4a8:
             xq, sx = qg._int8_halves(xs, 1792)
             ms = graph_ms(lambda: qg.gemv_k7(xq, sx, qp["q4"], sc, bf), 20)
@@ -1010,13 +1088,25 @@ def check_int4_kernels(dev):
             code = qp["code"] if key == "K6_cubic" else torch.cat(
                 [qp["code"], qp["code"].new_zeros(1)])
             cubic = key == "K6_cubic"
-            ms = graph_ms(lambda: qg.gemv_k6(xb, qp["q4"], sc, code, cubic,
-                                             bf), 20)
+            call = (lambda: qg.gemv_k6(xb, qp["q4"], sc, code, cubic, bf))
+            same = bool(torch.equal(call(), call()))
+            replay = _graph_replay_equal(call, xb, (torch.as_tensor(
+                rng.standard_normal((m, 3584))).to(dev) * xs.std()).to(bf))
+            if not same or not replay:
+                raise AssertionError(f"{key} m={m}: two calls equal {same}, "
+                                     f"graph replay equal {replay}")
+            ms = graph_ms(call, 20)
+            before_ms = graph_ms(lambda: _k6_before(cubic, xb, qp["q4"], sc,
+                                                    code), 20)
+            ms_again = graph_ms(call, 20)
             plain_ms = graph_ms(lambda: qg._plain_bf16(xb, qp["q4"], sc, code,
                                                        cubic, bf), 3)
+            extra = (f" (CUDA-core kernel before PR 16 {before_ms:.4f} ms, "
+                     f"this kernel again {ms_again:.4f}; two calls "
+                     f"bit-identical {same}, graph replay equal {replay})")
         wrap_ms = cuda_ms(lambda: qg.int4_rank1_gemv(x1, qp, bf, w4a8=w4a8),
                           20)
-        if key == "K6":
+        if key == "K6" and m == 1:
             lib = _int4pack_ms(xs.to(bf), [_int4pack(qp["q4"], sc)], 20,
                                got)
             LIB_INT4[key] = lib
@@ -1024,11 +1114,27 @@ def check_int4_kernels(dev):
                 f"{lib[0]} ms ({lib[1]})")
         # the launcher's operands: activations (bf16, or int8 + two f32
         # scales), packed nibbles, column scales, codebook; bf16 out
-        act = x1.numel() * (1 if w4a8 else 2) + (8 if w4a8 else 0)
+        act = x1.numel() * (1 if w4a8 else 2) + (8 * m if w4a8 else 0)
         bnd = bound_ms(act + nbytes(qp["q4"], qp["scale"], qp["code"], got),
-                       2 * 3584 * 152064, "int8" if w4a8 else "bf16")
-        lines.append((key, "lm_head m=1", err, ratio, ms, plain_ms, wrap_ms,
-                      bnd))
+                       2 * m * 3584 * 152064, "int8" if w4a8 else "bf16")
+        lines.append((key, f"lm_head m={m}{extra}", err, ratio, ms, plain_ms,
+                      wrap_ms, bnd))
+    # a vocab shard of the lm_head (tensor parallelism over two cards'
+    # columns), uniform, m = 1
+    shard = {k: v[..., :76032].contiguous() if k in ("q4", "scale") else v
+             for k, v in head_u.items()}
+    x1 = torch.as_tensor(rng.standard_normal((1, 3584))).to(dev, bf)
+    got = qg.int4_rank1_gemv(x1, shard, bf)
+    err, ratio = row_check(got, qg.int4_rank1_gemv_plain(x1, shard, bf), 76032)
+    xb = (x1.float() * shard["rscale"][None]).to(bf)
+    sc = shard["scale"] * shard["code"][0]
+    code = torch.cat([shard["code"], shard["code"].new_zeros(1)])
+    ms = graph_ms(lambda: qg.gemv_k6(xb, shard["q4"], sc, code, False, bf), 20)
+    lines.append(("K6", "lm_head vocab shard [1792, 76032] m=1", err, ratio,
+                  ms, float("nan"), float("nan"),
+                  bound_ms(2 * 3584 + nbytes(shard["q4"], shard["scale"], got),
+                           2 * 3584 * 76032)))
+    del shard
 
     # stacked: gate_proj (m = 1, 40 and 64) and down_proj (m = 1), layer
     # 17, on the tensor-core kernel; beside each, the CUDA-core kernel that
@@ -1166,14 +1272,41 @@ def _int8pack_ms(x, q, scale, n: int):
     return graph_ms(call, n), None
 
 
+def _k10_before(x, q, scale, layer, m, din, dout, dev):
+    """One bf16 call on the mma.sync kernel (``cs_int8_gemv``, its split
+    from ``stacked_plan``; K10's only bf16 kernel before PR 16, since then
+    its route for the smaller products), bf16 out, whatever the size."""
+    import torch
+
+    from cogstream_tpu_torch.ops import kernels
+    from cogstream_tpu_torch.ops import quant_gemv as qg
+
+    rows, splits = quant_gemv_plan(m, din, dout, dev)
+    part, tickets = qg._tc_workspace(dev, splits * m * dout, dout // 128)
+    out = torch.empty((m, dout), dtype=torch.bfloat16, device=dev)
+    kernels.check(kernels.library().cs_int8_gemv(
+        x.data_ptr(), q.data_ptr(), din * dout if layer is not None else 0,
+        scale.data_ptr(), dout if layer is not None else 0,
+        None if layer is None else layer.data_ptr(), out.data_ptr(),
+        part.data_ptr(), tickets.data_ptr(), m, din, dout, rows, splits,
+        kernels.dtype_code(x), kernels.dtype_code(out),
+        kernels.stream_ptr(x)), "cs_int8_gemv")
+    return out
+
+
 def check_int8_kernels(dev):
     """K10 on stacked gate_proj [28, 3584, 18944] (column-major layers) at
-    m = 1, 40 and 64, down_proj [28, 18944, 3584] at m = 1 (layer 17) and
-    the 2D lm_head [3584, 152064] at m = 1, against its plain version on
-    the same card (bf16 in and out) within the per-row bound of phase 3;
-    two calls bit-identical; one call captured in a CUDA graph, replayed
-    after x (and the layer index) were rewritten in place, equal to the
-    eager call on the new values. Kernel and plain ms from CUDA graphs
+    m = 1, 5, 40 and 64, down_proj [28, 18944, 3584] at m = 1 (layer 17),
+    the 2D lm_head [3584, 152064] at m = 1 and q_proj [28, 3584, 3584] /
+    k_proj [28, 3584, 512] at m = 1 and 5, against its plain version
+    on the same card (bf16 in and out) within the per-row bound of phase
+    3; two calls bit-identical; one call captured in a CUDA graph,
+    replayed after x (and the layer index) were rewritten in place, equal
+    to the eager call on the new values; the wrapper's route (by
+    ``int8_gemv.takes_sm90``) timed beside both kernels on the same
+    operands, and the count of tensor maps the persistent kernel encoded
+    (one per weight tensor, none per call). Kernel and plain ms from CUDA
+    graphs
     (stacked sites cycle over the 28 layers, so every launch reads its
     weights from device memory). Then the W8A8 product of one gate_proj
     at a 4384-row prefill: ``quantize_int8_act`` + ``torch._int_mm`` +
@@ -1186,12 +1319,20 @@ def check_int8_kernels(dev):
     from cogstream_tpu_torch.ops import int8_gemv as ig
     from cogstream_tpu_torch.ops import quant
 
+    from cogstream_tpu_torch.ops import kernels
+    from cogstream_tpu_torch.ops import quant_gemv as qg
+
     rng = np.random.default_rng(4)
     bf = torch.bfloat16
     lines = []
-    for site, shape, ms_list in (("gate_proj", (28, 3584, 18944), (1, 40, 64)),
+    encodes = kernels.library().cs_quant_gemv_sm90_encodes
+    enc0, calls = encodes(), 0
+    for site, shape, ms_list in (("gate_proj", (28, 3584, 18944),
+                                  (1, 5, 40, 64)),
                                  ("down_proj", (28, 18944, 3584), (1,)),
-                                 ("lm_head", (3584, 152064), (1,))):
+                                 ("lm_head", (3584, 152064), (1,)),
+                                 ("q_proj", (28, 3584, 3584), (1, 5)),
+                                 ("k_proj", (28, 3584, 512), (1, 5))):
         qp = _int8_store(dev, shape, int(rng.integers(1 << 30)))
         stacked = len(shape) == 3
         L = shape[0] if stacked else 1
@@ -1221,21 +1362,43 @@ def check_int8_kernels(dev):
                 raise AssertionError(f"K10 {site} m={m}: two calls equal "
                                      f"{same}, graph replay equal {replay}")
             it = iter(range(10 ** 9))
-            if stacked:
-                ms = graph_ms(lambda: ig.gemv_k10(
-                    x, qp["q"], qp["scale"], ids[next(it) % L:][:1], bf), L)
-            else:
-                ms = graph_ms(lambda: ig.gemv_k10(x, qp["q"], qp["scale"],
-                                                  None, bf), 10)
+            n_calls = L if stacked else 10
+
+            def lay():
+                return ids[next(it) % L:][:1] if stacked else None
+
+            def new():
+                return ig.gemv_k10(x, qp["q"], qp["scale"], lay(), bf)
+
+            def before():
+                return _k10_before(x, qp["q"], qp["scale"], lay(), m, din,
+                                   dout, dev)
+
+            def sm90():
+                return qg._launch_sm90(qg.INT8, x, qp["q"], L if stacked
+                                       else 1, qp["scale"], dout if stacked
+                                       else 0, lay(), None, din, dout, bf)
+            ms = graph_ms(new, n_calls)
+            before_ms = graph_ms(before, n_calls)
+            sm90_ms = graph_ms(sm90, n_calls)
+            ms_again = graph_ms(new, n_calls)
+            calls += 4 + 4 * n_calls
             plain_ms = graph_ms(lambda: ig._plain(x, q17, s17, None, bf), 3)
             lib_ms, why = _int8pack_ms(x, q17, s17, 10)
             bnd = bound_ms(nbytes(x, q17, s17, got), 2 * m * din * dout)
-            rows, splits = quant_gemv_plan(m, din, dout, dev)
+            grid = qg.stream_grid(*qg.sm90_units(din, dout),
+                                  torch.cuda.get_device_properties(
+                                      dev).multi_processor_count)
+            route = ("persistent" if ig.takes_sm90(m, din, dout)
+                     else "mma.sync")
             lines.append((f"{site} [{'28, ' if stacked else ''}{din}, {dout}] "
-                          f"m={m} ({splits} K splits of {rows} rows; two "
-                          f"calls bit-identical {same}, graph replay equal "
-                          f"{replay})", err, ratio, ms, plain_ms, lib_ms, why,
-                          bnd))
+                          f"m={m} (the {route} kernel; the persistent one "
+                          f"{sm90_ms:.4f} ms in {grid} blocks, the mma.sync "
+                          f"one (K10 before PR 16) {before_ms:.4f} ms, the "
+                          f"route again {ms_again:.4f}; two calls "
+                          f"bit-identical {same}, graph replay equal "
+                          f"{replay})", err, ratio, ms, plain_ms, lib_ms,
+                          why, bnd))
         if site == "gate_proj":
             # the W8A8 product of one layer at a 4384-row prefill
             xp = torch.as_tensor(rng.standard_normal((4384, din))).to(dev, bf)
@@ -1268,6 +1431,12 @@ def check_int8_kernels(dev):
                                  "version")
     log("kernel W8A8 gate_proj [3584, 18944] at 4384 rows (one layer): "
         + ", ".join(f"{k} {v:.4f}" for k, v in w8a8.items()))
+    # the tensor maps are encoded once per weight tensor, not per call
+    enc = encodes() - enc0
+    log(f"kernel K10: {enc} tensor maps encoded over {calls} calls on 5 "
+        "weight tensors")
+    if not 1 <= enc <= 5:
+        raise AssertionError(f"K10 encoded {enc} tensor maps for 5 weights")
     first = lines[0]
     return {"name": KERNELS[9][0], "route": "cuda", "source": KERNELS[9][3],
             "replaces": KERNELS[9][4],
@@ -1277,7 +1446,8 @@ def check_int8_kernels(dev):
 
 
 def quant_gemv_plan(m: int, din: int, dout: int, dev):
-    """K10's (rows per split, splits) on ``dev`` (ops/int8_gemv.py)."""
+    """The (rows per split, splits) of the K10 kernel before PR 16 on
+    ``dev`` (phase 3's yardstick)."""
     import torch
 
     from cogstream_tpu_torch.ops import quant_gemv as qg
@@ -2910,7 +3080,8 @@ def decode_step_cost(text, label: str, stamp: str, steps: int = 10,
     n = sum(e.count for e in kern)
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
     gemv_ms = sum(e.self_device_time_total for e in kern
-                  if "int4_gemv" in e.key or "int8_gemv" in e.key) / 1e3
+                  if "int4_gemv" in e.key or "int8_gemv" in e.key
+                  or "quant_gemv" in e.key) / 1e3
     t0 = time.perf_counter()
     for i in range(steps):
         step(2 + i)
@@ -4531,7 +4702,7 @@ def run_int8_path(model, dev, stamp):
             cfg = dataclasses.replace(cfg0, text=dataclasses.replace(
                 cfg0.text, w8a8_prefill=w8))
             reset_counts()
-            wrapper(9).launches = 0
+            wrapper(9).launches = wrapper(9).sm90_launches = 0
             mm0 = dict(quant.int8_mm.calls)
             spy.calls = 0
             timer = PhaseTimer()
@@ -4572,7 +4743,8 @@ def run_int8_path(model, dev, stamp):
                 f"{pf[0][0]} tokens in {pf[0][1]:.3f}s, "
                 f"{pf[0][0] / pf[0][1]:.0f} tok/s); FCC turn {turn_s:.3f}s, "
                 f"{len(r['tokens'])} tokens, marginal decode {dec:.1f} tok/s; "
-                f"K10 launches {n10}; _int_mm calls {mm}; int8 dequantized "
+                f"K10 launches {n10} ({wrapper(9).sm90_launches} on the "
+                f"persistent kernel); _int_mm calls {mm}; int8 dequantized "
                 f"in decode steps {spy.calls}; K1-K4 launches {launches}, "
                 f"all K1/K3/K4 on tensor cores {all_tc}; finite {finite} "
                 f"[{stamp}]")

@@ -1,8 +1,10 @@
-// K6-K9: fused-unpack rank-1 int4 GEMV for decode-sized m (<= 64).
+// K7: fused-unpack rank-1 int4 GEMV for decode-sized m (<= 64).
 //
-// Replaces cogstream_tpu/ops/quant_gemv.py::_gemv_kernel (K6, uniform or
-// cubic codebook), _gemv_kernel_w4a8 (K7), _gemv_kernel_idx (K8) and
-// _gemv_kernel_idx_w4a8 (K9). One templated kernel serves all four:
+// Replaces cogstream_tpu/ops/quant_gemv.py::_gemv_kernel_w4a8 (K7). Its
+// uniform and cubic forms were K6 until PR 16 (_gemv_kernel; K6 now runs
+// quant_gemv_sm90.cu) and its stacked forms K8 / K9 until PR 6
+// (int4_gemv_tc.cu); chip_smoke.py phase 3 still times them on the same
+// operands as those kernels' yardsticks. One templated kernel serves all:
 //
 //   out[r, o] = epilogue( sum_p  x_lo[r, p] * w(lo(q[p, o]))
 //                              + x_hi[r, p] * w(hi(q[p, o])) )

@@ -1,4 +1,7 @@
-// K10 on Hopper: the weight-only int8 GEMV for m <= 64 rows, over stacked
+// K10's f32 route and its mma.sync route for the smaller bf16 products
+// (ops/int8_gemv.py takes_sm90: the larger ones run quant_gemv_sm90.cu, a
+// decode step's projections at m = 1 run this one): the weight-only int8
+// GEMV for m <= 64 rows, over stacked
 // [L, din, dout] weights with the layer index read on the device (the
 // decoder's projection sites) or one 2D [din, dout] weight (the lm_head).
 // Each layer is stored column-major (weight (k, o) at o * din + k), the

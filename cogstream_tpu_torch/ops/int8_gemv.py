@@ -1,5 +1,5 @@
-"""K10: the weight-only int8 GEMV (``csrc/int8_gemv.cu``) and its plain
-version.
+"""K10: the weight-only int8 GEMV (``csrc/quant_gemv_sm90.cu`` and
+``csrc/int8_gemv.cu``) and its plain version.
 
 An int8 weight (ops/quant.py ``quantize_int8``) is ``q`` int8 ``[din,
 dout]`` (stacked ``[L, din, dout]`` per decoder projection site) with a
@@ -17,11 +17,15 @@ backward is the transpose of that form, ``dx = g @ W_deq^T``.
 
 The route is K8's (``ops/quant_gemv.py`` ``gemv_viable``): decode-sized
 ``m <= 64`` with shapes that block into 128-multiples. bf16 activations
-run the tensor-core kernel (one launch per call, its K splits summed
-through a per-device workspace, so a call allocates only its output and
-can be captured in a CUDA graph); f32 activations run a CUDA-core kernel
-without bf16 rounding. For a CUDA tensor the wrapper launches or raises;
-there is no fallback.
+run one of two tensor-core kernels, by the product's size (:func:`takes_sm90`):
+K6's persistent kernel (``quant_gemv._launch_sm90``: stream-K over
+256-column tiles, a TMA ring, warpgroup MMAs) for the large ones, the
+mma.sync kernel of ``cs_int8_gemv`` (its K split from ``stacked_plan``)
+for the small ones; each is one launch per call whose split tiles meet in
+the per-device workspace, so a call allocates only its output and can be
+captured in a CUDA graph. f32 activations run a CUDA-core kernel without
+bf16 rounding. For a CUDA tensor the wrapper launches or raises; there is
+no fallback.
 """
 
 from __future__ import annotations
@@ -32,7 +36,23 @@ import torch
 
 from . import kernels
 from .quant import frozen_product
-from .quant_gemv import _pick_blocks, _tc_workspace, stacked_plan
+from .quant_gemv import (INT8, _launch_sm90, _pick_blocks, _tc_workspace,
+                         stacked_plan)
+
+# The bf16 products (m x din x dout) that take the persistent kernel: it
+# pays a fixed cost a call (its pipeline fill, the stream-K finish) that
+# smaller products do not repay. On the H100 (PERF.md section 6, PR 16)
+# the mma.sync kernel was as fast or faster for every decode step's
+# projection at m = 1 (2^24-2^26) and for q/k/v/o at m = 5 (2^26), the
+# persistent one faster from gate_proj at m = 5 (2^28.3), q/o at m = 64
+# and the lm_head at m = 1 (2^29) on.
+SM90_MIN_PRODUCT = 1 << 28
+
+
+def takes_sm90(m: int, din: int, dout: int) -> bool:
+    """Whether a bf16 K10 call of this shape runs the persistent kernel
+    (else the mma.sync kernel)."""
+    return m * din * dout > SM90_MIN_PRODUCT
 
 
 def gemv_viable(qp: Dict[str, torch.Tensor], m: int, m_max: int = 64) -> bool:
@@ -61,10 +81,10 @@ def _plain(x, q, scale, layer, out_dtype):
 
 
 def _launch(x, q, scale, layer, out_dtype):
-    """One ``cs_int8_gemv`` launch: ``x`` [m, din] f32 or bf16, ``q``
-    [din, dout] or [L, din, dout] (each matrix column-major) with
-    ``layer`` an int32 [1] on the device, ``scale`` [dout] or [L, dout]
-    f32."""
+    """One launch: ``x`` [m, din] bf16 (``cs_quant_gemv_sm90``) or f32
+    (``cs_int8_gemv``), ``q`` [din, dout] or [L, din, dout] (each matrix
+    column-major) with ``layer`` an int32 [1] on the device, ``scale``
+    [dout] or [L, dout] f32."""
     dev = x.device
     stacked = q.ndim == 3
     din, dout = q.shape[-2:]
@@ -81,10 +101,17 @@ def _launch(x, q, scale, layer, out_dtype):
         kernels.require(layer, "layer", dev, torch.int32, (1,))
     if m > 64:
         raise ValueError(f"int8 GEMV serves m <= 64, got {m}")
+    tc = x.dtype == torch.bfloat16
+    if tc and takes_sm90(m, din, dout):
+        out = _launch_sm90(INT8, x, q, q.shape[0] if stacked else 1, scale,
+                           dout if stacked else 0, layer if stacked else None,
+                           None, din, dout, out_dtype)
+        gemv_k10.tc_launches += 1
+        gemv_k10.sm90_launches += 1
+        return out
     out = torch.empty((m, dout), dtype=out_dtype, device=dev)
     if m == 0:
         return out
-    tc = x.dtype == torch.bfloat16
     rows = splits = 1
     part = tickets = None
     if tc:
@@ -119,7 +146,8 @@ def gemv_k10(x, q, scale, layer, out_dtype):
 
 
 gemv_k10.launches = 0       # every launch
-gemv_k10.tc_launches = 0    # those on the tensor-core kernel (bf16)
+gemv_k10.tc_launches = 0    # those on a tensor-core kernel (bf16)
+gemv_k10.sm90_launches = 0  # those on the persistent one (takes_sm90)
 
 
 def _gemv(x, qp, out_dtype, plain: bool):

@@ -90,6 +90,12 @@ _SIGNATURES = {
     # m, din, dout, rows_per_split, splits, x dtype, out dtype, stream
     "cs_int8_gemv": (_P, _P, _L, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _I, _I, _P),
+    # x, q, layers, scale, scale_stride, layer, code, out, part, tickets,
+    # m, k, dout, grid, variant, out dtype, stream (K6, K10 bf16)
+    "cs_quant_gemv_sm90": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _I, _I, _I, _P),
+    # tensor maps the K6 / K10 kernel encoded so far (one per weight)
+    "cs_quant_gemv_sm90_encodes": (),
 }
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -1,9 +1,11 @@
 """Fused-unpack 4-bit GEMV for the rank-1 serving scheme: the wrappers of
-K6/K7 (``csrc/int4_gemv.cu``, CUDA cores) and K8/K9 (``csrc/
-int4_gemv_tc.cu``, tensor cores, one launch per call with its K splits
-summed through a per-device workspace, so a call allocates only its
-output and can be captured in a CUDA graph) and their plain versions.
-Port of ``cogstream_tpu/ops/quant_gemv.py``.
+K6 (``csrc/quant_gemv_sm90.cu``: a persistent stream-K grid, a bulk-copy
+ring and warpgroup MMAs, shared with K10), K7 (``csrc/int4_gemv.cu``, CUDA
+cores) and K8/K9 (``csrc/int4_gemv_tc.cu``, tensor cores), and their plain
+versions. K6, K8, K9 and K10 are one launch per call whose K splits meet
+through a per-device workspace, so a call allocates only its output and
+can be captured in a CUDA graph. Port of
+``cogstream_tpu/ops/quant_gemv.py``.
 
 A rank-1 int4 weight (ops/quant.py ``quantize_int4_rank1``) is
 ``w[p, o] = code(nib[p, o]) * rscale[p] * scale[o]`` with the nibbles
@@ -208,7 +210,8 @@ def _check_operands(variant: int, x, sx, q4, scale, layer, code):
 
 
 def _launch(variant: int, x, sx, q4, scale, code, out_dtype):
-    """One K6/K7 launch (``csrc/int4_gemv.cu``) on a 2D weight."""
+    """One ``cs_int4_gemv`` launch (``csrc/int4_gemv.cu``, K7's kernel) on
+    a 2D weight."""
     _check_operands(variant, x, sx, q4, scale, None, code)
     dev = x.device
     half, dout = q4.shape
@@ -268,7 +271,8 @@ def stacked_plan(m: int, half: int, dout: int, w4a8: bool,
     dependent L2 loads (8 splits x 4 rows a round). So every SM streams
     about the same bytes and no wave is left mostly empty. Ties take fewer
     splits. Cached: a decode step asks it for the same few shapes 196
-    times. K10 (ops/int8_gemv.py), whose ring stages hold 128 int8 rows
+    times. K10's mma.sync kernel (ops/int8_gemv.py, the products too
+    small for the persistent kernel), whose ring stages hold 128 int8 rows
     where K8's hold 128 packed rows, plans with it too: ``half`` is then
     its din and ``x_halves`` 1 (one activation row per weight row)."""
     nh, es = (2, 1) if w4a8 else (1, 2)
@@ -304,8 +308,8 @@ _retired_tc_ws: list = []   # outgrown workspaces, kept for captured graphs
 
 def _tc_workspace(dev: torch.device, n_words: int,
                   n_tickets: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K8/K9's split partials (4-byte words: f32 for K8, int32 for K9) and
-    column-tile tickets on ``dev``: made at first use with the tickets
+    """The split partials of K6 and K8-K10 (4-byte words: f32, or int32
+    for K9) and their tickets on ``dev``: made at first use with the tickets
     zeroed (the kernel leaves them zero after every launch), grown when a
     larger call arrives, and otherwise the same tensors on every call, so
     a call allocates nothing but its output. An outgrown workspace is
@@ -353,13 +357,99 @@ def _launch_stacked(variant: int, x, sx, q4, scale, layer, out_dtype):
     return out
 
 
+# csrc/quant_gemv_sm90.cu (K6, K10): a tile is 256 output columns, a
+# stage two 128 x 128-byte TMA boxes of it (128 packed rows for K6, 128 k
+# for K10); one block per SM
+SM90_BOX = 128
+INT8 = 3                # its variant code for K10
+
+
+def sm90_n(m: int) -> int:
+    """The MMA width of ``m`` activation rows: the kernel's instance."""
+    return next(n for n in (8, 16, 32, 40, 64) if m <= n)
+
+
+def sm90_units(k: int, dout: int) -> Tuple[int, int]:
+    """(column tiles, k stages) of one K6 / K10 call: tiles of 256 columns
+    (the last may be half) and stages of 128 rows (K6: packed rows, k the
+    packed row count; K10: k = din)."""
+    return -(-dout // (2 * SM90_BOX)), k // SM90_BOX
+
+
+def stream_grid(n_tiles: int, n_stages: int, sms: int) -> int:
+    """Blocks of one K6 / K10 launch: one per SM (a block takes most of
+    an SM's shared memory, so this is one wave), fewer only when there
+    are fewer (tile, stage) units than SMs."""
+    return min(sms, n_tiles * n_stages)
+
+
+def stream_segments(grid: int, n_tiles: int, n_stages: int):
+    """The stream-K schedule ``csrc/quant_gemv_sm90.cu`` runs: block ``b``
+    takes units ``[b U / grid, (b + 1) U / grid)`` of the ``U = n_tiles *
+    n_stages`` (tile, k stage) units in tile-major order, i.e. for each
+    block a list of (tile, first stage, end stage) segments."""
+    units = n_tiles * n_stages
+    out = []
+    for b in range(grid):
+        u, u1 = b * units // grid, (b + 1) * units // grid
+        segs = []
+        while u < u1:
+            t, s0 = divmod(u, n_stages)
+            s1 = min(n_stages, s0 + u1 - u)
+            segs.append((t, s0, s1))
+            u += s1 - s0
+        out.append(segs)
+    return out
+
+
+def sm90_workspace_words(grid: int, m: int) -> int:
+    """f32 words of K6 / K10's partial sums: per block, its first and last
+    segment's sums for each of the two consumer warpgroups, up to 128
+    columns x ``sm90_n(m)`` rows each."""
+    return grid * 2 * 2 * 128 * sm90_n(m)
+
+
+def _launch_sm90(variant: int, x, q, layers: int, scale,
+                 scale_stride: int, layer, code, k: int, dout: int,
+                 out_dtype):
+    """One ``cs_quant_gemv_sm90`` launch (K6: ``variant`` UNIFORM / CUBIC,
+    ``k`` the packed rows; K10: INT8, ``k`` = din and ``layers`` stacked
+    layers) on checked operands: one kernel, which sums its split tiles
+    itself through the per-device workspace. The kernel reads the weights
+    through a TMA tensor map that the library encodes once per weight
+    tensor and caches."""
+    dev = x.device
+    m = x.shape[0]
+    if k % SM90_BOX or dout % SM90_BOX:
+        raise ValueError(f"cs_quant_gemv_sm90 needs k and dout multiples of "
+                         f"128, got {(k, dout)}")
+    kernels.require_aligned(x, q, scale)
+    out = torch.empty((m, dout), dtype=out_dtype, device=dev)
+    if m == 0:
+        return out
+    grid = stream_grid(*sm90_units(k, dout), kernels.sm_count(dev))
+    part, tickets = _tc_workspace(dev, sm90_workspace_words(grid, m),
+                                  2 * dout // SM90_BOX)
+    kernels.check(kernels.library().cs_quant_gemv_sm90(
+        x.data_ptr(), q.data_ptr(), layers, scale.data_ptr(),
+        scale_stride, None if layer is None else layer.data_ptr(),
+        None if code is None else code.data_ptr(), out.data_ptr(),
+        part.data_ptr(), tickets.data_ptr(), m, k, dout, grid, variant,
+        kernels.dtype_code(out), kernels.stream_ptr(x)),
+        "cs_quant_gemv_sm90")
+    return out
+
+
 def gemv_k6(xb, q4, scale, code, cubic: bool, out_dtype):
     """K6: 2D bf16-dot GEMV (uniform: raw nibbles, the slope already in
     ``scale``; cubic: the codebook from ``code = [A, C]``)."""
     if kernels.plain_route(xb):
         return _plain_bf16(xb, q4, scale, code, cubic, out_dtype)
-    out = _launch(CUBIC if cubic else UNIFORM, xb, None, q4, scale, code,
-                  out_dtype)
+    variant = CUBIC if cubic else UNIFORM
+    _check_operands(variant, xb, None, q4, scale, None, code)
+    half, dout = q4.shape
+    out = _launch_sm90(variant, xb, q4, 1, scale, 0, None,
+                       code if cubic else None, half, dout, out_dtype)
     gemv_k6.launches += 1
     return out
 

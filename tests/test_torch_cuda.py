@@ -1,8 +1,8 @@
 """The port's CUDA kernels (K1-K10) against their plain PyTorch versions,
 on the card: the bf16 tensor-core kernels of K1, K3, K4 and K5 and the
 f32 CUDA-core tiles beside them; K3 and K4 reading a pool cache through
-``rows``; a tiny pool card against CPU; the int4 GEMVs K6-K9, the int8
-GEMV K10 and the W8A8 product's ``torch._int_mm`` at few rows. Marked ``cuda``: without a CUDA device every test skips.
+``rows``; a tiny pool card against CPU; the int4 GEMVs K6-K9 (K6 and K10 in bf16 on one persistent kernel, their
+repeats and graph replays), the int8 GEMV K10 and the W8A8 product's ``torch._int_mm`` at few rows. Marked ``cuda``: without a CUDA device every test skips.
 
 On a machine with a card (and no JAX, so the repo's conftest cannot be
 imported there):
@@ -813,7 +813,15 @@ def test_int8_gemv_repeats_and_replays(dev, m):
     x = _t(rng.standard_normal((m, din)), dev, torch.bfloat16)
     layer = torch.tensor([1], dtype=torch.int32, device=dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert qg.stacked_plan(m, din, dout, False, sms, x_halves=1)[1] > 1
+    if ig.takes_sm90(m, din, dout):
+        # some tile is split between blocks (its sums meet in the workspace)
+        tiles, stages = qg.sm90_units(din, dout)
+        grid = qg.stream_grid(tiles, stages, sms)
+        assert any(s1 - s0 < stages for block in
+                   qg.stream_segments(grid, tiles, stages)
+                   for _, s0, s1 in block)
+    else:
+        assert qg.stacked_plan(m, din, dout, False, sms, x_halves=1)[1] > 1
 
     def call():
         return ig.gemv_k10(x, qp["q"], qp["scale"], layer, torch.bfloat16)
@@ -830,6 +838,65 @@ def test_int8_gemv_repeats_and_replays(dev, m):
     assert torch.equal(out, call())
     _rowwise(out, ig.int8_gemv_plain(x, {**qp, "layer": layer},
                                      torch.bfloat16), 2 ** -7)
+
+
+def _sm90_call(kernel, m, shape, rng, dev):
+    """A K6 (uniform or cubic) or K10 call through its wrapper, on prepared
+    operands of ``shape`` (K6: [half, dout]; K10: [L, din, dout] with
+    layer 1, or [din, dout]), bf16 in and out, with its plain reference on
+    the current values and the tensors a graph replay rewrites."""
+    from cogstream_tpu_torch.ops import int8_gemv as ig
+    from cogstream_tpu_torch.ops import quant_gemv as qg
+
+    if kernel == "K10":
+        qp = _int8_weights(rng, dev, shape)
+        x = _t(rng.standard_normal((m, shape[-2])), dev, torch.bfloat16)
+        layer = torch.tensor([1], dtype=torch.int32, device=dev)
+        w = {**qp, "layer": layer} if len(shape) == 3 else qp
+        return ((lambda: ig.int8_gemv(x, w, torch.bfloat16)),
+                (lambda: ig.int8_gemv_plain(x, w, torch.bfloat16)),
+                x, layer, ig.gemv_k10)
+    qp = _int4_weights(rng, dev, shape, cubic=kernel == "K6_cubic")
+    x = _t(rng.standard_normal((m, 2 * shape[0])), dev, torch.bfloat16)
+    return ((lambda: qg.int4_rank1_gemv(x, qp, torch.bfloat16)),
+            (lambda: qg.int4_rank1_gemv_plain(x, qp, torch.bfloat16)),
+            x, None, qg.gemv_k6)
+
+
+@pytest.mark.parametrize("kernel,shape", [
+    ("K6", (1792, 76032)), ("K6_cubic", (1792, 76032)), ("K6", (896, 384)),
+    ("K10", (3, 3584, 2048)), ("K10", (2, 18944, 512)), ("K10", (3584, 4096))])
+@pytest.mark.parametrize("m", [1, 5, 40, 64])
+def test_sm90_gemv_repeats_and_replays(dev, monkeypatch, kernel, shape, m):
+    """K6 and K10's persistent kernel (K10 forced onto it at every size) on
+    the 2D, the stacked (K10) and the
+    column-shard shapes (a vocab shard of the 7B lm_head: [1792, 76032]):
+    every row within 2 bf16 ulps of its max |ref| of the plain version
+    (2^-7: the same bf16 weights, f32 sums in another order, one rounding
+    on each side); two calls give the same bits; one call captured in a
+    CUDA graph, replayed after x (and the layer index) were rewritten in
+    place, equals the eager call on the new values bit for bit; one launch
+    per call."""
+    from cogstream_tpu_torch.ops import int8_gemv as ig
+
+    monkeypatch.setattr(ig, "SM90_MIN_PRODUCT", -1)
+    rng = np.random.default_rng(m + sum(shape))
+    call, plain, x, layer, wrap = _sm90_call(kernel, m, shape, rng, dev)
+    n0 = wrap.launches
+    first = call()
+    assert wrap.launches == n0 + 1 and first.shape == (m, shape[-1])
+    _rowwise(first, plain(), 2 ** -7)
+    assert torch.equal(first, call())
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = call()
+    x.copy_(_t(rng.standard_normal(tuple(x.shape)), dev, torch.bfloat16))
+    if layer is not None:
+        layer.fill_(shape[0] - 1)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, call())
+    _rowwise(out, plain(), 2 ** -7)
 
 
 def test_int8_gemv_cuda_never_falls_back(dev):

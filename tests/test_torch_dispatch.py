@@ -7,7 +7,10 @@ f32 to the CUDA-core f32 tiles (``cs_vision_attention``,
 ``cs_gqa_attention``, decode then ``cs_gqa_combine``,
 ``cs_segment_attention``). The stacked int4 GEMVs K8/K9 reach one
 ``cs_int4_gemv_tc`` call with the split of ``stacked_plan`` and the
-per-device workspace; K6/K7 stay on ``cs_int4_gemv``. Here the kernel
+per-device workspace; K6 and K10's large bf16 products one
+``cs_quant_gemv_sm90`` call with the stream-K grid of ``stream_grid`` and
+that workspace (K10's small ones ``cs_int8_gemv``); K7 stays on
+``cs_int4_gemv``. Here the kernel
 library, the stream, the SM
 count and the device route are stubbed, so no card is needed: each test
 records the calls a wrapper makes and checks the entry points, the
@@ -553,19 +556,109 @@ def test_stacked_gemv_raises_before_any_call(lib):
 
 
 @pytest.mark.parametrize("w4a8", [False, True])
-def test_2d_gemv_keeps_the_cuda_core_kernel(lib, w4a8):
-    """K6/K7 (the lm_head's 2D weight) stay on ``cs_int4_gemv``."""
+def test_2d_gemv_keeps_the_cuda_core_kernel(lib, monkeypatch, w4a8):
+    """K7 (the lm_head's 2D weight, int8 activations) stays on the
+    CUDA-core ``cs_int4_gemv``; K6 reaches ``cs_quant_gemv_sm90`` as one
+    launch: the packed rows as k, the stream-K grid, the codebook only for
+    the cubic form, and the per-device workspace with a ticket per tile
+    and consumer warpgroup."""
+    monkeypatch.setattr(qg, "_tc_ws", {})
     rng = np.random.default_rng(0)
     q4 = torch.tensor(rng.integers(-128, 128, (256, 1024)), dtype=torch.int8)
     scale = torch.ones(1024)
     if w4a8:
         x = torch.tensor(rng.integers(-127, 128, (1, 512)), dtype=torch.int8)
         qg.gemv_k7(x, torch.ones((1, 2)), q4, scale, torch.float32)
-    else:
-        x = torch.tensor(rng.standard_normal((1, 512)), dtype=torch.bfloat16)
-        qg.gemv_k6(x, q4, scale, torch.tensor([1.0, 0.0]), False,
-                   torch.float32)
-    assert lib.names() == ["cs_int4_gemv"]
+        assert lib.names() == ["cs_int4_gemv"]
+        return
+    x = torch.tensor(rng.standard_normal((1, 512)), dtype=torch.bfloat16)
+    n0 = qg.gemv_k6.launches
+    code = torch.tensor([1.0, 0.0])
+    for cubic in (False, True):
+        out = qg.gemv_k6(x, q4, scale, code, cubic, torch.float32)
+        a = lib.calls[-1][1]
+        grid = qg.stream_grid(*qg.sm90_units(256, 1024), 132)
+        assert qg.sm90_units(256, 1024) == (4, 2)
+        part, tickets = qg._tc_ws[out.device]
+        assert a[1] == q4.data_ptr() and (a[2], a[4], a[5]) == (1, 0, None)
+        assert a[6] == (code.data_ptr() if cubic else None)
+        assert (a[7], a[8], a[9]) == (out.data_ptr(), part.data_ptr(),
+                                      tickets.data_ptr())
+        assert a[10:16] == (1, 256, 1024, grid, int(cubic),
+                            kernels.DTYPE_CODES[torch.float32])
+        assert part.numel() >= qg.sm90_workspace_words(grid, 1)
+        assert tickets.numel() >= 2 * 1024 // 128 and not tickets.any()
+    assert lib.names() == ["cs_quant_gemv_sm90"] * 2
+    assert qg.gemv_k6.launches == n0 + 2
+
+
+@pytest.mark.parametrize("k,dout", [(1792, 152064), (1792, 76032),
+                                    (1792, 38016), (3584, 18944),
+                                    (18944, 3584), (9472, 3584), (128, 128),
+                                    (256, 1024), (640, 384), (3584, 512)])
+@pytest.mark.parametrize("sms", [132, 114, 7, 1])
+def test_stream_plan_covers_every_unit_once(k, dout, sms):
+    """K6 / K10's stream-K schedule: the grid is at most one block per SM
+    (one wave) and at most one block per unit; every (column tile, k
+    stage) unit is covered by exactly one block, each block's segments
+    are contiguous runs of one tile's stages in tile order, and a block
+    splits at most its first and its last tile with other blocks (the two
+    partial-sum slots the kernel gives each block). The units cover every
+    column and every k: 256-column tiles (a half tile where 256 does not
+    divide dout) of 128-row stages (K6: packed rows; K10: k)."""
+    n_tiles, n_stages = qg.sm90_units(k, dout)
+    assert n_tiles * 256 >= dout > (n_tiles - 1) * 256
+    assert n_stages * 128 == k
+    grid = qg.stream_grid(n_tiles, n_stages, sms)
+    assert 1 <= grid <= min(sms, n_tiles * n_stages)
+    seen = {}
+    segs = qg.stream_segments(grid, n_tiles, n_stages)
+    assert len(segs) == grid
+    for b, block in enumerate(segs):
+        assert block, "every block has work"
+        partial = [i for i, (t, s0, s1) in enumerate(block)
+                   if (s0, s1) != (0, n_stages)]
+        assert set(partial) <= {0, len(block) - 1}
+        for t, s0, s1 in block:
+            assert 0 <= t < n_tiles and 0 <= s0 < s1 <= n_stages
+            for s in range(s0, s1):
+                assert (t, s) not in seen
+                seen[(t, s)] = b
+        tiles = [t for t, _, _ in block]
+        assert tiles == sorted(set(tiles))
+    assert len(seen) == n_tiles * n_stages
+    # the units per block differ by at most one: every SM streams the
+    # same bytes
+    sizes = [sum(s1 - s0 for _, s0, s1 in block) for block in segs]
+    assert max(sizes) - min(sizes) <= 1
+
+
+def test_sm90_gemv_workspace_is_reused(lib, monkeypatch):
+    """K6 and K10 calls on one device reuse one workspace (no allocation
+    beyond the output); a call that needs more partial sums grows it,
+    keeping the outgrown one alive for captured graphs."""
+    from cogstream_tpu_torch.ops import int8_gemv as ig
+
+    monkeypatch.setattr(qg, "_tc_ws", {})
+    monkeypatch.setattr(qg, "_retired_tc_ws", [])
+    monkeypatch.setattr(ig, "SM90_MIN_PRODUCT", -1)
+    rng = np.random.default_rng(1)
+    q4 = torch.tensor(rng.integers(-128, 128, (256, 512)), dtype=torch.int8)
+    x = torch.tensor(rng.standard_normal((1, 512)), dtype=torch.bfloat16)
+    code = torch.tensor([1.0, 0.0])
+    xi, q, scale, layer = _int8(1)
+    ig.gemv_k10(xi, q, scale, layer, torch.bfloat16)
+    qg.gemv_k6(x, q4, torch.ones(512), code, False, torch.bfloat16)
+    qg.gemv_k6(x, q4, torch.ones(512), code, True, torch.bfloat16)
+    assert lib.calls[0][1][8:10] == lib.calls[1][1][8:10] == \
+        lib.calls[2][1][8:10]
+    first = qg._tc_ws[x.device]
+    xi, q, scale, layer = _int8(64)
+    ig.gemv_k10(xi, q, scale, layer, torch.bfloat16)
+    assert qg._retired_tc_ws == [first]
+    assert lib.calls[3][1][8] != lib.calls[0][1][8]
+    ig.gemv_k10(xi, q, scale, layer, torch.bfloat16)
+    assert lib.calls[4][1][8:10] == lib.calls[3][1][8:10]
 
 
 def _int8(m, L=3, din=1792, dout=512, dtype=torch.bfloat16, stacked=True):
@@ -585,34 +678,75 @@ def _int8(m, L=3, din=1792, dout=512, dtype=torch.bfloat16, stacked=True):
 @pytest.mark.parametrize("din,dout", [(1792, 512), (18944, 3584),
                                       (256, 128)])
 @pytest.mark.parametrize("stacked", [True, False])
+@pytest.mark.parametrize("sm90", [False, True])
 def test_int8_gemv_is_one_tensor_core_launch(lib, monkeypatch, m, din, dout,
-                                            stacked):
-    """K10 in bf16: one ``cs_int8_gemv`` call per wrapper call, with K8's
-    split model (``stacked_plan`` at one activation row per weight row)
-    and the shared per-device workspace; the stacked form passes its
-    layer pointer and strides, the 2D form (the lm_head) neither."""
+                                            stacked, sm90):
+    """K10 in bf16: one call per wrapper call, on the kernel
+    ``takes_sm90`` picks by the product's size (``sm90`` forces either
+    side of its threshold): ``cs_quant_gemv_sm90`` (the INT8 variant, din
+    as k, the stream-K grid of ``stream_grid``) or ``cs_int8_gemv`` (K8's
+    split model, ``stacked_plan`` at one activation row per weight row),
+    both with the shared per-device workspace; the stacked form passes its
+    layer pointer, layer count or stride and scale stride, the 2D form
+    (the lm_head) no pointer."""
     from cogstream_tpu_torch.ops import int8_gemv as ig
 
     monkeypatch.setattr(qg, "_tc_ws", {})
+    monkeypatch.setattr(ig, "SM90_MIN_PRODUCT", -1 if sm90 else 1 << 62)
     x, q, scale, layer = _int8(m, din=din, dout=dout, stacked=stacked)
     n0, t0 = ig.gemv_k10.launches, ig.gemv_k10.tc_launches
+    s0 = ig.gemv_k10.sm90_launches
     out = ig.gemv_k10(x, q, scale, layer, torch.bfloat16)
-    assert lib.names() == ["cs_int8_gemv"]
     a = lib.calls[0][1]
-    rows, splits = qg.stacked_plan(m, din, dout, False, 132, x_halves=1)
-    assert a[1] == q.data_ptr() and a[6] == out.data_ptr()
-    assert (a[2], a[4]) == ((din * dout, dout) if stacked else (0, 0))
-    assert (a[5] is None) == (not stacked)
-    assert a[9:16] == (m, din, dout, rows, splits,
-                       kernels.DTYPE_CODES[torch.bfloat16],
-                       kernels.DTYPE_CODES[torch.bfloat16])
-    if splits > 1:
+    assert a[0] == x.data_ptr() and a[1] == q.data_ptr()
+    if sm90:
+        assert lib.names() == ["cs_quant_gemv_sm90"]
+        grid = qg.stream_grid(*qg.sm90_units(din, dout), 132)
+        assert qg.sm90_units(din, dout) == (-(-dout // 256), din // 128)
+        assert a[7] == out.data_ptr() and a[6] is None
+        assert (a[2], a[4]) == ((q.shape[0], dout) if stacked else (1, 0))
+        assert (a[5] is None) == (not stacked)
+        assert a[10:16] == (m, din, dout, grid, qg.INT8,
+                            kernels.DTYPE_CODES[torch.bfloat16])
         part, tickets = qg._tc_ws[out.device]
-        assert (a[7], a[8]) == (part.data_ptr(), tickets.data_ptr())
-        assert part.numel() >= splits * m * dout
+        assert (a[8], a[9]) == (part.data_ptr(), tickets.data_ptr())
+        assert part.numel() >= qg.sm90_workspace_words(grid, m)
+        assert tickets.numel() >= 2 * dout // 128 and not tickets.any()
     else:
-        assert (a[7], a[8]) == (None, None)
-    assert (ig.gemv_k10.launches, ig.gemv_k10.tc_launches) == (n0 + 1, t0 + 1)
+        assert lib.names() == ["cs_int8_gemv"]
+        rows, splits = qg.stacked_plan(m, din, dout, False, 132, x_halves=1)
+        assert a[6] == out.data_ptr()
+        assert (a[2], a[4]) == ((din * dout, dout) if stacked else (0, 0))
+        assert (a[5] is None) == (not stacked)
+        assert a[9:16] == (m, din, dout, rows, splits,
+                           kernels.DTYPE_CODES[torch.bfloat16],
+                           kernels.DTYPE_CODES[torch.bfloat16])
+        if splits > 1:
+            part, tickets = qg._tc_ws[out.device]
+            assert (a[7], a[8]) == (part.data_ptr(), tickets.data_ptr())
+            assert part.numel() >= splits * m * dout
+        else:
+            assert (a[7], a[8]) == (None, None)
+    assert (ig.gemv_k10.launches, ig.gemv_k10.tc_launches,
+            ig.gemv_k10.sm90_launches) == (n0 + 1, t0 + 1, s0 + sm90)
+
+
+def test_int8_gemv_kernel_by_product_size():
+    """``takes_sm90``: a decode step's projections at m = 1 (7B: q / k /
+    v / o, gate / up / down) and q / k / v / o at a lookahead verify (m =
+    5) stay on the mma.sync kernel; gate / up / down from m = 5 on, q / o
+    at m = 64 and the lm_head at m = 1 take the persistent one."""
+    from cogstream_tpu_torch.ops import int8_gemv as ig
+
+    for din, dout in ((3584, 3584), (3584, 512), (3584, 18944),
+                      (18944, 3584)):
+        assert not ig.takes_sm90(1, din, dout)
+    for din, dout in ((3584, 3584), (3584, 512)):
+        assert not ig.takes_sm90(5, din, dout)
+    for din, dout in ((3584, 18944), (18944, 3584)):
+        assert ig.takes_sm90(5, din, dout)
+    assert ig.takes_sm90(64, 3584, 3584)
+    assert ig.takes_sm90(1, 3584, 152064)
 
 
 def test_int8_gemv_f32_takes_the_cuda_core_route(lib):
