@@ -212,6 +212,24 @@ Phases (each prints one line or a few; any failure exits non-zero):
    each rank; (d) ``load_cogreasoner_from_hf(mesh=)`` of the checkpoint
    (bf16, int8 and int4 at load): every tensor equal to the rank's slice
    of the whole load. A rank that fails fails the phase;
+12. data- and tensor-parallel training (runs on the phase-5 model, after
+   phase 11, before phase 7) — two ranks on this card over gloo
+   (subprocesses of this script, ``--train-rank``), LoRA dropout 0. The
+   parent first runs the same steps in one process: two
+   ``train_stage1`` steps of 4 x 2048 byte tokens (half of phase 7's
+   batch: two whole bf16 replicas fit the card in (a)), their witness
+   in two data ranks' sum order, two ``Stage2Trainer`` micro-steps on
+   phase 7's 8-frame turn and one on a 64-token text turn over an int8
+   copy. The ranks: (a) ``train_stage1`` on a (data 2, model 1) mesh,
+   losses and gathered adapters bit-equal to the witness; (b) on (data
+   1, model 2), (c) ``Stage2Trainer`` on (1, 2), the 8-frame turn (the
+   tower on 8 heads a rank: every K5 launch on its tensor-core tile)
+   and the 64-token turn on an int8 copy of the shards (K10 on column
+   and row shards): losses within 1e-2 of one process's, adapters
+   within 2.01 lr an update. Replicated leaves bit-equal across the
+   ranks; the adapter files the ranks wrote load in the parent; per rank
+   peak GiB, collectives a step and walls (two ranks sharing one card
+   over gloo: not a speed). A rank that fails fails the phase;
 6. int4 main path — the same model's decoder is quantized in place to
    rank-1 uniform int4 (the bf16 weights are freed; memory before and
    after is printed); then, with w4a8_decode off and on, a fresh session
@@ -2222,14 +2240,17 @@ def _stage2_turn(rng, tok, cfg, t: int, gh: int, gw: int, ms: int,
 
 
 def _adapters_vs(got_tree, ref_tree, lr: float):
-    """Updated adapters in units of lr (tests/test_torch_train.py): the
-    worst element and the share of elements beyond 1e-3 lr."""
+    """Updated adapters in units of lr (tests/test_torch_train.py), leaf by
+    leaf path: the worst element and the share of elements beyond 1e-3
+    lr."""
     from cogstream_tpu_torch.models.lora import iter_leaves
 
-    d = np.concatenate([
-        (a.detach().cpu().float() - b.detach().cpu().float()).abs().reshape(-1)
-        .numpy() for (_, a), (_, b) in zip(iter_leaves(got_tree),
-                                           iter_leaves(ref_tree))])
+    g, r = dict(iter_leaves(got_tree)), dict(iter_leaves(ref_tree))
+    if g.keys() != r.keys():
+        raise AssertionError(f"LoRA trees differ: {sorted(g)[:3]} vs "
+                             f"{sorted(r)[:3]}")
+    d = np.concatenate([(g[k].detach().float().cpu() - r[k].detach().float()
+                         .cpu()).abs().reshape(-1).numpy() for k in r])
     return float(d.max() / lr), float(np.mean(d > 1e-3 * lr))
 
 
@@ -5705,29 +5726,8 @@ def run_tp_path(model, dev, stamp):
 
 
 def run_tp_ranks(timeout_s: float = 900):
-    """Start the ranks (this script with ``--tp-rank``), each logging to
-    TP_DIR, and wait for them; their exit codes. A rank that outlives
-    ``timeout_s`` is killed, with every other."""
-    port = _free_port()
-    procs = []
-    for r in range(TP_WORLD):
-        out = open(os.path.join(TP_DIR, f"rank{r}.log"), "w")
-        procs.append((out, subprocess.Popen(
-            [sys.executable, os.path.join(REPO, "chip_smoke.py"),
-             "--tp-rank", str(r), "--tp-port", str(port)],
-            stdout=out, stderr=subprocess.STDOUT)))
-    rcs = []
-    deadline = time.perf_counter() + timeout_s
-    for out, p in procs:
-        try:
-            rcs.append(p.wait(timeout=max(1.0, deadline - time.perf_counter())))
-        except subprocess.TimeoutExpired:
-            for _, q in procs:
-                q.kill()
-                q.wait()
-            rcs.append("timeout")
-        out.close()
-    return rcs
+    """Phase 11's ranks (:func:`run_ranks` with ``--tp-rank``)."""
+    return run_ranks("--tp-rank", TP_DIR, TP_WORLD, timeout_s)
 
 
 def tp_verdict(res, refs, solo, emu, emu_calls, wall, stamp):
@@ -6003,6 +6003,708 @@ def tp_rank_main(rank: int, port: int, dev=None) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 12: data- and tensor-parallel training, two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+TRAIN_TP_DIR = os.path.join(REPO, "build", "chip_smoke_train_tp")
+TRAIN_TP_WORLD = 2
+TRAIN_TP_S1 = dict(epochs=1, batch_size=4, max_len=2048, grad_accum=1,
+                   warmup_steps=0, shuffle_copies=1, include_demo=False,
+                   save_every=1000, log_every=1, learning_rate=1e-4)
+TRAIN_TP_S2 = dict(grad_accum=1, save_every=10_000, learning_rate=1e-4)
+# every LoRA ``b`` starts drawn from N(0, TRAIN_TP_B_STD^2) instead of 0,
+# so that the adapters act in the first forward and every leaf's first
+# gradient is nonzero
+TRAIN_TP_B_STD = 1e-2
+# (b) / (c)'s bounds against one process: each first-step gradient leaf
+# within TRAIN_TP_GRAD_REL of its norm (relative Frobenius) and all leaves
+# together within TRAIN_TP_GRAD_ALL, each loss within TRAIN_TP_LOSS_REL of
+# its value; adapters after the updates within 2.01 lr an update (Adam
+# moves an element about +-lr whatever its gradient's size: a sanity bound
+# only). Set from card readings (H100): sound layouts read at most 0.052
+# of a leaf, 0.013 over all, 7.5e-4 of a loss (the data split's sum order
+# alone, (a)'s witness: 0.028 and 0.0065); without copy_to_model on the
+# attention input (--train-tp-fault) 1.18-1.39 of a leaf, 0.76-0.82 over
+# all, 1.9e-2 of (b)'s second loss. (a) is held to its witness, the two
+# data ranks' arithmetic in one process, bit for bit
+TRAIN_TP_GRAD_REL = 0.15
+TRAIN_TP_GRAD_ALL = 0.04
+TRAIN_TP_LOSS_REL = 2e-3
+TRAIN_TP_QUESTION = ("<|im_start|>user\nWhat happens next?<|im_end|>\n"
+                     "<|im_start|>assistant\n")
+
+
+def train_tp_inputs(cfg, tok):
+    """Phase 12's data: 8 seeded selector samples that fit 2048 byte tokens
+    without the demo block (two batches of 4: half of phase 7's batch, so
+    that two whole bf16 replicas fit on the card in (a)); phase 7's
+    8-frame turn; a text-only turn in the 64-token bucket."""
+    from cogstream_tpu_torch.train.data import encode_selector_sample
+    from cogstream_tpu_torch.train.stage2 import pack_turn_batch
+
+    samples = [s for s in _selector_samples(np.random.default_rng(7), 64)
+               if encode_selector_sample(tok, s, TRAIN_TP_S1["max_len"],
+                                         include_demo=False) is not None][:8]
+    turn = _stage2_turn(np.random.default_rng(8), tok, cfg, 8, 24, 42, 2,
+                        4096)
+    text_turn = pack_turn_batch(tok, cfg, TRAIN_TP_QUESTION,
+                                "The door opens.", None, None, 4096)
+    assert text_turn["input_ids"].shape == (1, 64)    # K10's m <= 64
+    return samples, turn, text_turn
+
+
+def train_tp_lora_cfg():
+    from cogstream_tpu_torch.config import LoRAConfig
+
+    # dropout 0: every layout then computes the one-process function
+    return LoRAConfig(dropout=0.0, include_projector=True)
+
+
+def train_tp_lora(cfg, dev, stage: int):
+    """Phase 12's initial adapter tree, whole (a run on a mesh keeps its
+    slice): the stage's init from seed 0 (stage 1) or 1 (stage 2), every
+    ``b`` then drawn from N(0, TRAIN_TP_B_STD^2) on the card from seed
+    11, the same in every process."""
+    import torch
+
+    from cogstream_tpu_torch.models.lora import (init_cogreasoner_lora,
+                                                 init_qwen2_lora, iter_leaves)
+
+    lc = train_tp_lora_cfg()
+    gen = torch.Generator(device=dev).manual_seed(stage - 1)
+    tree = (init_qwen2_lora(gen, cfg.text, lc, device=dev) if stage == 1
+            else init_cogreasoner_lora(gen, cfg, lc, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    with torch.no_grad():
+        for path, t in iter_leaves(tree):
+            if path.rsplit(".", 1)[-1] == "b":
+                t.copy_(torch.randn(t.shape, generator=gen, device=dev)
+                        * TRAIN_TP_B_STD)
+    return tree
+
+
+def train_tp_stage2(model, cfg, tok, out_dir, turns, dev, mesh_tp=None):
+    """``Stage2Trainer`` micro-steps on ``turns`` (phase 12 (c)): the
+    losses, walls and the trainer. Stage 2's warm-up (JAX's recipe, at
+    least one update) gives the first micro-step learning rate 0: its
+    gradient is held, the second one updates."""
+    import torch
+
+    from cogstream_tpu_torch.train import stage2
+
+    tr = stage2.Stage2Trainer(
+        model, cfg, tok, stage2.Stage2Config(**TRAIN_TP_S2,
+                                             model_parallel=mesh_tp),
+        out_dir, total_steps=4, log=lambda *a: None,
+        lora_cfg=train_tp_lora_cfg(), lora=train_tp_lora(cfg, dev, 2))
+    losses, walls = [], []
+    for turn in turns:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(tr.train_turn(dict(turn)))
+        torch.cuda.synchronize()
+        walls.append(round(time.perf_counter() - t0, 3))
+    return losses, walls, tr
+
+
+class _TwoDataRanks:
+    """The witness of phase 12 (a): two data ranks' arithmetic in one
+    process. While installed, a text loss counts its valid targets over
+    the whole batch (what the data group's count all-reduce gives), so a
+    half batch's loss is its Σ nll over the global count."""
+
+    def __init__(self, total):
+        from cogstream_tpu_torch.train import trainer
+
+        self.trainer, self.total = trainer, total
+        self.saved = (trainer.loss_groups, trainer.all_reduce)
+        token = self
+
+        def groups(text):
+            return {"count_group": token}
+
+        def reduce(x, group, op="sum"):
+            if group is token:
+                return x.new_full(x.shape, self.total)
+            return self.saved[1](x, group, op)
+
+        trainer.loss_groups = groups
+        trainer.all_reduce = reduce
+
+    def restore(self):
+        self.trainer.loss_groups, self.trainer.all_reduce = self.saved
+
+
+def train_tp_witness(model, cfg, tok, samples, dev):
+    """Phase 12 (a)'s witness: each of ``train_stage1``'s two steps (same
+    batches, same optimizer) computed as two data ranks compute it, each
+    half batch's loss over the global count and gradient, the two summed
+    in f32; returns (losses, adapters, the first step's gradients)."""
+    import torch
+
+    from cogstream_tpu_torch.models.lora import iter_leaves
+    from cogstream_tpu_torch.processor.tokenizer import (
+        constrained_selector_token_ids)
+    from cogstream_tpu_torch.runtime.sampling import build_vocab_mask
+    from cogstream_tpu_torch.train import trainer as tr
+    from cogstream_tpu_torch.train.data import selector_batches
+
+    s1 = TRAIN_TP_S1
+    lc = train_tp_lora_cfg()
+    lora = train_tp_lora(cfg, dev, 1)
+    leaves = [t for _, t in iter_leaves(lora)]
+    tx = tr.make_optimizer(s1["learning_rate"], total_steps=2,
+                           warmup_steps=0, grad_accum=1)
+    state = tx.init(leaves)
+    vm = build_vocab_mask(cfg.text.vocab_size,
+                          constrained_selector_token_ids(tok), dev)
+    loss_fn = tr.bind_text_loss(lc, vm, remat=True, text_cfg=cfg.text)
+    losses, first = [], None
+    for batch in selector_batches(tok, samples, s1["batch_size"],
+                                  s1["max_len"], seed=0, shuffle_copies=1,
+                                  include_demo=False):
+        n = int((batch["labels"][:, 1:] != tr.IGNORE_INDEX).sum())
+        half = batch["input_ids"].shape[0] // 2
+        total, grads = None, None
+        for d in range(2):
+            part = tr.to_device({k: v[d * half:(d + 1) * half]
+                                 for k, v in batch.items()}, dev)
+            two = _TwoDataRanks(n)
+            try:
+                loss = loss_fn(model.text, lora, part)
+            finally:
+                two.restore()
+            g = torch.autograd.grad(loss, leaves)
+            grads = [x.float() for x in g] if grads is None else [
+                a + b.float() for a, b in zip(grads, g)]
+            total = loss.detach() if total is None else total + loss.detach()
+        if first is None:
+            first = [g.clone() for g in grads]
+        updates, state = tx.update(grads, state, leaves)
+        with torch.no_grad():
+            for p, u in zip(leaves, updates):
+                p.add_(u.to(p.dtype))
+        losses.append(float(total))
+    return losses, lora, first
+
+
+class StepSpy:
+    """Each training step's collectives, wall, wall inside the collectives
+    (a sync before and after each all-reduce: compute is not counted, the
+    wait for the other rank is) and loss, and the first update's
+    gradients since the last :meth:`take_grads` (whole on one process, a
+    mesh rank's slices on a rank), through the ``make_train_step`` of the
+    modules given (instrumentation of this script only)."""
+
+    def __init__(self, *modules):
+        import torch
+
+        from cogstream_tpu_torch.parallel import mesh
+
+        self.steps, self.grads, self.coll_s = [], None, 0.0
+        self.saved = [(m, m.make_train_step) for m in modules]
+        self.mesh, self.reduce = mesh, mesh._all_reduce
+        spy = self
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = spy.reduce(*a, **k)
+            torch.cuda.synchronize()
+            spy.coll_s += time.perf_counter() - t0
+            return out
+
+        class Tap:
+            """The optimizer, its first update's gradients kept."""
+
+            def __init__(self, tx):
+                self.tx = tx
+
+            def __getattr__(self, name):
+                return getattr(self.tx, name)
+
+            def update(self, grads, state, params):
+                if spy.grads is None:
+                    spy.grads = [g.detach().float().clone() for g in grads]
+                return self.tx.update(grads, state, params)
+
+        mesh._all_reduce = timed
+        for m, make in self.saved:
+            def wrapped(tx, *a, _make=make, **k):
+                step = _make(Tap(tx), *a, **k)
+
+                def run(*args):
+                    torch.cuda.synchronize()
+                    n0, c0 = sum(mesh.COLLECTIVES.values()), spy.coll_s
+                    t0 = time.perf_counter()
+                    state, loss = step(*args)
+                    torch.cuda.synchronize()
+                    spy.steps.append((sum(mesh.COLLECTIVES.values()) - n0,
+                                      round(time.perf_counter() - t0, 3),
+                                      round(spy.coll_s - c0, 3),
+                                      float(loss)))
+                    return state, loss
+                return run
+            m.make_train_step = wrapped
+
+    def take(self):
+        out, self.steps = self.steps, []
+        return out
+
+    def take_grads(self):
+        out, self.grads = self.grads, None
+        return out
+
+    def restore(self):
+        self.mesh._all_reduce = self.reduce
+        for m, make in self.saved:
+            m.make_train_step = make
+
+
+class NoAttnCopy:
+    """A planted fault for phase 12's self-test (``--train-tp-fault``):
+    the decoder's normed attention input skips ``copy_to_model``, so the
+    input gradient of a rank's q / k / v block is not summed over the
+    model group, as when the Megatron copy operator is missing there."""
+
+    def __init__(self, text):
+        from cogstream_tpu_torch.models import qwen2
+
+        self.qwen2 = qwen2
+        self.saved = (qwen2.rms_norm, qwen2.copy_to_model)
+        norm, copy = self.saved
+        ids = {id(layer.input_norm) for layer in text.layers}
+        last = [None]
+
+        def tagged(x, scale, eps):
+            out = norm(x, scale, eps)
+            if id(scale) in ids:
+                last[0] = out
+            return out
+
+        def skip(x, group):
+            return x if x is last[0] else copy(x, group)
+
+        qwen2.rms_norm, qwen2.copy_to_model = tagged, skip
+
+    def restore(self):
+        self.qwen2.rms_norm, self.qwen2.copy_to_model = self.saved
+
+
+def _grads_vs(got, ref):
+    """First-step gradients (path -> tensor) against the reference's:
+    the largest per-leaf relative Frobenius gap, its leaf, and the gap over
+    every leaf together."""
+    import torch
+
+    if got.keys() != ref.keys():
+        raise AssertionError(f"gradient trees differ: {sorted(got)[:3]} vs "
+                             f"{sorted(ref)[:3]}")
+    worst, leaf, num, den = 0.0, None, 0.0, 0.0
+    for k, r in ref.items():
+        r = r.float().cpu()
+        d = float(torch.linalg.vector_norm(got[k].float().cpu() - r))
+        n = float(torch.linalg.vector_norm(r))
+        num, den = num + d * d, den + n * n
+        rel = d / n if n > 0 else (0.0 if d == 0 else float("inf"))
+        if rel >= worst:
+            worst, leaf = rel, k
+    return worst, leaf, (num / den) ** 0.5 if den > 0 else float("inf")
+
+
+def _whole_grads(state, grads):
+    """A rank's first-step gradient slices, whole (collective over the
+    model group), by leaf path on the host."""
+    from cogstream_tpu_torch.models.lora import iter_leaves
+
+    whole = state.layout.gather_leaves(grads)
+    return {p: g.cpu() for (p, _), g in zip(iter_leaves(state.lora), whole)}
+
+
+def run_train_tp_path(model, dev, stamp, fault=False):
+    """Phase 12: data- and tensor-parallel LoRA training at 7B width and
+    depth, two ranks on this card (subprocesses of this script,
+    ``--train-rank``) over gloo, as phase 11. The parent first runs the
+    same steps in one process on the phase-5 model (untimed; LoRA dropout
+    0, so every layout computes one function; every ``b`` drawn nonzero,
+    :func:`train_tp_lora`): ``train_stage1`` two steps of 4 x 2048 byte
+    tokens, their witness in two data ranks' sum order
+    (:func:`train_tp_witness`), two ``Stage2Trainer`` micro-steps on phase
+    7's 8-frame turn, and one on the 64-token text turn over an int8 copy
+    (``quantize_cogreasoner_`` on a ``shared_copy``). The ranks run (a)
+    ``train_stage1`` on a (2, 1) mesh (two whole replicas, each batch
+    split on ``data``), (b) on a (1, 2) mesh (each rank its shard of the
+    decoder and the LoRA), (c) ``Stage2Trainer`` on (1, 2): the two
+    8-frame micro-steps (the tower on 8 heads a rank, K5), then the
+    64-token turn on an int8 copy of the shards (K10 on column and row
+    shards). Held here: (a)'s losses and gathered adapters equal to the
+    witness's; (b), (c) and the int8 turn's first-step gradients, gathered
+    over the ranks, within ``TRAIN_TP_GRAD_REL`` of one process's leaf by
+    leaf, their losses within ``TRAIN_TP_LOSS_REL``, their adapters within
+    2.01 lr an update; each rank's replicated leaves bit-equal to the
+    other's; every K5 launch on its tensor-core kernel (2 x 27), K10
+    launched on each rank; the adapter files the ranks wrote load here.
+    Printed per rank: peak GiB, collectives a step, walls and the wall
+    inside the collectives (two ranks sharing one card over gloo: not a
+    speed). ``fault`` plants :class:`NoAttnCopy` in the ranks (the
+    check's self-test: the phase must then fail)."""
+    import shutil
+
+    import torch
+
+    from cogstream_tpu_torch import presets
+    from cogstream_tpu_torch.models.lora import iter_leaves
+    from cogstream_tpu_torch.ops.quant import quantize_cogreasoner_
+    from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
+    from cogstream_tpu_torch.train import stage1, stage2
+    from cogstream_tpu_torch.train.checkpoint import load_lora_adapter
+
+    shutil.rmtree(TRAIN_TP_DIR, ignore_errors=True)
+    os.makedirs(TRAIN_TP_DIR)
+    try:
+        cfg = presets.cogreasoner_7b()
+        tok = ByteTokenizer(image_token_id=cfg.image_token_index,
+                            vocab=cfg.text.vocab_size)
+        samples, turn, text_turn = train_tp_inputs(cfg, tok)
+        t0 = time.perf_counter()
+        spy = StepSpy(stage1, stage2)
+        ref = {}
+        try:
+            s1 = stage1.train_stage1(
+                model.text, cfg, tok, samples,
+                os.path.join(TRAIN_TP_DIR, "s1"),
+                stage1.Stage1Config(**TRAIN_TP_S1), resume=False,
+                log=lambda *a: None, lora_cfg=train_tp_lora_cfg(),
+                lora=train_tp_lora(cfg, dev, 1))
+            ref["s1_losses"] = [x for *_, x in spy.take()]
+            ref["s1_lora"], ref["s1_grads"] = s1.lora, spy.take_grads()
+            losses, _, tr2 = train_tp_stage2(
+                model, cfg, tok, os.path.join(TRAIN_TP_DIR, "s2"),
+                [turn, turn], dev)
+            ref["s2_losses"], ref["s2_lora"] = losses, tr2.state.lora
+            ref["s2_grads"] = spy.take_grads()
+            del tr2
+            q = quantize_cogreasoner_(shared_copy(model), 8)
+            ref["int8_losses"] = train_tp_stage2(
+                q, cfg, tok, os.path.join(TRAIN_TP_DIR, "int8"),
+                [text_turn], dev)[0]
+            ref["int8_grads"] = spy.take_grads()
+            del q
+        finally:
+            spy.restore()
+        ref["w_losses"], ref["w_lora"], w_grads = train_tp_witness(
+            model, cfg, tok, samples, dev)
+        paths = {"s1": [p for p, _ in iter_leaves(s1.lora)]}
+        for c in ("s2", "int8"):
+            paths[c] = [p for p, _ in iter_leaves(ref["s2_lora"])]
+        for c in ("s1", "s2", "int8"):
+            ref[f"{c}_grads"] = {p: g.cpu() for p, g in
+                                 zip(paths[c], ref[f"{c}_grads"])}
+        w_grads = {p: g.cpu() for p, g in zip(paths["s1"], w_grads)}
+        ref["w_vs_s1"] = _grads_vs(w_grads, ref["s1_grads"])
+        del s1, w_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"train-tp: one-process references in "
+            f"{time.perf_counter() - t0:.1f}s: stage 1 losses "
+            f"{ref['s1_losses']} (witness {ref['w_losses']}), stage 2 "
+            f"{ref['s2_losses']}, int8 {ref['int8_losses']} [{stamp}]")
+        t0 = time.perf_counter()
+        rcs = run_ranks("--train-rank", TRAIN_TP_DIR, TRAIN_TP_WORLD,
+                        extra=["--train-tp-fault"] if fault else [])
+        wall = time.perf_counter() - t0
+        for r in range(TRAIN_TP_WORLD):
+            with open(os.path.join(TRAIN_TP_DIR, f"rank{r}.log")) as f:
+                for line in f.read().splitlines():
+                    log(f"train-tp: rank {r}: {line}")
+        if rcs != [0] * TRAIN_TP_WORLD:
+            raise AssertionError(f"training ranks exited {rcs}")
+        res = []
+        for r in range(TRAIN_TP_WORLD):
+            with open(os.path.join(TRAIN_TP_DIR, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+        got = {c: load_lora_adapter(os.path.join(TRAIN_TP_DIR, c, name),
+                                    device=dev)
+               for c, name in (("a", "language_module.npz"),
+                               ("b", "language_module.npz"),
+                               ("c", "full_module.npz"))}
+        grads = {c: torch.load(os.path.join(TRAIN_TP_DIR, f"grads_{c}.pt"))
+                 for c in ("b", "c", "c_int8")}
+        return train_tp_verdict(res, ref, got, grads, wall, stamp)
+    finally:
+        shutil.rmtree(TRAIN_TP_DIR, ignore_errors=True)
+
+
+def train_tp_verdict(res, ref, got, grads, wall, stamp):
+    """Phase 12's checks on the ranks' results (see run_train_tp_path)."""
+    lr = TRAIN_TP_S1["learning_rate"]
+
+    def rel(a, b):
+        return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+    def gap(c, key):
+        worst, leaf, total = _grads_vs(grads[c], ref[key])
+        return (worst <= TRAIN_TP_GRAD_REL and total <= TRAIN_TP_GRAD_ALL,
+                f"first-step gradients vs one process {worst:.3g} of the "
+                f"leaf's norm at worst ({leaf}), {total:.3g} over every leaf "
+                f"(bounds {TRAIN_TP_GRAD_REL}, {TRAIN_TP_GRAD_ALL})")
+
+    ok = True
+    a0 = res[0]["a"]
+    bit = _adapters_vs(got["a"], ref["w_lora"], lr)
+    plain = _adapters_vs(got["a"], ref["s1_lora"], lr)
+    a_ok = (a0["losses"] == ref["w_losses"] and bit[0] == 0.0
+            and a0["steps"] == 2)
+    w = ref["w_vs_s1"]
+    log(f"train-tp (a) stage 1 on (data 2, model 1): losses {a0['losses']} "
+        f"(witness {ref['w_losses']}, one process {ref['s1_losses']}); "
+        f"gathered adapters vs the witness {bit[0]:.3g} lr max (bit-equal "
+        f"{bit[0] == 0.0}), vs one process {plain[0]:.3g} lr max, "
+        f"{plain[1]:.4f} of elements beyond 1e-3 lr; the witness's "
+        f"first-step gradients vs one process (the data split's sum order "
+        f"alone) {w[0]:.3g} of the leaf's norm at worst ({w[1]}), "
+        f"{w[2]:.3g} over every leaf [{stamp}]")
+    b0 = res[0]["b"]
+    bgap = _adapters_vs(got["b"], ref["s1_lora"], lr)
+    b_grads, btxt = gap("b", "s1_grads")
+    b_ok = (rel(b0["losses"], ref["s1_losses"]) <= TRAIN_TP_LOSS_REL
+            and b_grads and bgap[0] <= 2.01 * 2 and b0["steps"] == 2)
+    log(f"train-tp (b) stage 1 on (data 1, model 2): {btxt}; losses "
+        f"{b0['losses']} (one process {ref['s1_losses']}, rel {rel(b0['losses'], ref['s1_losses']):.3g}"
+        f", bound {TRAIN_TP_LOSS_REL}); gathered adapters vs one process "
+        f"{bgap[0]:.3g} lr max, {bgap[1]:.4f} beyond 1e-3 lr [{stamp}]")
+    c0 = res[0]["c"]
+    cgap = _adapters_vs(got["c"], ref["s2_lora"], lr)
+    c_grads, ctxt = gap("c", "s2_grads")
+    q_grads, qtxt = gap("c_int8", "int8_grads")
+    c_ok = (rel(c0["losses"], ref["s2_losses"]) <= TRAIN_TP_LOSS_REL
+            and rel(c0["int8_losses"], ref["int8_losses"])
+            <= TRAIN_TP_LOSS_REL and c_grads and q_grads
+            and cgap[0] <= 2.01)
+    log(f"train-tp (c) stage 2 on (data 1, model 2): {ctxt}; losses "
+        f"{c0['losses']} (one process {ref['s2_losses']}, rel "
+        f"{rel(c0['losses'], ref['s2_losses']):.3g}, bound "
+        f"{TRAIN_TP_LOSS_REL}); gathered adapters "
+        f"after one update vs one process {cgap[0]:.3g} lr max, "
+        f"{cgap[1]:.4f} beyond 1e-3 lr; int8 turn: {qtxt}; loss "
+        f"{c0['int8_losses']} (one process {ref['int8_losses']}, rel "
+        f"{rel(c0['int8_losses'], ref['int8_losses']):.3g}) [{stamp}]")
+    for r, x in enumerate(res):
+        k5 = x["c"]["k5"]
+        heads = x["c"]["tower_heads"]
+        k_ok = (k5["launches"] == k5["tc_launches"] == 2 * 27
+                and heads == 8 and x["c"]["k10"] > 0)
+        shares = {c: [round(s / t, 3) for s, t in
+                      zip(x[c]["coll_s"], x[c]["walls"])] for c in "abc"}
+        log(f"train-tp: rank {r}: K5 {k5['launches']} launches, "
+            f"{k5['tc_launches']} on the tensor-core tile, {heads} tower "
+            f"heads; K10 {x['c']['k10']} launches in the int8 turn; peak GiB "
+            f"(a) {x['a']['peak_gib']:.2f} (b) {x['b']['peak_gib']:.2f} (c) "
+            f"{x['c']['peak_gib']:.2f}; collectives a step (a) "
+            f"{x['a']['collectives']} (b) {x['b']['collectives']} (c) "
+            f"{x['c']['collectives']} int8 {x['c']['int8_collectives']}; "
+            f"step walls (a) {x['a']['walls']} (b) {x['b']['walls']} (c) "
+            f"{x['c']['walls']} s, of them in the collectives (a) "
+            f"{x['a']['coll_s']} (b) {x['b']['coll_s']} (c) "
+            f"{x['c']['coll_s']} s, shares {shares}; int8 turn "
+            f"{x['c']['int8_walls']} s, {x['c']['int8_coll_s']} in the "
+            f"collectives (two ranks sharing one card over gloo: not a "
+            f"speed) [{stamp}]")
+        ok &= k_ok
+    same = {c: res[0][c]["replicated"] == res[1][c]["replicated"]
+            for c in ("a", "b", "c")}
+    log(f"train-tp: replicated leaves bit-equal across the ranks {same}; "
+        f"phase 12 in {wall:.1f}s [{stamp}]")
+    ok &= a_ok and b_ok and c_ok and all(same.values())
+    if not ok:
+        raise AssertionError(f"phase 12 failed: (a) {a_ok} (b) {b_ok} (c) "
+                             f"{c_ok} replicated {same}")
+    return {"train_tp_peak_gib": [[x[c]["peak_gib"] for c in "abc"]
+                                  for x in res],
+            "train_tp_walls": [[x[c]["walls"] for c in "abc"] for x in res],
+            "train_tp_losses": {c: res[0][c]["losses"] for c in "abc"},
+            "train_tp_wall_s": wall}
+
+
+def run_ranks(flag: str, out_dir: str, world: int, timeout_s: float = 900,
+              extra=()):
+    """Start ``world`` ranks (this script with ``flag R --tp-port P`` and
+    ``extra``), each logging to ``out_dir``, and wait for them; their exit
+    codes. A rank that outlives ``timeout_s``, or that exits non-zero
+    while the other still runs, ends every rank."""
+    port = _free_port()
+    procs = []
+    for r in range(world):
+        out = open(os.path.join(out_dir, f"rank{r}.log"), "w")
+        procs.append((out, subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "chip_smoke.py"), flag,
+             str(r), "--tp-port", str(port), *extra],
+            stdout=out, stderr=subprocess.STDOUT)))
+    deadline = time.perf_counter() + timeout_s
+    while time.perf_counter() < deadline:
+        codes = [p.poll() for _, p in procs]
+        if all(c is not None for c in codes) or any(
+                c not in (None, 0) for c in codes):
+            break
+        time.sleep(0.5)
+    rcs = []
+    for out, p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+            rcs.append("killed")
+        else:
+            rcs.append(p.returncode)
+        out.close()
+    return rcs
+
+
+def _replicated_digest(state) -> str:
+    """A digest of a LoRA state's leaves that the model axis replicates."""
+    import hashlib
+
+    from cogstream_tpu_torch.models.lora import iter_leaves
+
+    h = hashlib.sha256()
+    for path, t in iter_leaves(state.lora):
+        if state.layout.specs[path].index is None:
+            h.update(path.encode())
+            h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def train_rank_main(rank: int, port: int, dev=None, fault=False) -> int:
+    """One rank of phase 12 (``chip_smoke.py --train-rank R --tp-port
+    P``): joins the gloo group on this card, runs (a)-(c) and writes
+    ``rank<R>.json`` under TRAIN_TP_DIR (rank 0 writes the adapter files
+    and the gathered first-step gradients of (b), (c) and the int8 turn).
+    ``fault`` (``--train-tp-fault``) plants :class:`NoAttnCopy`."""
+    import torch
+
+    from cogstream_tpu_torch import presets
+    from cogstream_tpu_torch.models.cogreasoner import init_cogreasoner_params
+    from cogstream_tpu_torch.ops import flash_attention as fa
+    from cogstream_tpu_torch.ops import int8_gemv, kernels
+    from cogstream_tpu_torch.ops.quant import quantize_cogreasoner_
+    from cogstream_tpu_torch.parallel.distributed import initialize_if_needed
+    from cogstream_tpu_torch.parallel.mesh import COLLECTIVES, make_mesh
+    from cogstream_tpu_torch.parallel.sharding import shard_cogreasoner
+    from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
+    from cogstream_tpu_torch.train import stage1, stage2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dev or torch.device("cuda", 0)
+    kernels.library()                      # built by the parent: loads
+    initialize_if_needed(f"tcp://127.0.0.1:{port}", TRAIN_TP_WORLD, rank,
+                         backend="gloo", timeout_s=900)
+    cfg = presets.cogreasoner_7b()
+    tok = ByteTokenizer(image_token_id=cfg.image_token_index,
+                        vocab=cfg.text.vocab_size)
+    samples, turn, text_turn = train_tp_inputs(cfg, tok)
+    out = {}
+    spy = StepSpy(stage1, stage2)
+
+    def record(case, state, **extra):
+        steps = spy.take()
+        out[case] = {"collectives": sorted({n for n, *_ in steps}),
+                     "walls": [w for _, w, _, _ in steps],
+                     "coll_s": [c for _, _, c, _ in steps],
+                     "losses": [x for *_, x in steps],
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "replicated": _replicated_digest(state), **extra}
+        torch.cuda.reset_peak_memory_stats()
+
+    def save_grads(case, state):
+        whole = _whole_grads(state, spy.take_grads())
+        if rank == 0:
+            torch.save(whole, os.path.join(TRAIN_TP_DIR, f"grads_{case}.pt"))
+
+    # (a) two whole replicas, the batch split on data
+    model = init_cogreasoner_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    st = stage1.train_stage1(
+        model.text, cfg, tok, samples, os.path.join(TRAIN_TP_DIR, "a"),
+        stage1.Stage1Config(**TRAIN_TP_S1, data_parallel=2), resume=False,
+        log=lambda *a: None, lora_cfg=train_tp_lora_cfg(),
+        lora=train_tp_lora(cfg, dev, 1))
+    spy.take_grads()
+    record("a", st, steps=st.step)
+    log(f"(a) steps {st.step} losses {out['a']['losses']} walls "
+        f"{out['a']['walls']}")
+
+    # (b) the decoder and its LoRA on model-axis shards
+    mesh = make_mesh(1, 2)
+    sharded = shard_cogreasoner(model, cfg, mesh)
+    if fault:
+        NoAttnCopy(sharded.text)
+    del model, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    st = stage1.train_stage1(
+        sharded.text, cfg, tok, samples, os.path.join(TRAIN_TP_DIR, "b"),
+        stage1.Stage1Config(**TRAIN_TP_S1, model_parallel=2), resume=False,
+        log=lambda *a: None, lora_cfg=train_tp_lora_cfg(),
+        lora=train_tp_lora(cfg, dev, 1))
+    save_grads("b", st)
+    record("b", st, steps=st.step)
+    log(f"(b) steps {st.step} losses {out['b']['losses']} walls "
+        f"{out['b']['walls']}")
+    del st
+
+    # (c) stage 2 on the shards: the tower on 8 heads a rank (K5), then
+    # the 64-token turn on an int8 copy (K10 on column and row shards)
+    k5 = fa.segment_flash_attention
+    k5.launches = k5.tc_launches = 0
+    losses, walls, tr = train_tp_stage2(
+        sharded, cfg, tok, os.path.join(TRAIN_TP_DIR, "c"), [turn, turn],
+        dev, mesh_tp=2)
+    k5_counts = {"launches": k5.launches, "tc_launches": k5.tc_launches}
+    tr.finish()
+    save_grads("c", tr.state)
+    state = tr.state
+    del tr
+    c_steps = spy.take()
+    q = quantize_cogreasoner_(shared_copy(sharded), 8)
+    int8_gemv.gemv_k10.launches = 0
+    int8_losses, int8_walls, tr8 = train_tp_stage2(
+        q, cfg, tok, os.path.join(TRAIN_TP_DIR, "c_int8"), [text_turn], dev,
+        mesh_tp=2)
+    k10 = int8_gemv.gemv_k10.launches
+    save_grads("c_int8", tr8.state)
+    del tr8, q
+    int8_steps, spy.steps = spy.take(), c_steps
+    record("c", state, int8_losses=int8_losses, int8_walls=int8_walls,
+           int8_coll_s=[c for _, _, c, _ in int8_steps],
+           int8_collectives=[n for n, *_ in int8_steps], k5=k5_counts,
+           k10=k10, tower_heads=len(sharded.vision.tp.heads))
+    log(f"(c) losses {losses} walls {walls} int8 {int8_losses} walls "
+        f"{int8_walls} K5 {k5_counts} K10 {k10}")
+    out["collective_kinds"] = sorted(COLLECTIVES)
+    with open(os.path.join(TRAIN_TP_DIR, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_train_tp_alone(dev, card, fault) -> int:
+    """``--train-tp-only``: phase 12 on phase 5's model (random weights
+    from seed 0), without the other phases; prints its metrics."""
+    import torch
+
+    from cogstream_tpu_torch import presets
+    from cogstream_tpu_torch.models.cogreasoner import init_cogreasoner_params
+
+    model = init_cogreasoner_params(
+        presets.cogreasoner_7b(), torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    metrics = run_train_tp_path(model, dev, card, fault)
+    log("metrics: " + json.dumps(metrics))
+    return 0
+
+
 def main() -> int:
     import argparse
 
@@ -6015,6 +6717,15 @@ def main() -> int:
                     help=argparse.SUPPRESS)   # phase 11's rank processes
     ap.add_argument("--tp-port", type=int, default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--train-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)   # phase 12's rank processes
+    ap.add_argument("--train-tp-only", action="store_true",
+                    help="build the kernels and run phase 12 (data- and "
+                         "tensor-parallel training) alone")
+    ap.add_argument("--train-tp-fault", action="store_true",
+                    help="with --train-tp-only: plant a fault in the ranks "
+                         "(no copy_to_model on the decoder's attention "
+                         "input); phase 12 must then fail")
     args = ap.parse_args()
     # the smoke uses one card: show it only the first visible one, so the
     # device count it reports is the number of cards it ran on
@@ -6042,6 +6753,9 @@ def main() -> int:
         return 1
     if args.tp_rank is not None:
         return tp_rank_main(args.tp_rank, args.tp_port)
+    if args.train_rank is not None:
+        return train_rank_main(args.train_rank, args.tp_port,
+                               fault=args.train_tp_fault)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -6065,6 +6779,8 @@ def main() -> int:
             f"-slot read), {blocks_per_sm(regs, smem)} blocks per SM "
             f"(registers {regs})")
 
+    if args.train_tp_only:
+        return run_train_tp_alone(dev, card, args.train_tp_fault)
     results, verify_ms = check_kernels(dev)
     results += check_int4_kernels(dev)
     k10, w8a8_ms = check_int8_kernels(dev)
@@ -6097,6 +6813,7 @@ def main() -> int:
     metrics.update(run_fp8_pool(model, dev, card))
     metrics.update(run_http_path(model, dev, card))
     metrics.update(run_tp_path(model, dev, card))
+    metrics.update(run_train_tp_path(model, dev, card))
     metrics["rows_ms"] = rows_ms
     train_launches, train_metrics = run_training(model, dev, card,
                                                  args.profile)

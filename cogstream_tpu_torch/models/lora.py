@@ -11,6 +11,10 @@ one entry per layer in ``{"layers": [...]}`` (the JAX package stacks
 them ``[L, din, r]`` for its layer scan; ``models/bridge.py`` converts
 both ways). The trainable leaves carry ``requires_grad``; the frozen
 base never does.
+
+On a mesh (``mesh=``) every rank draws the WHOLE tree from the seed and
+keeps its slice (``parallel/sharding.LoraLayout``), so the initial
+adapters equal the one-process ones whatever the layout.
 """
 
 from __future__ import annotations
@@ -54,10 +58,18 @@ def qwen2_lora_dims(cfg: Qwen2Config) -> Dict[str, Tuple[int, int]]:
 
 def init_qwen2_lora(generator: torch.Generator, cfg: Qwen2Config,
                     lora: LoRAConfig, dtype=torch.float32,
-                    device=None) -> Dict:
+                    device=None, mesh=None) -> Dict:
     """LoRA tree for the decoder: ``a`` gaussian / sqrt(din), ``b`` zeros
     (the delta starts at zero). Draws come from ``generator`` (on its own
-    device), the tree lives on ``device`` (the card unless named)."""
+    device), the tree lives on ``device`` (the card unless named). With
+    ``mesh``: this rank's slice of the whole tree under the decoder's
+    plan."""
+    if mesh is not None:
+        from ..parallel.sharding import LoraLayout, qwen2_param_specs
+
+        whole = init_qwen2_lora(generator, cfg, lora, dtype, device)
+        return LoraLayout(whole, qwen2_param_specs(cfg, mesh),
+                          mesh).shard(whole)
     device = default_device(device)
     wanted = set(lora.target_modules)
     layers: List[Dict] = []
@@ -93,7 +105,16 @@ def init_projector_lora(generator: torch.Generator, cfg: CogReasonerConfig,
 
 def init_cogreasoner_lora(generator: torch.Generator, cfg: CogReasonerConfig,
                           lora: LoRAConfig, dtype=torch.float32,
-                          device=None) -> Dict:
+                          device=None, mesh=None) -> Dict:
+    """The stage-2 tree: the decoder's, plus the projector's with
+    ``lora.include_projector``. With ``mesh``: this rank's slice of the
+    whole tree under the CogReasoner's plan."""
+    if mesh is not None:
+        from ..parallel.sharding import LoraLayout, cogreasoner_param_specs
+
+        whole = init_cogreasoner_lora(generator, cfg, lora, dtype, device)
+        return LoraLayout(whole, cogreasoner_param_specs(cfg, mesh),
+                          mesh).shard(whole)
     tree = {"text": init_qwen2_lora(generator, cfg.text, lora, dtype, device)}
     if lora.include_projector:
         tree["projector"] = init_projector_lora(generator, cfg, lora, dtype,

@@ -23,7 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.quant import materialized_linear
-from .qwen2 import adapter_in
+from ..parallel.mesh import copy_to_model
+from .qwen2 import _add_lora, adapter_in
 from .vision_encoder import default_device, linear
 
 
@@ -67,12 +68,28 @@ def projector_forward_lora(proj: Projector, x: torch.Tensor,
     """The readout with a low-rank delta on each linear, applied to the
     input that linear saw: ``layer(x) + (x_a @ a) @ b * scale``, where
     ``x_a`` is ``x`` with LoRA dropout (one generator per linear, or
-    none)."""
+    none).
+
+    Sharded (``proj.tp``): the first linear is column-parallel (its
+    replicated input through ``copy_to_model``, ``b`` its columns) and
+    the second row-parallel (``a`` its rows, the dropout mask the slice of
+    the whole input's), as ``qwen2._add_lora`` sets out."""
+    split = proj.tp is not None and proj.tp.hidden is not None
+    group = proj.tp.group if split else None
     for i, (layer, ab) in enumerate(zip(proj.layers, lora_layers)):
         if i > 0:
             x = F.gelu(x)          # exact erf gelu
-        xa = adapter_in(x, dropout_rate,
-                        generators[i] if generators else None)
-        x = materialized_linear(layer, x) + (xa @ ab["a"].to(x.dtype)) \
-            @ ab["b"].to(x.dtype) * lora_scale
+        gen = generators[i] if generators else None
+        if split and i == 1:
+            lo, hi = proj.tp.hidden
+            width = (hi - lo) * proj.tp.mesh.model
+            xa = adapter_in(x, dropout_rate, gen, (width, *proj.tp.hidden))
+            x = _add_lora(materialized_linear(layer, x, group), xa,
+                          [(ab, 1.0)], lora_scale, row=group)
+            continue
+        if split:
+            x = copy_to_model(x, group)
+        x = _add_lora(materialized_linear(layer, x),
+                      adapter_in(x, dropout_rate, gen), [(ab, 1.0)],
+                      lora_scale, col=group)
     return x

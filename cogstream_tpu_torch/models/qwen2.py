@@ -67,9 +67,13 @@ from ..ops.lm_attention import (DECODE_MAX_S, CacheRows, as_cache_rows,
                                 prefill_flash_attention)
 from ..ops.quant import QuantLinear, row_parallel_linear
 from ..ops.rope import apply_rope, rope_angles
-from ..parallel.mesh import all_reduce
+from ..parallel.mesh import all_reduce, copy_to_model
 from ..parallel.sharding import INT4_ACT_MSG
 from .vision_encoder import default_device, linear
+
+W8A8_MESH_MSG = ("int8 activations (w8a8_prefill / w4a8_decode, stage-2 "
+                 "--w8a8-forward) in training on model-axis shards are not "
+                 "ported yet (ROADMAP Queue 1 #9)")
 
 # (adapter tree, gate) pairs. An adapter tree is {"layers": [per-layer
 # {"attn": {"q_proj": {"a": [din, r], "b": [r, dout]}, ...}, "mlp":
@@ -231,27 +235,37 @@ def mesh_w8(model: Qwen2Model, w8: bool) -> bool:
 
 def dense(x: torch.Tensor, lin: nn.Module, lora=None,
           lora_scale: float = 1.0, w8a8: bool = False,
-          indexed: bool = False, reduce=None) -> torch.Tensor:
+          indexed: bool = False, reduce=None, col=None) -> torch.Tensor:
     """Linear layer (``nn.Linear``, or ``QuantLinear`` with ``w8a8`` and
     ``indexed`` passed on) plus gated LoRA deltas ``(x @ a) @ b * gate *
     scale`` for each (adapter, gate) in ``lora``, on top of the base.
     ``reduce`` (a process group) makes it row-parallel: ``x`` and the
     weight hold this rank's input channels, and the output is all-reduced
-    (``ops/quant.row_parallel_linear``)."""
+    (``ops/quant.row_parallel_linear``); each adapter's ``a`` then holds
+    the same rows (:func:`_add_lora`). ``col`` (a process group) marks a
+    column-parallel site: the adapters' ``b`` hold this rank's columns and
+    ``a`` is replicated."""
     if reduce is not None:
-        if lora:
-            raise NotImplementedError("LoRA adapters on a sharded decoder "
-                                      "are not ported yet")
-        return row_parallel_linear(lin, x, reduce, w8a8, indexed)
+        return _add_lora(row_parallel_linear(lin, x, reduce, w8a8, indexed),
+                         x, lora, lora_scale, row=reduce)
     y = lin(x, w8a8, indexed) if isinstance(lin, QuantLinear) else lin(x)
-    return _add_lora(y, x, lora, lora_scale)
+    return _add_lora(y, x, lora, lora_scale, col=col)
 
 
-def _add_lora(y: torch.Tensor, x: torch.Tensor, lora,
-              lora_scale: float) -> torch.Tensor:
+def _add_lora(y: torch.Tensor, x: torch.Tensor, lora, lora_scale: float,
+              col=None, row=None) -> torch.Tensor:
+    """``y`` plus each gated delta ``(x @ a) @ b * gate * scale``.
+
+    On a column-parallel site (``col``, the model group) ``b`` holds this
+    rank's columns and ``a`` is whole: ``a`` enters through
+    :func:`copy_to_model`, whose backward sums the ranks' partial ``a``
+    gradients. On a row-parallel site (``row``) ``x`` and ``a`` hold this
+    rank's rows: ``x @ a`` is all-reduced (r columns wide) before the
+    whole ``b``, so ``b``'s gradient is whole and ``a``'s is its rows'."""
     for adapter, gate in lora or ():
-        delta = (x @ adapter["a"].to(x.dtype)) @ adapter["b"].to(x.dtype)
-        y = y + delta * float(gate * lora_scale)
+        a = copy_to_model(adapter["a"], col).to(x.dtype)
+        u = all_reduce(x @ a, row)
+        y = y + (u @ adapter["b"].to(x.dtype)) * float(gate * lora_scale)
     return y
 
 
@@ -461,14 +475,20 @@ def site_generator(seed: int, *ids: int, device=None) -> torch.Generator:
 
 
 def adapter_in(x: torch.Tensor, rate: float,
-               generator: Optional[torch.Generator]) -> torch.Tensor:
+               generator: Optional[torch.Generator],
+               cols: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Adapter-branch input with inverted dropout (PEFT lora_dropout: the
     frozen dense path never drops). Identity without a generator or at
-    rate 0."""
+    rate 0. ``cols = (width, lo, hi)``: ``x`` holds channels [lo, hi) of
+    a ``width``-wide input (a row-parallel shard), and its mask is that
+    slice of the whole input's."""
     if generator is None or rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+    shape = x.shape if cols is None else (*x.shape[:-1], cols[0])
+    keep = torch.rand(shape, generator=generator, device=x.device) \
         < (1.0 - rate)
+    if cols is not None:
+        keep = keep[..., cols[1]:cols[2]]
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x)).to(
         x.dtype)
 
@@ -504,11 +524,35 @@ def qwen2_forward_train(
     ``model.cfg``): its flags pick the quantized base's activation mode by
     JAX's rule, ``w8 = (w8a8_prefill and S >= 16) or (w4a8_decode and S <
     16)`` (stage-2 ``--w8a8-forward`` sets ``w8a8_prefill``: int8 weights
-    then run W8A8 with a straight-through gradient)."""
+    then run W8A8 with a straight-through gradient).
+
+    A decoder sharded for a mesh (``model.tp``) runs its local heads and
+    channels under autograd: the normed input of each column-parallel
+    block (q / k / v, gate / up) enters through ``copy_to_model``, o_proj
+    and down_proj all-reduce their partial sums (forward; identity
+    backward), and the adapters follow their sites (:func:`_add_lora`).
+    Every rank of a model group draws the same dropout masks: a
+    row-parallel input's is its slice of the whole input's. ``remat``
+    replays a layer's collectives in the backward, the same ones in the
+    same order on every rank."""
     cfg = cfg or model.cfg
     B, S, _ = inputs_embeds.shape
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    tp = getattr(model, "tp", None)
+    groups = {"attn": None, "mlp": None}
+    cols = {"o_proj": None, "down_proj": None}
+    if tp is not None:
+        Hq, Hkv = len(tp.q_heads), len(tp.kv_heads)
+        if tp.attn_split:
+            groups["attn"] = tp.group
+            cols["o_proj"] = (cfg.num_attention_heads * D,
+                              tp.q_heads[0] * D, (tp.q_heads[-1] + 1) * D)
+        if tp.mlp is not None:
+            groups["mlp"] = tp.group
+            cols["down_proj"] = (cfg.intermediate_size, *tp.mlp)
     w8 = (cfg.w8a8_prefill and S >= 16) or (cfg.w4a8_decode and S < 16)
+    if w8 and tp is not None and tp.mesh.model > 1:
+        raise NotImplementedError(W8A8_MESH_MSG)
     positions = positions.to(torch.int32)
     angles = rope_angles(positions.clamp(min=0), D, cfg.rope_theta)
     kv_valid = positions >= 0
@@ -523,18 +567,29 @@ def qwen2_forward_train(
             gen = (site_generator(dropout_seed, li, site, device=inp.device)
                    if drop else None)
             lin = mods[group][name]
-            y = lin(inp, w8) if isinstance(lin, QuantLinear) else lin(inp)
-            return _add_lora(y, adapter_in(inp, dropout_rate, gen),
-                             _lora_at(adapters, li, group, name), lora_scale)
+            g = groups[group]
+            row = g if name in cols else None
+            if row is not None:
+                y = row_parallel_linear(lin, inp, row, w8)
+            else:
+                y = lin(inp, w8) if isinstance(lin, QuantLinear) \
+                    else lin(inp)
+            xa = adapter_in(inp, dropout_rate, gen,
+                            cols[name] if row is not None else None)
+            return _add_lora(y, xa, _lora_at(adapters, li, group, name),
+                             lora_scale, col=None if row is not None else g,
+                             row=row)
 
-        h = rms_norm(x, layer.input_norm, cfg.rms_norm_eps)
+        h = copy_to_model(rms_norm(x, layer.input_norm, cfg.rms_norm_eps),
+                          groups["attn"])
         q = apply_rope(proj(0, h).reshape(B, S, Hq, D), angles)
         k = apply_rope(proj(1, h).reshape(B, S, Hkv, D), angles)
         v = proj(2, h).reshape(B, S, Hkv, D)
         attn = causal_gqa_attention(q, k, v, q_positions=positions,
                                     kv_valid=kv_valid, kv_positions=positions)
         x = x + proj(3, attn.reshape(B, S, Hq * D))
-        h = rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
+        h = copy_to_model(rms_norm(x, layer.post_attn_norm,
+                                   cfg.rms_norm_eps), groups["mlp"])
         return x + proj(6, F.silu(proj(4, h)) * proj(5, h))
 
     x = inputs_embeds
@@ -556,11 +611,14 @@ def lm_logits(model: Qwen2Model, hidden: torch.Tensor, adapters: Adapters = None
     mirrors dense(): decode loops pass ``cfg.w4a8_decode`` so an int4
     head's per-step vocab read rides the W4A8 GEMV (K7) and an int8 head
     the W8A8 product, as in JAX. A vocab-sharded decoder returns its
-    vocab slice (``model.tp.vocab``)."""
+    vocab slice (``model.tp.vocab``); under autograd ``hidden`` enters the
+    column-parallel head through ``copy_to_model``."""
     w8a8 = mesh_w8(model, w8a8)
     if head is None:
         head_lora = [(t["lm_head"], g) for t, g in adapters or ()
                      if isinstance(t, dict) and t.get("lm_head") is not None]
-        return dense(hidden, model.lm_head, head_lora, lora_scale,
-                     w8a8=w8a8)
+        tp = getattr(model, "tp", None)
+        col = None if tp is None else tp.vocab_group
+        return dense(copy_to_model(hidden, col), model.lm_head, head_lora,
+                     lora_scale, w8a8=w8a8, col=col)
     return _add_lora(head(hidden), hidden, head_lora, lora_scale)

@@ -773,16 +773,41 @@ def _add_bias(y: torch.Tensor, lin: nn.Module) -> torch.Tensor:
     return y if lin.bias is None else y + lin.bias.to(y.dtype)
 
 
+class _WideMm(torch.autograd.Function):
+    """``x @ w.T`` of half operands with f32 sums
+    (``torch.mm(out_dtype=)``, which has no derivative in torch 2.11)
+    under autograd. Backward: ``dx = g @ w`` in the weights' dtype, which
+    is exact for ``g``: the product's consumer rounds it to that dtype, so
+    its gradient arrives as that dtype's values (what the whole layer's
+    backward computes); the frozen weight gets none."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(w)
+        ctx.x_dtype = x2.dtype
+        return torch.mm(x2, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, = ctx.saved_tensors
+        return torch.mm(g.to(w.dtype), w).to(ctx.x_dtype), None
+
+
 def _mm_wide(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w.T`` (``w`` an ``nn.Linear`` weight) with a bf16 / f16
     product's f32 sums kept in f32 (``torch.mm(out_dtype=)`` on the card,
-    the exact upcast on the CPU): a row-parallel partial sum, rounded only
-    after the reduce, as the whole GEMM rounds once."""
+    :class:`_WideMm` under autograd, the exact upcast on the CPU): a
+    row-parallel partial sum, rounded only after the reduce, as the whole
+    GEMM rounds once."""
     if x.dtype not in (torch.bfloat16, torch.float16) or w.dtype != x.dtype:
         return F.linear(x, w)
     x2 = x.reshape(-1, x.shape[-1])
-    y = (torch.mm(x2, w.t(), out_dtype=torch.float32) if x.is_cuda
-         else x2.float() @ w.t().float())
+    if not x.is_cuda:
+        y = x2.float() @ w.t().float()
+    elif torch.is_grad_enabled() and x.requires_grad:
+        y = _WideMm.apply(x2, w)
+    else:
+        y = torch.mm(x2, w.t(), out_dtype=torch.float32)
     return y.reshape(*x.shape[:-1], w.shape[0])
 
 
@@ -897,8 +922,11 @@ def quantize_cogreasoner_(model, bits: int, nf4: bool = True,
     embedding, din 588, and every tower fc2, din 4304). Each scale is per
     output column, so the fused vision QKV quantizes exactly as JAX's q /
     k / v dicts concatenated along dout. Embeddings, norms and biases stay
-    as they are; each bf16 weight is freed once it is quantized. Returns
-    ``model``."""
+    as they are; each bf16 weight is freed once it is quantized. On a
+    model sharded for a mesh, int8 gives each rank the slice of the whole
+    model's quantization (a row-parallel weight's column absmax is MAXed
+    over its group); group-wise 4-bit shards of row-parallel weights
+    raise (quantize whole, then shard). Returns ``model``."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
 
@@ -906,17 +934,24 @@ def quantize_cogreasoner_(model, bits: int, nf4: bool = True,
         return quantize_kernel(w, bits, group_size, nf4, row_group=row_group,
                                col_group=col_group)
 
-    def swap(owner, name: str):
+    def swap(owner, name: str, row_group=None):
         lin = getattr(owner, name)
-        setattr(owner, name, QuantLinear(QuantWeight(quant(lin.weight.t())),
-                                         bias=lin.bias))
+        setattr(owner, name, QuantLinear(QuantWeight(quant(
+            lin.weight.t(), row_group)), bias=lin.bias))
         lin.weight = None
 
+    # a sharded model's row-parallel GEMMs take each column's scale over
+    # the whole column (their shards' row groups)
+    vt, pt = model.vision.tp, model.projector.tp
+    rows = {"o": vt is not None and vt.attn_split,
+            "fc2": vt is not None and vt.mlp is not None}
     _quantize_decoder_(model.text, quant)
     swap(model.vision, "patch_embed")
     for layer in model.vision.layers:
         for name in ("qkv", "o", "fc1", "fc2"):
-            swap(layer, name)
+            swap(layer, name, vt.group if rows.get(name) else None)
     for i in range(len(model.projector.layers)):
-        swap(model.projector.layers, str(i))    # ModuleList entries by name
+        split = pt is not None and pt.hidden is not None and i == 1
+        swap(model.projector.layers, str(i),    # ModuleList entries by name
+             pt.group if split else None)
     return model

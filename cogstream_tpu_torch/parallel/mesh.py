@@ -12,13 +12,24 @@ same meshes in the same order (``new_group`` is collective).
 The collectives below skip a group of one rank, count each call by kind in
 :data:`COLLECTIVES` (the per-step collective counts the smoke prints), and
 reduce bf16 partial sums in f32, rounding once.
+
+Under autograd (training) a SUM of a tensor that requires grad is the
+Megatron "reduce from the model group" operator: all-reduce forward,
+identity backward. Its partner :func:`copy_to_model` ("copy to the model
+group": identity forward, all-reduce backward) goes on the replicated input
+of a column-parallel site, so the partial input gradients of the ranks'
+column blocks sum to the whole one. A result that every rank computes from
+whole tensors is replicated, and so is its gradient: with both operators
+in place every replicated leaf's gradient comes out whole on each rank.
+:func:`all_reduce_grads` sums a list of gradients over a group in one
+flat collective (the data-parallel gradient sum).
 """
 
 from __future__ import annotations
 
 import datetime
 from collections import Counter
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -50,7 +61,7 @@ class Mesh:
 
     def __init__(self, data: int, model: int):
         """The mesh of the process group (every rank calls it together)."""
-        world = dist.get_world_size() if dist.is_initialized() else 1
+        world = world_size()
         if data * model != world:
             raise ValueError(f"mesh {data}x{model} != {world} ranks")
         self.data, self.model = data, model
@@ -94,23 +105,38 @@ class Mesh:
                 f"rank={self.rank})")
 
 
+def world_size() -> int:
+    """The process group's size (1 without a group)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def mesh_shape(data_parallel: Optional[int] = None,
+               model_parallel: Optional[int] = None,
+               world: Optional[int] = None) -> Tuple[int, int]:
+    """The (data, model) sizes :func:`make_mesh` lays out over ``world``
+    ranks (default: the process group's): with one size given the other
+    is inferred; with neither, every rank goes on the model axis (tensor
+    parallelism, the 7B default). Not checked against ``world``."""
+    n = world_size() if world is None else world
+    if data_parallel is None and model_parallel is None:
+        return 1, n
+    if data_parallel is None:
+        return n // model_parallel, model_parallel
+    if model_parallel is None:
+        return data_parallel, n // data_parallel
+    return data_parallel, model_parallel
+
+
 def make_mesh(data_parallel: Optional[int] = None,
               model_parallel: Optional[int] = None) -> Mesh:
     """A (data, model) mesh over the process group's ranks (one rank
-    without a group). With one size given the other is inferred; with
-    neither, every rank goes on the model axis (tensor parallelism, the
-    7B default). A product that is not the world size raises."""
-    n = dist.get_world_size() if dist.is_initialized() else 1
-    if data_parallel is None and model_parallel is None:
-        data_parallel, model_parallel = 1, n
-    elif data_parallel is None:
-        data_parallel = n // model_parallel
-    elif model_parallel is None:
-        model_parallel = n // data_parallel
-    if data_parallel * model_parallel != n:
-        raise ValueError(
-            f"mesh {data_parallel}x{model_parallel} != {n} ranks")
-    return Mesh(data_parallel, model_parallel)
+    without a group), sized by :func:`mesh_shape`. A product that is not
+    the world size raises."""
+    n = world_size()
+    data, model = mesh_shape(data_parallel, model_parallel, n)
+    if data * model != n:
+        raise ValueError(f"mesh {data}x{model} != {n} ranks")
+    return Mesh(data, model)
 
 
 def single_device_mesh() -> Mesh:
@@ -135,9 +161,21 @@ def group_size(group) -> int:
 def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """``x`` summed (``op="sum"``) or maxed (``"max"``) over ``group``; a
     bf16 / f16 sum runs in f32 and rounds once. Returns the result (``x``
-    itself when no cast was needed). A group of one returns ``x``."""
+    itself when no cast was needed). A group of one returns ``x``.
+
+    A SUM of a tensor in an autograd graph is :class:`_ReduceFromModel`
+    (identity backward) and never touches ``x``; a MAX there returns a
+    constant of the graph."""
     if group is None:
         return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        if op == "sum":
+            return _ReduceFromModel.apply(x, group)
+        x = x.detach().clone()
+    return _all_reduce(x, group, op)
+
+
+def _all_reduce(x: torch.Tensor, group, op: str) -> torch.Tensor:
     COLLECTIVES[f"all_reduce_{op}"] += 1
     red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
     if op == "sum" and x.dtype in (torch.bfloat16, torch.float16):
@@ -147,6 +185,61 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     y = x.contiguous()
     dist.all_reduce(y, red, group=group)
     return y
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """All-reduce (SUM) forward, identity backward: the partial sums of a
+    row-parallel product become the whole output on every rank, and the
+    output's gradient, whole on every rank, is each partial's."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x.clone(), group, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward, all-reduce (SUM) backward: a replicated tensor
+    feeding this rank's block of a column-parallel site gets the sum of
+    every block's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous(), ctx.group, "sum"), None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as the replicated input of a column-parallel site over
+    ``group`` (:class:`_CopyToModel`); ``x`` itself outside autograd or
+    for a group of one."""
+    if group is None or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _CopyToModel.apply(x, group)
+
+
+def all_reduce_grads(grads: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """Each gradient summed over ``group`` in ONE all-reduce of a flat
+    f32 buffer (the data-parallel gradient sum); each comes back in its
+    own dtype and shape. A group of one returns ``grads``."""
+    if group is None or not grads:
+        return grads
+    flat = torch.cat([g.detach().reshape(-1).to(torch.float32)
+                      for g in grads])
+    flat = _all_reduce(flat, group, "sum")
+    out, at = [], 0
+    for g in grads:
+        n = g.numel()
+        out.append(flat[at:at + n].view(g.shape).to(g.dtype))
+        at += n
+    return out
 
 
 def all_gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:

@@ -34,6 +34,12 @@ group size to divide ``din / tp``.
 Specs are keyed by the port's parameter names (``text.layers.0.attn.
 q_proj.weight``), in ``nn.Linear``'s ``[out, in]`` layout: ``out`` is the
 kept output rows (an index tensor), ``inn`` the kept input range.
+
+LoRA adapters follow the sites they adapt (:func:`lora_specs_like`, JAX's
+rule): ``a`` [din, r] takes the weight's input placement, ``b`` [r, dout]
+its output placement; a training run keeps each rank's slice
+(:class:`LoraLayout`: the slices of a whole tree, and the whole tree back
+from every rank's slice).
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ import torch
 from torch import nn
 
 from ..config import CogReasonerConfig, Qwen2Config, VisionEncoderConfig
-from .mesh import DATA_AXIS, MODEL_AXIS, Mesh
+from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, all_gather
 
 Range = Tuple[int, int]
 
@@ -402,8 +408,13 @@ def shard_cogreasoner(model, cfg: CogReasonerConfig, mesh: Mesh):
     ``model`` (plain or quantized), with the plans attached; ``model`` is
     left as it is. Each slice is a copy, so dropping ``model`` frees the
     whole weights."""
-    leaves = adapt_specs_to_quantized(model,
-                                      cogreasoner_param_specs(cfg, mesh))
+    new = _shard_module(model, cogreasoner_param_specs(cfg, mesh))
+    return attach_shards(new, cfg, mesh)
+
+
+def _shard_module(model: nn.Module, specs: Dict[str, Spec]) -> nn.Module:
+    """A copy of ``model`` holding this rank's slice of every tensor."""
+    leaves = adapt_specs_to_quantized(model, specs)
     memo = {id(t): t for t in list(model.parameters())
             + list(model.buffers())}
     new = copy.deepcopy(model, memo)
@@ -414,7 +425,40 @@ def shard_cogreasoner(model, cfg: CogReasonerConfig, mesh: Mesh):
         local = slice_leaf(t, ls)
         if local is not t:
             _set_tensor(new, name, local)
-    return attach_shards(new, cfg, mesh)
+    return new
+
+
+@torch.no_grad()
+def shard_qwen2(model, cfg: Qwen2Config, mesh: Mesh):
+    """A new decoder holding this rank's slice of every tensor of the
+    whole ``model`` (plain or quantized), its plan attached (stage-1
+    training shards the decoder alone)."""
+    new = _shard_module(model, qwen2_param_specs(cfg, mesh))
+    new.tp = text_shard(cfg, mesh)
+    return new
+
+
+def training_mesh(model, data: Optional[int], tp: Optional[int]):
+    """The mesh a training run uses: the one ``model`` (a ``Qwen2Model``
+    or ``CogReasoner``; None before a load) is already sharded for, when
+    its layout is the asked one, else ``make_mesh(data, tp)`` of the
+    process group; None for one process asking for no parallelism.
+    ``data`` / ``tp`` that do not fit the world raise ``ValueError``
+    (JAX's ``make_mesh`` does on a device count that does not match): a
+    run never falls back to one rank."""
+    from .mesh import make_mesh, world_size
+
+    have = sharded_mesh(model)
+    if have is not None:
+        want = {DATA_AXIS: data or have.data,
+                MODEL_AXIS: tp or have.model}
+        if want != have.shape:
+            raise ValueError(f"model is sharded for {have.shape}, asked "
+                             f"for {want}")
+        return have
+    if world_size() == 1 and (data or 1) == 1 and (tp or 1) == 1:
+        return None
+    return make_mesh(data, tp)
 
 
 def check_mesh_adapters(mesh: Optional[Mesh], adapters) -> None:
@@ -508,6 +552,142 @@ def init_cogreasoner_sharded(cfg: CogReasonerConfig,
                                                 dtype=p.dtype,
                                                 device=device))
     return attach_shards(model.requires_grad_(False), cfg, mesh)
+
+
+# ---------------------------------------------------------------------------
+# LoRA adapters
+# ---------------------------------------------------------------------------
+
+class LoraSpec(NamedTuple):
+    """One LoRA leaf's placement: ``axes`` as a ``PartitionSpec`` names
+    them (``("model", None)``: rows split; ``(None, "model")``: columns
+    split; ``(None, None)``: replicated), ``dim`` the split dim and
+    ``index`` this rank's indices on it (None: replicated)."""
+
+    axes: Tuple
+    dim: Optional[int] = None
+    index: Optional[torch.Tensor] = None
+
+
+def lora_specs_like(lora_tree, param_specs: Dict[str, Spec]
+                    ) -> Dict[str, LoraSpec]:
+    """Placements of a LoRA tree's leaves, by their dotted paths
+    (``models/lora.iter_leaves``): ``a`` [din, r] takes the adapted
+    weight's input placement and ``b`` [r, dout] its output placement
+    (JAX's ``lora_specs_like``). ``param_specs`` is keyed by parameter
+    names relative to the tree's root: ``qwen2_param_specs`` for a
+    decoder tree (``layers.<i>.attn.q_proj``), ``cogreasoner_param_specs``
+    for a stage-2 tree (``text.layers.<i>...``, ``projector.layers.<i>``).
+    The port's decoder entries are per layer (JAX stacks them ``[L]`` with
+    a leading unsplit axis) and the projector's a list, as in JAX."""
+    from ..models.lora import iter_leaves
+
+    out = {}
+    for path, _ in iter_leaves(lora_tree):
+        site, _, leaf = path.rpartition(".")
+        spec = param_specs.get(f"{site}.weight")
+        if spec is None or leaf not in ("a", "b"):
+            raise KeyError(f"LoRA leaf {path} adapts no known weight")
+        if leaf == "a" and spec.inn is not None:
+            out[path] = LoraSpec((MODEL_AXIS, None), 0,
+                                 torch.arange(*spec.inn))
+        elif leaf == "b" and spec.out is not None:
+            out[path] = LoraSpec((None, MODEL_AXIS), 1, spec.out)
+        else:
+            out[path] = LoraSpec((None, None))
+    return out
+
+
+class LoraLayout:
+    """A LoRA tree's split over the model axis of ``mesh`` (replicated on
+    its data axis): built from the WHOLE tree (every rank initializes it
+    from the seed) and the adapted model's parameter specs, it gives this
+    rank's slice of a whole tree (:meth:`shard`) and the whole tree from
+    every rank's slice (:meth:`gather`, collective over the model group),
+    and the same for the optimizer's per-leaf moments. Each split leaf is
+    a rank-ordered block (the plans split on head, channel and vocab
+    blocks); a split the blocks cannot express (kv heads shared by ranks,
+    whose adapters would each get part of the gradient) raises."""
+
+    def __init__(self, lora_tree, param_specs: Dict[str, Spec],
+                 mesh: Mesh):
+        from ..models.lora import iter_leaves
+
+        self.mesh = mesh
+        self.specs = lora_specs_like(lora_tree, param_specs)
+        tp = mesh.shape[MODEL_AXIS]
+        for path, t in iter_leaves(lora_tree):
+            s = self.specs[path]
+            if s.index is None:
+                continue
+            n = len(s.index)
+            block = torch.arange(mesh.model_index * n,
+                                 (mesh.model_index + 1) * n)
+            if n * tp != t.shape[s.dim] or not torch.equal(
+                    s.index.cpu(), block):
+                raise NotImplementedError(
+                    f"LoRA on {path}: the plan holds indices that are not "
+                    f"this rank's block of {t.shape[s.dim]} (kv heads "
+                    "shared by ranks); train at another model-axis size")
+        self._order = [p for p, _ in iter_leaves(lora_tree)]
+
+    @property
+    def group(self):
+        return self.mesh.model_group
+
+    def shard(self, tree):
+        """This rank's slice of a whole tree (new trainable leaves)."""
+        return shard_lora(tree, self.specs)
+
+    def shard_leaves(self, leaves):
+        """This rank's slices of per-leaf tensors (optimizer moments) in
+        the tree's leaf order."""
+        return [_lora_slice(t, self.specs[p])
+                for p, t in zip(self._order, leaves)]
+
+    def gather_leaves(self, leaves):
+        """The whole tensors from every rank's slices (collective over the
+        model group): the split leaves travel in one flat all-gather."""
+        split = [i for i, p in enumerate(self._order)
+                 if self.specs[p].index is not None]
+        out = [t.detach() for t in leaves]
+        if self.group is None or not split:
+            return out
+        flat = torch.cat([out[i].reshape(-1).to(torch.float32)
+                          for i in split])
+        parts = all_gather(flat, self.group, dim=0).view(
+            self.mesh.shape[MODEL_AXIS], -1)
+        at = 0
+        for i in split:
+            t, dim = out[i], self.specs[self._order[i]].dim
+            n = t.numel()
+            out[i] = torch.cat([p[at:at + n].view(t.shape) for p in parts],
+                               dim=dim).to(t.dtype)
+            at += n
+        return out
+
+    def gather(self, tree):
+        """The whole tree (detached) from every rank's slices."""
+        from ..models.lora import iter_leaves, map_leaves
+
+        whole = iter(self.gather_leaves([t for _, t in iter_leaves(tree)]))
+        return map_leaves(lambda t: next(whole), tree)
+
+
+def _lora_slice(t: torch.Tensor, spec: LoraSpec) -> torch.Tensor:
+    if spec.index is None:
+        return t
+    return t.index_select(spec.dim, spec.index.to(t.device)).contiguous()
+
+
+def shard_lora(tree, lora_specs: Dict[str, LoraSpec]):
+    """A rank's slice of a whole LoRA tree under :func:`lora_specs_like`'s
+    placements (leaves detached and trainable)."""
+    from ..models.lora import iter_leaves, map_leaves
+
+    specs = iter([lora_specs[p] for p, _ in iter_leaves(tree)])
+    return map_leaves(lambda t: _lora_slice(t, next(specs)).detach()
+                      .clone().requires_grad_(True), tree)
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,13 @@ branch with ``use_pallas=True``: on a CUDA device that is K5
 host from the batch's segment ids (the JAX package cannot under jit and
 runs the plain attention there).
 
+On a mesh (the model sharded, ``parallel/sharding.py``) the step is JAX's
+SPMD one: the frozen tower runs on its head shards (K5 on the local heads,
+K2) with no gradient, the projector's first linear column-parallel and its
+second row-parallel with their LoRA slices, then the splice and the
+sharded decoder; the text rows of the batch are this rank's data chunk
+(``trainer.shard_batch``) while the patch rows stay whole.
+
 Batch layout (tensors on the model's device; host-padded shapes):
   pixel_values [N, C*ps*ps]   patch rows for ALL items in the batch
   vis_pos      [N, 2]         2D rope positions (vision metadata)
@@ -41,7 +48,7 @@ from ..models.projector import projector_forward_lora
 from ..models.qwen2 import adapter_in as _adapter_in  # noqa: F401 (JAX name)
 from ..models.qwen2 import site_generator
 from ..models.vision_encoder import vision_encoder_core
-from .trainer import PARALLEL_MSG, masked_cross_entropy
+from .trainer import PARALLEL_MSG, loss_groups, masked_cross_entropy
 
 
 def pool_feature_table(proj: torch.Tensor, pool_group: torch.Tensor,
@@ -83,7 +90,7 @@ def multimodal_loss_fn(
     config the caller trains under (its ``w8a8_prefill`` runs an int8
     base's projections W8A8, ``qwen2_forward_train``; default
     ``model.text.cfg``). ``sp`` (ring sequence parallelism) is not
-    ported."""
+    ported (ROADMAP Queue 1 #9)."""
     if sp is not None:
         raise NotImplementedError(PARALLEL_MSG)
     text = model.text
@@ -121,5 +128,6 @@ def multimodal_loss_fn(
         remat=remat, dropout_rate=dropout_rate, dropout_seed=dropout_seed,
         cfg=text_cfg)
     logits = qwen2.lm_logits(text, hidden, adapters, lora_scale)
-    loss, _ = masked_cross_entropy(logits, batch["labels"])
+    loss, _ = masked_cross_entropy(logits, batch["labels"],
+                                   **loss_groups(text))
     return loss

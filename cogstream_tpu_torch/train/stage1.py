@@ -3,11 +3,14 @@ of ``cogstream_tpu/train/stage1.py``).
 
 LoRA r=8 on all attention/MLP projections, constrained-vocab CE on the
 bracketed selection target, shuffle-augmented history, cosine LR, grad
-accumulation, remat — on one GPU. :func:`main` is the ``train-stage1``
-command: an HF checkpoint directory, its tokenizer (the byte tokenizer
-where it ships none), and ``--qa-json`` (a dataset file, or a directory
-of published query chains). The data, tensor and pipeline parallel
-options raise (ROADMAP Queue 1 #9).
+accumulation, remat — on one GPU, or on a (data, model) mesh of one
+process per rank (``torchrun --nproc-per-node N``): the decoder and its
+LoRA under the Megatron plans, each batch split on ``data``, every rank on
+the model axis unless ``data_parallel`` says otherwise (JAX's
+``make_mesh`` default). :func:`main` is the ``train-stage1`` command: an
+HF checkpoint directory, its tokenizer (the byte tokenizer where it ships
+none), and ``--qa-json`` (a dataset file, or a directory of published
+query chains). Pipeline parallelism raises (ROADMAP Queue 1 #9).
 """
 
 from __future__ import annotations
@@ -22,13 +25,28 @@ import torch
 
 from ..config import CogReasonerConfig, LoRAConfig
 from ..models.lora import init_qwen2_lora
+from ..parallel.sharding import (LoraLayout, qwen2_param_specs, shard_qwen2,
+                                 training_mesh)
 from ..processor.tokenizer import constrained_selector_token_ids
 from ..runtime.sampling import build_vocab_mask
 from . import checkpoint as ckpt
 from .data import (load_selector_dataset, load_selector_dir,
                    selection_exact_match, selector_batches)
 from .trainer import (PARALLEL_MSG, bind_text_loss, init_train_state,
-                      make_optimizer, make_train_step, to_device)
+                      make_optimizer, make_train_step, quiet_log,
+                      shard_batch, stop_requested, to_device)
+
+
+def check_pipeline(tcfg) -> None:
+    """JAX's checks of ``pipeline_stages``, then the #9 raise: GPipe is
+    not ported."""
+    if tcfg.pipeline_stages > 1:
+        if tcfg.model_parallel and tcfg.model_parallel > 1:
+            raise ValueError(
+                "pipeline_stages is exclusive with model_parallel (a "
+                "pipeline stage replicates its layers at full width; "
+                "pick TP or PP for weight distribution)")
+        raise NotImplementedError(PARALLEL_MSG)
 
 
 @dataclasses.dataclass
@@ -69,6 +87,15 @@ def train_stage1(
     """Train the selector LoRA on ``model``'s device; returns the final
     TrainState.
 
+    In a process group of several ranks (or asked for a data or model
+    axis above 1) the run takes ``make_mesh(tcfg.data_parallel,
+    tcfg.model_parallel)``, or the mesh ``model`` is already sharded for:
+    a whole ``model`` is sharded (a copy), every rank draws the whole
+    initial LoRA from the seed and keeps its slice, shuffles the same
+    batches and keeps its chunk of each; only rank 0 logs and writes, and
+    a stop on any rank stops all at the same step. Sizes that do not fit
+    the world raise (``ValueError``).
+
     ``lora_cfg`` defaults to the reference recipe (``LoRAConfig()``:
     r=8, alpha 16, dropout 0.1); ``lora`` is the initial adapter tree
     (default: ``init_qwen2_lora`` from ``tcfg.seed``). ``stop_flag`` is
@@ -77,14 +104,21 @@ def train_stage1(
     train state is saved and the function returns early — a relaunch
     resumes from that step.
     """
-    if tcfg.pipeline_stages > 1 or (tcfg.data_parallel or 1) > 1 or \
-            (tcfg.model_parallel or 1) > 1:
-        raise NotImplementedError(PARALLEL_MSG)
+    check_pipeline(tcfg)
+    mesh = training_mesh(model, tcfg.data_parallel, tcfg.model_parallel)
+    if mesh is not None and getattr(model, "tp", None) is None:
+        model = shard_qwen2(model, cfg.text, mesh)
+    if mesh is not None and mesh.rank != 0:
+        log = quiet_log
     dev = model.device
     lora_cfg = lora_cfg or LoRAConfig()
     if lora is None:
         lora = init_qwen2_lora(torch.Generator(device=dev).manual_seed(
             tcfg.seed), cfg.text, lora_cfg, device=dev)
+    layout = None
+    if mesh is not None:
+        layout = LoraLayout(lora, qwen2_param_specs(cfg.text, mesh), mesh)
+        lora = layout.shard(lora)
 
     steps_per_epoch = max(1, (len(samples) * tcfg.shuffle_copies)
                           // tcfg.batch_size)
@@ -101,7 +135,7 @@ def train_stage1(
     drop_seed = tcfg.seed ^ 0x5EED if lora_cfg.dropout > 0 else None
     step_fn = make_train_step(tx, loss_fn, dropout_seed=drop_seed)
 
-    state = init_train_state(tx, lora)
+    state = init_train_state(tx, lora, layout)
     if resume:
         restored = ckpt.restore_train_state(out_dir, state)
         if restored is not None:
@@ -115,21 +149,23 @@ def train_stage1(
                 seed=tcfg.seed + epoch,
                 shuffle_copies=tcfg.shuffle_copies,
                 include_demo=tcfg.include_demo):
-            state, loss = step_fn(model, state, to_device(batch, dev))
+            state, loss = step_fn(model, state,
+                                  to_device(shard_batch(batch, mesh), dev))
             s = state.step
             if s % tcfg.log_every == 0:
                 log(f"epoch {epoch} step {s} loss {float(loss):.4f} "
                     f"({s / (time.time() - t0 + 1e-9):.2f} it/s)")
             if s % tcfg.save_every == 0:
                 ckpt.save_train_state(out_dir, state)
-            if stop_flag is not None and stop_flag():
+            if stop_requested(stop_flag, mesh):
                 ckpt.save_train_state(out_dir, state)
                 log(f"preempted at step {s}: train state saved — "
                     "rerun to resume")
                 return state
         ckpt.save_train_state(out_dir, state)
         log(f"epoch {epoch} done")
-    ckpt.save_lora_adapter(out_dir, state.lora, name="language_module")
+    ckpt.save_lora_adapter(out_dir, state.lora, name="language_module",
+                           layout=layout)
     return state
 
 
@@ -164,9 +200,12 @@ def main(argv=None):
                     help=">1: pipeline parallelism (not ported: raises)")
     ap.add_argument("--pipeline-microbatches", type=int, default=0)
     ap.add_argument("--data-parallel", type=int, default=None,
-                    help="data parallelism (not ported: >1 raises)")
+                    help="data-parallel size under torchrun; the rest of "
+                         "the world goes on the model axis (default: "
+                         "every rank on the model axis)")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the CUDA card)")
+                    help="torch device (default: the CUDA card; under "
+                         "torchrun cuda:LOCAL_RANK)")
     args = ap.parse_args(argv)
 
     from ..config import load_hf_config
@@ -179,19 +218,40 @@ def main(argv=None):
                         data_parallel=args.data_parallel,
                         pipeline_stages=args.pipeline_stages,
                         pipeline_microbatches=args.pipeline_microbatches)
-    if tcfg.pipeline_stages > 1 or (tcfg.data_parallel or 1) > 1:
-        raise NotImplementedError(PARALLEL_MSG)
+    check_pipeline(tcfg)
+    rank, device, mesh = join_training_world(args.device, tcfg.data_parallel,
+                                             tcfg.model_parallel)
+    say = print if rank == 0 else quiet_log
     cfg = load_hf_config(os.path.join(args.model_dir, "config.json"))
-    model = load_cogreasoner_from_hf(args.model_dir, cfg, device=args.device)
+    model = load_cogreasoner_from_hf(args.model_dir, cfg, device=device,
+                                     mesh=mesh)
     tokenizer = load_tokenizer(args.model_dir, cfg.image_token_index,
                                cfg.text.vocab_size)
     samples = (load_selector_dir(args.qa_json) if os.path.isdir(args.qa_json)
                else load_selector_dataset(args.qa_json))
-    print(f"{len(samples)} selector samples")
+    say(f"{len(samples)} selector samples")
     with PreemptionGuard() as guard:    # SIGTERM → save + clean exit
         state = train_stage1(model.text, cfg, tokenizer, samples, args.out,
                              tcfg, stop_flag=guard)
-    print(f"stage1: {state.step} steps")
+    say(f"stage1: {state.step} steps")
+
+
+def join_training_world(device: Optional[str], data_parallel=None,
+                        model_parallel=None):
+    """A training command's process group and mesh: under torchrun
+    (``WORLD_SIZE`` > 1) the group is joined (NCCL on the cards, gloo
+    with a CPU ``device``), this rank's device is ``cuda:LOCAL_RANK``
+    unless ``device`` names one, and the mesh is ``make_mesh(data_parallel,
+    model_parallel)`` (``parallel/sharding.training_mesh``); one process
+    gets no mesh. Returns (rank, device, mesh). Sizes that do not fit the
+    world raise, in one process too."""
+    from ..parallel.distributed import initialize_if_needed, local_rank
+
+    cpu = device is not None and str(device).startswith("cpu")
+    rank, world = initialize_if_needed(backend="gloo" if cpu else None)
+    if world > 1 and device is None:
+        device = f"cuda:{local_rank()}"
+    return rank, device, training_mesh(None, data_parallel, model_parallel)
 
 
 if __name__ == "__main__":

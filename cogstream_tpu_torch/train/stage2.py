@@ -15,7 +15,15 @@ gives the cosine schedule's horizon, and :func:`main` is the
 the whole base quantized while LoRA trains in f32 (QLoRA, the reference
 recipe's NF4 base; ``ops/quant.quantize_cogreasoner_``), and
 ``--w8a8-forward`` runs an int8 base's decoder GEMMs W8A8 with a
-straight-through gradient. Sequence and tensor parallelism raise (ROADMAP
+straight-through gradient.
+
+On a (data, model) mesh (one process per rank, ``torchrun``; every rank
+on the model axis unless ``data_parallel`` says otherwise, JAX's
+``make_mesh`` default) the weights and the LoRA sit under the Megatron
+plans (plain or quantized bases: their stores slice), and the turn is NOT
+split on ``data``: as in JAX, which calls no ``shard_batch`` for this
+B = 1 batch, every data replica computes the same turn. Sequence
+parallelism, and ``--w8a8-forward`` on model-axis shards, raise (ROADMAP
 Queue 1 #9).
 """
 
@@ -34,13 +42,34 @@ import torch
 from ..config import CogReasonerConfig, LoRAConfig
 from ..models import cogreasoner
 from ..models.lora import init_cogreasoner_lora
+from ..models.qwen2 import W8A8_MESH_MSG
 from ..models.vision_encoder import build_vision_metadata
+from ..parallel.mesh import mesh_shape, world_size
+from ..parallel.sharding import (LoraLayout, cogreasoner_param_specs,
+                                 shard_cogreasoner, training_mesh)
 from ..runtime.history import parse_selection, rewrite_history, \
     selection_string
 from . import checkpoint as ckpt
 from .multimodal import multimodal_loss_fn
 from .trainer import (IGNORE_INDEX, PARALLEL_MSG, init_train_state,
-                      make_optimizer, make_train_step, to_device)
+                      make_optimizer, make_train_step, quiet_log,
+                      stop_requested, to_device)
+
+
+def check_parallel(tcfg, int8_act: bool, world: int = 1) -> None:
+    """What stage 2 refuses on a mesh: JAX's ``sequence_parallel`` checks
+    and then the #9 raise (ring attention is not ported); int8
+    activations (``int8_act``: ``--w8a8-forward``) with a model axis
+    above 1 (``make_mesh``'s sizes over ``world`` ranks)."""
+    if tcfg.sequence_parallel > 1:
+        if tcfg.model_parallel and tcfg.model_parallel > 1:
+            raise ValueError("sequence_parallel is exclusive with "
+                             "model_parallel (weights replicate along the "
+                             "sp axis)")
+        raise NotImplementedError(PARALLEL_MSG)
+    _, tp = mesh_shape(tcfg.data_parallel, tcfg.model_parallel, world)
+    if tp > 1 and int8_act:
+        raise NotImplementedError(W8A8_MESH_MSG)
 
 
 @dataclasses.dataclass
@@ -169,7 +198,8 @@ def build_gt_selection(relevance: Sequence[int], n_hist: int,
 
 class Stage2Trainer:
     """Drives the per-turn curriculum on the model's device: one LoRA
-    micro-step per packed turn."""
+    micro-step per packed turn; on a mesh (see the module docstring) every
+    rank drives the same turns on its shard, rank 0 logs and writes."""
 
     def __init__(self, model, cfg: CogReasonerConfig, tokenizer,
                  tcfg: Stage2Config, out_dir: str,
@@ -180,9 +210,14 @@ class Stage2Trainer:
         projector adapted unless ``tcfg.baseline``; ``lora`` is the
         initial adapter tree (default: ``init_cogreasoner_lora`` from
         ``tcfg.seed``)."""
-        if tcfg.sequence_parallel > 1 or (tcfg.model_parallel or 1) > 1 \
-                or (tcfg.data_parallel or 1) > 1:
-            raise NotImplementedError(PARALLEL_MSG)
+        check_parallel(tcfg, cfg.text.w8a8_prefill or cfg.text.w4a8_decode,
+                       world_size())
+        self.mesh = training_mesh(model, tcfg.data_parallel,
+                                  tcfg.model_parallel)
+        if self.mesh is not None and getattr(model.text, "tp", None) is None:
+            model = shard_cogreasoner(model, cfg, self.mesh)
+        if self.mesh is not None and self.mesh.rank != 0:
+            log = quiet_log
         self.model = model
         self.cfg = cfg
         self.tok = tokenizer
@@ -209,7 +244,12 @@ class Stage2Trainer:
             tcfg.learning_rate, total_steps=total_steps,
             warmup_steps=min(100, max(1, total_steps // 10)),
             grad_accum=tcfg.grad_accum)
-        self.state = init_train_state(self.tx, lora)
+        layout = None
+        if self.mesh is not None:
+            layout = LoraLayout(lora, cogreasoner_param_specs(cfg, self.mesh),
+                                self.mesh)
+            lora = layout.shard(lora)
+        self.state = init_train_state(self.tx, lora, layout)
         restored = ckpt.restore_train_state(out_dir, self.state)
         if restored is not None:
             self.state = restored
@@ -227,7 +267,8 @@ class Stage2Trainer:
 
         self._step = make_train_step(
             self.tx, loss,
-            dropout_seed=tcfg.seed ^ 0x5EED if rate > 0 else None)
+            dropout_seed=tcfg.seed ^ 0x5EED if rate > 0 else None,
+            data_sharded=False)
 
     def train_turn(self, batch: Dict[str, np.ndarray]) -> float:
         batch = dict(batch)
@@ -253,7 +294,7 @@ class Stage2Trainer:
     def preempted(self) -> bool:
         """True once the stop flag fires; saves the train state when
         observed so the caller can simply stop."""
-        if self.stop_flag is not None and self.stop_flag():
+        if stop_requested(self.stop_flag, self.mesh):
             ckpt.save_train_state(self.out_dir, self.state)
             self.log(f"preempted at step {self.state.step}: train state "
                      "saved — rerun to resume")
@@ -263,7 +304,7 @@ class Stage2Trainer:
     def finish(self):
         ckpt.save_train_state(self.out_dir, self.state)
         ckpt.save_lora_adapter(self.out_dir, self.state.lora,
-                               name="full_module")
+                               name="full_module", layout=self.state.layout)
 
 
 def train_stage2_video(
@@ -417,8 +458,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.w8a8_forward and args.quantize_base != "int8":
         ap.error("--w8a8-forward requires --quantize-base int8")
-    if args.sequence_parallel > 1:
-        raise NotImplementedError(PARALLEL_MSG)
 
     from ..config import load_hf_config
     from ..evaluate.answer_generate import load_eval_spec
@@ -426,21 +465,31 @@ def main(argv=None):
     from ..ops.quant import quantize_cogreasoner_
     from ..processor.processing import CogStreamProcessor
     from ..processor.tokenizer import load_tokenizer
+    from .stage1 import join_training_world
     from .trainer import PreemptionGuard
 
+    tcfg = Stage2Config(num_epochs=args.num_epochs, baseline=args.baseline,
+                        sequence_parallel=args.sequence_parallel)
+    check_parallel(tcfg, args.w8a8_forward,
+                   int(os.environ.get("WORLD_SIZE", "1")))
     cfg = load_hf_config(os.path.join(args.model_dir, "config.json"))
     if args.w8a8_forward:
         cfg = dataclasses.replace(
             cfg, text=dataclasses.replace(cfg.text, w8a8_prefill=True))
-    model = load_cogreasoner_from_hf(args.model_dir, cfg, device=args.device)
+    rank, device, mesh = join_training_world(args.device)
+    say = print if rank == 0 else quiet_log
+    # a quantized base is quantized whole, then sharded (its stores slice)
+    model = load_cogreasoner_from_hf(
+        args.model_dir, cfg, device=device,
+        mesh=mesh if args.quantize_base == "none" else None)
     if args.quantize_base != "none":
         bits, nf4 = QUANTIZE_BASE[args.quantize_base]
         quantize_cogreasoner_(model, bits, nf4=nf4)
+        if mesh is not None:
+            model = shard_cogreasoner(model, cfg, mesh)
     tok = load_tokenizer(args.model_dir, cfg.image_token_index,
                          cfg.text.vocab_size)
     processor = CogStreamProcessor(tok, cfg.processor)
-    tcfg = Stage2Config(num_epochs=args.num_epochs, baseline=args.baseline,
-                        sequence_parallel=args.sequence_parallel)
 
     with PreemptionGuard() as guard:    # SIGTERM → save + clean exit
         trainer = Stage2Trainer(
@@ -461,13 +510,17 @@ def main(argv=None):
                 try:
                     losses = train_stage2_video(
                         trainer, processor, video, spec.get("segments", []))
-                    print(f"{fname}: {len(losses)} turns, "
-                          f"mean loss {np.mean(losses or [0]):.4f}")
+                    say(f"{fname}: {len(losses)} turns, "
+                        f"mean loss {np.mean(losses or [0]):.4f}")
                 except Exception as e:  # per-video resilience (ref :161-164)
-                    print(f"{fname}: skipped ({type(e).__name__}: {e})")
-                if guard():
+                    if mesh is not None:
+                        # a rank that skips a video would leave the others
+                        # in its collectives: a failure ends the run
+                        raise
+                    say(f"{fname}: skipped ({type(e).__name__}: {e})")
+                if stop_requested(guard, mesh):
                     break
-            if guard():
+            if stop_requested(guard, mesh):
                 break
         trainer.finish()
 

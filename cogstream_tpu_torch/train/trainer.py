@@ -12,8 +12,15 @@ the schedule counting inner updates) — over trees of torch tensors. The
 LoRA leaves and the optimizer moments update IN PLACE (the JAX package
 returns new arrays), so a step allocates no second copy of either.
 
-Multi-GPU data, tensor, pipeline and sequence parallelism is not ported
-(``shard_batch``, ``batch_specs`` and ``pipeline=`` raise).
+On a (data, model) mesh (``parallel/mesh.py``; one process per rank) the
+step is JAX's SPMD program taken apart: each rank holds its decoder shard
+and LoRA slice (``parallel/sharding.LoraLayout``) and its chunk of the
+batch's leading dim (:func:`shard_batch`); the loss is vocab-parallel
+(:func:`masked_cross_entropy` on the ranks' logit slices) and, as in JAX,
+Σ nll over the GLOBAL count of valid targets, so each rank's loss is its
+own Σ nll over that count and the data group's gradient SUM is the
+global loss's gradient. Pipeline and sequence parallelism are not ported
+(``pipeline=`` raises, ROADMAP Queue 1 #9).
 """
 
 from __future__ import annotations
@@ -27,10 +34,12 @@ import torch
 from ..config import LoRAConfig, Qwen2Config
 from ..models import qwen2
 from ..models.lora import iter_leaves
+from ..parallel.mesh import DATA_AXIS, all_reduce, all_reduce_grads
+from ..parallel.sharding import sharded_mesh
 
 IGNORE_INDEX = -100
-PARALLEL_MSG = ("multi-GPU data, tensor, pipeline and sequence parallelism "
-                "is not ported yet (ROADMAP Queue 1 #9)")
+PARALLEL_MSG = ("pipeline and sequence parallelism are not ported yet "
+                "(ROADMAP Queue 1 #9)")
 
 
 class PreemptionGuard:
@@ -48,7 +57,9 @@ class PreemptionGuard:
     The guard is callable (returns ``triggered``) so loops can take
     any ``stop_flag: Callable[[], bool]``. Outside the main thread
     (where CPython forbids signal handlers) it degrades to a plain
-    never-triggered flag.
+    never-triggered flag. On a mesh the loops read it through
+    :func:`stop_requested`: a signal to any rank stops every rank at the
+    same step.
     """
 
     def __init__(self, signals: Tuple[int, ...] = None):
@@ -86,23 +97,64 @@ class PreemptionGuard:
 # ---------------------------------------------------------------------------
 
 def masked_cross_entropy(
-    logits: torch.Tensor,       # [B, S, V]
+    logits: torch.Tensor,       # [B, S, V] (or the slice [B, S, hi - lo])
     labels: torch.Tensor,       # [B, S] int, IGNORE_INDEX outside the target
     vocab_mask: Optional[torch.Tensor] = None,   # [V] bool — constrained loss
+    vocab: Optional[Tuple[int, int]] = None,
+    group=None,
+    count_group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Next-token CE over the shifted sequence, in f32. Returns (loss,
     n_targets). With ``vocab_mask`` the distribution is renormalized over
-    the allowed tokens first (the stage-1 constrained objective)."""
+    the allowed tokens first (the stage-1 constrained objective).
+
+    Vocab-parallel (``vocab = (lo, hi)``, ``group`` the model group):
+    ``logits`` hold this rank's vocab slice. The row max is MAXed over the
+    group (a constant of the graph), Σ exp summed, and the target's logit
+    taken from the rank that holds it, all in f32 and under autograd
+    (``all_reduce``: identity backward). A slice with no allowed token
+    (``vocab_mask``) holds -1e30 everywhere: the group's max comes from
+    the slices that hold one, and its Σ exp is 0. ``count_group`` (the
+    data group): the loss is Σ nll over the count of valid targets summed
+    over it (JAX's mean over the global batch); each rank returns its own
+    Σ nll over that count, and the global count."""
     logits = logits[:, :-1].to(torch.float32)
     targets = labels[:, 1:].to(torch.int64)
     valid = targets != IGNORE_INDEX
-    if vocab_mask is not None:
-        logits = logits.masked_fill(~vocab_mask[None, None, :], -1e30)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, targets.clamp(min=0)[..., None])[..., 0]
+    n = all_reduce(valid.sum(), count_group)
+    if vocab is None:
+        if vocab_mask is not None:
+            logits = logits.masked_fill(~vocab_mask[None, None, :], -1e30)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -logp.gather(-1, targets.clamp(min=0)[..., None])[..., 0]
+    else:
+        lo, hi = vocab
+        if vocab_mask is not None:
+            logits = logits.masked_fill(~vocab_mask[None, None, lo:hi],
+                                        -1e30)
+        m = all_reduce(logits.detach().amax(dim=-1), group, "max")
+        sumexp = all_reduce((logits - m[..., None]).exp().sum(dim=-1),
+                            group)
+        t = targets.clamp(min=0)
+        mine = (t >= lo) & (t < hi)
+        tl = logits.gather(-1, (t - lo).clamp(0, hi - lo - 1)[..., None])
+        tl = all_reduce(torch.where(mine, tl[..., 0],
+                                    torch.zeros_like(tl[..., 0])), group)
+        nll = m + sumexp.log() - tl
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    n = valid.sum()
     return nll.sum() / n.clamp(min=1), n
+
+
+def loss_groups(text) -> Dict[str, Any]:
+    """:func:`masked_cross_entropy`'s mesh arguments for a decoder
+    (``Qwen2Model``): its vocab slice and the model group when the lm_head
+    is vocab-split, the data group for the count; none for a whole
+    decoder."""
+    tp = getattr(text, "tp", None)
+    if tp is None:
+        return {}
+    return {"vocab": tp.vocab, "group": tp.vocab_group,
+            "count_group": tp.mesh.data_group}
 
 
 def positions_from_ids(input_ids: torch.Tensor, pad_id: int = 0
@@ -246,10 +298,14 @@ class TrainState(NamedTuple):
     lora: Any                # trainable adapter tree (leaves require grad)
     opt_state: Any
     step: int                # micro-steps taken
+    # a mesh run's parallel/sharding.LoraLayout: ``lora`` and the
+    # optimizer's moments are this rank's slices (checkpoints gather them)
+    layout: Any = None
 
 
-def init_train_state(tx, lora: Any) -> TrainState:
-    return TrainState(lora, tx.init([t for _, t in iter_leaves(lora)]), 0)
+def init_train_state(tx, lora: Any, layout=None) -> TrainState:
+    return TrainState(lora, tx.init([t for _, t in iter_leaves(lora)]), 0,
+                      layout)
 
 
 def step_seed(base_seed: int, step: int) -> int:
@@ -261,31 +317,65 @@ def step_seed(base_seed: int, step: int) -> int:
 
 
 def make_train_step(tx, loss_fn: Callable,
-                    dropout_seed: Optional[int] = None) -> Callable:
+                    dropout_seed: Optional[int] = None,
+                    data_sharded: bool = True) -> Callable:
     """The (base frozen, LoRA trainable) train step ``step(params, state,
     batch) -> (state, loss)``. With ``dropout_seed`` the loss is called
     with a per-step seed derived from the step counter (train-mode LoRA
-    dropout, reproducible); without it with no seed (deterministic)."""
+    dropout, reproducible); without it with no seed (deterministic).
+
+    On a mesh (``params`` sharded, ``parallel/sharding.sharded_mesh``)
+    ``batch`` is this rank's chunk and the loss its share of the global
+    loss (:func:`masked_cross_entropy`'s ``count_group``); the gradients
+    are summed over the data group in one collective, so every data
+    replica applies the same update, and the loss returned is the global
+    one. With ``data_sharded`` (a batch split on ``data``) and more than
+    one data rank, the data index is folded into the dropout seed, so the
+    replicas draw different masks (a departure from one process, which
+    draws one mask over the whole batch); without it (the stage-2 turn,
+    which every data replica computes whole, as JAX's) they draw the
+    same."""
 
     def step(params, state: TrainState, batch):
+        mesh = sharded_mesh(params)
+        group = None if mesh is None else mesh.data_group
         leaves = [t for _, t in iter_leaves(state.lora)]
         if dropout_seed is not None:
-            loss = loss_fn(params, state.lora, batch,
-                           step_seed(dropout_seed, state.step))
+            seed = step_seed(dropout_seed, state.step)
+            if group is not None and data_sharded:
+                seed = step_seed(seed, mesh.data_index)
+            loss = loss_fn(params, state.lora, batch, seed)
         else:
             loss = loss_fn(params, state.lora, batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, leaves)]
+        grads = all_reduce_grads(grads, group)
+        loss = all_reduce(loss.detach(), group)
         updates, opt_state = tx.update(grads, state.opt_state, leaves)
         if updates is not None:
             with torch.no_grad():
                 for p, u in zip(leaves, updates):
                     p.add_(u.to(p.dtype))
-        return TrainState(state.lora, opt_state, state.step + 1), \
-            loss.detach()
+        return state._replace(opt_state=opt_state, step=state.step + 1), \
+            loss
 
     return step
+
+
+def quiet_log(*args, **kwargs) -> None:
+    """The log of a mesh rank other than 0: only rank 0 logs."""
+
+
+def stop_requested(stop_flag: Optional[Callable[[], bool]], mesh) -> bool:
+    """``stop_flag()`` (False without one), MAXed over every rank of
+    ``mesh`` through its host group at a step boundary: true on every rank
+    as soon as it is true on one."""
+    flag = bool(stop_flag()) if stop_flag is not None else False
+    if mesh is None or mesh.size == 1:
+        return flag
+    return bool(all_reduce(torch.tensor([int(flag)]), mesh.host_group,
+                           "max").item())
 
 
 # ---------------------------------------------------------------------------
@@ -320,7 +410,8 @@ def text_loss_fn(
         remat=remat, dropout_rate=dropout_rate, dropout_seed=dropout_seed,
         cfg=text_cfg)
     logits = qwen2.lm_logits(model, hidden, adapters, lora_scale)
-    loss, _ = masked_cross_entropy(logits, batch["labels"], vocab_mask)
+    loss, _ = masked_cross_entropy(logits, batch["labels"], vocab_mask,
+                                   **loss_groups(model))
     return loss
 
 
@@ -343,7 +434,8 @@ def embeds_loss_fn(
         lora_scale, remat=remat, dropout_rate=dropout_rate,
         dropout_seed=dropout_seed, cfg=text_cfg)
     logits = qwen2.lm_logits(model, hidden, adapters, lora_scale)
-    loss, _ = masked_cross_entropy(logits, batch["labels"])
+    loss, _ = masked_cross_entropy(logits, batch["labels"],
+                                   **loss_groups(model))
     return loss
 
 
@@ -382,9 +474,27 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
-def batch_specs(batch_example: Dict[str, Any]):
-    raise NotImplementedError(PARALLEL_MSG)
+def batch_specs(batch_example: Dict[str, Any]) -> Dict[str, Tuple]:
+    """Every batch leaf shards its leading (batch) dim on ``data`` (JAX's
+    ``P(DATA_AXIS, None, ...)``, as a tuple of axis names)."""
+    return {k: (DATA_AXIS,) + (None,) * (np.ndim(v) - 1)
+            for k, v in batch_example.items()}
 
 
-def shard_batch(batch: Dict[str, np.ndarray], mesh):
-    raise NotImplementedError(PARALLEL_MSG)
+def shard_batch(batch: Dict[str, np.ndarray], mesh) -> Dict[str, np.ndarray]:
+    """This rank's contiguous chunk of every leaf's leading dim (data rank
+    ``d`` of ``D`` keeps rows ``[d·B/D, (d+1)·B/D)``, as JAX's
+    ``NamedSharding`` over ``data`` places them); the batch itself without
+    a mesh or with one data rank. A leading dim that ``data`` does not
+    divide raises, as JAX's placement does."""
+    if mesh is None or mesh.data == 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        B = np.shape(v)[0]
+        if B % mesh.data:
+            raise ValueError(f"batch leaf {k!r} of {B} rows does not divide "
+                             f"over {mesh.data} data ranks")
+        n = B // mesh.data
+        out[k] = v[mesh.data_index * n:(mesh.data_index + 1) * n]
+    return out

@@ -2,7 +2,7 @@
 on the card: the bf16 tensor-core kernels of K1, K3, K4 and K5 and the
 f32 CUDA-core tiles beside them; K3 and K4 reading a pool cache through
 ``rows``; a tiny pool card against CPU; the int4 GEMVs K6-K9 (K6 and K10 in bf16 on one persistent kernel, their
-repeats and graph replays), the int8 GEMV K10 and the W8A8 product's ``torch._int_mm`` at few rows. Marked ``cuda``: without a CUDA device every test skips.
+repeats and graph replays), the int8 GEMV K10 and the W8A8 product's ``torch._int_mm`` at few rows, and a row shard's f32-summed product under autograd. Marked ``cuda``: without a CUDA device every test skips.
 
 On a machine with a card (and no JAX, so the repo's conftest cannot be
 imported there):
@@ -1115,3 +1115,28 @@ def test_e4m3_widening_is_exact(dev, kernel, S):
     want = v8[0, 0].to(torch.bfloat16).float().cpu()       # [Hkv, D]
     want = want.repeat_interleave(G, 0)[None, None].expand(1, S, -1, -1)
     torch.testing.assert_close(out, want, rtol=0, atol=0, equal_nan=True)
+
+
+def test_row_parallel_product_has_the_layer_gradient(dev):
+    """``ops/quant._mm_wide`` (a row shard's bf16 product with f32 sums,
+    ``torch.mm(out_dtype=)``) under autograd on the card: the output is
+    the f32-summed product, and the input's gradient through the rounded
+    output equals ``F.linear``'s (the whole layer's backward) bit for
+    bit."""
+    import torch.nn.functional as F
+
+    from cogstream_tpu_torch.ops.quant import _mm_wide
+
+    rng = np.random.default_rng(0)
+    x = _t(rng.standard_normal((3, 5, 256)), dev, torch.bfloat16)
+    w = _t(rng.standard_normal((96, 256)) / 16, dev, torch.bfloat16)
+    g = _t(rng.standard_normal((3, 5, 96)), dev, torch.bfloat16)
+    xa = x.clone().requires_grad_(True)
+    y = _mm_wide(xa, w)
+    assert y.dtype == torch.float32
+    torch.testing.assert_close(y, x.float() @ w.float().t(), atol=1e-3,
+                               rtol=1e-3)
+    dx, = torch.autograd.grad(y.to(torch.bfloat16), xa, g)
+    xb = x.clone().requires_grad_(True)
+    ref, = torch.autograd.grad(F.linear(xb, w), xb, g)
+    assert torch.equal(dx, ref)

@@ -750,8 +750,9 @@ def test_parallel_options_raise(setup):
         tstage2.Stage2Trainer(model, tcfg, TTok(),
                               tstage2.Stage2Config(sequence_parallel=2),
                               "/nonexistent")
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-        ttr.shard_batch({}, None)
+    # data parallelism is ported: without a mesh the batch is the chunk
+    batch = {"input_ids": np.zeros((2, 3), np.int32)}
+    assert ttr.shard_batch(batch, None) is batch
     with pytest.raises(NotImplementedError, match="Queue 1 #9"):
         tmm.multimodal_loss_fn(model, {}, {}, 2.0, 1, sp=("mesh", "sp"))
     with pytest.raises(NotImplementedError, match="Queue 1 #9"):
