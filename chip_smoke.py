@@ -106,7 +106,7 @@ Phases (each prints one line or a few; any failure exits non-zero):
    OpenCV writes one, else a directory of .npy frames) and a spec of
    three 50-frame stream segments with one QA each go through
    ``answer_generate.run_eval`` and ``CogReasonerEngine`` in NC, AC, FCC
-   and gt (32 greedy tokens a turn). Per turn: wall, encode,
+   and gt (16 greedy tokens a turn). Per turn: wall, encode,
    compression, visual tokens before and after, events, minor frames,
    prefill tokens and ms, marginal decode tok/s. K1-K4 must launch, all
    K1/K3/K4 launches on the tensor-core kernels; the last turn (150
@@ -134,11 +134,13 @@ Phases (each prints one line or a few; any failure exits non-zero):
    end); the client must get a 503 naming it, the child exit 17, the
    supervisor (which must hold no /dev/nvidia file) start a new child
    that restores the session, and the next ask answer turn 1 with the
-   control's tokens; fault -> 503 ms, child exit -> ready s, restore s;
+   control's tokens; fault -> 503 ms, child exit -> ready s, restore s.
+   (c), (d) and the two supervised cases run side by side, each on a
+   thread (their walls are taken so);
 9. pooled serving (runs on the phase-5 model, after phase 8, before
    phases 7 and 6) — (a) a ``SessionPool`` of 4 rows x 16384 slots
    (3.76 GB of cache): two ``ingest_batch`` ticks of a seeded 16-frame
-   24x42 segment per row, ``ask_batch`` AC then FCC on all rows (32
+   24x42 segment per row, ``ask_batch`` AC then FCC on all rows (16
    greedy tokens), a solo pooled ask (K3 / K4 through ``rows``, allocator
    peak below one row's bytes: no copy of the whole row), ``ask_stream``
    in chunks of 16, and row 3 saved, asked, closed, restored with ``open_restored``
@@ -172,7 +174,7 @@ Phases (each prints one line or a few; any failure exits non-zero):
    decode step of each (launches, device and wall ms); (b) for
    (w8a8_prefill, encoder_int8) = (off, off), (on, off), (on, on) a fresh
    session ingests a 16-frame 24x42 segment and answers AC (8 tokens)
-   and FCC (32 tokens): K10 launches in every mode, ``torch._int_mm`` in
+   and FCC (16 tokens): K10 launches in every mode, ``torch._int_mm`` in
    the decoder only under w8a8_prefill and in the tower only under
    encoder_int8, no decode step dequantizes an int8 weight, every K1 /
    K3 / K4 launch on its tensor-core kernel; the off/off session asks
@@ -180,7 +182,7 @@ Phases (each prints one line or a few; any failure exits non-zero):
    dequantization); (c) evaluate/quant_quality
    at full width and depth, bf16 the truth: int8, int8 + W8A8, int4u,
    int4c and nf4 by logit MAE, KL, top-1 agreement over 128 probe tokens
-   and greedy prefix agreement over 32 tokens, one scheme resident at a
+   and greedy prefix agreement over 16 tokens, one scheme resident at a
    time; int8's KL below each 4-bit scheme's; and the fp8kv row: the bf16
    build's cached logits and greedy continuation over an e4m3 cache
    against a bf16 cache;
@@ -188,13 +190,14 @@ Phases (each prints one line or a few; any failure exits non-zero):
    before phases 7, 10 and 6) — tp = 2 over a gloo group of two
    subprocesses of this script (``--tp-rank``), both on this card (NCCL
    refuses two ranks on one device; the kernels' library, built here,
-   only loads there). The parent first runs the solo references: phase
-   5's two ingests and asks replayed on the phase-5 model (untimed), and
-   replayed again with every row-parallel GEMM's sums split in two f32
-   halves as two ranks split them (the witness of what that sum order
-   alone does to the logits); an int8 (``w8a8_prefill``) and an int4 copy
-   of the phase-5 decoder each ingest a 16-frame segment and ask AC (4
-   tokens); and rewrites phase 8 (b)'s 2+2-layer checkpoint. Each rank: (a) a tiny f32 session (ingest,
+   only loads there). The parent rewrites phase 8 (b)'s 2+2-layer
+   checkpoint, starts the ranks, and while they run writes the solo
+   references: phase 5's two ingests and asks replayed on the phase-5
+   model (untimed), and replayed again with every row-parallel GEMM's
+   sums split in two f32 halves as two ranks split them (the witness of
+   what that sum order alone does to the logits); an int8
+   (``w8a8_prefill``) and an int4 copy of the phase-5 decoder each ingest
+   an 8-frame segment and ask AC (4 tokens). Each rank: (a) a tiny f32 session (ingest,
    AC, ingest, FCC, a lookahead_k=4 ask) with ``mesh=``, its tokens equal
    to the same session run solo on the card (rank 0 runs it first), K1-K4
    launched on each rank; (b) the phase-5 model at full width and depth,
@@ -211,17 +214,37 @@ Phases (each prints one line or a few; any failure exits non-zero):
    first token equal to the solo reference's, K10 / K6 + K8 launched on
    each rank; (d) ``load_cogreasoner_from_hf(mesh=)`` of the checkpoint
    (bf16, int8 and int4 at load): every tensor equal to the rank's slice
-   of the whole load. A rank that fails fails the phase;
+   of the whole load; (e) snapshots and adapters on the shards, after
+   (b)'s asks: (e1) the sharded session saves (rank 0 gathers every kv
+   head and writes; snapshot GB, gather + write s), each rank's K/V equal
+   to the file's slice at its kv heads bit for bit; (e2) a fresh sharded
+   session restored from it (read + send s) answers the next AC ask (8
+   tokens) as the original answers it after the save; (e3) the parent's
+   solo session restores the file: its cache equal to the file's bytes,
+   each rank's first-step logits on that ask within (b)'s AC gate of its;
+   (e4) an e4m3 sharded session restored from the file: its own
+   snapshot's bytes equal to the ranks'; (e5) a sharded session with the
+   language and the full adapter (r = 8, every ``b`` from N(0, 0.03^2),
+   sliced by the session) restored from the file and asked the same:
+   each rank's first-step logits within the gate of the solo session's
+   with the same adapters, the adapters moving the solo logits (the (e3)
+   restore's) by 10 x the gate or more, and (the control) each rank's
+   logits with the other rank's slice of the adapters beyond the gate.
+   (b) asks 16 tokens a turn. A rank that fails fails the phase.
+   ``--tp-only`` runs phase 11 alone; with ``--tp-snapshot-fault`` the
+   ranks write rank 0's kv heads in every rank's place and keep the
+   adapters whole, and the phase must fail;
 12. data- and tensor-parallel training (runs on the phase-5 model, after
    phase 11, before phase 7) — two ranks on this card over gloo
    (subprocesses of this script, ``--train-rank``), LoRA dropout 0. The
-   parent first runs the same steps in one process: two
-   ``train_stage1`` steps of 4 x 2048 byte tokens (half of phase 7's
-   batch: two whole bf16 replicas fit the card in (a)), their witness
+   parent first runs the same steps in one process: one
+   ``train_stage1`` step of 4 x 2048 byte tokens (half of phase 7's
+   batch: two whole bf16 replicas fit the card in (a)), its witness
    in two data ranks' sum order, two ``Stage2Trainer`` micro-steps on
-   phase 7's 8-frame turn and one on a 64-token text turn over an int8
-   copy. The ranks: (a) ``train_stage1`` on a (data 2, model 1) mesh,
-   losses and gathered adapters bit-equal to the witness; (b) on (data
+   phase 7's 8-frame turn (warm-up, then an update) and one on a 64-token
+   text turn over an int8 copy (one stage-1 step: the checks read the
+   first step's gradients). The ranks: (a) ``train_stage1`` on a (data
+   2, model 1) mesh, losses and gathered adapters bit-equal to the witness; (b) on (data
    1, model 2), (c) ``Stage2Trainer`` on (1, 2), the 8-frame turn (the
    tower on 8 heads a rank: every K5 launch on its tensor-core tile)
    and the 64-token turn on an int8 copy of the shards (K10 on column
@@ -3127,6 +3150,7 @@ def decode_step_cost(text, label: str, stamp: str, steps: int = 10,
 
 ENGINE_DIR = os.path.join(REPO, "build", "chip_smoke_engine")
 ENGINE_MODES = ("NC", "AC", "FCC", "gt")
+ENGINE_TOKENS = 16          # greedy tokens a turn
 # 150 frames at 1 fps in three stream segments of 50 (answer_generate's
 # default layout), 224x364: the processor's own smart-resize target for
 # 150 frames under the 16384-token budget (8x13 merged tokens a frame)
@@ -3418,7 +3442,8 @@ def engine_turns(model, dev, stamp):
             n0 = len(probe.turns)
             run_eval(engine, engine.processor, video_dir, query_dir, save,
                      mode=mode, process_index=0, process_count=1,
-                     max_new_tokens=32, log=lambda m: log(f"engine: {m}"))
+                     max_new_tokens=ENGINE_TOKENS,
+                     log=lambda m: log(f"engine: {m}"))
             with open(os.path.join(save, "stream.json")) as f:
                 results[mode] = json.load(f)
             for j, turn in enumerate(probe.turns[n0:]):
@@ -3611,24 +3636,58 @@ def run_checkpoint_round_trip(dev, stamp, video_dir, query_dir):
             "ckpt_load_s": load_s, "ckpt_load_rss_delta": rss_d,
             "ckpt_int4_load_s": load4_s, "ckpt_int4_load_rss_delta": rss4_d,
             "ckpt_int8_load_s": load8_s,
-            **run_training_clis(stamp, out_dir, video_dir),
-            **run_workflow(stamp, out_dir, video_dir),
-            **run_supervised_serve(stamp, out_dir, video_dir)}
+            **run_host_streams(stamp, out_dir, video_dir)}
+
+
+def run_host_streams(stamp, ckpt_dir, video_dir):
+    """Phase 8 (c), (d) and 9 (d) side by side, each on a thread of its
+    own (their subprocesses are independent, and most of their wall is
+    each command's start-up on the host): the two training commands, the
+    workflow, and the solo and pooled supervised servers. Every stream
+    runs to its end; then the first failure is raised. Their walls are
+    taken with the others running beside them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    clip = _clip_file(video_dir)
+    streams = {
+        "train CLIs": lambda: run_training_clis(stamp, ckpt_dir, video_dir),
+        "workflow": lambda: run_workflow(stamp, ckpt_dir, video_dir),
+        "supervise solo": lambda: supervised_case(stamp, ckpt_dir, clip, 0),
+        "supervise pooled": lambda: supervised_case(stamp, ckpt_dir, clip,
+                                                    2)}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(streams)) as ex:
+        futures = {k: ex.submit(fn) for k, fn in streams.items()}
+        errors = {k: f.exception() for k, f in futures.items()}
+    log(f"phase 8 (c), (d) and 9 (d) side by side in "
+        f"{time.perf_counter() - t0:.1f}s; failed "
+        f"{[k for k, e in errors.items() if e is not None]} [{stamp}]")
+    for k, e in errors.items():
+        if e is not None:
+            raise AssertionError(f"phase 8 stream {k!r} failed") from e
+    out = {}
+    out.update(futures["train CLIs"].result())
+    out.update(futures["workflow"].result())
+    out["supervise"] = {"solo": futures["supervise solo"].result(),
+                        "pooled": futures["supervise pooled"].result()}
+    return out
 
 
 def run_training_clis(stamp, ckpt_dir, video_dir):
     """Phase 8 (c): the two training commands as subprocesses on phase 8
     (b)'s 2+2-layer 7B-width checkpoint (byte tokenizer): ``train-stage1``
-    on the selector samples of 4 seeded chains (``--max-len 4096``: byte
+    on the selector samples of 2 seeded chains (``--max-len 4096``: byte
     tokens, prompts with the demo block), one epoch at batch 2; ``train-stage2
     --quantize-base nf4`` on phase 8's clip under a seeded spec of three
     10-frame segments, one QA each (relevance and visual flags from the
-    seed). Each must exit 0, print its steps / turns (at least one) and
-    write its adapter. Prints each one's wall."""
+    seed), the two side by side. Each must exit 0, print its steps /
+    turns (at least one) and write its adapter. Prints each one's wall."""
+    from concurrent.futures import ThreadPoolExecutor
+
     rng = np.random.default_rng(21)
     root = _engine_dir("train_cli")
     qa = {}
-    for v, smp in enumerate(_selector_samples(rng, 4)):
+    for v, smp in enumerate(_selector_samples(rng, 2)):
         qas = [{"QA_pairs": [{"Q": q, "A": a}], "relevance": [],
                 "is_visual": True} for q, a in zip(smp.hist_qs, smp.hist_as)]
         qas.append({"QA_pairs": [{"Q": smp.question, "A": "-"}],
@@ -3660,12 +3719,18 @@ def run_training_clis(stamp, ckpt_dir, video_dir):
                           "--quantize-base", "nf4"],
                          "full_module.npz", "clip.json: "),
     }
+
+    def run(cmd):
+        return run_cli(f"train CLI {cmd}", [
+            cmd, "--model-dir", ckpt_dir, "--out", os.path.join(root, cmd)]
+            + runs[cmd][0], stamp, timeout=600)
+
+    with ThreadPoolExecutor(len(runs)) as ex:
+        done = dict(zip(runs, ex.map(run, runs)))
     ok, out = True, {}
     for cmd, (args, adapter, mark) in runs.items():
         out_dir = os.path.join(root, cmd)
-        stdout, wall = run_cli(f"train CLI {cmd}", [
-            cmd, "--model-dir", ckpt_dir, "--out", out_dir] + args, stamp,
-            timeout=600)
+        stdout, wall = done[cmd]
         said = [ln for ln in stdout.splitlines() if ln.startswith(mark)]
         first = said[-1][len(mark):].split()[0] if said else ""
         n = int(first) if first.isdigit() else 0
@@ -3711,16 +3776,18 @@ def run_workflow(stamp, ckpt_dir, video_dir):
     """Phase 8 (d): the reference's published workflow through the port's
     command line, each stage a subprocess, on phase 8 (b)'s 2+2-layer
     7B-width checkpoint and phase 8's 150-frame clip: segment-videos
-    (cuts at 50 and 100 s) -> datagen --model fake -> train-stage1 (byte
+    (cuts at 50 and 100 s) -> datagen --model fake --n-streams 1 (one
+    query chain) -> train-stage1 (byte
     tokens, --max-len 4096) -> train-stage2 -> answer-generate (FCC, both
-    adapters, 32 tokens) -> judge x5 (FakeJudge) -> summarize ->
-    nlp-metrics. Every stage must exit 0; the spec has 3 segments with
+    adapters, 32 tokens) -> judge x5 (FakeJudge) -> summarize, and
+    nlp-metrics beside the judges. Every stage must exit 0; the spec has 3 segments with
     keyframes; the query chains are non-empty with Event_Time sorted;
     there is one prediction per QA of the first chain; every judged QA
     carries all five scores. Prints each stage's wall, and the wall of a
     bare interpreter importing the package (every command's start-up:
     the package's config imports torch)."""
     import shutil
+    from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
     subprocess.run([sys.executable, "-c", "import cogstream_tpu_torch"],
@@ -3736,6 +3803,7 @@ def run_workflow(stamp, ckpt_dir, video_dir):
     s1, s2 = os.path.join(root, "stage1"), os.path.join(root, "stage2")
     preds, judged = os.path.join(root, "preds"), os.path.join(root, "judged")
     walls = {}
+    t_flow = time.perf_counter()
 
     def stage(key, *args):
         out, walls[key] = run_cli(f"workflow {key}", args, stamp)
@@ -3746,7 +3814,7 @@ def run_workflow(stamp, ckpt_dir, video_dir):
     with open(os.path.join(seg, f"{name}.json")) as f:
         spec = json.load(f)
     stage("datagen", "datagen", "--segments-dir", seg, "--out-root", dg,
-          "--model", "fake")
+          "--model", "fake", "--n-streams", "1")
     with open(os.path.join(chains_dir, f"{name}.json")) as f:
         chains = json.load(f)["query_chains"]
     times = [[q["info"]["Event_Time"] for q in c] for c in chains]
@@ -3767,25 +3835,31 @@ def run_workflow(stamp, ckpt_dir, video_dir):
           preds, "--mode", "FCC", "--max-new-tokens", "32")
     with open(os.path.join(preds, f"{name}.json")) as f:
         qas = json.load(f)["QAs"]
-    for metric in ("IA", "DC", "CA", "TP", "LC"):
-        stage(f"judge {metric}", "judge", "--metric", metric, "--pred-dir",
-              preds, "--out-dir", judged, "--model", "fake")
-    report_path = os.path.join(root, "report.json")
-    stage("summarize", "summarize", "--judged-dir", judged, "--out",
-          report_path)
-    metrics = json.loads(stage("nlp-metrics", "nlp-metrics", "--pred-dir",
-                               preds).strip().splitlines()[-1])
+    # nlp-metrics reads only the predictions: it runs beside the judges
+    # (which merge their scores into one judged file, so one at a time)
+    with ThreadPoolExecutor(1) as ex:
+        nlp = ex.submit(stage, "nlp-metrics", "nlp-metrics", "--pred-dir",
+                        preds)
+        for metric in ("IA", "DC", "CA", "TP", "LC"):
+            stage(f"judge {metric}", "judge", "--metric", metric,
+                  "--pred-dir", preds, "--out-dir", judged, "--model",
+                  "fake")
+        report_path = os.path.join(root, "report.json")
+        stage("summarize", "summarize", "--judged-dir", judged, "--out",
+              report_path)
+        metrics = json.loads(nlp.result().strip().splitlines()[-1])
     with open(os.path.join(judged, f"{name}.json")) as f:
         scores = [set(q.get("scores", {})) for q in json.load(f)["QAs"]]
     with open(report_path) as f:
         report = json.load(f)
+    flow_s = time.perf_counter() - t_flow
     five = {"IA", "DC", "CA", "TP", "LC"}
     log(f"workflow: {len(spec['segments'])} segments, {len(chains)} chains "
         f"of {[len(c) for c in chains]} QAs, {steps[-1] if steps else 'no'}"
         f" stage-1 line, {len(qas)} predictions, average score "
-        f"{report['scores']['average']}, nlp {json.dumps(metrics)}; total "
-        f"{sum(walls.values()):.1f}s; an interpreter importing the package "
-        f"{import_s:.2f}s [{stamp}]")
+        f"{report['scores']['average']}, nlp {json.dumps(metrics)}; stages "
+        f"{sum(walls.values()):.1f}s, wall {flow_s:.1f}s; an interpreter "
+        f"importing the package {import_s:.2f}s [{stamp}]")
     if len(spec["segments"]) != 3 \
             or not all(sg["keyframes"] for sg in spec["segments"]) \
             or not chains or not all(chains) \
@@ -3796,7 +3870,8 @@ def run_workflow(stamp, ckpt_dir, video_dir):
             or not scores or any(s != five for s in scores) \
             or report["scores"]["average"] is None:
         raise AssertionError("workflow check failed")
-    return {"workflow_s": walls, "package_import_s": import_s}
+    return {"workflow_s": walls, "workflow_wall_s": flow_s,
+            "package_import_s": import_s}
 
 
 # ---------------------------------------------------------------------------
@@ -3985,14 +4060,6 @@ def supervised_case(stamp, ckpt_dir, clip, pool_rows: int):
     return out
 
 
-def run_supervised_serve(stamp, ckpt_dir, video_dir):
-    """Phase 9 (d) (in phase 8's directory, while its checkpoint exists):
-    :func:`supervised_case` solo and then with ``--pool-rows 2``."""
-    clip = _clip_file(video_dir)
-    return {"supervise": {label: supervised_case(stamp, ckpt_dir, clip, n)
-                          for label, n in (("solo", 0), ("pooled", 2))}}
-
-
 # ---------------------------------------------------------------------------
 # phase 9: pooled serving at full width and depth, and the HTTP server
 # ---------------------------------------------------------------------------
@@ -4139,11 +4206,15 @@ def pooled_step_cost(pool, stamp: str, steps: int = 10):
     return n, dev_ms, wall_ms
 
 
+# phase 9's pooled asks: greedy tokens (ask_stream: 32, two chunks of 16)
+POOL_TOKENS = 16
+
+
 def run_pool_path(model, dev, stamp, b1_rate):
     """Phase 9 (pool), on the phase-5 bf16 7B model: a ``SessionPool`` of
     4 rows x 16384 slots. Two ``ingest_batch`` ticks of one seeded
     16-frame 24x42 segment per row (each row its own seed); ``ask_batch``
-    AC, then FCC (``select_batch``) on all 4 rows, 32 greedy tokens; a
+    AC, then FCC (``select_batch``) on all 4 rows, 16 greedy tokens; a
     solo ``pool.ask`` on row 1 (K3 / K4 through ``rows``); ``ask_stream``
     on row 2 in chunks of 16; row 3 saved, asked (FCC), closed, restored
     with ``open_restored`` and asked again: the same tokens. Checks: rows
@@ -4216,7 +4287,7 @@ def run_pool_path(model, dev, stamp, b1_rate):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = pool.ask_batch([(r, q.format(r)) for r in rows],
-                                 mode=mode, max_new_tokens=32)
+                                 mode=mode, max_new_tokens=POOL_TOKENS)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             rate = timer.decode_rate(after_sel[-1] if mode == "FCC"
@@ -4271,7 +4342,8 @@ def run_pool_path(model, dev, stamp, b1_rate):
 
         r0 = (wrapper(2).rows_launches, wrapper(3).rows_launches)
         solo, _, peak = untouched(lambda: pool.ask(
-            1, "What is on screen now?", mode="FCC", max_new_tokens=32),
+            1, "What is on screen now?", mode="FCC",
+            max_new_tokens=POOL_TOKENS),
             1, "solo ask on row 1")
         rows_used = (wrapper(2).rows_launches - r0[0],
                      wrapper(3).rows_launches - r0[1])
@@ -4299,7 +4371,8 @@ def run_pool_path(model, dev, stamp, b1_rate):
                               "save row 3")
         q3 = "What happened to the last block?"
         first, _, _ = untouched(
-            lambda: pool.ask(3, q3, mode="FCC", max_new_tokens=32), 3,
+            lambda: pool.ask(3, q3, mode="FCC", max_new_tokens=POOL_TOKENS),
+            3,
             "FCC ask on row 3")
         pool.close(3)
         new_row, restore_s, _ = untouched(
@@ -4307,7 +4380,7 @@ def run_pool_path(model, dev, stamp, b1_rate):
             "restore row 3 (open_restored)")
         (again, peak3, sites), _, _ = untouched(
             lambda: peak_sites(lambda: pool.ask(
-                new_row, q3, mode="FCC", max_new_tokens=32)), 3,
+                new_row, q3, mode="FCC", max_new_tokens=POOL_TOKENS)), 3,
             "FCC ask on the restored row (allocations recorded)")
         log(f"pool: the restored row's solo FCC ask peaked "
             f"{peak3 / 1e9:.3f} GB above the resident; live at the peak, "
@@ -4350,7 +4423,7 @@ def run_fp8_pool(model, dev, stamp):
     slots with ``kv_dtype=torch.float8_e4m3fn`` on the phase-5 model, its
     allocated bytes beside the bf16 pool's 3.76 GB; one ``ingest_batch``
     tick of phase 9's seeded segments and ``ask_batch`` AC on all rows
-    (32 greedy tokens), its decode tok/s. K3 and K4 must launch over the
+    (16 greedy tokens), its decode tok/s. K3 and K4 must launch over the
     e4m3 pool through ``rows``, every launch on its tensor-core kernel.
     Returns metrics."""
     import torch
@@ -4392,7 +4465,8 @@ def run_fp8_pool(model, dev, stamp):
         mark = timer.mark()
         t0 = time.perf_counter()
         out = pool.ask_batch([(r, f"What is happening in row {r}?")
-                              for r in rows], mode="AC", max_new_tokens=32)
+                              for r in rows], mode="AC",
+                             max_new_tokens=POOL_TOKENS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         rate = timer.decode_rate(mark)
@@ -4669,12 +4743,16 @@ def quantized_lookahead_ask(sess, label: str, stamp: str, k: int = 4):
             "launches_at_m": at_m}
 
 
+# the quantized paths' FCC asks (phases 10 and 6): greedy tokens
+QUANT_FCC_TOKENS = 16
+
+
 def run_int8_path(model, dev, stamp):
     """Phase 10, on the phase-5 bf16 7B model: (a) an int8 copy of the
     decoder beside the bf16 one, one decode step of each (launches,
     device ms, wall ms); (b) for (w8a8_prefill, encoder_int8) = (off,
     off), (on, off), (on, on) a fresh session on the int8 decoder ingests
-    a 16-frame 24x42 segment and answers AC (8 tokens) then FCC (32).
+    a 16-frame 24x42 segment and answers AC (8 tokens) then FCC (16).
     K10 must launch in every mode, ``torch._int_mm`` in the decoder only
     under w8a8_prefill and in the tower only under encoder_int8, no
     decode step may dequantize an int8 weight, every K1 / K3 / K4 launch
@@ -4742,7 +4820,7 @@ def run_int8_path(model, dev, stamp):
             mark = timer.mark()
             t0 = time.perf_counter()
             r = sess.ask("What changed since then?", mode="FCC",
-                         max_new_tokens=32)
+                         max_new_tokens=QUANT_FCC_TOKENS)
             torch.cuda.synchronize()
             turn_s = time.perf_counter() - t0
             dec = timer.decode_rate(mark)
@@ -4795,6 +4873,10 @@ def run_int8_path(model, dev, stamp):
     return [k10], metrics
 
 
+# phase 10's greedy prefix agreement: tokens
+QUALITY_TOKENS = 16
+
+
 def fp8kv_quality(model, cfg, ids, greedy, stamp):
     """The fp8kv row of the quality ladder on the bf16 build: logit MAE,
     KL and top-1 agreement of ``cached_logits`` over an e4m3 cache
@@ -4813,7 +4895,7 @@ def fp8kv_quality(model, cfg, ids, greedy, stamp):
                             qq.cached_logits(model, ids, cfg, 512,
                                              kv_dtype=f8), "fp8kv")
     row["fp8kv_prefix_agree"] = qq.prefix_agreement(
-        greedy, qq.greedy_continuation(model, cfg, ids, n=32, max_len=512,
+        greedy, qq.greedy_continuation(model, cfg, ids, n=QUALITY_TOKENS, max_len=512,
                                        kv_dtype=f8))
     used = (lma.prefill_flash_attention.fp8_launches - f0[0],
             lma.decode_attention.fp8_launches - f0[1])
@@ -4830,7 +4912,7 @@ def run_quant_quality(tcfg, dev, stamp):
     one scheme resident at a time, each built from the same seeded floats:
     bf16 (the truth), int8, int8 with W8A8 prefill, int4u, int4c, nf4.
     Teacher-forced logits over 128 probe tokens (logit MAE, KL, top-1
-    agreement) and greedy prefix agreement over 32 tokens, each against
+    agreement) and greedy prefix agreement over 16 tokens, each against
     bf16. int8's KL must be below each 4-bit scheme's. On the bf16 build,
     the fp8kv row: the cached logits (K3) and the greedy continuation (K4)
     over an e4m3 cache against a bf16 cache."""
@@ -4853,7 +4935,8 @@ def run_quant_quality(tcfg, dev, stamp):
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         logits = qq.tf_logits(model, ids, cfg)
-        greedy = qq.greedy_continuation(model, cfg, ids, n=32, max_len=512)
+        greedy = qq.greedy_continuation(model, cfg, ids, n=QUALITY_TOKENS,
+                                        max_len=512)
         torch.cuda.synchronize()
         if truth is None:
             truth = (logits, greedy)
@@ -4998,7 +5081,7 @@ def run_int4_path(model, dev, stamp):
         mark = timer.mark()
         t0 = time.perf_counter()
         r = sess.ask("What changed since then?", mode="FCC",
-                     max_new_tokens=32)
+                     max_new_tokens=QUANT_FCC_TOKENS)
         torch.cuda.synchronize()
         turn_s = time.perf_counter() - t0
         dec = timer.decode_rate(after_sel[0] if after_sel else mark)
@@ -5182,7 +5265,7 @@ def run_training(model, dev, stamp, profile: bool = False):
           if k.endswith(".b")]
     losses, peaks, times = [], [], []
     torch.cuda.reset_peak_memory_stats()
-    for i in range(4):
+    for i in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, loss = step(model.text, state, batch)
@@ -5443,6 +5526,19 @@ TP_LOGIT_TOL = 1e-2
 TP_WITNESS_FACTOR = 1.5
 MAIN_ASKS = [("What is happening in the video?", "AC"),
              ("What changed since then?", "FCC")]
+# (b)'s asks: greedy tokens each (the gate reads the first step's logits)
+TP_ASK_TOKENS = 16
+# (e): the ask after a snapshot, asked of the original sharded session, of
+# a sharded session restored from the file and of the solo one restored
+E_QUESTION = "What is on the screen now?"
+E_TOKENS = 8
+# (e5)'s adapters: LoRA r = 8 on the 7 projections x 28 layers (and the
+# projector's readout in the full adapter), every ``b`` drawn from
+# N(0, TP_ADAPTER_B_STD^2): large enough that the adapters move the solo
+# first-step logits by TP_ADAPTER_EFFECT times the gate or more (else the
+# check could not fail a wrong slice)
+TP_ADAPTER_B_STD = 3e-2
+TP_ADAPTER_EFFECT = 10.0
 
 
 class FirstLogits:
@@ -5532,6 +5628,77 @@ class SplitSums:
         projector.materialized_linear = self.saved[1]
 
 
+def tp_adapters(cfg, dev):
+    """(e5)'s two adapters, whole and detached, the same in every process:
+    the language adapter (decoder) and the full one (decoder and the
+    projector's readout), LoRA r = 8 from seeds 31 / 32, every ``b`` then
+    drawn from N(0, TP_ADAPTER_B_STD^2) from seed 33 on the card."""
+    import torch
+
+    from cogstream_tpu_torch.config import LoRAConfig
+    from cogstream_tpu_torch.models.lora import (init_cogreasoner_lora,
+                                                 init_qwen2_lora, iter_leaves,
+                                                 map_leaves)
+
+    lc = LoRAConfig(rank=8, dropout=0.0, include_projector=True)
+    trees = {
+        "language_module": init_qwen2_lora(
+            torch.Generator(device=dev).manual_seed(31), cfg.text, lc,
+            device=dev),
+        "full_module": init_cogreasoner_lora(
+            torch.Generator(device=dev).manual_seed(32), cfg, lc,
+            device=dev)}
+    gen = torch.Generator(device=dev).manual_seed(33)
+    out = {}
+    for name, tree in trees.items():
+        tree = map_leaves(lambda t: t.detach().clone(), tree)
+        for path, t in iter_leaves(tree):
+            if path.rsplit(".", 1)[-1] == "b":
+                t.copy_(torch.randn(t.shape, generator=gen, device=dev)
+                        * TP_ADAPTER_B_STD)
+        out[name] = tree
+    return out
+
+
+def tp_adapter_turn(model, cfg, tok, adapters, first_tap, **kw):
+    """(e5)'s turn: a session with ``adapters`` restores (e1)'s snapshot
+    and asks ``E_QUESTION`` (4 tokens: the question's prefill and the
+    decode run through every adapted projection); (tokens, first-step
+    logits)."""
+    from cogstream_tpu_torch.runtime.session import StreamingSession
+
+    sess = StreamingSession(model, cfg, tok, max_len=16384,
+                            adapters=adapters, **kw)
+    sess.load_state(os.path.join(TP_DIR, "e_snapshot.npz"))
+    first_tap.arm()
+    r = sess.ask(E_QUESTION, mode="AC", max_new_tokens=4)
+    return r["tokens"], first_tap.first
+
+
+def snapshot_matches_cache(sess, path) -> bool:
+    """Whether ``sess``'s live K/V equal the snapshot file's K/V at the
+    session's kv heads (every kv head for a solo session), byte for
+    byte."""
+    with np.load(path) as z:
+        wi = json.loads(str(z["meta"]))["wi"]
+        tp = sess.model.text.tp
+        heads = (list(tp.kv_heads) if tp is not None
+                 else list(range(z["k"].shape[2])))
+        for name in ("k", "v"):
+            local = getattr(sess.cache, name)[:, 0, :wi].contiguous()
+            if not np.array_equal(z[name][:, :, heads],
+                                  kv_host_bytes(local)):
+                return False
+    return True
+
+
+def kv_host_bytes(t):
+    """A cache tensor's bytes on the host (a ``uint8`` view)."""
+    import torch
+
+    return t.contiguous().view(torch.uint8).cpu().numpy()
+
+
 def tp_solo_turns(model, cfg, tok):
     """Phase 5's two ingests and asks in a fresh solo session on
     ``model``, untimed: per mode the first-step logits (host f32), the
@@ -5549,7 +5716,7 @@ def tp_solo_turns(model, cfg, tok):
                                        timestamps=[float(seg_i * t + f)
                                                    for f in range(t)])
             tap.arm()
-            r = sess.ask(question, mode=mode, max_new_tokens=32)
+            r = sess.ask(question, mode=mode, max_new_tokens=TP_ASK_TOKENS)
             out[mode] = {"logits": tap.first, "tokens": r["tokens"],
                          "selection": r["selection"]}
     finally:
@@ -5623,13 +5790,15 @@ def write_cut_checkpoint(dev, out_dir):
 
 
 def tp_quant_session(model, cfg, tok, first_tap, **kw):
-    """Phase 11 (c)'s quantized turn: one 16-frame segment, ask(AC) for 4
-    tokens; (tokens, first-step logits)."""
+    """Phase 11 (c)'s quantized turn: the first 8 frames of phase 5's
+    first segment, ask(AC) for 4 tokens; (tokens, first-step logits)."""
     from cogstream_tpu_torch.runtime.session import StreamingSession
 
     t, gh, gw, ms = MAIN_SEGMENTS
+    t = min(t, 8)
     sess = StreamingSession(model, cfg, tok, max_len=16384, **kw)
-    sess.append_stream_segment(main_segments()[0], (t, gh, gw), ms,
+    sess.append_stream_segment(main_segments()[0][: t * gh * gw],
+                               (t, gh, gw), ms,
                                timestamps=[float(f) for f in range(t)])
     first_tap.arm()
     r = sess.ask("What is happening in the video?", mode="AC",
@@ -5637,15 +5806,16 @@ def tp_quant_session(model, cfg, tok, first_tap, **kw):
     return r["tokens"], first_tap.first
 
 
-def run_tp_path(model, dev, stamp):
+def run_tp_path(model, dev, stamp, fault=False):
     """Phase 11: tensor-parallel serving at tp = 2, both ranks on this card
     (subprocesses of this script, ``--tp-rank``), their process group on
     gloo: NCCL refuses two ranks on one device, and the smoke has one card.
-    The parent writes the references first: phase 5's asks replayed solo
-    (untimed) and again under :class:`SplitSums` (the witness: the solo
-    model with two ranks' row-parallel sum order), the solo card sessions
-    of (c) on ``shared_copy``s of the phase-5 decoder quantized to int8 /
-    int4, and (d)'s checkpoint. The ranks' results are held here: (a) the
+    The parent writes (d)'s checkpoint, starts the ranks, and while they
+    run writes the references: phase 5's asks replayed solo (untimed) and
+    again under :class:`SplitSums` (the witness: the solo model with two
+    ranks' row-parallel sum order), the solo card sessions of (c) on
+    ``shared_copy``s of the phase-5 decoder quantized to int8 / int4. The
+    ranks' results are held here: (a) the
     tiny f32 tokens equal to the solo card session's (which rank 0 runs),
     K1-K4 launched on each rank; (b) each rank's first-step logits (its
     vocab slice) within ``TP_LOGIT_TOL`` of the row max of the solo
@@ -5661,6 +5831,7 @@ def run_tp_path(model, dev, stamp):
     of the whole load."""
     import dataclasses
     import shutil
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
@@ -5675,41 +5846,50 @@ def run_tp_path(model, dev, stamp):
         cfg = presets.cogreasoner_7b()
         tok = ByteTokenizer(image_token_id=cfg.image_token_index,
                             vocab=cfg.text.vocab_size)
-        # (b)'s references: phase 5's asks replayed solo, and again with
-        # the row-parallel sums split as two ranks split them
-        solo = tp_solo_turns(model, cfg, tok)
-        witness = SplitSums(model)
-        try:
-            emu = tp_solo_turns(model, cfg, tok)
-        finally:
-            witness.restore()
-        emu_calls = witness.calls
-        gc.collect()
-        torch.cuda.empty_cache()
-        refs = {}
-        tap = FirstLogits()
-        try:
-            for bits, flags in ((8, {"w8a8_prefill": True}), (4, {})):
-                text = quantize_text_(shared_copy(model.text), bits)
-                qcfg = dataclasses.replace(
-                    cfg, text=dataclasses.replace(cfg.text, **flags))
-                refs[bits] = tp_quant_session(
-                    CogReasoner(text, model.vision, model.projector), qcfg,
-                    tok, tap)
-                del text
-                gc.collect()
-                torch.cuda.empty_cache()
-        finally:
-            tap.restore()
         t0 = time.perf_counter()
         write_cut_checkpoint(dev, os.path.join(TP_DIR, "hf"))
-        log(f"tp: references: solo int8 / int4 card sessions, tokens "
-            f"{refs[8][0]} / {refs[4][0]}; checkpoint written in "
-            f"{time.perf_counter() - t0:.1f}s [{stamp}]")
+        ckpt_s = time.perf_counter() - t0
 
-        t0 = time.perf_counter()
-        rcs = run_tp_ranks()
-        wall = time.perf_counter() - t0
+        def ranks():
+            t0 = time.perf_counter()
+            rcs = run_ranks("--tp-rank", TP_DIR, TP_WORLD,
+                            extra=["--tp-snapshot-fault"] if fault else [])
+            return rcs, time.perf_counter() - t0
+
+        # the ranks run while this process writes the references (they
+        # are read only once the ranks are done)
+        with ThreadPoolExecutor(1) as ex:
+            world = ex.submit(ranks)
+            # (b)'s references: phase 5's asks replayed solo, and again
+            # with the row-parallel sums split as two ranks split them
+            solo = tp_solo_turns(model, cfg, tok)
+            witness = SplitSums(model)
+            try:
+                emu = tp_solo_turns(model, cfg, tok)
+            finally:
+                witness.restore()
+            emu_calls = witness.calls
+            gc.collect()
+            torch.cuda.empty_cache()
+            refs = {}
+            tap = FirstLogits()
+            try:
+                for bits, flags in ((8, {"w8a8_prefill": True}), (4, {})):
+                    text = quantize_text_(shared_copy(model.text), bits)
+                    qcfg = dataclasses.replace(
+                        cfg, text=dataclasses.replace(cfg.text, **flags))
+                    refs[bits] = tp_quant_session(
+                        CogReasoner(text, model.vision, model.projector),
+                        qcfg, tok, tap)
+                    del text
+                    gc.collect()
+                    torch.cuda.empty_cache()
+            finally:
+                tap.restore()
+            log(f"tp: references: solo int8 / int4 card sessions, tokens "
+                f"{refs[8][0]} / {refs[4][0]}; checkpoint written in "
+                f"{ckpt_s:.1f}s [{stamp}]")
+            rcs, wall = world.result()
         for r in range(TP_WORLD):
             with open(os.path.join(TP_DIR, f"rank{r}.log")) as f:
                 for line in f.read().splitlines():
@@ -5720,14 +5900,42 @@ def run_tp_path(model, dev, stamp):
         for r in range(TP_WORLD):
             with open(os.path.join(TP_DIR, f"rank{r}.json")) as f:
                 res.append(json.load(f))
+        refs["restored"] = tp_solo_restore(model, cfg, tok, dev)
         return tp_verdict(res, refs, solo, emu, emu_calls, wall, stamp)
     finally:
         shutil.rmtree(TP_DIR, ignore_errors=True)
 
 
-def run_tp_ranks(timeout_s: float = 900):
-    """Phase 11's ranks (:func:`run_ranks` with ``--tp-rank``)."""
-    return run_ranks("--tp-rank", TP_DIR, TP_WORLD, timeout_s)
+def tp_solo_restore(model, cfg, tok, dev):
+    """(e3): a solo session on the whole model restores the ranks'
+    snapshot: its cache against the file's bytes, then ``E_QUESTION``
+    (first-step logits, tokens, restore s); and (e5)'s reference, the
+    same with both adapters."""
+    import torch
+
+    from cogstream_tpu_torch.runtime.session import StreamingSession
+
+    path = os.path.join(TP_DIR, "e_snapshot.npz")
+    sess = StreamingSession(model, cfg, tok, max_len=16384)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.load_state(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    equal = snapshot_matches_cache(sess, path)
+    tap = FirstLogits()
+    try:
+        tap.arm()
+        r = sess.ask(E_QUESTION, mode="AC", max_new_tokens=E_TOKENS)
+        out = {"cache_equal": equal, "logits": tap.first,
+               "tokens": r["tokens"], "load_s": load_s}
+        del sess
+        # (e5)'s reference: the same restore and ask with both adapters
+        out["adapters"] = tp_adapter_turn(model, cfg, tok,
+                                          tp_adapters(cfg, dev), tap)
+    finally:
+        tap.restore()
+    return out
 
 
 def tp_verdict(res, refs, solo, emu, emu_calls, wall, stamp):
@@ -5761,7 +5969,7 @@ def tp_verdict(res, refs, solo, emu, emu_calls, wall, stamp):
             "tp": tp_prefix(b[0]["tokens"][mode], solo[mode]["tokens"]),
             "witness": tp_prefix(emu[mode]["tokens"], solo[mode]["tokens"]),
             "replay_vs_phase5": tp_prefix(solo[mode]["tokens"],
-                                          MAIN_ANSWERS[mode])}
+                                          MAIN_ANSWERS.get(mode, []))}
     sel = {mode: [x["selections"][mode] for x in b] for _, mode in MAIN_ASKS}
     sel_ok = all(s == [solo[m]["selection"]] * TP_WORLD
                  for m, s in sel.items())
@@ -5782,7 +5990,8 @@ def tp_verdict(res, refs, solo, emu, emu_calls, wall, stamp):
         f"the solo replay's "
         f"{ {m: solo[m]['selection'] for m in sel} } {sel_ok} (witness "
         f"{ {m: emu[m]['selection'] for m in sel} }); greedy-prefix "
-        f"agreement of 32 with the solo replay {agree}; launches per rank "
+        f"agreement of {TP_ASK_TOKENS} with the solo replay {agree}; "
+        f"launches per rank "
         f"{[x['launches'] for x in b]}; shard GiB per "
         f"rank {[round(x['gib'], 3) for x in b]} (decoder "
         f"{[round(x['decoder_gib'], 3) for x in b]}) beside the whole "
@@ -5822,17 +6031,100 @@ def tp_verdict(res, refs, solo, emu, emu_calls, wall, stamp):
         f"load (bf16, int8, int4 at load) {d_ok}; per rank "
         f"{[{k: (v['equal'], round(v['gib'], 3)) for k, v in x.items()} for x in d]}"
         f" (GiB) [{stamp}]")
+    e_ok, e_out = tp_snapshot_verdict(res, refs, solo, bound["AC"], stamp)
+    ok &= e_ok
     log(f"tp: phase 11 in {wall:.1f}s; collectives on gloo with CUDA "
         f"tensors: {sorted(res[0]['collective_kinds'])} [{stamp}]")
     if not ok:
         raise AssertionError("tensor-parallel phase failed")
-    return {"tp_logit_err": errs, "tp_logit_ulps": ulps,
+    return {**e_out, "tp_logit_err": errs, "tp_logit_ulps": ulps,
             "tp_witness_gap": gap, "tp_logit_err_vs_witness": to_emu,
             "tp_prefix_agree": agree,
             "tp_gib": [x["gib"] for x in b], "tp_whole_gib": b[0]["whole_gib"],
             "tp_collectives_per_step": b[0]["collectives_per_step"],
             "tp_ingest_s": [x["ingest_s"] for x in b],
             "tp_turn_s": [x["turn_s"] for x in b], "tp_wall_s": wall}
+
+
+def tp_snapshot_verdict(res, refs, solo, gate, stamp):
+    """Phase 11 (e)'s checks (see :func:`tp_rank_snapshots`): (e1) every
+    rank's K/V equal to the file's slice at its kv heads; (e2) the
+    restored sharded session's tokens equal to the original's; (e3) the
+    solo restore's cache equal to the file's bytes and each rank's
+    first-step logit slice within ``gate`` (phase 11 (b)'s AC gate) of
+    the solo restore's; (e4) the e4m3 snapshot's bytes equal to the
+    ranks'; (e5) each rank's first-step logit slice with both adapters
+    within ``gate`` of the solo session's with the same adapters, the
+    adapters moving the solo logits by ``TP_ADAPTER_EFFECT`` x the gate
+    or more, and each rank's slice with the other rank's slice of the
+    adapters beyond the gate (the control: the gate tells a wrong slice
+    of the right shape). Returns (ok, metrics)."""
+    e = [r["e"] for r in res]
+    vocab = [r["b"]["vocab"] for r in res]
+    e1 = all(x["slices_equal"] for x in e)
+    e2 = all(x["restored_tokens"] == x["tokens"] == e[0]["tokens"]
+             for x in e)
+    rest = refs["restored"]
+    e3_errs = [tp_slice_err(np.load(os.path.join(TP_DIR, f"rank{i}_e.npy")),
+                            rest["logits"], v)[0]
+               for i, v in enumerate(vocab)]
+    e3 = rest["cache_equal"] and max(e3_errs) <= gate
+    e4 = all(x["e4m3_slices_equal"] for x in e)
+    whole = (0, len(rest["logits"]))
+    toks5, ref5 = rest["adapters"]
+    effect = tp_slice_err(rest["logits"], ref5, whole)[0]
+    errors = [x.get("adapter_error") for x in e]
+    e5_errs = ([] if any(errors) else
+               [tp_slice_err(np.load(os.path.join(TP_DIR, f"rank{i}_e5.npy")),
+                             ref5, v)[0] for i, v in enumerate(vocab)])
+    swapped = [tp_slice_err(np.load(os.path.join(TP_DIR,
+                                                 f"rank{i}_e5x.npy")),
+                            ref5, v)[0] for i, v in enumerate(vocab)]
+    e5 = (not any(errors) and max(e5_errs) <= gate
+          and effect >= TP_ADAPTER_EFFECT * gate and min(swapped) > gate)
+    gb = e[0]["file_bytes"] / 1e9
+    log(f"tp: (e1) snapshot of the sharded session (rank 0 gathers every "
+        f"kv head and writes): {gb:.4f} GB, gather + write "
+        f"{[x['save_s'] for x in e]} s per rank; each rank's K/V equal to "
+        f"the file's slice at its kv heads, bit for bit {e1} "
+        f"{[x['slices_equal'] for x in e]} [{stamp}]")
+    log(f"tp: (e2) a fresh sharded session restored from it (rank 0 reads "
+        f"and sends): read + send {[x['load_s'] for x in e]} s per rank; "
+        f"its {E_TOKENS} AC tokens {e[0]['restored_tokens']} equal to the "
+        f"original session's after the save {e[0]['tokens']} on every rank "
+        f"{e2} [{stamp}]")
+    log(f"tp: (e3) the solo session restored from it in "
+        f"{rest['load_s']:.3f} s: cache equal to the file's bytes "
+        f"{rest['cache_equal']}; each rank's first-step logit slice vs the "
+        f"solo restore's {e3_errs} of the row max, within (b)'s AC gate "
+        f"{gate:.4g} {max(e3_errs) <= gate}; solo tokens {rest['tokens']} "
+        f"(greedy-prefix agreement "
+        f"{tp_prefix(e[0]['tokens'], rest['tokens'])} of {E_TOKENS}) "
+        f"[{stamp}]")
+    log(f"tp: (e4) an e4m3 sharded session restored from it: its snapshot "
+        f"{e[0]['e4m3_file_bytes'] / 1e9:.4f} GB, K/V bytes equal to each "
+        f"rank's {e4} {[x['e4m3_slices_equal'] for x in e]}; AC tokens "
+        f"{e[0]['e4m3_tokens']} [{stamp}]")
+    log(f"tp: (e5) both adapters (r = 8, b ~ N(0, {TP_ADAPTER_B_STD:g}^2)) "
+        f"sliced on each rank: first-step logit slices vs the solo session "
+        f"with the same adapters {e5_errs} of the row max, within the gate "
+        f"{gate:.4g}; the adapters move the solo logits by {effect:.4g} of "
+        f"the row max, {effect / gate:.1f} x the gate (at least "
+        f"{TP_ADAPTER_EFFECT:g} x); with the other rank's slice "
+        f"(the control) {swapped}, beyond the gate "
+        f"{min(swapped) > gate}; tokens per rank "
+        f"{[x.get('adapter_tokens') for x in e]} vs solo {toks5}; errors "
+        f"{errors}; (e5) {e5} [{stamp}]")
+    ok = e1 and e2 and e3 and e4 and e5
+    log(f"tp: (e) (e1) {e1} (e2) {e2} (e3) {e3} (e4) {e4} (e5) {e5} "
+        f"[{stamp}]")
+    return ok, {"tp_snapshot_gb": gb,
+                "tp_snapshot_save_s": [x["save_s"] for x in e],
+                "tp_snapshot_load_s": [x["load_s"] for x in e],
+                "tp_restore_logit_err": e3_errs,
+                "tp_adapter_logit_err": e5_errs,
+                "tp_adapter_swapped_err": swapped,
+                "tp_adapter_effect": effect}
 
 
 def _gib(module) -> float:
@@ -5842,10 +6134,100 @@ def _gib(module) -> float:
     return sum(seen.values()) / 2**30
 
 
-def tp_rank_main(rank: int, port: int, dev=None) -> int:
+def tp_rank_snapshots(sess, model, cfg, tok, mesh, rank, dev, fault):
+    """Phase 11 (e) on one rank, after (b)'s asks on ``sess``: (e1) the
+    sharded session's snapshot (rank 0 gathers and writes; gather + write
+    s) and this rank's K/V against the file's slice at its kv heads; (e2)
+    the ask after the snapshot (``E_QUESTION``, its first-step logit slice
+    saved for the parent's solo restore), then a fresh sharded session
+    restored from the file (read + send s) asked the same; (e4) an e4m3
+    sharded session restored from that file, its own snapshot's bytes
+    against this rank's, and an AC ask; (e5) a session with both adapters
+    (:func:`tp_adapters`, sliced by the session) restored from the file
+    and asked ``E_QUESTION``, its first-step logit slice saved.
+    Then (e5)'s control: the same turn with the other model rank's slice
+    of the adapters, its first-step logit slice saved.
+    ``fault`` plants the two faults the phase must catch: rank 0's kv
+    heads written in every rank's place, and the adapters left whole on
+    the ranks."""
+    import copy
+
+    import torch
+
+    from cogstream_tpu_torch.parallel import sharding
+    from cogstream_tpu_torch.runtime import session as session_mod
+    from cogstream_tpu_torch.runtime.session import StreamingSession
+
+    if fault:
+        gather = sharding.gather_to_first
+
+        def rank0_everywhere(x, group):
+            parts = gather(x, group)
+            return None if parts is None else [parts[0]] * len(parts)
+
+        sharding.gather_to_first = rank0_everywhere
+        session_mod.shard_adapters = lambda adapters, cfg, mesh: adapters
+    out = {}
+    path = os.path.join(TP_DIR, "e_snapshot.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.save(path)
+    torch.cuda.synchronize()
+    out["save_s"] = round(time.perf_counter() - t0, 3)
+    torch.distributed.barrier()        # the file is written (rank 0)
+    out["file_bytes"] = os.path.getsize(path)
+    out["slices_equal"] = snapshot_matches_cache(sess, path)
+    tap = FirstLogits()
+    try:
+        tap.arm()
+        out["tokens"] = sess.ask(E_QUESTION, mode="AC",
+                                 max_new_tokens=E_TOKENS)["tokens"]
+        np.save(os.path.join(TP_DIR, f"rank{rank}_e.npy"), tap.first)
+        fresh = StreamingSession(model, cfg, tok, max_len=16384, mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh.load_state(path)
+        torch.cuda.synchronize()
+        out["load_s"] = round(time.perf_counter() - t0, 3)
+        out["restored_tokens"] = fresh.ask(
+            E_QUESTION, mode="AC", max_new_tokens=E_TOKENS)["tokens"]
+        del fresh
+        f8 = StreamingSession(model, cfg, tok, max_len=16384, mesh=mesh,
+                              kv_dtype=torch.float8_e4m3fn)
+        f8.load_state(path)
+        p8 = os.path.join(TP_DIR, "e_snapshot_e4m3.npz")
+        f8.save(p8)
+        torch.distributed.barrier()
+        out["e4m3_file_bytes"] = os.path.getsize(p8)
+        out["e4m3_slices_equal"] = snapshot_matches_cache(f8, p8)
+        out["e4m3_tokens"] = f8.ask(E_QUESTION, mode="AC",
+                                    max_new_tokens=4)["tokens"]
+        del f8
+        try:
+            toks, first = tp_adapter_turn(model, cfg, tok,
+                                          tp_adapters(cfg, dev), tap,
+                                          mesh=mesh)
+            out["adapter_tokens"] = toks
+            np.save(os.path.join(TP_DIR, f"rank{rank}_e5.npy"), first)
+        except Exception as e:  # noqa: BLE001 — the parent fails (e5)
+            out["adapter_error"] = f"{type(e).__name__}: {e}"[:300]
+        # (e5)'s control: the other rank's slice of the same adapters (of
+        # the right shape, so the session takes it as sliced)
+        other = copy.copy(mesh)
+        other.model_index = mesh.model - 1 - mesh.model_index
+        swapped = sharding.shard_adapters(tp_adapters(cfg, dev), cfg, other)
+        _, first = tp_adapter_turn(model, cfg, tok, swapped, tap, mesh=mesh)
+        np.save(os.path.join(TP_DIR, f"rank{rank}_e5x.npy"), first)
+    finally:
+        tap.restore()
+    return out
+
+
+def tp_rank_main(rank: int, port: int, dev=None, fault=False) -> int:
     """One rank of phase 11 (``chip_smoke.py --tp-rank R --tp-port P``):
-    joins the gloo group on this card, runs (a)-(d) and writes
-    ``rank<R>.json`` (and its logit slices) under TP_DIR."""
+    joins the gloo group on this card, runs (a)-(e) and writes
+    ``rank<R>.json`` (and its logit slices) under TP_DIR; ``fault``
+    (``--tp-snapshot-fault``) plants (e)'s faults."""
     import dataclasses
 
     import torch
@@ -5931,7 +6313,7 @@ def tp_rank_main(rank: int, port: int, dev=None) -> int:
         tap.arm()
         tap.steps = []
         t0 = time.perf_counter()
-        r = sess.ask(question, mode=mode, max_new_tokens=32)
+        r = sess.ask(question, mode=mode, max_new_tokens=TP_ASK_TOKENS)
         torch.cuda.synchronize()
         turn_s.append(round(time.perf_counter() - t0, 3))
         tokens[mode] = r["tokens"]
@@ -5948,8 +6330,13 @@ def tp_rank_main(rank: int, port: int, dev=None) -> int:
         "ingest_s": ingest_s, "turn_s": turn_s,
         "collectives_per_step": (sorted(set(steps)) if steps else []),
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-    del sess
     log(f"(b) tokens {tokens}; selections {selections}")
+    out["e"] = tp_rank_snapshots(sess, model, cfg, tok, mesh, rank, dev,
+                                 fault)
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"(e) {out['e']}")
 
     # (c) quantized copies of the sharded decoder, one at a time
     out["c"] = {"vocab": lo_hi}
@@ -6013,6 +6400,8 @@ TRAIN_TP_S1 = dict(epochs=1, batch_size=4, max_len=2048, grad_accum=1,
                    warmup_steps=0, shuffle_copies=1, include_demo=False,
                    save_every=1000, log_every=1, learning_rate=1e-4)
 TRAIN_TP_S2 = dict(grad_accum=1, save_every=10_000, learning_rate=1e-4)
+# stage-1 steps in (a) and (b) (and their one-process references)
+TRAIN_TP_STEPS = 1
 # every LoRA ``b`` starts drawn from N(0, TRAIN_TP_B_STD^2) instead of 0,
 # so that the adapters act in the first forward and every leaf's first
 # gradient is nonzero
@@ -6036,16 +6425,17 @@ TRAIN_TP_QUESTION = ("<|im_start|>user\nWhat happens next?<|im_end|>\n"
 
 
 def train_tp_inputs(cfg, tok):
-    """Phase 12's data: 8 seeded selector samples that fit 2048 byte tokens
-    without the demo block (two batches of 4: half of phase 7's batch, so
-    that two whole bf16 replicas fit on the card in (a)); phase 7's
+    """Phase 12's data: 4 seeded selector samples that fit 2048 byte tokens
+    without the demo block (one batch of 4, one step: half of phase 7's
+    batch, so that two whole bf16 replicas fit on the card in (a); the
+    gradient checks read the first step); phase 7's
     8-frame turn; a text-only turn in the 64-token bucket."""
     from cogstream_tpu_torch.train.data import encode_selector_sample
     from cogstream_tpu_torch.train.stage2 import pack_turn_batch
 
     samples = [s for s in _selector_samples(np.random.default_rng(7), 64)
                if encode_selector_sample(tok, s, TRAIN_TP_S1["max_len"],
-                                         include_demo=False) is not None][:8]
+                                         include_demo=False) is not None][:4]
     turn = _stage2_turn(np.random.default_rng(8), tok, cfg, 8, 24, 42, 2,
                         4096)
     text_turn = pack_turn_batch(tok, cfg, TRAIN_TP_QUESTION,
@@ -6137,7 +6527,7 @@ class _TwoDataRanks:
 
 
 def train_tp_witness(model, cfg, tok, samples, dev):
-    """Phase 12 (a)'s witness: each of ``train_stage1``'s two steps (same
+    """Phase 12 (a)'s witness: each of ``train_stage1``'s steps (same
     batches, same optimizer) computed as two data ranks compute it, each
     half batch's loss over the global count and gradient, the two summed
     in f32; returns (losses, adapters, the first step's gradients)."""
@@ -6154,7 +6544,7 @@ def train_tp_witness(model, cfg, tok, samples, dev):
     lc = train_tp_lora_cfg()
     lora = train_tp_lora(cfg, dev, 1)
     leaves = [t for _, t in iter_leaves(lora)]
-    tx = tr.make_optimizer(s1["learning_rate"], total_steps=2,
+    tx = tr.make_optimizer(s1["learning_rate"], total_steps=TRAIN_TP_STEPS,
                            warmup_steps=0, grad_accum=1)
     state = tx.init(leaves)
     vm = build_vocab_mask(cfg.text.vocab_size,
@@ -6328,10 +6718,12 @@ def run_train_tp_path(model, dev, stamp, fault=False):
     ``--train-rank``) over gloo, as phase 11. The parent first runs the
     same steps in one process on the phase-5 model (untimed; LoRA dropout
     0, so every layout computes one function; every ``b`` drawn nonzero,
-    :func:`train_tp_lora`): ``train_stage1`` two steps of 4 x 2048 byte
-    tokens, their witness in two data ranks' sum order
+    :func:`train_tp_lora`): ``train_stage1`` one step of 4 x 2048 byte
+    tokens, its witness in two data ranks' sum order
     (:func:`train_tp_witness`), two ``Stage2Trainer`` micro-steps on phase
-    7's 8-frame turn, and one on the 64-token text turn over an int8 copy
+    7's 8-frame turn (the first is warm-up, at learning rate 0: the second
+    makes the update that (c)'s adapters are held to), and one on the
+    64-token text turn over an int8 copy
     (``quantize_cogreasoner_`` on a ``shared_copy``). The ranks run (a)
     ``train_stage1`` on a (2, 1) mesh (two whole replicas, each batch
     split on ``data``), (b) on a (1, 2) mesh (each rank its shard of the
@@ -6455,7 +6847,7 @@ def train_tp_verdict(res, ref, got, grads, wall, stamp):
     bit = _adapters_vs(got["a"], ref["w_lora"], lr)
     plain = _adapters_vs(got["a"], ref["s1_lora"], lr)
     a_ok = (a0["losses"] == ref["w_losses"] and bit[0] == 0.0
-            and a0["steps"] == 2)
+            and a0["steps"] == TRAIN_TP_STEPS)
     w = ref["w_vs_s1"]
     log(f"train-tp (a) stage 1 on (data 2, model 1): losses {a0['losses']} "
         f"(witness {ref['w_losses']}, one process {ref['s1_losses']}); "
@@ -6469,7 +6861,8 @@ def train_tp_verdict(res, ref, got, grads, wall, stamp):
     bgap = _adapters_vs(got["b"], ref["s1_lora"], lr)
     b_grads, btxt = gap("b", "s1_grads")
     b_ok = (rel(b0["losses"], ref["s1_losses"]) <= TRAIN_TP_LOSS_REL
-            and b_grads and bgap[0] <= 2.01 * 2 and b0["steps"] == 2)
+            and b_grads and bgap[0] <= 2.01 * TRAIN_TP_STEPS
+            and b0["steps"] == TRAIN_TP_STEPS)
     log(f"train-tp (b) stage 1 on (data 1, model 2): {btxt}; losses "
         f"{b0['losses']} (one process {ref['s1_losses']}, rel {rel(b0['losses'], ref['s1_losses']):.3g}"
         f", bound {TRAIN_TP_LOSS_REL}); gathered adapters vs one process "
@@ -6705,6 +7098,22 @@ def run_train_tp_alone(dev, card, fault) -> int:
     return 0
 
 
+def run_tp_alone(dev, card, fault) -> int:
+    """``--tp-only``: phase 11 on phase 5's model (random weights from
+    seed 0), without the other phases; prints its metrics."""
+    import torch
+
+    from cogstream_tpu_torch import presets
+    from cogstream_tpu_torch.models.cogreasoner import init_cogreasoner_params
+
+    model = init_cogreasoner_params(
+        presets.cogreasoner_7b(), torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    metrics = run_tp_path(model, dev, card, fault)
+    log("metrics: " + json.dumps(metrics))
+    return 0
+
+
 def main() -> int:
     import argparse
 
@@ -6719,6 +7128,13 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--train-rank", type=int, default=None,
                     help=argparse.SUPPRESS)   # phase 12's rank processes
+    ap.add_argument("--tp-only", action="store_true",
+                    help="build the kernels and run phase 11 (tensor-"
+                         "parallel serving, snapshots and adapters) alone")
+    ap.add_argument("--tp-snapshot-fault", action="store_true",
+                    help="with --tp-only: plant faults in the ranks (rank "
+                         "0's kv heads written in every rank's place, the "
+                         "adapters left whole); phase 11 must then fail")
     ap.add_argument("--train-tp-only", action="store_true",
                     help="build the kernels and run phase 12 (data- and "
                          "tensor-parallel training) alone")
@@ -6752,7 +7168,8 @@ def main() -> int:
               "expected 1", file=sys.stderr)
         return 1
     if args.tp_rank is not None:
-        return tp_rank_main(args.tp_rank, args.tp_port)
+        return tp_rank_main(args.tp_rank, args.tp_port,
+                            fault=args.tp_snapshot_fault)
     if args.train_rank is not None:
         return train_rank_main(args.train_rank, args.tp_port,
                                fault=args.train_tp_fault)
@@ -6781,6 +7198,16 @@ def main() -> int:
 
     if args.train_tp_only:
         return run_train_tp_alone(dev, card, args.train_tp_fault)
+    if args.tp_only:
+        return run_tp_alone(dev, card, args.tp_snapshot_fault)
+    walls = {}
+    t_phase = [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        walls[name] = round(now - t_phase[0], 1)
+        t_phase[0] = now
+
     results, verify_ms = check_kernels(dev)
     results += check_int4_kernels(dev)
     k10, w8a8_ms = check_int8_kernels(dev)
@@ -6788,6 +7215,7 @@ def main() -> int:
     rows_ms = check_rows_kernels(dev)
     check_fp8_cast(dev)
     fp8_results, fp8_ms = check_fp8_kernels(dev)
+    mark("3 kernels")
     check_reference(dev)
     check_reference_int4(dev)
     check_reference_int8(dev)
@@ -6797,6 +7225,7 @@ def main() -> int:
     check_training_reference(dev)
     check_gemv_backward(dev)
     check_qlora_reference(dev)
+    mark("4 reference")
     launches, metrics, sess = run_main_path(dev, card)
     fp8_launches, fp8_metrics = run_fp8_session(sess, dev, card)
     metrics.update(fp8_metrics)
@@ -6807,20 +7236,28 @@ def main() -> int:
     metrics["verify_attention_ms"] = verify_ms
     metrics.update(run_lookahead_schedule(model.text, dev, card))
     del sess
+    mark("5 main path")
     metrics.update(run_engine_path(model, dev, card))
+    mark("8 engine")
     metrics.update(run_pool_path(model, dev, card,
                                  metrics["AC_decode_tok_per_s"]))
     metrics.update(run_fp8_pool(model, dev, card))
     metrics.update(run_http_path(model, dev, card))
+    mark("9 pool")
     metrics.update(run_tp_path(model, dev, card))
+    mark("11 tensor-parallel serving")
     metrics.update(run_train_tp_path(model, dev, card))
+    mark("12 tensor-parallel training")
     metrics["rows_ms"] = rows_ms
     train_launches, train_metrics = run_training(model, dev, card,
                                                  args.profile)
     train_metrics.update(run_qlora(model, dev, card, train_metrics,
                                    args.profile))
+    mark("7 training")
     int8_launches, int8_metrics = run_int8_path(model, dev, card)
+    mark("10 int8")
     int4_launches, int4_metrics = run_int4_path(model, dev, card)
+    mark("6 int4")
     for r, n in zip(results + fp8_results,
                     launches + train_launches + int4_launches
                     + int8_launches + fp8_launches):
@@ -6830,6 +7267,9 @@ def main() -> int:
     metrics.update(train_metrics)
     metrics.update(int8_metrics)
     metrics.update(int4_metrics)
+    metrics["phase_walls_s"] = walls
+    log(f"phase walls (s, after the build): {walls}; "
+        f"{sum(walls.values()):.1f} in all [{card}]")
     log("metrics: " + json.dumps(metrics))
     print(json.dumps({"kernels": results}))
     print(card)

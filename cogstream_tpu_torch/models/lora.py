@@ -89,18 +89,34 @@ def init_qwen2_lora(generator: torch.Generator, cfg: Qwen2Config,
     return {"layers": layers}
 
 
+def projector_lora_dims(cfg: CogReasonerConfig) -> List[Tuple[int, int]]:
+    """(din, dout) of the two readout linears of ``mlp2x_gelu``."""
+    return [(cfg.vision.hidden_size, cfg.text.hidden_size),
+            (cfg.text.hidden_size, cfg.text.hidden_size)]
+
+
+def lora_site_dims(site: str, cfg: CogReasonerConfig) -> Tuple[int, int]:
+    """(din, dout) of the weight a LoRA site adapts, by its path: a
+    decoder tree's ``layers.<i>.<group>.<name>`` or ``lm_head`` (under
+    ``text.`` in a stage-2 tree), or ``projector.layers.<i>``."""
+    parts = site.removeprefix("text.").split(".")
+    if parts[0] == "projector":
+        return projector_lora_dims(cfg)[int(parts[2])]
+    if parts[0] == "lm_head":
+        return cfg.text.hidden_size, cfg.text.vocab_size
+    return qwen2_lora_dims(cfg.text)[".".join(parts[2:])]
+
+
 def init_projector_lora(generator: torch.Generator, cfg: CogReasonerConfig,
                         lora: LoRAConfig, dtype=torch.float32,
                         device=None) -> Dict:
     """LoRA on the two readout linears of ``mlp2x_gelu``."""
     device = default_device(device)
-    dims = [(cfg.vision.hidden_size, cfg.text.hidden_size),
-            (cfg.text.hidden_size, cfg.text.hidden_size)]
     return {"layers": [
         {"a": _leaf(_gaussian(generator, din, lora.rank, dtype, device)),
          "b": _leaf(torch.zeros((lora.rank, dout), dtype=dtype,
                                 device=device))}
-        for din, dout in dims]}
+        for din, dout in projector_lora_dims(cfg)]}
 
 
 def init_cogreasoner_lora(generator: torch.Generator, cfg: CogReasonerConfig,

@@ -33,7 +33,9 @@ def initialize_if_needed(
     process. Returns (rank, world_size).
 
     Without arguments the torchrun environment is read (``RANK``,
-    ``WORLD_SIZE``, ``MASTER_ADDR`` / ``MASTER_PORT``); ``init_method``
+    ``WORLD_SIZE``, ``MASTER_ADDR`` / ``MASTER_PORT``; in a world that a
+    torchrun agent restarted, through :func:`elastic_world_store`);
+    ``init_method``
     (e.g. ``tcp://localhost:29500``), ``world_size`` and ``rank`` name the
     group explicitly. ``backend`` defaults to NCCL when CUDA is available
     and gloo otherwise. An already-initialized group is accepted as it is;
@@ -51,10 +53,35 @@ def initialize_if_needed(
         import torch
 
         backend = "nccl" if torch.cuda.is_available() else "gloo"
+    timeout = datetime.timedelta(seconds=timeout_s)
+    store = None
+    if init_method is None and os.environ.get(
+            "TORCHELASTIC_RESTART_COUNT", "0") != "0":
+        store = elastic_world_store(rank, world_size, timeout)
     dist.init_process_group(
-        backend, init_method=init_method or "env://", world_size=world_size,
-        rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+        backend, init_method=None if store else init_method or "env://",
+        store=store, world_size=world_size, rank=rank, timeout=timeout)
     return dist.get_rank(), dist.get_world_size()
+
+
+def elastic_world_store(rank: int, world_size: int,
+                        timeout: datetime.timedelta):
+    """The rendezvous store of a world that a torchrun agent restarted,
+    its keys under a prefix of their own (``TORCHELASTIC_RESTART_COUNT``).
+    The agent's store outlives its worlds: without the prefix a world that
+    the agent restarts finds the keys of the world before it (a gloo
+    rank then dials a peer address of the dead world and fails to join,
+    probed with torch 2.13 and a group created after the default one).
+    The first world joins through ``env://`` as any torchrun job does.
+    Run over gloo on the CPU only: a restarted world on cards (NCCL) has
+    not run yet."""
+    use_agent = os.environ.get("TORCHELASTIC_USE_AGENT_STORE") == "True"
+    store = dist.TCPStore(os.environ["MASTER_ADDR"],
+                          int(os.environ["MASTER_PORT"]), world_size,
+                          is_master=not use_agent and rank == 0,
+                          timeout=timeout)
+    return dist.PrefixStore(
+        f"cogstream/world{os.environ['TORCHELASTIC_RESTART_COUNT']}/", store)
 
 
 def local_rank() -> int:

@@ -23,11 +23,20 @@ whole tensors is replicated, and so is its gradient: with both operators
 in place every replicated leaf's gradient comes out whole on each rank.
 :func:`all_reduce_grads` sums a list of gradients over a group in one
 flat collective (the data-parallel gradient sum).
+
+:func:`gather_to_first` and :func:`scatter_from_first` move a sharded
+session's cache between the ranks of a model group and its first rank,
+which alone reads and writes snapshot files. They move bytes (``uint8``
+views): gloo refuses ``float8_e4m3fn`` (probed with torch 2.11 and 2.13:
+"Invalid scalar type"), and a byte copy is exact for every dtype. An error
+that every rank of a group raises at the same point, after the same
+collectives, is an :class:`AgreedError`: the group is still in step.
 """
 
 from __future__ import annotations
 
 import datetime
+import pickle
 from collections import Counter
 from typing import List, Optional, Tuple
 
@@ -263,9 +272,83 @@ def all_gather_objects(obj, group) -> list:
 
 
 def broadcast_object(obj, group, src: int = 0):
-    """Rank ``src``'s host object on every rank of ``group``."""
+    """The host object of ``group``'s rank ``src`` (its rank within the
+    group) on every rank of ``group``."""
     if group is None:
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=src, group=group)
+    dist.broadcast_object_list(box, group=group, group_src=src)
     return box[0]
+
+
+def as_bytes(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s bytes: a ``uint8`` view of it (contiguous)."""
+    return x.contiguous().view(torch.uint8)
+
+
+def gather_to_first(x: torch.Tensor, group) -> Optional[List[torch.Tensor]]:
+    """Every rank's ``x`` (one shape and dtype on every rank) on the first
+    rank of ``group``, in rank order; None on the others. ``[x]`` for a
+    group of one."""
+    if group is None:
+        return [x]
+    COLLECTIVES["gather"] += 1
+    b = as_bytes(x)
+    first = dist.get_rank(group) == 0
+    parts = ([torch.empty_like(b) for _ in range(group_size(group))]
+             if first else None)
+    dist.gather(b, parts, group=group, group_dst=0)
+    return [p.view(x.dtype) for p in parts] if first else None
+
+
+def scatter_from_first(parts: Optional[List[torch.Tensor]],
+                       like: torch.Tensor, group) -> torch.Tensor:
+    """Rank ``i`` of ``group`` receives ``parts[i]`` of its first rank
+    (``parts`` None elsewhere); ``like`` gives the part's shape, dtype and
+    device on every rank. ``parts[0]`` for a group of one."""
+    if group is None:
+        return parts[0]
+    COLLECTIVES["scatter"] += 1
+    out = torch.empty_like(as_bytes(like))
+    dist.scatter(out, None if parts is None else [as_bytes(p) for p in parts],
+                 group=group, group_src=0)
+    return out.view(like.dtype)
+
+
+class AgreedError(RuntimeError):
+    """``error``, raised by every rank of a group at the same point after
+    the same collectives (the first rank decided it and told the others):
+    no rank is left in a collective, so a sharded server answers it as a
+    solo server answers ``error`` and keeps serving."""
+
+    def __init__(self, error: BaseException):
+        super().__init__(error)
+        self.error = error
+
+    def __str__(self) -> str:
+        return f"{type(self.error).__name__}: {self.error}"
+
+
+def portable(error: Optional[BaseException]) -> Optional[BaseException]:
+    """``error`` if it pickles, else a RuntimeError with its text (an
+    error sent to other ranks)."""
+    if error is None:
+        return None
+    try:
+        pickle.dumps(error)
+        return error
+    except Exception:  # noqa: BLE001 — its text still travels
+        return RuntimeError(f"{type(error).__name__}: {error}")
+
+
+def agree(error: Optional[BaseException], group) -> None:
+    """The first rank of ``group`` tells the others its ``error`` (None:
+    success); every rank then raises :class:`AgreedError` of it, or
+    returns. A group of one raises ``error`` itself."""
+    if group is None:
+        if error is not None:
+            raise error
+        return
+    error = broadcast_object(portable(error), group)
+    if error is not None:
+        raise AgreedError(error)

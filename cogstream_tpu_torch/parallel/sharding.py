@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import copy
 import math
+import types
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -53,7 +54,8 @@ import torch
 from torch import nn
 
 from ..config import CogReasonerConfig, Qwen2Config, VisionEncoderConfig
-from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, all_gather
+from .mesh import (DATA_AXIS, MODEL_AXIS, Mesh, all_gather, as_bytes,
+                   gather_to_first, scatter_from_first)
 
 Range = Tuple[int, int]
 
@@ -461,13 +463,6 @@ def training_mesh(model, data: Optional[int], tp: Optional[int]):
     return make_mesh(data, tp)
 
 
-def check_mesh_adapters(mesh: Optional[Mesh], adapters) -> None:
-    """LoRA adapters are not sharded yet: a mesh with adapters raises."""
-    if mesh is not None and adapters:
-        raise NotImplementedError("LoRA adapters under a mesh are not "
-                                  "ported yet")
-
-
 INT4_ACT_MSG = ("int8 activations (w4a8_decode / w8a8_prefill) on an int4 "
                 "decoder under a mesh are not ported yet")
 
@@ -615,20 +610,8 @@ class LoraLayout:
 
         self.mesh = mesh
         self.specs = lora_specs_like(lora_tree, param_specs)
-        tp = mesh.shape[MODEL_AXIS]
         for path, t in iter_leaves(lora_tree):
-            s = self.specs[path]
-            if s.index is None:
-                continue
-            n = len(s.index)
-            block = torch.arange(mesh.model_index * n,
-                                 (mesh.model_index + 1) * n)
-            if n * tp != t.shape[s.dim] or not torch.equal(
-                    s.index.cpu(), block):
-                raise NotImplementedError(
-                    f"LoRA on {path}: the plan holds indices that are not "
-                    f"this rank's block of {t.shape[s.dim]} (kv heads "
-                    "shared by ranks); train at another model-axis size")
+            _check_block(path, self.specs[path], t.shape, mesh)
         self._order = [p for p, _ in iter_leaves(lora_tree)]
 
     @property
@@ -672,6 +655,22 @@ class LoraLayout:
 
         whole = iter(self.gather_leaves([t for _, t in iter_leaves(tree)]))
         return map_leaves(lambda t: next(whole), tree)
+
+
+def _check_block(path: str, spec: LoraSpec, whole, mesh: Mesh) -> None:
+    """A split leaf of ``whole`` shape must be this rank's block of it; a
+    plan that holds other indices (kv heads shared by ranks, whose
+    adapters would each get part of the gradient) raises."""
+    if spec.index is None:
+        return
+    n, tp = len(spec.index), mesh.shape[MODEL_AXIS]
+    block = torch.arange(mesh.model_index * n, (mesh.model_index + 1) * n)
+    if n * tp != whole[spec.dim] or not torch.equal(spec.index.cpu(),
+                                                    block):
+        raise NotImplementedError(
+            f"LoRA on {path}: the plan holds indices that are not this "
+            f"rank's block of {whole[spec.dim]} (kv heads shared by ranks);"
+            " use another model-axis size")
 
 
 def _lora_slice(t: torch.Tensor, spec: LoraSpec) -> torch.Tensor:
@@ -718,3 +717,101 @@ def place_kv_cache(cache, cfg: Qwen2Config, mesh: Mesh):
     return KVCache(cache.k[:, r].index_select(3, h).contiguous(),
                    cache.v[:, r].index_select(3, h).contiguous(),
                    cache.pos[r].contiguous(), cache.write_index)
+
+
+def shard_lora_tree(tree, cfg: CogReasonerConfig, mesh: Mesh):
+    """This rank's slice of one serving LoRA tree (a decoder tree, or a
+    whole one with ``text`` and ``projector``) under the model's serving
+    plan, its leaves detached: :func:`shard_lora` over
+    :func:`lora_specs_like` of ``qwen2_param_specs`` (a decoder tree) or
+    ``cogreasoner_param_specs`` (a whole tree: the decoder, tower and
+    projector plans). A tree already sliced for ``mesh`` comes back as it
+    is; one whose shapes are neither whole nor this rank's slice raises
+    ``ValueError``; a plan with kv heads shared by ranks raises
+    ``NotImplementedError`` (:class:`LoraLayout`'s refusal)."""
+    from ..models.lora import iter_leaves, lora_site_dims, map_leaves
+
+    specs = lora_specs_like(tree, cogreasoner_param_specs(cfg, mesh)
+                            if "text" in tree else
+                            qwen2_param_specs(cfg.text, mesh))
+    whole, sliced = True, True
+    for path, t in iter_leaves(tree):
+        site, _, ab = path.rpartition(".")
+        din, dout = lora_site_dims(site, cfg)
+        spec = specs[path]
+        want = (din, t.shape[1]) if ab == "a" else (t.shape[0], dout)
+        _check_block(path, spec, want, mesh)
+        local = list(want)
+        if spec.index is not None:
+            local[spec.dim] = len(spec.index)
+        whole &= tuple(t.shape) == want
+        sliced &= tuple(t.shape) == tuple(local)
+    if whole and not sliced:
+        return map_leaves(torch.Tensor.detach, shard_lora(tree, specs))
+    if sliced:
+        return tree
+    raise ValueError(f"LoRA tree is neither whole nor sliced for the mesh "
+                     f"{mesh.shape} (rank {mesh.model_index} of its model "
+                     "axis)")
+
+
+def shard_adapters(adapters: Optional[Dict], cfg: CogReasonerConfig,
+                   mesh: Optional[Mesh]) -> Optional[Dict]:
+    """A session's, pool's, engine's or server's adapters
+    (``{"language_module": tree, "full_module": tree}``) sliced for
+    ``mesh`` (:func:`shard_lora_tree` per tree), idempotent: adapters
+    already sliced for ``mesh`` come back as they are, and ``mesh=None``
+    returns ``adapters``."""
+    if mesh is None or not adapters:
+        return adapters
+    out = {k: None if t is None else shard_lora_tree(t, cfg, mesh)
+           for k, t in adapters.items()}
+    return adapters if all(out[k] is adapters[k] for k in out) else out
+
+
+# ---------------------------------------------------------------------------
+# a sharded session's cache, whole on the model group's first rank
+# ---------------------------------------------------------------------------
+
+def kv_head_map(cfg: Qwen2Config, mesh: Mesh) -> Tuple[Tuple[int, ...], ...]:
+    """The global kv heads each rank of this rank's model group holds
+    (:attr:`TextShard.kv_heads`), in model-rank order: each head once in
+    the plain split; a head on several ranks where ``Hkv`` does not divide
+    the model axis (overlapping heads); every head on every rank where the
+    attention is replicated."""
+    return tuple(
+        text_shard(cfg, types.SimpleNamespace(
+            shape=mesh.shape, data_index=mesh.data_index, model_index=m,
+            model_group=None, data_group=None)).kv_heads
+        for m in range(mesh.shape[MODEL_AXIS]))
+
+
+def gather_kv_heads(x: torch.Tensor, cfg: Qwen2Config, mesh: Mesh,
+                    dim: int) -> Optional[torch.Tensor]:
+    """The whole tensor (every kv head on ``dim``) from each model rank's
+    ``x`` (its kv heads), on the first rank of the model group (None on
+    the others), moved as bytes. A head several ranks hold is taken from
+    the first of them."""
+    heads = kv_head_map(cfg, mesh)
+    if len({len(h) for h in heads}) != 1:
+        raise ValueError(f"kv heads per rank differ: {heads}")
+    parts = gather_to_first(as_bytes(x), mesh.model_group)
+    if parts is None:
+        return None
+    flat = [h for hs in heads for h in hs]
+    idx = torch.tensor([flat.index(h) for h in range(cfg.num_key_value_heads)],
+                       device=x.device)
+    return torch.cat(parts, dim).index_select(dim, idx).view(x.dtype)
+
+
+def scatter_kv_heads(whole: Optional[torch.Tensor], like: torch.Tensor,
+                     cfg: Qwen2Config, mesh: Mesh, dim: int) -> torch.Tensor:
+    """The inverse of :func:`gather_kv_heads`: the first rank's ``whole``
+    (None on the others) sent as bytes, each rank receiving the kv heads
+    it holds; ``like`` is this rank's part (shape, dtype, device)."""
+    parts = None
+    if whole is not None:
+        b = as_bytes(whole)
+        parts = [b.index_select(dim, torch.tensor(hs, device=b.device))
+                 for hs in kv_head_map(cfg, mesh)]
+    return scatter_from_first(parts, like, mesh.model_group)

@@ -14,8 +14,9 @@ padding. Padding carries position -1 and is invisible either way.
 
 ``mesh=`` (parallel/mesh.Mesh) serves tensor-parallel: every rank builds
 the engine with the same arguments and runs the same turns; the model is
-sharded once (``parallel/sharding.ensure_cogreasoner_sharded``) and each
-turn's caches hold the rank's kv heads.
+sharded once (``parallel/sharding.ensure_cogreasoner_sharded``), the
+adapters sliced with it (``shard_adapters``: the selector takes the
+language adapter's slice) and each turn's caches hold the rank's kv heads.
 """
 
 from __future__ import annotations
@@ -31,8 +32,8 @@ from ..models import cogreasoner
 from ..models.cogreasoner import (CogReasoner, with_int8_tower,
                                   with_serving_flags)
 from ..models.qwen2 import init_kv_cache, local_kv_heads
-from ..parallel.sharding import (check_mesh_adapters,
-                                 ensure_cogreasoner_sharded)
+from ..parallel.sharding import (ensure_cogreasoner_sharded,
+                                 shard_adapters, sharded_mesh)
 from ..processor.processing import CogStreamProcessor, ProcessorOutput
 from .generate import (bucket_length, decode_new_tokens, generate_tokens,
                        generate_tokens_lookahead)
@@ -71,8 +72,8 @@ class CogReasonerEngine:
     ):
         # mesh: this rank's shard of the model (idempotent); cfg's serving
         # flags; encoder_int8: the engine's own W8A8 copy of the vision tower
-        check_mesh_adapters(mesh, adapters)
         model = ensure_cogreasoner_sharded(model, cfg, mesh)
+        adapters = shard_adapters(adapters, cfg, sharded_mesh(model))
         self.mesh = mesh
         model = with_serving_flags(model, cfg)
         if encoder_int8:

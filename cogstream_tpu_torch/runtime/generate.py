@@ -96,6 +96,22 @@ def _model_sliced_head(model: Qwen2Model, lid: torch.Tensor, dtype):
     return head
 
 
+def _sliced_lora_b(model: Qwen2Model, b: torch.Tensor,
+                   lid: torch.Tensor) -> torch.Tensor:
+    """An lm_head adapter's ``b`` at the ``logit_ids`` columns. On a
+    vocab-sharded head ``b`` holds the rank's vocab slice: each rank fills
+    its own ids, and an all-reduce (one term per column) gives every rank
+    the whole slice, as :func:`_model_sliced_head`."""
+    tp = model.tp
+    if tp is None or tp.vocab is None:
+        return b[:, lid]
+    lo, hi = tp.vocab
+    cols = torch.nonzero((lid >= lo) & (lid < hi))[:, 0]
+    out = b.new_zeros((b.shape[0], lid.numel()))
+    out[:, cols] = b[:, lid[cols] - lo]
+    return all_reduce(out, tp.group)
+
+
 @torch.inference_mode()
 def generate_tokens(
     model: Qwen2Model,
@@ -156,7 +172,8 @@ def generate_tokens(
             raise ValueError("pass either logit_ids or vocab_mask")
         lid = torch.as_tensor(logit_ids, dtype=torch.int64, device=dev)
         head = _model_sliced_head(model, lid, inputs_embeds.dtype)
-        head_lora = [({"a": t["lm_head"]["a"], "b": t["lm_head"]["b"][:, lid]},
+        head_lora = [({"a": t["lm_head"]["a"],
+                       "b": _sliced_lora_b(model, t["lm_head"]["b"], lid)},
                       g) for t, g in adapters or ()
                      if isinstance(t, dict) and t.get("lm_head") is not None]
 

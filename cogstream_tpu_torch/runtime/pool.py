@@ -18,7 +18,12 @@ and the rows split across the ``data`` groups when ``n_rows`` divides:
 group ``d`` holds rows ``[d * n_rows / data, (d + 1) * n_rows / data)`` in
 its cache and sessions, and runs only those rows of an ``ingest_batch`` /
 ``ask_batch``; the answers are then exchanged, so every rank returns every
-row's result. Rows that do not divide are held by every group.
+row's result. Rows that do not divide are held by every group. The
+adapters are sliced for the model axis (``shard_adapters``). A row's
+snapshot (:meth:`SessionPool.save`, :meth:`SessionPool.open_restored`) is
+written and read by the first rank of the model group of the data group
+that holds the row (``StreamingSession.save`` / ``load_state``); every
+rank calls both, and every rank raises a failed one.
 """
 
 from __future__ import annotations
@@ -34,9 +39,9 @@ from ..models.cogreasoner import (CogReasoner, encode_images,
                                   pixel_diff_keep_mask, with_int8_tower,
                                   with_serving_flags)
 from ..models.qwen2 import init_kv_cache, local_kv_heads
-from ..parallel.mesh import DATA_AXIS, all_gather_objects
-from ..parallel.sharding import (check_mesh_adapters,
-                                 ensure_cogreasoner_sharded)
+from ..parallel.mesh import (DATA_AXIS, AgreedError, all_gather_objects,
+                             portable)
+from ..parallel.sharding import ensure_cogreasoner_sharded, shard_adapters
 from .generate import generate_tokens
 from .history import parse_selection
 from .session import (SlotRange, StreamingSession, _ingest_device_step,
@@ -54,8 +59,8 @@ class SessionPool:
         # mesh: this rank's shard of the model; cfg's serving flags;
         # encoder_int8: the pool (and every session on it) ingests through
         # its own W8A8 copy of the tower
-        check_mesh_adapters(mesh, adapters)
         model = ensure_cogreasoner_sharded(model, cfg, mesh)
+        adapters = shard_adapters(adapters, cfg, mesh)
         model = with_serving_flags(model, cfg)
         if encoder_int8:
             model = with_int8_tower(model)
@@ -86,7 +91,7 @@ class SessionPool:
         # streams; folding in the row keeps runs reproducible per (seed,
         # row) and independent across rows
         self._mk = lambda row: StreamingSession(
-            model, cfg, tokenizer, adapters=adapters, max_len=max_len,
+            model, cfg, tokenizer, adapters=self.adapters, max_len=max_len,
             summary_forward=summary_forward, pool=self,
             row=row - self._row_lo, rng_seed=(seed << 16) ^ (row + 1))
 
@@ -96,7 +101,10 @@ class SessionPool:
         for b in range(self.n_rows):
             if b not in self._open:
                 return b
-        raise RuntimeError("session pool full")
+        full = RuntimeError("session pool full")
+        # every rank of a mesh holds the same open rows: all raise it here
+        raise full if self.mesh is None or self.mesh.size == 1 \
+            else AgreedError(full)
 
     def holds(self, row: int) -> bool:
         """Whether this rank's data group holds ``row``."""
@@ -128,12 +136,38 @@ class SessionPool:
         self._open.discard(row)
         self.sessions.pop(row, None)
 
+    def _row_call(self, row: int, method: str, *args):
+        """``sessions[row].<method>(*args)`` on the group that holds
+        ``row``; with split rows its failure is raised on every rank
+        (as an ``AgreedError``)."""
+        error = None
+        try:
+            if self.holds(row):
+                getattr(self.sessions[row], method)(*args)
+        except Exception as e:  # noqa: BLE001 — shared below
+            if not self._split:
+                raise
+            error = e
+        if self._split:
+            errors = [e for e in all_gather_objects(
+                portable(error), self.mesh.host_group) if e is not None]
+            if errors:
+                raise errors[0] if isinstance(errors[0], AgreedError) \
+                    else AgreedError(errors[0])
+
+    def save(self, row: int, path: str) -> None:
+        """Snapshot ``row``'s session (``StreamingSession.save``)."""
+        if row not in self._open:
+            raise ValueError("unknown row")
+        self._row_call(row, "save", path)
+
     def open_restored(self, path: str) -> int:
         """Open a session on a free row and restore a ``session.save``
-        snapshot into it. A failed restore releases the row again."""
+        snapshot into it. A failed restore releases the row again (on
+        every rank)."""
         b = self.open()
         try:
-            self.sessions[b].load_state(path)
+            self._row_call(b, "load_state", path)
         except Exception:
             self.close(b)
             raise

@@ -55,8 +55,19 @@ on any rank ends the server: its client gets a 503 ``{"mesh_fatal":
 true}`` naming the failing rank's error, and every rank exits with rc 17
 within a second, none left waiting in a collective. Requests rank 0
 refuses before any device call (an unknown session, a missing field) keep
-their 404 / 400 and the server serving. Snapshots, ``--supervise`` and a
-mesh with a ``data`` axis are not ported for a sharded server.
+their 404 / 400 and the server serving. Snapshots of a sharded server
+(/save, /restore, ``--auto-snapshot-dir`` and its start-up restore) are
+device calls like the others: the first rank writes and reads the solo
+snapshot file on its own disk (``StreamingSession.save`` / ``load_state``),
+and an error every rank raised together (a snapshot that does not fit, a
+failed write) is answered as the solo server answers it, the server
+serving on. ``--supervise`` under torchrun does not spawn children: the
+elastic agent (``torchrun --max-restarts N``) is the supervisor of the
+world. Each rank arms the supervised mode; a sticky CUDA error ends every
+rank with rc 17 (the 503 says ``"recovering": true``), the agent starts a
+new world, and its rank 0 restores every session of
+``--auto-snapshot-dir``. A mesh with a ``data`` axis is not ported for a
+sharded server.
 """
 
 from __future__ import annotations
@@ -188,8 +199,11 @@ class MeshLink:
         self.mesh, self.target = mesh, target
         self.leader = mesh.rank == 0
         self.store = dist.distributed_c10d._get_default_store()
-        # every rank builds its links in one order: one key per link
-        self.key = f"cogstream/mesh_fault/{next(_LINK_IDS)}"
+        # every rank builds its links in one order: one key per link, and
+        # per world of a torchrun agent (a restarted world must not find
+        # the failure that ended the one before it)
+        world = os.environ.get("TORCHELASTIC_RESTART_COUNT", "0")
+        self.key = f"cogstream/mesh_fault/{world}/{next(_LINK_IDS)}"
         self.fault: Optional[str] = None
         self._stop = threading.Event()
         self._watcher = threading.Thread(target=self._watch, daemon=True)
@@ -224,14 +238,21 @@ class MeshLink:
         if self.fault is not None:
             return
         self.fault = msg
-        print(f"rank {self.mesh.rank}: sharded server ends: {msg}",
-              file=sys.stderr, flush=True)
-        if not self.leader:
+        rank = self.mesh.rank
+        print(f"rank {rank}: sharded server ends: {msg}", file=sys.stderr,
+              flush=True)
+
+        def _exit():
+            print(f"rank {rank}: exit {FATAL_EXIT}", file=sys.stderr,
+                  flush=True)
             os._exit(FATAL_EXIT)
+
+        if not self.leader:
+            _exit()
 
         def _die():
             time.sleep(MESH_GRACE_S)
-            os._exit(FATAL_EXIT)
+            _exit()
 
         threading.Thread(target=_die, daemon=True).start()
 
@@ -248,20 +269,30 @@ class MeshLink:
 
     def _run(self, record):
         """One call on this rank: its items (one for a plain call), then
-        the barrier every rank reaches only when every rank succeeded."""
+        the barrier every rank reaches only when every rank succeeded or
+        raised the same :class:`AgreedError` (re-raised on rank 0 after
+        the barrier: the ranks are in step)."""
         import torch.distributed as dist
 
+        from ..parallel.mesh import AgreedError
+
         method, args, kwargs, stream = record
+        agreed = None
         try:
-            out = getattr(self.target, method)(*args, **kwargs)
-            if stream:
-                yield from out
-            else:
-                yield out
+            try:
+                out = getattr(self.target, method)(*args, **kwargs)
+                if stream:
+                    yield from out
+                else:
+                    yield out
+            except AgreedError as e:
+                agreed = e
             dist.barrier(group=self.mesh.host_group)
         except Exception as e:  # noqa: BLE001 — ends the server
             raise self._fail(f"rank {self.mesh.rank}: {method} failed: "
                              f"{type(e).__name__}: {e}") from e
+        if agreed is not None and self.leader:
+            raise agreed
 
     def _call(self, record):
         """Rank 0: broadcast ``record`` and run it in a worker thread,
@@ -272,6 +303,8 @@ class MeshLink:
         items: "queue.Queue" = queue.Queue()
 
         def work():
+            from ..parallel.mesh import AgreedError
+
             try:
                 self._broadcast(record)
                 for item in self._run(record):
@@ -279,6 +312,8 @@ class MeshLink:
                 items.put((False, None))
             except MeshFault as e:
                 items.put((False, e))
+            except AgreedError as e:     # the caller gets the error itself
+                items.put((False, e.error))
             except Exception as e:  # noqa: BLE001 — the broadcast broke
                 items.put((False, self._fail(
                     f"rank 0: {record[0]} failed: {type(e).__name__}: "
@@ -505,23 +540,19 @@ class SessionServer:
                  auto_snapshot_dir: Optional[str] = None, mesh=None):
         from ..models.cogreasoner import with_int8_tower
         from ..parallel.mesh import DATA_AXIS
-        from ..parallel.sharding import (check_mesh_adapters,
-                                         ensure_cogreasoner_sharded)
+        from ..parallel.sharding import (ensure_cogreasoner_sharded,
+                                         shard_adapters)
         from ..utils.profiling import StageTimer
         from .session import StreamingSession
 
         # mesh: ONE shard of the model for the server, sessions and pool;
         # encoder_int8: ONE W8A8 copy of the tower, shared by the solo
         # sessions and the pool (each finds its model's tower int8 already)
-        check_mesh_adapters(mesh, adapters)
         model = ensure_cogreasoner_sharded(model, cfg, mesh)
-        if mesh is not None:
-            if mesh.shape[DATA_AXIS] > 1:
-                raise NotImplementedError("a server on a mesh with a data "
-                                          "axis is not ported yet")
-            if auto_snapshot_dir:
-                raise NotImplementedError("snapshots of a sharded server "
-                                          "are not ported yet")
+        adapters = shard_adapters(adapters, cfg, mesh)
+        if mesh is not None and mesh.shape[DATA_AXIS] > 1:
+            raise NotImplementedError("a server on a mesh with a data "
+                                      "axis is not ported yet")
         self.mesh = mesh
         self.link = (MeshLink(mesh, self)
                      if mesh is not None and mesh.size > 1 else None)
@@ -605,6 +636,22 @@ class SessionServer:
 
     def _op_ask_stream(self, session_id: str, question: str, **kwargs):
         return self._get(session_id).ask_stream(question, **kwargs)
+
+    def _op_save(self, session_id: str, path: str) -> None:
+        self._get(session_id).save(path)
+
+    def _op_restore(self, session_id: str, path: str) -> None:
+        if self.pool is not None:
+            row = self.pool.open_restored(path)   # raises: no change
+            old = self._row_of.pop(session_id, None)
+            if old is not None:
+                self.pool.close(old)
+            self._row_of[session_id] = row
+            self.sessions[session_id] = self.pool.sessions[row]
+        else:
+            sess = self._mk()
+            sess.load_state(path)
+            self.sessions[session_id] = sess
 
     def follow(self) -> None:
         """The loop of ranks > 0 of a sharded server: run rank 0's device
@@ -809,36 +856,21 @@ class SessionServer:
                     extra_eos_ids=self.extra_eos_ids)
 
     def save_session(self, session_id: str, path: str) -> Dict:
-        """Snapshot a live session to disk (atomic npz)."""
-        if self.mesh is not None:
-            raise NotImplementedError("snapshots of a sharded server are "
-                                      "not ported yet")
+        """Snapshot a live session to disk (atomic npz; on a mesh, rank
+        0's disk)."""
         with self.lock:
             sess = self._get(session_id)
-            sess.save(path)
+            self._device("_op_save", session_id, path)
         return {"session_id": session_id, "path": path,
                 "cache_tokens": sess.write_index}
 
     def restore_session(self, session_id: str, path: str) -> Dict:
         """Recreate a session from a snapshot, replacing one of the same
-        id. Transactional: the snapshot loads onto a fresh row first;
-        only then is the old row released, so a failed restore leaves
-        the old session usable and leaks nothing."""
-        if self.mesh is not None:
-            raise NotImplementedError("snapshots of a sharded server are "
-                                      "not ported yet")
+        id. Transactional (on every rank of a mesh): the snapshot loads
+        onto a fresh row first; only then is the old row released, so a
+        failed restore leaves the old session usable and leaks nothing."""
         with self.lock:
-            if self.pool is not None:
-                row = self.pool.open_restored(path)   # raises: no change
-                old = self._row_of.pop(session_id, None)
-                if old is not None:
-                    self.pool.close(old)
-                self._row_of[session_id] = row
-                self.sessions[session_id] = self.pool.sessions[row]
-            else:
-                sess = self._mk()
-                sess.load_state(path)
-                self.sessions[session_id] = sess
+            self._device("_op_restore", session_id, path)
         return {"session_id": session_id,
                 "cache_tokens": self.sessions[session_id].write_index,
                 "turns": len(self.sessions[session_id].hist_qs)}
@@ -859,6 +891,10 @@ class SessionServer:
         embedded servers must not be killed)."""
         self.exit_code = code
         if not self.supervised:
+            return
+        if self.link is not None:
+            # every rank of the world exits (the agent starts a new one)
+            self.link._fail(f"rank 0: sticky CUDA error (exit {code})")
             return
 
         def _die():
@@ -886,10 +922,10 @@ class SessionServer:
             return
         try:
             with self.lock:
-                sess = self.sessions.get(session_id)
-                if sess is not None:
+                if session_id in self.sessions:
                     with self.timer.stage("snapshot"):
-                        sess.save(self._snap_path(session_id))
+                        self._device("_op_save", session_id,
+                                     self._snap_path(session_id))
         except Exception as e:  # noqa: BLE001
             print(f"auto-snapshot of {session_id!r} failed: {e!r}",
                   file=sys.stderr)
@@ -997,7 +1033,8 @@ def make_handler(server: SessionServer):
             except MeshFault as e:
                 # a rank of a sharded server failed: every rank exits
                 return self._json(503, {"error": str(e),
-                                        "mesh_fatal": True})
+                                        "mesh_fatal": True,
+                                        "recovering": server.supervised})
             except KeyError as e:
                 return self._json(400, {"error": f"missing field {e}"})
             except Exception as e:  # noqa: BLE001
@@ -1064,6 +1101,23 @@ def run_supervised(child_argv: List[str], max_restarts: int = 20,
               f"({restarts}/{max_restarts}) after {cooldown_s:g}s",
               file=sys.stderr, flush=True)
         time.sleep(cooldown_s)
+
+
+def exit_on_term(server: SessionServer) -> None:
+    """A supervised rank of a sharded server: the agent's SIGTERM, which
+    stops the world as soon as another rank has exited, leaves a rank that
+    is on its way out after a failure (:class:`MeshLink`'s end) to finish
+    its reply and exit ``FATAL_EXIT`` itself; any other rank ends as
+    SIGTERM ends it."""
+    import signal
+
+    def handler(signum, frame):
+        if server.link.fault is not None:
+            return
+        signal.signal(signum, signal.SIG_DFL)
+        os.kill(os.getpid(), signum)
+
+    signal.signal(signal.SIGTERM, handler)
 
 
 def child_argv(argv: List[str]) -> List[str]:
@@ -1135,8 +1189,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.supervise:
-        raise SystemExit(run_supervised(child_argv(argv),
-                                        cooldown_s=args.restart_cooldown))
+        if "TORCHELASTIC_RESTART_COUNT" not in os.environ:
+            raise SystemExit(run_supervised(
+                child_argv(argv), cooldown_s=args.restart_cooldown))
+        # under torchrun the elastic agent (--max-restarts) restarts the
+        # world: each rank serves supervised, without a child
+        os.environ[SUPERVISED_ENV] = "1"
     flags = quant_flags(args)
     # under torchrun (WORLD_SIZE > 1): tensor-parallel over every rank,
     # each on its card over NCCL, or with --device cpu over gloo
@@ -1171,6 +1229,8 @@ def main(argv=None):
                            encoder_int8=args.encoder_int8,
                            auto_snapshot_dir=args.auto_snapshot_dir,
                            mesh=mesh)
+    if server.supervised and server.link is not None:
+        exit_on_term(server)
     if mesh is not None and mesh.rank > 0:
         server.follow()          # until rank 0 shuts down
         return

@@ -30,9 +30,12 @@ package's layout, so a JAX snapshot restores into the port.
 ``mesh=`` (parallel/mesh.Mesh) serves tensor-parallel: every rank builds
 the session with the same arguments and makes the same calls; the model is
 sharded once (``parallel/sharding.ensure_cogreasoner_sharded``), the
-cache holds the rank's kv heads, and every host decision reads values that
-are the same on every rank. Snapshots of a sharded session are not ported
-yet (they raise).
+adapters sliced with it (``shard_adapters``), the cache holds the rank's kv
+heads, and every host decision reads values that are the same on every
+rank. A sharded session's snapshot is the solo one: the first rank of the
+model group gathers every kv head and alone writes the file, and on
+``load_state`` alone reads it and sends each rank its kv heads and the
+rest of the state (no disk shared by the ranks is assumed).
 """
 
 from __future__ import annotations
@@ -52,8 +55,10 @@ from ..models.cogreasoner import (SUMMARY_INSTRUCTION, SUMMARY_SYSTEM,
                                   with_serving_flags)
 from ..models.qwen2 import (KVCache, Qwen2Model, init_kv_cache, kv_bytes,
                             local_kv_heads, to_cache)
-from ..parallel.sharding import (check_mesh_adapters,
-                                 ensure_cogreasoner_sharded, sharded_mesh)
+from ..parallel.mesh import agree, broadcast_object
+from ..parallel.sharding import (ensure_cogreasoner_sharded,
+                                 gather_kv_heads, scatter_kv_heads,
+                                 shard_adapters, sharded_mesh)
 from ..ops.lm_attention import cache_rows
 from .generate import (decode_new_tokens, generate_tokens,
                        generate_tokens_lookahead)
@@ -250,8 +255,10 @@ class StreamingSession:
         # runs under cfg's serving flags, as the JAX session's does;
         # encoder_int8: the W8A8 vision tower for ingest, the session's own
         # int8 copy (the model's tower is left as it is)
-        check_mesh_adapters(mesh, adapters)
         model = ensure_cogreasoner_sharded(model, cfg, mesh)
+        # the adapters follow the model's shards (a pool's or server's
+        # sessions get the sharded model without a mesh)
+        adapters = shard_adapters(adapters, cfg, sharded_mesh(model))
         model = with_serving_flags(model, cfg)
         if encoder_int8:
             model = with_int8_tower(model)
@@ -975,6 +982,11 @@ class StreamingSession:
     # persistence — serving restarts without losing live streams
     # ------------------------------------------------------------------
 
+    def _mesh_group(self):
+        """(mesh, model group) of a sharded session; (None, None) solo."""
+        mesh = sharded_mesh(self.model)
+        return mesh, None if mesh is None else mesh.model_group
+
     def save(self, path: str) -> None:
         """Snapshot this session (its cache row trimmed to the fill level
         and all host bookkeeping) into one atomic ``.npz`` in the JAX
@@ -983,21 +995,41 @@ class StreamingSession:
         ``rng_key``, so a JAX session restores the snapshot too (the two
         packages' sampling streams differ anyway). The K/V keep the
         cache's dtype: an fp8 cache stores its e4m3 bytes. Weights are not
-        included."""
-        import hashlib
+        included.
 
-        from ..utils.io import atomic_write_npz, pack_array
-
-        self._check_unsharded("save")
-
+        Sharded (every rank calls it): the model group's first rank
+        gathers every kv head and writes the solo file; the other ranks
+        write nothing. A failed write raises on every rank
+        (``parallel.mesh.AgreedError``)."""
+        mesh, group = self._mesh_group()
         if self._rep_pending:
             raise RuntimeError("ingest left unflushed event reps")
         row = self._row if self._pool is not None else 0
         wi = self.write_index
+        c = self.cache
+        k, v = c.k[:, row, :wi], c.v[:, row, :wi]
+        if group is not None:
+            k = gather_kv_heads(k, self.cfg.text, mesh, dim=2)
+            v = gather_kv_heads(v, self.cfg.text, mesh, dim=2)
+            if k is None:          # not the first rank: it writes nothing
+                agree(None, group)
+                return
+        error = None
+        try:
+            self._write_snapshot(path, k, v, c.pos[row, :wi])
+        except Exception as e:  # noqa: BLE001 — raised on every rank
+            error = e
+        agree(error, group)
+
+    def _write_snapshot(self, path: str, k, v, pos) -> None:
+        import hashlib
+
+        from ..utils.io import atomic_write_npz, pack_array
+
         meta = {
             "version": 1,
             "max_len": self.max_len,
-            "wi": wi,
+            "wi": self.write_index,
             "next_pos": self.next_pos,
             "total_frames": self.total_frames,
             "hist_qs": self.hist_qs,
@@ -1026,10 +1058,9 @@ class StreamingSession:
         def put(name, a):
             arrays[name], dtypes[name] = pack_array(a)
 
-        c = self.cache
-        put("k", c.k[:, row, :wi])
-        put("v", c.v[:, row, :wi])
-        put("pos", c.pos[row, :wi])
+        put("k", k)
+        put("v", v)
+        put("pos", pos)
         state = self._gen.get_state()
         put("torch_rng_state", state)
         put("rng_key", np.frombuffer(hashlib.sha256(
@@ -1045,21 +1076,12 @@ class StreamingSession:
         meta["dtypes"] = dtypes
         atomic_write_npz(path, meta=np.asarray(json.dumps(meta)), **arrays)
 
-    def _check_unsharded(self, what: str) -> None:
-        if sharded_mesh(self.model) is not None:
-            raise NotImplementedError(f"{what} of a session on a mesh is "
-                                      "not ported yet")
-
-    @torch.inference_mode()
-    def load_state(self, path: str) -> None:
-        """Restore a ``save`` snapshot, the port's or the JAX package's,
-        into this session (solo or a pool row). The session must share
-        the snapshot's model, config and tokenizer; ``max_len`` must fit
-        it. A JAX snapshot carries only ``rng_key``: the generator is
-        then seeded from its two words."""
+    def _read_snapshot(self, path: str) -> Dict:
+        """A snapshot's meta and arrays (host), checked against this
+        session: ``max_len`` must fit it and its K/V (every kv head) the
+        model's cache."""
         from ..utils.io import unpack_array
 
-        self._check_unsharded("load_state")
         d = np.load(path)
         meta = json.loads(str(d["meta"]))
         wi = int(meta["wi"])
@@ -1067,26 +1089,78 @@ class StreamingSession:
             raise ValueError(
                 f"snapshot needs {wi} slots, session has {self.max_len}")
         dt = meta["dtypes"]
+        arrays = {name: unpack_array(d[name], dt[name]) for name in dt}
+        t = self.cfg.text
+        c = self.cache
+        want = (c.k.shape[0], wi, t.num_key_value_heads) + tuple(
+            c.k.shape[4:])
+        for name in ("k", "v"):
+            if tuple(arrays[name].shape) != want:
+                raise ValueError(f"snapshot K/V {tuple(arrays[name].shape)}"
+                                 " do not fit this model's cache")
+        if meta["events"] and "event_reps" not in arrays:
+            raise KeyError("event_reps")
+        for i in range(len(meta["pending"])):
+            for name in (f"pend_feat_{i}", f"pend_rows_{i}"):
+                if name not in arrays:
+                    raise KeyError(name)
+        return {"meta": meta, "arrays": arrays}
 
-        def get(name):
-            return unpack_array(d[name], dt[name])
+    @torch.inference_mode()
+    def load_state(self, path: str) -> None:
+        """Restore a ``save`` snapshot, the port's or the JAX package's,
+        into this session (solo or a pool row). The session must share
+        the snapshot's model, config and tokenizer; ``max_len`` must fit
+        it. A JAX snapshot carries only ``rng_key``: the generator is
+        then seeded from its two words. A snapshot that does not fit
+        raises before the session changes.
 
+        Sharded (every rank calls it): the model group's first rank reads
+        the file and sends every rank the state and its kv heads, so every
+        rank restores the same generator state; a snapshot that does not
+        fit raises on every rank (``parallel.mesh.AgreedError``)."""
+        mesh, group = self._mesh_group()
+        first = group is None or mesh.model_index == 0
+        snap, error = None, None
+        if first:
+            try:
+                snap = self._read_snapshot(path)
+            except Exception as e:  # noqa: BLE001 — raised on every rank
+                error = e
+        agree(error, group)
+        c = self.cache
+        kv = {}
+        if first:
+            # cast into the session's cache dtype, as JAX does: a bf16
+            # snapshot loads into an fp8 session (saturating at +-448 where
+            # JAX's cast gives NaN, ROADMAP Queue 3)
+            for name, cache_t in (("k", c.k), ("v", c.v)):
+                kv[name] = to_cache(torch.as_tensor(
+                    snap["arrays"].pop(name)).to(self.device), cache_t.dtype)
+        if group is not None:
+            snap = broadcast_object(snap, group)
+            wi = int(snap["meta"]["wi"])
+            for name, cache_t in (("k", c.k), ("v", c.v)):
+                like = cache_t.new_empty((cache_t.shape[0], wi)
+                                         + tuple(cache_t.shape[3:]))
+                kv[name] = scatter_kv_heads(kv.get(name), like,
+                                            self.cfg.text, mesh, dim=2)
+        self._restore(snap["meta"], snap["arrays"], kv["k"], kv["v"])
+
+    def _restore(self, meta: Dict, arrays: Dict, k: torch.Tensor,
+                 v: torch.Tensor) -> None:
+        """This session's state from a snapshot's meta and arrays and this
+        rank's K/V (in the cache's dtype)."""
         def dev(a, dtype=None):
             return torch.as_tensor(a).to(self.device, dtype)
 
+        wi = int(meta["wi"])
         c = self.cache
         row = self._row if self._pool is not None else 0
-        k, v, pos = get("k"), get("v"), get("pos")
-        if tuple(k.shape) != (c.k.shape[0], wi) + tuple(c.k.shape[3:]):
-            raise ValueError(f"snapshot K/V {tuple(k.shape)} do not fit "
-                             "this model's cache")
-        # cast into the session's cache dtype, as JAX does: a bf16 snapshot
-        # loads into an fp8 session (saturating at +-448 where JAX's cast
-        # gives NaN, ROADMAP Queue 3)
-        c.k[:, row, :wi] = to_cache(dev(k), c.k.dtype)
-        c.v[:, row, :wi] = to_cache(dev(v), c.v.dtype)
+        c.k[:, row, :wi] = k
+        c.v[:, row, :wi] = v
         c.pos[row] = -1
-        c.pos[row, :wi] = dev(pos, torch.int32)
+        c.pos[row, :wi] = dev(arrays["pos"], torch.int32)
         if self._pool is None:
             c.write_index = wi
         self._wi = wi
@@ -1095,14 +1169,14 @@ class StreamingSession:
         self.hist_qs = list(meta["hist_qs"])
         self.hist_as = list(meta["hist_as"])
         self._system_prompt = meta["system_prompt"]
-        if "torch_rng_state" in dt:
-            self._gen.set_state(torch.as_tensor(get("torch_rng_state")))
+        if "torch_rng_state" in arrays:
+            self._gen.set_state(torch.as_tensor(arrays["torch_rng_state"]))
         else:
-            w = np.asarray(get("rng_key")).reshape(-1).astype(np.uint64)
+            w = np.asarray(arrays["rng_key"]).reshape(-1).astype(np.uint64)
             self._gen.manual_seed(int(w[0]) << 32 | int(w[-1]))
         self.ranges = [SlotRange(k_, s_, e_, t_)
                        for k_, s_, e_, t_ in meta["ranges"]]
-        reps = get("event_reps") if meta["events"] else None
+        reps = arrays.get("event_reps")
         self.events = [EventRecord(
             frame_ids=list(ev["frame_ids"]),
             rep=dev(reps[i], torch.float32),
@@ -1113,10 +1187,11 @@ class StreamingSession:
             for i, ev in enumerate(meta["events"])]
         self._pending_frames = [
             PendingFrame(p["frame_id"], p["timestamp"],
-                         np.asarray(get(f"pend_feat_{i}"), np.float32),
+                         np.asarray(arrays[f"pend_feat_{i}"], np.float32),
                          np.asarray(p["img_slots"], np.int64),
                          p["shadow_slot"],
-                         dev(get(f"pend_rows_{i}"), self.model.text.dtype),
+                         dev(arrays[f"pend_rows_{i}"],
+                             self.model.text.dtype),
                          p["n_kept"])
             for i, p in enumerate(meta["pending"])]
         self._rep_pending = []

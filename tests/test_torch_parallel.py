@@ -38,7 +38,25 @@ fallbacks of parallel/sharding.py):
   fails in an ask (before any collective, and mid-forward): the client
   gets a 503 naming that error and both ranks exit within seconds;
 * every rank's tokens, texts and replicated hidden states bit-equal to
-  rank 0's.
+  rank 0's;
+* snapshots of a sharded session (rank 0 gathers every kv head and
+  writes the solo file): at tp = 2 and 4 in f32 equal to the JAX mesh
+  session's ``save`` of the same turns (K/V within 1e-5 of the row max,
+  meta equal); in bf16 (tp = 2) and e4m3 (tp = 4, overlapping kv heads)
+  the file's K/V bytes at each rank's kv heads equal that rank's cache;
+  the greedy continuation equal to JAX's after every restore route (the
+  sharded snapshot into a fresh sharded session, a solo port session and
+  a JAX session; JAX's snapshot into a sharded session); a snapshot that
+  does not fit raises on every rank and changes nothing; a pool row held
+  by data group 1 on (data 2, model 2) saved and restored;
+* LoRA adapters at tp = 2 (both, from the JAX package, bridged and
+  sliced on every rank): the engine, a session with the language adapter
+  and a pool with both give the JAX mesh objects' texts and selections;
+  the slicing is idempotent, refuses a mis-shaped tree, and keeps
+  ``LoraLayout``'s refusal where kv heads are shared by ranks (tp = 4);
+* the mesh server's /save and /restore (solo and pooled) answering as
+  the solo server's, and a fresh mesh server's ``restore_all`` answering
+  as the solo server that never stopped.
 """
 
 import dataclasses
@@ -61,8 +79,10 @@ import torch
 from cogstream_tpu.config import (CogReasonerConfig as JConfig,
                                   CompressionConfig as JCompression)
 from cogstream_tpu.models import qwen2 as jq
+from cogstream_tpu.config import LoRAConfig as JLoRA
 from cogstream_tpu.models.checkpoint import save_cogreasoner_to_hf
 from cogstream_tpu.models.cogreasoner import init_cogreasoner_params
+from cogstream_tpu.models.lora import init_cogreasoner_lora, init_qwen2_lora
 from cogstream_tpu.ops.quant import quantize_tree
 from cogstream_tpu.parallel.mesh import make_mesh as j_make_mesh
 from cogstream_tpu.parallel.sharding import (qwen2_param_specs,
@@ -77,6 +97,9 @@ from cogstream_tpu_torch.config import (CogReasonerConfig as TConfig,
 from cogstream_tpu_torch.models import bridge
 from cogstream_tpu_torch.ops import quant as tquant
 from cogstream_tpu_torch.parallel import sharding as tsh
+from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer as TTok
+from cogstream_tpu_torch.runtime.session import StreamingSession as TSession
+from cogstream_tpu_torch.utils.io import unpack_array
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CHILD = os.path.join(HERE, "torch_parallel_child.py")
@@ -84,7 +107,12 @@ COMP = dict(frames_per_event=2, keyframes_per_event=1)
 SEG = (2, 4, 4)
 QUESTION = "what is this?"
 CONVERSATION = [{"role": "user", "content": "hello, what now?"}]
-WORLD_TIMEOUT_S = 240
+CONT = "and now?"
+HIST_CONVERSATION = [
+    {"role": "user", "content": "what is the first scene?"},
+    {"role": "assistant", "content": "a noisy pattern."},
+    {"role": "user", "content": "and what came after it?"}]
+WORLD_TIMEOUT_S = 300
 
 
 def _flat(tree, prefix=""):
@@ -104,6 +132,14 @@ def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def _seeded_lora(tree, seed):
+    """Every leaf of a JAX LoRA tree drawn from N(0, 0.05^2): adapters
+    that move the outputs (a zero ``b`` would not)."""
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(lambda x: np.asarray(
+        rng.standard_normal(x.shape) * 0.05, np.float32), tree)
 
 
 def _jcfg(**text):
@@ -143,6 +179,17 @@ def data(tmp_path_factory):
                 frng.integers(0, 255, (48, 64, 3), np.uint8))
     save_cogreasoner_to_hf(params, cfg, os.path.join(d, "hf"),
                            dtype=jnp.float32)
+    lora = JLoRA(rank=4, include_projector=True)
+    adapters = {
+        "language_module": _seeded_lora(init_qwen2_lora(
+            jax.random.PRNGKey(1), cfg.text, lora), 1),
+        "full_module": _seeded_lora(init_cogreasoner_lora(
+            jax.random.PRNGKey(2), cfg, lora), 2)}
+    np.savez(os.path.join(d, "lora_lang.npz"),
+             **_flat(adapters["language_module"]))
+    np.savez(os.path.join(d, "lora_full.npz"),
+             **_flat(adapters["full_module"]))
+    trees["adapters"] = adapters
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("RANK", "WORLD_SIZE", "MASTER_"))}
     procs, faults = [], {}
@@ -169,7 +216,7 @@ def data(tmp_path_factory):
 @pytest.fixture(scope="module")
 def jref(data):
     """The JAX package's mesh results for every case."""
-    _, cfg, trees, pv, ids, _ = data
+    d, cfg, trees, pv, ids, _ = data
     params = trees["params"]
     tok = JTok(image_token_id=cfg.image_token_index)
     devs = jax.devices()
@@ -191,9 +238,19 @@ def jref(data):
         res.update(k=np.asarray(sess.cache.k), v=np.asarray(sess.cache.v),
                    pos=np.asarray(sess.cache.pos))
         out[tag] = res
+        return sess
 
-    session("session2", 2, params)
-    session("session4", 4, params)
+    for tp in (2, 4):
+        # the snapshot a sharded port session restores, and the
+        # continuation every restore route must give
+        tag = f"session{tp}"
+        sess = session(tag, tp, params)
+        path = os.path.join(d, f"j{tag}.snap.npz")
+        sess.save(path + ".tmp.npz")
+        os.replace(path + ".tmp.npz", path)
+        a = sess.ask(CONT, mode="AC", max_new_tokens=6)
+        out[tag]["cont"] = {"text": a["text"],
+                            "cache_tokens": a["cache_tokens"]}
     session("enc8", 2, params, lookahead=False, encoder_int8=True)
     session("int8", 2, trees["params_int8"], _jcfg(w8a8_prefill=True),
             encoder_int8=True)
@@ -229,6 +286,35 @@ def jref(data):
     ans = pool.ask_batch([(0, "what is happening?"), (1, "who is there?")],
                          mode="AC", max_new_tokens=8)
     out["pool"] = {b: a["text"] for b, a in ans.items()}
+
+    ads = jax.tree.map(jnp.asarray, trees["adapters"])
+    eng = JEngine(params, cfg, tok, adapters=ads, mesh=mesh[2])
+    got = eng.chat(HIST_CONVERSATION, mode="FCC", max_new_tokens=8)
+    res = {"engine": {"text": got.text, "selection": got.selection,
+                      "num": got.num_tokens}}
+    sess = JSession(params, cfg, tok, max_len=1024, summary_forward=False,
+                    adapters={"language_module": ads["language_module"]},
+                    mesh=mesh[2])
+    sess.append_stream_segment(pv, SEG, 2, [0.0, 1.0])
+    res["session"] = [{k: a[k] for k in ("text", "selection",
+                                         "cache_tokens")}
+                      for a in (sess.ask(QUESTION, mode="AC",
+                                         max_new_tokens=6),
+                                sess.ask(CONT, mode="FCC",
+                                         max_new_tokens=6))]
+    pool = JPool(params, cfg, tok, n_rows=2, max_len=1024,
+                 summary_forward=False, adapters=ads, mesh=mesh[2])
+    for r in (pool.open(), pool.open()):
+        pool.ingest(r, pv, SEG, 2, [0.0, 1.0])
+    res["pool"] = []
+    for mode, qs in (("AC", ("what is happening?", "who is there?")),
+                     ("FCC", (CONT, "why?"))):
+        ans = pool.ask_batch(list(enumerate(qs)), mode=mode,
+                             max_new_tokens=6)
+        res["pool"].append({str(b): {"text": a["text"],
+                                     "selection": a["selection"]}
+                            for b, a in ans.items()})
+    out["adapters"] = res
     return out
 
 
@@ -591,3 +677,237 @@ def test_non_mesh_argument_raises():
     cfg = TConfig.tiny()
     with pytest.raises(TypeError, match="Mesh"):
         tsh.ensure_cogreasoner_sharded(object(), cfg, object())
+
+
+# ---------------------------------------------------------------------------
+# snapshots of a sharded session
+# ---------------------------------------------------------------------------
+
+def _snapshot(path):
+    """(meta, {name: array}) of a snapshot, the K/V as the host copies
+    ``unpack_array`` gives (f32 as numpy; bf16 / e4m3 as torch)."""
+    with np.load(path) as z:
+        meta = json.loads(str(z["meta"]))
+        arrays = {n: unpack_array(z[n], meta["dtypes"][n])
+                  for n in meta["dtypes"]}
+        raw = {n: z[n] for n in ("k", "v")}
+    return meta, arrays, raw
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_snapshot_equals_jax_save(data, jref, worlds, world):
+    """The file rank 0 wrote equals the JAX mesh session's ``save`` of the
+    same turns: meta equal (the port's extra ``torch_rng_state`` aside),
+    every kv head's K/V within 1e-5 of the row max, positions and event
+    reps; only rank 0 wrote, and each rank's live K/V is the file's slice
+    at its kv heads, bit for bit."""
+    d = data[0]
+    tag = f"session{world}"
+    meta, arrays, raw = _snapshot(os.path.join(d, f"{tag}.snap.npz"))
+    jmeta, jarrays, _ = _snapshot(os.path.join(d, f"j{tag}.snap.npz"))
+    dt, jdt = meta.pop("dtypes"), jmeta.pop("dtypes")
+    assert meta == jmeta
+    assert {k: v for k, v in dt.items() if k != "torch_rng_state"} == jdt
+    np.testing.assert_array_equal(arrays["pos"], jarrays["pos"])
+    for name in ("k", "v"):
+        assert arrays[name].shape[2] == 2        # every kv head
+        _close(arrays[name], jarrays[name])
+    if "event_reps" in jdt:
+        _close(arrays["event_reps"], jarrays["event_reps"])
+    writers = [res[f"{tag}_snap"]["writer"] for res, _ in worlds[world]]
+    assert writers == [True] + [False] * (world - 1)
+    for res, a in worlds[world]:
+        heads = res[f"{tag}_snap"]["kv_heads"]
+        for name in ("k", "v"):
+            assert np.array_equal(raw[name][:, :, heads],
+                                  a[f"{tag}_snap{name}"])
+
+
+@pytest.mark.parametrize("tag,world", [("bf16", 2), ("e4m3", 4)])
+def test_sharded_snapshot_bytes_equal_the_ranks(data, worlds, tag, world):
+    """bf16 (tp = 2) and e4m3 (tp = 4: each rank one of the 2 kv heads,
+    two ranks per head): the file keeps the cache's dtype, and its K/V
+    bytes at each rank's kv heads equal that rank's cache bytes; the
+    restored sharded session continues with the original's tokens."""
+    meta, arrays, raw = _snapshot(os.path.join(data[0], f"{tag}.snap.npz"))
+    want = {"bf16": "bfloat16", "e4m3": "float8_e4m3fn"}[tag]
+    assert meta["dtypes"]["k"] == meta["dtypes"]["v"] == want
+    heads = [res[f"{tag}_snap"]["kv_heads"] for res, _ in worlds[world]]
+    assert sorted({h for hs in heads for h in hs}) == [0, 1]
+    for (res, a), hs in zip(worlds[world], heads):
+        for name in ("k", "v"):
+            assert np.array_equal(raw[name][:, :, hs], a[f"{tag}_snap{name}"])
+        snap = res[f"{tag}_snap"]
+        assert snap["restored"] == snap["cont"]
+        assert snap["cont"] == worlds[world][0][0][f"{tag}_snap"]["cont"]
+
+
+def _continue_solo_port(data, path):
+    cfg = dataclasses.replace(TConfig.tiny(),
+                              compression=TCompression(**COMP))
+    model = bridge.cogreasoner_from_params(
+        jax.tree.map(np.asarray, data[2]["params"]), cfg, device="cpu")
+    sess = TSession(model, cfg, TTok(image_token_id=cfg.image_token_index),
+                    max_len=1024, summary_forward=False)
+    sess.load_state(path)
+    a = sess.ask(CONT, mode="AC", max_new_tokens=6)
+    return {"text": a["text"], "cache_tokens": a["cache_tokens"]}
+
+
+def _continue_jax(data, path):
+    cfg = data[1]
+    sess = JSession(data[2]["params"], cfg,
+                    JTok(image_token_id=cfg.image_token_index), max_len=1024,
+                    summary_forward=False)
+    sess.load_state(path)
+    a = sess.ask(CONT, mode="AC", max_new_tokens=6)
+    return {"text": a["text"], "cache_tokens": a["cache_tokens"]}
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_restore_routes_continue_as_jax(data, jref, worlds, world):
+    """The greedy continuation after the snapshot equals the JAX mesh
+    session's, whatever restores it: the sharded session itself, a fresh
+    sharded session from the sharded file, a solo port session and a JAX
+    session from that file, and a sharded session from JAX's file."""
+    tag = f"session{world}"
+    want = jref[tag]["cont"]
+    path = os.path.join(data[0], f"{tag}.snap.npz")
+    for res, _ in worlds[world]:
+        for got in (res[f"{tag}_snap"]["cont"], res[f"{tag}_snap"]["restored"],
+                    res[f"{tag}_jsnap"]):
+            assert {k: got[k] for k in want} == want
+        assert res[f"{tag}_jsnap"]["tokens"] == \
+            res[f"{tag}_snap"]["cont"]["tokens"]
+    assert _continue_solo_port(data, path) == want
+    assert _continue_jax(data, path) == want
+
+
+def test_snapshot_that_does_not_fit_raises_on_every_rank(worlds):
+    for res, _ in worlds[2]:
+        got = res["refused_snapshot"]
+        assert got["kept"] and got["error"].startswith(
+            "ValueError: snapshot needs"), got
+
+
+def test_pool_row_snapshot_on_data_and_model_axes(worlds):
+    """Row 3 of 6, held by data group 1, is written by that group's first
+    rank (rank 2) alone, restored onto row 4 (also group 1's), and both
+    rows answer alike on every rank; a missing file raises on every rank
+    and releases the row it took."""
+    ranks = [res["pool_snapshot"] for res, _ in worlds[4]]
+    assert [r["writer"] for r in ranks] == [False, False, True, False]
+    for r in ranks:
+        assert r["rows"] == [0, 1, 2, 3] and r["restored"] == 4
+        assert r["answers"]["3"] == r["answers"]["4"]
+        assert r["answers"] == ranks[0]["answers"]
+        assert r["open"] == [0, 1, 2, 3, 4]
+        assert r["refused"].startswith("FileNotFoundError"), r["refused"]
+    assert [r["held"] for r in ranks] == [[0, 1, 2], [0, 1, 2], [3, 4],
+                                          [3, 4]]
+
+
+# ---------------------------------------------------------------------------
+# LoRA adapters on a mesh
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["engine", "session", "pool"])
+def test_adapters_on_a_mesh_match_jax(jref, worlds, case):
+    """Both adapters (the JAX package's, bridged) sliced on each rank at
+    tp = 2 give the JAX mesh objects' texts and selections: the engine's
+    FCC turn with history (the selector on the language adapter), a
+    session with the language adapter (AC, then FCC), a pool with both."""
+    for res, _ in worlds[2]:
+        assert res["adapters"][case] == jref["adapters"][case]
+        assert res["adapters"]["sliced"]
+
+
+def _port_adapters(data, *names):
+    files = {"language_module": "language_module",
+             "full_module": "full_module"}
+    return {n: bridge.lora_from_params(data[2]["adapters"][files[n]],
+                                       device="cpu") for n in names}
+
+
+def test_shard_adapters_slices_once_and_refuses_misshapes(data):
+    """``shard_adapters`` gives each rank of tp = 2 its slice (the
+    ranks' ``b`` blocks of a column site tile the whole), passes a tree
+    already sliced for the mesh through unchanged (the same object), and
+    raises ``ValueError`` on a tree that is neither; ``None`` meshes and
+    empty adapters pass through. At tp = 4 (kv heads shared by ranks) it
+    raises ``LoraLayout``'s refusal."""
+    from cogstream_tpu_torch.models.lora import iter_leaves
+
+    cfg = TConfig.tiny()
+    whole = _port_adapters(data, "language_module", "full_module")
+    parts = [tsh.shard_adapters(whole, cfg, _layout(1, 2, r))
+             for r in range(2)]
+    for part in parts:
+        assert tsh.shard_adapters(part, cfg, _layout(1, 2, 0)) is part
+    for name, site in (("language_module", "layers.0.attn.k_proj"),
+                       ("full_module", "text.layers.1.mlp.gate_proj")):
+        leaves = [dict(iter_leaves(p[name])) for p in parts]
+        want = dict(iter_leaves(whole[name]))
+        torch.testing.assert_close(
+            torch.cat([x[f"{site}.b"] for x in leaves], dim=1),
+            want[f"{site}.b"].detach(), rtol=0, atol=0)
+        assert torch.equal(leaves[0][f"{site}.a"], want[f"{site}.a"])
+    assert tsh.shard_adapters(whole, cfg, None) is whole
+    assert tsh.shard_adapters({}, cfg, _layout(1, 2, 0)) == {}
+    bad = {"language_module": parts[0]["language_module"],
+           "full_module": whole["full_module"]}
+    bad["language_module"] = {"layers": [
+        {g: {n: {"a": ab["a"], "b": ab["b"][:, :3]}
+             for n, ab in names.items()} for g, names in layer.items()}
+        for layer in bad["language_module"]["layers"]]}
+    with pytest.raises(ValueError, match="neither whole nor sliced"):
+        tsh.shard_adapters(bad, cfg, _layout(1, 2, 0))
+    with pytest.raises(NotImplementedError, match="kv heads shared"):
+        tsh.shard_adapters(whole, cfg, _layout(1, 4, 1))
+
+
+# ---------------------------------------------------------------------------
+# the mesh server's snapshots
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["solo", "pooled"])
+def test_mesh_server_snapshots_and_restarts(worlds, kind):
+    """/save and /restore of a mesh server answer as the solo server's
+    (a restored copy answers as its original); a missing file, and a
+    session asked of a full pool, give the solo server's 500 and the
+    server serves on; a fresh mesh server's
+    ``restore_all`` (its auto-snapshots) brings every session back, and
+    its answers equal the solo server's that never stopped."""
+    got = worlds[2][0][0]["server"][kind]
+    assert got["snap_got"] == got["snap_want"]
+    code, body = got["missing"]
+    assert code == 500 and body["error"].startswith("FileNotFoundError")
+    # a pool of 4 rows holds a, b, c and e: f finds it full (a 500, as
+    # the solo server's), and the server serves on
+    assert got["created"] == ([200, 200] if kind == "solo" else [200, 500])
+    assert got["serving_after"] == 200
+    assert got["restored"] == ["a", "b", "c"]
+    after = got["after_restart"]
+    assert after[0] == after[1] and after[2] == after[3]
+
+
+def test_sliced_head_adapter_gathers_the_ranks_columns():
+    """The static ``logit_ids`` head's lm_head adapter on a vocab-sharded
+    decoder: each rank fills the columns its vocab slice holds (zeros
+    elsewhere), and the all-reduce (here the sum of the two ranks'
+    parts) gives the whole adapter's columns at those ids."""
+    from cogstream_tpu_torch.runtime.generate import _sliced_lora_b
+
+    b = torch.randn(4, 10, generator=torch.Generator().manual_seed(0))
+    lid = torch.tensor([7, 1, 4, 9])
+    parts = []
+    for lo, hi in ((0, 5), (5, 10)):
+        model = types.SimpleNamespace(tp=types.SimpleNamespace(
+            vocab=(lo, hi), group=None))
+        part = _sliced_lora_b(model, b[:, lo:hi], lid)
+        held = (lid >= lo) & (lid < hi)
+        assert torch.equal(part[:, ~held], torch.zeros(4, int((~held).sum())))
+        parts.append(part)
+    assert torch.equal(parts[0] + parts[1], b[:, lid])
+    whole = types.SimpleNamespace(tp=None)
+    assert torch.equal(_sliced_lora_b(whole, b, lid), b[:, lid])

@@ -368,7 +368,8 @@ def test_server_refuses_unported_options(setup, monkeypatch):
 def test_server_on_a_one_rank_mesh(setup, tmp_path):
     """``mesh=`` a 1 x 1 mesh (once refused): ONE shard of the model for
     the server's sessions and pool, answers equal to the server without a
-    mesh, solo and pooled; snapshots of a sharded server raise."""
+    mesh, solo and pooled; the sharded server's snapshot (once refused)
+    restores into a solo server that then answers as the sharded one."""
     from cogstream_tpu_torch.parallel.mesh import single_device_mesh
     from cogstream_tpu_torch.parallel.sharding import sharded_mesh
 
@@ -382,10 +383,14 @@ def test_server_on_a_one_rank_mesh(setup, tmp_path):
         for q in ("what?", "and then?"):
             assert got.ask("a", q, mode="AC", max_new_tokens=6) == \
                 want.ask("a", q, mode="AC", max_new_tokens=6)
-        with pytest.raises(NotImplementedError, match="snapshots"):
-            got.save_session("a", str(tmp_path / "a.snap.npz"))
-        got.close()
-        want.close()
+        path = str(tmp_path / f"a{len(kw)}.snap.npz")
+        got.save_session("a", path)
+        solo = _server(setup, max_len=512, **kw)
+        solo.restore_session("a", path)
+        assert solo.ask("a", "more?", mode="AC", max_new_tokens=6) == \
+            got.ask("a", "more?", mode="AC", max_new_tokens=6)
+        for srv in (got, want, solo):
+            srv.close()
 
 
 def test_serve_cli(tmp_path, capsys, monkeypatch):

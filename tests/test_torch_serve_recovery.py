@@ -13,7 +13,9 @@ tests/test_serve_recovery.py through the real command line:
   unfaulted control server,
 
 solo and pooled (``--pool-rows 2``), on a tiny checkpoint written by the
-JAX package's exporter.
+JAX package's exporter; and once as a tensor-parallel world under
+``torchrun --nproc-per-node 2 --max-restarts 1`` (gloo on the CPU), whose
+elastic agent is the supervisor.
 """
 
 import json
@@ -345,4 +347,92 @@ def test_supervised_serve_recovers_through_the_cli(ckpt, clip, tmp_path,
         _stop(sup)
         _stop(ctl)
         sup_log.close()
+        ctl_log.close()
+
+
+def test_supervised_mesh_serve_recovers_under_torchrun(ckpt, clip, tmp_path):
+    """``serve --supervise`` under ``torchrun --nproc-per-node 2
+    --max-restarts 1`` (tensor-parallel over gloo on the CPU): the elastic
+    agent is the supervisor. The injected fault on rank 0's third ingest
+    dispatch gives a 503 with ``recovering: true``; both ranks take the
+    exit-17 path, the agent starts a new world (whose ranks do not find
+    the old world's failure key), its rank 0 restores the session from
+    the auto-snapshot dir, and the next ask has turn 1 and the tokens of
+    an unfaulted control world. The new world's fault counter starts
+    again and the check dispatches no ingest, so the fault does not fire
+    again before it."""
+    snapdir = str(tmp_path / "snaps")
+    env = {k: v for k, v in os.environ.items()
+           if k not in (FAULT_ENV, serve_mod.SUPERVISED_ENV)
+           and not k.startswith(("RANK", "WORLD_SIZE", "MASTER_",
+                                 "LOCAL_RANK", "TORCHELASTIC"))}
+    env.update(OMP_NUM_THREADS="1", PYTHONUNBUFFERED="1")
+    common = ["--model-dir", ckpt, "--device", "cpu", "--host", "127.0.0.1",
+              "--max-len", "2048", "--auto-snapshot-dir"]
+
+    def world(port, snaps, log, extra_env):
+        return subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "2", "--max-restarts", "1", "-m",
+             "cogstream_tpu_torch.runtime.serve", *common, snaps, "--port",
+             str(port), "--supervise"],
+            cwd=ROOT, env={**env, **extra_env}, stdout=log,
+            stderr=subprocess.STDOUT, start_new_session=True)
+
+    port, cport = _free_port(), _free_port()
+    log = open(tmp_path / "world.log", "w+")
+    ctl_log = open(tmp_path / "control.log", "w+")
+    # the first ingest (8 frames at 1 fps) is one 16-frame chunk, the
+    # second (24 frames) two: dispatch 3 faults in the middle of it
+    sup = world(port, snapdir, log, {FAULT_ENV: "3"})
+    ctl = world(cport, str(tmp_path / "ctl_snaps"), ctl_log, {})
+    ingest1 = {"session_id": "s1", "video_path": clip, "start": 0.0,
+               "end": 8.0, "fps": 1.0}
+    ingest2 = dict(ingest1, start=8.0, end=32.0)
+    try:
+        _wait_up(port, sup)
+        _wait_up(cport, ctl)
+        ref = []
+        for p in (port, cport):
+            assert _post(p, "/session", {"session_id": "s1"}) == \
+                {"session_id": "s1"}
+            assert _post(p, "/ingest", ingest1)["frames"] == 8
+            ref.append(_post(p, "/ask", {"session_id": "s1",
+                                         "question": "what happened?",
+                                         **ASK}))
+        assert ref[0]["tokens"] == ref[1]["tokens"]
+        snap = os.path.join(snapdir, "s1.snap.npz")
+        before = os.path.getmtime(snap)
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            _post(port, "/ingest", ingest2)
+        assert ei.value.code == 503
+        body = json.loads(ei.value.read())
+        assert body["backend_fatal"] is True and body["recovering"] is True
+        assert "device-side assert triggered" in body["error"]
+        assert os.path.getmtime(snap) == before
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 60:
+            log.seek(0)
+            if "restored 1 session(s)" in log.read():
+                break
+            time.sleep(0.2)
+        _wait_up(port, sup)
+        got = _post(port, "/ask", {"session_id": "s1",
+                                   "question": "and now?", **ASK})
+        want = _post(cport, "/ask", {"session_id": "s1",
+                                     "question": "and now?", **ASK})
+        assert got["turn"] == want["turn"] == 1
+        assert got["tokens"] == want["tokens"]
+        assert got["cache_tokens"] == want["cache_tokens"]
+        log.seek(0)
+        text = log.read()
+        for r in (0, 1):
+            assert text.count(f"rank {r}: exit 17") == 1, text
+        assert text.count("restored 1 session(s)") == 1, text
+        assert text.count("sticky CUDA error at") == 1, text
+        assert sup.poll() is None
+    finally:
+        _stop(sup)
+        _stop(ctl)
+        log.close()
         ctl_log.close()

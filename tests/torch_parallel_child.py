@@ -19,6 +19,7 @@ import os
 import sys
 import threading
 import traceback
+import urllib.error
 import urllib.request
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(
@@ -34,6 +35,12 @@ CONVERSATION = [{"role": "user", "content": "hello, what now?"}]
 # the fault worlds' process-group timeout: their followers idle past it
 # between requests, and their failures end both ranks well before it
 FAULT_GROUP_TIMEOUT_S = 10
+
+
+def _leaves(tree):
+    from cogstream_tpu_torch.models.lora import iter_leaves
+
+    return iter_leaves(tree)
 
 
 def unflatten(path: str):
@@ -58,6 +65,27 @@ def unflatten(path: str):
     return lists(tree)
 
 
+CONT = "and now?"
+HIST_CONVERSATION = [
+    {"role": "user", "content": "what is the first scene?"},
+    {"role": "assistant", "content": "a noisy pattern."},
+    {"role": "user", "content": "and what came after it?"}]
+# how long a rank waits for a snapshot the JAX side writes meanwhile
+JAX_SNAPSHOT_WAIT_S = 200
+
+
+def wait_for(path: str) -> str:
+    import time
+
+    deadline = time.time() + JAX_SNAPSHOT_WAIT_S
+    while not os.path.exists(path):
+        if time.time() > deadline:
+            raise TimeoutError(f"{path} was not written")
+        time.sleep(0.2)
+    time.sleep(0.2)
+    return path
+
+
 class Rank:
     def __init__(self, args):
         from cogstream_tpu_torch.config import (CogReasonerConfig,
@@ -74,11 +102,23 @@ class Rank:
         self.pv = np.load(os.path.join(self.dir, "pv.npy"))
 
     def model(self, name: str = "params"):
+        return self.model_as(self.cfg, name)
+
+    def model_as(self, cfg, name: str = "params"):
         from cogstream_tpu_torch.models import bridge
 
         return bridge.cogreasoner_from_params(
-            unflatten(os.path.join(self.dir, f"{name}.npz")), self.cfg,
+            unflatten(os.path.join(self.dir, f"{name}.npz")), cfg,
             device="cpu")
+
+    def adapters(self, *names):
+        """The JAX package's seeded adapters (bridged), by serving name."""
+        from cogstream_tpu_torch.models import bridge
+
+        files = {"language_module": "lora_lang", "full_module": "lora_full"}
+        return {n: bridge.lora_from_params(
+            unflatten(os.path.join(self.dir, f"{files[n]}.npz")),
+            device="cpu") for n in names}
 
     def flags(self, **kw):
         return dataclasses.replace(
@@ -103,11 +143,68 @@ class Rank:
                        la_steps=sess.last_lookahead_steps,
                        la_cache_tokens=la["cache_tokens"])
         c = sess.cache
-        self.arrays[f"{tag}_k"] = c.k.numpy()
-        self.arrays[f"{tag}_v"] = c.v.numpy()
-        self.arrays[f"{tag}_pos"] = c.pos.numpy()
+        # copies: later asks write the cache in place
+        if c.k.dtype == torch.float32:
+            self.arrays[f"{tag}_k"] = c.k.numpy().copy()
+            self.arrays[f"{tag}_v"] = c.v.numpy().copy()
+        self.arrays[f"{tag}_pos"] = c.pos.numpy().copy()
         res["kv_heads"] = list(sess.model.text.tp.kv_heads)
         self.out[tag] = res
+        return sess
+
+    def snapshot(self, tag, sess, mesh, model, cfg=None, **kw):
+        """``sess.save`` (rank 0 writes ``<tag>.snap.npz``), each rank's
+        live K/V bytes beside it, then the continuation ``CONT`` asked of
+        ``sess`` and of a fresh sharded session restored from the file."""
+        from cogstream_tpu_torch.runtime.session import StreamingSession
+
+        path = os.path.join(self.dir, f"{tag}.snap.npz")
+        sess.save(path)
+        wi = sess.write_index
+        for name in ("k", "v"):
+            self.arrays[f"{tag}_snap{name}"] = getattr(
+                sess.cache, name)[:, 0, :wi].contiguous().view(
+                    torch.uint8).numpy()
+        fresh = StreamingSession(model, cfg or self.cfg, self.tok,
+                                 max_len=1024, summary_forward=False,
+                                 mesh=mesh, **kw)
+        fresh.load_state(path)
+        res = {"kv_heads": list(sess.model.text.tp.kv_heads),
+               "writer": os.path.exists(path) and mesh.model_index == 0}
+        for key, s_ in (("cont", sess), ("restored", fresh)):
+            a = s_.ask(CONT, mode="AC", max_new_tokens=6)
+            res[key] = {"text": a["text"], "tokens": a["tokens"],
+                        "cache_tokens": a["cache_tokens"]}
+        self.out[f"{tag}_snap"] = res
+
+    def jax_snapshot(self, tag, mesh, model):
+        """The JAX mesh session's snapshot (written by the parent while
+        this world runs) restored into a sharded session: ``CONT``."""
+        from cogstream_tpu_torch.runtime.session import StreamingSession
+
+        sess = StreamingSession(model, self.cfg, self.tok, max_len=1024,
+                                summary_forward=False, mesh=mesh)
+        sess.load_state(wait_for(os.path.join(self.dir,
+                                              f"j{tag}.snap.npz")))
+        a = sess.ask(CONT, mode="AC", max_new_tokens=6)
+        self.out[f"{tag}_jsnap"] = {"text": a["text"], "tokens": a["tokens"],
+                                    "cache_tokens": a["cache_tokens"]}
+
+    def refused_snapshot(self, mesh, model):
+        """A snapshot that does not fit fails on every rank alike, and
+        the session keeps its state."""
+        from cogstream_tpu_torch.parallel.mesh import AgreedError
+        from cogstream_tpu_torch.runtime.session import StreamingSession
+
+        sess = StreamingSession(model, self.cfg, self.tok, max_len=160,
+                                summary_forward=False, mesh=mesh)
+        before = sess.write_index
+        try:
+            sess.load_state(os.path.join(self.dir, "session2.snap.npz"))
+            res = None
+        except AgreedError as e:
+            res = {"error": str(e), "kept": sess.write_index == before}
+        self.out["refused_snapshot"] = res
 
     def forward(self, tag, model, mesh):
         """Hidden states and this rank's logits slice of one prompt."""
@@ -188,6 +285,76 @@ class Rank:
             "answers": {str(b): {"text": o["text"], "tokens": o["tokens"]}
                         for b, o in out.items()}}
 
+    def pool_snapshot(self, model, mesh):
+        """A row that data group 1 holds on (data 2, model 2) (6 rows,
+        3 a group): saved by that group's first rank (rank 2), restored
+        onto another of its rows; both rows answer alike. A missing file
+        raises on every rank and releases its row."""
+        from cogstream_tpu_torch.parallel.mesh import AgreedError
+        from cogstream_tpu_torch.runtime.pool import SessionPool
+
+        pool = SessionPool(model, self.cfg, self.tok, n_rows=6, max_len=1024,
+                           summary_forward=False, mesh=mesh)
+        rows = [pool.open() for _ in range(4)]
+        pool.ingest(3, self.pv, SEG, 2, [0.0, 1.0])
+        first = pool.ask_batch([(3, QUESTION)], mode="AC",
+                               max_new_tokens=6)[3]
+        path = os.path.join(self.dir, "pool_row3.snap.npz")
+        pool.save(3, path)
+        restored = pool.open_restored(path)
+        out = pool.ask_batch([(3, CONT), (restored, CONT)], mode="AC",
+                             max_new_tokens=6)
+        try:
+            pool.open_restored(os.path.join(self.dir, "missing.npz"))
+            refused = None
+        except AgreedError as e:
+            refused = str(e)
+        self.out["pool_snapshot"] = {
+            "rows": rows, "restored": restored, "first": first["tokens"],
+            "answers": {str(b): o["tokens"] for b, o in out.items()},
+            "writer": os.path.exists(path) and mesh.rank == 2,
+            "held": sorted(pool.sessions), "open": sorted(pool._open),
+            "refused": refused}
+
+    def adapters_cases(self, model, mesh):
+        """Both adapters at tp = 2: the engine (FCC with history: the
+        selector takes the language adapter), a session with the language
+        adapter (AC, then FCC) and a 2-row pool with both."""
+        from cogstream_tpu_torch.runtime.engine import CogReasonerEngine
+        from cogstream_tpu_torch.runtime.pool import SessionPool
+        from cogstream_tpu_torch.runtime.session import StreamingSession
+
+        both = self.adapters("language_module", "full_module")
+        eng = CogReasonerEngine(model, self.cfg, self.tok, adapters=both,
+                                mesh=mesh)
+        got = eng.chat(HIST_CONVERSATION, mode="FCC", max_new_tokens=8)
+        res = {"engine": {"text": got.text, "selection": got.selection,
+                          "num": got.num_tokens}}
+        sess = StreamingSession(
+            model, self.cfg, self.tok, max_len=1024, summary_forward=False,
+            adapters=self.adapters("language_module"), mesh=mesh)
+        sess.append_stream_segment(self.pv, SEG, 2, [0.0, 1.0])
+        res["session"] = [
+            {k: a[k] for k in ("text", "selection", "cache_tokens")}
+            for a in (sess.ask(QUESTION, mode="AC", max_new_tokens=6),
+                      sess.ask(CONT, mode="FCC", max_new_tokens=6))]
+        pool = SessionPool(model, self.cfg, self.tok, n_rows=2, max_len=1024,
+                           summary_forward=False, adapters=both, mesh=mesh)
+        for r in (pool.open(), pool.open()):
+            pool.ingest(r, self.pv, SEG, 2, [0.0, 1.0])
+        res["pool"] = []
+        for mode, qs in (("AC", ("what is happening?", "who is there?")),
+                         ("FCC", (CONT, "why?"))):
+            out = pool.ask_batch(list(enumerate(qs)), mode=mode,
+                                 max_new_tokens=6)
+            res["pool"].append({str(b): {"text": o["text"],
+                                         "selection": o["selection"]}
+                                for b, o in out.items()})
+        res["sliced"] = sum(t.numel() for _, t in _leaves(
+            eng.adapters["full_module"])) < sum(
+            t.numel() for _, t in _leaves(both["full_module"]))
+        self.out["adapters"] = res
+
     def loader(self, mesh):
         """The sharded load against the slice of the whole load, byte for
         byte (bf16 as stored, and quantized at load to int8 and int4)."""
@@ -238,16 +405,25 @@ class Rank:
 
     def server(self, model, mesh):
         """SessionServer(mesh=) over HTTP (rank 0) against the solo server
-        on the whole model, solo sessions and a 2-row pool."""
+        on the whole model, solo sessions and a 2-row pool, auto-
+        snapshotting into rank 0's directory; then /save and /restore, and
+        a fresh mesh server whose ``restore_all`` brings the sessions back,
+        against the solo server that never stopped."""
         from cogstream_tpu_torch.runtime.serve import (SessionServer,
                                                        make_http_server)
 
         frames = os.path.join(self.dir, "frames")
-        res = {}
-        for kind, kw in (("solo", {}), ("pooled", {"pool_rows": 2})):
+        res, snaps = {}, {}
+        for kind, kw in (("solo", {}), ("pooled", {"pool_rows": 4})):
+            snaps[kind] = os.path.join(self.dir, f"server_{kind}")
             srv = SessionServer(model, self.cfg, self.tok, max_len=2048,
-                                mesh=mesh, **kw)
+                                mesh=mesh, auto_snapshot_dir=snaps[kind],
+                                **kw)
             if mesh.rank > 0:
+                srv.follow()
+                srv = SessionServer(model, self.cfg, self.tok, max_len=2048,
+                                    mesh=mesh, auto_snapshot_dir=snaps[kind],
+                                    **kw)
                 srv.follow()
                 continue
             ref = SessionServer(model, self.cfg, self.tok, max_len=2048,
@@ -258,12 +434,62 @@ class Rank:
             port = httpd.server_address[1]
             try:
                 res[kind] = self._http_turns(port, ref, frames)
+                res[kind].update(self._http_snapshots(port, ref, kind))
             finally:
                 httpd.shutdown()
                 httpd.server_close()
                 srv.close()
+            again = SessionServer(model, self.cfg, self.tok, max_len=2048,
+                                  mesh=mesh, auto_snapshot_dir=snaps[kind],
+                                  **kw)
+            try:
+                res[kind]["restored"] = again.restore_all()
+                res[kind]["after_restart"] = [
+                    {k: srv_.ask(sid, "one more?", mode=mode,
+                                 max_new_tokens=6)[k]
+                     for k in ("text", "turn", "cache_tokens", "tokens")}
+                    for sid, mode in (("b", "FCC"), ("c", "AC"))
+                    for srv_ in (again, ref)]
+            finally:
+                again.close()
                 ref.close()
         self.out["server"] = res
+
+    def _http_snapshots(self, port, ref, kind):
+        """/save of session a, /restore of it as c (and the solo server's
+        own save / restore), asks of both; a snapshot that does not exist
+        gives the solo server's error and the server serves on."""
+        def post(path, payload):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}{path}",
+                data=json.dumps(payload).encode(),
+                headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req) as r:
+                    return r.status, json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                return e.code, json.loads(e.read())
+
+        path = os.path.join(self.dir, f"server_{kind}_a.npz")
+        ref_path = os.path.join(self.dir, f"server_{kind}_a_ref.npz")
+        got = [post("/save", {"session_id": "a", "path": path})[1],
+               post("/restore", {"session_id": "c", "path": path})[1]]
+        want = [dict(ref.save_session("a", ref_path), path=path),
+                ref.restore_session("c", ref_path)]
+        for sid in ("c", "a"):
+            got.append(post("/ask", {"session_id": sid, "question": "again?",
+                                     "mode": "AC", "max_new_tokens": 6})[1])
+            want.append(ref.ask(sid, "again?", mode="AC", max_new_tokens=6))
+        missing = post("/restore", {"session_id": "d",
+                                    "path": os.path.join(self.dir, "no.npz")})
+        # a full pool refuses a session on every rank; the server serves on
+        created = [post("/session", {"session_id": sid})[0]
+                   for sid in ("e", "f")]
+        return {"snap_got": got, "snap_want": json.loads(json.dumps(want)),
+                "missing": missing, "created": created,
+                "serving_after": post("/ask", {
+                    "session_id": "a", "question": "still there?",
+                    "mode": "AC", "max_new_tokens": 2})[0]}
 
     @staticmethod
     def _http_turns(port, ref, frames):
@@ -353,7 +579,15 @@ class Rank:
         model = self.model()
         self.plans(model, tp)
         self.forward("forward2", model, tp)
-        self.session("session2", tp, model)
+        self.snapshot("session2", self.session("session2", tp, model), tp,
+                      model)
+        bf16 = self.flags(dtype="bfloat16")
+        m16 = self.model_as(bf16)
+        self.snapshot("bf16", self.session("bf16", tp, m16, cfg=bf16,
+                                           lookahead=False), tp, m16,
+                      cfg=bf16)
+        self.refused_snapshot(tp, model)
+        self.adapters_cases(model, tp)
         self.session("enc8", tp, model, lookahead=False, encoder_int8=True)
         self.session("int8", tp, self.model("params_int8"),
                      cfg=self.flags(w8a8_prefill=True), encoder_int8=True)
@@ -363,6 +597,7 @@ class Rank:
         self.engine(model, tp)
         self.loader(tp)
         self.server(model, tp)
+        self.jax_snapshot("session2", tp, model)
 
     def world4(self):
         from cogstream_tpu_torch.parallel.mesh import make_mesh
@@ -372,8 +607,15 @@ class Rank:
         model = self.model()
         self.forward("forward4", model, tp)
         self.generate(model, tp)
-        self.session("session4", tp, model)
+        self.snapshot("session4", self.session("session4", tp, model), tp,
+                      model)
+        fp8 = torch.float8_e4m3fn
+        self.snapshot("e4m3", self.session("e4m3", tp, model, lookahead=False,
+                                           kv_dtype=fp8), tp, model,
+                      kv_dtype=fp8)
         self.pool(model, dp)
+        self.pool_snapshot(model, dp)
+        self.jax_snapshot("session4", tp, model)
 
 
 def main() -> int:
