@@ -26,7 +26,9 @@ Phases (each prints one line or a few; any failure exits non-zero):
    (uniform) on the lm_head and K8 on gate_proj (m = 1) beside
    ``torch._weight_int4pack_mm`` on the same values (repacked, the
    rscale folded into the activations; its time reported only where its
-   output agrees); and the
+   output agrees); K7 and K9 at Qwen2-7B's tp = 2 shard shapes (the
+   lm_head's vocab shard, gate_proj's column shard, down_proj's row
+   shard through the row-shard wrapper with K9's f32 partials); and the
    W8A8 product of one gate_proj at a 4384-row prefill (activation
    quantization, ``torch._int_mm`` on the held column-major weights and on
    a row-major copy, epilogue) beside the bf16 ``F.linear``. K1, K3, K4 and K5 run their
@@ -210,9 +212,13 @@ Phases (each prints one line or a few; any failure exits non-zero):
    GiB beside the whole model's, collectives per decode step, walls (two
    ranks sharing one card over gloo: not a TP speed); (c) int8 +
    ``w8a8_prefill`` and int4 copies of the sharded decoder
-   (``quantize_text_`` on the shards, absmaxes over both ranks): the
-   first token equal to the solo reference's, K10 / K6 + K8 launched on
-   each rank; (d) ``load_cogreasoner_from_hf(mesh=)`` of the checkpoint
+   (``quantize_text_`` on the shards, absmaxes over both ranks), the
+   int4 copy also with ``w4a8_decode`` and ``w8a8_prefill`` (int8
+   activations; the row-parallel sites quantize each half at its global
+   half's scale): the first token equal to the solo reference's, K10 /
+   K6 + K8 (and not K7 / K9) / K7 + K9 (and not K6 / K8) launched on
+   each rank, the W4A8 first-step logits within (b)'s AC gate of the
+   solo W4A8 session's; (d) ``load_cogreasoner_from_hf(mesh=)`` of the checkpoint
    (bf16, int8 and int4 at load): every tensor equal to the rank's slice
    of the whole load; (e) snapshots and adapters on the shards, after
    (b)'s asks: (e1) the sharded session saves (rank 0 gathers every kv
@@ -230,10 +236,26 @@ Phases (each prints one line or a few; any failure exits non-zero):
    with the same adapters, the adapters moving the solo logits (the (e3)
    restore's) by 10 x the gate or more, and (the control) each rank's
    logits with the other rank's slice of the adapters beyond the gate.
-   (b) asks 16 tokens a turn. A rank that fails fails the phase.
+   (b) asks 16 tokens a turn. A rank that fails fails the phase. Then
+   (f) a new world of four ranks (``--tp-dp-rank``) on a (data 2, model
+   2) mesh loads (d)'s checkpoint with ``mesh=`` and serves it:
+   ``SessionServer(pool_rows=4)`` over HTTP, four clients (create, ingest
+   an 8-frame clip, ask AC; rows 0-1 on data group 0, 2-3 on group 1),
+   the session on row 2 saved and asked on, a fresh pooled server
+   restoring it onto its row 2 and asked the same, and a solo server's
+   session (replicated over the groups) asked, saved and restored: each
+   row's and the solo session's first-step logit slices on the ranks
+   that ran them within (b)'s AC gate of a solo server's on the whole
+   checkpoint (the parent's), every rank's texts and selections equal to
+   rank 0's, the restored row and session continuing with the original's
+   tokens, each snapshot written and read by one rank (rank 2 the
+   row's, rank 0 the solo session's), K1-K4 on every rank; shard GiB and
+   walls (four ranks sharing one card: no data-parallel speed).
    ``--tp-only`` runs phase 11 alone; with ``--tp-snapshot-fault`` the
    ranks write rank 0's kv heads in every rank's place and keep the
-   adapters whole, and the phase must fail;
+   adapters whole, with ``--tp-w4a8-fault`` (c)'s W4A8 row-parallel
+   sites quantize each rank's halves at their own scales, and either way
+   the phase must fail;
 12. data- and tensor-parallel training (runs on the phase-5 model, after
    phase 11, before phase 7) — two ranks on this card over gloo
    (subprocesses of this script, ``--train-rank``), LoRA dropout 0. The
@@ -1175,7 +1197,6 @@ def check_int4_kernels(dev):
                   ms, float("nan"), float("nan"),
                   bound_ms(2 * 3584 + nbytes(shard["q4"], shard["scale"], got),
                            2 * 3584 * 76032)))
-    del shard
 
     # stacked: gate_proj (m = 1, 40 and 64) and down_proj (m = 1), layer
     # 17, on the tensor-core kernel; beside each, the CUDA-core kernel that
@@ -1248,6 +1269,10 @@ def check_int4_kernels(dev):
                               f"bit-identical {same})", err, ratio, ms,
                               plain_ms, wrap_ms, bnd))
         del qp
+    # after the main-path shapes (each kernel's first line is its row in
+    # the kernels line)
+    lines += int4_w4a8_shard_lines(rng, dev, shard)
+    del shard
     results = []
     for key, what, err, ratio, ms, plain_ms, wrap_ms, bnd in lines:
         log(f"kernel {key} {what}: max_abs_err={err:.6g}, worst row at "
@@ -1277,6 +1302,77 @@ def check_int4_kernels(dev):
                         "bound_by": mine[0][7][1],
                         "library_ms": LIB_INT4.get(key, (None,))[0]})
     return results
+
+
+def int4_w4a8_shard_lines(rng, dev, head_shard):
+    """Phase 3's W4A8 GEMVs at Qwen2-7B's tp = 2 shard shapes, each
+    against its plain version (the wrappers, bf16 in and out): K7 on the
+    lm_head's vocab shard ``head_shard`` [1792, 76032] (its columns), K9
+    on gate_proj's column shard [28, 1792, 9472] and on down_proj's row
+    shard [28, 4736, 3584], the latter through the row-shard wrapper
+    (``quant.RowShard`` of rows [0, 9472) of 18944 without a group: the
+    global halves' scales, K9's f32 partial sums, then the rounding). m =
+    1 (a decode step), layer 17; kernel, plain and wrapper ms as
+    :func:`check_int4_kernels` takes them. Lines as that function's."""
+    import torch
+
+    from cogstream_tpu_torch.ops import quant_gemv as qg
+    from cogstream_tpu_torch.ops.quant import RowShard
+
+    bf, f32 = torch.bfloat16, torch.float32
+    lines = []
+    x1 = torch.as_tensor(rng.standard_normal((1, 3584))).to(dev, bf)
+    got = qg.int4_rank1_gemv(x1, head_shard, bf, w4a8=True)
+    err, ratio = row_check(got, qg.int4_rank1_gemv_plain(
+        x1, head_shard, bf, w4a8=True), 76032)
+    xq, sx = qg._int8_halves(x1.float() * head_shard["rscale"][None], 1792)
+    sc = head_shard["scale"] * head_shard["code"][0]
+    ms = graph_ms(lambda: qg.gemv_k7(xq, sx, head_shard["q4"], sc, bf), 20)
+    plain_ms = graph_ms(lambda: qg._plain_w4a8(xq, sx, head_shard["q4"], sc,
+                                               bf), 3)
+    wrap_ms = cuda_ms(lambda: qg.int4_rank1_gemv(x1, head_shard, bf,
+                                                 w4a8=True), 20)
+    lines.append(("K7", "lm_head vocab shard [1792, 76032] m=1 (tp = 2)",
+                  err, ratio, ms, plain_ms, wrap_ms,
+                  bound_ms(3584 + 8 + nbytes(head_shard["q4"],
+                                             head_shard["scale"], got),
+                           2 * 3584 * 76032, "int8")))
+    ids = torch.arange(28, dtype=torch.int32, device=dev)
+    for site, shape, rows in (
+            ("gate_proj column shard", (28, 1792, 9472), None),
+            ("down_proj row shard", (28, 4736, 3584),
+             RowShard(18944, 0, 9472, None))):
+        qp = _int4_store(rng, dev, shape)
+        L, half, dout = shape
+        x = torch.as_tensor(rng.standard_normal((1, 2 * half))).to(dev, bf)
+        lay = ids[17:18]
+        got = qg.int4_rank1_gemv_stacked(x, qp, lay, bf, w4a8=True,
+                                         rows=rows)
+        err, ratio = row_check(got, qg.int4_rank1_gemv_stacked_plain(
+            x, qp, lay, bf, w4a8=True, rows=rows), dout)
+        xq, sx = qg._int8_halves(
+            x.float() * qp["rscale"][17:18] * qp["code"][17:18, :1], half)
+        out = bf if rows is None else f32
+        it = iter(range(10 ** 9))
+        ms = graph_ms(lambda: qg.gemv_k9(xq, sx, qp["q4"], qp["scale"],
+                                         ids[next(it) % L:][:1], out), L)
+        plain_ms = graph_ms(lambda: qg._plain_w4a8(
+            xq, sx, qp["q4"][17], qp["scale"][17], out), 3)
+        wrap_ms = cuda_ms(lambda: qg.int4_rank1_gemv_stacked(
+            x, qp, ids[next(it) % L:][:1], bf, w4a8=True, rows=rows), L)
+        rows_n, splits = qg.stacked_plan(
+            1, half, dout, True,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+        lines.append(("K9", f"{site} [28, {half}, {dout}] m=1 (tp = 2"
+                      f"{', f32 partials' if rows else ''}; {splits} K "
+                      f"splits of {rows_n} rows)", err, ratio, ms, plain_ms,
+                      wrap_ms,
+                      bound_ms(x.numel() + 8 + nbytes(qp["q4"][17],
+                                                      qp["scale"][17])
+                               + dout * (2 if rows is None else 4),
+                               2 * 2 * half * dout, "int8")))
+        del qp
+    return lines
 
 
 def _int8_store(dev, shape, seed: int):
@@ -5543,7 +5639,9 @@ TP_ADAPTER_EFFECT = 10.0
 
 class FirstLogits:
     """Records the whole-vocab logits of each decode loop's first step (the
-    first ``lm_logits`` call without a sliced head after each ``arm``) and
+    first ``lm_logits`` call without a sliced head after each ``arm``: its
+    last row as ``first``, every row, one per batch row, as
+    ``first_rows``) and
     the collectives issued between the full-vocab calls of one decode
     loop (instrumentation of this script only)."""
 
@@ -5562,8 +5660,9 @@ class FirstLogits:
             if k.get("head") is None:
                 now = sum(self.counts.values())
                 if self.first is None:
-                    self.first = out.reshape(-1, out.shape[-1])[-1].float()\
-                        .cpu().numpy()
+                    rows = out.reshape(-1, out.shape[-1]).float().cpu()
+                    self.first, self.first_rows = rows[-1].numpy(), \
+                        rows.numpy()
                 elif self._last is not None:
                     self.steps.append(now - self._last)
                 self._last = now
@@ -5587,14 +5686,16 @@ class SplitSums:
     rounded once: what ``row_parallel_linear`` and
     ``materialized_linear(reduce=)`` compute on two ranks, the all-reduce
     of two f32 partials being one addition. Every other op runs as it
-    does."""
+    does. ``decoder=False`` leaves the decoder's sites whole (a quantized
+    decoder: phase 11 (c)'s W4A8 witness)."""
 
-    def __init__(self, model):
+    def __init__(self, model, decoder: bool = True):
         from cogstream_tpu_torch.models import projector, qwen2, vision_encoder
         from cogstream_tpu_torch.ops.quant import _add_bias, _mm_wide
 
-        sites = ([layer.attn["o_proj"] for layer in model.text.layers]
-                 + [layer.mlp["down_proj"] for layer in model.text.layers]
+        text = model.text.layers if decoder else []
+        sites = ([layer.attn["o_proj"] for layer in text]
+                 + [layer.mlp["down_proj"] for layer in text]
                  + [layer.o for layer in model.vision.layers]
                  + [layer.fc2 for layer in model.vision.layers]
                  + [model.projector.layers[1]])
@@ -5789,6 +5890,13 @@ def write_cut_checkpoint(dev, out_dir):
     return cfg
 
 
+# phase 11 (c)'s quantized sessions: per scheme (bits), the sessions run on
+# one quantized copy of the decoder (key, serving flags)
+TP_QUANT = ((8, (("int8", {"w8a8_prefill": True}),)),
+            (4, (("int4", {}),
+                 ("w4a8", {"w4a8_decode": True, "w8a8_prefill": True}))))
+
+
 def tp_quant_session(model, cfg, tok, first_tap, **kw):
     """Phase 11 (c)'s quantized turn: the first 8 frames of phase 5's
     first segment, ask(AC) for 4 tokens; (tokens, first-step logits)."""
@@ -5806,7 +5914,28 @@ def tp_quant_session(model, cfg, tok, first_tap, **kw):
     return r["tokens"], first_tap.first
 
 
-def run_tp_path(model, dev, stamp, fault=False):
+def tp_w4a8_prefill(model, cfg):
+    """Phase 11 (c)'s exact W4A8 check: a 128-token seeded text prompt
+    through ``model``'s decoder under ``cfg``'s flags, cache-free (m =
+    128 > 64: the W4A8 prefill branch on every site, exact int32 sums),
+    then the head (K7) on its last row; (that row's hidden state, its
+    logits), host f32. On two row shards with their global halves' scales
+    the prefill is the solo one's arithmetic, bit for bit."""
+    import torch
+
+    from cogstream_tpu_torch.models import qwen2
+    from cogstream_tpu_torch.models.cogreasoner import with_serving_flags
+
+    text = with_serving_flags(model, cfg).text
+    ids = torch.as_tensor(np.random.default_rng(19).integers(
+        3, 256, (1, 128)), device=text.device)
+    pos = torch.arange(128, dtype=torch.int32, device=text.device)[None]
+    h, _ = qwen2.qwen2_forward(text, qwen2.embed(text, ids), pos)
+    lg = qwen2.lm_logits(text, h[:, -1:], w8a8=cfg.text.w4a8_decode)
+    return (h[0, -1].float().cpu().numpy(), lg[0, 0].float().cpu().numpy())
+
+
+def run_tp_path(model, dev, stamp, fault=False, w4a8_fault=False):
     """Phase 11: tensor-parallel serving at tp = 2, both ranks on this card
     (subprocesses of this script, ``--tp-rank``), their process group on
     gloo: NCCL refuses two ranks on one device, and the smoke has one card.
@@ -5853,7 +5982,8 @@ def run_tp_path(model, dev, stamp, fault=False):
         def ranks():
             t0 = time.perf_counter()
             rcs = run_ranks("--tp-rank", TP_DIR, TP_WORLD,
-                            extra=["--tp-snapshot-fault"] if fault else [])
+                            extra=(["--tp-snapshot-fault"] if fault else [])
+                            + (["--tp-w4a8-fault"] if w4a8_fault else []))
             return rcs, time.perf_counter() - t0
 
         # the ranks run while this process writes the references (they
@@ -5874,21 +6004,33 @@ def run_tp_path(model, dev, stamp, fault=False):
             refs = {}
             tap = FirstLogits()
             try:
-                for bits, flags in ((8, {"w8a8_prefill": True}), (4, {})):
+                for bits, sessions in TP_QUANT:
                     text = quantize_text_(shared_copy(model.text), bits)
-                    qcfg = dataclasses.replace(
-                        cfg, text=dataclasses.replace(cfg.text, **flags))
-                    refs[bits] = tp_quant_session(
-                        CogReasoner(text, model.vision, model.projector),
-                        qcfg, tok, tap)
-                    del text
+                    qmodel = CogReasoner(text, model.vision, model.projector)
+                    for key, flags in sessions:
+                        qcfg = dataclasses.replace(
+                            cfg, text=dataclasses.replace(cfg.text, **flags))
+                        refs[key] = tp_quant_session(qmodel, qcfg, tok, tap)
+                    if bits == 4:
+                        # (c)'s W4A8 witness: the tower's and the
+                        # projector's row-parallel sums split as two ranks
+                        # split them (the decoder's int4 sites whole)
+                        witness = SplitSums(qmodel, decoder=False)
+                        try:
+                            refs["w4a8_witness"] = tp_quant_session(
+                                qmodel, qcfg, tok, tap)
+                        finally:
+                            witness.restore()
+                        refs["w4a8_prefill"] = tp_w4a8_prefill(qmodel, qcfg)
+                    del text, qmodel
                     gc.collect()
                     torch.cuda.empty_cache()
             finally:
                 tap.restore()
-            log(f"tp: references: solo int8 / int4 card sessions, tokens "
-                f"{refs[8][0]} / {refs[4][0]}; checkpoint written in "
-                f"{ckpt_s:.1f}s [{stamp}]")
+            log(f"tp: references: solo int8 / int4 / W4A8 card sessions, "
+                f"tokens {refs['int8'][0]} / {refs['int4'][0]} / "
+                f"{refs['w4a8'][0]}; checkpoint written in {ckpt_s:.1f}s "
+                f"[{stamp}]")
             rcs, wall = world.result()
         for r in range(TP_WORLD):
             with open(os.path.join(TP_DIR, f"rank{r}.log")) as f:
@@ -5901,7 +6043,13 @@ def run_tp_path(model, dev, stamp, fault=False):
             with open(os.path.join(TP_DIR, f"rank{r}.json")) as f:
                 res.append(json.load(f))
         refs["restored"] = tp_solo_restore(model, cfg, tok, dev)
-        return tp_verdict(res, refs, solo, emu, emu_calls, wall, stamp)
+        ok, gate, metrics = tp_verdict(res, refs, solo, emu, emu_calls, wall,
+                                       stamp)
+        f_ok, f_metrics = tp_dp_verdict(*run_tp_dp_path(dev, stamp), gate,
+                                        stamp)
+        if not (ok and f_ok):
+            raise AssertionError("tensor-parallel phase failed")
+        return {**metrics, **f_metrics}
     finally:
         shutil.rmtree(TP_DIR, ignore_errors=True)
 
@@ -5939,7 +6087,8 @@ def tp_solo_restore(model, cfg, tok, dev):
 
 
 def tp_verdict(res, refs, solo, emu, emu_calls, wall, stamp):
-    """Phase 11's checks on the ranks' results (see run_tp_path)."""
+    """Phase 11 (a)-(e)'s checks on the ranks' results (see run_tp_path):
+    (ok, (b)'s AC gate, metrics)."""
     ok = True
     a = [r["a"] for r in res]
     solo_a = a[0]["solo"]
@@ -6006,21 +6155,58 @@ def tp_verdict(res, refs, solo, emu, emu_calls, wall, stamp):
 
     c = [r["c"] for r in res]
     c_ok = True
-    for bits, key, kern in ((8, "int8", ("K10_int8_gemv",)),
-                            (4, "int4", ("K6_int4_gemv",
-                                         "K8_int4_gemv_idx"))):
+    k6k8 = ("K6_int4_gemv", "K8_int4_gemv_idx")
+    k7k9 = ("K7_int4_gemv_w4a8", "K9_int4_gemv_idx_w4a8")
+    for key, what, kern, absent in (
+            ("int8", "int8 decoder with w8a8_prefill", ("K10_int8_gemv",),
+             ()),
+            ("int4", "int4 decoder (weight-only)", k6k8, k7k9),
+            ("w4a8", "int4 decoder with w4a8_decode and w8a8_prefill",
+             k7k9, k6k8)):
         first = [x[key]["tokens"][0] for x in c]
-        launched = [{k: x[key]["launches"][k] for k in kern} for x in c]
-        good = (first == [refs[bits][0][0]] * TP_WORLD
-                and all(min(n.values()) > 0 for n in launched))
+        launched = [{k: x[key]["launches"][k] for k in kern + absent}
+                    for x in c]
+        c_errs = [tp_slice_err(np.load(os.path.join(TP_DIR,
+                                                    f"rank{i}_{key}.npy")),
+                               refs[key][1], x["vocab"])[0]
+                  for i, x in enumerate(c)]
+        gated, gate = True, ""
+        if key == "w4a8":
+            # int8 activations turn a sum-order difference into ~2e-2 of
+            # the logits on this build (the int8 shards' gap above): the
+            # gate is (b)'s rule over the W4A8 witness's gap; the exact
+            # prefill below is what tells the row shards' scales apart
+            w_gap = tp_slice_err(refs["w4a8_witness"][1], refs[key][1],
+                                 (0, len(refs[key][1])))[0]
+            w_bound = max(TP_LOGIT_TOL, TP_WITNESS_FACTOR * w_gap)
+            hid, lg = refs["w4a8_prefill"]
+            exact = [bool(np.array_equal(np.load(os.path.join(
+                TP_DIR, f"rank{i}_w4a8_h.npy")), hid) and np.array_equal(
+                np.load(os.path.join(TP_DIR, f"rank{i}_w4a8_l.npy")),
+                lg[slice(*x["vocab"])])) for i, x in enumerate(c)]
+            off = [tp_slice_err(np.load(os.path.join(
+                TP_DIR, f"rank{i}_w4a8_l.npy")), lg, x["vocab"])[0]
+                for i, x in enumerate(c)]
+            gated = max(c_errs) <= w_bound and all(exact)
+            gate = (f", within max({TP_LOGIT_TOL:g}, {TP_WITNESS_FACTOR:g} "
+                    f"x the W4A8 witness's {w_gap:.4g}) = {w_bound:.4g} "
+                    f"{max(c_errs) <= w_bound} ((b)'s AC gate "
+                    f"{bound['AC']:.4g}); a 128-token text prefill's last "
+                    f"hidden row and logit slice bit-equal to the solo "
+                    f"W4A8 model's {exact} (logits off by {off} of the row "
+                    f"max)")
+            c_metrics = {"tp_w4a8_logit_err": c_errs,
+                         "tp_w4a8_witness_gap": w_gap,
+                         "tp_w4a8_prefill_exact": exact}
+        good = (first == [refs[key][0][0]] * TP_WORLD and gated
+                and all(min(n[k] for k in kern) > 0 for n in launched)
+                and all(n[k] == 0 for n in launched for k in absent))
         c_ok &= good
-        log(f"tp: (c) {key} decoder at tp = 2"
-            f"{' with w8a8_prefill' if bits == 8 else ' (weight-only)'}: "
-            f"tokens {[x[key]['tokens'] for x in c]} vs solo card "
-            f"{refs[bits][0]}; first token equal {good}; first-step logit "
-            f"error of the row max "
-            f"{[tp_slice_err(np.load(os.path.join(TP_DIR, f'rank{i}_{key}.npy')), refs[bits][1], x['vocab'])[0] for i, x in enumerate(c)]}"
-            f"; launches per rank {launched} [{stamp}]")
+        log(f"tp: (c) {what} at tp = 2: tokens "
+            f"{[x[key]['tokens'] for x in c]} vs solo card {refs[key][0]}; "
+            f"first-step logit error of the row max {c_errs}{gate}; launches "
+            f"per rank {launched} (of {list(kern)} each > 0, of "
+            f"{list(absent)} none); (c) {key} {good} [{stamp}]")
     ok &= c_ok
 
     d = [r["d"] for r in res]
@@ -6033,17 +6219,16 @@ def tp_verdict(res, refs, solo, emu, emu_calls, wall, stamp):
         f" (GiB) [{stamp}]")
     e_ok, e_out = tp_snapshot_verdict(res, refs, solo, bound["AC"], stamp)
     ok &= e_ok
-    log(f"tp: phase 11 in {wall:.1f}s; collectives on gloo with CUDA "
-        f"tensors: {sorted(res[0]['collective_kinds'])} [{stamp}]")
-    if not ok:
-        raise AssertionError("tensor-parallel phase failed")
-    return {**e_out, "tp_logit_err": errs, "tp_logit_ulps": ulps,
-            "tp_witness_gap": gap, "tp_logit_err_vs_witness": to_emu,
-            "tp_prefix_agree": agree,
-            "tp_gib": [x["gib"] for x in b], "tp_whole_gib": b[0]["whole_gib"],
-            "tp_collectives_per_step": b[0]["collectives_per_step"],
-            "tp_ingest_s": [x["ingest_s"] for x in b],
-            "tp_turn_s": [x["turn_s"] for x in b], "tp_wall_s": wall}
+    log(f"tp: phase 11 (a)-(e) in {wall:.1f}s; collectives on gloo with "
+        f"CUDA tensors: {sorted(res[0]['collective_kinds'])} [{stamp}]")
+    return ok, bound["AC"], {
+        **e_out, **c_metrics, "tp_logit_err": errs, "tp_logit_ulps": ulps,
+        "tp_witness_gap": gap, "tp_logit_err_vs_witness": to_emu,
+        "tp_prefix_agree": agree,
+        "tp_gib": [x["gib"] for x in b], "tp_whole_gib": b[0]["whole_gib"],
+        "tp_collectives_per_step": b[0]["collectives_per_step"],
+        "tp_ingest_s": [x["ingest_s"] for x in b],
+        "tp_turn_s": [x["turn_s"] for x in b], "tp_wall_s": wall}
 
 
 def tp_snapshot_verdict(res, refs, solo, gate, stamp):
@@ -6223,16 +6408,20 @@ def tp_rank_snapshots(sess, model, cfg, tok, mesh, rank, dev, fault):
     return out
 
 
-def tp_rank_main(rank: int, port: int, dev=None, fault=False) -> int:
+def tp_rank_main(rank: int, port: int, dev=None, fault=False,
+                 w4a8_fault=False) -> int:
     """One rank of phase 11 (``chip_smoke.py --tp-rank R --tp-port P``):
     joins the gloo group on this card, runs (a)-(e) and writes
     ``rank<R>.json`` (and its logit slices) under TP_DIR; ``fault``
-    (``--tp-snapshot-fault``) plants (e)'s faults."""
+    (``--tp-snapshot-fault``) plants (e)'s faults, ``w4a8_fault``
+    (``--tp-w4a8-fault``) (c)'s: the W4A8 row-parallel sites without
+    their ``RowShard``, so each rank quantizes its halves alone."""
     import dataclasses
 
     import torch
 
     from cogstream_tpu_torch import presets
+    from cogstream_tpu_torch.models import qwen2
     from cogstream_tpu_torch.config import CogReasonerConfig, CompressionConfig
     from cogstream_tpu_torch.models.checkpoint import load_cogreasoner_from_hf
     from cogstream_tpu_torch.models.cogreasoner import (
@@ -6338,21 +6527,36 @@ def tp_rank_main(rank: int, port: int, dev=None, fault=False) -> int:
     torch.cuda.empty_cache()
     log(f"(e) {out['e']}")
 
-    # (c) quantized copies of the sharded decoder, one at a time
+    # (c) quantized copies of the sharded decoder, one at a time; with
+    # w4a8_fault the W4A8 session's row-parallel sites quantize each
+    # rank's halves at their own scales
     out["c"] = {"vocab": lo_hi}
     tap = FirstLogits()
-    for bits, key, flags, idx in ((8, "int8", {"w8a8_prefill": True},
-                                   INT8_PATH),
-                                  (4, "int4", {}, (5, 7))):
+    for bits, sessions in TP_QUANT:
         text = quantize_text_(shared_copy(model.text), bits)
-        qcfg = dataclasses.replace(
-            cfg, text=dataclasses.replace(cfg.text, **flags))
-        zero(idx)
-        toks, first = tp_quant_session(
-            CogReasoner(text, model.vision, model.projector), qcfg, tok,
-            tap, mesh=mesh)
-        np.save(os.path.join(TP_DIR, f"rank{rank}_{key}.npy"), first)
-        out["c"][key] = {"tokens": toks, "launches": counts(idx)}
+        idx = INT8_PATH if bits == 8 else INT4_PATH
+        for key, flags in sessions:
+            qcfg = dataclasses.replace(
+                cfg, text=dataclasses.replace(cfg.text, **flags))
+            shards = qwen2.row_shards
+            if w4a8_fault and key == "w4a8":
+                qwen2.row_shards = lambda text: {"o_proj": None,
+                                                 "down_proj": None}
+            zero(idx)
+            qmodel = CogReasoner(text, model.vision, model.projector)
+            try:
+                toks, first = tp_quant_session(qmodel, qcfg, tok, tap,
+                                               mesh=mesh)
+                out["c"][key] = {"tokens": toks, "launches": counts(idx)}
+                if key == "w4a8":
+                    hid, lg = tp_w4a8_prefill(qmodel, qcfg)
+                    np.save(os.path.join(TP_DIR, f"rank{rank}_w4a8_h.npy"),
+                            hid)
+                    np.save(os.path.join(TP_DIR, f"rank{rank}_w4a8_l.npy"),
+                            lg)
+            finally:
+                qwen2.row_shards = shards
+            np.save(os.path.join(TP_DIR, f"rank{rank}_{key}.npy"), first)
         del text
         gc.collect()
         torch.cuda.empty_cache()
@@ -6385,6 +6589,348 @@ def tp_rank_main(rank: int, port: int, dev=None, fault=False) -> int:
         torch.cuda.empty_cache()
     out["collective_kinds"] = sorted(COLLECTIVES)
     with open(os.path.join(TP_DIR, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 11 (f): a server on a (data 2, model 2) mesh, four ranks on the card
+# ---------------------------------------------------------------------------
+
+TP_DP_WORLD = 4
+# the four clients' questions (client i asks the i-th), the question asked
+# after a snapshot, greedy tokens an ask, the servers' cache length
+TP_DP_ASKS = ("What is on the screen?", "What moves in the video?",
+              "Which colors do you see?", "Describe the scene.")
+TP_DP_CONT = "And what happens next?"
+TP_DP_TOKENS = 8
+TP_DP_LEN = 4096
+
+
+def tp_dp_frames() -> str:
+    """(f)'s clip: the first frame of eight of phase 8's scenes, as a
+    directory of .npy frames under TP_DIR (the video loader reads it with
+    numpy alone, at 1 fps)."""
+    path = os.path.join(TP_DIR, "frames")
+    os.makedirs(path, exist_ok=True)
+    for i, f in enumerate(engine_frames()[::ENGINE_T // ENGINE_SCENES][:8]):
+        np.save(os.path.join(path, f"{i:04d}.npy"), f)
+    return path
+
+
+def tp_dp_reference(dev):
+    """(f)'s reference: a solo server on the whole 2 + 2-layer checkpoint,
+    one session per question on (f)'s clip; {question: (tokens,
+    selection, first-step logits)}."""
+    import torch
+
+    from cogstream_tpu_torch.models.checkpoint import load_cogreasoner_from_hf
+    from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
+    from cogstream_tpu_torch.runtime.serve import SessionServer
+
+    cfg = cut_config()
+    tok = ByteTokenizer(image_token_id=cfg.image_token_index,
+                        vocab=cfg.text.vocab_size)
+    whole = load_cogreasoner_from_hf(os.path.join(TP_DIR, "hf"), cfg,
+                                     device=dev)
+    srv = SessionServer(whole, cfg, tok, max_len=TP_DP_LEN)
+    frames = os.path.join(TP_DIR, "frames")
+    tap = FirstLogits()
+    out = {}
+    try:
+        for i, q in enumerate(TP_DP_ASKS):
+            srv.create(f"c{i}")
+            srv.ingest(f"c{i}", frames, None, None, 1.0)
+            tap.arm()
+            r = srv.ask(f"c{i}", q, mode="AC", max_new_tokens=TP_DP_TOKENS)
+            out[q] = (r["tokens"], r["selection"], tap.first)
+    finally:
+        tap.restore()
+        srv.close()
+    del srv, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_tp_dp_path(dev, stamp):
+    """Phase 11 (f): a sharded server on a (data 2, model 2) mesh, four
+    ranks (``chip_smoke.py --tp-dp-rank R``) on this card over gloo,
+    loading phase 11 (d)'s checkpoint with ``load_cogreasoner_from_hf(
+    mesh=)``; the parent writes the clip, starts them, and computes the
+    solo server's reference while they run. Returns (the ranks' results,
+    the reference, wall s)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    tp_dp_frames()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as ex:
+        world = ex.submit(run_ranks, "--tp-dp-rank", TP_DIR, TP_DP_WORLD)
+        ref = tp_dp_reference(dev)
+        rcs = world.result()
+    wall = time.perf_counter() - t0
+    for r in range(TP_DP_WORLD):
+        with open(os.path.join(TP_DIR, f"rank{r}.log")) as f:
+            for line in f.read().splitlines():
+                log(f"tp: (f) rank {r}: {line}")
+    if rcs != [0] * TP_DP_WORLD:
+        raise AssertionError(f"(data 2, model 2) ranks exited {rcs}")
+    res = []
+    for r in range(TP_DP_WORLD):
+        with open(os.path.join(TP_DIR, f"f_rank{r}.json")) as f:
+            res.append(json.load(f))
+    log(f"tp: (f) reference: the solo server's tokens "
+        f"{ {q: v[0] for q, v in ref.items()} } [{stamp}]")
+    return res, ref, wall
+
+
+def tp_dp_verdict(res, ref, wall, gate, stamp):
+    """Phase 11 (f)'s checks (see :func:`tp_dp_rank_main`): each pooled
+    row's and the solo session's first-step logit slice on every rank of
+    the group that ran it within ``gate`` (phase 11 (b)'s AC gate) of the
+    solo server's for the same question; every rank's texts and
+    selections equal to rank 0's; the row of data group 1 restored from
+    its snapshot continuing with the tokens of the row it was saved from,
+    and so the solo session; each snapshot written and read by one rank
+    (rank 2 the row's, rank 0 the solo session's); K1-K4 launched on
+    every rank. Returns (ok, metrics)."""
+    errs, missing = {}, []
+    for r, x in enumerate(res):
+        firsts = np.load(os.path.join(TP_DIR, f"f_rank{r}_first.npz"))
+        for key, q in x["first_q"].items():
+            if key not in firsts:
+                missing.append((r, key))
+                continue
+            errs[(r, key)] = tp_slice_err(firsts[key], ref[q][2],
+                                          x["vocab"])[0]
+    per_row = {}
+    for (r, key), e in errs.items():
+        per_row.setdefault(key, []).append(e)
+    # every pooled row on both ranks of its group, and the solo ask on all
+    covered = (len(per_row) == len(TP_DP_ASKS) + 1 and all(
+        len(v) == (TP_DP_WORLD if k == "solo" else 2)
+        for k, v in per_row.items()))
+    logits_ok = covered and not missing and max(errs.values()) <= gate
+    same = all(x["answers"] == res[0]["answers"] for x in res)
+    a0 = res[0]
+    cont_ok = (a0["cont"]["row_saved"] == a0["cont"]["row_restored"]
+               and a0["cont"]["solo"] == a0["cont"]["solo_restored"]
+               and a0["cont"]["restored_row"] == 2)
+    io = [x["io"] for x in res]
+    io_ok = io == [{"written": ["f_solo.npz"], "read": ["f_solo.npz"]},
+                   {"written": [], "read": []},
+                   {"written": ["f_row2.npz"], "read": ["f_row2.npz"]},
+                   {"written": [], "read": []}]
+    launches_ok = all(min(x["launches"].values()) > 0 for x in res)
+    ok = (logits_ok and same and cont_ok and io_ok and launches_ok
+          and not a0["errors"])
+    log(f"tp: (f) SessionServer(mesh=(data 2, model 2), pool_rows=4) over "
+        f"HTTP, four clients (rows {a0['rows_of']}: rows 0-1 on data "
+        f"group 0, 2-3 on group 1) and a solo server's session replicated "
+        f"over both groups, on phase 11 (d)'s 2 + 2-layer checkpoint "
+        f"loaded with mesh=: first-step logit slices vs the solo server's "
+        f"{ {f'{r}:{k}': round(e, 6) for (r, k), e in sorted(errs.items())} }"
+        f" of the row max, within (b)'s AC gate {gate:.4g} {logits_ok} "
+        f"(missing {missing}); every rank's texts and selections equal to "
+        f"rank 0's {same}; the row held by data group 1 saved and "
+        f"restored onto row {a0['cont']['restored_row']} of a fresh "
+        f"server: {TP_DP_CONT!r} tokens {a0['cont']['row_restored']} vs "
+        f"the unsaved row's {a0['cont']['row_saved']}, the solo session's "
+        f"restore {a0['cont']['solo_restored']} vs "
+        f"{a0['cont']['solo']} {cont_ok}; snapshot files written / read "
+        f"per rank {io} {io_ok}; launches per rank "
+        f"{[x['launches'] for x in res]} {launches_ok}; client errors "
+        f"{a0['errors']}; shard GiB per rank "
+        f"{[round(x['gib'], 3) for x in res]}, load "
+        f"{[x['load_s'] for x in res]} s; walls (four ranks sharing one "
+        f"card over gloo, no data-parallel speed): clients "
+        f"{a0['walls']} s, the world {wall:.1f} s; (f) {ok} [{stamp}]")
+    return ok, {"tp_dp_logit_err": max(errs.values()) if errs else None,
+                "tp_dp_gib": [x["gib"] for x in res],
+                "tp_dp_walls_s": a0["walls"], "tp_dp_wall_s": wall}
+
+
+def tp_dp_rank_main(rank: int, port: int, dev=None) -> int:
+    """One rank of phase 11 (f) (``chip_smoke.py --tp-dp-rank R --tp-port
+    P``): joins the 4-rank gloo group on this card, loads the checkpoint
+    on (data 2, model 2) and runs three servers, rank 0 driving them:
+    (1) ``pool_rows=4`` over HTTP, four client threads (create, ingest,
+    ask AC), then /save of the session on row 2 (data group 1) and its
+    ask of ``TP_DP_CONT``; (2) a fresh pooled server: two sessions, then
+    /restore of that file (onto row 2) and the same ask; (3) a solo
+    server: one session (replicated over both data groups) asked, saved,
+    restored as a second one, both asked ``TP_DP_CONT``. Every rank
+    records its first-step logit slices, answers, snapshot files and
+    K1-K4 launches into ``f_rank<R>.{json,npz}`` under TP_DIR."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from cogstream_tpu_torch.models.checkpoint import load_cogreasoner_from_hf
+    from cogstream_tpu_torch.ops import kernels
+    from cogstream_tpu_torch.parallel.distributed import initialize_if_needed
+    from cogstream_tpu_torch.parallel.mesh import make_mesh
+    from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
+    from cogstream_tpu_torch.runtime.serve import (SessionServer,
+                                                   make_http_server)
+    from cogstream_tpu_torch.runtime.session import StreamingSession
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dev or torch.device("cuda", 0)
+    kernels.library()                      # built by the parent: loads
+    initialize_if_needed(f"tcp://127.0.0.1:{port}", TP_DP_WORLD, rank,
+                         backend="gloo", timeout_s=900)
+    mesh = make_mesh(data_parallel=2, model_parallel=2)
+    cfg = cut_config()
+    tok = ByteTokenizer(image_token_id=cfg.image_token_index,
+                        vocab=cfg.text.vocab_size)
+    t0 = time.perf_counter()
+    model = load_cogreasoner_from_hf(os.path.join(TP_DIR, "hf"), cfg,
+                                     device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    out = {"gib": _gib(model), "load_s": round(time.perf_counter() - t0, 3),
+           "vocab": list(model.text.tp.vocab), "first_q": {},
+           "answers": [], "io": {"written": [], "read": []}}
+    io = out["io"]
+    write, read = (StreamingSession._write_snapshot,
+                   StreamingSession._read_snapshot)
+
+    def spy_write(sess, path, *a):
+        io["written"].append(os.path.relpath(path, TP_DIR))
+        return write(sess, path, *a)
+
+    def spy_read(sess, path):
+        io["read"].append(os.path.relpath(path, TP_DIR))
+        return read(sess, path)
+
+    StreamingSession._write_snapshot = spy_write
+    StreamingSession._read_snapshot = spy_read
+    for i in BF16_PATH:
+        wrapper(i).launches = 0
+    tap = FirstLogits()
+    firsts = {}
+    frames = os.path.join(TP_DIR, "frames")
+
+    def record(answers):
+        out["answers"].append({str(k): {f: v[f] for f in ("text",
+                                                          "selection")}
+                               for k, v in answers.items()})
+
+    # (1) the pooled server: every rank records its rows' first-step
+    # logit slices and every batch's answers
+    srv = SessionServer(model, cfg, tok, max_len=TP_DP_LEN, pool_rows=4,
+                        mesh=mesh)
+    pool_ask = srv.pool.ask_batch
+
+    def ask_batch(requests, **kw):
+        tap.arm()
+        answers = pool_ask(requests, **kw)
+        held = sorted(b for b, _ in requests if srv.pool.holds(b))
+        qs = dict(requests)
+        for i, b in enumerate(held):
+            if qs[b] in TP_DP_ASKS:
+                firsts[f"row{b}"] = tap.first_rows[i]
+                out["first_q"][f"row{b}"] = qs[b]
+        record(answers)
+        return answers
+
+    srv.pool.ask_batch = ask_batch
+    if rank == 0:
+        httpd = make_http_server(srv, "127.0.0.1", 0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        port_http = httpd.server_address[1]
+        gate = threading.Barrier(len(TP_DP_ASKS))
+        walls, errors = {}, []
+
+        def post(path, body):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port_http}{path}",
+                data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return json.loads(r.read())
+
+        def client(i):
+            sid = f"c{i}"
+            try:
+                t0 = time.perf_counter()
+                post("/session", {"session_id": sid})
+                post("/ingest", {"session_id": sid, "video_path": frames,
+                                 "fps": 1.0})
+                gate.wait(timeout=600)
+                post("/ask", {"session_id": sid, "question": TP_DP_ASKS[i],
+                              "mode": "AC", "max_new_tokens": TP_DP_TOKENS})
+                walls[sid] = round(time.perf_counter() - t0, 3)
+            except Exception as e:  # noqa: BLE001 — fails (f)
+                errors.append(f"{sid}: {type(e).__name__}: {e}")
+                gate.abort()
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(TP_DP_ASKS))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        out["walls"], out["errors"] = walls, errors
+        out["rows_of"] = dict(srv._row_of)
+        sid2 = next(s for s, b in srv._row_of.items() if b == 2)
+        path = os.path.join(TP_DIR, "f_row2.npz")
+        post("/save", {"session_id": sid2, "path": path})
+        cont = {"row_saved": post("/ask", {
+            "session_id": sid2, "question": TP_DP_CONT, "mode": "AC",
+            "max_new_tokens": TP_DP_TOKENS})["tokens"]}
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close()
+    else:
+        srv.follow()
+    # (2) a fresh pooled server restores the row onto its row 2
+    srv2 = SessionServer(model, cfg, tok, max_len=TP_DP_LEN, pool_rows=4,
+                         mesh=mesh)
+    if rank == 0:
+        for sid in ("x0", "x1"):
+            srv2.create(sid)
+        srv2.restore_session("r", path)
+        cont["restored_row"] = srv2._row_of["r"]
+        cont["row_restored"] = srv2.ask("r", TP_DP_CONT, mode="AC",
+                                        max_new_tokens=TP_DP_TOKENS)["tokens"]
+        srv2.close()
+    else:
+        srv2.follow()
+    # (3) a solo server: its session is replicated over the data groups
+    srv3 = SessionServer(model, cfg, tok, max_len=TP_DP_LEN, mesh=mesh)
+    op_ask = srv3._op_ask
+
+    def solo_ask(sid, question, **kw):
+        tap.arm()
+        answer = op_ask(sid, question, **kw)
+        if question in TP_DP_ASKS:
+            firsts["solo"] = tap.first
+            out["first_q"]["solo"] = question
+        record({sid: answer})
+        return answer
+
+    srv3._op_ask = solo_ask
+    if rank == 0:
+        srv3.create("s")
+        srv3.ingest("s", frames, None, None, 1.0)
+        srv3.ask("s", TP_DP_ASKS[0], mode="AC", max_new_tokens=TP_DP_TOKENS)
+        path = os.path.join(TP_DIR, "f_solo.npz")
+        srv3.save_session("s", path)
+        srv3.restore_session("s2", path)
+        for sid, key in (("s", "solo"), ("s2", "solo_restored")):
+            cont[key] = srv3.ask(sid, TP_DP_CONT, mode="AC",
+                                 max_new_tokens=TP_DP_TOKENS)["tokens"]
+        out["cont"] = cont
+        srv3.close()
+    else:
+        srv3.follow()
+    tap.restore()
+    out["launches"] = {KERNELS[i][0]: wrapper(i).launches for i in BF16_PATH}
+    np.savez(os.path.join(TP_DIR, f"f_rank{rank}_first.npz"), **firsts)
+    with open(os.path.join(TP_DIR, f"f_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     torch.distributed.destroy_process_group()
     return 0
@@ -7098,7 +7644,7 @@ def run_train_tp_alone(dev, card, fault) -> int:
     return 0
 
 
-def run_tp_alone(dev, card, fault) -> int:
+def run_tp_alone(dev, card, fault, w4a8_fault) -> int:
     """``--tp-only``: phase 11 on phase 5's model (random weights from
     seed 0), without the other phases; prints its metrics."""
     import torch
@@ -7109,7 +7655,7 @@ def run_tp_alone(dev, card, fault) -> int:
     model = init_cogreasoner_params(
         presets.cogreasoner_7b(), torch.Generator(device=dev).manual_seed(0),
         device=dev)
-    metrics = run_tp_path(model, dev, card, fault)
+    metrics = run_tp_path(model, dev, card, fault, w4a8_fault)
     log("metrics: " + json.dumps(metrics))
     return 0
 
@@ -7135,6 +7681,12 @@ def main() -> int:
                     help="with --tp-only: plant faults in the ranks (rank "
                          "0's kv heads written in every rank's place, the "
                          "adapters left whole); phase 11 must then fail")
+    ap.add_argument("--tp-w4a8-fault", action="store_true",
+                    help="with --tp-only: phase 11 (c)'s W4A8 shards quantize "
+                         "their row-parallel halves at each rank's own "
+                         "scales; phase 11 must then fail")
+    ap.add_argument("--tp-dp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)   # phase 11 (f)'s rank processes
     ap.add_argument("--train-tp-only", action="store_true",
                     help="build the kernels and run phase 12 (data- and "
                          "tensor-parallel training) alone")
@@ -7169,7 +7721,10 @@ def main() -> int:
         return 1
     if args.tp_rank is not None:
         return tp_rank_main(args.tp_rank, args.tp_port,
-                            fault=args.tp_snapshot_fault)
+                            fault=args.tp_snapshot_fault,
+                            w4a8_fault=args.tp_w4a8_fault)
+    if args.tp_dp_rank is not None:
+        return tp_dp_rank_main(args.tp_dp_rank, args.tp_port)
     if args.train_rank is not None:
         return train_rank_main(args.train_rank, args.tp_port,
                                fault=args.train_tp_fault)
@@ -7199,7 +7754,8 @@ def main() -> int:
     if args.train_tp_only:
         return run_train_tp_alone(dev, card, args.train_tp_fault)
     if args.tp_only:
-        return run_tp_alone(dev, card, args.tp_snapshot_fault)
+        return run_tp_alone(dev, card, args.tp_snapshot_fault,
+                            args.tp_w4a8_fault)
     walls = {}
     t_phase = [time.perf_counter()]
 

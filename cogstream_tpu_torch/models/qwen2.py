@@ -65,10 +65,9 @@ from ..ops.attention import causal_gqa_attention
 from ..ops.lm_attention import (DECODE_MAX_S, CacheRows, as_cache_rows,
                                 decode_attention, effective_kv_positions,
                                 prefill_flash_attention)
-from ..ops.quant import QuantLinear, row_parallel_linear
+from ..ops.quant import QuantLinear, RowShard, row_parallel_linear
 from ..ops.rope import apply_rope, rope_angles
 from ..parallel.mesh import all_reduce, copy_to_model
-from ..parallel.sharding import INT4_ACT_MSG
 from .vision_encoder import default_device, linear
 
 W8A8_MESH_MSG = ("int8 activations (w8a8_prefill / w4a8_decode, stage-2 "
@@ -223,30 +222,44 @@ def embed(model: Qwen2Model, input_ids: torch.Tensor) -> torch.Tensor:
     return all_reduce(rows, tp.group)
 
 
-def mesh_w8(model: Qwen2Model, w8: bool) -> bool:
-    """The activation mode a decoder runs: ``w8`` as asked, except that
-    int8 activations on an int4 decoder under a mesh raise
-    (``parallel/sharding.check_mesh_int4_act``)."""
-    if w8 and getattr(model, "tp", None) is not None \
-            and hasattr(model, "int4"):
-        raise NotImplementedError(INT4_ACT_MSG)
-    return w8
+def row_shards(model: Qwen2Model) -> Dict[str, Optional[RowShard]]:
+    """The :class:`ops.quant.RowShard` of each row-parallel projection of
+    a sharded decoder (o_proj over the q heads' channels, down_proj over
+    the intermediate ones), None where the site is whole: where this
+    rank's input rows lie in the whole input, which the int4 W4A8 forms
+    need (each packed half's int8 scale is its global half's)."""
+    tp = getattr(model, "tp", None)
+    out = {"o_proj": None, "down_proj": None}
+    if tp is None:
+        return out
+    D = model.cfg.head_dim
+    if tp.attn_split:
+        out["o_proj"] = RowShard(model.cfg.num_attention_heads * D,
+                                 tp.q_heads[0] * D,
+                                 (tp.q_heads[-1] + 1) * D, tp.group)
+    if tp.mlp is not None:
+        out["down_proj"] = RowShard(model.cfg.intermediate_size, *tp.mlp,
+                                    tp.group)
+    return out
 
 
 def dense(x: torch.Tensor, lin: nn.Module, lora=None,
           lora_scale: float = 1.0, w8a8: bool = False,
-          indexed: bool = False, reduce=None, col=None) -> torch.Tensor:
+          indexed: bool = False, reduce=None, col=None,
+          rows: Optional[RowShard] = None) -> torch.Tensor:
     """Linear layer (``nn.Linear``, or ``QuantLinear`` with ``w8a8`` and
     ``indexed`` passed on) plus gated LoRA deltas ``(x @ a) @ b * gate *
     scale`` for each (adapter, gate) in ``lora``, on top of the base.
     ``reduce`` (a process group) makes it row-parallel: ``x`` and the
-    weight hold this rank's input channels, and the output is all-reduced
+    weight hold this rank's input channels (``rows``: where they lie in
+    the whole input), and the output is all-reduced
     (``ops/quant.row_parallel_linear``); each adapter's ``a`` then holds
     the same rows (:func:`_add_lora`). ``col`` (a process group) marks a
     column-parallel site: the adapters' ``b`` hold this rank's columns and
     ``a`` is replicated."""
     if reduce is not None:
-        return _add_lora(row_parallel_linear(lin, x, reduce, w8a8, indexed),
+        return _add_lora(row_parallel_linear(lin, x, reduce, w8a8, indexed,
+                                             rows),
                          x, lora, lora_scale, row=reduce)
     y = lin(x, w8a8, indexed) if isinstance(lin, QuantLinear) else lin(x)
     return _add_lora(y, x, lora, lora_scale, col=col)
@@ -386,8 +399,8 @@ def qwen2_forward(
     # the JAX rule (qwen2.py w8): prefill-length programs (S >= 16) run the
     # quantized projections with int8 activations under w8a8_prefill,
     # decode-length ones (S < 16) under w4a8_decode; bf16 weights ignore it
-    w8 = mesh_w8(model, (cfg.w8a8_prefill and S >= 16)
-                 or (cfg.w4a8_decode and S < 16))
+    w8 = (cfg.w8a8_prefill and S >= 16) or (cfg.w4a8_decode and S < 16)
+    shards = row_shards(model)
     indexed = cache is not None
     positions = positions.to(torch.int32)
     angles = rope_angles(positions.clamp(min=0), D, cfg.rope_theta)
@@ -429,7 +442,8 @@ def qwen2_forward(
         def proj(group, name, inp, reduce=None):
             return dense(inp, (ap if group == "attn" else mp)[name],
                          _lora_at(adapters, li, group, name), lora_scale,
-                         w8a8=w8, indexed=indexed, reduce=reduce)
+                         w8a8=w8, indexed=indexed, reduce=reduce,
+                         rows=shards.get(name))
 
         h = rms_norm(x, layer.input_norm, cfg.rms_norm_eps)
         q = apply_rope(proj("attn", "q_proj", h).reshape(B, S, Hq, D), angles)
@@ -613,7 +627,6 @@ def lm_logits(model: Qwen2Model, hidden: torch.Tensor, adapters: Adapters = None
     the W8A8 product, as in JAX. A vocab-sharded decoder returns its
     vocab slice (``model.tp.vocab``); under autograd ``hidden`` enters the
     column-parallel head through ``copy_to_model``."""
-    w8a8 = mesh_w8(model, w8a8)
     if head is None:
         head_lora = [(t["lm_head"], g) for t, g in adapters or ()
                      if isinstance(t, dict) and t.get("lm_head") is not None]

@@ -47,13 +47,19 @@ take ``reduce``, the model axis's process group: the local product is
 all-reduced before the bias. The W8A8 form takes the activation absmax over
 the WHOLE row (a MAX all-reduce of the local ones) and all-reduces the
 int32 sums before the rank-1 epilogue, so the arithmetic is the unsharded
-one. The quantizers take the same groups, so a shard quantizes to the
-slice of the whole weight's quantization.
+one. The W4A8 forms of a rank-1 int4 row shard (:class:`RowShard`: its
+rows of the whole input) quantize each packed half with the absmax of the
+GLOBAL half of the row it lies in (MAXed over the group: a row shard is
+repacked to its own pairing, so its local halves are parts of one global
+half), then all-reduce the int32 sums of each global half (prefill) or the
+GEMV's f32 partials (K7 / K9) before rounding. The quantizers take the
+same groups, so a shard quantizes to the slice of the whole weight's
+quantization.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,6 +67,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.mesh import all_reduce
+from ..parallel.mesh import group_size as ranks_in
 
 # QLoRA's NF4 codebook: the 16 quantiles of N(0,1) scaled to [-1, 1]
 NF4_CODE = (
@@ -328,6 +335,45 @@ def quantize_int8_act(x: torch.Tensor, reduce=None):
     return q, ax * (1.0 / 127.0)
 
 
+class RowShard(NamedTuple):
+    """A row-parallel shard's place in the whole input: rows [lo, hi) of
+    ``width``, split over the process group ``group``. The W4A8 forms
+    read it (:func:`int4_matmul`): the shard is packed in its own
+    split-halves pairing, each of its two local halves a part of one
+    GLOBAL half of the row, whose int8 scale it must use."""
+
+    width: int
+    lo: int
+    hi: int
+    group: Any
+
+    def halves(self) -> Tuple[int, int]:
+        """The global half (0: rows [0, width / 2), 1: the others) that
+        each local packed half lies in. A local half that straddles the
+        two raises: one int8 scale per local half cannot express it."""
+        mid, g = self.lo + (self.hi - self.lo) // 2, []
+        for a, b in ((self.lo, mid), (mid, self.hi)):
+            h = 2 * a // self.width
+            if 2 * (b - 1) // self.width != h:
+                raise ValueError(
+                    f"row shard [{self.lo}, {self.hi}) of {self.width}: its "
+                    "packed halves straddle the input's halves")
+            g.append(h)
+        return g[0], g[1]
+
+    def absmax(self, xs: torch.Tensor) -> torch.Tensor:
+        """``xs`` [m, hi - lo] f32 (the activations of this shard's rows,
+        rscale folded) -> [m, 2] f32: each GLOBAL half's absmax over the
+        whole row, MAXed over the group."""
+        g = self.halves()
+        half = xs.shape[-1] // 2
+        ax = xs.reshape(xs.shape[0], 2, half).abs().amax(dim=-1)
+        full = ax.new_zeros(ax.shape)
+        for j in (0, 1):
+            full[:, g[j]] = torch.maximum(full[:, g[j]], ax[:, j])
+        return all_reduce(full, self.group, "max")
+
+
 def quantize_kernel(w: torch.Tensor, bits: int, group_size: int = 64,
                     nf4: bool = True, rank1: bool = False, row_group=None,
                     col_group=None) -> Dict:
@@ -336,20 +382,38 @@ def quantize_kernel(w: torch.Tensor, bits: int, group_size: int = 64,
     rank-1 with ``rank1``, falling back to int8 where the 4-bit scheme
     cannot take din (not divisible by the group, or odd), as in JAX.
     ``row_group`` / ``col_group``: ``w`` is a tensor-parallel shard (rows
-    or columns split), quantized as its slice of the whole weight (int8
-    and rank-1 int4)."""
+    or columns split), quantized as its slice of the whole weight, byte
+    for byte (group-wise: a row shard must hold whole groups,
+    :func:`check_group_shard`, else ``ValueError``)."""
     if bits == 8:
         return quantize_int8(w, row_group)
+    if not rank1 and row_group is not None:
+        # the whole weight's rows; int8 where the whole falls back to it
+        whole = w.shape[-2] * ranks_in(row_group)
+        if whole % group_size or whole % 2:
+            return quantize_int8(w, row_group)
+        check_group_shard(w.shape[-2], group_size)
     try:
         if rank1:
             return quantize_int4_rank1(w, nf4=nf4, row_group=row_group,
                                        col_group=col_group)
-        if row_group is not None or col_group is not None:
-            raise NotImplementedError("group-wise int4 of a sharded "
-                                      "weight is not ported")
+        # groups run along din: a column shard's are whole, and so are an
+        # aligned row shard's, so the shard's own quantization is the
+        # slice of the whole one (its halves packed to its own pairing)
         return quantize_int4(w, group_size=group_size, nf4=nf4)
     except ValueError:
         return quantize_int8(w, row_group)
+
+
+def check_group_shard(rows: int, group_size: int) -> None:
+    """A group-wise row shard of ``rows`` rows (one of equal contiguous
+    blocks) quantizes as its slice of the whole weight only when its
+    bounds fall on group boundaries and it packs into two halves."""
+    if rows % group_size or rows % 2:
+        raise ValueError(
+            f"a row shard of {rows} rows does not hold whole groups of "
+            f"{group_size} (or an even count): quantize the weight whole, "
+            "then shard it")
 
 
 def quantize_tree(params: Any, predicate=None, bits: int = 8,
@@ -523,16 +587,22 @@ def frozen_product(x: torch.Tensor, forward, vjp) -> torch.Tensor:
 
 
 def _w4a8_prefill(x: torch.Tensor, qp: Dict[str, torch.Tensor],
-                  dtype) -> torch.Tensor:
+                  dtype, shard: Optional[RowShard] = None) -> torch.Tensor:
     """The W4A8 prefill branch (uniform rank-1, off the GEMV route): the
     unpacked nibbles ARE int8 values in [-7, 7], so each half's
     rscale-folded activations quantize per row and meet them in the int8
-    GEMM; the uniform slope folds into the column scale."""
+    GEMM; the uniform slope folds into the column scale.
+
+    ``shard``: ``x`` and ``qp`` hold a row shard. Each local half
+    quantizes with its global half's scale (:meth:`RowShard.absmax`), the
+    int32 sums are added up per global half over the group, and every
+    rank applies the epilogue to the whole sums: the unsharded
+    arithmetic, bit for bit."""
     packed, scale = qp["q4"], qp["scale"]
     half, dout = packed.shape
     r = qp["rscale"]
     *bx, din = x.shape
-    x2 = x.reshape(-1, din).to(torch.float32)
+    xs = x.reshape(-1, din).to(torch.float32) * r[None, :]
 
     def half_mm(xs, nib):
         xq, sx = quantize_int8_act(xs)
@@ -540,8 +610,23 @@ def _w4a8_prefill(x: torch.Tensor, qp: Dict[str, torch.Tensor],
 
     # the nibbles unpacked column-major, the int8 GEMM's fast layout
     lo, hi = (h.t() for h in _unpack_halves(packed.t().contiguous()))
-    yl = half_mm(x2[:, :half] * r[None, :half], lo)
-    yh = half_mm(x2[:, half:] * r[None, half:], hi)
+    if shard is None:
+        yl = half_mm(xs[:, :half], lo)
+        yh = half_mm(xs[:, half:], hi)
+    else:
+        from .quant_gemv import _int8_halves
+
+        ax = shard.absmax(xs)
+        g = shard.halves()
+        xq, _ = _int8_halves(xs, half, ax[:, list(g)])
+        sums = torch.zeros((2, xs.shape[0], dout), dtype=torch.int32,
+                           device=x.device)
+        sums[g[0]] += int8_mm(xq[:, :half], lo)
+        sums[g[1]] += int8_mm(xq[:, half:], hi)
+        sums = all_reduce(sums, shard.group)
+        sx = ax.clamp(min=1e-6) * (1.0 / 127.0)
+        yl = sums[0].to(torch.float32) * sx[:, 0:1]
+        yh = sums[1].to(torch.float32) * sx[:, 1:2]
     y = (yl + yh) * (scale[None, :] * qp["code"][0])
     return y.to(dtype).reshape(*bx, dout)
 
@@ -563,7 +648,8 @@ def _group_matmul(x: torch.Tensor, qp: Dict[str, torch.Tensor],
 
 
 def int4_matmul(x: torch.Tensor, qp: Dict[str, torch.Tensor],
-                out_dtype=None, act_int8: bool = False) -> torch.Tensor:
+                out_dtype=None, act_int8: bool = False, reduce=None,
+                rows: Optional[RowShard] = None) -> torch.Tensor:
     """``x @ W`` for a 4-bit weight, routed as the JAX function routes.
     ``qp`` is 2D, or stacked ``[L, ...]`` with a ``"layer"`` entry (int32
     ``[1]`` on W's device) for the indexed form; a stacked weight off the
@@ -573,7 +659,12 @@ def int4_matmul(x: torch.Tensor, qp: Dict[str, torch.Tensor],
     Rank-1: the fused GEMV (K6-K9) where it routes; with ``act_int8`` on
     uniform weights off that route, the W4A8 prefill branch; else the
     materializing split form. Group-wise / NF4: the split form when the
-    halves hold whole groups, else ``x @ dequantize_int4``."""
+    halves hold whole groups, else ``x @ dequantize_int4``.
+
+    ``reduce``: a row-parallel shard, its product all-reduced over that
+    group. Its W4A8 forms need ``rows`` (the shard's :class:`RowShard`):
+    they take each half's int8 scale over the whole row and reduce their
+    own sums; without ``rows`` each rank's halves quantize alone."""
     from .quant_gemv import (gemv_viable, gemv_viable_stacked,
                              int4_rank1_gemv, int4_rank1_gemv_stacked)
 
@@ -581,18 +672,22 @@ def int4_matmul(x: torch.Tensor, qp: Dict[str, torch.Tensor],
     m = x.numel() // x.shape[-1]
     rank1 = "rscale" in qp
     uniform = rank1 and qp["code"].shape[-1] == 1
+    shard = rows if reduce is not None and act_int8 and uniform else None
+    if reduce is not None and shard is None:
+        return all_reduce(int4_matmul(x, qp, dtype, act_int8), reduce)
     if qp["q4"].ndim == 3 and "layer" in qp:
         if uniform and gemv_viable_stacked(qp, m):
             return int4_rank1_gemv_stacked(x, qp, qp["layer"], dtype,
-                                           w4a8=act_int8)
+                                           w4a8=act_int8, rows=shard)
         qp = _layer_of(qp)
     if qp["q4"].ndim != 2:
-        return x @ dequantize_int4(qp, dtype)
+        y = x @ dequantize_int4(qp, dtype)
+        return y if shard is None else all_reduce(y, shard.group)
     if rank1:
         if uniform and gemv_viable(qp, m):
-            return int4_rank1_gemv(x, qp, dtype, w4a8=act_int8)
+            return int4_rank1_gemv(x, qp, dtype, w4a8=act_int8, rows=shard)
         if act_int8 and uniform:
-            return _w4a8_prefill(x, qp, dtype)
+            return _w4a8_prefill(x, qp, dtype, shard)
         return split_matmul(x, materialize_split(qp, dtype))
     half = qp["q4"].shape[0]
     n = qp["scale"].shape[0]
@@ -626,15 +721,17 @@ def int8_matmul(x: torch.Tensor, qp: Dict[str, torch.Tensor],
 
 
 def quantized_matmul(x: torch.Tensor, qp: Dict[str, torch.Tensor],
-                     out_dtype=None, w8a8: bool = False,
-                     reduce=None) -> torch.Tensor:
+                     out_dtype=None, w8a8: bool = False, reduce=None,
+                     rows: Optional[RowShard] = None) -> torch.Tensor:
     """``x @ W`` for any quantized weight dict. ``w8a8`` reaches the int4
     GEMV route (W4A8, K7/K9) and the W4A8 prefill branch on uniform
     rank-1 weights, and the W8A8 product on int8 weights. ``reduce``: a
-    row-parallel shard's product, all-reduced over that group."""
+    row-parallel shard's product, all-reduced over that group; ``rows``
+    its :class:`RowShard`, which the int4 W4A8 forms read."""
     dtype = out_dtype or x.dtype
     if "q4" in qp:
-        return all_reduce(int4_matmul(x, qp, dtype, act_int8=w8a8), reduce)
+        return int4_matmul(x, qp, dtype, act_int8=w8a8, reduce=reduce,
+                           rows=rows)
     return int8_matmul(x, qp, dtype, w8a8=w8a8, reduce=reduce)
 
 
@@ -819,16 +916,17 @@ def _reduce_wide(y: torch.Tensor, lin: nn.Module, reduce,
 
 
 def row_parallel_linear(lin: nn.Module, x: torch.Tensor, reduce,
-                        w8a8: bool = False,
-                        indexed: bool = False) -> torch.Tensor:
+                        w8a8: bool = False, indexed: bool = False,
+                        rows: Optional[RowShard] = None) -> torch.Tensor:
     """A row-parallel shard of a decoder projection: ``x`` holds this
     rank's input channels and ``lin`` the matching rows of the weight.
     The local product (the routes of ``QuantLinear``; a bf16 GEMM's f32
     sums kept in f32, :func:`_mm_wide`) is all-reduced, then the bias is
-    added once."""
+    added once. ``rows``: the shard's :class:`RowShard` (int4 W4A8)."""
     if isinstance(lin, QuantLinear):
         return _add_bias(quantized_matmul(x, lin.qp(indexed), x.dtype,
-                                          w8a8=w8a8, reduce=reduce), lin)
+                                          w8a8=w8a8, reduce=reduce,
+                                          rows=rows), lin)
     return _reduce_wide(_mm_wide(x, lin.weight), lin, reduce, x.dtype)
 
 
@@ -925,8 +1023,9 @@ def quantize_cogreasoner_(model, bits: int, nf4: bool = True,
     as they are; each bf16 weight is freed once it is quantized. On a
     model sharded for a mesh, int8 gives each rank the slice of the whole
     model's quantization (a row-parallel weight's column absmax is MAXed
-    over its group); group-wise 4-bit shards of row-parallel weights
-    raise (quantize whole, then shard). Returns ``model``."""
+    over its group), and so does group-wise 4-bit, whose groups run along
+    din (a row-parallel shard that does not hold whole groups raises
+    ``ValueError``: quantize whole, then shard). Returns ``model``."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
 

@@ -20,6 +20,13 @@ same three steps as the JAX wrapper:
    (f32 sums of exact bf16 products, or exact int32 sums), and
 3. applies the column scale once, as the epilogue.
 
+On a row-parallel shard (``rows``, a ``quant.RowShard``) the W4A8 forms
+quantize each packed half at the scale of the GLOBAL half of the row it
+lies in (a MAX all-reduce of the ranks' partial absmaxes: the shard is
+packed in its own pairing, whose halves are parts of one global half),
+launch K7 / K9 with f32 output, and sum those partials over the group
+before the one rounding; a column shard runs them unchanged.
+
 Where the codebook slope ``code[0]`` folds differs by form, as in JAX:
 the 2D wrappers (K6, K7) fold it into the column scale, the stacked ones
 (K8, K9) into the activations before rounding.
@@ -120,15 +127,25 @@ def gemv_viable_stacked(qp: Dict[str, torch.Tensor], m: int,
 # activations
 # ---------------------------------------------------------------------------
 
-def _int8_halves(xs: torch.Tensor, half: int):
+def _int8_halves(xs: torch.Tensor, half: int,
+                 ax: Optional[torch.Tensor] = None):
     """``xs`` [m, din] f32 → (xq int8 [m, din], sx f32 [m, 2]): each half
     of each row quantized with its own absmax, as the JAX wrapper's
-    ``q8`` on each half (round half to even, ``sx = absmax / 127``)."""
+    ``q8`` on each half (round half to even, ``sx = absmax / 127``).
+    ``ax`` [m, 2]: the absmax each half takes instead (a row shard's
+    global halves, ``quant.RowShard.absmax``)."""
     m = xs.shape[0]
     v = xs.reshape(m, 2, half)
-    ax = v.abs().amax(dim=-1, keepdim=True).clamp(min=1e-6)
+    ax = (v.abs().amax(dim=-1) if ax is None else ax)[..., None]
+    ax = ax.clamp(min=1e-6)
     q = torch.round(v * (ax.new_tensor(127.0) / ax)).clamp(-127, 127)
     return q.to(torch.int8).reshape(m, 2 * half), (ax * (1.0 / 127.0))[..., 0]
+
+
+def _shard_halves(xs: torch.Tensor, half: int, rows):
+    """:func:`_int8_halves` of a row shard's activations: each local half
+    at the scale of the global half it lies in."""
+    return _int8_halves(xs, half, rows.absmax(xs)[:, list(rows.halves())])
 
 
 # ---------------------------------------------------------------------------
@@ -498,7 +515,7 @@ for _fn in (gemv_k8, gemv_k9):
 # wrappers (the JAX functions' signatures)
 # ---------------------------------------------------------------------------
 
-def _gemv_2d(x, qp, out_dtype, w4a8, plain: bool):
+def _gemv_2d(x, qp, out_dtype, w4a8, plain: bool, rows=None):
     dtype = out_dtype or x.dtype
     packed, scale = qp["q4"], qp["scale"]
     uniform = qp["code"].shape[-1] == 1     # the scheme tag
@@ -514,7 +531,17 @@ def _gemv_2d(x, qp, out_dtype, w4a8, plain: bool):
         # the uniform slope (code[0], e.g. 1/7) folds into the column
         # scale; the kernel dots the raw nibbles
         sc = sc * qp["code"][0]
-    if w4a8:
+    if w4a8 and rows is not None:
+        # a row shard: global-half scales, the f32 partials summed over
+        # the group, then one rounding
+        from ..parallel.mesh import all_reduce
+
+        xq, sx = _shard_halves(xs, half, rows)
+        f32 = torch.float32
+        y = all_reduce(_plain_w4a8(xq, sx, packed, sc, f32) if plain
+                       else gemv_k7(xq, sx, packed, sc, f32),
+                       rows.group).to(dtype)
+    elif w4a8:
         xq, sx = _int8_halves(xs, half)
         y = (_plain_w4a8(xq, sx, packed, sc, dtype) if plain
              else gemv_k7(xq, sx, packed, sc, dtype))
@@ -541,24 +568,30 @@ def _rank1_vjp(qp: Dict[str, torch.Tensor], x_dtype):
 
 
 def int4_rank1_gemv(x: torch.Tensor, qp: Dict[str, torch.Tensor],
-                    out_dtype=None, *, w4a8: bool = False) -> torch.Tensor:
+                    out_dtype=None, *, w4a8: bool = False,
+                    rows=None) -> torch.Tensor:
     """``x @ W`` for a 2D rank-1 int4 weight: K6 (uniform or cubic, by
     the scheme tag), or K7 with ``w4a8``. Under autograd the backward is
-    the transpose of the 2D XLA form (:func:`_rank1_vjp`)."""
+    the transpose of the 2D XLA form (:func:`_rank1_vjp`). ``rows`` (a
+    ``quant.RowShard``, with ``w4a8``): ``x`` and ``qp`` hold a row
+    shard; each half takes its global half's scale, and the product is
+    the whole one, summed over the shard's group."""
     from .quant import frozen_product
 
     return frozen_product(
-        x, lambda t: _gemv_2d(t, qp, out_dtype, w4a8, plain=False),
+        x, lambda t: _gemv_2d(t, qp, out_dtype, w4a8, plain=False,
+                              rows=rows),
         _rank1_vjp(qp, x.dtype))
 
 
 def int4_rank1_gemv_plain(x: torch.Tensor, qp: Dict[str, torch.Tensor],
-                          out_dtype=None, *, w4a8: bool = False) -> torch.Tensor:
+                          out_dtype=None, *, w4a8: bool = False,
+                          rows=None) -> torch.Tensor:
     """:func:`int4_rank1_gemv` through the plain version, on any device."""
-    return _gemv_2d(x, qp, out_dtype, w4a8, plain=True)
+    return _gemv_2d(x, qp, out_dtype, w4a8, plain=True, rows=rows)
 
 
-def _gemv_stacked(x, qp, layer, out_dtype, w4a8, plain: bool):
+def _gemv_stacked(x, qp, layer, out_dtype, w4a8, plain: bool, rows=None):
     dtype = out_dtype or x.dtype
     packed, scale = qp["q4"], qp["scale"]
     L, half, dout = packed.shape
@@ -571,12 +604,20 @@ def _gemv_stacked(x, qp, layer, out_dtype, w4a8, plain: bool):
         * qp["code"].index_select(0, layer)[:, :1]
     xs = x.reshape(-1, din).to(torch.float32) * r
     if w4a8:
-        xq, sx = _int8_halves(xs, half)
+        # a row shard: global-half scales, f32 partials summed over the
+        # group, then one rounding
+        xq, sx = (_int8_halves(xs, half) if rows is None
+                  else _shard_halves(xs, half, rows))
+        part = dtype if rows is None else torch.float32
         if plain:
             y = _plain_w4a8(xq, sx, *_layer_slice(packed, scale, layer),
-                            dtype)
+                            part)
         else:
-            y = gemv_k9(xq, sx, packed, scale, layer, dtype)
+            y = gemv_k9(xq, sx, packed, scale, layer, part)
+        if rows is not None:
+            from ..parallel.mesh import all_reduce
+
+            y = all_reduce(y, rows.group).to(dtype)
     else:
         xb = xs.to(torch.bfloat16)
         if plain:
@@ -589,22 +630,25 @@ def _gemv_stacked(x, qp, layer, out_dtype, w4a8, plain: bool):
 
 def int4_rank1_gemv_stacked(x: torch.Tensor, qp: Dict[str, torch.Tensor],
                             layer: torch.Tensor, out_dtype=None, *,
-                            w4a8: bool = False) -> torch.Tensor:
+                            w4a8: bool = False, rows=None) -> torch.Tensor:
     """``x @ W[layer]`` for stacked rank-1 UNIFORM weights: K8, or K9 with
     ``w4a8``. ``layer`` is an int32 [1] tensor on the weights' device (a
     view into the decoder's ``arange(L)``), read by the kernel itself.
     Under autograd the backward is that of the layer's 2D form
-    (:func:`_rank1_vjp`)."""
+    (:func:`_rank1_vjp`). ``rows``: a row shard, as
+    :func:`int4_rank1_gemv` takes it."""
     from .quant import frozen_product
 
     return frozen_product(
         x, lambda t: _gemv_stacked(t, qp, layer, out_dtype, w4a8,
-                                   plain=False),
+                                   plain=False, rows=rows),
         _rank1_vjp({**qp, "layer": layer}, x.dtype))
 
 
 def int4_rank1_gemv_stacked_plain(x: torch.Tensor, qp: Dict[str, torch.Tensor],
                                   layer: torch.Tensor, out_dtype=None, *,
-                                  w4a8: bool = False) -> torch.Tensor:
+                                  w4a8: bool = False,
+                                  rows=None) -> torch.Tensor:
     """:func:`int4_rank1_gemv_stacked` through the plain version."""
-    return _gemv_stacked(x, qp, layer, out_dtype, w4a8, plain=True)
+    return _gemv_stacked(x, qp, layer, out_dtype, w4a8, plain=True,
+                         rows=rows)

@@ -26,7 +26,9 @@ flat collective (the data-parallel gradient sum).
 
 :func:`gather_to_first` and :func:`scatter_from_first` move a sharded
 session's cache between the ranks of a model group and its first rank,
-which alone reads and writes snapshot files. They move bytes (``uint8``
+which alone reads and writes snapshot files (:func:`broadcast_from_first`
+hands a whole cache from rank 0 to the first ranks of the other data
+groups, where a session is replicated over them). They move bytes (``uint8``
 views): gloo refuses ``float8_e4m3fn`` (probed with torch 2.11 and 2.13:
 "Invalid scalar type"), and a byte copy is exact for every dtype. An error
 that every rank of a group raises at the same point, after the same
@@ -312,6 +314,20 @@ def scatter_from_first(parts: Optional[List[torch.Tensor]],
     out = torch.empty_like(as_bytes(like))
     dist.scatter(out, None if parts is None else [as_bytes(p) for p in parts],
                  group=group, group_src=0)
+    return out.view(like.dtype)
+
+
+def broadcast_from_first(x: Optional[torch.Tensor], like: torch.Tensor,
+                         group) -> torch.Tensor:
+    """The first rank of ``group``'s ``x`` (None elsewhere) on every rank,
+    as bytes; ``like`` gives its shape, dtype and device on every rank.
+    ``x`` itself for a group of one."""
+    if group is None:
+        return x
+    COLLECTIVES["broadcast"] += 1
+    out = as_bytes(x) if dist.get_rank(group) == 0 \
+        else torch.empty_like(as_bytes(like))
+    dist.broadcast(out, group=group, group_src=0)
     return out.view(like.dtype)
 
 

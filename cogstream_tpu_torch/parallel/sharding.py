@@ -463,19 +463,6 @@ def training_mesh(model, data: Optional[int], tp: Optional[int]):
     return make_mesh(data, tp)
 
 
-INT4_ACT_MSG = ("int8 activations (w4a8_decode / w8a8_prefill) on an int4 "
-                "decoder under a mesh are not ported yet")
-
-
-def check_mesh_int4_act(text, cfg: Qwen2Config) -> None:
-    """An int4 decoder under a mesh runs weight-only: int8 activations
-    (``w4a8_decode``, ``w8a8_prefill``) on its shards are not ported yet
-    (the JAX mesh session takes its XLA W4A8 branch there), so asking for
-    them raises rather than being ignored."""
-    if hasattr(text, "int4") and (cfg.w4a8_decode or cfg.w8a8_prefill):
-        raise NotImplementedError(INT4_ACT_MSG)
-
-
 def ensure_cogreasoner_sharded(model, cfg: CogReasonerConfig,
                                mesh: Optional[Mesh]):
     """``model`` under its serving plan on ``mesh`` — idempotent: a model
@@ -487,7 +474,6 @@ def ensure_cogreasoner_sharded(model, cfg: CogReasonerConfig,
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
                         f"{type(mesh).__name__}")
-    check_mesh_int4_act(model.text, cfg.text)
     have = sharded_mesh(model)
     if have is mesh:
         return model

@@ -22,8 +22,10 @@ row's result. Rows that do not divide are held by every group. The
 adapters are sliced for the model axis (``shard_adapters``). A row's
 snapshot (:meth:`SessionPool.save`, :meth:`SessionPool.open_restored`) is
 written and read by the first rank of the model group of the data group
-that holds the row (``StreamingSession.save`` / ``load_state``); every
-rank calls both, and every rank raises a failed one.
+that holds the row (``StreamingSession.save`` / ``load_state``; a row every
+group holds, by rank 0 alone); every rank calls both, and every rank
+raises a failed one. :meth:`SessionPool.ask_stream` and
+:meth:`SessionPool.row_state` give every rank what the holding group has.
 """
 
 from __future__ import annotations
@@ -77,9 +79,11 @@ class SessionPool:
         # the rows this rank's data group holds: [_row_lo, _row_lo + n)
         self.mesh = mesh
         d = 1 if mesh is None else mesh.shape[DATA_AXIS]
-        self._split = d > 1 and n_rows % d == 0
-        held = n_rows // d if self._split else n_rows
-        self._row_lo = mesh.data_index * held if self._split else 0
+        # split rows: each data group holds its own (else every group
+        # holds every row)
+        self.split = d > 1 and n_rows % d == 0
+        held = n_rows // d if self.split else n_rows
+        self._row_lo = mesh.data_index * held if self.split else 0
         self._row_hi = self._row_lo + held
         self.cache = init_kv_cache(cfg.text, held, max_len,
                                    dtype=kv_dtype, device=self.device,
@@ -115,7 +119,7 @@ class SessionPool:
 
     def _share(self, out: Dict[int, Dict]) -> Dict[int, Dict]:
         """Every group's row results, on every rank (split rows only)."""
-        if not self._split:
+        if not self.split:
             return out
         merged: Dict[int, Dict] = {}
         for part in all_gather_objects(out, self.mesh.host_group):
@@ -145,10 +149,10 @@ class SessionPool:
             if self.holds(row):
                 getattr(self.sessions[row], method)(*args)
         except Exception as e:  # noqa: BLE001 — shared below
-            if not self._split:
+            if not self.split:
                 raise
             error = e
-        if self._split:
+        if self.split:
             errors = [e for e in all_gather_objects(
                 portable(error), self.mesh.host_group) if e is not None]
             if errors:
@@ -287,6 +291,41 @@ class SessionPool:
         that holds the row; every rank returns the answer."""
         out = ({row: self.sessions[row].ask(question, **kwargs)}
                if self.holds(row) else {})
+        return self._share(out)[row]
+
+    def ask_stream(self, row: int, question: str, **kwargs):
+        """The session's ``ask_stream`` on the group that holds ``row``,
+        whose ranks yield its items as they come; with split rows every
+        other rank yields them all once the stream ended (a failure is
+        raised on every rank, as an ``AgreedError``)."""
+        if not self.split:
+            yield from self.sessions[row].ask_stream(question, **kwargs)
+            return
+        items, error = [], None
+        if self.holds(row):
+            try:
+                for item in self.sessions[row].ask_stream(question,
+                                                          **kwargs):
+                    items.append(item)
+                    yield item
+            except Exception as e:  # noqa: BLE001 — shared below
+                error = e
+        shared = all_gather_objects((items, portable(error)),
+                                    self.mesh.host_group)
+        errors = [e for _, e in shared if e is not None]
+        if errors:
+            raise AgreedError(errors[0])
+        if not self.holds(row):
+            yield from max(shared, key=lambda part: len(part[0]))[0]
+
+    def row_state(self, row: int) -> Dict:
+        """``{"cache_tokens", "turns"}`` of ``row``'s session, on every
+        rank (from the group that holds it)."""
+        out = {}
+        if self.holds(row):
+            sess = self.sessions[row]
+            out[row] = {"cache_tokens": sess.write_index,
+                        "turns": len(sess.hist_qs)}
         return self._share(out)[row]
 
     # -- the batched path ----------------------------------------------------

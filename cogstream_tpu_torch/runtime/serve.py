@@ -66,8 +66,17 @@ elastic agent (``torchrun --max-restarts N``) is the supervisor of the
 world. Each rank arms the supervised mode; a sticky CUDA error ends every
 rank with rc 17 (the 503 says ``"recovering": true``), the agent starts a
 new world, and its rank 0 restores every session of
-``--auto-snapshot-dir``. A mesh with a ``data`` axis is not ported for a
-sharded server.
+``--auto-snapshot-dir``.
+
+A mesh with a ``data`` axis (``serve --data-parallel D`` under torchrun:
+``D`` data groups of ``N / D`` model ranks) replicates each solo session
+over the data groups, as JAX's mesh session does; its snapshot is written
+and read by rank 0 alone. A pool's rows split over the data groups: each
+group runs its rows of a batch and the answers are exchanged
+(``SessionPool``), so rank 0's frontend answers rows that another group
+holds; such a row's snapshot is written and read by its group's first
+rank, and what rank 0 reports of it (fill level, turns) comes from that
+group.
 """
 
 from __future__ import annotations
@@ -378,6 +387,15 @@ class MeshLink:
         self._stop_watching()
 
 
+class _HeldElsewhere:
+    """A pool row that another data group holds: rank 0 knows the session
+    by its id, the holding group has its state (``SessionPool.row_state``
+    reads it)."""
+
+    def __init__(self, row: int, device):
+        self.row, self.device = row, device
+
+
 class _LinkedPool:
     """The pool calls a :class:`BatchingFrontend` makes, through a
     :class:`MeshLink` (rank 0 of a sharded server)."""
@@ -539,7 +557,6 @@ class SessionServer:
                  extra_eos_ids: tuple = (), encoder_int8: bool = False,
                  auto_snapshot_dir: Optional[str] = None, mesh=None):
         from ..models.cogreasoner import with_int8_tower
-        from ..parallel.mesh import DATA_AXIS
         from ..parallel.sharding import (ensure_cogreasoner_sharded,
                                          shard_adapters)
         from ..utils.profiling import StageTimer
@@ -550,9 +567,6 @@ class SessionServer:
         # sessions and the pool (each finds its model's tower int8 already)
         model = ensure_cogreasoner_sharded(model, cfg, mesh)
         adapters = shard_adapters(adapters, cfg, mesh)
-        if mesh is not None and mesh.shape[DATA_AXIS] > 1:
-            raise NotImplementedError("a server on a mesh with a data "
-                                      "axis is not ported yet")
         self.mesh = mesh
         self.link = (MeshLink(mesh, self)
                      if mesh is not None and mesh.size > 1 else None)
@@ -614,14 +628,20 @@ class SessionServer:
     def _pool_call(self, method: str, *args, **kwargs):
         return getattr(self.pool, method)(*args, **kwargs)
 
+    def _bind(self, session_id: str, row: int) -> None:
+        """``session_id`` on pool ``row`` (a row another data group holds
+        is known here by its id alone)."""
+        self._row_of[session_id] = row
+        self.sessions[session_id] = (
+            self.pool.sessions[row] if self.pool.holds(row)
+            else _HeldElsewhere(row, self.pool.device))
+
     def _op_create(self, session_id: str) -> None:
         if self.pool is not None:
             old = self._row_of.pop(session_id, None)
             if old is not None:
                 self.pool.close(old)
-            row = self.pool.open()
-            self._row_of[session_id] = row
-            self.sessions[session_id] = self.pool.sessions[row]
+            self._bind(session_id, self.pool.open())
         else:
             self.sessions[session_id] = self._mk()
 
@@ -635,10 +655,31 @@ class SessionServer:
         return self._get(session_id).ask(question, **kwargs)
 
     def _op_ask_stream(self, session_id: str, question: str, **kwargs):
-        return self._get(session_id).ask_stream(question, **kwargs)
+        self._get(session_id)
+        if self.pool is not None:
+            return self.pool.ask_stream(self._row_of[session_id], question,
+                                        **kwargs)
+        return self.sessions[session_id].ask_stream(question, **kwargs)
 
     def _op_save(self, session_id: str, path: str) -> None:
-        self._get(session_id).save(path)
+        self._get(session_id)
+        if self.pool is not None:
+            self.pool.save(self._row_of[session_id], path)
+        else:
+            self.sessions[session_id].save(path)
+
+    def _op_state(self, session_id: str) -> Dict:
+        return self.pool.row_state(self._row_of[session_id])
+
+    def _state(self, session_id: str) -> Dict:
+        """``{"cache_tokens", "turns"}`` of a session: read here, or from
+        the data group that holds its pool row (a device call every rank
+        makes; the caller holds the lock)."""
+        sess = self._get(session_id)
+        if isinstance(sess, _HeldElsewhere):
+            return self._device("_op_state", session_id)
+        return {"cache_tokens": sess.write_index,
+                "turns": len(sess.hist_qs)}
 
     def _op_restore(self, session_id: str, path: str) -> None:
         if self.pool is not None:
@@ -646,8 +687,7 @@ class SessionServer:
             old = self._row_of.pop(session_id, None)
             if old is not None:
                 self.pool.close(old)
-            self._row_of[session_id] = row
-            self.sessions[session_id] = self.pool.sessions[row]
+            self._bind(session_id, row)
         else:
             sess = self._mk()
             sess.load_state(path)
@@ -805,8 +845,10 @@ class SessionServer:
                                 "buffered_max": stream.buffered_max}
                 n_frames = stream.frames_seen
         self._auto_snapshot(session_id)
+        with self.lock:
+            cache_tokens = self._state(session_id)["cache_tokens"]
         # request-local stats: concurrent ingests never mix
-        return {"frames": n_frames, "cache_tokens": sess.write_index,
+        return {"frames": n_frames, "cache_tokens": cache_tokens,
                 "decode_backend": decode_stats["backend"],
                 "decode_buffered_max": decode_stats["buffered_max"]}
 
@@ -842,7 +884,7 @@ class SessionServer:
         sessions stream too (their row is theirs alone); the lock is held
         for the whole stream, so batched asks queue behind it."""
         with self.lock:
-            sess = self._get(session_id)
+            self._get(session_id)
             with self.timer.stage("ask"):
                 if self.link is not None:
                     # every rank runs the stream; rank 0's items come here
@@ -851,18 +893,19 @@ class SessionServer:
                         max_new_tokens=max_new_tokens,
                         extra_eos_ids=self.extra_eos_ids)
                     return
-                yield from sess.ask_stream(
-                    question, mode=mode, max_new_tokens=max_new_tokens,
+                yield from self._op_ask_stream(
+                    session_id, question, mode=mode,
+                    max_new_tokens=max_new_tokens,
                     extra_eos_ids=self.extra_eos_ids)
 
     def save_session(self, session_id: str, path: str) -> Dict:
         """Snapshot a live session to disk (atomic npz; on a mesh, rank
         0's disk)."""
         with self.lock:
-            sess = self._get(session_id)
             self._device("_op_save", session_id, path)
+            state = self._state(session_id)
         return {"session_id": session_id, "path": path,
-                "cache_tokens": sess.write_index}
+                "cache_tokens": state["cache_tokens"]}
 
     def restore_session(self, session_id: str, path: str) -> Dict:
         """Recreate a session from a snapshot, replacing one of the same
@@ -871,9 +914,8 @@ class SessionServer:
         failed restore leaves the old session usable and leaks nothing."""
         with self.lock:
             self._device("_op_restore", session_id, path)
-        return {"session_id": session_id,
-                "cache_tokens": self.sessions[session_id].write_index,
-                "turns": len(self.sessions[session_id].hist_qs)}
+            state = self._state(session_id)
+        return {"session_id": session_id, **state}
 
     def close(self) -> None:
         """Stop the batching frontend's thread (pooled servers); rank 0 of
@@ -1185,6 +1227,11 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; under "
                          "torchrun the card LOCAL_RANK)")
+    ap.add_argument("--data-parallel", type=int, default=1,
+                    help="under torchrun: data groups of the (data, model) "
+                         "mesh (the world size over it is the model "
+                         "axis); solo sessions replicate over them, pool "
+                         "rows split across them")
     argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
 
@@ -1196,12 +1243,16 @@ def main(argv=None):
         # world: each rank serves supervised, without a child
         os.environ[SUPERVISED_ENV] = "1"
     flags = quant_flags(args)
-    # under torchrun (WORLD_SIZE > 1): tensor-parallel over every rank,
-    # each on its card over NCCL, or with --device cpu over gloo
+    # under torchrun (WORLD_SIZE > 1): a (data, model) mesh over every
+    # rank, each on its card over NCCL, or with --device cpu over gloo
     from ..parallel.distributed import initialize_if_needed, local_rank
     from ..parallel.mesh import make_mesh
 
     mesh = None
+    if args.data_parallel != 1 and int(os.environ.get("WORLD_SIZE",
+                                                      "1")) == 1:
+        raise SystemExit("--data-parallel needs a world of ranks "
+                         "(torchrun --nproc-per-node N)")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         if args.device is None:
             args.device = f"cuda:{local_rank()}"
@@ -1209,7 +1260,7 @@ def main(argv=None):
         if on_card:
             torch.cuda.set_device(args.device)
         initialize_if_needed(backend="nccl" if on_card else "gloo")
-        mesh = make_mesh(data_parallel=1)
+        mesh = make_mesh(data_parallel=args.data_parallel)
     from ..config import load_generation_config, load_hf_config
     from ..models.checkpoint import load_cogreasoner_from_hf
     from ..processor.tokenizer import load_tokenizer
@@ -1236,7 +1287,7 @@ def main(argv=None):
         return
     print(f"serving on {args.host}:{args.port}"
           + (f" (pooled x{args.pool_rows})" if args.pool_rows else "")
-          + (f" (tensor-parallel x{mesh.size})" if mesh is not None
+          + (f" (mesh {mesh.data} x {mesh.model})" if mesh is not None
              else ""),
           flush=True)
     serve(server, args.port, args.host)

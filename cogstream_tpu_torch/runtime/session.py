@@ -35,7 +35,12 @@ heads, and every host decision reads values that are the same on every
 rank. A sharded session's snapshot is the solo one: the first rank of the
 model group gathers every kv head and alone writes the file, and on
 ``load_state`` alone reads it and sends each rank its kv heads and the
-rest of the state (no disk shared by the ranks is assumed).
+rest of the state (no disk shared by the ranks is assumed). A solo session
+on a mesh with a ``data`` axis is replicated over the data groups (as in
+JAX): rank 0 (data index 0, model index 0) alone writes and reads its
+file, hands the whole cache to the other groups' first ranks, and an error
+is agreed over the whole world. A pool row keeps its data group's first
+rank.
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ from ..models.cogreasoner import (SUMMARY_INSTRUCTION, SUMMARY_SYSTEM,
                                   with_serving_flags)
 from ..models.qwen2 import (KVCache, Qwen2Model, init_kv_cache, kv_bytes,
                             local_kv_heads, to_cache)
-from ..parallel.mesh import agree, broadcast_object
+from ..parallel.mesh import agree, broadcast_from_first, broadcast_object
 from ..parallel.sharding import (ensure_cogreasoner_sharded,
                                  gather_kv_heads, scatter_kv_heads,
                                  shard_adapters, sharded_mesh)
@@ -983,9 +988,15 @@ class StreamingSession:
     # ------------------------------------------------------------------
 
     def _mesh_group(self):
-        """(mesh, model group) of a sharded session; (None, None) solo."""
+        """(mesh, model group, replicas) of a sharded session ((None, None,
+        False) solo); ``replicas``: a session on a mesh with a ``data``
+        axis that every data group holds a copy of (a solo session, or a
+        row of a pool whose rows are not split)."""
         mesh = sharded_mesh(self.model)
-        return mesh, None if mesh is None else mesh.model_group
+        if mesh is None:
+            return None, None, False
+        split = self._pool is not None and self._pool.split
+        return mesh, mesh.model_group, mesh.data > 1 and not split
 
     def save(self, path: str) -> None:
         """Snapshot this session (its cache row trimmed to the fill level
@@ -999,9 +1010,12 @@ class StreamingSession:
 
         Sharded (every rank calls it): the model group's first rank
         gathers every kv head and writes the solo file; the other ranks
-        write nothing. A failed write raises on every rank
-        (``parallel.mesh.AgreedError``)."""
-        mesh, group = self._mesh_group()
+        write nothing. A failed write raises on every rank of the model
+        group (``parallel.mesh.AgreedError``). A session replicated over
+        data groups is written by rank 0 alone, its error agreed over the
+        world."""
+        mesh, group, replicas = self._mesh_group()
+        agreed = mesh.host_group if replicas else group
         if self._rep_pending:
             raise RuntimeError("ingest left unflushed event reps")
         row = self._row if self._pool is not None else 0
@@ -1011,15 +1025,15 @@ class StreamingSession:
         if group is not None:
             k = gather_kv_heads(k, self.cfg.text, mesh, dim=2)
             v = gather_kv_heads(v, self.cfg.text, mesh, dim=2)
-            if k is None:          # not the first rank: it writes nothing
-                agree(None, group)
-                return
+        if k is None or (replicas and mesh.data_index != 0):
+            agree(None, agreed)    # not the writer: it writes nothing
+            return
         error = None
         try:
             self._write_snapshot(path, k, v, c.pos[row, :wi])
         except Exception as e:  # noqa: BLE001 — raised on every rank
             error = e
-        agree(error, group)
+        agree(error, agreed)
 
     def _write_snapshot(self, path: str, k, v, pos) -> None:
         import hashlib
@@ -1118,29 +1132,44 @@ class StreamingSession:
         Sharded (every rank calls it): the model group's first rank reads
         the file and sends every rank the state and its kv heads, so every
         rank restores the same generator state; a snapshot that does not
-        fit raises on every rank (``parallel.mesh.AgreedError``)."""
-        mesh, group = self._mesh_group()
+        fit raises on every rank (``parallel.mesh.AgreedError``). A
+        session replicated over data groups is read by rank 0 alone, which
+        sends the whole cache to the other groups' first ranks and the
+        state to every rank; an error is agreed over the world."""
+        mesh, group, replicas = self._mesh_group()
+        agreed = mesh.host_group if replicas else group
+        # the first rank of its model group, and the reader
         first = group is None or mesh.model_index == 0
+        reader = first and not (replicas and mesh.data_index != 0)
         snap, error = None, None
-        if first:
+        if reader:
             try:
                 snap = self._read_snapshot(path)
             except Exception as e:  # noqa: BLE001 — raised on every rank
                 error = e
-        agree(error, group)
+        agree(error, agreed)
         c = self.cache
         kv = {}
-        if first:
+        if reader:
             # cast into the session's cache dtype, as JAX does: a bf16
             # snapshot loads into an fp8 session (saturating at +-448 where
             # JAX's cast gives NaN, ROADMAP Queue 3)
             for name, cache_t in (("k", c.k), ("v", c.v)):
                 kv[name] = to_cache(torch.as_tensor(
                     snap["arrays"].pop(name)).to(self.device), cache_t.dtype)
-        if group is not None:
-            snap = broadcast_object(snap, group)
-            wi = int(snap["meta"]["wi"])
-            for name, cache_t in (("k", c.k), ("v", c.v)):
+        if agreed is not None:
+            snap = broadcast_object(snap, agreed)
+        wi = int(snap["meta"]["wi"])
+        for name, cache_t in (("k", c.k), ("v", c.v)):
+            if replicas and first:
+                # rank 0's whole cache to the other data groups' first
+                # ranks (the data group of model index 0)
+                whole = cache_t.new_empty(
+                    (cache_t.shape[0], wi, self.cfg.text.num_key_value_heads)
+                    + tuple(cache_t.shape[4:]))
+                kv[name] = broadcast_from_first(kv.get(name), whole,
+                                                mesh.data_group)
+            if group is not None:
                 like = cache_t.new_empty((cache_t.shape[0], wi)
                                          + tuple(cache_t.shape[3:]))
                 kv[name] = scatter_kv_heads(kv.get(name), like,

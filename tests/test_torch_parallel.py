@@ -22,10 +22,21 @@ fallbacks of parallel/sharding.py):
   cache equal to JAX's at that rank's kv heads within 1e-5 of the row max;
 * ``encoder_int8`` at tp = 2, an int8 decoder under ``w8a8_prefill`` +
   ``encoder_int8``, and a weight-only rank-1 int4 decoder, against JAX
-  mesh sessions of the same trees and flags; int8 activations on a
-  sharded int4 decoder (``w4a8_decode``, ``w8a8_prefill``) raise, since
-  the JAX mesh session runs them through its XLA W4A8 branch, which the
-  port's shards do not have yet (ROADMAP Queue 3);
+  mesh sessions of the same trees and flags;
+* the rank-1 int4 decoder's shards with int8 activations (``w4a8_decode``,
+  ``w8a8_prefill`` and both) at tp = 2 and 4 against the JAX mesh session
+  (its XLA W4A8 branch: per row and GLOBAL half int8 activations): texts
+  and ``cache_tokens`` equal, forwards within 3e-3 of the row max and the
+  cache within 5e-3 (the int4 / int8 rounding bounds of
+  tests/test_torch_quant.py) of the port's solo session, and of JAX's
+  unless prefills take int8 activations (then 5e-2, the W8A8 session
+  bound: the solo port session sits 6.7e-3 from JAX's there); weight-only
+  shards, and shards whose halves
+  quantize at their own (local) scales, miss those bounds at tp = 4; in
+  one process (threads standing in for ranks) the row-parallel W4A8 forms
+  at tp = 2 and 4 against the whole weight's, and group-wise int4 / NF4
+  of row and column shards byte-equal to the slice of the whole
+  quantization;
 * the engine's text turn (vanilla and lookahead) at tp = 2;
 * ``SessionPool`` on a (data = 2, model = 2) mesh (tests/test_pool.py::
   test_pool_on_tp_mesh_matches_unsharded);
@@ -56,7 +67,14 @@ fallbacks of parallel/sharding.py):
   ``LoraLayout``'s refusal where kv heads are shared by ranks (tp = 4);
 * the mesh server's /save and /restore (solo and pooled) answering as
   the solo server's, and a fresh mesh server's ``restore_all`` answering
-  as the solo server that never stopped.
+  as the solo server that never stopped;
+* ``SessionServer(mesh=)`` on (data 2, model 2) in the 4-rank world, solo
+  (sessions replicated over the data groups) and pooled (4 rows, two a
+  group), answering as the solo server and as JAX's
+  ``SessionServer(mesh=make_mesh(2, 2))``, its snapshots and restart as
+  above: a solo session's files written and read by rank 0 alone, a row
+  data group 1 holds by rank 2 alone; and, in a 4-rank fault world, a
+  rank of data group 1 failing mid-ask: a 503 and every rank gone.
 """
 
 import dataclasses
@@ -91,6 +109,7 @@ from cogstream_tpu.processor.tokenizer import ByteTokenizer as JTok
 from cogstream_tpu.runtime.engine import CogReasonerEngine as JEngine
 from cogstream_tpu.runtime.generate import generate_tokens as j_generate
 from cogstream_tpu.runtime.pool import SessionPool as JPool
+from cogstream_tpu.runtime.serve import SessionServer as JServer
 from cogstream_tpu.runtime.session import StreamingSession as JSession
 from cogstream_tpu_torch.config import (CogReasonerConfig as TConfig,
                                         CompressionConfig as TCompression)
@@ -113,6 +132,15 @@ HIST_CONVERSATION = [
     {"role": "assistant", "content": "a noisy pattern."},
     {"role": "user", "content": "and what came after it?"}]
 WORLD_TIMEOUT_S = 300
+# the int4 decoder's int8-activation modes, and the forwards' lengths
+# (tests/torch_parallel_child.py)
+W4A8_MODES = {"w4a8_decode": {"w4a8_decode": True},
+              "w8a8_prefill": {"w8a8_prefill": True},
+              "both": {"w4a8_decode": True, "w8a8_prefill": True}}
+W4A8_LENGTHS = (8, 16)
+# int4 / int8 rounding bounds, of the row max (tests/test_torch_quant.py)
+INT4_FORWARD = 3e-3
+INT4_CACHE = 5e-3
 
 
 def _flat(tree, prefix=""):
@@ -193,7 +221,8 @@ def data(tmp_path_factory):
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("RANK", "WORLD_SIZE", "MASTER_"))}
     procs, faults = [], {}
-    for world, fault in ((2, None), (4, None), (2, "early"), (2, "mid")):
+    for world, fault in ((2, None), (4, None), (2, "early"), (2, "mid"),
+                         (4, "dp")):
         port = _free_port()
         for r in range(world):
             name = f"w{world}_r{r}" if fault is None else f"{fault}_r{r}"
@@ -254,8 +283,16 @@ def jref(data):
     session("enc8", 2, params, lookahead=False, encoder_int8=True)
     session("int8", 2, trees["params_int8"], _jcfg(w8a8_prefill=True),
             encoder_int8=True)
-    # weight-only: the port's mesh int4 decode with w4a8_decode asked
-    session("int4", 2, trees["params_int4"])
+    int4 = trees["params_int4"]
+    session("int4", 2, int4)
+    # int8 activations on the int4 tree: the mesh sessions, and the whole
+    # forwards (on the CPU the mesh and the whole tree both take the XLA
+    # W4A8 branch)
+    for mode, flags in W4A8_MODES.items():
+        c = _jcfg(**flags)
+        for tp in (2, 4):
+            session(f"int4_{mode}{tp}", tp, int4, c, lookahead=False)
+        out[f"int4f_{mode}"] = _jax_forwards(int4["text"], ids, c.text)
 
     S, new = ids.shape[1], 8
     emb = jq.embed(params["text"], jnp.asarray(ids))
@@ -315,7 +352,44 @@ def jref(data):
                                      "selection": a["selection"]}
                             for b, a in ans.items()})
     out["adapters"] = res
+
+    # JAX's server on (data 2, model 2), as the port's mesh server is asked
+    mesh22 = j_make_mesh(2, 2, devices=devs[:4])
+    for kind, kw in (("solo", {}), ("pooled", {"pool_rows": 4})):
+        srv = JServer(params, cfg, tok, max_len=2048, mesh=mesh22, **kw)
+        out[f"jserver_{kind}"] = _jax_server_turns(
+            srv, os.path.join(d, "frames"))
     return out
+
+
+def _jax_forwards(text, ids, tcfg):
+    """{S: (hidden, logits)} of the prompt's first S tokens through the
+    JAX decoder under ``tcfg``'s flags, the head under ``w4a8_decode``."""
+    out = {}
+    for S in W4A8_LENGTHS:
+        emb = jq.embed(text, jnp.asarray(ids[:, :S]))
+        h, _ = jq.qwen2_forward(text, emb, jnp.asarray(
+            np.arange(S, dtype=np.int32)[None]), tcfg)
+        out[S] = (np.asarray(h), np.asarray(
+            jq.lm_logits(text, h, w8a8=tcfg.w4a8_decode)))
+    return out
+
+
+def _jax_server_turns(srv, frames):
+    """The calls of tests/torch_parallel_child.py's ``_http_turns`` on a
+    JAX server: creates, ingests, AC and FCC asks of two sessions, and a
+    streamed ask."""
+    got = []
+    for sid in ("a", "b"):
+        got.append(srv.create(sid))
+        r = srv.ingest(sid, frames, None, None, 1.0)
+        got.append({k: r[k] for k in ("frames", "cache_tokens")})
+    for q, mode in (("what is happening?", "AC"), ("and now?", "FCC")):
+        for sid in ("a", "b"):
+            got.append(srv.ask(sid, q, mode=mode, max_new_tokens=6))
+    items = list(srv.ask_stream("a", "more?", mode="AC", max_new_tokens=6))
+    got.append({"text": "".join(items[:-1]), "meta": items[-1]})
+    return json.loads(json.dumps(got))
 
 
 @pytest.fixture(scope="module")
@@ -561,13 +635,92 @@ def test_quantized_sessions(jref, worlds, tag, tol):
         _cache_matches(res, arrays, tag, ref, tol)
 
 
-def test_int4_activations_on_a_mesh_raise(worlds):
-    """w4a8_decode or w8a8_prefill on a sharded int4 decoder raises (at
-    the session, and in a forward), never runs weight-only unasked."""
-    for res, _ in worlds[2]:
-        got = res["int4_act"]
-        assert set(got) == {"w4a8_decode", "w8a8_prefill", "forward"}
-        assert all(m == tsh.INT4_ACT_MSG for m in got.values()), got
+@pytest.fixture(scope="module")
+def solo_int4(data):
+    """The port's solo (whole-model) int4 session under each mode: the
+    reference that isolates what the shards add."""
+    cfg = dataclasses.replace(TConfig.tiny(),
+                              compression=TCompression(**COMP))
+    tree = jax.tree.map(np.asarray, data[2]["params_int4"])
+    out = {}
+    for mode, flags in W4A8_MODES.items():
+        c = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text,
+                                                              **flags))
+        sess = TSession(bridge.cogreasoner_from_params(tree, c, device="cpu"),
+                        c, TTok(image_token_id=c.image_token_index),
+                        max_len=1024, summary_forward=False)
+        sess.append_stream_segment(data[3], SEG, 2, [0.0, 1.0])
+        a = sess.ask(QUESTION, mode="AC", max_new_tokens=6)
+        out[mode] = {"text": a["text"], "k": sess.cache.k.numpy(),
+                     "v": sess.cache.v.numpy(),
+                     "pos": sess.cache.pos.numpy()}
+    return out
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("mode", list(W4A8_MODES))
+def test_int4_w4a8_sessions(jref, worlds, solo_int4, mode, world):
+    """A sharded rank-1 int4 decoder under ``mode`` gives the JAX mesh
+    session's text and fill level, and every rank's tokens equal rank
+    0's. Each rank's cache at its kv heads: within the int4 rounding
+    bound (5e-3 of the row max) of the port's solo session, and of JAX's
+    where only decode steps take int8 activations; where prefills do
+    (``w8a8_prefill``), within the W8A8 session bound (5e-2) of JAX's,
+    as the solo port session is too: an int8 rounding flip in the ingest
+    prefill puts it 6.7e-3 from JAX's solo session (measured), the
+    products themselves being bit-equal (tests/test_torch_quant_modes.py
+    ``test_w4a8_prefill_branch``)."""
+    tag = f"int4_{mode}{world}"
+    ref = jref[tag]
+    to_jax = W8A8_SESSION if W4A8_MODES[mode].get("w8a8_prefill") \
+        else INT4_CACHE
+    for res, arrays in worlds[world]:
+        got = res[tag]
+        assert got["text"] == ref["text"] == solo_int4[mode]["text"]
+        assert got["cache_tokens"] == ref["cache_tokens"]
+        assert got["tokens"] == worlds[world][0][0][tag]["tokens"]
+        _cache_matches(res, arrays, tag, ref, to_jax)
+        _cache_matches(res, arrays, tag, solo_int4[mode], INT4_CACHE)
+
+
+def _forward_errors(res, arrays, tag, ref):
+    """{(S, "hidden" | "logits"): max error of the row max} of one rank's
+    forwards ``tag`` against JAX's ``ref`` ({S: (hidden, logits)})."""
+    lo, hi = res["forward2" if "forward2" in res else "forward4"]["vocab"]
+    out = {}
+    for S, (h, logits) in ref.items():
+        for name, want in (("hidden", h[0]), ("logits", logits[0][:, lo:hi])):
+            got = np.asarray(arrays[f"{tag}_s{S}_{name}"][0], np.float64)
+            scale = np.maximum(np.abs(want).max(axis=-1, keepdims=True),
+                               1e-30)
+            out[(S, name)] = float((np.abs(got - want) / scale).max())
+    return out
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("mode", list(W4A8_MODES))
+def test_int4_w4a8_forwards(jref, worlds, mode, world):
+    """The sharded int4 decoder's forwards under ``mode`` (a prefill- and
+    a decode-length prompt): hidden states and each rank's logits slice
+    within 3e-3 of the row max of JAX's."""
+    for res, arrays in worlds[world]:
+        errs = _forward_errors(res, arrays, f"int4f_{mode}{world}",
+                               jref[f"int4f_{mode}"])
+        assert max(errs.values()) <= INT4_FORWARD, errs
+
+
+@pytest.mark.parametrize("control", ["weight_only", "local_scales"])
+def test_int4_w4a8_mode_controls_miss(jref, worlds, control):
+    """At tp = 4, against JAX's forwards under both flags: the shards run
+    weight-only, or with each rank's halves quantized at their own scales
+    (the global halves' MAX left out), miss the bound the W4A8 shards
+    meet, in the decode- and the prefill-length forward."""
+    for res, arrays in worlds[4]:
+        errs = _forward_errors(res, arrays, f"int4f_{control}4",
+                               jref["int4f_both"])
+        for S in W4A8_LENGTHS:
+            assert max(errs[(S, "hidden")], errs[(S, "logits")]) \
+                > INT4_FORWARD, errs
 
 
 def test_engine_text_turn(jref, worlds):
@@ -628,22 +781,25 @@ FAULT_GROUP_TIMEOUT_S = 10
 FATAL_EXIT = 17
 
 
-@pytest.mark.parametrize("case", ["early", "mid"])
+@pytest.mark.parametrize("case", ["early", "mid", "dp"])
 def test_server_rank_failure_ends_every_rank(data, case):
-    """A sharded server at tp = 2 whose rank 1 fails in an ask (before
-    any collective of it, or mid-forward): rank 0's client gets a 503
-    naming rank 1's error, and both ranks exit with rc 17 within a few
-    seconds, well before the group's timeout (no rank is left waiting in
-    a collective). Before that, rank 1 idles past the group timeout
-    between requests and the first ask is answered."""
+    """A sharded server whose failing rank fails in an ask: at tp = 2
+    rank 1, before any collective of the ask or mid-forward; on (data 2,
+    model 2) rank 2, data group 1's first rank, mid-forward. Rank 0's
+    client gets a 503 naming that rank's error, and every rank exits with
+    rc 17 within a few seconds, well before the group's timeout (no rank
+    is left waiting in a collective). Before that, the followers idle
+    past the group timeout between requests and the first ask is
+    answered."""
     d, faults = data[0], data[5]
     procs = faults[case]
+    failing = 2 if case == "dp" else 1
     path = os.path.join(d, f"{case}.port")
     deadline = time.time() + WORLD_TIMEOUT_S
     while not os.path.exists(path):
         if time.time() > deadline or any(p.poll() is not None
                                          for p in procs):
-            with open(os.path.join(d, f"{case}_r1.log")) as f:
+            with open(os.path.join(d, f"{case}_r{failing}.log")) as f:
                 pytest.fail(f"fault world {case} did not serve:\n"
                             + f.read()[-3000:])
         time.sleep(0.2)
@@ -667,9 +823,9 @@ def test_server_rank_failure_ends_every_rank(data, case):
     rcs = [p.wait(timeout=60) for p in procs]
     ended = time.time() - t0
     assert status == 503 and body["mesh_fatal"] is True, body
-    assert body["error"].startswith("rank 1: _op_ask failed"), body
+    assert body["error"].startswith(f"rank {failing}: _op_ask failed"), body
     assert "injected fault" in body["error"], body
-    assert rcs == [FATAL_EXIT, FATAL_EXIT]
+    assert rcs == [FATAL_EXIT] * len(procs)
     assert ended < FAULT_GROUP_TIMEOUT_S / 2, ended
 
 
@@ -911,3 +1067,240 @@ def test_sliced_head_adapter_gathers_the_ranks_columns():
     assert torch.equal(parts[0] + parts[1], b[:, lid])
     whole = types.SimpleNamespace(tp=None)
     assert torch.equal(_sliced_lora_b(whole, b, lid), b[:, lid])
+
+
+# ---------------------------------------------------------------------------
+# a server on (data 2, model 2)
+# ---------------------------------------------------------------------------
+
+ASK_KEYS = ("text", "selection", "if_visual", "turn", "cache_tokens")
+
+
+@pytest.mark.parametrize("kind", ["solo", "pooled"])
+def test_data_mesh_server_answers_as_solo_and_jax(jref, worlds, kind):
+    """``SessionServer(mesh=)`` on (data 2, model 2) over HTTP: solo
+    sessions (replicated over the data groups) and a 4-row pool (rows 0-1
+    on data group 0, 2-3 on group 1) answer as the solo server on the
+    whole model, and as JAX's server on its (2, 2) mesh: creates, ingests,
+    AC and FCC asks and a streamed ask."""
+    got = worlds[4][0][0]["server_dp"][kind]
+    assert got["got"] == got["want"]
+    assert len(got["got"]) == 9
+    want = jref[f"jserver_{kind}"]
+    assert got["got"][:4] == want[:4]
+    for g, w in zip(got["got"][4:8], want[4:8]):
+        assert {k: g[k] for k in ASK_KEYS} == {k: w[k] for k in ASK_KEYS}
+    assert got["got"][8]["text"] == want[8]["text"]
+    assert {k: got["got"][8]["meta"][k] for k in ASK_KEYS} == \
+        {k: want[8]["meta"][k] for k in ASK_KEYS}
+
+
+@pytest.mark.parametrize("kind", ["solo", "pooled"])
+def test_data_mesh_server_snapshots(worlds, kind):
+    """The (2, 2) server's /save, /restore and restart answer as the solo
+    server's. Solo sessions: every file (the /save and each
+    auto-snapshot) is written and read by rank 0 alone. Pooled: session a
+    (row 0) is saved by rank 0, restored as c onto row 2, which data
+    group 1 holds: rank 2 alone reads it and writes c's auto-snapshots,
+    and reads them back at the restart."""
+    got = worlds[4][0][0]["server_dp"][kind]
+    assert got["snap_got"] == got["snap_want"]
+    code, body = got["missing"]
+    assert code == 500 and body["error"].startswith("FileNotFoundError")
+    assert got["created"] == ([200, 200] if kind == "solo" else [200, 500])
+    assert got["serving_after"] == 200
+    assert got["restored"] == ["a", "b", "c"]
+    after = got["after_restart"]
+    assert after[0] == after[1] and after[2] == after[3]
+    stem = f"server_dp_{kind}"
+    io = [{op: sorted({p for p in res["snapshot_io"][op]
+                       if p.startswith(stem) and not p.endswith("_ref.npz")})
+           for op in ("written", "read")} for res, _ in worlds[4]]
+    auto = {f"{stem}/{sid}.snap.npz" for sid in ("a", "b", "c")}
+    if kind == "solo":
+        assert set(io[0]["written"]) == auto | {f"{stem}_a.npz"}
+        assert set(io[0]["read"]) == auto | {f"{stem}_a.npz"}
+        assert all(not x["written"] and not x["read"] for x in io[1:])
+        return
+    c = f"{stem}/c.snap.npz"
+    assert set(io[0]["written"]) == auto - {c} | {f"{stem}_a.npz"}
+    assert io[2]["written"] == [c]
+    assert io[2]["read"] == sorted([f"{stem}_a.npz", c])
+    assert set(io[0]["read"]) == auto - {c}
+    assert not any(x["written"] or x["read"] for x in (io[1], io[3]))
+
+
+# ---------------------------------------------------------------------------
+# int4 shards in one process (threads standing in for ranks)
+# ---------------------------------------------------------------------------
+
+class _ThreadGroup:
+    """A group of threads standing in for ranks: each all-reduce waits
+    for every member's tensor and gives each the combination."""
+
+    def __init__(self, n):
+        import threading
+
+        self.n = n
+        self.barrier = threading.Barrier(n)
+        self.slots = [None] * n
+        self.local = threading.local()
+
+    def reduce(self, x, op):
+        self.slots[self.local.rank] = x.detach().clone()
+        self.barrier.wait()
+        stack = torch.stack(list(self.slots))
+        self.barrier.wait()
+        return stack.sum(0) if op == "sum" else stack.amax(0)
+
+
+def _threaded(monkeypatch, n, fn):
+    """``fn(rank, group)`` on ``n`` threads through one :class:`_ThreadGroup`
+    (the port's ``all_reduce`` and group sizes patched to it); the
+    results in rank order."""
+    import threading
+
+    from cogstream_tpu_torch.parallel import mesh as tmesh
+
+    def reduce(x, group, op="sum"):
+        return x if group is None else group.reduce(x, op)
+
+    monkeypatch.setattr(tmesh, "all_reduce", reduce)
+    monkeypatch.setattr(tquant, "all_reduce", reduce)
+    monkeypatch.setattr(tquant, "ranks_in", lambda g: 1 if g is None
+                        else g.n)
+    group, out, errors = _ThreadGroup(n), [None] * n, []
+
+    def run(r):
+        group.local.rank = r
+        try:
+            out[r] = fn(r, group)
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+            group.barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _row_slice(qp, lo, hi, din):
+    kinds = {"q4": "q4", "scale": "gs" if "rscale" not in qp else "s",
+             "rscale": "r", "code": "rep"}
+    return {k: tsh.slice_leaf(v, tsh.LeafSpec(tsh.Spec(inn=(lo, hi)),
+                                              kinds[k], din))
+            for k, v in qp.items()}
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_int4_w4a8_row_shard_equals_whole(monkeypatch, tp):
+    """A row-parallel rank-1 int4 shard's W4A8 forms against the whole
+    weight's, on a shape both GEMV routes take (din 1024 / tp packed in
+    halves of 128-multiples, dout 256): the prefill branch bit-equal to
+    the whole one, K7's and K9's plain routes (m = 3) within 1e-6 of the
+    row max of the whole GEMV; with each rank's halves at their own
+    scales they miss 1e-3, and at tp = 4 also with only the global halves'
+    MAX left out (at tp = 2 each rank's rows are one global half, so the
+    MAX has nothing to combine)."""
+    from cogstream_tpu_torch.ops import quant_gemv as qg
+
+    rng = np.random.default_rng(0)
+    din, dout, m = 1024, 256, 3
+    w = torch.tensor(rng.standard_normal((din, dout)), dtype=torch.float32)
+    qp = tquant.quantize_int4_rank1(w, nf4=False)
+    x = torch.tensor(rng.standard_normal((m, din)), dtype=torch.float32)
+    f32 = torch.float32
+    whole = {"prefill": tquant._w4a8_prefill(x, qp, f32),
+             "k7": qg.int4_rank1_gemv(x, qp, f32, w4a8=True)}
+    stacked = {k: v[None] for k, v in qp.items()}
+    layer = torch.zeros(1, dtype=torch.int32)
+    whole["k9"] = qg.int4_rank1_gemv_stacked(x, stacked, layer, f32,
+                                             w4a8=True)
+    n = din // tp
+
+    def rank(r, group):
+        lo, hi = r * n, (r + 1) * n
+        loc = _row_slice(qp, lo, hi, din)
+        rows = tquant.RowShard(din, lo, hi, group)
+        xl = x[:, lo:hi]
+        st = {k: v[None] for k, v in loc.items()}
+        out = {"prefill": tquant._w4a8_prefill(xl, loc, f32, rows),
+               "k7": tquant.int4_matmul(xl, loc, f32, act_int8=True,
+                                        reduce=group, rows=rows),
+               "k9": qg.int4_rank1_gemv_stacked(xl, st, layer, f32,
+                                                w4a8=True, rows=rows),
+               "local": tquant.int4_matmul(xl, loc, f32, act_int8=True,
+                                           reduce=group)}
+        solo = tquant.RowShard(din, lo, hi, None)       # no MAX
+        out["no_max"] = group.reduce(qg.int4_rank1_gemv_plain(
+            xl, loc, f32, w4a8=True, rows=solo), "sum")
+        return out
+
+    assert qg.gemv_viable(_row_slice(qp, 0, n, din), m)
+    for out in _threaded(monkeypatch, tp, rank):
+        assert torch.equal(out["prefill"], whole["prefill"])
+        top = whole["k7"].abs().amax(-1, keepdim=True)
+        for key in ("k7", "k9"):
+            assert ((out[key] - whole[key]).abs() / top).max() <= 1e-6
+        assert ((out["local"] - whole["k7"]).abs() / top).max() > 1e-3
+        miss = ((out["no_max"] - whole["k7"]).abs() / top).max()
+        assert (miss > 1e-3) if tp == 4 else (miss <= 1e-6)
+    with pytest.raises(ValueError, match="straddle"):
+        tquant.RowShard(12, 2, 8, None).halves()
+
+
+@pytest.mark.parametrize("nf4", [True, False])
+def test_groupwise_shard_quantization_is_the_slice(monkeypatch, nf4):
+    """Group-wise NF4 / uniform int4 (groups of 32 along din) of a row
+    shard (tp = 2 and 4: each holds whole groups) and of a column shard
+    equals the slice of the whole weight's quantization byte for byte,
+    the row shard's halves repacked to its own pairing; a weight whose
+    whole din the group does not divide falls back to int8 as the whole
+    does (the slice of the whole int8); a row shard that splits a group
+    raises (four shards of 24 rows of a 96-row weight)."""
+    rng = np.random.default_rng(1)
+    din, dout, G = 256, 48, 32
+    w = torch.tensor(rng.standard_normal((din, dout)), dtype=torch.float32)
+    whole = tquant.quantize_kernel(w, 4, G, nf4)
+    assert "q4" in whole and "rscale" not in whole
+
+    def same(a, b):
+        return set(a) == set(b) and all(
+            a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+
+    for tp in (2, 4):
+        n = din // tp
+        got = _threaded(monkeypatch, tp, lambda r, g: tquant.quantize_kernel(
+            w[r * n:(r + 1) * n], 4, G, nf4, row_group=g))
+        for r, part in enumerate(got):
+            assert same(part, _row_slice(whole, r * n, (r + 1) * n, din))
+    cols = torch.arange(16, 32)
+    part = tquant.quantize_kernel(w[:, 16:32], 4, G, nf4, col_group=object())
+    assert same(part, {k: v.index_select(-1, cols) for k, v in whole.items()})
+    # din 264 is no multiple of 32: int8, column scales over both shards
+    w8 = torch.tensor(rng.standard_normal((264, dout)), dtype=torch.float32)
+    want = tquant.quantize_kernel(w8, 4, G, nf4)
+    assert "q" in want
+    got = _threaded(monkeypatch, 2, lambda r, g: tquant.quantize_kernel(
+        w8[r * 132:(r + 1) * 132], 4, G, nf4, row_group=g))
+    for r, part in enumerate(got):
+        assert torch.equal(part["q"], want["q"][r * 132:(r + 1) * 132])
+        assert torch.equal(part["scale"], want["scale"])
+    with pytest.raises(ValueError, match="whole groups"):
+        _threaded(monkeypatch, 4, lambda r, g: tquant.quantize_kernel(
+            w[r * 24:(r + 1) * 24], 4, G, nf4, row_group=g))
+
+
+def test_serve_data_parallel_needs_a_world(monkeypatch):
+    """``serve --data-parallel 2`` outside a world of ranks exits with a
+    message before loading anything."""
+    from cogstream_tpu_torch.runtime import serve
+
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit, match="torchrun"):
+        serve.main(["--model-dir", "/nonexistent", "--data-parallel", "2"])

@@ -10,6 +10,8 @@ which the parent holds to the JAX package's mesh results.
     python tests/torch_parallel_child.py --world 2 --rank R --port P --dir D
     python tests/torch_parallel_child.py --world 2 --rank R --port P --dir D \
         --fault early|mid
+    python tests/torch_parallel_child.py --world 4 --rank R --port P --dir D \
+        --fault dp
 """
 
 import argparse
@@ -66,6 +68,11 @@ def unflatten(path: str):
 
 
 CONT = "and now?"
+# the int4 decoder's int8-activation modes, and the forwards' lengths
+W4A8_MODES = {"w4a8_decode": {"w4a8_decode": True},
+              "w8a8_prefill": {"w8a8_prefill": True},
+              "both": {"w4a8_decode": True, "w8a8_prefill": True}}
+W4A8_LENGTHS = (8, 16)
 HIST_CONVERSATION = [
     {"role": "user", "content": "what is the first scene?"},
     {"role": "assistant", "content": "a noisy pattern."},
@@ -235,29 +242,70 @@ class Rank:
             torch.tensor([S - 1]), cache, None, new, eos_id=-1)
         self.out["generate"] = {"tokens": res.tokens[0].tolist()}
 
-    def int4_activations_refused(self, model, mesh):
-        """int8 activations on a sharded int4 decoder raise at the
-        session, and in a forward of the sharded decoder."""
+    def quant_forward(self, tag, model, mesh, cfg):
+        """Hidden states and this rank's logits slice of the prompt at S =
+        16 (a prefill-length program) and its first 8 tokens (a
+        decode-length one) through the sharded decoder under ``cfg``'s
+        serving flags; the head under ``w4a8_decode``, as decode loops
+        run it."""
         from cogstream_tpu_torch.models import qwen2
+        from cogstream_tpu_torch.models.cogreasoner import with_serving_flags
         from cogstream_tpu_torch.parallel.sharding import shard_cogreasoner
+
+        text = with_serving_flags(shard_cogreasoner(model, cfg, mesh),
+                                  cfg).text
+        ids = torch.from_numpy(np.load(os.path.join(self.dir, "ids.npy")))
+        for S in W4A8_LENGTHS:
+            pos = torch.arange(S, dtype=torch.int32)[None]
+            h, _ = qwen2.qwen2_forward(text, qwen2.embed(text, ids[:, :S]),
+                                       pos)
+            self.arrays[f"{tag}_s{S}_hidden"] = h.numpy()
+            self.arrays[f"{tag}_s{S}_logits"] = qwen2.lm_logits(
+                text, h, w8a8=cfg.text.w4a8_decode).numpy()
+
+    def int4_w4a8(self, model, mesh, world):
+        """The rank-1 int4 decoder's shards under ``w4a8_decode``,
+        ``w8a8_prefill`` and both: a session (AC) and the forwards of
+        :meth:`quant_forward`. At tp = 4 the mode controls: the forwards
+        weight-only, and under both flags with each rank's halves
+        quantized at their own (local) scales."""
+        from cogstream_tpu_torch.models import qwen2
+
+        for mode, flags in W4A8_MODES.items():
+            cfg = self.flags(**flags)
+            self.session(f"int4_{mode}{world}", mesh, model, cfg=cfg,
+                         lookahead=False)
+            self.quant_forward(f"int4f_{mode}{world}", model, mesh, cfg)
+        if world != 4:
+            return
+        self.quant_forward("int4f_weight_only4", model, mesh, self.cfg)
+        shards = qwen2.row_shards
+        qwen2.row_shards = lambda text: {"o_proj": None, "down_proj": None}
+        try:
+            self.quant_forward("int4f_local_scales4", model, mesh,
+                               self.flags(**W4A8_MODES["both"]))
+        finally:
+            qwen2.row_shards = shards
+
+    def snapshot_io(self):
+        """Record every snapshot file this rank writes and reads (paths
+        relative to ``--dir``) under ``out["snapshot_io"]``."""
         from cogstream_tpu_torch.runtime.session import StreamingSession
 
-        res = {}
-        for flag in ("w4a8_decode", "w8a8_prefill"):
-            try:
-                StreamingSession(model, self.flags(**{flag: True}), self.tok,
-                                 max_len=1024, mesh=mesh)
-                res[flag] = None
-            except NotImplementedError as e:
-                res[flag] = str(e)
-        text = shard_cogreasoner(model, self.cfg, mesh).text
-        try:
-            qwen2.lm_logits(text, torch.zeros(1, 1, self.cfg.text.hidden_size),
-                            w8a8=True)
-            res["forward"] = None
-        except NotImplementedError as e:
-            res["forward"] = str(e)
-        self.out["int4_act"] = res
+        io = self.out["snapshot_io"] = {"written": [], "read": []}
+        write, read = (StreamingSession._write_snapshot,
+                       StreamingSession._read_snapshot)
+
+        def spy_write(sess, path, *a):
+            io["written"].append(os.path.relpath(path, self.dir))
+            return write(sess, path, *a)
+
+        def spy_read(sess, path):
+            io["read"].append(os.path.relpath(path, self.dir))
+            return read(sess, path)
+
+        StreamingSession._write_snapshot = spy_write
+        StreamingSession._read_snapshot = spy_read
 
     def engine(self, model, mesh):
         from cogstream_tpu_torch.runtime.engine import CogReasonerEngine
@@ -403,19 +451,20 @@ class Rank:
             "original_whole": sharded_mesh(model) is None,
             "mesh": sharded_mesh(sharded) is mesh}
 
-    def server(self, model, mesh):
+    def server(self, model, mesh, name="server"):
         """SessionServer(mesh=) over HTTP (rank 0) against the solo server
-        on the whole model, solo sessions and a 2-row pool, auto-
+        on the whole model, solo sessions and a 4-row pool, auto-
         snapshotting into rank 0's directory; then /save and /restore, and
         a fresh mesh server whose ``restore_all`` brings the sessions back,
-        against the solo server that never stopped."""
+        against the solo server that never stopped. ``name`` prefixes the
+        result's key and the files."""
         from cogstream_tpu_torch.runtime.serve import (SessionServer,
                                                        make_http_server)
 
         frames = os.path.join(self.dir, "frames")
         res, snaps = {}, {}
         for kind, kw in (("solo", {}), ("pooled", {"pool_rows": 4})):
-            snaps[kind] = os.path.join(self.dir, f"server_{kind}")
+            snaps[kind] = os.path.join(self.dir, f"{name}_{kind}")
             srv = SessionServer(model, self.cfg, self.tok, max_len=2048,
                                 mesh=mesh, auto_snapshot_dir=snaps[kind],
                                 **kw)
@@ -434,7 +483,8 @@ class Rank:
             port = httpd.server_address[1]
             try:
                 res[kind] = self._http_turns(port, ref, frames)
-                res[kind].update(self._http_snapshots(port, ref, kind))
+                res[kind].update(self._http_snapshots(port, ref,
+                                                      f"{name}_{kind}"))
             finally:
                 httpd.shutdown()
                 httpd.server_close()
@@ -453,9 +503,9 @@ class Rank:
             finally:
                 again.close()
                 ref.close()
-        self.out["server"] = res
+        self.out[name] = res
 
-    def _http_snapshots(self, port, ref, kind):
+    def _http_snapshots(self, port, ref, stem):
         """/save of session a, /restore of it as c (and the solo server's
         own save / restore), asks of both; a snapshot that does not exist
         gives the solo server's error and the server serves on."""
@@ -470,8 +520,8 @@ class Rank:
             except urllib.error.HTTPError as e:
                 return e.code, json.loads(e.read())
 
-        path = os.path.join(self.dir, f"server_{kind}_a.npz")
-        ref_path = os.path.join(self.dir, f"server_{kind}_a_ref.npz")
+        path = os.path.join(self.dir, f"{stem}_a.npz")
+        ref_path = os.path.join(self.dir, f"{stem}_a_ref.npz")
         got = [post("/save", {"session_id": "a", "path": path})[1],
                post("/restore", {"session_id": "c", "path": path})[1]]
         want = [dict(ref.save_session("a", ref_path), path=path),
@@ -528,18 +578,20 @@ class Rank:
         return {"got": got, "want": json.loads(json.dumps(want))}
 
     def fault(self, case):
-        """A sharded server (tp = 2, solo sessions) whose rank 1 fails in
-        its second ask: ``early`` as the ask starts, before any collective
-        of it; ``mid`` in its prefill, at the third row-parallel reduce.
-        Rank 0 serves HTTP and writes its port to ``--dir/<case>.port``;
-        the parent test is the client. Neither rank returns: the server's
-        fault path ends both."""
+        """A sharded server (solo sessions) whose failing rank fails in its
+        second ask: ``early`` (tp = 2, rank 1) as the ask starts, before
+        any collective of it; ``mid`` (tp = 2, rank 1) and ``dp`` (data 2
+        x model 2, rank 2: data group 1's first rank) in its prefill, at
+        the third row-parallel reduce. Rank 0 serves HTTP and writes its
+        port to ``--dir/<case>.port``; the parent test is the client. No
+        rank returns: the server's fault path ends them all."""
         from cogstream_tpu_torch.models import qwen2
         from cogstream_tpu_torch.parallel.mesh import make_mesh
         from cogstream_tpu_torch.runtime.serve import (SessionServer,
                                                        make_http_server)
 
-        mesh = make_mesh(data_parallel=1, model_parallel=2)
+        mesh = (make_mesh(data_parallel=2, model_parallel=2) if case == "dp"
+                else make_mesh(data_parallel=1, model_parallel=2))
         srv = SessionServer(self.model(), self.cfg, self.tok, max_len=2048,
                             mesh=mesh)
         if mesh.rank == 0:
@@ -549,6 +601,9 @@ class Rank:
                 f.write(str(httpd.server_address[1]))
             os.replace(path + ".tmp", path)
             httpd.serve_forever()
+            return
+        if mesh.rank != (2 if case == "dp" else 1):
+            srv.follow()
             return
         asks, reduces = [], []
         op_ask, dense = srv._op_ask, qwen2.dense
@@ -593,7 +648,7 @@ class Rank:
                      cfg=self.flags(w8a8_prefill=True), encoder_int8=True)
         int4 = self.model("params_int4")
         self.session("int4", tp, int4)
-        self.int4_activations_refused(int4, tp)
+        self.int4_w4a8(int4, tp, 2)
         self.engine(model, tp)
         self.loader(tp)
         self.server(model, tp)
@@ -616,6 +671,9 @@ class Rank:
         self.pool(model, dp)
         self.pool_snapshot(model, dp)
         self.jax_snapshot("session4", tp, model)
+        self.int4_w4a8(self.model("params_int4"), tp, 4)
+        self.snapshot_io()
+        self.server(model, dp, name="server_dp")
 
 
 def main() -> int:
@@ -624,7 +682,7 @@ def main() -> int:
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--port", type=int, required=True)
     ap.add_argument("--dir", required=True)
-    ap.add_argument("--fault", choices=("early", "mid"),
+    ap.add_argument("--fault", choices=("early", "mid", "dp"),
                     help="run Rank.fault(case) instead of the world's cases")
     args = ap.parse_args()
     torch.set_num_threads(1)
