@@ -483,12 +483,16 @@ def row_check(got, ref, width: int):
 # largest count of n8 row tiles (m <= 8, 16, 32, 64), as is the K10 kernel
 # before PR 16 (phase 3's yardstick); K6 and K10 on their warpgroup-MMA
 # kernel by variant and MMA width N
-TC_KERNELS = {"K3 tc <D=128, 2 m-tiles>": "gqa_prefill_tc_kernelILi128ELi2ELb0E",
-              "K3 tc <D=128, 1 m-tile>": "gqa_prefill_tc_kernelILi128ELi1ELb0E",
-              "K3 tc e4m3 <D=128, 2 m-tiles>":
-                  "gqa_prefill_tc_kernelILi128ELi2ELb1E",
-              "K3 tc e4m3 <D=128, 1 m-tile>":
-                  "gqa_prefill_tc_kernelILi128ELi1ELb1E",
+TC_KERNELS = {"K3 tc <D=128, 2 m-tiles>":
+                  "gqa_prefill_tc_kernelILi128ELi2ELi4ELb0E",
+              "K3 tc <D=128, 1 m-tile>":
+                  "gqa_prefill_tc_kernelILi128ELi1ELi4ELb0E",
+              "K3 tc e4m3 <D=128, 2 m-tiles, 8 warps>":
+                  "gqa_prefill_tc_kernelILi128ELi2ELi8ELb1E",
+              "K3 tc e4m3 <D=128, 1 m-tile, 8 warps>":
+                  "gqa_prefill_tc_kernelILi128ELi1ELi8ELb1E",
+              "K3 tc e4m3 <D=128, 1 m-tile, 4 warps>":
+                  "gqa_prefill_tc_kernelILi128ELi1ELi4ELb1E",
               "K1 tc <D=72, rope>": "segment_tc_kernelILi72ELb1E",
               "K5 tc <D=72>": "segment_tc_kernelILi72ELb0E",
               "K4 tc <D=128, 1 m-tile>": "gqa_decode_tc_kernelILi128ELi1ELb0E",
@@ -518,27 +522,39 @@ TC_KERNELS = {"K3 tc <D=128, 2 m-tiles>": "gqa_prefill_tc_kernelILi128ELi2ELb0E"
 
 
 def lm_attention_smem(kv_len: int = 16384) -> dict:
-    """Dynamic shared memory of K3's and K4's tensor-core blocks at D =
-    128 as ``launch_prefill_tc`` / ``launch_decode_tc`` size it, bf16 and
-    e4m3 caches (csrc/lm_attention.cu), by TC_KERNELS label."""
+    """Dynamic shared memory and threads of K3's and K4's tensor-core
+    blocks at D = 128 as ``launch_prefill_tc`` / ``launch_decode_tc`` size
+    them, bf16 and e4m3 caches (csrc/lm_attention.cu), by TC_KERNELS label:
+    K3 keeps Q, two bf16 K and V tiles, over e4m3 two stages of K and V
+    bytes, and the positions (two slots, three over e4m3; bf16 4 warps,
+    e4m3 8 or 4); K4 Q, each warp's K and V tile (overlaid by the warps'
+    f32 merge) and the positions (4 warps, 8 over e4m3)."""
     KS, BK, D = 136, 64, 128
     out = {}
+    k3 = [(False, 2, 4), (False, 1, 4), (True, 2, 8), (True, 1, 8),
+          (True, 1, 4)]                          # K3's (F8, MT, warps)
+    for f8, mt, w3 in k3:
+        br, slots = 16 * mt * w3, 3 if f8 else 2
+        label = f"{mt} m-tile{'s' if mt > 1 else ''}"
+        label = f"K3 tc e4m3 <D=128, {label}, {w3} warps>" if f8 else \
+            f"K3 tc <D=128, {label}>"
+        out[label] = (br * KS * 2 + 4 * BK * KS * 2 + (4 * BK * D if f8
+                                                        else 0)
+                      + (slots * BK + br + w3 + 2 * -(-kv_len // BK)) * 4,
+                      32 * w3)
     for f8 in (False, True):
         tag = " e4m3" if f8 else ""
+        tile = BK * D if f8 else BK * KS * 2     # one K4 K (or V) tile
+        nw = 8 if f8 else 4                      # K4's warps
         for mt in (2, 1):
-            br = 64 * mt
-            out[f"K3 tc{tag} <D=128, {mt} m-tile{'s' if mt > 1 else ''}>"] = (
-                (br + (2 if f8 else 4) * BK) * KS * 2 + (4 * BK * D if f8
-                                                         else 0)
-                + (2 * BK + br + 4 + 2 * -(-kv_len // BK)) * 4)
-            warp = BK * KS * 2 + 2 * BK * D if f8 else 2 * BK * KS * 2
+            kv = max(2 * nw * tile, nw * 16 * mt * (D + 2) * 4)
             out[f"K4 tc{tag} <D=128, {mt} m-tile{'s' if mt > 1 else ''}>"] = (
-                16 * mt * KS * 2 + 4 * warp + (4 * BK + 4) * 4)
+                16 * mt * KS * 2 + kv + (nw * BK + 4) * 4, 32 * nw)
     return out
 
 
 def blocks_per_sm(regs, smem: int, threads: int = 128):
-    """Resident 128-thread blocks per H100 SM allowed by registers
+    """Resident blocks of `threads` per H100 SM allowed by registers
     (allocated per warp in units of 256) and shared memory (228 KB an SM,
     1 KB reserved a block); None without a register count."""
     if regs is None:
@@ -546,6 +562,20 @@ def blocks_per_sm(regs, smem: int, threads: int = 128):
     per_warp = -(-regs * 32 // 256) * 256
     by_regs = 65536 // (per_warp * threads // 32)
     return min(by_regs, 233472 // (smem + 1024), 2048 // threads)
+
+
+def lm_attention_usage(log: str) -> dict:
+    """K3's and K4's tensor-core instances at D = 128 by TC_KERNELS
+    label: ptxas registers and spill bytes from the build ``log``, shared
+    memory and threads a block, and the blocks an SM holds."""
+    usage = ptxas_usage(log, TC_KERNELS)
+    out = {}
+    for name, (smem, threads) in lm_attention_smem().items():
+        use = usage.get(name, {})
+        out[name] = {**use, "smem": smem, "threads": threads,
+                     "blocks_per_sm": blocks_per_sm(use.get("registers"),
+                                                    smem, threads)}
+    return out
 
 
 def ptxas_usage(log: str, names: dict) -> dict:
@@ -1729,16 +1759,27 @@ def check_fp8_kernels(dev):
     eager call; then K3 (the same prefill) and K4 (S = 1, 8) reading rows
     [2] and [3, 1] of a [4, 9216, 4, 128] e4m3 pool through ``rows``,
     bit-identical to the same kernel on a contiguous copy and within the
-    row rule of the plain version. No PyTorch call takes e4m3 K/V, so
-    ``library_ms`` is null. Returns (two kernel records, {label: ms})."""
+    row rule of the plain version; all 256 byte values as V and as K
+    equal the bf16 kernel on the widened cache bit for bit. Prints the
+    e4m3 instances' ptxas registers, spills, shared memory and blocks per
+    SM. No PyTorch call takes e4m3 K/V, so ``library_ms`` is null.
+    Returns (two kernel records, {label: ms or ptxas figures})."""
     import torch
 
+    from cogstream_tpu_torch.ops import kernels
     from cogstream_tpu_torch.ops import lm_attention as lma
 
     rng = np.random.default_rng(8)
     bf, f8 = torch.bfloat16, torch.float8_e4m3fn
     T, Hq, Hkv, Dl = 16384, 28, 4, 128
     kv_row8 = Hkv * Dl            # e4m3 bytes of one slot's K (or V)
+    timings, records = {}, []
+
+    # the e4m3 instances as ptxas built them
+    for name, use in lm_attention_usage(kernels.last_build_log).items():
+        if "e4m3" in name:
+            log(f"kernel fp8 {name}: {use}")
+            timings[f"ptxas {name}"] = use
 
     def dev_t(a, dtype=None):
         return torch.as_tensor(a).to(dev, dtype)
@@ -1759,7 +1800,6 @@ def check_fp8_kernels(dev):
     k8 = dev_t(rng.standard_normal((1, T, Hkv, Dl)), bf).to(f8)
     v8 = dev_t(rng.standard_normal((1, T, Hkv, Dl)), bf).to(f8)
     k16, v16 = k8.to(bf), v8.to(bf)        # the same values, widened
-    timings, records = {}, []
 
     def bounds(q, qp, eff, out):
         seen = int((eff[0] < lma.SENTINEL).sum().item())
@@ -1858,23 +1898,62 @@ def check_fp8_kernels(dev):
     del k8, v8, k16, v16, k4, q, got
 
     # exact widening: all 256 byte values (NaN included) as the V of the one
-    # visible slot, q = 0, so each output head is its kv head's V row
+    # visible slot, q = 0, so each output head is its kv head's V row; and
+    # as the K of slot 0 (beside a zero K at slot 1), each folded query row
+    # one-hot at dim r % 128, so each score is one product: both equal the
+    # bf16 kernel on the widened cache bit for bit
+    def same_bits(a, b):
+        return bool(torch.equal(torch.nan_to_num(a.float(), 1e9),
+                                torch.nan_to_num(b.float(), 1e9)))
+
+    bytes_ = torch.arange(256, device=dev).to(torch.uint8).reshape(2, Dl)
     vb = torch.zeros((1, 256, 2, Dl), dtype=torch.uint8, device=dev)
-    vb[0, 0] = torch.arange(256, device=dev).to(torch.uint8).reshape(2, Dl)
+    vb[0, 0] = bytes_
     v8, k8 = vb.view(f8), torch.zeros_like(vb).view(f8)
     eff = torch.full((1, 256), lma.SENTINEL, dtype=torch.int32, device=dev)
     eff[0, 0] = 0
     want = v8[0, 0].to(bf).float().repeat_interleave(7, 0)
     for wrap, S in ((lma.prefill_flash_attention, 16),
                     (lma.decode_attention, 1)):
-        out = wrap(torch.zeros((1, S, 14, Dl), dtype=bf, device=dev), k8, v8,
-                   dev_t(np.arange(S, dtype=np.int32)[None]), eff).float()
-        exact = bool(torch.equal(torch.nan_to_num(out, 1e9),
-                                 torch.nan_to_num(want.expand_as(out), 1e9)))
+        args = (torch.zeros((1, S, 14, Dl), dtype=bf, device=dev), k8, v8,
+                dev_t(np.arange(S, dtype=np.int32)[None]), eff)
+        out = wrap(*args)
+        exact = same_bits(out, want.expand_as(out)) and same_bits(
+            out, wrap(*args[:1], k8.to(bf), v8.to(bf), *args[3:]))
         log(f"kernel {'K3' if S > 1 else 'K4'} fp8: all 256 e4m3 byte values "
-            f"widen exactly (NaN to NaN) {exact}")
+            f"as V widen exactly (NaN to NaN), equal to the bf16 kernel on "
+            f"the widened cache {exact}")
         if not exact:
-            raise AssertionError("an e4m3 byte does not widen exactly")
+            raise AssertionError("an e4m3 byte of V does not widen exactly")
+    # kv heads 0 and 1 the 254 finite bytes, heads 2 and 3 only the NaN
+    # bytes (a NaN anywhere in a key's row makes each of its scores NaN)
+    kb = torch.zeros((1, 256, 4, Dl), dtype=torch.uint8, device=dev)
+    kb[0, 0, :2] = bytes_
+    kb[0, 0, :2, Dl - 1] = 0
+    kb[0, 0, 2, Dl - 1], kb[0, 0, 3, Dl - 1] = 0x7F, 0xFF
+    k8 = kb.view(f8)
+    v8 = dev_t(rng.standard_normal((1, 256, 4, Dl)), bf).to(f8)
+    eff = torch.full((1, 256), lma.SENTINEL, dtype=torch.int32, device=dev)
+    eff[0, :2] = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    for wrap, S in ((lma.prefill_flash_attention, 16),
+                    (lma.decode_attention, 8)):
+        G = Dl // S
+        r = torch.arange(S * G, device=dev)
+        q = torch.zeros((1, S, 4, G, Dl), dtype=bf, device=dev)
+        q[0, r // G, :, r % G, r % Dl] = 1.0
+        args = (q.reshape(1, S, 4 * G, Dl), k8, v8,
+                dev_t(np.arange(1, S + 1, dtype=np.int32)[None]), eff)
+        out = wrap(*args)
+        ref = wrap(*args[:1], k8.to(bf), v8.to(bf), *args[3:])
+        nan = torch.isnan(ref).reshape(S, 4, G, Dl)
+        exact = (same_bits(out, ref) and bool(nan[:, 2:].all())
+                 and not bool(nan[:, :2].any()))
+        log(f"kernel {'K3' if wrap is lma.prefill_flash_attention else 'K4'}"
+            f" fp8: all 256 e4m3 byte values as K (one product a score) "
+            f"equal the bf16 kernel on the widened cache bit for bit, NaN "
+            f"where a NaN byte is {exact}")
+        if not exact:
+            raise AssertionError("an e4m3 byte of K does not widen exactly")
 
     # pooled addressing on an e4m3 pool
     Bp, Tp = 4, 9216
@@ -7745,11 +7824,11 @@ def main() -> int:
     usage = ptxas_usage(kernels.last_build_log, TC_KERNELS)
     for name, use in usage.items():
         log(f"build: ptxas {name}: {use}")
-    for name, smem in lm_attention_smem().items():
-        regs = usage.get(name, {}).get("registers")
-        log(f"build: {name}: {smem} bytes of shared memory a block (16384"
-            f"-slot read), {blocks_per_sm(regs, smem)} blocks per SM "
-            f"(registers {regs})")
+    for name, use in lm_attention_usage(kernels.last_build_log).items():
+        log(f"build: {name}: {use['smem']} bytes of shared memory a block "
+            f"of {use['threads']} threads (16384-slot read), "
+            f"{use['blocks_per_sm']} blocks per SM (registers "
+            f"{use.get('registers')})")
 
     if args.train_tp_only:
         return run_train_tp_alone(dev, card, args.train_tp_fault)

@@ -64,14 +64,35 @@
 // reads the cache's own bytes and converts them on chip, as the TPU
 // kernels do (`k_ref[0].astype(q.dtype)`), so the K/V traffic from HBM
 // halves against bf16 and no bf16 copy of the cache is ever made.
-//   - K3 / K4 tensor-core kernels (template flag F8): cp.async copies the
-//     tile's e4m3 rows (16 elements per 16-byte chunk) into a byte stage
-//     in shared memory; tc::e4m3_tile widens them into the bf16 tile that
-//     the unchanged ldmatrix / mma.sync body reads (exact: every e4m3 value
-//     is a bf16 value). K3 keeps two byte stages (the next tile's copy
-//     overlaps this tile's math) and one bf16 K and V tile; a K4 warp
-//     keeps its K and V bytes and one bf16 tile, widening K before its
-//     scores and V after them. Shared memory stays about the bf16 route's.
+//   - K4 tensor-core kernel (template flag F8): cp.async copies the
+//     tile's e4m3 rows into a byte tile in shared memory (16-byte chunks,
+//     swizzled: tc::swz), and the MMAs' B fragments are read from those
+//     bytes and widened in registers just before their mma.sync
+//     (tc::scores_f8, tc::accumulate_f8; exact: every e4m3 value is a
+//     bf16 value). There is no bf16 K/V tile: K/V cross shared memory
+//     once, as bytes. Q is staged with its head dims permuted so that a
+//     key's 32-bit word is K's B fragment; V's fragments come from a 4x4
+//     byte transpose of four keys' words, with P's keys permuted to match
+//     and O's head dims put back as the warps' merge writes O. What
+//     bounds it is each warp's chain of latencies (copy, widen, MMA,
+//     softmax, widen, MMA) over its tiles, then the merge. A warp keeps only its K and V
+//     bytes (16 KB at D = 128), so a block takes 8 warps, and decode_plan
+//     rounds a split up to whole tiles for all 8 (over a 9216-slot
+//     window: one tile a warp at S = 1, two at S = 5 and 8, where a bf16
+//     warp has 2 and 3): the longest chain is shorter.
+//   - K3 tensor-core kernel (F8): the same widening in registers loses
+//     here, since each of a block's warps reads every element of a tile,
+//     so each would widen the whole tile (1.4x the bf16 kernel's time on
+//     the H100, PERF.md). K3 widens each tile ONCE a block instead: two
+//     byte stages of e4m3 rows, widened by all threads (tc::e4m3_tile)
+//     into one of two bf16 K/V tiles that the unchanged bf16 body reads.
+//     Tile t's math and tile t + 1's widening share one barrier interval
+//     (one barrier a tile) while the bytes of t + 2 land. What bounds it
+//     is the widening's issue slots and its bf16 stores beside the math,
+//     so the 2-m-tile instance takes 8 warps (256 rows: the widening a
+//     row halves; 176 KB, one block an SM). The 1-m-tile instance, for
+//     prefills whose blocks would leave SMs idle, keeps 4 warps and 64
+//     rows, so that such a prefill spreads over more SMs.
 //   - f32 route: gqa_attention_kernel<float, __nv_fp8_e4m3> widens each
 //     element as it fills the f32 tile.
 //
@@ -282,17 +303,27 @@ int launch_gqa(const void* q, const void* k, const void* v, const void* qpos,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3 in bf16: the tensor-core prefill tile (see the header), 4 warps of
-// MT m-tiles. F8: k and v are e4m3 bytes, staged in shared memory in two
-// stages and widened into one bf16 K and V tile before each tile's math.
+// K3: the tensor-core prefill tile (see the header), 4 warps of MT
+// m-tiles. F8: k and v are e4m3 bytes, copied into two byte stages and
+// widened once a block into two bf16 tiles that the bf16 body reads, by
+// 8 warps (MT = 2 or 1) or 4 (MT = 1).
 constexpr int TC_WARPS = 4;
 
 // K/V element type of a tensor-core kernel: e4m3 bytes or bf16
 template <bool F8>
 using KVT = typename std::conditional<F8, uint8_t, tc::bf16>::type;
 
-template <int D, int MT, bool F8>
-__global__ void __launch_bounds__(TC_WARPS * 32, 2)
+// K (or V) bytes of one K4 key tile in shared memory: bf16 rows of KS
+// elements, or e4m3 rows of D bytes
+template <int D, bool F8>
+__host__ __device__ constexpr int tile_bytes() {
+  return F8 ? tc::BK * D : tc::BK * tc::stride(D) * 2;
+}
+
+// NW warps of MT m-tiles: bf16 takes 4 warps; e4m3 4 or 8 (a tile is
+// widened once for the block's 16 NW MT rows), see dispatch_prefill_tc
+template <int D, int MT, int NW, bool F8>
+__global__ void __launch_bounds__(NW * 32, F8 ? 1 : 2)
 gqa_prefill_tc_kernel(const tc::bf16* __restrict__ q,
                       const KVT<F8>* __restrict__ k,
                       const KVT<F8>* __restrict__ v,
@@ -302,23 +333,22 @@ gqa_prefill_tc_kernel(const tc::bf16* __restrict__ q,
                       const int* __restrict__ rows,
                       tc::bf16* __restrict__ out, int B, int S, int Hq,
                       int Hkv, int T_cache, int kv_len, float scale2) {
-  constexpr int NW = TC_WARPS, WR = 16 * MT, BR = NW * WR, NT = 32 * NW;
-  constexpr int BK = tc::BK;
+  constexpr int WR = 16 * MT, BR = NW * WR, NT = 32 * NW, BK = tc::BK;
   constexpr int KS = tc::stride(D), CH = D / 8;  // 16-byte Q chunks per row
-  // K/V: 16-byte chunks of a global row, elements per chunk, bf16 tile
-  // stages (F8: one, refilled from the staged bytes)
+  // K/V: 16-byte chunks of a global row, elements per chunk, bf16 tiles,
+  // position slots (F8: three, so a copy never waits for a barrier)
   constexpr int CHK = D * sizeof(KVT<F8>) / 16;
   constexpr int EPC = 16 / sizeof(KVT<F8>);
-  constexpr int NSB = F8 ? 1 : 2;
+  constexpr int NSB = 2, NCP = F8 ? 3 : 2;
   const int n_tiles = (kv_len + BK - 1) / BK;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   tc::bf16* Qs = reinterpret_cast<tc::bf16*>(smem_raw);
-  tc::bf16* Ks = Qs + BR * KS;                    // NSB stages
-  tc::bf16* Vs = Ks + NSB * BK * KS;              // NSB stages
+  tc::bf16* Ks = Qs + BR * KS;                    // NSB tiles
+  tc::bf16* Vs = Ks + NSB * BK * KS;              // NSB tiles
   uint8_t* K8 = reinterpret_cast<uint8_t*>(Vs + NSB * BK * KS);  // F8: 2
   uint8_t* V8 = K8 + (F8 ? 2 * BK * D : 0);       // stages of e4m3 rows
-  int* cpos = reinterpret_cast<int*>(V8 + (F8 ? 2 * BK * D : 0));  // 2 stages
-  int* rpos = cpos + 2 * BK;
+  int* cpos = reinterpret_cast<int*>(V8 + (F8 ? 2 * BK * D : 0));  // NCP
+  int* rpos = cpos + NCP * BK;
   int* red = rpos + BR;
   int* tmin = red + NW;
   int* tmax = tmin + n_tiles;
@@ -371,7 +401,9 @@ gqa_prefill_tc_kernel(const tc::bf16* __restrict__ q,
     while (t < end && tmin[t] > qmax) ++t;
     return t;
   };
-  auto load = [&](int t, int stage) {
+  // tile t into K/V stage `stage` (bf16 tiles, or F8's byte stages) and
+  // its positions into slot `slot`
+  auto load = [&](int t, int stage, int slot) {
     const int k0 = t * BK;
     // destination rows: the bf16 tile's (stride KS), or F8's byte stage
     unsigned char* kd = F8 ? K8 + stage * BK * D
@@ -387,7 +419,7 @@ gqa_prefill_tc_kernel(const tc::bf16* __restrict__ q,
       tc::cp_async16(vd + c * DST + ch * 16, vb + off, ok);
     }
     for (int c = tid; c < BK; c += NT) {
-      int* dst = cpos + stage * BK + c;
+      int* dst = cpos + slot * BK + c;
       if (k0 + c < kv_len)
         tc::cp_async4(dst, effb + k0 + c);
       else
@@ -395,11 +427,16 @@ gqa_prefill_tc_kernel(const tc::bf16* __restrict__ q,
     }
     tc::cp_async_commit();
   };
+  // F8: the byte stage's K and V into bf16 tile sb, each thread its chunks
+  auto widen = [&](int stage, int sb) {
+    tc::e4m3_tile<D>(Ks + sb * BK * KS, K8 + stage * BK * D, tid, NT);
+    tc::e4m3_tile<D>(Vs + sb * BK * KS, V8 + stage * BK * D, tid, NT);
+  };
 
   tc::State<D, MT> st;
   st.init();
   int t = next(0), stage = 0;
-  if (t < end) load(t, 0);
+  if (t < end) load(t, 0, 0);
   tc::cp_async_wait<0>();
   __syncthreads();
   const tc::bf16* Qw = Qs + warp * WR * KS;  // this warp's rows
@@ -412,31 +449,51 @@ gqa_prefill_tc_kernel(const tc::bf16* __restrict__ q,
       wmin = min(wmin, rp[m][i]);
     }
   wmin = cs::warp_min_i(wmin);
-  while (t < end) {
-    const int tn = next(t + 1);
-    if (tn < end) {  // the next tile's copy overlaps this tile's math
-      load(tn, stage ^ 1);
-      tc::cp_async_wait<1>();
-    } else {
-      tc::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int* cp = cpos + stage * BK;
-    const int sb = F8 ? 0 : stage;  // the bf16 tile's stage
-    if constexpr (F8) {  // widen this stage's bytes into the bf16 tile
-      tc::e4m3_tile<D>(Ks, K8 + stage * BK * D, tid, NT);
-      tc::e4m3_tile<D>(Vs, V8 + stage * BK * D, tid, NT);
-      __syncthreads();
-    }
-    // a tile whose largest position every row of the warp has reached
-    // (a padded row, -1, has reached none) needs no compare
+  // a tile whose largest position every row of the warp has reached (a
+  // padded row, -1, has reached none) needs no compare
+  auto math = [&](int tt, int sb, int slot) {
+    const int* cp = cpos + slot * BK;
     tc::attend<D, MT>(Qw, Ks + sb * BK * KS, Vs + sb * BK * KS, scale2,
-                      tmax[t] <= wmin,
+                      tmax[tt] <= wmin,
                       [=](int m, int i, int c) { return rp[m][i] >= cp[c]; },
                       st);
-    __syncthreads();  // this stage consumed before it is refilled
-    t = tn;
-    stage ^= 1;
+  };
+  if constexpr (!F8) {
+    while (t < end) {
+      const int tn = next(t + 1);
+      if (tn < end) {  // the next tile's copy overlaps this tile's math
+        load(tn, stage ^ 1, stage ^ 1);
+        tc::cp_async_wait<1>();
+      } else {
+        tc::cp_async_wait<0>();
+      }
+      __syncthreads();
+      math(t, stage, stage);
+      __syncthreads();  // this stage consumed before it is refilled
+      t = tn;
+      stage ^= 1;
+    }
+  } else {
+    // two bf16 tiles, one barrier a tile: tile t's math and tile t1's
+    // widening run between the same two barriers, while the bytes of t2
+    // land in the stage that t's bytes left
+    int t1 = t < end ? next(t + 1) : end, slot = 0, sb = 0;
+    if (t1 < end) load(t1, 1, 1);
+    if (t < end) widen(0, 0);
+    stage = 1;  // t1's byte stage
+    while (t < end) {
+      tc::cp_async_wait<0>();  // t1's bytes
+      __syncthreads();
+      const int t2 = t1 < end ? next(t1 + 1) : end;
+      if (t2 < end) load(t2, stage ^ 1, slot == 0 ? NCP - 1 : slot - 1);
+      if (t1 < end) widen(stage, sb ^ 1);
+      math(t, sb, slot);
+      t = t1;
+      t1 = t2;
+      stage ^= 1;
+      sb ^= 1;
+      slot = slot == NCP - 1 ? 0 : slot + 1;
+    }
   }
   tc::finish(st);
 #pragma unroll
@@ -461,26 +518,25 @@ int sm_count() {
   return n;
 }
 
-template <int D, int MT, bool F8>
+template <int D, int MT, int NW, bool F8>
 int launch_prefill_tc(const void* q, const void* k, const void* v,
                       const void* qpos, const void* eff, const void* tile_mm,
                       const void* rows, void* out, int B, int S, int Hq,
                       int Hkv, int T_cache, int kv_len, float scale2,
                       cudaStream_t st) {
-  constexpr int NW = TC_WARPS, BR = NW * 16 * MT;
-  auto kern = gqa_prefill_tc_kernel<D, MT, F8>;
+  constexpr int BR = NW * 16 * MT, NSB = 2, NCP = F8 ? 3 : 2;
+  auto kern = gqa_prefill_tc_kernel<D, MT, NW, F8>;
   // once per instantiation, not per launch
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int n_tiles = (kv_len + tc::BK - 1) / tc::BK;
-  // Q, the bf16 K/V stages (F8: one, plus two stages of e4m3 rows), then
-  // the positions
+  // Q, the bf16 K/V tiles (F8: plus two stages of e4m3 rows), then the
+  // positions
   const size_t bytes =
-      (size_t)(BR + (F8 ? 2 : 4) * tc::BK) * tc::stride(D) *
-          sizeof(tc::bf16) +
+      (size_t)(BR + 2 * NSB * tc::BK) * tc::stride(D) * sizeof(tc::bf16) +
       (F8 ? (size_t)4 * tc::BK * D : 0) +
-      (size_t)(2 * tc::BK + BR + NW + 2 * n_tiles) * sizeof(int);
+      (size_t)(NCP * tc::BK + BR + NW + 2 * n_tiles) * sizeof(int);
   if (bytes > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   const int R = S * (Hq / Hkv);
   const dim3 grid((R + BR - 1) / BR, B * Hkv);
@@ -499,35 +555,93 @@ int dispatch_prefill_tc(const void* q, const void* k, const void* v,
                         const void* tile_mm, const void* rows, void* out,
                         int B, int S, int Hq, int Hkv, int T_cache,
                         int kv_len, float scale2, cudaStream_t st) {
-  const int R = S * (Hq / Hkv);
-  // 128-row blocks (2 m-tiles per warp) unless they would leave SMs idle
-  if ((R + 127) / 128 * B * Hkv >= sm_count())
-    return launch_prefill_tc<D, 2, F8>(q, k, v, qpos, eff, tile_mm, rows,
-                                       out, B, S, Hq, Hkv, T_cache, kv_len,
-                                       scale2, st);
-  return launch_prefill_tc<D, 1, F8>(q, k, v, qpos, eff, tile_mm, rows, out,
-                                     B, S, Hq, Hkv, T_cache, kv_len, scale2,
-                                     st);
+  const int R = S * (Hq / Hkv), bh = B * Hkv, sms = sm_count();
+#define CS_LAUNCH_PREFILL(MT, NW)                                           \
+  return launch_prefill_tc<D, MT, NW, F8>(q, k, v, qpos, eff, tile_mm, rows, \
+                                          out, B, S, Hq, Hkv, T_cache,       \
+                                          kv_len, scale2, st)
+  if constexpr (F8) {
+    // each block holds an SM: the fewest waves of blocks weighted by a
+    // block's time a tile, measured on the H100 as 17 : 11 : 10 for 256
+    // (8 warps, 2 m-tiles), 128 (8 warps) and 64 rows (4 warps)
+    auto cost = [&](int rows_a_block, int weight) {
+      return ((R + rows_a_block - 1) / rows_a_block * bh + sms - 1) / sms *
+             weight;
+    };
+    const int c256 = cost(256, 17), c128 = cost(128, 11), c64 = cost(64, 10);
+    if (c256 <= c128 && c256 <= c64) CS_LAUNCH_PREFILL(2, 8);
+    if (c128 <= c64) CS_LAUNCH_PREFILL(1, 8);
+    CS_LAUNCH_PREFILL(1, 4);
+  } else {
+    // 128-row blocks (2 m-tiles per warp) unless they would leave SMs idle
+    if ((R + 127) / 128 * bh >= sms) CS_LAUNCH_PREFILL(2, TC_WARPS);
+    CS_LAUNCH_PREFILL(1, TC_WARPS);
+  }
+#undef CS_LAUNCH_PREFILL
+}
+
+// K4's Q rows in shared memory (stride KS): copied as they are, or for an
+// e4m3 cache with the head dims permuted as tc::f8_q_col says, in 4-byte
+// words; rows r0 + [0, NR) of (batch b, kv head h), zero past R
+template <int D, int NR, bool F8>
+__device__ __forceinline__ void stage_q(tc::bf16* Qs,
+                                        const tc::bf16* __restrict__ q,
+                                        int b, int h, int r0, int R, int S,
+                                        int Hq, int G, int tid, int nt) {
+  constexpr int KS = tc::stride(D);
+  constexpr int W = F8 ? D / 2 : D / 8;  // copies a row: words or chunks
+  for (int i = tid; i < NR * W; i += nt) {
+    const int rr = i / W, c = i % W, r = r0 + rr;
+    const tc::bf16* src = q;
+    if (r < R)
+      src = q + (((size_t)b * S + r / G) * Hq + h * G + r % G) * D;
+    if constexpr (F8) {
+      tc::cp_async4(Qs + rr * KS + tc::f8_q_col<D>(2 * c), src + 2 * c,
+                    r < R);
+    } else {
+      tc::cp_async16(Qs + rr * KS + c * 8, src + c * 8, r < R);
+    }
+  }
+}
+
+// destination byte offset of chunk ch (16 bytes) of key row c in a K4 K/V
+// tile: bf16 rows of stride KS, or e4m3 rows swizzled by tc::swz
+template <int D, bool F8>
+__device__ __forceinline__ int tile_chunk(int c, int ch) {
+  if constexpr (F8) {
+    return c * D + 16 * (ch ^ tc::swz<D>(c));
+  } else {
+    return c * tc::stride(D) * 2 + ch * 16;
+  }
 }
 
 // K4 in bf16: the decode-shaped tensor-core kernel (see the header). A
-// block of 4 warps owns the RB = 16 * MT folded rows r0 + [0, RB) of one
+// block of NW warps owns the RB = 16 * MT folded rows r0 + [0, RB) of one
 // (batch, kv head) and the key tiles [t_begin, t_end) of one split; warp
-// w takes tiles t_begin + w, + 4, ... each with its own online softmax.
-// F8: k and v are e4m3 bytes; a warp stages its K and V tiles' bytes and
-// widens each into its one bf16 tile (K before the scores, V after them).
-constexpr int DEC_WARPS = 4;
+// w takes tiles t_begin + w, + NW, ... each with its own online softmax.
+// F8: k and v are e4m3 bytes; a warp keeps its K and V tiles' bytes and
+// widens their fragments in registers (tc::scores_f8, tc::accumulate_f8).
+// A block has 4 warps, or 8 over an e4m3 cache: a warp's tile costs more
+// there (the widening lies on the warp's chain) and its bytes half as
+// much shared memory, so a split's tiles spread over twice the warps
+// (decode_plan rounds an e4m3 split up to whole tiles for the 8).
+template <bool F8>
+__host__ __device__ constexpr int dec_warps() {
+  return F8 ? 8 : 4;
+}
 
-// shared-memory bytes of one K4 warp's tiles: a bf16 K and V tile, or
-// F8's one bf16 tile and the K and V tiles' e4m3 bytes
-template <int D, bool F8>
-__host__ __device__ constexpr int dec_warp_bytes() {
-  return F8 ? tc::BK * tc::stride(D) * 2 + 2 * tc::BK * D
-            : 2 * tc::BK * tc::stride(D) * 2;
+// shared-memory bytes of the K4 warps' K and V tiles, which the warps'
+// merge (m, l and O rows of 16 MT rows each, f32) overlays afterwards
+template <int D, int MT, bool F8>
+__host__ __device__ constexpr int dec_kv_bytes() {
+  constexpr int NW = dec_warps<F8>();
+  return 2 * NW * tile_bytes<D, F8>() > NW * 16 * MT * (D + 2) * 4
+             ? 2 * NW * tile_bytes<D, F8>()
+             : NW * 16 * MT * (D + 2) * 4;
 }
 
 template <int D, int MT, bool F8>
-__global__ void __launch_bounds__(DEC_WARPS * 32)
+__global__ void __launch_bounds__(dec_warps<F8>() * 32)
 gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
                      const KVT<F8>* __restrict__ k,
                      const KVT<F8>* __restrict__ v,
@@ -538,18 +652,19 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
                      tc::bf16* __restrict__ out, int S, int Hq, int Hkv,
                      int T_cache, int kv_len, int tiles_per_split,
                      float scale2) {
-  constexpr int NW = DEC_WARPS, NT = 32 * NW, RB = 16 * MT, BK = tc::BK;
-  constexpr int KS = tc::stride(D), CH = D / 8, D4 = D / 4;
+  constexpr int NW = dec_warps<F8>(), NT = 32 * NW, RB = 16 * MT;
+  constexpr int BK = tc::BK;
+  constexpr int KS = tc::stride(D), D4 = D / 4;
   // K/V: 16-byte chunks of a global row, elements per chunk
   constexpr int CHK = D * sizeof(KVT<F8>) / 16;
   constexpr int EPC = 16 / sizeof(KVT<F8>);
-  constexpr int WB = dec_warp_bytes<D, F8>();
+  constexpr int TB = tile_bytes<D, F8>();
   constexpr int WS = RB * (D + 2);  // merge floats per warp: m, l, O rows
   extern __shared__ __align__(16) unsigned char smem_raw[];
   tc::bf16* Qs = reinterpret_cast<tc::bf16*>(smem_raw);
-  // per warp WB bytes of tiles
+  // per warp a K and a V tile of TB bytes
   unsigned char* KV = reinterpret_cast<unsigned char*>(Qs + RB * KS);
-  int* cpos_all = reinterpret_cast<int*>(KV + NW * WB);
+  int* cpos_all = reinterpret_cast<int*>(KV + dec_kv_bytes<D, MT, F8>());
   int* last = cpos_all + NW * BK;
   float* mrg = reinterpret_cast<float*>(KV);  // after the tiles: NW x WS
 
@@ -571,13 +686,7 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
     return out + (((size_t)b * S + rr / G) * Hq + h * G + rr % G) * D;
   };
 
-  for (int i = tid; i < RB * CH; i += NT) {  // Q rows, zero past R
-    const int rr = i / CH, c = i % CH, r = r0 + rr;
-    const tc::bf16* src = q;
-    if (r < R)
-      src = q + (((size_t)b * S + r / G) * Hq + h * G + r % G) * D + c * 8;
-    tc::cp_async16(Qs + rr * KS + c * 8, src, r < R);
-  }
+  stage_q<D, RB, F8>(Qs, q, b, h, r0, R, S, Hq, G, tid, NT);  // zero past R
   tc::cp_async_commit();
   // the thread's row positions (-1 past R); every warp holds all RB rows,
   // so warp reductions give the block's largest position (qmax) and the
@@ -595,14 +704,9 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
   qmax = cs::warp_max_i(qmax);
   rmin = cs::warp_min_i(rmin);
 
-  // the warp's bf16 tiles (F8: Kw == Vw) and copy destinations (F8: the
-  // e4m3 rows)
-  tc::bf16* Kw = reinterpret_cast<tc::bf16*>(KV + warp * WB);
-  tc::bf16* Vw = F8 ? Kw : Kw + BK * KS;
-  unsigned char* Kd = F8 ? reinterpret_cast<unsigned char*>(Kw + BK * KS)
-                         : reinterpret_cast<unsigned char*>(Kw);
-  unsigned char* Vd = F8 ? Kd + BK * D : reinterpret_cast<unsigned char*>(Vw);
-  constexpr int DST = F8 ? D : KS * 2;  // destination row bytes
+  // the warp's K and V tiles
+  unsigned char* Kd = KV + warp * 2 * TB;
+  unsigned char* Vd = Kd + TB;
   int* cpos = cpos_all + warp * BK;
   auto load = [&](unsigned char* dst, const KVT<F8>* src, int t) {
     const int k0 = t * BK;
@@ -610,7 +714,7 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
       const int c = i / CHK, ch = i % CHK;
       const bool ok = k0 + c < kv_len;  // ragged last tile: zero rows
       const size_t off = ok ? (size_t)(k0 + c) * tok + ch * EPC : 0;
-      tc::cp_async16(dst + c * DST + ch * 16, src + off, ok);
+      tc::cp_async16(dst + tile_chunk<D, F8>(c, ch), src + off, ok);
     }
     tc::cp_async_commit();
   };
@@ -658,17 +762,17 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
     int n0 = cs::SENTINEL, n1 = cs::SENTINEL, nmax = cs::SENTINEL;
     if (t + NW < t_end) fetch(t + NW, n0, n1);  // read during the scores
     __syncwarp();                                // K(t), cpos visible
-    if constexpr (F8) {
-      tc::e4m3_tile<D>(Kw, Kd, lane, 32);
-      __syncwarp();
-    }
     const int* cp = cpos;
     tc::PFrag<MT> pa;
     // a tile whose largest position every real row has reached needs no
     // compare (pad rows past R see everything then, and are not stored)
-    tc::scores<D, MT>(Qs, Kw, scale2, emax <= rmin,
-                      [=](int m, int i, int c) { return rp[m][i] >= cp[c]; },
-                      st, pa);
+    auto visible = [=](int m, int i, int c) { return rp[m][i] >= cp[c]; };
+    if constexpr (F8) {
+      tc::scores_f8<D, MT>(Qs, Kd, scale2, emax <= rmin, visible, st, pa);
+    } else {
+      tc::scores<D, MT>(Qs, reinterpret_cast<const tc::bf16*>(Kd), scale2,
+                        emax <= rmin, visible, st, pa);
+    }
     const int tn = settle(t + NW, n0, n1, nmax);
     __syncwarp();  // K(t) and cpos consumed
     if (tn < t_end) {
@@ -680,11 +784,11 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
       tc::cp_async_wait<0>();
     }
     __syncwarp();  // V(t) visible
-    if constexpr (F8) {  // into the tile the scores have finished with
-      tc::e4m3_tile<D>(Vw, Vd, lane, 32);
-      __syncwarp();
+    if constexpr (F8) {
+      tc::accumulate_f8<D, MT>(Vd, pa, st);
+    } else {
+      tc::accumulate<D, MT>(reinterpret_cast<const tc::bf16*>(Vd), pa, st);
     }
-    tc::accumulate<D, MT>(Vw, pa, st);
     __syncwarp();  // V(t) consumed
     if (tn < t_end) {
       load(Vd, vb, tn);
@@ -698,7 +802,6 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
   // merge the warps' states in warp order (mrg overlays the warps' tiles)
   __syncthreads();
   float* mw = mrg + warp * WS;
-  const int c0 = (lane & 3) * 2;
 #pragma unroll
   for (int t = 0; t < MT; ++t)
 #pragma unroll
@@ -708,10 +811,24 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
         mw[r] = st.m[t][i];
         mw[RB + r] = st.l[t][i];
       }
+      float* orow = mw + 2 * RB + r * D;
+      if constexpr (F8) {  // head dims (D/4) (lane % 4) + [0, D/4)
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<float2*>(mw + 2 * RB + r * D + n * 8 + c0) =
-            make_float2(st.o[t][n][2 * i], st.o[t][n][2 * i + 1]);
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int n = 0; n < D / 8; n += 4)
+            *reinterpret_cast<float4*>(orow + (D / 4) * (lane & 3) +
+                                       e * (D / 8) + n) =
+                make_float4(st.o[t][n][2 * i + e], st.o[t][n + 1][2 * i + e],
+                            st.o[t][n + 2][2 * i + e],
+                            st.o[t][n + 3][2 * i + e]);
+      } else {
+        const int c0 = (lane & 3) * 2;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<float2*>(orow + n * 8 + c0) =
+              make_float2(st.o[t][n][2 * i], st.o[t][n][2 * i + 1]);
+      }
     }
   __syncthreads();
   // out: 4 normalized values of row r (0 for a row that saw nothing)
@@ -798,7 +915,7 @@ int launch_decode_tc(const void* q, const void* k, const void* v,
                      int Hq, int Hkv, int T_cache, int kv_len,
                      int tiles_per_split, int n_splits, float scale2,
                      cudaStream_t st) {
-  constexpr int RB = 16 * MT;
+  constexpr int RB = 16 * MT, NW = dec_warps<F8>();
   auto kern = gqa_decode_tc_kernel<D, MT, F8>;
   // once per instantiation, not per launch
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -806,14 +923,11 @@ int launch_decode_tc(const void* q, const void* k, const void* v,
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const size_t bytes =
       (size_t)RB * tc::stride(D) * sizeof(tc::bf16) +
-      (size_t)DEC_WARPS * dec_warp_bytes<D, F8>() +
-      (size_t)(DEC_WARPS * tc::BK + 4) * sizeof(int);
-  static_assert(DEC_WARPS * RB * (D + 2) * sizeof(float) <=
-                    DEC_WARPS * dec_warp_bytes<D, F8>(),
-                "the warps' merge area must fit in their K/V tiles");
+      (size_t)dec_kv_bytes<D, MT, F8>() +
+      (size_t)(NW * tc::BK + 4) * sizeof(int);
   const int R = S * (Hq / Hkv);
   const dim3 grid(n_splits, B * Hkv, (R + RB - 1) / RB);
-  kern<<<grid, DEC_WARPS * 32, bytes, st>>>(
+  kern<<<grid, NW * 32, bytes, st>>>(
       static_cast<const tc::bf16*>(q), static_cast<const KVT<F8>*>(k),
       static_cast<const KVT<F8>*>(v), static_cast<const int*>(qpos),
       static_cast<const int*>(eff), static_cast<const int*>(rows),
@@ -937,4 +1051,10 @@ extern "C" int cs_gqa_decode_tc(const void* q, const void* k, const void* v,
   CS_DECODE_TC(64, 1, true) CS_DECODE_TC(64, 2, true)
 #undef CS_DECODE_TC
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// warps a block of cs_gqa_decode_tc over a kv_dtype cache (decode_plan
+// in ops/lm_attention.py rounds an e4m3 split up to whole tiles for them)
+extern "C" int cs_decode_tc_warps(int kv_dtype) {
+  return kv_dtype == cs::E4M3 ? dec_warps<true>() : dec_warps<false>();
 }

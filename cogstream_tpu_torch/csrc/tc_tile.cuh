@@ -26,8 +26,13 @@
 // from shared memory and those reads weigh as much as the MMAs: MT = 2
 // halves them per (row, key) pair (K3 went from 2.4 to 1.8 ms on the
 // H100 with it).
-// K3 and K4 over an e4m3 cache stage each K/V tile's bytes in shared
-// memory and widen them with e4m3_tile() into the same bf16 tile.
+// K4 over an e4m3 cache (scores_f8 / accumulate_f8, below) keeps no
+// bf16 K/V tile: its B fragments come straight from the tile's e4m3
+// bytes in shared memory and are widened in registers just before their
+// MMA; K4's warps read disjoint tiles, so each element is widened once.
+// K3's warps all read each tile, so in registers every warp would widen
+// every element (issue-bound, 1.4x its bf16 time on the H100): K3 widens
+// each tile once a block with e4m3_tile into a bf16 tile (PERF.md).
 // Rows are padded in shared memory to KS = KD + 8 bf16 (KD: the head dim
 // rounded up to the MMA depth 16): 16-byte row chunks then fall on odd
 // multiples of 16 bytes, so the 8 rows of one ldmatrix hit 8 disjoint
@@ -70,6 +75,13 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src));
+}
+// 4-byte async copy; pred false writes 4 zero bytes (src not read)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -114,40 +126,6 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// An e4m3 K/V tile (the fp8 cache of K3 and K4) into the bf16 tile the
-// MMAs read: BK rows of D bytes (row stride D) -> BK rows of D bf16 (row
-// stride KS), 16 bytes in and 32 out per step, steps tid, tid + nt, ...
-// cvt.rn.f16x2.e4m3x2 then f16 -> f32 -> bf16 is exact: every e4m3 value
-// is an f16 and a bf16 value (zero rows of a ragged tile stay zero). A
-// form without the conversion units (the byte's bits moved into a bf16's
-// places, then one multiply by 2^120) measured slower on the H100
-// (PERF.md, findings).
-__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t two) {
-  const __half2 h(__nv_cvt_fp8x2_to_halfraw2(
-      static_cast<__nv_fp8x2_storage_t>(two), __NV_E4M3));
-  const float2 f = __half22float2(h);
-  return pack(f.x, f.y);
-}
-
-template <int D>
-__device__ __forceinline__ void e4m3_tile(bf16* dst, const uint8_t* src,
-                                          int tid, int nt) {
-  constexpr int KS = stride(D), CH = D / 16;  // 16-byte chunks per row
-  for (int i = tid; i < BK * CH; i += nt) {
-    const int c = i / CH, ch = i % CH;
-    const uint4 w = *reinterpret_cast<const uint4*>(src + c * D + ch * 16);
-    uint4* o = reinterpret_cast<uint4*>(dst + c * KS + ch * 16);
-    o[0] = make_uint4(e4m3x2_to_bf16x2(w.x & 0xffffu),
-                      e4m3x2_to_bf16x2(w.x >> 16),
-                      e4m3x2_to_bf16x2(w.y & 0xffffu),
-                      e4m3x2_to_bf16x2(w.y >> 16));
-    o[1] = make_uint4(e4m3x2_to_bf16x2(w.z & 0xffffu),
-                      e4m3x2_to_bf16x2(w.z >> 16),
-                      e4m3x2_to_bf16x2(w.w & 0xffffu),
-                      e4m3x2_to_bf16x2(w.w >> 16));
-  }
-}
-
 // Online-softmax state of a warp's MT m-tiles of 16 rows: m, l per
 // thread row (the thread's rows of m-tile t are 16t + lane/4 and
 // 16t + lane/4 + 8 of the warp's rows), O as D/8 n-tile fragments.
@@ -185,6 +163,13 @@ struct State {
 template <int MT>
 using PFrag = uint32_t[MT][NS / 2][4];
 
+template <int D, int MT, class Visible, class Key>
+__device__ __forceinline__ void softmax_tile(float (&s)[MT][NS][4],
+                                             float scale2, bool all_visible,
+                                             Visible visible, Key key,
+                                             State<D, MT>& st,
+                                             PFrag<MT>& pa);
+
 template <int D, int MT, class Visible>
 __device__ __forceinline__ void scores(const bf16* Qw, const bf16* Ks,
                                        float scale2, bool all_visible,
@@ -220,6 +205,20 @@ __device__ __forceinline__ void scores(const bf16* Qw, const bf16* Ks,
       }
     }
   }
+  softmax_tile<D, MT>(s, scale2, all_visible, visible,
+                      [](int j, int c) { return j * 8 + c; }, st, pa);
+}
+
+// The mask and the online-softmax update of one tile's scores s (st's m,
+// l, O rescaled), and P in bf16 as the A fragments of NS / 2 k-steps into
+// pa. key(j, c): the tile's key in column c of S n-tile j.
+template <int D, int MT, class Visible, class Key>
+__device__ __forceinline__ void softmax_tile(float (&s)[MT][NS][4],
+                                             float scale2, bool all_visible,
+                                             Visible visible, Key key,
+                                             State<D, MT>& st,
+                                             PFrag<MT>& pa) {
+  const int lane = threadIdx.x & 31;
   // mask on the fragment (masked scores -inf, so exp2 gives 0)
   const int c0 = (lane & 3) * 2;
   if (!all_visible) {
@@ -229,7 +228,7 @@ __device__ __forceinline__ void scores(const bf16* Qw, const bf16* Ks,
       for (int j = 0; j < NS; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (!visible(t, e >> 1, j * 8 + c0 + (e & 1)))
+          if (!visible(t, e >> 1, key(j, c0 + (e & 1))))
             s[t][j][e] = -INFINITY;
   }
   // row max over the quad; P in bf16 as the A fragments of 4 k-steps
@@ -339,6 +338,184 @@ __device__ __forceinline__ void store_row(const State<D, MT>& st, int t,
   for (int n = 0; n < D / 8; ++n)
     *reinterpret_cast<uint32_t*>(dst + n * 8 + c0) =
         pack(st.o[t][n][2 * i] * inv, st.o[t][n][2 * i + 1] * inv);
+}
+
+// ---------------------------------------------------------------------------
+// e4m3 K / V (the fp8 KV cache of K3 and K4): fragments widened in registers
+// ---------------------------------------------------------------------------
+// A tile is BK rows (keys) of D e4m3 bytes in shared memory, copied from
+// the cache in 16-byte chunks; chunk ch of row c sits at chunk
+// ch ^ swz<D>(c) of its row, so that the loads below hit distinct bank
+// groups (D = 128: conflict-free; D = 64: two-way on V). No bf16 copy of
+// the tile exists: every B fragment is read as e4m3 bytes and widened just
+// before its MMA, so K / V cross shared memory once (bytes in, bytes out)
+// and a warp's extra live set is 4 k-steps' words (32 registers), not a
+// tile.
+//
+// The fragment layout follows the bytes, and both operands are permuted
+// to match:
+//   Q.K^T  the m16n8k16 B fragment of k-step kk holds head dims {2c, 2c+1,
+//          2c+8, 2c+9} (c = lane % 4) of one key; the lane's 32-bit word
+//          of the key's row holds dims (D/4) c + 4 kk + {0, 1, 2, 3}. Q is
+//          staged with its head dims permuted the same way (f8_q_col), so
+//          the word IS the fragment: a sum over a permuted index is the
+//          same sum of the same products.
+//   P.V    a B fragment holds 4 keys of one head dim. K's n-columns choose
+//          which key each S column holds (f8_key), so that the P columns
+//          of k-step k are keys 16 k + 4 c + {0, 1, 2, 3} of lane c: the
+//          lane reads its 4 rows' 16 (D = 128) or 8 (D = 64) bytes of dims
+//          (D/8) g + [0, D/8) (g = lane / 4) and transposes them with
+//          byte permutes; O's n-tile n, column g is then head dim
+//          (D/8) g + n, which K4's merge undoes as it writes O's rows.
+// The widening (cvt.rn.f16x2.e4m3x2, exact; f16 -> f32 exact; the f32's
+// upper half is the bf16, exact since an e4m3 value has 4 significant
+// bits; NaN stays NaN) is the only work the bf16 tile does not have.
+
+template <int D>
+__device__ __forceinline__ int swz(int c) {
+  static_assert(D == 64 || D == 128, "e4m3 tiles take head dim 64 or 128");
+  return D == 128 ? ((c >> 1) & 6) | (c & 1) : (c >> 2) & 3;
+}
+
+// the tile key that column c of S n-tile j holds (e4m3 layout)
+__device__ __forceinline__ int f8_key(int j, int c) {
+  return 16 * (j >> 1) + 2 * (j & 1) + 4 * (c >> 1) + (c & 1);
+}
+
+// the column of the staged Q row that takes Q's head dims d, d + 1 (d
+// even): k-step kk's column 2c + e + 8h holds dim (D/4) c + 4 kk + 2h + e
+template <int D>
+__device__ __forceinline__ int f8_q_col(int d) {
+  constexpr int L = D / 4;
+  const int rem = d % L;
+  return 16 * (rem >> 2) + 2 * (d / L) + 8 * ((rem >> 1) & 1);
+}
+
+// two e4m3 bytes (the low one into the low half) -> bf16x2, exact
+__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t two) {
+  const __half2 h(__nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(two & 0xffffu), __NV_E4M3));
+  const float2 f = __half22float2(h);
+  return __byte_perm(__float_as_uint(f.x), __float_as_uint(f.y), 0x7632);
+}
+
+// K3 over e4m3: a tile's bytes (BK rows of D, row stride D) widened into
+// the bf16 tile the MMAs read (row stride KS), 16 bytes in and 32 out a
+// step, steps tid, tid + nt, ... (zero rows of a ragged tile stay zero).
+// A form without the conversion units (the byte's bits moved into a
+// bf16's places, then one multiply by 2^120) measured slower on the H100
+// (PERF.md).
+template <int D>
+__device__ __forceinline__ void e4m3_tile(bf16* dst, const uint8_t* src,
+                                          int tid, int nt) {
+  constexpr int KS = stride(D), CH = D / 16;  // 16-byte chunks per row
+  for (int i = tid; i < BK * CH; i += nt) {
+    const int c = i / CH, ch = i % CH;
+    const uint4 w = *reinterpret_cast<const uint4*>(src + c * D + ch * 16);
+    uint4* o = reinterpret_cast<uint4*>(dst + c * KS + ch * 16);
+    o[0] = make_uint4(e4m3x2_to_bf16x2(w.x), e4m3x2_to_bf16x2(w.x >> 16),
+                      e4m3x2_to_bf16x2(w.y), e4m3x2_to_bf16x2(w.y >> 16));
+    o[1] = make_uint4(e4m3x2_to_bf16x2(w.z), e4m3x2_to_bf16x2(w.z >> 16),
+                      e4m3x2_to_bf16x2(w.w), e4m3x2_to_bf16x2(w.w >> 16));
+  }
+}
+
+// S = Q K^T over an e4m3 K tile (K8: BK swizzled rows of D bytes), then
+// the mask and online softmax as scores(); Qw is staged by f8_q_col. The
+// lane's words of all NS keys for 4 k-steps are held at once, so Q's
+// fragments are read once a tile (holding half of them and reading Q
+// twice measured 3% slower at <128, 2>, PERF.md).
+template <int D, int MT, class Visible>
+__device__ __forceinline__ void scores_f8(const bf16* Qw, const uint8_t* K8,
+                                          float scale2, bool all_visible,
+                                          Visible visible, State<D, MT>& st,
+                                          PFrag<MT>& pa) {
+  constexpr int KS = stride(D), CPL = D / 64;  // 16-byte chunks per lane
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  float s[MT][NS][4];
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[t][j][0] = s[t][j][1] = s[t][j][2] =
+        s[t][j][3] = 0.f;
+  const bf16* qrow = Qw + ((lane & 7) + ((lane >> 3) & 1) * 8) * KS +
+                     (lane >> 4) * 8;
+#pragma unroll
+  for (int h = 0; h < CPL; ++h) {       // k-steps 4h .. 4h + 3
+    uint4 kw[NS];  // the lane's 16 bytes of each key: 4 k-steps' words
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const int key = f8_key(j, g);
+      kw[j] = *reinterpret_cast<const uint4*>(
+          K8 + key * D + 16 * ((CPL * c + h) ^ swz<D>(key)));
+    }
+#pragma unroll
+    for (int k4 = 0; k4 < 4; ++k4) {
+      uint32_t qa[MT][4];
+#pragma unroll
+      for (int t = 0; t < MT; ++t)
+        ldsm_x4(qa[t], qrow + t * 16 * KS + (4 * h + k4) * 16);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const uint32_t w = k4 == 0   ? kw[j].x
+                           : k4 == 1 ? kw[j].y
+                           : k4 == 2 ? kw[j].z
+                                     : kw[j].w;
+        const uint32_t b0 = e4m3x2_to_bf16x2(w);
+        const uint32_t b1 = e4m3x2_to_bf16x2(w >> 16);
+#pragma unroll
+        for (int t = 0; t < MT; ++t) mma(s[t][j], qa[t], b0, b1);
+      }
+    }
+  }
+  softmax_tile<D, MT>(s, scale2, all_visible, visible,
+                      [](int j, int col) { return f8_key(j, col); }, st, pa);
+}
+
+// O += P V over an e4m3 V tile (V8 as scores_f8's K8); P's columns are the
+// keys f8_key gave them.
+template <int D, int MT>
+__device__ __forceinline__ void accumulate_f8(const uint8_t* V8,
+                                              const PFrag<MT>& pa,
+                                              State<D, MT>& st) {
+  constexpr int NB = D / 8;  // bytes a lane reads of a row: its n-tiles
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int k = 0; k < NS / 2; ++k) {
+    uint32_t a[4][NB / 4];  // rows 16k + 4c + r: dims NB g + [0, NB)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int key = 16 * k + 4 * c + r;
+      const uint8_t* row = V8 + key * D;
+      if constexpr (D == 128) {
+        const uint4 w = *reinterpret_cast<const uint4*>(
+            row + 16 * (g ^ swz<D>(key)));
+        a[r][0] = w.x, a[r][1] = w.y, a[r][2] = w.z, a[r][3] = w.w;
+      } else {
+        const uint2 w = *reinterpret_cast<const uint2*>(
+            row + 16 * ((g >> 1) ^ swz<D>(key)) + 8 * (g & 1));
+        a[r][0] = w.x, a[r][1] = w.y;
+      }
+    }
+#pragma unroll
+    for (int wd = 0; wd < NB / 4; ++wd) {
+      // byte m of each row's word: keys (0, 1) of dim m in x01, (2, 3) in
+      // x23, two dims to a register
+      const uint32_t x01[2] = {__byte_perm(a[0][wd], a[1][wd], 0x5140),
+                               __byte_perm(a[0][wd], a[1][wd], 0x7362)};
+      const uint32_t x23[2] = {__byte_perm(a[2][wd], a[3][wd], 0x5140),
+                               __byte_perm(a[2][wd], a[3][wd], 0x7362)};
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int sh = 16 * (m & 1);
+        const uint32_t b0 = e4m3x2_to_bf16x2(x01[m >> 1] >> sh);
+        const uint32_t b1 = e4m3x2_to_bf16x2(x23[m >> 1] >> sh);
+#pragma unroll
+        for (int t = 0; t < MT; ++t)
+          mma(st.o[t][4 * wd + m], pa[t][k], b0, b1);
+      }
+    }
+  }
 }
 
 }  // namespace tc

@@ -77,6 +77,8 @@ _SIGNATURES = {
     # kv_len, scale, kv dtype, rows, stream (bf16)
     "cs_gqa_prefill_tc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _F, _I, _P, _P),
+    # kv dtype -> warps a block of K4's tensor-core kernel
+    "cs_decode_tc_warps": (_I,),
     # x, sx, q4, layer_stride, scale, scale_stride, layer, code, out, part,
     # m, half, dout, rows_per_split, splits, variant, out dtype, stream
     "cs_int4_gemv": (_P, _P, _P, _L, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,

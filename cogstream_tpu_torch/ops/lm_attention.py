@@ -12,11 +12,14 @@ do not take raises; nothing falls back.
 
 The K/V cache may also be ``torch.float8_e4m3fn`` (the fp8 KV cache,
 ``kv_dtype``), under either query dtype: every route then reads the
-cache's own e4m3 bytes and widens each tile on chip (the TPU kernels'
+cache's own e4m3 bytes and widens them on chip (the TPU kernels'
 ``k_ref[0].astype(q.dtype)``), so the K/V bytes read halve against bf16
-and no bf16 copy of the cache is made. Those calls are counted in
-``.fp8_launches`` as well. The plain version upcasts only the read
-window it gathers, as the JAX package's XLA branch does.
+and no bf16 copy of the cache is made. K4's tensor-core kernel widens
+in registers, each MMA fragment just before its MMA; K3's widens each
+tile once a block into a bf16 tile (``csrc/lm_attention.cu``). Those
+calls are counted in ``.fp8_launches`` as well. The plain version
+upcasts only the read window it gathers, as the JAX package's XLA
+branch does.
 
 K4's bf16 route is one kernel launch per call: no pre-pass (the kernel
 reads each key tile's positions itself), no second pass (the last block
@@ -61,6 +64,9 @@ TC_HEAD_DIMS = (64, 128)    # head dims of K3's and K4's tensor-core kernels
 # (ptxas on sm_90a: <128, 2> 253 registers and <64, 2> 169 without spills;
 # <64, 4> spills ~1 KB)
 DECODE_TC_MAX_MT = {64: 2, 128: 2}
+# K4 tensor-core kernel over an e4m3 cache: warps a block (csrc
+# dec_warps, which the library's cs_decode_tc_warps returns)
+E4M3_DECODE_WARPS = 8
 _PLAIN_Q_CHUNK = 256        # plain version: query rows per dense block
 
 
@@ -228,18 +234,25 @@ def prefill_flash_attention(
 
 
 def decode_plan(B: int, Hkv: int, R: int, D: int, kv_len: int,
-                sms: int) -> Tuple[int, int, int, int]:
+                sms: int, kv_bytes: int = 2) -> Tuple[int, int, int, int]:
     """Launch plan of K4's tensor-core kernel for R = S * G folded rows
-    per kv head: (m-tiles per warp, row groups, key tiles per split,
+    per kv head over a cache of ``kv_bytes``-byte K/V elements (2: bf16,
+    1: e4m3): (m-tiles per warp, row groups, key tiles per split,
     splits). The rows take the fewest m16 tiles (at most
     ``DECODE_TC_MAX_MT[D]`` per block; more rows take more row groups);
-    the cache splits so that the blocks about fill the ``sms`` SMs."""
+    the cache splits so that the blocks about fill the ``sms`` SMs. An
+    e4m3 block has ``E4M3_DECODE_WARPS`` warps, each widening its own
+    tiles on its chain of latencies, so its splits round up to whole
+    tiles for every warp: the longest warp's chain sets the block's
+    time."""
     mt = 1
     while mt < DECODE_TC_MAX_MT[D] and 16 * mt < R:
         mt *= 2
     groups = -(-R // (16 * mt))
     n_tiles = -(-kv_len // _TILE)
     per_split = max(1, -(-n_tiles * B * Hkv * groups // sms))
+    if kv_bytes == 1:
+        per_split = -(-per_split // E4M3_DECODE_WARPS) * E4M3_DECODE_WARPS
     return mt, groups, per_split, -(-n_tiles // per_split)
 
 
@@ -312,7 +325,7 @@ def decode_attention(
     if tc:
         kernels.require_aligned(q, k, v)
         mt, groups, per_split, n_splits = decode_plan(
-            B, Hkv, R, D, kv_len, kernels.sm_count(dev))
+            B, Hkv, R, D, kv_len, kernels.sm_count(dev), k.element_size())
         n_part = B * Hkv * groups * n_splits * 16 * mt   # partial rows
         part, tickets = _decode_workspace(dev, n_part * (2 + D),
                                           B * Hkv * groups)

@@ -974,8 +974,9 @@ def test_e4m3_cast_on_the_card_equals_the_cpu(dev):
 
 
 @pytest.mark.parametrize("rows", [None, [3, 1]])
-@pytest.mark.parametrize("kernel,S", [("K3", 100), ("K4", 1), ("K4", 5),
-                                      ("K4", 8)])
+@pytest.mark.parametrize("kernel,S", [("K3", 100), ("K3", 1210),
+                                      ("K3", 2420), ("K4", 1),
+                                      ("K4", 5), ("K4", 8)])
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128),
                                      (torch.bfloat16, 64),
                                      (torch.float32, 128)])
@@ -985,12 +986,28 @@ def test_fp8_cache_kernels(dev, rows, kernel, S, dtype, D):
     bf16 ulps of its max |ref|), f32 on the CUDA-core tile (f32 summation
     order, 2e-5); with ``rows`` reading a 4-row e4m3 pool, bit-identical
     to a contiguous copy of the addressed rows. Counted in
-    ``.fp8_launches``; the padded query outputs 0."""
+    ``.fp8_launches``; the padded query outputs 0. Read windows of 1000
+    and 3400 slots end in ragged tiles. K3 over e4m3 runs each of its
+    three instances (cs_gqa_prefill_tc's weighted waves on 132 SMs): at S
+    = 100 the 4-warp one (64 rows a block), at S = 1210 (8470 folded rows)
+    the 8-warp 2-m-tile one (256 rows; with ``rows``, 2 inputs, the 8-warp
+    1-m-tile one, 128 rows), at S = 2420 the 128-row one (with ``rows``
+    the 256-row one)."""
     from cogstream_tpu_torch.ops import lm_attention as lma
 
     rng = np.random.default_rng(S * 10 + D + len(rows or ()))
     B = 1 if rows is None else len(rows)
-    q, k, v, qpos, eff = _decode_case(rng, dev, B, S, 7, D, 1100, 1000, 900)
+    T, window = (4000, 3400) if S > 1000 else (1100, 1000)
+    q, k, v, qpos, eff = _decode_case(rng, dev, B, S, 7, D, T, window, 900)
+    if kernel == "K3" and dtype == torch.bfloat16:
+        # the rows a block of the e4m3 instance (2 kv heads): the fewest
+        # waves of one block an SM, weighted 17 : 11 : 10
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        cost = {n: -(-(-(-S * 7 // n) * B * 2) // sms) * w
+                for n, w in ((256, 17), (128, 11), (64, 10))}
+        assert min(cost, key=lambda n: (cost[n], -n)) == {
+            100: 64, 1210: 256 if B == 1 else 128,
+            2420: 128 if B == 1 else 256}[S]
     q = q.to(dtype)
     f8 = torch.float8_e4m3fn
     k8, v8 = k.to(f8), v.to(f8)
@@ -1040,6 +1057,19 @@ def test_fp8_decode_replays_in_a_graph(dev):
     torch.cuda.synchronize()
     assert torch.equal(out, lma.decode_attention(q, k8, v8, qpos, eff))
     _two_ulps(out, lma.gqa_attention_plain(q, k8, v8, qpos, eff))
+
+
+def test_decode_warps_match_the_library(dev):
+    """decode_plan's warps a block over an e4m3 cache are the ones the
+    built K4 kernel launches with (bf16: 4)."""
+    from cogstream_tpu_torch.ops import kernels
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    lib = kernels.library()
+    codes = kernels.KV_DTYPE_CODES
+    assert lib.cs_decode_tc_warps(codes[torch.float8_e4m3fn]) == \
+        lma.E4M3_DECODE_WARPS
+    assert lib.cs_decode_tc_warps(codes[torch.bfloat16]) == 4
 
 
 def test_fp8_session_card_matches_cpu(dev):
@@ -1092,13 +1122,25 @@ def test_fp8_session_card_matches_cpu(dev):
 
 
 @pytest.mark.parametrize("kernel,S", [("K3", 16), ("K4", 1), ("K4", 8)])
-def test_e4m3_widening_is_exact(dev, kernel, S):
-    """All 256 e4m3 byte values (NaN included) as the V of the one visible
-    slot, q = 0: every output head equals its kv head's V row widened by
-    torch, bit for bit (NaN where the byte is NaN): the tensor-core
-    kernels' widening, its bit path and its NaN path."""
+@pytest.mark.parametrize("operand", ["V", "K"])
+def test_e4m3_widening_is_exact(dev, kernel, S, operand):
+    """All 256 e4m3 byte values (NaN included) through the tensor-core
+    kernels' widening, bit for bit (NaN where the byte is NaN).
+
+    V: the V of the one visible slot, q = 0: every output head equals its
+    kv head's V row widened by torch. K: the K row of slot 0 (head h, dim
+    d holds byte 128 h + d) beside a zero K at slot 1, each folded query
+    row r one-hot at dim r % 128, so each score is one product: the output
+    equals the bf16 kernel's on the widened cache (K3 with 16 queries of 8
+    heads, K4 with 8 of 16: 128 rows a kv head, every dim probed; the NaN
+    bytes in kv heads of their own, _k_widening_is_exact)."""
     from cogstream_tpu_torch.ops import lm_attention as lma
 
+    wrap = (lma.prefill_flash_attention if kernel == "K3"
+            else lma.decode_attention)
+    if operand == "K":
+        _k_widening_is_exact(dev, wrap, S)
+        return
     _, T, Hkv, G, D = 1, 200, 2, 7, 128
     f8 = torch.float8_e4m3fn
     vb = torch.zeros((1, T, Hkv, D), dtype=torch.uint8)
@@ -1109,12 +1151,44 @@ def test_e4m3_widening_is_exact(dev, kernel, S):
     eff = torch.full((1, T), lma.SENTINEL, dtype=torch.int32, device=dev)
     eff[0, 0] = 0
     qpos = torch.arange(S, dtype=torch.int32, device=dev)[None]
-    wrap = (lma.prefill_flash_attention if kernel == "K3"
-            else lma.decode_attention)
     out = wrap(q, k8, v8, qpos, eff).float().cpu()
     want = v8[0, 0].to(torch.bfloat16).float().cpu()       # [Hkv, D]
     want = want.repeat_interleave(G, 0)[None, None].expand(1, S, -1, -1)
     torch.testing.assert_close(out, want, rtol=0, atol=0, equal_nan=True)
+
+
+def _k_widening_is_exact(dev, wrap, S):
+    """The K case of test_e4m3_widening_is_exact. Kv heads 0 and 1 hold
+    the 254 finite bytes (byte 128 h + d at dim d), heads 2 and 3 only the
+    NaN bytes 0x7f and 0xff (at dim 127): a NaN anywhere in a key's row
+    makes every score of that row NaN (0 x NaN), in both kernels."""
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    T, Hkv, D = 200, 4, 128
+    G = 128 // S
+    f8, bf = torch.float8_e4m3fn, torch.bfloat16
+    kb = torch.zeros((1, T, Hkv, D), dtype=torch.uint8)
+    kb[0, 0, :2] = torch.arange(256, dtype=torch.uint8).reshape(2, D)
+    kb[0, 0, :2, 127] = 0
+    kb[0, 0, 2, 127], kb[0, 0, 3, 127] = 0x7F, 0xFF
+    k8 = kb.to(dev).view(f8)
+    rng = np.random.default_rng(3)
+    v8 = _t(rng.standard_normal((1, T, Hkv, D)), dev, bf).to(f8)
+    q = torch.zeros((1, S, Hkv, G, D), dtype=bf)
+    r = torch.arange(S * G)
+    q[0, r // G, :, r % G, r % D] = 1.0
+    q = q.reshape(1, S, Hkv * G, D).to(dev)
+    eff = torch.full((1, T), lma.SENTINEL, dtype=torch.int32, device=dev)
+    eff[0, :2] = torch.tensor([0, 1], dtype=torch.int32)
+    qpos = torch.arange(1, S + 1, dtype=torch.int32, device=dev)[None]
+    n0 = wrap.fp8_launches
+    out = wrap(q, k8, v8, qpos, eff).float().cpu()
+    assert wrap.fp8_launches == n0 + 1
+    ref = wrap(q, k8.to(bf), v8.to(bf), qpos, eff).float().cpu()
+    nan = torch.isnan(ref).reshape(S, Hkv, G, D)
+    assert nan[:, 2:].all() and not nan[:, :2].any()
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    assert torch.equal(out[~torch.isnan(ref)], ref[~torch.isnan(ref)])
 
 
 def test_row_parallel_product_has_the_layer_gradient(dev):

@@ -250,11 +250,18 @@ def test_fp8_cache_reaches_the_entry_point(lib, kernel, dtype, entry, kv_arg,
     if entry == "cs_gqa_attention":
         assert call[1][20] == kernels.DTYPE_CODES[torch.float32]
     assert (wrap.fp8_launches, wrap.launches) == (f0 + 1, n0 + 1)
+    if entry == "cs_gqa_decode_tc":   # the e4m3 form's launch plan
+        mt, _, per_split, n_splits = lma.decode_plan(B, 4, 7, 128, 256, 132,
+                                                     kv_bytes=1)
+        assert call[1][16:19] == (mt, per_split, n_splits)
     lib.calls.clear()
     kk = k if rows is None else torch.cat([k, k])
     wrap(q, kk, kk, qpos, eff, rows=rows)
     assert lib.calls[0][1][kv_arg] == kernels.KV_DTYPE_CODES[dtype]
     assert wrap.fp8_launches == f0 + 1
+    if entry == "cs_gqa_decode_tc":   # the bf16 form's
+        mt, _, per_split, n_splits = lma.decode_plan(B, 4, 7, 128, 256, 132)
+        assert lib.calls[0][1][16:19] == (mt, per_split, n_splits)
 
 
 def test_fp8_cached_decode_forward_passes_the_cache_itself(lib):
@@ -320,22 +327,32 @@ def test_decode_workspace_is_reused(lib, monkeypatch):
     assert lma._retired_ws == [(part, tickets)]
 
 
+@pytest.mark.parametrize("kv_bytes", [2, 1])
 @pytest.mark.parametrize("B,Hkv,R,D,kv_len", [
     (1, 4, 7, 128, 9216), (1, 4, 56, 128, 9216), (1, 4, 56, 64, 9216),
     (2, 4, 21, 64, 520), (1, 1, 7, 128, 64), (1, 4, 14, 128, 16384),
     (4, 8, 8, 128, 100)])
-def test_decode_plan_covers_rows_and_tiles(B, Hkv, R, D, kv_len):
+def test_decode_plan_covers_rows_and_tiles(B, Hkv, R, D, kv_len, kv_bytes):
     """Every folded row sits in one row group, every key tile in one
-    split, no split is empty, and the blocks about fill 132 SMs."""
+    split, no split is empty, and the blocks about fill 132 SMs; over an
+    e4m3 cache (1-byte K/V) the split is the bf16 form's rounded up to a
+    whole tile for each of the block's 8 warps, and the rows' plan is the
+    same."""
     mt, groups, per_split, n_splits = lma.decode_plan(B, Hkv, R, D, kv_len,
-                                                      132)
+                                                      132, kv_bytes)
     assert mt in (1, 2, 4) and mt <= lma.DECODE_TC_MAX_MT[D]
     assert 16 * mt * groups >= R > 16 * mt * (groups - 1)
     n_tiles = -(-kv_len // 64)
     assert n_splits * per_split >= n_tiles > (n_splits - 1) * per_split
     blocks = B * Hkv * groups * n_splits
     assert blocks <= 132 + B * Hkv * groups
-    assert per_split == 1 or blocks > 132 // 2
+    bf16 = lma.decode_plan(B, Hkv, R, D, kv_len, 132)
+    if kv_bytes == 2:
+        assert per_split == 1 or blocks > 132 // 2
+    else:
+        warps = lma.E4M3_DECODE_WARPS
+        assert (mt, groups) == bf16[:2] and per_split % warps == 0
+        assert bf16[2] <= per_split < bf16[2] + warps
 
 
 def test_cached_decode_forward_launches_k4_once_per_layer(lib):

@@ -2,6 +2,7 @@
 """Time the PyTorch port's attention kernels in two checkouts on one card.
 
     python3 tools/torch_kernel_ab.py OTHER_CHECKOUT [--rounds 2]
+    python3 tools/torch_kernel_ab.py --plans
 
 Runs OTHER, this checkout, this checkout, OTHER (``--rounds`` times),
 each in its own process (both packages are named ``cogstream_tpu_torch``),
@@ -10,17 +11,31 @@ and prints one JSON line per run and a summary: the device ms of K1
 segment bucketed to 16384 rows, 16 heads of 72), of K5
 (``segment_flash_attention``, bf16 [16128, 16, 72], 16 frames of 1008)
 and of K3 (``prefill_flash_attention``, a 4384-token prefill over 4607
-history slots of a 16384-slot cache), each the mean of 20 launches
+history slots of a 16384-slot cache; K3s1000 / K3s600, 1000 / 600
+tokens over 8000; K3s40, a 40-token question over 9000), each the mean
+of 20 launches
 between CUDA events, best of 3; and of K4 (``decode_attention``, one
 step over a 9216-slot window holding 9000), 50 calls captured in a CUDA
 graph, best of 3 replays. K3 and K4 run over a bf16 cache and, in a
-checkout that has the fp8 KV cache, over the same values in e4m3. Each
-checkout builds its own kernels into its own ``build/kernels``.
+checkout that has the fp8 KV cache, over the same values in e4m3; each
+of those outputs is hashed, and the summary says which agree bit for bit
+between the checkouts. Each checkout builds its own kernels into its own
+``build/kernels``.
+
+``--plans`` times K4 in this checkout alone, CUDA graphs of 50 calls in
+alternating rounds, at the serving shapes its launch plan must cover: a
+9216-slot window holding 9000 (S = 1, 5, 8), a 4-row pool ([4, 16384]
+cache, rows [3, 1, 0, 2] holding 9000 / 4000 / 12000 / 16000, S = 1), a
+1024-slot window holding 1000 (S = 1, 8) and a tensor-parallel shard (14
+query heads over 2 kv heads, the 9216-slot window, S = 1): bf16 on its
+plan, e4m3 (the same values) on ``decode_plan``'s e4m3 plan, and e4m3 on
+the bf16 plan (no rounding of the split to whole tiles for every warp).
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -124,7 +139,10 @@ def time_lm_attention(rng, dev, ms) -> dict:
         k8, v8 = k.to(torch.float8_e4m3fn), v.to(torch.float8_e4m3fn)
         caches = {"bf16": (k8.to(bf), v8.to(bf)), "e4m3": (k8, v8)}
     out = {}
-    for S, hist, W in ((4384, 4607, T), (1, 9000, 9216)):
+    for kernel, S, hist, W in (("K3", 4384, 4607, T),
+                               ("K3s1000", 1000, 8000, T),
+                               ("K3s600", 600, 8000, T),
+                               ("K3s40", 40, 9000, T), ("K4", 1, 9000, 9216)):
         pos = np.full((1, T), -1, np.int32)
         pos[0, :hist + S] = np.arange(hist + S)
         eff = lma.effective_kv_positions(
@@ -133,22 +151,113 @@ def time_lm_attention(rng, dev, ms) -> dict:
         qp = torch.arange(hist, hist + S, dtype=torch.int32,
                           device=dev)[None]
         for name, (kc, vc) in caches.items():
-            if S == 1:
-                out[f"K4_{name}_ms"] = graph_ms(
-                    lambda: lma.decode_attention(q, kc, vc, qp, eff))
-            else:
-                out[f"K3_{name}_ms"] = ms(
-                    lambda: lma.prefill_flash_attention(q, kc, vc, qp, eff))
+            fn = lma.decode_attention if S == 1 else \
+                lma.prefill_flash_attention
+            got = fn(q, kc, vc, qp, eff)
+            out[f"{kernel}_{name}_sha"] = hashlib.sha1(
+                got.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+            timer = graph_ms if S == 1 else ms
+            out[f"{kernel}_{name}_ms"] = timer(
+                lambda: fn(q, kc, vc, qp, eff))
     return out
+
+
+def plan_sweep(rounds: int) -> int:
+    """K4 over e4m3 on its own plan and on bf16's, beside bf16 (see the
+    module's docstring); one JSON line per shape."""
+    import numpy as np
+    import torch
+
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    dev = torch.device("cuda", 0)
+    bf, f8 = torch.bfloat16, torch.float8_e4m3fn
+    rng = np.random.default_rng(3)
+    plan = lma.decode_plan
+
+    def graph_ms(fn, n=50):
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(n):
+                fn()
+        best = float("inf")
+        for _ in range(3):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            g.replay()
+            b.record()
+            torch.cuda.synchronize()
+            best = min(best, a.elapsed_time(b) / n)
+        return best
+
+    def bf16_plan(*args):           # the split without e4m3's rounding
+        return plan(*args[:6])
+
+    D, T = 128, 16384
+    # label, S, query heads, kv heads, window, fill of each input row,
+    # cache rows (None: input row b reads cache row b)
+    shapes = [(f"window 9216 S={s}", s, 28, 4, 9216, [9000], None)
+              for s in (1, 5, 8)]
+    shapes += [("pool of 4 S=1", 1, 28, 4, T, [9000, 4000, 12000, 16000],
+                [3, 1, 0, 2])]
+    shapes += [(f"window 1024 S={s}", s, 28, 4, 1024, [1000], None)
+               for s in (1, 8)]
+    shapes += [("tp shard 14 / 2 heads S=1", 1, 14, 2, 9216, [9000], None)]
+    for label, S, Hq, Hkv, W, fills, rows in shapes:
+        B = len(fills)
+        k16 = torch.as_tensor(rng.standard_normal((B, T, Hkv, D))).to(dev, bf)
+        v16 = torch.as_tensor(rng.standard_normal((B, T, Hkv, D))).to(dev, bf)
+        k8, v8 = k16.to(f8), v16.to(f8)
+        k16, v16 = k8.to(bf), v8.to(bf)
+        pos = np.full((B, T), -1, np.int32)
+        for b, n in enumerate(fills):
+            pos[rows[b] if rows else b, :n] = np.arange(n)
+        order = rows if rows else list(range(B))
+        eff = lma.effective_kv_positions(
+            torch.as_tensor(pos[order]).to(dev))[:, :W].contiguous()
+        q = torch.as_tensor(rng.standard_normal((B, S, Hq, D))).to(dev, bf)
+        qp = torch.as_tensor(np.array(fills)[:, None] - S +
+                             np.arange(S)).to(dev, torch.int32)
+        rr = lma.cache_rows(rows, dev) if rows else None
+
+        def call(k, v):
+            return lambda: lma.decode_attention(q, k, v, qp, eff, rows=rr)
+
+        runs = {"bf16": [], "e4m3": [], "e4m3 on the bf16 plan": []}
+        for _ in range(rounds):
+            for name in list(runs) + list(reversed(list(runs))):
+                if name == "e4m3 on the bf16 plan":
+                    lma.decode_plan = bf16_plan
+                try:
+                    fn = call(k16, v16) if name == "bf16" else call(k8, v8)
+                    runs[name].append(graph_ms(fn))
+                finally:
+                    lma.decode_plan = plan
+        R = S * (Hq // Hkv)
+        print(json.dumps({
+            "shape": label, "card": torch.cuda.get_device_name(0),
+            "plan bf16": plan(B, Hkv, R, D, W, 132),
+            "plan e4m3": plan(B, Hkv, R, D, W, 132, 1), **runs}), flush=True)
+    return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("other", help="the other checkout (e.g. the parent "
-                                  "commit unpacked with git archive)")
+    ap.add_argument("other", nargs="?", help="the other checkout (e.g. "
+                    "the parent commit unpacked with git archive)")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--plans", action="store_true",
+                    help="time K4's e4m3 launch plan in this checkout")
     ap.add_argument("--time-one", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
+    if a.plans:
+        sys.path.insert(0, HERE)
+        return plan_sweep(a.rounds)
+    if a.other is None:
+        ap.error("OTHER_CHECKOUT is needed unless --plans is given")
     if a.time_one:
         print(json.dumps(time_one(a.other)), flush=True)
         return 0
@@ -172,6 +281,10 @@ def main() -> int:
                for tag, got in runs.items() for key in keys}
     best = {tag: min(x["K1_ms"] for x in got) for tag, got in runs.items()}
     summary["K1_this_over_other"] = best["this"] / best["other"]
+    for key in runs["this"][0]:
+        if key.endswith("_sha") and key in runs["other"][0]:
+            summary[key.replace("_sha", "_bits_equal")] = len(
+                {x[key] for got in runs.values() for x in got}) == 1
     print(json.dumps(summary))
     return 0
 
