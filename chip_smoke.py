@@ -274,7 +274,17 @@ Phases (each prints one line or a few; any failure exits non-zero):
    within 2.01 lr an update. Replicated leaves bit-equal across the
    ranks; the adapter files the ranks wrote load in the parent; per rank
    peak GiB, collectives a step and walls (two ranks sharing one card
-   over gloo: not a speed). A rank that fails fails the phase;
+   over gloo: not a speed). Then, in the same two ranks on the whole
+   model, (d) ``train_stage1`` on a (data 1, pipe 2) mesh, GPipe with 4
+   microbatches, each rank its stage's 14 layers, and (e) the two
+   8-frame micro-steps of ``Stage2Trainer`` with
+   ``sequence_parallel=2`` (the ring; the tower replicated on each rank,
+   K5 and K2): their first-step gradients, losses and adapters held to
+   the one-process steps as (b) and (c) are, with each part's wall, its
+   ``ppermute`` hops and bytes (and each hop's wall), and each rank's
+   peak GiB; with ``--train-pp-fault`` one backward hop of each of (d)
+   and (e) carries zeros from rank 1, and the phase must fail. A rank
+   that fails fails the phase;
 6. int4 main path — the same model's decoder is quantized in place to
    rank-1 uniform int4 (the bf16 weights are freed; memory before and
    after is printed); then, with w4a8_decode off and on, a fresh session
@@ -7027,6 +7037,9 @@ TRAIN_TP_S1 = dict(epochs=1, batch_size=4, max_len=2048, grad_accum=1,
 TRAIN_TP_S2 = dict(grad_accum=1, save_every=10_000, learning_rate=1e-4)
 # stage-1 steps in (a) and (b) (and their one-process references)
 TRAIN_TP_STEPS = 1
+# (d)'s GPipe microbatches (4 x 2048 tokens: one row each) and stages
+TRAIN_PP_M = 4
+TRAIN_PP_STAGES = 2
 # every LoRA ``b`` starts drawn from N(0, TRAIN_TP_B_STD^2) instead of 0,
 # so that the adapters act in the first forward and every leaf's first
 # gradient is nonzero
@@ -7099,18 +7112,21 @@ def train_tp_lora(cfg, dev, stage: int):
     return tree
 
 
-def train_tp_stage2(model, cfg, tok, out_dir, turns, dev, mesh_tp=None):
-    """``Stage2Trainer`` micro-steps on ``turns`` (phase 12 (c)): the
-    losses, walls and the trainer. Stage 2's warm-up (JAX's recipe, at
-    least one update) gives the first micro-step learning rate 0: its
-    gradient is held, the second one updates."""
+def train_tp_stage2(model, cfg, tok, out_dir, turns, dev, mesh_tp=None,
+                    sp: int = 1):
+    """``Stage2Trainer`` micro-steps on ``turns`` (phase 12 (c), and (e)
+    with ``sp`` ranks on the ring): the losses, walls and the trainer.
+    Stage 2's warm-up (JAX's recipe, at least one update) gives the first
+    micro-step learning rate 0: its gradient is held, the second one
+    updates."""
     import torch
 
     from cogstream_tpu_torch.train import stage2
 
     tr = stage2.Stage2Trainer(
         model, cfg, tok, stage2.Stage2Config(**TRAIN_TP_S2,
-                                             model_parallel=mesh_tp),
+                                             model_parallel=mesh_tp,
+                                             sequence_parallel=sp),
         out_dir, total_steps=4, log=lambda *a: None,
         lora_cfg=train_tp_lora_cfg(), lora=train_tp_lora(cfg, dev, 2))
     losses, walls = [], []
@@ -7206,20 +7222,23 @@ def train_tp_witness(model, cfg, tok, samples, dev):
 
 class StepSpy:
     """Each training step's collectives, wall, wall inside the collectives
-    (a sync before and after each all-reduce: compute is not counted, the
-    wait for the other rank is) and loss, and the first update's
-    gradients since the last :meth:`take_grads` (whole on one process, a
-    mesh rank's slices on a rank), through the ``make_train_step`` of the
-    modules given (instrumentation of this script only)."""
+    (a sync before and after each all-reduce and ``ppermute`` hop: compute
+    is not counted, the wait for the other rank is) and loss, each hop's
+    bytes and wall, and the first update's gradients since the last
+    :meth:`take_grads` (whole on one process, a mesh rank's slices on a
+    rank), through the ``make_train_step`` of the modules given
+    (instrumentation of this script only)."""
 
     def __init__(self, *modules):
         import torch
 
         from cogstream_tpu_torch.parallel import mesh
 
-        self.steps, self.grads, self.coll_s = [], None, 0.0
+        self.steps, self.grads, self.coll_s, self.hops = [], None, 0.0, []
         self.saved = [(m, m.make_train_step) for m in modules]
         self.mesh, self.reduce = mesh, mesh._all_reduce
+        # the hop this spy times (ZeroBackHop may wrap it)
+        self.orig_hop = self.hop = mesh._hop
         spy = self
 
         def timed(*a, **k):
@@ -7229,6 +7248,19 @@ class StepSpy:
             torch.cuda.synchronize()
             spy.coll_s += time.perf_counter() - t0
             return out
+
+        def timed_hop(tensors, group, shift):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = spy.hop(tensors, group, shift)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            spy.coll_s += dt
+            spy.hops.append((sum(t.numel() * t.element_size()
+                                 for t in tensors), shift, dt))
+            return out
+
+        mesh._hop = timed_hop
 
         class Tap:
             """The optimizer, its first update's gradients kept."""
@@ -7267,12 +7299,16 @@ class StepSpy:
         out, self.steps = self.steps, []
         return out
 
+    def take_hops(self):
+        out, self.hops = self.hops, []
+        return out
+
     def take_grads(self):
         out, self.grads = self.grads, None
         return out
 
     def restore(self):
-        self.mesh._all_reduce = self.reduce
+        self.mesh._all_reduce, self.mesh._hop = self.reduce, self.orig_hop
         for m, make in self.saved:
             m.make_train_step = make
 
@@ -7307,6 +7343,30 @@ class NoAttnCopy:
         self.qwen2.rms_norm, self.qwen2.copy_to_model = self.saved
 
 
+class ZeroBackHop:
+    """A planted fault for phase 12's self-test (``--train-pp-fault``): on
+    rank 1, the first backward ``ppermute`` hop after each :meth:`arm`
+    sends zeros of the right shapes (the schedule stays whole, the
+    gradient it carries is lost), as when a stage drops a received
+    tensor's gradient."""
+
+    def __init__(self, spy, rank: int):
+        self.armed = False
+        real = spy.hop
+        fault = self
+
+        def hop(tensors, group, shift):
+            if rank == 1 and fault.armed and shift < 0:
+                fault.armed = False
+                tensors = [t.new_zeros(t.shape) for t in tensors]
+            return real(tensors, group, shift)
+
+        spy.hop = hop
+
+    def arm(self):
+        self.armed = True
+
+
 def _grads_vs(got, ref):
     """First-step gradients (path -> tensor) against the reference's:
     the largest per-leaf relative Frobenius gap, its leaf, and the gap over
@@ -7330,14 +7390,18 @@ def _grads_vs(got, ref):
 
 def _whole_grads(state, grads):
     """A rank's first-step gradient slices, whole (collective over the
-    model group), by leaf path on the host."""
+    model or pipe group; already whole without a layout), by leaf path on
+    the host."""
     from cogstream_tpu_torch.models.lora import iter_leaves
 
-    whole = state.layout.gather_leaves(grads)
-    return {p: g.cpu() for (p, _), g in zip(iter_leaves(state.lora), whole)}
+    if state.layout is None:
+        paths, whole = [p for p, _ in iter_leaves(state.lora)], grads
+    else:
+        paths, whole = state.layout.paths, state.layout.gather_leaves(grads)
+    return {p: g.cpu() for p, g in zip(paths, whole)}
 
 
-def run_train_tp_path(model, dev, stamp, fault=False):
+def run_train_tp_path(model, dev, stamp, fault=False, pp_fault=False):
     """Phase 12: data- and tensor-parallel LoRA training at 7B width and
     depth, two ranks on this card (subprocesses of this script,
     ``--train-rank``) over gloo, as phase 11. The parent first runs the
@@ -7364,8 +7428,18 @@ def run_train_tp_path(model, dev, stamp, fault=False):
     launched on each rank; the adapter files the ranks wrote load here.
     Printed per rank: peak GiB, collectives a step, walls and the wall
     inside the collectives (two ranks sharing one card over gloo: not a
-    speed). ``fault`` plants :class:`NoAttnCopy` in the ranks (the
-    check's self-test: the phase must then fail)."""
+    speed). Then (d) ``train_stage1`` on a (data 1, pipe 2) mesh (GPipe,
+    TRAIN_PP_M microbatches) and (e) ``Stage2Trainer`` with
+    ``sequence_parallel=2`` on the 8-frame turn, both in the same ranks on
+    the whole model, held to the same one-process steps as (b) and (c):
+    first-step gradients gathered over the stages (summed over the ring)
+    within ``TRAIN_TP_GRAD_REL`` / ``TRAIN_TP_GRAD_ALL``, losses within
+    ``TRAIN_TP_LOSS_REL``, adapters within 2.01 lr an update, (e)'s K5
+    launches all on the tensor-core tile (2 x 27 a rank, the whole tower)
+    and K2 launched; printed with each part's hops, bytes and hop walls.
+    ``fault`` plants :class:`NoAttnCopy` in the ranks, ``pp_fault``
+    :class:`ZeroBackHop` (the checks' self-tests: the phase must then
+    fail)."""
     import shutil
 
     import torch
@@ -7429,7 +7503,8 @@ def run_train_tp_path(model, dev, stamp, fault=False):
             f"{ref['s2_losses']}, int8 {ref['int8_losses']} [{stamp}]")
         t0 = time.perf_counter()
         rcs = run_ranks("--train-rank", TRAIN_TP_DIR, TRAIN_TP_WORLD,
-                        extra=["--train-tp-fault"] if fault else [])
+                        extra=(["--train-tp-fault"] if fault else [])
+                        + (["--train-pp-fault"] if pp_fault else []))
         wall = time.perf_counter() - t0
         for r in range(TRAIN_TP_WORLD):
             with open(os.path.join(TRAIN_TP_DIR, f"rank{r}.log")) as f:
@@ -7445,9 +7520,11 @@ def run_train_tp_path(model, dev, stamp, fault=False):
                                     device=dev)
                for c, name in (("a", "language_module.npz"),
                                ("b", "language_module.npz"),
-                               ("c", "full_module.npz"))}
+                               ("c", "full_module.npz"),
+                               ("d", "language_module.npz"),
+                               ("e", "full_module.npz"))}
         grads = {c: torch.load(os.path.join(TRAIN_TP_DIR, f"grads_{c}.pt"))
-                 for c in ("b", "c", "c_int8")}
+                 for c in ("b", "c", "c_int8", "d", "e")}
         return train_tp_verdict(res, ref, got, grads, wall, stamp)
     finally:
         shutil.rmtree(TRAIN_TP_DIR, ignore_errors=True)
@@ -7530,19 +7607,78 @@ def train_tp_verdict(res, ref, got, grads, wall, stamp):
             f"collectives (two ranks sharing one card over gloo: not a "
             f"speed) [{stamp}]")
         ok &= k_ok
+    d_ok, e_ok = train_pp_verdict(res, ref, got, grads, gap, rel, stamp)
     same = {c: res[0][c]["replicated"] == res[1][c]["replicated"]
-            for c in ("a", "b", "c")}
+            for c in "abcde"}
     log(f"train-tp: replicated leaves bit-equal across the ranks {same}; "
         f"phase 12 in {wall:.1f}s [{stamp}]")
-    ok &= a_ok and b_ok and c_ok and all(same.values())
+    ok &= a_ok and b_ok and c_ok and d_ok and e_ok and all(same.values())
     if not ok:
         raise AssertionError(f"phase 12 failed: (a) {a_ok} (b) {b_ok} (c) "
-                             f"{c_ok} replicated {same}")
-    return {"train_tp_peak_gib": [[x[c]["peak_gib"] for c in "abc"]
+                             f"{c_ok} (d) {d_ok} (e) {e_ok} replicated "
+                             f"{same}")
+    return {"train_tp_peak_gib": [[x[c]["peak_gib"] for c in "abcde"]
                                   for x in res],
-            "train_tp_walls": [[x[c]["walls"] for c in "abc"] for x in res],
-            "train_tp_losses": {c: res[0][c]["losses"] for c in "abc"},
+            "train_tp_walls": [[x[c]["walls"] for c in "abcde"]
+                               for x in res],
+            "train_tp_losses": {c: res[0][c]["losses"] for c in "abcde"},
+            "train_pp_hops": {c: [res[0][c]["hops"], res[0][c]["hop_bytes"]]
+                              for c in "de"},
             "train_tp_wall_s": wall}
+
+
+def train_pp_verdict(res, ref, got, grads, gap, rel, stamp):
+    """Phase 12 (d) and (e)'s checks and lines: (d) against the stage-1
+    step and (e) against the stage-2 micro-steps of one process, with the
+    bounds (b) and (c) take; each part's walls, hops, bytes and each
+    rank's peak GiB. Returns (d_ok, e_ok)."""
+    lr = TRAIN_TP_S1["learning_rate"]
+    d0, e0 = res[0]["d"], res[0]["e"]
+    dgap = _adapters_vs(got["d"], ref["s1_lora"], lr)
+    d_grads, dtxt = gap("d", "s1_grads")
+    d_ok = (rel(d0["losses"], ref["s1_losses"]) <= TRAIN_TP_LOSS_REL
+            and d_grads and dgap[0] <= 2.01 * TRAIN_TP_STEPS
+            and d0["steps"] == TRAIN_TP_STEPS
+            and all(x["d"]["layers"] == 28 // TRAIN_PP_STAGES for x in res))
+    M, P = TRAIN_PP_M, TRAIN_PP_STAGES
+    act = TRAIN_TP_S1["max_len"] * 3584 * 2 * (TRAIN_TP_S1["batch_size"]
+                                               // M)
+    fwd = [dt for b, sh, dt in d0["hop_walls"] if sh > 0 and b == act]
+    log(f"train-tp (d) stage 1 on (data 1, pipe 2), GPipe with M = {M}: "
+        f"{dtxt}; losses {d0['losses']} (one process {ref['s1_losses']}, "
+        f"rel {rel(d0['losses'], ref['s1_losses']):.3g}, bound "
+        f"{TRAIN_TP_LOSS_REL}); gathered adapters vs one process "
+        f"{dgap[0]:.3g} lr max, {dgap[1]:.4f} beyond 1e-3 lr; "
+        f"{d0['layers']} layers a stage; ppermute over {d0['route']}: "
+        f"{d0['hops']} hops a rank ({M + P - 2} forward, as many backward), "
+        f"{d0['hop_bytes']} bytes sent, {d0['hop_s']} s in them; a "
+        f"[{TRAIN_TP_S1['batch_size'] // M}, {TRAIN_TP_S1['max_len']}, 3584] "
+        f"bf16 hop ({act} bytes) {min(fwd, default=0):.4f}-"
+        f"{max(fwd, default=0):.4f} s (host copies, two ranks on one card) "
+        f"[{stamp}]")
+    egap = _adapters_vs(got["e"], ref["s2_lora"], lr)
+    e_grads, etxt = gap("e", "s2_grads")
+    e_ok = (rel(e0["losses"], ref["s2_losses"]) <= TRAIN_TP_LOSS_REL
+            and e_grads and egap[0] <= 2.01)
+    log(f"train-tp (e) stage 2 with sequence_parallel=2 (the ring): "
+        f"{etxt}; losses {e0['losses']} (one process {ref['s2_losses']}, "
+        f"rel {rel(e0['losses'], ref['s2_losses']):.3g}, bound "
+        f"{TRAIN_TP_LOSS_REL}); adapters after one update vs one process "
+        f"{egap[0]:.3g} lr max, {egap[1]:.4f} beyond 1e-3 lr; "
+        f"{e0['hops']} hops a rank, {e0['hop_bytes']} bytes sent, "
+        f"{e0['hop_s']} s in them [{stamp}]")
+    for r, x in enumerate(res):
+        k5 = x["e"]["k5"]
+        e_ok &= (k5["launches"] == k5["tc_launches"] == 2 * 27
+                 and k5["k2"] > 0)
+        log(f"train-tp: rank {r}: (d) walls {x['d']['walls']} s, in the "
+            f"collectives {x['d']['coll_s']} s, peak "
+            f"{x['d']['peak_gib']:.2f} GiB; (e) walls {x['e']['walls']} s, "
+            f"in the collectives {x['e']['coll_s']} s, peak "
+            f"{x['e']['peak_gib']:.2f} GiB, K5 {k5['launches']} launches "
+            f"({k5['tc_launches']} on the tensor-core tile), K2 {k5['k2']} "
+            f"(two ranks sharing one card over gloo: not a speed) [{stamp}]")
+    return d_ok, e_ok
 
 
 def run_ranks(flag: str, out_dir: str, world: int, timeout_s: float = 900,
@@ -7579,34 +7715,44 @@ def run_ranks(flag: str, out_dir: str, world: int, timeout_s: float = 900,
 
 
 def _replicated_digest(state) -> str:
-    """A digest of a LoRA state's leaves that the model axis replicates."""
+    """A digest of a LoRA state's leaves that the ranks replicate: those
+    the model axis does not split, those outside a pipeline stage's
+    ``layers``, every leaf without a layout (the sp ring)."""
     import hashlib
 
     from cogstream_tpu_torch.models.lora import iter_leaves
 
+    specs = getattr(state.layout, "specs", None)
     h = hashlib.sha256()
     for path, t in iter_leaves(state.lora):
-        if state.layout.specs[path].index is None:
+        if (state.layout is None
+                or (specs is None and not path.startswith("layers."))
+                or (specs is not None and specs[path].index is None)):
             h.update(path.encode())
             h.update(t.detach().float().cpu().numpy().tobytes())
     return h.hexdigest()
 
 
-def train_rank_main(rank: int, port: int, dev=None, fault=False) -> int:
+def train_rank_main(rank: int, port: int, dev=None, fault=False,
+                    pp_fault=False) -> int:
     """One rank of phase 12 (``chip_smoke.py --train-rank R --tp-port
-    P``): joins the gloo group on this card, runs (a)-(c) and writes
-    ``rank<R>.json`` under TRAIN_TP_DIR (rank 0 writes the adapter files
-    and the gathered first-step gradients of (b), (c) and the int8 turn).
-    ``fault`` (``--train-tp-fault``) plants :class:`NoAttnCopy`."""
+    P``): joins the gloo group on this card, runs (a), (d), (e) on the
+    whole model, then (b), (c) on its shards, and writes ``rank<R>.json``
+    under TRAIN_TP_DIR (rank 0 writes the adapter files and the gathered
+    first-step gradients of (b)-(e) and the int8 turn). ``fault``
+    (``--train-tp-fault``) plants :class:`NoAttnCopy`, ``pp_fault``
+    (``--train-pp-fault``) :class:`ZeroBackHop`."""
     import torch
 
     from cogstream_tpu_torch import presets
     from cogstream_tpu_torch.models.cogreasoner import init_cogreasoner_params
     from cogstream_tpu_torch.ops import flash_attention as fa
     from cogstream_tpu_torch.ops import int8_gemv, kernels
+    from cogstream_tpu_torch.ops.layernorm import layernorm
     from cogstream_tpu_torch.ops.quant import quantize_cogreasoner_
     from cogstream_tpu_torch.parallel.distributed import initialize_if_needed
-    from cogstream_tpu_torch.parallel.mesh import COLLECTIVES, make_mesh
+    from cogstream_tpu_torch.parallel.mesh import (COLLECTIVE_BYTES,
+                                                   COLLECTIVES, make_mesh)
     from cogstream_tpu_torch.parallel.sharding import shard_cogreasoner
     from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
     from cogstream_tpu_torch.train import stage1, stage2
@@ -7622,6 +7768,7 @@ def train_rank_main(rank: int, port: int, dev=None, fault=False) -> int:
     samples, turn, text_turn = train_tp_inputs(cfg, tok)
     out = {}
     spy = StepSpy(stage1, stage2)
+    zero_hop = ZeroBackHop(spy, rank) if pp_fault else None
 
     def record(case, state, **extra):
         steps = spy.take()
@@ -7651,13 +7798,76 @@ def train_rank_main(rank: int, port: int, dev=None, fault=False) -> int:
     record("a", st, steps=st.step)
     log(f"(a) steps {st.step} losses {out['a']['losses']} walls "
         f"{out['a']['walls']}")
+    del st
+
+    def hops_of(case):
+        """(d) / (e)'s hops: the counters' deltas and each hop's wall."""
+        hops = spy.take_hops()
+        return {"hops": COLLECTIVES["ppermute"] - hops0[0],
+                "hop_bytes": COLLECTIVE_BYTES["ppermute"] - hops0[1],
+                "hop_walls": [[b, sh, round(dt, 5)] for b, sh, dt in hops],
+                "hop_s": round(sum(dt for *_, dt in hops), 4)}
+
+    # (d) GPipe on (data 1, pipe 2): a view of this stage's 14 layers; the
+    # other stage's wait on the host meanwhile (this process keeps the
+    # whole model for (e) and (b), a stage needs only its own layers)
+    n_stage = cfg.text.num_hidden_layers // TRAIN_PP_STAGES
+    others = [layer for i, layer in enumerate(model.text.layers)
+              if i // n_stage != rank]
+    for layer in others:
+        layer.to("cpu")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hops0 = (COLLECTIVES["ppermute"], COLLECTIVE_BYTES["ppermute"])
+    spy.take_hops()
+    if zero_hop:
+        zero_hop.arm()
+    st = stage1.train_stage1(
+        model.text, cfg, tok, samples, os.path.join(TRAIN_TP_DIR, "d"),
+        stage1.Stage1Config(**TRAIN_TP_S1, pipeline_stages=TRAIN_PP_STAGES,
+                            pipeline_microbatches=TRAIN_PP_M),
+        resume=False, log=lambda *a: None, lora_cfg=train_tp_lora_cfg(),
+        lora=train_tp_lora(cfg, dev, 1))
+    save_grads("d", st)
+    record("d", st, steps=st.step, layers=len(st.lora["layers"]),
+           route=torch.distributed.get_backend(st.layout.group),
+           **hops_of("d"))
+    log(f"(d) steps {st.step} losses {out['d']['losses']} walls "
+        f"{out['d']['walls']} hops {out['d']['hops']} "
+        f"({out['d']['hop_bytes']} bytes, {out['d']['hop_s']} s)")
+    del st
+    for layer in others:
+        layer.to(dev)
+    torch.cuda.reset_peak_memory_stats()
+
+    # (e) the ring: two stage-2 micro-steps with sequence_parallel=2, the
+    # tower replicated on each rank (K5, K2)
+    k5 = fa.segment_flash_attention
+    k5.launches = k5.tc_launches = layernorm.launches = 0
+    hops0 = (COLLECTIVES["ppermute"], COLLECTIVE_BYTES["ppermute"])
+    spy.take_hops()
+    if zero_hop:
+        zero_hop.arm()
+    losses, walls, tr = train_tp_stage2(
+        model, cfg, tok, os.path.join(TRAIN_TP_DIR, "e"), [turn, turn], dev,
+        sp=2)
+    k5_e = {"launches": k5.launches, "tc_launches": k5.tc_launches,
+            "k2": layernorm.launches}
+    tr.finish()
+    save_grads("e", tr.state)
+    record("e", tr.state, k5=k5_e, **hops_of("e"))
+    log(f"(e) losses {losses} walls {walls} hops {out['e']['hops']} "
+        f"({out['e']['hop_bytes']} bytes, {out['e']['hop_s']} s) K5 / K2 "
+        f"{k5_e}")
+    del tr
 
     # (b) the decoder and its LoRA on model-axis shards
     mesh = make_mesh(1, 2)
     sharded = shard_cogreasoner(model, cfg, mesh)
     if fault:
         NoAttnCopy(sharded.text)
-    del model, st
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -7707,7 +7917,7 @@ def train_rank_main(rank: int, port: int, dev=None, fault=False) -> int:
     return 0
 
 
-def run_train_tp_alone(dev, card, fault) -> int:
+def run_train_tp_alone(dev, card, fault, pp_fault=False) -> int:
     """``--train-tp-only``: phase 12 on phase 5's model (random weights
     from seed 0), without the other phases; prints its metrics."""
     import torch
@@ -7718,7 +7928,7 @@ def run_train_tp_alone(dev, card, fault) -> int:
     model = init_cogreasoner_params(
         presets.cogreasoner_7b(), torch.Generator(device=dev).manual_seed(0),
         device=dev)
-    metrics = run_train_tp_path(model, dev, card, fault)
+    metrics = run_train_tp_path(model, dev, card, fault, pp_fault)
     log("metrics: " + json.dumps(metrics))
     return 0
 
@@ -7773,6 +7983,10 @@ def main() -> int:
                     help="with --train-tp-only: plant a fault in the ranks "
                          "(no copy_to_model on the decoder's attention "
                          "input); phase 12 must then fail")
+    ap.add_argument("--train-pp-fault", action="store_true",
+                    help="with --train-tp-only: rank 1 sends zeros in one "
+                         "backward ppermute hop of (d) and of (e); phase 12 "
+                         "must then fail")
     args = ap.parse_args()
     # the smoke uses one card: show it only the first visible one, so the
     # device count it reports is the number of cards it ran on
@@ -7806,7 +8020,8 @@ def main() -> int:
         return tp_dp_rank_main(args.tp_dp_rank, args.tp_port)
     if args.train_rank is not None:
         return train_rank_main(args.train_rank, args.tp_port,
-                               fault=args.train_tp_fault)
+                               fault=args.train_tp_fault,
+                               pp_fault=args.train_pp_fault)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -7831,7 +8046,8 @@ def main() -> int:
             f"{use.get('registers')})")
 
     if args.train_tp_only:
-        return run_train_tp_alone(dev, card, args.train_tp_fault)
+        return run_train_tp_alone(dev, card, args.train_tp_fault,
+                                  args.train_pp_fault)
     if args.tp_only:
         return run_tp_alone(dev, card, args.tp_snapshot_fault,
                             args.tp_w4a8_fault)

@@ -44,7 +44,7 @@ from ..config import CogReasonerConfig, Qwen2Config, VisionEncoderConfig
 from ..ops import quant
 from ..parallel.sharding import (adapt_specs_to_quantized, attach_shards,
                                  cogreasoner_param_specs, slice_leaf,
-                                 text_shard)
+                                 stage_qwen2, text_shard)
 from .cogreasoner import CogReasoner
 from .projector import Projector
 from .qwen2 import ATTN_PROJ, MLP_PROJ, Qwen2Model
@@ -102,20 +102,29 @@ def _check_loaded(model: nn.Module) -> None:
 def qwen2_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: Qwen2Config,
                           prefix: str = "model.", dtype=None, device=None,
                           quantize_text_bits: Optional[int] = None,
-                          mesh=None, leaves=None) -> Qwen2Model:
+                          mesh=None, leaves=None, pipe=None) -> Qwen2Model:
     """HF Qwen2 tensors → ``Qwen2Model`` on ``device``: projections and
     embeddings at ``dtype`` (the config's by default), norm scales f32.
     With ``quantize_text_bits`` 4 (8) every projection and the lm_head
     become rank-1 uniform int4 (per-channel int8) stores, quantized from
     the stored values. ``mesh`` with ``leaves`` (the decoder's leaf specs,
-    see ``load_cogreasoner_from_hf``): this rank's shard."""
+    see ``load_cogreasoner_from_hf``): this rank's shard. ``pipe`` (a
+    ``parallel/mesh.PipelineMesh``): this rank's pipeline stage
+    (``parallel/sharding.stage_qwen2``), whose other stages' layers are
+    never loaded; bf16 only."""
     if quantize_text_bits not in (None, 4, 8):
         raise ValueError("load-time quantization supports bits 4 or 8 "
                          f"(got bits={quantize_text_bits})")
+    if pipe is not None and quantize_text_bits is not None:
+        raise ValueError("a pipeline stage loads unquantized")
     device = default_device(device)
     model = Qwen2Model(cfg, device="meta", dtype=dtype)
     if mesh is not None:
         model.tp = text_shard(cfg, mesh)
+    lo = 0
+    if pipe is not None:
+        model = stage_qwen2(model, pipe)
+        lo = model.pp.lo
 
     def fill(mod, name, key, path):
         _fill(mod, name, sd[key], device, _at(leaves, path))
@@ -123,7 +132,7 @@ def qwen2_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: Qwen2Config,
     fill(model, "embed_tokens", f"{prefix}embed_tokens.weight",
          "embed_tokens")
     fill(model, "final_norm", f"{prefix}norm.weight", "final_norm")
-    for i, layer in enumerate(model.layers):
+    for i, layer in enumerate(model.layers, lo):
         lp = f"{prefix}layers.{i}."
         fill(layer, "input_norm", lp + "input_layernorm.weight",
              f"layers.{i}.input_norm")
@@ -136,7 +145,7 @@ def qwen2_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: Qwen2Config,
                      f"layers.{i}.attn.{name}.bias")
     if quantize_text_bits is None:
         fill(model.lm_head, "weight", "lm_head.weight", "lm_head.weight")
-        for i, layer in enumerate(model.layers):
+        for i, layer in enumerate(model.layers, lo):
             lp = f"{prefix}layers.{i}."
             for grp, name in quant.GEMV_SITES:
                 hf = "self_attn" if grp == "attn" else "mlp"

@@ -22,7 +22,10 @@ has no backward in either package), with per-layer recomputation
 (``remat``) and LoRA dropout on the adapter input only. On a quantized
 base (QLoRA) its projections and the lm_head run through ``QuantLinear``
 under autograd (each GEMV kernel carries JAX's transpose rule as its
-backward), with the LoRA deltas added after them.
+backward), with the LoRA deltas added after them. It also runs a stage's
+layers without the final norm (a GPipe stage, parallel/pipeline.py) and
+takes an ``attn_override``: the sequence-parallel ring of
+:func:`qwen2_forward_sp` (ops/ring_attention.py).
 
 The cache is updated IN PLACE (the JAX package rebinds a donated
 buffer); ``qwen2_forward`` returns the same object.
@@ -477,14 +480,20 @@ def qwen2_forward(
 # training forward
 # ---------------------------------------------------------------------------
 
+def fold_seed(seed: int, *ids: int) -> int:
+    """A seed derived from ``seed`` and ``ids`` (``jax.random.fold_in``'s
+    role): the same ids give the same seed, different ids unrelated ones."""
+    words = np.random.SeedSequence([int(seed), *map(int, ids)]).generate_state(
+        2, np.uint32)
+    return (int(words[0]) << 31) ^ int(words[1])
+
+
 def site_generator(seed: int, *ids: int, device=None) -> torch.Generator:
     """A generator for one dropout site, seeded from the step's seed and
     the site's ids (layer, projection): the same ids give the same mask,
     so a recomputed layer (``remat``) redraws exactly its forward's."""
-    words = np.random.SeedSequence([int(seed), *map(int, ids)]).generate_state(
-        2, np.uint32)
     g = torch.Generator(device=device)
-    g.manual_seed((int(words[0]) << 31) ^ int(words[1]))
+    g.manual_seed(fold_seed(seed, *ids))
     return g
 
 
@@ -522,6 +531,8 @@ def qwen2_forward_train(
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
     cfg: Optional[Qwen2Config] = None,
+    attn_override=None,
+    apply_final_norm: bool = True,
 ) -> torch.Tensor:
     """Grad-enabled cache-free decoder forward; returns hidden [B, S, H].
 
@@ -548,7 +559,13 @@ def qwen2_forward_train(
     Every rank of a model group draws the same dropout masks: a
     row-parallel input's is its slice of the whole input's. ``remat``
     replays a layer's collectives in the backward, the same ones in the
-    same order on every rank."""
+    same order on every rank.
+
+    ``attn_override`` replaces the attention: a cache-free ``f(q, k, v,
+    positions)`` (the sequence-parallel ring, :func:`qwen2_forward_sp`).
+    ``apply_final_norm=False`` leaves the final norm out: a pipeline stage
+    (parallel/pipeline.py, ``model`` its view) runs its blocks, the norm
+    runs once after the last stage."""
     cfg = cfg or model.cfg
     B, S, _ = inputs_embeds.shape
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -599,8 +616,12 @@ def qwen2_forward_train(
         q = apply_rope(proj(0, h).reshape(B, S, Hq, D), angles)
         k = apply_rope(proj(1, h).reshape(B, S, Hkv, D), angles)
         v = proj(2, h).reshape(B, S, Hkv, D)
-        attn = causal_gqa_attention(q, k, v, q_positions=positions,
-                                    kv_valid=kv_valid, kv_positions=positions)
+        if attn_override is not None:
+            attn = attn_override(q, k, v, positions)
+        else:
+            attn = causal_gqa_attention(q, k, v, q_positions=positions,
+                                        kv_valid=kv_valid,
+                                        kv_positions=positions)
         x = x + proj(3, attn.reshape(B, S, Hq * D))
         h = copy_to_model(rms_norm(x, layer.post_attn_norm,
                                    cfg.rms_norm_eps), groups["mlp"])
@@ -613,7 +634,62 @@ def qwen2_forward_train(
                 layer_fn, li, x, use_reentrant=False)
         else:
             x = layer_fn(li, x)
+    if not apply_final_norm:
+        return x
     return rms_norm(x, model.final_norm, cfg.rms_norm_eps)
+
+
+def sequence_shard(x: torch.Tensor, n: int, index: int) -> torch.Tensor:
+    """Rank ``index``'s contiguous shard of ``x``'s sequence dim (dim 1)
+    split ``n`` ways (JAX's ``P(None, axis)``); S must divide by ``n``."""
+    S = x.shape[1]
+    if S % n:
+        raise ValueError(f"S={S} must divide the sp={n} axis")
+    w = S // n
+    return x[:, index * w:(index + 1) * w]
+
+
+def qwen2_forward_sp(
+    model: Qwen2Model,
+    inputs_embeds: torch.Tensor,   # [B, S, H], whole on every rank
+    positions: torch.Tensor,       # [B, S]; -1 = padding
+    mesh,                          # parallel/mesh.SequenceMesh
+    adapters: Adapters = None,
+    lora_scale: float = 2.0,
+    remat: bool = False,
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
+    cfg: Optional[Qwen2Config] = None,
+) -> torch.Tensor:
+    """Sequence-parallel decoder forward (cache-free), the counterpart of
+    JAX's ``qwen2_forward_sp``: this rank's shard of the sequence, [B,
+    S/P, H], goes through the layers, whose attention is the ring over the
+    mesh's ``sp`` group (ops/ring_attention.py; MLP and norms are
+    token-local, so only K/V travel, P - 1 hops a layer). Weights and
+    adapters are replicated along the axis. Returns this rank's shard of
+    the hidden states, [B, S/P, H] (JAX's out_spec ``P(None, axis)``;
+    the whole [B, S, H] is the shards in rank order).
+
+    Dropout folds in the ring position (:func:`fold_seed`): each shard's
+    adapter inputs draw their own masks, as a data-parallel step folds
+    the data index (``train/trainer.make_train_step``)."""
+    from ..ops.ring_attention import ring_causal_gqa_attention
+
+    n, r = mesh.size, mesh.sp_index
+    emb = sequence_shard(inputs_embeds, n, r)
+    pos = sequence_shard(positions.to(torch.int32), n, r)
+
+    def ring(q, k, v, q_positions):
+        return ring_causal_gqa_attention(q, k, v, q_positions, q_positions,
+                                         mesh.sp_group)
+
+    seed = None
+    if dropout_seed is not None and dropout_rate > 0.0:
+        seed = fold_seed(dropout_seed, r)
+    return qwen2_forward_train(model, emb, pos, adapters, lora_scale,
+                               remat=remat, dropout_rate=dropout_rate,
+                               dropout_seed=seed, cfg=cfg,
+                               attn_override=ring)
 
 
 def lm_logits(model: Qwen2Model, hidden: torch.Tensor, adapters: Adapters = None,

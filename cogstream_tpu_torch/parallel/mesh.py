@@ -1,6 +1,7 @@
-"""The (data, model) mesh over the ranks of a process group and the
-collectives the sharded forwards use — port of
-``cogstream_tpu/parallel/mesh.py``.
+"""The (data, model) mesh over the ranks of a process group, the (data,
+pipe) and sequence-parallel layouts beside it, and the collectives the
+sharded forwards use — port of ``cogstream_tpu/parallel/mesh.py`` (and of
+``make_pipeline_mesh`` in ``cogstream_tpu/parallel/pipeline.py``).
 
 A :class:`Mesh` lays the world out as ``(data, model)`` in row-major order
 (rank ``r`` sits at ``(r // model, r % model)``, as JAX's ``reshape`` of
@@ -23,6 +24,15 @@ whole tensors is replicated, and so is its gradient: with both operators
 in place every replicated leaf's gradient comes out whole on each rank.
 :func:`all_reduce_grads` sums a list of gradients over a group in one
 flat collective (the data-parallel gradient sum).
+
+:func:`ppermute` is JAX's ``lax.ppermute`` over a group: every rank sends
+to the rank ``shift`` places on and receives from the one ``shift`` places
+back, in one batch of paired ``isend`` / ``irecv``; under autograd its
+backward is the reverse hop. The GPipe schedule (parallel/pipeline.py)
+and the ring attention (ops/ring_attention.py) rest on it.
+:class:`PipelineMesh` lays the world out as ``(data, pipe)``, row-major
+as JAX's ``reshape(data_parallel, n_stages)``, and :class:`SequenceMesh`
+puts every rank on one ``sp`` axis.
 
 :func:`gather_to_first` and :func:`scatter_from_first` move a sharded
 session's cache between the ranks of a model group and its first rank,
@@ -47,9 +57,13 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+PIPE_AXIS = "pipe"
+SP_AXIS = "sp"
 
 # collectives issued by the sharded forwards, by kind
 COLLECTIVES: Counter = Counter()
+# bytes a rank sent in them, by kind (point-to-point hops only)
+COLLECTIVE_BYTES: Counter = Counter()
 
 # the host group's wait: ranks > 0 of a sharded server wait in it for the
 # next request however long the server idles (a rank's failure ends every
@@ -67,37 +81,44 @@ def axis_ranks(data: int, model: int):
             [list(range(m, world, model)) for m in range(model)])
 
 
-class Mesh:
-    """A ``data x model`` layout of the process group's ranks."""
+class _Grid:
+    """A ``data x n`` layout of the process group's ranks in row-major
+    order (JAX's ``reshape(data, n)``): rank ``r`` sits at ``(r // n, r %
+    n)``. A subclass names the inner axis (``AXIS``); its size, this
+    rank's index on it and its group (this rank's row) are ``<AXIS>``,
+    ``<AXIS>_index`` and ``<AXIS>_group``, the data axis's (this rank's
+    column) ``data``, ``data_index`` and ``data_group``. A group is None
+    on an axis of one rank."""
 
-    def __init__(self, data: int, model: int):
-        """The mesh of the process group (every rank calls it together)."""
+    AXIS = ""
+
+    def __init__(self, data: int, n: int):
+        """The layout of the process group (every rank calls it together:
+        every rank creates every group, in one order)."""
         world = world_size()
-        if data * model != world:
-            raise ValueError(f"mesh {data}x{model} != {world} ranks")
-        self.data, self.model = data, model
+        if data * n != world:
+            raise ValueError(f"mesh {data}x{n} != {world} ranks")
+        self.data, self._n = data, n
         self.rank = dist.get_rank() if dist.is_initialized() else 0
-        self.data_index, self.model_index = divmod(self.rank, model)
-        self.model_group = self.data_group = self.host_group = None
+        self.data_index, index = divmod(self.rank, n)
+        row = self.data_group = self.host_group = None
         if world > 1:
-            # every rank creates every group, in one order
-            rows, cols = axis_ranks(data, model)
+            rows, cols = axis_ranks(data, n)
             for d, ranks in enumerate(rows):
                 g = dist.new_group(ranks)
-                if d == self.data_index:
-                    self.model_group = g
+                if d == self.data_index and n > 1:
+                    row = g
             for m, ranks in enumerate(cols):
                 g = dist.new_group(ranks)
-                if m == self.model_index:
+                if m == index and data > 1:
                     self.data_group = g
             # host objects (requests, results) travel over gloo whatever
             # carries the tensors; a follower idles in it between requests
             self.host_group = dist.new_group(backend="gloo",
                                              timeout=HOST_TIMEOUT)
-        if model == 1:
-            self.model_group = None
-        if data == 1:
-            self.data_group = None
+        setattr(self, self.AXIS, n)
+        setattr(self, f"{self.AXIS}_index", index)
+        setattr(self, f"{self.AXIS}_group", row)
 
     def __deepcopy__(self, memo):
         # a handle on process groups: copies of a sharded model share it
@@ -105,15 +126,86 @@ class Mesh:
 
     @property
     def shape(self) -> dict:
-        return {DATA_AXIS: self.data, MODEL_AXIS: self.model}
+        return {DATA_AXIS: self.data, self.AXIS: self._n}
 
     @property
     def size(self) -> int:
-        return self.data * self.model
+        return self.data * self._n
+
+    @property
+    def grad_group(self):
+        """The group over which the ranks' losses and LoRA gradients are
+        partial sums of the step's (the data group)."""
+        return self.data_group
 
     def __repr__(self) -> str:
-        return (f"Mesh(data={self.data}, model={self.model}, "
-                f"rank={self.rank})")
+        return (f"{type(self).__name__}(data={self.data}, "
+                f"{self.AXIS}={self._n}, rank={self.rank})")
+
+
+class Mesh(_Grid):
+    """A ``data x model`` layout of the process group's ranks (tensor
+    parallelism on ``model``)."""
+
+    AXIS = MODEL_AXIS
+    model: int
+    model_index: int
+    model_group: Optional[dist.ProcessGroup]
+
+
+class PipelineMesh(_Grid):
+    """A ``data x pipe`` layout (JAX's ``make_pipeline_mesh``): rank ``r``
+    is stage ``r % pipe`` of data replica ``r // pipe``. Its gradients sum
+    over the data group only: each stage holds its own layers' adapters,
+    and a replicated leaf gets its whole gradient on every stage."""
+
+    AXIS = PIPE_AXIS
+    pipe: int
+    pipe_index: int
+    pipe_group: Optional[dist.ProcessGroup]
+
+
+def make_pipeline_mesh(n_stages: int,
+                       data_parallel: Optional[int] = None) -> PipelineMesh:
+    """The (data, pipe) mesh over the process group's ranks, with JAX's
+    messages: fewer ranks than ``data_parallel x n_stages`` raise (JAX:
+    "needs N devices"); more raise too, with JAX's warning as the
+    message (one process a rank cannot idle through a step that every
+    rank of the world takes part in). ``data_parallel`` defaults to the
+    world over ``n_stages``."""
+    world = world_size()
+    data = data_parallel or max(1, world // n_stages)
+    need = n_stages * data
+    if world < need:
+        raise ValueError(
+            f"pipeline mesh {data}x{n_stages} needs {need} "
+            f"devices, have {world}")
+    if world > need:
+        raise ValueError(
+            f"pipeline mesh {data}x{n_stages} uses {need} of {world} "
+            "devices; the rest idle — raise data_parallel (or stages) to "
+            "cover them")
+    return PipelineMesh(data, n_stages)
+
+
+class SequenceMesh(_Grid):
+    """Every rank of the process group on one ``sp`` axis (stage 2's ring
+    sequence parallelism, JAX's ``Mesh(devices[:n], ("sp",))``): the turn
+    is split along the sequence, weights and adapters are replicated."""
+
+    AXIS = SP_AXIS
+    sp: int
+    sp_index: int
+    sp_group: Optional[dist.ProcessGroup]
+
+    def __init__(self, n: int):
+        super().__init__(1, n)
+
+    @property
+    def grad_group(self):
+        """The sp group: each rank's loss is its shard's share and its
+        gradients are partial sums."""
+        return self.sp_group
 
 
 def world_size() -> int:
@@ -262,6 +354,78 @@ def all_gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
                                  for _ in range(group_size(group))]
     dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts, dim=dim)
+
+
+def _hop(tensors, group, shift: int) -> List[torch.Tensor]:
+    """One ``ppermute`` hop of ``tensors`` (no autograd): each sent as its
+    bytes to the rank ``shift`` places on in ``group`` while the same
+    shapes arrive from the rank ``shift`` places back, all in one batch of
+    paired ``isend`` / ``irecv`` waited together (a ring of blocking sends
+    would deadlock). The route follows the group's backend: NCCL moves
+    CUDA tensors itself; gloo's send / recv take CPU tensors only, so over
+    gloo a CUDA tensor crosses through a host copy."""
+    n = group_size(group)
+    me = dist.get_rank(group)
+    dst = dist.get_global_rank(group, (me + shift) % n)
+    src = dist.get_global_rank(group, (me - shift) % n)
+    via_host = dist.get_backend(group) == "gloo"
+    COLLECTIVES["ppermute"] += 1
+    ops, got = [], []
+    for t in tensors:
+        b = as_bytes(t)
+        if via_host:
+            b = b.cpu()
+        r = torch.empty_like(b)
+        COLLECTIVE_BYTES["ppermute"] += b.numel()
+        ops += [dist.P2POp(dist.isend, b, dst, group),
+                dist.P2POp(dist.irecv, r, src, group)]
+        got.append(r)
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    return [r.to(t.device).view(t.dtype).view(t.shape)
+            for r, t in zip(got, tensors)]
+
+
+class _PPermute(torch.autograd.Function):
+    """:func:`_hop` forward; backward, the reverse hop of every floating
+    input's gradient (zeros where an output had none), so every rank
+    sends and receives in every backward hop. Integer tensors (positions)
+    travel forward only."""
+
+    @staticmethod
+    def forward(ctx, group, shift, *xs):
+        ctx.group, ctx.shift = group, shift
+        ctx.fp = [x.is_floating_point() for x in xs]
+        out = _hop(xs, group, shift)
+        ctx.mark_non_differentiable(*[o for o, f in zip(out, ctx.fp)
+                                      if not f])
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        sent = [g.contiguous() for g, f in zip(gs, ctx.fp) if f]
+        back = iter(_hop(sent, ctx.group, -ctx.shift))
+        return (None, None, *[next(back) if f else None for f in ctx.fp])
+
+
+def ppermute(x, group, shift: int = 1):
+    """JAX's ``lax.ppermute`` with ``perm = [(i, (i + shift) % n)]`` over
+    ``group``: each rank's ``x`` (a tensor, or a tuple of tensors sent in
+    one hop) arrives at the rank ``shift`` places on, and what the rank
+    ``shift`` places back sent is returned, in ``x``'s shapes and dtypes.
+    Under autograd the backward is the reverse permutation. Every rank of
+    ``group`` must call it with the same shapes in the same order, in the
+    forward and (through autograd) in the backward. A group of one returns
+    ``x``. Counted in ``COLLECTIVES["ppermute"]`` (a hop) and
+    ``COLLECTIVE_BYTES["ppermute"]`` (the bytes this rank sent)."""
+    if group is None or group_size(group) == 1:
+        return x
+    xs = (x,) if torch.is_tensor(x) else tuple(x)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in xs):
+        out = _PPermute.apply(group, shift, *xs)
+    else:
+        out = tuple(_hop(xs, group, shift))
+    return out[0] if torch.is_tensor(x) else out
 
 
 def all_gather_objects(obj, group) -> list:

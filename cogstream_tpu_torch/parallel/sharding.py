@@ -40,6 +40,13 @@ rule): ``a`` [din, r] takes the weight's input placement, ``b`` [r, dout]
 its output placement; a training run keeps each rank's slice
 (:class:`LoraLayout`: the slices of a whole tree, and the whole tree back
 from every rank's slice).
+
+On the ``pipe`` axis of a :class:`~.mesh.PipelineMesh` (JAX's
+``_stage_specs`` / ``_adapter_specs``) a stage holds its contiguous
+``L / P`` decoder layers (:func:`stage_qwen2`, a view that copies no
+tensor) and their adapters (:class:`PipeLayout`); the embedding, the
+final norm, the lm_head and every adapter outside ``layers`` are
+replicated.
 """
 
 from __future__ import annotations
@@ -48,7 +55,7 @@ import copy
 import math
 import types
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -604,6 +611,11 @@ class LoraLayout:
     def group(self):
         return self.mesh.model_group
 
+    @property
+    def paths(self):
+        """The whole tree's leaf paths, in :meth:`gather_leaves`' order."""
+        return list(self._order)
+
     def shard(self, tree):
         """This rank's slice of a whole tree (new trainable leaves)."""
         return shard_lora(tree, self.specs)
@@ -673,6 +685,132 @@ def shard_lora(tree, lora_specs: Dict[str, LoraSpec]):
     specs = iter([lora_specs[p] for p, _ in iter_leaves(tree)])
     return map_leaves(lambda t: _lora_slice(t, next(specs)).detach()
                       .clone().requires_grad_(True), tree)
+
+
+# ---------------------------------------------------------------------------
+# pipeline stages
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class PipeStage:
+    """A decoder view's stage: its layers are the whole decoder's from
+    ``lo`` on."""
+
+    mesh: object                   # parallel/mesh.PipelineMesh
+    lo: int
+
+
+def stage_range(n_layers: int, mesh) -> Range:
+    """This rank's contiguous layers ``[lo, hi)`` on the pipe axis; a
+    stage count that does not divide the layers raises JAX's
+    ``ValueError``."""
+    P = mesh.pipe
+    if n_layers % P:
+        raise ValueError(f"pipe={P} stages must divide L={n_layers} layers")
+    w = n_layers // P
+    return mesh.pipe_index * w, (mesh.pipe_index + 1) * w
+
+
+def stage_qwen2(model, mesh):
+    """A view of the decoder ``model`` for this rank's pipeline stage: its
+    ``layers[lo:hi]`` (:func:`stage_range`) and the replicated embedding,
+    final norm and lm_head, the tensors shared with ``model`` (no copy:
+    dropping ``model`` frees the other stages' layers), the stage in
+    ``.pp``. A view for ``mesh`` comes back as it is."""
+    have = getattr(model, "pp", None)
+    if have is not None:
+        if have.mesh is not mesh:
+            raise ValueError("decoder is staged for another pipeline mesh")
+        return model
+    if getattr(model, "tp", None) is not None:
+        raise ValueError("pipeline_stages is exclusive with model_parallel")
+    lo, hi = stage_range(len(model.layers), mesh)
+    new = copy.copy(model)
+    new._modules = dict(model._modules)
+    new._parameters = dict(model._parameters)
+    new._buffers = dict(model._buffers)
+    new._modules["layers"] = nn.ModuleList(list(model.layers)[lo:hi])
+    new.pp = PipeStage(mesh, lo)
+    return new
+
+
+class PipeLayout:
+    """A LoRA tree's split over the pipe axis of ``mesh`` (replicated on
+    its data axis): this stage keeps the adapters of its layers
+    (``tree["layers"][lo:hi]``) and every leaf outside ``layers``. The
+    same interface as :class:`LoraLayout`: :meth:`shard` / :meth:`gather`
+    of a tree, :meth:`shard_leaves` / :meth:`gather_leaves` of per-leaf
+    tensors (optimizer moments) in the tree's leaf order; a gather is
+    collective over the pipe group, this stage's layer leaves in one flat
+    all-gather."""
+
+    def __init__(self, lora_tree, mesh):
+        from ..models.lora import iter_leaves, map_leaves
+
+        self.mesh = mesh
+        self.lo, self.hi = stage_range(len(lora_tree["layers"]), mesh)
+        w = self.hi - self.lo
+        layer = [int(p.split(".")[1]) if p.startswith("layers.") else None
+                 for p, _ in iter_leaves(lora_tree)]
+        self._mine = [i for i, li in enumerate(layer)
+                      if li is None or self.lo <= li < self.hi]
+        # whole-tree indices of each stage's layer leaves, in leaf order
+        self._stages = [[i for i, li in enumerate(layer)
+                         if li is not None and s * w <= li < (s + 1) * w]
+                        for s in range(mesh.pipe)]
+        self._skeleton = map_leaves(lambda t: 0, lora_tree)
+        self._n = len(layer)
+
+    @property
+    def group(self):
+        return self.mesh.pipe_group
+
+    @property
+    def paths(self):
+        """The whole tree's leaf paths, in :meth:`gather_leaves`' order."""
+        from ..models.lora import iter_leaves
+
+        return [p for p, _ in iter_leaves(self._skeleton)]
+
+    def shard(self, tree):
+        """This stage's part of a whole tree (new trainable leaves)."""
+        from ..models.lora import map_leaves
+
+        part = dict(tree)
+        part["layers"] = list(tree["layers"][self.lo:self.hi])
+        return map_leaves(lambda t: t.detach().clone().requires_grad_(True),
+                          part)
+
+    def shard_leaves(self, leaves):
+        """This stage's part of the whole tree's per-leaf tensors."""
+        return [leaves[i] for i in self._mine]
+
+    def gather_leaves(self, leaves):
+        """The whole tree's per-leaf tensors from every stage's part
+        (collective over the pipe group; the leaves outside ``layers``
+        from this stage's copy)."""
+        out: List[Optional[torch.Tensor]] = [None] * self._n
+        for i, t in zip(self._mine, leaves):
+            out[i] = t.detach()
+        mine = self._stages[self.mesh.pipe_index]
+        if self.group is None or not mine:
+            return out
+        flat = torch.cat([out[i].reshape(-1).to(torch.float32) for i in mine])
+        parts = all_gather(flat, self.group, dim=0).view(self.mesh.pipe, -1)
+        for s, idx in enumerate(self._stages):
+            at = 0
+            for i, j in zip(idx, mine):     # stages share leaf shapes
+                t = out[j]
+                out[i] = parts[s, at:at + t.numel()].view(t.shape).to(t.dtype)
+                at += t.numel()
+        return out
+
+    def gather(self, tree):
+        """The whole tree (detached) from every stage's part."""
+        from ..models.lora import iter_leaves, map_leaves
+
+        whole = iter(self.gather_leaves([t for _, t in iter_leaves(tree)]))
+        return map_leaves(lambda _: next(whole), self._skeleton)
 
 
 # ---------------------------------------------------------------------------

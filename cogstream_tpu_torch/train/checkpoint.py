@@ -10,10 +10,10 @@
   ``[L, ...]`` under keys such as ``text.layers.attn.q_proj.a``), so
   adapter files interchange between the two packages.
 
-A mesh run (a ``TrainState`` carrying its ``LoraLayout``) saves the same
-files: every rank takes part in gathering the LoRA leaves and the
-optimizer's moments whole, rank 0 writes, and every rank waits for the
-write. A restore reads the whole state and keeps the rank's slices, so a
+A mesh run (a ``TrainState`` carrying its ``LoraLayout``, or a pipeline
+run's ``PipeLayout`` of stage slices) saves the same files: every rank
+takes part in gathering the LoRA leaves and the optimizer's moments whole,
+rank 0 writes, and every rank waits for the write. A restore reads the whole state and keeps the rank's slices, so a
 run saved on one layout resumes on another, or in one process.
 """
 
@@ -121,8 +121,9 @@ def restore_train_state(directory: str, template_state) -> Any:
     layout = getattr(template_state, "layout", None)
     lora, opt_state = saved["lora"], saved["opt_state"]
     if layout is not None:
-        lora = layout.shard(lora)
+        # the saved moments are the whole tree's (a stage keeps fewer)
         n = len(list(iter_leaves(lora)))
+        lora = layout.shard(lora)
         opt_state = _map_moments(opt_state, n, layout.shard_leaves)
     lora = map_leaves(lambda t: t.detach().requires_grad_(True),
                       place(template_state.lora, lora))

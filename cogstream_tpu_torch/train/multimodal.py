@@ -22,6 +22,15 @@ second row-parallel with their LoRA slices, then the splice and the
 sharded decoder; the text rows of the batch are this rank's data chunk
 (``trainer.shard_batch``) while the patch rows stay whole.
 
+Under ring sequence parallelism (``sp``, a ``parallel/mesh.SequenceMesh``,
+JAX's ``sp=(mesh, axis)``) the frozen tower, the projector and the splice
+run replicated on every rank (K5 and K2 in the tower, under no grad); the
+decoder runs this rank's sequence shard (``qwen2_forward_sp``, the ring),
+and the loss is the shard's share: Σ nll of its next-token targets over
+the turn's whole count. The shares sum to the one-process loss, and each
+rank's gradients are partial sums (the trainer sums them over the sp
+group once).
+
 Batch layout (tensors on the model's device; host-padded shapes):
   pixel_values [N, C*ps*ps]   patch rows for ALL items in the batch
   vis_pos      [N, 2]         2D rope positions (vision metadata)
@@ -48,7 +57,7 @@ from ..models.projector import projector_forward_lora
 from ..models.qwen2 import adapter_in as _adapter_in  # noqa: F401 (JAX name)
 from ..models.qwen2 import site_generator
 from ..models.vision_encoder import vision_encoder_core
-from .trainer import PARALLEL_MSG, loss_groups, masked_cross_entropy
+from .trainer import loss_groups, masked_cross_entropy, next_token_labels
 
 
 def pool_feature_table(proj: torch.Tensor, pool_group: torch.Tensor,
@@ -89,10 +98,9 @@ def multimodal_loss_fn(
     """Stage-2 loss of one packed turn. ``text_cfg`` is the decoder
     config the caller trains under (its ``w8a8_prefill`` runs an int8
     base's projections W8A8, ``qwen2_forward_train``; default
-    ``model.text.cfg``). ``sp`` (ring sequence parallelism) is not
-    ported (ROADMAP Queue 1 #9)."""
-    if sp is not None:
-        raise NotImplementedError(PARALLEL_MSG)
+    ``model.text.cfg``). ``sp`` (a ``SequenceMesh``) runs the decoder
+    sequence-parallel (see the module docstring): the returned loss is
+    this rank's share."""
     text = model.text
     with torch.no_grad():
         feats = vision_encoder_core(
@@ -123,6 +131,17 @@ def multimodal_loss_fn(
 
     text_lora = lora.get("text", lora) if isinstance(lora, dict) else lora
     adapters = [(text_lora, 1.0)]
+    if sp is not None:
+        hidden = qwen2.qwen2_forward_sp(
+            text, spliced, batch["positions"], sp, adapters, lora_scale,
+            remat=remat, dropout_rate=dropout_rate,
+            dropout_seed=dropout_seed, cfg=text_cfg)
+        logits = qwen2.lm_logits(text, hidden, adapters, lora_scale)
+        targets = qwen2.sequence_shard(next_token_labels(batch["labels"]),
+                                       sp.size, sp.sp_index)
+        loss, _ = masked_cross_entropy(logits, targets, shifted=True,
+                                       count_group=sp.sp_group)
+        return loss
     hidden = qwen2.qwen2_forward_train(
         text, spliced, batch["positions"], adapters, lora_scale,
         remat=remat, dropout_rate=dropout_rate, dropout_seed=dropout_seed,

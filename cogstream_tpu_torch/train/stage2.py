@@ -22,9 +22,15 @@ on the model axis unless ``data_parallel`` says otherwise, JAX's
 ``make_mesh`` default) the weights and the LoRA sit under the Megatron
 plans (plain or quantized bases: their stores slice), and the turn is NOT
 split on ``data``: as in JAX, which calls no ``shard_batch`` for this
-B = 1 batch, every data replica computes the same turn. Sequence
-parallelism, and ``--w8a8-forward`` on model-axis shards, raise (ROADMAP
-Queue 1 #9).
+B = 1 batch, every data replica computes the same turn.
+``--w8a8-forward`` on model-axis shards raises (ROADMAP Queue 1 #9 (c)).
+
+With ``sequence_parallel`` N (``--sequence-parallel N`` under ``torchrun
+--nproc-per-node N``) every rank of the world sits on one ``sp`` axis
+(``parallel/mesh.SequenceMesh``): weights and adapters are replicated,
+each turn is split along the sequence and the decoder's attention runs the
+ring (``train/multimodal.py``); each rank's loss share and gradients are
+summed over the axis. JAX's checks come first (:func:`check_parallel`).
 """
 
 from __future__ import annotations
@@ -44,29 +50,49 @@ from ..models import cogreasoner
 from ..models.lora import init_cogreasoner_lora
 from ..models.qwen2 import W8A8_MESH_MSG
 from ..models.vision_encoder import build_vision_metadata
-from ..parallel.mesh import mesh_shape, world_size
+from ..parallel.mesh import SequenceMesh, mesh_shape, world_size
 from ..parallel.sharding import (LoraLayout, cogreasoner_param_specs,
                                  shard_cogreasoner, training_mesh)
 from ..runtime.history import parse_selection, rewrite_history, \
     selection_string
 from . import checkpoint as ckpt
 from .multimodal import multimodal_loss_fn
-from .trainer import (IGNORE_INDEX, PARALLEL_MSG, init_train_state,
+from .trainer import (IGNORE_INDEX, init_train_state,
                       make_optimizer, make_train_step, quiet_log,
                       stop_requested, to_device)
 
 
 def check_parallel(tcfg, int8_act: bool, world: int = 1) -> None:
-    """What stage 2 refuses on a mesh: JAX's ``sequence_parallel`` checks
-    and then the #9 raise (ring attention is not ported); int8
-    activations (``int8_act``: ``--w8a8-forward``) with a model axis
-    above 1 (``make_mesh``'s sizes over ``world`` ranks)."""
-    if tcfg.sequence_parallel > 1:
+    """What stage 2 refuses on ``world`` ranks: JAX's ``sequence_parallel``
+    checks, in its order (exclusive with ``model_parallel``, a power of
+    two, dividing ``max_seq_len``, ``n`` ranks), where the port's one
+    process a rank also refuses more ranks than ``n`` (a rank cannot idle
+    through the step); without sequence parallelism, int8 activations
+    (``int8_act``: ``--w8a8-forward``) with a model axis above 1
+    (``make_mesh``'s sizes over ``world`` ranks; ROADMAP Queue 1 #9
+    (c))."""
+    n = tcfg.sequence_parallel
+    if n > 1:
         if tcfg.model_parallel and tcfg.model_parallel > 1:
             raise ValueError("sequence_parallel is exclusive with "
                              "model_parallel (weights replicate along the "
                              "sp axis)")
-        raise NotImplementedError(PARALLEL_MSG)
+        if n & (n - 1):
+            raise ValueError(f"sequence_parallel={n} must be a power of two "
+                             "(turn lengths bucket to powers of two)")
+        if tcfg.max_seq_len % n:
+            raise ValueError(f"sequence_parallel={n} must divide "
+                             f"max_seq_len={tcfg.max_seq_len}")
+        if world < n:
+            raise ValueError(
+                f"sequence_parallel={n} needs {n} devices, have {world} — a "
+                "silent 1-device sp mesh would defeat the long-turn memory "
+                "split")
+        if world > n:
+            raise ValueError(f"sequence_parallel={n} uses {n} of {world} "
+                             "ranks; the rest would idle — run "
+                             f"--nproc-per-node {n}")
+        return
     _, tp = mesh_shape(tcfg.data_parallel, tcfg.model_parallel, world)
     if tp > 1 and int8_act:
         raise NotImplementedError(W8A8_MESH_MSG)
@@ -84,7 +110,9 @@ class Stage2Config:
     fps: int = 1
     data_parallel: Optional[int] = None
     model_parallel: Optional[int] = None
-    # >1: ring sequence parallelism in the JAX package; not ported
+    # >1: ring sequence parallelism on an sp axis of that many ranks (the
+    # world); a power of two that divides max_seq_len, exclusive with
+    # model_parallel
     sequence_parallel: int = 1
     seed: int = 0
     baseline: bool = False         # C14: skip selection/compression
@@ -199,23 +227,30 @@ def build_gt_selection(relevance: Sequence[int], n_hist: int,
 class Stage2Trainer:
     """Drives the per-turn curriculum on the model's device: one LoRA
     micro-step per packed turn; on a mesh (see the module docstring) every
-    rank drives the same turns on its shard, rank 0 logs and writes."""
+    rank drives the same turns on its shard or sequence shard, rank 0 logs
+    and writes."""
 
     def __init__(self, model, cfg: CogReasonerConfig, tokenizer,
                  tcfg: Stage2Config, out_dir: str,
                  total_steps: Optional[int] = None, log=print,
                  stop_flag=None, lora_cfg: Optional[LoRAConfig] = None,
-                 lora: Optional[Dict] = None):
+                 lora: Optional[Dict] = None, mesh=None):
         """``lora_cfg`` defaults to the reference recipe with the
         projector adapted unless ``tcfg.baseline``; ``lora`` is the
         initial adapter tree (default: ``init_cogreasoner_lora`` from
-        ``tcfg.seed``)."""
+        ``tcfg.seed``). ``mesh``: the ``SequenceMesh`` of a
+        ``sequence_parallel`` run (default: built over the world)."""
         check_parallel(tcfg, cfg.text.w8a8_prefill or cfg.text.w4a8_decode,
                        world_size())
-        self.mesh = training_mesh(model, tcfg.data_parallel,
-                                  tcfg.model_parallel)
-        if self.mesh is not None and getattr(model.text, "tp", None) is None:
-            model = shard_cogreasoner(model, cfg, self.mesh)
+        self.sp = None
+        if tcfg.sequence_parallel > 1:
+            self.sp = self.mesh = mesh or SequenceMesh(tcfg.sequence_parallel)
+        else:
+            self.mesh = training_mesh(model, tcfg.data_parallel,
+                                      tcfg.model_parallel)
+            if self.mesh is not None and \
+                    getattr(model.text, "tp", None) is None:
+                model = shard_cogreasoner(model, cfg, self.mesh)
         if self.mesh is not None and self.mesh.rank != 0:
             log = quiet_log
         self.model = model
@@ -245,7 +280,7 @@ class Stage2Trainer:
             warmup_steps=min(100, max(1, total_steps // 10)),
             grad_accum=tcfg.grad_accum)
         layout = None
-        if self.mesh is not None:
+        if self.mesh is not None and self.sp is None:
             layout = LoraLayout(lora, cogreasoner_param_specs(cfg, self.mesh),
                                 self.mesh)
             lora = layout.shard(lora)
@@ -263,12 +298,13 @@ class Stage2Trainer:
             return multimodal_loss_fn(m, lo, b, scale,
                                       num_vis_tokens=self._num_vis,
                                       remat=True, dropout_rate=rate,
-                                      dropout_seed=seed, text_cfg=cfg.text)
+                                      dropout_seed=seed, sp=self.sp,
+                                      text_cfg=cfg.text)
 
         self._step = make_train_step(
             self.tx, loss,
             dropout_seed=tcfg.seed ^ 0x5EED if rate > 0 else None,
-            data_sharded=False)
+            data_sharded=False, mesh=self.sp)
 
     def train_turn(self, batch: Dict[str, np.ndarray]) -> float:
         batch = dict(batch)
@@ -447,8 +483,10 @@ def main(argv=None):
                          "trains full precision (QLoRA; nf4 is the "
                          "reference recipe's scheme, group 64)")
     ap.add_argument("--sequence-parallel", type=int, default=1,
-                    help=">1: ring sequence parallelism (not ported: "
-                         "raises)")
+                    help=">1: ring sequence parallelism over that many "
+                         "ranks (torchrun --nproc-per-node N): each turn "
+                         "split along the sequence, weights replicated; a "
+                         "power of two")
     ap.add_argument("--w8a8-forward", action="store_true",
                     help="run the frozen int8 base's decoder GEMMs W8A8 "
                          "(requires --quantize-base int8); activation "
@@ -476,17 +514,19 @@ def main(argv=None):
     if args.w8a8_forward:
         cfg = dataclasses.replace(
             cfg, text=dataclasses.replace(cfg.text, w8a8_prefill=True))
-    rank, device, mesh = join_training_world(args.device)
+    rank, device, mesh = join_training_world(
+        args.device, sequence_parallel=tcfg.sequence_parallel)
     say = print if rank == 0 else quiet_log
+    tp_mesh = None if tcfg.sequence_parallel > 1 else mesh
     # a quantized base is quantized whole, then sharded (its stores slice)
     model = load_cogreasoner_from_hf(
         args.model_dir, cfg, device=device,
-        mesh=mesh if args.quantize_base == "none" else None)
+        mesh=tp_mesh if args.quantize_base == "none" else None)
     if args.quantize_base != "none":
         bits, nf4 = QUANTIZE_BASE[args.quantize_base]
         quantize_cogreasoner_(model, bits, nf4=nf4)
-        if mesh is not None:
-            model = shard_cogreasoner(model, cfg, mesh)
+        if tp_mesh is not None:
+            model = shard_cogreasoner(model, cfg, tp_mesh)
     tok = load_tokenizer(args.model_dir, cfg.image_token_index,
                          cfg.text.vocab_size)
     processor = CogStreamProcessor(tok, cfg.processor)
@@ -496,7 +536,7 @@ def main(argv=None):
             model, cfg, tok, tcfg, args.out,
             total_steps=(count_dataset_turns(args.query_dir)
                          * tcfg.num_epochs),
-            stop_flag=guard)
+            stop_flag=guard, mesh=None if tp_mesh else mesh)
         for epoch in range(tcfg.num_epochs):
             for fname in sorted(os.listdir(args.query_dir)):
                 if not fname.endswith(".json"):

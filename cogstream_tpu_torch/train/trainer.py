@@ -19,8 +19,12 @@ batch's leading dim (:func:`shard_batch`); the loss is vocab-parallel
 (:func:`masked_cross_entropy` on the ranks' logit slices) and, as in JAX,
 Σ nll over the GLOBAL count of valid targets, so each rank's loss is its
 own Σ nll over that count and the data group's gradient SUM is the
-global loss's gradient. Pipeline and sequence parallelism are not ported
-(``pipeline=`` raises, ROADMAP Queue 1 #9).
+global loss's gradient. On a (data, pipe) mesh (``pipeline=``, GPipe,
+``parallel/pipeline.py``) each stage computes the whole loss from the last
+stage's outputs and its own adapters' gradients; on an ``sp`` mesh
+(``train/multimodal.py``'s ring) each rank's loss is its sequence shard's
+share and its gradients partial sums: the step sums gradients and losses
+over the mesh's ``grad_group`` (data, data, sp).
 """
 
 from __future__ import annotations
@@ -38,8 +42,6 @@ from ..parallel.mesh import DATA_AXIS, all_reduce, all_reduce_grads
 from ..parallel.sharding import sharded_mesh
 
 IGNORE_INDEX = -100
-PARALLEL_MSG = ("pipeline and sequence parallelism are not ported yet "
-                "(ROADMAP Queue 1 #9)")
 
 
 class PreemptionGuard:
@@ -103,10 +105,14 @@ def masked_cross_entropy(
     vocab: Optional[Tuple[int, int]] = None,
     group=None,
     count_group=None,
+    shifted: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Next-token CE over the shifted sequence, in f32. Returns (loss,
     n_targets). With ``vocab_mask`` the distribution is renormalized over
     the allowed tokens first (the stage-1 constrained objective).
+    ``shifted``: ``labels`` are already each position's next-token target
+    (:func:`next_token_labels`; a sequence shard's), and every position's
+    logits count.
 
     Vocab-parallel (``vocab = (lo, hi)``, ``group`` the model group):
     ``logits`` hold this rank's vocab slice. The row max is MAXed over the
@@ -118,8 +124,11 @@ def masked_cross_entropy(
     data group): the loss is Σ nll over the count of valid targets summed
     over it (JAX's mean over the global batch); each rank returns its own
     Σ nll over that count, and the global count."""
-    logits = logits[:, :-1].to(torch.float32)
-    targets = labels[:, 1:].to(torch.int64)
+    if shifted:
+        logits, targets = logits.to(torch.float32), labels.to(torch.int64)
+    else:
+        logits = logits[:, :-1].to(torch.float32)
+        targets = labels[:, 1:].to(torch.int64)
     valid = targets != IGNORE_INDEX
     n = all_reduce(valid.sum(), count_group)
     if vocab is None:
@@ -143,6 +152,14 @@ def masked_cross_entropy(
         nll = m + sumexp.log() - tl
     nll = torch.where(valid, nll, torch.zeros_like(nll))
     return nll.sum() / n.clamp(min=1), n
+
+
+def next_token_labels(labels: torch.Tensor) -> torch.Tensor:
+    """[B, S] labels -> each position's next-token target (``labels``
+    shifted left, ``IGNORE_INDEX`` at the end): what a sequence shard's
+    :func:`masked_cross_entropy` with ``shifted=True`` reads."""
+    return torch.cat([labels[:, 1:], torch.full_like(labels[:, :1],
+                                                     IGNORE_INDEX)], dim=1)
 
 
 def loss_groups(text) -> Dict[str, Any]:
@@ -311,14 +328,12 @@ def init_train_state(tx, lora: Any, layout=None) -> TrainState:
 def step_seed(base_seed: int, step: int) -> int:
     """The dropout seed of one step (``jax.random.fold_in(key, step)``'s
     role): stochastic across steps, reproducible from the base seed."""
-    w = np.random.SeedSequence([int(base_seed), int(step)]).generate_state(
-        2, np.uint32)
-    return (int(w[0]) << 31) ^ int(w[1])
+    return qwen2.fold_seed(base_seed, step)
 
 
 def make_train_step(tx, loss_fn: Callable,
                     dropout_seed: Optional[int] = None,
-                    data_sharded: bool = True) -> Callable:
+                    data_sharded: bool = True, mesh=None) -> Callable:
     """The (base frozen, LoRA trainable) train step ``step(params, state,
     batch) -> (state, loss)``. With ``dropout_seed`` the loss is called
     with a per-step seed derived from the step counter (train-mode LoRA
@@ -334,16 +349,21 @@ def make_train_step(tx, loss_fn: Callable,
     replicas draw different masks (a departure from one process, which
     draws one mask over the whole batch); without it (the stage-2 turn,
     which every data replica computes whole, as JAX's) they draw the
-    same."""
+    same.
+
+    ``mesh`` is the mesh of a run whose model is not sharded for it (a
+    pipeline or sp mesh; default: the one ``params`` is sharded for): the
+    gradients and the loss are summed over its ``grad_group``."""
 
     def step(params, state: TrainState, batch):
-        mesh = sharded_mesh(params)
-        group = None if mesh is None else mesh.data_group
+        m = mesh if mesh is not None else sharded_mesh(params)
+        group = None if m is None else m.grad_group
         leaves = [t for _, t in iter_leaves(state.lora)]
         if dropout_seed is not None:
             seed = step_seed(dropout_seed, state.step)
-            if group is not None and data_sharded:
-                seed = step_seed(seed, mesh.data_index)
+            if m is not None and m.data_group is not None \
+                    and data_sharded:
+                seed = step_seed(seed, m.data_index)
             loss = loss_fn(params, state.lora, batch, seed)
         else:
             loss = loss_fn(params, state.lora, batch)
@@ -397,21 +417,34 @@ def text_loss_fn(
     """Stage-1 objective: text-only selector training. ``text_cfg`` is
     the decoder config the caller trains under (its serving flags pick a
     quantized base's activation mode, ``qwen2_forward_train``; default
-    ``model.cfg``)."""
-    if pipeline is not None:
-        raise NotImplementedError(PARALLEL_MSG)
+    ``model.cfg``). ``pipeline=(mesh, M)`` runs the decoder through the
+    GPipe schedule (``parallel/pipeline.py``) on the (data, pipe) mesh
+    with M microbatches (``model`` a stage view, ``lora`` the stage's)."""
     ids = batch["input_ids"]
     positions = batch.get("positions")
     if positions is None:
         positions = positions_from_ids(ids)
     adapters = [(lora, 1.0)]
-    hidden = qwen2.qwen2_forward_train(
-        model, qwen2.embed(model, ids), positions, adapters, lora_scale,
-        remat=remat, dropout_rate=dropout_rate, dropout_seed=dropout_seed,
-        cfg=text_cfg)
+    emb = qwen2.embed(model, ids)
+    groups = loss_groups(model)
+    if pipeline is not None:
+        from ..parallel.pipeline import pipeline_decoder_forward
+
+        pp_mesh, n_mb = pipeline
+        hidden = pipeline_decoder_forward(
+            model, emb, positions, pp_mesh, num_microbatches=n_mb,
+            adapters=adapters, lora_scale=lora_scale, remat=remat,
+            dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+            cfg=text_cfg)
+        groups = {"count_group": pp_mesh.data_group}
+    else:
+        hidden = qwen2.qwen2_forward_train(
+            model, emb, positions, adapters, lora_scale, remat=remat,
+            dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+            cfg=text_cfg)
     logits = qwen2.lm_logits(model, hidden, adapters, lora_scale)
     loss, _ = masked_cross_entropy(logits, batch["labels"], vocab_mask,
-                                   **loss_groups(model))
+                                   **groups)
     return loss
 
 
@@ -444,15 +477,13 @@ def bind_text_loss(lora_cfg: Optional[LoRAConfig] = None,
                    remat: bool = True,
                    pipeline: Optional[Tuple[Any, int]] = None,
                    text_cfg: Optional[Qwen2Config] = None) -> Callable:
-    if pipeline is not None:
-        raise NotImplementedError(PARALLEL_MSG)
     lc = lora_cfg or LoRAConfig()
 
     def loss(model, lora, batch, seed=None):
         return text_loss_fn(model, lora, batch, lc.scale,
                             vocab_mask=vocab_mask, remat=remat,
                             dropout_rate=lc.dropout, dropout_seed=seed,
-                            text_cfg=text_cfg)
+                            pipeline=pipeline, text_cfg=text_cfg)
     return loss
 
 

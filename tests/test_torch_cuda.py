@@ -1214,3 +1214,63 @@ def test_row_parallel_product_has_the_layer_gradient(dev):
     xb = x.clone().requires_grad_(True)
     ref, = torch.autograd.grad(F.linear(xb, w), xb, g)
     assert torch.equal(dx, ref)
+
+
+PPERMUTE_RANK = """
+import sys, torch, torch.distributed as dist
+sys.path.insert(0, {repo!r})
+from cogstream_tpu_torch.parallel.mesh import COLLECTIVE_BYTES, ppermute
+rank = int(sys.argv[1])
+dist.init_process_group("gloo", init_method="tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=2)
+dev = torch.device("cuda", 0)
+out = {{}}
+for dtype in (torch.float32, torch.bfloat16):
+    for shift in (1, -1):
+        x = torch.randn(3, 5, 7, generator=torch.Generator().manual_seed(
+            rank)).to(dev, dtype).requires_grad_(True)
+        w = torch.randn(3, 5, 7, generator=torch.Generator().manual_seed(
+            10 + rank)).to(dev, dtype)
+        y = ppermute(x, dist.group.WORLD, shift)
+        (y * w).sum().backward()
+        out[(str(dtype), shift)] = (y.detach().cpu(), x.grad.cpu(),
+                                    y.device.type, x.grad.device.type)
+out["bytes"] = COLLECTIVE_BYTES["ppermute"]
+torch.save(out, {path!r} + f"/r{{rank}}.pt")
+dist.destroy_process_group()
+"""
+
+
+def test_ppermute_of_cuda_tensors_over_a_gloo_pair(dev, tmp_path):
+    """``ppermute`` of f32 and bf16 CUDA tensors between two ranks that
+    share the card over gloo (its host route), with shift +1 and -1: each
+    rank receives the other's tensor bit for bit, on the card, and the
+    backward's reverse hop gives each rank the gradient the other rank
+    computed for the received tensor, bit for bit."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = PPERMUTE_RANK.format(repo=repo, port=port, path=str(tmp_path))
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)])
+             for r in range(2)]
+    assert [p.wait(timeout=120) for p in procs] == [0, 0]
+    got = [torch.load(tmp_path / f"r{r}.pt") for r in range(2)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for shift in (1, -1):
+            for r in range(2):
+                y, gx, ydev, gdev = got[r][(str(dtype), shift)]
+                x_other = torch.randn(3, 5, 7, generator=torch.Generator()
+                                      .manual_seed(1 - r)).to(dtype)
+                w_other = torch.randn(3, 5, 7, generator=torch.Generator()
+                                      .manual_seed(11 - r)).to(dtype)
+                assert ydev == gdev == "cuda" and y.dtype == dtype
+                assert torch.equal(y, x_other)
+                assert torch.equal(gx, w_other)
+    # two hops a call (forward and backward) of 105 elements
+    assert got[0]["bytes"] == 2 * 2 * 105 * (4 + 2)

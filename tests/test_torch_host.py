@@ -617,7 +617,8 @@ def test_port_imports_without_jax():
     """Every port module imports with ``jax`` and ``cogstream_tpu``
     blocked, and without nvcc (kernels build at first launch only)."""
     for m in ("runtime.pool", "runtime.serve", "processor.frame_stream",
-              "utils.io", "utils.profiling", "datagen", "evaluate.judges"):
+              "utils.io", "utils.profiling", "datagen", "evaluate.judges",
+              "parallel.pipeline", "ops.ring_attention"):
         assert f"cogstream_tpu_torch.{m}" in _port_modules()
     for mod in COPIED_MODULES:
         name = "cogstream_tpu_torch." + mod.replace("/", ".")

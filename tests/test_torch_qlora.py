@@ -609,7 +609,9 @@ def test_train_stage1_cli(ckpt, tmp_path, capsys):
     """``train-stage1`` on a seeded ``--qa-json`` file and on a published
     chain directory takes its steps (byte tokens: ``--max-len 2048``)
     and writes ``language_module.npz``; without ``--device`` it asks for
-    the card; the parallel options raise naming #9."""
+    the card; ``--pipeline-stages 2`` in one process is JAX's "needs 2
+    devices" (the pipelined command runs under torchrun in
+    tests/test_torch_pipeline.py)."""
     (tmp_path / "qa.json").write_text(json.dumps(QA))
     chains = tmp_path / "chains"
     chains.mkdir()
@@ -626,7 +628,7 @@ def test_train_stage1_cli(ckpt, tmp_path, capsys):
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             tmain.main(argv[:-2])
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         tmain.main(argv + ["--pipeline-stages", "2"])
 
 
@@ -650,8 +652,10 @@ def test_train_stage2_cli(ckpt, clip, tmp_path, capsys, quantize):
 
 def test_train_stage2_cli_errors(ckpt, tmp_path, capsys):
     """``--w8a8-forward`` without an int8 base is the argparse error;
-    ``--sequence-parallel 2`` raises naming #9; without ``--device`` the
-    command asks for the card."""
+    ``--sequence-parallel`` takes JAX's refusals (3: not a power of two; 2
+    in one process: "needs 2 devices"; the command runs under torchrun in
+    tests/test_torch_pipeline.py); without ``--device`` the command asks
+    for the card."""
     argv = ["train-stage2", "--model-dir", ckpt, "--video-dir",
             str(tmp_path), "--query-dir", str(tmp_path), "--out",
             str(tmp_path / "out"), "--device", "cpu"]
@@ -662,7 +666,9 @@ def test_train_stage2_cli_errors(ckpt, tmp_path, capsys):
         assert e.value.code == 2
         assert "--w8a8-forward requires --quantize-base int8" in \
             capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
+    with pytest.raises(ValueError, match="power of two"):
+        tmain.main(argv + ["--sequence-parallel", "3"])
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         tmain.main(argv + ["--sequence-parallel", "2"])
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):

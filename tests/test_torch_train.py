@@ -742,20 +742,45 @@ def test_preemption_guard_and_selector_eval():
 
 
 def test_parallel_options_raise(setup):
+    """Pipeline and sequence parallelism train (tests/test_torch_pipeline.py);
+    what stays refused is JAX's: a pipeline with a model axis, an sp size
+    that is not a power of two or does not divide ``max_seq_len``, and too
+    few ranks (one process here); an sp axis of one rank is the dense
+    loss."""
+    from cogstream_tpu_torch.parallel.mesh import SequenceMesh
+
     jcfg, tcfg, _, model = setup
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
+    with pytest.raises(ValueError, match="exclusive with model_parallel"):
+        tstage1.train_stage1(model.text, tcfg, TTok(), [], "/nonexistent",
+                             tstage1.Stage1Config(pipeline_stages=2,
+                                                  model_parallel=2))
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         tstage1.train_stage1(model.text, tcfg, TTok(), [], "/nonexistent",
                              tstage1.Stage1Config(pipeline_stages=2))
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-        tstage2.Stage2Trainer(model, tcfg, TTok(),
-                              tstage2.Stage2Config(sequence_parallel=2),
-                              "/nonexistent")
+    for kw, match in (({"sequence_parallel": 3}, "power of two"),
+                      ({"sequence_parallel": 2, "max_seq_len": 3001},
+                       "must divide max_seq_len=3001"),
+                      ({"sequence_parallel": 2}, "needs 2 devices, have 1")):
+        with pytest.raises(ValueError, match=match):
+            tstage2.Stage2Trainer(model, tcfg, TTok(),
+                                  tstage2.Stage2Config(**kw), "/nonexistent")
     # data parallelism is ported: without a mesh the batch is the chunk
     batch = {"input_ids": np.zeros((2, 3), np.int32)}
     assert ttr.shard_batch(batch, None) is batch
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-        tmm.multimodal_loss_fn(model, {}, {}, 2.0, 1, sp=("mesh", "sp"))
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
+    rng = np.random.default_rng(0)
+    S = 16
+    mm = {"pixel_values": torch.zeros(4, 3 * 14 * 14),
+          "vis_pos": torch.zeros(4, 2, dtype=torch.int32),
+          "vis_seg": torch.full((4,), -1, dtype=torch.int32),
+          "vis_grp": torch.full((4,), -1, dtype=torch.int32),
+          "input_ids": torch.as_tensor(rng.integers(3, 200, (1, S))),
+          "feat_src": torch.full((1, S), -1, dtype=torch.int32),
+          "positions": torch.arange(S, dtype=torch.int32)[None],
+          "labels": torch.as_tensor(rng.integers(3, 200, (1, S)))}
+    dense = tmm.multimodal_loss_fn(model, {}, mm, 2.0, 1)
+    one = tmm.multimodal_loss_fn(model, {}, mm, 2.0, 1, sp=SequenceMesh(1))
+    torch.testing.assert_close(one, dense, atol=1e-6, rtol=1e-6)
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         tstage2.main(["--model-dir", "/nonexistent", "--video-dir", "v",
                       "--query-dir", "q", "--out", "o",
                       "--sequence-parallel", "2"])

@@ -729,9 +729,11 @@ def test_parallel_sizes_without_a_world_raise(tmp_path):
 
 def test_refusals_on_a_mesh_name_queue_1_9(monkeypatch):
     """What stays refused: ``--w8a8-forward`` with a model axis above 1
-    (under torchrun's world of 2, before any load), the pipeline and the
-    ring; JAX's ``ValueError``s for a pipeline with a model axis and a
-    ring with a model axis come first."""
+    (under torchrun's world of 2, before any load; #9 (c)); JAX's
+    ``ValueError``s for a pipeline with a model axis and a ring with a
+    model axis. A pipeline alone passes the check (it trains:
+    tests/test_torch_pipeline.py), and an sp run has no model axis, so
+    ``--w8a8-forward`` with it is not refused."""
     from cogstream_tpu_torch.train import stage2 as tstage2
 
     monkeypatch.setenv("WORLD_SIZE", "2")
@@ -746,8 +748,10 @@ def test_refusals_on_a_mesh_name_queue_1_9(monkeypatch):
     with pytest.raises(ValueError, match="exclusive with model_parallel"):
         tstage1.check_pipeline(tstage1.Stage1Config(pipeline_stages=2,
                                                     model_parallel=2))
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-        tstage1.check_pipeline(tstage1.Stage1Config(pipeline_stages=2))
+    assert tstage1.check_pipeline(tstage1.Stage1Config(
+        pipeline_stages=2)) is None
     with pytest.raises(ValueError, match="exclusive with model_parallel"):
         tstage2.check_parallel(tstage2.Stage2Config(sequence_parallel=2,
                                                     model_parallel=2), False)
+    assert tstage2.check_parallel(tstage2.Stage2Config(sequence_parallel=2),
+                                  True, 2) is None

@@ -1,5 +1,6 @@
 """One rank of a data- / tensor-parallel training world for
-tests/test_torch_train_parallel.py.
+tests/test_torch_train_parallel.py, or (``--suite _pp``) of a pipeline /
+sequence-parallel world for tests/test_torch_pipeline.py.
 
 Imports only the port. The parent test writes the inputs into ``--dir``
 (the JAX package's seeded weights and LoRA trees as flat ``.npz`` files,
@@ -10,9 +11,11 @@ which the parent holds to the JAX package and to one process.
 
     python tests/torch_train_parallel_child.py --world 4 --rank R --port P --dir D
     python tests/torch_train_parallel_child.py --world 2 --rank R --port P --dir D
+    python tests/torch_train_parallel_child.py --world 4 --suite _pp ...
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import signal
@@ -35,6 +38,11 @@ S2 = dict(max_seq_len=2048, grad_accum=1, save_every=10_000,
 # the train-stage1 command's run (tests/test_torch_train_parallel.py)
 CLI_S1 = dict(epochs=3, batch_size=2, max_len=2048, learning_rate=1e-2)
 LORA_SCALE = 2.0
+# stage 1 on (data 2, pipe 2): 4 rows a step, 2 microbatches of 2 rows
+# (one a data rank)
+S1_PP = dict(S1, batch_size=4, pipeline_microbatches=2)
+# the pipeline forwards' cases: (stages, data, microbatches, remat grads)
+PIPE_CASES = {4: [(4, 1, 8, True), (2, 2, 2, False)], 2: [(2, 1, 4, True)]}
 
 
 def npz(path: str) -> dict:
@@ -279,6 +287,198 @@ class Rank:
         self.out["preempt"] = {"step": state.step, "guard": guard(),
                                "logs": logs}
 
+    # -- pipeline and ring cases (tests/test_torch_pipeline.py) -----------
+
+    def text4(self):
+        """The 4-layer decoder of the pipeline cases (JAX's params)."""
+        from cogstream_tpu_torch.models import bridge
+
+        cfg = dataclasses.replace(self.cfg.text, num_hidden_layers=4)
+        return cfg, bridge.qwen2_from_params(
+            unflatten(os.path.join(self.dir, "pp_params.npz")), cfg,
+            device="cpu")
+
+    def pipe_forward(self, stages, data, M, grads):
+        """``pipeline_decoder_forward`` on (data, pipe = stages) with M
+        microbatches, without and with the adapters; with ``grads`` the
+        adapters' gradients of mean(h * w) (remat; ``w`` a seeded probe:
+        mean(h^2) of a normed ``h`` is nearly constant, its gradients
+        rounding noise), summed over data and gathered over the stages."""
+        from cogstream_tpu_torch.models import qwen2
+        from cogstream_tpu_torch.models.lora import iter_leaves, map_leaves
+        from cogstream_tpu_torch.parallel.mesh import (COLLECTIVES,
+                                                       all_reduce_grads,
+                                                       make_pipeline_mesh)
+        from cogstream_tpu_torch.parallel.pipeline import (
+            pipeline_decoder_forward)
+        from cogstream_tpu_torch.parallel.sharding import (PipeLayout,
+                                                           stage_qwen2)
+        from cogstream_tpu_torch.train import trainer
+
+        tag = f"pp{stages}x{data}x{M}"
+        _, whole = self.text4()
+        mesh = make_pipeline_mesh(stages, data)
+        stage = stage_qwen2(whole, mesh)
+        del whole
+        lora = self.lora("pp_lora")
+        layout = PipeLayout(lora, mesh)
+        part = layout.shard(lora)
+        b = trainer.shard_batch(self.batch("pp_inputs"), mesh)
+        ids, pos, w = (torch.as_tensor(b[k]) for k in ("ids", "pos", "w"))
+        emb = qwen2.embed(stage, ids)
+        COLLECTIVES.clear()
+        for name, ads in (("plain", None), ("lora", [(part, 1.0)])):
+            with torch.no_grad():
+                out = pipeline_decoder_forward(stage, emb, pos, mesh,
+                                               num_microbatches=M,
+                                               adapters=ads)
+            self.arrays[f"{tag}_{name}"] = out.numpy()
+        self.out[tag] = {"hops": COLLECTIVES["ppermute"],
+                         "layers": len(stage.layers),
+                         "data_index": mesh.data_index}
+        if grads:
+            h = pipeline_decoder_forward(stage, emb, pos, mesh,
+                                         num_microbatches=M,
+                                         adapters=[(part, 1.0)], remat=True)
+            loss = (h.float() * w).sum() / (h.numel() * mesh.data)
+            leaves = [t for _, t in iter_leaves(part)]
+            g = all_reduce_grads(list(torch.autograd.grad(loss, leaves)),
+                                 mesh.data_group)
+            it = iter(layout.gather_leaves(g))
+            self.keep(f"{tag}_grad", map_leaves(lambda t: next(it), lora))
+            self.out[tag]["hops_with_grad"] = COLLECTIVES["ppermute"]
+
+    def ring(self):
+        """The ring over every rank, with padding, at the default and a
+        3-slot fold chunk (this rank's shard of the output)."""
+        from cogstream_tpu_torch.ops.ring_attention import (
+            ring_causal_gqa_attention)
+        from cogstream_tpu_torch.parallel.mesh import SequenceMesh
+        from cogstream_tpu_torch.models.qwen2 import sequence_shard
+
+        sp = SequenceMesh(self.world)
+        b = self.batch("ring_inputs")
+        q, k, v, pos = (sequence_shard(torch.as_tensor(b[x]), sp.size,
+                                       sp.sp_index)
+                        for x in ("q", "k", "v", "pos"))
+        for chunk in (1024, 3):
+            self.arrays[f"ring_c{chunk}"] = ring_causal_gqa_attention(
+                q, k, v, pos, pos, sp.sp_group, kv_chunk=chunk).numpy()
+
+    def forward_sp(self):
+        """``qwen2_forward_sp`` of the tiny decoder (this rank's shard)."""
+        from cogstream_tpu_torch.models import qwen2
+        from cogstream_tpu_torch.parallel.mesh import SequenceMesh
+
+        sp = SequenceMesh(self.world)
+        text = self.model().text
+        b = self.batch("sp_inputs")
+        emb = qwen2.embed(text, torch.as_tensor(b["ids"]))
+        with torch.no_grad():
+            self.arrays["fwd_sp"] = qwen2.qwen2_forward_sp(
+                text, emb, torch.as_tensor(b["pos"]), sp).numpy()
+
+    def multimodal_sp(self):
+        """``multimodal_loss_fn(sp=)`` on ``dryrun_multichip``'s batch: the
+        loss and the gradients summed over the sp group."""
+        from cogstream_tpu_torch.models.lora import iter_leaves, map_leaves
+        from cogstream_tpu_torch.parallel.mesh import (COLLECTIVES,
+                                                       SequenceMesh,
+                                                       all_reduce,
+                                                       all_reduce_grads)
+        from cogstream_tpu_torch.train import trainer
+        from cogstream_tpu_torch.train.multimodal import multimodal_loss_fn
+
+        sp = SequenceMesh(self.world)
+        model = self.model()
+        lora = self.lora("lora_mm")
+        b = self.batch("batch_mm")
+        n_vis = int(b.pop("num_vis_tokens"))
+        COLLECTIVES.clear()
+        loss = multimodal_loss_fn(model, lora, trainer.to_device(b, "cpu"),
+                                  LORA_SCALE, n_vis, remat=True, sp=sp)
+        leaves = [t for _, t in iter_leaves(lora)]
+        g = torch.autograd.grad(loss, leaves, allow_unused=True)
+        g = all_reduce_grads([torch.zeros_like(p) if x is None else x
+                              for x, p in zip(g, leaves)], sp.sp_group)
+        it = iter(g)
+        self.keep("mm_sp_grad", map_leaves(lambda t: next(it), lora))
+        share = float(loss)     # before the sum (in place on the value)
+        self.out["mm_sp"] = {"loss": float(all_reduce(loss.detach(),
+                                                      sp.sp_group)),
+                             "share": share,
+                             "hops": COLLECTIVES["ppermute"]}
+
+    def stage2_sp(self):
+        """Two ``Stage2Trainer`` turns with ``sequence_parallel`` = the
+        world (dropout 0, the JAX init)."""
+        from cogstream_tpu_torch.config import LoRAConfig
+        from cogstream_tpu_torch.train import stage2
+
+        losses, undo = self.spy_steps(stage2, "s2sp")
+        try:
+            tr = stage2.Stage2Trainer(
+                self.model(), self.cfg, self.tok,
+                stage2.Stage2Config(**S2, sequence_parallel=self.world),
+                os.path.join(self.dir, f"s2sp_r{self.rank}"),
+                total_steps=20, log=lambda *a: None,
+                lora_cfg=LoRAConfig(dropout=0.0, include_projector=True),
+                lora=self.lora("lora_s2"))
+            got = [tr.train_turn(self.batch(b))
+                   for b in ("batch_pool", "batch_text")]
+            tr.finish()
+        finally:
+            undo()
+        self.keep("s2sp_whole", tr.state.lora)
+        self.out["s2sp"] = {"losses": got, "step_losses": losses}
+
+    def stage1_pp(self):
+        """``train_stage1`` on (data 2, pipe 2) (dropout 0, the JAX init):
+        its logs, the gathered adapters, the files it wrote."""
+        from cogstream_tpu_torch.config import LoRAConfig
+        from cogstream_tpu_torch.train import stage1
+
+        logs = []
+        state = stage1.train_stage1(
+            self.model().text, self.cfg, self.tok, self.samples(),
+            os.path.join(self.dir, "s1pp"),
+            stage1.Stage1Config(**S1_PP, data_parallel=2,
+                                pipeline_stages=2),
+            log=logs.append, lora_cfg=LoRAConfig(dropout=0.0),
+            lora=self.lora("lora_s1"))
+        self.keep("s1pp_whole", state.layout.gather(state.lora))
+        self.out["s1pp"] = {"logs": logs, "step": state.step,
+                            "mesh": state.layout.mesh.shape,
+                            "layers": len(state.lora["layers"])}
+
+    def pipe_resume(self):
+        """Two text steps (dropout 0, accumulation 2) on (data 1, pipe 2),
+        then the train state saved (gathered, rank 0 writes)."""
+        from cogstream_tpu_torch.config import LoRAConfig
+        from cogstream_tpu_torch.parallel.mesh import make_pipeline_mesh
+        from cogstream_tpu_torch.parallel.sharding import (PipeLayout,
+                                                           stage_qwen2)
+        from cogstream_tpu_torch.train import checkpoint as ckpt
+        from cogstream_tpu_torch.train import trainer
+
+        mesh = make_pipeline_mesh(2, 1)
+        text = stage_qwen2(self.model().text, mesh)
+        whole = self.lora("lora_s1")
+        layout = PipeLayout(whole, mesh)
+        tx = trainer.make_optimizer(1e-2, total_steps=6, warmup_steps=1,
+                                    grad_accum=2)
+        state = trainer.init_train_state(tx, layout.shard(whole), layout)
+        step = trainer.make_train_step(
+            tx, trainer.bind_text_loss(LoRAConfig(dropout=0.0), remat=True,
+                                       pipeline=(mesh, 2)), mesh=mesh)
+        batch = trainer.to_device(self.batch("batch_resume"), "cpu")
+        losses = []
+        for _ in range(2):
+            state, loss = step(text, state, batch)
+            losses.append(float(loss))
+        ckpt.save_train_state(os.path.join(self.dir, "pp_resume"), state)
+        self.out["pp_resume"] = {"losses": losses}
+
     # -- worlds -----------------------------------------------------------
 
     def world4(self):
@@ -298,6 +498,22 @@ class Rank:
         self.stage1_dp()
         self.preempt()
 
+    def world4_pp(self):
+        for case in PIPE_CASES[4]:
+            self.pipe_forward(*case)
+        self.ring()
+        self.multimodal_sp()
+        self.stage1_pp()
+
+    def world2_pp(self):
+        for case in PIPE_CASES[2]:
+            self.pipe_forward(*case)
+        self.ring()
+        self.forward_sp()
+        self.multimodal_sp()
+        self.stage2_sp()
+        self.pipe_resume()
+
 
 def main() -> int:
     ap = argparse.ArgumentParser()
@@ -305,17 +521,21 @@ def main() -> int:
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--port", type=int, required=True)
     ap.add_argument("--dir", required=True)
+    ap.add_argument("--suite", default="",
+                    help="'_pp': the pipeline / sequence-parallel cases")
+    ap.add_argument("--timeout", type=float, default=300,
+                    help="seconds a collective waits for the other ranks")
     args = ap.parse_args()
     torch.set_num_threads(1)
     from cogstream_tpu_torch.parallel.distributed import initialize_if_needed
 
     initialize_if_needed(f"tcp://127.0.0.1:{args.port}", args.world,
-                         args.rank, backend="gloo", timeout_s=300)
+                         args.rank, backend="gloo", timeout_s=args.timeout)
     rank = Rank(args)
-    rank.rank = args.rank
-    stem = os.path.join(args.dir, f"w{args.world}_r{args.rank}")
+    rank.rank, rank.world = args.rank, args.world
+    stem = os.path.join(args.dir, f"w{args.world}{args.suite}_r{args.rank}")
     try:
-        getattr(rank, f"world{args.world}")()
+        getattr(rank, f"world{args.world}{args.suite}")()
     except Exception:  # noqa: BLE001 — recorded for the parent, then rc 1
         rank.out["error"] = traceback.format_exc()
         with open(stem + ".json", "w") as f:
