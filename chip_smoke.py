@@ -55,7 +55,13 @@ Phases (each prints one line or a few; any failure exits non-zero):
    beside the bf16 route on the same values and beside their bound, K4's
    graph replay bit-identical, and both again through ``rows`` on a [4,
    9216, 4, 128] e4m3 pool; ptxas registers, shared memory and blocks per
-   SM of the bf16 and e4m3 instantiations;
+   SM of the bf16 and e4m3 instantiations. The other cache dtypes: K3
+   and K4 over an e5m2, f16 and f32 cache on the tensor-core kernels (bf16
+   queries) and over a bf16 cache on the f32 route, at the same shapes,
+   each within the 2-ulp row rule of its plain version and counted under
+   its dtype, timed beside the bf16 (f32) route on the same values and
+   beside its bound, K4's graph replay bit-identical; every e5m2 byte
+   widened exactly as V and as K; those instances' ptxas figures;
 4. reference — a tiny-config session (f32) runs ingest → ask(AC) →
    ingest → ask(FCC) on the card (kernels) and on the CPU (plain
    versions); greedy tokens, selections and slot ranges must agree. Then
@@ -71,8 +77,10 @@ Phases (each prints one line or a few; any failure exits non-zero):
    tiny f32 dialogue with lookahead_k = 2 (K4 verifies) and 8 (K3
    verifies) on the card and the CPU: the same tokens and verify steps;
    on the card the vanilla dialogue's tokens, and its cache wherever
-   pos >= 0. The tiny f32 session over an e4m3 cache, card vs CPU: the
-   same tokens, selections and ranges, cache bytes within one e4m3 step.
+   pos >= 0. The tiny f32 session over an e4m3, an e5m2 and a bf16 cache,
+   card vs CPU: the same tokens, selections and ranges, the cache within
+   one step of its dtype, K3 and K4 launched over it (the bf16 cache's
+   counts are the f32 route's launches in the kernels line).
    QLoRA: the backward of each GEMV wrapper (K6-K10 at 7B gate_proj
    shapes, m = 64) against the f32 product of g and the weights it
    dequantizes (2-ulp rule), each forward launching its kernel; tiny
@@ -100,7 +108,11 @@ Phases (each prints one line or a few; any failure exits non-zero):
    bytes beside bf16's, the greedy-prefix agreement with the bf16
    answers (reported), the largest |K| / |V| and saturated elements; K3
    and K4 (counted from zero) must run over the e4m3 cache; then a decode
-   step's cost over 9000 history slots in a bf16 and an e4m3 cache;
+   step's cost over 9000 history slots in a bf16 and an e4m3 cache; the
+   same session and step cost over an e5m2 cache, and one segment and
+   its AC ask (8 tokens) over an f16 and over an f32 cache, each with K3
+   and K4 launched over its cache on the tensor-core kernels (the kernels
+   line's launches of those routes) and no inf or NaN written;
 8. engine (runs on the phase-5 model, before phases 7 and 6) — the
    evaluation entry point at full width and depth: the host decoders
    are probed (Pillow, OpenCV, ffmpeg), a seeded 150-frame video of ten
@@ -236,7 +248,7 @@ Phases (each prints one line or a few; any failure exits non-zero):
    with the same adapters, the adapters moving the solo logits (the (e3)
    restore's) by 10 x the gate or more, and (the control) each rank's
    logits with the other rank's slice of the adapters beyond the gate.
-   (b) asks 16 tokens a turn. A rank that fails fails the phase. Then
+   (b) asks 8 tokens a turn. A rank that fails fails the phase. Then
    (f) a new world of four ranks (``--tp-dp-rank``) on a (data 2, model
    2) mesh loads (d)'s checkpoint with ``mesh=`` and serves it:
    ``SessionServer(pool_rows=4)`` over HTTP, four clients (create, ingest
@@ -260,14 +272,14 @@ Phases (each prints one line or a few; any failure exits non-zero):
    phase 11, before phase 7) — two ranks on this card over gloo
    (subprocesses of this script, ``--train-rank``), LoRA dropout 0. The
    parent first runs the same steps in one process: one
-   ``train_stage1`` step of 4 x 2048 byte tokens (half of phase 7's
+   ``train_stage1`` step of 2 x 2048 byte tokens (a quarter of phase 7's
    batch: two whole bf16 replicas fit the card in (a)), its witness
    in two data ranks' sum order, two ``Stage2Trainer`` micro-steps on
-   phase 7's 8-frame turn (warm-up, then an update) and one on a 64-token
+   a 4-frame 24x42 turn (warm-up, then an update) and one on a 64-token
    text turn over an int8 copy (one stage-1 step: the checks read the
    first step's gradients). The ranks: (a) ``train_stage1`` on a (data
    2, model 1) mesh, losses and gathered adapters bit-equal to the witness; (b) on (data
-   1, model 2), (c) ``Stage2Trainer`` on (1, 2), the 8-frame turn (the
+   1, model 2), (c) ``Stage2Trainer`` on (1, 2), the 4-frame turn (the
    tower on 8 heads a rank: every K5 launch on its tensor-core tile)
    and the 64-token turn on an int8 copy of the shards (K10 on column
    and row shards): losses within 1e-2 of one process's, adapters
@@ -275,16 +287,22 @@ Phases (each prints one line or a few; any failure exits non-zero):
    ranks; the adapter files the ranks wrote load in the parent; per rank
    peak GiB, collectives a step and walls (two ranks sharing one card
    over gloo: not a speed). Then, in the same two ranks on the whole
-   model, (d) ``train_stage1`` on a (data 1, pipe 2) mesh, GPipe with 4
+   model, (d) ``train_stage1`` on a (data 1, pipe 2) mesh, GPipe with 2
    microbatches, each rank its stage's 14 layers, and (e) the two
-   8-frame micro-steps of ``Stage2Trainer`` with
+   4-frame micro-steps of ``Stage2Trainer`` with
    ``sequence_parallel=2`` (the ring; the tower replicated on each rank,
    K5 and K2): their first-step gradients, losses and adapters held to
    the one-process steps as (b) and (c) are, with each part's wall, its
    ``ppermute`` hops and bytes (and each hop's wall), and each rank's
    peak GiB; with ``--train-pp-fault`` one backward hop of each of (d)
-   and (e) carries zeros from rank 1, and the phase must fail. A rank
-   that fails fails the phase;
+   and (e) carries zeros from rank 1, and the phase must fail. (f), after
+   (c) in the same ranks: the 64-token turn on the int8 shards with
+   ``w8a8_prefill`` (stage 2's ``--w8a8-forward``: W8A8 on column and row
+   shards), held to the one-process W8A8 turn with (b)'s bounds, and a
+   7B o_proj and down_proj W8A8 product on row shards bit-equal to the
+   whole product on the card, forward and ``dx``; with
+   ``--train-w8a8-fault`` each rank's activations take their own absmax,
+   and the phase must fail. A rank that fails fails the phase;
 6. int4 main path — the same model's decoder is quantized in place to
    rank-1 uniform int4 (the bf16 weights are freed; memory before and
    after is printed); then, with w4a8_decode off and on, a fresh session
@@ -485,34 +503,42 @@ def row_check(got, ref, width: int):
     return err.max().item(), (err / bound).max().item()
 
 
+# K/V kinds of K3's and K4's tensor-core instances: the template argument
+# KV (csrc/common.cuh DType), the element bytes, K3's (m-tiles, warps)
+# instances (lm_attention_tc.cuh dispatch_prefill_tc) and K4's warps
+KV_KINDS = {"bf16": (1, 2, ((2, 4), (1, 4)), 4),
+            "e4m3": (2, 1, ((2, 8), (1, 8), (1, 4)), 8),
+            "e5m2": (3, 1, ((2, 8), (1, 8), (1, 4)), 8),
+            "f16": (4, 2, ((2, 8), (1, 8), (1, 4)), 4),
+            "f32": (0, 4, ((1, 4),), 4)}
+
+
+def _lm_label(kernel: str, kind: str, mt: int, warps: int = 0) -> str:
+    tiles = f"{mt} m-tile{'s' if mt > 1 else ''}"
+    tag = "" if kind == "bf16" else f" {kind}"
+    if kernel == "K4" or kind == "bf16":
+        return f"{kernel} tc{tag} <D=128, {tiles}>"
+    return f"{kernel} tc{tag} <D=128, {tiles}, {warps} warps>"
+
+
 # the tensor-core kernels by the (mangled) names of their instantiations
-# on the main paths: K3 at D = 128 with 2 and 1 m-tiles per warp, K1 and
-# K5 at D = 72 (one body, with and without the rotation), K4 at D = 128
-# (1 m-tile for S <= 2, 2 for longer steps) and D = 64, each K3 / K4 over a
-# bf16 and over an e4m3 cache (the template flag F8), K8 and K9 by their
-# largest count of n8 row tiles (m <= 8, 16, 32, 64), as is the K10 kernel
-# before PR 16 (phase 3's yardstick); K6 and K10 on their warpgroup-MMA
-# kernel by variant and MMA width N
-TC_KERNELS = {"K3 tc <D=128, 2 m-tiles>":
-                  "gqa_prefill_tc_kernelILi128ELi2ELi4ELb0E",
-              "K3 tc <D=128, 1 m-tile>":
-                  "gqa_prefill_tc_kernelILi128ELi1ELi4ELb0E",
-              "K3 tc e4m3 <D=128, 2 m-tiles, 8 warps>":
-                  "gqa_prefill_tc_kernelILi128ELi2ELi8ELb1E",
-              "K3 tc e4m3 <D=128, 1 m-tile, 8 warps>":
-                  "gqa_prefill_tc_kernelILi128ELi1ELi8ELb1E",
-              "K3 tc e4m3 <D=128, 1 m-tile, 4 warps>":
-                  "gqa_prefill_tc_kernelILi128ELi1ELi4ELb1E",
-              "K1 tc <D=72, rope>": "segment_tc_kernelILi72ELb1E",
-              "K5 tc <D=72>": "segment_tc_kernelILi72ELb0E",
-              "K4 tc <D=128, 1 m-tile>": "gqa_decode_tc_kernelILi128ELi1ELb0E",
-              "K4 tc <D=128, 2 m-tiles>": "gqa_decode_tc_kernelILi128ELi2ELb0E",
-              "K4 tc <D=64, 1 m-tile>": "gqa_decode_tc_kernelILi64ELi1ELb0E",
-              "K4 tc <D=64, 2 m-tiles>": "gqa_decode_tc_kernelILi64ELi2ELb0E",
-              "K4 tc e4m3 <D=128, 1 m-tile>":
-                  "gqa_decode_tc_kernelILi128ELi1ELb1E",
-              "K4 tc e4m3 <D=128, 2 m-tiles>":
-                  "gqa_decode_tc_kernelILi128ELi2ELb1E",
+# on the main paths: K3 at D = 128 by its instances, K1 and K5 at D = 72
+# (one body, with and without the rotation), K4 at D = 128 (1 m-tile for
+# S <= 2, 2 for longer steps) and D = 64, each K3 / K4 over every K/V kind
+# (KV_KINDS), K8 and K9 by their largest count of n8 row tiles (m <= 8,
+# 16, 32, 64), as is the earlier K10 kernel (phase 3's yardstick); K6
+# and K10 on their warpgroup-MMA kernel by variant and MMA width N
+TC_KERNELS = {
+    **{_lm_label("K3", kind, mt, w):
+       f"gqa_prefill_tc_kernelILi128ELi{mt}ELi{w}ELi{code}EE"
+       for kind, (code, _, k3, _) in KV_KINDS.items() for mt, w in k3},
+    **{_lm_label("K4", kind, mt):
+       f"gqa_decode_tc_kernelILi128ELi{mt}ELi{code}EE"
+       for kind, (code, *_) in KV_KINDS.items() for mt in (1, 2)},
+    "K1 tc <D=72, rope>": "segment_tc_kernelILi72ELb1E",
+    "K5 tc <D=72>": "segment_tc_kernelILi72ELb0E",
+    "K4 tc <D=64, 1 m-tile>": "gqa_decode_tc_kernelILi64ELi1ELi1EE",
+    "K4 tc <D=64, 2 m-tiles>": "gqa_decode_tc_kernelILi64ELi2ELi1EE",
               "K8 tc <1 n-tile>": "int4_gemv_tc_kernelILi0ELi1E",
               "K8 tc <2 n-tiles>": "int4_gemv_tc_kernelILi0ELi2E",
               "K8 tc <4 n-tiles>": "int4_gemv_tc_kernelILi0ELi4E",
@@ -534,31 +560,26 @@ TC_KERNELS = {"K3 tc <D=128, 2 m-tiles>":
 def lm_attention_smem(kv_len: int = 16384) -> dict:
     """Dynamic shared memory and threads of K3's and K4's tensor-core
     blocks at D = 128 as ``launch_prefill_tc`` / ``launch_decode_tc`` size
-    them, bf16 and e4m3 caches (csrc/lm_attention.cu), by TC_KERNELS label:
-    K3 keeps Q, two bf16 K and V tiles, over e4m3 two stages of K and V
-    bytes, and the positions (two slots, three over e4m3; bf16 4 warps,
-    e4m3 8 or 4); K4 Q, each warp's K and V tile (overlaid by the warps'
-    f32 merge) and the positions (4 warps, 8 over e4m3)."""
+    them (csrc/lm_attention_tc.cuh), each K/V kind, by TC_KERNELS label:
+    K3 keeps Q, two bf16 K and V tiles, for a kind other than bf16 two
+    stages of K and V rows in their own width, and the positions (two
+    slots, three when staged); K4 Q, each warp's K and V tile (bf16 rows,
+    or fp8 bytes; overlaid by the warps' f32 merge) and the positions."""
     KS, BK, D = 136, 64, 128
     out = {}
-    k3 = [(False, 2, 4), (False, 1, 4), (True, 2, 8), (True, 1, 8),
-          (True, 1, 4)]                          # K3's (F8, MT, warps)
-    for f8, mt, w3 in k3:
-        br, slots = 16 * mt * w3, 3 if f8 else 2
-        label = f"{mt} m-tile{'s' if mt > 1 else ''}"
-        label = f"K3 tc e4m3 <D=128, {label}, {w3} warps>" if f8 else \
-            f"K3 tc <D=128, {label}>"
-        out[label] = (br * KS * 2 + 4 * BK * KS * 2 + (4 * BK * D if f8
-                                                        else 0)
-                      + (slots * BK + br + w3 + 2 * -(-kv_len // BK)) * 4,
-                      32 * w3)
-    for f8 in (False, True):
-        tag = " e4m3" if f8 else ""
-        tile = BK * D if f8 else BK * KS * 2     # one K4 K (or V) tile
-        nw = 8 if f8 else 4                      # K4's warps
+    for kind, (_, eb, k3, nw) in KV_KINDS.items():
+        staged = kind != "bf16"
+        for mt, w3 in k3:
+            br = 16 * mt * w3
+            out[_lm_label("K3", kind, mt, w3)] = (
+                br * KS * 2 + 4 * BK * KS * 2
+                + (4 * BK * D * eb if staged else 0)
+                + ((3 if staged else 2) * BK + br + w3
+                   + 2 * -(-kv_len // BK)) * 4, 32 * w3)
+        tile = BK * D if eb == 1 else BK * KS * 2   # one K4 K (or V) tile
         for mt in (2, 1):
             kv = max(2 * nw * tile, nw * 16 * mt * (D + 2) * 4)
-            out[f"K4 tc{tag} <D=128, {mt} m-tile{'s' if mt > 1 else ''}>"] = (
+            out[_lm_label("K4", kind, mt)] = (
                 16 * mt * KS * 2 + kv + (nw * BK + 4) * 4, 32 * nw)
     return out
 
@@ -1757,161 +1778,26 @@ def check_fp8_cast(dev):
                                  " CPU's or does not saturate")
 
 
-def check_fp8_kernels(dev):
-    """Phase 3, the fp8 KV cache: K3 and K4 over e4m3 K/V on their
-    tensor-core kernels, each held to its plain version on the same bytes
-    by the 2-ulp row rule, timed beside the bf16 route on the same values
-    (the bytes widened) and beside its bound (the e4m3 K/V bytes read,
-    half the bf16 route's): K3 at the 4384-token prefill over 4607
-    history slots of a 16384-slot cache, K4 at S = 1, 5 and 8 over a
-    9216-slot window holding 9000; K4's two calls bit-identical and one
-    call replayed in a CUDA graph after q / eff were rewritten equal to the
-    eager call; then K3 (the same prefill) and K4 (S = 1, 8) reading rows
-    [2] and [3, 1] of a [4, 9216, 4, 128] e4m3 pool through ``rows``,
-    bit-identical to the same kernel on a contiguous copy and within the
-    row rule of the plain version; all 256 byte values as V and as K
-    equal the bf16 kernel on the widened cache bit for bit. Prints the
-    e4m3 instances' ptxas registers, spills, shared memory and blocks per
-    SM. No PyTorch call takes e4m3 K/V, so ``library_ms`` is null.
-    Returns (two kernel records, {label: ms or ptxas figures})."""
+def fp8_widening_exact(dev, f8, rng):
+    """Phase 3: every byte of an fp8 K/V kind (``f8``: e4m3 or e5m2)
+    through K3's and K4's tensor-core widening, bit for bit. All 256 byte
+    values (inf and NaN included) as the V of the one visible slot, q = 0,
+    so each output head is its kv head's V row widened by torch; and every
+    finite byte as the K of slot 0 (beside a zero K at slot 1), each folded
+    query row one-hot at dim r % 128, so each score is one product: the
+    output equals the bf16 kernel on the widened cache bit for bit, NaN in
+    the kv heads that hold a NaN byte (a NaN anywhere in a key's row makes
+    each of its scores NaN)."""
     import torch
 
-    from cogstream_tpu_torch.ops import kernels
     from cogstream_tpu_torch.ops import lm_attention as lma
 
-    rng = np.random.default_rng(8)
-    bf, f8 = torch.bfloat16, torch.float8_e4m3fn
-    T, Hq, Hkv, Dl = 16384, 28, 4, 128
-    kv_row8 = Hkv * Dl            # e4m3 bytes of one slot's K (or V)
-    timings, records = {}, []
-
-    # the e4m3 instances as ptxas built them
-    for name, use in lm_attention_usage(kernels.last_build_log).items():
-        if "e4m3" in name:
-            log(f"kernel fp8 {name}: {use}")
-            timings[f"ptxas {name}"] = use
+    bf, Dl = torch.bfloat16, 128
+    name = str(f8).removeprefix("torch.float8_")
 
     def dev_t(a, dtype=None):
         return torch.as_tensor(a).to(dev, dtype)
 
-    def case(S, hist, W=None):
-        pos = np.full((1, T), -1, np.int32)
-        pos[0, :hist + S] = np.arange(hist + S)
-        pos[0, rng.choice(hist, 300, replace=False)] = -1
-        allowed = rng.random((1, T)) > 0.3
-        allowed[0, hist:] = True
-        eff = lma.effective_kv_positions(dev_t(pos, torch.int32),
-                                         dev_t(allowed, torch.bool))
-        if W is not None:
-            eff = eff[:, :W].contiguous()
-        q = dev_t(rng.standard_normal((1, S, Hq, Dl)), bf)
-        return q, eff
-
-    k8 = dev_t(rng.standard_normal((1, T, Hkv, Dl)), bf).to(f8)
-    v8 = dev_t(rng.standard_normal((1, T, Hkv, Dl)), bf).to(f8)
-    k16, v16 = k8.to(bf), v8.to(bf)        # the same values, widened
-
-    def bounds(q, qp, eff, out):
-        seen = int((eff[0] < lma.SENTINEL).sum().item())
-        ops = 4 * Hq * Dl * visible_pairs(qp, eff)
-        small = nbytes(q, qp, eff, out)
-        return (bound_ms(small + 2 * seen * kv_row8, ops),
-                bound_ms(small + 2 * seen * kv_row8 * 2, ops))
-
-    # K3: the second ingest's prefill
-    S, hist = 4384, 4607
-    q, eff = case(S, hist)
-    qpos = np.full((1, S), -1, np.int32)
-    qpos[0, :S - 20] = hist + np.arange(S - 20)
-    qp = dev_t(qpos, torch.int32)
-    wrap = lma.prefill_flash_attention
-    t0, f0 = wrap.tc_launches, wrap.fp8_launches
-    got = wrap(q, k8, v8, qp, eff)
-    on_tc = (wrap.tc_launches, wrap.fp8_launches) == (t0 + 1, f0 + 1)
-    err, ratio = row_check(got, lma.gqa_attention_plain(q, k8, v8, qp, eff),
-                           Dl)
-    ms = cuda_ms(lambda: wrap(q, k8, v8, qp, eff), 10)
-    ms16 = cuda_ms(lambda: wrap(q, k16, v16, qp, eff), 10)
-    plain = cuda_ms(lambda: lma.gqa_attention_plain(q, k8, v8, qp, eff), 1)
-    b8, b16 = bounds(q, qp, eff, got)
-    pad_zero = bool((got[0, S - 20:] == 0).all())
-    log(f"kernel K3 fp8 cache S={S} over {hist} history slots: max_abs_err="
-        f"{err:.6g}, worst row at {ratio:.3g} of its bound; tensor-core "
-        f"kernel with the e4m3 code {on_tc}; e4m3 {ms:.4f} ms, bf16 (same "
-        f"values) {ms16:.4f} ms, plain {plain:.4f} ms; bound e4m3 "
-        f"{b8[0]:.4f} ms ({b8[1]}), bf16 {b16[0]:.4f} ms ({b16[1]}); 20 "
-        f"padded query rows zero {pad_zero}")
-    if not (ratio <= 1.0 and on_tc and pad_zero):
-        raise AssertionError("K3 over the fp8 cache disagrees with its plain"
-                             " version")
-    timings["K3 S=4384"] = {"fp8_ms": ms, "bf16_ms": ms16,
-                            "fp8_bound_ms": b8[0], "bf16_bound_ms": b16[0]}
-    records.append({"name": "K3_prefill_attention_fp8kv", "route": "cuda",
-                    "source": KERNELS[2][3], "replaces": KERNELS[2][4],
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                    "bound_ms": b8[0], "bound_by": b8[1],
-                    "library_ms": None})
-
-    # K4: decode and verify steps over a 9216-slot window holding 9000
-    W, fill = 9216, 9000
-    wrap = lma.decode_attention
-    k4 = {}
-    for Sv in (1, 5, 8):
-        qv, effv = case(Sv, fill, W)
-        qpv = dev_t(np.arange(fill, fill + Sv)[None], torch.int32)
-        t0, f0 = wrap.tc_launches, wrap.fp8_launches
-        gotv = wrap(qv, k8, v8, qpv, effv)
-        on_tc = (wrap.tc_launches, wrap.fp8_launches) == (t0 + 1, f0 + 1)
-        errv, ratiov = row_check(gotv, lma.gqa_attention_plain(
-            qv, k8, v8, qpv, effv), Dl)
-        msv = graph_ms(lambda: wrap(qv, k8, v8, qpv, effv), 50)
-        ms16v = graph_ms(lambda: wrap(qv, k16, v16, qpv, effv), 50)
-        b8, b16 = bounds(qv, qpv, effv, gotv)
-        repeat = bool(torch.equal(gotv, wrap(qv, k8, v8, qpv, effv)))
-        log(f"kernel K4 fp8 cache S={Sv} over a {W}-slot window ({fill} "
-            f"history slots): max_abs_err={errv:.6g}, worst row at "
-            f"{ratiov:.3g} of its bound; tensor-core kernel with the e4m3 "
-            f"code {on_tc}; two calls bit-identical {repeat}; e4m3 "
-            f"{msv:.4f} ms, bf16 (same values) {ms16v:.4f} ms (graph ms); "
-            f"bound e4m3 {b8[0]:.4f} ms ({b8[1]}), bf16 {b16[0]:.4f} ms "
-            f"({b16[1]})")
-        if not (ratiov <= 1.0 and on_tc and repeat):
-            raise AssertionError(f"K4 over the fp8 cache at S={Sv} disagrees"
-                                 " with its plain version")
-        timings[f"K4 S={Sv}"] = {"fp8_ms": msv, "bf16_ms": ms16v,
-                                 "fp8_bound_ms": b8[0],
-                                 "bf16_bound_ms": b16[0]}
-        k4[Sv] = (qv, qpv, effv, gotv, errv, msv, b8)
-    qv, qpv, effv, gotv, _, msv, b8 = k4[1]
-    plain = cuda_ms(lambda: lma.gqa_attention_plain(qv, k8, v8, qpv, effv), 5)
-    # capture: one call in a graph, replayed after q and eff are rewritten
-    qr, effr = qv.clone(), effv.clone()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        out_g = wrap(qr, k8, v8, qpv, effr)
-    qr.copy_(dev_t(rng.standard_normal((1, 1, Hq, Dl)), bf))
-    effr[0, rng.choice(fill, 500, replace=False)] = lma.SENTINEL
-    g.replay()
-    torch.cuda.synchronize()
-    replay = bool(torch.equal(out_g, wrap(qr, k8, v8, qpv, effr)))
-    log(f"kernel K4 fp8 cache: graph replay after q / eff rewritten equals "
-        f"the eager call {replay}")
-    if not replay:
-        raise AssertionError("K4 over the fp8 cache differs under graph "
-                             "replay")
-    records.append({"name": "K4_decode_attention_fp8kv", "route": "cuda",
-                    "source": KERNELS[3][3], "replaces": KERNELS[3][4],
-                    "max_abs_err": max(v[4] for v in k4.values()),
-                    "ms": msv, "plain_ms": plain, "bound_ms": b8[0],
-                    "bound_by": b8[1], "library_ms": None})
-    del k8, v8, k16, v16, k4, q, got
-
-    # exact widening: all 256 byte values (NaN included) as the V of the one
-    # visible slot, q = 0, so each output head is its kv head's V row; and
-    # as the K of slot 0 (beside a zero K at slot 1), each folded query row
-    # one-hot at dim r % 128, so each score is one product: both equal the
-    # bf16 kernel on the widened cache bit for bit
     def same_bits(a, b):
         return bool(torch.equal(torch.nan_to_num(a.float(), 1e9),
                                 torch.nan_to_num(b.float(), 1e9)))
@@ -1930,16 +1816,17 @@ def check_fp8_kernels(dev):
         out = wrap(*args)
         exact = same_bits(out, want.expand_as(out)) and same_bits(
             out, wrap(*args[:1], k8.to(bf), v8.to(bf), *args[3:]))
-        log(f"kernel {'K3' if S > 1 else 'K4'} fp8: all 256 e4m3 byte values "
-            f"as V widen exactly (NaN to NaN), equal to the bf16 kernel on "
-            f"the widened cache {exact}")
+        log(f"kernel {'K3' if S > 1 else 'K4'} {name}: all 256 {name} byte "
+            f"values as V widen exactly (inf and NaN kept), equal to the "
+            f"bf16 kernel on the widened cache {exact}")
         if not exact:
-            raise AssertionError("an e4m3 byte of V does not widen exactly")
-    # kv heads 0 and 1 the 254 finite bytes, heads 2 and 3 only the NaN
-    # bytes (a NaN anywhere in a key's row makes each of its scores NaN)
+            raise AssertionError(f"an {name} byte of V does not widen "
+                                 "exactly")
+    # kv heads 0 and 1 every finite byte, heads 2 and 3 only the NaN bytes
     kb = torch.zeros((1, 256, 4, Dl), dtype=torch.uint8, device=dev)
-    kb[0, 0, :2] = bytes_
-    kb[0, 0, :2, Dl - 1] = 0
+    every = bytes_.clone()
+    every[~torch.isfinite(every.view(f8).float())] = 0
+    kb[0, 0, :2] = every
     kb[0, 0, 2, Dl - 1], kb[0, 0, 3, Dl - 1] = 0x7F, 0xFF
     k8 = kb.view(f8)
     v8 = dev_t(rng.standard_normal((1, 256, 4, Dl)), bf).to(f8)
@@ -1959,11 +1846,34 @@ def check_fp8_kernels(dev):
         exact = (same_bits(out, ref) and bool(nan[:, 2:].all())
                  and not bool(nan[:, :2].any()))
         log(f"kernel {'K3' if wrap is lma.prefill_flash_attention else 'K4'}"
-            f" fp8: all 256 e4m3 byte values as K (one product a score) "
-            f"equal the bf16 kernel on the widened cache bit for bit, NaN "
+            f" {name}: every finite {name} byte as K (one product a score) "
+            f"equals the bf16 kernel on the widened cache bit for bit, NaN "
             f"where a NaN byte is {exact}")
         if not exact:
-            raise AssertionError("an e4m3 byte of K does not widen exactly")
+            raise AssertionError(f"an {name} byte of K does not widen "
+                                 "exactly")
+
+
+def check_fp8_pool_kernels(dev):
+    """Phase 3, the fp8 KV cache read through ``rows``: K3 (the 4384-token
+    prefill over 4607 history slots) and K4 (S = 1, 8 over 9000) reading
+    rows [2] and [3, 1] of a [4, 9216, 4, 128] e4m3 pool, each call
+    bit-identical to the same kernel on a contiguous copy of those rows and
+    within the 2-ulp row rule of the plain version, counted in
+    ``.rows_launches`` and ``.fp8_launches``. (K3 and K4 over e4m3 at the
+    main path's shapes: :func:`check_kv_dtype_kernels`.) Returns {label:
+    ms}."""
+    import torch
+
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    rng = np.random.default_rng(8)
+    bf, f8 = torch.bfloat16, torch.float8_e4m3fn
+    Hq, Hkv, Dl = 28, 4, 128
+    timings = {}
+
+    def dev_t(a, dtype=None):
+        return torch.as_tensor(a).to(dev, dtype)
 
     # pooled addressing on an e4m3 pool
     Bp, Tp = 4, 9216
@@ -2003,6 +1913,193 @@ def check_fp8_kernels(dev):
                 f"its bound; {ms_rows:.4f} ms")
             if not (same and ratio <= 1.0 and counted):
                 raise AssertionError(f"{label} disagrees")
+    return timings
+
+
+# (query dtype, cache dtype, record suffix, the instances' source) of the
+# K/V routes phase 3 holds beyond bf16: the tensor-core kernels over
+# e4m3, e5m2, f16 and f32 caches, and the f32 route over a bf16 cache
+KV_ROUTES = (("bfloat16", "float8_e4m3fn", "fp8kv",
+              "cogstream_tpu_torch/csrc/lm_attention_e4m3.cu"),
+             ("bfloat16", "float8_e5m2", "e5m2kv",
+              "cogstream_tpu_torch/csrc/lm_attention_e5m2.cu"),
+             ("bfloat16", "float16", "f16kv",
+              "cogstream_tpu_torch/csrc/lm_attention_f16.cu"),
+             ("bfloat16", "float32", "f32kv",
+              "cogstream_tpu_torch/csrc/lm_attention_f32.cu"),
+             ("float32", "bfloat16", "bf16kv_f32q",
+              "cogstream_tpu_torch/csrc/lm_attention.cu"))
+
+
+def check_kv_dtype_kernels(dev):
+    """Phase 3, the caches in another dtype than q: K3 and K4 over an e4m3,
+    e5m2, f16 and f32 cache on their tensor-core kernels (bf16 queries) and
+    over a bf16 cache on the f32 route (f32 queries), each held to its plain
+    version
+    on the same values by the 2-ulp row rule, timed beside the bf16 route
+    on the same values (the cache converted to bf16: what the kernel
+    computes with; on the f32 route, beside an f32 cache of those values)
+    and beside its bound (the cache's own K/V bytes). K3 at the 4384-token
+    prefill over 4607 history slots of a 16384-slot cache, K4 at S = 1, 5
+    and 8 over a 9216-slot window holding 9000 (timed at S = 1; the f32
+    route: S = 1);
+    K4's two calls bit-identical and, on the tensor cores, one call
+    replayed in a CUDA graph after q / eff were rewritten equal to the
+    eager call; each call counted in ``.kv_launches`` under the cache's
+    dtype. Then every e4m3 and e5m2 byte through the widening
+    (:func:`fp8_widening_exact`). Prints the instances' ptxas registers,
+    spills, shared memory and blocks per SM. No PyTorch call takes K/V in
+    another dtype than q, so ``library_ms`` is null. Returns (kernel
+    records: K3 then K4 for each of KV_ROUTES, {label: ms})."""
+    import torch
+
+    from cogstream_tpu_torch.ops import kernels
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    rng = np.random.default_rng(18)
+    T, Hq, Hkv, Dl = 16384, 28, 4, 128
+    timings, records = {}, []
+    for name, use in lm_attention_usage(kernels.last_build_log).items():
+        if any(f" {k} " in name for k in ("e4m3", "e5m2", "f16", "f32")):
+            log(f"kernel kv {name}: {use}")
+            timings[f"ptxas {name}"] = use
+
+    def dev_t(a, dtype=None):
+        return torch.as_tensor(a).to(dev, dtype)
+
+    def case(S, hist, qd, W=None):
+        pos = np.full((1, T), -1, np.int32)
+        pos[0, :hist + S] = np.arange(hist + S)
+        pos[0, rng.choice(hist, 300, replace=False)] = -1
+        allowed = rng.random((1, T)) > 0.3
+        allowed[0, hist:] = True
+        eff = lma.effective_kv_positions(dev_t(pos, torch.int32),
+                                         dev_t(allowed, torch.bool))
+        if W is not None:
+            eff = eff[:, :W].contiguous()
+        return dev_t(rng.standard_normal((1, S, Hq, Dl)), qd), eff
+
+    for qname, kvname, suffix, source in KV_ROUTES:
+        qd, kd = getattr(torch, qname), getattr(torch, kvname)
+        tc = qd == torch.bfloat16
+        kc = dev_t(rng.standard_normal((1, T, Hkv, Dl)), torch.float32).to(kd)
+        vc = dev_t(rng.standard_normal((1, T, Hkv, Dl)), torch.float32).to(kd)
+        # the same values in the queries' dtype: the other route's operands
+        kq, vq = kc.to(qd), vc.to(qd)
+        row = Hkv * Dl * kc.element_size()   # cache bytes of a slot's K
+        ops_kind = "bf16" if tc else "f32"
+
+        def bound(q, qp, eff, out, row=row, ops_kind=ops_kind):
+            seen = int((eff[0] < lma.SENTINEL).sum().item())
+            return bound_ms(nbytes(q, qp, eff, out) + 2 * seen * row,
+                            4 * Hq * Dl * visible_pairs(qp, eff), ops_kind)
+
+        def launched(wrap, call):
+            n0 = (wrap.tc_launches, wrap.kv_launches.get(kvname, 0))
+            out = call()
+            ok = (wrap.tc_launches - n0[0] == int(tc)
+                  and wrap.kv_launches.get(kvname, 0) == n0[1] + 1)
+            return out, ok
+
+        other = "bf16" if tc else "f32"
+        # K3: the second ingest's prefill
+        S, hist = 4384, 4607
+        q, eff = case(S, hist, qd)
+        qpos = np.full((1, S), -1, np.int32)
+        qpos[0, :S - 20] = hist + np.arange(S - 20)
+        qp = dev_t(qpos, torch.int32)
+        wrap = lma.prefill_flash_attention
+        got, counted = launched(wrap, lambda: wrap(q, kc, vc, qp, eff))
+        err, ratio = row_check(got, lma.gqa_attention_plain(
+            q, kc, vc, qp, eff), Dl)
+        iters = 10 if tc else 2
+        ms = cuda_ms(lambda: wrap(q, kc, vc, qp, eff), iters)
+        ms_q = cuda_ms(lambda: wrap(q, kq, vq, qp, eff), iters)
+        plain = cuda_ms(lambda: lma.gqa_attention_plain(q, kc, vc, qp, eff),
+                        1)
+        b = bound(q, qp, eff, got)
+        pad_zero = bool((got[0, S - 20:] == 0).all())
+        log(f"kernel K3 {kvname} cache, {qname} queries, S={S} over {hist} "
+            f"history slots: max_abs_err={err:.6g}, worst row at {ratio:.3g}"
+            f" of its bound; {'tensor-core kernel' if tc else 'f32 route'} "
+            f"with the {kvname} code {counted}; {ms:.4f} ms, {other} cache "
+            f"(same values) {ms_q:.4f} ms, plain {plain:.4f} ms; bound "
+            f"{b[0]:.4f} ms ({b[1]}); 20 padded query rows zero {pad_zero}")
+        if not (ratio <= 1.0 and counted and pad_zero):
+            raise AssertionError(f"K3 over the {kvname} cache disagrees with"
+                                 " its plain version")
+        timings[f"K3 {suffix} S=4384"] = {"ms": ms, f"{other}_ms": ms_q,
+                                          "bound_ms": b[0]}
+        records.append({"name": f"K3_prefill_attention_{suffix}",
+                        "route": "cuda", "source": source,
+                        "replaces": KERNELS[2][4], "max_abs_err": err,
+                        "ms": ms, "plain_ms": plain, "bound_ms": b[0],
+                        "bound_by": b[1], "library_ms": None})
+        del got, q
+
+        # K4: decode and verify steps over a 9216-slot window holding 9000
+        W, fill = 9216, 9000
+        wrap = lma.decode_attention
+        k4 = {}
+        timer = graph_ms if tc else (lambda f, n: cuda_ms(f, n))
+        for Sv in ((1, 5, 8) if tc else (1,)):
+            qv, effv = case(Sv, fill, qd, W)
+            qpv = dev_t(np.arange(fill, fill + Sv)[None], torch.int32)
+            gotv, counted = launched(wrap, lambda: wrap(qv, kc, vc, qpv,
+                                                        effv))
+            errv, ratiov = row_check(gotv, lma.gqa_attention_plain(
+                qv, kc, vc, qpv, effv), Dl)
+            bv = bound(qv, qpv, effv, gotv)
+            repeat = bool(torch.equal(gotv, wrap(qv, kc, vc, qpv, effv)))
+            timed = ""
+            msv = None
+            if Sv == 1:
+                msv = timer(lambda: wrap(qv, kc, vc, qpv, effv), 50)
+                msv_q = timer(lambda: wrap(qv, kq, vq, qpv, effv), 50)
+                timings[f"K4 {suffix} S=1"] = {"ms": msv, f"{other}_ms": msv_q,
+                                               "bound_ms": bv[0]}
+                timed = (f"; {msv:.4f} ms, {other} cache (same values) "
+                         f"{msv_q:.4f} ms{' (graph ms)' if tc else ''}")
+            log(f"kernel K4 {kvname} cache, {qname} queries, S={Sv} over a "
+                f"{W}-slot window ({fill} history slots): max_abs_err="
+                f"{errv:.6g}, worst row at {ratiov:.3g} of its bound; the "
+                f"{kvname} code {counted}; two calls bit-identical "
+                f"{repeat}{timed}; bound {bv[0]:.4f} ms ({bv[1]})")
+            if not (ratiov <= 1.0 and counted and repeat):
+                raise AssertionError(f"K4 over the {kvname} cache at S={Sv} "
+                                     "disagrees with its plain version")
+            k4[Sv] = (qv, qpv, effv, errv, msv, bv)
+        qv, qpv, effv, _, msv, bv = k4[1]
+        plain = cuda_ms(lambda: lma.gqa_attention_plain(qv, kc, vc, qpv,
+                                                        effv), 5)
+        if tc:
+            # one call in a graph, replayed after q and eff are rewritten
+            qr, effr = qv.clone(), effv.clone()
+            torch.cuda.synchronize()
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                out_g = wrap(qr, kc, vc, qpv, effr)
+            qr.copy_(dev_t(rng.standard_normal((1, 1, Hq, Dl)), qd))
+            effr[0, rng.choice(fill, 500, replace=False)] = lma.SENTINEL
+            g.replay()
+            torch.cuda.synchronize()
+            replay = bool(torch.equal(out_g, wrap(qr, kc, vc, qpv, effr)))
+            log(f"kernel K4 {kvname} cache: graph replay after q / eff "
+                f"rewritten equals the eager call {replay}")
+            if not replay:
+                raise AssertionError(f"K4 over the {kvname} cache differs "
+                                     "under graph replay")
+            del g, out_g
+        records.append({"name": f"K4_decode_attention_{suffix}",
+                        "route": "cuda", "source": source,
+                        "replaces": KERNELS[3][4],
+                        "max_abs_err": max(v[3] for v in k4.values()),
+                        "ms": msv, "plain_ms": plain, "bound_ms": bv[0],
+                        "bound_by": bv[1], "library_ms": None})
+        del kc, vc, kq, vq, k4
+        torch.cuda.empty_cache()
+    for f8 in (torch.float8_e4m3fn, torch.float8_e5m2):
+        fp8_widening_exact(dev, f8, rng)
     return records, timings
 
 
@@ -2183,24 +2280,20 @@ def run_tiny_pool(model, cfg, device):
     return out, ranges, pool.cache.pos.cpu()
 
 
-def e4m3_ordinal(u8):
-    """e4m3 bytes (a uint8 tensor) as signed ordinals: neighbouring values
-    differ by one."""
-    import torch
-
-    x = u8.int()
-    return torch.where(x >= 128, 128 - x, x)
-
-
 def check_reference_fp8(dev):
-    """Phase 4, the fp8 cache: the tiny f32 session (check_reference's)
-    with ``kv_dtype=torch.float8_e4m3fn`` on the card (K3 / K4's f32 tile
-    reading e4m3) and on the CPU (the plain versions): the same greedy
-    tokens, selections and slot ranges; the cache bytes where pos >= 0
-    equal in at least 99.5% of elements, the rest one e4m3 step apart (a
-    ~1e-6 difference of the f32 keys flips a rounding only next to a tie,
-    and a flip moves later layers' keys by ~1e-3 of the row, which flips a
-    few more: tests/test_torch_fp8kv.py found 99.84% in a pool)."""
+    """Phase 4, the caches in another dtype: the tiny f32 session
+    (check_reference's) with ``kv_dtype`` e4m3, e5m2 and bf16 on the card
+    (K3 / K4's f32 tile reading the cache) and on the CPU (the plain
+    versions): the same greedy tokens, selections and slot ranges; the
+    cache where pos >= 0 equal in at least 99.5% of elements, the rest one
+    step of the cache dtype apart (a ~1e-6 difference of the f32 keys flips
+    a rounding only next to a tie, and a flip moves later layers' keys by
+    ~1e-3 of the row, which flips a few more: tests/test_torch_fp8kv.py
+    found 99.84% in an e4m3 pool). K3 and K4 are counted by cache dtype
+    from zero just before the card's session and read just after: each must
+    have launched. Returns {cache dtype name: (K3, K4 launches)}; the bf16
+    cache's are the f32 route's over bf16 (the f32 decoder's session is
+    that route's path)."""
     import copy
     import dataclasses
 
@@ -2219,30 +2312,41 @@ def check_reference_fp8(dev):
     cpu_model = init_cogreasoner_params(cfg, torch.Generator().manual_seed(0),
                                         device="cpu")
     gpu_model = copy.deepcopy(cpu_model)
-    f8 = torch.float8_e4m3fn
-    ref, ref_ranges, ref_sess = run_tiny_session(cpu_model, cfg, "cpu",
-                                                 kv_dtype=f8)
-    f0 = (lma.prefill_flash_attention.fp8_launches,
-          lma.decode_attention.fp8_launches)
-    got, got_ranges, got_sess = run_tiny_session(gpu_model, cfg, dev,
-                                                 kv_dtype=f8)
-    used = (lma.prefill_flash_attention.fp8_launches - f0[0],
-            lma.decode_attention.fp8_launches - f0[1])
-    live = ref_sess.cache.pos[0] >= 0
-    shares, steps = [], []
-    for name in ("k", "v"):
-        a = getattr(got_sess.cache, name).cpu()[:, 0, live].view(torch.uint8)
-        b = getattr(ref_sess.cache, name)[:, 0, live].view(torch.uint8)
-        shares.append((a == b).float().mean().item())
-        steps.append(int((e4m3_ordinal(a) - e4m3_ordinal(b)).abs().max()))
-    log(f"reference: tiny f32 session over an e4m3 cache, tokens {got} vs "
-        f"cpu {ref}; ranges equal {got_ranges == ref_ranges}; K / V bytes "
-        f"equal where pos >= 0 in {shares} of elements, the rest within "
-        f"{steps} e4m3 steps; fp8 launches (K3, K4) {used}")
-    if got != ref or got_ranges != ref_ranges or min(shares) < 0.995 \
-            or max(steps) > 1 or min(used) == 0:
-        raise AssertionError("the tiny fp8 session on the card disagrees "
-                             "with the plain versions on the CPU")
+    wraps = (lma.prefill_flash_attention, lma.decode_attention)
+    # mantissa bits and smallest normal exponent: one step at |x| is
+    # 2^(max(floor(log2 |x|), emin) - bits)
+    formats = {"float8_e4m3fn": (3, -6), "float8_e5m2": (2, -14),
+               "bfloat16": (7, -126)}
+    launches = {}
+    for name, (bits, emin) in formats.items():
+        kd = getattr(torch, name)
+        ref, ref_ranges, ref_sess = run_tiny_session(cpu_model, cfg, "cpu",
+                                                     kv_dtype=kd)
+        for w in wraps:
+            w.kv_launches = {}
+        got, got_ranges, got_sess = run_tiny_session(gpu_model, cfg, dev,
+                                                     kv_dtype=kd)
+        used = tuple(w.kv_launches.get(name, 0) for w in wraps)
+        launches[name] = used
+        live = ref_sess.cache.pos[0] >= 0
+        shares, steps = [], []
+        for n in ("k", "v"):
+            a = getattr(got_sess.cache, n).cpu()[:, 0, live].float()
+            b = getattr(ref_sess.cache, n)[:, 0, live].float()
+            shares.append((a == b).float().mean().item())
+            step = torch.exp2(torch.floor(torch.log2(b.abs())).clamp_min(
+                emin) - bits)
+            steps.append(((a - b).abs() / step).max().item())
+        log(f"reference: tiny f32 session over a {name} cache, tokens {got} "
+            f"vs cpu {ref}; ranges equal {got_ranges == ref_ranges}; K / V "
+            f"equal where pos >= 0 in {shares} of elements, the rest within "
+            f"{steps} steps of {name}; launches over it (K3, K4) {used}")
+        if got != ref or got_ranges != ref_ranges or min(shares) < 0.995 \
+                or max(steps) > 1 or min(used) == 0:
+            raise AssertionError(f"the tiny session over a {name} cache on "
+                                 "the card disagrees with the plain versions"
+                                 " on the CPU")
+    return launches
 
 
 def check_reference_pool(dev):
@@ -3147,29 +3251,41 @@ def run_main_path(dev, stamp):
     return launches, metrics, sess
 
 
-def run_fp8_session(sess16, dev, stamp):
-    """Phase 5 (c), the fp8 KV cache at 7B width: a second
-    ``StreamingSession`` on the phase-5 model with
-    ``kv_dtype=torch.float8_e4m3fn`` ingests phase 5's two segments and
-    asks its AC and FCC questions (32 greedy tokens). K3 / K4 counts are
-    reset just before and read just after: every launch on its
-    tensor-core kernel, and K3 and K4 each launched over the e4m3 cache
-    (the selector's and the event summaries' forwards keep bf16 caches of
-    their own). Prints ingest seconds, turns and decode tok/s; the cache's
-    bytes beside the bf16 session's; the greedy-prefix agreement with
-    phase 5's bf16 answers (reported, not asserted: fp8 is lossy); the
-    largest |K| and |V| the bf16 session holds, how many of its elements
-    pass 448 (e4m3's largest value, where the cast saturates) and how many
-    of the fp8 cache's elements sit at +-448; and ``decode_step_cost`` over
-    a 9216-slot cache holding 9000 slots, bf16 then e4m3. Returns ([K3,
-    K4 launches over the e4m3 cache], metrics)."""
+# phase 5 (c)'s sessions over another cache dtype: (dtype name, metric
+# prefix, full: phase 5's two segments and asks of 32 tokens, else one
+# segment and its AC ask of 8 tokens, a decode step's cost over 9000 slots
+# measured)
+KV_SESSIONS = (("float8_e4m3fn", "fp8", True), ("float8_e5m2", "e5m2", True),
+               ("float16", "f16", False), ("float32", "f32", False))
+
+
+def run_kv_session(sess16, dev, stamp, kv_name: str, tag: str,
+                   full: bool):
+    """Phase 5 (c), a cache in another dtype at 7B width: a second
+    ``StreamingSession`` on the phase-5 model with ``kv_dtype`` ``kv_name``
+    (e4m3 and e5m2: the fp8 caches; f16; f32) ingests phase 5's segments
+    and asks its questions (``full``: both, 32 greedy tokens; else the
+    first and its AC ask, 8 tokens). K3 / K4 counts are reset just before
+    and read just after: every launch on its tensor-core kernel, and K3 and
+    K4 each launched over this cache (the selector's and the event
+    summaries' forwards keep bf16 caches of their own). Prints ingest
+    seconds, turns and decode tok/s; the cache's bytes beside the bf16
+    session's; the greedy-prefix agreement with phase 5's bf16 answers
+    (reported, not asserted: the cache is lossy or rounds to bf16); the
+    largest |K| and |V| the bf16 session holds and how many of its
+    elements pass the cache dtype's largest value, and how many of this
+    cache's elements sit at it (``qwen2.saturate``) or are not finite
+    (must be none); with ``full``, ``decode_step_cost`` over a 9216-slot
+    cache holding 9000 slots (e4m3's beside bf16's). Metrics under
+    ``tag``. Returns ([K3, K4 launches over this cache], metrics)."""
     import torch
 
     from cogstream_tpu_torch.evaluate.quant_quality import prefix_agreement
+    from cogstream_tpu_torch.models.qwen2 import CACHE_MAX
     from cogstream_tpu_torch.ops import lm_attention as lma
     from cogstream_tpu_torch.runtime.session import StreamingSession
 
-    f8 = torch.float8_e4m3fn
+    kd = getattr(torch, kv_name)
     model, cfg, tok = sess16.model, sess16.cfg, sess16.tok
     t, gh, gw, ms = MAIN_SEGMENTS
     k3, k4 = lma.prefill_flash_attention, lma.decode_attention
@@ -3177,12 +3293,14 @@ def run_fp8_session(sess16, dev, stamp):
     metrics = {}
     for w in (k3, k4):
         w.launches = w.tc_launches = w.fp8_launches = 0
+        w.kv_launches = {}
+    asks = [("What is happening in the video?", "AC"),
+            ("What changed since then?", "FCC")]
+    tokens = 32 if full else 8
     try:
-        sess = StreamingSession(model, cfg, tok, max_len=16384, kv_dtype=f8)
-        asks = [("What is happening in the video?", "AC"),
-                ("What changed since then?", "FCC")]
+        sess = StreamingSession(model, cfg, tok, max_len=16384, kv_dtype=kd)
         for seg_i, (pv, (question, mode)) in enumerate(
-                zip(main_segments(), asks)):
+                zip(main_segments()[:2 if full else 1], asks)):
             mark = timer.mark()
             t0 = time.perf_counter()
             sess.append_stream_segment(pv, (t, gh, gw), ms,
@@ -3191,8 +3309,8 @@ def run_fp8_session(sess16, dev, stamp):
             torch.cuda.synchronize()
             ingest_s = time.perf_counter() - t0
             pf = [(S, b - a) for S, a, b in timer.forwards[mark:] if S > 8]
-            metrics[f"fp8_ingest{seg_i}_s"] = ingest_s
-            metrics[f"fp8_ingest{seg_i}_prefill_tok_per_s"] = \
+            metrics[f"{tag}_ingest{seg_i}_s"] = ingest_s
+            metrics[f"{tag}_ingest{seg_i}_prefill_tok_per_s"] = \
                 pf[0][0] / pf[0][1]
             after_sel = []
             select = sess.selector.select
@@ -3205,64 +3323,75 @@ def run_fp8_session(sess16, dev, stamp):
             sess.selector.select = marked_select
             mark = timer.mark()
             t0 = time.perf_counter()
-            r = sess.ask(question, mode=mode, max_new_tokens=32)
+            r = sess.ask(question, mode=mode, max_new_tokens=tokens)
             torch.cuda.synchronize()
             turn_s = time.perf_counter() - t0
             sess.selector.select = select
             since = after_sel[0] if after_sel else mark
             dec = timer.decode_rate(since)
-            agree = prefix_agreement(np.asarray(MAIN_ANSWERS[mode]),
-                                     np.asarray(r["tokens"]))
-            metrics.update({f"fp8_{mode}_turn_s": turn_s,
-                            f"fp8_{mode}_decode_tok_per_s": dec,
-                            f"fp8_{mode}_prefix_agree_vs_bf16": agree})
-            log(f"main fp8 cache: ingest {seg_i} {ingest_s:.3f}s (prefill "
-                f"{pf[0][0]} tokens, {pf[0][0] / pf[0][1]:.0f} tok/s); ask "
-                f"{mode}: turn {turn_s:.3f}s, {len(r['tokens'])} tokens, "
-                f"marginal decode {dec:.1f} tok/s; {timer.step_split(since)};"
-                f" greedy prefix agreement with the bf16 session {agree:.3f}"
-                f" (selection {r['selection']!r}) [{stamp}]")
+            agree = prefix_agreement(
+                np.asarray(MAIN_ANSWERS[mode][:tokens]),
+                np.asarray(r["tokens"]))
+            metrics.update({f"{tag}_{mode}_turn_s": turn_s,
+                            f"{tag}_{mode}_decode_tok_per_s": dec,
+                            f"{tag}_{mode}_prefix_agree_vs_bf16": agree})
+            log(f"main {kv_name} cache: ingest {seg_i} {ingest_s:.3f}s "
+                f"(prefill {pf[0][0]} tokens, {pf[0][0] / pf[0][1]:.0f} "
+                f"tok/s); ask {mode}: turn {turn_s:.3f}s, "
+                f"{len(r['tokens'])} tokens, marginal decode {dec:.1f} "
+                f"tok/s; {timer.step_split(since)}; greedy prefix agreement"
+                f" with the bf16 session {agree:.3f} (selection "
+                f"{r['selection']!r}) [{stamp}]")
             if not all(0 <= x < cfg.text.vocab_size for x in r["tokens"]):
-                raise AssertionError(f"bad fp8 answer tokens {r['tokens']}")
+                raise AssertionError(f"bad {kv_name} answer tokens "
+                                     f"{r['tokens']}")
     finally:
         timer.restore()
     torch.cuda.synchronize()
-    counts = {n: (w.launches, w.tc_launches, w.fp8_launches)
+    counts = {n: (w.launches, w.tc_launches, w.kv_launches.get(kv_name, 0))
               for n, w in (("K3", k3), ("K4", k4))}
     c8, c16 = sess.cache, sess16.cache
     wi = sess.write_index
-    u8 = [x[:, :, :wi].view(torch.uint8) & 0x7F for x in (c8.k, c8.v)]
-    nan = sum(int((u == 0x7F).sum()) for u in u8)
-    at448 = [int((u == 0x7E).sum()) for u in u8]
+    top = CACHE_MAX.get(kd, float("inf"))
+    # per layer: no widened copy of the whole cache
+    bad, at_top = 0, [0, 0]
+    for i, x in enumerate((c8.k, c8.v)):
+        for layer in x:
+            a = layer[:, :wi].float()
+            bad += int((~torch.isfinite(a)).sum())
+            at_top[i] += int((a.abs() == top).sum())
+            del a
     live16 = c16.pos[0] >= 0
     big = []
     for x in (c16.k, c16.v):
         a = x[:, 0, live16].abs()
-        big.append((float(a.amax()), int((a > 448).sum())))
+        big.append((float(a.amax()), int((a > top).sum())))
         del a
     b8, b16 = nbytes(c8.k, c8.v, c8.pos), nbytes(c16.k, c16.v, c16.pos)
-    metrics.update(fp8_cache_bytes=b8, bf16_cache_bytes=b16,
-                   fp8_max_abs_kv_bf16_session=[m for m, _ in big],
-                   fp8_over_448_bf16_session=[n for _, n in big],
-                   fp8_at_448=at448)
-    log(f"main fp8 cache: {wi} slots; cache {b8 / 1e9:.3f} GB against the "
-        f"bf16 session's {b16 / 1e9:.3f} GB; the bf16 session's largest |K|"
-        f" {big[0][0]:.4g}, |V| {big[1][0]:.4g}, elements past 448 (K, V) "
-        f"{[n for _, n in big]}; fp8 elements at +-448 (K, V) {at448}, NaN "
-        f"{nan}; K3 / K4 (launches, tensor-core, over e4m3) {counts} "
-        f"[{stamp}]")
-    if nan or any(c[0] != c[1] or c[2] == 0 for c in counts.values()):
-        raise AssertionError("the fp8 session did not run K3 / K4 over its "
-                             "e4m3 cache on the tensor-core kernels")
+    metrics.update({f"{tag}_cache_bytes": b8, "bf16_cache_bytes": b16,
+                    f"{tag}_max_abs_kv_bf16_session": [m for m, _ in big],
+                    f"{tag}_over_max_bf16_session": [n for _, n in big],
+                    f"{tag}_at_max": at_top})
+    log(f"main {kv_name} cache: {wi} slots; cache {b8 / 1e9:.3f} GB against "
+        f"the bf16 session's {b16 / 1e9:.3f} GB; the bf16 session's largest "
+        f"|K| {big[0][0]:.4g}, |V| {big[1][0]:.4g}, elements past {top:g} "
+        f"(K, V) {[n for _, n in big]}; elements at +-{top:g} (K, V) "
+        f"{at_top}, not finite {bad}; K3 / K4 (launches, tensor-core, over "
+        f"{kv_name}) {counts} [{stamp}]")
+    if bad or any(c[0] != c[1] or c[2] == 0 for c in counts.values()):
+        raise AssertionError(f"the {kv_name} session did not run K3 / K4 "
+                             "over its cache on the tensor-core kernels")
     launches = [counts["K3"][2], counts["K4"][2]]
     del sess
     gc.collect()
-    for label, kv in (("bf16 cache", None), ("e4m3 cache", f8)):
-        n, dev_ms, wall_ms, _ = decode_step_cost(
-            model.text, label, stamp, slots=9216, fill=9000, kv_dtype=kv)
-        key = "bf16" if kv is None else "fp8"
-        metrics[f"{key}_step_9000_device_ms"] = dev_ms
-        metrics[f"{key}_step_9000_wall_ms"] = wall_ms
+    if full:
+        steps = [("bf16 cache", None)] if tag == "fp8" else []
+        for label, kv in steps + [(f"{kv_name} cache", kd)]:
+            n, dev_ms, wall_ms, _ = decode_step_cost(
+                model.text, label, stamp, slots=9216, fill=9000, kv_dtype=kv)
+            key = "bf16" if kv is None else tag
+            metrics[f"{key}_step_9000_device_ms"] = dev_ms
+            metrics[f"{key}_step_9000_wall_ms"] = wall_ms
     return launches, metrics
 
 
@@ -3335,7 +3464,7 @@ def decode_step_cost(text, label: str, stamp: str, steps: int = 10,
 
 ENGINE_DIR = os.path.join(REPO, "build", "chip_smoke_engine")
 ENGINE_MODES = ("NC", "AC", "FCC", "gt")
-ENGINE_TOKENS = 16          # greedy tokens a turn
+ENGINE_TOKENS = 8           # greedy tokens a turn
 # 150 frames at 1 fps in three stream segments of 50 (answer_generate's
 # default layout), 224x364: the processor's own smart-resize target for
 # 150 frames under the 16384-token budget (8x13 merged tokens a frame)
@@ -3964,20 +4093,22 @@ def run_workflow(stamp, ckpt_dir, video_dir):
     (cuts at 50 and 100 s) -> datagen --model fake --n-streams 1 (one
     query chain) -> train-stage1 (byte
     tokens, --max-len 4096) -> train-stage2 -> answer-generate (FCC, both
-    adapters, 32 tokens) -> judge x5 (FakeJudge) -> summarize, and
+    adapters, 16 tokens) -> judge x5 (FakeJudge) -> summarize, and
     nlp-metrics beside the judges. Every stage must exit 0; the spec has 3 segments with
     keyframes; the query chains are non-empty with Event_Time sorted;
     there is one prediction per QA of the first chain; every judged QA
     carries all five scores. Prints each stage's wall, and the wall of a
     bare interpreter importing the package (every command's start-up:
-    the package's config imports torch)."""
+    the package's config imports torch), taken beside segment-videos."""
     import shutil
     from concurrent.futures import ThreadPoolExecutor
 
-    t0 = time.perf_counter()
-    subprocess.run([sys.executable, "-c", "import cogstream_tpu_torch"],
-                   cwd=REPO, check=True, timeout=300)
-    import_s = time.perf_counter() - t0
+    def import_wall():
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", "import cogstream_tpu_torch"],
+                       cwd=REPO, check=True, timeout=300)
+        return time.perf_counter() - t0
+
     clip = _clip_file(video_dir)
     name = os.path.splitext(os.path.basename(clip))[0]
     root = _engine_dir("workflow")
@@ -3994,8 +4125,11 @@ def run_workflow(stamp, ckpt_dir, video_dir):
         out, walls[key] = run_cli(f"workflow {key}", args, stamp)
         return out
 
-    stage("segment-videos", "segment-videos", "--video", clip,
-          "--timestamps", "50,100", "--out-root", seg)
+    with ThreadPoolExecutor(1) as ex:
+        bare = ex.submit(import_wall)
+        stage("segment-videos", "segment-videos", "--video", clip,
+              "--timestamps", "50,100", "--out-root", seg)
+        import_s = bare.result()
     with open(os.path.join(seg, f"{name}.json")) as f:
         spec = json.load(f)
     stage("datagen", "datagen", "--segments-dir", seg, "--out-root", dg,
@@ -4017,7 +4151,7 @@ def run_workflow(stamp, ckpt_dir, video_dir):
     stage("answer-generate", "answer-generate", "--model-dir", ckpt_dir,
           "--lora-adapter-1", lang, "--lora-adapter-2", full,
           "--video-dir", evdir, "--query-dir", chains_dir, "--save-dir",
-          preds, "--mode", "FCC", "--max-new-tokens", "32")
+          preds, "--mode", "FCC", "--max-new-tokens", "16")
     with open(os.path.join(preds, f"{name}.json")) as f:
         qas = json.load(f)["QAs"]
     # nlp-metrics reads only the predictions: it runs beside the judges
@@ -5712,7 +5846,7 @@ TP_WITNESS_FACTOR = 1.5
 MAIN_ASKS = [("What is happening in the video?", "AC"),
              ("What changed since then?", "FCC")]
 # (b)'s asks: greedy tokens each (the gate reads the first step's logits)
-TP_ASK_TOKENS = 16
+TP_ASK_TOKENS = 8
 # (e): the ask after a snapshot, asked of the original sharded session, of
 # a sharded session restored from the file and of the solo one restored
 E_QUESTION = "What is on the screen now?"
@@ -7031,14 +7165,14 @@ def tp_dp_rank_main(rank: int, port: int, dev=None) -> int:
 
 TRAIN_TP_DIR = os.path.join(REPO, "build", "chip_smoke_train_tp")
 TRAIN_TP_WORLD = 2
-TRAIN_TP_S1 = dict(epochs=1, batch_size=4, max_len=2048, grad_accum=1,
+TRAIN_TP_S1 = dict(epochs=1, batch_size=2, max_len=2048, grad_accum=1,
                    warmup_steps=0, shuffle_copies=1, include_demo=False,
                    save_every=1000, log_every=1, learning_rate=1e-4)
 TRAIN_TP_S2 = dict(grad_accum=1, save_every=10_000, learning_rate=1e-4)
 # stage-1 steps in (a) and (b) (and their one-process references)
 TRAIN_TP_STEPS = 1
-# (d)'s GPipe microbatches (4 x 2048 tokens: one row each) and stages
-TRAIN_PP_M = 4
+# (d)'s GPipe microbatches (2 x 2048 tokens: one row each) and stages
+TRAIN_PP_M = 2
 TRAIN_PP_STAGES = 2
 # every LoRA ``b`` starts drawn from N(0, TRAIN_TP_B_STD^2) instead of 0,
 # so that the adapters act in the first forward and every leaf's first
@@ -7063,18 +7197,19 @@ TRAIN_TP_QUESTION = ("<|im_start|>user\nWhat happens next?<|im_end|>\n"
 
 
 def train_tp_inputs(cfg, tok):
-    """Phase 12's data: 4 seeded selector samples that fit 2048 byte tokens
-    without the demo block (one batch of 4, one step: half of phase 7's
-    batch, so that two whole bf16 replicas fit on the card in (a); the
-    gradient checks read the first step); phase 7's
-    8-frame turn; a text-only turn in the 64-token bucket."""
+    """Phase 12's data: 2 seeded selector samples that fit 2048 byte tokens
+    without the demo block (one batch of 2, one step: a quarter of phase
+    7's batch, so that two whole bf16 replicas fit on the card in (a) and
+    the shards' all-reduces over gloo stay short; the gradient checks read
+    the first step); a 4-frame turn of phase 7's 24x42 frames; a
+    text-only turn in the 64-token bucket."""
     from cogstream_tpu_torch.train.data import encode_selector_sample
     from cogstream_tpu_torch.train.stage2 import pack_turn_batch
 
     samples = [s for s in _selector_samples(np.random.default_rng(7), 64)
                if encode_selector_sample(tok, s, TRAIN_TP_S1["max_len"],
-                                         include_demo=False) is not None][:4]
-    turn = _stage2_turn(np.random.default_rng(8), tok, cfg, 8, 24, 42, 2,
+                                         include_demo=False) is not None][:2]
+    turn = _stage2_turn(np.random.default_rng(8), tok, cfg, 4, 24, 42, 2,
                         4096)
     text_turn = pack_turn_batch(tok, cfg, TRAIN_TP_QUESTION,
                                 "The door opens.", None, None, 4096)
@@ -7367,6 +7502,77 @@ class ZeroBackHop:
         self.armed = True
 
 
+def w8a8_cfg(cfg):
+    """``cfg`` with the decoder's ``w8a8_prefill`` on (stage 2's
+    ``--w8a8-forward``): an int8 base's prefill-length GEMMs run W8A8."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, w8a8_prefill=True))
+
+
+class W8A8LocalAbsmax:
+    """A planted fault for phase 12 (f)'s self-test
+    (``--train-w8a8-fault``): int8 activations take each rank's own
+    absmax (``quantize_int8_act`` ignores its group), so a row-parallel
+    W8A8 site quantizes its channels at another scale than the whole
+    row's."""
+
+    def __init__(self):
+        from cogstream_tpu_torch.ops import quant
+
+        self.quant, self.saved = quant, quant.quantize_int8_act
+        alone = self.saved
+        quant.quantize_int8_act = lambda x, reduce=None: alone(x)
+
+    def restore(self):
+        self.quant.quantize_int8_act = self.saved
+
+
+# (f)'s exact products: 7B o_proj [3584, 3584] and down_proj [18944, 3584]
+# at 64 rows, the weights' rows split over the two ranks
+W8A8_EXACT_SITES = (("o_proj", 3584), ("down_proj", 18944))
+
+
+def w8a8_row_shard_exact(mesh, dev) -> dict:
+    """Phase 12 (f)'s exact check, on each rank: the W8A8 product
+    (``quant._W8A8STE``) of each W8A8_EXACT_SITES weight on this rank's row
+    shard (the model group as ``reduce``) against the whole product on the
+    card, forward and ``dx``, bit for bit. Seeded the same on every rank:
+    x [64, din] bf16 normal draws, int8 weights with power-of-two scales,
+    an integer output gradient, so every term and partial sum of ``dx = g
+    @ W_deq^T`` is exact in f32 and the rounded ``dx`` is the same bits
+    whatever the GEMM's summation order. Returns {site: (forward equal,
+    dx equal)}."""
+    import torch
+
+    from cogstream_tpu_torch.ops import quant
+
+    out = {}
+    for i, (site, din) in enumerate(W8A8_EXACT_SITES):
+        gen = torch.Generator(device=dev).manual_seed(40 + i)
+        x = torch.randn((64, din), generator=gen, device=dev).to(
+            torch.bfloat16)
+        q = torch.randint(-127, 128, (din, 3584), generator=gen, device=dev,
+                          dtype=torch.int8)
+        scale = torch.exp2(-torch.randint(6, 9, (3584,), generator=gen,
+                                          device=dev).float())
+        g = torch.randint(-4, 5, (64, 3584), generator=gen,
+                          device=dev).to(torch.bfloat16)
+        whole = x.clone().requires_grad_(True)
+        y = quant._W8A8STE.apply(whole, quant.column_major(q), scale)
+        dx, = torch.autograd.grad(y, whole, g)
+        n = din // mesh.model
+        rows = slice(mesh.model_index * n, (mesh.model_index + 1) * n)
+        xs = x[:, rows].clone().requires_grad_(True)
+        ys = quant._W8A8STE.apply(xs, quant.column_major(q[rows]), scale,
+                                  mesh.model_group)
+        dxs, = torch.autograd.grad(ys, xs, g)
+        out[site] = (bool(torch.equal(ys, y)),
+                     bool(torch.equal(dxs, dx[:, rows])))
+    return out
+
+
 def _grads_vs(got, ref):
     """First-step gradients (path -> tensor) against the reference's:
     the largest per-leaf relative Frobenius gap, its leaf, and the gap over
@@ -7401,23 +7607,25 @@ def _whole_grads(state, grads):
     return {p: g.cpu() for p, g in zip(paths, whole)}
 
 
-def run_train_tp_path(model, dev, stamp, fault=False, pp_fault=False):
+def run_train_tp_path(model, dev, stamp, fault=False, pp_fault=False,
+                      w8a8_fault=False):
     """Phase 12: data- and tensor-parallel LoRA training at 7B width and
     depth, two ranks on this card (subprocesses of this script,
     ``--train-rank``) over gloo, as phase 11. The parent first runs the
     same steps in one process on the phase-5 model (untimed; LoRA dropout
     0, so every layout computes one function; every ``b`` drawn nonzero,
-    :func:`train_tp_lora`): ``train_stage1`` one step of 4 x 2048 byte
+    :func:`train_tp_lora`): ``train_stage1`` one step of 2 x 2048 byte
     tokens, its witness in two data ranks' sum order
     (:func:`train_tp_witness`), two ``Stage2Trainer`` micro-steps on phase
-    7's 8-frame turn (the first is warm-up, at learning rate 0: the second
+    7's frames in a 4-frame turn (the first is warm-up, at learning rate
+    0: the second
     makes the update that (c)'s adapters are held to), and one on the
     64-token text turn over an int8 copy
     (``quantize_cogreasoner_`` on a ``shared_copy``). The ranks run (a)
     ``train_stage1`` on a (2, 1) mesh (two whole replicas, each batch
     split on ``data``), (b) on a (1, 2) mesh (each rank its shard of the
     decoder and the LoRA), (c) ``Stage2Trainer`` on (1, 2): the two
-    8-frame micro-steps (the tower on 8 heads a rank, K5), then the
+    4-frame micro-steps (the tower on 8 heads a rank, K5), then the
     64-token turn on an int8 copy of the shards (K10 on column and row
     shards). Held here: (a)'s losses and gathered adapters equal to the
     witness's; (b), (c) and the int8 turn's first-step gradients, gathered
@@ -7430,16 +7638,23 @@ def run_train_tp_path(model, dev, stamp, fault=False, pp_fault=False):
     inside the collectives (two ranks sharing one card over gloo: not a
     speed). Then (d) ``train_stage1`` on a (data 1, pipe 2) mesh (GPipe,
     TRAIN_PP_M microbatches) and (e) ``Stage2Trainer`` with
-    ``sequence_parallel=2`` on the 8-frame turn, both in the same ranks on
+    ``sequence_parallel=2`` on the 4-frame turn, both in the same ranks on
     the whole model, held to the same one-process steps as (b) and (c):
     first-step gradients gathered over the stages (summed over the ring)
     within ``TRAIN_TP_GRAD_REL`` / ``TRAIN_TP_GRAD_ALL``, losses within
     ``TRAIN_TP_LOSS_REL``, adapters within 2.01 lr an update, (e)'s K5
     launches all on the tensor-core tile (2 x 27 a rank, the whole tower)
     and K2 launched; printed with each part's hops, bytes and hop walls.
-    ``fault`` plants :class:`NoAttnCopy` in the ranks, ``pp_fault``
-    :class:`ZeroBackHop` (the checks' self-tests: the phase must then
-    fail)."""
+    (f), in the same ranks after (c): (c)'s 64-token turn on the int8
+    shards with ``w8a8_prefill`` (stage 2's ``--w8a8-forward``: W8A8 on
+    column and row shards, the row shards' absmax MAXed and int32 sums
+    reduced over the model group), held to the one-process W8A8 turn with
+    (b)'s bounds, and the exact products of
+    :func:`w8a8_row_shard_exact` (forward and ``dx`` bit-equal to the
+    whole). ``fault`` plants :class:`NoAttnCopy` in the ranks,
+    ``pp_fault`` :class:`ZeroBackHop`, ``w8a8_fault``
+    :class:`W8A8LocalAbsmax` in (f) (the checks' self-tests: the phase
+    must then fail)."""
     import shutil
 
     import torch
@@ -7481,15 +7696,19 @@ def run_train_tp_path(model, dev, stamp, fault=False, pp_fault=False):
                 q, cfg, tok, os.path.join(TRAIN_TP_DIR, "int8"),
                 [text_turn], dev)[0]
             ref["int8_grads"] = spy.take_grads()
+            ref["w8a8_losses"] = train_tp_stage2(
+                q, w8a8_cfg(cfg), tok, os.path.join(TRAIN_TP_DIR, "w8a8"),
+                [text_turn], dev)[0]
+            ref["w8a8_grads"] = spy.take_grads()
             del q
         finally:
             spy.restore()
         ref["w_losses"], ref["w_lora"], w_grads = train_tp_witness(
             model, cfg, tok, samples, dev)
         paths = {"s1": [p for p, _ in iter_leaves(s1.lora)]}
-        for c in ("s2", "int8"):
+        for c in ("s2", "int8", "w8a8"):
             paths[c] = [p for p, _ in iter_leaves(ref["s2_lora"])]
-        for c in ("s1", "s2", "int8"):
+        for c in ("s1", "s2", "int8", "w8a8"):
             ref[f"{c}_grads"] = {p: g.cpu() for p, g in
                                  zip(paths[c], ref[f"{c}_grads"])}
         w_grads = {p: g.cpu() for p, g in zip(paths["s1"], w_grads)}
@@ -7500,11 +7719,13 @@ def run_train_tp_path(model, dev, stamp, fault=False, pp_fault=False):
         log(f"train-tp: one-process references in "
             f"{time.perf_counter() - t0:.1f}s: stage 1 losses "
             f"{ref['s1_losses']} (witness {ref['w_losses']}), stage 2 "
-            f"{ref['s2_losses']}, int8 {ref['int8_losses']} [{stamp}]")
+            f"{ref['s2_losses']}, int8 {ref['int8_losses']}, int8 + W8A8 "
+            f"{ref['w8a8_losses']} [{stamp}]")
         t0 = time.perf_counter()
         rcs = run_ranks("--train-rank", TRAIN_TP_DIR, TRAIN_TP_WORLD,
                         extra=(["--train-tp-fault"] if fault else [])
-                        + (["--train-pp-fault"] if pp_fault else []))
+                        + (["--train-pp-fault"] if pp_fault else [])
+                        + (["--train-w8a8-fault"] if w8a8_fault else []))
         wall = time.perf_counter() - t0
         for r in range(TRAIN_TP_WORLD):
             with open(os.path.join(TRAIN_TP_DIR, f"rank{r}.log")) as f:
@@ -7524,7 +7745,7 @@ def run_train_tp_path(model, dev, stamp, fault=False, pp_fault=False):
                                ("d", "language_module.npz"),
                                ("e", "full_module.npz"))}
         grads = {c: torch.load(os.path.join(TRAIN_TP_DIR, f"grads_{c}.pt"))
-                 for c in ("b", "c", "c_int8", "d", "e")}
+                 for c in ("b", "c", "c_int8", "c_w8a8", "d", "e")}
         return train_tp_verdict(res, ref, got, grads, wall, stamp)
     finally:
         shutil.rmtree(TRAIN_TP_DIR, ignore_errors=True)
@@ -7608,20 +7829,38 @@ def train_tp_verdict(res, ref, got, grads, wall, stamp):
             f"speed) [{stamp}]")
         ok &= k_ok
     d_ok, e_ok = train_pp_verdict(res, ref, got, grads, gap, rel, stamp)
+    f0 = res[0]["f"]
+    f_grads, ftxt = gap("c_w8a8", "w8a8_grads")
+    exact = [x["f"]["exact"] for x in res]
+    f_ok = (rel(f0["losses"], ref["w8a8_losses"]) <= TRAIN_TP_LOSS_REL
+            and f_grads
+            and all(all(e) for x in exact for e in x.values())
+            and all(x["f"]["int8_mm"] > 0 for x in res))
+    log(f"train-tp (f) stage 2 with w8a8_prefill on (data 1, model 2), the "
+        f"64-token turn on the int8 shards: {ftxt}; loss {f0['losses']} "
+        f"(one process {ref['w8a8_losses']}, rel "
+        f"{rel(f0['losses'], ref['w8a8_losses']):.3g}, bound "
+        f"{TRAIN_TP_LOSS_REL}; int8 weight-only turn {ref['int8_losses']}); "
+        f"W8A8 products a rank {[x['f']['int8_mm'] for x in res]}; walls "
+        f"{[x['f']['walls'] for x in res]} s, in the collectives "
+        f"{[x['f']['coll_s'] for x in res]} s; exact row-shard products "
+        f"(forward, dx) bit-equal to the whole, by rank {exact} [{stamp}]")
     same = {c: res[0][c]["replicated"] == res[1][c]["replicated"]
-            for c in "abcde"}
+            for c in "abcdef"}
     log(f"train-tp: replicated leaves bit-equal across the ranks {same}; "
         f"phase 12 in {wall:.1f}s [{stamp}]")
-    ok &= a_ok and b_ok and c_ok and d_ok and e_ok and all(same.values())
+    ok &= (a_ok and b_ok and c_ok and d_ok and e_ok and f_ok
+           and all(same.values()))
     if not ok:
         raise AssertionError(f"phase 12 failed: (a) {a_ok} (b) {b_ok} (c) "
-                             f"{c_ok} (d) {d_ok} (e) {e_ok} replicated "
-                             f"{same}")
-    return {"train_tp_peak_gib": [[x[c]["peak_gib"] for c in "abcde"]
+                             f"{c_ok} (d) {d_ok} (e) {e_ok} (f) {f_ok} "
+                             f"replicated {same}")
+    return {"train_tp_peak_gib": [[x[c]["peak_gib"] for c in "abcdef"]
                                   for x in res],
-            "train_tp_walls": [[x[c]["walls"] for c in "abcde"]
+            "train_tp_walls": [[x[c]["walls"] for c in "abcdef"]
                                for x in res],
-            "train_tp_losses": {c: res[0][c]["losses"] for c in "abcde"},
+            "train_tp_losses": {c: res[0][c]["losses"] for c in "abcdef"},
+            "train_w8a8_exact": exact,
             "train_pp_hops": {c: [res[0][c]["hops"], res[0][c]["hop_bytes"]]
                               for c in "de"},
             "train_tp_wall_s": wall}
@@ -7734,20 +7973,23 @@ def _replicated_digest(state) -> str:
 
 
 def train_rank_main(rank: int, port: int, dev=None, fault=False,
-                    pp_fault=False) -> int:
+                    pp_fault=False, w8a8_fault=False) -> int:
     """One rank of phase 12 (``chip_smoke.py --train-rank R --tp-port
     P``): joins the gloo group on this card, runs (a), (d), (e) on the
     whole model, then (b), (c) on its shards, and writes ``rank<R>.json``
     under TRAIN_TP_DIR (rank 0 writes the adapter files and the gathered
-    first-step gradients of (b)-(e) and the int8 turn). ``fault``
-    (``--train-tp-fault``) plants :class:`NoAttnCopy`, ``pp_fault``
-    (``--train-pp-fault``) :class:`ZeroBackHop`."""
+    first-step gradients of (b)-(f) and the int8 turn), then (f) after
+    (c). ``fault`` (``--train-tp-fault``) plants :class:`NoAttnCopy`,
+    ``pp_fault`` (``--train-pp-fault``) :class:`ZeroBackHop`,
+    ``w8a8_fault`` (``--train-w8a8-fault``) :class:`W8A8LocalAbsmax` in
+    (f)."""
     import torch
 
     from cogstream_tpu_torch import presets
     from cogstream_tpu_torch.models.cogreasoner import init_cogreasoner_params
     from cogstream_tpu_torch.ops import flash_attention as fa
     from cogstream_tpu_torch.ops import int8_gemv, kernels
+    from cogstream_tpu_torch.ops import quant
     from cogstream_tpu_torch.ops.layernorm import layernorm
     from cogstream_tpu_torch.ops.quant import quantize_cogreasoner_
     from cogstream_tpu_torch.parallel.distributed import initialize_if_needed
@@ -7902,7 +8144,7 @@ def train_rank_main(rank: int, port: int, dev=None, fault=False,
         mesh_tp=2)
     k10 = int8_gemv.gemv_k10.launches
     save_grads("c_int8", tr8.state)
-    del tr8, q
+    del tr8
     int8_steps, spy.steps = spy.take(), c_steps
     record("c", state, int8_losses=int8_losses, int8_walls=int8_walls,
            int8_coll_s=[c for _, _, c, _ in int8_steps],
@@ -7910,6 +8152,23 @@ def train_rank_main(rank: int, port: int, dev=None, fault=False,
            k10=k10, tower_heads=len(sharded.vision.tp.heads))
     log(f"(c) losses {losses} walls {walls} int8 {int8_losses} walls "
         f"{int8_walls} K5 {k5_counts} K10 {k10}")
+
+    # (f) the same turn with w8a8_prefill (--w8a8-forward) on the int8
+    # shards, then the exact row-shard products
+    planted = W8A8LocalAbsmax() if w8a8_fault else None
+    w8_calls = quant.int8_mm.calls.get("decoder", 0)
+    w8_losses, w8_walls, trw = train_tp_stage2(
+        q, w8a8_cfg(cfg), tok, os.path.join(TRAIN_TP_DIR, "c_w8a8"),
+        [text_turn], dev, mesh_tp=2)
+    w8_calls = quant.int8_mm.calls.get("decoder", 0) - w8_calls
+    save_grads("c_w8a8", trw.state)
+    record("f", trw.state, int8_mm=w8_calls,
+           exact=w8a8_row_shard_exact(mesh, dev))
+    if planted:
+        planted.restore()
+    log(f"(f) losses {w8_losses} walls {w8_walls} W8A8 products {w8_calls}"
+        f" exact {out['f']['exact']}")
+    del trw, q
     out["collective_kinds"] = sorted(COLLECTIVES)
     with open(os.path.join(TRAIN_TP_DIR, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -7917,7 +8176,8 @@ def train_rank_main(rank: int, port: int, dev=None, fault=False,
     return 0
 
 
-def run_train_tp_alone(dev, card, fault, pp_fault=False) -> int:
+def run_train_tp_alone(dev, card, fault, pp_fault=False,
+                       w8a8_fault=False) -> int:
     """``--train-tp-only``: phase 12 on phase 5's model (random weights
     from seed 0), without the other phases; prints its metrics."""
     import torch
@@ -7928,7 +8188,8 @@ def run_train_tp_alone(dev, card, fault, pp_fault=False) -> int:
     model = init_cogreasoner_params(
         presets.cogreasoner_7b(), torch.Generator(device=dev).manual_seed(0),
         device=dev)
-    metrics = run_train_tp_path(model, dev, card, fault, pp_fault)
+    metrics = run_train_tp_path(model, dev, card, fault, pp_fault,
+                                w8a8_fault)
     log("metrics: " + json.dumps(metrics))
     return 0
 
@@ -7987,6 +8248,9 @@ def main() -> int:
                     help="with --train-tp-only: rank 1 sends zeros in one "
                          "backward ppermute hop of (d) and of (e); phase 12 "
                          "must then fail")
+    ap.add_argument("--train-w8a8-fault", action="store_true",
+                    help="with --train-tp-only: (f)'s W8A8 activations take "
+                         "each rank's own absmax; phase 12 must then fail")
     args = ap.parse_args()
     # the smoke uses one card: show it only the first visible one, so the
     # device count it reports is the number of cards it ran on
@@ -8021,7 +8285,8 @@ def main() -> int:
     if args.train_rank is not None:
         return train_rank_main(args.train_rank, args.tp_port,
                                fault=args.train_tp_fault,
-                               pp_fault=args.train_pp_fault)
+                               pp_fault=args.train_pp_fault,
+                               w8a8_fault=args.train_w8a8_fault)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -8047,7 +8312,7 @@ def main() -> int:
 
     if args.train_tp_only:
         return run_train_tp_alone(dev, card, args.train_tp_fault,
-                                  args.train_pp_fault)
+                                  args.train_pp_fault, args.train_w8a8_fault)
     if args.tp_only:
         return run_tp_alone(dev, card, args.tp_snapshot_fault,
                             args.tp_w4a8_fault)
@@ -8065,22 +8330,29 @@ def main() -> int:
     results.append(k10)
     rows_ms = check_rows_kernels(dev)
     check_fp8_cast(dev)
-    fp8_results, fp8_ms = check_fp8_kernels(dev)
+    kv_results, kv_ms = check_kv_dtype_kernels(dev)
+    fp8_rows_ms = check_fp8_pool_kernels(dev)
     mark("3 kernels")
     check_reference(dev)
     check_reference_int4(dev)
     check_reference_int8(dev)
     check_reference_pool(dev)
     check_reference_lookahead(dev)
-    check_reference_fp8(dev)
+    tiny_kv_launches = check_reference_fp8(dev)
     check_training_reference(dev)
     check_gemv_backward(dev)
     check_qlora_reference(dev)
     mark("4 reference")
     launches, metrics, sess = run_main_path(dev, card)
-    fp8_launches, fp8_metrics = run_fp8_session(sess, dev, card)
-    metrics.update(fp8_metrics)
-    metrics["fp8_attention_ms"] = fp8_ms
+    kv_launches = {}
+    for kv_name, tag, full in KV_SESSIONS:
+        kv_launches[kv_name], kv_metrics = run_kv_session(
+            sess, dev, card, kv_name, tag, full)
+        metrics.update(kv_metrics)
+    # the f32 route over a bf16 cache: the tiny f32 sessions of phase 4
+    kv_launches["bfloat16"] = list(tiny_kv_launches["bfloat16"])
+    metrics["kv_attention_ms"] = kv_ms
+    metrics["fp8_rows_ms"] = fp8_rows_ms
     if args.profile:
         profile_phases(sess, card)
     model = sess.model
@@ -8109,11 +8381,13 @@ def main() -> int:
     mark("10 int8")
     int4_launches, int4_metrics = run_int4_path(model, dev, card)
     mark("6 int4")
-    for r, n in zip(results + fp8_results,
+    kv_counts = [n for _, kv_name, *_ in KV_ROUTES
+                 for n in kv_launches[kv_name]]
+    for r, n in zip(results + kv_results,
                     launches + train_launches + int4_launches
-                    + int8_launches + fp8_launches):
+                    + int8_launches + kv_counts, strict=True):
         r["launches"] = n
-    results += fp8_results
+    results += kv_results
     metrics["w8a8_gate_proj_4384_ms"] = w8a8_ms
     metrics.update(train_metrics)
     metrics.update(int8_metrics)

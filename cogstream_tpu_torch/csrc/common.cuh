@@ -5,15 +5,16 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace cs {
 
-// dtype codes, shared with ops/kernels.py DTYPE_CODES (E4M3: a K/V cache
-// only, KV_DTYPE_CODES)
-enum DType { F32 = 0, BF16 = 1, E4M3 = 2 };
+// dtype codes, shared with ops/kernels.py DTYPE_CODES (E4M3, E5M2, F16: a
+// K/V cache only, KV_DTYPE_CODES)
+enum DType { F32 = 0, BF16 = 1, E4M3 = 2, E5M2 = 3, F16 = 4 };
 
 constexpr float NEG_INF = -1e30f;     // ops/attention.py NEG_INF
 constexpr int SENTINEL = 1 << 30;     // eff position of an invisible slot
@@ -22,10 +23,14 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-// exact: every e4m3 value is an f32 value
+// exact: every e4m3, e5m2 and f16 value is an f32 value
 __device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) {
   return static_cast<float>(x);
 }
+__device__ __forceinline__ float to_f(__nv_fp8_e5m2 x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;

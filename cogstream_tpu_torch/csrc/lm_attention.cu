@@ -64,7 +64,7 @@
 // reads the cache's own bytes and converts them on chip, as the TPU
 // kernels do (`k_ref[0].astype(q.dtype)`), so the K/V traffic from HBM
 // halves against bf16 and no bf16 copy of the cache is ever made.
-//   - K4 tensor-core kernel (template flag F8): cp.async copies the
+//   - K4 tensor-core kernel (K/V kind E4M3): cp.async copies the
 //     tile's e4m3 rows into a byte tile in shared memory (16-byte chunks,
 //     swizzled: tc::swz), and the MMAs' B fragments are read from those
 //     bytes and widened in registers just before their mma.sync
@@ -80,11 +80,11 @@
 //     rounds a split up to whole tiles for all 8 (over a 9216-slot
 //     window: one tile a warp at S = 1, two at S = 5 and 8, where a bf16
 //     warp has 2 and 3): the longest chain is shorter.
-//   - K3 tensor-core kernel (F8): the same widening in registers loses
+//   - K3 tensor-core kernel (E4M3): the same widening in registers loses
 //     here, since each of a block's warps reads every element of a tile,
 //     so each would widen the whole tile (1.4x the bf16 kernel's time on
 //     the H100, PERF.md). K3 widens each tile ONCE a block instead: two
-//     byte stages of e4m3 rows, widened by all threads (tc::e4m3_tile)
+//     byte stages of e4m3 rows, widened by all threads (tc::convert_tile)
 //     into one of two bf16 K/V tiles that the unchanged bf16 body reads.
 //     Tile t's math and tile t + 1's widening share one barrier interval
 //     (one barrier a tile) while the bytes of t + 2 land. What bounds it
@@ -95,6 +95,26 @@
 //     rows, so that such a prefill spreads over more SMs.
 //   - f32 route: gqa_attention_kernel<float, __nv_fp8_e4m3> widens each
 //     element as it fills the f32 tile.
+//
+// The other cache dtypes (codes E5M2, F16, and F32 or BF16 under the other
+// query dtype) take the same rule, K/V converted to q's compute dtype
+// inside the tile, never as a copy of the cache:
+//   - e5m2 under bf16 queries: e4m3's design, with the twin widening (an
+//     e5m2 byte is the high byte of an f16: cvt.rn.f16x2.e5m2x2, exact);
+//     K4 8 warps in registers, K3 once a block from byte stages.
+//   - f16 or f32 under bf16 queries: rounded to bf16 (round to nearest
+//     even, as `astype` does). K3 stages the rows in their own width (two
+//     stages of K and V) and converts each tile once a block, e4m3's
+//     structure; a 4-byte stage pair takes 128 KB at D = 128, so f32 has
+//     only the 64-row instance. K4 narrows as a warp stages its tile
+//     (loads into registers, then bf16 stores into its tile) and runs the
+//     bf16 body.
+//   - bf16, f16 or e5m2 under f32 queries: the f32 route widens each
+//     element exactly (gqa_attention_kernel<float, KV>).
+// lm_attention_tc.cuh holds the tensor-core templates; each K/V kind's
+// instances are built in a file of their own (this one: bf16;
+// lm_attention_<kind>.cu: e4m3, e5m2, f16, f32), so that nvcc builds them
+// at once.
 //
 // Row addressing (pooled serving): every route takes an optional `rows`
 // ([B] int32 on the device). With it, input row b reads cache row
@@ -107,14 +127,9 @@
 // attention (runtime/generate.py), so K4 needs no side buffer or fresh
 // K/V stream: the TPU kernel's main (+) side (+) fresh folding becomes
 // one cache range.
-#include <type_traits>
-
-#include "common.cuh"
-#include "tc_tile.cuh"
+#include "lm_attention_tc.cuh"
 
 namespace {
-
-constexpr int MAX_SMEM = 232448;  // 227 KB: a block's dynamic shared memory
 
 // smallest eff position of each 64-slot key tile: tile_min[b, tile]
 __global__ void tile_min_kernel(const int* __restrict__ eff,
@@ -303,646 +318,12 @@ int launch_gqa(const void* q, const void* k, const void* v, const void* qpos,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3: the tensor-core prefill tile (see the header), 4 warps of MT
-// m-tiles. F8: k and v are e4m3 bytes, copied into two byte stages and
-// widened once a block into two bf16 tiles that the bf16 body reads, by
-// 8 warps (MT = 2 or 1) or 4 (MT = 1).
-constexpr int TC_WARPS = 4;
-
-// K/V element type of a tensor-core kernel: e4m3 bytes or bf16
-template <bool F8>
-using KVT = typename std::conditional<F8, uint8_t, tc::bf16>::type;
-
-// K (or V) bytes of one K4 key tile in shared memory: bf16 rows of KS
-// elements, or e4m3 rows of D bytes
-template <int D, bool F8>
-__host__ __device__ constexpr int tile_bytes() {
-  return F8 ? tc::BK * D : tc::BK * tc::stride(D) * 2;
-}
-
-// NW warps of MT m-tiles: bf16 takes 4 warps; e4m3 4 or 8 (a tile is
-// widened once for the block's 16 NW MT rows), see dispatch_prefill_tc
-template <int D, int MT, int NW, bool F8>
-__global__ void __launch_bounds__(NW * 32, F8 ? 1 : 2)
-gqa_prefill_tc_kernel(const tc::bf16* __restrict__ q,
-                      const KVT<F8>* __restrict__ k,
-                      const KVT<F8>* __restrict__ v,
-                      const int* __restrict__ qpos,
-                      const int* __restrict__ eff,
-                      const int* __restrict__ tile_mm,
-                      const int* __restrict__ rows,
-                      tc::bf16* __restrict__ out, int B, int S, int Hq,
-                      int Hkv, int T_cache, int kv_len, float scale2) {
-  constexpr int WR = 16 * MT, BR = NW * WR, NT = 32 * NW, BK = tc::BK;
-  constexpr int KS = tc::stride(D), CH = D / 8;  // 16-byte Q chunks per row
-  // K/V: 16-byte chunks of a global row, elements per chunk, bf16 tiles,
-  // position slots (F8: three, so a copy never waits for a barrier)
-  constexpr int CHK = D * sizeof(KVT<F8>) / 16;
-  constexpr int EPC = 16 / sizeof(KVT<F8>);
-  constexpr int NSB = 2, NCP = F8 ? 3 : 2;
-  const int n_tiles = (kv_len + BK - 1) / BK;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  tc::bf16* Qs = reinterpret_cast<tc::bf16*>(smem_raw);
-  tc::bf16* Ks = Qs + BR * KS;                    // NSB tiles
-  tc::bf16* Vs = Ks + NSB * BK * KS;              // NSB tiles
-  uint8_t* K8 = reinterpret_cast<uint8_t*>(Vs + NSB * BK * KS);  // F8: 2
-  uint8_t* V8 = K8 + (F8 ? 2 * BK * D : 0);       // stages of e4m3 rows
-  int* cpos = reinterpret_cast<int*>(V8 + (F8 ? 2 * BK * D : 0));  // NCP
-  int* rpos = cpos + NCP * BK;
-  int* red = rpos + BR;
-  int* tmin = red + NW;
-  int* tmax = tmin + n_tiles;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int G = Hq / Hkv, R = S * G;
-  const int b = blockIdx.y / Hkv, h = blockIdx.y % Hkv;
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * BR;  // last rows first
-  const size_t tok = (size_t)Hkv * D;             // K/V token stride
-  const size_t kv_row = rows ? rows[b] : b;  // the cache row of input row b
-  const KVT<F8>* kb = k + kv_row * T_cache * tok + (size_t)h * D;
-  const KVT<F8>* vb = v + kv_row * T_cache * tok + (size_t)h * D;
-  const int* effb = eff + (size_t)b * kv_len;
-
-  for (int i = tid; i < BR * CH; i += NT) {
-    const int rr = i / CH, c = i % CH, r = r0 + rr;
-    const tc::bf16* src = q;
-    if (r < R)
-      src = q + (((size_t)b * S + r / G) * Hq + h * G + r % G) * D + c * 8;
-    tc::cp_async16(Qs + rr * KS + c * 8, src, r < R);
-  }
-  tc::cp_async_commit();
-  int my = -1;
-  if (tid < BR) {
-    const int r = r0 + tid;
-    my = r < R ? qpos[(size_t)b * S + r / G] : -1;
-    rpos[tid] = my;
-  }
-  my = cs::warp_max_i(my);
-  if (lane == 0) red[warp] = my;
-  for (int i = tid; i < n_tiles; i += NT) {
-    tmin[i] = tile_mm[(size_t)b * n_tiles + i];
-    tmax[i] = tile_mm[((size_t)B + b) * n_tiles + i];
-  }
-  __syncthreads();
-  int qmax = red[0];
-  for (int w = 1; w < NW; ++w) qmax = max(qmax, red[w]);
-  int last = -1;  // the last tile any row of the block can see
-  for (int i = tid; i < n_tiles; i += NT)
-    if (tmin[i] <= qmax) last = i;
-  last = cs::warp_max_i(last);
-  __syncthreads();  // every thread has read qmax out of red
-  if (lane == 0) red[warp] = last;
-  __syncthreads();
-  last = red[0];
-  for (int w = 1; w < NW; ++w) last = max(last, red[w]);
-  const int end = last + 1;
-
-  auto next = [&](int t) {  // uniform across the block
-    while (t < end && tmin[t] > qmax) ++t;
-    return t;
-  };
-  // tile t into K/V stage `stage` (bf16 tiles, or F8's byte stages) and
-  // its positions into slot `slot`
-  auto load = [&](int t, int stage, int slot) {
-    const int k0 = t * BK;
-    // destination rows: the bf16 tile's (stride KS), or F8's byte stage
-    unsigned char* kd = F8 ? K8 + stage * BK * D
-        : reinterpret_cast<unsigned char*>(Ks + stage * BK * KS);
-    unsigned char* vd = F8 ? V8 + stage * BK * D
-        : reinterpret_cast<unsigned char*>(Vs + stage * BK * KS);
-    constexpr int DST = F8 ? D : KS * 2;  // destination row bytes
-    for (int i = tid; i < BK * CHK; i += NT) {
-      const int c = i / CHK, ch = i % CHK;
-      const bool ok = k0 + c < kv_len;  // ragged last tile: zero rows
-      const size_t off = ok ? (size_t)(k0 + c) * tok + ch * EPC : 0;
-      tc::cp_async16(kd + c * DST + ch * 16, kb + off, ok);
-      tc::cp_async16(vd + c * DST + ch * 16, vb + off, ok);
-    }
-    for (int c = tid; c < BK; c += NT) {
-      int* dst = cpos + slot * BK + c;
-      if (k0 + c < kv_len)
-        tc::cp_async4(dst, effb + k0 + c);
-      else
-        *dst = cs::SENTINEL;
-    }
-    tc::cp_async_commit();
-  };
-  // F8: the byte stage's K and V into bf16 tile sb, each thread its chunks
-  auto widen = [&](int stage, int sb) {
-    tc::e4m3_tile<D>(Ks + sb * BK * KS, K8 + stage * BK * D, tid, NT);
-    tc::e4m3_tile<D>(Vs + sb * BK * KS, V8 + stage * BK * D, tid, NT);
-  };
-
-  tc::State<D, MT> st;
-  st.init();
-  int t = next(0), stage = 0;
-  if (t < end) load(t, 0, 0);
-  tc::cp_async_wait<0>();
-  __syncthreads();
-  const tc::bf16* Qw = Qs + warp * WR * KS;  // this warp's rows
-  int rp[MT][2], wmin = cs::SENTINEL;  // wmin: the warp's smallest row
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      rp[m][i] = rpos[warp * WR + m * 16 + i * 8 + (lane >> 2)];
-      wmin = min(wmin, rp[m][i]);
-    }
-  wmin = cs::warp_min_i(wmin);
-  // a tile whose largest position every row of the warp has reached (a
-  // padded row, -1, has reached none) needs no compare
-  auto math = [&](int tt, int sb, int slot) {
-    const int* cp = cpos + slot * BK;
-    tc::attend<D, MT>(Qw, Ks + sb * BK * KS, Vs + sb * BK * KS, scale2,
-                      tmax[tt] <= wmin,
-                      [=](int m, int i, int c) { return rp[m][i] >= cp[c]; },
-                      st);
-  };
-  if constexpr (!F8) {
-    while (t < end) {
-      const int tn = next(t + 1);
-      if (tn < end) {  // the next tile's copy overlaps this tile's math
-        load(tn, stage ^ 1, stage ^ 1);
-        tc::cp_async_wait<1>();
-      } else {
-        tc::cp_async_wait<0>();
-      }
-      __syncthreads();
-      math(t, stage, stage);
-      __syncthreads();  // this stage consumed before it is refilled
-      t = tn;
-      stage ^= 1;
-    }
-  } else {
-    // two bf16 tiles, one barrier a tile: tile t's math and tile t1's
-    // widening run between the same two barriers, while the bytes of t2
-    // land in the stage that t's bytes left
-    int t1 = t < end ? next(t + 1) : end, slot = 0, sb = 0;
-    if (t1 < end) load(t1, 1, 1);
-    if (t < end) widen(0, 0);
-    stage = 1;  // t1's byte stage
-    while (t < end) {
-      tc::cp_async_wait<0>();  // t1's bytes
-      __syncthreads();
-      const int t2 = t1 < end ? next(t1 + 1) : end;
-      if (t2 < end) load(t2, stage ^ 1, slot == 0 ? NCP - 1 : slot - 1);
-      if (t1 < end) widen(stage, sb ^ 1);
-      math(t, sb, slot);
-      t = t1;
-      t1 = t2;
-      stage ^= 1;
-      sb ^= 1;
-      slot = slot == NCP - 1 ? 0 : slot + 1;
-    }
-  }
-  tc::finish(st);
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = r0 + warp * WR + m * 16 + i * 8 + (lane >> 2);
-      if (r < R)
-        tc::store_row(
-            st, m, i,
-            out + (((size_t)b * S + r / G) * Hq + h * G + r % G) * D);
-    }
-}
-
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, v = 132;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v;
-  }();
-  return n;
-}
-
-template <int D, int MT, int NW, bool F8>
-int launch_prefill_tc(const void* q, const void* k, const void* v,
-                      const void* qpos, const void* eff, const void* tile_mm,
-                      const void* rows, void* out, int B, int S, int Hq,
-                      int Hkv, int T_cache, int kv_len, float scale2,
-                      cudaStream_t st) {
-  constexpr int BR = NW * 16 * MT, NSB = 2, NCP = F8 ? 3 : 2;
-  auto kern = gqa_prefill_tc_kernel<D, MT, NW, F8>;
-  // once per instantiation, not per launch
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int n_tiles = (kv_len + tc::BK - 1) / tc::BK;
-  // Q, the bf16 K/V tiles (F8: plus two stages of e4m3 rows), then the
-  // positions
-  const size_t bytes =
-      (size_t)(BR + 2 * NSB * tc::BK) * tc::stride(D) * sizeof(tc::bf16) +
-      (F8 ? (size_t)4 * tc::BK * D : 0) +
-      (size_t)(NCP * tc::BK + BR + NW + 2 * n_tiles) * sizeof(int);
-  if (bytes > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  const int R = S * (Hq / Hkv);
-  const dim3 grid((R + BR - 1) / BR, B * Hkv);
-  kern<<<grid, NW * 32, bytes, st>>>(
-      static_cast<const tc::bf16*>(q), static_cast<const KVT<F8>*>(k),
-      static_cast<const KVT<F8>*>(v), static_cast<const int*>(qpos),
-      static_cast<const int*>(eff), static_cast<const int*>(tile_mm),
-      static_cast<const int*>(rows), static_cast<tc::bf16*>(out), B, S, Hq,
-      Hkv, T_cache, kv_len, scale2);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D, bool F8>
-int dispatch_prefill_tc(const void* q, const void* k, const void* v,
-                        const void* qpos, const void* eff,
-                        const void* tile_mm, const void* rows, void* out,
-                        int B, int S, int Hq, int Hkv, int T_cache,
-                        int kv_len, float scale2, cudaStream_t st) {
-  const int R = S * (Hq / Hkv), bh = B * Hkv, sms = sm_count();
-#define CS_LAUNCH_PREFILL(MT, NW)                                           \
-  return launch_prefill_tc<D, MT, NW, F8>(q, k, v, qpos, eff, tile_mm, rows, \
-                                          out, B, S, Hq, Hkv, T_cache,       \
-                                          kv_len, scale2, st)
-  if constexpr (F8) {
-    // each block holds an SM: the fewest waves of blocks weighted by a
-    // block's time a tile, measured on the H100 as 17 : 11 : 10 for 256
-    // (8 warps, 2 m-tiles), 128 (8 warps) and 64 rows (4 warps)
-    auto cost = [&](int rows_a_block, int weight) {
-      return ((R + rows_a_block - 1) / rows_a_block * bh + sms - 1) / sms *
-             weight;
-    };
-    const int c256 = cost(256, 17), c128 = cost(128, 11), c64 = cost(64, 10);
-    if (c256 <= c128 && c256 <= c64) CS_LAUNCH_PREFILL(2, 8);
-    if (c128 <= c64) CS_LAUNCH_PREFILL(1, 8);
-    CS_LAUNCH_PREFILL(1, 4);
-  } else {
-    // 128-row blocks (2 m-tiles per warp) unless they would leave SMs idle
-    if ((R + 127) / 128 * bh >= sms) CS_LAUNCH_PREFILL(2, TC_WARPS);
-    CS_LAUNCH_PREFILL(1, TC_WARPS);
-  }
-#undef CS_LAUNCH_PREFILL
-}
-
-// K4's Q rows in shared memory (stride KS): copied as they are, or for an
-// e4m3 cache with the head dims permuted as tc::f8_q_col says, in 4-byte
-// words; rows r0 + [0, NR) of (batch b, kv head h), zero past R
-template <int D, int NR, bool F8>
-__device__ __forceinline__ void stage_q(tc::bf16* Qs,
-                                        const tc::bf16* __restrict__ q,
-                                        int b, int h, int r0, int R, int S,
-                                        int Hq, int G, int tid, int nt) {
-  constexpr int KS = tc::stride(D);
-  constexpr int W = F8 ? D / 2 : D / 8;  // copies a row: words or chunks
-  for (int i = tid; i < NR * W; i += nt) {
-    const int rr = i / W, c = i % W, r = r0 + rr;
-    const tc::bf16* src = q;
-    if (r < R)
-      src = q + (((size_t)b * S + r / G) * Hq + h * G + r % G) * D;
-    if constexpr (F8) {
-      tc::cp_async4(Qs + rr * KS + tc::f8_q_col<D>(2 * c), src + 2 * c,
-                    r < R);
-    } else {
-      tc::cp_async16(Qs + rr * KS + c * 8, src + c * 8, r < R);
-    }
-  }
-}
-
-// destination byte offset of chunk ch (16 bytes) of key row c in a K4 K/V
-// tile: bf16 rows of stride KS, or e4m3 rows swizzled by tc::swz
-template <int D, bool F8>
-__device__ __forceinline__ int tile_chunk(int c, int ch) {
-  if constexpr (F8) {
-    return c * D + 16 * (ch ^ tc::swz<D>(c));
-  } else {
-    return c * tc::stride(D) * 2 + ch * 16;
-  }
-}
-
-// K4 in bf16: the decode-shaped tensor-core kernel (see the header). A
-// block of NW warps owns the RB = 16 * MT folded rows r0 + [0, RB) of one
-// (batch, kv head) and the key tiles [t_begin, t_end) of one split; warp
-// w takes tiles t_begin + w, + NW, ... each with its own online softmax.
-// F8: k and v are e4m3 bytes; a warp keeps its K and V tiles' bytes and
-// widens their fragments in registers (tc::scores_f8, tc::accumulate_f8).
-// A block has 4 warps, or 8 over an e4m3 cache: a warp's tile costs more
-// there (the widening lies on the warp's chain) and its bytes half as
-// much shared memory, so a split's tiles spread over twice the warps
-// (decode_plan rounds an e4m3 split up to whole tiles for the 8).
-template <bool F8>
-__host__ __device__ constexpr int dec_warps() {
-  return F8 ? 8 : 4;
-}
-
-// shared-memory bytes of the K4 warps' K and V tiles, which the warps'
-// merge (m, l and O rows of 16 MT rows each, f32) overlays afterwards
-template <int D, int MT, bool F8>
-__host__ __device__ constexpr int dec_kv_bytes() {
-  constexpr int NW = dec_warps<F8>();
-  return 2 * NW * tile_bytes<D, F8>() > NW * 16 * MT * (D + 2) * 4
-             ? 2 * NW * tile_bytes<D, F8>()
-             : NW * 16 * MT * (D + 2) * 4;
-}
-
-template <int D, int MT, bool F8>
-__global__ void __launch_bounds__(dec_warps<F8>() * 32)
-gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
-                     const KVT<F8>* __restrict__ k,
-                     const KVT<F8>* __restrict__ v,
-                     const int* __restrict__ qpos,
-                     const int* __restrict__ eff,
-                     const int* __restrict__ rows, float* __restrict__ part_ml,
-                     float* __restrict__ part_acc, int* __restrict__ tickets,
-                     tc::bf16* __restrict__ out, int S, int Hq, int Hkv,
-                     int T_cache, int kv_len, int tiles_per_split,
-                     float scale2) {
-  constexpr int NW = dec_warps<F8>(), NT = 32 * NW, RB = 16 * MT;
-  constexpr int BK = tc::BK;
-  constexpr int KS = tc::stride(D), D4 = D / 4;
-  // K/V: 16-byte chunks of a global row, elements per chunk
-  constexpr int CHK = D * sizeof(KVT<F8>) / 16;
-  constexpr int EPC = 16 / sizeof(KVT<F8>);
-  constexpr int TB = tile_bytes<D, F8>();
-  constexpr int WS = RB * (D + 2);  // merge floats per warp: m, l, O rows
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  tc::bf16* Qs = reinterpret_cast<tc::bf16*>(smem_raw);
-  // per warp a K and a V tile of TB bytes
-  unsigned char* KV = reinterpret_cast<unsigned char*>(Qs + RB * KS);
-  int* cpos_all = reinterpret_cast<int*>(KV + dec_kv_bytes<D, MT, F8>());
-  int* last = cpos_all + NW * BK;
-  float* mrg = reinterpret_cast<float*>(KV);  // after the tiles: NW x WS
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int split = blockIdx.x, n_splits = gridDim.x, bh = blockIdx.y;
-  const int b = bh / Hkv, h = bh % Hkv;
-  const int G = Hq / Hkv, R = S * G, r0 = blockIdx.z * RB;
-  const int RL = min(RB, R - r0);  // this block's real rows
-  const int n_tiles = (kv_len + BK - 1) / BK;
-  const int t_begin = split * tiles_per_split;
-  const int t_end = min(t_begin + tiles_per_split, n_tiles);
-  const size_t tok = (size_t)Hkv * D;  // K/V token stride
-  const size_t kv_row = rows ? rows[b] : b;  // the cache row of input row b
-  const KVT<F8>* kb = k + kv_row * T_cache * tok + (size_t)h * D;
-  const KVT<F8>* vb = v + kv_row * T_cache * tok + (size_t)h * D;
-  const int* effb = eff + (size_t)b * kv_len;
-  auto out_row = [&](int r) {  // folded row r of the block -> out
-    const int rr = r0 + r;
-    return out + (((size_t)b * S + rr / G) * Hq + h * G + rr % G) * D;
-  };
-
-  stage_q<D, RB, F8>(Qs, q, b, h, r0, R, S, Hq, G, tid, NT);  // zero past R
-  tc::cp_async_commit();
-  // the thread's row positions (-1 past R); every warp holds all RB rows,
-  // so warp reductions give the block's largest position (qmax) and the
-  // smallest over its real rows (rmin: a padded query, -1, makes it -1)
-  int rp[MT][2], qmax = -1, rmin = cs::SENTINEL;
-#pragma unroll
-  for (int t = 0; t < MT; ++t)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = r0 + 16 * t + 8 * i + (lane >> 2);
-      rp[t][i] = r < R ? qpos[(size_t)b * S + r / G] : -1;
-      qmax = max(qmax, rp[t][i]);
-      if (r < R) rmin = min(rmin, rp[t][i]);
-    }
-  qmax = cs::warp_max_i(qmax);
-  rmin = cs::warp_min_i(rmin);
-
-  // the warp's K and V tiles
-  unsigned char* Kd = KV + warp * 2 * TB;
-  unsigned char* Vd = Kd + TB;
-  int* cpos = cpos_all + warp * BK;
-  auto load = [&](unsigned char* dst, const KVT<F8>* src, int t) {
-    const int k0 = t * BK;
-    for (int i = lane; i < BK * CHK; i += 32) {
-      const int c = i / CHK, ch = i % CHK;
-      const bool ok = k0 + c < kv_len;  // ragged last tile: zero rows
-      const size_t off = ok ? (size_t)(k0 + c) * tok + ch * EPC : 0;
-      tc::cp_async16(dst + tile_chunk<D, F8>(c, ch), src + off, ok);
-    }
-    tc::cp_async_commit();
-  };
-  // the lane's two eff positions of tile t (SENTINEL past kv_len)
-  auto fetch = [&](int t, int& e0, int& e1) {
-    const int s0 = t * BK + lane;
-    e0 = s0 < kv_len ? effb[s0] : cs::SENTINEL;
-    e1 = s0 + 32 < kv_len ? effb[s0 + 32] : cs::SENTINEL;
-  };
-  // from tile t (its positions in e0, e1), the warp's first tile that a
-  // row of the block can see; its largest position into emax. A tile no
-  // row sees (the empty cache past the write index, a causal tail) is
-  // never copied. t_end if none.
-  auto settle = [&](int t, int& e0, int& e1, int& emax) {
-    while (t < t_end) {
-      if (cs::warp_min_i(min(e0, e1)) <= qmax) {
-        emax = cs::warp_max_i(max(e0, e1));
-        return t;
-      }
-      t += NW;
-      if (t < t_end) fetch(t, e0, e1);
-    }
-    return t_end;
-  };
-
-  tc::State<D, MT> st;
-  st.init();
-  int e0 = cs::SENTINEL, e1 = cs::SENTINEL, emax = cs::SENTINEL;
-  int t = t_begin + warp;
-  if (t < t_end) fetch(t, e0, e1);
-  t = settle(t, e0, e1, emax);
-  if (t < t_end) {
-    cpos[lane] = e0;
-    cpos[lane + 32] = e1;
-    load(Kd, kb, t);
-    load(Vd, vb, t);
-    tc::cp_async_wait<1>();  // Q and K landed, V may be in flight
-  } else {
-    tc::cp_async_wait<0>();
-  }
-  __syncthreads();  // Q rows of every thread
-  // per tile: K and V are two copy groups, so the scores run while V
-  // lands, the next K lands during P.V and the next V during its scores
-  while (t < t_end) {
-    int n0 = cs::SENTINEL, n1 = cs::SENTINEL, nmax = cs::SENTINEL;
-    if (t + NW < t_end) fetch(t + NW, n0, n1);  // read during the scores
-    __syncwarp();                                // K(t), cpos visible
-    const int* cp = cpos;
-    tc::PFrag<MT> pa;
-    // a tile whose largest position every real row has reached needs no
-    // compare (pad rows past R see everything then, and are not stored)
-    auto visible = [=](int m, int i, int c) { return rp[m][i] >= cp[c]; };
-    if constexpr (F8) {
-      tc::scores_f8<D, MT>(Qs, Kd, scale2, emax <= rmin, visible, st, pa);
-    } else {
-      tc::scores<D, MT>(Qs, reinterpret_cast<const tc::bf16*>(Kd), scale2,
-                        emax <= rmin, visible, st, pa);
-    }
-    const int tn = settle(t + NW, n0, n1, nmax);
-    __syncwarp();  // K(t) and cpos consumed
-    if (tn < t_end) {
-      cpos[lane] = n0;
-      cpos[lane + 32] = n1;
-      load(Kd, kb, tn);
-      tc::cp_async_wait<1>();  // V(t)
-    } else {
-      tc::cp_async_wait<0>();
-    }
-    __syncwarp();  // V(t) visible
-    if constexpr (F8) {
-      tc::accumulate_f8<D, MT>(Vd, pa, st);
-    } else {
-      tc::accumulate<D, MT>(reinterpret_cast<const tc::bf16*>(Vd), pa, st);
-    }
-    __syncwarp();  // V(t) consumed
-    if (tn < t_end) {
-      load(Vd, vb, tn);
-      tc::cp_async_wait<1>();  // K(tn)
-    }
-    t = tn;
-    emax = nmax;
-  }
-  tc::finish(st);
-
-  // merge the warps' states in warp order (mrg overlays the warps' tiles)
-  __syncthreads();
-  float* mw = mrg + warp * WS;
-#pragma unroll
-  for (int t = 0; t < MT; ++t)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = 16 * t + 8 * i + (lane >> 2);
-      if ((lane & 3) == 0) {
-        mw[r] = st.m[t][i];
-        mw[RB + r] = st.l[t][i];
-      }
-      float* orow = mw + 2 * RB + r * D;
-      if constexpr (F8) {  // head dims (D/4) (lane % 4) + [0, D/4)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-#pragma unroll
-          for (int n = 0; n < D / 8; n += 4)
-            *reinterpret_cast<float4*>(orow + (D / 4) * (lane & 3) +
-                                       e * (D / 8) + n) =
-                make_float4(st.o[t][n][2 * i + e], st.o[t][n + 1][2 * i + e],
-                            st.o[t][n + 2][2 * i + e],
-                            st.o[t][n + 3][2 * i + e]);
-      } else {
-        const int c0 = (lane & 3) * 2;
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-          *reinterpret_cast<float2*>(orow + n * 8 + c0) =
-              make_float2(st.o[t][n][2 * i], st.o[t][n][2 * i + 1]);
-      }
-    }
-  __syncthreads();
-  // out: 4 normalized values of row r (0 for a row that saw nothing)
-  auto store4 = [&](int r, int g, float4 a, float l) {
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    *reinterpret_cast<uint2*>(out_row(r) + 4 * g) =
-        make_uint2(tc::pack(a.x * inv, a.y * inv),
-                   tc::pack(a.z * inv, a.w * inv));
-  };
-  // weight of a state with max m against the merged max M
-  auto weight = [&](float m, float M) {
-    return m == -INFINITY ? 0.f : exp2f((m - M) * scale2);
-  };
-  const size_t slot0 = ((size_t)bh * gridDim.z + blockIdx.z) * n_splits;
-  for (int idx = tid; idx < RL * D4; idx += NT) {
-    const int r = idx / D4, g = idx % D4;
-    float M = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) M = fmaxf(M, mrg[w * WS + r]);
-    float L = 0.f;
-    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float* base = mrg + w * WS;
-      const float wt = weight(base[r], M);
-      const float4 o =
-          *reinterpret_cast<const float4*>(base + 2 * RB + r * D + 4 * g);
-      L += wt * base[RB + r];
-      A.x += wt * o.x;
-      A.y += wt * o.y;
-      A.z += wt * o.z;
-      A.w += wt * o.w;
-    }
-    if (n_splits == 1) {
-      store4(r, g, A, L);
-    } else {
-      const size_t p = (slot0 + split) * RB + r;
-      if (g == 0) reinterpret_cast<float2*>(part_ml)[p] = make_float2(M, L);
-      reinterpret_cast<float4*>(part_acc + p * D)[g] = A;
-    }
-  }
-  if (n_splits == 1) return;
-
-  // the last block of this (batch x kv head, row group) to finish merges
-  // every split's partial, in split order (deterministic)
-  __threadfence();  // this block's partials reach L2 before its ticket
-  __syncthreads();
-  int* ticket = tickets + (size_t)bh * gridDim.z + blockIdx.z;
-  if (tid == 0) *last = atomicAdd(ticket, 1) == n_splits - 1;
-  __syncthreads();
-  if (!*last) return;
-  __threadfence();
-  const float2* ml = reinterpret_cast<const float2*>(part_ml);
-  for (int idx = tid; idx < RL * D4; idx += NT) {
-    const int r = idx / D4, g = idx % D4;
-    float M = -INFINITY;
-    for (int sp = 0; sp < n_splits; ++sp)
-      M = fmaxf(M, __ldcg(ml + (slot0 + sp) * RB + r).x);
-    float L = 0.f;
-    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int sp = 0; sp < n_splits; ++sp) {
-      const size_t p = (slot0 + sp) * RB + r;
-      const float2 s2 = __ldcg(ml + p);
-      const float wt = weight(s2.x, M);
-      const float4 o = __ldcg(reinterpret_cast<const float4*>(part_acc +
-                                                               p * D) + g);
-      L += wt * s2.y;
-      A.x += wt * o.x;
-      A.y += wt * o.y;
-      A.z += wt * o.z;
-      A.w += wt * o.w;
-    }
-    store4(r, g, A, L);
-  }
-  __syncthreads();  // every partial read
-  if (tid == 0) *ticket = 0;  // ready for the next launch
-}
-
-template <int D, int MT, bool F8>
-int launch_decode_tc(const void* q, const void* k, const void* v,
-                     const void* qpos, const void* eff, const void* rows,
-                     void* part_ml,
-                     void* part_acc, void* tickets, void* out, int B, int S,
-                     int Hq, int Hkv, int T_cache, int kv_len,
-                     int tiles_per_split, int n_splits, float scale2,
-                     cudaStream_t st) {
-  constexpr int RB = 16 * MT, NW = dec_warps<F8>();
-  auto kern = gqa_decode_tc_kernel<D, MT, F8>;
-  // once per instantiation, not per launch
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const size_t bytes =
-      (size_t)RB * tc::stride(D) * sizeof(tc::bf16) +
-      (size_t)dec_kv_bytes<D, MT, F8>() +
-      (size_t)(NW * tc::BK + 4) * sizeof(int);
-  const int R = S * (Hq / Hkv);
-  const dim3 grid(n_splits, B * Hkv, (R + RB - 1) / RB);
-  kern<<<grid, NW * 32, bytes, st>>>(
-      static_cast<const tc::bf16*>(q), static_cast<const KVT<F8>*>(k),
-      static_cast<const KVT<F8>*>(v), static_cast<const int*>(qpos),
-      static_cast<const int*>(eff), static_cast<const int*>(rows),
-      static_cast<float*>(part_ml), static_cast<float*>(part_acc),
-      static_cast<int*>(tickets),
-      static_cast<tc::bf16*>(out), S, Hq, Hkv, T_cache, kv_len,
-      tiles_per_split, scale2);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // f32 queries only (bf16 goes to cs_gqa_prefill_tc / cs_gqa_decode_tc);
-// k and v f32 or e4m3 (kv_dtype). rows: null, or the [B] int32 cache row
-// of each input row. part_m == nullptr: K3 on the CUDA-core tile (one
+// k and v f32, bf16, f16, e4m3 or e5m2 (kv_dtype), each element widened
+// exactly to f32 as the tile is filled. rows: null, or the [B] int32 cache
+// row of each input row. part_m == nullptr: K3 on the CUDA-core tile (one
 // chunk, normalized output). Otherwise K4's first pass (partials per
 // chunk; finish with cs_gqa_combine).
 extern "C" int cs_gqa_attention(const void* q, const void* k, const void* v,
@@ -953,19 +334,22 @@ extern "C" int cs_gqa_attention(const void* q, const void* k, const void* v,
                                 int kv_len, int chunk_tiles, int n_chunks,
                                 float scale, int dtype, int kv_dtype,
                                 const void* rows, void* stream) {
-  if (dtype != cs::F32 || (kv_dtype != cs::F32 && kv_dtype != cs::E4M3) ||
-      D % 4 != 0 || D > 4 * cs::MAX_D4 || Hq % Hkv != 0 ||
-      kv_len > T_cache || (part_m == nullptr && n_chunks != 1))
+  if (dtype != cs::F32 || D % 4 != 0 || D > 4 * cs::MAX_D4 ||
+      Hq % Hkv != 0 || kv_len > T_cache ||
+      (part_m == nullptr && n_chunks != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kv_dtype == cs::E4M3)
-    return launch_gqa<float, __nv_fp8_e4m3>(
-        q, k, v, qpos, eff, tile_min, rows, out, part_m, part_l, part_acc, B,
-        S, Hq, Hkv, D, T_cache, kv_len, chunk_tiles, n_chunks, scale, st);
-  return launch_gqa<float, float>(q, k, v, qpos, eff, tile_min, rows, out,
-                                  part_m, part_l, part_acc, B, S, Hq, Hkv, D,
-                                  T_cache, kv_len, chunk_tiles, n_chunks,
-                                  scale, st);
+#define CS_GQA_F32(CODE, KV)                                                \
+  if (kv_dtype == CODE)                                                     \
+    return launch_gqa<float, KV>(q, k, v, qpos, eff, tile_min, rows, out,   \
+                                 part_m, part_l, part_acc, B, S, Hq, Hkv, D, \
+                                 T_cache, kv_len, chunk_tiles, n_chunks,     \
+                                 scale, st);
+  CS_GQA_F32(cs::F32, float) CS_GQA_F32(cs::BF16, __nv_bfloat16)
+  CS_GQA_F32(cs::F16, __half) CS_GQA_F32(cs::E4M3, __nv_fp8_e4m3)
+  CS_GQA_F32(cs::E5M2, __nv_fp8_e5m2)
+#undef CS_GQA_F32
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K4 f32's second pass: merge the chunks' partials
@@ -985,7 +369,8 @@ extern "C" int cs_gqa_combine(const void* part_m, const void* part_l,
 
 // K3 in bf16 (head dim 64 or 128): the tile min / max pre-pass into
 // tile_mm ([2, B, n_tiles] int32), then the tensor-core prefill tile.
-// k and v bf16 or e4m3 (kv_dtype). Normalized output [B, S, Hq, D].
+// k and v bf16, e4m3, e5m2, f16 or f32 (kv_dtype). Normalized output
+// [B, S, Hq, D].
 // rows: null, or the [B] int32 cache row of each input row (k, v are then
 // [B_pool, T_cache, Hkv, D]).
 extern "C" int cs_gqa_prefill_tc(const void* q, const void* k, const void* v,
@@ -995,7 +380,7 @@ extern "C" int cs_gqa_prefill_tc(const void* q, const void* k, const void* v,
                                  int kv_len, float scale, int kv_dtype,
                                  const void* rows, void* stream) {
   if ((D != 64 && D != 128) || Hq % Hkv != 0 || kv_len > T_cache ||
-      (kv_dtype != cs::BF16 && kv_dtype != cs::E4M3))
+      kv_dtype < cs::F32 || kv_dtype > cs::F16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_tiles = (kv_len + cs::BK - 1) / cs::BK;
@@ -1004,20 +389,24 @@ extern "C" int cs_gqa_prefill_tc(const void* q, const void* k, const void* v,
         static_cast<const int*>(eff), static_cast<int*>(tile_mm), B, kv_len,
         n_tiles);
   const float scale2 = scale * tc::LOG2E;
-#define CS_PREFILL_TC(DD, F8)                                              \
-  if (D == DD && (kv_dtype == cs::E4M3) == F8)                             \
-    return dispatch_prefill_tc<DD, F8>(q, k, v, qpos, eff, tile_mm, rows,  \
-                                       out, B, S, Hq, Hkv, T_cache, kv_len, \
-                                       scale2, st);
-  CS_PREFILL_TC(128, false) CS_PREFILL_TC(128, true)
-  CS_PREFILL_TC(64, false) CS_PREFILL_TC(64, true)
+  switch (kv_dtype) {
+#define CS_PREFILL_TC(CODE, FN)                                           \
+  case CODE:                                                              \
+    return FN(D, q, k, v, qpos, eff, tile_mm, rows, out, B, S, Hq, Hkv,   \
+              T_cache, kv_len, scale2, st);
+    CS_PREFILL_TC(cs::BF16, prefill_tc_kind<cs::BF16>)
+    CS_PREFILL_TC(cs::E4M3, prefill_tc_e4m3)
+    CS_PREFILL_TC(cs::E5M2, prefill_tc_e5m2)
+    CS_PREFILL_TC(cs::F16, prefill_tc_f16)
+    CS_PREFILL_TC(cs::F32, prefill_tc_f32)
 #undef CS_PREFILL_TC
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K4 in bf16 (head dim 64 or 128, mt in {1, 2}: m-tiles per warp, so
-// 16 * mt folded rows per block; k and v bf16 or e4m3, kv_dtype): one
-// launch per decode attention call.
+// 16 * mt folded rows per block; k and v bf16, e4m3, e5m2, f16 or f32,
+// kv_dtype): one launch per decode attention call.
 // part_ml ([slots, 16 mt] float2), part_acc ([slots, 16 mt, D] f32) and
 // tickets ([B * Hkv * row groups] int32, zero between launches) are the
 // caller's workspace, slots = B * Hkv * row groups * n_splits; they are
@@ -1035,26 +424,28 @@ extern "C" int cs_gqa_decode_tc(const void* q, const void* k, const void* v,
   if ((D != 64 && D != 128) || Hq % Hkv != 0 || kv_len > T_cache ||
       kv_len <= 0 || S <= 0 || B <= 0 || tiles_per_split <= 0 ||
       n_splits <= 0 || (long long)n_splits * tiles_per_split < n_tiles ||
-      (kv_dtype != cs::BF16 && kv_dtype != cs::E4M3))
+      kv_dtype < cs::F32 || kv_dtype > cs::F16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale2 = scale * tc::LOG2E;
-  const bool f8 = kv_dtype == cs::E4M3;
-#define CS_DECODE_TC(DD, MM, F8)                                           \
-  if (D == DD && mt == MM && f8 == F8)                                     \
-    return launch_decode_tc<DD, MM, F8>(                                   \
-        q, k, v, qpos, eff, rows, part_ml, part_acc, tickets, out, B, S,   \
-        Hq, Hkv, T_cache, kv_len, tiles_per_split, n_splits, scale2, st);
-  CS_DECODE_TC(128, 1, false) CS_DECODE_TC(128, 2, false)
-  CS_DECODE_TC(64, 1, false) CS_DECODE_TC(64, 2, false)
-  CS_DECODE_TC(128, 1, true) CS_DECODE_TC(128, 2, true)
-  CS_DECODE_TC(64, 1, true) CS_DECODE_TC(64, 2, true)
+  switch (kv_dtype) {
+#define CS_DECODE_TC(CODE, FN)                                            \
+  case CODE:                                                              \
+    return FN(D, mt, q, k, v, qpos, eff, rows, part_ml, part_acc, tickets, \
+              out, B, S, Hq, Hkv, T_cache, kv_len, tiles_per_split,        \
+              n_splits, scale2, st);
+    CS_DECODE_TC(cs::BF16, decode_tc_kind<cs::BF16>)
+    CS_DECODE_TC(cs::E4M3, decode_tc_e4m3)
+    CS_DECODE_TC(cs::E5M2, decode_tc_e5m2)
+    CS_DECODE_TC(cs::F16, decode_tc_f16)
+    CS_DECODE_TC(cs::F32, decode_tc_f32)
 #undef CS_DECODE_TC
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // warps a block of cs_gqa_decode_tc over a kv_dtype cache (decode_plan
-// in ops/lm_attention.py rounds an e4m3 split up to whole tiles for them)
+// in ops/lm_attention.py rounds an fp8 split up to whole tiles for them)
 extern "C" int cs_decode_tc_warps(int kv_dtype) {
-  return kv_dtype == cs::E4M3 ? dec_warps<true>() : dec_warps<false>();
+  return tc::is_f8(kv_dtype) ? dec_warps<cs::E4M3>() : dec_warps<cs::BF16>();
 }

@@ -26,13 +26,14 @@
 // from shared memory and those reads weigh as much as the MMAs: MT = 2
 // halves them per (row, key) pair (K3 went from 2.4 to 1.8 ms on the
 // H100 with it).
-// K4 over an e4m3 cache (scores_f8 / accumulate_f8, below) keeps no
-// bf16 K/V tile: its B fragments come straight from the tile's e4m3
+// K4 over an fp8 cache (e4m3 or e5m2: scores_f8 / accumulate_f8, below)
+// keeps no bf16 K/V tile: its B fragments come straight from the tile's
 // bytes in shared memory and are widened in registers just before their
 // MMA; K4's warps read disjoint tiles, so each element is widened once.
 // K3's warps all read each tile, so in registers every warp would widen
-// every element (issue-bound, 1.4x its bf16 time on the H100): K3 widens
-// each tile once a block with e4m3_tile into a bf16 tile (PERF.md).
+// every element (issue-bound, 1.4x its bf16 time on the H100): K3
+// converts each tile once a block with convert_tile into a bf16 tile
+// (PERF.md), as it does for an f16 or f32 cache (rounded to bf16).
 // Rows are padded in shared memory to KS = KD + 8 bf16 (KD: the head dim
 // rounded up to the MMA depth 16): 16-byte row chunks then fall on odd
 // multiples of 16 bytes, so the 8 rows of one ldmatrix hit 8 disjoint
@@ -341,13 +342,14 @@ __device__ __forceinline__ void store_row(const State<D, MT>& st, int t,
 }
 
 // ---------------------------------------------------------------------------
-// e4m3 K / V (the fp8 KV cache of K3 and K4): fragments widened in registers
+// fp8 K / V (the e4m3 or e5m2 KV cache of K3 and K4): fragments widened in
+// registers
 // ---------------------------------------------------------------------------
-// A tile is BK rows (keys) of D e4m3 bytes in shared memory, copied from
+// A tile is BK rows (keys) of D fp8 bytes in shared memory, copied from
 // the cache in 16-byte chunks; chunk ch of row c sits at chunk
 // ch ^ swz<D>(c) of its row, so that the loads below hit distinct bank
 // groups (D = 128: conflict-free; D = 64: two-way on V). No bf16 copy of
-// the tile exists: every B fragment is read as e4m3 bytes and widened just
+// the tile exists: every B fragment is read as fp8 bytes and widened just
 // before its MMA, so K / V cross shared memory once (bytes in, bytes out)
 // and a warp's extra live set is 4 k-steps' words (32 registers), not a
 // tile.
@@ -367,17 +369,20 @@ __device__ __forceinline__ void store_row(const State<D, MT>& st, int t,
 //          (D/8) g + [0, D/8) (g = lane / 4) and transposes them with
 //          byte permutes; O's n-tile n, column g is then head dim
 //          (D/8) g + n, which K4's merge undoes as it writes O's rows.
-// The widening (cvt.rn.f16x2.e4m3x2, exact; f16 -> f32 exact; the f32's
+// The widening (cvt.rn.f16x2.e4m3x2 or .e5m2x2, exact: an e5m2 byte is
+// the high byte of an f16 of the same bias; f16 -> f32 exact; the f32's
 // upper half is the bf16, exact since an e4m3 value has 4 significant
-// bits; NaN stays NaN) is the only work the bf16 tile does not have.
+// bits and an e5m2 value 3; inf and NaN stay so) is the only work the
+// bf16 tile does not have. KV (a cs::DType code, E4M3 or E5M2) picks the
+// widening; the layout is one for both.
 
 template <int D>
 __device__ __forceinline__ int swz(int c) {
-  static_assert(D == 64 || D == 128, "e4m3 tiles take head dim 64 or 128");
+  static_assert(D == 64 || D == 128, "fp8 tiles take head dim 64 or 128");
   return D == 128 ? ((c >> 1) & 6) | (c & 1) : (c >> 2) & 3;
 }
 
-// the tile key that column c of S n-tile j holds (e4m3 layout)
+// the tile key that column c of S n-tile j holds (fp8 layout)
 __device__ __forceinline__ int f8_key(int j, int c) {
   return 16 * (j >> 1) + 2 * (j & 1) + 4 * (c >> 1) + (c & 1);
 }
@@ -391,41 +396,90 @@ __device__ __forceinline__ int f8_q_col(int d) {
   return 16 * (rem >> 2) + 2 * (d / L) + 8 * ((rem >> 1) & 1);
 }
 
-// two e4m3 bytes (the low one into the low half) -> bf16x2, exact
-__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t two) {
+// two fp8 bytes of kind KV (E4M3 or E5M2; the low one into the low half)
+// -> bf16x2, exact
+template <int KV>
+__device__ __forceinline__ uint32_t f8x2_to_bf16x2(uint32_t two) {
+  static_assert(KV == cs::E4M3 || KV == cs::E5M2, "an fp8 kind");
   const __half2 h(__nv_cvt_fp8x2_to_halfraw2(
-      static_cast<__nv_fp8x2_storage_t>(two & 0xffffu), __NV_E4M3));
+      static_cast<__nv_fp8x2_storage_t>(two & 0xffffu),
+      KV == cs::E4M3 ? __NV_E4M3 : __NV_E5M2));
   const float2 f = __half22float2(h);
   return __byte_perm(__float_as_uint(f.x), __float_as_uint(f.y), 0x7632);
 }
 
-// K3 over e4m3: a tile's bytes (BK rows of D, row stride D) widened into
-// the bf16 tile the MMAs read (row stride KS), 16 bytes in and 32 out a
-// step, steps tid, tid + nt, ... (zero rows of a ragged tile stay zero).
-// A form without the conversion units (the byte's bits moved into a
-// bf16's places, then one multiply by 2^120) measured slower on the H100
-// (PERF.md).
-template <int D>
-__device__ __forceinline__ void e4m3_tile(bf16* dst, const uint8_t* src,
-                                          int tid, int nt) {
-  constexpr int KS = stride(D), CH = D / 16;  // 16-byte chunks per row
-  for (int i = tid; i < BK * CH; i += nt) {
-    const int c = i / CH, ch = i % CH;
-    const uint4 w = *reinterpret_cast<const uint4*>(src + c * D + ch * 16);
-    uint4* o = reinterpret_cast<uint4*>(dst + c * KS + ch * 16);
-    o[0] = make_uint4(e4m3x2_to_bf16x2(w.x), e4m3x2_to_bf16x2(w.x >> 16),
-                      e4m3x2_to_bf16x2(w.y), e4m3x2_to_bf16x2(w.y >> 16));
-    o[1] = make_uint4(e4m3x2_to_bf16x2(w.z), e4m3x2_to_bf16x2(w.z >> 16),
-                      e4m3x2_to_bf16x2(w.w), e4m3x2_to_bf16x2(w.w >> 16));
+// K/V element of a cache of kind KV (a cs::DType code) as the tensor-core
+// kernels read it: fp8 bytes, bf16, f16 or f32
+template <int KV> struct KVElem { using T = uint8_t; };
+template <> struct KVElem<cs::BF16> { using T = bf16; };
+template <> struct KVElem<cs::F16> { using T = __half; };
+template <> struct KVElem<cs::F32> { using T = float; };
+template <int KV>
+using KVT = typename KVElem<KV>::T;
+
+__host__ __device__ constexpr bool is_f8(int kv) {
+  return kv == cs::E4M3 || kv == cs::E5M2;
+}
+
+// One 16-byte chunk of a KV row (16 fp8, 8 f16 or bf16, or 4 f32 elements)
+// into bf16 at dst (32, 16 or 8 bytes, as aligned): fp8 widened
+// exactly, f16 and f32 rounded to nearest even (cvt.rn.bf16x2.f32 after
+// the exact f16 -> f32), as the TPU kernels' ``astype`` does.
+template <int KV>
+__device__ __forceinline__ void chunk_to_bf16(bf16* dst, uint4 w) {
+  if constexpr (is_f8(KV)) {
+    uint4* o = reinterpret_cast<uint4*>(dst);
+    o[0] = make_uint4(f8x2_to_bf16x2<KV>(w.x), f8x2_to_bf16x2<KV>(w.x >> 16),
+                      f8x2_to_bf16x2<KV>(w.y), f8x2_to_bf16x2<KV>(w.y >> 16));
+    o[1] = make_uint4(f8x2_to_bf16x2<KV>(w.z), f8x2_to_bf16x2<KV>(w.z >> 16),
+                      f8x2_to_bf16x2<KV>(w.w), f8x2_to_bf16x2<KV>(w.w >> 16));
+  } else if constexpr (KV == cs::F16) {
+    const uint32_t in[4] = {w.x, w.y, w.z, w.w};
+    uint32_t out[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f =
+          __half22float2(*reinterpret_cast<const __half2*>(&in[j]));
+      out[j] = pack(f.x, f.y);
+    }
+    *reinterpret_cast<uint4*>(dst) = make_uint4(out[0], out[1], out[2],
+                                                out[3]);
+  } else if constexpr (KV == cs::F32) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(
+        pack(__uint_as_float(w.x), __uint_as_float(w.y)),
+        pack(__uint_as_float(w.z), __uint_as_float(w.w)));
+  } else {  // bf16: as it is
+    *reinterpret_cast<uint4*>(dst) = w;
   }
 }
 
-// S = Q K^T over an e4m3 K tile (K8: BK swizzled rows of D bytes), then
-// the mask and online softmax as scores(); Qw is staged by f8_q_col. The
-// lane's words of all NS keys for 4 k-steps are held at once, so Q's
-// fragments are read once a tile (holding half of them and reading Q
-// twice measured 3% slower at <128, 2>, PERF.md).
-template <int D, int MT, class Visible>
+// K3 over an fp8, f16 or f32 cache: a tile's rows in their own width (BK
+// rows of D elements, row stride D elements) converted into the bf16 tile
+// the MMAs read (row stride KS), one 16-byte chunk a step, steps tid,
+// tid + nt, ... (zero rows of a ragged tile stay zero). For e4m3 a form
+// without the conversion units (the byte's bits moved into a bf16's
+// places, then one multiply by 2^120) measured slower on the H100
+// (PERF.md).
+template <int D, int KV>
+__device__ __forceinline__ void convert_tile(bf16* dst, const uint8_t* src,
+                                             int tid, int nt) {
+  constexpr int KS = stride(D);
+  constexpr int EPC = 16 / sizeof(KVT<KV>);   // elements a chunk
+  constexpr int CH = D / EPC;                 // chunks a row
+  for (int i = tid; i < BK * CH; i += nt) {
+    const int c = i / CH, ch = i % CH;
+    chunk_to_bf16<KV>(dst + c * KS + ch * EPC,
+                      *reinterpret_cast<const uint4*>(
+                          src + (c * CH + ch) * 16));
+  }
+}
+
+// S = Q K^T over an fp8 K tile of kind KV (K8: BK swizzled rows of D
+// bytes), then the mask and online softmax as scores(); Qw is staged by
+// f8_q_col. The lane's words of all NS keys for 4 k-steps are held at
+// once, so Q's fragments are read once a tile (holding half of them and
+// reading Q twice measured 3% slower at <128, 2>, PERF.md).
+template <int D, int MT, int KV, class Visible>
 __device__ __forceinline__ void scores_f8(const bf16* Qw, const uint8_t* K8,
                                           float scale2, bool all_visible,
                                           Visible visible, State<D, MT>& st,
@@ -461,8 +515,8 @@ __device__ __forceinline__ void scores_f8(const bf16* Qw, const uint8_t* K8,
                            : k4 == 1 ? kw[j].y
                            : k4 == 2 ? kw[j].z
                                      : kw[j].w;
-        const uint32_t b0 = e4m3x2_to_bf16x2(w);
-        const uint32_t b1 = e4m3x2_to_bf16x2(w >> 16);
+        const uint32_t b0 = f8x2_to_bf16x2<KV>(w);
+        const uint32_t b1 = f8x2_to_bf16x2<KV>(w >> 16);
 #pragma unroll
         for (int t = 0; t < MT; ++t) mma(s[t][j], qa[t], b0, b1);
       }
@@ -472,9 +526,9 @@ __device__ __forceinline__ void scores_f8(const bf16* Qw, const uint8_t* K8,
                       [](int j, int col) { return f8_key(j, col); }, st, pa);
 }
 
-// O += P V over an e4m3 V tile (V8 as scores_f8's K8); P's columns are the
-// keys f8_key gave them.
-template <int D, int MT>
+// O += P V over an fp8 V tile of kind KV (V8 as scores_f8's K8); P's
+// columns are the keys f8_key gave them.
+template <int D, int MT, int KV>
 __device__ __forceinline__ void accumulate_f8(const uint8_t* V8,
                                               const PFrag<MT>& pa,
                                               State<D, MT>& st) {
@@ -508,8 +562,8 @@ __device__ __forceinline__ void accumulate_f8(const uint8_t* V8,
 #pragma unroll
       for (int m = 0; m < 4; ++m) {
         const int sh = 16 * (m & 1);
-        const uint32_t b0 = e4m3x2_to_bf16x2(x01[m >> 1] >> sh);
-        const uint32_t b1 = e4m3x2_to_bf16x2(x23[m >> 1] >> sh);
+        const uint32_t b0 = f8x2_to_bf16x2<KV>(x01[m >> 1] >> sh);
+        const uint32_t b1 = f8x2_to_bf16x2<KV>(x23[m >> 1] >> sh);
 #pragma unroll
         for (int t = 0; t < MT; ++t)
           mma(st.o[t][4 * wd + m], pa[t][k], b0, b1);

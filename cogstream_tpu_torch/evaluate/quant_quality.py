@@ -163,8 +163,9 @@ def tf_logits(model: Qwen2Model, ids: torch.Tensor,
 def cached_logits(model: Qwen2Model, ids: torch.Tensor, cfg: Qwen2Config,
                   max_len: int, kv_dtype=None) -> torch.Tensor:
     """The prefill THROUGH a KV cache (the serving path) → [S, V] f32.
-    ``kv_dtype=torch.float8_e4m3fn`` runs it over the fp8 cache, where
-    the cache's rounding changes the numbers."""
+    ``kv_dtype`` runs it over a cache of that dtype (any
+    ``runtime.session.check_kv_dtype`` takes: e4m3 / e5m2 for the fp8
+    caches), where the cache's rounding changes the numbers."""
     from ..runtime.session import check_kv_dtype
 
     kv_dtype = check_kv_dtype(kv_dtype, model.dtype)

@@ -65,17 +65,14 @@ from torch import nn
 
 from ..config import Qwen2Config
 from ..ops.attention import causal_gqa_attention
-from ..ops.lm_attention import (DECODE_MAX_S, CacheRows, as_cache_rows,
-                                decode_attention, effective_kv_positions,
+from ..ops.lm_attention import (DECODE_MAX_S, FP8_DTYPES, CacheRows,
+                                as_cache_rows, decode_attention,
+                                effective_kv_positions,
                                 prefill_flash_attention)
 from ..ops.quant import QuantLinear, RowShard, row_parallel_linear
 from ..ops.rope import apply_rope, rope_angles
 from ..parallel.mesh import all_reduce, copy_to_model
 from .vision_encoder import default_device, linear
-
-W8A8_MESH_MSG = ("int8 activations (w8a8_prefill / w4a8_decode, stage-2 "
-                 "--w8a8-forward) in training on model-axis shards are not "
-                 "ported yet (ROADMAP Queue 1 #9)")
 
 # (adapter tree, gate) pairs. An adapter tree is {"layers": [per-layer
 # {"attn": {"q_proj": {"a": [din, r], "b": [r, dout]}, ...}, "mlp":
@@ -149,10 +146,12 @@ class KVCache:
 
 def init_kv_cache(cfg: Qwen2Config, batch: int, max_len: int, dtype=None,
                   device=None, kv_heads: Optional[int] = None) -> KVCache:
-    """An empty cache; ``dtype`` defaults to the model's, and
-    ``torch.float8_e4m3fn`` gives the fp8 KV cache (writes cast into it,
-    K3 / K4 read its bytes). ``kv_heads`` is a sharded decoder's local kv
-    head count (:func:`local_kv_heads`), the config's by default."""
+    """An empty cache; ``dtype`` defaults to the model's. Another float
+    dtype (``torch.float8_e4m3fn`` / ``float8_e5m2``: the fp8 KV caches;
+    f16, or f32 / bf16 under the other model dtype) takes writes cast
+    into it (:func:`to_cache`), and K3 / K4 read its own elements.
+    ``kv_heads`` is a sharded decoder's local kv head count
+    (:func:`local_kv_heads`), the config's by default."""
     dtype = dtype or cfg.torch_dtype
     device = default_device(device)
     shape = (cfg.num_hidden_layers, batch, max_len,
@@ -165,20 +164,31 @@ def init_kv_cache(cfg: Qwen2Config, batch: int, max_len: int, dtype=None,
         write_index=0)
 
 
-E4M3_MAX = 448.0   # e4m3's largest finite value
+# the largest finite value of each cache dtype whose cast overflows
+CACHE_MAX = {torch.float8_e4m3fn: 448.0, torch.float8_e5m2: 57344.0,
+             torch.float16: 65504.0}
 
 
 def saturate(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``x`` ready to be cast into a cache of ``dtype``: clamped to +-448
-    for an e4m3 cache (a cast of it then saturates instead of giving NaN),
-    itself otherwise. Torch's own cast past 464 differs between versions
-    (NaN in 2.11, as JAX's ``astype``; +-448 in 2.13), so the port clamps
-    first and writes +-448 on every version (ROADMAP Queue 3, deliberate
-    departures: JAX's NaN would poison every later attention over the
-    slot). Below that the bytes are the plain cast's, which JAX's equal."""
-    if dtype == torch.float8_e4m3fn and x.dtype != dtype:
-        return x.clamp(-E4M3_MAX, E4M3_MAX)
-    return x
+    """``x`` ready to be cast into a cache of ``dtype``: clamped to the
+    dtype's largest finite value (:data:`CACHE_MAX`: +-448 for e4m3,
+    +-57344 for e5m2, +-65504 for f16), so that a cast of it saturates
+    there, itself otherwise. Past those JAX's ``astype`` gives NaN (e4m3)
+    or +-inf (e5m2 from 61440, f16 from 65520), and torch's e4m3 cast
+    past 464 differs between versions (NaN in 2.11, +-448 in 2.13), so
+    the port clamps first and writes the largest value on every version
+    (ROADMAP Queue 3, deliberate departures: one NaN or inf slot would
+    turn every later attention over it into NaN). Below that the bytes
+    are the plain cast's, which JAX's equal. The bound is the largest
+    value of ``x``'s dtype not above it (a bf16 ``x`` into f16 clamps at
+    65280: bf16 has no 65504, and its 65536 casts to inf)."""
+    top = CACHE_MAX.get(dtype)
+    if top is None or x.dtype == dtype:
+        return x
+    lim = torch.tensor(top, dtype=x.dtype)
+    if lim.item() > top:
+        lim = torch.nextafter(lim, lim.new_zeros(()))
+    return x.clamp(-lim.item(), lim.item())
 
 
 def to_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -188,10 +198,11 @@ def to_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def kv_bytes(t: torch.Tensor) -> torch.Tensor:
-    """An fp8 cache tensor as a ``uint8`` view of the same storage, any
-    other as itself: index copies of an e4m3 cache move its bytes (not
-    every torch op has a Float8 kernel on CUDA), never a widened copy."""
-    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+    """An fp8 (e4m3 or e5m2) cache tensor as a ``uint8`` view of the same
+    storage, any other as itself: index copies of an fp8 cache move its
+    bytes (not every torch op has a Float8 kernel on CUDA, and gloo
+    refuses fp8 tensors), never a widened copy."""
+    return t.view(torch.uint8) if t.dtype in FP8_DTYPES else t
 
 
 # ---------------------------------------------------------------------------
@@ -559,7 +570,12 @@ def qwen2_forward_train(
     Every rank of a model group draws the same dropout masks: a
     row-parallel input's is its slice of the whole input's. ``remat``
     replays a layer's collectives in the backward, the same ones in the
-    same order on every rank.
+    same order on every rank. Int8 activations run on the shards as on
+    one device: a row-parallel W8A8 site takes the whole row's absmax and
+    reduces its int32 sums before the epilogue
+    (``ops/quant._W8A8STE``), an int4 W4A8 form reads the site's
+    :class:`RowShard` (:func:`row_shards`), so each product is the whole
+    one's.
 
     ``attn_override`` replaces the attention: a cache-free ``f(q, k, v,
     positions)`` (the sequence-parallel ring, :func:`qwen2_forward_sp`).
@@ -582,8 +598,7 @@ def qwen2_forward_train(
             groups["mlp"] = tp.group
             cols["down_proj"] = (cfg.intermediate_size, *tp.mlp)
     w8 = (cfg.w8a8_prefill and S >= 16) or (cfg.w4a8_decode and S < 16)
-    if w8 and tp is not None and tp.mesh.model > 1:
-        raise NotImplementedError(W8A8_MESH_MSG)
+    shards = row_shards(model)
     positions = positions.to(torch.int32)
     angles = rope_angles(positions.clamp(min=0), D, cfg.rope_theta)
     kv_valid = positions >= 0
@@ -601,7 +616,8 @@ def qwen2_forward_train(
             g = groups[group]
             row = g if name in cols else None
             if row is not None:
-                y = row_parallel_linear(lin, inp, row, w8)
+                y = row_parallel_linear(lin, inp, row, w8,
+                                        rows=shards[name])
             else:
                 y = lin(inp, w8) if isinstance(lin, QuantLinear) \
                     else lin(inp)

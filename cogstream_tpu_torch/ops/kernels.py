@@ -101,8 +101,9 @@ _SIGNATURES = {
 }
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# K/V cache dtype codes of K3 and K4 (the fp8 cache is e4m3 only)
-KV_DTYPE_CODES = {**DTYPE_CODES, torch.float8_e4m3fn: 2}
+# K/V cache dtype codes of K3 and K4 (csrc/common.cuh DType)
+KV_DTYPE_CODES = {**DTYPE_CODES, torch.float8_e4m3fn: 2,
+                  torch.float8_e5m2: 3, torch.float16: 4}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -245,10 +246,11 @@ def dtype_code(t: torch.Tensor) -> int:
 
 
 def kv_dtype_code(t: torch.Tensor) -> int:
-    """Code of a K/V cache operand of K3 / K4: f32, bf16 or e4m3."""
+    """Code of a K/V cache operand of K3 / K4: f32, bf16, e4m3, e5m2 or
+    f16."""
     if t.dtype not in KV_DTYPE_CODES:
-        raise TypeError(f"K/V cache takes float32, bfloat16 or "
-                        f"float8_e4m3fn, got {t.dtype}")
+        raise TypeError("K/V cache takes float32, bfloat16, float16, "
+                        f"float8_e4m3fn or float8_e5m2, got {t.dtype}")
     return KV_DTYPE_CODES[t.dtype]
 
 

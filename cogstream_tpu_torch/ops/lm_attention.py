@@ -10,16 +10,20 @@ f32 runs the CUDA-core f32 tile (``cs_gqa_attention``; K4 then merges its
 chunks with ``cs_gqa_combine``). A bf16 head dim the tensor-core kernels
 do not take raises; nothing falls back.
 
-The K/V cache may also be ``torch.float8_e4m3fn`` (the fp8 KV cache,
-``kv_dtype``), under either query dtype: every route then reads the
-cache's own e4m3 bytes and widens them on chip (the TPU kernels'
-``k_ref[0].astype(q.dtype)``), so the K/V bytes read halve against bf16
-and no bf16 copy of the cache is made. K4's tensor-core kernel widens
-in registers, each MMA fragment just before its MMA; K3's widens each
-tile once a block into a bf16 tile (``csrc/lm_attention.cu``). Those
-calls are counted in ``.fp8_launches`` as well. The plain version
-upcasts only the read window it gathers, as the JAX package's XLA
-branch does.
+The K/V cache may be in another dtype than q (``kv_dtype``): e4m3 or
+e5m2 (the fp8 KV caches) or f16 under either query dtype, f32 under bf16
+queries, bf16 under f32 ones. Every route reads the cache's own elements
+and converts them to q's compute dtype on chip (the TPU kernels'
+``k_ref[0].astype(q.dtype)``): fp8, f16 and bf16 widen exactly, f16 and
+f32 under bf16 queries round to nearest even. No converted copy of the
+cache is made, so an fp8 cache's K/V bytes read halve against bf16. K4's
+tensor-core kernel widens fp8 in registers, each MMA fragment just
+before its MMA, and narrows f16 / f32 as a warp stages its tile; K3's
+converts each tile once a block into a bf16 tile
+(``csrc/lm_attention.cu``). ``.kv_launches`` counts the calls by the
+cache's dtype name, ``.fp8_launches`` those over an e4m3 or e5m2 cache.
+The plain version converts only the read window it gathers, as the JAX
+package's XLA branch does.
 
 K4's bf16 route is one kernel launch per call: no pre-pass (the kernel
 reads each key tile's positions itself), no second pass (the last block
@@ -64,9 +68,10 @@ TC_HEAD_DIMS = (64, 128)    # head dims of K3's and K4's tensor-core kernels
 # (ptxas on sm_90a: <128, 2> 253 registers and <64, 2> 169 without spills;
 # <64, 4> spills ~1 KB)
 DECODE_TC_MAX_MT = {64: 2, 128: 2}
-# K4 tensor-core kernel over an e4m3 cache: warps a block (csrc
-# dec_warps, which the library's cs_decode_tc_warps returns)
+# K4 tensor-core kernel over an fp8 (e4m3 or e5m2) cache: warps a block
+# (csrc dec_warps, which the library's cs_decode_tc_warps returns)
 E4M3_DECODE_WARPS = 8
+FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
 _PLAIN_Q_CHUNK = 256        # plain version: query rows per dense block
 
 
@@ -136,7 +141,7 @@ def gqa_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_rows(rows, q.shape[0], k.shape[0])
         idx = list(rows.host)
         k, v = k[idx], v[idx]
-    # an fp8 cache: only the gathered read window is widened
+    # a cache in another dtype: only the gathered read window is converted
     k, v = k[:, :T].to(q.dtype), v[:, :T].to(q.dtype)
     outs = []
     for s0 in range(0, q.shape[1], _PLAIN_Q_CHUNK):
@@ -158,9 +163,9 @@ def _check_operands(q, k, v, q_positions, eff_kv_pos,
         _check_rows(rows, B, Bk)
         kernels.require(rows.dev, "rows", dev, torch.int32, (B,))
     kernels.require(q, "q", dev)
-    if k.dtype not in (q.dtype, torch.float8_e4m3fn):
-        raise TypeError(f"k is {k.dtype}: K3 / K4 take a K/V cache in q's "
-                        f"dtype ({q.dtype}) or float8_e4m3fn")
+    if k.dtype not in kernels.KV_DTYPE_CODES:
+        raise TypeError(f"k is {k.dtype}: K3 / K4 take a K/V cache in "
+                        f"{', '.join(map(str, kernels.KV_DTYPE_CODES))}")
     kernels.require(k, "k", dev, k.dtype, (Bk, T, Hkv, D))
     kernels.require(v, "v", dev, k.dtype, (Bk, T, Hkv, D))
     kernels.require(q_positions, "q_positions", dev, torch.int32, (B, S))
@@ -184,9 +189,9 @@ def prefill_flash_attention(
     """K3: causal GQA flash attention over a position-tagged KV region,
     the drop-in for ``causal_gqa_attention`` with validity pre-folded
     into ``eff_kv_pos``. Any T; bf16 (tensor-core tile, head dim 64 or
-    128) or f32 operands, k and v in q's dtype or e4m3. With ``rows``, k
-    and v are a [B_pool, T, Hkv, D] pool cache and input row b reads its
-    row ``rows[b]``."""
+    128) or f32 queries, k and v (one dtype) in f32, bf16, f16, e4m3 or
+    e5m2. With ``rows``, k and v are a [B_pool, T, Hkv, D] pool cache and
+    input row b reads its row ``rows[b]``."""
     B, S, Hq, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
@@ -225,26 +230,23 @@ def prefill_flash_attention(
             *ptrs, None, None, None, B, S, Hq, Hkv, D, T, kv_len, n_tiles, 1,
             float(scale), code, kv_code, rows_ptr, kernels.stream_ptr(q)),
             "cs_gqa_attention")
-    prefill_flash_attention.launches += 1
-    if rows is not None:
-        prefill_flash_attention.rows_launches += 1
-    if k.dtype == torch.float8_e4m3fn:
-        prefill_flash_attention.fp8_launches += 1
+    _count(prefill_flash_attention, k.dtype, rows)
     return out
 
 
 def decode_plan(B: int, Hkv: int, R: int, D: int, kv_len: int,
                 sms: int, kv_bytes: int = 2) -> Tuple[int, int, int, int]:
     """Launch plan of K4's tensor-core kernel for R = S * G folded rows
-    per kv head over a cache of ``kv_bytes``-byte K/V elements (2: bf16,
-    1: e4m3): (m-tiles per warp, row groups, key tiles per split,
-    splits). The rows take the fewest m16 tiles (at most
+    per kv head over a cache of ``kv_bytes``-byte K/V elements (1: e4m3
+    or e5m2; 2: bf16 or f16; 4: f32): (m-tiles per warp, row groups, key
+    tiles per split, splits). The rows take the fewest m16 tiles (at most
     ``DECODE_TC_MAX_MT[D]`` per block; more rows take more row groups);
     the cache splits so that the blocks about fill the ``sms`` SMs. An
-    e4m3 block has ``E4M3_DECODE_WARPS`` warps, each widening its own
+    fp8 block has ``E4M3_DECODE_WARPS`` warps, each widening its own
     tiles on its chain of latencies, so its splits round up to whole
     tiles for every warp: the longest warp's chain sets the block's
-    time."""
+    time. f16 and f32 take bf16's plan (4 warps, their tiles narrowed to
+    bf16 as they are staged)."""
     mt = 1
     while mt < DECODE_TC_MAX_MT[D] and 16 * mt < R:
         mt *= 2
@@ -292,9 +294,9 @@ def decode_attention(
     """K4: cached decode attention over the first ``kv_window`` slots,
     split over the cache (flash-decoding). bf16 (head dim 64 or 128): one
     launch of the tensor-core kernel, which merges the splits itself; f32:
-    the CUDA-core tile, then ``cs_gqa_combine``. k and v in q's dtype or
-    e4m3. ``rows`` as for :func:`prefill_flash_attention`; the split
-    partials and tickets stay indexed by the input row."""
+    the CUDA-core tile, then ``cs_gqa_combine``. k and v as for
+    :func:`prefill_flash_attention`, and ``rows``; the split partials and
+    tickets stay indexed by the input row."""
     B, S, Hq, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
@@ -354,19 +356,28 @@ def decode_attention(
             part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
             out.data_ptr(), B, S, Hq, Hkv, D, n_chunks, code, stream),
             "cs_gqa_combine")
-    decode_attention.launches += 1
-    if rows is not None:
-        decode_attention.rows_launches += 1
-    if k.dtype == torch.float8_e4m3fn:
-        decode_attention.fp8_launches += 1
+    _count(decode_attention, k.dtype, rows)
     return out
+
+
+def _count(wrapper, kv_dtype: torch.dtype, rows) -> None:
+    """One launch of K3 or K4 (``wrapper``) over a ``kv_dtype`` cache."""
+    wrapper.launches += 1
+    if rows is not None:
+        wrapper.rows_launches += 1
+    if kv_dtype in FP8_DTYPES:
+        wrapper.fp8_launches += 1
+    name = str(kv_dtype).removeprefix("torch.")
+    wrapper.kv_launches[name] = wrapper.kv_launches.get(name, 0) + 1
 
 
 prefill_flash_attention.launches = 0       # every K3 launch
 prefill_flash_attention.tc_launches = 0    # those on the tensor-core tile
 prefill_flash_attention.rows_launches = 0  # those with a pool row map
-prefill_flash_attention.fp8_launches = 0   # those over an e4m3 cache
+prefill_flash_attention.fp8_launches = 0   # those over an e4m3 / e5m2 cache
+prefill_flash_attention.kv_launches = {}   # every launch by cache dtype
 decode_attention.launches = 0              # every K4 call
 decode_attention.tc_launches = 0           # those on the tensor-core kernel
 decode_attention.rows_launches = 0         # those with a pool row map
-decode_attention.fp8_launches = 0          # those over an e4m3 cache
+decode_attention.fp8_launches = 0          # those over an e4m3 / e5m2 cache
+decode_attention.kv_launches = {}          # every call by cache dtype

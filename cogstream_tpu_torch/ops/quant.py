@@ -485,7 +485,27 @@ class _W8A8STE(torch.autograd.Function):
     ``_w8a8_matmul_ste``): the primal is the serving W8A8 path bit for
     bit; the backward treats the activation round as identity, ``dx = g
     @ W_deq^T`` with ``W_deq = (q·scale)`` in g's dtype; the frozen int8
-    weights get no gradient. ``x`` is 2D."""
+    weights get no gradient. ``x`` is 2D.
+
+    On model-axis shards (JAX's GSPMD partition of the same function):
+
+    * a row shard (o_proj, down_proj: ``reduce`` is the model group) holds
+      this rank's input channels. The forward takes the whole row's absmax
+      (a MAX over the group) and all-reduces the int32 sums before the
+      epilogue, so every rank's output is the whole product's bits. Its
+      ``dx = g @ W_local^T`` (g whole on every rank) is this rank's
+      channels of the whole ``dx``, and nothing is reduced;
+    * a column shard (q / k / v, gate / up: ``reduce`` None) holds whole
+      rows of ``x`` (its input enters through ``parallel.mesh.
+      copy_to_model``) and this rank's output channels: the forward is
+      local, and ``dx`` is this rank's partial sum, which
+      ``copy_to_model``'s backward all-reduces.
+
+    The collectives run in ``forward``, where autograd is off, on the
+    absmax and the int32 sums, fresh tensors that nothing saves (an
+    in-place all-reduce of a saved tensor gives a wrong gradient and no
+    error). Under ``torch.utils.checkpoint`` the recomputed forward runs
+    the same collectives in the same order on every rank."""
 
     @staticmethod
     def forward(ctx, x, q, scale, reduce=None):

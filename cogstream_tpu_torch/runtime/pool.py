@@ -56,7 +56,7 @@ class SessionPool:
                  adapters: Optional[Dict] = None,
                  summary_forward: bool = True, kv_dtype=None,
                  seed: int = 0, encoder_int8: bool = False, mesh=None):
-        # the shared cache's dtype: the model's, or e4m3 (the fp8 cache)
+        # the shared cache's dtype: the model's, or another (check_kv_dtype)
         kv_dtype = check_kv_dtype(kv_dtype, model.text.dtype)
         # mesh: this rank's shard of the model; cfg's serving flags;
         # encoder_int8: the pool (and every session on it) ingests through

@@ -64,6 +64,7 @@ from ..parallel.mesh import agree, broadcast_from_first, broadcast_object
 from ..parallel.sharding import (ensure_cogreasoner_sharded,
                                  gather_kv_heads, scatter_kv_heads,
                                  shard_adapters, sharded_mesh)
+from ..ops.kernels import KV_DTYPE_CODES
 from ..ops.lm_attention import cache_rows
 from .generate import (decode_new_tokens, generate_tokens,
                        generate_tokens_lookahead)
@@ -224,17 +225,18 @@ def _compact_row_device(cache: KVCache, gidx: torch.Tensor, n_new: int,
 
 
 def check_kv_dtype(kv_dtype, model_dtype: torch.dtype) -> torch.dtype:
-    """The dtype of a session's or pool's KV cache: the model's (``None``
-    or the model's dtype) or ``torch.float8_e4m3fn`` (the fp8 cache, read
-    by K3 / K4 as e4m3 bytes). Any other cache dtype raises."""
-    if kv_dtype is None or kv_dtype == model_dtype:
+    """The dtype of a session's or pool's KV cache: the model's (``None``)
+    or any float dtype K3 / K4 read (``ops.kernels.KV_DTYPE_CODES``: the
+    fp8 caches e4m3 / e5m2, f16, f32 under a bf16 model, bf16 under an
+    f32 one; JAX's ``init_kv_cache`` takes any). Another dtype (an
+    integer one, float64) raises ``TypeError``."""
+    if kv_dtype is None:
         return model_dtype
-    if kv_dtype == torch.float8_e4m3fn:
-        return kv_dtype
-    raise NotImplementedError(
-        f"a {kv_dtype} KV cache under a {model_dtype} model is not ported "
-        "yet (ROADMAP Queue 1 #12): kv_dtype takes the model's dtype or "
-        "torch.float8_e4m3fn")
+    if kv_dtype not in KV_DTYPE_CODES:
+        raise TypeError(f"kv_dtype {kv_dtype} is no KV cache dtype: it "
+                        "takes one of "
+                        + ", ".join(map(str, KV_DTYPE_CODES)))
+    return kv_dtype
 
 
 class StreamingSession:
@@ -1005,7 +1007,7 @@ class StreamingSession:
         ``torch_rng_state``, and two words hashed from it under JAX's
         ``rng_key``, so a JAX session restores the snapshot too (the two
         packages' sampling streams differ anyway). The K/V keep the
-        cache's dtype: an fp8 cache stores its e4m3 bytes. Weights are not
+        cache's dtype: an fp8 cache stores its bytes. Weights are not
         included.
 
         Sharded (every rank calls it): the model group's first rank
@@ -1152,8 +1154,9 @@ class StreamingSession:
         kv = {}
         if reader:
             # cast into the session's cache dtype, as JAX does: a bf16
-            # snapshot loads into an fp8 session (saturating at +-448 where
-            # JAX's cast gives NaN, ROADMAP Queue 3)
+            # snapshot loads into an fp8 session (saturating at the cache
+            # dtype's largest value where JAX's cast gives NaN or inf,
+            # ROADMAP Queue 3)
             for name, cache_t in (("k", c.k), ("v", c.v)):
                 kv[name] = to_cache(torch.as_tensor(
                     snap["arrays"].pop(name)).to(self.device), cache_t.dtype)

@@ -23,7 +23,9 @@ on the model axis unless ``data_parallel`` says otherwise, JAX's
 plans (plain or quantized bases: their stores slice), and the turn is NOT
 split on ``data``: as in JAX, which calls no ``shard_batch`` for this
 B = 1 batch, every data replica computes the same turn.
-``--w8a8-forward`` on model-axis shards raises (ROADMAP Queue 1 #9 (c)).
+``--w8a8-forward`` runs there too: a row-parallel site's W8A8 takes the
+whole row's absmax and reduces its int32 sums before the epilogue
+(``ops/quant._W8A8STE``).
 
 With ``sequence_parallel`` N (``--sequence-parallel N`` under ``torchrun
 --nproc-per-node N``) every rank of the world sits on one ``sp`` axis
@@ -48,9 +50,8 @@ import torch
 from ..config import CogReasonerConfig, LoRAConfig
 from ..models import cogreasoner
 from ..models.lora import init_cogreasoner_lora
-from ..models.qwen2 import W8A8_MESH_MSG
 from ..models.vision_encoder import build_vision_metadata
-from ..parallel.mesh import SequenceMesh, mesh_shape, world_size
+from ..parallel.mesh import SequenceMesh, world_size
 from ..parallel.sharding import (LoraLayout, cogreasoner_param_specs,
                                  shard_cogreasoner, training_mesh)
 from ..runtime.history import parse_selection, rewrite_history, \
@@ -62,15 +63,12 @@ from .trainer import (IGNORE_INDEX, init_train_state,
                       stop_requested, to_device)
 
 
-def check_parallel(tcfg, int8_act: bool, world: int = 1) -> None:
+def check_parallel(tcfg, world: int = 1) -> None:
     """What stage 2 refuses on ``world`` ranks: JAX's ``sequence_parallel``
     checks, in its order (exclusive with ``model_parallel``, a power of
     two, dividing ``max_seq_len``, ``n`` ranks), where the port's one
     process a rank also refuses more ranks than ``n`` (a rank cannot idle
-    through the step); without sequence parallelism, int8 activations
-    (``int8_act``: ``--w8a8-forward``) with a model axis above 1
-    (``make_mesh``'s sizes over ``world`` ranks; ROADMAP Queue 1 #9
-    (c))."""
+    through the step)."""
     n = tcfg.sequence_parallel
     if n > 1:
         if tcfg.model_parallel and tcfg.model_parallel > 1:
@@ -92,10 +90,6 @@ def check_parallel(tcfg, int8_act: bool, world: int = 1) -> None:
             raise ValueError(f"sequence_parallel={n} uses {n} of {world} "
                              "ranks; the rest would idle — run "
                              f"--nproc-per-node {n}")
-        return
-    _, tp = mesh_shape(tcfg.data_parallel, tcfg.model_parallel, world)
-    if tp > 1 and int8_act:
-        raise NotImplementedError(W8A8_MESH_MSG)
 
 
 @dataclasses.dataclass
@@ -240,8 +234,7 @@ class Stage2Trainer:
         initial adapter tree (default: ``init_cogreasoner_lora`` from
         ``tcfg.seed``). ``mesh``: the ``SequenceMesh`` of a
         ``sequence_parallel`` run (default: built over the world)."""
-        check_parallel(tcfg, cfg.text.w8a8_prefill or cfg.text.w4a8_decode,
-                       world_size())
+        check_parallel(tcfg, world_size())
         self.sp = None
         if tcfg.sequence_parallel > 1:
             self.sp = self.mesh = mesh or SequenceMesh(tcfg.sequence_parallel)
@@ -508,8 +501,7 @@ def main(argv=None):
 
     tcfg = Stage2Config(num_epochs=args.num_epochs, baseline=args.baseline,
                         sequence_parallel=args.sequence_parallel)
-    check_parallel(tcfg, args.w8a8_forward,
-                   int(os.environ.get("WORLD_SIZE", "1")))
+    check_parallel(tcfg, int(os.environ.get("WORLD_SIZE", "1")))
     cfg = load_hf_config(os.path.join(args.model_dir, "config.json"))
     if args.w8a8_forward:
         cfg = dataclasses.replace(

@@ -1060,16 +1060,17 @@ def test_fp8_decode_replays_in_a_graph(dev):
 
 
 def test_decode_warps_match_the_library(dev):
-    """decode_plan's warps a block over an e4m3 cache are the ones the
-    built K4 kernel launches with (bf16: 4)."""
+    """decode_plan's warps a block over an fp8 (e4m3, e5m2) cache are the
+    ones the built K4 kernel launches with (bf16, f16, f32: 4)."""
     from cogstream_tpu_torch.ops import kernels
     from cogstream_tpu_torch.ops import lm_attention as lma
 
     lib = kernels.library()
     codes = kernels.KV_DTYPE_CODES
-    assert lib.cs_decode_tc_warps(codes[torch.float8_e4m3fn]) == \
-        lma.E4M3_DECODE_WARPS
-    assert lib.cs_decode_tc_warps(codes[torch.bfloat16]) == 4
+    for f8 in (torch.float8_e4m3fn, torch.float8_e5m2):
+        assert lib.cs_decode_tc_warps(codes[f8]) == lma.E4M3_DECODE_WARPS
+    for wide in (torch.bfloat16, torch.float16, torch.float32):
+        assert lib.cs_decode_tc_warps(codes[wide]) == 4
 
 
 def test_fp8_session_card_matches_cpu(dev):
@@ -1157,19 +1158,21 @@ def test_e4m3_widening_is_exact(dev, kernel, S, operand):
     torch.testing.assert_close(out, want, rtol=0, atol=0, equal_nan=True)
 
 
-def _k_widening_is_exact(dev, wrap, S):
-    """The K case of test_e4m3_widening_is_exact. Kv heads 0 and 1 hold
-    the 254 finite bytes (byte 128 h + d at dim d), heads 2 and 3 only the
-    NaN bytes 0x7f and 0xff (at dim 127): a NaN anywhere in a key's row
-    makes every score of that row NaN (0 x NaN), in both kernels."""
+def _k_widening_is_exact(dev, wrap, S, f8=torch.float8_e4m3fn):
+    """The K case of test_e4m3_widening_is_exact (and of e5m2's). Kv heads
+    0 and 1 hold every finite byte (byte 128 h + d at dim d; the others
+    zeroed), heads 2 and 3 only the NaN bytes 0x7f and 0xff (at dim 127):
+    a NaN anywhere in a key's row makes every score of that row NaN (0 x
+    NaN), in both kernels."""
     from cogstream_tpu_torch.ops import lm_attention as lma
 
     T, Hkv, D = 200, 4, 128
     G = 128 // S
-    f8, bf = torch.float8_e4m3fn, torch.bfloat16
+    bf = torch.bfloat16
     kb = torch.zeros((1, T, Hkv, D), dtype=torch.uint8)
-    kb[0, 0, :2] = torch.arange(256, dtype=torch.uint8).reshape(2, D)
-    kb[0, 0, :2, 127] = 0
+    every = torch.arange(256, dtype=torch.uint8)
+    every[~torch.isfinite(every.view(f8).float())] = 0
+    kb[0, 0, :2] = every.reshape(2, D)
     kb[0, 0, 2, 127], kb[0, 0, 3, 127] = 0x7F, 0xFF
     k8 = kb.to(dev).view(f8)
     rng = np.random.default_rng(3)
@@ -1274,3 +1277,212 @@ def test_ppermute_of_cuda_tensors_over_a_gloo_pair(dev, tmp_path):
                 assert torch.equal(gx, w_other)
     # two hops a call (forward and backward) of 105 elements
     assert got[0]["bytes"] == 2 * 2 * 105 * (4 + 2)
+
+
+# ---------------------------------------------------------------------------
+# the other KV cache dtypes: e5m2, f16, an f32 cache under bf16 queries, a
+# bf16 one under f32 queries
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kv_dtype,top", [(torch.float8_e5m2, 57344.0),
+                                          (torch.float16, 65504.0)])
+def test_cache_cast_on_the_card_equals_the_cpu(dev, kv_dtype, top):
+    """The port's cache cast (``qwen2.to_cache``) into e5m2 / f16 on the
+    card equals it on the CPU for all 65536 bf16 bit patterns and f32 draws
+    (NaN to NaN), and nothing it writes is inf: past the clamp it writes
+    the largest value (ROADMAP Queue 3)."""
+    from cogstream_tpu_torch.models.qwen2 import to_cache
+
+    bits = torch.from_numpy(np.arange(1 << 16, dtype=np.uint16).view(
+        np.int16)).view(torch.bfloat16)
+    rng = np.random.default_rng(0)
+    f32 = torch.from_numpy((rng.standard_normal(1 << 20) * 10.0 ** rng.uniform(
+        -8, 6, 1 << 20)).astype(np.float32))
+    for x in (bits, f32):
+        card = to_cache(x.to(dev), kv_dtype).cpu().float()
+        cpu = to_cache(x, kv_dtype).float()
+        nan = torch.isnan(x)
+        assert torch.equal(card[~nan], cpu[~nan])
+        assert torch.isnan(card[nan]).all()
+        assert not torch.isinf(card).any()
+        assert card[~nan].abs().max().item() <= top
+
+
+# (query dtype, cache dtype): every route of K3 / K4 over another cache
+KV_ROUTES = [pytest.param(torch.bfloat16, torch.float8_e5m2, id="bf16-e5m2"),
+             pytest.param(torch.bfloat16, torch.float16, id="bf16-f16"),
+             pytest.param(torch.bfloat16, torch.float32, id="bf16-f32"),
+             pytest.param(torch.float32, torch.bfloat16, id="f32-bf16"),
+             pytest.param(torch.float32, torch.float8_e5m2, id="f32-e5m2"),
+             pytest.param(torch.float32, torch.float16, id="f32-f16")]
+
+
+@pytest.mark.parametrize("rows", [None, [3, 1]])
+@pytest.mark.parametrize("kernel,S", [("K3", 100), ("K3", 1210),
+                                      ("K3", 2420), ("K4", 1),
+                                      ("K4", 5), ("K4", 8)])
+@pytest.mark.parametrize("D", [128, 64])
+@pytest.mark.parametrize("q_dtype,kv_dtype", KV_ROUTES)
+def test_kv_dtype_cache_kernels(dev, rows, kernel, S, D, q_dtype, kv_dtype):
+    """K3 and K4 over a ``kv_dtype`` cache against their plain versions on
+    the same values (test_fp8_cache_kernels' cases): bf16 queries on the
+    tensor-core kernels, each row within 2 bf16 ulps of its max |ref|
+    (every K3 instance the kind has: e5m2 and f16 e4m3's three, f32 the
+    64-row one), f32 queries on the CUDA-core tile (2e-5); with ``rows``
+    reading a 4-row pool, bit-identical to a contiguous copy. Counted in
+    ``.kv_launches`` under the cache's dtype; the padded query outputs 0."""
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    if q_dtype == torch.float32 and D == 64:
+        pytest.skip("the f32 route has one tile for every head dim: D = 128 "
+                    "covers it")
+    rng = np.random.default_rng(S * 10 + D + len(rows or ()) + 7)
+    B = 1 if rows is None else len(rows)
+    T, window = (4000, 3400) if S > 1000 else (1100, 1000)
+    q, k, v, qpos, eff = _decode_case(rng, dev, B, S, 7, D, T, window, 900)
+    q = q.to(q_dtype)
+    kc, vc = k.float().to(kv_dtype), v.float().to(kv_dtype)
+    wrap = (lma.prefill_flash_attention if kernel == "K3"
+            else lma.decode_attention)
+    kw = {}
+    if rows is not None:
+        kc = torch.cat([kc, kc.flip(0)]).contiguous()     # 4 pool rows
+        vc = torch.cat([vc, vc.flip(0)]).contiguous()
+        kw = dict(rows=lma.cache_rows(rows, dev))
+    name = str(kv_dtype).removeprefix("torch.")
+    n0, c0 = wrap.launches, wrap.kv_launches.get(name, 0)
+    got = wrap(q, kc, vc, qpos, eff, **kw)
+    assert (wrap.launches, wrap.kv_launches[name]) == (n0 + 1, c0 + 1)
+    ref = lma.gqa_attention_plain(q, kc, vc, qpos, eff, rows=rows)
+    if q_dtype == torch.bfloat16:
+        _two_ulps(got, ref)
+    else:
+        torch.testing.assert_close(got, ref, atol=2e-5, rtol=2e-5)
+    if S >= 2:
+        assert torch.all(got[:, -1] == 0)
+    if rows is not None:
+        assert torch.equal(got, wrap(q, kc[rows].contiguous(),
+                                     vc[rows].contiguous(), qpos, eff))
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float8_e5m2, torch.float16,
+                                      torch.float32])
+def test_kv_dtype_decode_replays_in_a_graph(dev, kv_dtype):
+    """One K4 call over an e5m2, f16 or f32 cache (bf16 queries) captured
+    in a CUDA graph, replayed after q and eff were rewritten in place,
+    equals the eager call bit for bit; two eager calls give the same
+    bits; within 2 bf16 ulps of the plain version."""
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    rng = np.random.default_rng(13)
+    q, k, v, qpos, eff = _decode_case(rng, dev, 1, 1, 7, 128, 16384, 9216,
+                                      8900)
+    q2, _, _, _, eff2 = _decode_case(rng, dev, 1, 1, 7, 128, 16384, 9216,
+                                     9000)
+    kc, vc = k.float().to(kv_dtype), v.float().to(kv_dtype)
+    first = lma.decode_attention(q, kc, vc, qpos, eff)
+    assert torch.equal(first, lma.decode_attention(q, kc, vc, qpos, eff))
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = lma.decode_attention(q, kc, vc, qpos, eff)
+    q.copy_(q2)
+    eff.copy_(eff2)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, lma.decode_attention(q, kc, vc, qpos, eff))
+    _two_ulps(out, lma.gqa_attention_plain(q, kc, vc, qpos, eff))
+
+
+@pytest.mark.parametrize("kernel,S", [("K3", 16), ("K4", 1), ("K4", 8)])
+@pytest.mark.parametrize("operand", ["V", "K"])
+def test_e5m2_widening_is_exact(dev, kernel, S, operand):
+    """test_e4m3_widening_is_exact over e5m2: all 256 byte values as the
+    one visible V row widen exactly (inf to inf, NaN to NaN), and every
+    finite byte as K (one product a score) equals the bf16 kernel on the
+    widened cache bit for bit, NaN where a NaN byte is."""
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    f8 = torch.float8_e5m2
+    wrap = (lma.prefill_flash_attention if kernel == "K3"
+            else lma.decode_attention)
+    if operand == "K":
+        _k_widening_is_exact(dev, wrap, S, f8)
+        return
+    T, Hkv, G, D = 200, 2, 7, 128
+    vb = torch.zeros((1, T, Hkv, D), dtype=torch.uint8)
+    vb[0, 0] = torch.arange(256, dtype=torch.uint8).reshape(Hkv, D)
+    v8 = vb.to(dev).view(f8)
+    k8 = torch.zeros_like(vb).to(dev).view(f8)
+    q = torch.zeros((1, S, Hkv * G, D), dtype=torch.bfloat16, device=dev)
+    eff = torch.full((1, T), lma.SENTINEL, dtype=torch.int32, device=dev)
+    eff[0, 0] = 0
+    qpos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    out = wrap(q, k8, v8, qpos, eff).float().cpu()
+    want = v8[0, 0].to(torch.bfloat16).float().cpu()       # [Hkv, D]
+    want = want.repeat_interleave(G, 0)[None, None].expand(1, S, -1, -1)
+    torch.testing.assert_close(out, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("model_dtype,kv_dtype", [
+    ("float32", torch.float8_e5m2), ("float32", torch.bfloat16),
+    ("float32", torch.float16)])
+def test_kv_dtype_session_card_matches_cpu(dev, model_dtype, kv_dtype):
+    """The tiny f32 session (test_fp8_session_card_matches_cpu's turns)
+    over an e5m2, bf16 or f16 cache on the card (the f32 CUDA-core tile
+    reading that cache) and on the CPU: the same greedy tokens,
+    selections, slot ranges and positions; the cache where pos >= 0 equal
+    in at least 99.5% of elements (f16: 99%), each element within one step
+    of the cache dtype at its (layer, token, kv head) row's max |ref|. A
+    ~1e-6 difference of the f32 keys flips a rounding only next to a tie,
+    and a flip moves later layers' keys by a sliver of the row: the finer
+    the format the more flips, and the more of its steps such a sliver is
+    at a small element (f16's share read 99.35% on an H100, and some small
+    elements more than one step of their own apart)."""
+    import copy
+    import dataclasses
+
+    from cogstream_tpu_torch.config import CogReasonerConfig
+    from cogstream_tpu_torch.models.cogreasoner import init_cogreasoner_params
+    from cogstream_tpu_torch.ops import lm_attention as lma
+    from cogstream_tpu_torch.processor.tokenizer import ByteTokenizer
+    from cogstream_tpu_torch.runtime.session import StreamingSession
+
+    cfg = CogReasonerConfig.tiny()
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, dtype=model_dtype))
+    cpu_model = init_cogreasoner_params(cfg, torch.Generator().manual_seed(0),
+                                        device="cpu")
+    tok = ByteTokenizer(image_token_id=cfg.image_token_index)
+    pv = np.random.default_rng(0).normal(size=(48, 588)).astype(np.float32)
+    name = str(kv_dtype).removeprefix("torch.")
+    c0 = lma.decode_attention.kv_launches.get(name, 0)
+    outs = []
+    for model in (cpu_model, copy.deepcopy(cpu_model).to(dev)):
+        sess = StreamingSession(model, cfg, tok, max_len=1024,
+                                kv_dtype=kv_dtype)
+        res = []
+        for stamps, q, mode in (([0.0, 1.0, 2.0], "what is it?", "AC"),
+                                ([3.0, 4.0, 5.0], "and now?", "FCC")):
+            sess.append_stream_segment(pv, (3, 4, 4), 2, timestamps=stamps)
+            r = sess.ask(q, mode=mode, max_new_tokens=8)
+            res.append((r["tokens"], r["selection"]))
+        c = sess.cache
+        outs.append((res, [(r.kind, r.start, r.end) for r in sess.ranges],
+                     c.pos.cpu(), c.k.cpu().float(), c.v.cpu().float()))
+    assert lma.decode_attention.kv_launches.get(name, 0) > c0
+    (ref, ref_r, pos, rk, rv), (got, got_r, gpos, gk, gv) = outs
+    assert got == ref and got_r == ref_r and torch.equal(gpos, pos)
+    live = pos[0] >= 0
+    # mantissa bits, smallest normal exponent: a step at |x| is
+    # 2^(max(floor(log2 |x|), emin) - bits)
+    bits, emin = {torch.float8_e5m2: (2, -14), torch.bfloat16: (7, -126),
+                  torch.float16: (10, -14)}[kv_dtype]
+    share = 0.99 if kv_dtype == torch.float16 else 0.995
+    for a, b in ((gk, rk), (gv, rv)):
+        a, b = a[:, 0, live], b[:, 0, live]
+        assert (a == b).float().mean().item() >= share
+        row_max = b.abs().amax(-1, keepdim=True)
+        step = torch.exp2(torch.floor(torch.log2(row_max)).clamp_min(emin)
+                          - bits)
+        assert torch.all((a - b).abs() <= step)

@@ -439,6 +439,59 @@ def _wrapper_case(kernel, dtype, D=None):
     return fa.flash_attention_packed_rope_fusedqkv, _vision(dtype, **dims)
 
 
+@pytest.mark.parametrize("rows", [None, [3, 1]])
+@pytest.mark.parametrize("kernel,dtype,entry,kv_arg", [
+    ("K3", torch.bfloat16, "cs_gqa_prefill_tc", 15),
+    ("K3", torch.float32, "cs_gqa_attention", 21),
+    ("K4", torch.bfloat16, "cs_gqa_decode_tc", 20),
+    ("K4", torch.float32, "cs_gqa_attention", 21)])
+@pytest.mark.parametrize("kv_dtype", [torch.float8_e5m2, torch.float16,
+                                      "other"])
+def test_kv_cache_dtype_reaches_the_entry_point(lib, kernel, dtype, entry,
+                                                kv_arg, rows, kv_dtype):
+    """An e5m2 or f16 cache under either query dtype, and an f32 cache under
+    bf16 queries or a bf16 one under f32 ("other"), reach the query dtype's
+    entry point with their K/V code (csrc/common.cuh) and the cache's own
+    K/V pointers (no converted copy), counted in ``.kv_launches`` under
+    the cache's dtype and, for e5m2, in ``.fp8_launches``. K4's launch
+    plan: an e5m2 cache takes e4m3's (1-byte elements: whole tiles for
+    E4M3_DECODE_WARPS), f16 and f32 bf16's."""
+    if kv_dtype == "other":
+        kv_dtype = torch.float32 if dtype == torch.bfloat16 else \
+            torch.bfloat16
+    S = 20 if kernel == "K3" else 1
+    B = 2
+    q, k, _, qpos, eff = _lm(dtype, B=B, S=S, T=256)
+    kc, vc = k.to(kv_dtype), (-k).to(kv_dtype)
+    if rows is not None:
+        kc, vc = torch.cat([kc, kc]), torch.cat([vc, vc])   # 4 pool rows
+    wrap = (lma.prefill_flash_attention if kernel == "K3"
+            else lma.decode_attention)
+    name = str(kv_dtype).removeprefix("torch.")
+    f0, n0 = wrap.fp8_launches, wrap.launches
+    c0 = wrap.kv_launches.get(name, 0)
+    wrap(q, kc, vc, qpos, eff, rows=rows)
+    call = lib.calls[0]
+    assert call[0] == entry
+    assert call[1][1:3] == (kc.data_ptr(), vc.data_ptr())
+    assert call[1][kv_arg] == kernels.KV_DTYPE_CODES[kv_dtype]
+    assert call[1][kv_arg] == {torch.float32: 0, torch.bfloat16: 1,
+                               torch.float8_e5m2: 3,
+                               torch.float16: 4}[kv_dtype]
+    if entry == "cs_gqa_attention":
+        assert call[1][20] == kernels.DTYPE_CODES[torch.float32]
+    fp8 = kv_dtype == torch.float8_e5m2
+    assert (wrap.fp8_launches, wrap.launches) == (f0 + fp8, n0 + 1)
+    assert wrap.kv_launches[name] == c0 + 1
+    if entry == "cs_gqa_decode_tc":
+        mt, _, per_split, n_splits = lma.decode_plan(
+            B, 4, 7, 128, 256, 132, kv_bytes=1 if fp8 else 2)
+        assert call[1][16:19] == (mt, per_split, n_splits)
+        if not fp8:   # 2- and 4-byte elements: one plan
+            assert lma.decode_plan(B, 4, 7, 128, 256, 132, kv_bytes=4) == \
+                lma.decode_plan(B, 4, 7, 128, 256, 132)
+
+
 @pytest.mark.parametrize("kernel,D", [("K3", 96), ("K3", 32), ("K1", 76),
                                       ("K1", 136), ("K4", 96), ("K4", 32),
                                       ("K5", 76), ("K5", 136)])
@@ -458,14 +511,15 @@ def test_unsupported_bf16_head_dim_raises_before_any_call(lib, kernel, D):
 @pytest.mark.parametrize("kernel,q_dtype,k_dtype,v_dtype,match", [
     pytest.param(k, torch.float16, None, None, "float32 or bfloat16", id=k)
     for k in ("K3", "K1", "K4", "K5")] + [
-    # K/V caches K3 / K4 do not take: e5m2, and k / v of mixed dtypes
+    # K/V caches K3 / K4 do not take: no float cache dtype (float64, int8),
+    # and k / v of mixed dtypes
     pytest.param(k, torch.bfloat16, kd, vd, m, id=f"{k}-{i}")
     for k in ("K3", "K4")
     for i, (kd, vd, m) in enumerate((
-        (torch.float8_e5m2, torch.float8_e5m2, "float8_e4m3fn"),
+        (torch.float64, torch.float64, "float8_e5m2"),
         (torch.float8_e4m3fn, torch.bfloat16, "v is"),
         (torch.bfloat16, torch.float8_e4m3fn, "v is"),
-        (torch.float32, torch.float32, "float8_e4m3fn")))])
+        (torch.int8, torch.int8, "float8_e5m2")))])
 def test_other_dtypes_raise_before_any_call(lib, kernel, q_dtype, k_dtype,
                                             v_dtype, match):
     wrap, args = _wrapper_case(kernel, q_dtype)

@@ -2,7 +2,9 @@
 package (``jnp.float8_e4m3fn``), on the CPU: the cast itself, K3's and
 K4's plain versions over e4m3 K/V against the JAX kernels in interpret
 mode, tiny sessions (f32 and bf16 decoders) with an fp8 cache, the pool,
-snapshots both ways, and ``quant_quality``.
+snapshots both ways, and ``quant_quality``. Then the other cache dtypes
+(``kv_dtype``): e5m2, f16, an f32 cache under a bf16 decoder and a bf16
+cache under an f32 one, through the same pieces.
 
 The fp8 operands of the kernel tests are made once, as e4m3 bytes, and
 handed to both packages as the same bytes through a ``uint8`` view.
@@ -40,6 +42,20 @@ Tolerances:
 * **quant_quality.** fp8 cached logits within 1e-4 of each row's max
   (the int8 probes' bound); the fp8kv metrics of ``compare_logits`` equal
   JAX's on the same logits.
+* **The other cache dtypes.** The cast: the same bytes as JAX's
+  ``astype`` below e5m2's 61440 and f16's 65520 (all bf16 bit patterns,
+  f32 draws); past them JAX writes +-inf and the port its clamp, +-57344 /
+  +-65504 (ROADMAP Queue 3). K3 / K4 plain versus JAX interpret: the
+  2-ulp row rule (both convert the same elements to q's compute dtype:
+  e5m2 and bf16 exactly, f16 and f32 to bf16 by round to nearest even).
+  Sessions and pools: greedy tokens, selections and ranges identical; the
+  cache where pos >= 0 by :func:`_assert_kv_rows`: an f32 decoder's
+  elements equal in at least 99.9% (found 99.96-100%) and each within one
+  step of the cache dtype at its row's max; a bf16 decoder's fp8 (e5m2)
+  cache as e4m3's; its f16 or f32 cache (the bf16 forwards' own values,
+  which differ between the packages as their bf16 caches do: 59-60% equal,
+  at most 2.3% of a row's max found) equal in more than half and within
+  5% of the row's max.
 """
 
 import dataclasses
@@ -502,22 +518,306 @@ def test_quant_quality_fp8_cache_matches_jax():
 @pytest.mark.parametrize("model_dtype,kv_dtype,ok", [
     (torch.bfloat16, None, True), (torch.bfloat16, torch.bfloat16, True),
     (torch.bfloat16, F8, True), (torch.float32, F8, True),
-    (torch.bfloat16, torch.float8_e5m2, False),
-    (torch.float32, torch.bfloat16, False),
-    (torch.bfloat16, torch.float32, False)])
+    (torch.bfloat16, torch.float8_e5m2, True),
+    (torch.float32, torch.bfloat16, True),
+    (torch.bfloat16, torch.float32, True),
+    (torch.bfloat16, torch.float64, False),
+    (torch.float32, torch.int8, False)])
 def test_check_kv_dtype(model_dtype, kv_dtype, ok):
-    """The cache takes the model's dtype or e4m3; e5m2 and a cache in
-    another float dtype still raise, naming their queue item."""
+    """The cache takes the model's dtype or any float cache dtype (e4m3,
+    e5m2, f16, f32, bf16) under either model dtype; a dtype that is no
+    float cache dtype (float64, an integer one) raises."""
     if ok:
         assert check_kv_dtype(kv_dtype, model_dtype) == (
             kv_dtype or model_dtype)
     else:
-        with pytest.raises(NotImplementedError, match="Queue 1 #12"):
+        with pytest.raises(TypeError, match="no KV cache dtype"):
             check_kv_dtype(kv_dtype, model_dtype)
 
 
 def test_session_refuses_e5m2(f32_setup):
+    """Once refused, e5m2 is now a session's cache dtype (the test keeps
+    its name): the session builds an e5m2 cache, and float64 is what it
+    refuses."""
     _, _, tcfg, _, model, _, ttok = f32_setup
-    with pytest.raises(NotImplementedError, match="#12"):
-        TSession(model, tcfg, ttok, max_len=256,
-                 kv_dtype=torch.float8_e5m2)
+    s = TSession(model, tcfg, ttok, max_len=256, kv_dtype=torch.float8_e5m2)
+    assert s.cache.k.dtype == s.cache.v.dtype == torch.float8_e5m2
+    with pytest.raises(TypeError, match="no KV cache dtype"):
+        TSession(model, tcfg, ttok, max_len=256, kv_dtype=torch.float64)
+
+
+# ---------------------------------------------------------------------------
+# the other cache dtypes: e5m2, f16, f32 under bf16, bf16 under f32
+# ---------------------------------------------------------------------------
+
+E5 = torch.float8_e5m2
+JDT = {E5: jnp.float8_e5m2, torch.float16: jnp.float16,
+       torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+# (model / query dtype, cache dtype) pairs; ids name the cache
+KV_CASES = [pytest.param("bfloat16", E5, id="e5m2"),
+            pytest.param("bfloat16", torch.float16, id="f16"),
+            pytest.param("bfloat16", torch.float32, id="f32_under_bf16"),
+            pytest.param("float32", torch.bfloat16, id="bf16_under_f32")]
+# mantissa bits of each cache dtype: one step at a row's max is
+# 2^(floor(log2 max) - bits)
+MANTISSA = {F8: 3, E5: 2, torch.float16: 10, torch.bfloat16: 7,
+            torch.float32: 23}
+
+
+def _kv_values(rng, shape, kv_dtype):
+    """Seeded K/V in ``kv_dtype``: the torch tensor and the same values for
+    JAX (fp8 and bf16 as their bits)."""
+    t = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        kv_dtype)
+    return t, _jax_of(t)
+
+
+def _jax_of(t):
+    if t.dtype in (F8, E5):
+        return jax.lax.bitcast_convert_type(
+            jnp.asarray(t.view(torch.uint8).numpy()), JDT.get(t.dtype, JF8))
+    if t.dtype == torch.bfloat16:
+        return jax.lax.bitcast_convert_type(
+            jnp.asarray(t.view(torch.int16).numpy()), jnp.bfloat16)
+    return jnp.asarray(t.numpy())
+
+
+@pytest.mark.parametrize("kv_dtype,top,inf_from", [
+    (E5, 57344.0, 61440.0), (torch.float16, 65504.0, 65520.0)])
+def test_cast_matches_jax_below_inf_and_saturates(kv_dtype, top, inf_from):
+    """All 65536 bf16 bit patterns and 2^16 f32 draws through the port's
+    cache cast (``to_cache``) into e5m2 / f16 and JAX's ``astype``: the
+    same bits below the value JAX rounds to inf (NaN to NaN); from there
+    JAX writes +-inf and the port its clamp, +-``top`` (for bf16 inputs
+    into f16 the largest bf16 below it, 65280)."""
+    bits = np.arange(1 << 16, dtype=np.uint16)
+    xt = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+    xj = jax.lax.bitcast_convert_type(jnp.asarray(bits), jnp.bfloat16)
+    rng = np.random.default_rng(1)
+    f = (rng.standard_normal(1 << 16) * 10.0 ** rng.uniform(
+        -8, 5, 1 << 16)).astype(np.float32)
+    for xt, xj in ((xt, xj), (torch.from_numpy(f), jnp.asarray(f))):
+        got = tq.to_cache(xt, kv_dtype).float().numpy()
+        ref = np.asarray(xj.astype(JDT[kv_dtype]).astype(jnp.float32))
+        x = xt.float().numpy()
+        nan = np.isnan(x)
+        below = np.abs(x) < inf_from
+        np.testing.assert_array_equal(got[below], ref[below])
+        assert np.isnan(got[nan]).all() and np.isnan(ref[nan]).all()
+        big = ~below & ~nan
+        assert big.sum() > 0
+        lim = top if xt.dtype == torch.float32 or kv_dtype == E5 else 65280.0
+        np.testing.assert_array_equal(got[big], np.sign(x[big]) * lim)
+        assert np.isinf(ref[big]).all()
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", KV_CASES)
+def test_prefill_plain_kv_dtype_matches_jax(q_dtype, kv_dtype):
+    """K3's plain version over a cache in ``kv_dtype`` against JAX's
+    ``prefill_flash_attention`` (interpret mode) on the same values, as
+    the e4m3 case (the 2-ulp row rule)."""
+    rng = np.random.default_rng(12)
+    B, S, T, Hq, Hkv, D, fill = 1, 128, 1024, 4, 2, 128, 256
+    kt, kj = _kv_values(rng, (B, T, Hkv, D), kv_dtype)
+    vt, vj = _kv_values(rng, (B, T, Hkv, D), kv_dtype)
+    q = rng.standard_normal((B, S, Hq, D)).astype(np.float32)
+    pos = np.full((B, T), -1, np.int32)
+    pos[0, :fill] = np.arange(fill)
+    pos[0, fill // 3] = -1
+    qpos = (fill + np.arange(S, dtype=np.int32))[None]
+    pos[0, fill:fill + S] = qpos[0]
+    ref = jlma.prefill_flash_attention(
+        jnp.asarray(q, q_dtype), kj, vj, jnp.asarray(qpos),
+        jlma.effective_kv_positions(jnp.asarray(pos)), interpret=True)
+    qt = torch.from_numpy(q).to(getattr(torch, q_dtype))
+    out = tlma.prefill_flash_attention(
+        qt, kt, vt, torch.from_numpy(qpos),
+        tlma.effective_kv_positions(torch.from_numpy(pos)))
+    assert out.dtype == qt.dtype
+    assert _row_rule(out.float().numpy(), np.asarray(ref, np.float32),
+                     D) <= 1.0
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", KV_CASES)
+def test_decode_plain_kv_dtype_matches_jax(q_dtype, kv_dtype):
+    """K4's plain version (S = 5) over a ``kv_dtype`` cache holding main
+    (+) side (+) the step's K/V against JAX's ``decode_splash_attention``
+    (interpret mode), which reads the main cache and side buffer in
+    ``kv_dtype`` and the step's K/V in q's dtype (those values converted
+    as the kernel converts the cache), by the 2-ulp row rule."""
+    rng = np.random.default_rng(15)
+    T, Ts, S, Hq, Hkv, D, fill, side_fill = 1024, 32, 5, 4, 2, 128, 700, 4
+    qd = getattr(torch, q_dtype)
+    mk, mkj = _kv_values(rng, (1, T, Hkv, D), kv_dtype)
+    mv, mvj = _kv_values(rng, (1, T, Hkv, D), kv_dtype)
+    sk, skj = _kv_values(rng, (1, Ts, Hkv, D), kv_dtype)
+    sv, svj = _kv_values(rng, (1, Ts, Hkv, D), kv_dtype)
+    kn, knj = _kv_values(rng, (1, S, Hkv, D), kv_dtype)
+    vn, vnj = _kv_values(rng, (1, S, Hkv, D), kv_dtype)
+    mpos = np.full((1, T), -1, np.int32)
+    mpos[0, :fill] = np.arange(fill)
+    spos = np.full((1, Ts), -1, np.int32)
+    spos[0, :side_fill] = fill + np.arange(side_fill)
+    step_pos = (fill + side_fill + np.arange(S, dtype=np.int32))[None]
+    q = rng.standard_normal((1, S, Hq, D)).astype(np.float32)
+    eff_m = jnp.repeat(jlma.effective_kv_positions(jnp.asarray(mpos)), Hkv,
+                       axis=1)
+    eff_s = jnp.repeat(jlma.effective_kv_positions(jnp.asarray(spos)), Hkv,
+                       axis=1)
+    ref = jlma.decode_splash_attention(
+        jnp.asarray(q, q_dtype), knj.astype(q_dtype), vnj.astype(q_dtype),
+        mkj[None], mvj[None], skj[None], svj[None], jnp.int32(0),
+        jnp.asarray(step_pos), eff_m, eff_s, interpret=True)
+    eff = tlma.effective_kv_positions(torch.from_numpy(
+        np.concatenate([mpos, spos, step_pos], axis=1)))
+    out = tlma.decode_attention(
+        torch.from_numpy(q).to(qd), torch.cat([mk, sk, kn], 1),
+        torch.cat([mv, sv, vn], 1), torch.from_numpy(step_pos), eff)
+    assert _row_rule(out.float().numpy(), np.asarray(ref, np.float32),
+                     D) <= 1.0
+
+
+_KV_SETUPS: dict = {}
+
+
+def _kv_setup(dtype):
+    """``setup``'s tuple for a decoder dtype, built once per module."""
+    if dtype not in _KV_SETUPS:
+        jcfg, tcfg = _cfgs(dtype)
+        params = init_cogreasoner_params(jax.random.PRNGKey(0), jcfg)
+        model = bridge.cogreasoner_from_params(
+            jax.tree.map(np.asarray, params), tcfg, device="cpu")
+        _KV_SETUPS[dtype] = (dtype, jcfg, tcfg, params, model,
+                             JTok(image_token_id=jcfg.image_token_index),
+                             TTok(image_token_id=tcfg.image_token_index))
+    return _KV_SETUPS[dtype]
+
+
+def _assert_kv_rows(tc, jc, trow, jrow, model_dtype, kv_dtype):
+    """A port cache (``tc``, row ``trow``) against JAX's (``jc``, row
+    ``jrow``) where pos >= 0, by the module docstring's rule for
+    ``kv_dtype`` under a ``model_dtype`` decoder."""
+    assert tc.k.dtype == kv_dtype
+    jpos = np.asarray(jc.pos)[jrow]
+    np.testing.assert_array_equal(tc.pos[trow].numpy(), jpos)
+    live = jpos >= 0
+    for n in ("k", "v"):
+        t = getattr(tc, n)[:, trow].float().numpy()[:, live]
+        j = np.asarray(getattr(jc, n)[:, jrow].astype(jnp.float32))[:, live]
+        share = float((t == j).mean())
+        row_max = np.abs(j).max(-1, keepdims=True)
+        if model_dtype == "bfloat16" and kv_dtype in (torch.float16,
+                                                      torch.float32):
+            assert share > 0.5, (n, share)
+            assert (np.abs(t - j) <= 0.05 * row_max).all(), n
+            continue
+        step = np.exp2(np.floor(np.log2(np.maximum(row_max, 2.0 ** -14)))
+                       - MANTISSA[kv_dtype])
+        assert (np.abs(t - j) <= step).all(), n
+        assert share >= (0.999 if model_dtype == "float32" else 0.85), \
+            (n, share)
+
+
+@pytest.mark.parametrize("model_dtype,kv_dtype", KV_CASES + [
+    pytest.param("float32", E5, id="e5m2_under_f32")])
+def test_kv_dtype_session_matches_jax(model_dtype, kv_dtype):
+    """A tiny session with a ``kv_dtype`` cache in both packages (ingest →
+    ask AC → ingest → ask FCC): answers and bookkeeping identical, the
+    cache by :func:`_assert_kv_rows`."""
+    _, jcfg, tcfg, params, model, jtok, ttok = _kv_setup(model_dtype)
+    js = jsess_mod.StreamingSession(params, jcfg, jtok, max_len=1024,
+                                    kv_dtype=JDT[kv_dtype])
+    ts = TSession(model, tcfg, ttok, max_len=1024, kv_dtype=kv_dtype)
+    turns = [([0.0, 1.0, 2.0], "what is happening?", "AC"),
+             ([3.0, 4.0, 5.0], "and now?", "FCC")]
+    for i, (stamps, question, mode) in enumerate(turns):
+        for s in (js, ts):
+            s.append_stream_segment(_segment(i), SEG, 2, timestamps=stamps)
+        _same_answer(ts.ask(question, mode=mode, max_new_tokens=8),
+                     js.ask(question, mode=mode, max_new_tokens=8))
+    assert [dataclasses.astuple(r) for r in ts.ranges] == \
+        [dataclasses.astuple(r) for r in js.ranges]
+    assert (ts.write_index, ts.next_pos) == (js.write_index, js.next_pos)
+    _assert_kv_rows(ts.cache, js.cache, 0, 0, model_dtype, kv_dtype)
+
+
+@pytest.mark.parametrize("model_dtype,kv_dtype", KV_CASES)
+def test_kv_dtype_pool_matches_jax(model_dtype, kv_dtype):
+    """``SessionPool(kv_dtype=)`` against JAX's pool: ingest, ingest_batch
+    and ask_batch AC / FCC; the shared cache is in ``kv_dtype`` and each
+    row follows :func:`_assert_kv_rows`."""
+    _, jcfg, tcfg, params, model, jtok, ttok = _kv_setup(model_dtype)
+    jp = JPool(params, jcfg, jtok, n_rows=3, max_len=1024,
+               kv_dtype=JDT[kv_dtype], summary_forward=False)
+    tp = TPool(model, tcfg, ttok, n_rows=3, max_len=1024, kv_dtype=kv_dtype,
+               summary_forward=False)
+    assert tp.cache.k.dtype == tp.cache.v.dtype == kv_dtype
+    for p in (jp, tp):
+        assert [p.open() for _ in range(3)] == [0, 1, 2]
+        p.ingest(0, _segment(0), SEG, 2, [0.0, 1.0, 2.0])
+        p.ingest_batch([(b, _segment(10 + b), SEG, 2, [3.0, 4.0, 5.0])
+                        for b in (2, 0, 1)])
+    for reqs, mode in (([(0, "what is happening?"), (1, "who is there?"),
+                         (2, "where is it?")], "AC"),
+                       ([(0, "and now?"), (2, "is it moving?")], "FCC")):
+        oj = jp.ask_batch(reqs, mode=mode, max_new_tokens=8)
+        ot = tp.ask_batch(reqs, mode=mode, max_new_tokens=8)
+        assert sorted(ot) == sorted(oj)
+        for b in oj:
+            _same_answer(ot[b], oj[b])
+    for b in range(3):
+        _assert_kv_rows(tp.sessions[b].cache, jp.sessions[b].cache, b, b,
+                        model_dtype, kv_dtype)
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_e5m2_snapshot_crosses_the_packages(f32_setup, tmp_path, direction):
+    """An e5m2 session's snapshot written by one package loads into the
+    other's e5m2 session with equal bytes; both then answer alike."""
+    _, jcfg, tcfg, params, model, jtok, ttok = f32_setup
+    js = jsess_mod.StreamingSession(params, jcfg, jtok, max_len=1024,
+                                    kv_dtype=jnp.float8_e5m2)
+    ts = TSession(model, tcfg, ttok, max_len=1024, kv_dtype=E5)
+    src, dst = (js, ts) if direction == "jax_to_port" else (ts, js)
+    src.append_stream_segment(_segment(3), SEG, 2, [0.0, 1.0, 2.0])
+    src.ask("what is happening?", mode="AC", max_new_tokens=6)
+    path = str(tmp_path / "e5.snap.npz")
+    src.save(path)
+    dst.load_state(path)
+    wi = src.write_index
+    assert dst.write_index == wi
+    for n in ("k", "v"):
+        np.testing.assert_array_equal(
+            _bytes(getattr(ts.cache, n))[:, 0, :wi],
+            _bytes(getattr(js.cache, n))[:, 0, :wi])
+    _same_answer(ts.ask("and now?", mode="FCC", max_new_tokens=8),
+                 js.ask("and now?", mode="FCC", max_new_tokens=8))
+
+
+def test_quant_quality_e5m2_cache_matches_jax():
+    """``cached_logits`` and ``greedy_continuation`` over an e5m2 cache on
+    JAX's bf16 quality build (as the e4m3 case): logits within 1e-4 of
+    each row's max of JAX's, the same greedy tokens, and the e5m2 cache
+    moves the logits."""
+    jcfg = dataclasses.replace(JQwen2Config(**QQ), dtype="float32")
+    tcfg = TQwen2Config(**{**QQ, "dtype": "float32"})
+    tree = jax.tree.map(np.asarray,
+                        jqq.build_text_params(JQwen2Config(**QQ), "bf16",
+                                              seed=3))
+    tree["embed_tokens"] = tree["embed_tokens"].astype(np.float32)
+    jtree = jax.tree.map(jnp.asarray, tree)
+    model = bridge.qwen2_from_params(tree, tcfg, device="cpu")
+    jids = jqq.probe_ids(jcfg, n=40)
+    ids = tqq.probe_ids(tcfg, n=40, device="cpu")
+    lj = np.asarray(jqq.cached_logits(jtree, jids, jcfg, 64,
+                                      kv_dtype=jnp.float8_e5m2))
+    lt = tqq.cached_logits(model, ids, tcfg, 64, kv_dtype=E5)
+    err = np.abs(lt.numpy() - lj).max(-1)
+    assert (err <= 1e-4 * np.abs(lj).max(-1)).all(), err.max()
+    base = tqq.cached_logits(model, ids, tcfg, 64)
+    assert tqq.compare_logits(base, lt, "e5m2kv")["e5m2kv_logit_mae"] > 0.0
+    a = jqq.greedy_continuation(jtree, jcfg, jids, n=8, max_len=64,
+                                kv_dtype=jnp.float8_e5m2)
+    b = tqq.greedy_continuation(model, tcfg, ids, n=8, max_len=64,
+                                kv_dtype=E5)
+    np.testing.assert_array_equal(b, a)

@@ -719,7 +719,7 @@ def test_jax_refusals_with_jax_messages(tmp_path):
                                   str(tmp_path / "j"), log=lambda *a: None)
         world = n if match == "needs" else 1
         with pytest.raises(ValueError, match=match) as te:
-            tstage2.check_parallel(tstage2.Stage2Config(**kw), False, world)
+            tstage2.check_parallel(tstage2.Stage2Config(**kw), world)
         assert str(te.value) == str(je.value)
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         tstage2.Stage2Trainer(model, tcfg, None,

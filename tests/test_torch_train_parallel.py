@@ -16,11 +16,13 @@ unless stated. Tolerances, each stated where it is asserted:
 * replicated leaves, their gradients, data replicas: bit-equal.
 
 In one process: the vocab-parallel loss (slices combined through a
-thread-simulated group), ``lora_specs_like`` against JAX's, the
+thread-simulated group), the W8A8 straight-through product on row and
+column shards (threads again), ``lora_specs_like`` against JAX's, the
 ``shard_lora`` / ``LoraLayout.gather`` round trip, ``shard_batch`` and the
 refusals.
 """
 
+import dataclasses
 import json
 import os
 import socket
@@ -249,6 +251,15 @@ def jref(data):
     out["mm"] = mm_grad(params, mm)
     for name in ("params_int8", "params_nf4"):
         out[name] = mm_grad(jax.tree.map(jnp.asarray, trees[name]), pool)
+    # the int8 base's decoder W8A8 (stage 2's --w8a8-forward), one device
+    w8_cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, w8a8_prefill=True))
+    b = {k: jnp.asarray(v) for k, v in pool.items() if k != "num_vis_tokens"}
+    out["params_int8_w8a8"] = jax.value_and_grad(
+        lambda lo: jmm.multimodal_loss_fn(
+            jax.tree.map(jnp.asarray, trees["params_int8"]), lo, b, w8_cfg,
+            LORA_SCALE, num_vis_tokens=int(pool["num_vis_tokens"]),
+            remat=True))(lora_mm)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jstage2, "LoRAConfig",
                    lambda **kw: JLoRA(dropout=0.0, **kw))
@@ -419,6 +430,24 @@ def test_stage2_trainer_on_a_2x2_mesh_matches_jax(worlds, jref):
 # the (data 1, model 2) world
 # ---------------------------------------------------------------------------
 
+def test_w8a8_forward_on_shards_matches_jax(worlds, jref):
+    """The same micro-step on the int8 base with ``w8a8_prefill`` (stage 2's
+    ``--w8a8-forward``) on model-axis shards at tp = 2 against JAX's
+    one-device W8A8 step on the same tree and config: loss rtol 1e-5,
+    gradients 1e-4 of each leaf's max (the quantized bases' bounds). Each
+    rank also ran the int8 products: its count of W8A8 calls is the
+    decoder's seven sites a layer."""
+    jloss, jgrad = jref["params_int8_w8a8"]
+    wloss, _ = jref["params_int8"]
+    for res, arrays in worlds[2]:
+        got = res["params_int8_w8a8"]
+        np.testing.assert_allclose(got["loss"], float(jloss), **LOSS)
+        _grads_close(jgrad, _tree(arrays, "params_int8_w8a8_grad"))
+        assert got["int8_mm"] >= 7 * JConfig.tiny().text.num_hidden_layers
+    # the W8A8 objective is another function than the weight-only one
+    assert abs(float(jloss) - float(wloss)) > 1e-6 * abs(float(wloss))
+
+
 @pytest.mark.parametrize("name", ["params_int8", "params_nf4"])
 def test_quantized_base_on_shards_matches_jax(worlds, jref, name):
     """A stage-2 micro-step on an int8 and an NF4 base (JAX's weight-only
@@ -559,6 +588,81 @@ def _threaded_all_reduce(x, group, op="sum"):
     if op == "sum" and torch.is_grad_enabled() and x.requires_grad:
         return x + (out - x).detach()       # identity backward
     return out
+
+
+def _w8a8_operands(seed=4, M=24, din=64, dout=48):
+    """x (its second half of channels 3x the first, so the two halves'
+    absmax differ), an int8 weight with power-of-two scales and an integer
+    output gradient: every dx product and sum is exact in f32, so a
+    sharded dx equals the whole one bit for bit, whatever the order."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, din)).astype(np.float32)
+    x[:, din // 2:] *= 3.0
+    q = rng.integers(-127, 128, (din, dout)).astype(np.int8)
+    scale = np.exp2(-rng.integers(5, 9, dout)).astype(np.float32)
+    g = rng.integers(-4, 5, (M, dout)).astype(np.float32)
+    return (torch.from_numpy(x), torch.from_numpy(q),
+            torch.from_numpy(scale), torch.from_numpy(g))
+
+
+@pytest.mark.parametrize("layout,local_absmax", [
+    ("row", False), ("col", False), ("row", True)])
+def test_w8a8_ste_on_shards_matches_whole(monkeypatch, layout,
+                                          local_absmax):
+    """``quant._W8A8STE`` on 2 shards (threads for ranks) against the whole
+    product. Row shards (o_proj / down_proj: each rank its input channels,
+    the group as ``reduce``): every rank's forward is the whole product
+    bit for bit and its ``dx`` the whole ``dx``'s columns of its channels.
+    Column shards (each rank its output channels, ``x`` whole through
+    ``copy_to_model``): each forward the whole product's columns, bit for
+    bit, and ``dx`` after ``copy_to_model``'s all-reduce the whole ``dx``.
+    The control (``local_absmax``): row shards whose activations take each
+    rank's own absmax differ from the whole product."""
+    from cogstream_tpu_torch.ops import quant
+    from cogstream_tpu_torch.parallel import mesh as tmesh
+    from cogstream_tpu_torch.parallel.mesh import copy_to_model
+
+    x, q, scale, g = _w8a8_operands()
+    whole = x.clone().requires_grad_(True)
+    ref = quant._W8A8STE.apply(whole, q, scale)
+    ref_dx, = torch.autograd.grad(ref, whole, g)
+    monkeypatch.setattr(quant, "all_reduce", _threaded_all_reduce)
+    monkeypatch.setattr(tmesh, "_all_reduce",
+                        lambda t, group, op: group.reduce(t, op))
+    if local_absmax:
+        alone = quant.quantize_int8_act
+        monkeypatch.setattr(quant, "quantize_int8_act",
+                            lambda t, reduce=None: alone(t))
+    n, din, dout = 2, x.shape[1], q.shape[1]
+    group = _ThreadGroup(n)
+    res = [None] * n
+
+    def rank(r):
+        group.local.rank = r
+        if layout == "row":
+            cin = slice(r * din // n, (r + 1) * din // n)
+            xr = x[:, cin].clone().requires_grad_(True)
+            y = quant._W8A8STE.apply(xr, q[cin].contiguous(), scale, group)
+            res[r] = (y.detach(), torch.autograd.grad(y, xr, g)[0])
+        else:
+            cout = slice(r * dout // n, (r + 1) * dout // n)
+            xr = x.clone().requires_grad_(True)
+            y = quant._W8A8STE.apply(copy_to_model(xr, group),
+                                     q[:, cout].contiguous(), scale[cout])
+            res[r] = (y.detach(), torch.autograd.grad(y, xr, g[:, cout])[0])
+
+    _run_ranks(n, rank)
+    if local_absmax:
+        assert not any(torch.equal(y, ref.detach()) for y, _ in res)
+        return
+    if layout == "row":
+        for y, _ in res:
+            assert torch.equal(y, ref.detach())
+        assert torch.equal(torch.cat([dx for _, dx in res], 1), ref_dx)
+    else:
+        assert torch.equal(torch.cat([y for y, _ in res], 1), ref.detach())
+        for _, dx in res:
+            assert torch.equal(dx, ref_dx)
 
 
 @pytest.mark.parametrize("masked", [None, "some", "empty_slice"])
@@ -728,23 +832,25 @@ def test_parallel_sizes_without_a_world_raise(tmp_path):
 
 
 def test_refusals_on_a_mesh_name_queue_1_9(monkeypatch):
-    """What stays refused: ``--w8a8-forward`` with a model axis above 1
-    (under torchrun's world of 2, before any load; #9 (c)); JAX's
+    """The refusals left on a mesh (the test keeps its name): JAX's
     ``ValueError``s for a pipeline with a model axis and a ring with a
-    model axis. A pipeline alone passes the check (it trains:
-    tests/test_torch_pipeline.py), and an sp run has no model axis, so
-    ``--w8a8-forward`` with it is not refused."""
+    model axis. ``--w8a8-forward`` with a model axis above 1 is no longer
+    refused: ``check_parallel`` passes it, and the command under
+    torchrun's world of 2 gets past the check to the missing checkpoint.
+    A pipeline alone passes the check (it trains:
+    tests/test_torch_pipeline.py), and so does an sp run."""
     from cogstream_tpu_torch.train import stage2 as tstage2
 
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
+    with pytest.raises(FileNotFoundError):
         tstage2.main(["--model-dir", "/nonexistent", "--video-dir", "v",
                       "--query-dir", "q", "--out", "o", "--quantize-base",
                       "int8", "--w8a8-forward"])
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-        tstage2.check_parallel(tstage2.Stage2Config(model_parallel=2), True)
+    assert tstage2.check_parallel(tstage2.Stage2Config(model_parallel=2),
+                                  2) is None
     # a data axis over the whole world leaves the model axis at 1
-    tstage2.check_parallel(tstage2.Stage2Config(data_parallel=2), True, 2)
+    assert tstage2.check_parallel(tstage2.Stage2Config(data_parallel=2),
+                                  2) is None
     with pytest.raises(ValueError, match="exclusive with model_parallel"):
         tstage1.check_pipeline(tstage1.Stage1Config(pipeline_stages=2,
                                                     model_parallel=2))
@@ -752,6 +858,6 @@ def test_refusals_on_a_mesh_name_queue_1_9(monkeypatch):
         pipeline_stages=2)) is None
     with pytest.raises(ValueError, match="exclusive with model_parallel"):
         tstage2.check_parallel(tstage2.Stage2Config(sequence_parallel=2,
-                                                    model_parallel=2), False)
+                                                    model_parallel=2))
     assert tstage2.check_parallel(tstage2.Stage2Config(sequence_parallel=2),
-                                  True, 2) is None
+                                  2) is None

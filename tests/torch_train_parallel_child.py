@@ -191,15 +191,22 @@ class Rank:
         self.keep(f"{tag}_whole", tr.state.layout.gather(tr.state.lora))
         self.out[tag] = {"losses": got, "step_losses": losses}
 
-    def quantized_step(self, mesh, name: str):
+    def quantized_step(self, mesh, name: str, w8a8: bool = False):
         """Loss and gathered LoRA gradients of one stage-2 micro-step on a
-        quantized base (the JAX package's tree, bridged, then sharded)."""
+        quantized base (the JAX package's tree, bridged, then sharded);
+        ``w8a8``: the decoder under ``w8a8_prefill`` (``--w8a8-forward``),
+        recorded as ``<name>_w8a8`` with its count of int8 products."""
+        import dataclasses
+
         from cogstream_tpu_torch.models.lora import iter_leaves, map_leaves
+        from cogstream_tpu_torch.ops import quant
         from cogstream_tpu_torch.parallel.sharding import (
             LoraLayout, cogreasoner_param_specs, shard_cogreasoner)
         from cogstream_tpu_torch.train import trainer
         from cogstream_tpu_torch.train.multimodal import multimodal_loss_fn
 
+        text_cfg = dataclasses.replace(self.cfg.text, w8a8_prefill=w8a8)
+        calls0 = quant.int8_mm.calls.get("decoder", 0)
         model = shard_cogreasoner(self.model(name), self.cfg, mesh)
         whole = self.lora("lora_mm")
         layout = LoraLayout(whole, cogreasoner_param_specs(self.cfg, mesh),
@@ -208,12 +215,15 @@ class Rank:
         b = self.batch("batch_pool")
         n_vis = int(b.pop("num_vis_tokens"))
         loss = multimodal_loss_fn(model, lora, trainer.to_device(b, "cpu"),
-                                  LORA_SCALE, n_vis, remat=True)
+                                  LORA_SCALE, n_vis, remat=True,
+                                  text_cfg=text_cfg)
         grads = iter(torch.autograd.grad(
             loss, [t for _, t in iter_leaves(lora)]))
-        self.keep(f"{name}_grad",
+        tag = f"{name}_w8a8" if w8a8 else name
+        self.keep(f"{tag}_grad",
                   layout.gather(map_leaves(lambda t: next(grads), lora)))
-        self.out[name] = {"loss": float(loss)}
+        self.out[tag] = {"loss": float(loss), "int8_mm":
+                         quant.int8_mm.calls.get("decoder", 0) - calls0}
 
     def save_for_resume(self, mesh):
         """Two text steps (dropout 0.1, accumulation 2) on the mesh, then
@@ -494,6 +504,7 @@ class Rank:
         tp = make_mesh(1, 2)
         for name in ("params_int8", "params_nf4"):
             self.quantized_step(tp, name)
+        self.quantized_step(tp, "params_int8", w8a8=True)
         self.save_for_resume(tp)
         self.stage1_dp()
         self.preempt()
