@@ -33,7 +33,8 @@ Phases (each prints one line or a few; any failure exits non-zero):
    quantization, ``torch._int_mm`` on the held column-major weights and on
    a row-major copy, epilogue) beside the bf16 ``F.linear``. K1, K3, K4 and K5 run their
    bf16 tensor-core kernels, timed beside their f32 route (the CUDA-core
-   f32 tile) on the same values; K3 also at a question prefill (a few
+   f32 tile) on the same values and its bound at the f32 peak; K3 also
+   at a question prefill (a few
    dozen tokens over a ~9k-slot window), where it must beat the f32
    route; K3, K4 and K5 must beat the library call. K4 and K5 are timed
    from CUDA graphs; K4's two calls must be bit-identical and one call
@@ -60,7 +61,9 @@ Phases (each prints one line or a few; any failure exits non-zero):
    queries) and over a bf16 cache on the f32 route, at the same shapes,
    each within the 2-ulp row rule of its plain version and counted under
    its dtype, timed beside the bf16 (f32) route on the same values and
-   beside its bound, K4's graph replay bit-identical; every e5m2 byte
+   beside its bound, K4's graph replay bit-identical, K3 over f16 and f32
+   within one bf16 ulp of the bf16 kernel over the cache rounded to bf16
+   (its differing elements counted); every e5m2 byte
    widened exactly as V and as K; those instances' ptxas figures;
 4. reference — a tiny-config session (f32) runs ingest → ask(AC) →
    ingest → ask(FCC) on the card (kernels) and on the CPU (plain
@@ -80,7 +83,8 @@ Phases (each prints one line or a few; any failure exits non-zero):
    pos >= 0. The tiny f32 session over an e4m3, an e5m2 and a bf16 cache,
    card vs CPU: the same tokens, selections and ranges, the cache within
    one step of its dtype, K3 and K4 launched over it (the bf16 cache's
-   counts are the f32 route's launches in the kernels line).
+   counts are the f32 route's launches in the kernels line). The phase's
+   launches of the f32-query routes (CUDA-core tiles) of K1, K3, K4, K5.
    QLoRA: the backward of each GEMV wrapper (K6-K10 at 7B gate_proj
    shapes, m = 64) against the f32 product of g and the weights it
    dequantizes (2-ulp rule), each forward launching its kernel; tiny
@@ -505,12 +509,14 @@ def row_check(got, ref, width: int):
 
 # K/V kinds of K3's and K4's tensor-core instances: the template argument
 # KV (csrc/common.cuh DType), the element bytes, K3's (m-tiles, warps)
-# instances (lm_attention_tc.cuh dispatch_prefill_tc) and K4's warps
-KV_KINDS = {"bf16": (1, 2, ((2, 4), (1, 4)), 4),
-            "e4m3": (2, 1, ((2, 8), (1, 8), (1, 4)), 8),
-            "e5m2": (3, 1, ((2, 8), (1, 8), (1, 4)), 8),
-            "f16": (4, 2, ((2, 8), (1, 8), (1, 4)), 4),
-            "f32": (0, 4, ((1, 4),), 4)}
+# instances (lm_attention_tc.cuh dispatch_prefill_tc), K3's byte stages
+# of K and V rows (prefill_stages: f16 and f32 are narrowed in registers)
+# and K4's warps
+KV_KINDS = {"bf16": (1, 2, ((2, 4), (1, 4)), 0, 4),
+            "e4m3": (2, 1, ((2, 8), (1, 8), (1, 4)), 2, 8),
+            "e5m2": (3, 1, ((2, 8), (1, 8), (1, 4)), 2, 8),
+            "f16": (4, 2, ((2, 8), (1, 8), (1, 4)), 0, 4),
+            "f32": (0, 4, ((2, 8), (1, 8)), 0, 4)}
 
 
 def _lm_label(kernel: str, kind: str, mt: int, warps: int = 0) -> str:
@@ -531,7 +537,7 @@ def _lm_label(kernel: str, kind: str, mt: int, warps: int = 0) -> str:
 TC_KERNELS = {
     **{_lm_label("K3", kind, mt, w):
        f"gqa_prefill_tc_kernelILi128ELi{mt}ELi{w}ELi{code}EE"
-       for kind, (code, _, k3, _) in KV_KINDS.items() for mt, w in k3},
+       for kind, (code, _, k3, *_) in KV_KINDS.items() for mt, w in k3},
     **{_lm_label("K4", kind, mt):
        f"gqa_decode_tc_kernelILi128ELi{mt}ELi{code}EE"
        for kind, (code, *_) in KV_KINDS.items() for mt in (1, 2)},
@@ -561,20 +567,18 @@ def lm_attention_smem(kv_len: int = 16384) -> dict:
     """Dynamic shared memory and threads of K3's and K4's tensor-core
     blocks at D = 128 as ``launch_prefill_tc`` / ``launch_decode_tc`` size
     them (csrc/lm_attention_tc.cuh), each K/V kind, by TC_KERNELS label:
-    K3 keeps Q, two bf16 K and V tiles, for a kind other than bf16 two
-    stages of K and V rows in their own width, and the positions (two
-    slots, three when staged); K4 Q, each warp's K and V tile (bf16 rows,
+    K3 keeps Q, two bf16 K and V tiles, for fp8 two stages of K and V
+    rows in their own width, and the positions (two slots, three when
+    staged); K4 Q, each warp's K and V tile (bf16 rows,
     or fp8 bytes; overlaid by the warps' f32 merge) and the positions."""
     KS, BK, D = 136, 64, 128
     out = {}
-    for kind, (_, eb, k3, nw) in KV_KINDS.items():
-        staged = kind != "bf16"
+    for kind, (_, eb, k3, stages, nw) in KV_KINDS.items():
         for mt, w3 in k3:
             br = 16 * mt * w3
             out[_lm_label("K3", kind, mt, w3)] = (
-                br * KS * 2 + 4 * BK * KS * 2
-                + (4 * BK * D * eb if staged else 0)
-                + ((3 if staged else 2) * BK + br + w3
+                br * KS * 2 + 4 * BK * KS * 2 + 2 * stages * BK * D * eb
+                + ((3 if stages else 2) * BK + br + w3
                    + 2 * -(-kv_len // BK)) * 4, 32 * w3)
         tile = BK * D if eb == 1 else BK * KS * 2   # one K4 K (or V) tile
         for mt in (2, 1):
@@ -710,11 +714,14 @@ def check_kernels(dev):
             qkv32 = qkv.float()
             k1_f32_ms = cuda_ms(lambda: fa.flash_attention_packed_rope_fusedqkv(
                 qkv32, *args[1:], *ranges, H), 3)
+            seg = args[3]
+            b32 = bound_ms(nbytes(qkv32, *args[1:], *ranges) + 4 * got.numel(),
+                           4 * H * D * segment_pairs(seg), "f32")
             log(f"kernel K1 routes at N={N}: tensor-core tile (bf16) "
                 f"{k1_ms:.4f} ms, CUDA-core tile (f32, same values) "
-                f"{k1_f32_ms:.4f} ms")
+                f"{k1_f32_ms:.4f} ms, its bound {b32[0]:.4f} ms ({b32[1]}, "
+                f"f32 peak)")
             del qkv32
-            seg = args[3]
             k1_bound = bound_ms(nbytes(*args, *ranges, got),
                                 4 * H * D * segment_pairs(seg))
             # library yardstick: SDPA on the already-rotated q/k (no
@@ -783,10 +790,13 @@ def check_kernels(dev):
     q32, k32, v32 = q.float(), k.float(), v.float()
     k3_f32_ms = cuda_ms(lambda: lma.prefill_flash_attention(
         q32, k32, v32, qp, eff), 2)
+    b32 = bound_ms(nbytes(q32, qp, eff) + 4 * got.numel() + 4 * seen * kv_row,
+                   4 * Hq * Dl * visible_pairs(qp, eff), "f32")
     pad_zero = bool((got[0, S - 20:] == 0).all())
     log(f"kernel K3 routes at S={S}: tensor-core tile (bf16) {k3_ms:.4f} ms,"
-        f" CUDA-core tile (f32, same values) {k3_f32_ms:.4f} ms, library "
-        f"{k3_lib:.4f} ms; 20 padded query rows zero {pad_zero}")
+        f" CUDA-core tile (f32, same values) {k3_f32_ms:.4f} ms (its bound "
+        f"{b32[0]:.4f} ms, {b32[1]}, f32 peak), library {k3_lib:.4f} ms; 20 "
+        f"padded query rows zero {pad_zero}")
     if not pad_zero:
         raise AssertionError("K3 padded query rows are not zero")
     record(2, *row_check(got, ref, Dl), k3_ms,
@@ -851,6 +861,9 @@ def check_kernels(dev):
     q1_32, k32, v32 = q1.float(), k.float(), v.float()
     k4_f32_ms = graph_ms(lambda: lma.decode_attention(q1_32, k32, v32, qp,
                                                       eff), 20)
+    b32 = bound_ms(nbytes(q1_32, qp, eff) + 4 * got.numel()
+                   + 4 * seen * kv_row,
+                   4 * Hq * Dl * visible_pairs(qp, eff), "f32")
     del k32, v32
     # capture: one call in a graph, replayed after q and eff are rewritten
     # in place, against the eager call on the new values
@@ -869,8 +882,9 @@ def check_kernels(dev):
         q1, k, v, qp, eff)))
     log(f"kernel K4 routes over a {W}-slot window: tensor-core kernel "
         f"(bf16, one launch) {k4_ms:.4f} ms, CUDA-core tile + combine (f32,"
-        f" same values) {k4_f32_ms:.4f} ms, library {k4_lib:.4f} ms (graph "
-        f"ms for both routes); two calls bit-identical {repeat_equal}; "
+        f" same values) {k4_f32_ms:.4f} ms (its bound {b32[0]:.4f} ms, "
+        f"{b32[1]}, f32 peak), library {k4_lib:.4f} ms (graph ms for both "
+        f"routes); two calls bit-identical {repeat_equal}; "
         f"graph replay after q / eff rewritten equals the eager call "
         f"{replay_equal}")
     record(3, *row_check(got, ref, Dl), k4_ms,
@@ -973,6 +987,9 @@ def check_kernels(dev):
                 q32, k32, v32 = q.float(), k.float(), v.float()
                 k5_f32_ms = cuda_ms(lambda: wrap(q32, k32, v32, seg, ranges),
                                     3)
+                b32 = bound_ms(nbytes(q32, k32, v32, seg, *ranges)
+                               + 4 * got.numel(),
+                               4 * H * D * segment_pairs(seg), "f32")
                 del q32, k32, v32
             k5_plain_ms = cuda_ms(lambda: fa.segment_flash_attention_plain(
                 q, k, v, seg, 1 / math.sqrt(D)), 2)
@@ -982,7 +999,8 @@ def check_kernels(dev):
                              block_diag(seg), 5)
             log(f"kernel K5 routes at N={N}: tensor-core tile (bf16, graph "
                 f"ms) {k5_ms:.4f} ms, CUDA-core tile (f32, same values) "
-                f"{k5_f32_ms:.4f} ms, library {k5_lib:.4f} ms")
+                f"{k5_f32_ms:.4f} ms (its bound {b32[0]:.4f} ms, {b32[1]}, "
+                f"f32 peak), library {k5_lib:.4f} ms")
     record(4, max(k5_err), max(k5_ratio), k5_ms, k5_plain_ms, k5_bound,
            k5_lib)
     if not k5_ms < k5_lib:
@@ -1939,7 +1957,9 @@ def check_kv_dtype_kernels(dev):
     on the same values by the 2-ulp row rule, timed beside the bf16 route
     on the same values (the cache converted to bf16: what the kernel
     computes with; on the f32 route, beside an f32 cache of those values)
-    and beside its bound (the cache's own K/V bytes). K3 at the 4384-token
+    and beside its bound (the cache's own K/V bytes); K3 over f16 and f32
+    within one bf16 ulp of the bf16 kernel over the cache rounded to bf16,
+    its differing elements counted. K3 at the 4384-token
     prefill over 4607 history slots of a 16384-slot cache, K4 at S = 1, 5
     and 8 over a 9216-slot window holding 9000 (timed at S = 1; the f32
     route: S = 1);
@@ -2019,15 +2039,31 @@ def check_kv_dtype_kernels(dev):
                         1)
         b = bound(q, qp, eff, got)
         pad_zero = bool((got[0, S - 20:] == 0).all())
+        # f16 / f32 under bf16 queries: the bf16 kernel's function over the
+        # cache rounded to bf16, bit-equal where both launch blocks of as
+        # many rows; a block of another size rescales a row's sums at the
+        # tiles it sees nothing of by exp2 of a rounding residue, so each
+        # element must lie within one bf16 ulp of the bf16 kernel's
+        rounded = ""
+        one_ulp = True
+        if tc and kvname in ("float16", "float32"):
+            g, w = got.float(), wrap(q, kq, vq, qp, eff).float()
+            mag = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
+            one_ulp = bool(((g - w).abs() <= torch.exp2(
+                torch.floor(torch.log2(mag)) - 7)).all())
+            rounded = (f"; elements differing from the bf16 kernel over the "
+                       f"cache rounded to bf16 {int((g != w).sum().item())} "
+                       f"of {g.numel()}, all within one bf16 ulp {one_ulp}")
         log(f"kernel K3 {kvname} cache, {qname} queries, S={S} over {hist} "
             f"history slots: max_abs_err={err:.6g}, worst row at {ratio:.3g}"
             f" of its bound; {'tensor-core kernel' if tc else 'f32 route'} "
             f"with the {kvname} code {counted}; {ms:.4f} ms, {other} cache "
-            f"(same values) {ms_q:.4f} ms, plain {plain:.4f} ms; bound "
-            f"{b[0]:.4f} ms ({b[1]}); 20 padded query rows zero {pad_zero}")
-        if not (ratio <= 1.0 and counted and pad_zero):
+            f"(same values) {ms_q:.4f} ms ({ms / ms_q:.3f}x), plain "
+            f"{plain:.4f} ms; bound {b[0]:.4f} ms ({b[1]}); 20 padded query "
+            f"rows zero {pad_zero}{rounded}")
+        if not (ratio <= 1.0 and counted and pad_zero and one_ulp):
             raise AssertionError(f"K3 over the {kvname} cache disagrees with"
-                                 " its plain version")
+                                 " its plain version or the bf16 kernel")
         timings[f"K3 {suffix} S=4384"] = {"ms": ms, f"{other}_ms": ms_q,
                                           "bound_ms": b[0]}
         records.append({"name": f"K3_prefill_attention_{suffix}",
@@ -8333,6 +8369,10 @@ def main() -> int:
     kv_results, kv_ms = check_kv_dtype_kernels(dev)
     fp8_rows_ms = check_fp8_pool_kernels(dev)
     mark("3 kernels")
+    # the f32-query routes (CUDA-core tiles) of K1, K3, K4 and K5: launched
+    # by phase 4's f32 sessions and training alone
+    f32_routes = {f"K{i + 1}": (lambda w: w.launches - w.tc_launches)(
+        wrapper(i)) for i in (0, 2, 3, 4)}
     check_reference(dev)
     check_reference_int4(dev)
     check_reference_int8(dev)
@@ -8342,6 +8382,11 @@ def main() -> int:
     check_training_reference(dev)
     check_gemv_backward(dev)
     check_qlora_reference(dev)
+    f32_routes = {k: (wrapper(int(k[1]) - 1).launches
+                      - wrapper(int(k[1]) - 1).tc_launches - n)
+                  for k, n in f32_routes.items()}
+    log(f"reference: f32-query routes (CUDA-core tiles) launched in phase 4 "
+        f"{f32_routes}")
     mark("4 reference")
     launches, metrics, sess = run_main_path(dev, card)
     kv_launches = {}

@@ -103,12 +103,17 @@
 //     e5m2 byte is the high byte of an f16: cvt.rn.f16x2.e5m2x2, exact);
 //     K4 8 warps in registers, K3 once a block from byte stages.
 //   - f16 or f32 under bf16 queries: rounded to bf16 (round to nearest
-//     even, as `astype` does). K3 stages the rows in their own width (two
-//     stages of K and V) and converts each tile once a block, e4m3's
-//     structure; a 4-byte stage pair takes 128 KB at D = 128, so f32 has
-//     only the 64-row instance. K4 narrows as a warp stages its tile
-//     (loads into registers, then bf16 stores into its tile) and runs the
-//     bf16 body.
+//     even, as `astype` does), then the bf16 body. Both K3 and K4 narrow
+//     in registers: a thread loads its 16-byte chunks of a tile, rounds
+//     them and stores them into the bf16 tile (no byte stage). K3 does so
+//     for tile t + 1 after tile t's math, one barrier a tile, and takes
+//     8-warp blocks of 256 or 128 rows (f16 also 64 rows of 4 warps) by
+//     weighted waves: the rounding, once a block, then weighs half as much
+//     a row as in bf16's 128-row block. On the H100, rounding in place
+//     after a cp.async into the bf16 tile, on bf16's instance, measured
+//     1.27x bf16 over f16, and a single f32 byte stage whose chunks each
+//     thread copies and rounds itself timed as the narrowing (PERF.md).
+//     K4 narrows as a warp stages its tile and runs the bf16 body.
 //   - bf16, f16 or e5m2 under f32 queries: the f32 route widens each
 //     element exactly (gqa_attention_kernel<float, KV>).
 // lm_attention_tc.cuh holds the tensor-core templates; each K/V kind's

@@ -1,6 +1,7 @@
 // K3 and K4 on the tensor cores over an f32 KV cache (rounded to bf16 in
-// the tile: K3 once a block from two stages of f32 rows, 64 rows a block;
-// K4 as a warp stages its tile), bf16 queries: this kind's instances of
+// registers on the way into the bf16 tile: K3 by each thread for its
+// chunks, 256 or 128 rows a block; K4 as a warp stages its tile), bf16
+// queries: this kind's instances of
 // lm_attention_tc.cuh, built beside the other kinds' (lm_attention.cu's C
 // entries call these).
 #include "lm_attention_tc.cuh"

@@ -7,6 +7,8 @@
 // prefill_tc_<kind> / decode_tc_<kind>, so that nvcc builds them at once.
 #pragma once
 
+#include <climits>
+
 #include "common.cuh"
 #include "tc_tile.cuh"
 
@@ -15,14 +17,31 @@ namespace {
 constexpr int MAX_SMEM = 232448;  // 227 KB: a block's dynamic shared memory
 
 // K3: the tensor-core prefill tile (see lm_attention.cu), 4 warps of MT
-// m-tiles over a bf16 cache. Any other K/V kind KV (a cs::DType code:
-// e4m3, e5m2, f16 or f32) is staged: its rows are copied in their own
-// width into two stages and converted once a block into two bf16 tiles
-// that the bf16 body reads, by 8 warps (MT = 2 or 1) or 4 (MT = 1).
+// m-tiles over a bf16 cache, two blocks an SM. The body reads two bf16 K
+// and V tiles; another K/V kind KV (a cs::DType code) reaches them so:
+//  - f16, f32 (rounded to bf16): after tile t's math each thread loads its
+//    chunks of tile t + 1 into registers, rounds them and stores them into
+//    the free bf16 tile (K4's narrowing), one barrier a tile: no byte
+//    stage, so a block holds bf16's tiles and Q only (140 KB at 256 rows,
+//    D = 128). 8 warps at 256 (MT = 2) or 128 rows (MT = 1), one block an
+//    SM; f16 also 4 warps at 64 rows, two blocks an SM;
+//  - e4m3, e5m2: two byte stages, widened once a block into the bf16
+//    tiles, by 8 warps (MT = 2 or 1) or 4 (MT = 1), one block an SM.
+// The rounding is each element's once a block, so 256-row blocks halve it
+// a row against bf16's 128: on the H100, over f16 at the ingest prefill,
+// the 128-row 4-warp form (bf16's instance, two blocks an SM) measured
+// 1.15x bf16 and the 256-row one 1.03x (PERF.md).
 constexpr int TC_WARPS = 4;
 
 using tc::KVT;
 using tc::is_f8;
+
+// byte stages of K and V rows in their own width that K3 keeps over a
+// cache of kind KV: fp8 two, the others none (f16 and f32 are narrowed in
+// registers on their way into the bf16 tile)
+__host__ __device__ constexpr int prefill_stages(int kv) {
+  return is_f8(kv) ? 2 : 0;
+}
 
 // K (or V) bytes of one K4 key tile in shared memory: bf16 rows of KS
 // elements (a bf16, f16 or f32 cache: the latter two narrowed as a warp
@@ -32,11 +51,13 @@ __host__ __device__ constexpr int tile_bytes() {
   return is_f8(KV) ? tc::BK * D : tc::BK * tc::stride(D) * 2;
 }
 
-// NW warps of MT m-tiles: bf16 takes 4 warps; a staged kind 4 or 8 (a
-// tile is converted once for the block's 16 NW MT rows), see
+// NW warps of MT m-tiles: bf16 takes 4, two blocks an SM; another kind 4
+// or 8 (a tile is converted once for the block's 16 NW MT rows), one
+// block an SM at 8 warps or with byte stages, else two; see
 // dispatch_prefill_tc
 template <int D, int MT, int NW, int KV>
-__global__ void __launch_bounds__(NW * 32, KV == cs::BF16 ? 2 : 1)
+__global__ void __launch_bounds__(
+    NW * 32, NW == TC_WARPS && prefill_stages(KV) == 0 ? 2 : 1)
 gqa_prefill_tc_kernel(const tc::bf16* __restrict__ q,
                       const KVT<KV>* __restrict__ k,
                       const KVT<KV>* __restrict__ v,
@@ -48,8 +69,11 @@ gqa_prefill_tc_kernel(const tc::bf16* __restrict__ q,
                       int Hkv, int T_cache, int kv_len, float scale2) {
   constexpr int WR = 16 * MT, BR = NW * WR, NT = 32 * NW, BK = tc::BK;
   constexpr int KS = tc::stride(D), CH = D / 8;  // 16-byte Q chunks per row
-  // staged: K/V rows copied in their own width, then converted
-  constexpr bool ST = KV != cs::BF16;
+  // staged (fp8): K/V rows copied in their own width into NST byte
+  // stages, then converted; f16, f32 (NARROW): narrowed in registers into
+  // the bf16 tile
+  constexpr int NST = prefill_stages(KV);
+  constexpr bool ST = NST > 0, NARROW = KV == cs::F16 || KV == cs::F32;
   // K/V: bytes of a global row, its 16-byte chunks, elements per chunk;
   // bf16 tiles, position slots (staged: three, so a copy never waits for
   // a barrier)
@@ -62,9 +86,9 @@ gqa_prefill_tc_kernel(const tc::bf16* __restrict__ q,
   tc::bf16* Qs = reinterpret_cast<tc::bf16*>(smem_raw);
   tc::bf16* Ks = Qs + BR * KS;                    // NSB tiles
   tc::bf16* Vs = Ks + NSB * BK * KS;              // NSB tiles
-  uint8_t* K8 = reinterpret_cast<uint8_t*>(Vs + NSB * BK * KS);  // ST: 2
-  uint8_t* V8 = K8 + (ST ? 2 * BK * RB : 0);      // stages of K/V rows
-  int* cpos = reinterpret_cast<int*>(V8 + (ST ? 2 * BK * RB : 0));  // NCP
+  uint8_t* K8 = reinterpret_cast<uint8_t*>(Vs + NSB * BK * KS);  // NST
+  uint8_t* V8 = K8 + NST * BK * RB;               // stages of K/V rows
+  int* cpos = reinterpret_cast<int*>(V8 + NST * BK * RB);  // NCP
   int* rpos = cpos + NCP * BK;
   int* red = rpos + BR;
   int* tmin = red + NW;
@@ -118,6 +142,17 @@ gqa_prefill_tc_kernel(const tc::bf16* __restrict__ q,
     while (t < end && tmin[t] > qmax) ++t;
     return t;
   };
+  // tile t's positions into slot `slot` (in the caller's copy group)
+  auto copy_pos = [&](int t, int slot) {
+    const int k0 = t * BK;
+    for (int c = tid; c < BK; c += NT) {
+      int* dst = cpos + slot * BK + c;
+      if (k0 + c < kv_len)
+        tc::cp_async4(dst, effb + k0 + c);
+      else
+        *dst = cs::SENTINEL;
+    }
+  };
   // tile t into K/V stage `stage` (bf16 tiles, or the staged kinds'
   // stages) and its positions into slot `slot`
   auto load = [&](int t, int stage, int slot) {
@@ -135,16 +170,48 @@ gqa_prefill_tc_kernel(const tc::bf16* __restrict__ q,
       tc::cp_async16(kd + c * DST + ch * 16, kb + off, ok);
       tc::cp_async16(vd + c * DST + ch * 16, vb + off, ok);
     }
-    for (int c = tid; c < BK; c += NT) {
-      int* dst = cpos + slot * BK + c;
-      if (k0 + c < kv_len)
-        tc::cp_async4(dst, effb + k0 + c);
-      else
-        *dst = cs::SENTINEL;
-    }
+    copy_pos(t, slot);
     tc::cp_async_commit();
   };
+  // f16 / f32: tile t's K and V chunks loaded into registers, rounded to
+  // bf16 and stored into bf16 tile sb: a thread's N chunks of K, then its
+  // N of V, in rounds of up to 8 loads in flight (one round when that is
+  // all of them: f16 at 8 warps, D = 128)
+  auto narrow = [&](int t, int sb) {
+    const int k0 = t * BK;
+    constexpr int N = BK * CHK / NT, U = 2 * N < 8 ? 2 * N : 8;
+    static_assert(2 * N % U == 0, "whole rounds of loads");
+    auto round_trip = [&](int j0) {
+      uint4 w[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u, i = j % N * NT + tid, c = i / CHK;
+        const KVT<KV>* src = j < N ? kb : vb;
+        w[u] = k0 + c < kv_len  // ragged last tile: zero rows
+            ? __ldg(reinterpret_cast<const uint4*>(
+                  src + (size_t)(k0 + c) * tok + i % CHK * EPC))
+            : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u, i = j % N * NT + tid;
+        tc::chunk_to_bf16<KV>((j < N ? Ks : Vs) + sb * BK * KS +
+                                  i / CHK * KS + i % CHK * EPC,
+                              w[u]);
+      }
+    };
+    // the rounds unrolled at MT = 2 only: on the H100 that was faster
+    // there, and slower at MT = 1 than the compiler's own choice
+    // (tools/k3_instance_probe.py, PERF.md)
+    if constexpr (MT == 2) {
+#pragma unroll
+      for (int j0 = 0; j0 < 2 * N; j0 += U) round_trip(j0);
+    } else {
+      for (int j0 = 0; j0 < 2 * N; j0 += U) round_trip(j0);
+    }
+  };
   // staged: the stage's K and V into bf16 tile sb, each thread its chunks
+  // (the chunks its load copied)
   auto widen = [&](int stage, int sb) {
     tc::convert_tile<D, KV>(Ks + sb * BK * KS, K8 + stage * BK * RB, tid,
                             NT);
@@ -155,7 +222,15 @@ gqa_prefill_tc_kernel(const tc::bf16* __restrict__ q,
   tc::State<D, MT> st;
   st.init();
   int t = next(0), stage = 0;
-  if (t < end) load(t, 0, 0);
+  if (t < end) {
+    if constexpr (NARROW) {
+      copy_pos(t, 0);
+      tc::cp_async_commit();
+      narrow(t, 0);
+    } else {
+      load(t, 0, 0);
+    }
+  }
   tc::cp_async_wait<0>();
   __syncthreads();
   const tc::bf16* Qw = Qs + warp * WR * KS;  // this warp's rows
@@ -177,7 +252,25 @@ gqa_prefill_tc_kernel(const tc::bf16* __restrict__ q,
                       [=](int m, int i, int c) { return rp[m][i] >= cp[c]; },
                       st);
   };
-  if constexpr (!ST) {
+  if constexpr (NARROW) {
+    // f16 / f32, one barrier a tile: after t's math each thread narrows
+    // its chunks of t1 into the free bf16 tile
+    while (t < end) {
+      const int t1 = next(t + 1);
+      if (t1 < end) {  // t1's positions land during t's math
+        copy_pos(t1, stage ^ 1);
+        tc::cp_async_commit();
+      }
+      math(t, stage, stage);
+      if (t1 < end) {
+        narrow(t1, stage ^ 1);
+        tc::cp_async_wait<0>();
+      }
+      __syncthreads();  // t1 narrowed, t's tile consumed before its refill
+      t = t1;
+      stage ^= 1;
+    }
+  } else if constexpr (!ST) {
     while (t < end) {
       const int tn = next(t + 1);
       if (tn < end) {  // the next tile's copy overlaps this tile's math
@@ -243,19 +336,19 @@ int launch_prefill_tc(const void* q, const void* k, const void* v,
                       const void* rows, void* out, int B, int S, int Hq,
                       int Hkv, int T_cache, int kv_len, float scale2,
                       cudaStream_t st) {
-  constexpr bool ST = KV != cs::BF16;
-  constexpr int BR = NW * 16 * MT, NSB = 2, NCP = ST ? 3 : 2;
+  constexpr int NST = prefill_stages(KV);
+  constexpr int BR = NW * 16 * MT, NSB = 2, NCP = NST ? 3 : 2;
   auto kern = gqa_prefill_tc_kernel<D, MT, NW, KV>;
   // once per instantiation, not per launch
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int n_tiles = (kv_len + tc::BK - 1) / tc::BK;
-  // Q, the bf16 K/V tiles (staged: plus two stages of K and V rows in
+  // Q, the bf16 K/V tiles (staged: plus NST stages of K and V rows in
   // their own width), then the positions
   const size_t bytes =
       (size_t)(BR + 2 * NSB * tc::BK) * tc::stride(D) * sizeof(tc::bf16) +
-      (ST ? (size_t)4 * tc::BK * D * sizeof(KVT<KV>) : 0) +
+      (size_t)2 * NST * tc::BK * D * sizeof(KVT<KV>) +
       (size_t)(NCP * tc::BK + BR + NW + 2 * n_tiles) * sizeof(int);
   if (bytes > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   const int R = S * (Hq / Hkv);
@@ -267,6 +360,22 @@ int launch_prefill_tc(const void* q, const void* k, const void* v,
       static_cast<const int*>(rows), static_cast<tc::bf16*>(out), B, S, Hq,
       Hkv, T_cache, kv_len, scale2);
   return static_cast<int>(cudaGetLastError());
+}
+
+// rows a block (256, 128 or 64) of the instance with the fewest waves of
+// blocks (one an SM), each wave weighted by that instance's time a wave
+// (w256, w128, w64; w64 = 0: no 64-row instance); a tie goes to the
+// larger block
+inline int fewest_waves(int R, int bh, int sms, int w256, int w128,
+                        int w64) {
+  auto cost = [&](int rows_a_block, int weight) {
+    return ((R + rows_a_block - 1) / rows_a_block * bh + sms - 1) / sms *
+           weight;
+  };
+  const int c256 = cost(256, w256), c128 = cost(128, w128);
+  const int c64 = w64 ? cost(64, w64) : INT_MAX;
+  if (c256 <= c128 && c256 <= c64) return 256;
+  return c128 <= c64 ? 128 : 64;
 }
 
 template <int D, int KV>
@@ -281,24 +390,27 @@ int dispatch_prefill_tc(const void* q, const void* k, const void* v,
                                           out, B, S, Hq, Hkv, T_cache,       \
                                           kv_len, scale2, st)
   if constexpr (KV == cs::F32) {
-    // two stages of 4-byte K and V rows (128 KB at D = 128) fit only
-    // beside the 64-row instance's Q
-    CS_LAUNCH_PREFILL(1, 4);
+    // 256 (2 m-tiles) or 128 rows, 8 warps, by the fewest waves of one
+    // block an SM weighted 20 : 14, a block's time a wave on the H100
+    // (tools/k3_instance_probe.py: the pick is within 4% of the faster
+    // instance at each of its 9 prefills). No 64-row instance: its 4 warps
+    // narrow 32 f32 chunks a thread a tile, and their loads' latency made
+    // it slower than 128 rows at every prefill measured (S = 40 to 4384)
+    if (fewest_waves(R, bh, sms, 20, 14, 0) == 256) CS_LAUNCH_PREFILL(2, 8);
+    CS_LAUNCH_PREFILL(1, 8);
   } else if constexpr (KV != cs::BF16) {
-    // each block holds an SM: the fewest waves of blocks weighted by a
-    // block's time a tile, measured on the H100 over e4m3 as 17 : 11 : 10
-    // for 256 (8 warps, 2 m-tiles), 128 (8 warps) and 64 rows (4 warps);
-    // e5m2 and f16 take e4m3's weights
-    auto cost = [&](int rows_a_block, int weight) {
-      return ((R + rows_a_block - 1) / rows_a_block * bh + sms - 1) / sms *
-             weight;
-    };
-    const int c256 = cost(256, 17), c128 = cost(128, 11), c64 = cost(64, 10);
-    if (c256 <= c128 && c256 <= c64) CS_LAUNCH_PREFILL(2, 8);
-    if (c128 <= c64) CS_LAUNCH_PREFILL(1, 8);
+    // 256 (8 warps, 2 m-tiles), 128 (8 warps) or 64 rows (4 warps) by the
+    // fewest waves of one block an SM, each weighted by a block's time a
+    // wave, measured on the H100 over e4m3 as 17 : 11 : 10 (e5m2 takes
+    // e4m3's weights; over f16 they pick the fastest of the three at each
+    // of tools/k3_instance_probe.py's 9 prefills)
+    const int rows_a_block = fewest_waves(R, bh, sms, 17, 11, 10);
+    if (rows_a_block == 256) CS_LAUNCH_PREFILL(2, 8);
+    if (rows_a_block == 128) CS_LAUNCH_PREFILL(1, 8);
     CS_LAUNCH_PREFILL(1, 4);
   } else {
-    // 128-row blocks (2 m-tiles per warp) unless they would leave SMs idle
+    // bf16: 128-row blocks (2 m-tiles per warp) unless they would leave
+    // SMs idle
     if ((R + 127) / 128 * bh >= sms) CS_LAUNCH_PREFILL(2, TC_WARPS);
     CS_LAUNCH_PREFILL(1, TC_WARPS);
   }

@@ -33,7 +33,8 @@
 // K3's warps all read each tile, so in registers every warp would widen
 // every element (issue-bound, 1.4x its bf16 time on the H100): K3
 // converts each tile once a block with convert_tile into a bf16 tile
-// (PERF.md), as it does for an f16 or f32 cache (rounded to bf16).
+// (PERF.md); an f16 or f32 cache's chunks are rounded to bf16 in
+// registers as each thread stores them into the bf16 tile (chunk_to_bf16).
 // Rows are padded in shared memory to KS = KD + 8 bf16 (KD: the head dim
 // rounded up to the MMA depth 16): 16-byte row chunks then fall on odd
 // multiples of 16 bytes, so the 8 rows of one ldmatrix hit 8 disjoint
@@ -453,7 +454,7 @@ __device__ __forceinline__ void chunk_to_bf16(bf16* dst, uint4 w) {
   }
 }
 
-// K3 over an fp8, f16 or f32 cache: a tile's rows in their own width (BK
+// K3 over an fp8 cache: a tile's rows in their own width (BK
 // rows of D elements, row stride D elements) converted into the bf16 tile
 // the MMAs read (row stride KS), one 16-byte chunk a step, steps tid,
 // tid + nt, ... (zero rows of a ragged tile stay zero). For e4m3 a form

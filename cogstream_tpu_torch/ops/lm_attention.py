@@ -19,7 +19,8 @@ f32 under bf16 queries round to nearest even. No converted copy of the
 cache is made, so an fp8 cache's K/V bytes read halve against bf16. K4's
 tensor-core kernel widens fp8 in registers, each MMA fragment just
 before its MMA, and narrows f16 / f32 as a warp stages its tile; K3's
-converts each tile once a block into a bf16 tile
+widens fp8 once a block from byte stages into a bf16 tile and narrows
+f16 / f32 as each thread stores its chunks into the bf16 tile
 (``csrc/lm_attention.cu``). ``.kv_launches`` counts the calls by the
 cache's dtype name, ``.fp8_launches`` those over an e4m3 or e5m2 cache.
 The plain version converts only the read window it gathers, as the JAX
@@ -246,7 +247,9 @@ def decode_plan(B: int, Hkv: int, R: int, D: int, kv_len: int,
     tiles on its chain of latencies, so its splits round up to whole
     tiles for every warp: the longest warp's chain sets the block's
     time. f16 and f32 take bf16's plan (4 warps, their tiles narrowed to
-    bf16 as they are staged)."""
+    bf16 as a warp stages them). K3 has no such plan: the C entry picks
+    its instance (bf16 by filling the SMs, the other kinds by weighted
+    waves, ``csrc/lm_attention_tc.cuh``)."""
     mt = 1
     while mt < DECODE_TC_MAX_MT[D] and 16 * mt < R:
         mt *= 2

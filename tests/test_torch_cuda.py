@@ -1002,10 +1002,7 @@ def test_fp8_cache_kernels(dev, rows, kernel, S, dtype, D):
     if kernel == "K3" and dtype == torch.bfloat16:
         # the rows a block of the e4m3 instance (2 kv heads): the fewest
         # waves of one block an SM, weighted 17 : 11 : 10
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        cost = {n: -(-(-(-S * 7 // n) * B * 2) // sms) * w
-                for n, w in ((256, 17), (128, 11), (64, 10))}
-        assert min(cost, key=lambda n: (cost[n], -n)) == {
+        assert _k3_rows_a_block(dev, torch.float8_e4m3fn, S, B) == {
             100: 64, 1210: 256 if B == 1 else 128,
             2420: 128 if B == 1 else 256}[S]
     q = q.to(dtype)
@@ -1327,8 +1324,9 @@ def test_kv_dtype_cache_kernels(dev, rows, kernel, S, D, q_dtype, kv_dtype):
     """K3 and K4 over a ``kv_dtype`` cache against their plain versions on
     the same values (test_fp8_cache_kernels' cases): bf16 queries on the
     tensor-core kernels, each row within 2 bf16 ulps of its max |ref|
-    (every K3 instance the kind has: e5m2 and f16 e4m3's three, f32 the
-    64-row one), f32 queries on the CUDA-core tile (2e-5); with ``rows``
+    (every K3 instance the kind has: e5m2 and f16 e4m3's three, f32 its
+    two 8-warp ones), f32 queries on the CUDA-core tile (2e-5); with
+    ``rows``
     reading a 4-row pool, bit-identical to a contiguous copy. Counted in
     ``.kv_launches`` under the cache's dtype; the padded query outputs 0."""
     from cogstream_tpu_torch.ops import lm_attention as lma
@@ -1392,6 +1390,103 @@ def test_kv_dtype_decode_replays_in_a_graph(dev, kv_dtype):
     torch.cuda.synchronize()
     assert torch.equal(out, lma.decode_attention(q, kc, vc, qpos, eff))
     _two_ulps(out, lma.gqa_attention_plain(q, kc, vc, qpos, eff))
+
+
+# rows a block of each K3 instance over a cache in another dtype than q
+# and its weight (a block's time a wave) in cs_gqa_prefill_tc's
+# fewest-waves rule, by cache kind
+K3_WEIGHTS = {torch.float8_e4m3fn: ((256, 17), (128, 11), (64, 10)),
+              torch.float16: ((256, 17), (128, 11), (64, 10)),
+              torch.float32: ((256, 20), (128, 14))}
+
+
+def _k3_rows_a_block(dev, kv_dtype, S, B, G=7, Hkv=2):
+    """The rows a block of the K3 instance dispatch_prefill_tc picks: over
+    bf16 128 unless that leaves SMs idle, then 64; over another cache
+    (fp8, f16, f32) the fewest waves of one block an SM, weighted."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if kv_dtype == torch.bfloat16:
+        return 128 if -(-S * G // 128) * B * Hkv >= sms else 64
+    cost = {n: -(-(-(-S * G // n) * B * Hkv) // sms) * w
+            for n, w in K3_WEIGHTS[kv_dtype]}   # f32: no 64-row instance
+    return min(cost, key=lambda n: (cost[n], -n))
+
+
+def _one_ulp_apart(got, want):
+    """Each element of two bf16 tensors within one bf16 ulp of the larger
+    magnitude of the two (equal where both are 0)."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+    assert torch.all((g - w).abs() <= ulp), ((g - w).abs() / ulp).max()
+
+
+@pytest.mark.parametrize("rows", [None, [3, 1]])
+@pytest.mark.parametrize("S", [100, 600, 1210, 2420])
+@pytest.mark.parametrize("D", [128, 64])
+@pytest.mark.parametrize("kv_dtype", [torch.float16, torch.float32])
+def test_rounded_cache_prefill_equals_the_bf16_kernel(dev, rows, S, D,
+                                                      kv_dtype):
+    """K3 over an f16 or f32 cache (bf16 queries) against the bf16 kernel
+    over the cache rounded to bf16: the same rounding (round to nearest
+    even, K4's narrowing as each thread stores its chunks into the bf16
+    tile), the same body, the same key order, so bit for bit equal where
+    both launch blocks of as many rows. The cache holds f32 normal draws
+    cast to the kind (not bf16 values: every element rounds), with
+    subnormals and values on bf16's rounding ties (at the draws' scale) in
+    V; the read windows of 1000 and 3400 slots end in a ragged tile and
+    the slots 64..127 are all masked (_decode_case). Both pick their
+    instance by weighted waves (the mirror below): f16 64 rows a block at
+    S = 100 and 600 (128 with ``rows``), 256 at S = 1210 (128 with
+    ``rows``) and 128 at S = 2420 (256 with ``rows``), as many as bf16 but
+    at S = 1210 and at 2420 with ``rows``; f32 128 at S = 100 and 600 and
+    256 at S = 1210 and 2420, as many as bf16 at S = 600 with ``rows``. A
+    larger block walks the tiles that any of its rows sees, and a tile
+    that a row sees nothing of rescales that row's sums by exp2 of a
+    rounding residue (1, or 1 -+ an f32 ulp), so there each element is
+    held within one bf16 ulp of the bf16 kernel's. With ``rows`` the cache
+    is a 4-row pool. Both within 2 bf16 ulps of the plain version."""
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    rng = np.random.default_rng(S * 10 + D + len(rows or ()) + 23)
+    B = 1 if rows is None else len(rows)
+    T, window = (4000, 3400) if S > 500 else (1100, 1000)
+    q, _, _, qpos, eff = _decode_case(rng, dev, B, S, 7, D, T, window, 900)
+    assert _k3_rows_a_block(dev, kv_dtype, S, B) == {
+        (torch.float16, 100): 64, (torch.float16, 600): 64 * B,
+        (torch.float16, 1210): 256 // B, (torch.float16, 2420): 128 * B,
+        (torch.float32, 100): 128, (torch.float32, 600): 128,
+        (torch.float32, 1210): 256, (torch.float32, 2420): 256}[kv_dtype, S]
+    kc = _t(rng.standard_normal((B, T, 2, D)), dev).to(kv_dtype)
+    v32 = rng.standard_normal((B, T, 2, D)).astype(np.float32)
+    if kv_dtype == torch.float16:
+        special = np.array([2.0 ** -24, 3 * 2.0 ** -24, 2.0 ** -14,
+                            -(2.0 ** -20), 1 + 2.0 ** -8, 1 + 3 * 2.0 ** -8,
+                            -(1 + 2.0 ** -8), 3 + 2.0 ** -7], np.float32)
+    else:
+        hi = rng.integers(0x3E00, 0x4080, 64, dtype=np.uint32) << 16
+        special = (hi | 0x8000).view(np.float32)  # bf16 ties in [1/8, 4)
+    v32[:, 130:130 + special.size // 8, 0, :8] = special.reshape(-1, 8)
+    vc = _t(v32, dev).to(kv_dtype)
+    kw = {}
+    if rows is not None:
+        kc = torch.cat([kc, kc.flip(0)]).contiguous()     # 4 pool rows
+        vc = torch.cat([vc, vc.flip(0)]).contiguous()
+        kw = dict(rows=lma.cache_rows(rows, dev))
+    wrap = lma.prefill_flash_attention
+    name = str(kv_dtype).removeprefix("torch.")
+    n0, c0 = wrap.tc_launches, wrap.kv_launches.get(name, 0)
+    got = wrap(q, kc, vc, qpos, eff, **kw)
+    assert (wrap.tc_launches, wrap.kv_launches[name]) == (n0 + 1, c0 + 1)
+    bf = torch.bfloat16
+    want = wrap(q, kc.to(bf), vc.to(bf), qpos, eff, **kw)
+    if (_k3_rows_a_block(dev, kv_dtype, S, B)
+            == _k3_rows_a_block(dev, bf, S, B)):
+        assert torch.equal(got, want)
+    else:
+        _one_ulp_apart(got, want)
+    _two_ulps(got, lma.gqa_attention_plain(q, kc, vc, qpos, eff, rows=rows))
+    assert torch.all(got[:, -1] == 0)
 
 
 @pytest.mark.parametrize("kernel,S", [("K3", 16), ("K4", 1), ("K4", 8)])

@@ -17,10 +17,14 @@ of 20 launches
 between CUDA events, best of 3; and of K4 (``decode_attention``, one
 step over a 9216-slot window holding 9000), 50 calls captured in a CUDA
 graph, best of 3 replays. K3 and K4 run over a bf16 cache and, in a
-checkout that has the fp8 KV cache, over the same values in e4m3; each
-of those outputs is hashed, and the summary says which agree bit for bit
-between the checkouts. Each checkout builds its own kernels into its own
-``build/kernels``.
+checkout that has the fp8 KV cache, over the same values in e4m3; in a
+checkout that has the other cache dtypes, also over those bf16 values in
+e5m2 and over f32 normal draws in f16 and in f32, each beside the bf16
+kernel over that cache rounded to bf16 (``bf16_of_f16``,
+``bf16_of_f32``). Each output is hashed, and the summary says which agree
+bit for bit between the checkouts and gives, in this checkout, each f16 /
+f32 time over its rounded bf16 twin's (best against best). Each checkout
+builds its own kernels into its own ``build/kernels``.
 
 ``--plans`` times K4 in this checkout alone, CUDA graphs of 50 calls in
 alternating rounds, at the serving shapes its launch plan must cover: a
@@ -105,7 +109,8 @@ def time_one(root: str) -> dict:
 
 def time_lm_attention(rng, dev, ms) -> dict:
     """K3 and K4 device ms over a bf16 cache and, where the checkout has
-    the fp8 KV cache, over the same values in e4m3."""
+    them, over the same values in e4m3 and e5m2 and over f32 draws in f16
+    and f32 beside those rounded to bf16."""
     import numpy as np
     import torch
 
@@ -138,6 +143,16 @@ def time_lm_attention(rng, dev, ms) -> dict:
     if hasattr(lma.decode_attention, "fp8_launches"):
         k8, v8 = k.to(torch.float8_e4m3fn), v.to(torch.float8_e4m3fn)
         caches = {"bf16": (k8.to(bf), v8.to(bf)), "e4m3": (k8, v8)}
+    if hasattr(lma.decode_attention, "kv_launches"):
+        e5 = torch.float8_e5m2
+        caches["e5m2"] = (caches["bf16"][0].to(e5), caches["bf16"][1].to(e5))
+        kf = torch.as_tensor(rng.standard_normal((1, T, Hkv, D)),
+                             dtype=torch.float32).to(dev)
+        vf = torch.as_tensor(rng.standard_normal((1, T, Hkv, D)),
+                             dtype=torch.float32).to(dev)
+        for name, dt in (("f16", torch.float16), ("f32", torch.float32)):
+            caches[name] = (kf.to(dt), vf.to(dt))
+            caches[f"bf16_of_{name}"] = (kf.to(dt).to(bf), vf.to(dt).to(bf))
     out = {}
     for kernel, S, hist, W in (("K3", 4384, 4607, T),
                                ("K3s1000", 1000, 8000, T),
@@ -281,6 +296,13 @@ def main() -> int:
                for tag, got in runs.items() for key in keys}
     best = {tag: min(x["K1_ms"] for x in got) for tag, got in runs.items()}
     summary["K1_this_over_other"] = best["this"] / best["other"]
+    for key in keys:      # this checkout's f16 / f32 over the rounded twin
+        for kind in ("f16", "f32"):
+            twin = key.replace(f"_{kind}_ms", f"_bf16_of_{kind}_ms")
+            if key.endswith(f"_{kind}_ms") and twin in runs["this"][0]:
+                summary[key.replace("_ms", "_over_bf16")] = min(
+                    x[key] for x in runs["this"]) / min(
+                    x[twin] for x in runs["this"])
     for key in runs["this"][0]:
         if key.endswith("_sha") and key in runs["other"][0]:
             summary[key.replace("_sha", "_bits_equal")] = len(
