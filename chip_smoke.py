@@ -33,7 +33,8 @@ Phases (each prints one line or a few; any failure exits non-zero):
    quantization, ``torch._int_mm`` on the held column-major weights and on
    a row-major copy, epilogue) beside the bf16 ``F.linear``. K1, K3, K4 and K5 run their
    bf16 tensor-core kernels, timed beside their f32 route (the CUDA-core
-   f32 tile) on the same values and its bound at the f32 peak; K3 also
+   f32 tile) on the same values, its bound at the f32 peak, its plain
+   version (once) and the library call on those f32 values; K3 also
    at a question prefill (a few
    dozen tokens over a ~9k-slot window), where it must beat the f32
    route; K3, K4 and K5 must beat the library call. K4 and K5 are timed
@@ -61,9 +62,11 @@ Phases (each prints one line or a few; any failure exits non-zero):
    queries) and over a bf16 cache on the f32 route, at the same shapes,
    each within the 2-ulp row rule of its plain version and counted under
    its dtype, timed beside the bf16 (f32) route on the same values and
-   beside its bound, K4's graph replay bit-identical, K3 over f16 and f32
-   within one bf16 ulp of the bf16 kernel over the cache rounded to bf16
-   (its differing elements counted); every e5m2 byte
+   beside its bound (K4 at S = 1, 5 and 8), K4's graph replay
+   bit-identical, K3 over f16 and f32 within one bf16 ulp of the bf16
+   kernel over the cache rounded to bf16 (its differing elements
+   counted), K4 over them each row within one bf16 ulp of its max there
+   and f16 on bf16's split bit-equal to it; every e5m2 byte
    widened exactly as V and as K; those instances' ptxas figures;
 4. reference — a tiny-config session (f32) runs ingest → ask(AC) →
    ingest → ask(FCC) on the card (kernels) and on the CPU (plain
@@ -516,7 +519,7 @@ KV_KINDS = {"bf16": (1, 2, ((2, 4), (1, 4)), 0, 4),
             "e4m3": (2, 1, ((2, 8), (1, 8), (1, 4)), 2, 8),
             "e5m2": (3, 1, ((2, 8), (1, 8), (1, 4)), 2, 8),
             "f16": (4, 2, ((2, 8), (1, 8), (1, 4)), 0, 4),
-            "f32": (0, 4, ((2, 8), (1, 8)), 0, 4)}
+            "f32": (0, 4, ((2, 8), (1, 8)), 0, 3)}
 
 
 def _lm_label(kernel: str, kind: str, mt: int, warps: int = 0) -> str:
@@ -539,12 +542,12 @@ TC_KERNELS = {
        f"gqa_prefill_tc_kernelILi128ELi{mt}ELi{w}ELi{code}EE"
        for kind, (code, _, k3, *_) in KV_KINDS.items() for mt, w in k3},
     **{_lm_label("K4", kind, mt):
-       f"gqa_decode_tc_kernelILi128ELi{mt}ELi{code}EE"
-       for kind, (code, *_) in KV_KINDS.items() for mt in (1, 2)},
+       f"gqa_decode_tc_kernelILi128ELi{mt}ELi{nw}ELi{code}E"
+       for kind, (code, *_, nw) in KV_KINDS.items() for mt in (1, 2)},
     "K1 tc <D=72, rope>": "segment_tc_kernelILi72ELb1E",
     "K5 tc <D=72>": "segment_tc_kernelILi72ELb0E",
-    "K4 tc <D=64, 1 m-tile>": "gqa_decode_tc_kernelILi64ELi1ELi1EE",
-    "K4 tc <D=64, 2 m-tiles>": "gqa_decode_tc_kernelILi64ELi2ELi1EE",
+    "K4 tc <D=64, 1 m-tile>": "gqa_decode_tc_kernelILi64ELi1ELi4ELi1E",
+    "K4 tc <D=64, 2 m-tiles>": "gqa_decode_tc_kernelILi64ELi2ELi4ELi1E",
               "K8 tc <1 n-tile>": "int4_gemv_tc_kernelILi0ELi1E",
               "K8 tc <2 n-tiles>": "int4_gemv_tc_kernelILi0ELi2E",
               "K8 tc <4 n-tiles>": "int4_gemv_tc_kernelILi0ELi4E",
@@ -569,8 +572,9 @@ def lm_attention_smem(kv_len: int = 16384) -> dict:
     them (csrc/lm_attention_tc.cuh), each K/V kind, by TC_KERNELS label:
     K3 keeps Q, two bf16 K and V tiles, for fp8 two stages of K and V
     rows in their own width, and the positions (two slots, three when
-    staged); K4 Q, each warp's K and V tile (bf16 rows,
-    or fp8 bytes; overlaid by the warps' f32 merge) and the positions."""
+    staged); K4 Q, each warp's K and V tile (the cache's own rows: bf16
+    or f16 padded, fp8 or f32 swizzled; overlaid by the warps' f32 merge)
+    and the positions."""
     KS, BK, D = 136, 64, 128
     out = {}
     for kind, (_, eb, k3, stages, nw) in KV_KINDS.items():
@@ -580,7 +584,8 @@ def lm_attention_smem(kv_len: int = 16384) -> dict:
                 br * KS * 2 + 4 * BK * KS * 2 + 2 * stages * BK * D * eb
                 + ((3 if stages else 2) * BK + br + w3
                    + 2 * -(-kv_len // BK)) * 4, 32 * w3)
-        tile = BK * D if eb == 1 else BK * KS * 2   # one K4 K (or V) tile
+        # one K4 K (or V) tile: the cache's own rows (bf16, f16 padded)
+        tile = BK * D * eb if eb != 2 else BK * KS * 2
         for mt in (2, 1):
             kv = max(2 * nw * tile, nw * 16 * mt * (D + 2) * 4)
             out[_lm_label("K4", kind, mt)] = (
@@ -717,11 +722,20 @@ def check_kernels(dev):
             seg = args[3]
             b32 = bound_ms(nbytes(qkv32, *args[1:], *ranges) + 4 * got.numel(),
                            4 * H * D * segment_pairs(seg), "f32")
+            # the f32 route's yardsticks on its f32 values: the plain
+            # version once, SDPA on the rotated f32 q / k
+            f32_plain = cuda_ms(lambda: fa.flash_attention_packed_rope_plain(
+                qkv32, *args[1:], H, 1 / math.sqrt(D)), 1, warmup=0)
+            q, k, v = qkv32.reshape(N, 3, H, D).unbind(1)
+            f32_lib = sdpa_ms(heads_first(apply_vision_rope_cs(q, c2, s2)),
+                              heads_first(apply_vision_rope_cs(k, c2, s2)),
+                              heads_first(v), block_diag(seg), 2)
             log(f"kernel K1 routes at N={N}: tensor-core tile (bf16) "
                 f"{k1_ms:.4f} ms, CUDA-core tile (f32, same values) "
                 f"{k1_f32_ms:.4f} ms, its bound {b32[0]:.4f} ms ({b32[1]}, "
-                f"f32 peak)")
-            del qkv32
+                f"f32 peak), its plain version {f32_plain:.4f} ms, library "
+                f"(f32) {f32_lib:.4f} ms")
+            del qkv32, q, k, v
             k1_bound = bound_ms(nbytes(*args, *ranges, got),
                                 4 * H * D * segment_pairs(seg))
             # library yardstick: SDPA on the already-rotated q/k (no
@@ -792,11 +806,15 @@ def check_kernels(dev):
         q32, k32, v32, qp, eff), 2)
     b32 = bound_ms(nbytes(q32, qp, eff) + 4 * got.numel() + 4 * seen * kv_row,
                    4 * Hq * Dl * visible_pairs(qp, eff), "f32")
+    f32_plain = cuda_ms(lambda: lma.gqa_attention_plain(q32, k32, v32, qp,
+                                                        eff), 1, warmup=0)
+    f32_lib = sdpa_ms(*sdpa_operands(q32, k32, v32, qp, eff), 2)
     pad_zero = bool((got[0, S - 20:] == 0).all())
     log(f"kernel K3 routes at S={S}: tensor-core tile (bf16) {k3_ms:.4f} ms,"
         f" CUDA-core tile (f32, same values) {k3_f32_ms:.4f} ms (its bound "
-        f"{b32[0]:.4f} ms, {b32[1]}, f32 peak), library {k3_lib:.4f} ms; 20 "
-        f"padded query rows zero {pad_zero}")
+        f"{b32[0]:.4f} ms, {b32[1]}, f32 peak; its plain version "
+        f"{f32_plain:.4f} ms, library (f32) {f32_lib:.4f} ms), library "
+        f"{k3_lib:.4f} ms; 20 padded query rows zero {pad_zero}")
     if not pad_zero:
         raise AssertionError("K3 padded query rows are not zero")
     record(2, *row_check(got, ref, Dl), k3_ms,
@@ -864,6 +882,10 @@ def check_kernels(dev):
     b32 = bound_ms(nbytes(q1_32, qp, eff) + 4 * got.numel()
                    + 4 * seen * kv_row,
                    4 * Hq * Dl * visible_pairs(qp, eff), "f32")
+    k4_f32_plain = cuda_ms(lambda: lma.gqa_attention_plain(q1_32, k32, v32,
+                                                           qp, eff), 1,
+                           warmup=0)
+    k4_f32_lib = sdpa_ms(*sdpa_operands(q1_32, k32, v32, qp, eff), 20)
     del k32, v32
     # capture: one call in a graph, replayed after q and eff are rewritten
     # in place, against the eager call on the new values
@@ -883,8 +905,9 @@ def check_kernels(dev):
     log(f"kernel K4 routes over a {W}-slot window: tensor-core kernel "
         f"(bf16, one launch) {k4_ms:.4f} ms, CUDA-core tile + combine (f32,"
         f" same values) {k4_f32_ms:.4f} ms (its bound {b32[0]:.4f} ms, "
-        f"{b32[1]}, f32 peak), library {k4_lib:.4f} ms (graph ms for both "
-        f"routes); two calls bit-identical {repeat_equal}; "
+        f"{b32[1]}, f32 peak; its plain version {k4_f32_plain:.4f} ms, "
+        f"library (f32) {k4_f32_lib:.4f} ms), library {k4_lib:.4f} ms (graph"
+        f" ms for both routes); two calls bit-identical {repeat_equal}; "
         f"graph replay after q / eff rewritten equals the eager call "
         f"{replay_equal}")
     record(3, *row_check(got, ref, Dl), k4_ms,
@@ -990,6 +1013,11 @@ def check_kernels(dev):
                 b32 = bound_ms(nbytes(q32, k32, v32, seg, *ranges)
                                + 4 * got.numel(),
                                4 * H * D * segment_pairs(seg), "f32")
+                k5_f32_plain = cuda_ms(
+                    lambda: fa.segment_flash_attention_plain(
+                        q32, k32, v32, seg, 1 / math.sqrt(D)), 1, warmup=0)
+                k5_f32_lib = sdpa_ms(heads_first(q32), heads_first(k32),
+                                     heads_first(v32), block_diag(seg), 2)
                 del q32, k32, v32
             k5_plain_ms = cuda_ms(lambda: fa.segment_flash_attention_plain(
                 q, k, v, seg, 1 / math.sqrt(D)), 2)
@@ -1000,7 +1028,8 @@ def check_kernels(dev):
             log(f"kernel K5 routes at N={N}: tensor-core tile (bf16, graph "
                 f"ms) {k5_ms:.4f} ms, CUDA-core tile (f32, same values) "
                 f"{k5_f32_ms:.4f} ms (its bound {b32[0]:.4f} ms, {b32[1]}, "
-                f"f32 peak), library {k5_lib:.4f} ms")
+                f"f32 peak; its plain version {k5_f32_plain:.4f} ms, library "
+                f"(f32) {k5_f32_lib:.4f} ms), library {k5_lib:.4f} ms")
     record(4, max(k5_err), max(k5_ratio), k5_ms, k5_plain_ms, k5_bound,
            k5_lib)
     if not k5_ms < k5_lib:
@@ -1949,6 +1978,18 @@ KV_ROUTES = (("bfloat16", "float8_e4m3fn", "fp8kv",
               "cogstream_tpu_torch/csrc/lm_attention.cu"))
 
 
+def one_ulp_apart(got, want):
+    """(elements of two bf16 tensors that differ, whether each lies within
+    one bf16 ulp of the larger magnitude of the two)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
+    within = bool(((g - w).abs() <= torch.exp2(
+        torch.floor(torch.log2(mag)) - 7)).all())
+    return int((g != w).sum().item()), within
+
+
 def check_kv_dtype_kernels(dev):
     """Phase 3, the caches in another dtype than q: K3 and K4 over an e4m3,
     e5m2, f16 and f32 cache on their tensor-core kernels (bf16 queries) and
@@ -2047,13 +2088,10 @@ def check_kv_dtype_kernels(dev):
         rounded = ""
         one_ulp = True
         if tc and kvname in ("float16", "float32"):
-            g, w = got.float(), wrap(q, kq, vq, qp, eff).float()
-            mag = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
-            one_ulp = bool(((g - w).abs() <= torch.exp2(
-                torch.floor(torch.log2(mag)) - 7)).all())
+            n_diff, one_ulp = one_ulp_apart(got, wrap(q, kq, vq, qp, eff))
             rounded = (f"; elements differing from the bf16 kernel over the "
-                       f"cache rounded to bf16 {int((g != w).sum().item())} "
-                       f"of {g.numel()}, all within one bf16 ulp {one_ulp}")
+                       f"cache rounded to bf16 {n_diff} of {got.numel()}, "
+                       f"all within one bf16 ulp {one_ulp}")
         log(f"kernel K3 {kvname} cache, {qname} queries, S={S} over {hist} "
             f"history slots: max_abs_err={err:.6g}, worst row at {ratio:.3g}"
             f" of its bound; {'tensor-core kernel' if tc else 'f32 route'} "
@@ -2087,23 +2125,55 @@ def check_kv_dtype_kernels(dev):
                 qv, kc, vc, qpv, effv), Dl)
             bv = bound(qv, qpv, effv, gotv)
             repeat = bool(torch.equal(gotv, wrap(qv, kc, vc, qpv, effv)))
+            # f16 / f32 under bf16 queries: the bf16 kernel's function over
+            # the cache rounded to bf16. On its own plan (whole tiles a
+            # warp; f32 3 warps) a warp's softmax rounds P against another
+            # running max: each row within one bf16 ulp of its max |bf16
+            # kernel| (test_rounded_cache_decode_equals_the_bf16_kernel).
+            # f16 has bf16's warps: on bf16's split, bit-equal
+            rounded = ""
+            one_ulp = True
+            if tc and kvname in ("float16", "float32"):
+                w = wrap(qv, kq, vq, qpv, effv)
+                n_diff, _ = one_ulp_apart(gotv, w)
+                _, row_ulps = row_check(gotv, w, Dl)
+                row_ulps *= 2    # row_check's bound is 2 ulps
+                code = kernels.KV_DTYPE_CODES[kd]
+                one_ulp = row_ulps <= 1.0
+                rounded = (f"; against the bf16 kernel over the cache rounded"
+                           f" to bf16 ({lma.DECODE_WARPS[code]} warps, whole "
+                           f"tiles): {n_diff} of {gotv.numel()} elements "
+                           f"differ, worst row at {row_ulps:.3g} bf16 ulps "
+                           f"of its max, every row within one ulp {one_ulp}")
+                if lma.DECODE_WARPS[code] == lma.DECODE_WARPS[1]:
+                    plan = lma.decode_plan
+                    lma.decode_plan = lambda *a: plan(*a[:6])
+                    try:
+                        same = bool(torch.equal(
+                            wrap(qv, kc, vc, qpv, effv), w))
+                    finally:
+                        lma.decode_plan = plan
+                    one_ulp = one_ulp and same
+                    rounded += f"; on bf16's split bit-equal {same}"
             timed = ""
             msv = None
-            if Sv == 1:
+            if tc or Sv == 1:
                 msv = timer(lambda: wrap(qv, kc, vc, qpv, effv), 50)
                 msv_q = timer(lambda: wrap(qv, kq, vq, qpv, effv), 50)
-                timings[f"K4 {suffix} S=1"] = {"ms": msv, f"{other}_ms": msv_q,
-                                               "bound_ms": bv[0]}
+                timings[f"K4 {suffix} S={Sv}"] = {
+                    "ms": msv, f"{other}_ms": msv_q, "bound_ms": bv[0]}
                 timed = (f"; {msv:.4f} ms, {other} cache (same values) "
-                         f"{msv_q:.4f} ms{' (graph ms)' if tc else ''}")
+                         f"{msv_q:.4f} ms ({msv / msv_q:.3f}x)"
+                         f"{' (graph ms)' if tc else ''}")
             log(f"kernel K4 {kvname} cache, {qname} queries, S={Sv} over a "
                 f"{W}-slot window ({fill} history slots): max_abs_err="
                 f"{errv:.6g}, worst row at {ratiov:.3g} of its bound; the "
                 f"{kvname} code {counted}; two calls bit-identical "
-                f"{repeat}{timed}; bound {bv[0]:.4f} ms ({bv[1]})")
-            if not (ratiov <= 1.0 and counted and repeat):
+                f"{repeat}{timed}; bound {bv[0]:.4f} ms ({bv[1]}){rounded}")
+            if not (ratiov <= 1.0 and counted and repeat and one_ulp):
                 raise AssertionError(f"K4 over the {kvname} cache at S={Sv} "
-                                     "disagrees with its plain version")
+                                     "disagrees with its plain version or "
+                                     "the bf16 kernel")
             k4[Sv] = (qv, qpv, effv, errv, msv, bv)
         qv, qpv, effv, _, msv, bv = k4[1]
         plain = cuda_ms(lambda: lma.gqa_attention_plain(qv, kc, vc, qpv,

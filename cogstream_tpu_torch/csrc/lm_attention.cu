@@ -103,17 +103,29 @@
 //     e5m2 byte is the high byte of an f16: cvt.rn.f16x2.e5m2x2, exact);
 //     K4 8 warps in registers, K3 once a block from byte stages.
 //   - f16 or f32 under bf16 queries: rounded to bf16 (round to nearest
-//     even, as `astype` does), then the bf16 body. Both K3 and K4 narrow
-//     in registers: a thread loads its 16-byte chunks of a tile, rounds
-//     them and stores them into the bf16 tile (no byte stage). K3 does so
-//     for tile t + 1 after tile t's math, one barrier a tile, and takes
-//     8-warp blocks of 256 or 128 rows (f16 also 64 rows of 4 warps) by
-//     weighted waves: the rounding, once a block, then weighs half as much
-//     a row as in bf16's 128-row block. On the H100, rounding in place
-//     after a cp.async into the bf16 tile, on bf16's instance, measured
-//     1.27x bf16 over f16, and a single f32 byte stage whose chunks each
-//     thread copies and rounds itself timed as the narrowing (PERF.md).
-//     K4 narrows as a warp stages its tile and runs the bf16 body.
+//     even, as `astype` does), then bf16's arithmetic.
+//     K3 narrows in registers: after tile t's math a thread loads its
+//     16-byte chunks of tile t + 1, rounds them and stores them into the
+//     bf16 tile (no byte stage), one barrier a tile, in 8-warp blocks of
+//     256 or 128 rows (f16 also 64 rows of 4 warps) by weighted waves:
+//     the rounding, once a block, then weighs half as much a row as in
+//     bf16's 128-row block. On the H100, rounding in place after a
+//     cp.async into the bf16 tile, on bf16's instance, measured 1.27x bf16
+//     over f16, and a single f32 byte stage whose chunks each thread
+//     copies and rounds itself timed as the narrowing (PERF.md).
+//     K4 keeps the cache's own bytes: each warp's K and V tiles land by
+//     cp.async, two copy groups, as bf16's do (V lands during the scores,
+//     the next K during P.V), and each B fragment is rounded in registers
+//     just before its MMA, once (the warps read disjoint tiles): f16 from
+//     ldmatrix on bf16's tile layout (two exact cvt.f32.f16, one
+//     cvt.rn.bf16x2.f32 a register), f32 from swizzled f32 rows (8-byte
+//     pairs along the head dim for Q.K^T, 16-byte chunks of four keys
+//     paired along the keys for P.V, O's head dims permuted as for fp8).
+//     f16 runs bf16's 4 warps (on bf16's split it gives the bf16
+//     kernel's bits over the rounded cache); f32's K and V tiles take
+//     64 KB a warp, so it runs 3 warps. Both round the split up to whole
+//     tiles a warp. Measured on the H100 (PERF.md): f16 rounded in place
+//     after its own cp.async, on bf16's plan, ran 1.18-1.37x bf16.
 //   - bf16, f16 or e5m2 under f32 queries: the f32 route widens each
 //     element exactly (gqa_attention_kernel<float, KV>).
 // lm_attention_tc.cuh holds the tensor-core templates; each K/V kind's
@@ -450,7 +462,14 @@ extern "C" int cs_gqa_decode_tc(const void* q, const void* k, const void* v,
 }
 
 // warps a block of cs_gqa_decode_tc over a kv_dtype cache (decode_plan
-// in ops/lm_attention.py rounds an fp8 split up to whole tiles for them)
+// in ops/lm_attention.py mirrors them: DECODE_WARPS); -1 for another code
 extern "C" int cs_decode_tc_warps(int kv_dtype) {
-  return tc::is_f8(kv_dtype) ? dec_warps<cs::E4M3>() : dec_warps<cs::BF16>();
+  switch (kv_dtype) {
+    case cs::F32: return dec_warps<cs::F32>();
+    case cs::BF16: return dec_warps<cs::BF16>();
+    case cs::E4M3: return dec_warps<cs::E4M3>();
+    case cs::E5M2: return dec_warps<cs::E5M2>();
+    case cs::F16: return dec_warps<cs::F16>();
+  }
+  return -1;
 }

@@ -1,6 +1,7 @@
 // K3 and K4 on the tensor cores over an f32 KV cache (rounded to bf16 in
-// registers on the way into the bf16 tile: K3 by each thread for its
-// chunks, 256 or 128 rows a block; K4 as a warp stages its tile), bf16
+// registers: K3 by each thread for its chunks on the way into the bf16
+// tile, 256 or 128 rows a block; K4 in its B fragments before their MMA,
+// from the cache's own swizzled f32 rows, 3 warps a block), bf16
 // queries: this kind's instances of
 // lm_attention_tc.cuh, built beside the other kinds' (lm_attention.cu's C
 // entries call these).

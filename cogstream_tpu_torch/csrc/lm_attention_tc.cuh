@@ -21,7 +21,7 @@ constexpr int MAX_SMEM = 232448;  // 227 KB: a block's dynamic shared memory
 // and V tiles; another K/V kind KV (a cs::DType code) reaches them so:
 //  - f16, f32 (rounded to bf16): after tile t's math each thread loads its
 //    chunks of tile t + 1 into registers, rounds them and stores them into
-//    the free bf16 tile (K4's narrowing), one barrier a tile: no byte
+//    the free bf16 tile (tc::chunk_to_bf16), one barrier a tile: no byte
 //    stage, so a block holds bf16's tiles and Q only (140 KB at 256 rows,
 //    D = 128). 8 warps at 256 (MT = 2) or 128 rows (MT = 1), one block an
 //    SM; f16 also 4 warps at 64 rows, two blocks an SM;
@@ -43,12 +43,13 @@ __host__ __device__ constexpr int prefill_stages(int kv) {
   return is_f8(kv) ? 2 : 0;
 }
 
-// K (or V) bytes of one K4 key tile in shared memory: bf16 rows of KS
-// elements (a bf16, f16 or f32 cache: the latter two narrowed as a warp
-// stages them), or fp8 rows of D bytes
+// K (or V) bytes of one K4 key tile in shared memory: the cache's own
+// rows, bf16 or f16 at stride KS, fp8 or f32 rows of D elements (swizzled)
 template <int D, int KV>
 __host__ __device__ constexpr int tile_bytes() {
-  return is_f8(KV) ? tc::BK * D : tc::BK * tc::stride(D) * 2;
+  return is_f8(KV)         ? tc::BK * D
+         : KV == cs::F32 ? tc::BK * D * 4
+                         : tc::BK * tc::stride(D) * 2;
 }
 
 // NW warps of MT m-tiles: bf16 takes 4, two blocks an SM; another kind 4
@@ -441,12 +442,16 @@ __device__ __forceinline__ void stage_q(tc::bf16* Qs,
   }
 }
 
-// destination byte offset of chunk ch (16 bytes) of key row c in a K4 K/V
-// tile: bf16 rows of stride KS, or fp8 rows swizzled by tc::swz
-template <int D, bool F8>
-__device__ __forceinline__ int tile_chunk(int c, int ch) {
-  if constexpr (F8) {
+// destination byte offset of chunk ch (16 bytes) of key row c in a K4
+// K (or, is_v, V) tile of kind KV: bf16 or f16 rows of stride KS, fp8
+// rows swizzled by tc::swz, f32 rows by tc::f32_k_chunk / f32_v_chunk
+template <int D, int KV>
+__device__ __forceinline__ int tile_chunk(int c, int ch, bool is_v) {
+  if constexpr (is_f8(KV)) {
     return c * D + 16 * (ch ^ tc::swz<D>(c));
+  } else if constexpr (KV == cs::F32) {
+    return c * D * 4 +
+           16 * (is_v ? tc::f32_v_chunk<D>(c, ch) : tc::f32_k_chunk(c, ch));
   } else {
     return c * tc::stride(D) * 2 + ch * 16;
   }
@@ -456,32 +461,35 @@ __device__ __forceinline__ int tile_chunk(int c, int ch) {
 // A block of NW warps owns the RB = 16 * MT folded rows r0 + [0, RB) of
 // one (batch, kv head) and the key tiles [t_begin, t_end) of one split;
 // warp w takes tiles t_begin + w, + NW, ... each with its own online
-// softmax. KV (a cs::DType code) is the cache's kind. fp8 (e4m3, e5m2):
-// a warp keeps its K and V tiles' bytes and widens their fragments in
-// registers (tc::scores_f8, tc::accumulate_f8). f16 and f32: a warp
-// narrows its tiles to bf16 as it stages them (loads into registers,
-// cvt.rn, stores into its bf16 tile), then runs the bf16 body.
-// A block has 4 warps, or 8 over an fp8 cache: a warp's tile costs more
-// there (the widening lies on the warp's chain) and its bytes half as
-// much shared memory, so a split's tiles spread over twice the warps
-// (decode_plan rounds an fp8 split up to whole tiles for the 8).
+// softmax. KV (a cs::DType code) is the cache's kind. Every kind's tile
+// is the cache's own bytes, copied by cp.async (K and V of a tile two copy
+// groups), and the other kinds' B fragments become bf16 in registers just
+// before their MMA: fp8 (e4m3, e5m2) widened (tc::scores_f8,
+// tc::accumulate_f8), f16 and f32 rounded to nearest even (tc::scores /
+// accumulate<F16>, tc::scores_f32 / accumulate_f32). K4's warps read
+// disjoint tiles, so each element is converted once.
+// Warps a block by kind (dec_warps; decode_plan in ops/lm_attention.py
+// mirrors it): bf16 and f16 4 (f16 keeps bf16's tile layout and bytes);
+// fp8 8 (a warp's bytes take half as much shared memory, so a split's
+// tiles spread over twice the warps); f32 3 (a warp's f32 K and V tiles
+// take 64 KB at D = 128). Every kind but bf16 has its split rounded up to
+// whole tiles for its warps (decode_plan).
 template <int KV>
 __host__ __device__ constexpr int dec_warps() {
-  return is_f8(KV) ? 8 : 4;
+  return is_f8(KV) ? 8 : KV == cs::F32 ? 3 : 4;
 }
 
 // shared-memory bytes of the K4 warps' K and V tiles, which the warps'
 // merge (m, l and O rows of 16 MT rows each, f32) overlays afterwards
-template <int D, int MT, int KV>
+template <int D, int MT, int NW, int KV>
 __host__ __device__ constexpr int dec_kv_bytes() {
-  constexpr int NW = dec_warps<KV>();
   return 2 * NW * tile_bytes<D, KV>() > NW * 16 * MT * (D + 2) * 4
              ? 2 * NW * tile_bytes<D, KV>()
              : NW * 16 * MT * (D + 2) * 4;
 }
 
-template <int D, int MT, int KV>
-__global__ void __launch_bounds__(dec_warps<KV>() * 32)
+template <int D, int MT, int NW, int KV>
+__global__ void __launch_bounds__(NW * 32)
 gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
                      const KVT<KV>* __restrict__ k,
                      const KVT<KV>* __restrict__ v,
@@ -492,10 +500,10 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
                      tc::bf16* __restrict__ out, int S, int Hq, int Hkv,
                      int T_cache, int kv_len, int tiles_per_split,
                      float scale2) {
-  constexpr bool F8 = is_f8(KV);
-  // f16 / f32: narrowed to bf16 as a warp stages its tile
-  constexpr bool NARROW = KV == cs::F16 || KV == cs::F32;
-  constexpr int NW = dec_warps<KV>(), NT = 32 * NW, RB = 16 * MT;
+  constexpr bool F8 = is_f8(KV), F32 = KV == cs::F32;
+  // O's head dims permuted in the state (fp8, f32: see tc_tile.cuh)
+  constexpr bool PERM_O = F8 || F32;
+  constexpr int NT = 32 * NW, RB = 16 * MT;
   constexpr int BK = tc::BK;
   constexpr int KS = tc::stride(D), D4 = D / 4;
   // K/V: 16-byte chunks of a global row, elements per chunk
@@ -507,7 +515,8 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
   tc::bf16* Qs = reinterpret_cast<tc::bf16*>(smem_raw);
   // per warp a K and a V tile of TB bytes
   unsigned char* KVs = reinterpret_cast<unsigned char*>(Qs + RB * KS);
-  int* cpos_all = reinterpret_cast<int*>(KVs + dec_kv_bytes<D, MT, KV>());
+  int* cpos_all =
+      reinterpret_cast<int*>(KVs + dec_kv_bytes<D, MT, NW, KV>());
   int* last = cpos_all + NW * BK;
   float* mrg = reinterpret_cast<float*>(KVs);  // after the tiles: NW x WS
 
@@ -551,37 +560,14 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
   unsigned char* Kd = KVs + warp * 2 * TB;
   unsigned char* Vd = Kd + TB;
   int* cpos = cpos_all + warp * BK;
-  // a copy group a tile (f16 / f32: stores made before it, an empty group)
-  auto load = [&](unsigned char* dst, const KVT<KV>* src, int t) {
+  // tile t's K (or V) rows into dst, one copy group
+  auto load = [&](unsigned char* dst, const KVT<KV>* src, int t, bool is_v) {
     const int k0 = t * BK;
-    if constexpr (NARROW) {
-      // U chunks a lane in flight, then narrowed into the bf16 tile
-      constexpr int N = BK * CHK / 32, U = 8;
-      static_assert(N % U == 0, "whole rounds of loads");
-      tc::bf16* o = reinterpret_cast<tc::bf16*>(dst);
-      for (int i0 = 0; i0 < N; i0 += U) {
-        uint4 w[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int i = (i0 + u) * 32 + lane, c = i / CHK, ch = i % CHK;
-          w[u] = k0 + c < kv_len  // ragged last tile: zero rows
-              ? __ldg(reinterpret_cast<const uint4*>(
-                    src + (size_t)(k0 + c) * tok + ch * EPC))
-              : make_uint4(0u, 0u, 0u, 0u);
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int i = (i0 + u) * 32 + lane, c = i / CHK, ch = i % CHK;
-          tc::chunk_to_bf16<KV>(o + c * KS + ch * EPC, w[u]);
-        }
-      }
-    } else {
-      for (int i = lane; i < BK * CHK; i += 32) {
-        const int c = i / CHK, ch = i % CHK;
-        const bool ok = k0 + c < kv_len;  // ragged last tile: zero rows
-        const size_t off = ok ? (size_t)(k0 + c) * tok + ch * EPC : 0;
-        tc::cp_async16(dst + tile_chunk<D, F8>(c, ch), src + off, ok);
-      }
+    for (int i = lane; i < BK * CHK; i += 32) {
+      const int c = i / CHK, ch = i % CHK;
+      const bool ok = k0 + c < kv_len;  // ragged last tile: zero rows
+      const size_t off = ok ? (size_t)(k0 + c) * tok + ch * EPC : 0;
+      tc::cp_async16(dst + tile_chunk<D, KV>(c, ch, is_v), src + off, ok);
     }
     tc::cp_async_commit();
   };
@@ -616,8 +602,8 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
   if (t < t_end) {
     cpos[lane] = e0;
     cpos[lane + 32] = e1;
-    load(Kd, kb, t);
-    load(Vd, vb, t);
+    load(Kd, kb, t, false);
+    load(Vd, vb, t, true);
     tc::cp_async_wait<1>();  // Q and K landed, V may be in flight
   } else {
     tc::cp_async_wait<0>();
@@ -637,16 +623,19 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
     if constexpr (F8) {
       tc::scores_f8<D, MT, KV>(Qs, Kd, scale2, emax <= rmin, visible, st,
                                pa);
+    } else if constexpr (F32) {
+      tc::scores_f32<D, MT>(Qs, reinterpret_cast<const float*>(Kd), scale2,
+                            emax <= rmin, visible, st, pa);
     } else {
-      tc::scores<D, MT>(Qs, reinterpret_cast<const tc::bf16*>(Kd), scale2,
-                        emax <= rmin, visible, st, pa);
+      tc::scores<D, MT, KV>(Qs, reinterpret_cast<const tc::bf16*>(Kd),
+                            scale2, emax <= rmin, visible, st, pa);
     }
     const int tn = settle(t + NW, n0, n1, nmax);
     __syncwarp();  // K(t) and cpos consumed
     if (tn < t_end) {
       cpos[lane] = n0;
       cpos[lane + 32] = n1;
-      load(Kd, kb, tn);
+      load(Kd, kb, tn, false);
       tc::cp_async_wait<1>();  // V(t)
     } else {
       tc::cp_async_wait<0>();
@@ -654,12 +643,15 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
     __syncwarp();  // V(t) visible
     if constexpr (F8) {
       tc::accumulate_f8<D, MT, KV>(Vd, pa, st);
+    } else if constexpr (F32) {
+      tc::accumulate_f32<D, MT>(reinterpret_cast<const float*>(Vd), pa, st);
     } else {
-      tc::accumulate<D, MT>(reinterpret_cast<const tc::bf16*>(Vd), pa, st);
+      tc::accumulate<D, MT, KV>(reinterpret_cast<const tc::bf16*>(Vd), pa,
+                                st);
     }
     __syncwarp();  // V(t) consumed
     if (tn < t_end) {
-      load(Vd, vb, tn);
+      load(Vd, vb, tn, true);
       tc::cp_async_wait<1>();  // K(tn)
     }
     t = tn;
@@ -680,7 +672,7 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
         mw[RB + r] = st.l[t][i];
       }
       float* orow = mw + 2 * RB + r * D;
-      if constexpr (F8) {  // head dims (D/4) (lane % 4) + [0, D/4)
+      if constexpr (PERM_O) {  // head dims (D/4) (lane % 4) + [0, D/4)
 #pragma unroll
         for (int e = 0; e < 2; ++e)
 #pragma unroll
@@ -775,7 +767,7 @@ gqa_decode_tc_kernel(const tc::bf16* __restrict__ q,
   if (tid == 0) *ticket = 0;  // ready for the next launch
 }
 
-template <int D, int MT, int KV>
+template <int D, int MT, int NW, int KV>
 int launch_decode_tc(const void* q, const void* k, const void* v,
                      const void* qpos, const void* eff, const void* rows,
                      void* part_ml,
@@ -783,16 +775,19 @@ int launch_decode_tc(const void* q, const void* k, const void* v,
                      int Hq, int Hkv, int T_cache, int kv_len,
                      int tiles_per_split, int n_splits, float scale2,
                      cudaStream_t st) {
-  constexpr int RB = 16 * MT, NW = dec_warps<KV>();
-  auto kern = gqa_decode_tc_kernel<D, MT, KV>;
+  constexpr int RB = 16 * MT;
+  auto kern = gqa_decode_tc_kernel<D, MT, NW, KV>;
   // once per instantiation, not per launch
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const size_t bytes =
       (size_t)RB * tc::stride(D) * sizeof(tc::bf16) +
-      (size_t)dec_kv_bytes<D, MT, KV>() +
+      (size_t)dec_kv_bytes<D, MT, NW, KV>() +
       (size_t)(NW * tc::BK + 4) * sizeof(int);
+  static_assert(RB * tc::stride(D) * 2 + dec_kv_bytes<D, MT, NW, KV>() +
+                        (NW * tc::BK + 4) * 4 <= MAX_SMEM,
+                "a K4 block's shared memory");
   const int R = S * (Hq / Hkv);
   const dim3 grid(n_splits, B * Hkv, (R + RB - 1) / RB);
   kern<<<grid, NW * 32, bytes, st>>>(
@@ -805,7 +800,6 @@ int launch_decode_tc(const void* q, const void* k, const void* v,
       tiles_per_split, scale2);
   return static_cast<int>(cudaGetLastError());
 }
-
 
 // K3 and K4 on the tensor cores over a cache of kind KV, as a kind's
 // translation unit instantiates them: cudaErrorInvalidValue for another
@@ -836,7 +830,7 @@ int decode_tc_kind(int D, int mt, const void* q, const void* k,
                    int n_splits, float scale2, cudaStream_t st) {
 #define CS_DECODE_TC(DD, MM)                                               \
   if (D == DD && mt == MM)                                                 \
-    return launch_decode_tc<DD, MM, KV>(                                   \
+    return launch_decode_tc<DD, MM, dec_warps<KV>(), KV>(                  \
         q, k, v, qpos, eff, rows, part_ml, part_acc, tickets, out, B, S,   \
         Hq, Hkv, T_cache, kv_len, tiles_per_split, n_splits, scale2, st);
   CS_DECODE_TC(128, 1) CS_DECODE_TC(128, 2)

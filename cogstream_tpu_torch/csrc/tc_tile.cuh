@@ -128,6 +128,25 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// an f16x2 register -> bf16x2, each half rounded to nearest even (the
+// f16 -> f32 step is exact)
+__device__ __forceinline__ uint32_t f16x2_to_bf16x2(uint32_t h) {
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
+  return pack(f.x, f.y);
+}
+
+// B fragments read by ldmatrix from a tile of kind KV as the bf16 MMA
+// takes them: bf16 as they are; f16 (an f16 KV cache's own bytes, which
+// K4 keeps in the bf16 tile's layout) rounded to bf16 in registers
+template <int KV, int N>
+__device__ __forceinline__ void to_bf16(uint32_t (&b)[N]) {
+  static_assert(KV == cs::BF16 || KV == cs::F16, "a 16-bit tile");
+  if constexpr (KV == cs::F16) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) b[i] = f16x2_to_bf16x2(b[i]);
+  }
+}
+
 // Online-softmax state of a warp's MT m-tiles of 16 rows: m, l per
 // thread row (the thread's rows of m-tile t are 16t + lane/4 and
 // 16t + lane/4 + 8 of the warp's rows), O as D/8 n-tile fragments.
@@ -172,7 +191,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[MT][NS][4],
                                              State<D, MT>& st,
                                              PFrag<MT>& pa);
 
-template <int D, int MT, class Visible>
+template <int D, int MT, int KV = cs::BF16, class Visible>
 __device__ __forceinline__ void scores(const bf16* Qw, const bf16* Ks,
                                        float scale2, bool all_visible,
                                        Visible visible, State<D, MT>& st,
@@ -200,6 +219,7 @@ __device__ __forceinline__ void scores(const bf16* Qw, const bf16* Ks,
     for (int j = 0; j < NS; j += 2) {
       uint32_t b[4];
       ldsm_x4(b, krow + j * 8 * KS + kk * 16);
+      to_bf16<KV>(b);
 #pragma unroll
       for (int t = 0; t < MT; ++t) {
         mma(s[t][j], qa[t], b[0], b[1]);
@@ -276,7 +296,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[MT][NS][4],
   }
 }
 
-template <int D, int MT>
+template <int D, int MT, int KV = cs::BF16>
 __device__ __forceinline__ void accumulate(const bf16* Vs,
                                            const PFrag<MT>& pa,
                                            State<D, MT>& st) {
@@ -293,6 +313,7 @@ __device__ __forceinline__ void accumulate(const bf16* Vs,
       if (n + 1 < D / 8) {
         uint32_t b[4];
         ldsm_x4_t(b, vrow + k * 16 * KS + n * 8);
+        to_bf16<KV>(b);
 #pragma unroll
         for (int t = 0; t < MT; ++t) {
           mma(st.o[t][n], pa[t][k], b[0], b[1]);
@@ -301,6 +322,7 @@ __device__ __forceinline__ void accumulate(const bf16* Vs,
       } else {
         uint32_t b[2];
         ldsm_x2_t(b, vrow + k * 16 * KS + n * 8);
+        to_bf16<KV>(b);
 #pragma unroll
         for (int t = 0; t < MT; ++t) mma(st.o[t][n], pa[t][k], b[0], b[1]);
       }
@@ -435,16 +457,9 @@ __device__ __forceinline__ void chunk_to_bf16(bf16* dst, uint4 w) {
     o[1] = make_uint4(f8x2_to_bf16x2<KV>(w.z), f8x2_to_bf16x2<KV>(w.z >> 16),
                       f8x2_to_bf16x2<KV>(w.w), f8x2_to_bf16x2<KV>(w.w >> 16));
   } else if constexpr (KV == cs::F16) {
-    const uint32_t in[4] = {w.x, w.y, w.z, w.w};
-    uint32_t out[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f =
-          __half22float2(*reinterpret_cast<const __half2*>(&in[j]));
-      out[j] = pack(f.x, f.y);
-    }
-    *reinterpret_cast<uint4*>(dst) = make_uint4(out[0], out[1], out[2],
-                                                out[3]);
+    *reinterpret_cast<uint4*>(dst) =
+        make_uint4(f16x2_to_bf16x2(w.x), f16x2_to_bf16x2(w.y),
+                   f16x2_to_bf16x2(w.z), f16x2_to_bf16x2(w.w));
   } else if constexpr (KV == cs::F32) {
     *reinterpret_cast<uint2*>(dst) = make_uint2(
         pack(__uint_as_float(w.x), __uint_as_float(w.y)),
@@ -568,6 +583,120 @@ __device__ __forceinline__ void accumulate_f8(const uint8_t* V8,
 #pragma unroll
         for (int t = 0; t < MT; ++t)
           mma(st.o[t][4 * wd + m], pa[t][k], b0, b1);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 K / V (an f32 KV cache under bf16 queries, K4): fragments rounded to
+// bf16 in registers
+// ---------------------------------------------------------------------------
+// A K4 warp keeps its tile as the cache's own f32 rows (BK rows of D
+// floats, 16-byte chunks moved by a swizzle, below) and rounds each B
+// fragment to bf16 (cvt.rn.bf16x2.f32, as chunk_to_bf16) just before its
+// MMA, so the products and sums are the bf16 kernel's over the rounded
+// cache:
+//   Q.K^T  b0 / b1 of k-step kk, key n-tile j are key 8j + g's head dims
+//          16 kk + 2c + {0, 1} / + 8 (g = lane / 4, c = lane % 4): one
+//          8-byte load and one cvt each, in ldmatrix's order (Q is staged
+//          as it is: the k-steps sum the same dims as bf16's);
+//   P.V    b0 / b1 of k-step k hold keys 16k + 2c + {0, 1} / + {8, 9} of
+//          one head dim, so the lane reads those 4 rows' 16-byte chunks of
+//          dims (D/8) g + [0, D/8) and pairs them (one cvt a register): O's
+//          n-tile n, column g is head dim (D/8) g + n, as for fp8 above,
+//          which K4's merge undoes. Each output element is still the MMA's
+//          sum over the same keys of the same values.
+// The swizzles keep each load's 8 (16-byte) or 16 (8-byte) lanes of a
+// phase on distinct banks, and a warp's copy of a row (consecutive
+// chunks) too.
+
+// chunk ch of f32 K row r: ch ^ 2 (r % 4); the 16 lanes of an 8-byte
+// phase read rows 8j + [0, 4) at chunks 4 kk + {0, 1} (or + {2, 3})
+__device__ __forceinline__ int f32_k_chunk(int r, int ch) {
+  return ch ^ (2 * (r & 3));
+}
+
+// chunk ch of f32 V row r: a lane pair's chunk parity, the row's parity
+// and the row's bits 1-2 (D = 128; D = 64: bits 1 and 2 apart) moved into
+// the low 3 bits, so that a phase's 8 lanes (rows 16k + 2c + off, c < 4,
+// two chunks apart by D/32 or D/16) hit 8 bank groups
+template <int D>
+__device__ __forceinline__ int f32_v_chunk(int r, int ch) {
+  static_assert(D == 64 || D == 128, "f32 tiles take head dim 64 or 128");
+  const int rb = D == 128 ? (r >> 1) & 3
+                          : ((r >> 1) & 1) | (((r >> 2) & 1) << 2);
+  return ch ^ ((2 * (ch >> 3) + (r & 1)) ^ rb);
+}
+
+// S = Q K^T over an f32 K tile (K32: BK rows of D floats, f32_k_chunk),
+// then the mask and online softmax as scores()
+template <int D, int MT, class Visible>
+__device__ __forceinline__ void scores_f32(const bf16* Qw, const float* K32,
+                                           float scale2, bool all_visible,
+                                           Visible visible, State<D, MT>& st,
+                                           PFrag<MT>& pa) {
+  constexpr int KS = stride(D);
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  float s[MT][NS][4];
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[t][j][0] = s[t][j][1] = s[t][j][2] =
+        s[t][j][3] = 0.f;
+  const bf16* qrow = Qw + ((lane & 7) + ((lane >> 3) & 1) * 8) * KS +
+                     (lane >> 4) * 8;
+  // head dims d, d + 1 of key row `key` (d even) as bf16x2
+  auto pair = [&](int key, int d) {
+    const float2 w = *reinterpret_cast<const float2*>(
+        K32 + key * D + 4 * f32_k_chunk(key, d >> 2) + (d & 3));
+    return pack(w.x, w.y);
+  };
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t qa[MT][4];
+#pragma unroll
+    for (int t = 0; t < MT; ++t) ldsm_x4(qa[t], qrow + t * 16 * KS + kk * 16);
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const int key = 8 * j + g, d = 16 * kk + 2 * c;
+      const uint32_t b0 = pair(key, d), b1 = pair(key, d + 8);
+#pragma unroll
+      for (int t = 0; t < MT; ++t) mma(s[t][j], qa[t], b0, b1);
+    }
+  }
+  softmax_tile<D, MT>(s, scale2, all_visible, visible,
+                      [](int j, int col) { return j * 8 + col; }, st, pa);
+}
+
+// O += P V over an f32 V tile (V32: BK rows of D floats, f32_v_chunk); O's
+// head dims permuted as the section's header says
+template <int D, int MT>
+__device__ __forceinline__ void accumulate_f32(const float* V32,
+                                               const PFrag<MT>& pa,
+                                               State<D, MT>& st) {
+  constexpr int NQ = D / 32;  // chunks of the lane's D/8 dims
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int k = 0; k < NS / 2; ++k) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      float4 w[4];  // keys 16k + 2c + {0, 1, 8, 9}: dims (D/8) g + 4q + [0, 4)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int key = 16 * k + 2 * c + (r & 1) + 8 * (r >> 1);
+        w[r] = *reinterpret_cast<const float4*>(
+            V32 + key * D + 4 * f32_v_chunk<D>(key, NQ * g + q));
+      }
+      auto at = [](const float4& v, int m) {
+        return m == 0 ? v.x : m == 1 ? v.y : m == 2 ? v.z : v.w;
+      };
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const uint32_t b0 = pack(at(w[0], m), at(w[1], m));
+        const uint32_t b1 = pack(at(w[2], m), at(w[3], m));
+#pragma unroll
+        for (int t = 0; t < MT; ++t) mma(st.o[t][4 * q + m], pa[t][k], b0, b1);
       }
     }
   }

@@ -17,8 +17,9 @@ and converts them to q's compute dtype on chip (the TPU kernels'
 ``k_ref[0].astype(q.dtype)``): fp8, f16 and bf16 widen exactly, f16 and
 f32 under bf16 queries round to nearest even. No converted copy of the
 cache is made, so an fp8 cache's K/V bytes read halve against bf16. K4's
-tensor-core kernel widens fp8 in registers, each MMA fragment just
-before its MMA, and narrows f16 / f32 as a warp stages its tile; K3's
+tensor-core kernel keeps each kind's own bytes in its tiles and widens
+(fp8) or rounds (f16, f32) each MMA fragment in registers just before
+its MMA, with warps and split by kind (:func:`decode_plan`); K3's
 widens fp8 once a block from byte stages into a bf16 tile and narrows
 f16 / f32 as each thread stores its chunks into the bf16 tile
 (``csrc/lm_attention.cu``). ``.kv_launches`` counts the calls by the
@@ -69,9 +70,10 @@ TC_HEAD_DIMS = (64, 128)    # head dims of K3's and K4's tensor-core kernels
 # (ptxas on sm_90a: <128, 2> 253 registers and <64, 2> 169 without spills;
 # <64, 4> spills ~1 KB)
 DECODE_TC_MAX_MT = {64: 2, 128: 2}
-# K4 tensor-core kernel over an fp8 (e4m3 or e5m2) cache: warps a block
-# (csrc dec_warps, which the library's cs_decode_tc_warps returns)
-E4M3_DECODE_WARPS = 8
+# K4 tensor-core kernel: warps a block by the cache's K/V code
+# (kernels.KV_DTYPE_CODES; csrc dec_warps, which the library's
+# cs_decode_tc_warps returns): f32 3, bf16 4, e4m3 8, e5m2 8, f16 4
+DECODE_WARPS = {0: 3, 1: 4, 2: 8, 3: 8, 4: 4}
 FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
 _PLAIN_Q_CHUNK = 256        # plain version: query rows per dense block
 
@@ -235,29 +237,33 @@ def prefill_flash_attention(
     return out
 
 
-def decode_plan(B: int, Hkv: int, R: int, D: int, kv_len: int,
-                sms: int, kv_bytes: int = 2) -> Tuple[int, int, int, int]:
+def decode_plan(B: int, Hkv: int, R: int, D: int, kv_len: int, sms: int,
+                kv=torch.bfloat16) -> Tuple[int, int, int, int]:
     """Launch plan of K4's tensor-core kernel for R = S * G folded rows
-    per kv head over a cache of ``kv_bytes``-byte K/V elements (1: e4m3
-    or e5m2; 2: bf16 or f16; 4: f32): (m-tiles per warp, row groups, key
-    tiles per split, splits). The rows take the fewest m16 tiles (at most
+    per kv head over a cache of kind ``kv`` (a torch dtype, or its code in
+    ``kernels.KV_DTYPE_CODES``): (m-tiles per warp, row groups, key tiles
+    per split, splits). The rows take the fewest m16 tiles (at most
     ``DECODE_TC_MAX_MT[D]`` per block; more rows take more row groups);
-    the cache splits so that the blocks about fill the ``sms`` SMs. An
-    fp8 block has ``E4M3_DECODE_WARPS`` warps, each widening its own
-    tiles on its chain of latencies, so its splits round up to whole
-    tiles for every warp: the longest warp's chain sets the block's
-    time. f16 and f32 take bf16's plan (4 warps, their tiles narrowed to
-    bf16 as a warp stages them). K3 has no such plan: the C entry picks
-    its instance (bf16 by filling the SMs, the other kinds by weighted
-    waves, ``csrc/lm_attention_tc.cuh``)."""
+    the cache splits so that the blocks about fill the ``sms`` SMs. A
+    block has ``DECODE_WARPS[kind]`` warps, each converting its own tiles
+    on its chain of latencies, so over every kind but bf16 the split
+    rounds up to whole tiles for every warp: the longest warp's chain
+    sets the block's time, and fewer splits leave the last block fewer
+    partials to merge (f16 on bf16's 4 warps measured 0.93-0.96x its
+    time on bf16's split, PERF.md). bf16 keeps the split that fills the
+    SMs. K3 has no such plan: the C entry picks its instance (bf16 by
+    filling the SMs, the other kinds by weighted waves,
+    ``csrc/lm_attention_tc.cuh``)."""
+    code = kv if isinstance(kv, int) else kernels.KV_DTYPE_CODES[kv]
     mt = 1
     while mt < DECODE_TC_MAX_MT[D] and 16 * mt < R:
         mt *= 2
     groups = -(-R // (16 * mt))
     n_tiles = -(-kv_len // _TILE)
     per_split = max(1, -(-n_tiles * B * Hkv * groups // sms))
-    if kv_bytes == 1:
-        per_split = -(-per_split // E4M3_DECODE_WARPS) * E4M3_DECODE_WARPS
+    if code != kernels.KV_DTYPE_CODES[torch.bfloat16]:
+        warps = DECODE_WARPS[code]
+        per_split = -(-per_split // warps) * warps
     return mt, groups, per_split, -(-n_tiles // per_split)
 
 
@@ -330,7 +336,7 @@ def decode_attention(
     if tc:
         kernels.require_aligned(q, k, v)
         mt, groups, per_split, n_splits = decode_plan(
-            B, Hkv, R, D, kv_len, kernels.sm_count(dev), k.element_size())
+            B, Hkv, R, D, kv_len, kernels.sm_count(dev), kv_code)
         n_part = B * Hkv * groups * n_splits * 16 * mt   # partial rows
         part, tickets = _decode_workspace(dev, n_part * (2 + D),
                                           B * Hkv * groups)

@@ -287,6 +287,19 @@ def _decode_case(rng, dev, B, S, G, D, T, window, fill):
     return q, k, v, _t(qpos, dev, torch.int32), eff[:, :window].contiguous()
 
 
+def _row_ulps(got, ref, ulps):
+    """Every output row (one head of one query) within ``ulps`` bf16 ulps
+    of its own max |ref|; rows that are 0 in ref must be exactly 0."""
+    g = got.float().reshape(-1, got.shape[-1])
+    r = ref.float().reshape(-1, ref.shape[-1])
+    row_max = r.abs().amax(1, keepdim=True)
+    bound = ulps * torch.exp2(
+        torch.floor(torch.log2(row_max.clamp_min(1e-30))) - 7)
+    assert torch.all((g - r).abs() <= bound), \
+        ((g - r).abs() / bound).max().item()
+    assert torch.all(g[row_max[:, 0] == 0] == 0)
+
+
 def _two_ulps(got, ref):
     """Every output row (one head of one query) within 2 bf16 ulps of its
     own max |ref|; rows that are 0 in ref must be exactly 0."""
@@ -1057,17 +1070,20 @@ def test_fp8_decode_replays_in_a_graph(dev):
 
 
 def test_decode_warps_match_the_library(dev):
-    """decode_plan's warps a block over an fp8 (e4m3, e5m2) cache are the
-    ones the built K4 kernel launches with (bf16, f16, f32: 4)."""
+    """decode_plan's warps a block over each cache kind (DECODE_WARPS) are
+    the ones the built K4 kernel launches with: bf16 and f16 4, e4m3 and
+    e5m2 8, f32 3."""
     from cogstream_tpu_torch.ops import kernels
     from cogstream_tpu_torch.ops import lm_attention as lma
 
     lib = kernels.library()
     codes = kernels.KV_DTYPE_CODES
-    for f8 in (torch.float8_e4m3fn, torch.float8_e5m2):
-        assert lib.cs_decode_tc_warps(codes[f8]) == lma.E4M3_DECODE_WARPS
-    for wide in (torch.bfloat16, torch.float16, torch.float32):
-        assert lib.cs_decode_tc_warps(codes[wide]) == 4
+    assert sorted(lma.DECODE_WARPS) == sorted(codes.values())
+    for code in codes.values():
+        assert lib.cs_decode_tc_warps(code) == lma.DECODE_WARPS[code]
+    assert [lma.DECODE_WARPS[codes[t]] for t in (
+        torch.bfloat16, torch.float16, torch.float8_e4m3fn,
+        torch.float8_e5m2, torch.float32)] == [4, 4, 8, 8, 3]
 
 
 def test_fp8_session_card_matches_cpu(dev):
@@ -1487,6 +1503,92 @@ def test_rounded_cache_prefill_equals_the_bf16_kernel(dev, rows, S, D,
         _one_ulp_apart(got, want)
     _two_ulps(got, lma.gqa_attention_plain(q, kc, vc, qpos, eff, rows=rows))
     assert torch.all(got[:, -1] == 0)
+
+
+def _wide_cache(rng, dev, kv_dtype, B, T, D, Hkv=2):
+    """K and V of a [B, T, Hkv, D] cache of kind kv_dtype (f16 or f32)
+    from f32 normal draws (not bf16 values: every element rounds), with
+    subnormals and values on bf16's rounding ties (at the draws' scale) in
+    V's slots 130.. of head 0 (where T holds them)."""
+    kc = _t(rng.standard_normal((B, T, Hkv, D)), dev).to(kv_dtype)
+    v32 = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    if kv_dtype == torch.float16:
+        special = np.array([2.0 ** -24, 3 * 2.0 ** -24, 2.0 ** -14,
+                            -(2.0 ** -20), 1 + 2.0 ** -8, 1 + 3 * 2.0 ** -8,
+                            -(1 + 2.0 ** -8), 3 + 2.0 ** -7], np.float32)
+    else:
+        hi = rng.integers(0x3E00, 0x4080, 64, dtype=np.uint32) << 16
+        special = (hi | 0x8000).view(np.float32)  # bf16 ties in [1/8, 4)
+    if T >= 130 + special.size // 8:
+        v32[:, 130:130 + special.size // 8, 0, :8] = special.reshape(-1, 8)
+    return kc, _t(v32, dev).to(kv_dtype)
+
+
+@pytest.mark.parametrize("window", [64, 1000, 16384])
+@pytest.mark.parametrize("B,rows", [(1, None), (2, None), (2, [3, 1])])
+@pytest.mark.parametrize("S", [1, 5, 8])
+@pytest.mark.parametrize("D", [128, 64])
+@pytest.mark.parametrize("kv_dtype", [torch.float16, torch.float32])
+def test_rounded_cache_decode_equals_the_bf16_kernel(monkeypatch, dev, window,
+                                                     B, rows, S, D, kv_dtype):
+    """K4 over an f16 or f32 cache (bf16 queries) against the bf16 kernel
+    over the cache rounded to bf16: the same rounding (round to nearest
+    even, B fragments rounded in registers before their MMA) and the same
+    products and sums, so bit for bit equal where the kind runs bf16's
+    plan (its warps and split). f16 has bf16's 4 warps: on bf16's split
+    (decode_plan made to give it) it is bit-equal. On the kind's own plan
+    (f16 whole tiles a warp, f32 3 warps) a warp's online softmax sees
+    other tiles before a given one, so P is rounded to bf16 against
+    another running max: a row that averages thousands of slots moves by
+    a part of a bf16 ulp of its own max |out|, not of each element (one
+    near 0 moves by many of its own ulps). There each row is held within
+    one bf16 ulp of its max |bf16 kernel| (_row_ulps), half the plain
+    version's rule; where the two plans cut the same tiles, bit for bit.
+    The cache holds f32 normal draws cast to the kind with subnormals and
+    bf16 ties in V (_wide_cache); read windows of 64 (one tile), 1000 (a
+    ragged last tile, the slots 64..127 all masked: _decode_case) and
+    16384 slots; with ``rows`` a 4-row pool. Both within 2 bf16 ulps of
+    the plain version; the padded query is 0; two calls give the same
+    bits."""
+    from cogstream_tpu_torch.ops import kernels
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    rng = np.random.default_rng(S * 10 + D + B + len(rows or ()) + window)
+    T, fill = {64: (64, 50), 1000: (1100, 900), 16384: (16384, 16000)}[
+        window]
+    q, _, _, qpos, eff = _decode_case(rng, dev, B, S, 7, D, T, window, fill)
+    kc, vc = _wide_cache(rng, dev, kv_dtype, B, T, D)
+    kw = {}
+    if rows is not None:
+        kc = torch.cat([kc, kc.flip(0)]).contiguous()     # 4 pool rows
+        vc = torch.cat([vc, vc.flip(0)]).contiguous()
+        kw = dict(rows=lma.cache_rows(rows, dev))
+    wrap = lma.decode_attention
+    name = str(kv_dtype).removeprefix("torch.")
+    n0, c0 = wrap.tc_launches, wrap.kv_launches.get(name, 0)
+    got = wrap(q, kc, vc, qpos, eff, **kw)
+    assert (wrap.tc_launches, wrap.kv_launches[name]) == (n0 + 1, c0 + 1)
+    bf = torch.bfloat16
+    want = wrap(q, kc.to(bf), vc.to(bf), qpos, eff, **kw)
+    code = kernels.KV_DTYPE_CODES[kv_dtype]
+    sms = kernels.sm_count(dev)
+    plan, bf16_plan = (lma.decode_plan(B, 2, S * 7, D, window, sms, kind)
+                       for kind in (kv_dtype, bf))
+    same_warps = lma.DECODE_WARPS[code] == lma.DECODE_WARPS[1]
+    assert same_warps == (kv_dtype == torch.float16)
+    n_tiles = -(-window // 64)
+    if same_warps and min(plan[2], n_tiles) == min(bf16_plan[2], n_tiles):
+        assert torch.equal(got, want)
+    else:
+        _row_ulps(got, want, 1)
+    _two_ulps(got, lma.gqa_attention_plain(q, kc, vc, qpos, eff, rows=rows))
+    if S >= 2:
+        assert torch.all(got[:, -1] == 0)
+    assert torch.equal(got, wrap(q, kc, vc, qpos, eff, **kw))
+    if same_warps:   # on bf16's split: bf16's bits
+        parts = lma.decode_plan
+        monkeypatch.setattr(lma, "decode_plan", lambda *a: parts(*a[:6]))
+        assert torch.equal(wrap(q, kc, vc, qpos, eff, **kw), want)
 
 
 @pytest.mark.parametrize("kernel,S", [("K3", 16), ("K4", 1), ("K4", 8)])

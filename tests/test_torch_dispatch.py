@@ -252,7 +252,7 @@ def test_fp8_cache_reaches_the_entry_point(lib, kernel, dtype, entry, kv_arg,
     assert (wrap.fp8_launches, wrap.launches) == (f0 + 1, n0 + 1)
     if entry == "cs_gqa_decode_tc":   # the e4m3 form's launch plan
         mt, _, per_split, n_splits = lma.decode_plan(B, 4, 7, 128, 256, 132,
-                                                     kv_bytes=1)
+                                                     torch.float8_e4m3fn)
         assert call[1][16:19] == (mt, per_split, n_splits)
     lib.calls.clear()
     kk = k if rows is None else torch.cat([k, k])
@@ -327,19 +327,42 @@ def test_decode_workspace_is_reused(lib, monkeypatch):
     assert lma._retired_ws == [(part, tickets)]
 
 
-@pytest.mark.parametrize("kv_bytes", [2, 1])
+def _parent_plan(B, Hkv, R, D, kv_len, sms, kv_bytes):
+    """decode_plan as it stood when it chose by element size (1: fp8 rounds
+    the split up to whole tiles for 8 warps; else bf16's plan): bf16's,
+    e4m3's and e5m2's plans stay these."""
+    mt = 1
+    while mt < lma.DECODE_TC_MAX_MT[D] and 16 * mt < R:
+        mt *= 2
+    groups = -(-R // (16 * mt))
+    n_tiles = -(-kv_len // 64)
+    per_split = max(1, -(-n_tiles * B * Hkv * groups // sms))
+    if kv_bytes == 1:
+        per_split = -(-per_split // 8) * 8
+    return mt, groups, per_split, -(-n_tiles // per_split)
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.float8_e4m3fn,
+                                torch.float8_e5m2, torch.float16,
+                                torch.float32])
 @pytest.mark.parametrize("B,Hkv,R,D,kv_len", [
     (1, 4, 7, 128, 9216), (1, 4, 56, 128, 9216), (1, 4, 56, 64, 9216),
     (2, 4, 21, 64, 520), (1, 1, 7, 128, 64), (1, 4, 14, 128, 16384),
     (4, 8, 8, 128, 100)])
-def test_decode_plan_covers_rows_and_tiles(B, Hkv, R, D, kv_len, kv_bytes):
+def test_decode_plan_covers_rows_and_tiles(B, Hkv, R, D, kv_len, kv):
     """Every folded row sits in one row group, every key tile in one
-    split, no split is empty, and the blocks about fill 132 SMs; over an
-    e4m3 cache (1-byte K/V) the split is the bf16 form's rounded up to a
-    whole tile for each of the block's 8 warps, and the rows' plan is the
-    same."""
+    split, no split is empty, and the blocks about fill 132 SMs; over
+    every other kind than bf16 (fp8 8 warps, f16 4, f32 3) the split is
+    the bf16 form's rounded up to a whole tile for each of the block's
+    warps, and the rows' plan is the same. The kind is passed as a dtype
+    or as its K/V code, to one plan; bf16's, e4m3's and e5m2's plans are
+    those of the element-size rule before f16 and f32 had plans of their
+    own."""
+    code = kernels.KV_DTYPE_CODES[kv]
     mt, groups, per_split, n_splits = lma.decode_plan(B, Hkv, R, D, kv_len,
-                                                      132, kv_bytes)
+                                                      132, kv)
+    assert lma.decode_plan(B, Hkv, R, D, kv_len, 132, code) == \
+        (mt, groups, per_split, n_splits)
     assert mt in (1, 2, 4) and mt <= lma.DECODE_TC_MAX_MT[D]
     assert 16 * mt * groups >= R > 16 * mt * (groups - 1)
     n_tiles = -(-kv_len // 64)
@@ -347,12 +370,66 @@ def test_decode_plan_covers_rows_and_tiles(B, Hkv, R, D, kv_len, kv_bytes):
     blocks = B * Hkv * groups * n_splits
     assert blocks <= 132 + B * Hkv * groups
     bf16 = lma.decode_plan(B, Hkv, R, D, kv_len, 132)
-    if kv_bytes == 2:
-        assert per_split == 1 or blocks > 132 // 2
-    else:
-        warps = lma.E4M3_DECODE_WARPS
+    warps = lma.DECODE_WARPS[code]
+    if kv != torch.bfloat16:
         assert (mt, groups) == bf16[:2] and per_split % warps == 0
         assert bf16[2] <= per_split < bf16[2] + warps
+    else:
+        assert (mt, groups, per_split, n_splits) == bf16
+        assert per_split == 1 or blocks > 132 // 2
+    if kv in (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2):
+        assert (mt, groups, per_split, n_splits) == _parent_plan(
+            B, Hkv, R, D, kv_len, 132, 2 if kv == torch.bfloat16 else 1)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float16, torch.float32])
+def test_wide_cache_decode_forward_passes_the_cache_itself(lib, kv_dtype):
+    """A bf16 decoder over an f16 or f32 cache: one decode step makes one
+    ``cs_gqa_decode_tc`` call a layer, each on that layer's cache slice
+    itself (its data pointer: no host-side bf16 copy), with the kind's
+    K/V code and the kind's launch plan (``decode_plan`` of the kind), and
+    counts the step under the kind in ``.kv_launches``; a ``decode_attention``
+    call over that cache passes the same."""
+    from cogstream_tpu_torch.config import Qwen2Config
+    from cogstream_tpu_torch.models import qwen2
+
+    L = 2
+    cfg = Qwen2Config(vocab_size=64, hidden_size=256, intermediate_size=64,
+                      num_hidden_layers=L, num_attention_heads=4,
+                      num_key_value_heads=2, dtype="bfloat16")
+    model = qwen2.Qwen2Model(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    cache = qwen2.init_kv_cache(cfg, 1, 128, dtype=kv_dtype, device="cpu")
+    cache.write_index = 40
+    cache.pos[:, :40] = torch.arange(40, dtype=torch.int32)
+    name = str(kv_dtype).removeprefix("torch.")
+    wrap = lma.decode_attention
+    c0 = wrap.kv_launches.get(name, 0)
+    emb = torch.randn((1, 1, 256), generator=gen).to(torch.bfloat16)
+    qwen2.qwen2_forward(model, emb, torch.full((1, 1), 40), cache)
+    assert lib.names() == ["cs_gqa_decode_tc"] * L
+    assert wrap.kv_launches[name] == c0 + L
+    code = kernels.KV_DTYPE_CODES[kv_dtype]
+    for li, (_, args) in enumerate(lib.calls):
+        assert args[1:3] == (cache.k[li].data_ptr(), cache.v[li].data_ptr())
+        assert args[20] == code
+        B, S, Hq, Hkv, D, T, kv_len = args[9:16]
+        mt, _, per_split, n_splits = lma.decode_plan(
+            B, Hkv, S * Hq // Hkv, D, kv_len, 132, kv_dtype)
+        assert args[16:19] == (mt, per_split, n_splits)
+    assert cache.k.dtype == kv_dtype and cache.write_index == 41
+    lib.calls.clear()
+    q, k, _, qpos, eff = _lm(torch.bfloat16, B=2, S=5, T=600, window=520)
+    kc, vc = k.to(kv_dtype), (-k).to(kv_dtype)
+    lma.decode_attention(q, kc, vc, qpos, eff)
+    (_, args), = lib.calls
+    assert args[1:3] == (kc.data_ptr(), vc.data_ptr()) and args[20] == code
+    mt, _, per_split, n_splits = lma.decode_plan(2, 4, 35, 128, 520, 132,
+                                                 code)
+    assert args[16:19] == (mt, per_split, n_splits)
 
 
 def test_cached_decode_forward_launches_k4_once_per_layer(lib):
@@ -454,8 +531,8 @@ def test_kv_cache_dtype_reaches_the_entry_point(lib, kernel, dtype, entry,
     entry point with their K/V code (csrc/common.cuh) and the cache's own
     K/V pointers (no converted copy), counted in ``.kv_launches`` under
     the cache's dtype and, for e5m2, in ``.fp8_launches``. K4's launch
-    plan: an e5m2 cache takes e4m3's (1-byte elements: whole tiles for
-    E4M3_DECODE_WARPS), f16 and f32 bf16's."""
+    plan is the kind's (``decode_plan(..., kv)``): an e5m2 cache takes
+    e4m3's (whole tiles for its 8 warps)."""
     if kv_dtype == "other":
         kv_dtype = torch.float32 if dtype == torch.bfloat16 else \
             torch.bfloat16
@@ -483,13 +560,13 @@ def test_kv_cache_dtype_reaches_the_entry_point(lib, kernel, dtype, entry,
     fp8 = kv_dtype == torch.float8_e5m2
     assert (wrap.fp8_launches, wrap.launches) == (f0 + fp8, n0 + 1)
     assert wrap.kv_launches[name] == c0 + 1
-    if entry == "cs_gqa_decode_tc":
+    if entry == "cs_gqa_decode_tc":   # the kind's plan
         mt, _, per_split, n_splits = lma.decode_plan(
-            B, 4, 7, 128, 256, 132, kv_bytes=1 if fp8 else 2)
+            B, 4, 7, 128, 256, 132, kv_dtype)
         assert call[1][16:19] == (mt, per_split, n_splits)
-        if not fp8:   # 2- and 4-byte elements: one plan
-            assert lma.decode_plan(B, 4, 7, 128, 256, 132, kv_bytes=4) == \
-                lma.decode_plan(B, 4, 7, 128, 256, 132)
+        if fp8:   # e5m2 takes e4m3's
+            assert lma.decode_plan(B, 4, 7, 128, 256, 132, kv_dtype) == \
+                lma.decode_plan(B, 4, 7, 128, 256, 132, torch.float8_e4m3fn)
 
 
 @pytest.mark.parametrize("kernel,D", [("K3", 96), ("K3", 32), ("K1", 76),
