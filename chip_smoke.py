@@ -8,7 +8,9 @@ Phases (each prints one line or a few; any failure exits non-zero):
 1. device — the card's name and power limit from nvidia-smi;
 2. build  — nvcc builds the port's kernels (cogstream_tpu_torch/csrc), one
    process per source, all at once, and prints the registers and spills
-   ptxas gave the tensor-core kernels of K1, K3, K4, K5, K8 and K9;
+   ptxas gave the tensor-core kernels of K1, K3, K4, K5, K8 and K9, and
+   the f32 tile's instances of K1 and K3 (registers, spills, shared bytes
+   and blocks an SM);
 3. kernels — each kernel against its plain PyTorch version on the card,
    in bf16, at the shapes the 7B paths give it, with both times, the
    time of one PyTorch library call computing the same function where
@@ -32,12 +34,16 @@ Phases (each prints one line or a few; any failure exits non-zero):
    W8A8 product of one gate_proj at a 4384-row prefill (activation
    quantization, ``torch._int_mm`` on the held column-major weights and on
    a row-major copy, epilogue) beside the bf16 ``F.linear``. K1, K3, K4 and K5 run their
-   bf16 tensor-core kernels, timed beside their f32 route (the CUDA-core
-   f32 tile) on the same values, its bound at the f32 peak, its plain
-   version (once) and the library call on those f32 values; K3 also
-   at a question prefill (a few
+   bf16 tensor-core kernels, timed beside their f32 route (CUDA-core
+   f32 tiles) on the same values, its bound at the f32 peak, its plain
+   version (once) and the library call on those f32 values; K1's and
+   K3's f32 routes (the register-blocked f32 tile) are also held to that
+   plain version, each row within F32_ROW_TOL of its max |ref|, and K3's
+   must beat the library call in f32 (their kernels-line records carry
+   phase 4's launches); K3 also at a question prefill (a few
    dozen tokens over a ~9k-slot window), where it must beat the f32
-   route; K3, K4 and K5 must beat the library call. K4 and K5 are timed
+   route (held to its plain version too); K3, K4 and K5 must beat the
+   library call. K4 and K5 are timed
    from CUDA graphs; K4's two calls must be bit-identical and one call
    captured in a graph, replayed after its q / eff were rewritten, must
    equal the eager call; K4 also runs a verify step (S = 8). Pad rows
@@ -510,6 +516,24 @@ def row_check(got, ref, width: int):
     return err.max().item(), (err / bound).max().item()
 
 
+# the f32 routes' row rule: each row within this share of its own max
+# |ref| (both sides are f32 sums over thousands of keys in other orders,
+# whose means of unit-normal V cancel to a few hundredths; a wrong tile or
+# a lost key moves a row by far more)
+F32_ROW_TOL = 1e-4
+
+
+def f32_row_check(got, ref, width: int):
+    """row_check for f32 outputs: the largest |got - ref| and the worst
+    ratio of a row's error to F32_ROW_TOL times its max |ref| (a fully
+    masked row must match exactly)."""
+    g = got.float().reshape(-1, width)
+    r = ref.float().reshape(-1, width)
+    err = (g - r).abs().amax(1)
+    bound = F32_ROW_TOL * r.abs().amax(1).clamp_min(1e-30)
+    return err.max().item(), (err / bound).max().item()
+
+
 # K/V kinds of K3's and K4's tensor-core instances: the template argument
 # KV (csrc/common.cuh DType), the element bytes, K3's (m-tiles, warps)
 # instances (lm_attention_tc.cuh dispatch_prefill_tc), K3's byte stages
@@ -618,6 +642,37 @@ def lm_attention_usage(log: str) -> dict:
     return out
 
 
+# the f32 tile's instances on the f32 routes' main shapes
+# (csrc/f32_tile.cuh): K3's at head dim 128 (gqa_prefill_f32_kernel<DP,
+# rows a block, narrow cache>) and K1's at D = 72 (padded to 80)
+F32_TILE_KERNELS = {
+    f"K3 f32 <D=128, {br} rows, {kind} cache>":
+        f"gqa_prefill_f32_kernelILi128ELi{br}ELb{int(kind != 'f32')}E"
+    for br in (128, 64) for kind in ("f32", "narrow")}
+F32_TILE_KERNELS["K1 f32 <D=72>"] = "vision_attention_f32_kernelILi80E"
+
+
+def f32_tile_usage(log: str) -> dict:
+    """The f32 tile's instances (F32_TILE_KERNELS): ptxas registers and
+    spill bytes from the build ``log``, shared memory and threads a block
+    as the launches size them (Q, K, V and P tiles of rows padded to DP +
+    4 floats, the rows' rescale factors and sums, the positions; K1 also
+    a K tile's cos and sin rows), and the blocks an SM holds."""
+    usage = ptxas_usage(log, F32_TILE_KERNELS)
+    out = {}
+    for name in F32_TILE_KERNELS:
+        k1 = name.startswith("K1")
+        dp, br = (80, 128) if k1 else (128, int(name.split(", ")[1][:-5]))
+        floats = (br + 128) * (dp + 4) + 64 * (br + 4) + 2 * br
+        smem = 4 * (floats + (2 * 64 * dp + br + 64 if k1
+                              else br + 2 * 64 + 8))
+        use = usage.get(name, {})
+        out[name] = {**use, "smem": smem, "threads": 256,
+                     "blocks_per_sm": blocks_per_sm(use.get("registers"),
+                                                    smem, 256)}
+    return out
+
+
 def ptxas_usage(log: str, names: dict) -> dict:
     """Registers and spill bytes (stores, loads) that ``ptxas -v``
     reported in ``log`` for each kernel of ``names`` (label -> a part of
@@ -647,6 +702,7 @@ def check_kernels(dev):
 
     from cogstream_tpu_torch.models.vision_encoder import build_vision_metadata
     from cogstream_tpu_torch.ops import flash_attention as fa
+    from cogstream_tpu_torch.ops import kernels
     from cogstream_tpu_torch.ops import layernorm as ln
     from cogstream_tpu_torch.ops import lm_attention as lma
     from cogstream_tpu_torch.ops.rope import (apply_vision_rope_cs,
@@ -656,6 +712,7 @@ def check_kernels(dev):
     rng = np.random.default_rng(0)
     bf = torch.bfloat16
     results = []
+    f32_results = []   # the redesigned f32 routes of K1 and K3
 
     def record(idx, err, ratio, ms, plain_ms, bound, library_ms):
         name = KERNELS[idx][0]
@@ -717,25 +774,43 @@ def check_kernels(dev):
             k1_plain_ms = cuda_ms(lambda: fa.flash_attention_packed_rope_plain(
                 *args, H, 1 / math.sqrt(D)), 2)
             qkv32 = qkv.float()
+            got32 = fa.flash_attention_packed_rope_fusedqkv(
+                qkv32, *args[1:], *ranges, H)
             k1_f32_ms = cuda_ms(lambda: fa.flash_attention_packed_rope_fusedqkv(
-                qkv32, *args[1:], *ranges, H), 3)
+                qkv32, *args[1:], *ranges, H), 5)
             seg = args[3]
             b32 = bound_ms(nbytes(qkv32, *args[1:], *ranges) + 4 * got.numel(),
                            4 * H * D * segment_pairs(seg), "f32")
             # the f32 route's yardsticks on its f32 values: the plain
-            # version once, SDPA on the rotated f32 q / k
-            f32_plain = cuda_ms(lambda: fa.flash_attention_packed_rope_plain(
-                qkv32, *args[1:], H, 1 / math.sqrt(D)), 1, warmup=0)
+            # version once (its output the reference), SDPA on the
+            # rotated f32 q / k
+            ref32 = []
+            f32_plain = cuda_ms(lambda: ref32.append(
+                fa.flash_attention_packed_rope_plain(
+                    qkv32, *args[1:], H, 1 / math.sqrt(D))), 1, warmup=0)
+            err32, ratio32 = f32_row_check(got32, ref32[0], D)
+            pad32 = bool((got32[seg < 0] == 0).all())
             q, k, v = qkv32.reshape(N, 3, H, D).unbind(1)
             f32_lib = sdpa_ms(heads_first(apply_vision_rope_cs(q, c2, s2)),
                               heads_first(apply_vision_rope_cs(k, c2, s2)),
                               heads_first(v), block_diag(seg), 2)
             log(f"kernel K1 routes at N={N}: tensor-core tile (bf16) "
-                f"{k1_ms:.4f} ms, CUDA-core tile (f32, same values) "
+                f"{k1_ms:.4f} ms, f32 tile (f32, same values) "
                 f"{k1_f32_ms:.4f} ms, its bound {b32[0]:.4f} ms ({b32[1]}, "
                 f"f32 peak), its plain version {f32_plain:.4f} ms, library "
-                f"(f32) {f32_lib:.4f} ms")
-            del qkv32, q, k, v
+                f"(f32) {f32_lib:.4f} ms; f32 route max_abs_err={err32:.6g},"
+                f" worst row at {ratio32:.3g} of its bound ({F32_ROW_TOL:g} "
+                f"of the row's max |ref|), pad rows zero {pad32}")
+            if not (ratio32 <= 1.0 and pad32):
+                raise AssertionError("K1's f32 route disagrees with its "
+                                     "plain version")
+            f32_results.append({
+                "name": "K1_vision_attention_f32", "route": "cuda",
+                "source": "cogstream_tpu_torch/csrc/vision_attention.cu",
+                "replaces": KERNELS[0][4], "max_abs_err": err32,
+                "ms": k1_f32_ms, "plain_ms": f32_plain, "bound_ms": b32[0],
+                "bound_by": b32[1], "library_ms": f32_lib})
+            del qkv32, q, k, v, got32, ref32
             k1_bound = bound_ms(nbytes(*args, *ranges, got),
                                 4 * H * D * segment_pairs(seg))
             # library yardstick: SDPA on the already-rotated q/k (no
@@ -802,21 +877,42 @@ def check_kernels(dev):
     k3_lib = sdpa_ms(*sdpa_operands(q, k, v, qp, eff), 10)
     k3_ms = cuda_ms(lambda: lma.prefill_flash_attention(q, k, v, qp, eff), 10)
     q32, k32, v32 = q.float(), k.float(), v.float()
+    got32 = lma.prefill_flash_attention(q32, k32, v32, qp, eff)
     k3_f32_ms = cuda_ms(lambda: lma.prefill_flash_attention(
-        q32, k32, v32, qp, eff), 2)
+        q32, k32, v32, qp, eff), 5)
     b32 = bound_ms(nbytes(q32, qp, eff) + 4 * got.numel() + 4 * seen * kv_row,
                    4 * Hq * Dl * visible_pairs(qp, eff), "f32")
-    f32_plain = cuda_ms(lambda: lma.gqa_attention_plain(q32, k32, v32, qp,
-                                                        eff), 1, warmup=0)
-    f32_lib = sdpa_ms(*sdpa_operands(q32, k32, v32, qp, eff), 2)
+    ref32 = []   # the plain version's output, from its timed call
+    f32_plain = cuda_ms(lambda: ref32.append(lma.gqa_attention_plain(
+        q32, k32, v32, qp, eff)), 1, warmup=0)
+    err32, ratio32 = f32_row_check(got32, ref32[0], Dl)
+    f32_lib = sdpa_ms(*sdpa_operands(q32, k32, v32, qp, eff), 3)
     pad_zero = bool((got[0, S - 20:] == 0).all())
+    pad32 = bool((got32[0, S - 20:] == 0).all())
     log(f"kernel K3 routes at S={S}: tensor-core tile (bf16) {k3_ms:.4f} ms,"
-        f" CUDA-core tile (f32, same values) {k3_f32_ms:.4f} ms (its bound "
+        f" f32 tile (f32, same values) {k3_f32_ms:.4f} ms (its bound "
         f"{b32[0]:.4f} ms, {b32[1]}, f32 peak; its plain version "
         f"{f32_plain:.4f} ms, library (f32) {f32_lib:.4f} ms), library "
-        f"{k3_lib:.4f} ms; 20 padded query rows zero {pad_zero}")
+        f"{k3_lib:.4f} ms; 20 padded query rows zero {pad_zero}; f32 route "
+        f"max_abs_err={err32:.6g}, worst row at {ratio32:.3g} of its bound "
+        f"({F32_ROW_TOL:g} of the row's max |ref|), padded rows zero "
+        f"{pad32}")
     if not pad_zero:
         raise AssertionError("K3 padded query rows are not zero")
+    if not (ratio32 <= 1.0 and pad32):
+        raise AssertionError("K3's f32 route disagrees with its plain "
+                             "version")
+    if not k3_f32_ms < f32_lib:
+        raise AssertionError(f"K3's f32 route ({k3_f32_ms:.4f} ms) is not "
+                             f"faster than the library call in f32 "
+                             f"({f32_lib:.4f} ms)")
+    f32_results.append({
+        "name": "K3_prefill_attention_f32", "route": "cuda",
+        "source": "cogstream_tpu_torch/csrc/lm_attention_f32q.cu",
+        "replaces": KERNELS[2][4], "max_abs_err": err32, "ms": k3_f32_ms,
+        "plain_ms": f32_plain, "bound_ms": b32[0], "bound_by": b32[1],
+        "library_ms": f32_lib})
+    del got32, ref32
     record(2, *row_check(got, ref, Dl), k3_ms,
            cuda_ms(lambda: lma.gqa_attention_plain(q, k, v, qp, eff), 1),
            k3_bound, k3_lib)
@@ -843,13 +939,19 @@ def check_kernels(dev):
                    20)
     q_f32_ms = cuda_ms(lambda: lma.prefill_flash_attention(
         qq32, k32, v32, qpq, effq), 10)
+    errq32, ratioq32 = f32_row_check(
+        lma.prefill_flash_attention(qq32, k32, v32, qpq, effq),
+        lma.gqa_attention_plain(qq32, k32, v32, qpq, effq), Dl)
+    q_rows = lma.prefill_f32_rows(Sq * (Hq // Hkv), 1, Hkv,
+                                  kernels.sm_count(dev))
     q_lib = sdpa_ms(*sdpa_operands(qq, k, v, qpq, effq), 20)
     log(f"kernel K3 question prefill S={Sq} over a {Wq}-slot window ({fill}"
         f" history slots): max_abs_err={errq:.6g}, worst row at "
         f"{ratioq:.3g} of its bound; tensor-core tile (bf16) {q_ms:.4f} ms, "
-        f"CUDA-core tile (f32, same values) {q_f32_ms:.4f} ms, library "
-        f"{q_lib:.4f} ms")
-    if not ratioq <= 1.0 or not q_ms < q_f32_ms:
+        f"f32 tile (f32, same values, {q_rows} rows a block) "
+        f"{q_f32_ms:.4f} ms, max_abs_err={errq32:.6g}, worst row at "
+        f"{ratioq32:.3g} of its bound; library {q_lib:.4f} ms")
+    if not ratioq <= 1.0 or not q_ms < q_f32_ms or not ratioq32 <= 1.0:
         raise AssertionError("K3 at the question prefill disagrees with its "
                              "plain version or is slower than the f32 route")
     del q32, k32, v32, qq32
@@ -1035,7 +1137,7 @@ def check_kernels(dev):
     if not k5_ms < k5_lib:
         raise AssertionError(f"K5 ({k5_ms:.4f} ms) is not faster than the "
                              f"library call ({k5_lib:.4f} ms)")
-    return results, verify
+    return results, verify, f32_results
 
 
 LIB_INT4 = {}   # K6 / K8: torch._weight_int4pack_mm (ms, note)
@@ -8415,6 +8517,11 @@ def main() -> int:
             f"of {use['threads']} threads (16384-slot read), "
             f"{use['blocks_per_sm']} blocks per SM (registers "
             f"{use.get('registers')})")
+    for name, use in f32_tile_usage(kernels.last_build_log).items():
+        log(f"build: ptxas {name}: registers {use.get('registers')}, spill "
+            f"bytes {use.get('spill_bytes')}, {use['smem']} bytes of shared "
+            f"memory a block of {use['threads']} threads, "
+            f"{use['blocks_per_sm']} blocks per SM")
 
     if args.train_tp_only:
         return run_train_tp_alone(dev, card, args.train_tp_fault,
@@ -8430,7 +8537,7 @@ def main() -> int:
         walls[name] = round(now - t_phase[0], 1)
         t_phase[0] = now
 
-    results, verify_ms = check_kernels(dev)
+    results, verify_ms, f32_results = check_kernels(dev)
     results += check_int4_kernels(dev)
     k10, w8a8_ms = check_int8_kernels(dev)
     results.append(k10)
@@ -8457,6 +8564,12 @@ def main() -> int:
                   for k, n in f32_routes.items()}
     log(f"reference: f32-query routes (CUDA-core tiles) launched in phase 4 "
         f"{f32_routes}")
+    # the redesigned f32 routes of K1 and K3 (the f32 tile) run in phase 4
+    # alone: their launches there
+    for r in f32_results:
+        r["launches"] = f32_routes[r["name"][:2]]
+        if not r["launches"]:
+            raise AssertionError(f"{r['name']} was not launched in phase 4")
     mark("4 reference")
     launches, metrics, sess = run_main_path(dev, card)
     kv_launches = {}
@@ -8502,7 +8615,7 @@ def main() -> int:
                     launches + train_launches + int4_launches
                     + int8_launches + kv_counts, strict=True):
         r["launches"] = n
-    results += kv_results
+    results += kv_results + f32_results
     metrics["w8a8_gate_proj_4384_ms"] = w8a8_ms
     metrics.update(train_metrics)
     metrics.update(int8_metrics)

@@ -1,7 +1,8 @@
 // Shared helpers for the cogstream_tpu_torch kernels: dtype conversion,
 // warp reductions, and the f32 online-softmax attention tile that the f32
-// routes of the vision (K1), prefill (K3), decode (K4) and segment (K5)
-// kernels run.
+// routes of the decode (K4) and segment (K5) kernels run. The f32 routes of
+// the vision (K1) and prefill (K3) kernels run the register-blocked tile
+// of f32_tile.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -66,12 +67,16 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// Attention tile: BR query rows x BK key columns, 256 threads. Thread
-// `tid` owns row r = tid / 4; the four threads of a quad split the key
-// columns (c = quad + 4j) for the scores and the head-dim float4 groups
-// (g = quad + 4j) for P.V. Q, K and V tiles sit in shared memory as f32
-// rows of stride D + 4 floats (the pad spreads rows over the banks).
-// Scores, softmax and the P.V accumulation are all f32.
+// Attention tile of K4's and K5's f32 routes: BR query rows x BK key
+// columns, 256 threads. Thread `tid` owns row r = tid / 4; the four
+// threads of a quad split the key columns (c = quad + 4j) for the scores
+// and the head-dim float4 groups (g = quad + 4j) for P.V. Q, K and V tiles
+// sit in shared memory as f32 rows of stride D + 4 floats (the pad spreads
+// rows over the banks). Scores, softmax and the P.V accumulation are all
+// f32. Each thread re-reads its Q row and its P row from shared memory for
+// every key (about one LDS.128 for 4 FFMAs), so it runs at ~10-13% of the
+// H100's f32 rate (PERF.md); K1 and K3 left it for f32_tile.cuh, whose
+// register-blocked tiles need about one byte loaded an FFMA.
 // ---------------------------------------------------------------------------
 constexpr int BR = 64;
 constexpr int BK = 64;

@@ -50,15 +50,24 @@
 //   workspace and the last block of the (batch x kv head, row group),
 //   found by an atomic ticket it resets, merges the partials in split
 //   order: two calls give the same bits.
-// * f32, K3 and K4 (cs_gqa_attention): the CUDA-core f32 tile of
-//   common.cuh (attend_tile), one 256-thread block per (64-row tile,
-//   batch x kv head, key chunk), after the tile_min pre-pass. f32 keeps
-//   exact f32 products (the tiny f32 sessions hold card-vs-CPU greedy
-//   tokens through it).
-//   - K3 f32: one chunk spans the whole cache; the block writes
-//     normalized rows.
-//   - K4 f32: chunks of `chunk_tiles` tiles; each block writes its
-//     partial (m, l, acc) and cs_gqa_combine merges the chunks.
+// * f32 queries: exact f32 products on the CUDA cores (the tiny f32
+//   sessions hold card-vs-CPU greedy tokens through them).
+//   - K3 f32 (cs_gqa_prefill_f32): the register-blocked f32 tile of
+//     f32_tile.cuh (lm_attention_f32q.cu) after the tile min / max
+//     pre-pass. A block owns 128 folded rows of one (batch, kv head), or
+//     64 where 128-row blocks would leave SMs idle (the wrapper's
+//     prefill_f32_rows), launched last rows first, and walks only the
+//     tiles some row can see; a thread whose rows have all reached a
+//     tile's largest position skips the compares. Bound on the H100:
+//     arithmetic at the f32 rate (67 TFLOP/s), so the tile is register
+//     blocked: each thread computes 8 x 4 scores (4 x 4 at 64 rows) by
+//     outer products over head-dim chunks, and an O micro-tile in
+//     registers from P staged key-major in shared memory.
+//   - K4 f32 (cs_gqa_attention): the CUDA-core f32 tile of common.cuh
+//     (attend_tile), one 256-thread block per (64-row tile, batch x kv
+//     head, chunk of `chunk_tiles` key tiles), after the tile_min
+//     pre-pass; each block writes its partial (m, l, acc) and
+//     cs_gqa_combine merges the chunks.
 //
 // An e4m3 K/V cache (the fp8 KV cache, kv_dtype code E4M3): each route
 // reads the cache's own bytes and converts them on chip, as the TPU
@@ -93,8 +102,10 @@
 //     row halves; 176 KB, one block an SM). The 1-m-tile instance, for
 //     prefills whose blocks would leave SMs idle, keeps 4 warps and 64
 //     rows, so that such a prefill spreads over more SMs.
-//   - f32 route: gqa_attention_kernel<float, __nv_fp8_e4m3> widens each
-//     element as it fills the f32 tile.
+//   - f32 routes: K3's reads each tile's bytes into registers and each
+//     thread widens the chunks it read into the f32 tile (f32_tile.cuh
+//     Narrow); K4's (gqa_attention_kernel<float, __nv_fp8_e4m3>) widens
+//     each element as it fills its f32 tile.
 //
 // The other cache dtypes (codes E5M2, F16, and F32 or BF16 under the other
 // query dtype) take the same rule, K/V converted to q's compute dtype
@@ -126,12 +137,14 @@
 //     64 KB a warp, so it runs 3 warps. Both round the split up to whole
 //     tiles a warp. Measured on the H100 (PERF.md): f16 rounded in place
 //     after its own cp.async, on bf16's plan, ran 1.18-1.37x bf16.
-//   - bf16, f16 or e5m2 under f32 queries: the f32 route widens each
-//     element exactly (gqa_attention_kernel<float, KV>).
+//   - bf16, f16 or e5m2 under f32 queries: widened exactly, as e4m3 is on
+//     the f32 routes (K3 once a tile, each chunk by the thread that read
+//     it; K4 as each element fills its tile, gqa_attention_kernel<float,
+//     KV>).
 // lm_attention_tc.cuh holds the tensor-core templates; each K/V kind's
 // instances are built in a file of their own (this one: bf16;
-// lm_attention_<kind>.cu: e4m3, e5m2, f16, f32), so that nvcc builds them
-// at once.
+// lm_attention_<kind>.cu: e4m3, e5m2, f16, f32; lm_attention_f32q.cu:
+// K3's f32 route), so that nvcc builds them at once.
 //
 // Row addressing (pooled serving): every route takes an optional `rows`
 // ([B] int32 on the device). With it, input row b reads cache row
@@ -183,13 +196,15 @@ __global__ void tile_minmax_kernel(const int* __restrict__ eff,
   }
 }
 
+// K4 f32's first pass: each block's partial (m, l, acc) of its rows over
+// its chunk of key tiles
 template <typename T, typename KV>
 __global__ void __launch_bounds__(cs::NT)
 gqa_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
                      const KV* __restrict__ v, const int* __restrict__ qpos,
                      const int* __restrict__ eff,
                      const int* __restrict__ tile_min,
-                     const int* __restrict__ rows, T* __restrict__ out,
+                     const int* __restrict__ rows,
                      float* __restrict__ part_m, float* __restrict__ part_l,
                      float* __restrict__ part_acc, int S, int Hq, int Hkv,
                      int D, int T_cache, int kv_len, int chunk_tiles,
@@ -258,11 +273,6 @@ gqa_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
 
   const int rr = tid >> 2, r = r0 + rr;
   if (r >= R) return;
-  if (part_m == nullptr) {
-    const int s = r / G, g = r % G;
-    cs::store_row(st, out + (((size_t)b * S + s) * Hq + h * G + g) * D, D);
-    return;
-  }
   const size_t p = ((size_t)blockIdx.y * gridDim.z + blockIdx.z) * R + r;
   if ((tid & 3) == 0) {
     part_m[p] = st.m;
@@ -305,7 +315,7 @@ __global__ void gqa_combine_kernel(const float* __restrict__ part_m,
 
 template <typename T, typename KV>
 int launch_gqa(const void* q, const void* k, const void* v, const void* qpos,
-               const void* eff, void* tile_min, const void* rows, void* out,
+               const void* eff, void* tile_min, const void* rows,
                void* part_m,
                void* part_l, void* part_acc, int B, int S, int Hq, int Hkv,
                int D, int T_cache, int kv_len, int chunk_tiles, int n_chunks,
@@ -328,8 +338,7 @@ int launch_gqa(const void* q, const void* k, const void* v, const void* qpos,
       static_cast<const T*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), static_cast<const int*>(qpos),
       static_cast<const int*>(eff), static_cast<const int*>(tile_min),
-      static_cast<const int*>(rows), static_cast<T*>(out),
-      static_cast<float*>(part_m),
+      static_cast<const int*>(rows), static_cast<float*>(part_m),
       static_cast<float*>(part_l), static_cast<float*>(part_acc), S, Hq, Hkv,
       D, T_cache, kv_len, chunk_tiles, scale);
   return static_cast<int>(cudaGetLastError());
@@ -337,28 +346,28 @@ int launch_gqa(const void* q, const void* k, const void* v, const void* qpos,
 
 }  // namespace
 
-// f32 queries only (bf16 goes to cs_gqa_prefill_tc / cs_gqa_decode_tc);
-// k and v f32, bf16, f16, e4m3 or e5m2 (kv_dtype), each element widened
-// exactly to f32 as the tile is filled. rows: null, or the [B] int32 cache
-// row of each input row. part_m == nullptr: K3 on the CUDA-core tile (one
-// chunk, normalized output). Otherwise K4's first pass (partials per
-// chunk; finish with cs_gqa_combine).
+// K4 in f32 (bf16 goes to cs_gqa_decode_tc; K3 in f32 to
+// cs_gqa_prefill_f32): the first pass, partials per chunk of chunk_tiles
+// key tiles into part_m / part_l / part_acc (finish with
+// cs_gqa_combine). k and v f32, bf16, f16, e4m3 or e5m2
+// (kv_dtype), each element widened exactly to f32 as the tile is filled.
+// rows: null, or the [B] int32 cache row of each input row.
 extern "C" int cs_gqa_attention(const void* q, const void* k, const void* v,
                                 const void* qpos, const void* eff,
-                                void* tile_min, void* out, void* part_m,
-                                void* part_l, void* part_acc, int B, int S,
-                                int Hq, int Hkv, int D, int T_cache,
-                                int kv_len, int chunk_tiles, int n_chunks,
-                                float scale, int dtype, int kv_dtype,
-                                const void* rows, void* stream) {
+                                void* tile_min, void* part_m, void* part_l,
+                                void* part_acc, int B, int S, int Hq,
+                                int Hkv, int D, int T_cache, int kv_len,
+                                int chunk_tiles, int n_chunks, float scale,
+                                int dtype, int kv_dtype, const void* rows,
+                                void* stream) {
   if (dtype != cs::F32 || D % 4 != 0 || D > 4 * cs::MAX_D4 ||
-      Hq % Hkv != 0 || kv_len > T_cache ||
-      (part_m == nullptr && n_chunks != 1))
+      Hq % Hkv != 0 || kv_len > T_cache || part_m == nullptr ||
+      part_l == nullptr || part_acc == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define CS_GQA_F32(CODE, KV)                                                \
   if (kv_dtype == CODE)                                                     \
-    return launch_gqa<float, KV>(q, k, v, qpos, eff, tile_min, rows, out,   \
+    return launch_gqa<float, KV>(q, k, v, qpos, eff, tile_min, rows,        \
                                  part_m, part_l, part_acc, B, S, Hq, Hkv, D, \
                                  T_cache, kv_len, chunk_tiles, n_chunks,     \
                                  scale, st);
@@ -382,6 +391,33 @@ extern "C" int cs_gqa_combine(const void* part_m, const void* part_l,
       static_cast<const float*>(part_acc), static_cast<float*>(out), S, Hq,
       Hkv, D, n_chunks);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K3 in f32 (head dim a multiple of 4, at most 128): the tile min / max
+// pre-pass into tile_mm ([2, B, n_tiles] int32), then the register-blocked
+// f32 tile (lm_attention_f32q.cu) in blocks of block_rows (64 or 128)
+// folded rows. k and v f32, bf16, f16, e4m3 or e5m2 (kv_dtype), widened
+// exactly. Normalized output [B, S, Hq, D]. rows: null, or the [B] int32
+// cache row of each input row (k, v are then [B_pool, T_cache, Hkv, D]).
+extern "C" int cs_gqa_prefill_f32(const void* q, const void* k,
+                                  const void* v, const void* qpos,
+                                  const void* eff, void* tile_mm, void* out,
+                                  int B, int S, int Hq, int Hkv, int D,
+                                  int T_cache, int kv_len, int block_rows,
+                                  float scale, int kv_dtype, const void* rows,
+                                  void* stream) {
+  if (D % 4 != 0 || D <= 0 || D > 128 || Hq % Hkv != 0 ||
+      kv_len > T_cache || kv_dtype < cs::F32 || kv_dtype > cs::F16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_tiles = (kv_len + cs::BK - 1) / cs::BK;
+  if (n_tiles > 0)
+    tile_minmax_kernel<<<dim3(n_tiles, B), cs::BK, 0, st>>>(
+        static_cast<const int*>(eff), static_cast<int*>(tile_mm), B, kv_len,
+        n_tiles);
+  return prefill_f32q(D, block_rows, q, k, v, qpos, eff, tile_mm, rows, out,
+                      B, S, Hq, Hkv, T_cache, kv_len, kv_dtype,
+                      scale * tc::LOG2E, st);
 }
 
 // K3 in bf16 (head dim 64 or 128): the tile min / max pre-pass into

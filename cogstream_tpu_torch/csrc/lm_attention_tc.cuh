@@ -861,3 +861,9 @@ CS_LM_KIND(e5m2)
 CS_LM_KIND(f16)
 CS_LM_KIND(f32)
 #undef CS_LM_KIND
+// K3's f32 route (lm_attention_f32q.cu)
+int prefill_f32q(int D, int block_rows, const void* q, const void* k,
+                 const void* v, const void* qpos, const void* eff,
+                 const void* tile_mm, const void* rows, void* out, int B,
+                 int S, int Hq, int Hkv, int T_cache, int kv_len, int kv,
+                 float scale2, cudaStream_t st);

@@ -22,112 +22,251 @@
 //   through a cp.async double buffer straight from the fused QKV rows
 //   with each tile's f32 cos and sin rows, q and k rotated in shared
 //   memory as they land.
-// * f32 (cs_vision_attention): the CUDA-core f32 tile of common.cuh,
-//   one 256-thread block per (64-row tile, head).
+// * f32 (cs_vision_attention): the register-blocked f32 tile of
+//   f32_tile.cuh (exact f32 FFMAs), one 256-thread block per 128 query
+//   rows of one head (64 at a head dim above 80, for shared memory): its
+//   64-row host tiles' token ranges joined, 64-key tiles walked with one K
+//   and one V tile, V copied (cp.async) while a tile's scores run and the
+//   next K with its f32 cos and sin rows while its P.V runs. q is rotated
+//   once a block as it is loaded; each K chunk pair (d, d + D/2) is
+//   rotated in place by the thread that copied it, as it lands, with the
+//   plain path's roundings (x*cos + rotate_half(x)*sin, each product and
+//   the sum rounded in f32). A thread whose rows lie in one frame with
+//   all its keys skips the segment compares.
 #include "common.cuh"
+#include "f32_tile.cuh"
 #include "segment_tc.cuh"
 
 namespace {
 
-__device__ __forceinline__ float rotated(const float* row,
-                                         const float* cs_row,
-                                         const float* sn_row, int d,
-                                         int half) {
-  const float x = row[d];
-  const float partner = row[d < half ? d + half : d - half];
-  const float rot = d < half ? -partner : partner;
-  return x * cs_row[d] + rot * sn_row[d];
+// the rotation of pairs (x1[e], x2[e]) = (x[d + e], x[d + D/2 + e]) with
+// their cos / sin: y1 = x1*c1 - x2*s1, y2 = x2*c2 + x1*s2, every product
+// and sum rounded once in f32 (no FMA), as the plain version computes it
+__device__ __forceinline__ void rotate_pair(float& x1, float& x2, float c1,
+                                            float s1, float c2, float s2) {
+  const float y1 = __fadd_rn(__fmul_rn(x1, c1), __fmul_rn(-x2, s1));
+  const float y2 = __fadd_rn(__fmul_rn(x2, c2), __fmul_rn(x1, s2));
+  x1 = y1;
+  x2 = y2;
 }
 
-// f32 operands: the CUDA-core tile
-__global__ void __launch_bounds__(cs::NT)
-vision_attention_kernel(const float* __restrict__ qkv,
-                        const float* __restrict__ cosv,
-                        const float* __restrict__ sinv,
-                        const int* __restrict__ seg,
-                        const int* __restrict__ kv_lo,
-                        const int* __restrict__ kv_hi,
-                        float* __restrict__ out, int N, int H, int D,
-                        float scale) {
-  extern __shared__ float smem[];
-  const int DS = D + 4, half = D / 2;
+// rows a block of the f32 tile at padded head dim DP (the cos / sin stage
+// of a key tile takes 64 KB at DP = 128)
+__host__ __device__ constexpr int vision_f32_rows(int DP) {
+  return DP == 128 ? 64 : 128;
+}
+
+template <int DP>
+__host__ __device__ constexpr size_t vision_f32_smem() {
+  using Sh = f32t::Shape<DP, vision_f32_rows(DP)>;
+  return (size_t)Sh::FLOATS * sizeof(float) +
+         (size_t)2 * f32t::BK * DP * sizeof(float) +  // cos | sin stage
+         (size_t)(vision_f32_rows(DP) + f32t::BK) * sizeof(int);
+}
+
+// f32 operands: the register-blocked f32 tile
+template <int DP>
+__global__ void __launch_bounds__(f32t::NT, 1)
+vision_attention_f32_kernel(const float* __restrict__ qkv,
+                            const float* __restrict__ cosv,
+                            const float* __restrict__ sinv,
+                            const int* __restrict__ seg,
+                            const int* __restrict__ kv_lo,
+                            const int* __restrict__ kv_hi,
+                            float* __restrict__ out, int N, int H, int D,
+                            float scale2) {
+  constexpr int BR = vision_f32_rows(DP);
+  using Sh = f32t::Shape<DP, BR>;
+  constexpr int BK = f32t::BK, NT = f32t::NT, DS = Sh::DS;
+  extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
-  float* Ks = Qs + cs::BR * DS;
-  float* Vs = Ks + cs::BK * DS;
-  float* Ps = Vs + cs::BK * DS;
-  int* rseg = reinterpret_cast<int*>(Ps + cs::BR * cs::PS);
-  int* cseg = rseg + cs::BR;
+  float* Ks = Qs + BR * DS;
+  float* Vs = Ks + BK * DS;
+  float* Ps = Vs + BK * DS;
+  float* alpha = Ps + BK * Sh::PST;
+  float* lsum = alpha + BR;
+  float* cs_ = lsum + BR;       // the K tile's cos rows (stride DP)
+  float* sn_ = cs_ + BK * DP;   // and sin rows
+  int* rseg = reinterpret_cast<int*>(sn_ + BK * DP);
+  int* cseg = rseg + BR;
 
-  const int tid = threadIdx.x, h = blockIdx.y;
-  const int q0 = blockIdx.x * cs::BR;
-  const size_t row_stride = (size_t)3 * H * D;
+  const int tid = threadIdx.x, h = blockIdx.y, q0 = blockIdx.x * BR;
+  const size_t rs = (size_t)3 * H * D;  // elements between tokens
   const int qcol = h * D, kcol = (H + h) * D, vcol = (2 * H + h) * D;
+  // rotation pairs (d .. d + W - 1, + D/2): 16-byte chunks where D/2 is a
+  // multiple of 4, single floats otherwise
+  const int half = D / 2, W = half % 4 == 0 ? 4 : 1, HC = half / W;
+  // the key range: the union of the block's 64-row host tiles' ranges
+  constexpr int QT = BR / 64;
+  const int n_qt = (N + 63) / 64, t0 = blockIdx.x * QT;
+  const int lo = kv_lo[t0];
+  int hi = kv_hi[t0];
+  for (int j = 1; j < QT; ++j)
+    if (t0 + j < n_qt) hi = max(hi, kv_hi[t0 + j]);
 
-  for (int i = tid; i < cs::BR * D; i += cs::NT) {
-    const int rr = i / D, d = i % D, n = q0 + rr;
-    float val = 0.f;
-    if (n < N)
-      val = rotated(qkv + n * row_stride + qcol, cosv + (size_t)n * D,
-                    sinv + (size_t)n * D, d, half);
-    Qs[rr * DS + d] = val;
-  }
-  for (int rr = tid; rr < cs::BR; rr += cs::NT)
-    rseg[rr] = q0 + rr < N ? seg[q0 + rr] : -1;
-
-  cs::RowState st;
-  st.init();
-  const int lo = kv_lo[blockIdx.x], hi = kv_hi[blockIdx.x];
-  for (int k0 = lo; k0 < hi; k0 += cs::BK) {
-    const int ncols = min(cs::BK, hi - k0);
-    __syncthreads();  // previous tile fully consumed (and Q/rseg written)
-    for (int i = tid; i < ncols * D; i += cs::NT) {
-      const int c = i / D, d = i % D, n = k0 + c;
-      const float* row = qkv + n * row_stride;
-      Ks[c * DS + d] = rotated(row + kcol, cosv + (size_t)n * D,
-                               sinv + (size_t)n * D, d, half);
-      Vs[c * DS + d] = row[vcol + d];
+  if (D < DP)  // zero head-dim padding of Q, K and V
+    for (int i = tid; i < (BR + 2 * BK) * (DP - D); i += NT)
+      Qs[i / (DP - D) * DS + D + i % (DP - D)] = 0.f;
+  const f32t::Div hc_div(HC), ch_div(D / 4);
+  // q rotated once a block (zero rows past N)
+  f32t::for_chunks(BR, hc_div, [&](int rr, int hc) {
+    const int d = hc * W, n = q0 + rr;
+    float* dst = Qs + rr * DS;
+    for (int e = 0; e < W; ++e) {
+      float x1 = 0.f, x2 = 0.f;
+      if (n < N) {
+        const float* x = qkv + n * rs + qcol;
+        const float* c = cosv + (size_t)n * D;
+        const float* s = sinv + (size_t)n * D;
+        x1 = x[d + e];
+        x2 = x[d + e + half];
+        rotate_pair(x1, x2, c[d + e], s[d + e], c[d + e + half],
+                    s[d + e + half]);
+      }
+      dst[d + e] = x1;
+      dst[d + e + half] = x2;
     }
-    for (int c = tid; c < cs::BK; c += cs::NT)
-      cseg[c] = c < ncols ? seg[k0 + c] : -2;
-    __syncthreads();
-    cs::attend_tile(Qs, Ks, Vs, Ps, D, ncols, scale,
-                    [&](int r, int c) {
-                      return rseg[r] >= 0 && rseg[r] == cseg[c];
-                    },
-                    st);
+  });
+  if (tid < BR) rseg[tid] = q0 + tid < N ? seg[q0 + tid] : -1;
+  __syncthreads();
+  // this thread's own score rows' segments; s0: their one segment, if
+  // they share one (else -3, which no key carries)
+  constexpr int RH = Sh::RS / 2;
+  const int kg = f32t::score_kg();
+  int rsg[RH], s0 = rseg[f32t::score_row(0, RH)];
+#pragma unroll
+  for (int i = 0; i < RH; ++i) {
+    rsg[i] = rseg[f32t::score_row(i, RH)];
+    if (rsg[i] != s0) s0 = -3;
   }
-  const int n = q0 + (tid >> 2);
-  if (n < N) cs::store_row(st, out + (size_t)n * H * D + h * D, D);
+  if (s0 < 0) s0 = -3;
+
+  auto copy16 = [](float* dst, const float* src, bool ok, int w) {
+    if (w == 4)
+      tc::cp_async16(dst, src, ok);
+    else
+      tc::cp_async4(dst, src, ok);
+  };
+  // K rows of tile t (keys lo + 64 t ...) with their cos / sin rows, in
+  // rotation pairs, and the keys' segments (-2 past hi)
+  auto fetch_k = [&](int t) {
+    const int k0 = lo + t * BK;
+    f32t::for_chunks(BK, hc_div, [&](int c, int hc) {
+      const int d = hc * W, n = k0 + c;
+      const bool ok = n < hi;  // ragged last tile: zero rows
+      const float* x = qkv + (ok ? n : 0) * rs + kcol;
+      const size_t cr = (size_t)(ok ? n : 0) * D;
+      copy16(Ks + c * DS + d, x + d, ok, W);
+      copy16(Ks + c * DS + d + half, x + d + half, ok, W);
+      copy16(cs_ + c * DP + d, cosv + cr + d, ok, W);
+      copy16(cs_ + c * DP + d + half, cosv + cr + d + half, ok, W);
+      copy16(sn_ + c * DP + d, sinv + cr + d, ok, W);
+      copy16(sn_ + c * DP + d + half, sinv + cr + d + half, ok, W);
+    });
+    for (int c = tid; c < BK; c += NT) {
+      if (k0 + c < hi)
+        tc::cp_async4(cseg + c, seg + k0 + c);
+      else
+        cseg[c] = -2;
+    }
+  };
+  // the pairs this thread copied, rotated in place
+  auto land_k = [&](int) {
+    f32t::for_chunks(BK, hc_div, [&](int c, int hc) {
+      const int d = hc * W;
+      float* x = Ks + c * DS;
+      const float* cr = cs_ + c * DP;
+      const float* sr = sn_ + c * DP;
+      for (int e = 0; e < W; ++e)
+        rotate_pair(x[d + e], x[d + e + half], cr[d + e], sr[d + e],
+                    cr[d + e + half], sr[d + e + half]);
+    });
+  };
+  auto fetch_v = [&](int t) {
+    const int k0 = lo + t * BK;
+    f32t::for_chunks(BK, ch_div, [&](int c, int ch) {
+      const int n = k0 + c;
+      const bool ok = n < hi;
+      tc::cp_async16(Vs + c * DS + ch * 4,
+                     qkv + (ok ? n : 0) * rs + vcol + ch * 4, ok);
+    });
+  };
+
+  f32t::Rows<RH> st;
+  st.init();
+  f32t::Acc<DP, BR> o;
+  f32t::zero<DP, BR>(o);
+  const int n_tiles = hi > lo ? (hi - lo + BK - 1) / BK : 0;
+  f32t::stream(
+      0, n_tiles, [](int t) { return t; }, [&](int t) { fetch_k(t); },
+      land_k, [&](int t, int) { fetch_v(t); },
+      [&](int tn, int) {
+        if (tn < n_tiles) fetch_k(tn);
+      },
+      [&](int, int) {
+        bool all = true;
+#pragma unroll
+        for (int j = 0; j < f32t::KPT; ++j)
+          all = all && cseg[kg + 8 * j] == s0;
+        f32t::scores<DP, BR>(
+            Qs, Ks, Ps, alpha, D / 4, scale2, all,
+            [&](int i, int c) { return rsg[i] >= 0 && rsg[i] == cseg[c]; },
+            st);
+      },
+      [&]() { f32t::accumulate<DP, BR, 8>(Ps, Vs, alpha, o); });
+  tc::cp_async_wait<0>();
+  f32t::finish(st, lsum);
+  __syncthreads();
+  f32t::store<DP, BR>(o, lsum, D, [&](int rr) -> float* {
+    const int n = q0 + rr;
+    return n < N ? out + (size_t)n * H * D + h * D : nullptr;
+  });
+}
+
+template <int DP>
+int launch_vision_f32(const void* qkv, const void* cosv, const void* sinv,
+                      const void* seg, const void* kv_lo, const void* kv_hi,
+                      void* out, int n, int heads, int d, float scale2,
+                      cudaStream_t st) {
+  constexpr int BR = vision_f32_rows(DP);
+  constexpr size_t bytes = vision_f32_smem<DP>();
+  static_assert(bytes <= 232448, "shared memory of a block");
+  auto kern = vision_attention_f32_kernel<DP>;
+  // once per instantiation, not per launch
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kern<<<dim3((n + BR - 1) / BR, heads), f32t::NT, bytes, st>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(cosv),
+      static_cast<const float*>(sinv), static_cast<const int*>(seg),
+      static_cast<const int*>(kv_lo), static_cast<const int*>(kv_hi),
+      static_cast<float*>(out), n, heads, d, scale2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// f32 operands: the CUDA-core tile (bf16 goes to cs_vision_attention_tc)
+// f32 operands, head dim d even, a multiple of 4 and at most 128: the
+// register-blocked f32 tile (bf16 goes to cs_vision_attention_tc).
+// kv_lo / kv_hi: the token range of each 64-row host tile (block_q 64).
 extern "C" int cs_vision_attention(const void* qkv, const void* cosv,
                                    const void* sinv, const void* seg,
                                    const void* kv_lo, const void* kv_hi,
                                    void* out, int n, int heads, int d,
                                    int block_q, float scale, int dtype,
                                    void* stream) {
-  if (dtype != cs::F32 || block_q != cs::BR || d % 4 != 0 ||
-      d > 4 * cs::MAX_D4 || d % 2 != 0)
+  if (dtype != cs::F32 || block_q != cs::BR || d % 4 != 0 || d > 128 ||
+      d <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int n_tiles = (n + cs::BR - 1) / cs::BR;
-  const size_t bytes =
-      cs::tile_smem_floats(d) * sizeof(float) + 2 * cs::BR * sizeof(int);
-  auto k = vision_attention_kernel;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(cs::tile_smem_floats(4 * cs::MAX_D4) * sizeof(float) +
-            2 * cs::BR * sizeof(int)));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  k<<<dim3(n_tiles, heads), cs::NT, bytes, st>>>(
-      static_cast<const float*>(qkv), static_cast<const float*>(cosv),
-      static_cast<const float*>(sinv), static_cast<const int*>(seg),
-      static_cast<const int*>(kv_lo), static_cast<const int*>(kv_hi),
-      static_cast<float*>(out), n, heads, d, scale);
-  return static_cast<int>(cudaGetLastError());
+  const float scale2 = scale * tc::LOG2E;
+#define CS_VISION_F32(DP)                                                 \
+  if (d <= DP)                                                            \
+    return launch_vision_f32<DP>(qkv, cosv, sinv, seg, kv_lo, kv_hi, out, \
+                                 n, heads, d, scale2, st);
+  CS_VISION_F32(32) CS_VISION_F32(64) CS_VISION_F32(80) CS_VISION_F32(128)
+#undef CS_VISION_F32
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // bf16 operands, head dim D % 8 == 0 and D <= 128: the tensor-core tile

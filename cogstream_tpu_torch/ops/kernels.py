@@ -59,10 +59,10 @@ _SIGNATURES = {
     # (bf16)
     "cs_segment_attention_tc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _F, _P),
-    # q, k, v, q_pos, eff, tile_min, out, part_m, part_l, part_acc,
-    # B, S, Hq, Hkv, D, T_cache, kv_len, chunk_tiles, n_chunks, scale,
-    # dtype, kv dtype, rows, stream (f32)
-    "cs_gqa_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    # q, k, v, q_pos, eff, tile_min, part_m, part_l, part_acc, B, S, Hq,
+    # Hkv, D, T_cache, kv_len, chunk_tiles, n_chunks, scale, dtype, kv
+    # dtype, rows, stream (K4 f32's first pass)
+    "cs_gqa_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                          _P, _P),
     # part_m, part_l, part_acc, out, B, S, Hq, Hkv, D, n_chunks, dtype,
@@ -77,6 +77,10 @@ _SIGNATURES = {
     # kv_len, scale, kv dtype, rows, stream (bf16)
     "cs_gqa_prefill_tc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _F, _I, _P, _P),
+    # q, k, v, q_pos, eff, tile_mm, out, B, S, Hq, Hkv, D, T_cache,
+    # kv_len, block_rows, scale, kv dtype, rows, stream (f32)
+    "cs_gqa_prefill_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _F, _I, _P, _P),
     # kv dtype -> warps a block of K4's tensor-core kernel
     "cs_decode_tc_warps": (_I,),
     # x, sx, q4, layer_stride, scale, scale_stride, layer, code, out, part,

@@ -6,9 +6,13 @@ Both take two routes on the card, by operand type. bf16 runs the
 tensor-core kernels, head dim 64 or 128: K3 ``cs_gqa_prefill_tc``
 (counted in ``prefill_flash_attention.tc_launches`` as well as
 ``.launches``), K4 ``cs_gqa_decode_tc`` (``decode_attention.tc_launches``).
-f32 runs the CUDA-core f32 tile (``cs_gqa_attention``; K4 then merges its
-chunks with ``cs_gqa_combine``). A bf16 head dim the tensor-core kernels
-do not take raises; nothing falls back.
+f32 keeps exact f32 products on the CUDA cores, any head dim that is a
+multiple of 4 up to 128: K3 ``cs_gqa_prefill_f32``, a register-blocked
+f32 tile (each thread 8 x 4 scores by outer products, an O micro-tile in
+registers) over blocks of 128 folded rows, or 64 where those would leave
+SMs idle (:func:`prefill_f32_rows`); K4 the CUDA-core tile of
+``cs_gqa_attention``, then ``cs_gqa_combine`` merges its chunks. A bf16
+head dim the tensor-core kernels do not take raises; nothing falls back.
 
 The K/V cache may be in another dtype than q (``kv_dtype``): e4m3 or
 e5m2 (the fp8 KV caches) or f16 under either query dtype, f32 under bf16
@@ -22,7 +26,9 @@ tensor-core kernel keeps each kind's own bytes in its tiles and widens
 its MMA, with warps and split by kind (:func:`decode_plan`); K3's
 widens fp8 once a block from byte stages into a bf16 tile and narrows
 f16 / f32 as each thread stores its chunks into the bf16 tile
-(``csrc/lm_attention.cu``). ``.kv_launches`` counts the calls by the
+(``csrc/lm_attention.cu``). Under f32 queries K3 lands a cache's bytes a
+tile ahead and each thread widens the chunks it copied into the f32
+tile; K4 widens each element as it fills its tile. ``.kv_launches`` counts the calls by the
 cache's dtype name, ``.fp8_launches`` those over an e4m3 or e5m2 cache.
 The plain version converts only the read window it gathers, as the JAX
 package's XLA branch does.
@@ -76,6 +82,13 @@ DECODE_TC_MAX_MT = {64: 2, 128: 2}
 DECODE_WARPS = {0: 3, 1: 4, 2: 8, 3: 8, 4: 4}
 FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
 _PLAIN_Q_CHUNK = 256        # plain version: query rows per dense block
+# K3's f32 tile: rows a block, and the weights of a wave of 128- and
+# 64-row blocks (a block's time a wave on the H100: the larger block
+# does twice the rows' work with fewer shared-memory loads an FFMA;
+# tools/torch_kernel_ab.py times both at the ingest and question
+# prefills, PERF.md)
+PREFILL_F32_ROWS = (128, 64)
+_PREFILL_F32_WAVE = {128: 20, 64: 14}
 
 
 class CacheRows(NamedTuple):
@@ -192,9 +205,10 @@ def prefill_flash_attention(
     """K3: causal GQA flash attention over a position-tagged KV region,
     the drop-in for ``causal_gqa_attention`` with validity pre-folded
     into ``eff_kv_pos``. Any T; bf16 (tensor-core tile, head dim 64 or
-    128) or f32 queries, k and v (one dtype) in f32, bf16, f16, e4m3 or
-    e5m2. With ``rows``, k and v are a [B_pool, T, Hkv, D] pool cache and
-    input row b reads its row ``rows[b]``."""
+    128) or f32 queries (the f32 tile, head dim a multiple of 4 up to
+    128), k and v (one dtype) in f32, bf16, f16, e4m3 or e5m2. With
+    ``rows``, k and v are a [B_pool, T, Hkv, D] pool cache and input row
+    b reads its row ``rows[b]``."""
     B, S, Hq, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
@@ -203,7 +217,8 @@ def prefill_flash_attention(
                                    rows)
     rows = as_cache_rows(rows, q.device)
     _check_operands(q, k, v, q_positions, eff_kv_pos, rows)
-    code, kv_code = kernels.dtype_code(q), kernels.kv_dtype_code(k)
+    kernels.dtype_code(q)        # f32 or bf16, else TypeError
+    kv_code = kernels.kv_dtype_code(k)
     tc = q.dtype == torch.bfloat16
     if tc and D not in TC_HEAD_DIMS:
         raise ValueError(f"cs_gqa_prefill_tc takes bf16 head dims "
@@ -214,27 +229,40 @@ def prefill_flash_attention(
     if B * S == 0:
         return out
     n_tiles = -(-kv_len // _TILE)
-    # per key tile its smallest eff position, and for the tensor-core tile
-    # also its largest ([2, B, n_tiles])
-    tile_pos = torch.empty(((2, B, n_tiles) if tc else (B, n_tiles)),
-                           dtype=torch.int32, device=q.device)
+    # per key tile its smallest and largest eff position ([2, B, n_tiles])
+    tile_pos = torch.empty((2, B, n_tiles), dtype=torch.int32,
+                           device=q.device)
     lib = kernels.library()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
             eff_kv_pos.data_ptr(), tile_pos.data_ptr(), out.data_ptr())
     rows_ptr = None if rows is None else rows.dev.data_ptr()
+    kernels.require_aligned(q, k, v)
     if tc:
-        kernels.require_aligned(q, k, v)
         kernels.check(lib.cs_gqa_prefill_tc(
             *ptrs, B, S, Hq, Hkv, D, T, kv_len, float(scale), kv_code,
             rows_ptr, kernels.stream_ptr(q)), "cs_gqa_prefill_tc")
         prefill_flash_attention.tc_launches += 1
     else:
-        kernels.check(lib.cs_gqa_attention(
-            *ptrs, None, None, None, B, S, Hq, Hkv, D, T, kv_len, n_tiles, 1,
-            float(scale), code, kv_code, rows_ptr, kernels.stream_ptr(q)),
-            "cs_gqa_attention")
+        block_rows = prefill_f32_rows(S * (Hq // Hkv), B, Hkv,
+                                      kernels.sm_count(q.device))
+        kernels.check(lib.cs_gqa_prefill_f32(
+            *ptrs, B, S, Hq, Hkv, D, T, kv_len, block_rows, float(scale),
+            kv_code, rows_ptr, kernels.stream_ptr(q)), "cs_gqa_prefill_f32")
     _count(prefill_flash_attention, k.dtype, rows)
     return out
+
+
+def prefill_f32_rows(R: int, B: int, Hkv: int, sms: int) -> int:
+    """Folded rows a block of K3's f32 tile for R = S * G rows per (batch,
+    kv head) on ``sms`` SMs (one block an SM): the block size whose
+    grid takes the fewest waves, each weighted by a block's time a wave
+    (``_PREFILL_F32_WAVE``); a tie goes to 128. A question prefill of a
+    few dozen tokens, whose 128-row grid would leave most SMs idle,
+    takes 64."""
+    def cost(rows):
+        blocks = -(-R // rows) * B * Hkv
+        return -(-blocks // sms) * _PREFILL_F32_WAVE[rows]
+    return min(PREFILL_F32_ROWS, key=cost)
 
 
 def decode_plan(B: int, Hkv: int, R: int, D: int, kv_len: int, sms: int,
@@ -357,7 +385,7 @@ def decode_attention(
         part_acc = torch.empty((B * Hkv, n_chunks, R, D), dtype=torch.float32,
                                device=dev)
         kernels.check(lib.cs_gqa_attention(
-            *ptrs, tile_min.data_ptr(), None, part_m.data_ptr(),
+            *ptrs, tile_min.data_ptr(), part_m.data_ptr(),
             part_l.data_ptr(), part_acc.data_ptr(), B, S, Hq, Hkv, D, T,
             kv_len, DECODE_CHUNK_TILES, n_chunks, float(scale), code,
             kv_code, rows_ptr, stream), "cs_gqa_attention")

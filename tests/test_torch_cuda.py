@@ -54,12 +54,15 @@ def test_layernorm_kernel(dev, N, H, dtype):
 @pytest.mark.parametrize("lengths,pad,D", [
     ((64, 64), 0, 72), ((50, 77, 13), 20, 72), ((130,), 0, 72),
     ((1008, 1008, 1008), 60, 72), ((300, 200), 12, 40),
-    ((300, 200), 12, 64), ((300, 200), 12, 128)])
+    ((300, 200), 12, 64), ((300, 200), 12, 128), ((300, 200), 12, 16),
+    ((1008, 1008), 24, 128), ((1008, 1008), 24, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_vision_attention_kernel(dev, lengths, pad, D, dtype):
     """K1 against its plain version: bf16 on the tensor-core tile (frames
     of 1008 straddle its 256-row blocks; D = 72 and 40 pad the Q.K^T
-    depth to 80 and 48), f32 on the CUDA-core tile; pad rows exactly 0."""
+    depth to 80 and 48), f32 on the register-blocked f32 tile (frames of
+    1008 straddle its 128-row blocks, 64-row ones at D = 128; D = 72, 40
+    and 16 pad its head dim to 80, 64 and 32); pad rows exactly 0."""
     from cogstream_tpu_torch.ops import flash_attention as fa
 
     rng = np.random.default_rng(1)
@@ -118,6 +121,38 @@ def test_segment_attention_kernel(dev, lengths, pad, D, dtype):
                                            1 / np.sqrt(D)).float()
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got, ref, atol=tol, rtol=tol)
+    assert torch.all(got[N - pad:] == 0)
+
+
+@pytest.mark.parametrize("lengths,pad,D", [((130, 70), 8, 36),
+                                           ((1008, 300), 20, 44)])
+def test_vision_attention_f32_rotates_single_pairs(dev, lengths, pad, D):
+    """K1's f32 route at head dims whose half is not a multiple of 4 (its
+    rotation pairs then move as single floats, not 16-byte chunks), held
+    to its plain version within f32 summation order (2e-5); pad rows 0.
+    (The bf16 tile takes multiples of 8 only.)"""
+    from cogstream_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(D)
+    H = 2
+    seg = np.concatenate([np.full(L, i, np.int32)
+                          for i, L in enumerate(lengths)]
+                         + [np.full(pad, -1, np.int32)])
+    N = seg.shape[0]
+    qkv = _t(rng.standard_normal((N, 3 * H * D)), dev)
+    ang = rng.uniform(0, 6, (N, D // 2))
+    cos = _t(np.cos(np.concatenate([ang, ang], 1)), dev)
+    sin = _t(np.sin(np.concatenate([ang, ang], 1)), dev)
+    lo, hi = fa.vision_kv_ranges(seg)
+    segt = _t(seg, dev, torch.int32)
+    wrap = fa.flash_attention_packed_rope_fusedqkv
+    n0 = wrap.launches
+    got = wrap(qkv, cos, sin, segt, _t(lo, dev, torch.int32),
+               _t(hi, dev, torch.int32), H)
+    assert wrap.launches == n0 + 1
+    ref = fa.flash_attention_packed_rope_plain(qkv, cos, sin, segt, H,
+                                               1 / np.sqrt(D))
+    torch.testing.assert_close(got, ref, atol=2e-5, rtol=2e-5)
     assert torch.all(got[N - pad:] == 0)
 
 
@@ -239,6 +274,60 @@ def test_prefill_kernel(dev, B, S, T, Hq, Hkv, fill, window, D, dtype):
     assert torch.all(got[:, 0] == 0)         # nothing visible → 0
 
 
+# cache kinds of K3's f32-query route
+F32_ROUTE_CACHES = [torch.float32, torch.bfloat16, torch.float16,
+                    torch.float8_e4m3fn, torch.float8_e5m2]
+
+
+@pytest.mark.parametrize("block_rows", [128, 64])
+@pytest.mark.parametrize("rows", [None, [3, 1]])
+@pytest.mark.parametrize("S", [1, 9, 32, 100, 1210, 2420])
+@pytest.mark.parametrize("D", [128, 64, 16])
+@pytest.mark.parametrize("kv_dtype", F32_ROUTE_CACHES,
+                         ids=lambda d: str(d).removeprefix("torch."))
+def test_prefill_f32_route_over_every_cache(monkeypatch, dev, kv_dtype, D,
+                                            S, rows, block_rows):
+    """K3's f32 route (cs_gqa_prefill_f32, the register-blocked f32 tile)
+    over each cache kind against its plain version on the same values,
+    within f32 summation order (2e-5), in blocks of 128 and of 64 rows
+    (``prefill_f32_rows`` pinned). Read windows of 1000 and 3400 slots
+    end in a ragged tile; slots 64..127 are all disallowed (a tile no row
+    sees) and 128..191 all visible (a tile every row but the padded and
+    the blind one sees wholly); with ``rows`` a 4-row pool is read in
+    place, bit-identical to a contiguous copy of the addressed rows. The
+    padded query row is exactly 0, and query 0 (S >= 3), which sees
+    nothing. Counted under the cache's dtype, not on the tensor cores."""
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    monkeypatch.setattr(lma, "prefill_f32_rows", lambda *a: block_rows)
+    rng = np.random.default_rng(S * 10 + D + len(rows or ()) + 5)
+    B = 1 if rows is None else len(rows)
+    T, window = (4000, 3400) if S > 1000 else (1100, 1000)
+    q, _, _, qpos, eff = _decode_case(rng, dev, B, S, 7, D, T, window, 900,
+                                      whole_tile=True)
+    q = _t(rng.standard_normal(tuple(q.shape)), dev)
+    Bk = 2 * B if rows is not None else B      # 4 pool rows with rows
+    kc = _t(rng.standard_normal((Bk, T, 2, D)), dev).to(kv_dtype)
+    vc = _t(rng.standard_normal((Bk, T, 2, D)), dev).to(kv_dtype)
+    kw = {} if rows is None else dict(rows=lma.cache_rows(rows, dev))
+    wrap = lma.prefill_flash_attention
+    name = str(kv_dtype).removeprefix("torch.")
+    n0, t0 = wrap.launches, wrap.tc_launches
+    c0 = wrap.kv_launches.get(name, 0)
+    got = wrap(q, kc, vc, qpos, eff, **kw)
+    assert (wrap.launches, wrap.tc_launches, wrap.kv_launches[name]) == (
+        n0 + 1, t0, c0 + 1)
+    ref = lma.gqa_attention_plain(q, kc, vc, qpos, eff, rows=rows)
+    torch.testing.assert_close(got, ref, atol=2e-5, rtol=2e-5)
+    if S >= 2:
+        assert torch.all(got[:, -1] == 0)
+    if S >= 3:
+        assert torch.all(got[:, 0] == 0)
+    if rows is not None:
+        assert torch.equal(got, wrap(q, kc[rows].contiguous(),
+                                     vc[rows].contiguous(), qpos, eff))
+
+
 @pytest.mark.parametrize("S,T,window,fill", [(1, 2048, 1024, 700),
                                              (4, 9000, 9000, 8000),
                                              (1, 300, 130, 100)])
@@ -255,13 +344,14 @@ def test_decode_kernel(dev, S, T, window, fill, dtype):
     torch.testing.assert_close(got, ref, atol=tol, rtol=tol)
 
 
-def _decode_case(rng, dev, B, S, G, D, T, window, fill):
+def _decode_case(rng, dev, B, S, G, D, T, window, fill, whole_tile=False):
     """A bf16 decode step over a ``window``-slot read of a T-slot cache
     holding ``fill`` history slots plus the step's S: position holes, a
     random 70% kv_allowed, the slots 64..127 all disallowed (a wholly
     masked key tile); with S >= 2 the last query is padded (-1), with
     S >= 3 query 0 sits at position 0, whose slot is disallowed, so it
-    sees nothing."""
+    sees nothing. With ``whole_tile`` the slots 128..191 hold no hole and
+    are all allowed: a key tile every other row sees wholly."""
     from cogstream_tpu_torch.ops.lm_attention import effective_kv_positions
 
     Hkv = 2
@@ -273,10 +363,15 @@ def _decode_case(rng, dev, B, S, G, D, T, window, fill):
     qpos = np.zeros((B, S), np.int32)
     for b in range(B):
         pos[b, :fill + S] = np.arange(fill + S)
-        pos[b, rng.choice(fill, 5, replace=False)] = -1
+        holes = rng.choice(fill, 5, replace=False)
+        if whole_tile:
+            holes = holes[(holes < 128) | (holes >= 192)]
+        pos[b, holes] = -1
         qpos[b] = fill + np.arange(S)
     allowed = rng.random((B, T)) > 0.3
     allowed[:, 64:128] = False
+    if whole_tile:
+        allowed[:, 128:192] = True
     if S >= 2:
         qpos[:, -1] = -1
     if S >= 3:
@@ -1341,15 +1436,12 @@ def test_kv_dtype_cache_kernels(dev, rows, kernel, S, D, q_dtype, kv_dtype):
     the same values (test_fp8_cache_kernels' cases): bf16 queries on the
     tensor-core kernels, each row within 2 bf16 ulps of its max |ref|
     (every K3 instance the kind has: e5m2 and f16 e4m3's three, f32 its
-    two 8-warp ones), f32 queries on the CUDA-core tile (2e-5); with
+    two 8-warp ones), f32 queries on the f32 tiles (2e-5); with
     ``rows``
     reading a 4-row pool, bit-identical to a contiguous copy. Counted in
     ``.kv_launches`` under the cache's dtype; the padded query outputs 0."""
     from cogstream_tpu_torch.ops import lm_attention as lma
 
-    if q_dtype == torch.float32 and D == 64:
-        pytest.skip("the f32 route has one tile for every head dim: D = 128 "
-                    "covers it")
     rng = np.random.default_rng(S * 10 + D + len(rows or ()) + 7)
     B = 1 if rows is None else len(rows)
     T, window = (4000, 3400) if S > 1000 else (1100, 1000)

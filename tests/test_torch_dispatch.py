@@ -4,7 +4,8 @@ The wrappers of K1, K3, K4 and K5 pick their kernel by operand type: bf16
 goes to the tensor-core kernels (``cs_vision_attention_tc``,
 ``cs_gqa_prefill_tc``, ``cs_gqa_decode_tc``, ``cs_segment_attention_tc``),
 f32 to the CUDA-core f32 tiles (``cs_vision_attention``,
-``cs_gqa_attention``, decode then ``cs_gqa_combine``,
+``cs_gqa_prefill_f32`` with the rows a block of ``prefill_f32_rows``,
+decode ``cs_gqa_attention`` then ``cs_gqa_combine``,
 ``cs_segment_attention``). The stacked int4 GEMVs K8/K9 reach one
 ``cs_int4_gemv_tc`` call with the split of ``stacked_plan`` and the
 per-device workspace; K6 and K10's large bf16 products one
@@ -116,20 +117,51 @@ def test_prefill_bf16_reaches_tensor_core_tile(lib, D, B, window):
     assert (wrap.launches, wrap.tc_launches) == (n0 + 1, t0 + 1)
 
 
+@pytest.mark.parametrize("D", [128, 64, 16, 72])
 @pytest.mark.parametrize("B,window", [(1, None), (2, 200)])
-def test_prefill_f32_reaches_cuda_core_tile(lib, B, window):
-    q, k, v, qpos, eff = _lm(torch.float32, B=B, window=window)
+def test_prefill_f32_reaches_cuda_core_tile(lib, B, window, D):
+    """f32 prefill: one call of cs_gqa_prefill_f32 (its own pre-pass inside)
+    with the pointers, the shape, the rows a block of ``prefill_f32_rows``
+    (64 here: 140 folded rows would leave the SMs idle at 128), the scale
+    and the cache's K/V code; a tile min / max buffer of [2, B, n_tiles]
+    (the pointer checked by size below)."""
+    q, k, v, qpos, eff = _lm(torch.float32, B=B, window=window, D=D)
     wrap = lma.prefill_flash_attention
     n0, t0 = wrap.launches, wrap.tc_launches
-    wrap(q, k, v, qpos, eff)
-    assert lib.names() == ["cs_gqa_attention"]
+    out = wrap(q, k, v, qpos, eff)
+    assert lib.names() == ["cs_gqa_prefill_f32"]
     args = lib.calls[0][1]
-    assert args[7:10] == (None, None, None)      # no partials: K3's form
-    n_tiles = -(-eff.shape[1] // 64)
-    # B, S, Hq, Hkv, D, T_cache, kv_len, chunk_tiles, n_chunks
-    assert args[10:19] == (B, 20, 28, 4, 128, 256, eff.shape[1], n_tiles, 1)
-    assert args[20] == kernels.DTYPE_CODES[torch.float32]
+    assert args[:5] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        qpos.data_ptr(), eff.data_ptr())
+    assert isinstance(args[5], int) and args[6] == out.data_ptr()
+    # B, S, Hq, Hkv, D, T_cache, kv_len, rows a block
+    rows_a_block = lma.prefill_f32_rows(20 * 7, B, 4, 132)
+    assert rows_a_block == 64
+    assert args[7:15] == (B, 20, 28, 4, D, 256, eff.shape[1], rows_a_block)
+    assert args[15] == pytest.approx(1 / math.sqrt(D))
+    assert args[16] == kernels.KV_DTYPE_CODES[torch.float32]
+    assert args[17] is None
     assert (wrap.launches, wrap.tc_launches) == (n0 + 1, t0)
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("S", [1, 9, 32, 100, 1210, 2420, 4384])
+@pytest.mark.parametrize("G,Hkv", [(7, 4), (7, 2), (1, 1)])
+def test_prefill_f32_rows_cover_every_row(S, G, Hkv, B):
+    """The rows a block of K3's f32 tile is one of its two instances, and
+    the grid the C entry launches (ceil(R / rows) blocks a batch x kv
+    head) covers every folded row with less than one block to spare; the
+    7B ingest prefill (4384 tokens, G = 7 over 4 kv heads) takes 128,
+    a 32-token question over them 64."""
+    R = S * G
+    rows = lma.prefill_f32_rows(R, B, Hkv, 132)
+    assert rows in lma.PREFILL_F32_ROWS
+    grid = -(-R // rows)
+    assert grid * rows >= R > (grid - 1) * rows
+    if (S, G, Hkv) == (4384, 7, 4):
+        assert rows == 128
+    if (S, G, Hkv, B) == (32, 7, 4, 1):
+        assert rows == 64
 
 
 @pytest.mark.parametrize("dtype", [torch.float32])
@@ -142,12 +174,12 @@ def test_decode_reaches_gqa_attention_and_combine(lib, dtype):
     lma.decode_attention(q, k, v, qpos, eff)
     assert lib.names() == ["cs_gqa_attention", "cs_gqa_combine"]
     args = lib.calls[0][1]
-    assert all(isinstance(a, int) for a in args[7:10])   # partials
+    assert all(isinstance(a, int) for a in args[6:9])   # partials
     n_tiles = -(-520 // 64)
     n_chunks = -(-n_tiles // lma.DECODE_CHUNK_TILES)
-    assert args[10:19] == (1, 3, 28, 4, 128, 600, 520,
-                           lma.DECODE_CHUNK_TILES, n_chunks)
-    assert args[20] == kernels.DTYPE_CODES[dtype]
+    assert args[9:18] == (1, 3, 28, 4, 128, 600, 520,
+                          lma.DECODE_CHUNK_TILES, n_chunks)
+    assert args[19] == kernels.DTYPE_CODES[dtype]
     assert lib.calls[1][1][4:10] == (1, 3, 28, 4, 128, n_chunks)
     assert lma.decode_attention.launches == n0 + 1
     assert lma.decode_attention.tc_launches == d0
@@ -191,7 +223,7 @@ def test_decode_bf16_reaches_tensor_core_kernel(lib, D, B, S, T, window):
 
 @pytest.mark.parametrize("kernel,dtype,entry", [
     ("K3", torch.bfloat16, "cs_gqa_prefill_tc"),
-    ("K3", torch.float32, "cs_gqa_attention"),
+    ("K3", torch.float32, "cs_gqa_prefill_f32"),
     ("K4", torch.bfloat16, "cs_gqa_decode_tc"),
     ("K4", torch.float32, "cs_gqa_attention")])
 def test_rows_reach_the_entry_point(lib, kernel, dtype, entry):
@@ -224,9 +256,9 @@ def test_rows_reach_the_entry_point(lib, kernel, dtype, entry):
 @pytest.mark.parametrize("rows", [None, [3, 1]])
 @pytest.mark.parametrize("kernel,dtype,entry,kv_arg", [
     ("K3", torch.bfloat16, "cs_gqa_prefill_tc", 15),
-    ("K3", torch.float32, "cs_gqa_attention", 21),
+    ("K3", torch.float32, "cs_gqa_prefill_f32", 16),
     ("K4", torch.bfloat16, "cs_gqa_decode_tc", 20),
-    ("K4", torch.float32, "cs_gqa_attention", 21)])
+    ("K4", torch.float32, "cs_gqa_attention", 20)])
 def test_fp8_cache_reaches_the_entry_point(lib, kernel, dtype, entry, kv_arg,
                                            rows):
     """An e4m3 cache under a bf16 or f32 query reaches the same entry point
@@ -248,7 +280,7 @@ def test_fp8_cache_reaches_the_entry_point(lib, kernel, dtype, entry, kv_arg,
     assert call[1][1:3] == (k8.data_ptr(), v8.data_ptr())
     assert call[1][kv_arg] == kernels.KV_DTYPE_CODES[torch.float8_e4m3fn]
     if entry == "cs_gqa_attention":
-        assert call[1][20] == kernels.DTYPE_CODES[torch.float32]
+        assert call[1][19] == kernels.DTYPE_CODES[torch.float32]
     assert (wrap.fp8_launches, wrap.launches) == (f0 + 1, n0 + 1)
     if entry == "cs_gqa_decode_tc":   # the e4m3 form's launch plan
         mt, _, per_split, n_splits = lma.decode_plan(B, 4, 7, 128, 256, 132,
@@ -519,9 +551,9 @@ def _wrapper_case(kernel, dtype, D=None):
 @pytest.mark.parametrize("rows", [None, [3, 1]])
 @pytest.mark.parametrize("kernel,dtype,entry,kv_arg", [
     ("K3", torch.bfloat16, "cs_gqa_prefill_tc", 15),
-    ("K3", torch.float32, "cs_gqa_attention", 21),
+    ("K3", torch.float32, "cs_gqa_prefill_f32", 16),
     ("K4", torch.bfloat16, "cs_gqa_decode_tc", 20),
-    ("K4", torch.float32, "cs_gqa_attention", 21)])
+    ("K4", torch.float32, "cs_gqa_attention", 20)])
 @pytest.mark.parametrize("kv_dtype", [torch.float8_e5m2, torch.float16,
                                       "other"])
 def test_kv_cache_dtype_reaches_the_entry_point(lib, kernel, dtype, entry,
@@ -556,7 +588,7 @@ def test_kv_cache_dtype_reaches_the_entry_point(lib, kernel, dtype, entry,
                                torch.float8_e5m2: 3,
                                torch.float16: 4}[kv_dtype]
     if entry == "cs_gqa_attention":
-        assert call[1][20] == kernels.DTYPE_CODES[torch.float32]
+        assert call[1][19] == kernels.DTYPE_CODES[torch.float32]
     fp8 = kv_dtype == torch.float8_e5m2
     assert (wrap.fp8_launches, wrap.launches) == (f0 + fp8, n0 + 1)
     assert wrap.kv_launches[name] == c0 + 1

@@ -26,6 +26,16 @@ bit for bit between the checkouts and gives, in this checkout, each f16 /
 f32 time over its rounded bf16 twin's (best against best). Each checkout
 builds its own kernels into its own ``build/kernels``.
 
+Then the f32-query routes on f32 values (:func:`time_f32_routes`): K1
+and K5 on those shapes in f32, K3 at phase 3's 4384-token prefill (with
+position holes and kv_allowed) over an f32 cache and over the same values
+in bf16, f16, e4m3 and e5m2, K3 at a 32-token question over a 9216-slot
+window, K4 at one step over that window (a CUDA graph), each hashed; in a
+checkout that picks K3's f32 rows a block, K3 f32 at the ingest and the
+question with each block size pinned. The summary gives each f32 route's
+time in this checkout over the other's and K3 f32's time over a bf16
+cache over its time over the f32 cache.
+
 Last, one JSON line names the kernels whose SASS is the same in both
 checkouts' libraries and those whose SASS differs (``cuobjdump -sass``,
 encodings and label numbers dropped).
@@ -114,7 +124,107 @@ def time_one(root: str) -> dict:
         k5 = ms(lambda: fa.segment_flash_attention(q, k, v, seg, ranges))
     out = {"root": root, "K1_ms": k1, "K5_ms": k5}
     out.update(time_lm_attention(rng, dev, ms))
+    out.update(time_f32_routes(dev, ms, args, q, k, v, seg, ranges))
     out["card"] = torch.cuda.get_device_name(0)
+    return out
+
+
+def sha(t) -> str:
+    """Hash of a tensor's bytes (f32 or bf16)."""
+    import torch
+
+    return hashlib.sha1(t.contiguous().view(torch.int16).cpu().numpy()
+                        .tobytes()).hexdigest()
+
+
+def time_f32_routes(dev, ms, k1_args, q, k, v, seg, ranges) -> dict:
+    """The f32-query routes on f32 values: K1 (the 16-frame segment of
+    time_one in f32), K5 (its [16128, 16, 72] operands in f32), K3 (a
+    4384-token prefill over 4607 history slots with 300 position holes
+    and a 70% kv_allowed, phase 3's case; then over the same values in a
+    bf16, f16, e4m3 and e5m2 cache; and a 32-token question over a
+    9216-slot window holding 9000), K4 (one step over that window, 50
+    calls in a CUDA graph). Where the checkout picks K3's f32 rows a block
+    (``prefill_f32_rows``), also K3 f32 at the ingest and the question
+    with each block size pinned."""
+    import numpy as np
+    import torch
+
+    from cogstream_tpu_torch.ops import flash_attention as fa
+    from cogstream_tpu_torch.ops import lm_attention as lma
+
+    rng = np.random.default_rng(7)
+    out = {}
+    f32 = torch.float32
+    H = 16
+    qkv32 = k1_args[0].float()
+    runs = {"K1f32": lambda: fa.flash_attention_packed_rope_fusedqkv(
+        qkv32, *k1_args[1:], H)}
+    q5, k5, v5 = q.float(), k.float(), v.float()
+    runs["K5f32"] = lambda: fa.segment_flash_attention(q5, k5, v5, seg,
+                                                       ranges)
+    T, Hq, Hkv, D = 16384, 28, 4, 128
+
+    def case(S, hist, W=T):
+        pos = np.full((1, T), -1, np.int32)
+        pos[0, :hist + S] = np.arange(hist + S)
+        pos[0, rng.choice(hist, 300, replace=False)] = -1
+        allowed = rng.random((1, T)) > 0.3
+        allowed[0, hist:] = True
+        eff = lma.effective_kv_positions(
+            torch.as_tensor(pos).to(dev),
+            torch.as_tensor(allowed).to(dev))[:, :W].contiguous()
+        qq = torch.as_tensor(rng.standard_normal((1, S, Hq, D)),
+                             dtype=f32).to(dev)
+        qp = torch.arange(hist, hist + S, dtype=torch.int32,
+                          device=dev)[None]
+        return qq, qp, eff
+
+    kc = torch.as_tensor(rng.standard_normal((1, T, Hkv, D)),
+                         dtype=f32).to(dev)
+    vc = torch.as_tensor(rng.standard_normal((1, T, Hkv, D)),
+                         dtype=f32).to(dev)
+    ingest, question, step = case(4384, 4607), case(32, 9000, 9216), case(
+        1, 9000, 9216)
+    pf = lma.prefill_flash_attention
+    runs["K3f32"] = lambda: pf(ingest[0], kc, vc, *ingest[1:])
+    for name, dt in (("bf16", torch.bfloat16), ("f16", torch.float16),
+                     ("e4m3", torch.float8_e4m3fn),
+                     ("e5m2", torch.float8_e5m2)):
+        kn, vn = kc.to(dt), vc.to(dt)
+        runs[f"K3f32_{name}kv"] = (lambda kn=kn, vn=vn: pf(
+            ingest[0], kn, vn, *ingest[1:]))
+    runs["K3f32s32"] = lambda: pf(question[0], kc, vc, *question[1:])
+    with torch.no_grad():
+        for name, fn in runs.items():
+            out[f"{name}_sha"] = sha(fn())
+            out[f"{name}_ms"] = ms(fn)
+    out["K4f32_sha"] = sha(lma.decode_attention(step[0], kc, vc, *step[1:]))
+    g = torch.cuda.CUDAGraph()
+    lma.decode_attention(step[0], kc, vc, *step[1:])
+    torch.cuda.synchronize()
+    with torch.cuda.graph(g):
+        for _ in range(50):
+            lma.decode_attention(step[0], kc, vc, *step[1:])
+    best = float("inf")
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        torch.cuda.synchronize()
+        best = min(best, a.elapsed_time(b) / 50)
+    out["K4f32_ms"] = best
+    plan = getattr(lma, "prefill_f32_rows", None)
+    if plan is not None:   # each block size pinned
+        try:
+            for rows in lma.PREFILL_F32_ROWS:
+                lma.prefill_f32_rows = lambda *a, rows=rows: rows
+                out[f"K3f32_rows{rows}_ms"] = ms(runs["K3f32"])
+                out[f"K3f32s32_rows{rows}_ms"] = ms(runs["K3f32s32"])
+        finally:
+            lma.prefill_f32_rows = plan
     return out
 
 
@@ -490,6 +600,15 @@ def main() -> int:
                for tag, got in runs.items() for key in keys}
     best = {tag: min(x["K1_ms"] for x in got) for tag, got in runs.items()}
     summary["K1_this_over_other"] = best["this"] / best["other"]
+    for key in keys:      # this checkout over the other, best against best
+        if key.startswith(("K1f32", "K3f32", "K4f32", "K5f32")):
+            summary[key.replace("_ms", "_this_over_other")] = min(
+                x[key] for x in runs["this"]) / min(
+                x[key] for x in runs["other"])
+    if "K3f32_bf16kv_ms" in runs["this"][0]:   # K3 f32 over a bf16 cache
+        summary["K3f32_bf16kv_over_f32kv"] = min(
+            x["K3f32_bf16kv_ms"] for x in runs["this"]) / min(
+            x["K3f32_ms"] for x in runs["this"])
     for key in keys:      # this checkout's f16 / f32 over the rounded twin
         for kind in ("f16", "f32"):
             twin = key.replace(f"_{kind}_ms", f"_bf16_of_{kind}_ms")
